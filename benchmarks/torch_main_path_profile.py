@@ -4,7 +4,7 @@ Runs ``chip_smoke.phase3`` — llama2-7b at full width, bf16, one P and one
 D engine on one GPU, 8 requests of 256-2048 prompt tokens and 32 greedy
 output tokens, 500-token streamed prefill chunks — under
 ``torch.profiler`` (CPU + CUDA activity) around the serving loop only,
-and prints one JSON line: device time by kernel family (the port's three
+and prints one JSON line: device time by kernel family (the port's
 kernels, matrix products, copies, everything else), the top kernels by
 name, and the device's idle share of the serving wall time.
 
@@ -22,17 +22,23 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
+# first match wins: the overlay is scatter_kernel<..., true>, the plain
+# scatter scatter_kernel<..., false>
 FAMILIES = (("flash_attention", ("flash_fwd_kernel",)),
             ("paged_attention", ("paged_decode_kernel",)),
-            ("scatter_pages_overlay", ("overlay_kernel",)),
+            ("scatter_pages_overlay", ("scatter_kernel<", "true>")),
+            ("scatter_pages", ("scatter_kernel<",)),
+            ("gather_pages", ("gather_kernel<",)),
             ("matmul", ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")),
             ("copy", ("memcpy", "memset")))
+ANY_OF = {"matmul", "copy"}          # families matched by any one key
 
 
 def family(name: str) -> str:
     low = name.lower()
     for fam, keys in FAMILIES:
-        if any(k in low for k in keys):
+        hit = any if fam in ANY_OF else all
+        if hit(k in low for k in keys):
             return fam
     return "other"
 

@@ -4,15 +4,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, then runs four phases, each printing one JSON line:
+nvcc, then runs five phases, each printing JSON lines:
 
   0. card: name and power limit (``nvidia-smi``), kernel build time;
   1. every kernel against its plain PyTorch version on the card, over the
      JAX test-suite sweep shapes and the main path's llama2-7b shapes
      (float32 within 2e-5; bfloat16 within 2e-2 at the sweep shapes and
      within one rounding step per element at the main path's; the
-     re-page bit for bit), then each kernel's time, its plain version's
-     time, a library
+     re-page, gather, scatter and repack bit for bit, the last three also
+     at the prefix cache's copy-on-write shape and the full-width Fig. 3
+     shape), then each kernel's time, its plain version's time, a library
      call's time where one computes the same function, and the least time
      the card could take (bytes over 3.35 TB/s or operations over the
      dense peak of the dtype, whichever is larger);
@@ -25,10 +26,22 @@ nvcc, then runs four phases, each printing one JSON line:
      seed, one P engine (block 16, nhbd, TP 2) and one D engine (block 32,
      nbhd, TP 1) on the card behind GlobalScheduler with 500-token
      streamed prefill chunks over a raw bf16 wire; 8 requests with
-     prompts of 256-2048 tokens and 32 greedy output tokens each. Every
-     kernel must have launched during this phase (counts reset just
-     before it), and each request's last token must agree with a
-     monolithic prefill of its prompt and output.
+     prompts of 256-2048 tokens and 32 greedy output tokens each. The
+     flash, paged and overlay kernels must have launched during this
+     phase, and each request's last token must agree with a monolithic
+     prefill of its prompt and output;
+  4. the prefix-cache path: the same model and vendors with the cache on
+     both engines; a 1000-token system prompt shared by 8 requests with
+     unique 64-512-token tails, request 0 served alone, then the other 7
+     together. Each cached request skips the 1000 tokens on the wire, P
+     replays them from its host store, and D copies the divergence page
+     with the repack kernel (gather then scatter). Checks as in phase 3,
+     plus the hit counts and >= 14 launches each of gather_pages,
+     scatter_pages and repack; then the same schedule cold, for the
+     comparison it prints.
+
+Each phase requires launches of exactly the kernels its path runs (counts
+reset just before its serving loop).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the script exits non-zero. Without a CUDA device, or without
@@ -72,6 +85,11 @@ P_VENDOR = dict(name="vendorP", block_size=16, layout="nhbd",
 D_VENDOR = dict(name="vendorD", block_size=32, layout="nbhd",
                 kv_dtype="bfloat16", tp=1)
 LOGIT_SLACK = 0.25    # bf16 noise between the decoded and prefilled logits
+# phase 4: the prefix-cache path. 1000 = 2 chunks, so cached and cold runs
+# cut the same chunks; 1000 = 31*32 + 8 on D and 62*16 + 8 on P, so every
+# hit ends in a copy-on-write of an 8-row page
+PREFIX_LEN, TAIL_RANGE = 1000, (64, 512)
+HOST_STORE_BYTES = 4 << 30   # P's host prefix store (host memory)
 
 
 def emit(obj) -> None:
@@ -220,6 +238,177 @@ def _overlay_case(gen, dev, layout, pool_dt, canon_dt, layers, bs, kv, hd,
     return 0.0, (spec, pool, ids, canon)
 
 
+def _pages_case(gen, dev, kind, layout, pool_dt, other_dt, layers, bs, kv,
+                hd, n_blocks, ids):
+    """gather_pages (``other_dt`` is the output dtype) or scatter_pages
+    (``other_dt`` is the canonical input's) against its plain version,
+    bit for bit. Returns the inputs."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving.paged_cache import KVPageSpec
+    spec = KVPageSpec(bs, layout, pool_dt, kv, hd)
+    pool = _rand(gen, (layers,) + spec.pool_shape(n_blocks),
+                 getattr(torch, pool_dt), dev)
+    ids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    if kind == "gather":
+        dt = getattr(torch, other_dt)
+        got = ops.gather_pages(spec, pool, ids, out_dtype=dt)
+        want = ref.gather_pages_ref(spec, pool, ids, out_dtype=dt)
+        args = (spec, pool, ids, dt)
+    else:
+        canon = _rand(gen, (layers, len(ids), bs, kv, hd),
+                      getattr(torch, other_dt), dev)
+        want = ref.scatter_pages_ref(spec, pool.clone(), ids, canon)
+        got = ops.scatter_pages(spec, pool, ids, canon)
+        args = (spec, pool, ids, canon)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{kind}_pages {layout} pool {pool_dt} "
+                             f"other {other_dt} {layers} layers bs {bs}: "
+                             "differs from its plain version")
+    return args
+
+
+def _repack_case(gen, dev, src_layout, dst_layout, src_bs, dst_bs, src_dt,
+                 dst_dt, layers, kv, hd, seq):
+    """repack against its plain version, bit for bit, over unsorted pages
+    of a dst pool that starts non-zero. Returns the inputs."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving.paged_cache import KVPageSpec
+    src = KVPageSpec(src_bs, src_layout, src_dt, kv, hd)
+    dst = KVPageSpec(dst_bs, dst_layout, dst_dt, kv, hd)
+    nb_s, nb_d = src.blocks_for(seq), dst.blocks_for(seq)
+    src_pool = _rand(gen, (layers,) + src.pool_shape(nb_s + 2),
+                     src.tdtype, dev)
+    dst_pool = _rand(gen, (layers,) + dst.pool_shape(nb_d + 2),
+                     dst.tdtype, dev)
+    src_ids = (torch.randperm(nb_s + 1, generator=gen, device=dev)[:nb_s]
+               + 1).to(torch.int32)
+    dst_ids = (torch.randperm(nb_d + 1, generator=gen, device=dev)[:nb_d]
+               + 1).to(torch.int32)
+    want = ref.repack_ref(src, dst, src_pool, src_ids, dst_pool.clone(),
+                          dst_ids, seq)
+    got = ops.repack(src, dst, src_pool, src_ids, dst_pool, dst_ids, seq)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"repack {src_layout}/{src_bs}/{src_dt} -> "
+                             f"{dst_layout}/{dst_bs}/{dst_dt} {layers} layers "
+                             f"seq {seq}: differs from its plain version")
+    return src, dst, src_pool, src_ids, dst_pool, dst_ids
+
+
+DTYPE_PAIRS = (("float32", "float32"), ("bfloat16", "bfloat16"),
+               ("bfloat16", "float32"), ("float32", "bfloat16"))
+
+
+def phase1_pages(gen, dev, cfg):
+    """gather_pages, scatter_pages and repack against their plain
+    versions (bit for bit): tests/test_kernels.py's sweep shapes with a
+    layer axis and every dtype pair, the prefix cache's copy-on-write
+    shape (one page of llama2-7b's pool, 32 layers, block 32, nbhd, bf16)
+    and the full-width Fig. 3 shape (2048 tokens, 32 layers, nhbd block 16
+    -> nbhd block 32, bf16). Then each kernel's timings at the COW shape
+    (the main path's), and repack's at the Fig. 3 shape."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    counts = {"gather_pages": 0, "scatter_pages": 0, "repack": 0}
+    for layout in ("nbhd", "nhbd", "nhdb"):
+        for pool_dt, other_dt in DTYPE_PAIRS:
+            for kind in ("gather", "scatter"):
+                _pages_case(gen, dev, kind, layout, pool_dt, other_dt, 2, 8,
+                            4, 16, 10, [3, 1, 7])
+                counts[f"{kind}_pages"] += 1
+    for src_l, dst_l, src_bs, dst_bs in (("nbhd", "nhbd", 8, 4),
+                                         ("nhdb", "nbhd", 4, 16),
+                                         ("nhbd", "nhdb", 16, 8)):
+        for src_dt, dst_dt in DTYPE_PAIRS:
+            _repack_case(gen, dev, src_l, dst_l, src_bs, dst_bs, src_dt,
+                         dst_dt, 2, 2, 16, 27)
+            counts["repack"] += 1
+    layers, kv, hd, bs = cfg.num_layers, cfg.num_kv_heads, cfg.hd, 32
+    cow = {}
+    for kind in ("gather", "scatter"):
+        cow[kind] = _pages_case(gen, dev, kind, "nbhd", "bfloat16",
+                                "bfloat16", layers, bs, kv, hd, 9, [6])
+        counts[f"{kind}_pages"] += 1
+    spec, pool, _, _ = cow["scatter"]
+    ids = torch.tensor([6, 2], dtype=torch.int32, device=dev)
+    want = ref.repack_ref(spec, spec, pool, ids[:1], pool.clone(), ids[1:],
+                          bs)
+    ops.repack(spec, spec, pool, ids[:1], pool, ids[1:], bs)
+    torch.cuda.synchronize()
+    if not torch.equal(pool, want):
+        raise AssertionError("repack at the COW shape differs from its "
+                             "plain version")
+    counts["repack"] += 1
+    fig3 = _repack_case(gen, dev, "nhbd", "nbhd", 16, 32, "bfloat16",
+                        "bfloat16", layers, kv, hd, 2048)
+    counts["repack"] += 1
+    emit({"phase": 1, "pages_checks": counts, "pages": "bit-identical"})
+
+    # timings at the COW shape: one 32-row page of every layer
+    page_bytes = 2.0 * layers * bs * kv * hd          # one pool page, bf16
+    b_ms, b_by = bound(0.0, 2 * page_bytes, "bfloat16")
+    timings = {}
+    g_spec, g_pool, g_ids, g_dt = cow["gather"]
+    timings["gather_pages"] = dict(
+        shape=f"1 page of pool ({layers},9,{bs},{kv},{hd}) nbhd bf16 -> "
+              f"canon ({layers},1,{bs},{kv},{hd})",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: ops.gather_pages(g_spec, g_pool, g_ids, g_dt)),
+        plain_ms=time_ms(lambda: ref.gather_pages_ref(g_spec, g_pool, g_ids,
+                                                      g_dt)),
+        library_ms=time_ms(lambda: g_pool.index_select(1, g_ids.long())
+                           .contiguous()),
+        bound_ms=b_ms, bound_by=b_by)
+    s_spec, s_pool, s_ids, s_canon = cow["scatter"]
+    s_long = s_ids.long()
+    timings["scatter_pages"] = dict(
+        shape=f"canon ({layers},1,{bs},{kv},{hd}) -> 1 page of pool "
+              f"({layers},9,{bs},{kv},{hd}) nbhd bf16",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: ops.scatter_pages(s_spec, s_pool, s_ids,
+                                             s_canon)),
+        plain_ms=time_ms(lambda: ref.scatter_pages_ref(s_spec, s_pool, s_ids,
+                                                       s_canon)),
+        library_ms=time_ms(lambda: s_pool.index_copy_(1, s_long, s_canon)),
+        bound_ms=b_ms, bound_by=b_by)
+    src_l, dst_l = ids[:1].long(), ids[1:].long()
+    timings["repack"] = dict(
+        shape=f"COW: page 6 -> page 2 of pool ({layers},9,{bs},{kv},{hd}) "
+              "nbhd bf16, in place",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: ops.repack(spec, spec, pool, ids[:1], pool,
+                                      ids[1:], bs)),
+        plain_ms=time_ms(lambda: ref.repack_ref(spec, spec, pool, ids[:1],
+                                                pool, ids[1:], bs)),
+        library_ms=time_ms(lambda: pool.index_copy_(
+            1, dst_l, pool.index_select(1, src_l))),
+        bound_ms=b_ms, bound_by=b_by)
+    # the paper's Fig. 3 at full width: 512 MiB in and out per pool
+    src, dst, src_pool, src_ids, dst_pool, dst_ids = fig3
+    nbytes = 2.0 * 2 * layers * 2048 * kv * hd
+    f_ms, f_by = bound(0.0, nbytes, "bfloat16")
+    perm = (0, 1, 3, 2, 4)          # nhbd page (kv, bs, hd) -> (bs, kv, hd)
+
+    def fig3_library():
+        canon = src_pool.index_select(1, src_ids.long()).permute(
+            perm).contiguous().view(layers, -1, 32, kv, hd)
+        dst_pool.index_copy_(1, dst_ids.long(), canon)
+
+    emit({"phase": 1, "extra": "repack at the Fig. 3 shape",
+          "shape": f"2048 tokens, {layers} layers, nhbd bs16 -> nbhd bs32, "
+                   "bf16",
+          "ms": time_ms(lambda: ops.repack(src, dst, src_pool, src_ids,
+                                           dst_pool, dst_ids, 2048)),
+          "plain_ms": time_ms(lambda: ref.repack_ref(
+              src, dst, src_pool, src_ids, dst_pool, dst_ids, 2048), 5),
+          "library_ms": time_ms(fig3_library),
+          "bound_ms": f_ms, "bound_by": f_by})
+    return timings
+
+
 def phase1(dev):
     import torch
     import torch.nn.functional as F
@@ -348,6 +537,8 @@ def phase1(dev):
         plain_ms=time_ms(lambda: ref.scatter_pages_overlay_ref(
             spec, pool, ids, canon, front=20, seq_len=500), 5),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    from repro_torch.configs import get_config
+    timings.update(phase1_pages(gen, dev, get_config(MODEL)))
     for name, t in timings.items():
         emit({"phase": 1, "timing": name, **t})
     return timings
@@ -451,9 +642,57 @@ def phase2(dev):
 # --------------------------------------------------------------------------- #
 # phase 3: the main path at full width
 # --------------------------------------------------------------------------- #
-def phase3(dev, around_serve=contextlib.nullcontext):
+PHASE3_KERNELS = {"flash_attention", "paged_attention",
+                  "scatter_pages_overlay"}
+PHASE4_KERNELS = PHASE3_KERNELS | {"gather_pages", "scatter_pages", "repack"}
+
+
+def check_launched(phase: int, launches, expected) -> None:
+    """The path launched exactly the kernels it runs, each at least once."""
+    launched = {k for k, n in launches.items() if n > 0}
+    if launched != set(expected):
+        raise AssertionError(f"phase {phase}: kernels launched {launched}, "
+                             f"the path runs {set(expected)}")
+
+
+def last_token_gap(cfg, params, dev, reqs) -> float:
+    """Each request's last token against a monolithic prefill of prompt +
+    output[:-1]: the decoded token must be (within bf16 noise) the
+    prefill's top choice, and the logits finite. Returns the worst gap."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    worst = 0.0
+    for r in reqs:
+        seq = np.concatenate([r.prompt, np.asarray(r.output_tokens[:-1],
+                                                   np.int32)])
+        toks = torch.as_tensor(seq, device=dev)[None]
+        last, _ = M.prefill(params, cfg, {"tokens": toks},
+                            M.init_caches(cfg, 1, len(seq), device=dev))
+        last = last[0].float()
+        if not bool(torch.isfinite(last).all()):
+            raise AssertionError(f"{r.req_id}: non-finite logits")
+        gap = float(last.max() - last[r.output_tokens[-1]])
+        worst = max(worst, gap)
+        if gap > LOGIT_SLACK:
+            raise AssertionError(f"{r.req_id}: decoded token {r.output_tokens[-1]}"
+                                 f" is {gap} below the prefill's best logit")
+    return worst
+
+
+def check_outputs(cfg, reqs) -> None:
+    for r in reqs:
+        if len(r.output_tokens) != MAX_NEW or r.state.value != "finished":
+            raise AssertionError(f"{r.req_id}: {len(r.output_tokens)} tokens, "
+                                 f"state {r.state}")
+        if not all(0 <= t < cfg.vocab_size for t in r.output_tokens):
+            raise AssertionError(f"{r.req_id}: token out of range")
+
+
+def phase3(dev, around_serve=contextlib.nullcontext, params=None):
     """``around_serve``: a context manager entered around the serving loop
-    only (a profiler, say), not around set-up or the checks."""
+    only (a profiler, say), not around set-up or the checks. ``params``:
+    llama2-7b's weights, made from SEED when not given."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -470,7 +709,8 @@ def phase3(dev, around_serve=contextlib.nullcontext):
     cfg = get_config(MODEL)
     p_vendor, d_vendor = VendorProfile(**P_VENDOR), VendorProfile(**D_VENDOR)
     t0 = time.perf_counter()
-    params = M.init_params(cfg, seed=SEED, device=dev)
+    if params is None:
+        params = M.init_params(cfg, seed=SEED, device=dev)
     rng = np.random.default_rng(SEED)
     lens = rng.integers(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, N_REQUESTS)
     max_seq = PROMPT_RANGE[1] + MAX_NEW
@@ -496,35 +736,10 @@ def phase3(dev, around_serve=contextlib.nullcontext):
         result = Server(sched).serve(reqs, max_ticks=100_000)
     launches = ops.launch_counts()
 
-    for r in reqs:
-        if len(r.output_tokens) != MAX_NEW or r.state.value != "finished":
-            raise AssertionError(f"{r.req_id}: {len(r.output_tokens)} tokens, "
-                                 f"state {r.state}")
-        if not all(0 <= t < cfg.vocab_size for t in r.output_tokens):
-            raise AssertionError(f"{r.req_id}: token out of range")
+    check_outputs(cfg, reqs)
     if dev.type == "cuda":
-        missing = [k for k, n in launches.items() if n <= 0]
-        if missing:
-            raise AssertionError(f"kernels never launched on the main path: "
-                                 f"{missing}")
-    # each request's last token against a monolithic prefill of
-    # prompt + output[:-1]: the decoded token must be (within bf16 noise)
-    # the prefill's top choice, and the logits finite
-    worst = 0.0
-    for r in reqs:
-        seq = np.concatenate([r.prompt, np.asarray(r.output_tokens[:-1],
-                                                   np.int32)])
-        toks = torch.as_tensor(seq, device=dev)[None]
-        last, _ = M.prefill(params, cfg, {"tokens": toks},
-                            M.init_caches(cfg, 1, len(seq), device=dev))
-        last = last[0].float()
-        if not bool(torch.isfinite(last).all()):
-            raise AssertionError(f"{r.req_id}: non-finite logits")
-        gap = float(last.max() - last[r.output_tokens[-1]])
-        worst = max(worst, gap)
-        if gap > LOGIT_SLACK:
-            raise AssertionError(f"{r.req_id}: decoded token {r.output_tokens[-1]}"
-                                 f" is {gap} below the prefill's best logit")
+        check_launched(3, launches, PHASE3_KERNELS)
+    worst = last_token_gap(cfg, params, dev, reqs)
     ttft = result.ttft()
     tpot = result.tpot()
     out = {"phase": 3, "model": cfg.name, "layers": cfg.num_layers,
@@ -553,13 +768,160 @@ def phase3(dev, around_serve=contextlib.nullcontext):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 4: the prefix-cache path at full width
+# --------------------------------------------------------------------------- #
+def serve_prefix_schedule(cfg, params, dev, prompts, prefix_cache: bool):
+    """Serve request 0 alone, then the rest together, on fresh P and D
+    engines (phase 3's vendors), with or without the prefix cache. Each
+    batch gets its own GlobalScheduler over the same engines and pipeline
+    (``Server.serve`` waits on its scheduler's running total of finished
+    requests). Returns the requests, metrics and the launches counted
+    over both batches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.compat.precision import WireFormat
+    from repro_torch.core.disagg import DisaggPipeline
+    from repro_torch.core.kv_transfer import TransferEngine
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine, VendorProfile
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import GlobalScheduler
+    from repro_torch.serving.server import ServeResult, Server
+
+    max_seq = max(len(p) for p in prompts) + MAX_NEW
+    d_vendor = VendorProfile(**D_VENDOR)
+    d_blocks = len(prompts) * -(-max_seq // d_vendor.block_size) + 1
+    p_eng = Engine("P0", cfg, params, VendorProfile(**P_VENDOR), num_blocks=2,
+                   max_batch=1, max_seq_len=max_seq, role="prefill",
+                   prefix_cache=prefix_cache, device=dev)
+    d_eng = Engine("D0", cfg, params, d_vendor, num_blocks=d_blocks,
+                   max_batch=len(prompts), max_seq_len=max_seq,
+                   role="decode", prefix_cache=prefix_cache, device=dev)
+    copies = {"host_insert_s": 0.0, "cow_copies": 0, "cow_s": 0.0}
+    host = p_eng.host_prefix_store
+    if host is not None:
+        # the default 256 MiB holds 32 P blocks (512 tokens) at llama2-7b
+        # width: LRU would evict the prompt's own head blocks
+        host.capacity_bytes = HOST_STORE_BYTES
+        insert = host.insert_prompt
+
+        def timed_insert(*args):                  # device -> host copies
+            torch.cuda.synchronize()              # not the queued prefill
+            t = time.perf_counter()
+            n = insert(*args)
+            copies["host_insert_s"] += time.perf_counter() - t
+            return n
+
+        host.insert_prompt = timed_insert
+        copy_block = d_eng._copy_block
+
+        def timed_copy(src, dst):                 # the COW repack pair
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            copy_block(src, dst)
+            torch.cuda.synchronize()
+            copies["cow_s"] += time.perf_counter() - t
+            copies["cow_copies"] += 1
+
+        d_eng._copy_block = timed_copy
+    pipe = DisaggPipeline(TransferEngine(), WireFormat("raw", "bfloat16"))
+    reqs = [Request(f"req{i}", p, MAX_NEW) for i, p in enumerate(prompts)]
+    walls = []
+    ops.reset_launch_counts()
+    for batch in (reqs[:1], reqs[1:]):
+        sched = GlobalScheduler(pipe, prefill_chunk=PREFILL_CHUNK, device=dev)
+        sched.add_instance(p_eng)
+        sched.add_instance(d_eng)
+        walls.append(Server(sched).serve(batch, max_ticks=100_000)
+                     .wall_seconds)
+    launches = ops.launch_counts()
+    result = ServeResult(reqs, sum(walls))
+    ttft, tpot = result.ttft(), result.tpot()
+    tr = pipe.transfer.stats
+    out = {"ttft_p50_s": float(np.percentile(ttft, 50)),
+           "ttft_max_s": float(ttft.max()),
+           "tpot_p50_s": float(np.percentile(tpot, 50)),
+           "output_tok_s": result.throughput_tok_s(),
+           "wall_s": result.wall_seconds, "wire_bytes": tr.bytes_moved,
+           "prefill_tokens": p_eng.stats.prefill_tokens,
+           "prefill_s": p_eng.stats.prefill_seconds,
+           "decode_s": d_eng.stats.decode_seconds,
+           "prefix_hit_tokens": tr.prefix_hit_tokens,
+           "bytes_saved": tr.bytes_saved,
+           "prefix_cached_tokens": p_eng.stats.prefix_cached_tokens,
+           "host_store_bytes": host.nbytes if host is not None else 0,
+           "d_store_hit_tokens": (d_eng.prefix_store.hit_tokens
+                                  if d_eng.prefix_store is not None else 0),
+           **copies}
+    if host is not None and copies["host_insert_s"] > 0:
+        out["host_insert_gb_s"] = host.nbytes / copies["host_insert_s"] / 1e9
+    return reqs, out, launches
+
+
+def phase4(dev, params):
+    """llama2-7b at full width with the prefix cache on both engines: one
+    PREFIX_LEN-token system prompt shared by N_REQUESTS requests with
+    unique tails, cached against cold."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MODEL)
+    rng = np.random.default_rng(SEED)
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN).astype(np.int32)
+    tails = rng.integers(TAIL_RANGE[0], TAIL_RANGE[1] + 1, N_REQUESTS)
+    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, int(n))
+                               .astype(np.int32)]) for n in tails]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reqs, cached, launches = serve_prefix_schedule(cfg, params, dev, prompts,
+                                                   True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_outputs(cfg, reqs)
+    check_launched(4, launches, PHASE4_KERNELS)
+    hits = N_REQUESTS - 1
+    want = {"prefix_hit_tokens": hits * PREFIX_LEN,
+            "d_store_hit_tokens": hits * PREFIX_LEN,
+            "prefix_cached_tokens": hits * (PREFIX_LEN // P_VENDOR[
+                "block_size"] * P_VENDOR["block_size"])}
+    for key, least in want.items():
+        if cached[key] < least:
+            raise AssertionError(f"phase 4: {key} {cached[key]} < {least}")
+    for name in ("gather_pages", "scatter_pages", "repack"):
+        if launches[name] < 2 * hits:          # one COW per pool per request
+            raise AssertionError(f"phase 4: {name} launched "
+                                 f"{launches[name]} < {2 * hits} times")
+    worst = last_token_gap(cfg, params, dev, reqs)
+    torch.cuda.empty_cache()
+    cold_reqs, cold, _ = serve_prefix_schedule(cfg, params, dev, prompts,
+                                               False)
+    check_outputs(cfg, cold_reqs)
+    same = sum(a.output_tokens == b.output_tokens
+               for a, b in zip(reqs, cold_reqs))
+    out = {"phase": 4, "model": cfg.name, "layers": cfg.num_layers,
+           "dtype": cfg.compute_dtype, "prefix_len": PREFIX_LEN,
+           "tail_lens": [int(x) for x in tails], "max_new_tokens": MAX_NEW,
+           "prefill_chunk": PREFILL_CHUNK, "cached": cached, "cold": cold,
+           "launches": launches, "tokens_identical_to_cold": same,
+           "last_token_logit_gap_max": worst, "peak_mem_gib": peak}
+    emit(out)
+    return out
+
+
 KERNELS = [
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-     "src/repro/kernels/flash_attention.py:78"),
+     "src/repro/kernels/flash_attention.py:78", 3),
     ("paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
-     "src/repro/kernels/paged_attention.py:81"),
+     "src/repro/kernels/paged_attention.py:81", 3),
     ("scatter_pages_overlay", "src/repro_torch/kernels/csrc/kv_repack.cu",
-     "src/repro/kernels/kv_repack.py:115"),
+     "src/repro/kernels/kv_repack.py:115", 3),
+    ("gather_pages", "src/repro_torch/kernels/csrc/kv_repack.cu",
+     "src/repro/kernels/kv_repack.py:45", 4),
+    ("scatter_pages", "src/repro_torch/kernels/csrc/kv_repack.cu",
+     "src/repro/kernels/kv_repack.py:75", 4),
+    ("repack", "src/repro_torch/kernels/kv_repack.py",
+     "src/repro/kernels/kv_repack.py:154", 4),
 ]
 
 
@@ -582,22 +944,30 @@ def main() -> int:
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
 
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
     smi = phase0()
     timings = phase1(dev)
     phase2(dev)
     torch.cuda.empty_cache()
-    main_path = phase3(dev)
+    params = M.init_params(get_config(MODEL), seed=SEED, device=dev)
+    paths = {3: phase3(dev, params=params)}
+    torch.cuda.empty_cache()
+    paths[4] = phase4(dev, params)
 
     rows = []
-    for name, source, replaces in KERNELS:
+    for name, source, replaces, phase in KERNELS:
         t = timings[name]
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces,
-                     "launches": main_path["launches"][name],
-                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces,
+               "launches": paths[phase]["launches"][name],
+               "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if name == "repack":
+            row["composition"] = "gather_pages + scatter_pages"
+        rows.append(row)
     print(smi, flush=True)
     emit({"total_s": round(time.perf_counter() - t_start, 3)})
     emit({"kernels": rows})

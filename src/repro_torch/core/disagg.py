@@ -12,6 +12,9 @@ layout. Two handoff shapes share one encode/re-page core:
     slot is reserved up front, each prefill chunk's KV is staged while the
     next chunk computes, and D re-pages chunks as they land, keeping the
     rows of partly covered pages that other chunks wrote (``rmw=True``).
+    The reservation consults D's prefix store: tokens already resident on
+    D never cross the wire (``TransferStats.prefix_hit_tokens``,
+    ``bytes_saved``).
 
 The wire stays in host memory as in the reference: the P side copies KV
 device→host when a chunk is encoded, the D side copies it out of the wire
@@ -34,7 +37,8 @@ from repro_torch.core.compat.precision import WireFormat
 from repro_torch.core.transport import KVConnector, TransferHandle, WireChunk
 from repro_torch.kernels import ops as kops
 from repro_torch.serving import paged_cache as PC
-from repro_torch.serving.engine import Engine, kv_entries_with_start
+from repro_torch.serving.engine import (Engine, kv_entries_with_start,
+                                        slice_kv_entries)
 from repro_torch.serving.request import Request
 
 
@@ -200,12 +204,18 @@ class StreamedHandoff:
         self.compute_overlapped = compute_overlapped
         pipeline.transfer.register(p_engine.name, role="prefill")
         pipeline.transfer.register(d_engine.name, role="decode")
-        self.slot, self.block_ids = d_engine.reserve_sequence(req, seq_len)
+        self.slot, self.block_ids = d_engine.reserve_sequence(
+            req, seq_len, use_prefix_cache=True)
+        # prefix tokens already resident on D: chunks below this position
+        # never touch the wire (send_chunk slices / drops them)
+        self.wire_skip = d_engine.slot_prefix_tokens[self.slot]
         self.meta = {"seq_len": seq_len, "tp_p": p_engine.vendor.tp,
                      "wire": pipeline.wire}
         self.chunks_sent = 0
         self.chunks_repaged = 0
         self.bytes = 0
+        self._skipped_tokens = 0
+        self._sent_tokens = 0
         self._pending: Deque[Tuple[str, TransferHandle, float, float]] = \
             collections.deque()
         self._chunk_modeled: List[float] = []
@@ -226,10 +236,23 @@ class StreamedHandoff:
 
     def send_chunk(self, chunk: Dict[str, Any]) -> int:
         """Encode → stage → issue the wire read for one chunk. Returns its
-        staged bytes."""
+        staged bytes (0 for a chunk wholly resident on D)."""
         assert not self._closed, "send_chunk on a closed handoff"
         if self.d_engine.failed:
             raise RuntimeError(f"instance {self.d_engine.name} is down")
+        start, length = chunk["start"], chunk["length"]
+        if self.wire_skip > start:
+            skipped = min(self.wire_skip, start + length) - start
+            self._skipped_tokens += skipped
+            self.pipeline.transfer.stats.prefix_hit_tokens += skipped
+            if start + length <= self.wire_skip:
+                return 0               # fully resident on D: skip the wire
+            chunk = dict(chunk,
+                         kv=slice_kv_entries(chunk["kv"], self.wire_skip,
+                                             start + length),
+                         start=self.wire_skip,
+                         length=start + length - self.wire_skip)
+        self._sent_tokens += chunk["length"]
         while not self.can_send():
             if not self._repage_head(force=True):
                 break
@@ -312,6 +335,11 @@ class StreamedHandoff:
         if self._t_first_stage is not None and self._t_last_repage is not None:
             tr.stats.wall_handoff_seconds += \
                 self._t_last_repage - self._t_first_stage
+        if self._skipped_tokens and self._sent_tokens and self.bytes:
+            # the flight's own measured bytes/token prices what the
+            # skipped tokens would have cost on this wire format
+            tr.stats.bytes_saved += int(
+                self.bytes / self._sent_tokens * self._skipped_tokens)
         self._closed = True
         return {"first_token": first_token, "seq_len": self.seq_len,
                 "tp_p": self.meta["tp_p"], "wire": self.pipeline.wire,

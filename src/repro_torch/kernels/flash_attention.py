@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES = 0            # kernel launches made by this wrapper
+LAUNCHES = {"flash_attention": 0}      # kernel launches, by kernel name
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 
@@ -42,7 +42,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,H,Sq,d); k, v: (B,KV,Skv,d), CUDA tensors of one dtype (f32
     or bf16) whose last axis is contiguous; any (batch, head, seq) strides.
     Returns (B,H,Sq,d), laid out in memory as (B,Sq,H,d)."""
-    global LAUNCHES
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     kv_len = skv if kv_len is None else int(kv_len)
@@ -75,5 +74,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o.stride(0), o.stride(1), o.stride(2),
         scale, int(causal), int(window), int(q_offset), kv_len, stream)
     _build.check(err, "flash_attention")
-    LAUNCHES += 1
+    LAUNCHES["flash_attention"] += 1
     return o

@@ -1,9 +1,18 @@
-"""Wrapper for the CUDA overlay re-page kernel (``csrc/kv_repack.cu``).
+"""Wrappers for the CUDA page gather / scatter kernels
+(``csrc/kv_repack.cu``) and the ``repack`` built from them.
 
-Counterpart of ``repro.kernels.kv_repack.scatter_pages_overlay``. The
-port's kernel takes a leading layer axis, so one launch re-pages every
-layer of a block group. ``gather_pages``, ``scatter_pages`` and ``repack``
-are not on the serving path and are not ported yet (ROADMAP queue 2).
+Counterparts of ``repro.kernels.kv_repack``: ``gather_pages``,
+``scatter_pages``, ``scatter_pages_overlay`` and ``repack``. The port's
+kernels take a leading layer axis — pools are (L, N, *page) — so one
+launch moves every layer of a pool, where the reference vmaps a
+per-layer kernel.
+
+``repack`` (paper Fig. 3) is the composition the reference writes: the
+gather kernel into the destination dtype, then plain tensor ops on the
+canonical buffer (flatten to ``seq_len`` rows, zero-pad to the
+destination block size, re-block), then the scatter kernel. Its canonical
+buffer is written once and read once between the two launches; a fused
+kernel would skip that round trip and move half the bytes.
 """
 from __future__ import annotations
 
@@ -14,23 +23,134 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.serving.paged_cache import _FROM_CANON, KVPageSpec
 
-LAUNCHES = 0            # kernel launches made by this wrapper
+# kernel launches, by kernel name (repack counts its composed launch pair)
+LAUNCHES = {"scatter_pages_overlay": 0, "gather_pages": 0,
+            "scatter_pages": 0, "repack": 0}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_fn = None
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        f = _build.load().rt_scatter_pages_overlay
+def _kernel(name: str, argtypes):
+    f = _fns.get(name)
+    if f is None:
+        f = getattr(_build.load(), name)
         f.restype = ctypes.c_int
-        f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                      + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
-                      + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 2
-                      + [ctypes.c_void_p])
-        _fn = f
-    return _fn
+        f.argtypes = argtypes
+        _fns[name] = f
+    return f
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_OVERLAY_ARGS = ([_P] * 3 + [_I] * 5 + [_L] * 2 + [_I] * 4 + [_L] * 6
+                 + [_I] * 2 + [_P])
+_SCATTER_ARGS = [_P] * 3 + [_I] * 5 + [_L] * 2 + [_I] * 3 + [_L] * 5 + [_P]
+_GATHER_ARGS = [_P] * 3 + [_I] * 7 + [_L] * 7 + [_P]
+
+
+def _check_inputs(op: str, spec: KVPageSpec, pool: torch.Tensor,
+                  block_ids: torch.Tensor, other: torch.Tensor) -> None:
+    for name, t in (("pool", pool), ("canon", other),
+                    ("block_ids", block_ids)):
+        if not t.is_cuda or t.device != pool.device:
+            raise ValueError(f"{op}: {name} must be on {pool.device} (CUDA), "
+                             f"got {t.device}")
+    if pool.dtype not in DTYPES or other.dtype not in DTYPES:
+        raise TypeError(f"{op}: pool/canon dtype {pool.dtype}/{other.dtype};"
+                        " takes float32/bfloat16")
+    if (block_ids.dtype != torch.int32 or not block_ids.is_contiguous()
+            or block_ids.dim() != 1):
+        raise TypeError(f"{op}: block_ids are a contiguous 1-D int32 tensor")
+    if pool.dim() != 5 or tuple(pool.shape[2:]) != spec.page_shape():
+        raise ValueError(f"{op}: pool{tuple(pool.shape)} is not (L, N, "
+                         f"*{spec.page_shape()}) for {spec}")
+
+
+def _canon_strides(spec: KVPageSpec, row_strides):
+    """Strides of canon (bs, kv, hd) rows taken in the order of the pool
+    page's axes."""
+    perm = _FROM_CANON[spec.layout]
+    return [row_strides[perm[a]] for a in range(3)]
+
+
+def gather_pages(spec: KVPageSpec, pool: torch.Tensor,
+                 block_ids: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """pool: (L, N, *page) in ``spec.layout``, any strides; block_ids (nb,)
+    int32. Returns new canonical pages (L, nb, bs, kv, hd) in
+    ``out_dtype`` (default the pool's), contiguous."""
+    out_dtype = out_dtype or pool.dtype
+    n_layers, nb = pool.shape[0], block_ids.shape[0]
+    bs, kv, hd = spec.block_size, spec.kv_heads, spec.head_dim
+    out = torch.empty((n_layers, nb, bs, kv, hd), dtype=out_dtype,
+                      device=pool.device)
+    _check_inputs("gather_pages", spec, pool, block_ids, out)
+    # (token, head, dim) strides of a pool page: page axis a holds
+    # canonical axis perm[a]
+    perm = _FROM_CANON[spec.layout]
+    axis = {c: a + 2 for a, c in enumerate(perm)}
+    stream = torch.cuda.current_stream(pool.device).cuda_stream
+    err = _kernel("rt_gather_pages", _GATHER_ARGS)(
+        out.data_ptr(), pool.data_ptr(), block_ids.data_ptr(),
+        DTYPES[out_dtype], DTYPES[pool.dtype], n_layers, nb, bs, kv, hd,
+        pool.stride(0), pool.stride(1), pool.stride(axis[0]),
+        pool.stride(axis[1]), pool.stride(axis[2]), out.stride(0),
+        out.stride(1), stream)
+    _build.check(err, "gather_pages")
+    LAUNCHES["gather_pages"] += 1
+    return out
+
+
+def scatter_pages(spec: KVPageSpec, pool: torch.Tensor,
+                  block_ids: torch.Tensor, canon: torch.Tensor
+                  ) -> torch.Tensor:
+    """canon: (L, nb, bs, kv, hd) float32 or bfloat16, any strides; pool
+    (L, N, *page) contiguous. Writes every row of pages ``block_ids`` in
+    place, cast to the pool dtype. Returns ``pool``."""
+    n_layers, nb = canon.shape[0], block_ids.shape[0]
+    _check_inputs("scatter_pages", spec, pool, block_ids, canon)
+    want = (n_layers, nb, spec.block_size, spec.kv_heads, spec.head_dim)
+    if not pool.is_contiguous() or pool.shape[0] != n_layers \
+            or tuple(canon.shape) != want:
+        raise ValueError(f"scatter_pages: pool{tuple(pool.shape)} "
+                         f"canon{tuple(canon.shape)} ids{tuple(block_ids.shape)}"
+                         f" do not match {spec}")
+    page = spec.page_shape()
+    stream = torch.cuda.current_stream(pool.device).cuda_stream
+    err = _kernel("rt_scatter_pages", _SCATTER_ARGS)(
+        pool.data_ptr(), canon.data_ptr(), block_ids.data_ptr(),
+        DTYPES[pool.dtype], DTYPES[canon.dtype], n_layers, nb,
+        spec.block_size, pool.stride(0), pool.stride(1), *page,
+        *_canon_strides(spec, canon.stride()[2:]), canon.stride(0),
+        canon.stride(1), stream)
+    _build.check(err, "scatter_pages")
+    LAUNCHES["scatter_pages"] += 1
+    return pool
+
+
+def repack(src: KVPageSpec, dst: KVPageSpec, src_pool: torch.Tensor,
+           src_blocks: torch.Tensor, dst_pool: torch.Tensor,
+           dst_blocks: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """Vendor alignment (paper Fig. 3): ``seq_len`` tokens of the src
+    pool's pages ``src_blocks`` (src layout, block size, dtype) into the
+    dst pool's pages ``dst_blocks`` (dst's), every layer; the tail of the
+    last dst page is zero. Pools (L, N, *page); the two may be one tensor
+    (the gather's buffer is separate). Returns ``dst_pool``."""
+    if not 0 < seq_len <= src_blocks.shape[0] * src.block_size:
+        raise ValueError(f"repack: seq_len {seq_len} outside the "
+                         f"{src_blocks.shape[0]} src pages of "
+                         f"{src.block_size}")
+    canon = gather_pages(src, src_pool, src_blocks, out_dtype=dst.tdtype)
+    n_layers = canon.shape[0]
+    kv, hd, bs = dst.kv_heads, dst.head_dim, dst.block_size
+    flat = canon.view(n_layers, -1, kv, hd)[:, :seq_len]
+    nb_d = dst.blocks_for(seq_len)
+    if nb_d * bs != seq_len:
+        flat = torch.nn.functional.pad(flat, (0, 0, 0, 0, 0,
+                                              nb_d * bs - seq_len))
+    scatter_pages(dst, dst_pool, dst_blocks[:nb_d],
+                  flat.view(n_layers, nb_d, bs, kv, hd))
+    LAUNCHES["repack"] += 1
+    return dst_pool
 
 
 def scatter_pages_overlay(spec: KVPageSpec, pool: torch.Tensor,
@@ -43,25 +163,13 @@ def scatter_pages_overlay(spec: KVPageSpec, pool: torch.Tensor,
     hd), landing at flat row ``front``. Writes those rows into the pool
     pages in place, cast to the pool dtype; every other row keeps its
     contents. Returns ``pool``."""
-    global LAUNCHES
     n_layers, nb, bs = canon.shape[0], block_ids.shape[0], spec.block_size
-    for name, t in (("pool", pool), ("canon", canon),
-                    ("block_ids", block_ids)):
-        if not t.is_cuda or t.device != pool.device:
-            raise ValueError(f"scatter_pages_overlay: {name} must be on "
-                             f"{pool.device} (CUDA), got {t.device}")
-    if pool.dtype not in DTYPES or canon.dtype not in DTYPES:
-        raise TypeError("scatter_pages_overlay: pool/canon dtype "
-                        f"{pool.dtype}/{canon.dtype}; takes float32/bfloat16")
-    if block_ids.dtype != torch.int32 or not block_ids.is_contiguous():
-        raise TypeError("scatter_pages_overlay: block_ids are contiguous int32")
-    page = spec.page_shape()
+    _check_inputs("scatter_pages_overlay", spec, pool, block_ids, canon)
     rows = (spec.kv_heads, spec.head_dim)
     stream_rows = canon.dim() == 4       # row r of canon is flat row front+r
     want = (seq_len,) + rows if stream_rows else (nb, bs) + rows
-    if (not pool.is_contiguous() or pool.dim() != 5
-            or tuple(pool.shape[2:]) != page or pool.shape[0] != n_layers
-            or tuple(canon.shape[1:]) != want or block_ids.dim() != 1):
+    if (not pool.is_contiguous() or pool.shape[0] != n_layers
+            or tuple(canon.shape[1:]) != want):
         raise ValueError(f"scatter_pages_overlay: pool{tuple(pool.shape)} "
                          f"canon{tuple(canon.shape)} ids{tuple(block_ids.shape)}"
                          f" front={front} seq_len={seq_len} do not match "
@@ -75,15 +183,15 @@ def scatter_pages_overlay(spec: KVPageSpec, pool: torch.Tensor,
     else:
         row_strides = canon.stride()[2:]
         page_stride, canon_off = canon.stride(1), 0
+    page = spec.page_shape()
     perm = _FROM_CANON[spec.layout]
-    c_strides = [row_strides[perm[a]] for a in range(3)]
     stream = torch.cuda.current_stream(pool.device).cuda_stream
-    err = _kernel()(
+    err = _kernel("rt_scatter_pages_overlay", _OVERLAY_ARGS)(
         pool.data_ptr(), canon.data_ptr(), block_ids.data_ptr(),
         DTYPES[pool.dtype], DTYPES[canon.dtype], n_layers, nb, bs,
         pool.stride(0), pool.stride(1), page[0], page[1], page[2],
-        perm.index(0), *c_strides, canon.stride(0), page_stride, canon_off,
-        int(front), int(seq_len), stream)
+        perm.index(0), *_canon_strides(spec, row_strides), canon.stride(0),
+        page_stride, canon_off, int(front), int(seq_len), stream)
     _build.check(err, "scatter_pages_overlay")
-    LAUNCHES += 1
+    LAUNCHES["scatter_pages_overlay"] += 1
     return pool

@@ -4,8 +4,9 @@
 A CPU tensor goes to the kernel's plain PyTorch version in ``ref``; a
 CUDA tensor launches the hand-written kernel or raises. There is no
 fallback from one to the other. Each kernel wrapper counts its launches
-(``launch_counts``), so a run can show that the serving path went through
-the kernels.
+by kernel name (``launch_counts``), so a run can show that the serving
+path went through each kernel; a call that goes to a plain version counts
+nothing.
 """
 from __future__ import annotations
 
@@ -19,8 +20,7 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 from repro_torch.serving.paged_cache import KVPageSpec
 
-_WRAPPERS = {"flash_attention": _fa, "paged_attention": _pa,
-             "scatter_pages_overlay": _kr}
+_WRAPPERS = (_fa, _pa, _kr)          # modules holding LAUNCHES by name
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -70,11 +70,41 @@ def scatter_pages_overlay(spec: KVPageSpec, pool, block_ids, canon, *,
                                          front=front, seq_len=seq_len)
 
 
+def gather_pages(spec: KVPageSpec, pool, block_ids,
+                 out_dtype=None) -> torch.Tensor:
+    """Pages ``block_ids`` of a (L, N, *page) pool → new canonical pages
+    (L, nb, bs, kv, hd) in ``out_dtype`` (default the pool's)."""
+    if _on_cuda(pool, "gather_pages"):
+        return _kr.gather_pages(spec, pool, block_ids, out_dtype)
+    return ref.gather_pages_ref(spec, pool, block_ids, out_dtype)
+
+
+def scatter_pages(spec: KVPageSpec, pool, block_ids, canon) -> torch.Tensor:
+    """Canonical pages (L, nb, bs, kv, hd) → pages ``block_ids`` of a
+    (L, N, *page) pool, cast to its dtype; in place, returns ``pool``."""
+    if _on_cuda(pool, "scatter_pages"):
+        return _kr.scatter_pages(spec, pool, block_ids, canon)
+    return ref.scatter_pages_ref(spec, pool, block_ids, canon)
+
+
+def repack(src: KVPageSpec, dst: KVPageSpec, src_pool, src_blocks,
+           dst_pool, dst_blocks, seq_len: int) -> torch.Tensor:
+    """Vendor alignment (paper Fig. 3): ``seq_len`` tokens from the src
+    pool's pages into the dst pool's, every layer, gathered then
+    scattered; in place, returns ``dst_pool``."""
+    if _on_cuda(dst_pool, "repack"):
+        return _kr.repack(src, dst, src_pool, src_blocks, dst_pool,
+                          dst_blocks, seq_len)
+    return ref.repack_ref(src, dst, src_pool, src_blocks, dst_pool,
+                          dst_blocks, seq_len)
+
+
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
-    return {name: mod.LAUNCHES for name, mod in _WRAPPERS.items()}
+    """Kernel launches per kernel name since the last reset."""
+    return {name: n for mod in _WRAPPERS for name, n in mod.LAUNCHES.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _WRAPPERS.values():
-        mod.LAUNCHES = 0
+    for mod in _WRAPPERS:
+        for name in mod.LAUNCHES:
+            mod.LAUNCHES[name] = 0

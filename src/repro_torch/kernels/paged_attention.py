@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.serving.paged_cache import _FROM_CANON
 
-LAUNCHES = 0            # kernel launches made by this wrapper
+LAUNCHES = {"paged_attention": 0}      # kernel launches, by kernel name
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP_DIM = 16 * 128          # query heads per KV head x head_dim
 SMEM_LIMIT = 227 * 1024
@@ -53,7 +53,6 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ``layout``; block_table (B, max_pages) and seq_lens (B,) int32, all
     CUDA tensors on one device. seq_lens count the current token.
     Returns (B,H,d)."""
-    global LAUNCHES
     b, h, d = q.shape
     perm = _FROM_CANON[layout]
     page = k_pool.shape[1:]
@@ -97,5 +96,5 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         q.stride(0), q.stride(1), *strides, o.stride(0), o.stride(1),
         scale, int(window), stream)
     _build.check(err, "paged_attention")
-    LAUNCHES += 1
+    LAUNCHES["paged_attention"] += 1
     return o

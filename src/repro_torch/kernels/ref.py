@@ -102,3 +102,45 @@ def scatter_pages_overlay_ref(spec: KVPageSpec, pool: torch.Tensor,
         spec, cur.reshape(n_layers * nb, bs, spec.kv_heads, spec.head_dim))
     pool[:, ids] = pages.reshape((n_layers, nb) + spec.page_shape())
     return pool
+
+
+def gather_pages_ref(spec: KVPageSpec, pool: torch.Tensor,
+                     block_ids: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """pool: (L, N, *page) in ``spec.layout``; block_ids (nb,). Returns
+    canonical pages (L, nb, bs, kv, hd) in ``out_dtype`` (default the
+    pool's), as a new contiguous tensor."""
+    n_layers, nb = pool.shape[0], block_ids.shape[0]
+    pages = pool[:, block_ids.long()].flatten(0, 1)
+    canon = pages_to_canonical(spec, pages).to(out_dtype or pool.dtype)
+    return canon.reshape(n_layers, nb, spec.block_size, spec.kv_heads,
+                         spec.head_dim).contiguous()
+
+
+def scatter_pages_ref(spec: KVPageSpec, pool: torch.Tensor,
+                      block_ids: torch.Tensor,
+                      canon: torch.Tensor) -> torch.Tensor:
+    """canon: (L, nb, bs, kv, hd) → pages ``block_ids`` of the (L, N,
+    *page) pool, every row, cast to the pool dtype; in place, returns
+    ``pool``."""
+    n_layers, nb = canon.shape[0], block_ids.shape[0]
+    pages = pages_from_canonical(spec, canon.flatten(0, 1)).to(pool.dtype)
+    pool[:, block_ids.long()] = pages.reshape((n_layers, nb)
+                                              + spec.page_shape())
+    return pool
+
+
+def repack_ref(src: KVPageSpec, dst: KVPageSpec, src_pool: torch.Tensor,
+               src_blocks: torch.Tensor, dst_pool: torch.Tensor,
+               dst_blocks: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """Paper Fig. 3 with a leading layer axis: ``seq_len`` tokens of the
+    src pages → the dst pages, zero tail in the last dst page; in place,
+    returns ``dst_pool``."""
+    canon = gather_pages_ref(src, src_pool, src_blocks, out_dtype=dst.tdtype)
+    n_layers = canon.shape[0]
+    flat = canon.reshape(n_layers, -1, src.kv_heads, src.head_dim)[:, :seq_len]
+    nb_d = dst.blocks_for(seq_len)
+    pad = nb_d * dst.block_size - seq_len
+    flat = torch.nn.functional.pad(flat, (0, 0, 0, 0, 0, pad))
+    canon_d = flat.reshape(n_layers, nb_d, dst.block_size, dst.kv_heads,
+                           dst.head_dim)
+    return scatter_pages_ref(dst, dst_pool, dst_blocks[:nb_d], canon_d)

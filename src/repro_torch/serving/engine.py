@@ -7,14 +7,19 @@ the engine's ``KVPageSpec`` (block size / layout / dtype); the logical TP
 degree used for KV sharding completes the vendor profile.
 
 The engine lives on one device: the card unless ``device="cpu"`` is
-passed. Its paged pools are updated in place by decode appends and by the
-D-side re-page. Not ported yet: the prefix cache and snapshot/resume
-(refused when asked for), and encoder or vision prompts (ROADMAP queue 1).
+passed. Its paged pools are updated in place by decode appends, by the
+D-side re-page and by the prefix cache's copy-on-write page copy (the
+repack kernel). With ``prefix_cache=True`` a decode engine indexes its
+pool pages in a ``PrefixStore`` and a prefill engine keeps finished
+prompts' KV in a ``HostPrefixStore`` of CPU tensors. Not ported yet:
+snapshot/resume (refused when asked for), and encoder or vision prompts
+(ROADMAP queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import logging
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -23,9 +28,14 @@ import torch
 
 from repro_torch import device as _dev
 from repro_torch.configs.base import ModelConfig, PrefillCapabilities
+from repro_torch.kernels import ops as kops
 from repro_torch.models import model as M
 from repro_torch.serving.paged_cache import BlockAllocator, KVPageSpec
+from repro_torch.serving.prefix_cache import (HostPrefixStore, PrefixStore,
+                                              hashing)
 from repro_torch.serving.request import Request
+
+log = logging.getLogger(__name__)
 
 
 class PrefillMode(enum.Enum):
@@ -44,6 +54,11 @@ class PrefillMode(enum.Enum):
 
 class PrefillModeError(ValueError):
     """A requested prefill mode is unsupported for this engine/request."""
+
+
+# families already warned about prefix replay they cannot do (log once
+# per family, count every occurrence in EngineStats)
+_RESUME_WARNED: set = set()
 
 
 def page_specs_for(cfg: ModelConfig, block_size: int, layout: str,
@@ -74,9 +89,14 @@ class EngineStats:
     prefill_seconds: float = 0.0
     decode_seconds: float = 0.0
     failures_injected: int = 0
+    prefix_cached_tokens: int = 0   # prompt tokens replayed from the P-side
+    #                                 host prefix store instead of recomputed
     # prefill compute seconds spent on an integrated (role="both") engine
     # while decode-ready sequences sat waiting
     contention_stall_seconds: float = 0.0
+    # requests that wanted prefix-cache replay but the stream or family
+    # cannot do it (a full recompute)
+    resume_unsupported: int = 0
 
 
 def kv_entries_with_start(package_kv: List[Tuple]) -> List[Tuple]:
@@ -119,7 +139,13 @@ class PrefillStream:
       * *monolithic* — whole-prompt compute in one pass on the first call;
         the wire still streams in ``chunk_tokens`` slices.
 
-    ``first_token`` is known once the final chunk has been produced."""
+    ``first_token`` is known once the final chunk has been produced.
+
+    With a host prefix store on the engine, an incremental stream replays
+    the longest cached prefix of its prompt as chunks with no compute,
+    seeds its dense cache with those rows, and computes from the
+    divergence point; when it ends, its full prompt blocks go into the
+    store."""
 
     def __init__(self, engine: "Engine", req: Request,
                  chunk_tokens: Optional[int] = None,
@@ -152,6 +178,27 @@ class PrefillStream:
         self._wire_sent = 0                           # wire progress (abs pos)
         self._entries: Optional[List[Tuple]] = None   # monolithic mode
         self._caches = None                           # incremental mode
+        # P-side shared-prefix reuse: replay cached chunks instead of
+        # recomputing them, and seed the dense cache so compute resumes
+        # at the divergence point. The final token is always computed
+        # (first_token).
+        self.prefix_tokens = 0
+        self._p_store: Optional[HostPrefixStore] = None
+        self._cached_entries: Optional[List[Tuple]] = None
+        self._collect: Optional[List[Tuple]] = None
+        store = engine.host_prefix_store
+        if store is not None:
+            if self.chunked_compute and self.caps.prefix_cache:
+                self._p_store = store
+                self._collect = []
+                hit, entries = store.match(req.prompt, self.seq_len - 1)
+                if hit > 0:
+                    self.prefix_tokens = hit
+                    self._cached_entries = entries
+            else:
+                # a prefix store exists but this stream cannot replay
+                # from it: a full recompute, counted
+                engine._note_resume_unsupported()
 
     @property
     def done(self) -> bool:
@@ -164,12 +211,32 @@ class PrefillStream:
     def next_chunk(self) -> Optional[Dict[str, Any]]:
         if self.done:
             return None
-        if self.chunked_compute:
+        if self._next_start < self.prefix_tokens:
+            chunk = self._next_cached()
+        elif self.chunked_compute:
             chunk = self._next_incremental()
         else:
             chunk = self._next_monolithic()
         self.chunks_emitted += 1
+        if self._collect is not None:
+            self._collect.extend(chunk["kv"])
+            if self._next_start >= self.seq_len:
+                self._p_store.insert_prompt(self.req.prompt, self._collect,
+                                            self.seq_len)
         return chunk
+
+    # -- replay from the host prefix store ------------------------------- #
+    def _next_cached(self) -> Dict[str, Any]:
+        eng = self.engine
+        if eng.failed:
+            raise RuntimeError(f"instance {eng.name} is down")
+        c0 = self._next_start
+        c1 = min(c0 + self.chunk_tokens, self.prefix_tokens)
+        self._next_start = c1
+        self._wire_sent = c1
+        eng.stats.prefix_cached_tokens += c1 - c0
+        return {"kv": slice_kv_entries(self._cached_entries, c0, c1),
+                "start": c0, "length": c1 - c0, "compute_seconds": 0.0}
 
     # -- monolithic compute, chunked wire ------------------------------- #
     def _next_monolithic(self) -> Dict[str, Any]:
@@ -204,6 +271,8 @@ class PrefillStream:
             self._caches = M.init_caches(eng.cfg, 1, cap, eng.cfg.cdtype,
                                          full_capacity=True,
                                          device=eng.device)
+            if self.prefix_tokens:
+                self._preload_caches()
         c0 = self._next_start
         c1 = min(c0 + self.chunk_tokens, self.seq_len)
         positions = torch.arange(c0, c1, dtype=torch.int32,
@@ -240,6 +309,21 @@ class PrefillStream:
                     "start": w0}))
         return entries
 
+    def _preload_caches(self) -> None:
+        """Seed the dense chunked-prefill cache with the replayed prefix
+        KV (host tensors, copied onto the engine's device) so computed
+        chunks resume at ``prefix_tokens`` with the bits a cold run would
+        have produced. ``pos`` rows carry the real absolute positions —
+        attention masks on them."""
+        for _kind, gi, pi, ent in self._cached_entries:
+            c = self._caches[gi][pi]
+            s0 = int(ent["start"])
+            n = int(ent["k"].shape[1])
+            c.k[:, 0, s0:s0 + n] = ent["k"].to(c.k.device, c.k.dtype)
+            c.v[:, 0, s0:s0 + n] = ent["v"].to(c.v.device, c.v.dtype)
+            c.pos[:, 0, s0:s0 + n] = torch.arange(
+                s0, s0 + n, dtype=c.pos.dtype, device=c.pos.device)
+
 
 class Engine:
     """One model instance with paged KV and slot-based continuous batching."""
@@ -250,9 +334,6 @@ class Engine:
                  role: str = "both", prefix_cache: bool = False,
                  device: _dev.DeviceLike = None, sample_seed: int = 0):
         _dev.check_family(cfg)
-        if prefix_cache:
-            raise NotImplementedError(
-                "the prefix cache is not ported yet (ROADMAP queue 1 item 6)")
         self.device = _dev.resolve(device)
         if params["embed"].device != self.device:
             raise ValueError(f"{name}: params live on {params['embed'].device}"
@@ -284,6 +365,18 @@ class Engine:
         self.last_token = np.zeros((max_batch,), np.int32)
         self.stats = EngineStats()
         self.failed = False
+        # shared-prefix KV cache (opt-in): the decode role indexes pool
+        # pages by hash chain; the prefill role keeps host-side wire
+        # entries to replay instead of recomputing
+        self.prefix_store: Optional[PrefixStore] = None
+        self.host_prefix_store: Optional[HostPrefixStore] = None
+        if prefix_cache and role in ("decode", "both"):
+            self.prefix_store = PrefixStore(self.allocator, self.block_size)
+        if prefix_cache and role in ("prefill", "both"):
+            self.host_prefix_store = HostPrefixStore(self.block_size)
+        # per-slot prefix tokens already resident at reservation time —
+        # the handoff skips exactly this many tokens on the wire
+        self.slot_prefix_tokens: List[int] = [0] * max_batch
         # sampling stream: seeded, so temperature > 0 replays across runs
         self._rng = np.random.default_rng(sample_seed)
 
@@ -342,6 +435,17 @@ class Engine:
                 for i, r in enumerate(self.slot_req)):
             self.stats.contention_stall_seconds += dt
 
+    def _note_resume_unsupported(self) -> None:
+        """A request wanted prefix-cache replay but this stream or family
+        cannot do it — count every occurrence, log once per family."""
+        self.stats.resume_unsupported += 1
+        key = (self.cfg.family, self.cfg.attention_kind)
+        if key not in _RESUME_WARNED:
+            _RESUME_WARNED.add(key)
+            log.warning(
+                "family %s (attention=%s): prefix-cache replay unsupported "
+                "— falling back to full recompute", *key)
+
     # ------------------------------------------------------------------ #
     # Decode (D role)
     # ------------------------------------------------------------------ #
@@ -355,33 +459,122 @@ class Engine:
 
     def can_admit(self, seq_len: int, new_tokens: int) -> bool:
         need = -(-(seq_len + new_tokens) // self.block_size)
+        free = self.allocator.free_blocks
+        if self.prefix_store is not None:
+            # zero-ref cached blocks are reclaimable on demand
+            free += self.prefix_store.evictable_blocks()
         return (not self.failed and len(self.free_slots()) > 0
-                and self.allocator.free_blocks >= need
+                and free >= need
                 and seq_len + new_tokens <= self.max_seq_len)
 
-    def reserve_sequence(self, req: Request, seq_len: int
+    def _prefix_eligible(self, req: Request) -> bool:
+        """Prefix reuse needs every cached row to stay attendable across
+        the whole decode (caps.prefix_cache); the port's prompts are
+        tokens only."""
+        return self.prefill_capabilities().prefix_cache
+
+    def reserve_sequence(self, req: Request, seq_len: int, *,
+                         use_prefix_cache: bool = False
                          ) -> Tuple[int, np.ndarray]:
         """Claim a decode slot + paged blocks for an in-flight handoff.
-        The slot is occupied but not decoded until ``activate_sequence``."""
+        The slot is occupied but not decoded until ``activate_sequence``.
+
+        With ``use_prefix_cache`` (and a store), the block table's head
+        borrows the store's pages for the longest cached prefix — pinned,
+        read-shared — plus an optional copy-on-write divergence block;
+        ``slot_prefix_tokens[slot]`` records how many leading tokens need
+        no wire transfer. All writes (re-page and decode appends) land at
+        positions ≥ that count, i.e. strictly in private blocks."""
         if self.failed:
             raise RuntimeError(f"instance {self.name} is down")
         slot = self.free_slots()[0]
         nblocks = -(-(seq_len + req.max_new_tokens) // self.block_size)
         nblocks = min(nblocks, self.max_blocks_per_seq)
-        block_ids = self.allocator.allocate(req.req_id, nblocks)
+        store = self.prefix_store
+        prefix_tokens = 0
+        if (use_prefix_cache and store is not None
+                and self._prefix_eligible(req)):
+            # reuse limit seq_len-1: P always computes ≥ 1 trailing token
+            # (it must sample first_token from real logits)
+            match = store.match(req.prompt, min(seq_len, req.prompt_len) - 1)
+            match = match.truncated(max(nblocks - 1, 0), self.block_size)
+            store.acquire(match, req.req_id)
+            shared = list(match.block_ids)
+            need = nblocks - len(shared)
+            short = need - self.allocator.free_blocks
+            if short > 0:
+                store.evict(short)
+            try:
+                private = self.allocator.allocate(req.req_id, need)
+            except MemoryError:
+                store.release_seq(req.req_id)
+                raise
+            if match.cow_src is not None and need > 0:
+                # mid-block divergence: private copy of the source page,
+                # valid up to match.tokens — later rows are overwritten
+                # by the stream's re-page
+                self._copy_block(match.cow_src, private[0])
+            prefix_tokens = match.tokens
+            block_ids = shared + private
+        else:
+            if (use_prefix_cache and store is not None
+                    and not self._prefix_eligible(req)):
+                self._note_resume_unsupported()
+            short = nblocks - self.allocator.free_blocks
+            if store is not None and short > 0:
+                store.evict(short)
+            block_ids = self.allocator.allocate(req.req_id, nblocks)
         self.block_tables[slot, :] = self._scratch_block
         self.block_tables[slot, :nblocks] = block_ids
         self.seq_lens[slot] = 0
         self.slot_req[slot] = req
         self.slot_ready[slot] = False
+        self.slot_prefix_tokens[slot] = prefix_tokens
         return slot, np.asarray(block_ids, np.int32)
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        """Copy one physical page across every paged pool (COW), every
+        layer: one ``repack`` per pool — on the card a gather kernel
+        into a separate buffer, then a scatter kernel, in stream order."""
+        spec = self.specs["kv"]
+        ids = torch.tensor([src, dst], dtype=torch.int32, device=self.device)
+        for g in self.caches:
+            for pools in g:
+                for name in ("k_pool", "v_pool"):
+                    kops.repack(spec, spec, pools[name], ids[:1],
+                                pools[name], ids[1:], self.block_size)
 
     def activate_sequence(self, slot: int, first_token: int,
                           seq_len: int) -> None:
-        """All KV landed — the slot joins continuous batching next step."""
+        """All KV landed — the slot joins continuous batching next step.
+
+        With a prefix store, the sequence's full prompt blocks are adopted
+        into it here (ownership transfer, still pinned for this sequence):
+        every block is fully written by now, and decode appends only at
+        positions ≥ seq_len, which live past the last full prompt block."""
         self.seq_lens[slot] = seq_len
         self.last_token[slot] = first_token
         self.slot_ready[slot] = True
+        req = self.slot_req[slot]
+        if (self.prefix_store is not None and req is not None
+                and self._prefix_eligible(req)):
+            self._adopt_prompt_blocks(req, min(seq_len, req.prompt_len), slot)
+
+    def _adopt_prompt_blocks(self, req: Request, prompt_len: int,
+                             slot: int) -> None:
+        store = self.prefix_store
+        prompt = np.asarray(req.prompt)
+        bs = self.block_size
+        parent = hashing.ROOT
+        for b in range(min(prompt_len, len(prompt)) // bs):
+            blk = prompt[b * bs:(b + 1) * bs]
+            digest = hashing.block_hash(parent, blk)
+            # blocks borrowed from the store at reservation re-hash to a
+            # cached digest → insert() is a refresh no-op; only this
+            # sequence's own (private) blocks transfer ownership
+            store.insert(req.req_id, digest, parent, blk,
+                         int(self.block_tables[slot, b]))
+            parent = digest
 
     def abort_reservation(self, slot: int) -> None:
         """Handoff failed mid-stream: free the slot and its blocks."""
@@ -390,6 +583,7 @@ class Engine:
             # failure sweep does not requeue it a second time
             self.slot_req[slot] = None
             self.slot_ready[slot] = False
+            self.slot_prefix_tokens[slot] = 0
             return
         self.release(slot)
 
@@ -408,10 +602,16 @@ class Engine:
     def release(self, slot: int) -> None:
         req = self.slot_req[slot]
         if req is not None:
+            if self.prefix_store is not None:
+                # unpin borrowed/adopted prefix blocks (they stay cached
+                # at zero refs until LRU eviction), then free whatever
+                # this sequence still owns privately
+                self.prefix_store.release_seq(req.req_id)
             self.allocator.free(req.req_id)
         self.slot_req[slot] = None
         self.slot_ready[slot] = False
         self.seq_lens[slot] = 0
+        self.slot_prefix_tokens[slot] = 0
         self.block_tables[slot, :] = self._scratch_block
 
     def decode_step(self) -> List[Tuple[int, Request, int]]:
@@ -477,3 +677,7 @@ class Engine:
         self.allocator = BlockAllocator(self.allocator.num_blocks)
         self.allocator.allocate("__scratch__", 1)
         self._scratch_block = self.allocator.blocks_of("__scratch__")[0]
+        if self.prefix_store is not None:
+            # the pages the store indexed died with the pool
+            self.prefix_store = PrefixStore(self.allocator, self.block_size)
+        self.slot_prefix_tokens = [0] * self.max_batch

@@ -202,6 +202,28 @@ class BlockAllocator:
         self._free.extend(reversed(blocks))
         return len(blocks)
 
+    def transfer_block(self, from_id: str, to_id: str, block_id: int) -> None:
+        """Move one block's ownership between owners without touching the
+        free list (prefix-cache adoption of a sequence's prompt blocks)."""
+        owned = self._owned.get(from_id)
+        if owned is None or block_id not in owned:
+            raise ValueError(f"block {block_id} is not owned by {from_id!r}")
+        owned.remove(block_id)
+        if not owned:
+            self._owned.pop(from_id, None)
+        self._owned.setdefault(to_id, []).append(block_id)
+
+    def free_block(self, seq_id: str, block_id: int) -> None:
+        """Return a single owned block to the free list (prefix-cache
+        eviction frees blocks one at a time, LRU order)."""
+        owned = self._owned.get(seq_id)
+        if owned is None or block_id not in owned:
+            raise ValueError(f"block {block_id} is not owned by {seq_id!r}")
+        owned.remove(block_id)
+        if not owned:
+            self._owned.pop(seq_id, None)
+        self._free.append(block_id)
+
     def check_invariants(self) -> None:
         owned = [b for bs in self._owned.values() for b in bs]
         assert len(set(owned)) == len(owned), "double-owned block"

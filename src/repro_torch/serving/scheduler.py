@@ -1,6 +1,6 @@
 """Global scheduler (paper Fig. 1-2): request routing across P and D pools
-— PyTorch port of ``repro.serving.scheduler`` (autoscaling hooks and the
-prefix-cache affinity are not ported yet).
+— PyTorch port of ``repro.serving.scheduler`` (autoscaling hooks are not
+ported yet).
 
 Responsibilities beyond the paper's workflow (required for 1000-node scale):
   * load-aware routing (least outstanding work, straggler-penalized)
@@ -350,7 +350,18 @@ class GlobalScheduler:
         cands = [e for e in self._routable(self.d_pool)
                  if e.can_admit(seq_len, req.max_new_tokens)]
 
-        return min(cands, key=self._penalty) if cands else None
+        def key(e: Engine):
+            # prefix affinity first: the D already holding the longest
+            # cached prefix of this prompt saves wire bytes and decode
+            # pool pages — load/straggler penalty breaks ties (and wins
+            # outright when no D holds anything)
+            hit = 0
+            if e.prefix_store is not None and e._prefix_eligible(req):
+                hit = e.prefix_store.match_tokens(
+                    req.prompt, min(seq_len, req.prompt_len) - 1)
+            return (-hit, self._penalty(e))
+
+        return min(cands, key=key) if cands else None
 
     # -- lifecycle ---------------------------------------------------------- #
     def submit(self, req: Request) -> None:

@@ -9,7 +9,7 @@ runs on its own:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 Tolerances: 2e-5 in float32 and 2e-2 in bfloat16 (tests/test_kernels.py);
-the re-page must be bit-identical.
+the re-page, gather, scatter and repack must be bit-identical.
 """
 import numpy as np
 import pytest
@@ -131,6 +131,97 @@ def test_overlay_kernel(cuda, layout, pool_dt, canon_dt, front, seq_len,
     assert torch.equal(got, want)
 
 
+DTYPE_PAIRS = [("float32", "float32"), ("bfloat16", "bfloat16"),
+               ("bfloat16", "float32"), ("float32", "bfloat16")]
+
+
+def _pool_and_ids(rng, spec, layers, n_blocks, nb, device):
+    """A random pool and ``nb`` distinct, unsorted, non-adjacent ids."""
+    pool = _rand(rng, (layers,) + spec.pool_shape(n_blocks), spec.dtype,
+                 device)
+    ids = rng.permutation(np.arange(1, n_blocks, 2))[:nb].astype(np.int32)
+    return pool, torch.from_numpy(ids).to(device)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("bs", [4, 16, 32])
+@pytest.mark.parametrize("pool_dt,out_dt", DTYPE_PAIRS)
+@pytest.mark.parametrize("layers", [1, 32])
+def test_gather_kernel(cuda, layout, bs, pool_dt, out_dt, layers):
+    spec = KVPageSpec(bs, layout, pool_dt, 2, 16)
+    rng = np.random.default_rng(bs + layers)
+    pool, ids = _pool_and_ids(rng, spec, layers, 13, 4, cuda)
+    got = ops.gather_pages(spec, pool, ids, out_dtype=TDT[out_dt])
+    want = ref.gather_pages_ref(spec, pool, ids, out_dtype=TDT[out_dt])
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("bs", [4, 16, 32])
+@pytest.mark.parametrize("pool_dt,canon_dt", DTYPE_PAIRS)
+@pytest.mark.parametrize("layers", [1, 32])
+def test_scatter_kernel(cuda, layout, bs, pool_dt, canon_dt, layers):
+    """Canonical pages read through strides (a slice of a wider buffer)
+    into unsorted pages; every other page keeps its bits."""
+    spec = KVPageSpec(bs, layout, pool_dt, 2, 16)
+    rng = np.random.default_rng(2 * bs + layers)
+    pool, ids = _pool_and_ids(rng, spec, layers, 13, 4, cuda)
+    canon = _rand(rng, (layers, 4, bs, 3, 16), canon_dt, cuda)[:, :, :, 1:]
+    want = ref.scatter_pages_ref(spec, pool.clone(), ids, canon)
+    got = ops.scatter_pages(spec, pool, ids, canon)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("src_layout,dst_layout", [("nhbd", "nbhd"),
+                                                   ("nbhd", "nhdb"),
+                                                   ("nhdb", "nhbd")])
+@pytest.mark.parametrize("src_bs,dst_bs,seq", [(16, 32, 90), (32, 4, 61),
+                                               (4, 16, 32)])
+@pytest.mark.parametrize("src_dt,dst_dt", DTYPE_PAIRS)
+@pytest.mark.parametrize("layers", [1, 32])
+def test_repack_kernel(cuda, src_layout, dst_layout, src_bs, dst_bs, seq,
+                       src_dt, dst_dt, layers):
+    """Paper Fig. 3 across layouts, block sizes and dtypes, the last dst
+    page's tail zeroed, through the gather and scatter kernels."""
+    src = KVPageSpec(src_bs, src_layout, src_dt, 2, 16)
+    dst = KVPageSpec(dst_bs, dst_layout, dst_dt, 2, 16)
+    rng = np.random.default_rng(seq + layers)
+    nb_s, nb_d = src.blocks_for(seq), dst.blocks_for(seq)
+    src_pool, src_ids = _pool_and_ids(rng, src, layers, 2 * nb_s + 2, nb_s,
+                                      cuda)
+    dst_pool, dst_ids = _pool_and_ids(rng, dst, layers, 2 * nb_d + 2, nb_d,
+                                      cuda)
+    want = ref.repack_ref(src, dst, src_pool, src_ids, dst_pool.clone(),
+                          dst_ids, seq)
+    ops.reset_launch_counts()
+    got = ops.repack(src, dst, src_pool, src_ids, dst_pool, dst_ids, seq)
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (counts["gather_pages"], counts["scatter_pages"],
+            counts["repack"]) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layers", [1, 32])
+def test_cow_copy_in_place(cuda, layout, dtype, layers):
+    """The prefix cache's copy-on-write: one page of a pool onto another
+    page of the same pool; the source and every other page are untouched."""
+    spec = KVPageSpec(32, layout, dtype, 4, 32)
+    rng = np.random.default_rng(layers)
+    pool = _rand(rng, (layers,) + spec.pool_shape(9), dtype, cuda)
+    before = pool.clone()
+    ids = torch.tensor([6, 2], dtype=torch.int32, device=cuda)
+    ops.repack(spec, spec, pool, ids[:1], pool, ids[1:], 32)
+    torch.cuda.synchronize()
+    assert torch.equal(pool[:, 2], before[:, 6])
+    keep = [i for i in range(9) if i != 2]
+    assert torch.equal(pool[:, keep], before[:, keep])
+
+
 @pytest.mark.parametrize("qk", [False, True])
 def test_model_kernel_route_matches_plain_route(cuda, monkeypatch, qk):
     """Prefill, a chunk at an offset, and paged decode of a small dense
@@ -200,6 +291,59 @@ def test_serving_on_card_matches_cpu(cuda, chunk, wire):
     counts = ops.launch_counts()
     want = serve(torch.device("cpu"), _to_cpu(params))
     assert got == want and all(len(t) == 6 for t in got)
+    # this path (no prefix cache) runs exactly the attention kernels and
+    # the overlay re-page
+    launched = {k for k, n in counts.items() if n > 0}
+    assert launched == {"flash_attention", "paged_attention",
+                        "scatter_pages_overlay"}, counts
+
+
+def test_cached_serving_on_card_matches_cold(cuda):
+    """The prefix cache on the card: requests sharing a prefix that ends
+    inside a D block, served one at a time with the cache and without it,
+    give identical tokens; the cached run skipped the wire for the shared
+    tokens and copied the divergence page with the repack kernel."""
+    cfg = config_from_dict(dict(
+        name="t", family="dense", num_layers=3, d_model=64, num_heads=4,
+        num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,
+        param_dtype="float32", compute_dtype="float32"))
+    params = TM.init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(5)
+    head = rng.integers(0, 256, 42).astype(np.int32)
+    prompts = [np.concatenate([head, rng.integers(0, 256, n).astype(np.int32)])
+               for n in (9, 5, 3)]
+
+    def serve(prefix_cache):
+        kw = dict(num_blocks=64, max_batch=4, max_seq_len=96, device=cuda,
+                  prefix_cache=prefix_cache)
+        pe = Engine("P0", cfg, params, VendorProfile("b", block_size=8,
+                                                      layout="nhbd", tp=2),
+                    role="prefill", **kw)
+        de = Engine("D0", cfg, params, VendorProfile("a", block_size=16,
+                                                      layout="nhdb", tp=1),
+                    role="decode", **kw)
+        pipe = DisaggPipeline(TransferEngine(), WireFormat("raw", "float32"))
+        sched = GlobalScheduler(pipe, prefill_chunk=14, device=cuda)
+        sched.add_instance(pe)
+        sched.add_instance(de)
+        reqs = [Request(f"r{i}", pr, 6) for i, pr in enumerate(prompts)]
+        for r in reqs:                         # one at a time
+            sched.submit(r)
+            for _ in range(500):
+                if r.state.value == "finished":
+                    break
+                sched.step()
+        return [r.output_tokens for r in reqs], pipe.transfer.stats, pe.stats
+
+    cold, _, _ = serve(False)
+    ops.reset_launch_counts()
+    got, wire, p_stats = serve(True)
+    counts = ops.launch_counts()
+    assert got == cold and all(len(t) == 6 for t in got)
+    assert wire.prefix_hit_tokens == 2 * 42          # 2 full blocks + 10 COW
+    assert p_stats.prefix_cached_tokens >= 2 * 40
+    assert counts["repack"] == counts["gather_pages"] == \
+        counts["scatter_pages"] == 2 * 2             # k, v per cached request
     assert all(n > 0 for n in counts.values()), counts
 
 

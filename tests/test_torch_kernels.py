@@ -223,3 +223,111 @@ def test_overlay_ref_casts_like_the_reference():
         interpret=True)
     assert np.array_equal(tpool[0].view(torch.uint16).numpy(),
                           np.asarray(want).view(np.uint16))
+
+
+# --------------------------------------------------------------------------- #
+# gather / scatter / repack: bit-identical, layer by layer
+# --------------------------------------------------------------------------- #
+def _bits_equal(got: torch.Tensor, want) -> bool:
+    want = np.asarray(want)
+    if got.dtype == torch.bfloat16:
+        return np.array_equal(got.view(torch.uint16).numpy(),
+                              want.view(np.uint16))
+    return np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_scatter_refs_bit_identical_to_pallas(layout, dtype):
+    """tests/test_kernels.py's sweep (block 8, 4 KV heads, head dim 16,
+    ids [3, 1, 7] of 10 pages) with a leading axis of 3 layers: each layer
+    of the port's plain versions against the Pallas kernels in interpret
+    mode and against the JAX oracles."""
+    layers = 3
+    spec = KVPageSpec(8, layout, dtype, 4, 16)
+    jspec = JPC.KVPageSpec(8, layout, dtype, 4, 16)
+    rng = np.random.default_rng(0)
+    pool = rng.standard_normal((layers,) + spec.pool_shape(10)).astype(
+        np.float32)
+    canon = rng.standard_normal((layers, 3, 8, 4, 16)).astype(np.float32)
+    ids = np.asarray([3, 1, 7], np.int32)
+    jpool, tpool = _pair(pool, dtype)
+    tpool = tpool.clone()        # scattered in place; jpool may share `pool`
+    jcanon, tcanon = _pair(canon, dtype)
+    tids, jids = torch.from_numpy(ids), jnp.asarray(ids)
+    got = ops.gather_pages(spec, tpool, tids)
+    assert got.shape == (layers, 3, 8, 4, 16) and got.is_contiguous()
+    got_f32 = ops.gather_pages(spec, tpool, tids, out_dtype=torch.float32)
+    ops.scatter_pages(spec, tpool, tids, tcanon)
+    for li in range(layers):
+        for want in (jops.gather_pages(jspec, jpool[li], jids,
+                                       force_interpret=True),
+                     jref.gather_pages_ref(jspec, jpool[li], jids)):
+            assert _bits_equal(got[li], want)
+        assert _bits_equal(got_f32[li], jkr.gather_pages(
+            jspec, jpool[li], jids, out_dtype=jnp.float32, interpret=True))
+        for want in (jops.scatter_pages(jspec, jpool[li], jids, jcanon[li],
+                                        force_interpret=True),
+                     jref.scatter_pages_ref(jspec, jpool[li], jids,
+                                            jcanon[li])):
+            assert _bits_equal(tpool[li], want)
+
+
+@pytest.mark.parametrize("src_layout,dst_layout,src_bs,dst_bs,src_dt,dst_dt", [
+    ("nbhd", "nhbd", 8, 4, "float32", "float32"),
+    ("nhdb", "nbhd", 4, 16, "float32", "bfloat16"),
+    ("nhbd", "nhdb", 16, 8, "bfloat16", "float32"),
+])
+def test_repack_ref_bit_identical_to_pallas(src_layout, dst_layout, src_bs,
+                                            dst_bs, src_dt, dst_dt):
+    """tests/test_kernels.py's Fig. 3 sweep (27 tokens, 2 KV heads, head
+    dim 16) with 2 layers, held layer by layer against the Pallas repack
+    in interpret mode and the JAX oracle; the dst pool starts non-zero so
+    the zero tail of the last page shows."""
+    layers, kv, hd, seq = 2, 2, 16, 27
+    src = KVPageSpec(src_bs, src_layout, src_dt, kv, hd)
+    dst = KVPageSpec(dst_bs, dst_layout, dst_dt, kv, hd)
+    jsrc = JPC.KVPageSpec(src_bs, src_layout, src_dt, kv, hd)
+    jdst = JPC.KVPageSpec(dst_bs, dst_layout, dst_dt, kv, hd)
+    nb_s, nb_d = src.blocks_for(seq), dst.blocks_for(seq)
+    rng = np.random.default_rng(src_bs + dst_bs)
+    src_pool = rng.standard_normal((layers,) + src.pool_shape(nb_s + 2)
+                                   ).astype(np.float32)
+    dst_pool = rng.standard_normal((layers,) + dst.pool_shape(nb_d + 2)
+                                   ).astype(np.float32)
+    src_blocks = np.arange(nb_s, 0, -1, dtype=np.int32)     # not sorted
+    dst_blocks = np.concatenate([[nb_d + 1], np.arange(1, nb_d)]).astype(
+        np.int32)
+    jsp, tsp = _pair(src_pool, src_dt)
+    jdp, tdp = _pair(dst_pool, dst_dt)
+    tdp = tdp.clone()            # repacked in place; jdp may share dst_pool
+    ops.repack(src, dst, tsp, torch.from_numpy(src_blocks), tdp,
+               torch.from_numpy(dst_blocks), seq)
+    for li in range(layers):
+        args = (jsp[li], jnp.asarray(src_blocks), jdp[li],
+                jnp.asarray(dst_blocks), seq)
+        assert _bits_equal(tdp[li], jops.repack(jsrc, jdst, *args,
+                                                force_interpret=True))
+        assert _bits_equal(tdp[li], jref.repack_ref(jsrc, jdst, *args))
+
+
+def test_cpu_calls_count_no_launch():
+    """Launches are counted per kernel name, and only where a kernel
+    launches: every op on CPU tensors leaves every count at 0."""
+    ops.reset_launch_counts()
+    spec = KVPageSpec(4, "nhbd", "float32", 2, 8)
+    pool = torch.randn((2,) + spec.pool_shape(6))
+    ids = torch.tensor([4, 1], dtype=torch.int32)
+    canon = ops.gather_pages(spec, pool, ids)
+    ops.scatter_pages(spec, pool, ids, canon)
+    ops.repack(spec, spec, pool, ids[:1], pool, ids[1:], 4)
+    ops.scatter_pages_overlay(spec, pool, ids, canon, front=1, seq_len=5)
+    q = torch.randn(1, 2, 8, 8)
+    ops.flash_attention(q, q[:, :1], q[:, :1])
+    ops.paged_attention(torch.randn(1, 2, 8), pool[0], pool[1],
+                        ids[None], torch.tensor([5], dtype=torch.int32),
+                        layout="nhbd")
+    assert ops.launch_counts() == {
+        "flash_attention": 0, "paged_attention": 0,
+        "scatter_pages_overlay": 0, "gather_pages": 0, "scatter_pages": 0,
+        "repack": 0}
