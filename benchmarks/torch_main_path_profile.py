@@ -22,23 +22,23 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# first match wins: the overlay is scatter_kernel<..., true>, the plain
-# scatter scatter_kernel<..., false>
+# first match wins; a family matches if its name holds any one key. The
+# port's kernels are matched with their namespace separator, so PyTorch's
+# own kernels (vectorized_gather_kernel<...>, say) are not counted as ours.
 FAMILIES = (("flash_attention", ("flash_fwd_kernel",)),
-            ("paged_attention", ("paged_decode_kernel",)),
-            ("scatter_pages_overlay", ("scatter_kernel<", "true>")),
-            ("scatter_pages", ("scatter_kernel<",)),
-            ("gather_pages", ("gather_kernel<",)),
+            ("paged_attention", ("::paged_decode_kernel<",)),
+            ("scatter_pages_overlay", ("::overlay_kernel<",)),
+            ("scatter_pages", ("::page_scatter_kernel<",
+                               "::tile_scatter_kernel<")),
+            ("gather_pages", ("::gather_kernel<",)),
             ("matmul", ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")),
             ("copy", ("memcpy", "memset")))
-ANY_OF = {"matmul", "copy"}          # families matched by any one key
 
 
 def family(name: str) -> str:
     low = name.lower()
     for fam, keys in FAMILIES:
-        hit = any if fam in ANY_OF else all
-        if hit(k in low for k in keys):
+        if any(k.lower() in low for k in keys):
             return fam
     return "other"
 

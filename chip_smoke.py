@@ -6,17 +6,29 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 nvcc, then runs five phases, each printing JSON lines:
 
-  0. card: name and power limit (``nvidia-smi``), kernel build time;
+  0. card: name and power limit (``nvidia-smi``), kernel build time, and
+     the count of HGMMA (wgmma), UTMALDG (TMA load) and SYNCS (mbarrier)
+     instructions in each kernel of the built library (``cuobjdump
+     -sass``), and each kernel's registers, spill bytes and whether
+     ptxas serialized its wgmma instructions (the build's ``-Xptxas=-v``
+     output); the bf16 flash kernel must have HGMMA and UTMALDG;
   1. every kernel against its plain PyTorch version on the card, over the
      JAX test-suite sweep shapes and the main path's llama2-7b shapes
-     (float32 within 2e-5; bfloat16 within 2e-2 at the sweep shapes and
-     within one rounding step per element at the main path's; the
-     re-page, gather, scatter and repack bit for bit, the last three also
-     at the prefix cache's copy-on-write shape and the full-width Fig. 3
-     shape), then each kernel's time, its plain version's time, a library
-     call's time where one computes the same function, and the least time
-     the card could take (bytes over 3.35 TB/s or operations over the
-     dense peak of the dtype, whichever is larger);
+     (float32 within 2e-5; bfloat16 within 2e-2 at the sweep shapes; at
+     the main path's shapes paged attention within one rounding step per
+     element, and flash within twice the max and mean error that
+     ``scaled_dot_product_attention`` makes on the same bf16 inputs, both
+     against the float32 plain version; the re-page, gather, scatter and
+     repack bit for bit, the last three also at the prefix cache's
+     copy-on-write shape and the full-width Fig. 3 shape), then each
+     kernel's time, its plain version's time, a library call's time where
+     one computes the same function, and the least time the card could
+     take (bytes over 3.35 TB/s or operations over the dense peak of the
+     dtype, whichever is larger). ``ms`` times back-to-back calls with
+     CUDA events (the host's enqueue included where it is the longer);
+     ``device_ms`` times a CUDA-graph replay of the same calls (device
+     time only), for the kernels and the library calls alike;
+     ``host_us`` is the wrapper's host cost per call;
   2. path parity: llama2-7b at full width with 2 layers in float32 (TF32
      off), one 300-token request through prefill, chunked prefill and 8
      paged decode steps on the card through the kernels and on the CPU
@@ -29,7 +41,8 @@ nvcc, then runs five phases, each printing JSON lines:
      prompts of 256-2048 tokens and 32 greedy output tokens each. The
      flash, paged and overlay kernels must have launched during this
      phase, and each request's last token must agree with a monolithic
-     prefill of its prompt and output;
+     prefill of its prompt and output; a digest of all output tokens is
+     printed;
   4. the prefix-cache path: the same model and vendors with the cache on
      both engines; a 1000-token system prompt shared by 8 requests with
      unique 64-512-token tails, request 0 served alone, then the other 7
@@ -52,6 +65,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -65,14 +79,20 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12                                  # H100 SXM HBM3
 SEED = 0
 # kernels against their plain versions: tests/test_kernels.py's tolerances
-# at the sweep shapes. At the main path's shapes bfloat16 is held tighter:
-# both sides compute in float32 and round once, so an element may differ
-# by one bfloat16 step (BF16_STEP of its size, above a floor for values
-# near 0) where the two float32 results straddle a rounding boundary, and
-# on average by far less than BF16_MEAN of the output's size. A product
-# summed in bfloat16 or a store that truncates breaks one or the other.
+# at the sweep shapes. At the main path's shapes bfloat16 is held tighter.
+# Paged attention: both sides compute in float32 and round once, so an
+# element may differ by one bfloat16 step (BF16_STEP of its size, above a
+# floor for values near 0) where the two float32 results straddle a
+# rounding boundary, and on average by far less than BF16_MEAN of the
+# output's size. A product summed in bfloat16 or a store that truncates
+# breaks one or the other. Flash rounds P to bfloat16 before P·V, as
+# every tensor-core flash attention does, so it is held to a yardstick:
+# its max and mean error against the float32 plain version at most
+# FLASH_VS_SDPA times those of scaled_dot_product_attention on the same
+# bfloat16 inputs.
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 BF16_FLOOR, BF16_STEP, BF16_MEAN = 1e-4, 2.0 ** -7, 2.0 ** -12
+FLASH_VS_SDPA = 2.0
 
 MODEL = "llama2-7b"
 # phase 2: path parity at full width, cut to 2 layers, float32
@@ -118,6 +138,70 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20, reps: int = 3):
+    """Device time of one call of ``fn``: CUDA events around replays of a
+    CUDA graph that holds ``iters`` calls, so the host's enqueue is out of
+    the time. Returns (ms, method). Where a capture fails, the kernels'
+    own time from ``torch.profiler`` instead, and the method says so."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    except RuntimeError:
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages())
+        return us / 1e3 / iters, "profiler"
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters), "cuda_graph"
+
+
+def host_us(fn, iters: int = 20) -> float:
+    """Host time of one call of ``fn`` (its enqueue: Python wrapper and
+    launch), on the host clock, with the device idle at the start."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
+
+
+def time_all(fn, plain=None, library=None, iters: int = 20,
+             plain_iters: int = 5):
+    """Every time the kernel table reports for one kernel: ``ms`` (events
+    around back-to-back calls), ``device_ms`` (graph replay), ``host_us``,
+    and the plain version's and the library call's times."""
+    out = {"ms": time_ms(fn, iters)}
+    out["device_ms"], out["device_method"] = device_ms(fn, iters)
+    out["host_us"] = host_us(fn)
+    out["plain_ms"] = (time_ms(plain, plain_iters) if plain is not None
+                       else None)
+    out["library_ms"] = out["library_device_ms"] = None
+    if library is not None:
+        out["library_ms"] = time_ms(library, iters)
+        out["library_device_ms"], _ = device_ms(library, iters)
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # phase 0: card and build
 # --------------------------------------------------------------------------- #
@@ -136,7 +220,92 @@ def phase0():
           "cuda": torch.version.cuda, "library": lib.name,
           "build_s": round(time.perf_counter() - t0, 3),
           "built_here": _build.build_seconds is not None})
+    cuda_bin = Path(_build._nvcc()).parent
+    sass = sass_counts(lib, cuda_bin)
+    emit({"phase": 0, "sass": sass})
+    log = _build.build_dir() / "build.log"
+    if log.exists():
+        emit({"phase": 0, "ptxas": ptxas_report(log.read_text(), cuda_bin)})
+    flash = [c for name, c in sass.items()
+             if name.startswith("flash_fwd_kernel_wgmma")]
+    if not flash or not all(c["HGMMA"] and c["UTMALDG"] for c in flash):
+        raise AssertionError(f"phase 0: the bf16 flash kernel has no "
+                             f"HGMMA/UTMALDG instructions: {flash}")
     return smi
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
+
+
+def sass_counts(lib: Path, cuda_bin: Path):
+    """Instructions of each of SASS_OPS in each kernel of the library
+    (``cuobjdump -sass``), by kernel name without its namespace and
+    parameters (template arguments kept)."""
+    text = subprocess.run([str(cuda_bin / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, mangled, fn = {}, [], None
+    for line in text.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            mangled.append(fn)
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            for op in SASS_OPS:
+                if op in line:
+                    counts[fn][op] += 1
+    return {name: counts[m]
+            for m, name in zip(mangled, kernel_names(mangled, cuda_bin))}
+
+
+def ptxas_report(log: str, cuda_bin: Path):
+    """Per kernel of the build's ``-Xptxas=-v`` output: registers, spill
+    bytes (stores), and whether ptxas serialized its wgmma instructions
+    (C7512)."""
+    out, fn, serialized = {}, None, set()
+    for line in log.splitlines():
+        if "C7512" in line:
+            serialized.add(line.rsplit("'", 2)[-2])
+        elif "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            out[fn] = {"registers": None, "spill_bytes": 0}
+        elif fn and "spill stores" in line:
+            out[fn]["spill_bytes"] = int(line.split("bytes spill stores")[0]
+                                         .rsplit(",", 1)[-1])
+        elif fn and "Used" in line and "registers" in line:
+            out[fn]["registers"] = int(line.split("Used")[1].split()[0])
+    for fn in out:
+        out[fn]["wgmma_serialized"] = fn in serialized
+    return {name: out[m] for m, name in zip(out, kernel_names(out, cuda_bin))}
+
+
+def kernel_names(mangled, cuda_bin: Path):
+    """Short names of mangled kernel symbols (``cu++filt``, where the
+    toolkit has it): ``void ns::f<A, (int)8>(A*, int)`` -> ``f<A, (int)8>``,
+    the name with its template arguments, without return type, namespace
+    or parameters."""
+    mangled = list(mangled)
+    filt = cuda_bin / "cu++filt"
+    if not filt.exists():
+        return mangled
+    names = subprocess.run([str(filt)], input="\n".join(mangled),
+                           capture_output=True, text=True, check=True,
+                           timeout=60).stdout.splitlines()
+    return [_short_name(n) for n in names]
+
+
+def _short_name(demangled: str) -> str:
+    name = demangled.removeprefix("void ")
+    for anon in ("(anonymous namespace)::", "<unnamed>::"):
+        name = name.replace(anon, "")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += {"<": 1, ">": -1}.get(ch, 0)
+        if ch == "(" and depth == 0:
+            name = name[:i]
+            break
+    return name.split("<", 1)[0].split("::")[-1] + (
+        "<" + name.split("<", 1)[1] if "<" in name else "")
 
 
 # --------------------------------------------------------------------------- #
@@ -169,17 +338,50 @@ def _check(what, got, want, dtype, main):
 
 def _flash_case(gen, dev, dtype, b, h, kv, sq, skv, d, window, q_offset,
                 main=False):
+    """flash against its plain version; at a main-path shape in bfloat16,
+    against the yardstick (see FLASH_VS_SDPA). Returns (max abs error,
+    inputs, the yardstick's numbers or None)."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     dt = getattr(torch, dtype)
     q = _rand(gen, (b, h, sq, d), dt, dev)
     k = _rand(gen, (b, kv, skv, d), dt, dev)
     v = _rand(gen, (b, kv, skv, d), dt, dev)
+    what = (f"flash {dtype} {(b, h, kv, sq, skv, d)} window={window} "
+            f"q_offset={q_offset}")
     got = ops.flash_attention(q, k, v, window=window, q_offset=q_offset)
-    want = ref.flash_attention_ref(q, k, v, window=window, q_offset=q_offset)
-    err = _check(f"flash {dtype} {(b, h, kv, sq, skv, d)} window={window} "
-                 f"q_offset={q_offset}", got, want, dtype, main)
-    return err, (q, k, v)
+    if not (main and dtype == "bfloat16"):
+        want = ref.flash_attention_ref(q, k, v, window=window,
+                                       q_offset=q_offset)
+        return _check(what, got, want, dtype, False), (q, k, v), None
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   window=window, q_offset=q_offset)
+    lib = F.scaled_dot_product_attention(
+        q, k, v, attn_mask=flash_mask(sq, skv, q_offset, window, dev))
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs()
+    lib_err = (lib.float() - want).abs()
+    yard = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+            "sdpa_max_abs_err": float(lib_err.max()),
+            "sdpa_mean_abs_err": float(lib_err.mean())}
+    if not (yard["max_abs_err"] <= FLASH_VS_SDPA * yard["sdpa_max_abs_err"]
+            and yard["mean_abs_err"]
+            <= FLASH_VS_SDPA * yard["sdpa_mean_abs_err"]):
+        raise AssertionError(f"{what}: errors against the float32 plain "
+                             f"version exceed {FLASH_VS_SDPA}x "
+                             f"scaled_dot_product_attention's: {yard}")
+    return yard["max_abs_err"], (q, k, v), yard
+
+
+def flash_mask(sq, skv, q_offset, window, dev):
+    """The causal (and window) mask of query rows at q_offset + i over
+    keys 0..skv-1, True where a key is visible."""
+    import torch
+    qi = torch.arange(q_offset, q_offset + sq, device=dev)[:, None]
+    kj = torch.arange(skv, device=dev)[None, :]
+    ok = kj <= qi
+    return ok & (qi - kj < window) if window > 0 else ok
 
 
 def _paged_inputs(gen, dev, dtype, layout, b, h, kv, d, bs, lens):
@@ -345,7 +547,6 @@ def phase1_pages(gen, dev, cfg):
     fig3 = _repack_case(gen, dev, "nhbd", "nbhd", 16, 32, "bfloat16",
                         "bfloat16", layers, kv, hd, 2048)
     counts["repack"] += 1
-    emit({"phase": 1, "pages_checks": counts, "pages": "bit-identical"})
 
     # timings at the COW shape: one 32-row page of every layer
     page_bytes = 2.0 * layers * bs * kv * hd          # one pool page, bf16
@@ -356,11 +557,11 @@ def phase1_pages(gen, dev, cfg):
         shape=f"1 page of pool ({layers},9,{bs},{kv},{hd}) nbhd bf16 -> "
               f"canon ({layers},1,{bs},{kv},{hd})",
         max_abs_err=0.0,
-        ms=time_ms(lambda: ops.gather_pages(g_spec, g_pool, g_ids, g_dt)),
-        plain_ms=time_ms(lambda: ref.gather_pages_ref(g_spec, g_pool, g_ids,
-                                                      g_dt)),
-        library_ms=time_ms(lambda: g_pool.index_select(1, g_ids.long())
-                           .contiguous()),
+        **time_all(lambda: ops.gather_pages(g_spec, g_pool, g_ids, g_dt),
+                   plain=lambda: ref.gather_pages_ref(g_spec, g_pool, g_ids,
+                                                      g_dt),
+                   library=lambda: g_pool.index_select(1, g_ids.long())
+                   .contiguous(), plain_iters=20),
         bound_ms=b_ms, bound_by=b_by)
     s_spec, s_pool, s_ids, s_canon = cow["scatter"]
     s_long = s_ids.long()
@@ -368,23 +569,24 @@ def phase1_pages(gen, dev, cfg):
         shape=f"canon ({layers},1,{bs},{kv},{hd}) -> 1 page of pool "
               f"({layers},9,{bs},{kv},{hd}) nbhd bf16",
         max_abs_err=0.0,
-        ms=time_ms(lambda: ops.scatter_pages(s_spec, s_pool, s_ids,
-                                             s_canon)),
-        plain_ms=time_ms(lambda: ref.scatter_pages_ref(s_spec, s_pool, s_ids,
-                                                       s_canon)),
-        library_ms=time_ms(lambda: s_pool.index_copy_(1, s_long, s_canon)),
+        **time_all(lambda: ops.scatter_pages(s_spec, s_pool, s_ids, s_canon),
+                   plain=lambda: ref.scatter_pages_ref(s_spec, s_pool, s_ids,
+                                                       s_canon),
+                   library=lambda: s_pool.index_copy_(1, s_long, s_canon),
+                   plain_iters=20),
         bound_ms=b_ms, bound_by=b_by)
     src_l, dst_l = ids[:1].long(), ids[1:].long()
     timings["repack"] = dict(
         shape=f"COW: page 6 -> page 2 of pool ({layers},9,{bs},{kv},{hd}) "
               "nbhd bf16, in place",
         max_abs_err=0.0,
-        ms=time_ms(lambda: ops.repack(spec, spec, pool, ids[:1], pool,
-                                      ids[1:], bs)),
-        plain_ms=time_ms(lambda: ref.repack_ref(spec, spec, pool, ids[:1],
-                                                pool, ids[1:], bs)),
-        library_ms=time_ms(lambda: pool.index_copy_(
-            1, dst_l, pool.index_select(1, src_l))),
+        **time_all(lambda: ops.repack(spec, spec, pool, ids[:1], pool,
+                                      ids[1:], bs),
+                   plain=lambda: ref.repack_ref(spec, spec, pool, ids[:1],
+                                                pool, ids[1:], bs),
+                   library=lambda: pool.index_copy_(
+                       1, dst_l, pool.index_select(1, src_l)),
+                   plain_iters=20),
         bound_ms=b_ms, bound_by=b_by)
     # the paper's Fig. 3 at full width: 512 MiB in and out per pool
     src, dst, src_pool, src_ids, dst_pool, dst_ids = fig3
@@ -400,12 +602,33 @@ def phase1_pages(gen, dev, cfg):
     emit({"phase": 1, "extra": "repack at the Fig. 3 shape",
           "shape": f"2048 tokens, {layers} layers, nhbd bs16 -> nbhd bs32, "
                    "bf16",
-          "ms": time_ms(lambda: ops.repack(src, dst, src_pool, src_ids,
-                                           dst_pool, dst_ids, 2048)),
-          "plain_ms": time_ms(lambda: ref.repack_ref(
-              src, dst, src_pool, src_ids, dst_pool, dst_ids, 2048), 5),
-          "library_ms": time_ms(fig3_library),
+          **time_all(lambda: ops.repack(src, dst, src_pool, src_ids,
+                                        dst_pool, dst_ids, 2048),
+                     plain=lambda: ref.repack_ref(src, dst, src_pool, src_ids,
+                                                  dst_pool, dst_ids, 2048),
+                     library=fig3_library, iters=5),
           "bound_ms": f_ms, "bound_by": f_by})
+    del fig3, src_pool, dst_pool
+    # its scatter half: the canonical 2048 tokens into 64 unsorted dst pages
+    n_pg = 2048 // bs
+    order = torch.randperm(n_pg, generator=torch.Generator().manual_seed(SEED))
+    f_spec, f_pool, f_ids, f_canon = _pages_case(
+        gen, dev, "scatter", "nbhd", "bfloat16", "bfloat16", layers, bs, kv,
+        hd, n_pg + 2, (order + 1).tolist())
+    counts["scatter_pages"] += 1
+    f_long = f_ids.long()
+    emit({"phase": 1, "extra": "scatter_pages at the Fig. 3 shape",
+          "shape": f"canon ({layers},{n_pg},{bs},{kv},{hd}) -> {n_pg} pages "
+                   f"of pool ({layers},{n_pg + 2},{bs},{kv},{hd}) nbhd bf16",
+          "bit_identical": True,
+          **time_all(lambda: ops.scatter_pages(f_spec, f_pool, f_ids,
+                                               f_canon),
+                     plain=lambda: ref.scatter_pages_ref(f_spec, f_pool,
+                                                         f_ids, f_canon),
+                     library=lambda: f_pool.index_copy_(1, f_long, f_canon),
+                     iters=10),
+          "bound_ms": f_ms, "bound_by": f_by})
+    emit({"phase": 1, "pages_checks": counts, "pages": "bit-identical"})
     return timings
 
 
@@ -416,7 +639,8 @@ def phase1(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     counts = {"flash": 0, "paged": 0, "overlay": 0}
-    main_err = {"flash": 0.0, "paged": 0.0}     # main-path shapes, bfloat16
+    main_err = {"paged": 0.0}                   # main-path shapes, bfloat16
+    yardstick = []                              # flash at main-path shapes
 
     # flash: the JAX sweep shapes, a chunk at an offset, llama2-7b prefill
     for dtype in ("float32", "bfloat16"):
@@ -427,11 +651,12 @@ def phase1(dev):
                                             (1, 32, 32, 2048, 2048, 128, 0)]:
             main = sq == 2048
             for window in (0, 9):
-                err, _ = _flash_case(gen, dev, dtype, b, h, kv, sq, skv, d,
-                                     window, q_off, main)
+                _, _, yard = _flash_case(gen, dev, dtype, b, h, kv, sq, skv,
+                                         d, window, q_off, main)
                 counts["flash"] += 1
-                if main and dtype == "bfloat16":
-                    main_err["flash"] = max(main_err["flash"], err)
+                if yard is not None:
+                    yardstick.append({"shape": (b, h, kv, sq, skv, d),
+                                      "window": window, **yard})
     # paged: the JAX sweep shapes in every layout, llama2-7b decode
     decode_lens = [int(x) for x in torch.randint(
         1800, 2081, (8,), generator=torch.Generator().manual_seed(SEED))]
@@ -471,6 +696,7 @@ def phase1(dev):
     emit({"phase": 1, "checks": counts, "atol": ATOL,
           "main_bf16": {"floor": BF16_FLOOR, "step": BF16_STEP,
                         "mean": BF16_MEAN, "max_abs_err": main_err},
+          "flash_vs_sdpa": {"limit": FLASH_VS_SDPA, "cases": yardstick},
           "overlay": "bit-identical"})
 
     # timings at the main path's shapes (bfloat16)
@@ -478,33 +704,32 @@ def phase1(dev):
     # flash: a 500-token prefill chunk at offset 1500 against a 2000-slot
     # full-capacity cache (kv_len = capacity, as attention_decode calls it)
     c0, sq, cap, h, d = 1500, 500, 2000, 32, 128
-    err, (q, k, v) = _flash_case(gen, dev, "bfloat16", 1, h, h, sq, cap, d,
-                                 0, c0, main=True)
-    mask = (torch.arange(cap, device=dev)[None, :]
-            <= torch.arange(c0, c0 + sq, device=dev)[:, None])
+    err, (q, k, v), yard = _flash_case(gen, dev, "bfloat16", 1, h, h, sq,
+                                       cap, d, 0, c0, main=True)
+    mask = flash_mask(sq, cap, c0, 0, dev)
     pairs = sq * c0 + sq * (sq + 1) // 2
     flops = 4.0 * d * pairs * h
     nbytes = 2.0 * (2 * sq * h * d + 2 * (c0 + sq) * h * d)
     b_ms, b_by = bound(flops, nbytes, "bfloat16")
     timings["flash_attention"] = dict(
         shape=f"q(1,{h},{sq},{d}) q_offset={c0} kv(1,{h},{cap},{d}) bf16",
-        max_abs_err=err,
-        ms=time_ms(lambda: ops.flash_attention(q, k, v, q_offset=c0)),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v,
-                                                         q_offset=c0), 5),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask)),
+        max_abs_err=err, yardstick=yard,
+        **time_all(lambda: ops.flash_attention(q, k, v, q_offset=c0),
+                   plain=lambda: ref.flash_attention_ref(q, k, v,
+                                                         q_offset=c0),
+                   library=lambda: F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=mask)),
         bound_ms=b_ms, bound_by=b_by)
     # the monolithic 2048-token prefill, for reference
-    _, (q2, k2, v2) = _flash_case(gen, dev, "bfloat16", 1, 32, 32, 2048,
-                                  2048, 128, 0, 0, main=True)
+    _, (q2, k2, v2), yard2 = _flash_case(gen, dev, "bfloat16", 1, 32, 32,
+                                         2048, 2048, 128, 0, 0, main=True)
     f2 = 4.0 * 128 * 32 * (2048 * 2049 // 2)
     b2, by2 = bound(f2, 2.0 * 4 * 2048 * 32 * 128, "bfloat16")
     emit({"phase": 1, "extra": "flash_attention monolithic prefill",
-          "shape": "q,k,v (1,32,2048,128) causal bf16",
-          "ms": time_ms(lambda: ops.flash_attention(q2, k2, v2)),
-          "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-              q2, k2, v2, is_causal=True)),
+          "shape": "q,k,v (1,32,2048,128) causal bf16", "yardstick": yard2,
+          **time_all(lambda: ops.flash_attention(q2, k2, v2),
+                     library=lambda: F.scaled_dot_product_attention(
+                         q2, k2, v2, is_causal=True)),
           "bound_ms": b2, "bound_by": by2})
     del q2, k2, v2
     # paged: 8 sequences of ~2k tokens, block 32, nbhd (the D vendor)
@@ -517,10 +742,10 @@ def phase1(dev):
     timings["paged_attention"] = dict(
         shape=f"q(8,32,128) pools nbhd bs32 bf16, seq_lens {decode_lens}",
         max_abs_err=err,
-        ms=time_ms(lambda: ops.paged_attention(*args, layout="nbhd")),
-        plain_ms=time_ms(lambda: ref.paged_attention_ref(*args,
-                                                         layout="nbhd"), 5),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        **time_all(lambda: ops.paged_attention(*args, layout="nbhd"),
+                   plain=lambda: ref.paged_attention_ref(*args,
+                                                         layout="nbhd")),
+        bound_ms=b_ms, bound_by=b_by)
     # overlay: one 500-token chunk's rows landing 20 rows into a page, 32
     # layers, as the streamed re-page hands them over
     err, (spec, pool, ids, canon) = _overlay_case(
@@ -532,11 +757,11 @@ def phase1(dev):
         shape="rows (32,500,32,128) into pool (32,N,32,32,128) nbhd bf16, "
               "17 pages, front 20",
         max_abs_err=err,
-        ms=time_ms(lambda: ops.scatter_pages_overlay(
-            spec, pool, ids, canon, front=20, seq_len=500)),
-        plain_ms=time_ms(lambda: ref.scatter_pages_overlay_ref(
-            spec, pool, ids, canon, front=20, seq_len=500), 5),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        **time_all(lambda: ops.scatter_pages_overlay(
+                       spec, pool, ids, canon, front=20, seq_len=500),
+                   plain=lambda: ref.scatter_pages_overlay_ref(
+                       spec, pool, ids, canon, front=20, seq_len=500)),
+        bound_ms=b_ms, bound_by=b_by)
     from repro_torch.configs import get_config
     timings.update(phase1_pages(gen, dev, get_config(MODEL)))
     for name, t in timings.items():
@@ -680,6 +905,15 @@ def last_token_gap(cfg, params, dev, reqs) -> float:
     return worst
 
 
+def tokens_digest(reqs) -> str:
+    """sha256 of every request's output tokens, in request order: two runs
+    gave the same tokens where their digests agree."""
+    h = hashlib.sha256()
+    for r in reqs:
+        h.update(repr([int(t) for t in r.output_tokens]).encode())
+    return h.hexdigest()[:16]
+
+
 def check_outputs(cfg, reqs) -> None:
     for r in reqs:
         if len(r.output_tokens) != MAX_NEW or r.state.value != "finished":
@@ -761,6 +995,7 @@ def phase3(dev, around_serve=contextlib.nullcontext, params=None):
            "wire_handoff_s": pipe.transfer.stats.wall_handoff_seconds,
            "chunks_streamed": sched.stats.chunks_streamed,
            "wire_bytes": pipe.transfer.stats.bytes_moved,
+           "tokens_sha256": tokens_digest(reqs),
            "last_token_logit_gap_max": worst}
     if dev.type == "cuda":
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -904,13 +1139,15 @@ def phase4(dev, params):
            "tail_lens": [int(x) for x in tails], "max_new_tokens": MAX_NEW,
            "prefill_chunk": PREFILL_CHUNK, "cached": cached, "cold": cold,
            "launches": launches, "tokens_identical_to_cold": same,
+           "tokens_sha256": {"cached": tokens_digest(reqs),
+                             "cold": tokens_digest(cold_reqs)},
            "last_token_logit_gap_max": worst, "peak_mem_gib": peak}
     emit(out)
     return out
 
 
 KERNELS = [
-    ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+    ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
      "src/repro/kernels/flash_attention.py:78", 3),
     ("paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
      "src/repro/kernels/paged_attention.py:81", 3),
@@ -964,7 +1201,10 @@ def main() -> int:
                "launches": paths[phase]["launches"][name],
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-               "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+               "device_ms": t["device_ms"],
+               "library_device_ms": t["library_device_ms"],
+               "device_method": t["device_method"], "host_us": t["host_us"]}
         if name == "repack":
             row["composition"] = "gather_pages + scatter_pages"
         rows.append(row)

@@ -1,27 +1,30 @@
-// Flash attention forward (prefill) for Hopper, float32 or bfloat16.
+// Flash attention forward (prefill) for Hopper, float32 on the CUDA cores;
+// the C entry point rt_flash_attention, which picks the kernel by dtype.
 //
 // Replaces: src/repro/kernels/flash_attention.py : flash_attention
 //           (_flash_kernel, the Pallas TPU FlashAttention-2 schedule).
 //
-// What bounds it on this card: operations. A prefill of S tokens does
-// about 4·S²·d/2 multiply-adds per head under the causal mask against
-// reading each of q, k, v once, far above the H100's ~295 operations per
-// byte ridge. This first version runs the products on the CUDA cores in
-// float32 (no wgmma yet), so it sits well below the tensor-core peak.
+// Dispatch by dtype, not a fallback: bfloat16 runs the tensor-core kernel
+// in flash_attention_wgmma.cu (wgmma + TMA). float32 runs this kernel,
+// because the tensor cores take float32 only as TF32, which keeps about
+// three decimal digits and cannot meet the 2e-5 float32 tolerance.
+//
+// What bounds it on this card: operations, about 4·Sq·n·d flops per head
+// for n visible keys, against float32's 67 TFLOP/s on the CUDA cores.
 //
 // Design: one block per (64-row query tile, head, batch). The block walks
-// 32-row K/V tiles staged in shared memory as float32 and keeps an online
-// softmax (running max m, sum l, output accumulator) in registers, so the
-// Sq×Skv score matrix never reaches device memory. 256 threads: four
-// threads share one query row, each scores 8 keys of the tile and owns
-// every fourth output column; the row's max and sum reduce with two warp
+// 32-row K/V tiles staged in shared memory and keeps an online softmax
+// (running max m, sum l, output accumulator) in registers, so the Sq×Skv
+// score matrix never reaches device memory. 256 threads: four threads
+// share one query row, each scores 8 keys of the tile and owns every
+// fourth output column; the row's max and sum reduce with two warp
 // shuffles. Tiles wholly above the causal diagonal (taking the chunk's
 // absolute `q_offset` into account) or wholly outside the sliding window
 // are never loaded. GQA maps query head h to KV head h / grp by index.
 // q, k, v and o are read through (batch, head, seq) strides with a unit
 // stride on the head dimension, so the model hands in its (B, S, H, d)
 // activations without a transpose copy. Shared memory (~74 KB) is above
-// the 48 KB default and is opted into with cudaFuncSetAttribute.
+// the 48 KB default; the attribute is set once per process.
 #include "common.cuh"
 
 namespace {
@@ -37,10 +40,9 @@ constexpr int CPT = DMAX / 4;    // output columns owned per thread
 constexpr size_t kSmemBytes =
     sizeof(float) * (size_t)(BQ * LDS + 2 * BK * LDS + BQ * (BK + 1));
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  int grp, int Sq, int D,
                  long long q_sb, long long q_sh, long long q_ss,
                  long long k_sb, long long k_sh, long long k_ss,
@@ -61,14 +63,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int kvh = h / grp;
 
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + kvh * k_sh;
-  const T* vb = v + b * v_sb + kvh * v_sh;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + kvh * k_sh;
+  const float* vb = v + b * v_sb + kvh * v_sh;
 
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int r = e / D, c = e - r * D;
     const int qi = qt0 + r;
-    Qs[r * LDS + c] = (qi < Sq) ? rt::to_f(qb[(long long)qi * q_ss + c]) : 0.f;
+    Qs[r * LDS + c] = (qi < Sq) ? qb[(long long)qi * q_ss + c] : 0.f;
   }
 
   float acc[CPT];
@@ -85,7 +87,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int kv_start = 0;
   if (window > 0) kv_start = max(0, q_first - window + 1);  // window skip
   const int t_begin = kv_start / BK;
-  const int t_end = (kv_end + BK - 1) / BK;
+  const int t_end = kv_end > kv_start ? (kv_end + BK - 1) / BK : t_begin;
 
   __syncthreads();
   for (int t = t_begin; t < t_end; ++t) {
@@ -94,8 +96,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / D, c = e - r * D;
       const int kj = kt0 + r;
       const bool in = kj < kv_len;
-      Ks[r * LDS + c] = in ? rt::to_f(kb[(long long)kj * k_ss + c]) : 0.f;
-      Vs[r * LDS + c] = in ? rt::to_f(vb[(long long)kj * v_ss + c]) : 0.f;
+      Ks[r * LDS + c] = in ? kb[(long long)kj * k_ss + c] : 0.f;
+      Vs[r * LDS + c] = in ? vb[(long long)kj * v_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -152,36 +154,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi = qt0 + row;
   if (qi < Sq) {
     const float l = fmaxf(l_i, 1e-30f);        // a row with no visible key writes 0
-    T* orow = o + b * o_sb + h * o_sh + (long long)qi * o_ss;
+    float* orow = o + b * o_sb + h * o_sh + (long long)qi * o_ss;
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       const int c = quad + 4 * i;
-      if (c < D) orow[c] = rt::from_f<T>(acc[i] / l);
+      if (c < D) orow[c] = acc[i] / l;
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o,
-           int B, int H, int KVH, int Sq, int D,
-           long long q_sb, long long q_sh, long long q_ss,
-           long long k_sb, long long k_sh, long long k_ss,
-           long long v_sb, long long v_sh, long long v_ss,
-           long long o_sb, long long o_sh, long long o_ss,
-           float scale, int causal, int window, int q_offset, int kv_len,
-           cudaStream_t stream) {
-  cudaError_t err = rt::allow_smem(flash_fwd_kernel<T>, kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T><<<grid, THREADS, kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H / KVH, Sq, D,
-      q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-      scale, causal, window, q_offset, kv_len);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
+
+// The bfloat16 kernel's launch (flash_attention_wgmma.cu).
+int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
+                         int B, int H, int KVH, int Sq, int D,
+                         long long q_sb, long long q_sh, long long q_ss,
+                         long long k_sb, long long k_sh, long long k_ss,
+                         long long v_sb, long long v_sh, long long v_ss,
+                         long long o_sb, long long o_sh, long long o_ss,
+                         float scale, int causal, int window, int q_offset,
+                         int kv_len, cudaStream_t stream);
 
 extern "C" int rt_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype,
@@ -195,13 +187,19 @@ extern "C" int rt_flash_attention(
   if (D > DMAX || D <= 0 || KVH <= 0 || H % KVH != 0) return (int)cudaErrorInvalidValue;
   if (Sq <= 0 || B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::kF32)
-    return launch<float>(q, k, v, o, B, H, KVH, Sq, D, q_sb, q_sh, q_ss,
-                         k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-                         scale, causal, window, q_offset, kv_len, s);
   if (dtype == rt::kBF16)
-    return launch<__nv_bfloat16>(q, k, v, o, B, H, KVH, Sq, D, q_sb, q_sh, q_ss,
-                                 k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
-                                 o_ss, scale, causal, window, q_offset, kv_len, s);
-  return (int)cudaErrorInvalidValue;
+    return flash_attention_bf16(q, k, v, o, B, H, KVH, Sq, D, q_sb, q_sh, q_ss,
+                                k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
+                                o_ss, scale, causal, window, q_offset, kv_len,
+                                s);
+  if (dtype != rt::kF32) return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = rt::allow_smem(flash_fwd_kernel, kSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_fwd_kernel<<<grid, THREADS, kSmemBytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H / KVH, Sq, D,
+      q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
+      scale, causal, window, q_offset, kv_len);
+  return (int)cudaGetLastError();
 }

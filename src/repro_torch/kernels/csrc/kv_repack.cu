@@ -15,39 +15,50 @@
 // once (one read, one write) and computes nothing but a cast, so the floor
 // is the bytes moved over 3.35 TB/s.
 //
-// Design: one block per (page, layer): the leading layer axis lets one
-// launch move every layer of a pool, where the reference vmaps a per-layer
-// kernel. Threads walk the destination page in its own memory order
-// (contiguous, coalesced stores) and read the source page through the
-// strides of the matching axes, casting on the way (round to nearest even
-// through rt::cvt, as torch/ml_dtypes cast). Page ids are read by each
-// block from the id list; the gather writes a separate buffer, so a copy
-// from one page of a pool to another (the prefix cache's copy-on-write)
-// is a gather followed by a scatter on the same stream, never one kernel
-// reading and writing the same pool.
+// Every kernel takes a leading layer axis, so one launch moves every layer
+// of a pool, where the reference vmaps a per-layer kernel. Page ids are
+// read by each block from the id list. The gather writes a separate
+// buffer, so a copy from one page of a pool to another (the prefix cache's
+// copy-on-write) is a gather followed by a scatter on the same stream,
+// never one kernel reading and writing the same pool. Casts round to
+// nearest even through rt::cvt, as torch/ml_dtypes cast.
 //
-// Overlay: the canon is either whole pages or the streamed rows alone:
-// `canon_off` (an element offset, negative for the latter) moves the page
-// origin so that a chunk landing mid-page is read where it lies, with no
-// padded copy. Rows outside the flat span [front, front + seq_len) are
-// simply not written: because the pool is updated in place, that leaves
-// exactly what the reference's read-merge-write would, so the pool stays
-// bit-identical to the plain version. The plain scatter is the same code
-// with the row test compiled out.
+// scatter_pages: many blocks per page and 16-byte accesses. Each (page,
+// layer) is cut into chunks of 16 KiB of pool (page_scatter_kernel), so the
+// copy-on-write shape (one 256 KiB page in each of 32 layers) launches 512
+// blocks, not 32. Where the page's innermost axis is the canonical one (hd
+// for nbhd and nhbd), each thread moves VEC elements per access: 8 bf16 or
+// 4 f32 in 16 bytes, fewer where a pointer or stride allows less; the
+// wrapper picks VEC, the largest power of two that divides every offset
+// the kernel forms (kv_repack.py:vector_width). nhdb keeps the token
+// innermost: tile_scatter_kernel stages a (32 token x 128 dim) tile in
+// shared memory, read along hd with VEC-wide loads and written along the
+// token with consecutive threads on consecutive addresses, so both sides
+// stay coalesced.
+//
+// gather_pages and the overlay: one block per (page, layer). Threads walk
+// the destination page in its own memory order (contiguous, coalesced
+// stores) and read the source page through the strides of the matching
+// axes. The overlay's canon is either whole pages or the streamed rows
+// alone: `canon_off` (an element offset, negative for the latter) moves
+// the page origin so that a chunk landing mid-page is read where it lies,
+// with no padded copy. Rows outside the flat span [front, front + seq_len)
+// are simply not written: because the pool is updated in place, that
+// leaves exactly what the reference's read-merge-write would, so the pool
+// stays bit-identical to the plain version.
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 
-// kRows: test each row against [front, front + seq_len) (overlay); without
-// it every row of every page is written (scatter_pages).
-template <typename Tp, typename Tc, bool kRows>
+// Overlay: rows of each page in [front, front + seq_len) (flat rows of the
+// block list) from canon, cast; every other row keeps its contents.
+template <typename Tp, typename Tc>
 __global__ void __launch_bounds__(THREADS)
-scatter_kernel(Tp* __restrict__ pool, const Tc* __restrict__ canon,
-               const int* __restrict__ ids, int BS,
-               long long pool_sl, long long pool_sn,
-               int D0, int D1, int D2, int tok_axis,
+overlay_kernel(Tp* __restrict__ pool, const Tc* __restrict__ canon,
+               const int* __restrict__ ids, int BS, long long pool_sl,
+               long long pool_sn, int D0, int D1, int D2, int tok_axis,
                long long c_s0, long long c_s1, long long c_s2,
                long long canon_sl, long long canon_sp, long long canon_off,
                int front, int seq_len) {
@@ -64,27 +75,168 @@ scatter_kernel(Tp* __restrict__ pool, const Tc* __restrict__ canon,
     const int r = e / D2;
     const int i1 = r % D1;
     const int i0 = r / D1;
-    if constexpr (kRows) {
-      const int t = tok_axis == 0 ? i0 : (tok_axis == 1 ? i1 : i2);
-      if (t < lo || t >= hi) continue;
-    }
+    const int t = tok_axis == 0 ? i0 : (tok_axis == 1 ? i1 : i2);
+    if (t < lo || t >= hi) continue;
     dst[e] = rt::cvt<Tp>(canon[base + i0 * c_s0 + i1 * c_s1 + i2 * c_s2]);
   }
 }
 
-template <typename Tp, typename Tc, bool kRows>
-int launch_scatter(void* pool, const void* canon, const int* ids, int L,
+template <typename Tp, typename Tc>
+int launch_overlay(void* pool, const void* canon, const int* ids, int L,
                    int nb, int BS, long long pool_sl, long long pool_sn,
                    int D0, int D1, int D2, int tok_axis, long long c_s0,
                    long long c_s1, long long c_s2, long long canon_sl,
                    long long canon_sp, long long canon_off, int front,
                    int seq_len, cudaStream_t stream) {
   dim3 grid(nb, L);
-  scatter_kernel<Tp, Tc, kRows><<<grid, THREADS, 0, stream>>>(
+  overlay_kernel<Tp, Tc><<<grid, THREADS, 0, stream>>>(
       static_cast<Tp*>(pool), static_cast<const Tc*>(canon), ids, BS, pool_sl,
       pool_sn, D0, D1, D2, tok_axis, c_s0, c_s1, c_s2, canon_sl, canon_sp,
       canon_off, front, seq_len);
   return (int)cudaGetLastError();
+}
+
+// VEC elements of T, moved as one access of VEC * sizeof(T) bytes.
+template <int BYTES> struct RawOf;
+template <> struct RawOf<2> { using T = unsigned short; };
+template <> struct RawOf<4> { using T = unsigned int; };
+template <> struct RawOf<8> { using T = uint2; };
+template <> struct RawOf<16> { using T = uint4; };
+
+template <typename T, int VEC>
+union Vec {
+  typename RawOf<sizeof(T) * VEC>::T raw;
+  T v[VEC];
+};
+
+// Load VEC elements of From at p (aligned to the access), cast to To.
+template <typename To, typename From, int VEC>
+__device__ __forceinline__ Vec<To, VEC> load_cvt(const From* p) {
+  Vec<From, VEC> x;
+  x.raw = *reinterpret_cast<const decltype(x.raw)*>(p);
+  Vec<To, VEC> y;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) y.v[i] = rt::cvt<To>(x.v[i]);
+  return y;
+}
+
+constexpr int CHUNK_BYTES = 16 * 1024;     // pool bytes per block
+constexpr int TT = 32, TD = 128;           // nhdb tile: tokens x dims
+
+// scatter_pages, page (D0, D1, HD) with hd innermost (nbhd: D0 = bs,
+// D1 = kv; nhbd: D0 = kv, D1 = bs). Block x: (page, chunk); y: layer.
+// canon axis strides c_s0, c_s1 match D0, D1; hd's stride is 1 when
+// VEC > 1 (the wrapper's choice), c_sd otherwise.
+template <typename Tp, typename Tc, int VEC>
+__global__ void __launch_bounds__(THREADS)
+page_scatter_kernel(Tp* __restrict__ pool, const Tc* __restrict__ canon,
+                    const int* __restrict__ ids, int chunks, int chunk_elems,
+                    int page_elems, int D1, int HD, long long pool_sl,
+                    long long pool_sn, long long c_s0, long long c_s1,
+                    long long c_sd, long long canon_sl, long long canon_sp) {
+  const int pg = blockIdx.x / chunks;
+  const int e0 = (blockIdx.x % chunks) * chunk_elems;
+  const int e1 = min(e0 + chunk_elems, page_elems);
+  const int layer = blockIdx.y;
+  Tp* dst = pool + layer * pool_sl + (long long)ids[pg] * pool_sn;
+  const Tc* src = canon + layer * canon_sl + (long long)pg * canon_sp;
+#pragma unroll 4
+  for (int e = e0 + threadIdx.x * VEC; e < e1; e += THREADS * VEC) {
+    const int d = e % HD;
+    const int r = e / HD;
+    const long long at = (r / D1) * c_s0 + (r % D1) * c_s1 + d * c_sd;
+    const Vec<Tp, VEC> y = load_cvt<Tp, Tc, VEC>(src + at);
+    *reinterpret_cast<decltype(y.raw)*>(dst + e) = y.raw;
+  }
+}
+
+// scatter_pages into nhdb pages (kv, hd, bs): the canonical (bs, hd) slab
+// of one head is transposed through a (TT x TD) tile in shared memory.
+// Block x: (page, head, token tile, dim tile); y: layer.
+template <typename Tp, typename Tc, int VEC>
+__global__ void __launch_bounds__(THREADS)
+tile_scatter_kernel(Tp* __restrict__ pool, const Tc* __restrict__ canon,
+                    const int* __restrict__ ids, int BS, int KV, int HD,
+                    long long pool_sl, long long pool_sn, long long c_st,
+                    long long c_sh, long long c_sd, long long canon_sl,
+                    long long canon_sp) {
+  constexpr int LD = TD + 4 / sizeof(Tp);    // odd row stride in words
+  __shared__ Tp tile[TT * LD];
+  const int n_tt = (BS + TT - 1) / TT, n_td = (HD + TD - 1) / TD;
+  int x = blockIdx.x;
+  const int td = x % n_td; x /= n_td;
+  const int tt = x % n_tt; x /= n_tt;
+  const int hh = x % KV;
+  const int pg = x / KV;
+  const int layer = blockIdx.y;
+  const int t0 = tt * TT, d0 = td * TD;
+  const Tc* src = canon + layer * canon_sl + (long long)pg * canon_sp +
+                  hh * c_sh;
+  for (int i = threadIdx.x * VEC; i < TT * TD; i += THREADS * VEC) {
+    const int t = i / TD, d = i % TD;
+    if (t0 + t < BS && d0 + d < HD) {
+      const Vec<Tp, VEC> y =
+          load_cvt<Tp, Tc, VEC>(src + (t0 + t) * c_st + (d0 + d) * c_sd);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) tile[t * LD + d + j] = y.v[j];
+    }
+  }
+  __syncthreads();
+  Tp* dst = pool + layer * pool_sl + (long long)ids[pg] * pool_sn +
+            (long long)hh * HD * BS;
+  for (int i = threadIdx.x; i < TT * TD; i += THREADS) {
+    const int d = i / TT, t = i % TT;
+    if (t0 + t < BS && d0 + d < HD)
+      dst[(d0 + d) * BS + t0 + t] = tile[t * LD + d];
+  }
+}
+
+template <typename Tp, typename Tc, int VEC>
+int launch_scatter(void* pool, const void* canon, const int* ids, int L,
+                   int nb, int BS, int KV, int HD, int layout,
+                   long long pool_sl, long long pool_sn, long long c_st,
+                   long long c_sh, long long c_sd, long long canon_sl,
+                   long long canon_sp, cudaStream_t stream) {
+  Tp* p = static_cast<Tp*>(pool);
+  const Tc* c = static_cast<const Tc*>(canon);
+  if (layout == 2) {                                         // nhdb
+    const int blocks = nb * KV * ((BS + TT - 1) / TT) * ((HD + TD - 1) / TD);
+    tile_scatter_kernel<Tp, Tc, VEC><<<dim3(blocks, L), THREADS, 0, stream>>>(
+        p, c, ids, BS, KV, HD, pool_sl, pool_sn, c_st, c_sh, c_sd, canon_sl,
+        canon_sp);
+  } else {                                                   // nbhd, nhbd
+    const int page_elems = BS * KV * HD;
+    const int chunk_elems = CHUNK_BYTES / (int)sizeof(Tp);
+    const int chunks = (page_elems + chunk_elems - 1) / chunk_elems;
+    const bool nbhd = layout == 0;
+    page_scatter_kernel<Tp, Tc, VEC>
+        <<<dim3(nb * chunks, L), THREADS, 0, stream>>>(
+            p, c, ids, chunks, chunk_elems, page_elems, nbhd ? KV : BS, HD,
+            pool_sl, pool_sn, nbhd ? c_st : c_sh, nbhd ? c_sh : c_st, c_sd,
+            canon_sl, canon_sp);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename Tp, typename Tc>
+int scatter_vec(int vec, void* pool, const void* canon, const int* ids, int L,
+                int nb, int BS, int KV, int HD, int layout, long long pool_sl,
+                long long pool_sn, long long c_st, long long c_sh,
+                long long c_sd, long long canon_sl, long long canon_sp,
+                cudaStream_t stream) {
+  constexpr int VMAX = 16 / (sizeof(Tp) > sizeof(Tc) ? sizeof(Tp) : sizeof(Tc));
+#define RT_VEC(V)                                                            \
+  return launch_scatter<Tp, Tc, V>(pool, canon, ids, L, nb, BS, KV, HD,      \
+                                   layout, pool_sl, pool_sn, c_st, c_sh,     \
+                                   c_sd, canon_sl, canon_sp, stream)
+  if (vec == 1) RT_VEC(1);
+  if (vec == 2) RT_VEC(2);
+  if (vec == 4) RT_VEC(4);
+  if constexpr (VMAX >= 8) {
+    if (vec == 8) RT_VEC(8);
+  }
+#undef RT_VEC
+  return (int)cudaErrorInvalidValue;
 }
 
 // Pool pages -> canonical (bs, kv, hd) pages. Threads walk the output page
@@ -137,10 +289,10 @@ extern "C" int rt_scatter_pages_overlay(
   const int* ids = static_cast<const int*>(block_ids);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RT_OVERLAY(TP, TC)                                                   \
-  return launch_scatter<TP, TC, true>(pool, canon, ids, L, nb, BS, pool_sl,  \
-                                      pool_sn, D0, D1, D2, tok_axis, c_s0,   \
-                                      c_s1, c_s2, canon_sl, canon_sp,        \
-                                      canon_off, front, seq_len, s)
+  return launch_overlay<TP, TC>(pool, canon, ids, L, nb, BS, pool_sl,        \
+                                pool_sn, D0, D1, D2, tok_axis, c_s0, c_s1,   \
+                                c_s2, canon_sl, canon_sp, canon_off, front,  \
+                                seq_len, s)
   if (pool_dtype == rt::kF32 && canon_dtype == rt::kF32) RT_OVERLAY(float, float);
   if (pool_dtype == rt::kF32 && canon_dtype == rt::kBF16) RT_OVERLAY(float, __nv_bfloat16);
   if (pool_dtype == rt::kBF16 && canon_dtype == rt::kF32) RT_OVERLAY(__nv_bfloat16, float);
@@ -150,20 +302,25 @@ extern "C" int rt_scatter_pages_overlay(
   return (int)cudaErrorInvalidValue;
 }
 
+// canon strides by canonical axis (token, head, dim) in elements; layout
+// 0 nbhd, 1 nhbd, 2 nhdb; vec: elements per access (1, 2, 4, or 8 for
+// bf16 -> bf16), chosen by the wrapper from the alignments.
 extern "C" int rt_scatter_pages(
     void* pool, const void* canon, const void* block_ids, int pool_dtype,
-    int canon_dtype, int L, int nb, int BS, long long pool_sl,
-    long long pool_sn, int D0, int D1, int D2, long long c_s0, long long c_s1,
-    long long c_s2, long long canon_sl, long long canon_sp, void* stream) {
-  if (BS <= 0 || L > 65535) return (int)cudaErrorInvalidValue;
+    int canon_dtype, int L, int nb, int BS, int KV, int HD, int layout,
+    long long pool_sl, long long pool_sn, long long c_st, long long c_sh,
+    long long c_sd, long long canon_sl, long long canon_sp, int vec,
+    void* stream) {
+  if (BS <= 0 || KV <= 0 || HD <= 0 || L > 65535 || layout < 0 || layout > 2 ||
+      vec <= 0 || HD % vec != 0)
+    return (int)cudaErrorInvalidValue;
   if (L <= 0 || nb <= 0) return 0;
   const int* ids = static_cast<const int*>(block_ids);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RT_SCATTER(TP, TC)                                                   \
-  return launch_scatter<TP, TC, false>(pool, canon, ids, L, nb, BS, pool_sl, \
-                                       pool_sn, D0, D1, D2, 0, c_s0, c_s1,   \
-                                       c_s2, canon_sl, canon_sp, 0, 0,       \
-                                       nb * BS, s)
+  return scatter_vec<TP, TC>(vec, pool, canon, ids, L, nb, BS, KV, HD,       \
+                             layout, pool_sl, pool_sn, c_st, c_sh, c_sd,     \
+                             canon_sl, canon_sp, s)
   if (pool_dtype == rt::kF32 && canon_dtype == rt::kF32) RT_SCATTER(float, float);
   if (pool_dtype == rt::kF32 && canon_dtype == rt::kBF16) RT_SCATTER(float, __nv_bfloat16);
   if (pool_dtype == rt::kBF16 && canon_dtype == rt::kF32) RT_SCATTER(__nv_bfloat16, float);

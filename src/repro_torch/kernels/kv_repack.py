@@ -44,7 +44,8 @@ def _kernel(name: str, argtypes):
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _OVERLAY_ARGS = ([_P] * 3 + [_I] * 5 + [_L] * 2 + [_I] * 4 + [_L] * 6
                  + [_I] * 2 + [_P])
-_SCATTER_ARGS = [_P] * 3 + [_I] * 5 + [_L] * 2 + [_I] * 3 + [_L] * 5 + [_P]
+_SCATTER_ARGS = [_P] * 3 + [_I] * 8 + [_L] * 7 + [_I, _P]
+_LAYOUT_CODE = {"nbhd": 0, "nhbd": 1, "nhdb": 2}
 _GATHER_ARGS = [_P] * 3 + [_I] * 7 + [_L] * 7 + [_P]
 
 
@@ -71,6 +72,37 @@ def _canon_strides(spec: KVPageSpec, row_strides):
     page's axes."""
     perm = _FROM_CANON[spec.layout]
     return [row_strides[perm[a]] for a in range(3)]
+
+
+def vector_width(cap: int, *offsets: int) -> int:
+    """The largest power of two up to ``cap`` that divides every offset
+    (in elements): how many elements one access of a kernel may move."""
+    vec = cap
+    while vec > 1 and any(o % vec for o in offsets):
+        vec //= 2
+    return vec
+
+
+def scatter_vector_width(spec: KVPageSpec, pool: torch.Tensor,
+                         canon: torch.Tensor) -> int:
+    """Elements per access of ``scatter_pages``: 16 bytes of the wider of
+    the two dtypes (8 bf16 or 4 f32) where every offset the kernel forms
+    allows it, fewer where a base pointer or a stride does not, 1 where
+    hd is not canon's unit-stride axis. The canon offsets are its base
+    and the strides of its axes longer than 1; the pool's are its base
+    and hd (pages are whole multiples of hd). nhdb pages, whose innermost
+    axis is the token, are written one element at a time, so only canon
+    counts there."""
+    hd = spec.head_dim
+    if hd > 1 and canon.stride(4) != 1:
+        return 1
+    cap = 16 // max(pool.element_size(), canon.element_size())
+    offsets = [hd, canon.data_ptr() // canon.element_size()]
+    offsets += [st for n, st in zip(canon.shape[:4], canon.stride()[:4])
+                if n > 1]
+    if spec.layout != "nhdb":
+        offsets.append(pool.data_ptr() // pool.element_size())
+    return vector_width(cap, *offsets)
 
 
 def gather_pages(spec: KVPageSpec, pool: torch.Tensor,
@@ -105,7 +137,9 @@ def scatter_pages(spec: KVPageSpec, pool: torch.Tensor,
                   ) -> torch.Tensor:
     """canon: (L, nb, bs, kv, hd) float32 or bfloat16, any strides; pool
     (L, N, *page) contiguous. Writes every row of pages ``block_ids`` in
-    place, cast to the pool dtype. Returns ``pool``."""
+    place, cast to the pool dtype. Returns ``pool``. Accesses are 16
+    bytes wide where canon's and the pool's alignment allow
+    (``scatter_vector_width``), narrower otherwise."""
     n_layers, nb = canon.shape[0], block_ids.shape[0]
     _check_inputs("scatter_pages", spec, pool, block_ids, canon)
     want = (n_layers, nb, spec.block_size, spec.kv_heads, spec.head_dim)
@@ -114,14 +148,14 @@ def scatter_pages(spec: KVPageSpec, pool: torch.Tensor,
         raise ValueError(f"scatter_pages: pool{tuple(pool.shape)} "
                          f"canon{tuple(canon.shape)} ids{tuple(block_ids.shape)}"
                          f" do not match {spec}")
-    page = spec.page_shape()
     stream = torch.cuda.current_stream(pool.device).cuda_stream
     err = _kernel("rt_scatter_pages", _SCATTER_ARGS)(
         pool.data_ptr(), canon.data_ptr(), block_ids.data_ptr(),
         DTYPES[pool.dtype], DTYPES[canon.dtype], n_layers, nb,
-        spec.block_size, pool.stride(0), pool.stride(1), *page,
-        *_canon_strides(spec, canon.stride()[2:]), canon.stride(0),
-        canon.stride(1), stream)
+        spec.block_size, spec.kv_heads, spec.head_dim,
+        _LAYOUT_CODE[spec.layout], pool.stride(0), pool.stride(1),
+        *canon.stride()[2:], canon.stride(0), canon.stride(1),
+        scatter_vector_width(spec, pool, canon), stream)
     _build.check(err, "scatter_pages")
     LAUNCHES["scatter_pages"] += 1
     return pool

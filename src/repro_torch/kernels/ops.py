@@ -36,7 +36,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     kv_len: Optional[int] = None) -> torch.Tensor:
     """q: (B,H,Sq,d); k,v: (B,KV,Skv,d) → (B,H,Sq,d). Query row i is at
     absolute position ``q_offset + i``; keys from ``kv_len`` on are
-    masked."""
+    masked. On the card, bfloat16 takes head dims that are multiples of 16
+    up to 128 and 16-byte aligned pointers and (batch, head, seq) strides
+    (TMA); float32 any head dim up to 128."""
     if _on_cuda(q, "flash_attention"):
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    scale=scale, q_offset=q_offset,
@@ -81,7 +83,9 @@ def gather_pages(spec: KVPageSpec, pool, block_ids,
 
 def scatter_pages(spec: KVPageSpec, pool, block_ids, canon) -> torch.Tensor:
     """Canonical pages (L, nb, bs, kv, hd) → pages ``block_ids`` of a
-    (L, N, *page) pool, cast to its dtype; in place, returns ``pool``."""
+    (L, N, *page) pool, cast to its dtype; in place, returns ``pool``. Any
+    canon strides; on the card, accesses are as wide (up to 16 bytes) as
+    the pointers' and strides' alignment allows."""
     if _on_cuda(pool, "scatter_pages"):
         return _kr.scatter_pages(spec, pool, block_ids, canon)
     return ref.scatter_pages_ref(spec, pool, block_ids, canon)

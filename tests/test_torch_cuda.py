@@ -70,6 +70,63 @@ def test_flash_kernel(cuda, b, h, kv, sq, skv, d, dtype, causal, window,
                                want.float().cpu().numpy(), atol=ATOL[dtype])
 
 
+# (b, h, kv, sq, cap, d, q_offset, kv_len, window): GQA 4 and 8 query heads
+# per KV head, Sq not a multiple of the 128-row tile, a chunk at q_offset
+# over a longer full-capacity cache, a window crossing a key tile's edge,
+# kv_len < Skv binding rows past it (the last case's rows from 319 on see
+# no key and give zeros)
+FLASH_CASES = [(1, 16, 4, 128, 128, 128, 0, 128, 0),
+               (2, 32, 4, 200, 200, 128, 0, 200, 0),
+               (1, 8, 8, 300, 300, 128, 0, 300, 0),
+               (1, 8, 2, 157, 1000, 128, 600, 1000, 0),
+               (1, 4, 4, 260, 260, 128, 0, 260, 100),
+               (1, 4, 2, 200, 500, 128, 200, 333, 0),
+               (2, 4, 4, 130, 400, 64, 200, 250, 70)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,sq,cap,d,q_offset,kv_len,window",
+                         FLASH_CASES)
+def test_flash_kernel_tiles(cuda, dtype, b, h, kv, sq, cap, d, q_offset,
+                            kv_len, window):
+    """The kernel's tiles, masks and strides: q and k/v are (B, S, H, d)
+    activations and a (B, cap, KV, d) cache passed transposed, as the
+    model passes them, with no copy."""
+    rng = np.random.default_rng(sq + cap)
+    q = _rand(rng, (b, sq, h, d), dtype, cuda).transpose(1, 2)
+    k = _rand(rng, (b, cap, kv, d), dtype, cuda).transpose(1, 2)
+    v = _rand(rng, (b, cap, kv, d), dtype, cuda).transpose(1, 2)
+    args = dict(causal=True, window=window, q_offset=q_offset, kv_len=kv_len)
+    got = ops.flash_attention(q, k, v, **args)
+    want = ref.flash_attention_ref(q, k, v, **args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("what", ["pointer", "stride", "head_dim"])
+def test_flash_kernel_refuses_what_tma_cannot_take(cuda, what):
+    """bf16 goes through TMA: a base pointer or a stride that is not 16-byte
+    aligned, or a head dim that is not a multiple of 16, raises
+    ValueError naming the cause, and nothing is launched."""
+    rng = np.random.default_rng(0)
+    d = 40 if what == "head_dim" else 64
+    wide = _rand(rng, (1, 2, 16, d + 8), "bfloat16", cuda)
+    if what == "pointer":
+        q = wide[..., 1:1 + d]                   # 2 bytes past an edge
+    elif what == "stride":
+        q = _rand(rng, (1, 2, 16, d + 1), "bfloat16", cuda)[..., :d]
+    else:
+        q = wide[..., :d]
+    kv = _rand(rng, (1, 2, 16, d), "bfloat16", cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match={"pointer": "base pointer",
+                                          "stride": "stride",
+                                          "head_dim": "multiple of 16"}[what]):
+        ops.flash_attention(q, kv, kv)
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
 def _paged(rng, b, h, kv, d, bs, pages, dtype, layout, device):
     n = b * pages + 1
     spec = KVPageSpec(bs, layout, dtype, kv, d)
@@ -172,6 +229,52 @@ def test_scatter_kernel(cuda, layout, bs, pool_dt, canon_dt, layers):
     got = ops.scatter_pages(spec, pool, ids, canon)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout,bs,hd", [("nbhd", 32, 128),
+                                          ("nhdb", 32, 128)])
+def test_scatter_kernel_cow_page(cuda, layout, bs, hd):
+    """The copy-on-write shape: one page of each of 32 layers (llama2-7b
+    widths), and nhdb at block 32 with d 128, where the kernel transposes
+    through shared memory; every other page keeps its bits."""
+    spec = KVPageSpec(bs, layout, "bfloat16", 32, hd)
+    rng = np.random.default_rng(bs)
+    pool = _rand(rng, (32,) + spec.pool_shape(9), "bfloat16", cuda)
+    before = pool.clone()
+    canon = _rand(rng, (32, 1, bs, 32, hd), "bfloat16", cuda)
+    ids = torch.tensor([6], dtype=torch.int32, device=cuda)
+    want = ref.scatter_pages_ref(spec, pool.clone(), ids, canon)
+    got = ops.scatter_pages(spec, pool, ids, canon)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    keep = [i for i in range(9) if i != 6]
+    assert torch.equal(pool[:, keep], before[:, keep])
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("pool_dt,canon_dt", DTYPE_PAIRS)
+@pytest.mark.parametrize("offset", [0, 1, 2, 4])
+def test_scatter_kernel_vector_widths(cuda, layout, pool_dt, canon_dt,
+                                      offset):
+    """Canon sliced at an element offset inside a wider buffer forces each
+    vector width (offset 0: 16 bytes; 1, 2, 4 elements: that many); every
+    width writes the plain version's bits and leaves other pages alone."""
+    from repro_torch.kernels.kv_repack import scatter_vector_width
+    spec = KVPageSpec(16, layout, pool_dt, 2, 32)
+    rng = np.random.default_rng(offset)
+    pool, ids = _pool_and_ids(rng, spec, 3, 13, 4, cuda)
+    before = pool.clone()
+    canon = _rand(rng, (3, 4, 16, 2, 40), canon_dt, cuda)[..., offset:
+                                                          offset + 32]
+    cap = 8 if pool_dt == canon_dt == "bfloat16" else 4
+    assert scatter_vector_width(spec, pool, canon) == (
+        min(cap, offset) if offset else cap)
+    want = ref.scatter_pages_ref(spec, pool.clone(), ids, canon)
+    got = ops.scatter_pages(spec, pool, ids, canon)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    keep = [i for i in range(13) if i not in ids.tolist()]
+    assert torch.equal(pool[:, keep], before[:, keep])
 
 
 @pytest.mark.parametrize("src_layout,dst_layout", [("nhbd", "nbhd"),

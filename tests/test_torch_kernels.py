@@ -331,3 +331,105 @@ def test_cpu_calls_count_no_launch():
         "flash_attention": 0, "paged_attention": 0,
         "scatter_pages_overlay": 0, "gather_pages": 0, "scatter_pages": 0,
         "repack": 0}
+
+
+# --------------------------------------------------------------------------- #
+# launch plans of the card kernels (their Python side)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("sq,kv_len,causal,window,q_offset,block", [
+    (500, 2000, True, 0, 1500, 128),     # the main path's chunk
+    (2048, 2048, True, 0, 0, 128),       # a monolithic prefill
+    (260, 260, True, 100, 0, 128),       # a window across key tiles
+    (130, 250, True, 70, 200, 128),      # rows past kv_len see no key
+    (7, 133, True, 9, 0, 4),
+    (37, 61, True, 0, 11, 8),
+    (37, 61, False, 0, 0, 8),
+    (37, 61, False, 5, 3, 8),
+    (64, 20, True, 4, 40, 8),            # window entirely past kv_len
+    (16, 40, True, 1, 0, 4),
+    (33, 0, True, 0, 0, 8),              # no key at all
+    (100, 300, True, 0, 200, 16),
+])
+def test_flash_tile_plan_covers_exactly_the_visible_pairs(
+        sq, kv_len, causal, window, q_offset, block):
+    """The key tiles each query tile visits (the bf16 kernel's plan) hold
+    every visible (query, key) pair of the tile's rows, and every tile
+    visited holds one: brute force over the masks. Query tiles go
+    heaviest first."""
+    from repro_torch.kernels.flash_attention import tile_plan
+    pos = np.arange(sq)[:, None] + q_offset
+    key = np.arange(kv_len)[None, :]
+    ok = np.broadcast_to(key < kv_len, (sq, kv_len))
+    if causal:
+        ok = ok & (key <= pos)
+    if window > 0:
+        ok = ok & (pos - key < window)
+    plan = tile_plan(sq, kv_len, causal=causal, window=window,
+                     q_offset=q_offset, block_m=block, block_n=block)
+    n_q = -(-sq // block)
+    assert [qt for qt, _ in plan] == list(reversed(range(n_q)))
+    for qt, tiles in plan:
+        rows = ok[qt * block:(qt + 1) * block]
+        want = [t for t in range(-(-kv_len // block))
+                if rows[:, t * block:(t + 1) * block].any()]
+        assert list(tiles) == want, (qt, tiles, want)
+
+
+@pytest.mark.parametrize("cap,offsets,want", [
+    (8, (128, 4096, 0), 8), (8, (128, 3), 1), (8, (12, 64), 4),
+    (4, (6, 8), 2), (4, (128, 256), 4), (8, (), 8)])
+def test_vector_width_is_the_largest_that_divides(cap, offsets, want):
+    """The widest access (a power of two up to cap) that every offset the
+    kernel forms allows."""
+    from repro_torch.kernels.kv_repack import vector_width
+    got = vector_width(cap, *offsets)
+    assert got == want
+    assert all(o % got == 0 for o in offsets)
+    wider = 2 * got
+    assert wider > cap or any(o % wider for o in offsets)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("pool_dt,canon_dt,cap", [
+    ("bfloat16", "bfloat16", 8), ("float32", "float32", 4),
+    ("bfloat16", "float32", 4), ("float32", "bfloat16", 4)])
+@pytest.mark.parametrize("offset", [0, 1, 2, 4])
+def test_scatter_vector_width_from_the_alignments(layout, pool_dt, canon_dt,
+                                                  cap, offset):
+    """scatter_pages' width from canon's base pointer and strides: a canon
+    sliced at an element offset inside a wider buffer gets the largest
+    width that divides the offset (16 bytes of the wider dtype at 0), a
+    canon whose hd is not the unit-stride axis gets 1."""
+    from repro_torch.kernels.kv_repack import scatter_vector_width
+    spec = KVPageSpec(16, layout, pool_dt, 2, 32)
+    pool = torch.zeros((3,) + spec.pool_shape(5), dtype=TDT[pool_dt])
+    wide = torch.zeros((3, 2, 16, 2, 40), dtype=TDT[canon_dt])
+    canon = wide[..., offset:offset + 32]
+    want = min(cap, offset) if offset else cap
+    assert scatter_vector_width(spec, pool, canon) == want
+    assert scatter_vector_width(spec, pool, canon.transpose(3, 4)
+                                .contiguous().transpose(3, 4)) == 1
+
+
+@pytest.mark.parametrize("what,match", [("pointer", "base pointer"),
+                                        ("stride", "seq stride"),
+                                        ("length_one", None)])
+def test_flash_tma_strides(what, match):
+    """The bf16 kernel's TMA strides: a base pointer or a stride that is not
+    a multiple of 16 bytes raises ValueError naming the cause; an axis of
+    length 1, never stepped, takes a stride TMA accepts whatever torch
+    reports."""
+    from repro_torch.kernels.flash_attention import _tma_strides
+    wide = torch.zeros((1, 2, 16, 72), dtype=torch.bfloat16)
+    if what == "pointer":
+        with pytest.raises(ValueError, match=match):
+            _tma_strides("q", wide[..., 1:65])
+    elif what == "stride":
+        with pytest.raises(ValueError, match=match):
+            _tma_strides("q", torch.zeros((1, 2, 16, 65),
+                                          dtype=torch.bfloat16)[..., :64])
+    else:
+        t = torch.zeros((3, 1, 16, 64), dtype=torch.bfloat16)[:1]
+        t = t.as_strided(t.shape, (5, 3, 64, 1))
+        assert _tma_strides("q", wide[..., :64]) == [8, 1152, 72]
+        assert _tma_strides("k", t) == [8, 8, 64]
