@@ -26,11 +26,13 @@ ROOT = Path(__file__).resolve().parents[1]
 # port's kernels are matched with their namespace separator, so PyTorch's
 # own kernels (vectorized_gather_kernel<...>, say) are not counted as ours.
 FAMILIES = (("flash_attention", ("flash_fwd_kernel",)),
-            ("paged_attention", ("::paged_decode_kernel<",)),
+            ("paged_attention", ("::paged_split_kernel<",
+                                 "::paged_combine_kernel<")),
             ("scatter_pages_overlay", ("::overlay_kernel<",)),
             ("scatter_pages", ("::page_scatter_kernel<",
                                "::tile_scatter_kernel<")),
-            ("gather_pages", ("::gather_kernel<",)),
+            ("gather_pages", ("::page_gather_kernel<",
+                              "::tile_gather_kernel<")),
             ("matmul", ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")),
             ("copy", ("memcpy", "memset")))
 

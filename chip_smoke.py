@@ -7,11 +7,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 nvcc, then runs five phases, each printing JSON lines:
 
   0. card: name and power limit (``nvidia-smi``), kernel build time, and
-     the count of HGMMA (wgmma), UTMALDG (TMA load) and SYNCS (mbarrier)
-     instructions in each kernel of the built library (``cuobjdump
-     -sass``), and each kernel's registers, spill bytes and whether
-     ptxas serialized its wgmma instructions (the build's ``-Xptxas=-v``
-     output); the bf16 flash kernel must have HGMMA and UTMALDG;
+     the count of HGMMA (wgmma), UTMALDG (TMA load), SYNCS (mbarrier),
+     LDGSTS (cp.async) and LDG.E.128 (16-byte load) instructions in each
+     kernel of the built library (``cuobjdump -sass``), and each kernel's
+     registers, spill bytes and whether ptxas serialized its wgmma
+     instructions (the build's ``-Xptxas=-v`` output); the bf16 flash
+     kernel must have HGMMA and UTMALDG, every paged split kernel LDGSTS;
   1. every kernel against its plain PyTorch version on the card, over the
      JAX test-suite sweep shapes and the main path's llama2-7b shapes
      (float32 within 2e-5; bfloat16 within 2e-2 at the sweep shapes; at
@@ -21,11 +22,14 @@ nvcc, then runs five phases, each printing JSON lines:
      against the float32 plain version; the re-page, gather, scatter and
      repack bit for bit, the last three also at the prefix cache's
      copy-on-write shape and the full-width Fig. 3 shape), then each
-     kernel's time, its plain version's time, a library call's time where
-     one computes the same function, and the least time the card could
-     take (bytes over 3.35 TB/s or operations over the dense peak of the
-     dtype, whichever is larger). ``ms`` times back-to-back calls with
-     CUDA events (the host's enqueue included where it is the longer);
+     kernel's time (paged also at one 2048-token sequence, at phase 3's
+     lengths and in the nhbd and nhdb layouts; gather, scatter and repack
+     also at the Fig. 3 shape), its plain version's time, a library
+     call's time where one computes the same function, and the least time
+     the card could take (bytes over 3.35 TB/s or operations over the
+     dense peak of the dtype, whichever is larger). ``ms`` times
+     back-to-back calls with CUDA events (the host's enqueue included
+     where it is the longer);
      ``device_ms`` times a CUDA-graph replay of the same calls (device
      time only), for the kernels and the library calls alike;
      ``host_us`` is the wrapper's host cost per call;
@@ -231,10 +235,18 @@ def phase0():
     if not flash or not all(c["HGMMA"] and c["UTMALDG"] for c in flash):
         raise AssertionError(f"phase 0: the bf16 flash kernel has no "
                              f"HGMMA/UTMALDG instructions: {flash}")
+    wide = {name: {op: c[op] for op in ("LDGSTS", "LDG.E.128")}
+            for name, c in sass.items()
+            if name.startswith(("paged_split_kernel", "page_gather_kernel"))}
+    emit({"phase": 0, "wide_loads": wide})
+    if not wide or not all(c["LDGSTS"] for name, c in wide.items()
+                           if name.startswith("paged_split_kernel")):
+        raise AssertionError(f"phase 0: a paged split kernel has no "
+                             f"cp.async (LDGSTS) instructions: {wide}")
     return smi
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "LDGSTS", "LDG.E.128")
 
 
 def sass_counts(lib: Path, cuda_bin: Path):
@@ -384,11 +396,14 @@ def flash_mask(sq, skv, q_offset, window, dev):
     return ok & (qi - kj < window) if window > 0 else ok
 
 
-def _paged_inputs(gen, dev, dtype, layout, b, h, kv, d, bs, lens):
+def _paged_inputs(gen, dev, dtype, layout, b, h, kv, d, bs, lens,
+                  width=None):
+    """q, pools, a block table ``width`` pages wide (default: the longest
+    sequence's pages) and seq_lens."""
     import torch
     from repro_torch.serving.paged_cache import KVPageSpec, pages_from_canonical
     dt = getattr(torch, dtype)
-    pages = max(-(-int(n) // bs) for n in lens)
+    pages = width or max(-(-int(n) // bs) for n in lens)
     n = b * pages + 1
     spec = KVPageSpec(bs, layout, dtype, kv, d)
     q = _rand(gen, (b, h, d), dt, dev)
@@ -401,9 +416,10 @@ def _paged_inputs(gen, dev, dtype, layout, b, h, kv, d, bs, lens):
 
 
 def _paged_case(gen, dev, dtype, layout, b, h, kv, d, bs, lens, window,
-                main=False):
+                main=False, width=None):
     from repro_torch.kernels import ops, ref
-    args = _paged_inputs(gen, dev, dtype, layout, b, h, kv, d, bs, lens)
+    args = _paged_inputs(gen, dev, dtype, layout, b, h, kv, d, bs, lens,
+                         width)
     got = ops.paged_attention(*args, layout=layout, window=window)
     want = ref.paged_attention_ref(*args, layout=layout, window=window)
     err = _check(f"paged {dtype} {layout} {(b, h, kv, d, bs)} "
@@ -628,11 +644,34 @@ def phase1_pages(gen, dev, cfg):
                      library=lambda: f_pool.index_copy_(1, f_long, f_canon),
                      iters=10),
           "bound_ms": f_ms, "bound_by": f_by})
+    del f_pool, f_canon
+    # the gather half: 128 unsorted nhbd pages of block 16 -> canonical
+    n_pg = 2048 // 16
+    order = torch.randperm(n_pg,
+                           generator=torch.Generator().manual_seed(SEED))
+    g_spec, g_pool, g_ids, g_dt = _pages_case(
+        gen, dev, "gather", "nhbd", "bfloat16", "bfloat16", layers, 16, kv,
+        hd, n_pg + 2, (order + 1).tolist())
+    counts["gather_pages"] += 1
+    g_long = g_ids.long()
+    emit({"phase": 1, "extra": "gather_pages at the Fig. 3 shape",
+          "shape": f"{n_pg} pages of pool ({layers},{n_pg + 2},{kv},16,"
+                   f"{hd}) nhbd bf16 -> canon ({layers},{n_pg},16,{kv},{hd})",
+          "bit_identical": True,
+          **time_all(lambda: ops.gather_pages(g_spec, g_pool, g_ids, g_dt),
+                     plain=lambda: ref.gather_pages_ref(g_spec, g_pool,
+                                                        g_ids, g_dt),
+                     library=lambda: g_pool.index_select(1, g_long).permute(
+                         perm).contiguous(),
+                     iters=10),
+          "bound_ms": f_ms, "bound_by": f_by})
+    del g_pool
     emit({"phase": 1, "pages_checks": counts, "pages": "bit-identical"})
     return timings
 
 
 def phase1(dev):
+    import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -746,6 +785,32 @@ def phase1(dev):
                    plain=lambda: ref.paged_attention_ref(*args,
                                                          layout="nbhd")),
         bound_ms=b_ms, bound_by=b_by)
+    # paged beyond the timing shape: one 2048-token sequence (the grid of
+    # one sequence), phase 3's mixed lengths at its last decode step in its
+    # 65-page table, and the main shape in the two other layouts
+    prompts = np.random.default_rng(SEED).integers(
+        PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, N_REQUESTS)
+    width = -(-(PROMPT_RANGE[1] + MAX_NEW) // 32)
+    for what, lay, lens, wd in (
+            ("one sequence", "nbhd", [2048], None),
+            ("phase 3's lengths", "nbhd",
+             [int(n) + MAX_NEW for n in prompts], width),
+            ("timing shape", "nhbd", decode_lens, None),
+            ("timing shape", "nhdb", decode_lens, None)):
+        err, a = _paged_case(gen, dev, "bfloat16", lay, len(lens), 32, 32,
+                             128, 32, lens, 0, main=True, width=wd)
+        tok = sum(lens)
+        p_ms, p_by = bound(4.0 * 128 * 32 * tok, 2.0 * 2 * tok * 32 * 128
+                           + 2.0 * 2 * len(lens) * 32 * 128, "bfloat16")
+        emit({"phase": 1, "extra": f"paged_attention, {what}, {lay}",
+              "shape": f"q({len(lens)},32,128) pools {lay} bs32 bf16, "
+                       f"table {a[3].shape[1]} pages, seq_lens {lens}",
+              "max_abs_err": err,
+              **time_all(lambda: ops.paged_attention(*a, layout=lay),
+                         plain=lambda: ref.paged_attention_ref(*a,
+                                                               layout=lay)),
+              "bound_ms": p_ms, "bound_by": p_by})
+        del a
     # overlay: one 500-token chunk's rows landing 20 rows into a page, 32
     # layers, as the streamed re-page hands them over
     err, (spec, pool, ids, canon) = _overlay_case(

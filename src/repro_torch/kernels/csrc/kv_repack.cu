@@ -36,13 +36,20 @@
 // token with consecutive threads on consecutive addresses, so both sides
 // stay coalesced.
 //
-// gather_pages and the overlay: one block per (page, layer). Threads walk
-// the destination page in its own memory order (contiguous, coalesced
-// stores) and read the source page through the strides of the matching
-// axes. The overlay's canon is either whole pages or the streamed rows
-// alone: `canon_off` (an element offset, negative for the latter) moves
-// the page origin so that a chunk landing mid-page is read where it lies,
-// with no padded copy. Rows outside the flat span [front, front + seq_len)
+// gather_pages is the scatter's mirror image: 16 KiB chunks of a pool page
+// per block (page_gather_kernel), threads walking the canonical output in
+// its memory order with VEC elements per access, where the pool page's hd
+// is its unit-stride axis; otherwise (nhdb, where the token is) through a
+// (32 token x 128 dim) tile in shared memory, read along the token and
+// written along hd (tile_gather_kernel). The wrapper picks VEC from the
+// pool's and the output's alignments (kv_repack.py:gather_vector_width).
+//
+// The overlay: one block per (page, layer). Threads walk the destination
+// page in its own memory order (contiguous, coalesced stores) and read the
+// source through the strides of the matching axes. Its canon is either
+// whole pages or the streamed rows alone: `canon_off` (an element offset,
+// negative for the latter) moves the page origin so that a chunk landing
+// mid-page is read where it lies, with no padded copy. Rows outside the flat span [front, front + seq_len)
 // are simply not written: because the pool is updated in place, that
 // leaves exactly what the reference's read-merge-write would, so the pool
 // stays bit-identical to the plain version.
@@ -239,40 +246,119 @@ int scatter_vec(int vec, void* pool, const void* canon, const int* ids, int L,
   return (int)cudaErrorInvalidValue;
 }
 
-// Pool pages -> canonical (bs, kv, hd) pages. Threads walk the output page
-// contiguously and read the pool page through its (token, head, dim)
-// strides p_st, p_sh, p_sd.
-template <typename To, typename Tp>
+// gather_pages from pages with hd innermost (p_sd == 1: nbhd, nhbd).
+// Block x: (page, chunk); y: layer. Threads walk the canonical output in
+// its memory order, VEC elements per access, and read the pool page
+// through its token and head strides p_st, p_sh.
+template <typename To, typename Tp, int VEC>
 __global__ void __launch_bounds__(THREADS)
-gather_kernel(To* __restrict__ out, const Tp* __restrict__ pool,
-              const int* __restrict__ ids, int BS, int KV, int HD,
-              long long pool_sl, long long pool_sn, long long p_st,
-              long long p_sh, long long p_sd, long long out_sl,
-              long long out_sp) {
-  const int pg = blockIdx.x;
+page_gather_kernel(To* __restrict__ out, const Tp* __restrict__ pool,
+                   const int* __restrict__ ids, int chunks, int chunk_elems,
+                   int page_elems, int KV, int HD, long long pool_sl,
+                   long long pool_sn, long long p_st, long long p_sh,
+                   long long out_sl, long long out_sp) {
+  const int pg = blockIdx.x / chunks;
+  const int e0 = (blockIdx.x % chunks) * chunk_elems;
+  const int e1 = min(e0 + chunk_elems, page_elems);
   const int layer = blockIdx.y;
   const Tp* src = pool + layer * pool_sl + (long long)ids[pg] * pool_sn;
   To* dst = out + layer * out_sl + (long long)pg * out_sp;
-  const int n = BS * KV * HD;
-  for (int e = threadIdx.x; e < n; e += THREADS) {
+#pragma unroll 4
+  for (int e = e0 + threadIdx.x * VEC; e < e1; e += THREADS * VEC) {
     const int d = e % HD;
     const int r = e / HD;
-    const int h = r % KV;
-    const int t = r / KV;
-    dst[e] = rt::cvt<To>(src[t * p_st + h * p_sh + d * p_sd]);
+    const Vec<To, VEC> y =
+        load_cvt<To, Tp, VEC>(src + (r / KV) * p_st + (r % KV) * p_sh + d);
+    *reinterpret_cast<decltype(y.raw)*>(dst + e) = y.raw;
   }
 }
 
-template <typename To, typename Tp>
+// gather_pages from pages whose hd is not the unit-stride axis (nhdb: the
+// token is): one head's (bs, hd) slab is read along the token with
+// consecutive threads on consecutive addresses into a (TT x TD) tile in
+// shared memory, then written along hd, VEC elements per access.
+// Block x: (page, head, token tile, dim tile); y: layer.
+template <typename To, typename Tp, int VEC>
+__global__ void __launch_bounds__(THREADS)
+tile_gather_kernel(To* __restrict__ out, const Tp* __restrict__ pool,
+                   const int* __restrict__ ids, int BS, int KV, int HD,
+                   long long pool_sl, long long pool_sn, long long p_st,
+                   long long p_sh, long long p_sd, long long out_sl,
+                   long long out_sp) {
+  constexpr int LD = TD + 4 / sizeof(To);    // odd row stride in words
+  __shared__ To tile[TT * LD];
+  const int n_tt = (BS + TT - 1) / TT, n_td = (HD + TD - 1) / TD;
+  int x = blockIdx.x;
+  const int td = x % n_td; x /= n_td;
+  const int tt = x % n_tt; x /= n_tt;
+  const int hh = x % KV;
+  const int pg = x / KV;
+  const int layer = blockIdx.y;
+  const int t0 = tt * TT, d0 = td * TD;
+  const Tp* src = pool + layer * pool_sl + (long long)ids[pg] * pool_sn +
+                  hh * p_sh;
+  for (int i = threadIdx.x; i < TT * TD; i += THREADS) {
+    const int d = i / TT, t = i % TT;
+    if (t0 + t < BS && d0 + d < HD)
+      tile[t * LD + d] = rt::cvt<To>(src[(t0 + t) * p_st + (d0 + d) * p_sd]);
+  }
+  __syncthreads();
+  To* dst = out + layer * out_sl + (long long)pg * out_sp + (long long)hh * HD;
+  for (int i = threadIdx.x * VEC; i < TT * TD; i += THREADS * VEC) {
+    const int t = i / TD, d = i % TD;
+    if (t0 + t < BS && d0 + d < HD) {
+      Vec<To, VEC> y;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) y.v[j] = tile[t * LD + d + j];
+      *reinterpret_cast<decltype(y.raw)*>(
+          dst + (long long)(t0 + t) * KV * HD + d0 + d) = y.raw;
+    }
+  }
+}
+
+template <typename To, typename Tp, int VEC>
 int launch_gather(void* out, const void* pool, const int* ids, int L, int nb,
                   int BS, int KV, int HD, long long pool_sl, long long pool_sn,
                   long long p_st, long long p_sh, long long p_sd,
                   long long out_sl, long long out_sp, cudaStream_t stream) {
-  dim3 grid(nb, L);
-  gather_kernel<To, Tp><<<grid, THREADS, 0, stream>>>(
-      static_cast<To*>(out), static_cast<const Tp*>(pool), ids, BS, KV, HD,
-      pool_sl, pool_sn, p_st, p_sh, p_sd, out_sl, out_sp);
+  To* o = static_cast<To*>(out);
+  const Tp* p = static_cast<const Tp*>(pool);
+  if (p_sd != 1) {
+    const int blocks = nb * KV * ((BS + TT - 1) / TT) * ((HD + TD - 1) / TD);
+    tile_gather_kernel<To, Tp, VEC><<<dim3(blocks, L), THREADS, 0, stream>>>(
+        o, p, ids, BS, KV, HD, pool_sl, pool_sn, p_st, p_sh, p_sd, out_sl,
+        out_sp);
+  } else {
+    const int page_elems = BS * KV * HD;
+    const int chunk_elems = CHUNK_BYTES / (int)sizeof(Tp);
+    const int chunks = (page_elems + chunk_elems - 1) / chunk_elems;
+    page_gather_kernel<To, Tp, VEC>
+        <<<dim3(nb * chunks, L), THREADS, 0, stream>>>(
+            o, p, ids, chunks, chunk_elems, page_elems, KV, HD, pool_sl,
+            pool_sn, p_st, p_sh, out_sl, out_sp);
+  }
   return (int)cudaGetLastError();
+}
+
+template <typename To, typename Tp>
+int gather_vec(int vec, void* out, const void* pool, const int* ids, int L,
+               int nb, int BS, int KV, int HD, long long pool_sl,
+               long long pool_sn, long long p_st, long long p_sh,
+               long long p_sd, long long out_sl, long long out_sp,
+               cudaStream_t stream) {
+  constexpr int VMAX = 16 / (sizeof(To) > sizeof(Tp) ? sizeof(To) : sizeof(Tp));
+#define RT_VEC(V)                                                            \
+  return launch_gather<To, Tp, V>(out, pool, ids, L, nb, BS, KV, HD,         \
+                                  pool_sl, pool_sn, p_st, p_sh, p_sd,        \
+                                  out_sl, out_sp, stream)
+  if (vec == 1) RT_VEC(1);
+  if (vec == 2) RT_VEC(2);
+  if (vec == 4) RT_VEC(4);
+  if constexpr (VMAX >= 8) {
+    if (vec == 8) RT_VEC(8);
+  }
+#undef RT_VEC
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -330,19 +416,22 @@ extern "C" int rt_scatter_pages(
   return (int)cudaErrorInvalidValue;
 }
 
+// vec: elements per access (1, 2, 4, or 8 for bf16 -> bf16), chosen by the
+// wrapper from the alignments; pages whose hd stride is not 1 go through
+// the shared-memory tile.
 extern "C" int rt_gather_pages(
     void* out, const void* pool, const void* block_ids, int out_dtype,
     int pool_dtype, int L, int nb, int BS, int KV, int HD, long long pool_sl,
     long long pool_sn, long long p_st, long long p_sh, long long p_sd,
-    long long out_sl, long long out_sp, void* stream) {
-  if (BS <= 0 || KV <= 0 || HD <= 0 || L > 65535)
+    long long out_sl, long long out_sp, int vec, void* stream) {
+  if (BS <= 0 || KV <= 0 || HD <= 0 || L > 65535 || vec <= 0 || HD % vec != 0)
     return (int)cudaErrorInvalidValue;
   if (L <= 0 || nb <= 0) return 0;
   const int* ids = static_cast<const int*>(block_ids);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RT_GATHER(TO, TP)                                                    \
-  return launch_gather<TO, TP>(out, pool, ids, L, nb, BS, KV, HD, pool_sl,   \
-                               pool_sn, p_st, p_sh, p_sd, out_sl, out_sp, s)
+  return gather_vec<TO, TP>(vec, out, pool, ids, L, nb, BS, KV, HD, pool_sl, \
+                            pool_sn, p_st, p_sh, p_sd, out_sl, out_sp, s)
   if (out_dtype == rt::kF32 && pool_dtype == rt::kF32) RT_GATHER(float, float);
   if (out_dtype == rt::kF32 && pool_dtype == rt::kBF16) RT_GATHER(float, __nv_bfloat16);
   if (out_dtype == rt::kBF16 && pool_dtype == rt::kF32) RT_GATHER(__nv_bfloat16, float);

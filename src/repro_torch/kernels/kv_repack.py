@@ -46,7 +46,7 @@ _OVERLAY_ARGS = ([_P] * 3 + [_I] * 5 + [_L] * 2 + [_I] * 4 + [_L] * 6
                  + [_I] * 2 + [_P])
 _SCATTER_ARGS = [_P] * 3 + [_I] * 8 + [_L] * 7 + [_I, _P]
 _LAYOUT_CODE = {"nbhd": 0, "nhbd": 1, "nhdb": 2}
-_GATHER_ARGS = [_P] * 3 + [_I] * 7 + [_L] * 7 + [_P]
+_GATHER_ARGS = [_P] * 3 + [_I] * 7 + [_L] * 7 + [_I, _P]
 
 
 def _check_inputs(op: str, spec: KVPageSpec, pool: torch.Tensor,
@@ -105,28 +105,52 @@ def scatter_vector_width(spec: KVPageSpec, pool: torch.Tensor,
     return vector_width(cap, *offsets)
 
 
+def _page_strides(spec: KVPageSpec, pool: torch.Tensor):
+    """(token, head, dim) strides of a (L, N, *page) pool's pages: page
+    axis a holds canonical axis perm[a]."""
+    perm = _FROM_CANON[spec.layout]
+    axis = {c: a + 2 for a, c in enumerate(perm)}
+    return tuple(pool.stride(axis[c]) for c in range(3))
+
+
+def gather_vector_width(spec: KVPageSpec, pool: torch.Tensor,
+                        out: torch.Tensor) -> int:
+    """Elements per access of ``gather_pages``: 16 bytes of the wider of
+    the two dtypes (8 bf16 or 4 f32) where every offset the kernel forms
+    allows it, fewer where a base pointer or a stride does not. Where hd is
+    the pool page's unit-stride axis the pool's offsets count (its base and
+    the strides of its axes longer than 1) beside the output's (its base
+    and hd: the output is contiguous); elsewhere (nhdb) the pool is read
+    one element at a time along the token, so only the output counts."""
+    hd = spec.head_dim
+    cap = 16 // max(pool.element_size(), out.element_size())
+    offsets = [hd, out.data_ptr() // out.element_size()]
+    if _page_strides(spec, pool)[2] == 1:
+        offsets.append(pool.data_ptr() // pool.element_size())
+        offsets += [st for n, st in zip(pool.shape[:4], pool.stride()[:4])
+                    if n > 1]
+    return vector_width(cap, *offsets)
+
+
 def gather_pages(spec: KVPageSpec, pool: torch.Tensor,
                  block_ids: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """pool: (L, N, *page) in ``spec.layout``, any strides; block_ids (nb,)
     int32. Returns new canonical pages (L, nb, bs, kv, hd) in
-    ``out_dtype`` (default the pool's), contiguous."""
+    ``out_dtype`` (default the pool's), contiguous. Accesses are 16 bytes
+    wide where the alignments allow (``gather_vector_width``)."""
     out_dtype = out_dtype or pool.dtype
     n_layers, nb = pool.shape[0], block_ids.shape[0]
     bs, kv, hd = spec.block_size, spec.kv_heads, spec.head_dim
     out = torch.empty((n_layers, nb, bs, kv, hd), dtype=out_dtype,
                       device=pool.device)
     _check_inputs("gather_pages", spec, pool, block_ids, out)
-    # (token, head, dim) strides of a pool page: page axis a holds
-    # canonical axis perm[a]
-    perm = _FROM_CANON[spec.layout]
-    axis = {c: a + 2 for a, c in enumerate(perm)}
     stream = torch.cuda.current_stream(pool.device).cuda_stream
     err = _kernel("rt_gather_pages", _GATHER_ARGS)(
         out.data_ptr(), pool.data_ptr(), block_ids.data_ptr(),
         DTYPES[out_dtype], DTYPES[pool.dtype], n_layers, nb, bs, kv, hd,
-        pool.stride(0), pool.stride(1), pool.stride(axis[0]),
-        pool.stride(axis[1]), pool.stride(axis[2]), out.stride(0),
-        out.stride(1), stream)
+        pool.stride(0), pool.stride(1), *_page_strides(spec, pool),
+        out.stride(0), out.stride(1),
+        gather_vector_width(spec, pool, out), stream)
     _build.check(err, "gather_pages")
     LAUNCHES["gather_pages"] += 1
     return out

@@ -51,7 +51,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 def paged_attention(q, k_pool, v_pool, block_table, seq_lens, *,
                     layout: str = "nbhd", scale: Optional[float] = None,
                     window: int = 0) -> torch.Tensor:
-    """Decode attention over paged pools in any layout. q: (B,H,d)."""
+    """Decode attention over paged pools in any layout. q: (B,H,d). On
+    the card, each sequence's pages are split across blocks and the splits
+    merged in float32 within the call."""
     if _on_cuda(q, "paged_attention"):
         return _pa.paged_attention(q, k_pool, v_pool, block_table, seq_lens,
                                    layout=layout, scale=scale, window=window)
@@ -75,7 +77,9 @@ def scatter_pages_overlay(spec: KVPageSpec, pool, block_ids, canon, *,
 def gather_pages(spec: KVPageSpec, pool, block_ids,
                  out_dtype=None) -> torch.Tensor:
     """Pages ``block_ids`` of a (L, N, *page) pool → new canonical pages
-    (L, nb, bs, kv, hd) in ``out_dtype`` (default the pool's)."""
+    (L, nb, bs, kv, hd) in ``out_dtype`` (default the pool's). Any pool
+    strides; on the card, accesses are as wide (up to 16 bytes) as the
+    pointers' and strides' alignment allows."""
     if _on_cuda(pool, "gather_pages"):
         return _kr.gather_pages(spec, pool, block_ids, out_dtype)
     return ref.gather_pages_ref(spec, pool, block_ids, out_dtype)

@@ -160,6 +160,80 @@ def test_paged_kernel(cuda, dtype, layout, b, h, kv, d, bs, pages, window):
                                want.float().cpu().numpy(), atol=ATOL[dtype])
 
 
+def _paged_lens(rng, h, kv, d, bs, lens, dtype, layout, device, idle=()):
+    """Pools and a table for sequences of the given lengths; the slots in
+    ``idle`` point every page at block 0 (the engine's scratch block) with
+    seq_len 1, as idle decode slots do."""
+    b, pages = len(lens), max(-(-n // bs) for n in lens)
+    n = b * pages + 1
+    spec = KVPageSpec(bs, layout, dtype, kv, d)
+    q = _rand(rng, (b, h, d), dtype, device)
+    k, v = (pages_from_canonical(spec, _rand(rng, (n, bs, kv, d), dtype,
+                                             device)).contiguous()
+            for _ in range(2))
+    table = rng.permutation(n - 1)[:b * pages].reshape(b, pages) + 1
+    lens = np.asarray(lens)
+    for i in idle:
+        table[i], lens[i] = 0, 1
+    return (q, k, v, torch.from_numpy(table.astype(np.int32)).to(device),
+            torch.from_numpy(lens.astype(np.int32)).to(device))
+
+
+# (h, kv, d, bs, lens); "split" is a length of exactly one split's pages
+PAGED_SPLIT_CASES = [
+    (4, 4, 128, 32, [1, 32, 2081, 2048]),
+    (32, 32, 128, 32, [1, 2048]),
+    (32, 32, 128, 32, [1, "split", 2081, 1800, 1900, 2000, 64, 33]),
+    (32, 8, 128, 16, [1, 700, "split", 2081]),
+    (40, 8, 128, 16, [300, 17, "split"]),
+    (4, 2, 80, 8, [1, 99, 250]),
+    (8, 1, 16, 4, [5, 37, "split"]),
+    (4, 2, 128, 96, [1, 500]),           # f32: a ring of 2 stages
+    (4, 2, 128, 128, [1, 300, "split"]),  # f32: one stage, nothing in flight
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("h,kv,d,bs,lens", PAGED_SPLIT_CASES)
+@pytest.mark.parametrize("window", [0, 100])
+def test_paged_kernel_split_lengths(cuda, dtype, layout, h, kv, d, bs, lens,
+                                    window):
+    """Lengths that cross the split boundaries of the kernel's plan: 1, a
+    multiple of the block, exactly one split, 2081, a batch mixing 1 with
+    2048; GQA groups of 4, 5 and 8; head dims padded to the lanes (80, 16);
+    pages too large for 3 stages in float32; a window of 100 that starts
+    inside a split."""
+    from repro_torch.kernels.paged_attention import sm_count, split_plan
+    rng = np.random.default_rng(bs + d + len(lens))
+    width = max(-(-n // bs) for n in lens if n != "split")
+    _, pps = split_plan(width, len(lens), kv, sm_count(cuda))
+    lens = [pps * bs if n == "split" else n for n in lens]
+    args = _paged_lens(rng, h, kv, d, bs, lens, dtype, layout, cuda)
+    got = ops.paged_attention(*args, layout=layout, window=window)
+    want = ref.paged_attention_ref(*args, layout=layout, window=window)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_paged_kernel_idle_slots(cuda, dtype, layout):
+    """Idle decode slots (every page the scratch block, seq_len 1) beside
+    live ones; one wrapper call counts one launch, combine included."""
+    rng = np.random.default_rng(5)
+    args = _paged_lens(rng, 32, 32, 128, 32, [1700, 900, 2048, 300], dtype,
+                       layout, cuda, idle=(1, 3))
+    ops.reset_launch_counts()
+    got = ops.paged_attention(*args, layout=layout)
+    assert ops.launch_counts()["paged_attention"] == 1
+    want = ref.paged_attention_ref(*args, layout=layout)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=ATOL[dtype])
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("pool_dt,canon_dt", [("float32", "float32"),
                                               ("bfloat16", "bfloat16"),
@@ -275,6 +349,64 @@ def test_scatter_kernel_vector_widths(cuda, layout, pool_dt, canon_dt,
     assert torch.equal(got, want)
     keep = [i for i in range(13) if i not in ids.tolist()]
     assert torch.equal(pool[:, keep], before[:, keep])
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("pool_dt,out_dt", DTYPE_PAIRS)
+@pytest.mark.parametrize("offset", [0, 1, 2, 4])
+def test_gather_kernel_vector_widths(cuda, layout, pool_dt, out_dt, offset):
+    """A pool sliced at an element offset along its innermost axis inside
+    a wider buffer forces each vector width where hd is that axis (offset
+    0: 16 bytes; 1, 2, 4 elements: that many); nhdb pools go through the
+    tile. Every width gives the plain version's bits."""
+    from repro_torch.kernels.kv_repack import gather_vector_width
+    spec = KVPageSpec(16, layout, pool_dt, 2, 32)
+    rng = np.random.default_rng(offset + 7)
+    page = spec.page_shape()
+    wide = _rand(rng, (3, 13) + page[:-1] + (page[-1] + 8,), pool_dt, cuda)
+    pool = wide[..., offset:offset + page[-1]]
+    ids = torch.from_numpy(rng.permutation(np.arange(1, 13, 2))[:4]
+                           .astype(np.int32)).to(cuda)
+    cap = 8 if pool_dt == out_dt == "bfloat16" else 4
+    out = torch.empty((3, 4, 16, 2, 32), dtype=TDT[out_dt], device=cuda)
+    assert gather_vector_width(spec, pool, out) == (
+        cap if layout == "nhdb" or offset == 0 else min(cap, offset))
+    got = ops.gather_pages(spec, pool, ids, out_dtype=TDT[out_dt])
+    want = ref.gather_pages_ref(spec, pool, ids, out_dtype=TDT[out_dt])
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("pool_dt,out_dt", DTYPE_PAIRS)
+def test_gather_kernel_any_strides(cuda, layout, pool_dt, out_dt):
+    """A pool whose page axes lie in memory in the reverse of the layout's
+    order (a permuted view), so hd is never the unit-stride axis: read
+    through the tile path, bit-identical."""
+    spec = KVPageSpec(32, layout, pool_dt, 4, 128)
+    rng = np.random.default_rng(11)
+    page = spec.page_shape()
+    base = _rand(rng, (2, 9) + page[::-1], pool_dt, cuda)
+    pool = base.permute(0, 1, 4, 3, 2)
+    ids = torch.tensor([6, 1, 3], dtype=torch.int32, device=cuda)
+    got = ops.gather_pages(spec, pool, ids, out_dtype=TDT[out_dt])
+    want = ref.gather_pages_ref(spec, pool, ids, out_dtype=TDT[out_dt])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_gather_kernel_cow_page(cuda, layout):
+    """The copy-on-write shape: one page of each of 32 layers at llama2-7b
+    widths (block 32, 32 heads, d 128), bf16."""
+    spec = KVPageSpec(32, layout, "bfloat16", 32, 128)
+    rng = np.random.default_rng(32)
+    pool = _rand(rng, (32,) + spec.pool_shape(9), "bfloat16", cuda)
+    ids = torch.tensor([6], dtype=torch.int32, device=cuda)
+    got = ops.gather_pages(spec, pool, ids)
+    want = ref.gather_pages_ref(spec, pool, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("src_layout,dst_layout", [("nhbd", "nbhd"),

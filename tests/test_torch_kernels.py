@@ -433,3 +433,183 @@ def test_flash_tma_strides(what, match):
         t = t.as_strided(t.shape, (5, 3, 64, 1))
         assert _tma_strides("q", wide[..., :64]) == [8, 1152, 72]
         assert _tma_strides("k", t) == [8, 8, 64]
+
+
+# --------------------------------------------------------------------------- #
+# paged attention's split across blocks (the card kernel's plan and merge)
+# --------------------------------------------------------------------------- #
+SPLIT_WIDTHS = list(range(1, 17)) + [31, 32, 33, 63, 64, 65, 100, 127, 128]
+
+
+@pytest.mark.parametrize("width", SPLIT_WIDTHS)
+def test_paged_split_plan_covers_every_page_once(width):
+    """For a block table ``width`` pages wide, batches 1-8 and KV heads 1
+    and 32: the splits tile the table's pages, and for any sequence length
+    and window the splits the kernel keeps hold every page it must read
+    exactly once, in order, and no split past its last page is kept."""
+    from repro_torch.kernels.paged_attention import split_plan, split_ranges
+    bs = 4
+    lens = sorted(n for n in {1, 2, bs, bs + 1, width * bs // 2 + 1,
+                              width * bs - 1, width * bs}
+                  if 1 <= n <= width * bs)
+    for batch in range(1, 9):
+        for kvh in (1, 32):
+            n_splits, pps = split_plan(width, batch, kvh)
+            assert 1 <= n_splits <= width and pps >= 1
+            assert (n_splits - 1) * pps < width <= n_splits * pps
+            for window in (0, 1, 5, 3 * bs + 1):
+                for n in lens:
+                    n_pages = -(-n // bs)
+                    p0 = max(0, n - window) // bs if window else 0
+                    got = split_ranges(n, bs, width, pps, window)
+                    pages = [p for _, pa, pb in got for p in range(pa, pb)]
+                    assert pages == list(range(p0, n_pages))
+                    assert all(s < n_splits for s, _, _ in got)
+                    assert all(s * pps <= pa < pb <= (s + 1) * pps
+                               for s, pa, pb in got)
+
+
+@pytest.mark.parametrize("batch,kvh,width,want", [
+    (8, 32, 65, (9, 8)),          # the main path's decode batch
+    (1, 32, 64, (16, 4)),         # one 2048-token sequence: 4 pages a split
+    (8, 32, 1, (1, 1)),
+    (8, 32, 3, (1, 3)),           # fewer pages than the minimum split
+    (264, 32, 65, (1, 65)),       # a batch that fills the card alone
+])
+def test_paged_split_plan_fills_the_card(batch, kvh, width, want):
+    """Enough splits that the grid has about 16 blocks per SM of 132, at
+    least 4 pages each where the table has them."""
+    from repro_torch.kernels.paged_attention import split_plan
+    assert split_plan(width, batch, kvh, 132) == want
+
+
+@pytest.mark.parametrize("h,kv,d,bs,es,cb,want", [
+    (32, 32, 128, 32, 2, 16, dict(head_dim=128, pitch=128, stages=3)),
+    (32, 32, 128, 32, 4, 16, dict(head_dim=128, pitch=128, stages=3)),
+    (32, 32, 128, 32, 2, 0, dict(head_dim=128, pitch=132, stages=3)),
+    (32, 8, 128, 16, 2, 16, dict(head_dim=128, pitch=128, stages=3)),
+    (8, 2, 80, 16, 2, 8, dict(head_dim=128, pitch=80, stages=3)),
+    (4, 1, 20, 4, 4, 16, dict(head_dim=32, pitch=20, stages=3)),
+    (4, 4, 128, 64, 4, 16, dict(head_dim=128, pitch=128, stages=3)),
+    (4, 4, 128, 128, 4, 16, dict(head_dim=128, pitch=128, stages=1)),
+])
+def test_paged_launch_plan(h, kv, d, bs, es, cb, want):
+    """Padded head dim, staged row pitch (16-byte rows for cp.async, padded
+    rows for the register path), ring depth within shared memory."""
+    from repro_torch.kernels.paged_attention import SMEM_LIMIT, launch_plan
+    plan = launch_plan(h, kv, d, bs, es, cb)
+    assert {k: plan[k] for k in want} == want
+    assert plan["pitch"] % 4 == 0 and plan["smem"] <= SMEM_LIMIT
+    if cb:
+        assert plan["pitch"] * es % 16 == 0
+
+
+@pytest.mark.parametrize("h,kv,d,bs", [(32, 1, 128, 16), (4, 4, 300, 8),
+                                       (4, 4, 256, 256), (3, 2, 64, 8)])
+def test_paged_launch_plan_refuses(h, kv, d, bs):
+    """A group too wide for the lanes' registers, a head dim past 256, a
+    page whose ring does not fit in shared memory, uneven groups."""
+    from repro_torch.kernels.paged_attention import launch_plan
+    with pytest.raises(ValueError, match="paged_attention"):
+        launch_plan(h, kv, d, bs, 4, 16)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [0, 1, 2, 4])
+def test_paged_stage_copy_bytes(layout, dtype, offset):
+    """cp.async width from the pools' bases and strides: 16 bytes for
+    contiguous rows, less for pools sliced at an element offset inside a
+    wider buffer, 0 (register staging) for token-innermost pages or
+    2-byte alignment."""
+    from repro_torch.kernels.paged_attention import (pool_strides,
+                                                     stage_copy_bytes)
+    spec = KVPageSpec(8, layout, dtype, 2, 32)
+    page = spec.page_shape()
+    wide = torch.zeros((5,) + page[:-1] + (page[-1] + 8,), dtype=TDT[dtype])
+    pool = wide[..., offset:offset + page[-1]]
+    es = pool.element_size()
+    got = stage_copy_bytes(pool, pool, pool_strides(pool, layout), 32)
+    if layout == "nhdb":
+        assert got == 0
+    else:
+        want = 16 if offset == 0 else es * offset
+        assert got == (want if want >= 4 else 0)
+
+
+def _split_merge(q, kp, vp, table, lens, layout, window, pps):
+    """Plain float32 flash-decoding: each split's max, sum and
+    unnormalised P.V over its pages, merged as the card kernel merges them
+    (rescale by exp(m_s - max m), divide by the merged sum once)."""
+    from repro_torch.kernels.paged_attention import split_ranges
+    from repro_torch.serving.paged_cache import _to_canon_perm
+    perm = (0,) + tuple(i + 1 for i in _to_canon_perm(layout))
+    kc, vc = kp.permute(perm).float(), vp.permute(perm).float()
+    _, bs, kv, d = kc.shape
+    b, h, _ = q.shape
+    grp, scale = h // kv, 1.0 / np.sqrt(d)
+    out = torch.zeros(b, h, d)
+    for i in range(b):
+        n = int(lens[i])
+        parts = []
+        for _, pa, pb in split_ranges(n, bs, table.shape[1], pps, window):
+            ids = table[i, pa:pb].long()
+            k = kc[ids].reshape(-1, kv, d)
+            v = vc[ids].reshape(-1, kv, d)
+            pos = torch.arange(pa * bs, pb * bs)
+            ok = (pos < n) & ((pos >= n - window) if window > 0 else True)
+            qg = q[i].float().reshape(kv, grp, d)
+            s = torch.einsum("kgd,tkd->kgt", qg, k) * scale
+            s = torch.where(ok, s, torch.full_like(s, -float("inf")))
+            m = s.max(-1).values
+            p = torch.exp(s - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("kgt,tkd->kgd", p, v)))
+        big = torch.stack([m for m, _, _ in parts]).max(0).values
+        num = sum(a * torch.exp(m - big)[..., None] for m, _, a in parts)
+        den = sum(l * torch.exp(m - big) for m, l, _ in parts)
+        out[i] = (num / den.clamp_min(1e-30)[..., None]).reshape(h, d)
+    return out
+
+
+@pytest.mark.parametrize("b,h,kv,d,bs,pages", PAGED_SHAPES)
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("pps", [1, 2, 3])
+@pytest.mark.parametrize("window", [0, 11, 5])
+def test_paged_split_merge_matches_ref(b, h, kv, d, bs, pages, layout, pps,
+                                       window):
+    """Per-split partials merged with the kernel's combine formula equal
+    paged_attention_ref in float32 within 2e-5 at the JAX sweep shapes,
+    with splits of 1-3 pages whose edges the window start crosses."""
+    q, k, v, table, lens = _paged_inputs(b, h, kv, d, bs, pages, seed=3)
+    spec = KVPageSpec(bs, layout, "float32", kv, d)
+    kp = pages_from_canonical(spec, torch.from_numpy(k)).contiguous()
+    vp = pages_from_canonical(spec, torch.from_numpy(v)).contiguous()
+    tq, tt, tl = (torch.from_numpy(a) for a in (q, table, lens))
+    want = ref.paged_attention_ref(tq, kp, vp, tt, tl, layout=layout,
+                                   window=window)
+    got = _split_merge(tq, kp, vp, tt, tl, layout, window, pps)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("pool_dt,out_dt,cap", [
+    ("bfloat16", "bfloat16", 8), ("float32", "float32", 4),
+    ("bfloat16", "float32", 4), ("float32", "bfloat16", 4)])
+@pytest.mark.parametrize("offset", [0, 1, 2, 4])
+def test_gather_vector_width_from_the_alignments(layout, pool_dt, out_dt,
+                                                 cap, offset):
+    """gather_pages' width from the pool's base pointer and strides: a pool
+    sliced at an element offset inside a wider buffer (along its innermost
+    axis) gets the largest width that divides the offset where hd is that
+    axis; a token-innermost (nhdb) pool is read one element at a time, so
+    only the contiguous output counts there."""
+    from repro_torch.kernels.kv_repack import gather_vector_width
+    spec = KVPageSpec(16, layout, pool_dt, 2, 32)
+    page = spec.page_shape()
+    wide = torch.zeros((3, 5) + page[:-1] + (page[-1] + 8,),
+                       dtype=TDT[pool_dt])
+    pool = wide[..., offset:offset + page[-1]]
+    out = torch.zeros((3, 2, 16, 2, 32), dtype=TDT[out_dt])
+    want = cap if layout == "nhdb" or offset == 0 else min(cap, offset)
+    assert gather_vector_width(spec, pool, out) == want
+    assert gather_vector_width(spec, pool, out[..., 1:17]) == 1
