@@ -28,7 +28,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FAMILIES = (("flash_attention", ("flash_fwd_kernel",)),
             ("paged_attention", ("::paged_split_kernel<",
                                  "::paged_combine_kernel<")),
-            ("scatter_pages_overlay", ("::overlay_kernel<",)),
+            ("scatter_pages_overlay", ("::page_overlay_kernel<",
+                                       "::tile_overlay_kernel<")),
             ("scatter_pages", ("::page_scatter_kernel<",
                                "::tile_scatter_kernel<")),
             ("gather_pages", ("::page_gather_kernel<",

@@ -12,7 +12,8 @@ nvcc, then runs five phases, each printing JSON lines:
      kernel of the built library (``cuobjdump -sass``), and each kernel's
      registers, spill bytes and whether ptxas serialized its wgmma
      instructions (the build's ``-Xptxas=-v`` output); the bf16 flash
-     kernel must have HGMMA and UTMALDG, every paged split kernel LDGSTS;
+     kernel must have HGMMA and UTMALDG, every paged split kernel LDGSTS,
+     and every overlay page kernel whose canon load is 16 bytes LDG.E.128;
   1. every kernel against its plain PyTorch version on the card, over the
      JAX test-suite sweep shapes and the main path's llama2-7b shapes
      (float32 within 2e-5; bfloat16 within 2e-2 at the sweep shapes; at
@@ -20,11 +21,14 @@ nvcc, then runs five phases, each printing JSON lines:
      element, and flash within twice the max and mean error that
      ``scaled_dot_product_attention`` makes on the same bf16 inputs, both
      against the float32 plain version; the re-page, gather, scatter and
-     repack bit for bit, the last three also at the prefix cache's
-     copy-on-write shape and the full-width Fig. 3 shape), then each
-     kernel's time (paged also at one 2048-token sequence, at phase 3's
-     lengths and in the nhbd and nhdb layouts; gather, scatter and repack
-     also at the Fig. 3 shape), its plain version's time, a library
+     repack bit for bit, the re-page also at hd 128 on its 16-byte and
+     tile paths and against ``index_copy_`` at its timing shape, the last
+     three also at the prefix cache's copy-on-write shape and the
+     full-width Fig. 3 shape), then each kernel's time (paged also at one
+     2048-token sequence, at phase 3's lengths and in the nhbd and nhdb
+     layouts; the re-page also in nhbd and nhdb, as whole pages and from
+     float32 rows; gather, scatter and repack also at the Fig. 3 shape),
+     its plain version's time, a library
      call's time where one computes the same function, and the least time
      the card could take (bytes over 3.35 TB/s or operations over the
      dense peak of the dtype, whichever is larger). ``ms`` times
@@ -69,6 +73,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import subprocess
@@ -237,13 +242,27 @@ def phase0():
                              f"HGMMA/UTMALDG instructions: {flash}")
     wide = {name: {op: c[op] for op in ("LDGSTS", "LDG.E.128")}
             for name, c in sass.items()
-            if name.startswith(("paged_split_kernel", "page_gather_kernel"))}
+            if name.startswith(("paged_split_kernel", "page_gather_kernel",
+                                "page_overlay_kernel"))}
     emit({"phase": 0, "wide_loads": wide})
     if not wide or not all(c["LDGSTS"] for name, c in wide.items()
                            if name.startswith("paged_split_kernel")):
         raise AssertionError(f"phase 0: a paged split kernel has no "
                              f"cp.async (LDGSTS) instructions: {wide}")
+    overlay16 = {name: c["LDG.E.128"] for name, c in wide.items()
+                 if name.startswith("page_overlay_kernel")
+                 and canon_load_bytes(name) == 16}
+    if not overlay16 or not all(overlay16.values()):
+        raise AssertionError(f"phase 0: an overlay kernel whose canon load "
+                             f"is 16 bytes has no LDG.E.128: {overlay16}")
     return smi
+
+
+def canon_load_bytes(name: str) -> int:
+    """Bytes of one canon load of ``page_overlay_kernel<Tp, Tc, VEC>``:
+    VEC elements of Tc (``(int)8`` as cu++filt writes the width)."""
+    _, tc, vec = name[name.index("<") + 1:-1].split(", ")
+    return (2 if "bfloat16" in tc else 4) * int(vec.removeprefix("(int)"))
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "LDGSTS", "LDG.E.128")
@@ -428,9 +447,10 @@ def _paged_case(gen, dev, dtype, layout, b, h, kv, d, bs, lens, window,
 
 
 def _overlay_case(gen, dev, layout, pool_dt, canon_dt, layers, bs, kv, hd,
-                  front, seq_len, stream_rows):
+                  front, seq_len, stream_rows, offset=0):
     """``stream_rows``: canon is the rows alone (the streamed re-page),
-    else zero-padded whole pages (the monolithic one)."""
+    else zero-padded whole pages (the monolithic one). ``offset``: canon
+    starts that many elements into each row of a wider buffer."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.serving.paged_cache import KVPageSpec
@@ -440,8 +460,9 @@ def _overlay_case(gen, dev, layout, pool_dt, canon_dt, layers, bs, kv, hd,
     pool = _rand(gen, (layers,) + spec.pool_shape(n_blocks),
                  getattr(torch, pool_dt), dev)
     shape = (seq_len,) if stream_rows else (nb, bs)
-    canon = _rand(gen, (layers,) + shape + (kv, hd), getattr(torch, canon_dt),
-                  dev)
+    pad = 8 if offset else 0
+    canon = _rand(gen, (layers,) + shape + (kv, hd + pad),
+                  getattr(torch, canon_dt), dev)[..., offset:offset + hd]
     ids = (torch.randperm(n_blocks - 1, generator=gen, device=dev)[:nb]
            + 1).to(torch.int32)
     want = ref.scatter_pages_overlay_ref(spec, pool.clone(), ids, canon,
@@ -518,6 +539,11 @@ def _repack_case(gen, dev, src_layout, dst_layout, src_bs, dst_bs, src_dt,
 
 DTYPE_PAIRS = (("float32", "float32"), ("bfloat16", "bfloat16"),
                ("bfloat16", "float32"), ("float32", "bfloat16"))
+# overlay at hd 128, kv 8 (bs, front, seq_len): front 0; mid-page with a
+# span ending mid-page; one row before a chunk edge (chunks of 8 tokens in
+# bf16, 4 in f32, 32 in nhdb); bs 16 and 48, partial nhdb token tiles
+OVERLAY_WIDE_CASES = ((16, 0, 40), (32, 13, 50), (32, 7, 100), (32, 3, 61),
+                      (32, 31, 90), (16, 5, 60), (48, 31, 70))
 
 
 def phase1_pages(gen, dev, cfg):
@@ -670,6 +696,87 @@ def phase1_pages(gen, dev, cfg):
     return timings
 
 
+def phase1_overlay(gen, dev):
+    """The overlay's timings: one 500-token chunk's rows landing 20 rows
+    into a page, 32 layers, as the streamed re-page hands them over (the
+    main path's shape), beside ``index_copy_`` of the same rows, which must
+    give the same bits; then, as extra lines, the same rows into nhbd and
+    nhdb pools, the monolithic form (whole zero-padded pages, front 0) and
+    float32 rows (an int8 wire decodes to float32) into the bf16 pool."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    layers, bs, kv, hd, front, s = 32, 32, 32, 128, 20, 500
+    nb = -(-(front + s) // bs)
+
+    def rows_bytes(canon_dt, n_rows):
+        return ((torch.finfo(getattr(torch, canon_dt)).bits // 8 + 2)
+                * layers * n_rows * kv * hd + 4 * nb)
+
+    def library_rows(ids, n_rows, at):
+        """index_copy_'s row index: flat row at+i of the block list."""
+        r = torch.arange(at, at + n_rows, device=dev)
+        return ids.long()[r // bs] * bs + r % bs
+
+    err, (spec, pool, ids, canon) = _overlay_case(
+        gen, dev, "nbhd", "bfloat16", "bfloat16", layers, bs, kv, hd, front, s,
+        True)
+    rows = library_rows(ids, s, front)
+    flat = pool.view(layers, -1, kv * hd)
+    src = canon.view(layers, s, kv * hd)
+    fresh = _rand(gen, tuple(pool.shape), pool.dtype, dev)
+    got = ops.scatter_pages_overlay(spec, fresh.clone(), ids, canon,
+                                    front=front, seq_len=s)
+    lib = fresh.view(layers, -1, kv * hd).index_copy_(1, rows, src)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(layers, -1, kv * hd), lib):
+        raise AssertionError("overlay at the timing shape differs from "
+                             "index_copy_ of the same rows")
+    del fresh, got, lib
+    b_ms, b_by = bound(0.0, rows_bytes("bfloat16", s), "bfloat16")
+    timing = dict(
+        shape=f"rows ({layers},{s},{kv},{hd}) into pool ({layers},N,{bs},"
+              f"{kv},{hd}) nbhd bf16, {nb} pages, front {front}",
+        max_abs_err=err, library_bit_identical=True,
+        **time_all(lambda: ops.scatter_pages_overlay(
+                       spec, pool, ids, canon, front=front, seq_len=s),
+                   plain=lambda: ref.scatter_pages_overlay_ref(
+                       spec, pool, ids, canon, front=front, seq_len=s),
+                   library=lambda: flat.index_copy_(1, rows, src)),
+        bound_ms=b_ms, bound_by=b_by)
+    del pool, canon, flat, src
+    # (what, layout, canon dtype, stream rows, front, rows covered)
+    for what, layout, canon_dt, stream_rows, f0, n in (
+            ("nhbd", "nhbd", "bfloat16", True, front, s),
+            ("nhdb", "nhdb", "bfloat16", True, front, s),
+            ("whole pages, front 0 (monolithic)", "nbhd", "bfloat16", False,
+             0, nb * bs),
+            ("float32 rows into the bf16 pool (int8 wire)", "nbhd",
+             "float32", True, front, s)):
+        _, (x_spec, x_pool, x_ids, x_canon) = _overlay_case(
+            gen, dev, layout, "bfloat16", canon_dt, layers, bs, kv, hd, f0, n,
+            stream_rows)
+        library = None
+        if layout == "nbhd" and canon_dt == "bfloat16":
+            library = functools.partial(
+                x_pool.view(layers, -1, kv * hd).index_copy_, 1,
+                library_rows(x_ids, n, f0), x_canon.view(layers, n, kv * hd))
+        x_ms, x_by = bound(0.0, rows_bytes(canon_dt, n), "bfloat16")
+        emit({"phase": 1, "extra": f"scatter_pages_overlay, {what}",
+              "shape": f"canon {tuple(x_canon.shape)} {canon_dt} into "
+                       f"{layout} bf16 pool, {nb} pages, front {f0}, "
+                       f"{n} rows",
+              "bit_identical": True,
+              **time_all(lambda: ops.scatter_pages_overlay(
+                             x_spec, x_pool, x_ids, x_canon, front=f0,
+                             seq_len=n),
+                         plain=lambda: ref.scatter_pages_overlay_ref(
+                             x_spec, x_pool, x_ids, x_canon, front=f0,
+                             seq_len=n),
+                         library=library),
+              "bound_ms": x_ms, "bound_by": x_by})
+    return timing
+
+
 def phase1(dev):
     import numpy as np
     import torch
@@ -732,6 +839,16 @@ def phase1(dev):
         _overlay_case(gen, dev, layout, "bfloat16", "bfloat16", 32, 32, 32,
                       128, 20, 500, True)
         counts["overlay"] += 1
+        # the 16-byte and tile paths: hd 128, kv 8, chunk edges, partial
+        # token tiles, a canon 2 elements off 16 bytes
+        for pool_dt, canon_dt in DTYPE_PAIRS:
+            for bs, front, seq_len in OVERLAY_WIDE_CASES:
+                for stream_rows in (True, False):
+                    for offset in (0, 2):
+                        _overlay_case(gen, dev, layout, pool_dt, canon_dt, 2,
+                                      bs, 8, 128, front, seq_len, stream_rows,
+                                      offset)
+                        counts["overlay"] += 1
     emit({"phase": 1, "checks": counts, "atol": ATOL,
           "main_bf16": {"floor": BF16_FLOOR, "step": BF16_STEP,
                         "mean": BF16_MEAN, "max_abs_err": main_err},
@@ -811,22 +928,7 @@ def phase1(dev):
                                                                layout=lay)),
               "bound_ms": p_ms, "bound_by": p_by})
         del a
-    # overlay: one 500-token chunk's rows landing 20 rows into a page, 32
-    # layers, as the streamed re-page hands them over
-    err, (spec, pool, ids, canon) = _overlay_case(
-        gen, dev, "nbhd", "bfloat16", "bfloat16", 32, 32, 32, 128, 20, 500,
-        True)
-    nbytes = 2.0 * 2 * 32 * 500 * 32 * 128 + 4 * 17
-    b_ms, b_by = bound(0.0, nbytes, "bfloat16")
-    timings["scatter_pages_overlay"] = dict(
-        shape="rows (32,500,32,128) into pool (32,N,32,32,128) nbhd bf16, "
-              "17 pages, front 20",
-        max_abs_err=err,
-        **time_all(lambda: ops.scatter_pages_overlay(
-                       spec, pool, ids, canon, front=20, seq_len=500),
-                   plain=lambda: ref.scatter_pages_overlay_ref(
-                       spec, pool, ids, canon, front=20, seq_len=500)),
-        bound_ms=b_ms, bound_by=b_by)
+    timings["scatter_pages_overlay"] = phase1_overlay(gen, dev)
     from repro_torch.configs import get_config
     timings.update(phase1_pages(gen, dev, get_config(MODEL)))
     for name, t in timings.items():

@@ -44,64 +44,32 @@
 // written along hd (tile_gather_kernel). The wrapper picks VEC from the
 // pool's and the output's alignments (kv_repack.py:gather_vector_width).
 //
-// The overlay: one block per (page, layer). Threads walk the destination
-// page in its own memory order (contiguous, coalesced stores) and read the
-// source through the strides of the matching axes. Its canon is either
-// whole pages or the streamed rows alone: `canon_off` (an element offset,
-// negative for the latter) moves the page origin so that a chunk landing
-// mid-page is read where it lies, with no padded copy. Rows outside the flat span [front, front + seq_len)
-// are simply not written: because the pool is updated in place, that
-// leaves exactly what the reference's read-merge-write would, so the pool
-// stays bit-identical to the plain version.
+// scatter_pages_overlay: the scatter's design with the overlay's row test.
+// Its canon is either whole pages or the streamed rows alone: `canon_off`
+// (an element offset, negative for the latter) moves the page origin so
+// that a chunk landing mid-page is read where it lies, with no padded
+// copy. Rows outside the flat span [front, front + seq_len) are not
+// written: because the pool is updated in place, that leaves exactly what
+// the reference's read-merge-write would, so the pool stays bit-identical
+// to the plain version. Each page is cut into chunks of whole tokens, T of
+// them (about 16 KiB of pool; a token tile of TT in nhdb), and the grid
+// holds only the chunks that cover a row of the span: in the flat order
+// (page, chunk) they are one contiguous run, [first, first + count), which
+// the wrapper computes (kv_repack.py:overlay_plan). A block clips its
+// chunk to the span once, so the row test costs nothing per access and
+// canon addresses are formed for covered rows only. Where the page's hd
+// is unit-stride (nbhd, nhbd: page_overlay_kernel) each access moves VEC
+// elements, 16 bytes where the alignments allow (overlay_vector_width);
+// nhdb goes through a shared-memory tile as tile_scatter_kernel does
+// (tile_overlay_kernel).
+#include <climits>
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-
-// Overlay: rows of each page in [front, front + seq_len) (flat rows of the
-// block list) from canon, cast; every other row keeps its contents.
-template <typename Tp, typename Tc>
-__global__ void __launch_bounds__(THREADS)
-overlay_kernel(Tp* __restrict__ pool, const Tc* __restrict__ canon,
-               const int* __restrict__ ids, int BS, long long pool_sl,
-               long long pool_sn, int D0, int D1, int D2, int tok_axis,
-               long long c_s0, long long c_s1, long long c_s2,
-               long long canon_sl, long long canon_sp, long long canon_off,
-               int front, int seq_len) {
-  const int pg = blockIdx.x;
-  const int layer = blockIdx.y;
-  Tp* dst = pool + layer * pool_sl + (long long)ids[pg] * pool_sn;
-  // element offset of this page's row 0 in canon; only covered rows are read
-  const long long base = layer * canon_sl + (long long)pg * canon_sp + canon_off;
-  const int n = D0 * D1 * D2;
-  const int lo = front - pg * BS;              // covered rows of this page:
-  const int hi = front + seq_len - pg * BS;    // lo <= t < hi
-  for (int e = threadIdx.x; e < n; e += THREADS) {
-    const int i2 = e % D2;
-    const int r = e / D2;
-    const int i1 = r % D1;
-    const int i0 = r / D1;
-    const int t = tok_axis == 0 ? i0 : (tok_axis == 1 ? i1 : i2);
-    if (t < lo || t >= hi) continue;
-    dst[e] = rt::cvt<Tp>(canon[base + i0 * c_s0 + i1 * c_s1 + i2 * c_s2]);
-  }
-}
-
-template <typename Tp, typename Tc>
-int launch_overlay(void* pool, const void* canon, const int* ids, int L,
-                   int nb, int BS, long long pool_sl, long long pool_sn,
-                   int D0, int D1, int D2, int tok_axis, long long c_s0,
-                   long long c_s1, long long c_s2, long long canon_sl,
-                   long long canon_sp, long long canon_off, int front,
-                   int seq_len, cudaStream_t stream) {
-  dim3 grid(nb, L);
-  overlay_kernel<Tp, Tc><<<grid, THREADS, 0, stream>>>(
-      static_cast<Tp*>(pool), static_cast<const Tc*>(canon), ids, BS, pool_sl,
-      pool_sn, D0, D1, D2, tok_axis, c_s0, c_s1, c_s2, canon_sl, canon_sp,
-      canon_off, front, seq_len);
-  return (int)cudaGetLastError();
-}
 
 // VEC elements of T, moved as one access of VEC * sizeof(T) bytes.
 template <int BYTES> struct RawOf;
@@ -198,6 +166,142 @@ tile_scatter_kernel(Tp* __restrict__ pool, const Tc* __restrict__ canon,
   }
 }
 
+// Calls f(std::integral_constant<int, V>{}) for V = vec: 1, 2, 4, or 8
+// where VMAX allows it; any other vec is an invalid value.
+template <int VMAX, typename F>
+int with_vec(int vec, F f) {
+  switch (vec) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8:
+      if constexpr (VMAX >= 8) return f(std::integral_constant<int, 8>{});
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The overlay's chunk: flat chunk g = first + x holds tokens [t0, t0 + T)
+// of page g / n_c; its covered tokens are [lo, hi), empty if lo >= hi.
+struct OverlayChunk {
+  int pg, lo, hi;
+  __device__ OverlayChunk(int g, int BS, int T, int n_c, int front, int end)
+      : pg(g / n_c) {
+    const int t0 = (g % n_c) * T;
+    lo = max(t0, front - pg * BS);
+    hi = min(min(t0 + T, BS), end - pg * BS);
+  }
+};
+
+// scatter_pages_overlay into pages with hd innermost (nbhd: (bs, kv, hd);
+// nhbd: (kv, bs, hd)). Block x: a covered chunk; y: layer. Threads walk the
+// chunk's covered tokens in the page's memory order, VEC elements per
+// access; canon is read through its (token, head, dim) strides c_st, c_sh,
+// c_sd (c_sd is 1 when VEC > 1, the wrapper's choice). Canon element of
+// page row t: layer * canon_sl + pg * canon_sp + canon_off + t * c_st + ...
+template <typename Tp, typename Tc, int VEC>
+__global__ void __launch_bounds__(THREADS)
+page_overlay_kernel(Tp* __restrict__ pool, const Tc* __restrict__ canon,
+                    const int* __restrict__ ids, int BS, int KV, int HD,
+                    bool nbhd, long long pool_sl, long long pool_sn,
+                    long long c_st, long long c_sh, long long c_sd,
+                    long long canon_sl, long long canon_sp,
+                    long long canon_off, int front, int end, int T, int n_c,
+                    int first) {
+  const OverlayChunk c(first + blockIdx.x, BS, T, n_c, front, end);
+  if (c.lo >= c.hi) return;
+  const int layer = blockIdx.y;
+  // (a0, a1, d): (token, head, dim) in nbhd, (head, token, dim) in nhbd,
+  // tokens counted from lo
+  const int n_tok = c.hi - c.lo;
+  const int D1 = nbhd ? KV : n_tok;
+  const long long p_s0 = nbhd ? (long long)KV * HD : (long long)BS * HD;
+  const long long c_s0 = nbhd ? c_st : c_sh, c_s1 = nbhd ? c_sh : c_st;
+  Tp* dst = pool + layer * pool_sl + (long long)ids[c.pg] * pool_sn +
+            (long long)c.lo * (nbhd ? KV * HD : HD);
+  // row lo is covered, so this offset lies inside canon
+  const Tc* src = canon + (layer * canon_sl + c.pg * canon_sp + canon_off +
+                           c.lo * c_st);
+  const int n = n_tok * KV * HD;
+#pragma unroll 4
+  for (int e = threadIdx.x * VEC; e < n; e += THREADS * VEC) {
+    const int d = e % HD;
+    const int r = e / HD;
+    const int a0 = r / D1, a1 = r - a0 * D1;
+    const Vec<Tp, VEC> y =
+        load_cvt<Tp, Tc, VEC>(src + a0 * c_s0 + a1 * c_s1 + d * c_sd);
+    *reinterpret_cast<decltype(y.raw)*>(dst + a0 * p_s0 + a1 * HD + d) =
+        y.raw;
+  }
+}
+
+// scatter_pages_overlay into nhdb pages (kv, hd, bs): one head's covered
+// (token, hd) rows of a chunk of T <= TT tokens are read along hd, VEC
+// elements per access, into a (TT x TD) tile in shared memory, then
+// written along the token with consecutive threads on consecutive
+// addresses. Block x: (covered chunk, head, dim tile); y: layer.
+template <typename Tp, typename Tc, int VEC>
+__global__ void __launch_bounds__(THREADS)
+tile_overlay_kernel(Tp* __restrict__ pool, const Tc* __restrict__ canon,
+                    const int* __restrict__ ids, int BS, int KV, int HD,
+                    long long pool_sl, long long pool_sn, long long c_st,
+                    long long c_sh, long long c_sd, long long canon_sl,
+                    long long canon_sp, long long canon_off, int front,
+                    int end, int T, int n_c, int first) {
+  constexpr int LD = TD + 4 / sizeof(Tp);    // odd row stride in words
+  __shared__ Tp tile[TT * LD];
+  const int n_td = (HD + TD - 1) / TD;
+  int x = blockIdx.x;
+  const int td = x % n_td; x /= n_td;
+  const int hh = x % KV;
+  const OverlayChunk c(first + x / KV, BS, T, n_c, front, end);
+  if (c.lo >= c.hi) return;                  // the whole block, before the barrier
+  const int layer = blockIdx.y;
+  const int n_tok = c.hi - c.lo, d0 = td * TD;
+  const Tc* src = canon + (layer * canon_sl + c.pg * canon_sp + canon_off +
+                           c.lo * c_st + hh * c_sh + d0 * c_sd);
+  for (int i = threadIdx.x * VEC; i < n_tok * TD; i += THREADS * VEC) {
+    const int t = i / TD, d = i % TD;
+    if (d0 + d < HD) {
+      const Vec<Tp, VEC> y = load_cvt<Tp, Tc, VEC>(src + t * c_st + d * c_sd);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) tile[t * LD + d + j] = y.v[j];
+    }
+  }
+  __syncthreads();
+  Tp* dst = pool + layer * pool_sl + (long long)ids[c.pg] * pool_sn +
+            ((long long)hh * HD + d0) * BS + c.lo;
+  for (int i = threadIdx.x; i < n_tok * TD; i += THREADS) {
+    const int d = i / n_tok, t = i % n_tok;
+    if (d0 + d < HD) dst[(long long)d * BS + t] = tile[t * LD + d];
+  }
+}
+
+template <typename Tp, typename Tc, int VEC>
+int launch_overlay(void* pool, const void* canon, const int* ids, int L,
+                   int BS, int KV, int HD, int layout, long long pool_sl,
+                   long long pool_sn, long long c_st, long long c_sh,
+                   long long c_sd, long long canon_sl, long long canon_sp,
+                   long long canon_off, int front, int end, int T, int first,
+                   int count, cudaStream_t stream) {
+  Tp* p = static_cast<Tp*>(pool);
+  const Tc* c = static_cast<const Tc*>(canon);
+  const int n_c = (BS + T - 1) / T;
+  if (layout == 2) {                                         // nhdb
+    const long long blocks = (long long)count * KV * ((HD + TD - 1) / TD);
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    tile_overlay_kernel<Tp, Tc, VEC>
+        <<<dim3((unsigned)blocks, L), THREADS, 0, stream>>>(
+            p, c, ids, BS, KV, HD, pool_sl, pool_sn, c_st, c_sh, c_sd,
+            canon_sl, canon_sp, canon_off, front, end, T, n_c, first);
+  } else {                                                   // nbhd, nhbd
+    page_overlay_kernel<Tp, Tc, VEC><<<dim3(count, L), THREADS, 0, stream>>>(
+        p, c, ids, BS, KV, HD, layout == 0, pool_sl, pool_sn, c_st, c_sh,
+        c_sd, canon_sl, canon_sp, canon_off, front, end, T, n_c, first);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename Tp, typename Tc, int VEC>
 int launch_scatter(void* pool, const void* canon, const int* ids, int L,
                    int nb, int BS, int KV, int HD, int layout,
@@ -232,18 +336,27 @@ int scatter_vec(int vec, void* pool, const void* canon, const int* ids, int L,
                 long long c_sd, long long canon_sl, long long canon_sp,
                 cudaStream_t stream) {
   constexpr int VMAX = 16 / (sizeof(Tp) > sizeof(Tc) ? sizeof(Tp) : sizeof(Tc));
-#define RT_VEC(V)                                                            \
-  return launch_scatter<Tp, Tc, V>(pool, canon, ids, L, nb, BS, KV, HD,      \
-                                   layout, pool_sl, pool_sn, c_st, c_sh,     \
-                                   c_sd, canon_sl, canon_sp, stream)
-  if (vec == 1) RT_VEC(1);
-  if (vec == 2) RT_VEC(2);
-  if (vec == 4) RT_VEC(4);
-  if constexpr (VMAX >= 8) {
-    if (vec == 8) RT_VEC(8);
-  }
-#undef RT_VEC
-  return (int)cudaErrorInvalidValue;
+  return with_vec<VMAX>(vec, [&](auto v) {
+    return launch_scatter<Tp, Tc, decltype(v)::value>(
+        pool, canon, ids, L, nb, BS, KV, HD, layout, pool_sl, pool_sn, c_st,
+        c_sh, c_sd, canon_sl, canon_sp, stream);
+  });
+}
+
+template <typename Tp, typename Tc>
+int overlay_vec(int vec, void* pool, const void* canon, const int* ids, int L,
+                int BS, int KV, int HD, int layout, long long pool_sl,
+                long long pool_sn, long long c_st, long long c_sh,
+                long long c_sd, long long canon_sl, long long canon_sp,
+                long long canon_off, int front, int end, int T, int first,
+                int count, cudaStream_t stream) {
+  constexpr int VMAX = 16 / (sizeof(Tp) > sizeof(Tc) ? sizeof(Tp) : sizeof(Tc));
+  return with_vec<VMAX>(vec, [&](auto v) {
+    return launch_overlay<Tp, Tc, decltype(v)::value>(
+        pool, canon, ids, L, BS, KV, HD, layout, pool_sl, pool_sn, c_st, c_sh,
+        c_sd, canon_sl, canon_sp, canon_off, front, end, T, first, count,
+        stream);
+  });
 }
 
 // gather_pages from pages with hd innermost (p_sd == 1: nbhd, nhbd).
@@ -347,38 +460,41 @@ int gather_vec(int vec, void* out, const void* pool, const int* ids, int L,
                long long p_sd, long long out_sl, long long out_sp,
                cudaStream_t stream) {
   constexpr int VMAX = 16 / (sizeof(To) > sizeof(Tp) ? sizeof(To) : sizeof(Tp));
-#define RT_VEC(V)                                                            \
-  return launch_gather<To, Tp, V>(out, pool, ids, L, nb, BS, KV, HD,         \
-                                  pool_sl, pool_sn, p_st, p_sh, p_sd,        \
-                                  out_sl, out_sp, stream)
-  if (vec == 1) RT_VEC(1);
-  if (vec == 2) RT_VEC(2);
-  if (vec == 4) RT_VEC(4);
-  if constexpr (VMAX >= 8) {
-    if (vec == 8) RT_VEC(8);
-  }
-#undef RT_VEC
-  return (int)cudaErrorInvalidValue;
+  return with_vec<VMAX>(vec, [&](auto v) {
+    return launch_gather<To, Tp, decltype(v)::value>(
+        out, pool, ids, L, nb, BS, KV, HD, pool_sl, pool_sn, p_st, p_sh, p_sd,
+        out_sl, out_sp, stream);
+  });
 }
 
 }  // namespace
 
+// canon strides by canonical axis (token, head, dim) in elements, and the
+// page origin's offset canon_off; layout 0 nbhd, 1 nhbd, 2 nhdb. The wrapper
+// plans the grid (kv_repack.py:overlay_plan): chunks of T tokens (T <= TT in
+// nhdb), the covered ones flat chunks [first, first + count); vec: elements
+// per access (1, 2, 4, or 8 for bf16 -> bf16), from the alignments.
 extern "C" int rt_scatter_pages_overlay(
     void* pool, const void* canon, const void* block_ids, int pool_dtype,
-    int canon_dtype, int L, int nb, int BS, long long pool_sl,
-    long long pool_sn, int D0, int D1, int D2, int tok_axis, long long c_s0,
-    long long c_s1, long long c_s2, long long canon_sl, long long canon_sp,
-    long long canon_off, int front, int seq_len, void* stream) {
-  if (tok_axis < 0 || tok_axis > 2 || BS <= 0 || L > 65535)
+    int canon_dtype, int L, int nb, int BS, int KV, int HD, int layout,
+    long long pool_sl, long long pool_sn, long long c_st, long long c_sh,
+    long long c_sd, long long canon_sl, long long canon_sp,
+    long long canon_off, int front, int seq_len, int T, int first, int count,
+    int vec, void* stream) {
+  if (BS <= 0 || KV <= 0 || HD <= 0 || L > 65535 || layout < 0 ||
+      layout > 2 || vec <= 0 || HD % vec != 0 || T <= 0 || T > BS ||
+      (layout == 2 && T > TT) || first < 0 || count < 0 ||
+      (long long)first + count > (long long)nb * ((BS + T - 1) / T))
     return (int)cudaErrorInvalidValue;
-  if (L <= 0 || nb <= 0 || seq_len <= 0) return 0;
+  if (L <= 0 || count == 0 || seq_len <= 0) return 0;
   const int* ids = static_cast<const int*>(block_ids);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int end = front + seq_len;
 #define RT_OVERLAY(TP, TC)                                                   \
-  return launch_overlay<TP, TC>(pool, canon, ids, L, nb, BS, pool_sl,        \
-                                pool_sn, D0, D1, D2, tok_axis, c_s0, c_s1,   \
-                                c_s2, canon_sl, canon_sp, canon_off, front,  \
-                                seq_len, s)
+  return overlay_vec<TP, TC>(vec, pool, canon, ids, L, BS, KV, HD, layout,   \
+                             pool_sl, pool_sn, c_st, c_sh, c_sd, canon_sl,   \
+                             canon_sp, canon_off, front, end, T, first,      \
+                             count, s)
   if (pool_dtype == rt::kF32 && canon_dtype == rt::kF32) RT_OVERLAY(float, float);
   if (pool_dtype == rt::kF32 && canon_dtype == rt::kBF16) RT_OVERLAY(float, __nv_bfloat16);
   if (pool_dtype == rt::kBF16 && canon_dtype == rt::kF32) RT_OVERLAY(__nv_bfloat16, float);

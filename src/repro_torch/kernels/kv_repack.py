@@ -42,8 +42,7 @@ def _kernel(name: str, argtypes):
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_OVERLAY_ARGS = ([_P] * 3 + [_I] * 5 + [_L] * 2 + [_I] * 4 + [_L] * 6
-                 + [_I] * 2 + [_P])
+_OVERLAY_ARGS = [_P] * 3 + [_I] * 8 + [_L] * 8 + [_I] * 6 + [_P]
 _SCATTER_ARGS = [_P] * 3 + [_I] * 8 + [_L] * 7 + [_I, _P]
 _LAYOUT_CODE = {"nbhd": 0, "nhbd": 1, "nhdb": 2}
 _GATHER_ARGS = [_P] * 3 + [_I] * 7 + [_L] * 7 + [_I, _P]
@@ -67,13 +66,6 @@ def _check_inputs(op: str, spec: KVPageSpec, pool: torch.Tensor,
                          f"*{spec.page_shape()}) for {spec}")
 
 
-def _canon_strides(spec: KVPageSpec, row_strides):
-    """Strides of canon (bs, kv, hd) rows taken in the order of the pool
-    page's axes."""
-    perm = _FROM_CANON[spec.layout]
-    return [row_strides[perm[a]] for a in range(3)]
-
-
 def vector_width(cap: int, *offsets: int) -> int:
     """The largest power of two up to ``cap`` that divides every offset
     (in elements): how many elements one access of a kernel may move."""
@@ -89,20 +81,67 @@ def scatter_vector_width(spec: KVPageSpec, pool: torch.Tensor,
     the two dtypes (8 bf16 or 4 f32) where every offset the kernel forms
     allows it, fewer where a base pointer or a stride does not, 1 where
     hd is not canon's unit-stride axis. The canon offsets are its base
-    and the strides of its axes longer than 1; the pool's are its base
-    and hd (pages are whole multiples of hd). nhdb pages, whose innermost
-    axis is the token, are written one element at a time, so only canon
-    counts there."""
+    and the strides of its axes longer than 1 (hd last, whatever its
+    rank); the pool's are its base and hd (pages are whole multiples of
+    hd). nhdb pages, whose innermost axis is the token, are written one
+    element at a time, so only canon counts there."""
     hd = spec.head_dim
-    if hd > 1 and canon.stride(4) != 1:
+    if hd > 1 and canon.stride(-1) != 1:
         return 1
     cap = 16 // max(pool.element_size(), canon.element_size())
     offsets = [hd, canon.data_ptr() // canon.element_size()]
-    offsets += [st for n, st in zip(canon.shape[:4], canon.stride()[:4])
+    offsets += [st for n, st in zip(canon.shape[:-1], canon.stride()[:-1])
                 if n > 1]
     if spec.layout != "nhdb":
         offsets.append(pool.data_ptr() // pool.element_size())
     return vector_width(cap, *offsets)
+
+
+def overlay_vector_width(spec: KVPageSpec, pool: torch.Tensor,
+                         canon: torch.Tensor, canon_off: int) -> int:
+    """Elements per access of ``scatter_pages_overlay``: what
+    ``scatter_vector_width`` allows for its canon (whole pages or the
+    stream's rows alone), cut to divide ``canon_off`` too, the page
+    origin's offset in canon (``-front`` rows for the stream's rows)."""
+    return vector_width(scatter_vector_width(spec, pool, canon), canon_off)
+
+
+CHUNK_BYTES = 16 * 1024     # pool bytes per block of the overlay (csrc)
+TILE_TOKENS = 32            # nhdb token tile of the overlay (csrc TT)
+
+
+def overlay_plan(spec: KVPageSpec, itemsize: int, front: int,
+                 seq_len: int):
+    """The overlay kernel's grid: each page is cut into chunks of ``t``
+    whole tokens (about CHUNK_BYTES of pool of ``itemsize``-byte elements,
+    or the TILE_TOKENS tile in nhdb), numbered page by page; the chunks
+    that hold a row of ``[front, front + seq_len)`` are ``count`` in a
+    row from ``first``. Returns (t, first, count)."""
+    bs = spec.block_size
+    if spec.layout == "nhdb":
+        t = min(TILE_TOKENS, bs)
+    else:
+        row = spec.kv_heads * spec.head_dim * itemsize
+        t = min(bs, max(1, CHUNK_BYTES // row))
+    if seq_len <= 0:
+        return t, 0, 0
+    n_c = -(-bs // t)
+
+    def chunk(r):
+        return r // bs * n_c + r % bs // t
+
+    first = chunk(front)
+    return t, first, chunk(front + seq_len - 1) - first + 1
+
+
+def overlay_chunks(spec: KVPageSpec, itemsize: int, front: int,
+                   seq_len: int):
+    """(page, first token, end token) of each chunk the overlay kernel
+    launches, in launch order (``overlay_plan``)."""
+    t, first, count = overlay_plan(spec, itemsize, front, seq_len)
+    n_c = -(-spec.block_size // t)
+    return [(g // n_c, g % n_c * t, min(g % n_c * t + t, spec.block_size))
+            for g in range(first, first + count)]
 
 
 def _page_strides(spec: KVPageSpec, pool: torch.Tensor):
@@ -236,20 +275,22 @@ def scatter_pages_overlay(spec: KVPageSpec, pool: torch.Tensor,
         raise ValueError(f"scatter_pages_overlay: rows [{front}, "
                          f"{front + seq_len}) outside {nb} pages of {bs}")
     if stream_rows:
-        row_strides = canon.stride()[1:]
-        page_stride, canon_off = bs * canon.stride(1), -front * canon.stride(1)
+        c_st, c_sh, c_sd = canon.stride()[1:]
+        page_stride, canon_off = bs * c_st, -front * c_st
     else:
-        row_strides = canon.stride()[2:]
+        c_st, c_sh, c_sd = canon.stride()[2:]
         page_stride, canon_off = canon.stride(1), 0
-    page = spec.page_shape()
-    perm = _FROM_CANON[spec.layout]
+    t, first, count = overlay_plan(spec, pool.element_size(), front, seq_len)
+    if count == 0:
+        return pool
     stream = torch.cuda.current_stream(pool.device).cuda_stream
     err = _kernel("rt_scatter_pages_overlay", _OVERLAY_ARGS)(
         pool.data_ptr(), canon.data_ptr(), block_ids.data_ptr(),
         DTYPES[pool.dtype], DTYPES[canon.dtype], n_layers, nb, bs,
-        pool.stride(0), pool.stride(1), page[0], page[1], page[2],
-        perm.index(0), *_canon_strides(spec, row_strides), canon.stride(0),
-        page_stride, canon_off, int(front), int(seq_len), stream)
+        spec.kv_heads, spec.head_dim, _LAYOUT_CODE[spec.layout],
+        pool.stride(0), pool.stride(1), c_st, c_sh, c_sd, canon.stride(0),
+        page_stride, canon_off, int(front), int(seq_len), t, first, count,
+        overlay_vector_width(spec, pool, canon, canon_off), stream)
     _build.check(err, "scatter_pages_overlay")
     LAUNCHES["scatter_pages_overlay"] += 1
     return pool

@@ -66,7 +66,9 @@ def scatter_pages_overlay(spec: KVPageSpec, pool, block_ids, canon, *,
     """In-place overlay scatter into a (L, N, *page) pool of canonical KV,
     either whole pages (L, nb, bs, kv, hd) or the stream's rows alone
     (L, seq_len, kv, hd) landing at flat row ``front``; rows outside
-    [front, front+seq_len) keep their contents."""
+    [front, front+seq_len) keep their contents. Any canon strides; on the
+    card, only the chunks of pages that hold such rows are launched, with
+    accesses as wide (up to 16 bytes) as the alignments allow."""
     if _on_cuda(pool, "scatter_pages_overlay"):
         return _kr.scatter_pages_overlay(spec, pool, block_ids, canon,
                                          front=front, seq_len=seq_len)

@@ -265,6 +265,46 @@ def test_overlay_kernel(cuda, layout, pool_dt, canon_dt, front, seq_len,
 DTYPE_PAIRS = [("float32", "float32"), ("bfloat16", "bfloat16"),
                ("bfloat16", "float32"), ("float32", "bfloat16")]
 
+# (bs, front, seq_len) at hd 128, kv 8: front 0; mid-page with a span that
+# ends mid-page; one row before a chunk edge (chunks of 8 tokens in bf16, 4
+# in f32, 32 in nhdb); bs 16 and 48 (partial nhdb token tiles)
+OVERLAY_WIDE_CASES = [(16, 0, 40), (32, 13, 50), (32, 7, 100), (32, 3, 61),
+                      (32, 31, 90), (16, 5, 60), (48, 31, 70)]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("pool_dt,canon_dt", DTYPE_PAIRS)
+@pytest.mark.parametrize("bs,front,seq_len", OVERLAY_WIDE_CASES)
+@pytest.mark.parametrize("stream_rows", [False, True])
+@pytest.mark.parametrize("offset", [0, 2])
+def test_overlay_kernel_vector_and_tile_paths(cuda, layout, pool_dt,
+                                              canon_dt, bs, front, seq_len,
+                                              stream_rows, offset):
+    """hd 128 reaches the 16-byte accesses (nbhd, nhbd) and the shared-
+    memory tile (nhdb); a canon 2 elements off 16 bytes takes 2-element
+    accesses. Unsorted pages; rows outside the span and other pages keep
+    their bits."""
+    from repro_torch.kernels.kv_repack import overlay_vector_width
+    spec = KVPageSpec(bs, layout, pool_dt, 8, 128)
+    rng = np.random.default_rng(bs + front + seq_len + offset)
+    nb = -(-(front + seq_len) // bs)
+    pool, ids = _pool_and_ids(rng, spec, 2, 2 * nb + 3, nb, cuda)
+    lead = (2, seq_len) if stream_rows else (2, nb, bs)
+    canon = _rand(rng, lead + (8, 136), canon_dt, cuda)[..., offset:
+                                                        offset + 128]
+    canon_off = -front * canon.stride(1) if stream_rows else 0
+    cap = 8 if pool_dt == canon_dt == "bfloat16" else 4
+    assert overlay_vector_width(spec, pool, canon, canon_off) == (
+        2 if offset else cap)
+    want = ref.scatter_pages_overlay_ref(spec, pool.clone(), ids, canon,
+                                         front=front, seq_len=seq_len)
+    ops.reset_launch_counts()
+    got = ops.scatter_pages_overlay(spec, pool, ids, canon, front=front,
+                                    seq_len=seq_len)
+    assert ops.launch_counts()["scatter_pages_overlay"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
 
 def _pool_and_ids(rng, spec, layers, n_blocks, nb, device):
     """A random pool and ``nb`` distinct, unsorted, non-adjacent ids."""

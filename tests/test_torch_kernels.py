@@ -411,6 +411,97 @@ def test_scatter_vector_width_from_the_alignments(layout, pool_dt, canon_dt,
                                 .contiguous().transpose(3, 4)) == 1
 
 
+def _low_bit(x: int, cap: int) -> int:
+    """The largest power of two that divides x (cap for 0)."""
+    return x & -x if x else cap
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("pool_dt,canon_dt,cap", [
+    ("bfloat16", "bfloat16", 8), ("float32", "float32", 4),
+    ("bfloat16", "float32", 4), ("float32", "bfloat16", 4)])
+@pytest.mark.parametrize("offset", [0, 1, 2, 4])
+@pytest.mark.parametrize("stream_rows", [False, True])
+def test_overlay_vector_width_from_the_alignments(layout, pool_dt, canon_dt,
+                                                  cap, offset, stream_rows):
+    """scatter_pages_overlay's width, for canon as whole pages or as the
+    stream's rows alone: a canon sliced at an element offset inside a wider
+    buffer gets the largest width that divides the offset (16 bytes of the
+    wider dtype at 0); ``canon_off`` (-front rows) caps it the same way; a
+    canon whose hd is not the unit-stride axis gets 1; a pool whose base
+    is one element off 16 bytes gets 1 where hd is its unit-stride axis
+    (nbhd, nhbd), and nhdb, whose pool is written along the token, does
+    not care."""
+    from repro_torch.kernels.kv_repack import overlay_vector_width
+    spec = KVPageSpec(16, layout, pool_dt, 2, 32)
+    pool = torch.zeros((3,) + spec.pool_shape(5), dtype=TDT[pool_dt])
+    lead = (3, 20) if stream_rows else (3, 2, 16)
+    canon = torch.zeros(lead + (2, 40), dtype=TDT[canon_dt])[..., offset:
+                                                             offset + 32]
+    want = min(cap, _low_bit(offset, cap))
+    assert overlay_vector_width(spec, pool, canon, 0) == want
+    for canon_off in (-80 * 7, -1, -2, -4, -6):    # front rows of stride 80
+        assert overlay_vector_width(spec, pool, canon, canon_off) == min(
+            want, _low_bit(canon_off, cap))
+    assert overlay_vector_width(spec, pool, canon.transpose(-1, -2)
+                                .contiguous().transpose(-1, -2), 0) == 1
+    off_pool = torch.zeros(pool.numel() + 1, dtype=pool.dtype)[1:].view(
+        pool.shape)
+    assert overlay_vector_width(spec, off_pool, canon, 0) == (
+        want if layout == "nhdb" else 1)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("bs,kv,hd,itemsize", [
+    (4, 2, 16, 4), (16, 8, 128, 2), (32, 32, 128, 2), (48, 8, 128, 4),
+    (16, 64, 128, 4), (32, 1, 8, 2)])
+def test_overlay_plan_covers_every_row_once(layout, bs, kv, hd, itemsize):
+    """The overlay kernel's grid, over fronts 0..2·bs and spans from one
+    row to several pages: chunks of whole tokens, at most 16 KiB of pool
+    (one token where a token is larger) or the nhdb tile; every row of the
+    span lies in exactly one launched chunk, every launched chunk holds a
+    row of the span and lies in the span's pages, in launch order."""
+    from repro_torch.kernels.kv_repack import (CHUNK_BYTES, TILE_TOKENS,
+                                               overlay_chunks, overlay_plan)
+    spec = KVPageSpec(bs, layout, "float32", kv, hd)
+    t = overlay_plan(spec, itemsize, 0, 1)[0]
+    if layout == "nhdb":
+        assert t == min(TILE_TOKENS, bs)
+    else:
+        row = kv * hd * itemsize
+        assert t == bs or t * row <= CHUNK_BYTES < (t + 1) * row or (
+            t == 1 and row > CHUNK_BYTES)
+    for front in range(2 * bs + 1):
+        for seq_len in sorted({1, 2, max(1, t - 1), t, t + 1, bs - 1, bs,
+                               bs + 1, 3 * bs + 5} - {0}):
+            end = front + seq_len
+            chunks = overlay_chunks(spec, itemsize, front, seq_len)
+            assert chunks == sorted(set(chunks))
+            rows = [p * bs + r for p, lo, hi in chunks for r in range(lo, hi)
+                    if front <= p * bs + r < end]
+            assert rows == list(range(front, end)), (front, seq_len)
+            for p, lo, hi in chunks:
+                assert 0 <= lo < hi <= bs and hi - lo <= t and lo % t == 0
+                assert p * bs + lo < end and p * bs + hi > front
+                assert p < -(-end // bs)
+
+
+def test_overlay_plan_at_the_main_path_shape():
+    """llama2-7b's D pool (block 32, 32 KV heads, hd 128): in bf16 a chunk
+    is 2 tokens (16 KiB), 16 a page, and a 500-row stream chunk landing at
+    row 20 launches the 250 chunks that hold its rows (8000 blocks over 32
+    layers, where one block per page and layer made 544); the monolithic
+    form, 17 whole pages, all 272. A float32 pool takes one token (16 KiB)
+    a chunk; nhdb one 32-token tile a page."""
+    from repro_torch.kernels.kv_repack import overlay_plan
+    spec = KVPageSpec(32, "nbhd", "bfloat16", 32, 128)
+    assert overlay_plan(spec, 2, 20, 500) == (2, 10, 250)
+    assert overlay_plan(spec, 2, 0, 17 * 32) == (2, 0, 272)
+    assert overlay_plan(spec, 4, 20, 500) == (1, 20, 500)
+    nhdb = KVPageSpec(32, "nhdb", "bfloat16", 32, 128)
+    assert overlay_plan(nhdb, 2, 20, 500) == (32, 0, 17)
+
+
 @pytest.mark.parametrize("what,match", [("pointer", "base pointer"),
                                         ("stride", "seq stride"),
                                         ("length_one", None)])
