@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, then runs five phases, each printing JSON lines:
+nvcc, then runs six phases, each printing JSON lines:
 
   0. card: name and power limit (``nvidia-smi``), kernel build time, and
      the count of HGMMA (wgmma), UTMALDG (TMA load), SYNCS (mbarrier),
@@ -49,7 +49,10 @@ nvcc, then runs five phases, each printing JSON lines:
      prompts of 256-2048 tokens and 32 greedy output tokens each. The
      flash, paged and overlay kernels must have launched during this
      phase, and each request's last token must agree with a monolithic
-     prefill of its prompt and output; a digest of all output tokens is
+     prefill of its prompt and output; each request's first token must be,
+     within LOGIT_SLACK, the top choice of a float32 prefill of its prompt
+     (params upcast, the float32 flash kernel), a yardstick that does not
+     depend on bf16 summation order; a digest of all output tokens is
      printed;
   4. the prefix-cache path: the same model and vendors with the cache on
      both engines; a 1000-token system prompt shared by 8 requests with
@@ -59,10 +62,20 @@ nvcc, then runs five phases, each printing JSON lines:
      with the repack kernel (gather then scatter). Checks as in phase 3,
      plus the hit counts and >= 14 launches each of gather_pages,
      scatter_pages and repack; then the same schedule cold, for the
-     comparison it prints.
+     comparison it prints;
+  5. the cross-process runtime: phase 3's eight requests served through
+     ``TwoProcessRuntime`` — P and D engines in two spawned worker
+     processes, each with its own CUDA context and its own weights (the
+     same seed), KV over shared-memory segments. Every request must
+     finish with no stream failure and no crash, the workers must have
+     launched exactly phase 3's kernels, the last-token and first-token
+     checks of phase 3 must hold, and no segment the run created may
+     survive its shutdown. It prints TTFT, TPOT and tok/s beside the
+     spawn-to-hello time, the merged wire counters and the worker pids.
 
 Each phase requires launches of exactly the kernels its path runs (counts
-reset just before its serving loop).
+reset just before its serving loop; phase 5 sums the counts its worker
+processes report at shutdown).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the script exits non-zero. Without a CUDA device, or without
@@ -76,6 +89,7 @@ import dataclasses
 import functools
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1072,6 +1086,41 @@ def last_token_gap(cfg, params, dev, reqs) -> float:
     return worst
 
 
+def first_token_yardstick(cfg, params, dev, prompts, reqs):
+    """Each request's served first token against a float32 prefill of its
+    prompt (params upcast with ``.float()``, which takes the float32 flash
+    kernel): its float32 logit must be within LOGIT_SLACK of the float32
+    maximum, whatever order bf16 summed in. Returns the worst gap and the
+    largest |bf16 - f32| of the last-position logits of ``M.prefill`` in
+    bf16. The float32 copy of the weights (27 GB at llama2-7b) is freed
+    before the return."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
+    params32 = tree_to(params, torch.float32)
+    gap_max = err_max = 0.0
+    for prompt, r in zip(prompts, reqs):
+        toks = torch.as_tensor(np.asarray(prompt, np.int32), device=dev)[None]
+        l16, _ = M.prefill(params, cfg, {"tokens": toks},
+                           M.init_caches(cfg, 1, len(prompt), device=dev))
+        l32, _ = M.prefill(params32, cfg32, {"tokens": toks},
+                           M.init_caches(cfg32, 1, len(prompt), device=dev))
+        l16, l32 = l16[0].float(), l32[0].float()
+        if not bool(torch.isfinite(l32).all()):
+            raise AssertionError(f"{r.req_id}: non-finite float32 logits")
+        gap = float(l32.max() - l32[r.output_tokens[0]])
+        gap_max = max(gap_max, gap)
+        err_max = max(err_max, float((l16 - l32).abs().max()))
+        if gap > LOGIT_SLACK:
+            raise AssertionError(f"{r.req_id}: first token {r.output_tokens[0]}"
+                                 f" is {gap} below the float32 prefill's "
+                                 "best logit")
+    del params32
+    torch.cuda.empty_cache()
+    return gap_max, err_max
+
+
 def tokens_digest(reqs) -> str:
     """sha256 of every request's output tokens, in request order: two runs
     gave the same tokens where their digests agree."""
@@ -1127,6 +1176,7 @@ def phase3(dev, around_serve=contextlib.nullcontext, params=None):
     sched.add_instance(d_eng)
     reqs = [Request(f"req{i}", rng.integers(0, cfg.vocab_size, int(n))
                     .astype(np.int32), MAX_NEW) for i, n in enumerate(lens)]
+    prompts = [r.prompt for r in reqs]
     setup_s = time.perf_counter() - t0
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -1141,6 +1191,9 @@ def phase3(dev, around_serve=contextlib.nullcontext, params=None):
     if dev.type == "cuda":
         check_launched(3, launches, PHASE3_KERNELS)
     worst = last_token_gap(cfg, params, dev, reqs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if dev.type == "cuda" else None
+    gap32, err16 = first_token_yardstick(cfg, params, dev, prompts, reqs)
     ttft = result.ttft()
     tpot = result.tpot()
     out = {"phase": 3, "model": cfg.name, "layers": cfg.num_layers,
@@ -1163,9 +1216,11 @@ def phase3(dev, around_serve=contextlib.nullcontext, params=None):
            "chunks_streamed": sched.stats.chunks_streamed,
            "wire_bytes": pipe.transfer.stats.bytes_moved,
            "tokens_sha256": tokens_digest(reqs),
-           "last_token_logit_gap_max": worst}
-    if dev.type == "cuda":
-        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+           "last_token_logit_gap_max": worst,
+           "first_token_gap_f32_max": gap32,
+           "last_logits_bf16_vs_f32_max_abs": err16}
+    if peak is not None:
+        out["peak_mem_gib"] = peak
     emit(out)
     return out
 
@@ -1313,6 +1368,112 @@ def phase4(dev, params):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 5: the cross-process runtime at full width
+# --------------------------------------------------------------------------- #
+def segments_left(names) -> list:
+    """The shared-memory segments of ``names`` that are still linked."""
+    return sorted(n for n in names if Path("/dev/shm", n).exists())
+
+
+def phase5(dev, params):
+    """Phase 3's requests through ``TwoProcessRuntime``: P and D engines
+    in spawned worker processes on the card, each building its own
+    weights from SEED, the KV over shm segments. ``params``: the parent's
+    copy of the same weights, for the checks."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.compat.precision import WireFormat
+    from repro_torch.serving.engine import VendorProfile
+    from repro_torch.serving.multiproc import EngineSpec, TwoProcessRuntime
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.server import ServeResult
+
+    cfg = get_config(MODEL)
+    p_vendor, d_vendor = VendorProfile(**P_VENDOR), VendorProfile(**D_VENDOR)
+    rng = np.random.default_rng(SEED)                 # phase 3's draws
+    lens = rng.integers(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, N_REQUESTS)
+    max_seq = PROMPT_RANGE[1] + MAX_NEW
+    d_blocks = N_REQUESTS * -(-max_seq // d_vendor.block_size) + 1
+    on = None if dev.type == "cuda" else "cpu"   # None: the card
+    p_spec = EngineSpec("P0", cfg, p_vendor, params_seed=SEED, num_blocks=2,
+                        max_batch=1, max_seq_len=max_seq, role="prefill",
+                        device=on)
+    d_spec = EngineSpec("D0", cfg, d_vendor, params_seed=SEED,
+                        num_blocks=d_blocks, max_batch=N_REQUESTS,
+                        max_seq_len=max_seq, role="decode", device=on)
+    reqs = [Request(f"req{i}", rng.integers(0, cfg.vocab_size, int(n))
+                    .astype(np.int32), MAX_NEW) for i, n in enumerate(lens)]
+    prompts = [r.prompt.copy() for r in reqs]
+    rt = TwoProcessRuntime(p_spec, d_spec, wire=WireFormat("raw", "bfloat16"),
+                           prefill_chunk=PREFILL_CHUNK)
+    try:
+        t0 = time.perf_counter()
+        rt.start(spawn_timeout_s=300.0)
+        spawn_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rt.serve(reqs, max_wall_s=600.0)
+        wall = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+    left = segments_left(rt.segments_seen)
+    launches = {}
+    for counts in rt.worker_launches.values():
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    check_outputs(cfg, reqs)
+    # a P-side failure (PrefillFailed) is requeued and may be retried to a
+    # good end: requeues and failures count as faults here too
+    if (rt.stream_failures or sum(rt.crashes.values())
+            or rt.stats.requeues or rt.stats.failed):
+        raise AssertionError(f"phase 5: stream failures {rt.stream_failures},"
+                             f" crashes {rt.crashes}, requeues "
+                             f"{rt.stats.requeues}, failed {rt.stats.failed}")
+    if set(rt.worker_launches) != {"P0", "D0"}:
+        raise AssertionError(f"phase 5: launch counts from "
+                             f"{sorted(rt.worker_launches)}, not P0 and D0")
+    if dev.type == "cuda":
+        check_launched(5, launches, PHASE3_KERNELS)
+    if not rt.segments_seen or left:
+        raise AssertionError(f"phase 5: {len(rt.segments_seen)} segments "
+                             f"seen, {left} left after shutdown")
+    worst = last_token_gap(cfg, params, dev, reqs)
+    gap32, err16 = first_token_yardstick(cfg, params, dev, prompts, reqs)
+    result = ServeResult(reqs, wall)
+    ttft, tpot = result.ttft(), result.tpot()
+    tr = rt.transfer_stats
+    out = {"phase": 5, "model": cfg.name, "layers": cfg.num_layers,
+           "dtype": cfg.compute_dtype, "runtime": "TwoProcessRuntime",
+           "connector": "shm", "requests": N_REQUESTS,
+           "prompt_lens": [int(x) for x in lens], "max_new_tokens": MAX_NEW,
+           "prefill_chunk": PREFILL_CHUNK,
+           "ttft_p50_s": float(np.percentile(ttft, 50)),
+           "ttft_max_s": float(ttft.max()),
+           "tpot_p50_s": float(np.percentile(tpot, 50)),
+           "output_tok_s": result.throughput_tok_s(),
+           "wall_s": wall, "spawn_to_hello_s": spawn_s,
+           "worker_pids": rt.worker_pids, "parent_pid": os.getpid(),
+           "launches": launches, "worker_launches": rt.worker_launches,
+           "wire_bytes": tr.bytes_moved, "wire_transfers": tr.transfers,
+           "chunks_streamed": rt.stats.chunks_streamed,
+           "requeues": rt.stats.requeues, "failed": rt.stats.failed,
+           "wall_handoff_s": tr.wall_handoff_seconds,
+           "wall_overlap_s": tr.wall_overlap_seconds,
+           "segments_seen": len(rt.segments_seen),
+           "segments_left": len(left),
+           "prefill_s": rt.worker_stats["P0"]["prefill_seconds"],
+           "decode_steps": rt.worker_stats["D0"]["decode_steps"],
+           "decode_s": rt.worker_stats["D0"]["decode_seconds"],
+           "tokens_sha256": tokens_digest(reqs),
+           "last_token_logit_gap_max": worst,
+           "first_token_gap_f32_max": gap32,
+           "last_logits_bf16_vs_f32_max_abs": err16}
+    emit(out)
+    return out
+
+
 KERNELS = [
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
      "src/repro/kernels/flash_attention.py:78", 3),
@@ -1359,6 +1520,8 @@ def main() -> int:
     paths = {3: phase3(dev, params=params)}
     torch.cuda.empty_cache()
     paths[4] = phase4(dev, params)
+    torch.cuda.empty_cache()             # the workers need the memory back
+    paths[5] = phase5(dev, params)
 
     rows = []
     for name, source, replaces, phase in KERNELS:

@@ -159,7 +159,9 @@ class DisaggPipeline:
         key = f"{req.req_id}@{p_engine.name}#t{req.retries}"
         nbytes = self.transfer.stage(key, chunk, meta)
         try:
-            payload, meta = self.transfer.issue_read(key).wait()
+            # a cross-process connector reads back only the chunk's own
+            # meta (wire, tp_p, seq_len); first_token stays on this side
+            payload, _ = self.transfer.issue_read(key).wait()
 
             def materialize_fn(engine, slot, bids, _pkg):
                 self.materialize(engine, slot, bids, payload, meta)
@@ -170,6 +172,7 @@ class DisaggPipeline:
         except Exception:
             self.transfer.drop(key)    # free the pinned staging on failure
             raise
+        payload.release()              # drop views before the segment closes
         self.transfer.complete(key)
         meta["bytes"] = nbytes
         return meta
@@ -183,6 +186,32 @@ class DisaggPipeline:
         """Reserve the D slot/blocks and open a chunk stream for ``req``."""
         return StreamedHandoff(self, req, p_engine, d_engine, seq_len,
                                compute_overlapped=compute_overlapped)
+
+    def handoff_streamed(self, req: Request, p_engine: Engine,
+                         d_engine: Engine,
+                         chunk_tokens: Optional[int] = None,
+                         chunked_compute: Optional[bool] = None,
+                         mode=None) -> Dict[str, Any]:
+        """Drive a full streamed handoff synchronously (tests, benches; the
+        global scheduler advances the same protocol tick by tick)."""
+        stream = p_engine.prefill_stream(req, chunk_tokens,
+                                         chunked_compute=chunked_compute,
+                                         mode=mode)
+        h = self.begin_handoff(req, p_engine, d_engine, stream.seq_len,
+                               compute_overlapped=stream.chunked_compute)
+        try:
+            while True:
+                chunk = stream.next_chunk()
+                if chunk is None:
+                    break
+                if not chunk["kv"] and chunk["length"] == 0:
+                    continue            # compute-only progress marker
+                h.send_chunk(chunk)
+                h.poll_reads()          # re-page whatever the wire delivered
+            return h.finalize(stream.first_token, stream.tail_package())
+        except Exception:
+            h.abort()
+            raise
 
 
 class StreamedHandoff:

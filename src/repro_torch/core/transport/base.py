@@ -105,6 +105,9 @@ class TransferStats:
     contended_read_seconds: float = 0.0
     concurrent_reads_peak: int = 0
 
+    # fields merged by max() instead of summed (high-water marks)
+    _PEAK_FIELDS = ("peak_buffer_bytes", "concurrent_reads_peak")
+
     @property
     def exposed_modeled_seconds(self) -> float:
         """Modeled wire time left on the critical path after overlap."""
@@ -117,6 +120,17 @@ class TransferStats:
         if not self.payload_bytes:
             return 1.0
         return self.bytes_moved / self.payload_bytes
+
+    def merge(self, other: "TransferStats") -> None:
+        """Fold another connector's counters into this one (the cluster
+        runtime aggregates the P-side and D-side connectors' stats)."""
+        for f in dataclasses.fields(self):
+            if f.name in self._PEAK_FIELDS:
+                setattr(self, f.name, max(getattr(self, f.name),
+                                          getattr(other, f.name)))
+            else:
+                setattr(self, f.name,
+                        getattr(self, f.name) + getattr(other, f.name))
 
 
 class PinnedBufferPool:
@@ -335,6 +349,10 @@ class KVConnector:
         self._on_issue(handle)
         return handle
 
+    def read(self, key: str):
+        """Synchronous convenience: issue + wait in one call."""
+        return self.issue_read(key).wait()
+
     def complete(self, key: str) -> None:
         """D finished materializing — free the staging buffer."""
         nbytes = self._sizes.pop(key, None)
@@ -407,3 +425,9 @@ class KVConnector:
         """Release every staged buffer (and any OS-level resources)."""
         for key in list(self._sizes):
             self.drop(key)
+
+    def __del__(self):  # best-effort OS resource cleanup (shm segments)
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -217,6 +217,21 @@ class WireChunk:
         """Raw canonical KV bytes this chunk represents (pre-encode)."""
         return self._payload_bytes
 
+    @property
+    def header_nbytes(self) -> int:
+        """Wire bytes that are not slab payload or scales: the header and
+        the 64-byte alignment padding."""
+        return self._total_bytes - sum(
+            p.payload_nbytes + (0 if p.scales_off == _NO_SCALES
+                                else p.scales_count * 4)
+            for e in self._entries for p in e.parts)
+
+    def meta(self) -> Dict[str, Any]:
+        """The reader-side meta of a bound chunk (what the P side staged
+        it with)."""
+        return {"wire": self.wire, "tp_p": self.tp_p,
+                "seq_len": self.seq_len}
+
     # -- P side: encode straight into the destination buffer ------------- #
     def write_into(self, buf) -> None:
         """Execute the slab plan: cast/quantize every source tensor (on its

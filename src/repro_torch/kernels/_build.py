@@ -17,6 +17,7 @@ output. Nothing here runs when the package is imported.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -82,13 +83,22 @@ def _run_all(cmds: List[List[str]]) -> str:
 
 def build() -> Path:
     """Compile the library if this source tree has not been built yet;
-    return its path."""
-    global build_seconds
+    return its path. A file lock in ``build_dir()`` serializes the check
+    and the compile, so processes that start together build it once."""
     out = build_dir()
     lib = out / f"librepro_torch_{_digest()}.so"
     if lib.exists():
         return lib
     out.mkdir(parents=True, exist_ok=True)
+    with open(out / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)            # released on close
+        if not lib.exists():                        # another process built it
+            _compile(out, lib)
+    return lib
+
+
+def _compile(out: Path, lib: Path) -> None:
+    global build_seconds
     nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out) as tmp:
@@ -101,7 +111,6 @@ def build() -> Path:
         os.replace(part, lib)
     build_seconds = time.perf_counter() - t0
     (out / "build.log").write_text(log)          # ptxas register/smem use
-    return lib
 
 
 def load() -> ctypes.CDLL:

@@ -59,10 +59,29 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig,
             "mlp": L.init_mlp(gen, cfg, device)}
 
 
-def _stack(trees: List[Params]) -> Params:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _init_group(gen: torch.Generator, cfg: ModelConfig, count: int,
+                device: torch.device) -> Params:
+    """``count`` layers drawn one after the other, each written into its
+    slot of the stacked tensors as it is made: the values of stacking
+    every layer at the end, at the memory of the stack plus one layer."""
+    def put(dst, src, i):
+        if isinstance(src, dict):
+            for k in src:
+                put(dst[k], src[k], i)
+        else:
+            dst[i] = src
+
+    def empty(t):
+        if isinstance(t, dict):
+            return {k: empty(v) for k, v in t.items()}
+        return t.new_empty((count,) + tuple(t.shape))
+
+    layer = _init_layer(gen, cfg, device)
+    stacked = empty(layer)
+    put(stacked, layer, 0)
+    for i in range(1, count):
+        put(stacked, _init_layer(gen, cfg, device), i)
+    return stacked
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -80,7 +99,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                   ).to(cfg.pdtype),
         "final_norm": torch.ones((d,), dtype=cfg.pdtype, device=dev),
         "groups": tuple(
-            (_stack([_init_layer(gen, cfg, dev) for _ in range(g.count)]),)
+            (_init_group(gen, cfg, g.count, dev),)
             for g in groups),
     }
     if not cfg.tie_embeddings:

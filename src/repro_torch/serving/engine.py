@@ -21,6 +21,7 @@ import dataclasses
 import enum
 import logging
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -95,8 +96,11 @@ class EngineStats:
     # while decode-ready sequences sat waiting
     contention_stall_seconds: float = 0.0
     # requests that wanted prefix-cache replay but the stream or family
-    # cannot do it (a full recompute)
+    # cannot do it (a full recompute), or a refused mid-stream resume
     resume_unsupported: int = 0
+
+    def as_dict(self) -> Dict[str, float]:
+        return dataclasses.asdict(self)
 
 
 def kv_entries_with_start(package_kv: List[Tuple]) -> List[Tuple]:
@@ -148,16 +152,29 @@ class PrefillStream:
     store."""
 
     def __init__(self, engine: "Engine", req: Request,
-                 chunk_tokens: Optional[int] = None,
-                 mode: PrefillMode = PrefillMode.AUTO):
+                 chunk_tokens: Optional[int] = None, *,
+                 chunked_compute: Optional[bool] = None,
+                 mode: Optional[PrefillMode] = None,
+                 resume: Optional[Dict[str, Any]] = None):
         self.engine = engine
         self.req = req
         self.caps: PrefillCapabilities = engine.prefill_capabilities()
         self.seq_len = req.prompt_len
         if chunk_tokens is not None and chunk_tokens <= 0:
-            raise PrefillModeError(f"chunk_tokens must be positive, got "
-                                   f"{chunk_tokens}")
+            warnings.warn(
+                "chunk_tokens <= 0 as a monolithic sentinel is deprecated; "
+                "pass mode=PrefillMode.MONOLITHIC", DeprecationWarning,
+                stacklevel=3)
+            chunk_tokens = None
         self.chunk_tokens = chunk_tokens
+        if mode is None:
+            # the reference's bool keyword: True/False force the mode,
+            # None keeps the automatic choice
+            if chunked_compute is None:
+                mode = PrefillMode.AUTO
+            else:
+                mode = PrefillMode.INCREMENTAL if chunked_compute \
+                    else PrefillMode.MONOLITHIC
         if not isinstance(mode, PrefillMode):
             raise PrefillModeError(f"unknown prefill mode {mode!r}")
         if mode is PrefillMode.INCREMENTAL:
@@ -172,6 +189,15 @@ class PrefillStream:
             self.chunked_compute = (self.caps.incremental
                                     and chunk_tokens is not None
                                     and chunk_tokens < self.seq_len)
+        if resume is not None:
+            if not self.caps.resumable:
+                engine._note_resume_unsupported()
+                raise PrefillModeError(
+                    f"{engine.cfg.name}: mid-stream resume is not supported "
+                    f"for family {self.caps.family!r}")
+            raise NotImplementedError(
+                "mid-stream snapshot resume is not ported (ROADMAP queue 1 "
+                "item 7: state-carrying families)")
         self.first_token: Optional[int] = None
         self.chunks_emitted = 0
         self._next_start = 0
@@ -384,16 +410,18 @@ class Engine:
         return self.cfg.prefill_capabilities()
 
     def prefill_stream(self, req: Request,
-                       chunk_tokens: Optional[int] = None,
-                       mode: PrefillMode = PrefillMode.AUTO,
+                       chunk_tokens: Optional[int] = None, *,
+                       chunked_compute: Optional[bool] = None,
+                       mode: Optional[PrefillMode] = None,
                        resume: Optional[Dict[str, Any]] = None
                        ) -> PrefillStream:
-        """Start a chunked prefill for ``req``."""
-        if resume is not None:
-            raise NotImplementedError(
-                "mid-stream snapshot resume is not ported (ROADMAP queue 1 "
-                "item 7: state-carrying families)")
-        return PrefillStream(self, req, chunk_tokens, mode)
+        """Start a chunked prefill for ``req``. ``chunked_compute`` has the
+        reference's meaning when ``mode`` is None: True forces incremental
+        compute, False monolithic, None the automatic choice. A mid-stream
+        ``resume`` is refused: no ported family carries state."""
+        return PrefillStream(self, req, chunk_tokens,
+                             chunked_compute=chunked_compute, mode=mode,
+                             resume=resume)
 
     # ------------------------------------------------------------------ #
     # Prefill (P role)

@@ -17,6 +17,9 @@ class State(enum.Enum):
     DECODING = "decoding"
     FINISHED = "finished"
     FAILED = "failed"
+    # rejected by admission control before entering the cluster: terminal,
+    # never dispatched, never produced a token (open-loop load shedding)
+    SHED = "shed"
 
 
 @dataclasses.dataclass
@@ -41,6 +44,7 @@ class Request:
     finish_time: Optional[float] = None
     retries: int = 0
     chunks_streamed: int = 0                # KV chunks shipped P→D
+    decode_steps_at_dispatch: int = 0
 
     @property
     def prompt_len(self) -> int:

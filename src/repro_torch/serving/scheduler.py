@@ -15,8 +15,8 @@ Structure: the work is split into two *event loops* — the P-side
 :class:`PrefillFlightLoop` (dispatch requests, pump each flight's chunk
 stream) and the D-side :class:`DecodeLoop` (re-page landed chunks is part
 of flight pumping; decode-step every D engine). In single-process serving
-``GlobalScheduler.step()`` pumps both loops in turn; the JAX package's
-two-process runtime (not ported yet) runs the same two loops as real OS
+``GlobalScheduler.step()`` pumps both loops in turn; the two-process
+runtime (``repro_torch.serving.multiproc``) runs the same two loops as real OS
 processes, with the control plane over queues instead of direct calls.
 The scheduler itself holds no tensors; ``device`` names where its engines
 must live (the card unless ``device="cpu"``).
@@ -43,12 +43,20 @@ class SchedulerStats:
     submitted: int = 0
     finished: int = 0
     failed: int = 0
+    # requests rejected by admission control before entering the runtime
+    # (open-loop overload shedding — never counts a request mid-stream)
+    shed: int = 0
     requeues: int = 0
     chunks_streamed: int = 0
     p_dispatches: Dict[str, int] = dataclasses.field(
         default_factory=lambda: collections.defaultdict(int))
     d_dispatches: Dict[str, int] = dataclasses.field(
         default_factory=lambda: collections.defaultdict(int))
+
+
+# both runtimes (in-process GlobalScheduler, multi-process ClusterRuntime)
+# account into the same stats block; the cluster-facing name
+RuntimeStats = SchedulerStats
 
 
 # failures that void a dispatch/flight and requeue the request: a dead
@@ -101,7 +109,7 @@ class PrefillFlightLoop:
 
     One ``pump()`` call is one tick of P-side progress. The two-process
     runtime's P worker runs the same dispatch→chunk→stage protocol as its
-    process main loop in the JAX package."""
+    process main loop (``repro_torch.serving.multiproc.p_worker``)."""
 
     def __init__(self, sched: "GlobalScheduler"):
         self.sched = sched
@@ -217,7 +225,7 @@ class DecodeLoop:
     routable D engine per ``pump()``, with the per-instance latency EMA
     that feeds straggler-penalized routing. The two-process runtime's D
     worker runs the same re-page→decode protocol as its process main loop
-    in the JAX package."""
+    (``repro_torch.serving.multiproc.d_worker``)."""
 
     def __init__(self, sched: "GlobalScheduler"):
         self.sched = sched
@@ -259,6 +267,7 @@ class DecodeLoop:
 class GlobalScheduler:
     def __init__(self, pipeline: "DisaggPipeline",
                  clock: Callable[[], float] = time.monotonic,
+                 straggler_factor: float = 8.0,
                  prefill_chunk: Optional[int] = None,
                  chunk_budget: int = 1,
                  repage_budget: Optional[int] = None,
@@ -280,6 +289,10 @@ class GlobalScheduler:
         the connector) and D-side re-page pipeline independently. ``None``
         re-pages every chunk whose read handle reports complete.
 
+        ``straggler_factor``: stored as in the reference, which keeps it
+        for a straggler re-dispatch after this many times the pool-median
+        step time; neither scheduler reads it yet.
+
         ``max_retries``: dispatch/flight failures requeue the request up to
         this many times, then mark it FAILED (permanent failures must not
         spin the dispatch loop forever).
@@ -288,6 +301,7 @@ class GlobalScheduler:
         self.device = _dev.resolve(device)
         self.pipeline = pipeline
         self.clock = clock
+        self.straggler_factor = straggler_factor
         self.max_retries = max_retries
         # 0/negative = monolithic, same as None
         self.prefill_chunk = prefill_chunk \
@@ -408,6 +422,7 @@ class GlobalScheduler:
         if req.first_token_time is None:
             req.first_token_time = self.clock()
         emitted.append((req, first_token))
+        req.decode_steps_at_dispatch = 0
         if req.done:
             self._finish(req, d_eng)
 

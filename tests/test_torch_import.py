@@ -66,6 +66,60 @@ def test_no_jax_or_repro_import_in_source(path):
             assert top not in ("jax", "jaxlib", "repro"), (path, n)
 
 
+_BAD = ("bad = [m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n")
+
+# a spawned child of the cluster runtime: imports the worker modules and
+# builds a tiny CPU engine from an EngineSpec, as a worker does
+_PROBE = f"""import sys
+
+
+def probe(q):
+    from repro_torch.configs.base import config_from_dict
+    from repro_torch.serving.engine import VendorProfile
+    from repro_torch.serving.multiproc import d_worker, p_worker  # noqa
+    from repro_torch.serving.multiproc.messages import EngineSpec
+    spec = EngineSpec("P0", config_from_dict({TINY!r}),
+                      VendorProfile("v", block_size=4), num_blocks=8,
+                      role="prefill", device="cpu")
+    spec.build()
+    {_BAD}    q.put(bad)
+"""
+
+
+def test_multiproc_parent_and_spawned_worker_leave_jax_and_repro_out(
+        tmp_path):
+    (tmp_path / "probe_child.py").write_text(_PROBE)
+    code = ("import multiprocessing as mp, sys\n"
+            "import repro_torch.serving.multiproc as m\n"
+            "assert {'ClusterRuntime', 'TwoProcessRuntime', 'serve_cluster',"
+            " 'serve_two_process', 'ClusterSpec', 'EngineSpec', "
+            "'WorkerSpec'} <= set(m.__all__)\n"
+            "from repro_torch.core.transport import make_connector\n"
+            "assert type(make_connector('shm')).__name__ == "
+            "'SharedMemoryConnector'\n"
+            "assert type(make_connector('rdma')).__name__ == "
+            "'ModeledRDMAConnector'\n"
+            + _BAD +
+            "assert not bad, bad\n"
+            "if __name__ == '__main__':\n"
+            "    import probe_child\n"
+            "    ctx = mp.get_context('spawn')\n"
+            "    q = ctx.Queue()\n"
+            "    p = ctx.Process(target=probe_child.probe, args=(q,))\n"
+            "    p.start()\n"
+            "    child_bad = q.get(timeout=120)\n"
+            "    p.join(timeout=30)\n"
+            "    assert p.exitcode == 0 and child_bad == [], child_bad\n")
+    script = tmp_path / "parent.py"
+    script.write_text(code)
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(tmp_path)]))
+    out = subprocess.run([sys.executable, str(script)], env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+
+
 def test_entry_points_need_a_card_or_an_explicit_cpu():
     cfg = config_from_dict(TINY)
     params = TM.init_params(cfg, seed=0, device="cpu")
