@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, then runs six phases, each printing JSON lines:
+nvcc, then runs seven phases, each printing JSON lines:
 
   0. card: name and power limit (``nvidia-smi``), kernel build time, and
      the count of HGMMA (wgmma), UTMALDG (TMA load), SYNCS (mbarrier),
@@ -27,7 +27,12 @@ nvcc, then runs six phases, each printing JSON lines:
      full-width Fig. 3 shape), then each kernel's time (paged also at one
      2048-token sequence, at phase 3's lengths and in the nhbd and nhdb
      layouts; the re-page also in nhbd and nhdb, as whole pages and from
-     float32 rows; gather, scatter and repack also at the Fig. 3 shape),
+     float32 rows; gather, scatter and repack also at the Fig. 3 shape;
+     flash and paged also on phase 6's window paths: a 500-token chunk at
+     q_offset 7500 under a 4096-token window, and decode over phase 6's
+     eight sequences with NaN in every stale row below each floor, whose
+     output must be finite, equal to that over finite pools, and moved by
+     the window at least 10 times the kernel's error),
      its plain version's time, a library
      call's time where one computes the same function, and the least time
      the card could take (bytes over 3.35 TB/s or operations over the
@@ -71,7 +76,20 @@ nvcc, then runs six phases, each printing JSON lines:
      launched exactly phase 3's kernels, the last-token and first-token
      checks of phase 3 must hold, and no segment the run created may
      survive its shutdown. It prints TTFT, TPOT and tok/s beside the
-     spawn-to-hello time, the merged wire counters and the worker pids.
+     spawn-to-hello time, the merged wire counters and the worker pids;
+  6. sliding window and MoE: Mixtral-8x7B at full width (d 4096, 32 heads,
+     8 KV heads, 8 experts top 2, window 4096), its depth cut to 24 of 32
+     layers to fit the card, bf16, random weights from the seed, served
+     as in phase 3 (same vendors, chunk and wire) to 8 requests of 8192,
+     7000, 6100, 5000, 4600, 4097, 3000 and 2048 tokens. Exactly flash,
+     paged and the overlay must launch; each request must ship exactly
+     min(len, 4096) prompt positions, the wire bytes and progress markers
+     must be what the window floors predict; the last-token check of
+     phase 3 holds, and the float32 first-token check on the bf16
+     prefill's expert choices (``moe_first_token_yardstick``: top-k
+     routing is discrete, so float32 on its own routing is printed beside
+     it, with where the choices differ). It prints the window's effect on
+     the last logits of the 8192-token prompt, an observation.
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
@@ -87,6 +105,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import hashlib
 import json
 import os
@@ -133,6 +152,14 @@ LOGIT_SLACK = 0.25    # bf16 noise between the decoded and prefilled logits
 # hit ends in a copy-on-write of an 8-row page
 PREFIX_LEN, TAIL_RANGE = 1000, (64, 512)
 HOST_STORE_BYTES = 4 << 30   # P's host prefix store (host memory)
+# phase 6: sliding window + MoE at full width, depth cut to 24 of 32 layers
+# (a layer is 2.90 GB in bf16: 32 layers with embed and head come to ~93 GB,
+# more than the card's 80; at 24 the serving peak, 70.0 GiB, leaves 9 of
+# the card's 79.2). Six prompts exceed the window,
+# five of them with a floor inside one of D's 32-row pages; two lie
+# inside it.
+MODEL6, LAYERS6 = "mixtral-8x7b", 24
+PHASE6_PROMPTS = (8192, 7000, 6100, 5000, 4600, 4097, 3000, 2048)
 
 
 def emit(obj) -> None:
@@ -942,12 +969,124 @@ def phase1(dev):
                                                                layout=lay)),
               "bound_ms": p_ms, "bound_by": p_by})
         del a
+    phase1_windowed(gen, dev)
     timings["scatter_pages_overlay"] = phase1_overlay(gen, dev)
     from repro_torch.configs import get_config
     timings.update(phase1_pages(gen, dev, get_config(MODEL)))
     for name, t in timings.items():
         emit({"phase": 1, "timing": name, **t})
     return timings
+
+
+def stale_nan(args, bs, window):
+    """Copies of nbhd pools with NaN in every row of each sequence below
+    its window floor (``len - window``): the rows a D allocates but never
+    writes, which hold whatever earlier sequences left there."""
+    import torch
+    q, k, v, table, lens = args
+    blks, rows = [], []
+    for b, n in enumerate(lens.tolist()):
+        t = torch.arange(max(0, n - window), device=k.device)
+        blks.append(table[b, t // bs].long())
+        rows.append(t % bs)
+    kn, vn = k.clone(), v.clone()
+    for pool in (kn, vn):
+        pool[torch.cat(blks), torch.cat(rows)] = float("nan")
+    return q, kn, vn, table, lens
+
+
+def phase1_windowed(gen, dev):
+    """The window paths at phase 6's shapes (Mixtral: 32 query heads over
+    8 KV heads, head dim 128, window 4096), in bf16. Bounds count only the
+    keys inside the window. flash: a 500-token chunk at q_offset 7500 over
+    the 8500-slot cache of an 8192-token prompt, held to the SDPA
+    yardstick. paged: phase 6's eight sequences at their last decode step,
+    with NaN in every stale row below each floor: its output must be
+    finite and bit-identical to the kernel's on finite pools, and the
+    window must move the plain version's output by at least 10 times the
+    kernel's error."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    cfg = get_config(MODEL6)
+    h, kv, d, win = cfg.num_heads, cfg.num_kv_heads, cfg.hd, \
+        cfg.sliding_window
+    c0, sq, cap = 7500, 500, 8500
+    q = _rand(gen, (1, sq, h, d), torch.bfloat16, dev).transpose(1, 2)
+    k = _rand(gen, (1, cap, kv, d), torch.bfloat16, dev).transpose(1, 2)
+    v = _rand(gen, (1, cap, kv, d), torch.bfloat16, dev).transpose(1, 2)
+    args = dict(window=win, q_offset=c0, kv_len=cap)
+    got = ops.flash_attention(q, k, v, **args)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **args)
+    grp = h // kv
+    k_rep, v_rep = (t.repeat_interleave(grp, dim=1) for t in (k, v))
+    mask = flash_mask(sq, cap, c0, win, dev)
+    lib = F.scaled_dot_product_attention(q, k_rep, v_rep, attn_mask=mask)
+    torch.cuda.synchronize()
+    err, lib_err = (got.float() - want).abs(), (lib.float() - want).abs()
+    yard = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+            "sdpa_max_abs_err": float(lib_err.max()),
+            "sdpa_mean_abs_err": float(lib_err.mean())}
+    if not (yard["max_abs_err"] <= FLASH_VS_SDPA * yard["sdpa_max_abs_err"]
+            and yard["mean_abs_err"]
+            <= FLASH_VS_SDPA * yard["sdpa_mean_abs_err"]):
+        raise AssertionError(f"windowed flash: errors exceed {FLASH_VS_SDPA}x"
+                             f" scaled_dot_product_attention's: {yard}")
+    keys = c0 + sq - (c0 - win + 1)              # keys some row sees
+    flops = 4.0 * d * h * sq * win               # every row sees 4096 keys
+    nbytes = 2.0 * (2 * sq * h * d + 2 * keys * kv * d)
+    b_ms, b_by = bound(flops, nbytes, "bfloat16")
+    emit({"phase": 1, "extra": "flash_attention, window 4096",
+          "shape": f"q(1,{h},{sq},{d}) q_offset={c0} kv(1,{kv},{cap},{d}) "
+                   f"window={win} bf16",
+          "max_abs_err": yard["max_abs_err"], "yardstick": yard,
+          **time_all(lambda: ops.flash_attention(q, k, v, **args),
+                     plain=lambda: ref.flash_attention_ref(q, k, v, **args),
+                     library=lambda: F.scaled_dot_product_attention(
+                         q, k_rep, v_rep, attn_mask=mask)),
+          "library": "scaled_dot_product_attention, k/v repeated to 32 "
+                     "heads, boolean mask",
+          "bound_ms": b_ms, "bound_by": b_by})
+    del q, k, v, k_rep, v_rep, mask, got, want, lib
+    # paged: the eight sequences at their last decode step, D's vendor
+    bs = D_VENDOR["block_size"]
+    lens = [n + MAX_NEW for n in PHASE6_PROMPTS]
+    args = _paged_inputs(gen, dev, "bfloat16", "nbhd", len(lens), h, kv, d,
+                         bs, lens)
+    stale = stale_nan(args, bs, win)
+    got = ops.paged_attention(*stale, layout="nbhd", window=win)
+    fin = ops.paged_attention(*args, layout="nbhd", window=win)
+    want = ref.paged_attention_ref(*args, layout="nbhd", window=win)
+    full = ref.paged_attention_ref(*args, layout="nbhd")
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("windowed paged: non-finite output with NaN "
+                             "below the floors")
+    if not torch.equal(got, fin):
+        raise AssertionError("windowed paged: NaN below the floors changed "
+                             "the output")
+    err = _check(f"paged bf16 nbhd {(len(lens), h, kv, d, bs)} window={win}",
+                 fin, want, "bfloat16", True)
+    effect = float((want.float() - full.float()).abs().max())
+    if not effect >= 10 * err:
+        raise AssertionError(f"windowed paged: window effect {effect} < 10x "
+                             f"the kernel's error {err}")
+    tokens = sum(min(n, win) for n in lens)
+    p_ms, p_by = bound(4.0 * d * h * tokens, 2.0 * 2 * tokens * kv * d
+                       + 2.0 * 2 * len(lens) * h * d, "bfloat16")
+    emit({"phase": 1, "extra": "paged_attention, window 4096, NaN below "
+                               "the floors",
+          "shape": f"q({len(lens)},{h},{d}) pools nbhd bs{bs} bf16, "
+                   f"{kv} KV heads, seq_lens {lens}, window={win}",
+          "max_abs_err": err, "window_effect": effect,
+          "nan_rows": int(torch.isnan(stale[1]).any(-1).any(-1).sum()),
+          "finite_with_nan": True, "equal_to_finite_pools": True,
+          **time_all(lambda: ops.paged_attention(*stale, layout="nbhd",
+                                                 window=win),
+                     plain=lambda: ref.paged_attention_ref(
+                         *args, layout="nbhd", window=win)),
+          "bound_ms": p_ms, "bound_by": p_by})
 
 
 # --------------------------------------------------------------------------- #
@@ -1119,6 +1258,89 @@ def first_token_yardstick(cfg, params, dev, prompts, reqs):
     del params32
     torch.cuda.empty_cache()
     return gap_max, err_max
+
+
+def moe_first_token_yardstick(cfg, params, dev, prompts, reqs):
+    """The first-token yardstick of an MoE model. Top-k routing is
+    discrete: where a token's k-th and (k+1)-th router logits lie closer
+    than bf16's rounding moves them, bf16 and float32 pick different
+    experts and the token's MLP output changes wholesale, so a float32
+    prefill on its own routing can sit far from any bf16 run, however
+    exact. So three prefills of each prompt run layer by layer in
+    lockstep: bf16; float32 on the bf16 prefill's expert choices (their
+    weights renormalised from the float32 router's probabilities); and
+    float32 on its own routing. The served first token must be within
+    LOGIT_SLACK of the best logit of the second (the gate); the third's
+    gap, the layers at which the last token's choices differ, the share
+    of all (token, layer) choices where the float32 router disagrees with
+    the bf16 one, and the widest float32 router margin among those
+    disagreements are printed beside it. The weights stay bf16: each
+    product casts its weight to float32 at the call, one weight at a time
+    (a float32 copy of 24 Mixtral layers would be 139 GB)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
+    cfgs = (cfg, cfg32, cfg32)
+    win = M._window(cfg)
+    rows = []
+    for prompt, r in zip(prompts, reqs):
+        toks = torch.as_tensor(np.asarray(prompt, np.int32), device=dev)[None]
+        pos = torch.arange(toks.shape[1], device=dev)[None]
+        xs = [M.embed_tokens(params, c, toks) for c in cfgs]
+        last_flips, flipped, decisions, margin = [], 0, 0, 0.0
+        for layer, (_, _, _, g, p) in enumerate(M._layers(params, cfg)):
+            hs = []
+            for j, c in enumerate(cfgs):
+                h = L.rms_norm(p["norm1"], xs[j], c.norm_eps)
+                out, _ = L.attention_block(p["attn"], c, h, pos, window=win)
+                xs[j] = xs[j] + out
+                hs.append(L.rms_norm(p["norm2"], xs[j], c.norm_eps)[0])
+            if not g.moe:
+                xs = [x + L.swiglu_mlp(p["mlp"], h)[None]
+                      for x, h in zip(xs, hs)]
+                continue
+            w16, i16 = L.moe_route(p["mlp"], cfg, hs[0])
+            logits32 = hs[1].float() @ p["mlp"]["router"].float()
+            w_on16 = torch.softmax(logits32, -1).gather(-1, i16)
+            w_on16 = w_on16 / w_on16.sum(-1, keepdim=True)
+            i32 = torch.topk(logits32, cfg.moe.top_k, -1).indices
+            differ = (i16.sort(-1).values != i32.sort(-1).values).any(-1)
+            flipped += int(differ.sum())
+            decisions += differ.numel()
+            if bool(differ.any()):
+                kth = logits32.gather(-1, i32).min(-1).values
+                low = logits32.gather(-1, i16).min(-1).values
+                margin = max(margin, float((kth - low)[differ].max()))
+            if bool(differ[-1]):
+                last_flips.append(layer)
+            w_own, i_own = L.moe_route(p["mlp"], cfg32, hs[2])
+            xs[0] = xs[0] + L.moe_experts(p["mlp"], cfg, hs[0], w16, i16)[None]
+            xs[1] = xs[1] + L.moe_experts(p["mlp"], cfg32, hs[1], w_on16,
+                                          i16)[None]
+            xs[2] = xs[2] + L.moe_experts(p["mlp"], cfg32, hs[2], w_own,
+                                          i_own)[None]
+        l16, l32, own = (M.lm_logits(params, c, x[:, -1])[0].float()
+                         for c, x in zip(cfgs, xs))
+        if not bool(torch.isfinite(l32).all()):
+            raise AssertionError(f"{r.req_id}: non-finite float32 logits")
+        tok = r.output_tokens[0]
+        rows.append({"req": r.req_id, "gap": float(l32.max() - l32[tok]),
+                     "gap_own_routing": float(own.max() - own[tok]),
+                     "served_is_bf16_argmax": int(l16.argmax()) == tok,
+                     "bf16_vs_f32_max_abs": float((l16 - l32).abs().max()),
+                     "last_token_choice_differs_at_layers": last_flips,
+                     "choices_differing": flipped / decisions,
+                     "widest_f32_margin_of_a_difference": margin})
+        del xs, hs
+    worst = max(rows, key=lambda row: row["gap"])
+    if worst["gap"] > LOGIT_SLACK:
+        raise AssertionError(f"{worst['req']}: first token is {worst['gap']} "
+                             "below the best logit of the float32 prefill on "
+                             "the bf16 routing")
+    torch.cuda.empty_cache()
+    return rows
 
 
 def tokens_digest(reqs) -> str:
@@ -1474,6 +1696,179 @@ def phase5(dev, params):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 6: sliding window + MoE (Mixtral-8x7B) at full width
+# --------------------------------------------------------------------------- #
+def wire_plan(lens, window, chunk):
+    """What the floors predict for incremental streams of ``lens``: per
+    request the positions shipped, the shipped chunks' (start, length) and
+    the compute chunks wholly below the floor (progress markers)."""
+    out = []
+    for n in lens:
+        floor, sent, ships, markers = max(0, n - window), 0, [], 0
+        for c0 in range(0, n, chunk):
+            c1 = min(c0 + chunk, n)
+            w0 = max(sent, floor)
+            if c1 <= w0:
+                markers += 1
+                continue
+            ships.append((w0, c1 - w0))
+            sent = c1
+        out.append({"positions": sum(ln for _, ln in ships),
+                    "chunks": ships, "markers": markers})
+    return out
+
+
+def phase6(dev, around_serve=contextlib.nullcontext):
+    """Mixtral-8x7B at full width (24 of its 32 layers), bf16, random
+    weights from SEED, served as phase 3 serves llama2-7b: the sliding
+    window through flash (key tiles skipped), paged (splits from the
+    floor's page) and the overlay (streams from a floor inside a page),
+    and the MoE MLP's per-expert products. ``around_serve`` as in
+    ``phase3``."""
+    import collections
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.compat.precision import WireFormat
+    from repro_torch.core.disagg import DisaggPipeline
+    from repro_torch.core.kv_transfer import TransferEngine
+    from repro_torch.core.transport.wirefmt import WireChunk
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, VendorProfile
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import GlobalScheduler
+    from repro_torch.serving.server import Server
+
+    cfg = get_config(MODEL6).with_(num_layers=LAYERS6)
+    win = cfg.sliding_window
+    p_vendor, d_vendor = VendorProfile(**P_VENDOR), VendorProfile(**D_VENDOR)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    params_gib = torch.cuda.memory_allocated() / 2 ** 30
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(f"req{i}", rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), MAX_NEW)
+            for i, n in enumerate(PHASE6_PROMPTS)]
+    prompts = [r.prompt.copy() for r in reqs]
+    max_seq = max(PHASE6_PROMPTS) + MAX_NEW
+    bs = d_vendor.block_size
+    d_blocks = sum(-(-(n + MAX_NEW) // bs) for n in PHASE6_PROMPTS) + 1
+    p_eng = Engine("P0", cfg, params, p_vendor, num_blocks=2, max_batch=1,
+                   max_seq_len=max_seq, role="prefill", device=dev)
+    d_eng = Engine("D0", cfg, params, d_vendor, num_blocks=d_blocks,
+                   max_batch=len(reqs), max_seq_len=max_seq, role="decode",
+                   device=dev)
+    wire = WireFormat("raw", "bfloat16")
+    pipe = DisaggPipeline(TransferEngine(), wire)
+    shipped = collections.Counter()
+    begin = pipe.begin_handoff
+
+    def counted_begin(req, *a, **kw):        # positions each request ships
+        h = begin(req, *a, **kw)
+        send = h.send_chunk
+
+        def send_chunk(chunk):
+            shipped[req.req_id] += chunk["length"]
+            return send(chunk)
+        h.send_chunk = send_chunk
+        return h
+    pipe.begin_handoff = counted_begin
+    sched = GlobalScheduler(pipe, prefill_chunk=PREFILL_CHUNK, device=dev)
+    sched.add_instance(p_eng)
+    sched.add_instance(d_eng)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()                      # count this path only
+    with around_serve():
+        result = Server(sched).serve(reqs, max_ticks=100_000)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    check_outputs(cfg, reqs)
+    check_launched(6, launches, PHASE3_KERNELS)
+    # the wire: min(len, window) positions per request, the bytes and the
+    # progress markers the floors predict
+    plan = wire_plan(PHASE6_PROMPTS, win, PREFILL_CHUNK)
+    for r, n, pl in zip(reqs, PHASE6_PROMPTS, plan):
+        if not shipped[r.req_id] == pl["positions"] == min(n, win):
+            raise AssertionError(f"phase 6: {r.req_id} ({n} tokens) shipped "
+                                 f"{shipped[r.req_id]} positions, the floor "
+                                 f"says {min(n, win)}")
+
+    def chunk_bytes(start, length):
+        meta = torch.empty((cfg.num_layers, length, cfg.num_kv_heads,
+                            cfg.hd), dtype=torch.bfloat16, device="meta")
+        ent = {"k": meta, "v": meta, "start": start}
+        return WireChunk.from_entries([("kv", 0, 0, ent)], wire,
+                                      p_vendor.tp, seq_len=length).nbytes
+
+    want_bytes = sum(chunk_bytes(*c) for pl in plan for c in pl["chunks"])
+    got_bytes = pipe.transfer.stats.bytes_moved
+    if got_bytes != want_bytes:
+        raise AssertionError(f"phase 6: wire bytes {got_bytes}, the floors "
+                             f"predict {want_bytes}")
+    markers = p_eng.stats.prefill_chunks - sched.stats.chunks_streamed
+    if markers != sum(pl["markers"] for pl in plan):
+        raise AssertionError(f"phase 6: {markers} progress markers, the "
+                             f"floors predict {sum(pl['markers'] for pl in plan)}")
+    worst = last_token_gap(cfg, params, dev, reqs)
+    yard = moe_first_token_yardstick(cfg, params, dev, prompts, reqs)
+    # the window's effect on the last logits of the 8192-token prompt: an
+    # observation, not a gate (the gate that the mask is applied is
+    # phase 1's windowed paged row)
+    toks = torch.as_tensor(prompts[0], device=dev)[None]
+    with_w, _ = M.prefill(params, cfg, {"tokens": toks},
+                          M.init_caches(cfg, 1, len(prompts[0]), device=dev))
+    full = cfg.with_(attention_kind="full")
+    no_w, _ = M.prefill(params, full, {"tokens": toks},
+                        M.init_caches(full, 1, len(prompts[0]), device=dev))
+    effect = float((with_w.float() - no_w.float()).abs().max())
+    peak_all = torch.cuda.max_memory_allocated() / 2 ** 30
+    ttft, tpot = result.ttft(), result.tpot()
+    out = {"phase": 6, "model": cfg.name, "layers": cfg.num_layers,
+           "layers_published": get_config(MODEL6).num_layers,
+           "dtype": cfg.compute_dtype, "window": win,
+           "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+           "requests": len(reqs), "prompt_lens": list(PHASE6_PROMPTS),
+           "max_new_tokens": MAX_NEW, "prefill_chunk": PREFILL_CHUNK,
+           "p_vendor": dataclasses.asdict(p_vendor),
+           "d_vendor": dataclasses.asdict(d_vendor),
+           "ttft_p50_s": float(np.percentile(ttft, 50)),
+           "ttft_max_s": float(ttft.max()),
+           "tpot_p50_s": float(np.percentile(tpot, 50)),
+           "output_tok_s": result.throughput_tok_s(),
+           "wall_s": result.wall_seconds, "setup_s": setup_s,
+           "params_gib": params_gib, "peak_mem_gib": peak,
+           "peak_mem_gib_with_checks": peak_all,
+           "launches": launches,
+           "prefill_tokens": p_eng.stats.prefill_tokens,
+           "prefill_chunks": p_eng.stats.prefill_chunks,
+           "prefill_s": p_eng.stats.prefill_seconds,
+           "decode_steps": d_eng.stats.decode_steps,
+           "decode_s": d_eng.stats.decode_seconds,
+           "chunks_streamed": sched.stats.chunks_streamed,
+           "progress_markers_skipped": markers,
+           "positions_shipped": [shipped[r.req_id] for r in reqs],
+           "wire_bytes": got_bytes, "wire_bytes_predicted": want_bytes,
+           "wire_handoff_s": pipe.transfer.stats.wall_handoff_seconds,
+           "tokens_sha256": tokens_digest(reqs),
+           "last_token_logit_gap_max": worst,
+           "first_token_gap_f32_max": max(y["gap"] for y in yard),
+           "first_token_gap_f32_own_routing_max":
+               max(y["gap_own_routing"] for y in yard),
+           "last_logits_bf16_vs_f32_max_abs":
+               max(y["bf16_vs_f32_max_abs"] for y in yard),
+           "first_token_yardstick": yard,
+           "window_effect_8192": effect}
+    emit(out)
+    return out
+
+
 KERNELS = [
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
      "src/repro/kernels/flash_attention.py:78", 3),
@@ -1522,6 +1917,10 @@ def main() -> int:
     paths[4] = phase4(dev, params)
     torch.cuda.empty_cache()             # the workers need the memory back
     paths[5] = phase5(dev, params)
+    del params                           # llama2-7b's weights: Mixtral's turn
+    gc.collect()                         # engines and pools of phases 3-4
+    torch.cuda.empty_cache()             # sit in reference cycles
+    paths[6] = phase6(dev)
 
     rows = []
     for name, source, replaces, phase in KERNELS:

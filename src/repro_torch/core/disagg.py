@@ -16,6 +16,14 @@ layout. Two handoff shapes share one encode/re-page core:
     D never cross the wire (``TransferStats.prefix_hit_tokens``,
     ``bytes_saved``).
 
+A sliding-window stream starts at its window floor, which may lie inside
+one of D's pages: its first chunk lands ``front = start % block_size`` rows
+into that page. The streamed re-page keeps the page's rows below the floor
+as they were (stale rows of an earlier sequence, which decode never
+attends); the monolithic one zero-fills them. Neither handoff ever sends a
+zero-length progress marker, and ``meta["chunks"]`` counts only chunks
+that crossed the wire.
+
 The wire stays in host memory as in the reference: the P side copies KV
 device→host when a chunk is encoded, the D side copies it out of the wire
 buffer and host→device when it re-pages. Both re-page paths go through
@@ -121,8 +129,8 @@ class DisaggPipeline:
         when streamed chunk boundaries do not align with D's block size."""
         if not isinstance(payload, WireChunk):
             raise NotImplementedError(
-                "only fixed-codec wire chunks re-page in the port (dense "
-                "handoffs carry no state or cross-attention tail)")
+                "only fixed-codec wire chunks re-page in the port (the "
+                "ported families carry no state or cross-attention tail)")
         dev = d_engine.device
         spec = d_engine.specs["kv"]
         bids = torch.from_numpy(np.asarray(block_ids, np.int32)).to(dev)
@@ -193,7 +201,8 @@ class DisaggPipeline:
                          chunked_compute: Optional[bool] = None,
                          mode=None) -> Dict[str, Any]:
         """Drive a full streamed handoff synchronously (tests, benches; the
-        global scheduler advances the same protocol tick by tick)."""
+        global scheduler advances the same protocol tick by tick). Progress
+        markers (compute chunks below a window floor) are skipped."""
         stream = p_engine.prefill_stream(req, chunk_tokens,
                                          chunked_compute=chunked_compute,
                                          mode=mode)
@@ -346,7 +355,7 @@ class StreamedHandoff:
 
     def finalize(self, first_token: int, tail_package: Dict[str, Any]
                  ) -> Dict[str, Any]:
-        """Activate the D slot and account overlap (dense handoffs have no
+        """Activate the D slot and account overlap (no ported family has a
         state tail)."""
         assert not self._closed
         assert not tail_package.get("states") and \

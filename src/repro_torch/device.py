@@ -31,10 +31,15 @@ def resolve(device: DeviceLike = None) -> torch.device:
 
 def check_family(cfg) -> None:
     """The port covers the dense GQA/MHA family (optional qkv bias and
-    qk-norm). Every other family stays in ROADMAP queue 1 item 7."""
-    if (cfg.family != "dense" or cfg.attention_kind != "full"
-            or cfg.is_moe or cfg.is_enc_dec or cfg.recurrent is not None
-            or cfg.ssm is not None or cfg.frontend.kind != "none"):
+    qk-norm), sliding-window attention, and MoE MLPs over full or sliding
+    attention (Mixtral). Every other family (MLA, recurrent, SSM, enc-dec,
+    VLM) stays in ROADMAP queue 1 item 7."""
+    attention_ok = cfg.attention_kind in ("full", "sliding")
+    family_ok = cfg.family == "dense" or (cfg.family == "moe" and cfg.is_moe)
+    if (not attention_ok or not family_ok
+            or (cfg.is_moe and cfg.family != "moe") or cfg.is_enc_dec
+            or cfg.recurrent is not None or cfg.ssm is not None
+            or cfg.frontend.kind != "none"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (attention "
             f"{cfg.attention_kind!r}) is not ported yet — see ROADMAP "

@@ -56,7 +56,9 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                         window: int = 0) -> torch.Tensor:
     """q: (B,H,d); pools (N, *page) in ``layout``; block_table
     (B, max_pages) int32; seq_lens (B,) lengths including the current
-    token → (B,H,d)."""
+    token → (B,H,d). Rows past the sequence or below the window are
+    selected away, scores and values alike, so they may hold anything
+    (NaN included), as in the kernel."""
     b, h, d = q.shape
     perm = _to_canon_perm(layout)
     kc = k_pool.permute((0,) + tuple(i + 1 for i in perm))   # (N,bs,KV,d)
@@ -77,7 +79,8 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
         ok = ok & (pos >= (lens - window))
     s = torch.where(ok[:, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    v = torch.where(ok[:, :, None, None], v.float(), 0.0)   # select, not 0*v
+    o = torch.einsum("bkgs,bskd->bkgd", p, v)
     return o.reshape(b, h, d).to(q.dtype)
 
 

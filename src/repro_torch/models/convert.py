@@ -3,8 +3,9 @@ the port, through numpy.
 
 bfloat16 arrays arrive as ``ml_dtypes`` bfloat16, which torch cannot read
 directly: their bits are viewed as uint16 and reinterpreted as
-``torch.bfloat16``. Everything else converts as is. The tree structure
-(dicts, tuples of group positions) is kept.
+``torch.bfloat16``. Everything else converts as is, so an MoE router,
+float32 whatever the parameter dtype, stays float32. The tree structure
+(dicts, tuples of group positions, MoE and dense groups) is kept.
 """
 from __future__ import annotations
 

@@ -1,5 +1,7 @@
-"""Core layers of the dense family — PyTorch port of
-``repro.models.layers`` (norms, RoPE, GQA attention, SwiGLU).
+"""Core layers of the ported families — PyTorch port of
+``repro.models.layers`` (norms, RoPE, GQA attention with an optional
+sliding window, position-tagged KV caches with the ring buffer, SwiGLU,
+top-k routed MoE with shared experts).
 
 Layers are plain functions over plain dict params, as in the JAX package.
 Conventions: activations (B, S, d); attention heads (B, S, H, hd);
@@ -135,11 +137,11 @@ def kv_cache_init(batch: int, capacity: int, kv_heads: int, hd: int, dtype,
         full_capacity=full_capacity)
 
 
-def kv_cache_write(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
-                   positions: torch.Tensor) -> KVCache:
-    """Write S_new entries per sequence at slots ``positions % capacity``,
-    in place. positions: (B, S_new) absolute, all >= 0 (the dense family
-    never pads a prompt)."""
+def _kv_cache_put(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                  positions: torch.Tensor) -> KVCache:
+    """Write every entry at slot ``positions % capacity``, in place.
+    positions all >= 0: the chunks of a prompt and decode tokens never
+    carry -1, so the hot path reads nothing back from the card."""
     slots = (positions % cache.capacity).long()
     bidx = torch.arange(k_new.shape[0], device=k_new.device)[:, None]
     cache.k[bidx, slots] = k_new.to(cache.k.dtype)
@@ -148,13 +150,42 @@ def kv_cache_write(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
+def kv_cache_write(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                   positions: torch.Tensor) -> KVCache:
+    """Write S_new entries per sequence at slots ``positions % capacity``,
+    in place. k_new/v_new: (B, S_new, KV, hd); positions: (B, S_new)
+    absolute, -1 = skip: those entries are dropped, as the reference's
+    ``mode="drop"`` scatter drops them (selecting the kept entries reads
+    the mask back from the card)."""
+    keep = positions >= 0
+    bidx = torch.arange(k_new.shape[0], device=k_new.device)[:, None]
+    bidx = bidx.expand_as(positions)[keep]
+    pos = positions[keep]
+    slots = (pos % cache.capacity).long()
+    cache.k[bidx, slots] = k_new[keep].to(cache.k.dtype)
+    cache.v[bidx, slots] = v_new[keep].to(cache.v.dtype)
+    cache.pos[bidx, slots] = pos.to(torch.int32)
+    return cache
+
+
+def _ring_positions(positions: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Drop (-1) positions that have already slid out of a ring buffer."""
+    last = positions.max(dim=-1, keepdim=True).values
+    return torch.where(positions > last - capacity, positions,
+                       torch.full_like(positions, -1))
+
+
 def kv_cache_from_prefill(cache: KVCache, k_new: torch.Tensor,
                           v_new: torch.Tensor,
                           positions: torch.Tensor) -> KVCache:
-    """Fill a cache from a full prefill pass (positions 0..S-1, capacity
-    >= S), in place."""
+    """Fill a cache from a full prefill pass (positions 0..S-1), in place.
+    When the capacity covers the prompt the rows go to slots 0..S-1; a
+    ring buffer (a sliding layer's window-sized cache) keeps the last
+    ``capacity`` positions at slots ``position % capacity``."""
     s = k_new.shape[1]
-    assert cache.capacity >= s, (cache.capacity, s)
+    if cache.capacity < s:
+        return kv_cache_write(cache, k_new, v_new,
+                              _ring_positions(positions, cache.capacity))
     cache.k[:, :s] = k_new.to(cache.k.dtype)
     cache.v[:, :s] = v_new.to(cache.v.dtype)
     cache.pos[:, :s] = positions.to(torch.int32)
@@ -263,7 +294,7 @@ def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     lie above the causal diagonal. Then ``causal_mask(q_offset)`` over the
     slots is exactly ``cache_attention_mask`` over the positions."""
     q, k, v = _project_qkv(p, cfg, x, positions)
-    kv_cache_write(cache, k, v, positions)
+    _kv_cache_put(cache, k, v, positions)
     if kernel_route(x):
         if q_offset is None or not cache.full_capacity \
                 or q_offset + x.shape[1] > cache.capacity:
@@ -334,3 +365,81 @@ def swiglu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
     return (F.silu(g) * u) @ p["w_down"].to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# MoE — top-k routed experts (+ shared), sort-based grouping, one product
+# per expert. No token dropping (every token reaches its k experts).
+# --------------------------------------------------------------------------- #
+def init_moe(gen: torch.Generator, cfg: ModelConfig,
+             device: torch.device) -> Params:
+    e = cfg.moe
+    d, fe = cfg.d_model, e.d_ff_expert
+    s_in = 1.0 / math.sqrt(d)
+    s_out = 1.0 / math.sqrt(fe) / math.sqrt(2 * cfg.num_layers)
+
+    def rnd(shape, scale, dtype):
+        return (torch.randn(shape, generator=gen, device=device) * scale
+                ).to(dtype)
+
+    p = {"router": rnd((d, e.num_experts), s_in, torch.float32),
+         "w_gate": rnd((e.num_experts, d, fe), s_in, cfg.pdtype),
+         "w_up": rnd((e.num_experts, d, fe), s_in, cfg.pdtype),
+         "w_down": rnd((e.num_experts, fe, d), s_out, cfg.pdtype)}
+    if e.num_shared_experts:
+        p["shared"] = init_mlp(gen, cfg, device,
+                               d_ff=e.num_shared_experts * fe)
+    return p
+
+
+def moe_route(p: Params, cfg: ModelConfig, x2d: torch.Tensor):
+    """x2d: (T, d) → (weights (T,k) float32, expert_idx (T,k)): the router
+    in float32, softmax, top-k, renormalised."""
+    logits = x2d.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    weights, idx = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    return weights / weights.sum(dim=-1, keepdim=True), idx
+
+
+def moe_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Route → the chosen experts → combine. x: (B,S,d) or (T,d). The
+    reference's single-device path (``_moe_mlp_local``); its capacity-
+    bounded and ``shard_map`` routes are distributed only."""
+    shape = x.shape
+    x2d = x.reshape(-1, shape[-1])
+    weights, idx = moe_route(p, cfg, x2d)
+    return moe_experts(p, cfg, x2d, weights, idx).reshape(shape)
+
+
+def moe_experts(p: Params, cfg: ModelConfig, x2d: torch.Tensor,
+                weights: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The routed experts of tokens x2d (T, d) for given choices idx (T,k)
+    and weights (T,k), plus the shared experts. The (token, choice) pairs
+    are sorted by expert with a stable sort (as ``jnp.argsort``), each
+    expert's rows go through its SwiGLU, and the weighted outputs are put
+    back in (token, choice) order and summed over the k choices: a gather
+    and a sum, so two runs on the card give the same bits (no atomics).
+    The group sizes go to the host to cut the sorted rows per expert: one
+    read-back per layer, which waits for the work queued before it (the
+    profiler span ``moe.group_sizes_to_host``)."""
+    e = cfg.moe
+    t, d = x2d.shape
+    flat_expert = idx.reshape(-1)                                # (T*k,)
+    order = torch.argsort(flat_expert, stable=True)
+    xs = x2d[order // e.top_k]                                   # (T*k, d)
+    with torch.profiler.record_function("moe.group_sizes_to_host"):
+        sizes = torch.bincount(flat_expert, minlength=e.num_experts).tolist()
+    outs = []
+    for ei, xe in enumerate(torch.split(xs, sizes)):
+        if xe.shape[0] == 0:
+            continue
+        g = xe @ p["w_gate"][ei].to(x2d.dtype)
+        u = xe @ p["w_up"][ei].to(x2d.dtype)
+        outs.append((F.silu(g) * u) @ p["w_down"][ei].to(x2d.dtype))
+    y_sorted = torch.cat(outs)
+    w_sorted = weights.reshape(-1)[order][:, None].to(y_sorted.dtype)
+    unsort = torch.argsort(order)
+    y = (y_sorted * w_sorted)[unsort].view(t, e.top_k, d).sum(dim=1)
+    if e.num_shared_experts:
+        y = y + swiglu_mlp(p["shared"], x2d)
+    return y

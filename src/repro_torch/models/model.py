@@ -1,5 +1,5 @@
 """Config-driven model assembly — PyTorch port of ``repro.models.model``
-for the dense family.
+for the dense, sliding-window and MoE families.
 
 A model is a list of *block groups* whose parameters are stacked along a
 leading ``count`` axis, exactly as in the JAX package (so
@@ -33,11 +33,18 @@ Params = Dict[str, Any]
 class Group:
     kinds: Tuple[str, ...]
     count: int
+    moe: bool = False
 
 
 def block_groups(cfg: ModelConfig) -> List[Group]:
+    """dense: [Group(("attn",), L)]; moe: the first dense layers, if any,
+    then the MoE layers, as in the reference."""
     _dev.check_family(cfg)
-    return [Group((ATTN,), cfg.num_layers)]
+    if cfg.is_moe and cfg.moe.first_dense_layers:
+        fd = cfg.moe.first_dense_layers
+        return [Group((ATTN,), fd, moe=False),
+                Group((ATTN,), cfg.num_layers - fd, moe=True)]
+    return [Group((ATTN,), cfg.num_layers, moe=cfg.is_moe)]
 
 
 def layer_params(stacked: Any, i: int) -> Any:
@@ -50,20 +57,24 @@ def layer_params(stacked: Any, i: int) -> Any:
 # --------------------------------------------------------------------------- #
 # Init
 # --------------------------------------------------------------------------- #
-def _init_layer(gen: torch.Generator, cfg: ModelConfig,
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, moe: bool,
                 device: torch.device) -> Params:
     d = cfg.d_model
+    mlp = L.init_moe(gen, cfg, device) if moe else \
+        L.init_mlp(gen, cfg, device)
     return {"norm1": torch.ones((d,), dtype=cfg.pdtype, device=device),
             "norm2": torch.ones((d,), dtype=cfg.pdtype, device=device),
             "attn": L.init_attention(gen, cfg, device),
-            "mlp": L.init_mlp(gen, cfg, device)}
+            "mlp": mlp}
 
 
-def _init_group(gen: torch.Generator, cfg: ModelConfig, count: int,
+def _init_group(gen: torch.Generator, cfg: ModelConfig, g: Group,
                 device: torch.device) -> Params:
-    """``count`` layers drawn one after the other, each written into its
+    """``g.count`` layers drawn one after the other, each written into its
     slot of the stacked tensors as it is made: the values of stacking
     every layer at the end, at the memory of the stack plus one layer."""
+    count = g.count
+
     def put(dst, src, i):
         if isinstance(src, dict):
             for k in src:
@@ -76,11 +87,11 @@ def _init_group(gen: torch.Generator, cfg: ModelConfig, count: int,
             return {k: empty(v) for k, v in t.items()}
         return t.new_empty((count,) + tuple(t.shape))
 
-    layer = _init_layer(gen, cfg, device)
+    layer = _init_layer(gen, cfg, g.moe, device)
     stacked = empty(layer)
     put(stacked, layer, 0)
     for i in range(1, count):
-        put(stacked, _init_layer(gen, cfg, device), i)
+        put(stacked, _init_layer(gen, cfg, g.moe, device), i)
     return stacked
 
 
@@ -99,7 +110,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                   ).to(cfg.pdtype),
         "final_norm": torch.ones((d,), dtype=cfg.pdtype, device=dev),
         "groups": tuple(
-            (_init_group(gen, cfg, g.count, dev),)
+            (_init_group(gen, cfg, g, dev),)
             for g in groups),
     }
     if not cfg.tie_embeddings:
@@ -115,11 +126,18 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
                 full_capacity: bool = False,
                 device: _dev.DeviceLike = None):
     """Dense position-tagged caches, one group-stacked ``KVCache`` per
-    group position (leaves are (count, B, cap, ...))."""
+    group position (leaves are (count, B, cap, ...)). A sliding layer's
+    cache is a ring buffer of ``min(capacity, window)`` slots unless
+    ``full_capacity``: chunked prefill opts out (writing chunk c would
+    evict positions still inside the window of chunk c's own queries), so
+    slot == position and attention applies the window."""
     dev = _dev.resolve(device)
     dtype = dtype or cfg.cdtype
+    cap = capacity
+    if _window(cfg) and not full_capacity:
+        cap = min(cap, _window(cfg))
     return tuple(
-        tuple(L.kv_cache_init(batch, capacity, cfg.num_kv_heads, cfg.hd,
+        tuple(L.kv_cache_init(batch, cap, cfg.num_kv_heads, cfg.hd,
                               dtype, dev, count=g.count,
                               full_capacity=full_capacity)
               for _kind in g.kinds)
@@ -163,17 +181,25 @@ def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # Layer application
 # --------------------------------------------------------------------------- #
-def _mlp_residual(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["norm2"], x, cfg.norm_eps))
+def _window(cfg: ModelConfig) -> int:
+    return cfg.sliding_window if cfg.attention_kind == "sliding" else 0
+
+
+def _mlp_residual(p, cfg: ModelConfig, moe: bool,
+                  x: torch.Tensor) -> torch.Tensor:
+    h = L.rms_norm(p["norm2"], x, cfg.norm_eps)
+    return x + (L.moe_mlp(p["mlp"], cfg, h) if moe
+                else L.swiglu_mlp(p["mlp"], h))
 
 
 def _layers(params, cfg: ModelConfig):
-    """(group index, position, layer index, layer params) in model order."""
+    """(group index, position, layer index, group, layer params) in model
+    order."""
     for gi, g in enumerate(block_groups(cfg)):
         for pi, _kind in enumerate(g.kinds):
             stacked = params["groups"][gi][pi]
             for li in range(g.count):
-                yield gi, pi, li, layer_params(stacked, li)
+                yield gi, pi, li, g, layer_params(stacked, li)
 
 
 # --------------------------------------------------------------------------- #
@@ -187,11 +213,13 @@ def prefill(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor], caches):
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
-    for gi, pi, li, p in _layers(params, cfg):
+    win = _window(cfg)
+    for gi, pi, li, g, p in _layers(params, cfg):
         h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
-        out, (k, v) = L.attention_block(p["attn"], cfg, h, positions)
+        out, (k, v) = L.attention_block(p["attn"], cfg, h, positions,
+                                        window=win)
         L.kv_cache_from_prefill(caches[gi][pi].layer(li), k, v, positions)
-        x = _mlp_residual(p, cfg, x + out)
+        x = _mlp_residual(p, cfg, g.moe, x + out)
     return lm_logits(params, cfg, x[:, -1]), caches
 
 
@@ -203,12 +231,13 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     lets the CUDA route call the flash kernel without reading positions
     back from the card. Returns (logits (B,T,V), caches)."""
     x = embed_tokens(params, cfg, tokens)
-    for gi, pi, li, p in _layers(params, cfg):
+    win = _window(cfg)
+    for gi, pi, li, g, p in _layers(params, cfg):
         h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
         out, _ = L.attention_decode(p["attn"], cfg, h, positions,
-                                    caches[gi][pi].layer(li),
+                                    caches[gi][pi].layer(li), window=win,
                                     q_offset=q_offset)
-        x = _mlp_residual(p, cfg, x + out)
+        x = _mlp_residual(p, cfg, g.moe, x + out)
     return lm_logits(params, cfg, x), caches
 
 
@@ -222,12 +251,14 @@ def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
     write_blocks/slots: (B,). Returns (logits (B,1,V), caches)."""
     positions = seq_lens[:, None].to(torch.int32)
     x = embed_tokens(params, cfg, tokens)
-    for gi, pi, li, p in _layers(params, cfg):
+    win = _window(cfg)
+    for gi, pi, li, g, p in _layers(params, cfg):
         pools = caches[gi][pi]
         h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
         out, _ = L.attention_decode_paged(
             p["attn"], cfg, h, positions,
             {"k_pool": pools["k_pool"][li], "v_pool": pools["v_pool"][li]},
-            block_table, seq_lens, write_blocks, write_slots, specs["kv"])
-        x = _mlp_residual(p, cfg, x + out)
+            block_table, seq_lens, write_blocks, write_slots, specs["kv"],
+            window=win)
+        x = _mlp_residual(p, cfg, g.moe, x + out)
     return lm_logits(params, cfg, x), caches

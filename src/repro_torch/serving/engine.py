@@ -1,5 +1,6 @@
 """Model-instance engine: prefill, continuous-batching paged decode —
-PyTorch port of ``repro.serving.engine`` for the dense family.
+PyTorch port of ``repro.serving.engine`` for the dense, sliding-window
+and MoE families.
 
 One Engine == one "model instance" in the paper's sense (a P instance, a D
 instance, or an integrated instance). Vendor-specific VRAM management is
@@ -11,9 +12,11 @@ passed. Its paged pools are updated in place by decode appends, by the
 D-side re-page and by the prefix cache's copy-on-write page copy (the
 repack kernel). With ``prefix_cache=True`` a decode engine indexes its
 pool pages in a ``PrefixStore`` and a prefill engine keeps finished
-prompts' KV in a ``HostPrefixStore`` of CPU tensors. Not ported yet:
-snapshot/resume (refused when asked for), and encoder or vision prompts
-(ROADMAP queue 1).
+prompts' KV in a ``HostPrefixStore`` of CPU tensors. A sliding-window
+stream ships only the positions at or above its window floor, and can
+snapshot its window of KV rows mid-stream so that a retry on the same P
+resumes instead of recomputing. Not ported yet: layer states (recurrent,
+SSM) and encoder or vision prompts (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -98,18 +101,41 @@ class EngineStats:
     # requests that wanted prefix-cache replay but the stream or family
     # cannot do it (a full recompute), or a refused mid-stream resume
     resume_unsupported: int = 0
+    # prompt tokens whose compute was skipped via a mid-stream snapshot
+    # resume after a failure
+    resumed_tokens: int = 0
 
     def as_dict(self) -> Dict[str, float]:
         return dataclasses.asdict(self)
 
 
+def _chronological(arr: torch.Tensor, pos: torch.Tensor
+                   ) -> Tuple[torch.Tensor, int]:
+    """Ring-buffer shard (count, cap, ...) + pos (count, cap) →
+    chronological (count, cap, ...) and the absolute start position. The
+    order is the same across layers, so layer 0's positions (read back
+    to the host) sort them all."""
+    p0 = pos[0].cpu()
+    order = torch.argsort(p0)
+    return arr[:, order.to(arr.device)], int(p0[order[0]])
+
+
 def kv_entries_with_start(package_kv: List[Tuple]) -> List[Tuple]:
-    """A prefill package's KV entries with an absolute ``start``: the
-    canonical pre-wire form. Dense caches hold positions in order from 0,
-    so every entry starts at 0. Returns [(kind, gi, pi, entry)] with
-    entry tensors (count, S', kv, hd)."""
-    return [(kind, gi, pi, {"k": ent["k"], "v": ent["v"], "start": 0})
-            for kind, gi, pi, ent in package_kv]
+    """A prefill package's KV entries in chronological order with an
+    absolute ``start``: the canonical pre-wire form that both the
+    monolithic encoder and the chunk splitter consume. An entry that
+    carries ``pos`` is a ring buffer (a sliding layer's last window) and
+    is put in position order; any other holds positions 0.. in order.
+    Returns [(kind, gi, pi, entry)] with entry tensors (count, S', kv, hd)
+    covering absolute positions [start, start+S')."""
+    out = []
+    for kind, gi, pi, ent in package_kv:
+        k, v, start = ent["k"], ent["v"], 0
+        if "pos" in ent:
+            k, start = _chronological(k, ent["pos"])
+            v, _ = _chronological(v, ent["pos"])
+        out.append((kind, gi, pi, {"k": k, "v": v, "start": start}))
+    return out
 
 
 def slice_kv_entries(entries: List[Tuple], w0: int, w1: int) -> List[Tuple]:
@@ -139,9 +165,14 @@ class PrefillStream:
         dense full-capacity cache (slot == position), one chunk of tokens
         per call, so each chunk's KV can hit the wire while the next chunk
         computes. On the card each chunk's attention is one flash-kernel
-        launch per layer at ``q_offset`` = the chunk's start.
+        launch per layer at ``q_offset`` = the chunk's start. A sliding
+        window masks in attention and ships only positions at or above
+        the window floor; a chunk wholly below it returns a zero-length
+        *progress marker* that callers account but never send.
       * *monolithic* — whole-prompt compute in one pass on the first call;
-        the wire still streams in ``chunk_tokens`` slices.
+        the wire still streams in ``chunk_tokens`` slices, from the first
+        position the package holds (a sliding layer keeps only its last
+        window).
 
     ``first_token`` is known once the final chunk has been produced.
 
@@ -189,15 +220,22 @@ class PrefillStream:
             self.chunked_compute = (self.caps.incremental
                                     and chunk_tokens is not None
                                     and chunk_tokens < self.seq_len)
+        # mid-stream snapshot resume (sliding window): skip the already
+        # computed prefix, re-ship the wire from the window floor
+        self._resume: Optional[Dict[str, Any]] = None
         if resume is not None:
             if not self.caps.resumable:
                 engine._note_resume_unsupported()
                 raise PrefillModeError(
                     f"{engine.cfg.name}: mid-stream resume is not supported "
                     f"for family {self.caps.family!r}")
-            raise NotImplementedError(
-                "mid-stream snapshot resume is not ported (ROADMAP queue 1 "
-                "item 7: state-carrying families)")
+            if not self.chunked_compute:
+                raise PrefillModeError(
+                    "resume requires incremental chunked compute")
+            if int(resume.get("seq_len", -1)) != self.seq_len:
+                raise PrefillModeError(
+                    "resume snapshot does not match this request")
+            self._resume = resume
         self.first_token: Optional[int] = None
         self.chunks_emitted = 0
         self._next_start = 0
@@ -213,7 +251,7 @@ class PrefillStream:
         self._cached_entries: Optional[List[Tuple]] = None
         self._collect: Optional[List[Tuple]] = None
         store = engine.host_prefix_store
-        if store is not None:
+        if store is not None and self._resume is None:
             if self.chunked_compute and self.caps.prefix_cache:
                 self._p_store = store
                 self._collect = []
@@ -273,6 +311,11 @@ class PrefillStream:
             compute_s = time.perf_counter() - t0
             self.first_token = package["first_token"]
             self._entries = kv_entries_with_start(package["kv"])
+            # ring-buffer (sliding) entries cover only the last window of
+            # the prompt: stream from the first position on the wire, no
+            # empty chunks for the evicted prefix
+            self._next_start = min(
+                min(e[3]["start"] for e in self._entries), self.seq_len)
         w0 = self._next_start
         if self.chunk_tokens is None:
             w1 = self.seq_len
@@ -284,21 +327,24 @@ class PrefillStream:
                 "compute_seconds": compute_s}
 
     # -- incremental compute --------------------------------------------- #
+    @property
+    def _wire_floor(self) -> int:
+        """First absolute position the D side can still attend. Sliding-
+        window KV below ``seq_len - window`` is dead weight — never ship."""
+        if self.caps.window:
+            return max(0, self.seq_len - self.caps.window)
+        return 0
+
     def _next_incremental(self) -> Dict[str, Any]:
-        """Compute exactly ONE chunk per call (one unit of per-tick P work)."""
+        """Compute exactly ONE chunk per call (one unit of per-tick P
+        work). A chunk wholly below the wire floor returns a zero-length
+        progress marker."""
         eng, req = self.engine, self.req
         if eng.failed:
             raise RuntimeError(f"instance {eng.name} is down")
         t0 = time.perf_counter()
         if self._caches is None:
-            # capacity rounded to a chunk multiple; full_capacity: slot ==
-            # position, entries past seq_len stay pos=-1 and masked
-            cap = -(-self.seq_len // self.chunk_tokens) * self.chunk_tokens
-            self._caches = M.init_caches(eng.cfg, 1, cap, eng.cfg.cdtype,
-                                         full_capacity=True,
-                                         device=eng.device)
-            if self.prefix_tokens:
-                self._preload_caches()
+            self._setup_incremental()
         c0 = self._next_start
         c1 = min(c0 + self.chunk_tokens, self.seq_len)
         positions = torch.arange(c0, c1, dtype=torch.int32,
@@ -316,11 +362,28 @@ class PrefillStream:
                 logits[:, -1].float().cpu().numpy(), req)[0])
         dt = time.perf_counter() - t0
         eng._note_prefill_compute(dt)
-        w0 = self._wire_sent
+        w0 = max(self._wire_sent, self._wire_floor)
+        if c1 <= w0:
+            return {"kv": [], "start": c0, "length": 0,
+                    "compute_seconds": dt}
         entries = self._extract_entries(w0, c1)
         self._wire_sent = c1
         return {"kv": entries, "start": w0, "length": c1 - w0,
                 "compute_seconds": dt}
+
+    def _setup_incremental(self) -> None:
+        """The dense cache of an incremental stream: capacity rounded to a
+        chunk multiple, full_capacity (slot == position, even for a
+        sliding layer); entries past seq_len stay pos=-1 and masked. Then
+        the replayed prefix or a resume snapshot, if any."""
+        eng = self.engine
+        cap = -(-self.seq_len // self.chunk_tokens) * self.chunk_tokens
+        self._caches = M.init_caches(eng.cfg, 1, cap, eng.cfg.cdtype,
+                                     full_capacity=True, device=eng.device)
+        if self.prefix_tokens:
+            self._preload_caches()
+        if self._resume is not None:
+            self._apply_resume(self._resume)
 
     def _extract_entries(self, w0: int, w1: int) -> List[Tuple]:
         """Wire entries for absolute positions [w0, w1) — slot == position
@@ -334,6 +397,40 @@ class PrefillStream:
                     "k": c.k[:, 0, w0:w1], "v": c.v[:, 0, w0:w1],
                     "start": w0}))
         return entries
+
+    # -- mid-stream snapshot resume ------------------------------------- #
+    def snapshot(self) -> Optional[Dict[str, Any]]:
+        """Portable mid-stream progress: the KV rows still inside the
+        sliding window below ``next_start``, copied to the host (no ported
+        family carries layer states, so ``states`` is empty). Replaying it
+        on a fresh stream (same request, same params) skips recomputing
+        the first ``next_start`` prompt tokens after a failure."""
+        if not (self.caps.resumable and self.chunked_compute):
+            return None
+        if self._caches is None or self._next_start <= 0 or self.done:
+            return None
+        ns = self._next_start
+        lo = max(0, ns - self.caps.window) if self.caps.window else ns
+        kv = []
+        for gi, g in enumerate(M.block_groups(self.engine.cfg)):
+            for pi, _kind in enumerate(g.kinds):
+                c = self._caches[gi][pi]
+                kv.append((gi, pi, {"k": c.k[:, :, lo:ns].cpu(),
+                                    "v": c.v[:, :, lo:ns].cpu()}))
+        return {"seq_len": self.seq_len, "next_start": ns,
+                "row_start": lo, "states": [], "kv": kv}
+
+    def _apply_resume(self, snap: Dict[str, Any]) -> None:
+        ns = int(snap["next_start"])
+        s0 = int(snap["row_start"])
+        for gi, pi, ent in snap["kv"]:
+            c = self._caches[gi][pi]
+            c.k[:, :, s0:ns] = ent["k"].to(c.k.device, c.k.dtype)
+            c.v[:, :, s0:ns] = ent["v"].to(c.v.device, c.v.dtype)
+            c.pos[:, :, s0:ns] = torch.arange(s0, ns, dtype=c.pos.dtype,
+                                              device=c.pos.device)
+        self._next_start = ns
+        self.engine.stats.resumed_tokens += ns
 
     def _preload_caches(self) -> None:
         """Seed the dense chunked-prefill cache with the replayed prefix
@@ -417,8 +514,10 @@ class Engine:
                        ) -> PrefillStream:
         """Start a chunked prefill for ``req``. ``chunked_compute`` has the
         reference's meaning when ``mode`` is None: True forces incremental
-        compute, False monolithic, None the automatic choice. A mid-stream
-        ``resume`` is refused: no ported family carries state."""
+        compute, False monolithic, None the automatic choice. ``resume``:
+        a ``PrefillStream.snapshot()`` of an aborted stream of the same
+        request on this engine (sliding window; other families refuse it
+        with ``PrefillModeError``)."""
         return PrefillStream(self, req, chunk_tokens,
                              chunked_compute=chunked_compute, mode=mode,
                              resume=resume)
@@ -446,8 +545,15 @@ class Engine:
         for gi, g in enumerate(M.block_groups(cfg)):
             for pi, _kind in enumerate(g.kinds):
                 c = caches[gi][pi]
-                kv.append(("kv", gi, pi, {"k": c.k[:, 0, :plen],
-                                          "v": c.v[:, 0, :plen]}))
+                if c.capacity >= plen:
+                    kv.append(("kv", gi, pi, {"k": c.k[:, 0, :plen],
+                                              "v": c.v[:, 0, :plen]}))
+                else:
+                    # a sliding layer's ring: its last window, slots in
+                    # ring order, with their positions
+                    kv.append(("kv", gi, pi, {"k": c.k[:, 0],
+                                              "v": c.v[:, 0],
+                                              "pos": c.pos[:, 0]}))
         self.stats.prefill_tokens += plen
         self.stats.prefill_chunks += 1
         self._note_prefill_compute(time.perf_counter() - t0)

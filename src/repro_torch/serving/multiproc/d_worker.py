@@ -174,7 +174,7 @@ class DWorker:
         return progressed
 
     def _finalize(self, st: _DStream) -> None:
-        fin = st.finalize               # dense streams carry no tail
+        fin = st.finalize               # no ported family has a state tail
         self.engine.activate_sequence(st.slot, fin.first_token, fin.seq_len)
         self.streams.pop(st.req.req_id)
         # the prefill's token starts the stream (scheduler's

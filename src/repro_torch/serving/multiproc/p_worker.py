@@ -181,7 +181,7 @@ class PWorker:
                 # bytes/token on this wire format
                 self.connector.stats.bytes_saved += int(
                     sent_bytes / sent_tokens * skipped_tokens)
-            # the ported (dense) families carry no state or cross tail
+            # the ported families carry no state or cross tail
             self.evt_q.put(PrefillDone(req.req_id, attempt,
                                        int(stream.first_token),
                                        stream.seq_len, index, None,

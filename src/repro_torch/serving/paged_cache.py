@@ -146,7 +146,10 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
 
     q: (B, 1, H, hd); block_table: (B, max_blocks); seq_lens: (B,) lengths
     INCLUDING the current token. ``window`` > 0 masks a sliding window.
-    Returns (B, 1, H, hd)."""
+    The mask selects (scores of hidden rows become NEG_INF, their values
+    0), so a stale row below the window floor never reaches the output
+    whatever it holds — on finite rows the reference's additive mask
+    gives the same bits. Returns (B, 1, H, hd)."""
     b, _, h, hd = q.shape
     max_b = block_table.shape[1]
     kv = spec.kv_heads
@@ -165,10 +168,11 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     ok = pos < lens
     if window > 0:
         ok &= pos >= (lens - window)
-    mask = torch.where(ok, 0.0, NEG_INF)
-    scores = scores + mask[:, None, None, None, :]
+    scores = torch.where(ok[:, None, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
+    v = torch.where(ok[:, :, None, None], v.float(), 0.0)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 

@@ -155,9 +155,15 @@ class PrefillFlightLoop:
                 s._emit_first_token(req, p_eng, d_eng,
                                     meta["first_token"], emitted)
                 continue
+            # a mid-stream snapshot from an aborted flight resumes only on
+            # the same P (its params produced the snapshot's KV rows)
+            snap = s._resume_snaps.pop(req.req_id, None)
+            if snap is not None and snap.get("p_name") != p_eng.name:
+                snap = None
             try:
                 stream = p_eng.prefill_stream(req, s.prefill_chunk,
-                                              mode=s.prefill_mode)
+                                              mode=s.prefill_mode,
+                                              resume=snap)
                 handoff = s.pipeline.begin_handoff(
                     req, p_eng, d_eng, stream.seq_len,
                     compute_overlapped=stream.chunked_compute)
@@ -318,6 +324,9 @@ class GlobalScheduler:
         self.prefill_loop = PrefillFlightLoop(self)
         self.decode_loop = DecodeLoop(self)
         self._draining: set = set()
+        # mid-stream snapshots of aborted flights, keyed by req_id — the
+        # sliding-window family resumes instead of recomputing
+        self._resume_snaps: Dict[str, Dict] = {}
 
     # back-compat views onto the event loops' state
     @property
@@ -407,6 +416,14 @@ class GlobalScheduler:
                 e.recover()
 
     def _abort_flight(self, fl: _Flight) -> None:
+        if not fl.p.failed:
+            # a healthy P aborting (D died, wire failed) keeps its chunk
+            # progress: resumable families snapshot their window KV so the
+            # retry skips the already-computed prefix
+            snap = fl.stream.snapshot()
+            if snap is not None:
+                snap["p_name"] = fl.p.name
+                self._resume_snaps[fl.req.req_id] = snap
         fl.handoff.abort()
         self.prefill_loop.inflight.remove(fl)
         self._requeue(fl.req, fl.p)

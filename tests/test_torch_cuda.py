@@ -234,6 +234,83 @@ def test_paged_kernel_idle_slots(cuda, dtype, layout):
                                want.float().cpu().numpy(), atol=ATOL[dtype])
 
 
+# Mixtral's windowed shapes (chip_smoke.py phase 6): 32 query heads over 8
+# KV heads, head dim 128, window 4096; the eight prompt lengths
+MIXTRAL_LENS = [8192, 7000, 6100, 5000, 4600, 4097, 3000, 2048]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_window_at_serving_shape(cuda, dtype):
+    """A 500-token chunk at q_offset 7500 over the 8500-slot full-capacity
+    cache of an 8192-token prompt, window 4096: the kernel skips the key
+    tiles below the window, and the first tile it visits is partly
+    outside it (the window edge inside a tile)."""
+    rng = np.random.default_rng(7500)
+    q = _rand(rng, (1, 500, 32, 128), dtype, cuda).transpose(1, 2)
+    k = _rand(rng, (1, 8500, 8, 128), dtype, cuda).transpose(1, 2)
+    v = _rand(rng, (1, 8500, 8, 128), dtype, cuda).transpose(1, 2)
+    args = dict(causal=True, window=4096, q_offset=7500, kv_len=8500)
+    got = ops.flash_attention(q, k, v, **args)
+    want = ref.flash_attention_ref(q, k, v, **args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=ATOL[dtype])
+
+
+def _stale_nan(args, bs, layout, window):
+    """Copies of the pools with NaN in every row of each sequence below
+    its window floor (``len - window``), as stale rows of earlier
+    sequences may hold anything: whole pages, and the floor page's rows
+    below a floor inside it."""
+    q, k, v, table, lens = args
+    blks, rows = [], []
+    for b, n in enumerate(lens.tolist()):
+        t = np.arange(max(0, n - window))
+        blks.append(table[b].cpu().numpy()[t // bs])
+        rows.append(t % bs)
+    blks = torch.from_numpy(np.concatenate(blks)).long().to(k.device)
+    rows = torch.from_numpy(np.concatenate(rows)).long().to(k.device)
+    kn, vn = k.clone(), v.clone()
+    for pool in (kn, vn):
+        if layout == "nbhd":
+            pool[blks, rows] = float("nan")
+        elif layout == "nhbd":
+            pool[blks, :, rows] = float("nan")
+        else:                                           # nhdb
+            pool[blks, :, :, rows] = float("nan")
+    return q, kn, vn, table, lens
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("h,kv,d,bs,lens,window", [
+    (4, 2, 64, 8, [37, 20, 9], 11),              # floors 26 (row 2), 9, 0
+    (32, 8, 128, 32, [n + 32 for n in MIXTRAL_LENS], 4096),
+])
+def test_paged_kernel_window_with_nan_below_the_floor(cuda, dtype, layout, h,
+                                                      kv, d, bs, lens,
+                                                      window):
+    """NaN in every row below each sequence's window floor, a floor inside
+    a page among them: the output is finite and bit-identical to the
+    kernel's on the finite pools (the window is applied as a select, not
+    an add), and matches the plain version; the window changes the
+    output."""
+    rng = np.random.default_rng(len(lens) + bs)
+    args = _paged_lens(rng, h, kv, d, bs, lens, dtype, layout, cuda)
+    stale = _stale_nan(args, bs, layout, window)
+    assert bool(torch.isnan(stale[1]).any())
+    got = ops.paged_attention(*stale, layout=layout, window=window)
+    fin = ops.paged_attention(*args, layout=layout, window=window)
+    want = ref.paged_attention_ref(*args, layout=layout, window=window)
+    full = ref.paged_attention_ref(*args, layout=layout)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, fin)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= ATOL[dtype]
+    assert (want.float() - full.float()).abs().max().item() >= 10 * err
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("pool_dt,canon_dt", [("float32", "float32"),
                                               ("bfloat16", "bfloat16"),

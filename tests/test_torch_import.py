@@ -142,8 +142,23 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
 
 
 def test_other_families_raise_not_implemented():
-    for kw in (dict(attention_kind="sliding", sliding_window=8),
-               dict(family="moe"), dict(attention_kind="mla")):
+    """Sliding window and MoE are ported; MLA, recurrent, SSM, enc-dec and
+    VLM are not, nor a "moe" family with no experts."""
+    for kw in (dict(family="moe"),
+               dict(attention_kind="mla",
+                    mla=dict(kv_lora_rank=32, qk_nope_head_dim=16,
+                             qk_rope_head_dim=8, v_head_dim=16)),
+               dict(family="hybrid", attention_kind="sliding",
+                    sliding_window=8,
+                    recurrent=dict(lru_width=64, d_conv=4,
+                                   block_pattern=("rglru", "rglru", "attn"))),
+               dict(family="ssm", attention_kind="none",
+                    ssm=dict(d_state=16, head_dim=16, expand=2, d_conv=4,
+                             chunk_size=4)),
+               dict(family="audio", encoder_layers=2,
+                    frontend=dict(kind="audio")),
+               dict(family="vlm", frontend=dict(kind="vision",
+                                                num_patches=4))):
         cfg = config_from_dict(dict(TINY, **kw))
         with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             TM.init_params(cfg, device="cpu")

@@ -1,4 +1,7 @@
-"""The port's dense model against the JAX package's, on the CPU in float32.
+"""The port's models against the JAX package's, on the CPU in float32:
+dense (with and without qkv bias and qk-norm), sliding window (window 8,
+so the 13-token prompt fills a ring cache), MoE (shared expert, one dense
+first layer) and a tiny Mixtral (sliding window and MoE together).
 
 Parameters come from the JAX ``init_params`` and cross through numpy
 (``params_from_numpy``). Logits agree within atol 1e-4: XLA's CPU einsum
@@ -23,15 +26,17 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving import paged_cache as TPC
 
 from conftest import TINY_FAMILIES
+from test_torch_families import MIXTRAL_TINY
 
 ATOL = 1e-4
-FAMILIES = ["dense", "dense-bias-qknorm"]
+CONFIGS = dict(TINY_FAMILIES, **{MIXTRAL_TINY.name: MIXTRAL_TINY})
+FAMILIES = ["dense", "dense-bias-qknorm", "sliding", "moe", MIXTRAL_TINY.name]
 PROMPT = 13
 
 
 @pytest.fixture(scope="module", params=FAMILIES)
 def pair(request):
-    jcfg = TINY_FAMILIES[request.param]
+    jcfg = CONFIGS[request.param]
     tcfg = config_from_dict(dataclasses.asdict(jcfg))
     jp = jax.jit(JM.init_params, static_argnums=1)(jax.random.key(0), jcfg)
     if jcfg.qkv_bias:          # the reference initialises biases to zero:
@@ -56,8 +61,16 @@ def test_params_carry_across(pair):
     np.testing.assert_array_equal(
         np.asarray(jp["groups"][0][0]["attn"]["wq"]),
         tp["groups"][0][0]["attn"]["wq"].numpy())
-    assert tp["groups"][0][0]["mlp"]["w_up"].shape == \
-        (jcfg.num_layers, jcfg.d_model, jcfg.d_ff)
+    for g, gp in zip(TM.block_groups(tcfg), tp["groups"]):
+        mlp = gp[0]["mlp"]
+        if g.moe:          # experts stacked per layer; the router in f32
+            e = jcfg.moe
+            assert mlp["w_up"].shape == (g.count, e.num_experts,
+                                         jcfg.d_model, e.d_ff_expert)
+            assert mlp["router"].dtype == torch.float32
+        else:
+            assert mlp["w_up"].shape == (g.count, jcfg.d_model, jcfg.d_ff)
+    assert sum(g.count for g in TM.block_groups(tcfg)) == jcfg.num_layers
 
 
 def test_prefill_logits_and_cache(pair):
@@ -68,10 +81,11 @@ def test_prefill_logits_and_cache(pair):
     tl, tc = TM.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)},
                         TM.init_caches(tcfg, 1, PROMPT, device="cpu"))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
-    np.testing.assert_allclose(tc[0][0].k.numpy(), np.asarray(jc[0][0].k),
-                               atol=ATOL)
-    np.testing.assert_array_equal(tc[0][0].pos.numpy(),
-                                  np.asarray(jc[0][0].pos))
+    for tg, jg in zip(tc, jc):         # a ring buffer for a sliding layer
+        np.testing.assert_allclose(tg[0].k.numpy(), np.asarray(jg[0].k),
+                                   atol=ATOL)
+        np.testing.assert_array_equal(tg[0].pos.numpy(),
+                                      np.asarray(jg[0].pos))
 
 
 def test_chunked_decode_step_logits(pair):
@@ -102,27 +116,32 @@ def _paged_setup(jcfg, tcfg, layout, bs=4, nblocks=16):
 
 def _greedy(pair, layout, steps):
     """Prefill, scatter the prompt KV into paged pools, then greedy paged
-    decode — in both packages. Returns per-step logits and tokens."""
+    decode — in both packages. Returns per-step logits and tokens. The
+    prefill caches are full-capacity (slot == position, also for a sliding
+    layer), so the pages hold the prompt in order and the paged decode
+    applies the window."""
     jcfg, tcfg, jp, tp = pair
     toks = _tokens(jcfg, PROMPT, seed=2)
     bs = 4
     js, jpool, ts, tpool = _paged_setup(jcfg, tcfg, layout, bs)
     jl, jc = JM.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)},
-                        JM.init_caches(jcfg, 1, PROMPT))
+                        JM.init_caches(jcfg, 1, PROMPT, full_capacity=True))
     tl, tc = TM.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)},
-                        TM.init_caches(tcfg, 1, PROMPT, device="cpu"))
+                        TM.init_caches(tcfg, 1, PROMPT, full_capacity=True,
+                                       device="cpu"))
     blocks = np.arange(1, 9, dtype=np.int32)          # block 0 = scratch
     nb = -(-PROMPT // bs)
-    for name, jname in (("k_pool", "k"), ("v_pool", "v")):
-        for li in range(jcfg.num_layers):
-            src = np.array(getattr(jc[0][0], jname)[li, 0])
-            jpool[0][0][name] = jpool[0][0][name].at[li].set(
-                JPC.scatter_sequence(js["kv"], jpool[0][0][name][li],
-                                     jnp.asarray(blocks[:nb]),
-                                     jnp.asarray(src)))
-            TPC.scatter_sequence(ts["kv"], tpool[0][0][name][li],
-                                 torch.from_numpy(blocks[:nb]),
-                                 torch.from_numpy(src))
+    for gi, g in enumerate(TM.block_groups(tcfg)):
+        for name, jname in (("k_pool", "k"), ("v_pool", "v")):
+            for li in range(g.count):
+                src = np.array(getattr(jc[gi][0], jname)[li, 0])
+                jpool[gi][0][name] = jpool[gi][0][name].at[li].set(
+                    JPC.scatter_sequence(js["kv"], jpool[gi][0][name][li],
+                                         jnp.asarray(blocks[:nb]),
+                                         jnp.asarray(src)))
+                TPC.scatter_sequence(ts["kv"], tpool[gi][0][name][li],
+                                     torch.from_numpy(blocks[:nb]),
+                                     torch.from_numpy(src))
     table = blocks[None]
     jdecode = jax.jit(lambda p, *a: JM.decode_step_paged(p, jcfg, *a, js))
     jtok = int(np.argmax(np.asarray(jl)[0]))
@@ -157,14 +176,15 @@ def test_paged_decode_logits_and_16_greedy_tokens(pair, layout):
 @pytest.mark.parametrize("layout", ["nbhd", "nhbd", "nhdb"])
 def test_kernel_route_matches_plain_route(pair, layout, monkeypatch):
     """The CUDA route's argument plumbing, run through the kernels' plain
-    versions on the CPU: flash with q_offset/kv_len over a full-capacity
-    cache, paged attention over every pool layout."""
+    versions on the CPU: flash with q_offset/kv_len (and the window) over a
+    full-capacity cache, paged attention over every pool layout."""
     _, tcfg, _, tp = pair
     toks = torch.from_numpy(_tokens(tcfg, PROMPT, seed=3))
 
     def run():
         tl, tc = TM.prefill(tp, tcfg, {"tokens": toks},
-                            TM.init_caches(tcfg, 1, PROMPT, device="cpu"))
+                            TM.init_caches(tcfg, 1, PROMPT,
+                                           full_capacity=True, device="cpu"))
         dense = TM.init_caches(tcfg, 1, 16, full_capacity=True, device="cpu")
         TM.decode_step(tp, tcfg, toks[:, :8], torch.arange(8)[None], dense,
                        q_offset=0)
@@ -173,10 +193,12 @@ def test_kernel_route_matches_plain_route(pair, layout, monkeypatch):
         spec = TPC.KVPageSpec(4, layout, "float32", tcfg.num_kv_heads, tcfg.hd)
         pools = TM.init_paged_caches(tcfg, {"kv": spec}, 8, device="cpu")
         ids = torch.arange(1, 5, dtype=torch.int32)
-        for name, src in (("k_pool", tc[0][0].k), ("v_pool", tc[0][0].v)):
-            for li in range(tcfg.num_layers):
-                TPC.scatter_sequence(spec, pools[0][0][name][li], ids,
-                                     src[li, 0])
+        for gi, g in enumerate(TM.block_groups(tcfg)):
+            for name, src in (("k_pool", tc[gi][0].k),
+                              ("v_pool", tc[gi][0].v)):
+                for li in range(g.count):
+                    TPC.scatter_sequence(spec, pools[gi][0][name][li], ids,
+                                         src[li, 0])
         dl, _ = TM.decode_step_paged(
             tp, tcfg, toks[:, :1], torch.tensor([PROMPT], dtype=torch.int32),
             torch.arange(1, 6, dtype=torch.int32)[None],
