@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, then runs seven phases, each printing JSON lines:
+nvcc, then runs eight phases, each printing JSON lines:
 
   0. card: name and power limit (``nvidia-smi``), kernel build time, and
      the count of HGMMA (wgmma), UTMALDG (TMA load), SYNCS (mbarrier),
@@ -32,7 +32,14 @@ nvcc, then runs seven phases, each printing JSON lines:
      q_offset 7500 under a 4096-token window, and decode over phase 6's
      eight sequences with NaN in every stale row below each floor, whose
      output must be finite, equal to that over finite pools, and moved by
-     the window at least 10 times the kernel's error),
+     the window at least 10 times the kernel's error; and every kernel of
+     phase 7 at its MLA shapes: flash with q and k 192 wide and v 128 —
+     small shapes with dv < dk, then the last 500-token chunk of an
+     8192-token prompt, bf16 against the yardstick and float32 within
+     2e-5 —, the gather of phase 7's decode table and the overlay of a
+     500-row chunk into both latent pools (512 and 64 wide), bit-identical
+     to the plain versions and to ``index_select`` / ``index_copy_``, and
+     the prefix cache's copy of a latent page),
      its plain version's time, a library
      call's time where one computes the same function, and the least time
      the card could take (bytes over 3.35 TB/s or operations over the
@@ -89,11 +96,24 @@ nvcc, then runs seven phases, each printing JSON lines:
      prefill's expert choices (``moe_first_token_yardstick``: top-k
      routing is discrete, so float32 on its own routing is printed beside
      it, with where the choices differ). It prints the window's effect on
-     the last logits of the 8192-token prompt, an observation.
+     the last logits of the 8192-token prompt, an observation;
+  7. MLA and MoE: DeepSeek-V2-Lite at full width and all 27 layers (16
+     heads, latent 512, q/k 192 and v 128 wide, 64 experts top 6 with 2
+     shared, a dense first layer), bf16, random weights from the seed,
+     served as in phase 3 to phase 6's eight prompts. Exactly flash (every
+     prefill chunk, the latent expanded to dk 192 / dv 128), the overlay
+     (the latent wire into the D engine's two latent pools) and gather
+     (each decode step's latent pages) must launch; the wire must carry
+     exactly the latent's bytes (31,104 a token) plus the headers the
+     codec adds; the last-token check of phase 3 and the float32
+     first-token check on the bf16 prefill's expert choices hold. It
+     prints the latent's bytes per token beside expanded K and V's.
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
-processes report at shutdown).
+processes report at shutdown). The kernels line gives each kernel's
+launches on every serving phase, and its timing at phase 7's MLA shape
+(``"mla"``) where phase 7 runs it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the script exits non-zero. Without a CUDA device, or without
@@ -160,6 +180,12 @@ HOST_STORE_BYTES = 4 << 30   # P's host prefix store (host memory)
 # inside it.
 MODEL6, LAYERS6 = "mixtral-8x7b", 24
 PHASE6_PROMPTS = (8192, 7000, 6100, 5000, 4600, 4097, 3000, 2048)
+# phase 7: MLA + MoE, DeepSeek-V2-Lite at full width and all 27 layers
+# (16.2 B parameters, 30.2 GiB in bf16: it fits the card with no cut),
+# phase 6's prompts. The latent ships 27 x (512 + 64) x 2 = 31,104 bytes a
+# token; expanded per-head K and V would be 27 x 2 x 16 x 128 x 2 = 221,184
+MODEL7 = "deepseek-v2-lite-16b"
+PHASE7_KERNELS = ("flash_attention", "gather_pages", "scatter_pages_overlay")
 
 
 def emit(obj) -> None:
@@ -409,18 +435,20 @@ def _check(what, got, want, dtype, main):
 
 
 def _flash_case(gen, dev, dtype, b, h, kv, sq, skv, d, window, q_offset,
-                main=False):
+                main=False, dv=None):
     """flash against its plain version; at a main-path shape in bfloat16,
-    against the yardstick (see FLASH_VS_SDPA). Returns (max abs error,
+    against the yardstick (see FLASH_VS_SDPA). ``dv``: v's head dim where
+    it differs from q's and k's ``d`` (MLA). Returns (max abs error,
     inputs, the yardstick's numbers or None)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     dt = getattr(torch, dtype)
+    dv = d if dv is None else dv
     q = _rand(gen, (b, h, sq, d), dt, dev)
     k = _rand(gen, (b, kv, skv, d), dt, dev)
-    v = _rand(gen, (b, kv, skv, d), dt, dev)
-    what = (f"flash {dtype} {(b, h, kv, sq, skv, d)} window={window} "
+    v = _rand(gen, (b, kv, skv, dv), dt, dev)
+    what = (f"flash {dtype} {(b, h, kv, sq, skv, d, dv)} window={window} "
             f"q_offset={q_offset}")
     got = ops.flash_attention(q, k, v, window=window, q_offset=q_offset)
     if not (main and dtype == "bfloat16"):
@@ -970,12 +998,178 @@ def phase1(dev):
               "bound_ms": p_ms, "bound_by": p_by})
         del a
     phase1_windowed(gen, dev)
+    mla = phase1_mla(gen, dev)
     timings["scatter_pages_overlay"] = phase1_overlay(gen, dev)
     from repro_torch.configs import get_config
     timings.update(phase1_pages(gen, dev, get_config(MODEL)))
     for name, t in timings.items():
         emit({"phase": 1, "timing": name, **t})
+    for name, t in mla.items():
+        timings[name]["mla"] = t
     return timings
+
+
+def phase1_mla(gen, dev):
+    """The kernels at phase 7's MLA shapes (DeepSeek-V2-Lite: 16 heads, q
+    and k 192 wide = 128 nope + 64 rope, v 128; latent pools of one KV
+    "head" of 512 and of 64; 27 layers), in bf16. flash: the JAX sweep's
+    small shapes with dv < dk against the plain version, then the last
+    500-token chunk of the 8192-token prompt (q_offset 7692) in bf16,
+    against the yardstick, and in float32 within 2e-5; gather: phase 7's
+    last decode table (8 sequences, 257 columns) from both pools; overlay:
+    a 500-row chunk of 27 layers landing at row 20 of a page, into both
+    pools, bit-identical to the plain version and to ``index_copy_``;
+    repack: the prefix cache's copy of one page of 27 layers, in place.
+    Returns each kernel's timing at these shapes, keyed by kernel name."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving.paged_cache import KVPageSpec
+    h, dk, dv, layers, bs = 16, 192, 128, 27, 32
+    n_small = 0
+    for dtype in ("float32", "bfloat16"):
+        for b, hh, kv, sq, skv, d, dvv, q_off in [
+                (1, 4, 4, 16, 16, 32, 16, 0), (2, 8, 2, 24, 48, 64, 32, 0),
+                (1, 4, 1, 7, 133, 192, 128, 0),
+                (1, 8, 8, 100, 300, 192, 128, 200)]:
+            for window in (0, 9):
+                _flash_case(gen, dev, dtype, b, hh, kv, sq, skv, d, window,
+                            q_off, dv=dvv)
+                n_small += 1
+    out = {}
+    c0, sq, skv = 7692, 500, 8192
+    pairs = sq * c0 + sq * (sq + 1) // 2
+    flops = 2.0 * pairs * (dk + dv) * h
+    for dtype in ("bfloat16", "float32"):
+        err, (q, k, v), yard = _flash_case(gen, dev, dtype, 1, h, h, sq, skv,
+                                           dk, 0, c0, main=True, dv=dv)
+        size = 2 if dtype == "bfloat16" else 4
+        nbytes = size * (sq * h * dk + skv * h * (dk + dv) + sq * h * dv)
+        b_ms, b_by = bound(flops, nbytes, dtype)
+        mask = flash_mask(sq, skv, c0, 0, dev)
+        row = dict(shape=f"q(1,{h},{sq},{dk}) k(1,{h},{skv},{dk}) "
+                         f"v(1,{h},{skv},{dv}) q_offset={c0} kv_len={skv} "
+                         f"{dtype}",
+                   max_abs_err=err, yardstick=yard,
+                   **time_all(lambda: ops.flash_attention(q, k, v,
+                                                          q_offset=c0),
+                              plain=lambda: ref.flash_attention_ref(
+                                  q, k, v, q_offset=c0),
+                              library=lambda: F.scaled_dot_product_attention(
+                                  q, k, v, attn_mask=mask)),
+                   bound_ms=b_ms, bound_by=b_by)
+        emit({"phase": 1, "extra": f"flash_attention, MLA chunk, {dtype}",
+              **row})
+        out.setdefault("flash_attention", row)
+        del q, k, v, mask
+    # the decode table of phase 7's last step: each sequence's pages, the
+    # scratch page past them, 257 columns gathered
+    lens = [n + MAX_NEW for n in PHASE6_PROMPTS]
+    width = -(-max(lens) // bs)
+    n_blocks = sum(-(-n // bs) for n in lens) + 1
+    order = torch.randperm(n_blocks - 1, generator=gen,
+                           device=dev).to(torch.int32) + 1
+    table = torch.zeros((len(lens), width), dtype=torch.int32, device=dev)
+    at = 0
+    for i, n in enumerate(lens):
+        nb = -(-n // bs)
+        table[i, :nb] = order[at:at + nb]
+        at += nb
+    ids = table.reshape(-1).contiguous()
+    ids_long = ids.long()
+    for hd in (512, 64):
+        spec = KVPageSpec(bs, "nbhd", "bfloat16", 1, hd)
+        pool = _rand(gen, (1,) + spec.pool_shape(n_blocks), torch.bfloat16,
+                     dev)
+        got = ops.gather_pages(spec, pool, ids)
+        want = ref.gather_pages_ref(spec, pool, ids)
+        lib = pool.index_select(1, ids_long)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, lib)):
+            raise AssertionError(f"gather of the MLA decode table, hd {hd}: "
+                                 "differs from its plain version or "
+                                 "index_select")
+        b_ms, b_by = bound(0.0, 2.0 * 2 * ids.numel() * bs * hd, "bfloat16")
+        row = dict(shape=f"{ids.numel()} pages ({len(lens)} seqs x {width} "
+                         f"columns) of pool (1,{n_blocks},{bs},1,{hd}) nbhd "
+                         "bf16", max_abs_err=0.0, bit_identical=True,
+                   **time_all(lambda: ops.gather_pages(spec, pool, ids),
+                              plain=lambda: ref.gather_pages_ref(spec, pool,
+                                                                 ids),
+                              library=lambda: pool.index_select(1, ids_long)),
+                   bound_ms=b_ms, bound_by=b_by)
+        emit({"phase": 1, "extra": f"gather_pages, MLA decode table, hd {hd}",
+              **row})
+        out.setdefault("gather_pages", row)
+        del pool, got, want, lib
+    # a 500-row chunk of 27 layers at row 20 of a page, both latent pools
+    front, s_rows = 20, 500
+    for hd in (512, 64):
+        _, (spec, pool, pids, canon) = _overlay_case(
+            gen, dev, "nbhd", "bfloat16", "bfloat16", layers, bs, 1, hd,
+            front, s_rows, True)
+        r = torch.arange(front, front + s_rows, device=dev)
+        rows = pids.long()[r // bs] * bs + r % bs
+        flat = pool.view(layers, -1, hd)
+        src = canon.view(layers, s_rows, hd)
+        fresh = _rand(gen, tuple(pool.shape), pool.dtype, dev)
+        got = ops.scatter_pages_overlay(spec, fresh.clone(), pids, canon,
+                                        front=front, seq_len=s_rows)
+        lib = fresh.view(layers, -1, hd).index_copy_(1, rows, src)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(layers, -1, hd), lib):
+            raise AssertionError(f"overlay into the latent pool hd {hd} "
+                                 "differs from index_copy_")
+        del fresh, got, lib
+        b_ms, b_by = bound(0.0, 2.0 * 2 * layers * s_rows * hd, "bfloat16")
+        row = dict(shape=f"rows ({layers},{s_rows},1,{hd}) into pool "
+                         f"({layers},N,{bs},1,{hd}) nbhd bf16, front {front}",
+                   max_abs_err=0.0, library_bit_identical=True,
+                   **time_all(lambda: ops.scatter_pages_overlay(
+                                  spec, pool, pids, canon, front=front,
+                                  seq_len=s_rows),
+                              plain=lambda: ref.scatter_pages_overlay_ref(
+                                  spec, pool, pids, canon, front=front,
+                                  seq_len=s_rows),
+                              library=lambda: flat.index_copy_(1, rows, src)),
+                   bound_ms=b_ms, bound_by=b_by)
+        emit({"phase": 1, "extra": f"scatter_pages_overlay, MLA chunk, "
+                                   f"hd {hd}", **row})
+        out.setdefault("scatter_pages_overlay", row)
+        del pool, canon, flat, src
+    # the prefix cache's copy-on-write of one page of 27 layers, in place
+    for hd in (512, 64):
+        spec = KVPageSpec(bs, "nbhd", "bfloat16", 1, hd)
+        pool = _rand(gen, (layers,) + spec.pool_shape(9), torch.bfloat16, dev)
+        pair = torch.tensor([6, 2], dtype=torch.int32, device=dev)
+        want = ref.repack_ref(spec, spec, pool, pair[:1], pool.clone(),
+                              pair[1:], bs)
+        ops.repack(spec, spec, pool, pair[:1], pool, pair[1:], bs)
+        torch.cuda.synchronize()
+        if not torch.equal(pool, want):
+            raise AssertionError(f"repack of a latent page, hd {hd}: differs "
+                                 "from its plain version")
+        src_l, dst_l = pair[:1].long(), pair[1:].long()
+        b_ms, b_by = bound(0.0, 2.0 * 2 * layers * bs * hd, "bfloat16")
+        row = dict(shape=f"COW: page 6 -> page 2 of pool ({layers},9,{bs},1,"
+                         f"{hd}) nbhd bf16, in place", max_abs_err=0.0,
+                   **time_all(lambda: ops.repack(spec, spec, pool, pair[:1],
+                                                 pool, pair[1:], bs),
+                              plain=lambda: ref.repack_ref(
+                                  spec, spec, pool, pair[:1], pool, pair[1:],
+                                  bs),
+                              library=lambda: pool.index_copy_(
+                                  1, dst_l, pool.index_select(1, src_l)),
+                              plain_iters=20),
+                   bound_ms=b_ms, bound_by=b_by)
+        emit({"phase": 1, "extra": f"repack, MLA latent page, hd {hd}",
+              **row})
+        out.setdefault("repack", row)
+        del pool
+    emit({"phase": 1, "mla_checks": {"flash_small_dv": n_small,
+                                     "flash_chunk": 2, "gather": 2,
+                                     "overlay": 2, "repack": 2}})
+    return out
 
 
 def stale_nan(args, bs, window):
@@ -1276,14 +1470,15 @@ def moe_first_token_yardstick(cfg, params, dev, prompts, reqs):
     the bf16 one, and the widest float32 router margin among those
     disagreements are printed beside it. The weights stay bf16: each
     product casts its weight to float32 at the call, one weight at a time
-    (a float32 copy of 24 Mixtral layers would be 139 GB)."""
+    (a float32 copy of 24 Mixtral layers would be 139 GB). Attention is the
+    model's own (``M.attention_full``: windowed GQA, or MLA through flash
+    at dk 192, the float32 kernel for the float32 prefills)."""
     import numpy as np
     import torch
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
     cfgs = (cfg, cfg32, cfg32)
-    win = M._window(cfg)
     rows = []
     for prompt, r in zip(prompts, reqs):
         toks = torch.as_tensor(np.asarray(prompt, np.int32), device=dev)[None]
@@ -1294,7 +1489,7 @@ def moe_first_token_yardstick(cfg, params, dev, prompts, reqs):
             hs = []
             for j, c in enumerate(cfgs):
                 h = L.rms_norm(p["norm1"], xs[j], c.norm_eps)
-                out, _ = L.attention_block(p["attn"], c, h, pos, window=win)
+                out, _ = M.attention_full(p["attn"], c, h, pos)
                 xs[j] = xs[j] + out
                 hs.append(L.rms_norm(p["norm2"], xs[j], c.norm_eps)[0])
             if not g.moe:
@@ -1869,6 +2064,148 @@ def phase6(dev, around_serve=contextlib.nullcontext):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 7: MLA + MoE (DeepSeek-V2-Lite) at full width and depth
+# --------------------------------------------------------------------------- #
+def phase7(dev, around_serve=contextlib.nullcontext):
+    """DeepSeek-V2-Lite at full width and all 27 layers, bf16, random
+    weights from SEED, served as phase 3 serves llama2-7b to phase 6's
+    prompts: prefill and every chunk through flash at dk 192 / dv 128, the
+    latent wire (``"mla"`` entries) re-paged by the overlay into the D
+    engine's two latent pools, and each decode step's latent pages
+    gathered by the gather kernel. ``around_serve`` as in ``phase3``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.compat.precision import WireFormat
+    from repro_torch.core.disagg import DisaggPipeline
+    from repro_torch.core.kv_transfer import TransferEngine
+    from repro_torch.core.transport.wirefmt import WireChunk
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, VendorProfile
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import GlobalScheduler
+    from repro_torch.serving.server import Server
+
+    cfg = get_config(MODEL7)
+    m = cfg.mla
+    p_vendor, d_vendor = VendorProfile(**P_VENDOR), VendorProfile(**D_VENDOR)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    params_gib = torch.cuda.memory_allocated() / 2 ** 30
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(f"req{i}", rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), MAX_NEW)
+            for i, n in enumerate(PHASE6_PROMPTS)]
+    prompts = [r.prompt.copy() for r in reqs]
+    max_seq = max(PHASE6_PROMPTS) + MAX_NEW
+    bs = d_vendor.block_size
+    d_blocks = sum(-(-(n + MAX_NEW) // bs) for n in PHASE6_PROMPTS) + 1
+    p_eng = Engine("P0", cfg, params, p_vendor, num_blocks=2, max_batch=1,
+                   max_seq_len=max_seq, role="prefill", device=dev)
+    d_eng = Engine("D0", cfg, params, d_vendor, num_blocks=d_blocks,
+                   max_batch=len(reqs), max_seq_len=max_seq, role="decode",
+                   device=dev)
+    wire = WireFormat("raw", "bfloat16")
+    pipe = DisaggPipeline(TransferEngine(), wire)
+    sched = GlobalScheduler(pipe, prefill_chunk=PREFILL_CHUNK, device=dev)
+    sched.add_instance(p_eng)
+    sched.add_instance(d_eng)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()                      # count this path only
+    with around_serve():
+        result = Server(sched).serve(reqs, max_ticks=100_000)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    check_outputs(cfg, reqs)
+    check_launched(7, launches, PHASE7_KERNELS)
+    # the wire: every position of every prompt as latent rows, 500-token
+    # chunks, two "mla" entries a chunk (the dense first layer, the 26 MoE
+    # layers), each of two parts; the headers are what the codec adds
+    groups = M.block_groups(cfg)
+    per_token = cfg.num_layers * (m.kv_lora_rank + m.qk_rope_head_dim) * 2
+    expanded = cfg.num_layers * 2 * cfg.num_heads * m.v_head_dim * 2
+
+    def chunk_nbytes(start, length):
+        ents = [("mla", gi, 0, {
+            "ckv": torch.empty((g.count, length, m.kv_lora_rank),
+                               dtype=torch.bfloat16, device="meta"),
+            "kpe": torch.empty((g.count, length, m.qk_rope_head_dim),
+                               dtype=torch.bfloat16, device="meta"),
+            "start": start}) for gi, g in enumerate(groups)]
+        return WireChunk.from_entries(ents, wire, p_vendor.tp,
+                                      seq_len=length).nbytes
+
+    chunks = [(c0, min(PREFILL_CHUNK, n - c0)) for n in PHASE6_PROMPTS
+              for c0 in range(0, n, PREFILL_CHUNK)]
+    want_payload = sum(PHASE6_PROMPTS) * per_token
+    want_bytes = sum(chunk_nbytes(*c) for c in chunks)
+    st = pipe.transfer.stats
+    if st.payload_bytes != want_payload or st.bytes_moved != want_bytes:
+        raise AssertionError(f"phase 7: wire payload {st.payload_bytes} / "
+                             f"bytes {st.bytes_moved}, the latent says "
+                             f"{want_payload} / {want_bytes}")
+    if sched.stats.chunks_streamed != len(chunks):
+        raise AssertionError(f"phase 7: {sched.stats.chunks_streamed} chunks "
+                             f"streamed, {len(chunks)} expected")
+    worst = last_token_gap(cfg, params, dev, reqs)
+    yard = moe_first_token_yardstick(cfg, params, dev, prompts, reqs)
+    peak_all = torch.cuda.max_memory_allocated() / 2 ** 30
+    ttft, tpot = result.ttft(), result.tpot()
+    out = {"phase": 7, "model": cfg.name, "layers": cfg.num_layers,
+           "dtype": cfg.compute_dtype, "heads": cfg.num_heads,
+           "kv_lora_rank": m.kv_lora_rank,
+           "qk_head_dim": m.qk_nope_head_dim + m.qk_rope_head_dim,
+           "v_head_dim": m.v_head_dim, "experts": cfg.moe.num_experts,
+           "top_k": cfg.moe.top_k, "shared": cfg.moe.num_shared_experts,
+           "params_b": cfg.param_count() / 1e9,
+           "requests": len(reqs), "prompt_lens": list(PHASE6_PROMPTS),
+           "max_new_tokens": MAX_NEW, "prefill_chunk": PREFILL_CHUNK,
+           "p_vendor": dataclasses.asdict(p_vendor),
+           "d_vendor": dataclasses.asdict(d_vendor),
+           "ttft_p50_s": float(np.percentile(ttft, 50)),
+           "ttft_max_s": float(ttft.max()),
+           "tpot_p50_s": float(np.percentile(tpot, 50)),
+           "output_tok_s": result.throughput_tok_s(),
+           "wall_s": result.wall_seconds, "setup_s": setup_s,
+           "params_gib": params_gib, "peak_mem_gib": peak,
+           "peak_mem_gib_with_checks": peak_all,
+           "launches": launches,
+           "prefill_tokens": p_eng.stats.prefill_tokens,
+           "prefill_chunks": p_eng.stats.prefill_chunks,
+           "prefill_s": p_eng.stats.prefill_seconds,
+           "p_ms_per_chunk": 1e3 * p_eng.stats.prefill_seconds
+               / max(p_eng.stats.prefill_chunks, 1),
+           "decode_steps": d_eng.stats.decode_steps,
+           "decode_s": d_eng.stats.decode_seconds,
+           "d_ms_per_step": 1e3 * d_eng.stats.decode_seconds
+               / max(d_eng.stats.decode_steps, 1),
+           "chunks_streamed": sched.stats.chunks_streamed,
+           "wire_bytes": st.bytes_moved, "wire_payload_bytes": st.payload_bytes,
+           "wire_header_bytes": st.bytes_moved - st.payload_bytes,
+           "wire_handoff_s": st.wall_handoff_seconds,
+           "latent_bytes_per_token": per_token,
+           "expanded_kv_bytes_per_token": expanded,
+           "tokens_sha256": tokens_digest(reqs),
+           "last_token_logit_gap_max": worst,
+           "first_token_gap_f32_max": max(y["gap"] for y in yard),
+           "first_token_gap_f32_own_routing_max":
+               max(y["gap_own_routing"] for y in yard),
+           "last_logits_bf16_vs_f32_max_abs":
+               max(y["bf16_vs_f32_max_abs"] for y in yard),
+           "first_token_yardstick": yard}
+    emit(out)
+    return out
+
+
+# (name, source, TPU kernel, the phase whose launches the row reports);
+# every row also carries its launches on every serving phase
 KERNELS = [
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
      "src/repro/kernels/flash_attention.py:78", 3),
@@ -1921,6 +2258,9 @@ def main() -> int:
     gc.collect()                         # engines and pools of phases 3-4
     torch.cuda.empty_cache()             # sit in reference cycles
     paths[6] = phase6(dev)
+    gc.collect()                         # Mixtral's weights: DeepSeek's turn
+    torch.cuda.empty_cache()
+    paths[7] = phase7(dev)
 
     rows = []
     for name, source, replaces, phase in KERNELS:
@@ -1933,7 +2273,14 @@ def main() -> int:
                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                "device_ms": t["device_ms"],
                "library_device_ms": t["library_device_ms"],
-               "device_method": t["device_method"], "host_us": t["host_us"]}
+               "device_method": t["device_method"], "host_us": t["host_us"],
+               "launches_by_phase": {ph: paths[ph]["launches"][name]
+                                     for ph in sorted(paths)}}
+        if "mla" in t:                   # the same kernel at phase 7's shape
+            row["mla"] = {k: t["mla"][k] for k in (
+                "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                "library_ms", "library_device_ms", "bound_ms", "bound_by",
+                "host_us")}
         if name == "repack":
             row["composition"] = "gather_pages + scatter_pages"
         rows.append(row)

@@ -16,6 +16,11 @@ layout. Two handoff shapes share one encode/re-page core:
     D never cross the wire (``TransferStats.prefix_hit_tokens``,
     ``bytes_saved``).
 
+An MLA model ships its latent cache: ``"mla"`` entries of ``ckv``/``kpe``
+rows, rank 0's copy only (the latent is replicated across TP ranks), each
+re-paged into its own pool (``ckv_pool``, ``kpe_pool``) by
+``_repage_mla_part``.
+
 A sliding-window stream starts at its window floor, which may lie inside
 one of D's pages: its first chunk lands ``front = start % block_size`` rows
 into that page. The streamed re-page keeps the page's rows below the floor
@@ -100,6 +105,23 @@ def _repage_kv_entry(spec: PC.KVPageSpec, k_pool: torch.Tensor,
     _repage_pool(spec, v_pool, block_ids, v_d, lo_block, front=front, rmw=rmw)
 
 
+def _repage_mla_part(spec: PC.KVPageSpec, pool: torch.Tensor,
+                     block_ids: torch.Tensor, pay: torch.Tensor,
+                     sc: Optional[torch.Tensor], lo_block: int, *,
+                     wire: WireFormat, count: int, front: int,
+                     rmw: bool) -> None:
+    """One part of an ``"mla"`` entry — rows (count·S, 1, dim) of ``ckv``
+    or ``kpe`` — decoded and overlaid into its latent pool in place (one
+    KV "head"). A raw wire keeps its dtype and int8 decodes to float32;
+    the overlay kernel makes the one cast to the pool dtype."""
+    sc_t = None if sc is None else sc.reshape(pay.shape[0], 1, 1)
+    dec = precision.decode_wire(pay, sc_t, wire, pay.dtype
+                                if wire.kind == "raw" else torch.float32)
+    _repage_pool(spec, pool, block_ids,
+                 dec.reshape(count, -1, 1, spec.head_dim), lo_block,
+                 front=front, rmw=rmw)
+
+
 class DisaggPipeline:
     def __init__(self, transfer: KVConnector,
                  wire: Optional[WireFormat] = None):
@@ -132,18 +154,31 @@ class DisaggPipeline:
                 "only fixed-codec wire chunks re-page in the port (the "
                 "ported families carry no state or cross-attention tail)")
         dev = d_engine.device
-        spec = d_engine.specs["kv"]
         bids = torch.from_numpy(np.asarray(block_ids, np.int32)).to(dev)
+
+        def host(arr, name):   # copy out of the wire buffer, then to dev
+            return precision.host_tensor(np.array(arr), name).to(dev)
+
         for entry in payload.entries():
             count, start = entry["count"], entry["start"]
-            # copy out of the wire buffer before the host→device move
-            pay = precision.host_tensor(np.array(entry["payload"]),
-                                        entry["dtype"]).to(dev)
-            sc = entry["scales"]
-            sc = None if sc is None else torch.from_numpy(np.array(sc)).to(dev)
             pools = d_engine.caches[entry["gi"]][entry["pi"]]
+            if entry["kind"] == "mla":
+                for pay, sc, name in zip(entry["payloads"], entry["scales"],
+                                         ("ckv", "kpe")):
+                    spec = d_engine.specs[name]
+                    _repage_mla_part(
+                        spec, pools[name + "_pool"], bids,
+                        host(pay, entry["dtype"]),
+                        None if sc is None else host(sc, "float32"),
+                        start // spec.block_size, wire=payload.wire,
+                        count=count, front=start % spec.block_size, rmw=rmw)
+                continue
+            spec = d_engine.specs["kv"]
+            sc = entry["scales"]
             _repage_kv_entry(spec, pools["k_pool"], pools["v_pool"], bids,
-                             pay, sc, start // spec.block_size,
+                             host(entry["payload"], entry["dtype"]),
+                             None if sc is None else host(sc, "float32"),
+                             start // spec.block_size,
                              wire=payload.wire, tp_p=entry["tp_p"],
                              tp_d=d_engine.vendor.tp, count=count,
                              front=start % spec.block_size, rmw=rmw)

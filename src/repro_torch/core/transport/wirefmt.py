@@ -13,6 +13,10 @@ package's layout:
     slab 0' fp32 scales (int8 wire only)
     …
 
+An ``"mla"`` entry (the latent cache, replicated across TP ranks, so
+only rank 0's copy ships) has two parts, ``ckv`` then ``kpe``, each a
+slab of (count·S, 1, dim) rows with its own scales under int8.
+
 A *planned* chunk (P side) holds the source KV tensors, which may live on
 the card; ``write_into(buf)`` casts or quantizes them in torch and copies
 them device→host straight into the buffer through typed views. A *bound*
@@ -126,30 +130,45 @@ class WireChunk:
                                                         Dict[str, Any]]],
                      wire: WireFormat, tp_p: int,
                      seq_len: int = 0) -> "WireChunk":
-        """Normalized chunk entries ``("kv", gi, pi, ent)`` with ``k``/``v``
-        tensors of (count, S, kv_heads, hd) → planned chunk. The slab plan
-        is computed here; no KV bytes move until ``write_into``."""
+        """Normalized chunk entries ``(kind, gi, pi, ent)`` → planned
+        chunk: ``"kv"`` entries carry ``k``/``v`` tensors of (count, S,
+        kv_heads, hd), ``"mla"`` entries ``ckv``/``kpe`` of (count, S,
+        dim). The slab plan is computed here; no KV bytes move until
+        ``write_into``."""
         pname = precision.payload_name(wire)
         int8 = wire.kind == "int8"
         entries: List[_Entry] = []
         payload_bytes = 0
-        off = _align(_PRELUDE.size + len(chunk_entries)
-                     * (_ENTRY.size + _PART.size))
-        for kind, gi, pi, ent in chunk_entries:
-            if kind != "kv":
-                raise NotImplementedError(
-                    f"wire entry kind {kind!r} is not ported (ROADMAP queue "
-                    "1 item 7: MLA latent wire)")
-            k, v = ent["k"], ent["v"]
-            count, s, kv_heads, hd = k.shape
-            assert kv_heads % tp_p == 0, (kv_heads, tp_p)
-            payload_bytes += _nbytes(k) + _nbytes(v)
-            shape = (2 * tp_p, count, s, kv_heads // tp_p, hd)
+        n_parts = sum(2 if kind == "mla" else 1
+                      for kind, _gi, _pi, _ent in chunk_entries)
+        off = _align(_PRELUDE.size + len(chunk_entries) * _ENTRY.size
+                     + n_parts * _PART.size)
+
+        def plan(shape) -> _Part:
+            nonlocal off
             p = _Part(pname, shape, off, _NO_SCALES)
             off = _align(off + p.payload_nbytes)
             if int8:
                 p.scales_off = off
                 off = _align(off + p.scales_count * 4)
+            return p
+
+        for kind, gi, pi, ent in chunk_entries:
+            if kind == "mla":
+                ckv, kpe = ent["ckv"], ent["kpe"]
+                count, s = ckv.shape[0], ckv.shape[1]
+                payload_bytes += _nbytes(ckv) + _nbytes(kpe)
+                parts = [plan((count * s, 1, t.shape[-1])) for t in (ckv, kpe)]
+                entries.append(_Entry("mla", gi, pi, ent["start"], count, s,
+                                      parts, {"ckv": ckv, "kpe": kpe}))
+                continue
+            if kind != "kv":
+                raise NotImplementedError(f"wire entry kind {kind!r}")
+            k, v = ent["k"], ent["v"]
+            count, s, kv_heads, hd = k.shape
+            assert kv_heads % tp_p == 0, (kv_heads, tp_p)
+            payload_bytes += _nbytes(k) + _nbytes(v)
+            p = plan((2 * tp_p, count, s, kv_heads // tp_p, hd))
             entries.append(_Entry("kv", gi, pi, ent["start"], count, s,
                                   [p], {"k": k, "v": v}))
         header = cls._pack_header(wire, tp_p, seq_len, entries,
@@ -241,6 +260,10 @@ class WireChunk:
         mv = memoryview(buf)
         mv[:len(self._header)] = self._header
         for e in self._entries:
+            if e.kind == "mla":
+                for p, name in zip(e.parts, ("ckv", "kpe")):
+                    self._encode_part(mv, p, e.src[name].reshape(p.shape))
+                continue
             (p,) = e.parts
             n_sh, count, s, kvs, hd = p.shape
             tp = n_sh // 2
@@ -248,17 +271,26 @@ class WireChunk:
             # the same contiguous head split np.split(axis=2) produces
             k = e.src["k"].reshape(count, s, tp, kvs, hd).movedim(2, 0)
             v = e.src["v"].reshape(count, s, tp, kvs, hd).movedim(2, 0)
-            dst = precision.host_tensor(self._np_view(mv, p), p.name)
             if self.wire.kind == "raw":
+                dst = precision.host_tensor(self._np_view(mv, p), p.name)
                 dst[:tp].copy_(k)
                 dst[tp:].copy_(v)
-                continue
-            scales = torch.from_numpy(np.frombuffer(
-                mv, dtype=np.float32, count=p.scales_count,
-                offset=p.scales_off))
-            precision.encode_wire_into(
-                torch.cat([k, v], dim=0), self.wire, dst,
-                scales.reshape(p.shape[:-1] + (1,)))
+            else:
+                self._encode_part(mv, p, torch.cat([k, v], dim=0))
+
+    def _encode_part(self, mv: memoryview, p: _Part,
+                     src: torch.Tensor) -> None:
+        """Cast or quantize ``src`` (p.shape, on any device) into part
+        ``p``'s slab (and its scales under int8)."""
+        dst = precision.host_tensor(self._np_view(mv, p), p.name)
+        if self.wire.kind == "raw":
+            dst.copy_(src)
+            return
+        scales = torch.from_numpy(np.frombuffer(
+            mv, dtype=np.float32, count=p.scales_count,
+            offset=p.scales_off))
+        precision.encode_wire_into(src, self.wire, dst,
+                                   scales.reshape(p.shape[:-1] + (1,)))
 
     @staticmethod
     def _np_view(mv: memoryview, p: _Part) -> np.ndarray:
@@ -279,20 +311,33 @@ class WireChunk:
     # -- D side: zero-copy entry views ------------------------------------ #
     def entries(self) -> List[Dict[str, Any]]:
         """Entry descriptors with numpy views over the backing buffer (no
-        copies; bfloat16 payloads as uint16 bits, named by ``dtype``)."""
+        copies; bfloat16 payloads as uint16 bits, named by ``dtype``). A
+        ``"kv"`` entry has ``payload``/``scales``, an ``"mla"`` entry
+        ``payloads``/``scales`` lists (ckv, kpe), as in the reference."""
         mv = self._backing()
         out = []
         for e in self._entries:
-            (p,) = e.parts
-            pay = self._np_view(mv, p)
-            sc = None if p.scales_off == _NO_SCALES else np.frombuffer(
-                mv, dtype=np.float32, count=p.scales_count,
-                offset=p.scales_off)
-            out.append({"kind": e.kind, "gi": e.gi, "pi": e.pi,
-                        "start": e.start, "count": e.count, "seq": e.seq,
-                        "tp_p": self.tp_p, "payload": pay, "scales": sc,
-                        "dtype": p.name})
+            d: Dict[str, Any] = {"kind": e.kind, "gi": e.gi, "pi": e.pi,
+                                 "start": e.start, "count": e.count,
+                                 "seq": e.seq, "tp_p": self.tp_p,
+                                 "dtype": e.parts[0].name}
+            views = [self._view(mv, p) for p in e.parts]
+            if e.kind == "mla":
+                d["payloads"] = [pay for pay, _ in views]
+                d["scales"] = [sc for _, sc in views]
+            else:
+                d["payload"], d["scales"] = views[0]
+            out.append(d)
         return out
+
+    @classmethod
+    def _view(cls, mv: memoryview, p: _Part
+              ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        pay = cls._np_view(mv, p)
+        if p.scales_off == _NO_SCALES:
+            return pay, None
+        return pay, np.frombuffer(mv, dtype=np.float32, count=p.scales_count,
+                                  offset=p.scales_off)
 
     def release(self) -> None:
         """Drop buffer references so the backing segment can be closed."""

@@ -31,10 +31,12 @@ def resolve(device: DeviceLike = None) -> torch.device:
 
 def check_family(cfg) -> None:
     """The port covers the dense GQA/MHA family (optional qkv bias and
-    qk-norm), sliding-window attention, and MoE MLPs over full or sliding
-    attention (Mixtral). Every other family (MLA, recurrent, SSM, enc-dec,
-    VLM) stays in ROADMAP queue 1 item 7."""
-    attention_ok = cfg.attention_kind in ("full", "sliding")
+    qk-norm), sliding-window attention, multi-head latent attention (MLA,
+    DeepSeek-V2), and MoE MLPs over any of these (Mixtral, DeepSeek-V2-
+    Lite). Every other family (recurrent, SSM, enc-dec, VLM) stays in
+    ROADMAP queue 1 item 7."""
+    attention_ok = cfg.attention_kind in ("full", "sliding") or (
+        cfg.attention_kind == "mla" and cfg.mla is not None)
     family_ok = cfg.family == "dense" or (cfg.family == "moe" and cfg.is_moe)
     if (not attention_ok or not family_ok
             or (cfg.is_moe and cfg.family != "moe") or cfg.is_enc_dec

@@ -9,8 +9,8 @@
 // because the tensor cores take float32 only as TF32, which keeps about
 // three decimal digits and cannot meet the 2e-5 float32 tolerance.
 //
-// What bounds it on this card: operations, about 4·Sq·n·d flops per head
-// for n visible keys, against float32's 67 TFLOP/s on the CUDA cores.
+// What bounds it on this card: operations, about 2·Sq·n·(dk + dv) flops per
+// head for n visible keys, against float32's 67 TFLOP/s on the CUDA cores.
 //
 // Design: one block per (64-row query tile, head, batch). The block walks
 // 32-row K/V tiles staged in shared memory and keeps an online softmax
@@ -18,42 +18,51 @@
 // score matrix never reaches device memory. 256 threads: four threads
 // share one query row, each scores 8 keys of the tile and owns every
 // fourth output column; the row's max and sum reduce with two warp
-// shuffles. Tiles wholly above the causal diagonal (taking the chunk's
+// shuffles. Q and K rows hold the key head dim dk (up to 192: MLA's 128
+// nope + 64 rope columns), V rows and the output the value head dim dv (up
+// to 128); each thread owns dv / 4 output columns. Tiles wholly above the causal diagonal (taking the chunk's
 // absolute `q_offset` into account) or wholly outside the sliding window
 // are never loaded. GQA maps query head h to KV head h / grp by index.
 // q, k, v and o are read through (batch, head, seq) strides with a unit
 // stride on the head dimension, so the model hands in its (B, S, H, d)
-// activations without a transpose copy. Shared memory (~74 KB) is above
-// the 48 KB default; the attribute is set once per process.
+// activations without a transpose copy. Shared rows are padded to dk + 1
+// and dv + 1 floats (bank spread), so a launch takes what its head dims
+// need: ~74 KB at dk = dv = 128, ~99 KB at dk 192 / dv 128, above the
+// 48 KB default; the attribute is set once per process, to the largest.
 #include "common.cuh"
 
 namespace {
 
 constexpr int BQ = 64;           // query rows per block
 constexpr int BK = 32;           // keys per tile
-constexpr int DMAX = 128;        // largest head_dim
-constexpr int LDS = DMAX + 1;    // padded shared row stride (bank spread)
+constexpr int DKMAX = 192;       // largest key head dim (q, k)
+constexpr int DVMAX = 128;       // largest value head dim (v, o)
 constexpr int THREADS = 256;     // 4 threads per query row
 constexpr int KPT = BK / 4;      // keys scored per thread per tile
-constexpr int CPT = DMAX / 4;    // output columns owned per thread
+constexpr int CPT = DVMAX / 4;   // output columns owned per thread
 
-constexpr size_t kSmemBytes =
-    sizeof(float) * (size_t)(BQ * LDS + 2 * BK * LDS + BQ * (BK + 1));
+// Shared bytes of a launch: Q [BQ][dk+1], K [BK][dk+1], V [BK][dv+1],
+// P [BQ][BK+1] floats.
+constexpr size_t smem_bytes(int dk, int dv) {
+  return sizeof(float) * ((size_t)(BQ + BK) * (dk + 1) + (size_t)BK * (dv + 1)
+                          + (size_t)BQ * (BK + 1));
+}
 
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 int grp, int Sq, int D,
+                 int grp, int Sq, int DK, int DV,
                  long long q_sb, long long q_sh, long long q_ss,
                  long long k_sb, long long k_sh, long long k_ss,
                  long long v_sb, long long v_sh, long long v_ss,
                  long long o_sb, long long o_sh, long long o_ss,
                  float scale, int causal, int window, int q_offset, int kv_len) {
   extern __shared__ float smem[];
-  float* Qs = smem;                 // [BQ][LDS]
-  float* Ks = Qs + BQ * LDS;        // [BK][LDS]
-  float* Vs = Ks + BK * LDS;        // [BK][LDS]
-  float* Ps = Vs + BK * LDS;        // [BQ][BK + 1]
+  const int LK = DK + 1, LV = DV + 1;   // padded shared row strides
+  float* Qs = smem;                 // [BQ][LK]
+  float* Ks = Qs + BQ * LK;         // [BK][LK]
+  float* Vs = Ks + BK * LK;         // [BK][LV]
+  float* Ps = Vs + BK * LV;         // [BQ][BK + 1]
 
   const int tid = threadIdx.x;
   const int row = tid >> 2;         // query row inside the tile
@@ -67,10 +76,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * k_sb + kvh * k_sh;
   const float* vb = v + b * v_sb + kvh * v_sh;
 
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D, c = e - r * D;
+  for (int e = tid; e < BQ * DK; e += THREADS) {
+    const int r = e / DK, c = e - r * DK;
     const int qi = qt0 + r;
-    Qs[r * LDS + c] = (qi < Sq) ? qb[(long long)qi * q_ss + c] : 0.f;
+    Qs[r * LK + c] = (qi < Sq) ? qb[(long long)qi * q_ss + c] : 0.f;
   }
 
   float acc[CPT];
@@ -92,24 +101,27 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
   for (int t = t_begin; t < t_end; ++t) {
     const int kt0 = t * BK;
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int r = e / D, c = e - r * D;
+    for (int e = tid; e < BK * DK; e += THREADS) {
+      const int r = e / DK, c = e - r * DK;
       const int kj = kt0 + r;
-      const bool in = kj < kv_len;
-      Ks[r * LDS + c] = in ? kb[(long long)kj * k_ss + c] : 0.f;
-      Vs[r * LDS + c] = in ? vb[(long long)kj * v_ss + c] : 0.f;
+      Ks[r * LK + c] = kj < kv_len ? kb[(long long)kj * k_ss + c] : 0.f;
+    }
+    for (int e = tid; e < BK * DV; e += THREADS) {
+      const int r = e / DV, c = e - r * DV;
+      const int kj = kt0 + r;
+      Vs[r * LV + c] = kj < kv_len ? vb[(long long)kj * v_ss + c] : 0.f;
     }
     __syncthreads();
 
     float s[KPT];
 #pragma unroll
     for (int j = 0; j < KPT; ++j) s[j] = 0.f;
-    const float* qrow = Qs + row * LDS;
-    const float* kbase = Ks + (quad * KPT) * LDS;
-    for (int c = 0; c < D; ++c) {
+    const float* qrow = Qs + row * LK;
+    const float* kbase = Ks + (quad * KPT) * LK;
+    for (int c = 0; c < DK; ++c) {
       const float qv = qrow[c];
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) s[j] += qv * kbase[j * LDS + c];
+      for (int j = 0; j < KPT; ++j) s[j] += qv * kbase[j * LK + c];
     }
     float tmax = -INFINITY;
 #pragma unroll
@@ -142,10 +154,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < CPT; ++i) acc[i] *= alpha;
     for (int j = 0; j < BK; ++j) {
       const float p = prow[j];
-      const float* vrow = Vs + j * LDS + quad;
+      const float* vrow = Vs + j * LV + quad;
 #pragma unroll
       for (int i = 0; i < CPT; ++i) {
-        if (quad + 4 * i < D) acc[i] += p * vrow[4 * i];
+        if (quad + 4 * i < DV) acc[i] += p * vrow[4 * i];
       }
     }
     __syncthreads();                           // before the next tile overwrites K/V
@@ -158,7 +170,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       const int c = quad + 4 * i;
-      if (c < D) orow[c] = acc[i] / l;
+      if (c < DV) orow[c] = acc[i] / l;
     }
   }
 }
@@ -167,7 +179,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // The bfloat16 kernel's launch (flash_attention_wgmma.cu).
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         int B, int H, int KVH, int Sq, int D,
+                         int B, int H, int KVH, int Sq, int DK, int DV,
                          long long q_sb, long long q_sh, long long q_ss,
                          long long k_sb, long long k_sh, long long k_ss,
                          long long v_sb, long long v_sh, long long v_ss,
@@ -175,31 +187,35 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          float scale, int causal, int window, int q_offset,
                          int kv_len, cudaStream_t stream);
 
+// DK: head dim of q and k; DV: head dim of v and o (DV <= min(DK, 128)).
 extern "C" int rt_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype,
-    int B, int H, int KVH, int Sq, int D,
+    int B, int H, int KVH, int Sq, int DK, int DV,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     float scale, int causal, int window, int q_offset, int kv_len,
     void* stream) {
-  if (D > DMAX || D <= 0 || KVH <= 0 || H % KVH != 0) return (int)cudaErrorInvalidValue;
+  if (DK > DKMAX || DK <= 0 || DV <= 0 || DV > DVMAX || DV > DK || KVH <= 0 ||
+      H % KVH != 0)
+    return (int)cudaErrorInvalidValue;
   if (Sq <= 0 || B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kBF16)
-    return flash_attention_bf16(q, k, v, o, B, H, KVH, Sq, D, q_sb, q_sh, q_ss,
-                                k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
-                                o_ss, scale, causal, window, q_offset, kv_len,
-                                s);
+    return flash_attention_bf16(q, k, v, o, B, H, KVH, Sq, DK, DV, q_sb, q_sh,
+                                q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb,
+                                o_sh, o_ss, scale, causal, window, q_offset,
+                                kv_len, s);
   if (dtype != rt::kF32) return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr = rt::allow_smem(flash_fwd_kernel, kSmemBytes);
+  static const cudaError_t attr =
+      rt::allow_smem(flash_fwd_kernel, smem_bytes(DKMAX, DVMAX));
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<<<grid, THREADS, kSmemBytes, s>>>(
+  flash_fwd_kernel<<<grid, THREADS, smem_bytes(DK, DV), s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H / KVH, Sq, D,
-      q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-      scale, causal, window, q_offset, kv_len);
+      static_cast<const float*>(v), static_cast<float*>(o), H / KVH, Sq, DK,
+      DV, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
+      o_ss, scale, causal, window, q_offset, kv_len);
   return (int)cudaGetLastError();
 }

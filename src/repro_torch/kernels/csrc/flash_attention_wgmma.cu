@@ -22,18 +22,24 @@
 // thread issues every load. setmaxnreg moves registers from the producer
 // (24) to the consumers (240).
 // - TMA loads the Q tile once, then K and V tiles of 128 keys into a ring
-//   of 2 stages. Each tile is stored as 64-column halves of 128-byte rows
-//   with the 128-byte swizzle; the head dim is padded to 128 columns by
-//   TMA's zero fill, so every head dim that is a multiple of 16 up to 128
-//   runs the same code. Full barriers (TMA's transaction count) and empty
-//   barriers (256 consumer arrivals) hand each stage over. The tensor maps
-//   are built on the host in the C entry point from the strides the
+//   of 2 stages. Each tile is stored as 64-column chunks of 128-byte rows
+//   with the 128-byte swizzle. The key head dim (Q and K) is padded to DKP
+//   columns, a template argument: 128 (2 chunks) or 192 (3 chunks, MLA's
+//   128 nope + 64 rope); the value head dim (V and O) to 128 columns (2
+//   chunks). TMA's zero fill does the padding, so every key head dim that
+//   is a multiple of 16 up to 192 and every value head dim that is a
+//   multiple of 16 up to min(dk, 128) runs the same code. Shared memory at
+//   DKP 192: Q 48 KiB + 2 stages x (K 48 KiB + V 32 KiB) = 208 KiB. Full
+//   barriers (TMA's transaction count: K and V tiles differ in bytes) and
+//   empty barriers (256 consumer arrivals) hand each stage over. The
+//   tensor maps (Q and K over dk columns, V over dv) are built on the host
+//   in the C entry point from the strides the
 //   wrapper passes (cuTensorMapEncodeTiled, reached through
 //   cudaGetDriverEntryPoint, so the library needs no -lcuda) and go in as
 //   __grid_constant__ parameters. The maps bound the sequence axes at Sq
 //   and kv_len, so rows and keys past them arrive as zeros.
 // - S = Q·Kᵀ by wgmma m64n128k16 with both operands in shared memory
-//   (K-major) and float32 accumulators in registers. The causal, window
+//   (K-major), DKP / 16 k-steps, and float32 accumulators in registers. The causal, window
 //   and kv_len masks are applied in registers, only on tiles that cross
 //   the diagonal, the window edge or kv_len; tiles wholly outside them are
 //   never loaded (flash_tile_range, mirrored by
@@ -70,17 +76,27 @@ namespace {
 
 constexpr int BM = 128;            // query rows per block: 2 warpgroups x 64
 constexpr int BN = 128;            // keys per tile
-constexpr int DP = 128;            // head dim as stored (zero-padded)
+constexpr int DVP = 128;           // value head dim as stored (zero-padded)
 constexpr int CW = 64;             // columns of one 128-byte swizzled row
-constexpr int NCH = DP / CW;       // column halves per tile
+constexpr int NCHV = DVP / CW;     // column chunks of a V tile
 constexpr int STAGES = 2;
 constexpr int THREADS = 384;
 constexpr int CONSUMERS = 256;
-constexpr uint32_t HALF_BYTES = BN * CW * 2;           // 16 KiB
-constexpr uint32_t TILE_BYTES = NCH * HALF_BYTES;      // 32 KiB
-constexpr uint32_t SMEM_TILES = (1 + 2 * STAGES) * TILE_BYTES;
-constexpr size_t kSmemBytes = SMEM_TILES + 64 + 1024;  // + barriers + align
+constexpr uint32_t CHUNK_BYTES = BN * CW * 2;          // 16 KiB
+constexpr uint32_t V_BYTES = NCHV * CHUNK_BYTES;       // 32 KiB
 static_assert(BM == BN, "the Q tile uses the K/V tile's box");
+
+// Shared memory of the instance whose key head dim is padded to DKP.
+template <int DKP>
+struct Smem {
+  static_assert(DKP % CW == 0 && DKP >= DVP, "DKP: 128 or 192");
+  static constexpr int NCHK = DKP / CW;                     // Q, K chunks
+  static constexpr uint32_t QK_BYTES = NCHK * CHUNK_BYTES;  // a Q or K tile
+  static constexpr uint32_t STAGE_BYTES = QK_BYTES + V_BYTES;
+  static constexpr uint32_t TILES = QK_BYTES + STAGES * STAGE_BYTES;
+  static constexpr size_t BYTES = TILES + 64 + 1024;        // + barriers, align
+};
+static_assert(Smem<192>::BYTES <= 232448, "DKP 192 fits 227 KB");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -216,26 +232,28 @@ __device__ __forceinline__ void flash_tile_range(int q0, int q1, int q_offset,
   n = kv_end > kv_start ? (kv_end + BN - 1) / BN - t_begin : 0;
 }
 
+template <int DKP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ o, int grp, int Sq, int D,
+                       __nv_bfloat16* __restrict__ o, int grp, int Sq, int DV,
                        long long o_sb, long long o_sh, long long o_ss,
                        float scale, int causal, int window, int q_offset,
                        int kv_len) {
+  using SM = Smem<DKP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;      // 128-byte swizzle atoms
   const uint32_t q_s = base;
-  const uint32_t kv_s = base + TILE_BYTES;          // stage s: K, then V
-  const uint32_t bars = base + SMEM_TILES;
+  const uint32_t kv_s = base + SM::QK_BYTES;        // stage s: K, then V
+  const uint32_t bars = base + SM::TILES;
   const uint32_t q_full = bars;
   auto k_full = [&](int s) { return bars + 8 * (1 + s); };
   auto v_full = [&](int s) { return bars + 8 * (1 + STAGES + s); };
   auto empty = [&](int s) { return bars + 8 * (1 + 2 * STAGES + s); };
-  auto k_tile = [&](int s) { return kv_s + 2 * s * TILE_BYTES; };
-  auto v_tile = [&](int s) { return kv_s + (2 * s + 1) * TILE_BYTES; };
+  auto k_tile = [&](int s) { return kv_s + s * SM::STAGE_BYTES; };
+  auto v_tile = [&](int s) { return k_tile(s) + SM::QK_BYTES; };
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -260,20 +278,20 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == CONSUMERS) {
       const int kvh = h / grp;
-      mbar_expect_tx(q_full, TILE_BYTES);
-      for (int c = 0; c < NCH; ++c)
-        tma_load(q_s + c * HALF_BYTES, &tq, q_full, c * CW, q0, h, b);
+      mbar_expect_tx(q_full, SM::QK_BYTES);
+      for (int c = 0; c < SM::NCHK; ++c)
+        tma_load(q_s + c * CHUNK_BYTES, &tq, q_full, c * CW, q0, h, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % STAGES;
         mbar_wait(empty(s), ((it / STAGES) & 1) ^ 1);
         const int kt0 = (t_begin + it) * BN;
-        mbar_expect_tx(k_full(s), TILE_BYTES);
-        for (int c = 0; c < NCH; ++c)
-          tma_load(k_tile(s) + c * HALF_BYTES, &tk, k_full(s), c * CW, kt0,
+        mbar_expect_tx(k_full(s), SM::QK_BYTES);
+        for (int c = 0; c < SM::NCHK; ++c)
+          tma_load(k_tile(s) + c * CHUNK_BYTES, &tk, k_full(s), c * CW, kt0,
                    kvh, b);
-        mbar_expect_tx(v_full(s), TILE_BYTES);
-        for (int c = 0; c < NCH; ++c)
-          tma_load(v_tile(s) + c * HALF_BYTES, &tv, v_full(s), c * CW, kt0,
+        mbar_expect_tx(v_full(s), V_BYTES);
+        for (int c = 0; c < NCHV; ++c)
+          tma_load(v_tile(s) + c * CHUNK_BYTES, &tv, v_full(s), c * CW, kt0,
                    kvh, b);
       }
     }
@@ -303,13 +321,13 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       mbar_wait(k_full(s), phase);
       wg_fence();
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) {
+      for (int c = 0; c < SM::NCHK; ++c) {
 #pragma unroll
         for (int kk = 0; kk < CW / 16; ++kk) {
           const uint64_t da = make_desc(
-              q_s + c * HALF_BYTES + wg * 64 * 128 + kk * 32, 16, 1024);
+              q_s + c * CHUNK_BYTES + wg * 64 * 128 + kk * 32, 16, 1024);
           const uint64_t db =
-              make_desc(k_tile(s) + c * HALF_BYTES + kk * 32, 16, 1024);
+              make_desc(k_tile(s) + c * CHUNK_BYTES + kk * 32, 16, 1024);
           wgmma_ss(sc, da, db, (c | kk) != 0);
         }
       }
@@ -388,7 +406,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
-        const uint64_t db = make_desc(v_tile(s) + kk * 16 * 128, HALF_BYTES,
+        const uint64_t db = make_desc(v_tile(s) + kk * 16 * 128, CHUNK_BYTES,
                                       1024);
         wgmma_rs(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                  pa[4 * kk + 3], db);
@@ -413,7 +431,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int col = 8 * j + 2 * (lane % 4);
-      if (col < D) {
+      if (col < DV) {
         if (qi0 < Sq)
           *reinterpret_cast<__nv_bfloat162*>(ob + qi0 * o_ss + col) =
               __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
@@ -464,33 +482,47 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int seq, int heads,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int DKP>
+int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+           void* o, int B, int H, int KVH, int Sq, int DV, long long o_sb,
+           long long o_sh, long long o_ss, float scale, int causal,
+           int window, int q_offset, int kv_len, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel_wgmma<DKP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Smem<DKP>::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid(H, B, (Sq + BM - 1) / BM);
+  flash_fwd_kernel_wgmma<DKP><<<grid, THREADS, Smem<DKP>::BYTES, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H / KVH, Sq, DV, o_sb, o_sh,
+      o_ss, scale, causal, window, q_offset, kv_len);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// bf16 launch, called by rt_flash_attention (flash_attention.cu). Every
-// stride is in elements; the wrapper has checked TMA's 16-byte alignment.
+// bf16 launch, called by rt_flash_attention (flash_attention.cu). DK is
+// the head dim of q and k, DV that of v and o. Every stride is in
+// elements; the wrapper has checked TMA's 16-byte alignment.
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         int B, int H, int KVH, int Sq, int D,
+                         int B, int H, int KVH, int Sq, int DK, int DV,
                          long long q_sb, long long q_sh, long long q_ss,
                          long long k_sb, long long k_sh, long long k_ss,
                          long long v_sb, long long v_sh, long long v_ss,
                          long long o_sb, long long o_sh, long long o_ss,
                          float scale, int causal, int window, int q_offset,
                          int kv_len, cudaStream_t stream) {
-  if (D % 16 != 0 || D > DP) return (int)cudaErrorInvalidValue;
+  if (DK % 16 != 0 || DV % 16 != 0 || DK > 192 || DV > DVP || DV > DK)
+    return (int)cudaErrorInvalidValue;
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
   const int kv_rows = kv_len > 0 ? kv_len : 1;   // no tile is loaded at 0
-  if (!make_map(&tq, q, D, Sq, H, B, q_ss, q_sh, q_sb) ||
-      !make_map(&tk, k, D, kv_rows, KVH, B, k_ss, k_sh, k_sb) ||
-      !make_map(&tv, v, D, kv_rows, KVH, B, v_ss, v_sh, v_sb))
+  if (!make_map(&tq, q, DK, Sq, H, B, q_ss, q_sh, q_sb) ||
+      !make_map(&tk, k, DK, kv_rows, KVH, B, k_ss, k_sh, k_sb) ||
+      !make_map(&tv, v, DV, kv_rows, KVH, B, v_ss, v_sh, v_sb))
     return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (attr != cudaSuccess) return (int)attr;
-  dim3 grid(H, B, (Sq + BM - 1) / BM);
-  flash_fwd_kernel_wgmma<<<grid, THREADS, kSmemBytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H / KVH, Sq, D, o_sb, o_sh,
-      o_ss, scale, causal, window, q_offset, kv_len);
-  return (int)cudaGetLastError();
+  if (DK <= 128)
+    return launch<128>(tq, tk, tv, o, B, H, KVH, Sq, DV, o_sb, o_sh, o_ss,
+                       scale, causal, window, q_offset, kv_len, stream);
+  return launch<192>(tq, tk, tv, o, B, H, KVH, Sq, DV, o_sb, o_sh, o_ss,
+                     scale, causal, window, q_offset, kv_len, stream);
 }

@@ -5,6 +5,10 @@ The kernels add what chunked prefill needs: ``q_offset`` (the absolute
 position of query row 0, so a chunk at c0 masks causally against a cache
 that holds positions 0..) and ``kv_len`` (keys at or past it are masked).
 
+The value head dim may be smaller than the key head dim, as in MLA's
+prefill (q and k 192 wide: 128 nope + 64 rope columns; v 128): the
+kernels take dk up to 192 and dv up to min(dk, 128) (``check_shapes``).
+
 The dtype picks the kernel: bfloat16 runs the tensor-core kernel
 (``csrc/flash_attention_wgmma.cu``: wgmma, TMA, 128x128 tiles), float32
 the CUDA-core kernel (``csrc/flash_attention.cu``), since the tensor
@@ -23,7 +27,8 @@ from repro_torch.kernels import _build
 
 LAUNCHES = {"flash_attention": 0}      # kernel launches, by kernel name
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 192                     # q and k
+MAX_V_HEAD_DIM = 128                   # v and the output
 BLOCK_M, BLOCK_N = 128, 128            # the bf16 kernel's query / key tiles
 TMA_ALIGN = 16                         # bytes: TMA's base and stride unit
 
@@ -35,7 +40,7 @@ def _kernel():
     if _fn is None:
         f = _build.load().rt_flash_attention
         f.restype = ctypes.c_int
-        f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                       + [ctypes.c_longlong] * 12
                       + [ctypes.c_float] + [ctypes.c_int] * 4
                       + [ctypes.c_void_p])
@@ -86,20 +91,49 @@ def _tma_strides(name: str, t: torch.Tensor) -> List[int]:
     return strides
 
 
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len: Optional[int] = None, q_offset: int = 0
+                 ) -> Tuple[int, int, int]:
+    """The kernels' shape rules, on any device: q (B,H,Sq,dk), k (B,KV,
+    Skv,dk), v (B,KV,Skv,dv) with H a multiple of KV, dk <= 192, dv <=
+    min(dk, 128), and in bfloat16 dk and dv multiples of 16. Returns (dk,
+    dv, kv_len); raises ValueError otherwise."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k and v must be 4-D")
+    b, h, _, dk = q.shape
+    kvh, skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    kv_len = skv if kv_len is None else int(kv_len)
+    if k.shape[0] != b or k.shape[3] != dk or tuple(v.shape[:3]) != \
+            tuple(k.shape[:3]):
+        raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if (kvh <= 0 or h % kvh or dk > MAX_HEAD_DIM
+            or dv > min(dk, MAX_V_HEAD_DIM) or not 0 <= kv_len <= skv
+            or q_offset < 0):
+        raise ValueError(f"flash_attention: unsupported h={h} kv={kvh} "
+                         f"dk={dk} dv={dv} kv_len={kv_len} "
+                         f"q_offset={q_offset} (dk <= {MAX_HEAD_DIM}, dv <= "
+                         f"min(dk, {MAX_V_HEAD_DIM}))")
+    if q.dtype == torch.bfloat16 and (dk % 16 or dv % 16):
+        raise ValueError(f"flash_attention: bf16 head dims dk={dk} dv={dv}:"
+                         " each must be a multiple of 16")
+    return dk, dv, kv_len
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None, q_offset: int = 0,
                     kv_len: Optional[int] = None) -> torch.Tensor:
-    """q: (B,H,Sq,d); k, v: (B,KV,Skv,d), CUDA tensors of one dtype (f32
-    or bf16) whose last axis is contiguous; any (batch, head, seq) strides.
-    Returns (B,H,Sq,d), laid out in memory as (B,Sq,H,d).
+    """q: (B,H,Sq,dk); k: (B,KV,Skv,dk); v: (B,KV,Skv,dv), CUDA tensors of
+    one dtype (f32 or bf16) whose last axis is contiguous; any (batch,
+    head, seq) strides. Returns (B,H,Sq,dv), laid out in memory as
+    (B,Sq,H,dv). ``scale`` defaults to 1/sqrt(dk).
 
-    float32 takes any d up to 128. bfloat16 takes d a multiple of 16 up to
-    128, base pointers 16-byte aligned and (batch, head, seq) strides that
-    are multiples of 8 elements; anything else raises ValueError."""
-    b, h, sq, d = q.shape
-    kvh, skv = k.shape[1], k.shape[2]
-    kv_len = skv if kv_len is None else int(kv_len)
+    Head dims as ``check_shapes`` says. bfloat16 also needs base pointers
+    16-byte aligned and (batch, head, seq) strides that are multiples of
+    8 elements; anything else raises ValueError."""
+    b, h, sq, _ = q.shape
+    kvh = k.shape[1]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"flash_attention: {name} must be on {q.device} "
@@ -110,27 +144,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.dim() != 4 or t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name} must be 4-D with a "
                              "contiguous last axis")
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if h % kvh or d > MAX_HEAD_DIM or not 0 <= kv_len <= skv or q_offset < 0:
-        raise ValueError(f"flash_attention: unsupported h={h} kv={kvh} d={d} "
-                         f"kv_len={kv_len} q_offset={q_offset}")
+    dk, dv, kv_len = check_shapes(q, k, v, kv_len, q_offset)
     if q.dtype == torch.bfloat16:
-        if d % 16:
-            raise ValueError(f"flash_attention: bf16 head dim {d} is not a "
-                             "multiple of 16")
         strides = [st for name, t in (("q", q), ("k", k), ("v", v))
                    for st in _tma_strides(name, t)]
     else:
         strides = [st for t in (q, k, v) for st in t.stride()[:3]]
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    o = torch.empty((b, sq, h, d), dtype=q.dtype,
+    scale = scale if scale is not None else 1.0 / math.sqrt(dk)
+    o = torch.empty((b, sq, h, dv), dtype=q.dtype,
                     device=q.device).permute(0, 2, 1, 3)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), DTYPES[q.dtype],
-        b, h, kvh, sq, d, *strides, o.stride(0), o.stride(1), o.stride(2),
+        b, h, kvh, sq, dk, dv, *strides, o.stride(0), o.stride(1), o.stride(2),
         scale, int(causal), int(window), int(q_offset), kv_len, stream)
     _build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1

@@ -34,11 +34,13 @@ def _on_cuda(t: torch.Tensor, op: str) -> bool:
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: Optional[float] = None, q_offset: int = 0,
                     kv_len: Optional[int] = None) -> torch.Tensor:
-    """q: (B,H,Sq,d); k,v: (B,KV,Skv,d) → (B,H,Sq,d). Query row i is at
-    absolute position ``q_offset + i``; keys from ``kv_len`` on are
-    masked. On the card, bfloat16 takes head dims that are multiples of 16
-    up to 128 and 16-byte aligned pointers and (batch, head, seq) strides
-    (TMA); float32 any head dim up to 128."""
+    """q: (B,H,Sq,dk); k: (B,KV,Skv,dk); v: (B,KV,Skv,dv) → (B,H,Sq,dv).
+    Query row i is at absolute position ``q_offset + i``; keys from
+    ``kv_len`` on are masked; ``scale`` defaults to 1/sqrt(dk). On the
+    card, dk up to 192 and dv up to min(dk, 128) (MLA's prefill: 192 and
+    128); bfloat16 takes head dims that are multiples of 16 and 16-byte
+    aligned pointers and (batch, head, seq) strides (TMA); float32 any
+    head dims within those limits."""
     if _on_cuda(q, "flash_attention"):
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    scale=scale, q_offset=q_offset,

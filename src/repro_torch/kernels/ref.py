@@ -24,11 +24,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         scale: Optional[float] = None, q_offset: int = 0,
                         kv_len: Optional[int] = None) -> torch.Tensor:
-    """q: (B,H,Sq,d); k,v: (B,KV,Skv,d) → (B,H,Sq,d).
+    """q: (B,H,Sq,dk); k: (B,KV,Skv,dk); v: (B,KV,Skv,dv) → (B,H,Sq,dv):
+    the output takes v's head dim, which may differ from q's (MLA).
 
     Query row i sits at absolute position ``q_offset + i``; key j at j.
-    Keys at or past ``kv_len`` (default Skv) are masked. A row with no
-    visible key returns zeros."""
+    Keys at or past ``kv_len`` (default Skv) are masked; ``scale``
+    defaults to 1/sqrt(dk). A row with no visible key returns zeros."""
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
     grp = h // kv
@@ -46,7 +47,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1) * ok.any(-1, keepdim=True)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
-    return o.reshape(b, h, sq, d).to(q.dtype)
+    return o.reshape(b, h, sq, v.shape[-1]).to(q.dtype)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,

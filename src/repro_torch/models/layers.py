@@ -1,7 +1,8 @@
 """Core layers of the ported families — PyTorch port of
 ``repro.models.layers`` (norms, RoPE, GQA attention with an optional
-sliding window, position-tagged KV caches with the ring buffer, SwiGLU,
-top-k routed MoE with shared experts).
+sliding window, position-tagged KV caches with the ring buffer,
+multi-head latent attention (MLA) with its latent cache, SwiGLU, top-k
+routed MoE with shared experts).
 
 Layers are plain functions over plain dict params, as in the JAX package.
 Conventions: activations (B, S, d); attention heads (B, S, H, hd);
@@ -14,6 +15,13 @@ take the plain path the JAX package takes — ``sdpa`` under an additive
 mask, ``paged_cache.paged_attention_ref`` — so the two packages compute
 the same expressions. Caches and pools are updated in place (the JAX code
 returns new arrays).
+
+MLA attends through ``ops`` on both devices (the kernels on the card,
+their plain versions on the CPU): prefill and chunked prefill expand the
+latent to per-head K (192 wide: 128 nope + 64 rope) and V (128) and call
+flash; paged decode gathers the latent pages (``ops.gather_pages``) and
+attends in the latent space in float32 with plain tensor products, as
+the reference does.
 """
 from __future__ import annotations
 
@@ -344,6 +352,243 @@ def attention_decode_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
+# MLA — multi-head latent attention (DeepSeek-V2). Cache = compressed latent.
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass
+class MLACache:
+    ckv: torch.Tensor        # (..., B, cap, lora)   normalised latent
+    kpe: torch.Tensor        # (..., B, cap, rope)   roped shared key part
+    pos: torch.Tensor        # (..., B, cap) int32 absolute positions, -1 = empty
+    # slot == position for every write (chunked-prefill caches): what
+    # mla_decode's expanded route relies on
+    full_capacity: bool = False
+
+    @property
+    def capacity(self) -> int:
+        return self.ckv.shape[-2]
+
+    def layer(self, i: int) -> "MLACache":
+        """View of layer ``i`` of a group-stacked cache."""
+        return MLACache(self.ckv[i], self.kpe[i], self.pos[i],
+                        self.full_capacity)
+
+
+def mla_cache_init(batch: int, capacity: int, cfg: ModelConfig, dtype,
+                   device: torch.device, count: int = 1,
+                   full_capacity: bool = False) -> MLACache:
+    m = cfg.mla
+    lead = (count, batch, capacity)
+    return MLACache(
+        ckv=torch.zeros(lead + (m.kv_lora_rank,), dtype=dtype, device=device),
+        kpe=torch.zeros(lead + (m.qk_rope_head_dim,), dtype=dtype,
+                        device=device),
+        pos=torch.full(lead, -1, dtype=torch.int32, device=device),
+        full_capacity=full_capacity)
+
+
+def _mla_cache_put(cache: MLACache, ckv_new: torch.Tensor,
+                   kpe_new: torch.Tensor, positions: torch.Tensor) -> MLACache:
+    """Write every entry at slot ``positions % capacity`` (all >= 0), in
+    place, with no read-back: the chunks of a prompt."""
+    slots = (positions % cache.capacity).long()
+    bidx = torch.arange(ckv_new.shape[0], device=ckv_new.device)[:, None]
+    cache.ckv[bidx, slots] = ckv_new.to(cache.ckv.dtype)
+    cache.kpe[bidx, slots] = kpe_new.to(cache.kpe.dtype)
+    cache.pos[bidx, slots] = positions.to(torch.int32)
+    return cache
+
+
+def mla_cache_write(cache: MLACache, ckv_new: torch.Tensor,
+                    kpe_new: torch.Tensor, positions: torch.Tensor) -> MLACache:
+    """Write S_new latent entries per sequence at slots ``positions %
+    capacity``, in place; -1 positions are dropped, as the reference's
+    ``mode="drop"`` scatter drops them."""
+    keep = positions >= 0
+    bidx = torch.arange(ckv_new.shape[0], device=ckv_new.device)[:, None]
+    bidx = bidx.expand_as(positions)[keep]
+    pos = positions[keep]
+    slots = (pos % cache.capacity).long()
+    cache.ckv[bidx, slots] = ckv_new[keep].to(cache.ckv.dtype)
+    cache.kpe[bidx, slots] = kpe_new[keep].to(cache.kpe.dtype)
+    cache.pos[bidx, slots] = pos.to(torch.int32)
+    return cache
+
+
+def mla_cache_from_prefill(cache: MLACache, ckv_new: torch.Tensor,
+                           kpe_new: torch.Tensor,
+                           positions: torch.Tensor) -> MLACache:
+    """Fill a cache from a full prefill pass (positions 0..S-1), in place:
+    slots 0..S-1, or the last ``capacity`` positions of a shorter cache."""
+    s = ckv_new.shape[1]
+    if cache.capacity < s:
+        return mla_cache_write(cache, ckv_new, kpe_new,
+                               _ring_positions(positions, cache.capacity))
+    cache.ckv[:, :s] = ckv_new.to(cache.ckv.dtype)
+    cache.kpe[:, :s] = kpe_new.to(cache.kpe.dtype)
+    cache.pos[:, :s] = positions.to(torch.int32)
+    return cache
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig,
+             device: torch.device) -> Params:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    s = 1.0 / math.sqrt(d)
+    sl = 1.0 / math.sqrt(m.kv_lora_rank)
+
+    def rnd(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device) * scale
+                ).to(cfg.pdtype)
+
+    return {"wq": rnd((d, h, qk_hd), s),
+            "w_dkv": rnd((d, m.kv_lora_rank + m.qk_rope_head_dim), s),
+            "kv_norm": torch.ones((m.kv_lora_rank,), dtype=cfg.pdtype,
+                                  device=device),
+            "w_ukv": rnd((m.kv_lora_rank, h,
+                          m.qk_nope_head_dim + m.v_head_dim), sl),
+            "wo": rnd((h, m.v_head_dim, d),
+                      s / math.sqrt(2 * cfg.num_layers))}
+
+
+def _mla_qkv_latent(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor):
+    """Shared projections → (q_nope, q_pe, ckv, kpe): rope on q_pe per head
+    and on the shared kpe; ckv normalised before it is cached."""
+    m = cfg.mla
+    q = _proj(x, p["wq"])
+    q_nope, q_pe = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+    dkv = x @ p["w_dkv"].to(x.dtype)
+    ckv, kpe = dkv.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    ckv = rms_norm(p["kv_norm"], ckv, cfg.norm_eps)
+    kpe = apply_rope(kpe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_pe, ckv, kpe
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim)
+
+
+def _mla_expanded_attention(p: Params, cfg: ModelConfig, q_nope, q_pe,
+                            ckv: torch.Tensor, kpe: torch.Tensor,
+                            q_offset: int) -> torch.Tensor:
+    """Causal flash attention of queries at ``q_offset..`` over the latent
+    rows ``ckv``/``kpe`` (B, kv_len, ·) of positions 0..kv_len-1, expanded
+    through ``w_ukv``: K = k_nope ‖ kpe broadcast over heads (contiguous,
+    192 wide, as TMA takes it), Q = q_nope ‖ q_pe, V the 128-wide value
+    part. Returns (B, Sq, H, dv)."""
+    m = cfg.mla
+    b, kv_len, _ = ckv.shape
+    h = p["w_ukv"].shape[1]
+    ukv = _proj(ckv, p["w_ukv"])                          # (B, kv_len, H, 256)
+    k_nope, v = ukv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, kpe[:, :, None, :].expand(
+        b, kv_len, h, m.qk_rope_head_dim).to(k_nope.dtype)], dim=-1)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True,
+                              scale=_mla_scale(cfg), q_offset=q_offset,
+                              kv_len=kv_len)
+    return out.transpose(1, 2)
+
+
+def mla_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Prefill MLA over a whole sequence (positions 0..S-1): the latent
+    expanded to per-head K/V and one flash call (dk 192, dv 128). Returns
+    (out, (ckv, kpe)) for latent caching. The reference's
+    ``_chunked_mla_sdpa`` bounds memory under a distributed context; the
+    flash kernel never materialises the scores."""
+    q_nope, q_pe, ckv, kpe = _mla_qkv_latent(p, cfg, x, positions)
+    out = _mla_expanded_attention(p, cfg, q_nope, q_pe, ckv, kpe, 0)
+    return _out_proj(out, p["wo"]), (ckv, kpe)
+
+
+def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, cache: MLACache,
+               q_offset: Optional[int] = None
+               ) -> Tuple[torch.Tensor, MLACache]:
+    """A chunk of incremental prefill (or a few decode tokens) against a
+    full-capacity latent cache (slot == position), written in place.
+    x: (B,T,d); positions (B,T) = q_offset + 0..T-1.
+
+    The reference computes this in absorbed form (scores in the 576-wide
+    latent space); the port computes the same function in expanded form,
+    so that it runs through flash at dk 192 / dv 128: the chunk's latent
+    is written, the cache's first ``q_offset + T`` rows (every earlier
+    position, slot == position) are expanded through ``w_ukv``, and flash
+    attends causally from ``q_offset`` — a host integer, so nothing is
+    read back from the card."""
+    t = x.shape[1]
+    if q_offset is None or not cache.full_capacity \
+            or q_offset + t > cache.capacity:
+        raise AssertionError(
+            "mla_decode needs q_offset and a full-capacity cache "
+            "(slot == position)")
+    q_nope, q_pe, ckv_new, kpe_new = _mla_qkv_latent(p, cfg, x, positions)
+    _mla_cache_put(cache, ckv_new, kpe_new, positions)
+    c1 = q_offset + t
+    out = _mla_expanded_attention(p, cfg, q_nope, q_pe, cache.ckv[:, :c1],
+                                  cache.kpe[:, :c1], q_offset)
+    return _out_proj(out, p["wo"]), cache
+
+
+def mla_decode_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                     positions: torch.Tensor,
+                     pcache: Dict[str, torch.Tensor],
+                     block_table: torch.Tensor, seq_lens: torch.Tensor,
+                     write_blocks: torch.Tensor, write_slots: torch.Tensor,
+                     ckv_spec: PC.KVPageSpec, kpe_spec: PC.KVPageSpec,
+                     max_len: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Absorbed MLA decode against paged latent pools (one KV "head" of
+    width lora and one of width rope), appended in place. x: (B,1,d);
+    seq_lens (B,) lengths BEFORE this token.
+
+    The sequences' pages go to canonical rows through ``ops.gather_pages``
+    (the gather kernel on the card): only the first ceil(max_len / bs)
+    columns of the block table when ``max_len`` — the longest length after
+    this token, a host integer — is given, since later columns are masked
+    anyway. Then scores in float32 in the latent space (q_nope absorbed
+    through w_uk, plus q_pe over kpe), the length mask, softmax, the
+    latent context, w_uv and wo, as the reference computes them (the
+    profiler span ``mla.latent_attention``)."""
+    m = cfg.mla
+    b = x.shape[0]
+    q_nope, q_pe, ckv_new, kpe_new = _mla_qkv_latent(p, cfg, x, positions)
+    PC.append_token(ckv_spec, pcache["ckv_pool"], write_blocks, write_slots,
+                    ckv_new[:, 0, None, :])
+    PC.append_token(kpe_spec, pcache["kpe_pool"], write_blocks, write_slots,
+                    kpe_new[:, 0, None, :])
+    new_lens = seq_lens + 1
+    bs = ckv_spec.block_size
+    cols = block_table.shape[1]
+    if max_len is not None:
+        cols = min(cols, -(-int(max_len) // bs))
+    ids = block_table[:, :cols].reshape(-1).contiguous()
+    s_max = cols * bs
+    ckv = ops.gather_pages(ckv_spec, pcache["ckv_pool"][None], ids).reshape(
+        b, s_max, m.kv_lora_rank)
+    kpe = ops.gather_pages(kpe_spec, pcache["kpe_pool"][None], ids).reshape(
+        b, s_max, m.qk_rope_head_dim)
+    w_uk, w_uv = p["w_ukv"].split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    with torch.profiler.record_function("mla.latent_attention"):
+        q_lat = torch.einsum("bqhd,khd->bqhk", q_nope, w_uk.to(x.dtype))
+        scores = (torch.einsum("bqhk,bsk->bhqs", q_lat.float(), ckv.float())
+                  + torch.einsum("bqhd,bsd->bhqs", q_pe.float(), kpe.float())
+                  ) * _mla_scale(cfg)
+        pos = torch.arange(s_max, device=x.device)[None]
+        mask = torch.where(pos < new_lens[:, None].long(), 0.0, NEG_INF)
+        probs = torch.softmax(scores + mask[:, None, None, :], dim=-1)
+        ctx_lat = torch.einsum("bhqs,bsk->bqhk", probs,
+                               ckv.float()).to(x.dtype)
+        out = torch.einsum("bqhk,khd->bqhd", ctx_lat, w_uv.to(x.dtype))
+    return _out_proj(out, p["wo"]), pcache
+
+
+# --------------------------------------------------------------------------- #
 # MLP
 # --------------------------------------------------------------------------- #
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
@@ -421,7 +666,8 @@ def moe_experts(p: Params, cfg: ModelConfig, x2d: torch.Tensor,
     and a sum, so two runs on the card give the same bits (no atomics).
     The group sizes go to the host to cut the sorted rows per expert: one
     read-back per layer, which waits for the work queued before it (the
-    profiler span ``moe.group_sizes_to_host``)."""
+    profiler span ``moe.group_sizes_to_host``; the products run in the
+    span ``moe.expert_loop``)."""
     e = cfg.moe
     t, d = x2d.shape
     flat_expert = idx.reshape(-1)                                # (T*k,)
@@ -430,12 +676,13 @@ def moe_experts(p: Params, cfg: ModelConfig, x2d: torch.Tensor,
     with torch.profiler.record_function("moe.group_sizes_to_host"):
         sizes = torch.bincount(flat_expert, minlength=e.num_experts).tolist()
     outs = []
-    for ei, xe in enumerate(torch.split(xs, sizes)):
-        if xe.shape[0] == 0:
-            continue
-        g = xe @ p["w_gate"][ei].to(x2d.dtype)
-        u = xe @ p["w_up"][ei].to(x2d.dtype)
-        outs.append((F.silu(g) * u) @ p["w_down"][ei].to(x2d.dtype))
+    with torch.profiler.record_function("moe.expert_loop"):
+        for ei, xe in enumerate(torch.split(xs, sizes)):
+            if xe.shape[0] == 0:
+                continue
+            g = xe @ p["w_gate"][ei].to(x2d.dtype)
+            u = xe @ p["w_up"][ei].to(x2d.dtype)
+            outs.append((F.silu(g) * u) @ p["w_down"][ei].to(x2d.dtype))
     y_sorted = torch.cat(outs)
     w_sorted = weights.reshape(-1)[order][:, None].to(y_sorted.dtype)
     unsort = torch.argsort(order)

@@ -1,5 +1,5 @@
 """Config-driven model assembly — PyTorch port of ``repro.models.model``
-for the dense, sliding-window and MoE families.
+for the dense, sliding-window, MoE and MLA families.
 
 A model is a list of *block groups* whose parameters are stacked along a
 leading ``count`` axis, exactly as in the JAX package (so
@@ -62,10 +62,11 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, moe: bool,
     d = cfg.d_model
     mlp = L.init_moe(gen, cfg, device) if moe else \
         L.init_mlp(gen, cfg, device)
+    attn = L.init_mla(gen, cfg, device) if _is_mla(cfg) else \
+        L.init_attention(gen, cfg, device)
     return {"norm1": torch.ones((d,), dtype=cfg.pdtype, device=device),
             "norm2": torch.ones((d,), dtype=cfg.pdtype, device=device),
-            "attn": L.init_attention(gen, cfg, device),
-            "mlp": mlp}
+            "attn": attn, "mlp": mlp}
 
 
 def _init_group(gen: torch.Generator, cfg: ModelConfig, g: Group,
@@ -125,8 +126,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
                 full_capacity: bool = False,
                 device: _dev.DeviceLike = None):
-    """Dense position-tagged caches, one group-stacked ``KVCache`` per
-    group position (leaves are (count, B, cap, ...)). A sliding layer's
+    """Dense position-tagged caches, one group-stacked ``KVCache`` (an
+    ``MLACache`` of latent rows for MLA) per group position (leaves are
+    (count, B, cap, ...)). A sliding layer's
     cache is a ring buffer of ``min(capacity, window)`` slots unless
     ``full_capacity``: chunked prefill opts out (writing chunk c would
     evict positions still inside the window of chunk c's own queries), so
@@ -136,6 +138,12 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
     cap = capacity
     if _window(cfg) and not full_capacity:
         cap = min(cap, _window(cfg))
+    if _is_mla(cfg):
+        return tuple(
+            tuple(L.mla_cache_init(batch, cap, cfg, dtype, dev, count=g.count,
+                                   full_capacity=full_capacity)
+                  for _kind in g.kinds)
+            for g in block_groups(cfg))
     return tuple(
         tuple(L.kv_cache_init(batch, cap, cfg.num_kv_heads, cfg.hd,
                               dtype, dev, count=g.count,
@@ -146,16 +154,19 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
 
 def init_paged_caches(cfg: ModelConfig, specs: Dict[str, PC.KVPageSpec],
                       num_blocks: int, device: _dev.DeviceLike = None):
-    """Paged pools {"k_pool", "v_pool"} of (count, N, *page) per group
-    position."""
+    """Paged pools of (count, N, *page) per group position: {"k_pool",
+    "v_pool"} of ``specs["kv"]``, or for MLA {"ckv_pool", "kpe_pool"} of
+    ``specs["ckv"]`` and ``specs["kpe"]``."""
     dev = _dev.resolve(device)
-    spec = specs["kv"]
-    shape = spec.pool_shape(num_blocks)
+    names = (("ckv_pool", "ckv"), ("kpe_pool", "kpe")) if _is_mla(cfg) \
+        else (("k_pool", "kv"), ("v_pool", "kv"))
+
+    def pool(g, spec):
+        return torch.zeros((g.count,) + spec.pool_shape(num_blocks),
+                           dtype=spec.tdtype, device=dev)
+
     return tuple(
-        tuple({"k_pool": torch.zeros((g.count,) + shape, dtype=spec.tdtype,
-                                     device=dev),
-               "v_pool": torch.zeros((g.count,) + shape, dtype=spec.tdtype,
-                                     device=dev)}
+        tuple({name: pool(g, specs[key]) for name, key in names}
               for _kind in g.kinds)
         for g in block_groups(cfg))
 
@@ -183,6 +194,19 @@ def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 def _window(cfg: ModelConfig) -> int:
     return cfg.sliding_window if cfg.attention_kind == "sliding" else 0
+
+
+def _is_mla(cfg: ModelConfig) -> bool:
+    return cfg.attention_kind == "mla"
+
+
+def attention_full(p, cfg: ModelConfig, h: torch.Tensor,
+                   positions: torch.Tensor):
+    """A layer's attention over a whole prompt (positions 0..S-1):
+    (out, cache rows) — (k, v) or, for MLA, the latent (ckv, kpe)."""
+    if _is_mla(cfg):
+        return L.mla_block(p, cfg, h, positions)
+    return L.attention_block(p, cfg, h, positions, window=_window(cfg))
 
 
 def _mlp_residual(p, cfg: ModelConfig, moe: bool,
@@ -213,12 +237,12 @@ def prefill(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor], caches):
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
-    win = _window(cfg)
+    fill = L.mla_cache_from_prefill if _is_mla(cfg) else \
+        L.kv_cache_from_prefill
     for gi, pi, li, g, p in _layers(params, cfg):
         h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
-        out, (k, v) = L.attention_block(p["attn"], cfg, h, positions,
-                                        window=win)
-        L.kv_cache_from_prefill(caches[gi][pi].layer(li), k, v, positions)
+        out, rows = attention_full(p["attn"], cfg, h, positions)
+        fill(caches[gi][pi].layer(li), *rows, positions)
         x = _mlp_residual(p, cfg, g.moe, x + out)
     return lm_logits(params, cfg, x[:, -1]), caches
 
@@ -229,14 +253,19 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     """One decode step / incremental-prefill chunk over dense caches.
     tokens, positions: (B,T). ``q_offset`` (host int == positions[:, 0])
     lets the CUDA route call the flash kernel without reading positions
-    back from the card. Returns (logits (B,T,V), caches)."""
+    back from the card; MLA needs it on both devices (``mla_decode``).
+    Returns (logits (B,T,V), caches)."""
     x = embed_tokens(params, cfg, tokens)
     win = _window(cfg)
     for gi, pi, li, g, p in _layers(params, cfg):
         h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
-        out, _ = L.attention_decode(p["attn"], cfg, h, positions,
-                                    caches[gi][pi].layer(li), window=win,
-                                    q_offset=q_offset)
+        cache = caches[gi][pi].layer(li)
+        if _is_mla(cfg):
+            out, _ = L.mla_decode(p["attn"], cfg, h, positions, cache,
+                                  q_offset=q_offset)
+        else:
+            out, _ = L.attention_decode(p["attn"], cfg, h, positions, cache,
+                                        window=win, q_offset=q_offset)
         x = _mlp_residual(p, cfg, g.moe, x + out)
     return lm_logits(params, cfg, x), caches
 
@@ -244,21 +273,28 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
 def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
                       seq_lens: torch.Tensor, block_table: torch.Tensor,
                       write_blocks: torch.Tensor, write_slots: torch.Tensor,
-                      caches, specs: Dict[str, PC.KVPageSpec]):
+                      caches, specs: Dict[str, PC.KVPageSpec],
+                      max_len: Optional[int] = None):
     """One continuous-batching decode step against paged pools (appended
     in place). tokens: (B,1); seq_lens: (B,) int32 lengths BEFORE this
     step (== rope position); block_table: (B, max_blocks) int32;
-    write_blocks/slots: (B,). Returns (logits (B,1,V), caches)."""
+    write_blocks/slots: (B,). ``max_len`` (host int, the longest length
+    after this step) lets MLA gather only the table's live columns.
+    Returns (logits (B,1,V), caches)."""
     positions = seq_lens[:, None].to(torch.int32)
     x = embed_tokens(params, cfg, tokens)
     win = _window(cfg)
     for gi, pi, li, g, p in _layers(params, cfg):
-        pools = caches[gi][pi]
+        pools = {name: pool[li] for name, pool in caches[gi][pi].items()}
         h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
-        out, _ = L.attention_decode_paged(
-            p["attn"], cfg, h, positions,
-            {"k_pool": pools["k_pool"][li], "v_pool": pools["v_pool"][li]},
-            block_table, seq_lens, write_blocks, write_slots, specs["kv"],
-            window=win)
+        if _is_mla(cfg):
+            out, _ = L.mla_decode_paged(
+                p["attn"], cfg, h, positions, pools, block_table, seq_lens,
+                write_blocks, write_slots, specs["ckv"], specs["kpe"],
+                max_len=max_len)
+        else:
+            out, _ = L.attention_decode_paged(
+                p["attn"], cfg, h, positions, pools, block_table, seq_lens,
+                write_blocks, write_slots, specs["kv"], window=win)
         x = _mlp_residual(p, cfg, g.moe, x + out)
     return lm_logits(params, cfg, x), caches

@@ -1,6 +1,6 @@
 """Model-instance engine: prefill, continuous-batching paged decode —
-PyTorch port of ``repro.serving.engine`` for the dense, sliding-window
-and MoE families.
+PyTorch port of ``repro.serving.engine`` for the dense, sliding-window,
+MoE and MLA families.
 
 One Engine == one "model instance" in the paper's sense (a P instance, a D
 instance, or an integrated instance). Vendor-specific VRAM management is
@@ -15,7 +15,10 @@ pool pages in a ``PrefixStore`` and a prefill engine keeps finished
 prompts' KV in a ``HostPrefixStore`` of CPU tensors. A sliding-window
 stream ships only the positions at or above its window floor, and can
 snapshot its window of KV rows mid-stream so that a retry on the same P
-resumes instead of recomputing. Not ported yet: layer states (recurrent,
+resumes instead of recomputing. An MLA engine keeps latent pools
+(``ckv_pool``, ``kpe_pool``: one KV "head" of the latent and of the rope
+key) and its wire entries are ``"mla"`` entries of ``ckv``/``kpe`` rows.
+Not ported yet: layer states (recurrent,
 SSM) and encoder or vision prompts (ROADMAP queue 1).
 """
 from __future__ import annotations
@@ -67,7 +70,15 @@ _RESUME_WARNED: set = set()
 
 def page_specs_for(cfg: ModelConfig, block_size: int, layout: str,
                    dtype: str) -> Dict[str, KVPageSpec]:
+    """{"kv": spec}, or for MLA {"ckv": ..., "kpe": ...}: one KV "head"
+    of width kv_lora_rank and one of width qk_rope_head_dim."""
     _dev.check_family(cfg)
+    if cfg.attention_kind == "mla":
+        m = cfg.mla
+        return {"ckv": KVPageSpec(block_size, layout, dtype, 1,
+                                  m.kv_lora_rank),
+                "kpe": KVPageSpec(block_size, layout, dtype, 1,
+                                  m.qk_rope_head_dim)}
     return {"kv": KVPageSpec(block_size, layout, dtype,
                              max(cfg.num_kv_heads, 1), cfg.hd)}
 
@@ -127,9 +138,14 @@ def kv_entries_with_start(package_kv: List[Tuple]) -> List[Tuple]:
     carries ``pos`` is a ring buffer (a sliding layer's last window) and
     is put in position order; any other holds positions 0.. in order.
     Returns [(kind, gi, pi, entry)] with entry tensors (count, S', kv, hd)
-    covering absolute positions [start, start+S')."""
+    — ``"mla"`` entries: ``ckv``/``kpe`` (count, S', dim) — covering
+    absolute positions [start, start+S')."""
     out = []
     for kind, gi, pi, ent in package_kv:
+        if kind == "mla":
+            out.append((kind, gi, pi, {"ckv": ent["ckv"], "kpe": ent["kpe"],
+                                       "start": 0}))
+            continue
         k, v, start = ent["k"], ent["v"], 0
         if "pos" in ent:
             k, start = _chronological(k, ent["pos"])
@@ -393,9 +409,14 @@ class PrefillStream:
         for gi, g in enumerate(M.block_groups(self.engine.cfg)):
             for pi, _kind in enumerate(g.kinds):
                 c = self._caches[gi][pi]
-                entries.append(("kv", gi, pi, {
-                    "k": c.k[:, 0, w0:w1], "v": c.v[:, 0, w0:w1],
-                    "start": w0}))
+                if self.caps.latent_kv:
+                    entries.append(("mla", gi, pi, {
+                        "ckv": c.ckv[:, 0, w0:w1], "kpe": c.kpe[:, 0, w0:w1],
+                        "start": w0}))
+                else:
+                    entries.append(("kv", gi, pi, {
+                        "k": c.k[:, 0, w0:w1], "v": c.v[:, 0, w0:w1],
+                        "start": w0}))
         return entries
 
     # -- mid-stream snapshot resume ------------------------------------- #
@@ -441,9 +462,11 @@ class PrefillStream:
         for _kind, gi, pi, ent in self._cached_entries:
             c = self._caches[gi][pi]
             s0 = int(ent["start"])
-            n = int(ent["k"].shape[1])
-            c.k[:, 0, s0:s0 + n] = ent["k"].to(c.k.device, c.k.dtype)
-            c.v[:, 0, s0:s0 + n] = ent["v"].to(c.v.device, c.v.dtype)
+            for name, t in ent.items():        # k, v or the latent ckv, kpe
+                if name != "start":
+                    n = int(t.shape[1])
+                    dst = getattr(c, name)
+                    dst[:, 0, s0:s0 + n] = t.to(dst.device, dst.dtype)
             c.pos[:, 0, s0:s0 + n] = torch.arange(
                 s0, s0 + n, dtype=c.pos.dtype, device=c.pos.device)
 
@@ -545,7 +568,10 @@ class Engine:
         for gi, g in enumerate(M.block_groups(cfg)):
             for pi, _kind in enumerate(g.kinds):
                 c = caches[gi][pi]
-                if c.capacity >= plen:
+                if cfg.attention_kind == "mla":
+                    kv.append(("mla", gi, pi, {"ckv": c.ckv[:, 0, :plen],
+                                               "kpe": c.kpe[:, 0, :plen]}))
+                elif c.capacity >= plen:
                     kv.append(("kv", gi, pi, {"k": c.k[:, 0, :plen],
                                               "v": c.v[:, 0, :plen]}))
                 else:
@@ -666,17 +692,23 @@ class Engine:
         self.slot_prefix_tokens[slot] = prefix_tokens
         return slot, np.asarray(block_ids, np.int32)
 
+    def _pool_spec(self, name: str) -> KVPageSpec:
+        """The page spec of pool ``name``: ``ckv_pool`` → specs["ckv"],
+        ``kpe_pool`` → specs["kpe"], ``k_pool``/``v_pool`` → specs["kv"]."""
+        return self.specs.get(name[:-len("_pool")], self.specs.get("kv"))
+
     def _copy_block(self, src: int, dst: int) -> None:
         """Copy one physical page across every paged pool (COW), every
-        layer: one ``repack`` per pool — on the card a gather kernel
-        into a separate buffer, then a scatter kernel, in stream order."""
-        spec = self.specs["kv"]
+        layer: one ``repack`` per pool with the pool's own spec — on the
+        card a gather kernel into a separate buffer, then a scatter
+        kernel, in stream order."""
         ids = torch.tensor([src, dst], dtype=torch.int32, device=self.device)
         for g in self.caches:
             for pools in g:
-                for name in ("k_pool", "v_pool"):
-                    kops.repack(spec, spec, pools[name], ids[:1],
-                                pools[name], ids[1:], self.block_size)
+                for name, pool in pools.items():
+                    spec = self._pool_spec(name)
+                    kops.repack(spec, spec, pool, ids[:1], pool, ids[1:],
+                                self.block_size)
 
     def activate_sequence(self, slot: int, first_token: int,
                           seq_len: int) -> None:
@@ -773,7 +805,8 @@ class Engine:
         logits, self.caches = M.decode_step_paged(
             self.params, self.cfg, dev(self.last_token[:, None]),
             dev(self.seq_lens), dev(self.block_tables), dev(write_blocks),
-            dev(write_slots), self.caches, self.specs)
+            dev(write_slots), self.caches, self.specs,
+            max_len=int(self.seq_lens[active].max()) + 1)
         logits = logits[:, 0].float().cpu().numpy()
         out = []
         for slot in active:

@@ -127,6 +127,79 @@ def test_flash_kernel_refuses_what_tma_cannot_take(cuda, what):
     assert ops.launch_counts()["flash_attention"] == 0
 
 
+# (b, h, kv, sq, skv, dk, dv, q_offset, kv_len, window): a value head dim
+# below the key head dim, as MLA's prefill has it (dk 192 = 128 nope + 64
+# rope, dv 128): the two instances of the bf16 kernel (dk padded to 128
+# and to 192), GQA, a chunk at q_offset over a longer cache, kv_len < Skv,
+# a window across a key tile's edge, and the last 500-token chunk of a
+# long prompt at DeepSeek-V2-Lite's 16 heads
+FLASH_DV_CASES = [(1, 4, 4, 16, 16, 32, 16, 0, 16, 0),
+                  (2, 8, 2, 24, 48, 64, 32, 0, 48, 0),
+                  (1, 8, 2, 157, 1000, 160, 128, 600, 1000, 0),
+                  (1, 16, 16, 130, 400, 192, 128, 200, 330, 0),
+                  (1, 4, 4, 260, 260, 192, 128, 0, 260, 100),
+                  (1, 16, 16, 500, 2000, 192, 128, 1500, 2000, 0),
+                  (2, 4, 4, 200, 200, 192, 64, 0, 200, 0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,sq,skv,dk,dv,q_offset,kv_len,window",
+                         FLASH_DV_CASES)
+def test_flash_kernel_value_head_dim(cuda, dtype, b, h, kv, sq, skv, dk, dv,
+                                     q_offset, kv_len, window):
+    """v narrower than q and k, all passed transposed from (B, S, H, d)
+    tensors as the model passes them; the output takes v's head dim."""
+    rng = np.random.default_rng(sq + dk + dv)
+    q = _rand(rng, (b, sq, h, dk), dtype, cuda).transpose(1, 2)
+    k = _rand(rng, (b, skv, kv, dk), dtype, cuda).transpose(1, 2)
+    v = _rand(rng, (b, skv, kv, dv), dtype, cuda).transpose(1, 2)
+    args = dict(causal=True, window=window, q_offset=q_offset, kv_len=kv_len,
+                scale=1.0 / np.sqrt(dk))
+    got = ops.flash_attention(q, k, v, **args)
+    want = ref.flash_attention_ref(q, k, v, **args)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h, sq, dv)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("dk,dv", [(24, 16), (40, 24), (192, 100)])
+def test_flash_kernel_value_head_dim_float32_any_width(cuda, dk, dv):
+    """float32 takes head dims that are not multiples of 16: the tiny MLA
+    config's 24 / 16 among them."""
+    rng = np.random.default_rng(dk)
+    q = _rand(rng, (1, 4, 37, dk), "float32", cuda)
+    k = _rand(rng, (1, 4, 90, dk), "float32", cuda)
+    v = _rand(rng, (1, 4, 90, dv), "float32", cuda)
+    got = ops.flash_attention(q, k, v, q_offset=53)
+    want = ref.flash_attention_ref(q, k, v, q_offset=53)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=ATOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_mla_operands(cuda, dtype):
+    """The operands as ``mla_block`` builds them: K = k_nope ‖ kpe
+    broadcast over heads (contiguous, 192 wide), V a strided slice of the
+    expanded latent (B, S, H, 256)[..., 128:], scale 1/sqrt(192)."""
+    rng = np.random.default_rng(3)
+    b, s, h = 1, 300, 16
+    ukv = _rand(rng, (b, s, h, 256), dtype, cuda)
+    kpe = _rand(rng, (b, s, 64), dtype, cuda)
+    q = _rand(rng, (b, s, h, 192), dtype, cuda)
+    k = torch.cat([ukv[..., :128], kpe[:, :, None].expand(b, s, h, 64)], -1)
+    v = ukv[..., 128:]
+    args = dict(causal=True, scale=1.0 / np.sqrt(192))
+    got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), **args)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), **args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=ATOL[dtype])
+
+
 def _paged(rng, b, h, kv, d, bs, pages, dtype, layout, device):
     n = b * pages + 1
     spec = KVPageSpec(bs, layout, dtype, kv, d)
@@ -389,6 +462,41 @@ def _pool_and_ids(rng, spec, layers, n_blocks, nb, device):
                  device)
     ids = rng.permutation(np.arange(1, n_blocks, 2))[:nb].astype(np.int32)
     return pool, torch.from_numpy(ids).to(device)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("hd", [512, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_latent_pool_gather_overlay_repack(cuda, layout, hd, dtype):
+    """MLA's latent pools: one KV "head" of width 512 (ckv) or 64 (kpe),
+    block 32, 3 layers. The decode step's gather of a block table (with a
+    repeated scratch page), the D-side overlay of a 70-row chunk landing
+    at row 20 of a page, and the prefix cache's in-place page copy, each
+    bit-identical to the plain version; other pages keep their bits."""
+    spec = KVPageSpec(32, layout, dtype, 1, hd)
+    rng = np.random.default_rng(hd)
+    pool, ids = _pool_and_ids(rng, spec, 3, 23, 6, cuda)
+    table = torch.cat([ids, ids[:1].new_zeros(2)])     # + the scratch page
+    got = ops.gather_pages(spec, pool, table)
+    want = ref.gather_pages_ref(spec, pool, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    before = pool.clone()
+    rows = _rand(rng, (3, 70, 1, hd), dtype, cuda)
+    want = ref.scatter_pages_overlay_ref(spec, pool.clone(), ids[:3], rows,
+                                         front=20, seq_len=70)
+    got = ops.scatter_pages_overlay(spec, pool, ids[:3], rows, front=20,
+                                    seq_len=70)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    keep = [i for i in range(23) if i not in ids[:3].tolist()]
+    assert torch.equal(pool[:, keep], before[:, keep])
+    pair = ids[3:5].clone()
+    want = ref.repack_ref(spec, spec, pool.clone(), pair[:1], pool.clone(),
+                          pair[1:], 32)
+    got = ops.repack(spec, spec, pool, pair[:1], pool, pair[1:], 32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -705,3 +813,73 @@ def _to_cpu(tree):
     if isinstance(tree, tuple):
         return tuple(_to_cpu(v) for v in tree)
     return tree.cpu()
+
+
+MLA_TINY = dict(name="mla-t", family="dense", num_layers=3, d_model=64,
+                num_heads=4, num_kv_heads=4, head_dim=16, d_ff=128,
+                vocab_size=256, attention_kind="mla",
+                mla=dict(kv_lora_rank=32, qk_nope_head_dim=16,
+                         qk_rope_head_dim=8, v_head_dim=16),
+                param_dtype="float32", compute_dtype="float32")
+
+
+@pytest.mark.parametrize("moe", [False, True])
+@pytest.mark.parametrize("chunk,wire,prefix_cache", [
+    (None, ("raw", "float32"), False), (7, ("raw", "bfloat16"), False),
+    (7, ("int8", "bfloat16"), False), (8, ("raw", "float32"), True)])
+def test_mla_serving_on_card_matches_cpu(cuda, moe, chunk, wire,
+                                         prefix_cache):
+    """MLA (tiny: q/k 24, v 16 wide, latent 32 + 8, float32, so the
+    float32 flash kernel; with ``moe`` a DeepSeek-shaped MoE of 4 experts
+    top 2, one shared, a dense first layer) disaggregated on the card
+    against the same path on the CPU: greedy tokens identical; exactly
+    flash, the overlay and gather launch (and with the prefix cache the
+    copy-on-write page copy's gather, scatter and repack)."""
+    kw = dict(MLA_TINY)
+    if moe:
+        kw.update(family="moe", moe=dict(num_experts=4, num_shared_experts=1,
+                                         top_k=2, d_ff_expert=32,
+                                         first_dense_layers=1))
+    cfg = config_from_dict(kw)
+    params = TM.init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(12)
+    head = rng.integers(0, 256, 18).astype(np.int32)
+    prompts = [np.concatenate([head, rng.integers(0, 256, n).astype(np.int32)])
+               if prefix_cache else rng.integers(0, 256, 11 + n)
+               .astype(np.int32) for n in (3, 7, 12)]
+
+    def serve(dev, p):
+        ekw = dict(num_blocks=64, max_batch=4, max_seq_len=64, device=dev,
+                   prefix_cache=prefix_cache)
+        pe = Engine("P0", cfg, p, VendorProfile("b", block_size=8,
+                                                 layout="nhbd", tp=2),
+                    role="prefill", **ekw)
+        de = Engine("D0", cfg, p, VendorProfile("a", block_size=4,
+                                                 layout="nhdb", tp=1),
+                    role="decode", **ekw)
+        sched = GlobalScheduler(DisaggPipeline(TransferEngine(),
+                                               WireFormat(*wire)),
+                                prefill_chunk=chunk, device=dev)
+        sched.add_instance(pe)
+        sched.add_instance(de)
+        out = []
+        for i, pr in enumerate(prompts):     # one by one: the cache hits
+            req = Request(f"r{i}", pr, 6)
+            sched.submit(req)
+            for _ in range(400):
+                if req.done:
+                    break
+                sched.step()
+            out.append(req.output_tokens)
+        return out
+
+    ops.reset_launch_counts()
+    got = serve(cuda, params)
+    counts = ops.launch_counts()
+    want = serve(torch.device("cpu"), _to_cpu(params))
+    assert got == want and all(len(t) == 6 for t in got)
+    launched = {k for k, n in counts.items() if n > 0}
+    expect = {"flash_attention", "gather_pages", "scatter_pages_overlay"}
+    if prefix_cache:
+        expect |= {"scatter_pages", "repack"}
+    assert launched == expect, counts

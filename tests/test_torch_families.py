@@ -1,10 +1,13 @@
-"""The port's sliding-window and MoE families against the JAX package's,
-on the CPU in float32.
+"""The port's sliding-window, MoE and MLA families against the JAX
+package's, on the CPU in float32.
 
-Configs: the tiny ``sliding`` (window 8) and ``moe`` (4 experts, top 2,
-one shared expert, one dense first layer) of ``tests/conftest.py``, and
-``MIXTRAL_TINY`` below (MoE over sliding attention, as Mixtral: window 8,
-4 experts, top 2, no shared expert, no dense layer, 2 KV heads). Every
+Configs: the tiny ``sliding`` (window 8), ``moe`` (4 experts, top 2, one
+shared expert, one dense first layer) and ``mla`` (latent 32, nope 16,
+rope 8, v 16) of ``tests/conftest.py``, ``MIXTRAL_TINY`` below (MoE over
+sliding attention, as Mixtral: window 8, 4 experts, top 2, no shared
+expert, no dense layer, 2 KV heads) and ``DEEPSEEK_TINY`` (MoE over MLA,
+as DeepSeek-V2-Lite: tiny ``mla``'s attention, ``moe``'s experts, one
+dense first layer). MLA's own cases are in tests/test_torch_mla.py. Every
 case runs the reference's parameters carried across
 (``params_from_numpy``) and holds the port to ``repro``: logits within
 atol 1e-4 (XLA's CPU einsum and torch's matmul sum in different orders);
@@ -35,7 +38,7 @@ from repro.serving.engine import PrefillMode as JMode
 from repro.serving.engine import VendorProfile as JVendor
 from repro.serving.request import Request as JRequest
 from repro.serving.scheduler import GlobalScheduler as JSched
-from repro.configs.base import MoEConfig
+from repro.configs.base import MLAConfig, MoEConfig
 from repro_torch.configs.base import config_from_dict
 from repro_torch.core.compat.precision import WireFormat
 from repro_torch.core.disagg import DisaggPipeline
@@ -54,7 +57,14 @@ MIXTRAL_TINY = tiny("mixtral-tiny", family="moe", attention_kind="sliding",
                     moe=MoEConfig(num_experts=4, num_shared_experts=0,
                                   top_k=2, d_ff_expert=32,
                                   first_dense_layers=0))
-CONFIGS = dict(TINY_FAMILIES, **{MIXTRAL_TINY.name: MIXTRAL_TINY})
+DEEPSEEK_TINY = tiny("deepseek-tiny", family="moe", attention_kind="mla",
+                     mla=MLAConfig(kv_lora_rank=32, qk_nope_head_dim=16,
+                                   qk_rope_head_dim=8, v_head_dim=16),
+                     moe=MoEConfig(num_experts=4, num_shared_experts=1,
+                                   top_k=2, d_ff_expert=32,
+                                   first_dense_layers=1))
+CONFIGS = dict(TINY_FAMILIES, **{MIXTRAL_TINY.name: MIXTRAL_TINY,
+                                 DEEPSEEK_TINY.name: DEEPSEEK_TINY})
 WIRES = [("raw", "float32"), ("raw", "bfloat16"), ("int8", "bfloat16")]
 P_VENDOR = dict(block_size=8, layout="nhbd", kv_dtype="float32", tp=2)
 D_VENDOR = dict(block_size=4, layout="nbhd", kv_dtype="float32", tp=1)
@@ -121,7 +131,8 @@ def _ref_tokens(name, chunk=None):
 # --------------------------------------------------------------------- #
 # layers: MoE and the ring cache
 # --------------------------------------------------------------------- #
-@pytest.mark.parametrize("name", ["moe", MIXTRAL_TINY.name])
+@pytest.mark.parametrize("name", ["moe", MIXTRAL_TINY.name,
+                                  DEEPSEEK_TINY.name])
 def test_moe_route_and_mlp_match_reference(name):
     """Router weights and choices, and the whole MoE MLP (shared expert
     included), on the same tokens and the second group's first layer."""
@@ -201,6 +212,8 @@ def test_kv_cache_ring_buffer_sliding_window():
     ("moe", (True, False, True, False, True, 0)),
     ("sliding", (True, True, False, False, True, 8)),
     (MIXTRAL_TINY.name, (True, True, False, False, True, 8)),
+    ("mla", (True, False, True, False, True, 0)),
+    (DEEPSEEK_TINY.name, (True, False, True, False, True, 0)),
 ])
 def test_prefill_capabilities_rows(fam, want):
     """(incremental, resumable, prefix_cache, encoder_preamble,
@@ -352,7 +365,8 @@ def test_ring_package_pools_bit_identical(layout, how):
 # --------------------------------------------------------------------- #
 # serving: chunked = monolithic, disagg = integrated
 # --------------------------------------------------------------------- #
-@pytest.mark.parametrize("name", ["moe", "sliding", MIXTRAL_TINY.name])
+@pytest.mark.parametrize("name", ["moe", "sliding", MIXTRAL_TINY.name, "mla",
+                                  DEEPSEEK_TINY.name])
 def test_chunked_streaming_token_exact_vs_monolithic(name):
     """prefill_chunk=4 (incremental compute, chunked wire) emits the
     monolithic scheduler's tokens, which are the reference's; the wire
@@ -372,6 +386,11 @@ def test_chunked_streaming_token_exact_vs_monolithic(name):
     ("moe", dict(block_size=8, layout="nhbd", kv_dtype="float32", tp=2),
      dict(block_size=4, layout="nbhd", kv_dtype="float32", tp=1)),
     (MIXTRAL_TINY.name,
+     dict(block_size=8, layout="nhbd", kv_dtype="float32", tp=2),
+     dict(block_size=4, layout="nhdb", kv_dtype="float32", tp=1)),
+    ("mla", dict(block_size=4, layout="nhdb", kv_dtype="float32", tp=2),
+     dict(block_size=8, layout="nbhd", kv_dtype="float32", tp=1)),
+    (DEEPSEEK_TINY.name,
      dict(block_size=8, layout="nhbd", kv_dtype="float32", tp=2),
      dict(block_size=4, layout="nhdb", kv_dtype="float32", tp=1)),
 ])

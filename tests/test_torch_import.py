@@ -142,12 +142,11 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
 
 
 def test_other_families_raise_not_implemented():
-    """Sliding window and MoE are ported; MLA, recurrent, SSM, enc-dec and
-    VLM are not, nor a "moe" family with no experts."""
+    """Sliding window, MoE and MLA are ported; recurrent, SSM, enc-dec and
+    VLM are not, nor a "moe" family with no experts, nor MLA without its
+    sub-config."""
     for kw in (dict(family="moe"),
-               dict(attention_kind="mla",
-                    mla=dict(kv_lora_rank=32, qk_nope_head_dim=16,
-                             qk_rope_head_dim=8, v_head_dim=16)),
+               dict(attention_kind="mla"),
                dict(family="hybrid", attention_kind="sliding",
                     sliding_window=8,
                     recurrent=dict(lru_width=64, d_conv=4,
