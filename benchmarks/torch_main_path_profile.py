@@ -4,20 +4,26 @@ Runs ``chip_smoke.phase3`` — llama2-7b at full width, bf16, one P and one
 D engine on one GPU, 8 requests of 256-2048 prompt tokens and 32 greedy
 output tokens, 500-token streamed prefill chunks — or, with ``--phase 6``,
 ``chip_smoke.phase6`` (Mixtral-8x7B, 24 layers, sliding window and MoE,
-8 requests of 2048-8192 tokens), or with ``--phase 7``
+8 requests of 2048-8192 tokens), with ``--phase 7``
 ``chip_smoke.phase7`` (DeepSeek-V2-Lite, 27 layers, MLA and MoE, the same
-8 prompts) — under ``torch.profiler`` (CPU + CUDA activity) around the
+8 prompts), or with ``--phase 8`` ``chip_smoke.phase8`` (RecurrentGemma-9B,
+38 layers, RG-LRU and local attention at head dim 256, the same 8
+prompts) — under ``torch.profiler`` (CPU + CUDA activity) around the
 serving loop only, and prints one JSON line: device time by kernel family
-(the port's kernels, flash at dk 192 apart, matrix products, copies,
-everything else), the top kernels by name, the device's idle share of
-the serving wall time, and for each profiler span of the port the host
-time inside it and the device time of the kernels it launched
-(``moe.group_sizes_to_host``: the MoE layer's read-back of its group
-sizes, which waits for the work queued before it; ``moe.expert_loop``:
-the per-expert products; ``mla.latent_attention``: paged MLA decode's
-float32 products in the latent space).
+(the port's kernels, flash at dk 192 and at dk 256 apart, matrix
+products, copies, everything else), the top kernels by name, the
+device's idle share of the serving wall time, and for each profiler span
+of the port the host time inside it and the device time of the kernels
+it launched (``moe.group_sizes_to_host``: the MoE layer's read-back of its
+group sizes, which waits for the work queued before it;
+``moe.expert_loop``: the per-expert products; ``mla.latent_attention``:
+paged MLA decode's float32 products in the latent space;
+``rglru.block``: a whole RG-LRU block, with inside it
+``rglru.f32_weights``, the gate weights' cast to float32, and
+``rglru.scan``, the recurrence). Spans may nest: a kernel counts in
+every span whose device range holds it.
 
-    PYTHONPATH=src python benchmarks/torch_main_path_profile.py [--phase 6|7]
+    PYTHONPATH=src python benchmarks/torch_main_path_profile.py [--phase 6|7|8]
 
 Needs a CUDA device (it fails without one). The kernels build first, as
 in ``chip_smoke.py``.
@@ -35,7 +41,8 @@ ROOT = Path(__file__).resolve().parents[1]
 # first match wins; a family matches if its name holds any one key. The
 # port's kernels are matched with their namespace separator, so PyTorch's
 # own kernels (vectorized_gather_kernel<...>, say) are not counted as ours.
-FAMILIES = (("flash_attention_dk192", ("flash_fwd_kernel_wgmma<192>",)),
+FAMILIES = (("flash_attention_dk192", ("Cfg<192",)),
+            ("flash_attention_dk256", ("Cfg<256",)),
             ("flash_attention", ("flash_fwd_kernel",)),
             ("paged_attention", ("::paged_split_kernel<",
                                  "::paged_combine_kernel<")),
@@ -63,10 +70,12 @@ def summarize(events, wall_s: float):
     ``user_annotation``; its device range (``gpu_user_annotation``) is an
     annotation, not work, and stays out of the busy time; the kernels that
     start inside a span's device range are its device time (one stream:
-    ranges do not overlap)."""
-    spans, ranges = {}, []
+    the ranges of one span name do not overlap, those of two names may
+    nest)."""
+    spans, ranges = {}, {}
     for e in events:
-        if e["name"].startswith(("moe.", "mla.")) and e.get("cat") in (
+        if e["name"].startswith(("moe.", "mla.", "rglru.")) and e.get(
+                "cat") in (
                 "user_annotation", "gpu_user_annotation"):
             host = e["cat"] == "user_annotation"
             row = spans.setdefault(e["name"], {"calls": 0, "host_ms": 0.0,
@@ -75,9 +84,11 @@ def summarize(events, wall_s: float):
             row["calls"] += host
             row["host_ms" if host else "device_range_ms"] += e["dur"] / 1e3
             if not host:
-                ranges.append((e["ts"], e["ts"] + e["dur"], e["name"]))
-    ranges.sort()
-    starts = [r[0] for r in ranges]
+                ranges.setdefault(e["name"], []).append(
+                    (e["ts"], e["ts"] + e["dur"]))
+    for rs in ranges.values():
+        rs.sort()
+    starts = {name: [r[0] for r in rs] for name, rs in ranges.items()}
     by_name = {}
     for e in events:
         if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
@@ -85,9 +96,10 @@ def summarize(events, wall_s: float):
         ms_e = e["dur"] / 1e3
         calls, ms = by_name.get(e["name"], (0, 0.0))
         by_name[e["name"]] = (calls + 1, ms + ms_e)
-        i = bisect.bisect_right(starts, e["ts"]) - 1
-        if i >= 0 and e["ts"] < ranges[i][1]:
-            spans[ranges[i][2]]["device_kernel_ms"] += ms_e
+        for name, rs in ranges.items():
+            i = bisect.bisect_right(starts[name], e["ts"]) - 1
+            if i >= 0 and e["ts"] < rs[i][1]:
+                spans[name]["device_kernel_ms"] += ms_e
     by_family = {}
     for name, (_, ms) in by_name.items():
         by_family[family(name)] = by_family.get(family(name), 0.0) + ms
@@ -129,7 +141,7 @@ def main() -> int:
     phase = int(sys.argv[sys.argv.index("--phase") + 1]) \
         if "--phase" in sys.argv else 3
     run = {3: chip_smoke.phase3, 6: chip_smoke.phase6,
-           7: chip_smoke.phase7}[phase]
+           7: chip_smoke.phase7, 8: chip_smoke.phase8}[phase]
     out = run(dev, around_serve=profiled)
     with open(trace) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]

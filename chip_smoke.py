@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, then runs eight phases, each printing JSON lines:
+nvcc, then runs nine phases, each printing JSON lines:
 
   0. card: name and power limit (``nvidia-smi``), kernel build time, and
      the count of HGMMA (wgmma), UTMALDG (TMA load), SYNCS (mbarrier),
@@ -107,13 +107,28 @@ nvcc, then runs eight phases, each printing JSON lines:
      exactly the latent's bytes (31,104 a token) plus the headers the
      codec adds; the last-token check of phase 3 and the float32
      first-token check on the bf16 prefill's expert choices hold. It
-     prints the latent's bytes per token beside expanded K and V's.
+     prints the latent's bytes per token beside expanded K and V's;
+  8. the hybrid RG-LRU family: first phase 2's path parity at
+     RecurrentGemma-9B's full width cut to its first 3 layers (rglru,
+     rglru, attn: the recurrent states carried through prefill, chunked
+     prefill and paged decode), then RecurrentGemma-9B at full width and
+     all 38 layers (26 RG-LRU + 12 local-attention layers of 16 query
+     heads on one KV head of 256, window 2048), bf16, random weights from
+     the seed, served to phase 6's eight prompts by phase 3's vendors with
+     P at TP 1 (one KV head does not split). Exactly flash, paged and the
+     overlay must launch; each request ships min(len, 2048) positions; the
+     wire bytes must equal what the window floors predict plus one tail a
+     request of the recurrent states (1,064,960 bytes); the progress
+     markers what the floors predict; the last-token check and phase 3's
+     float32 first-token check hold. Phase 1 adds flash, paged and the
+     overlay at this model's shapes (``phase1_rg``).
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
 processes report at shutdown). The kernels line gives each kernel's
 launches on every serving phase, and its timing at phase 7's MLA shape
-(``"mla"``) where phase 7 runs it.
+(``"mla"``) and phase 8's RecurrentGemma shape (``"rg"``) where those
+phases run it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the script exits non-zero. Without a CUDA device, or without
@@ -186,6 +201,14 @@ PHASE6_PROMPTS = (8192, 7000, 6100, 5000, 4600, 4097, 3000, 2048)
 # token; expanded per-head K and V would be 27 x 2 x 16 x 128 x 2 = 221,184
 MODEL7 = "deepseek-v2-lite-16b"
 PHASE7_KERNELS = ("flash_attention", "gather_pages", "scatter_pages_overlay")
+# phase 8: the hybrid RG-LRU family, RecurrentGemma-9B at full width and all
+# 38 layers (26 RG-LRU + 12 local MQA: 16 query heads on one KV head of
+# 256, window 2048), phase 6's prompts. One KV head cannot split over TP 2,
+# so P runs at TP 1. Each request's tail carries 26 x (4096 x 4 + 3 x 4096
+# x 2) = 1,064,960 bytes of recurrent state. Path parity at full width,
+# cut to its first 3 layers (rglru, rglru, attn), in float32
+MODEL8, PARITY8_LAYERS = "recurrentgemma-9b", 3
+P_VENDOR8 = dict(P_VENDOR, tp=1)
 
 
 def emit(obj) -> None:
@@ -999,6 +1022,7 @@ def phase1(dev):
         del a
     phase1_windowed(gen, dev)
     mla = phase1_mla(gen, dev)
+    rg = phase1_rg(gen, dev)
     timings["scatter_pages_overlay"] = phase1_overlay(gen, dev)
     from repro_torch.configs import get_config
     timings.update(phase1_pages(gen, dev, get_config(MODEL)))
@@ -1006,6 +1030,8 @@ def phase1(dev):
         emit({"phase": 1, "timing": name, **t})
     for name, t in mla.items():
         timings[name]["mla"] = t
+    for name, t in rg.items():
+        timings[name]["rg"] = t
     return timings
 
 
@@ -1172,8 +1198,8 @@ def phase1_mla(gen, dev):
     return out
 
 
-def stale_nan(args, bs, window):
-    """Copies of nbhd pools with NaN in every row of each sequence below
+def stale_nan(args, bs, window, layout="nbhd"):
+    """Copies of the pools with NaN in every row of each sequence below
     its window floor (``len - window``): the rows a D allocates but never
     writes, which hold whatever earlier sequences left there."""
     import torch
@@ -1183,10 +1209,202 @@ def stale_nan(args, bs, window):
         t = torch.arange(max(0, n - window), device=k.device)
         blks.append(table[b, t // bs].long())
         rows.append(t % bs)
+    blks, rows = torch.cat(blks), torch.cat(rows)
     kn, vn = k.clone(), v.clone()
     for pool in (kn, vn):
-        pool[torch.cat(blks), torch.cat(rows)] = float("nan")
+        if layout == "nbhd":
+            pool[blks, rows] = float("nan")
+        elif layout == "nhbd":
+            pool[blks, :, rows] = float("nan")
+        else:                                       # nhdb
+            pool[blks, :, :, rows] = float("nan")
     return q, kn, vn, table, lens
+
+
+def phase1_rg(gen, dev):
+    """The attention kernels at phase 8's shapes (RecurrentGemma-9B: 16
+    query heads on one KV head, head dim 256, window 2048). flash: small
+    shapes at head dims 256 / 256 and 208 / 160 in both dtypes against
+    the plain version; then the last 500-token chunk of the 8192-token
+    prompt (q_offset 7692, kv_len 8192) in bf16 against the yardstick
+    (SDPA with k/v repeated to 16 heads) and in float32 within 2e-5.
+    paged: phase 8's eight sequences at their last decode step in nbhd
+    (D's layout), nhbd and nhdb, with NaN in every stale row below each
+    floor — finite, bit-identical to the kernel on finite pools, within
+    the main-path bf16 limits of the plain version, and moved by the
+    window at least 10 times the kernel's error. Bounds count only keys
+    inside the window. overlay: every (front, rows) of phase 8's streamed
+    chunks into D's pools (12 layers, one KV head of 256), bit-identical
+    to the plain version, whole pages and the other layouts at fronts 24
+    and 0, and a 500-row chunk at front 24 also to ``index_copy_``.
+    Returns flash's, paged's and the overlay's timings at these shapes
+    (bf16, nbhd), keyed by kernel name."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RECURRENT
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+    cfg = get_config(MODEL8)
+    h, kv, d, win = cfg.num_heads, cfg.num_kv_heads, cfg.hd, \
+        cfg.sliding_window
+    n_small = 0
+    for dtype in ("float32", "bfloat16"):
+        for b, hh, kvh, sq, skv, dk, dv, q_off in [
+                (1, 16, 1, 70, 70, 256, 256, 0),
+                (2, 4, 2, 130, 300, 256, 256, 100),
+                (1, 4, 4, 65, 200, 208, 160, 0)]:
+            for window in (0, 50):
+                _flash_case(gen, dev, dtype, b, hh, kvh, sq, skv, dk, window,
+                            q_off, dv=dv)
+                n_small += 1
+    out = {}
+    c0, sq, skv = 7692, 500, 8192
+    args = dict(window=win, q_offset=c0, kv_len=skv)
+    keys = sq + win - 1                          # keys some row sees
+    flops = 4.0 * d * h * sq * win               # every row sees 2048 keys
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        q = _rand(gen, (1, h, sq, d), dt, dev)
+        k = _rand(gen, (1, kv, skv, d), dt, dev)
+        v = _rand(gen, (1, kv, skv, d), dt, dev)
+        got = ops.flash_attention(q, k, v, **args)
+        k_rep, v_rep = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
+        mask = flash_mask(sq, skv, c0, win, dev)
+        size = 2 if dtype == "bfloat16" else 4
+        b_ms, b_by = bound(flops, size * (2 * sq * h * d + 2 * keys * kv * d),
+                           dtype)
+        what = f"flash {dtype} RecurrentGemma chunk"
+        yard = None
+        if dtype == "float32":
+            err = _check(what, got, ref.flash_attention_ref(q, k, v, **args),
+                         dtype, False)
+        else:
+            want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           **args)
+            lib = F.scaled_dot_product_attention(q, k_rep, v_rep,
+                                                 attn_mask=mask)
+            torch.cuda.synchronize()
+            e, le = (got.float() - want).abs(), (lib.float() - want).abs()
+            yard = {"max_abs_err": float(e.max()),
+                    "mean_abs_err": float(e.mean()),
+                    "sdpa_max_abs_err": float(le.max()),
+                    "sdpa_mean_abs_err": float(le.mean())}
+            if not (yard["max_abs_err"]
+                    <= FLASH_VS_SDPA * yard["sdpa_max_abs_err"]
+                    and yard["mean_abs_err"]
+                    <= FLASH_VS_SDPA * yard["sdpa_mean_abs_err"]):
+                raise AssertionError(f"{what}: errors exceed {FLASH_VS_SDPA}"
+                                     f"x scaled_dot_product_attention's: "
+                                     f"{yard}")
+            err = yard["max_abs_err"]
+            del want, lib
+        row = dict(shape=f"q(1,{h},{sq},{d}) kv(1,{kv},{skv},{d}) "
+                         f"q_offset={c0} window={win} {dtype}",
+                   max_abs_err=err, yardstick=yard,
+                   **time_all(lambda: ops.flash_attention(q, k, v, **args),
+                              plain=lambda: ref.flash_attention_ref(
+                                  q, k, v, **args),
+                              library=lambda: F.scaled_dot_product_attention(
+                                  q, k_rep, v_rep, attn_mask=mask)),
+                   library="scaled_dot_product_attention, k/v repeated to "
+                           f"{h} heads, boolean mask",
+                   bound_ms=b_ms, bound_by=b_by)
+        emit({"phase": 1, "extra": f"flash_attention, RecurrentGemma chunk, "
+                                   f"{dtype}", **row})
+        out.setdefault("flash_attention", row)
+        del q, k, v, k_rep, v_rep, mask, got
+    bs = D_VENDOR["block_size"]
+    lens = [n + MAX_NEW for n in PHASE6_PROMPTS]
+    tokens = sum(min(n, win) for n in lens)
+    p_ms, p_by = bound(4.0 * d * h * tokens, 2.0 * 2 * tokens * kv * d
+                       + 2.0 * 2 * len(lens) * h * d, "bfloat16")
+    for layout in ("nbhd", "nhbd", "nhdb"):
+        pargs = _paged_inputs(gen, dev, "bfloat16", layout, len(lens), h, kv,
+                              d, bs, lens)
+        stale = stale_nan(pargs, bs, win, layout)
+        got = ops.paged_attention(*stale, layout=layout, window=win)
+        fin = ops.paged_attention(*pargs, layout=layout, window=win)
+        want = ref.paged_attention_ref(*pargs, layout=layout, window=win)
+        full = ref.paged_attention_ref(*pargs, layout=layout)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"paged {layout} at 16 x 256: non-finite "
+                                 "output with NaN below the floors")
+        if not torch.equal(got, fin):
+            raise AssertionError(f"paged {layout} at 16 x 256: NaN below the "
+                                 "floors changed the output")
+        err = _check(f"paged bf16 {layout} {(len(lens), h, kv, d, bs)} "
+                     f"window={win}", fin, want, "bfloat16", True)
+        effect = float((want.float() - full.float()).abs().max())
+        if not effect >= 10 * err:
+            raise AssertionError(f"paged {layout} at 16 x 256: window effect "
+                                 f"{effect} < 10x the kernel's error {err}")
+        row = dict(shape=f"q({len(lens)},{h},{d}) pools {layout} bs{bs} bf16,"
+                         f" {kv} KV head, seq_lens {lens}, window={win}",
+                   max_abs_err=err, window_effect=effect,
+                   finite_with_nan=True, equal_to_finite_pools=True,
+                   **time_all(lambda: ops.paged_attention(
+                                  *stale, layout=layout, window=win),
+                              plain=lambda: ref.paged_attention_ref(
+                                  *pargs, layout=layout, window=win)),
+                   bound_ms=p_ms, bound_by=p_by)
+        emit({"phase": 1, "extra": f"paged_attention, RecurrentGemma decode, "
+                                   f"{layout}", **row})
+        out.setdefault("paged_attention", row)
+        del pargs, stale, got, fin, want, full
+    # the overlay: every (front, rows) a streamed chunk of phase 8 has in
+    # D's pools (12 attention layers, one KV head of 256, block 32; the
+    # 7000-token prompt's floor 4952 lies 24 rows into a page), bit for
+    # bit; front 24 and 0 as whole pages and in the two other layouts
+    n_attn = sum(g.count * sum(k != RECURRENT for k in g.kinds)
+                 for g in M.block_groups(cfg))
+    starts = sorted({(c0 % bs, n) for pl in wire_plan(
+        PHASE6_PROMPTS, win, PREFILL_CHUNK) for c0, n in pl["chunks"]})
+    cases = [("nbhd", f, n, True) for f, n in starts] + [
+        (lay, f, PREFILL_CHUNK, rows) for lay in ("nbhd", "nhbd", "nhdb")
+        for f in (24, 0) for rows in (True, False)
+        if (lay, rows) != ("nbhd", True)]
+    for lay, f, n, rows in cases:
+        _overlay_case(gen, dev, lay, "bfloat16", "bfloat16", n_attn, bs, kv,
+                      d, f, n, rows)
+    front, s_rows = 24, PREFILL_CHUNK
+    _, (spec, pool, pids, canon) = _overlay_case(
+        gen, dev, "nbhd", "bfloat16", "bfloat16", n_attn, bs, kv, d, front,
+        s_rows, True)
+    r = torch.arange(front, front + s_rows, device=dev)
+    rows = pids.long()[r // bs] * bs + r % bs
+    flat = pool.view(n_attn, -1, kv * d)
+    src = canon.reshape(n_attn, s_rows, kv * d)
+    fresh = _rand(gen, tuple(pool.shape), pool.dtype, dev)
+    got = ops.scatter_pages_overlay(spec, fresh.clone(), pids, canon,
+                                    front=front, seq_len=s_rows)
+    lib = fresh.view(n_attn, -1, kv * d).index_copy_(1, rows, src)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(n_attn, -1, kv * d), lib):
+        raise AssertionError("overlay of a RecurrentGemma chunk differs "
+                             "from index_copy_")
+    del fresh, got, lib
+    b_ms, b_by = bound(0.0, 2.0 * 2 * n_attn * s_rows * kv * d, "bfloat16")
+    row = dict(shape=f"rows ({n_attn},{s_rows},{kv},{d}) into pool "
+                     f"({n_attn},N,{bs},{kv},{d}) nbhd bf16, front {front}",
+               max_abs_err=0.0, library_bit_identical=True,
+               **time_all(lambda: ops.scatter_pages_overlay(
+                              spec, pool, pids, canon, front=front,
+                              seq_len=s_rows),
+                          plain=lambda: ref.scatter_pages_overlay_ref(
+                              spec, pool, pids, canon, front=front,
+                              seq_len=s_rows),
+                          library=lambda: flat.index_copy_(1, rows, src)),
+               bound_ms=b_ms, bound_by=b_by)
+    emit({"phase": 1, "extra": "scatter_pages_overlay, RecurrentGemma chunk",
+          **row})
+    out["scatter_pages_overlay"] = row
+    del pool, canon, flat, src
+    emit({"phase": 1, "rg_checks": {"flash_small": n_small, "flash_chunk": 2,
+                                    "paged_layouts": 3,
+                                    "overlay": len(cases) + 1}})
+    return out
 
 
 def phase1_windowed(gen, dev):
@@ -1288,10 +1506,13 @@ def phase1_windowed(gen, dev):
 # --------------------------------------------------------------------------- #
 def run_path(cfg, params, dev, prompt):
     """Prefill, chunked prefill and PARITY_STEPS greedy paged decode steps
-    of one request. Returns (list of logits rows as float32 CPU tensors,
+    of one request: the decode starts from the prefill's KV re-paged into
+    pools and its recurrent states (a hybrid's) copied into the paged
+    caches' one slot. Returns (list of logits rows as float32 CPU tensors,
     greedy tokens)."""
     import torch
     from repro_torch.core.disagg import _repage_pool
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.serving.paged_cache import KVPageSpec
     s = len(prompt)
@@ -1311,11 +1532,17 @@ def run_path(cfg, params, dev, prompt):
     bs = 32
     spec = KVPageSpec(bs, "nbhd", cfg.compute_dtype, cfg.num_kv_heads, cfg.hd)
     nb = -(-(s + steps) // bs)
-    pools = M.init_paged_caches(cfg, {"kv": spec}, nb + 2, device=dev)
+    pools = M.init_paged_caches(cfg, {"kv": spec}, nb + 2, batch=1,
+                                device=dev)
     blocks = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)
-    for name, src in (("k_pool", caches[0][0].k), ("v_pool", caches[0][0].v)):
-        _repage_pool(spec, pools[0][0][name], blocks, src[:, 0, :s], 0,
-                     front=0, rmw=False)
+    for cg, pg in zip(caches, pools):
+        for c, dst in zip(cg, pg):
+            if not isinstance(dst, dict):          # a recurrent state
+                L.state_put(dst, c)
+                continue
+            for name, src in (("k_pool", c.k), ("v_pool", c.v)):
+                _repage_pool(spec, dst[name], blocks, src[:, 0, :s], 0,
+                             front=0, rmw=False)
     tok = int(torch.argmax(rows[0]))
     out = [tok]
     for step in range(steps):
@@ -1340,15 +1567,18 @@ def tree_to(tree, dev):
     return tree.to(dev)
 
 
-def phase2(dev):
+def phase2(dev, model=MODEL, layers=PARITY_LAYERS, phase=2):
+    """Path parity of ``model`` at full width cut to ``layers`` layers in
+    float32 with TF32 off: one PARITY_PROMPT-token request through
+    ``run_path`` on the card (the kernels) and on the CPU (the plain
+    versions); logits within PARITY_ATOL, the greedy tokens identical."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     torch.backends.cuda.matmul.allow_tf32 = False      # full float32 products
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config(MODEL).with_(num_layers=PARITY_LAYERS,
-                                  param_dtype="float32",
+    cfg = get_config(model).with_(num_layers=layers, param_dtype="float32",
                                   compute_dtype="float32")
     params = M.init_params(cfg, seed=SEED, device=dev)
     prompt = np.random.default_rng(SEED).integers(
@@ -1364,7 +1594,8 @@ def phase2(dev):
     t_cpu = time.perf_counter() - t0
     err = max((a - b).abs().max().item() for a, b in zip(rows_dev, rows_cpu))
     finite = all(bool(torch.isfinite(r).all()) for r in rows_dev)
-    result = {"phase": 2, "model": f"{cfg.name} x{cfg.num_layers} layers "
+    result = {"phase": phase, "parity": True,
+              "model": f"{cfg.name} x{cfg.num_layers} layers "
               f"{cfg.compute_dtype}", "prompt": PARITY_PROMPT,
               "logits_max_abs_err": err, "atol": PARITY_ATOL, "tf32": False,
               "tokens_device": toks_dev, "tokens_cpu": toks_cpu,
@@ -1485,7 +1716,7 @@ def moe_first_token_yardstick(cfg, params, dev, prompts, reqs):
         pos = torch.arange(toks.shape[1], device=dev)[None]
         xs = [M.embed_tokens(params, c, toks) for c in cfgs]
         last_flips, flipped, decisions, margin = [], 0, 0, 0.0
-        for layer, (_, _, _, g, p) in enumerate(M._layers(params, cfg)):
+        for layer, (_, _, _, _, g, p) in enumerate(M._layers(params, cfg)):
             hs = []
             for j, c in enumerate(cfgs):
                 h = L.rms_norm(p["norm1"], xs[j], c.norm_eps)
@@ -1914,21 +2145,22 @@ def wire_plan(lens, window, chunk):
     return out
 
 
-def phase6(dev, around_serve=contextlib.nullcontext):
-    """Mixtral-8x7B at full width (24 of its 32 layers), bf16, random
-    weights from SEED, served as phase 3 serves llama2-7b: the sliding
-    window through flash (key tiles skipped), paged (splits from the
-    floor's page) and the overlay (streams from a floor inside a page),
-    and the MoE MLP's per-expert products. ``around_serve`` as in
-    ``phase3``."""
+def serve_long_prompts(phase, cfg, p_vendor, dev, around_serve, kernels):
+    """The serving run phases 6-8 share: ``cfg`` in bf16 with random
+    weights from SEED, phase 6's eight prompts (MAX_NEW greedy tokens
+    each) served by one P (``p_vendor``) and phase 3's D over a raw bf16
+    wire in PREFILL_CHUNK-token chunks. The launch counts are set to 0
+    just before the serving loop and read just after; every request must
+    finish and exactly ``kernels`` must launch. Returns the run: weights,
+    requests, engines, pipe, scheduler, the positions each request
+    shipped, the server's result, launches and the loop's peak memory."""
     import collections
+    import types
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.compat.precision import WireFormat
     from repro_torch.core.disagg import DisaggPipeline
     from repro_torch.core.kv_transfer import TransferEngine
-    from repro_torch.core.transport.wirefmt import WireChunk
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine, VendorProfile
@@ -1936,9 +2168,7 @@ def phase6(dev, around_serve=contextlib.nullcontext):
     from repro_torch.serving.scheduler import GlobalScheduler
     from repro_torch.serving.server import Server
 
-    cfg = get_config(MODEL6).with_(num_layers=LAYERS6)
-    win = cfg.sliding_window
-    p_vendor, d_vendor = VendorProfile(**P_VENDOR), VendorProfile(**D_VENDOR)
+    d_vendor = VendorProfile(**D_VENDOR)
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
@@ -1985,34 +2215,112 @@ def phase6(dev, around_serve=contextlib.nullcontext):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     check_outputs(cfg, reqs)
-    check_launched(6, launches, PHASE3_KERNELS)
+    check_launched(phase, launches, kernels)
+    return types.SimpleNamespace(
+        params=params, params_gib=params_gib, setup_s=setup_s, reqs=reqs,
+        prompts=prompts, p_vendor=p_vendor, d_vendor=d_vendor, wire=wire,
+        p_eng=p_eng, d_eng=d_eng, pipe=pipe, sched=sched, shipped=shipped,
+        result=result, launches=launches, peak=peak)
+
+
+def serving_report(run) -> dict:
+    """The keys of the phase line that phases 6-8 share: the traffic, the
+    vendors, TTFT/TPOT/tok/s, memory, launches, P's and D's times and the
+    wire's."""
+    import numpy as np
+    ttft, tpot = run.result.ttft(), run.result.tpot()
+    p, d = run.p_eng.stats, run.d_eng.stats
+    st = run.pipe.transfer.stats
+    return {"requests": len(run.reqs), "prompt_lens": list(PHASE6_PROMPTS),
+            "max_new_tokens": MAX_NEW, "prefill_chunk": PREFILL_CHUNK,
+            "p_vendor": dataclasses.asdict(run.p_vendor),
+            "d_vendor": dataclasses.asdict(run.d_vendor),
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_max_s": float(ttft.max()),
+            "tpot_p50_s": float(np.percentile(tpot, 50)),
+            "output_tok_s": run.result.throughput_tok_s(),
+            "wall_s": run.result.wall_seconds, "setup_s": run.setup_s,
+            "params_gib": run.params_gib, "peak_mem_gib": run.peak,
+            "launches": run.launches,
+            "prefill_tokens": p.prefill_tokens,
+            "prefill_chunks": p.prefill_chunks,
+            "prefill_s": p.prefill_seconds,
+            "p_ms_per_chunk": 1e3 * p.prefill_seconds
+                / max(p.prefill_chunks, 1),
+            "decode_steps": d.decode_steps, "decode_s": d.decode_seconds,
+            "d_ms_per_step": 1e3 * d.decode_seconds / max(d.decode_steps, 1),
+            "chunks_streamed": run.sched.stats.chunks_streamed,
+            "positions_shipped": [run.shipped[r.req_id] for r in run.reqs],
+            "wire_bytes": st.bytes_moved,
+            "wire_payload_bytes": st.payload_bytes,
+            "wire_header_bytes": st.bytes_moved - st.payload_bytes,
+            "wire_handoff_s": st.wall_handoff_seconds,
+            "tokens_sha256": tokens_digest(run.reqs)}
+
+
+def check_window_wire(phase, run, win):
+    """Each request shipped min(len, window) positions, and P's chunks
+    wholly below the floor were progress markers, as ``wire_plan``
+    predicts. Returns the plan and the markers counted."""
+    plan = wire_plan(PHASE6_PROMPTS, win, PREFILL_CHUNK)
+    for r, n, pl in zip(run.reqs, PHASE6_PROMPTS, plan):
+        if not run.shipped[r.req_id] == pl["positions"] == min(n, win):
+            raise AssertionError(f"phase {phase}: {r.req_id} ({n} tokens) "
+                                 f"shipped {run.shipped[r.req_id]} "
+                                 f"positions, the floor says {min(n, win)}")
+    markers = run.p_eng.stats.prefill_chunks - run.sched.stats.chunks_streamed
+    want = sum(pl["markers"] for pl in plan)
+    if markers != want:
+        raise AssertionError(f"phase {phase}: {markers} progress markers, "
+                             f"the floors predict {want}")
+    return plan, markers
+
+
+def kv_chunk_bytes(cfg, wire, tp, start, length):
+    """A streamed chunk's bytes on ``wire``: one "kv" entry for each
+    attention position of each layer group (a recurrent position ships
+    no KV)."""
+    import torch
+    from repro_torch.configs.base import RECURRENT
+    from repro_torch.core.transport.wirefmt import WireChunk
+    from repro_torch.models import model as M
+    ents = [("kv", gi, pi, {"k": meta, "v": meta, "start": start})
+            for gi, g in enumerate(M.block_groups(cfg))
+            for pi, kind in enumerate(g.kinds) if kind != RECURRENT
+            for meta in [torch.empty((g.count, length, cfg.num_kv_heads,
+                                      cfg.hd), dtype=torch.bfloat16,
+                                     device="meta")]]
+    return WireChunk.from_entries(ents, wire, tp, seq_len=length).nbytes
+
+
+def phase6(dev, around_serve=contextlib.nullcontext):
+    """Mixtral-8x7B at full width (24 of its 32 layers), bf16, random
+    weights from SEED, served as phase 3 serves llama2-7b: the sliding
+    window through flash (key tiles skipped), paged (splits from the
+    floor's page) and the overlay (streams from a floor inside a page),
+    and the MoE MLP's per-expert products. ``around_serve`` as in
+    ``phase3``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import VendorProfile
+
+    cfg = get_config(MODEL6).with_(num_layers=LAYERS6)
+    win = cfg.sliding_window
+    run = serve_long_prompts(6, cfg, VendorProfile(**P_VENDOR), dev,
+                             around_serve, PHASE3_KERNELS)
+    params, prompts = run.params, run.prompts
     # the wire: min(len, window) positions per request, the bytes and the
     # progress markers the floors predict
-    plan = wire_plan(PHASE6_PROMPTS, win, PREFILL_CHUNK)
-    for r, n, pl in zip(reqs, PHASE6_PROMPTS, plan):
-        if not shipped[r.req_id] == pl["positions"] == min(n, win):
-            raise AssertionError(f"phase 6: {r.req_id} ({n} tokens) shipped "
-                                 f"{shipped[r.req_id]} positions, the floor "
-                                 f"says {min(n, win)}")
-
-    def chunk_bytes(start, length):
-        meta = torch.empty((cfg.num_layers, length, cfg.num_kv_heads,
-                            cfg.hd), dtype=torch.bfloat16, device="meta")
-        ent = {"k": meta, "v": meta, "start": start}
-        return WireChunk.from_entries([("kv", 0, 0, ent)], wire,
-                                      p_vendor.tp, seq_len=length).nbytes
-
-    want_bytes = sum(chunk_bytes(*c) for pl in plan for c in pl["chunks"])
-    got_bytes = pipe.transfer.stats.bytes_moved
+    plan, markers = check_window_wire(6, run, win)
+    want_bytes = sum(kv_chunk_bytes(cfg, run.wire, run.p_vendor.tp, *c)
+                     for pl in plan for c in pl["chunks"])
+    got_bytes = run.pipe.transfer.stats.bytes_moved
     if got_bytes != want_bytes:
         raise AssertionError(f"phase 6: wire bytes {got_bytes}, the floors "
                              f"predict {want_bytes}")
-    markers = p_eng.stats.prefill_chunks - sched.stats.chunks_streamed
-    if markers != sum(pl["markers"] for pl in plan):
-        raise AssertionError(f"phase 6: {markers} progress markers, the "
-                             f"floors predict {sum(pl['markers'] for pl in plan)}")
-    worst = last_token_gap(cfg, params, dev, reqs)
-    yard = moe_first_token_yardstick(cfg, params, dev, prompts, reqs)
+    worst = last_token_gap(cfg, params, dev, run.reqs)
+    yard = moe_first_token_yardstick(cfg, params, dev, prompts, run.reqs)
     # the window's effect on the last logits of the 8192-token prompt: an
     # observation, not a gate (the gate that the mask is applied is
     # phase 1's windowed paged row)
@@ -2023,35 +2331,15 @@ def phase6(dev, around_serve=contextlib.nullcontext):
     no_w, _ = M.prefill(params, full, {"tokens": toks},
                         M.init_caches(full, 1, len(prompts[0]), device=dev))
     effect = float((with_w.float() - no_w.float()).abs().max())
-    peak_all = torch.cuda.max_memory_allocated() / 2 ** 30
-    ttft, tpot = result.ttft(), result.tpot()
     out = {"phase": 6, "model": cfg.name, "layers": cfg.num_layers,
            "layers_published": get_config(MODEL6).num_layers,
            "dtype": cfg.compute_dtype, "window": win,
            "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
-           "requests": len(reqs), "prompt_lens": list(PHASE6_PROMPTS),
-           "max_new_tokens": MAX_NEW, "prefill_chunk": PREFILL_CHUNK,
-           "p_vendor": dataclasses.asdict(p_vendor),
-           "d_vendor": dataclasses.asdict(d_vendor),
-           "ttft_p50_s": float(np.percentile(ttft, 50)),
-           "ttft_max_s": float(ttft.max()),
-           "tpot_p50_s": float(np.percentile(tpot, 50)),
-           "output_tok_s": result.throughput_tok_s(),
-           "wall_s": result.wall_seconds, "setup_s": setup_s,
-           "params_gib": params_gib, "peak_mem_gib": peak,
-           "peak_mem_gib_with_checks": peak_all,
-           "launches": launches,
-           "prefill_tokens": p_eng.stats.prefill_tokens,
-           "prefill_chunks": p_eng.stats.prefill_chunks,
-           "prefill_s": p_eng.stats.prefill_seconds,
-           "decode_steps": d_eng.stats.decode_steps,
-           "decode_s": d_eng.stats.decode_seconds,
-           "chunks_streamed": sched.stats.chunks_streamed,
+           **serving_report(run),
+           "peak_mem_gib_with_checks":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
            "progress_markers_skipped": markers,
-           "positions_shipped": [shipped[r.req_id] for r in reqs],
-           "wire_bytes": got_bytes, "wire_bytes_predicted": want_bytes,
-           "wire_handoff_s": pipe.transfer.stats.wall_handoff_seconds,
-           "tokens_sha256": tokens_digest(reqs),
+           "wire_bytes_predicted": want_bytes,
            "last_token_logit_gap_max": worst,
            "first_token_gap_f32_max": max(y["gap"] for y in yard),
            "first_token_gap_f32_own_routing_max":
@@ -2074,57 +2362,16 @@ def phase7(dev, around_serve=contextlib.nullcontext):
     latent wire (``"mla"`` entries) re-paged by the overlay into the D
     engine's two latent pools, and each decode step's latent pages
     gathered by the gather kernel. ``around_serve`` as in ``phase3``."""
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.compat.precision import WireFormat
-    from repro_torch.core.disagg import DisaggPipeline
-    from repro_torch.core.kv_transfer import TransferEngine
     from repro_torch.core.transport.wirefmt import WireChunk
-    from repro_torch.kernels import ops
     from repro_torch.models import model as M
-    from repro_torch.serving.engine import Engine, VendorProfile
-    from repro_torch.serving.request import Request
-    from repro_torch.serving.scheduler import GlobalScheduler
-    from repro_torch.serving.server import Server
+    from repro_torch.serving.engine import VendorProfile
 
     cfg = get_config(MODEL7)
     m = cfg.mla
-    p_vendor, d_vendor = VendorProfile(**P_VENDOR), VendorProfile(**D_VENDOR)
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, seed=SEED, device=dev)
-    torch.cuda.synchronize()
-    params_gib = torch.cuda.memory_allocated() / 2 ** 30
-    rng = np.random.default_rng(SEED)
-    reqs = [Request(f"req{i}", rng.integers(0, cfg.vocab_size, n)
-                    .astype(np.int32), MAX_NEW)
-            for i, n in enumerate(PHASE6_PROMPTS)]
-    prompts = [r.prompt.copy() for r in reqs]
-    max_seq = max(PHASE6_PROMPTS) + MAX_NEW
-    bs = d_vendor.block_size
-    d_blocks = sum(-(-(n + MAX_NEW) // bs) for n in PHASE6_PROMPTS) + 1
-    p_eng = Engine("P0", cfg, params, p_vendor, num_blocks=2, max_batch=1,
-                   max_seq_len=max_seq, role="prefill", device=dev)
-    d_eng = Engine("D0", cfg, params, d_vendor, num_blocks=d_blocks,
-                   max_batch=len(reqs), max_seq_len=max_seq, role="decode",
-                   device=dev)
-    wire = WireFormat("raw", "bfloat16")
-    pipe = DisaggPipeline(TransferEngine(), wire)
-    sched = GlobalScheduler(pipe, prefill_chunk=PREFILL_CHUNK, device=dev)
-    sched.add_instance(p_eng)
-    sched.add_instance(d_eng)
-    setup_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    ops.reset_launch_counts()                      # count this path only
-    with around_serve():
-        result = Server(sched).serve(reqs, max_ticks=100_000)
-    launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-
-    check_outputs(cfg, reqs)
-    check_launched(7, launches, PHASE7_KERNELS)
+    run = serve_long_prompts(7, cfg, VendorProfile(**P_VENDOR), dev,
+                             around_serve, PHASE7_KERNELS)
     # the wire: every position of every prompt as latent rows, 500-token
     # chunks, two "mla" entries a chunk (the dense first layer, the 26 MoE
     # layers), each of two parts; the headers are what the codec adds
@@ -2139,25 +2386,24 @@ def phase7(dev, around_serve=contextlib.nullcontext):
             "kpe": torch.empty((g.count, length, m.qk_rope_head_dim),
                                dtype=torch.bfloat16, device="meta"),
             "start": start}) for gi, g in enumerate(groups)]
-        return WireChunk.from_entries(ents, wire, p_vendor.tp,
+        return WireChunk.from_entries(ents, run.wire, run.p_vendor.tp,
                                       seq_len=length).nbytes
 
     chunks = [(c0, min(PREFILL_CHUNK, n - c0)) for n in PHASE6_PROMPTS
               for c0 in range(0, n, PREFILL_CHUNK)]
     want_payload = sum(PHASE6_PROMPTS) * per_token
     want_bytes = sum(chunk_nbytes(*c) for c in chunks)
-    st = pipe.transfer.stats
+    st = run.pipe.transfer.stats
     if st.payload_bytes != want_payload or st.bytes_moved != want_bytes:
         raise AssertionError(f"phase 7: wire payload {st.payload_bytes} / "
                              f"bytes {st.bytes_moved}, the latent says "
                              f"{want_payload} / {want_bytes}")
-    if sched.stats.chunks_streamed != len(chunks):
-        raise AssertionError(f"phase 7: {sched.stats.chunks_streamed} chunks "
-                             f"streamed, {len(chunks)} expected")
-    worst = last_token_gap(cfg, params, dev, reqs)
-    yard = moe_first_token_yardstick(cfg, params, dev, prompts, reqs)
-    peak_all = torch.cuda.max_memory_allocated() / 2 ** 30
-    ttft, tpot = result.ttft(), result.tpot()
+    if run.sched.stats.chunks_streamed != len(chunks):
+        raise AssertionError(f"phase 7: {run.sched.stats.chunks_streamed} "
+                             f"chunks streamed, {len(chunks)} expected")
+    worst = last_token_gap(cfg, run.params, dev, run.reqs)
+    yard = moe_first_token_yardstick(cfg, run.params, dev, run.prompts,
+                                     run.reqs)
     out = {"phase": 7, "model": cfg.name, "layers": cfg.num_layers,
            "dtype": cfg.compute_dtype, "heads": cfg.num_heads,
            "kv_lora_rank": m.kv_lora_rank,
@@ -2165,34 +2411,11 @@ def phase7(dev, around_serve=contextlib.nullcontext):
            "v_head_dim": m.v_head_dim, "experts": cfg.moe.num_experts,
            "top_k": cfg.moe.top_k, "shared": cfg.moe.num_shared_experts,
            "params_b": cfg.param_count() / 1e9,
-           "requests": len(reqs), "prompt_lens": list(PHASE6_PROMPTS),
-           "max_new_tokens": MAX_NEW, "prefill_chunk": PREFILL_CHUNK,
-           "p_vendor": dataclasses.asdict(p_vendor),
-           "d_vendor": dataclasses.asdict(d_vendor),
-           "ttft_p50_s": float(np.percentile(ttft, 50)),
-           "ttft_max_s": float(ttft.max()),
-           "tpot_p50_s": float(np.percentile(tpot, 50)),
-           "output_tok_s": result.throughput_tok_s(),
-           "wall_s": result.wall_seconds, "setup_s": setup_s,
-           "params_gib": params_gib, "peak_mem_gib": peak,
-           "peak_mem_gib_with_checks": peak_all,
-           "launches": launches,
-           "prefill_tokens": p_eng.stats.prefill_tokens,
-           "prefill_chunks": p_eng.stats.prefill_chunks,
-           "prefill_s": p_eng.stats.prefill_seconds,
-           "p_ms_per_chunk": 1e3 * p_eng.stats.prefill_seconds
-               / max(p_eng.stats.prefill_chunks, 1),
-           "decode_steps": d_eng.stats.decode_steps,
-           "decode_s": d_eng.stats.decode_seconds,
-           "d_ms_per_step": 1e3 * d_eng.stats.decode_seconds
-               / max(d_eng.stats.decode_steps, 1),
-           "chunks_streamed": sched.stats.chunks_streamed,
-           "wire_bytes": st.bytes_moved, "wire_payload_bytes": st.payload_bytes,
-           "wire_header_bytes": st.bytes_moved - st.payload_bytes,
-           "wire_handoff_s": st.wall_handoff_seconds,
+           **serving_report(run),
+           "peak_mem_gib_with_checks":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
            "latent_bytes_per_token": per_token,
            "expanded_kv_bytes_per_token": expanded,
-           "tokens_sha256": tokens_digest(reqs),
            "last_token_logit_gap_max": worst,
            "first_token_gap_f32_max": max(y["gap"] for y in yard),
            "first_token_gap_f32_own_routing_max":
@@ -2200,6 +2423,79 @@ def phase7(dev, around_serve=contextlib.nullcontext):
            "last_logits_bf16_vs_f32_max_abs":
                max(y["bf16_vs_f32_max_abs"] for y in yard),
            "first_token_yardstick": yard}
+    emit(out)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 8: the hybrid RG-LRU family (RecurrentGemma-9B) at full width/depth
+# --------------------------------------------------------------------------- #
+def phase8(dev, around_serve=contextlib.nullcontext):
+    """RecurrentGemma-9B at full width and all 38 layers, bf16, random
+    weights from SEED, served to phase 6's prompts by a P at TP 1 and
+    phase 3's D: every chunk's 12 local-attention layers through flash at
+    dk = dv = 256 (16 heads on one KV head, window 2048) and the 26 RG-LRU
+    layers carrying their states from chunk to chunk; the window floor on
+    the wire and the overlay into D's pools; the states' tail placed into
+    D's slot at finalize; paged decode at 16 heads x 256 (two blocks a
+    group). ``around_serve`` as in ``phase3``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RECURRENT
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import VendorProfile
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MODEL8)
+    r = cfg.recurrent
+    win = cfg.sliding_window
+    run = serve_long_prompts(8, cfg, VendorProfile(**P_VENDOR8), dev,
+                             around_serve, PHASE3_KERNELS)
+
+    def numel(t):
+        if isinstance(t, dict):
+            return sum(numel(v) for v in t.values())
+        if isinstance(t, (tuple, list)):
+            return sum(numel(v) for v in t)
+        return t.numel()
+    plan, markers = check_window_wire(8, run, win)
+    # the wire: each chunk one "kv" entry (the 12 attention layers of the
+    # first group; the second group has none), plus per request the tail
+    # of every recurrent layer's h (float32) and conv tail (bf16)
+    groups = M.block_groups(cfg)
+    w = r.lru_width or cfg.d_model
+    n_rec = sum(g.count * g.kinds.count(RECURRENT) for g in groups)
+    tail_bytes = n_rec * (w * 4 + (r.d_conv - 1) * w * 2)
+    kv_bytes = sum(kv_chunk_bytes(cfg, run.wire, run.p_vendor.tp, *c)
+                   for pl in plan for c in pl["chunks"])
+    want_bytes = kv_bytes + len(run.reqs) * tail_bytes
+    got_bytes = run.pipe.transfer.stats.bytes_moved
+    if got_bytes != want_bytes:
+        raise AssertionError(f"phase 8: wire bytes {got_bytes}, the floors "
+                             f"and the state tails predict {want_bytes}")
+    report = serving_report(run)
+    del run.sched, run.p_eng, run.d_eng, run.pipe  # D's pools, for the checks
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = last_token_gap(cfg, run.params, dev, run.reqs)
+    gap32, err32 = first_token_yardstick(cfg, run.params, dev, run.prompts,
+                                         run.reqs)
+    out = {"phase": 8, "model": cfg.name, "layers": cfg.num_layers,
+           "layers_published": cfg.num_layers, "recurrent_layers": n_rec,
+           "dtype": cfg.compute_dtype, "window": win, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "head_dim": cfg.hd, "lru_width": w,
+           "params_b": numel(run.params) / 1e9,
+           "param_count_b": cfg.param_count() / 1e9,
+           **report,
+           "peak_mem_gib_with_checks":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "progress_markers_skipped": markers,
+           "wire_bytes_predicted": want_bytes,
+           "wire_kv_bytes": kv_bytes, "tail_bytes_per_request": tail_bytes,
+           "last_token_logit_gap_max": worst,
+           "first_token_gap_f32_max": gap32,
+           "last_logits_bf16_vs_f32_max_abs": err32,
+           "phase_s": time.perf_counter() - t_phase}
     emit(out)
     return out
 
@@ -2261,6 +2557,12 @@ def main() -> int:
     gc.collect()                         # Mixtral's weights: DeepSeek's turn
     torch.cuda.empty_cache()
     paths[7] = phase7(dev)
+    gc.collect()                         # DeepSeek's weights: RecurrentGemma's
+    torch.cuda.empty_cache()
+    phase2(dev, MODEL8, PARITY8_LAYERS, phase=8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths[8] = phase8(dev)
 
     rows = []
     for name, source, replaces, phase in KERNELS:
@@ -2276,11 +2578,12 @@ def main() -> int:
                "device_method": t["device_method"], "host_us": t["host_us"],
                "launches_by_phase": {ph: paths[ph]["launches"][name]
                                      for ph in sorted(paths)}}
-        if "mla" in t:                   # the same kernel at phase 7's shape
-            row["mla"] = {k: t["mla"][k] for k in (
-                "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
-                "library_ms", "library_device_ms", "bound_ms", "bound_by",
-                "host_us")}
+        for key in ("mla", "rg"):        # at phase 7's / phase 8's shapes
+            if key in t:
+                row[key] = {k: t[key][k] for k in (
+                    "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                    "library_ms", "library_device_ms", "bound_ms",
+                    "bound_by", "host_us")}
         if name == "repack":
             row["composition"] = "gather_pages + scatter_pages"
         rows.append(row)

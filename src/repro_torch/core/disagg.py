@@ -21,6 +21,13 @@ rows, rank 0's copy only (the latent is replicated across TP ranks), each
 re-paged into its own pool (``ckv_pool``, ``kpe_pool``) by
 ``_repage_mla_part``.
 
+A hybrid (RG-LRU) model also hands over its recurrent layer states: after
+the last KV chunk, the stream's *tail* (``{"states": [("state", gi, pi,
+{"h", "conv"})], "cross": []}``, one sequence's rows) is staged as a
+plain tree under its own key and placed into the D slot's state rows
+(``Engine.place_states``) before the slot is activated; its bytes count
+on the wire like a chunk's.
+
 A sliding-window stream starts at its window floor, which may lie inside
 one of D's pages: its first chunk lands ``front = start % block_size`` rows
 into that page. The streamed re-page keeps the page's rows below the floor
@@ -144,15 +151,19 @@ class DisaggPipeline:
     # D side: wire → pools
     # ------------------------------------------------------------------ #
     def materialize(self, d_engine: Engine, slot: int, block_ids: np.ndarray,
-                    payload: WireChunk, meta: Dict[str, Any], *,
+                    payload, meta: Dict[str, Any], *,
                     rmw: bool = False) -> None:
-        """Re-page a wire chunk into the D instance's pools (in place).
-        ``rmw`` keeps the untouched rows of partly covered pages — required
-        when streamed chunk boundaries do not align with D's block size."""
+        """Re-page a wire chunk into the D instance's pools (in place), or
+        place a stream's tail (``{"states", "cross"}``) into the slot's
+        state rows. ``rmw`` keeps the untouched rows of partly covered
+        pages — required when streamed chunk boundaries do not align with
+        D's block size."""
         if not isinstance(payload, WireChunk):
-            raise NotImplementedError(
-                "only fixed-codec wire chunks re-page in the port (the "
-                "ported families carry no state or cross-attention tail)")
+            if payload.get("cross"):
+                raise NotImplementedError(
+                    "cross-attention tails (enc-dec) are not ported")
+            d_engine.place_states(slot, payload["states"])
+            return
         dev = d_engine.device
         bids = torch.from_numpy(np.asarray(block_ids, np.int32)).to(dev)
 
@@ -186,10 +197,30 @@ class DisaggPipeline:
     # ------------------------------------------------------------------ #
     # Monolithic handoff (baseline transmission)
     # ------------------------------------------------------------------ #
+    def ship_tail(self, key: str, d_engine: Engine, slot: int,
+                  block_ids: np.ndarray, tail: Dict[str, Any],
+                  meta: Dict[str, Any]) -> int:
+        """Stage a stream's tail (recurrent states) under ``key``, read it
+        back and place it into ``slot``. Returns its staged bytes (0 when
+        the tail is empty: nothing is staged)."""
+        if not tail.get("states") and not tail.get("cross"):
+            return 0
+        tr = self.transfer
+        nbytes = tr.stage(key, {"states": tail["states"],
+                                "cross": tail["cross"]}, meta)
+        try:
+            payload, meta = tr.issue_read(key).wait()
+            self.materialize(d_engine, slot, block_ids, payload, meta)
+        except Exception:
+            tr.drop(key)
+            raise
+        tr.complete(key)
+        return nbytes
+
     def handoff(self, req: Request, p_engine: Engine, d_engine: Engine
                 ) -> Dict[str, Any]:
-        """prefill-package → stage → issue_read → wait → re-page. Returns
-        meta."""
+        """prefill-package → stage → issue_read → wait → re-page, then the
+        package's states as a tail. Returns meta."""
         self.transfer.register(p_engine.name, role="prefill")
         self.transfer.register(d_engine.name, role="decode")
         package = p_engine.prefill(req)
@@ -201,6 +232,7 @@ class DisaggPipeline:
                 "wire": self.wire}
         key = f"{req.req_id}@{p_engine.name}#t{req.retries}"
         nbytes = self.transfer.stage(key, chunk, meta)
+        tail_bytes: List[int] = []
         try:
             # a cross-process connector reads back only the chunk's own
             # meta (wire, tp_p, seq_len); first_token stays on this side
@@ -208,6 +240,8 @@ class DisaggPipeline:
 
             def materialize_fn(engine, slot, bids, _pkg):
                 self.materialize(engine, slot, bids, payload, meta)
+                tail_bytes.append(self.ship_tail(key + "tail", engine, slot,
+                                                 bids, package, meta))
 
             d_engine.add_sequence(req, {"first_token": meta["first_token"],
                                         "seq_len": meta["seq_len"]},
@@ -217,7 +251,7 @@ class DisaggPipeline:
             raise
         payload.release()              # drop views before the segment closes
         self.transfer.complete(key)
-        meta["bytes"] = nbytes
+        meta["bytes"] = nbytes + sum(tail_bytes)
         return meta
 
     # ------------------------------------------------------------------ #
@@ -390,13 +424,15 @@ class StreamedHandoff:
 
     def finalize(self, first_token: int, tail_package: Dict[str, Any]
                  ) -> Dict[str, Any]:
-        """Activate the D slot and account overlap (no ported family has a
-        state tail)."""
+        """Ship the recurrent states (the tail), activate the D slot,
+        account overlap."""
         assert not self._closed
-        assert not tail_package.get("states") and \
-            not tail_package.get("cross"), "state tails are not ported"
         self.drain()
         tr = self.pipeline.transfer
+        self.bytes += self.pipeline.ship_tail(
+            f"{self.req.req_id}@{self.p_engine.name}"
+            f"#t{self.req.retries}tail", self.d_engine, self.slot,
+            self.block_ids, tail_package, self.meta)
         self.d_engine.activate_sequence(self.slot, first_token, self.seq_len)
         if self.compute_overlapped:
             tr.stats.overlap_modeled_seconds += sum(

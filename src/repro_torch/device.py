@@ -5,6 +5,8 @@ from typing import Union
 
 import torch
 
+from repro_torch.configs.base import ATTN, RECURRENT
+
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -32,16 +34,21 @@ def resolve(device: DeviceLike = None) -> torch.device:
 def check_family(cfg) -> None:
     """The port covers the dense GQA/MHA family (optional qkv bias and
     qk-norm), sliding-window attention, multi-head latent attention (MLA,
-    DeepSeek-V2), and MoE MLPs over any of these (Mixtral, DeepSeek-V2-
-    Lite). Every other family (recurrent, SSM, enc-dec, VLM) stays in
-    ROADMAP queue 1 item 7."""
+    DeepSeek-V2), MoE MLPs over any of these (Mixtral, DeepSeek-V2-Lite)
+    and the hybrid of RG-LRU recurrent blocks and local attention
+    (Griffin / RecurrentGemma). Every other family (SSM, enc-dec, VLM)
+    stays in ROADMAP queue 1 item 7."""
     attention_ok = cfg.attention_kind in ("full", "sliding") or (
         cfg.attention_kind == "mla" and cfg.mla is not None)
-    family_ok = cfg.family == "dense" or (cfg.family == "moe" and cfg.is_moe)
+    hybrid = (cfg.family == "hybrid" and cfg.recurrent is not None
+              and cfg.attention_kind in ("full", "sliding") and not cfg.is_moe
+              and set(cfg.recurrent.block_pattern) <= {RECURRENT, ATTN})
+    family_ok = cfg.family == "dense" or hybrid or (
+        cfg.family == "moe" and cfg.is_moe)
     if (not attention_ok or not family_ok
             or (cfg.is_moe and cfg.family != "moe") or cfg.is_enc_dec
-            or cfg.recurrent is not None or cfg.ssm is not None
-            or cfg.frontend.kind != "none"):
+            or (cfg.recurrent is not None and not hybrid)
+            or cfg.ssm is not None or cfg.frontend.kind != "none"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (attention "
             f"{cfg.attention_kind!r}) is not ported yet — see ROADMAP "

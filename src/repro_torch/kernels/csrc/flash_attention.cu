@@ -18,28 +18,29 @@
 // score matrix never reaches device memory. 256 threads: four threads
 // share one query row, each scores 8 keys of the tile and owns every
 // fourth output column; the row's max and sum reduce with two warp
-// shuffles. Q and K rows hold the key head dim dk (up to 192: MLA's 128
-// nope + 64 rope columns), V rows and the output the value head dim dv (up
-// to 128); each thread owns dv / 4 output columns. Tiles wholly above the causal diagonal (taking the chunk's
+// shuffles. Q and K rows hold the key head dim dk (up to 256: MLA's 192 =
+// 128 nope + 64 rope columns, RecurrentGemma's 256), V rows and the output
+// the value head dim dv (up to dk); each thread owns dv / 4 output columns,
+// held in CPT registers: an instance with CPT 32 takes dv up to 128, one
+// with CPT 64 up to 256. Tiles wholly above the causal diagonal (taking the chunk's
 // absolute `q_offset` into account) or wholly outside the sliding window
 // are never loaded. GQA maps query head h to KV head h / grp by index.
 // q, k, v and o are read through (batch, head, seq) strides with a unit
 // stride on the head dimension, so the model hands in its (B, S, H, d)
 // activations without a transpose copy. Shared rows are padded to dk + 1
 // and dv + 1 floats (bank spread), so a launch takes what its head dims
-// need: ~74 KB at dk = dv = 128, ~99 KB at dk 192 / dv 128, above the
-// 48 KB default; the attribute is set once per process, to the largest.
+// need: ~74 KB at dk = dv = 128, ~99 KB at dk 192 / dv 128, ~140 KB at
+// 256 / 256, above the 48 KB default; the attribute is set once per
+// process and instance, to the largest that instance takes.
 #include "common.cuh"
 
 namespace {
 
 constexpr int BQ = 64;           // query rows per block
 constexpr int BK = 32;           // keys per tile
-constexpr int DKMAX = 192;       // largest key head dim (q, k)
-constexpr int DVMAX = 128;       // largest value head dim (v, o)
+constexpr int DKMAX = 256;       // largest key head dim (q, k)
 constexpr int THREADS = 256;     // 4 threads per query row
 constexpr int KPT = BK / 4;      // keys scored per thread per tile
-constexpr int CPT = DVMAX / 4;   // output columns owned per thread
 
 // Shared bytes of a launch: Q [BQ][dk+1], K [BK][dk+1], V [BK][dv+1],
 // P [BQ][BK+1] floats.
@@ -48,6 +49,8 @@ constexpr size_t smem_bytes(int dk, int dv) {
                           + (size_t)BQ * (BK + 1));
 }
 
+// CPT: output columns owned per thread (value head dim up to 4 * CPT).
+template <int CPT>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
@@ -175,6 +178,26 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The float32 launch of the instance with CPT output columns a thread.
+template <int CPT>
+int launch_f32(const float* q, const float* k, const float* v, float* o,
+               int B, int H, int KVH, int Sq, int DK, int DV, long long q_sb,
+               long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+               long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+               long long o_sb, long long o_sh, long long o_ss, float scale,
+               int causal, int window, int q_offset, int kv_len,
+               cudaStream_t s) {
+  static const cudaError_t attr =
+      rt::allow_smem(flash_fwd_kernel<CPT>, smem_bytes(DKMAX, 4 * CPT));
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_fwd_kernel<CPT><<<grid, THREADS, smem_bytes(DK, DV), s>>>(
+      q, k, v, o, H / KVH, Sq, DK, DV, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+      v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal, window, q_offset,
+      kv_len);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The bfloat16 kernel's launch (flash_attention_wgmma.cu).
@@ -187,7 +210,7 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          float scale, int causal, int window, int q_offset,
                          int kv_len, cudaStream_t stream);
 
-// DK: head dim of q and k; DV: head dim of v and o (DV <= min(DK, 128)).
+// DK: head dim of q and k; DV: head dim of v and o (DV <= DK <= 256).
 extern "C" int rt_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int B, int H, int KVH, int Sq, int DK, int DV,
@@ -197,7 +220,7 @@ extern "C" int rt_flash_attention(
     long long o_sb, long long o_sh, long long o_ss,
     float scale, int causal, int window, int q_offset, int kv_len,
     void* stream) {
-  if (DK > DKMAX || DK <= 0 || DV <= 0 || DV > DVMAX || DV > DK || KVH <= 0 ||
+  if (DK > DKMAX || DK <= 0 || DV <= 0 || DV > DK || KVH <= 0 ||
       H % KVH != 0)
     return (int)cudaErrorInvalidValue;
   if (Sq <= 0 || B <= 0) return 0;
@@ -208,14 +231,16 @@ extern "C" int rt_flash_attention(
                                 o_sh, o_ss, scale, causal, window, q_offset,
                                 kv_len, s);
   if (dtype != rt::kF32) return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr =
-      rt::allow_smem(flash_fwd_kernel, smem_bytes(DKMAX, DVMAX));
-  if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<<<grid, THREADS, smem_bytes(DK, DV), s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H / KVH, Sq, DK,
-      DV, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
-      o_ss, scale, causal, window, q_offset, kv_len);
-  return (int)cudaGetLastError();
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  if (DV <= 128)
+    return launch_f32<32>(qf, kf, vf, of, B, H, KVH, Sq, DK, DV, q_sb, q_sh,
+                          q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb,
+                          o_sh, o_ss, scale, causal, window, q_offset,
+                          kv_len, s);
+  return launch_f32<64>(qf, kf, vf, of, B, H, KVH, Sq, DK, DV, q_sb, q_sh,
+                        q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
+                        o_ss, scale, causal, window, q_offset, kv_len, s);
 }

@@ -28,6 +28,13 @@
 // store. The combine reads seq_lens on the device, so it visits only the
 // splits that hold pages.
 //
+// The head split. One block serves the query heads of its KV head, so K
+// and V are read once per group; a group wider than the lanes' registers
+// hold (more than 2048 flattened (head, dim) query elements: RecurrentGemma's
+// 16 heads x 256 on one KV head) is cut into `hs` blocks of grp / hs heads
+// each (grid axis y = KV head x hs), each of which reads the KV head's
+// pages (the second read may come from L2).
+//
 // Loads in flight. The block's 128 threads stage each page's K and V rows
 // of its KV head into a ring of 3 shared-memory stages (fewer where 3 do
 // not fit) with cp.async, 16 bytes per thread per copy where the pool's
@@ -39,14 +46,13 @@
 // through registers, without cp.async: a simpler path.
 //
 // Arithmetic, all float32. q lives in registers: lane l of every warp
-// holds elements j*128 + 4l .. 4l+3 of the group's flattened (head, dim)
+// holds elements j*128 + 4l .. 4l+3 of the block's flattened (head, dim)
 // query, head dims padded to 32, 64, 128 or 256. Each warp scores its own
 // rows of the page (a row's dot product is 4 products per lane and a
 // shuffle reduction over the lanes of its head) and keeps its own online
 // softmax state (running max and sum, computed across the lanes, no single
 // thread owning it) and accumulator; the block merges its 4 warps at the
-// end through shared memory. One block serves all query heads of its KV
-// head, so K/V are read from device memory once per group. The pool is
+// end through shared memory. The pool is
 // addressed through its (block, token, head, dim) strides, which is how one
 // kernel serves all three layouts. Idle decode slots point at the
 // engine's scratch block with seq_len 1 and read only that page.
@@ -128,15 +134,17 @@ __device__ __forceinline__ void stage_page(T* sk, T* sv, const T* kb,
 }
 
 // HD: head dim padded to 32/64/128/256; NJ: 128-element chunks of the
-// group's flattened query per lane (a power of two >= grp * HD / 128).
+// block's flattened query per lane (a power of two >= grp * HD / 128),
+// where grp is the block's query heads: a KV head's group over hs.
 template <typename T, int HD, int NJ>
 __global__ void __launch_bounds__(THREADS)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ table,
                    const int* __restrict__ lens, T* __restrict__ o,
                    float* __restrict__ part_acc, float* __restrict__ part_ml,
-                   int H, int grp, int d, int BS, int max_pages, int pps,
-                   int P, int nst, int cb, long long q_sb, long long q_sh,
+                   int H, int grp, int hs, int d, int BS, int max_pages,
+                   int pps, int P, int nst, int cb, long long q_sb,
+                   long long q_sh,
                    long long p_sn, long long p_st, long long p_sh,
                    long long p_sd, long long o_sb, long long o_sh,
                    float scale, int window) {
@@ -147,7 +155,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
 
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, kvh = blockIdx.y / hs, b = blockIdx.z;
+  const int h0 = blockIdx.y * grp;          // this block's first query head
   const int S = gridDim.x;
   const int seq_len = lens[b];
   const int n_pages = min((seq_len + BS - 1) / BS, max_pages);
@@ -167,7 +176,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     const int g = e / HD, c = e % HD;
     col[j] = c;
     live[j] = e < nq;
-    const T* qg = q + b * q_sb + (long long)(kvh * grp + g) * q_sh;
+    const T* qg = q + b * q_sb + (long long)(h0 + g) * q_sh;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       qr[j][i] = live[j] && c + i < d ? rt::to_f(qg[c + i]) : 0.f;
@@ -300,7 +309,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       L += Lw[w * grp + g] * f;
       A += Aw[w * nq + e] * f;
     }
-    const int h = kvh * grp + g;
+    const int h = h0 + g;
     if (S == 1) {
       o[b * o_sb + (long long)h * o_sh + c] = rt::from_f<T>(A / fmaxf(L, 1e-30f));
     } else {
@@ -352,7 +361,7 @@ struct Args {
   const int *table, *lens;
   void* o;
   float *part_acc, *part_ml;
-  int B, H, KVH, d, BS, max_pages, S, pps, P, nst, cb;
+  int B, H, KVH, hs, d, BS, max_pages, S, pps, P, nst, cb;
   long long q_sb, q_sh, p_sn, p_st, p_sh, p_sd, o_sb, o_sh;
   float scale;
   int window;
@@ -363,12 +372,13 @@ template <typename T, int HD, int NJ>
 int launch(const Args& a, size_t smem) {
   static const cudaError_t attr = rt::allow_smem(paged_split_kernel<T, HD, NJ>, SMEM_MAX);
   if (attr != cudaSuccess) return (int)attr;
-  paged_split_kernel<T, HD, NJ><<<dim3(a.S, a.KVH, a.B), THREADS, smem, a.stream>>>(
+  paged_split_kernel<T, HD, NJ><<<dim3(a.S, a.KVH * a.hs, a.B), THREADS, smem,
+                                  a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.kp),
       static_cast<const T*>(a.vp), a.table, a.lens, static_cast<T*>(a.o),
-      a.part_acc, a.part_ml, a.H, a.H / a.KVH, a.d, a.BS, a.max_pages, a.pps,
-      a.P, a.nst, a.cb, a.q_sb, a.q_sh, a.p_sn, a.p_st, a.p_sh, a.p_sd, a.o_sb,
-      a.o_sh, a.scale, a.window);
+      a.part_acc, a.part_ml, a.H, a.H / (a.KVH * a.hs), a.hs, a.d, a.BS,
+      a.max_pages, a.pps, a.P, a.nst, a.cb, a.q_sb, a.q_sh, a.p_sn, a.p_st,
+      a.p_sh, a.p_sd, a.o_sb, a.o_sh, a.scale, a.window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.S == 1) return (int)err;
   paged_combine_kernel<T><<<dim3(a.H, a.B), 128, 0, a.stream>>>(
@@ -391,7 +401,7 @@ int by_chunks(int nj, const Args& a, size_t smem) {
 
 template <typename T>
 int dispatch(const Args& a) {
-  const int grp = a.H / a.KVH;
+  const int grp = a.H / (a.KVH * a.hs);     // query heads per block
   const int HD = a.d <= 32 ? 32 : a.d <= 64 ? 64 : a.d <= 128 ? 128 : 256;
   const int nj = (grp * HD + 127) / 128;
   if (grp * HD > 16 * 128 || a.P % 4 != 0) return (int)cudaErrorInvalidValue;
@@ -407,18 +417,20 @@ int dispatch(const Args& a) {
 
 }  // namespace
 
-// n_splits blocks of pps pages per (KV head, sequence); part_acc (B,
+// n_splits blocks of pps pages per (KV head, sequence) and each of its hs
+// slices of grp / hs query heads; part_acc (B,
 // n_splits, H, D) and part_ml (B, n_splits, H, 2) float32 scratch when
 // n_splits > 1. P: staged row pitch in elements; nst: ring stages (1 to
 // 3); cb: bytes per cp.async (16, 8 or 4), 0 to stage through registers.
 extern "C" int rt_paged_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
     const void* seq_lens, void* o, void* part_acc, void* part_ml, int dtype,
-    int B, int H, int KVH, int D, int BS, int max_pages, int n_splits,
+    int B, int H, int KVH, int HS, int D, int BS, int max_pages, int n_splits,
     int pps, int P, int nst, int cb, long long q_sb, long long q_sh,
     long long p_sn, long long p_st, long long p_sh, long long p_sd,
     long long o_sb, long long o_sh, float scale, int window, void* stream) {
-  if (KVH <= 0 || H % KVH != 0 || D <= 0 || D > 256 || BS <= 0 ||
+  if (KVH <= 0 || HS <= 0 || H % (KVH * HS) != 0 || KVH * HS > 65535 ||
+      D <= 0 || D > 256 || BS <= 0 ||
       n_splits <= 0 || pps <= 0 || n_splits > 65535 || nst < 1 || nst > 3 ||
       P < D || (cb != 0 && (cb != 4 && cb != 8 && cb != 16)) ||
       (n_splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
@@ -426,9 +438,9 @@ extern "C" int rt_paged_attention(
   if (B <= 0) return 0;
   Args a{q, k_pool, v_pool, static_cast<const int*>(table),
          static_cast<const int*>(seq_lens), o, static_cast<float*>(part_acc),
-         static_cast<float*>(part_ml), B, H, KVH, D, BS, max_pages, n_splits,
-         pps, P, nst, cb, q_sb, q_sh, p_sn, p_st, p_sh, p_sd, o_sb, o_sh, scale,
-         window, static_cast<cudaStream_t>(stream)};
+         static_cast<float*>(part_ml), B, H, KVH, HS, D, BS, max_pages,
+         n_splits, pps, P, nst, cb, q_sb, q_sh, p_sn, p_st, p_sh, p_sd, o_sb,
+         o_sh, scale, window, static_cast<cudaStream_t>(stream)};
   if (dtype == rt::kF32) return dispatch<float>(a);
   if (dtype == rt::kBF16) return dispatch<__nv_bfloat16>(a);
   return (int)cudaErrorInvalidValue;

@@ -7,13 +7,16 @@ that holds positions 0..) and ``kv_len`` (keys at or past it are masked).
 
 The value head dim may be smaller than the key head dim, as in MLA's
 prefill (q and k 192 wide: 128 nope + 64 rope columns; v 128): the
-kernels take dk up to 192 and dv up to min(dk, 128) (``check_shapes``).
+kernels take dk up to 256 (RecurrentGemma's head dim) and dv up to dk
+(``check_shapes``).
 
 The dtype picks the kernel: bfloat16 runs the tensor-core kernel
-(``csrc/flash_attention_wgmma.cu``: wgmma, TMA, 128x128 tiles), float32
-the CUDA-core kernel (``csrc/flash_attention.cu``), since the tensor
-cores take float32 only as TF32. ``tile_plan`` is the bf16 kernel's
-launch plan in Python, so the CPU tests can hold it against the masks.
+(``csrc/flash_attention_wgmma.cu``: wgmma, TMA; 128x128 tiles up to dk
+192 and dv 128, 64x64 tiles above), float32 the CUDA-core kernel
+(``csrc/flash_attention.cu``), since the tensor cores take float32 only
+as TF32. ``tile_plan`` is the bf16 kernel's launch plan in Python, so the
+CPU tests can hold it against the masks (at 64 x 64 tiles for the wide
+instance).
 """
 from __future__ import annotations
 
@@ -27,8 +30,7 @@ from repro_torch.kernels import _build
 
 LAUNCHES = {"flash_attention": 0}      # kernel launches, by kernel name
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 192                     # q and k
-MAX_V_HEAD_DIM = 128                   # v and the output
+MAX_HEAD_DIM = 256                     # q and k; v and the output up to it
 BLOCK_M, BLOCK_N = 128, 128            # the bf16 kernel's query / key tiles
 TMA_ALIGN = 16                         # bytes: TMA's base and stride unit
 
@@ -95,9 +97,9 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kv_len: Optional[int] = None, q_offset: int = 0
                  ) -> Tuple[int, int, int]:
     """The kernels' shape rules, on any device: q (B,H,Sq,dk), k (B,KV,
-    Skv,dk), v (B,KV,Skv,dv) with H a multiple of KV, dk <= 192, dv <=
-    min(dk, 128), and in bfloat16 dk and dv multiples of 16. Returns (dk,
-    dv, kv_len); raises ValueError otherwise."""
+    Skv,dk), v (B,KV,Skv,dv) with H a multiple of KV, dv <= dk <= 256,
+    and in bfloat16 dk and dv multiples of 16. Returns (dk, dv, kv_len);
+    raises ValueError otherwise."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k and v must be 4-D")
     b, h, _, dk = q.shape
@@ -107,13 +109,11 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             tuple(k.shape[:3]):
         raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if (kvh <= 0 or h % kvh or dk > MAX_HEAD_DIM
-            or dv > min(dk, MAX_V_HEAD_DIM) or not 0 <= kv_len <= skv
-            or q_offset < 0):
+    if (kvh <= 0 or h % kvh or dk > MAX_HEAD_DIM or dv > dk
+            or not 0 <= kv_len <= skv or q_offset < 0):
         raise ValueError(f"flash_attention: unsupported h={h} kv={kvh} "
                          f"dk={dk} dv={dv} kv_len={kv_len} "
-                         f"q_offset={q_offset} (dk <= {MAX_HEAD_DIM}, dv <= "
-                         f"min(dk, {MAX_V_HEAD_DIM}))")
+                         f"q_offset={q_offset} (dv <= dk <= {MAX_HEAD_DIM})")
     if q.dtype == torch.bfloat16 and (dk % 16 or dv % 16):
         raise ValueError(f"flash_attention: bf16 head dims dk={dk} dv={dv}:"
                          " each must be a multiple of 16")

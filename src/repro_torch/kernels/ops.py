@@ -37,8 +37,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B,H,Sq,dk); k: (B,KV,Skv,dk); v: (B,KV,Skv,dv) → (B,H,Sq,dv).
     Query row i is at absolute position ``q_offset + i``; keys from
     ``kv_len`` on are masked; ``scale`` defaults to 1/sqrt(dk). On the
-    card, dk up to 192 and dv up to min(dk, 128) (MLA's prefill: 192 and
-    128); bfloat16 takes head dims that are multiples of 16 and 16-byte
+    card, dv <= dk <= 256 (MLA's prefill: 192 and 128; RecurrentGemma:
+    256 and 256); bfloat16 takes head dims that are multiples of 16 and 16-byte
     aligned pointers and (batch, head, seq) strides (TMA); float32 any
     head dims within those limits."""
     if _on_cuda(q, "flash_attention"):
@@ -55,7 +55,8 @@ def paged_attention(q, k_pool, v_pool, block_table, seq_lens, *,
                     window: int = 0) -> torch.Tensor:
     """Decode attention over paged pools in any layout. q: (B,H,d). On
     the card, each sequence's pages are split across blocks and the splits
-    merged in float32 within the call."""
+    merged in float32 within the call; a KV head's group wider than 2048
+    (query heads x padded head dim) is split evenly over blocks."""
     if _on_cuda(q, "paged_attention"):
         return _pa.paged_attention(q, k_pool, v_pool, block_table, seq_lens,
                                    layout=layout, scale=scale, window=window)

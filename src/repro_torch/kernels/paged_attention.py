@@ -8,8 +8,11 @@ through their strides, so a D vendor's native layout needs no permute.
 The kernel cuts each sequence's pages across blocks (``split_plan``) and,
 with more than one split, merges the splits' float32 partials in a second
 launch of the same call; ``launch_plan`` holds every other choice the
-host makes (padded head dim, stage row pitch, ring depth, shared memory),
-so the CPU tests can check them.
+host makes (padded head dim, the head split, stage row pitch, ring depth,
+shared memory), so the CPU tests can check them. A block holds at most
+2048 flattened (query head, padded dim) elements in its lanes' registers;
+a wider group (RecurrentGemma's 16 heads x 256 on one KV head: 4096) is
+cut into the fewest blocks that share its heads evenly (two there).
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ from repro_torch.serving.paged_cache import _FROM_CANON
 
 LAUNCHES = {"paged_attention": 0}      # wrapper calls that launched
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GROUP_DIM = 16 * 128          # query heads per KV head x padded head_dim
+BLOCK_GROUP_DIM = 16 * 128        # a block's query heads x padded head_dim
+MAX_GRID_Y = 65535                # KV heads x head split, CUDA's grid limit
 MAX_HEAD_DIM = 256
 SMEM_LIMIT = 227 * 1024
 WARPS = 4                         # warps per block of the split kernel
@@ -41,7 +45,7 @@ def _kernel():
     if _fn is None:
         f = _build.load().rt_paged_attention
         f.restype = ctypes.c_int
-        f.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
+        f.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
                       + [ctypes.c_longlong] * 8
                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         _fn = f
@@ -115,16 +119,22 @@ def stage_copy_bytes(k_pool: torch.Tensor, v_pool: torch.Tensor,
 
 def launch_plan(h: int, kvh: int, d: int, bs: int, elem_size: int,
                 copy_bytes: int) -> Dict[str, int]:
-    """Head dim padded to the lanes' layout (32, 64, 128 or 256), stage
-    row pitch (elements), ring stages and dynamic shared memory of one
-    launch; raises ValueError for a shape the kernel does not take."""
+    """Head dim padded to the lanes' layout (32, 64, 128 or 256), the
+    head split (blocks per KV head's group: the fewest that divide the
+    group into equal shares of at most BLOCK_GROUP_DIM query heads x
+    padded head dim, which the lanes hold in registers), stage row pitch
+    (elements), ring stages and dynamic shared memory of one launch;
+    raises ValueError for a shape the kernel does not take."""
     if kvh <= 0 or h % kvh or not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"paged_attention: unsupported h={h} kv={kvh} d={d}")
     grp = h // kvh
     hd = next(n for n in (32, 64, 128, MAX_HEAD_DIM) if d <= n)
-    if grp * hd > MAX_GROUP_DIM:
-        raise ValueError(f"paged_attention: {grp} query heads per KV head x "
-                         f"head_dim {d} (padded to {hd}) > {MAX_GROUP_DIM}")
+    hs = next(s for s in range(-(-grp * hd // BLOCK_GROUP_DIM), grp + 1)
+              if grp % s == 0)
+    if kvh * hs > MAX_GRID_Y:
+        raise ValueError(f"paged_attention: {kvh} KV heads x head split "
+                         f"{hs} > {MAX_GRID_Y} blocks on the grid's y axis")
+    grp //= hs
     if copy_bytes:                        # 16-byte aligned rows for cp.async
         unit = 16 // elem_size
         pitch = -(-d // unit) * unit
@@ -134,8 +144,8 @@ def launch_plan(h: int, kvh: int, d: int, bs: int, elem_size: int,
     for stages in (3, 2, 1):
         smem = max(stages * 2 * bs * pitch * elem_size, merge)
         if smem <= SMEM_LIMIT:
-            return {"head_dim": hd, "pitch": pitch, "stages": stages,
-                    "smem": smem}
+            return {"head_dim": hd, "head_split": hs, "pitch": pitch,
+                    "stages": stages, "smem": smem}
     raise ValueError(f"paged_attention: block_size {bs} x head_dim {d} needs "
                      f"{smem} bytes of shared memory > {SMEM_LIMIT}")
 
@@ -180,8 +190,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     cb = stage_copy_bytes(k_pool, v_pool, strides, d)
     plan = launch_plan(h, kvh, d, bs, q.element_size(), cb)
     max_pages = block_table.shape[1]
-    n_splits, pps = split_plan(max_pages, b, kvh, sm_count(q.device),
-                               BLOCKS_PER_SM, MIN_PAGES_PER_SPLIT)
+    n_splits, pps = split_plan(max_pages, b, kvh * plan["head_split"],
+                               sm_count(q.device), BLOCKS_PER_SM,
+                               MIN_PAGES_PER_SPLIT)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     part_acc = part_ml = None
@@ -196,7 +207,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         block_table.data_ptr(), seq_lens.data_ptr(), o.data_ptr(),
         part_acc.data_ptr() if part_acc is not None else None,
         part_ml.data_ptr() if part_ml is not None else None,
-        DTYPES[q.dtype], b, h, kvh, d, bs, max_pages, n_splits, pps,
+        DTYPES[q.dtype], b, h, kvh, plan["head_split"], d, bs, max_pages,
+        n_splits, pps,
         plan["pitch"], plan["stages"], cb, q.stride(0), q.stride(1), *strides,
         o.stride(0), o.stride(1), scale, int(window), stream)
     _build.check(err, "paged_attention")

@@ -4,7 +4,8 @@ the port, through numpy.
 bfloat16 arrays arrive as ``ml_dtypes`` bfloat16, which torch cannot read
 directly: their bits are viewed as uint16 and reinterpreted as
 ``torch.bfloat16``. Everything else converts as is, so an MoE router,
-float32 whatever the parameter dtype, stays float32. The tree structure
+and an RG-LRU block's ``lam`` and gate biases (``lru_a_b``,
+``lru_in_b``), float32 whatever the parameter dtype, stay float32. The tree structure
 (dicts, tuples of group positions, MoE and dense groups) is kept, and
 with it every leaf by name: an MLA layer's ``wq``, ``w_dkv``,
 ``kv_norm``, ``w_ukv`` and ``wo`` cross like any other.

@@ -2,7 +2,8 @@
 ``repro.models.layers`` (norms, RoPE, GQA attention with an optional
 sliding window, position-tagged KV caches with the ring buffer,
 multi-head latent attention (MLA) with its latent cache, SwiGLU, top-k
-routed MoE with shared experts).
+routed MoE with shared experts, the RG-LRU recurrent block of Griffin /
+RecurrentGemma with its layer state).
 
 Layers are plain functions over plain dict params, as in the JAX package.
 Conventions: activations (B, S, d); attention heads (B, S, H, hd);
@@ -22,6 +23,13 @@ latent to per-head K (192 wide: 128 nope + 64 rope) and V (128) and call
 flash; paged decode gathers the latent pages (``ops.gather_pages``) and
 attends in the latent space in float32 with plain tensor products, as
 the reference does.
+
+The RG-LRU block has no kernel of its own in either package: the causal
+depthwise conv, the two float32 gate products and the recurrence are
+plain tensor code (the reference's ``jax.lax.associative_scan`` becomes a
+log-depth scan over the token axis). Its state — the float32 hidden
+``h`` and the conv's last ``d_conv - 1`` inputs — is updated in place by
+the model, like the caches.
 """
 from __future__ import annotations
 
@@ -690,3 +698,133 @@ def moe_experts(p: Params, cfg: ModelConfig, x2d: torch.Tensor,
     if e.num_shared_experts:
         y = y + swiglu_mlp(p["shared"], x2d)
     return y
+
+
+# --------------------------------------------------------------------------- #
+# RG-LRU recurrent block (Griffin / RecurrentGemma)
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass
+class RGLRUState:
+    h: torch.Tensor          # (..., B, w) float32 recurrent hidden
+    conv: torch.Tensor       # (..., B, d_conv-1, w) conv tail (compute dtype)
+
+    def layer(self, i: int) -> "RGLRUState":
+        """View of layer ``i`` of a group-stacked state."""
+        return RGLRUState(self.h[i], self.conv[i])
+
+
+def rglru_state_init(batch: int, cfg: ModelConfig, dtype,
+                     device: torch.device, count: int = 1) -> RGLRUState:
+    r = cfg.recurrent
+    w = r.lru_width or cfg.d_model
+    return RGLRUState(
+        h=torch.zeros((count, batch, w), dtype=torch.float32, device=device),
+        conv=torch.zeros((count, batch, r.d_conv - 1, w), dtype=dtype,
+                         device=device))
+
+
+def state_put(dst, src) -> None:
+    """Write a layer state's new values (a state, or a dict of its fields
+    on any device) into ``dst`` (views of a stacked state) in place, cast
+    to its dtypes, as the reference's scan writes ``new.astype(buf.dtype)``
+    back."""
+    rows = src if isinstance(src, dict) else vars(src)
+    for name, t in vars(dst).items():
+        t.copy_(rows[name])
+
+
+def init_rglru(gen: torch.Generator, cfg: ModelConfig,
+               device: torch.device) -> Params:
+    r = cfg.recurrent
+    d = cfg.d_model
+    w = r.lru_width or d
+    s = 1.0 / math.sqrt(d)
+
+    def rnd(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device) * scale
+                ).to(cfg.pdtype)
+
+    # Λ so that a = sigmoid(Λ)^(8r) sits in (0.9, 0.999), as the reference
+    lo, hi = 0.9 ** (1 / 8), 0.999 ** (1 / 8)
+    u = torch.rand((w,), generator=gen, device=device) * (hi - lo) + lo
+    return {
+        "w_x": rnd((d, w), s), "w_gate": rnd((d, w), s),
+        "conv_w": rnd((r.d_conv, w), 1.0 / math.sqrt(r.d_conv)),
+        "conv_b": torch.zeros((w,), dtype=cfg.pdtype, device=device),
+        "lru_in_w": rnd((w, w), 0.1 / math.sqrt(w)),
+        "lru_a_w": rnd((w, w), 0.1 / math.sqrt(w)),
+        "lru_in_b": torch.zeros((w,), dtype=torch.float32, device=device),
+        "lru_a_b": torch.zeros((w,), dtype=torch.float32, device=device),
+        "lam": torch.log(torch.expm1(-torch.log(u))),
+        "w_out": rnd((w, d), 1.0 / math.sqrt(w)
+                     / math.sqrt(2 * cfg.num_layers)),
+    }
+
+
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   tail: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv. x: (B,S,w); w: (K,w); tail: (B,K-1,w) — the
+    inputs before x (zeros when None)."""
+    k = w.shape[0]
+    if tail is None:
+        tail = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    xp = torch.cat([tail, x], dim=1)
+    s = x.shape[1]
+    out = sum(xp[:, i:i + s] * w[i].to(x.dtype) for i in range(k))
+    return out + b.to(x.dtype)
+
+
+def _rglru_scan(a: torch.Tensor, b: torch.Tensor,
+                h0: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t from h0. a, b: (B,S,w) float32; h0 (B,w).
+    Returns h_1..h_S (B,S,w). A log-depth inclusive scan over the tokens
+    (Hillis-Steele: ceil(log2 S) rounds of the reference's combine
+    (a_l, b_l), (a_r, b_r) -> (a_l a_r, b_r + a_r b_l)), then the
+    reference's ``a_prefix * h0 + b_prefix``."""
+    s = a.shape[1]
+    step = 1
+    while step < s:
+        a_r, b_r = a[:, step:], b[:, step:]
+        b = torch.cat([b[:, :step], b_r + a_r * b[:, :-step]], dim=1)
+        a = torch.cat([a[:, :step], a_r * a[:, :-step]], dim=1)
+        step *= 2
+    return a * h0[:, None, :] + b
+
+
+def rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                state: RGLRUState) -> Tuple[torch.Tensor, RGLRUState]:
+    """Recurrent block over a sequence x (B,S,d) from ``state`` (B rows,
+    unstacked). Returns (out, final state); ``state`` is not written. The
+    gates and the recurrence run in float32 (the reference's ``lam`` and
+    gate biases are float32, its gate weights cast up per call); ``h``
+    ends float32, the conv tail in x's dtype. Profiler spans:
+    ``rglru.block`` around the whole block, ``rglru.f32_weights`` around
+    the gate weights' cast to float32 (a copy per call in bf16),
+    ``rglru.scan`` around the recurrence."""
+    with torch.profiler.record_function("rglru.block"):
+        xb = x @ p["w_x"].to(x.dtype)
+        gate = x @ p["w_gate"].to(x.dtype)
+        k = p["conv_w"].shape[0]
+        new_tail = torch.cat([state.conv, xb], dim=1)[:, -(k - 1):]
+        xb = _causal_conv1d(xb, p["conv_w"], p["conv_b"], state.conv)
+        xf = xb.float()
+        with torch.profiler.record_function("rglru.f32_weights"):
+            w_a, w_i = p["lru_a_w"].float(), p["lru_in_w"].float()
+        r_g = torch.sigmoid(xf @ w_a + p["lru_a_b"])
+        i_g = torch.sigmoid(xf @ w_i + p["lru_in_b"])
+        lam = p["lam"]
+        log_a = -8.0 * r_g * torch.logaddexp(lam, torch.zeros_like(lam))
+        a = torch.exp(log_a)
+        b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
+            * (xf * i_g)
+        with torch.profiler.record_function("rglru.scan"):
+            h = _rglru_scan(a, b, state.h)
+        out = h.to(x.dtype) * F.gelu(gate, approximate="tanh")
+        out = out @ p["w_out"].to(x.dtype)
+    return out, RGLRUState(h=h[:, -1], conv=new_tail)
+
+
+def rglru_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                 state: RGLRUState) -> Tuple[torch.Tensor, RGLRUState]:
+    """Single-step decode; x: (B,1,d)."""
+    return rglru_block(p, cfg, x, state)

@@ -1,12 +1,15 @@
 """Config-driven model assembly — PyTorch port of ``repro.models.model``
-for the dense, sliding-window, MoE and MLA families.
+for the dense, sliding-window, MoE, MLA and hybrid RG-LRU families.
 
 A model is a list of *block groups* whose parameters are stacked along a
 leading ``count`` axis, exactly as in the JAX package (so
 ``convert.params_from_numpy`` carries JAX parameters across unchanged).
-Where the JAX code scans over the stacked axis with the caches in the
-carry, the port loops over layer slices of the stacked tensors and
-updates each layer's cache slice in place.
+A group repeats its tuple of layer kinds ``count`` times (the hybrid:
+(rglru, rglru, attn) x 12, then (rglru, rglru) once), one stacked
+parameter tree per position in the tuple. Where the JAX code scans over
+the stacked axis with the caches in the carry, the port loops over layer
+slices of the stacked tensors (each repetition's positions in order) and
+updates each layer's cache or recurrent state slice in place.
 
 Entry points:
   prefill(params, cfg, inputs, caches)                  -> (last_logits, caches)
@@ -22,7 +25,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import device as _dev
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, RECURRENT, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.serving import paged_cache as PC
 
@@ -38,8 +41,16 @@ class Group:
 
 def block_groups(cfg: ModelConfig) -> List[Group]:
     """dense: [Group(("attn",), L)]; moe: the first dense layers, if any,
-    then the MoE layers, as in the reference."""
+    then the MoE layers; hybrid: the block pattern repeated, then its
+    first L mod len(pattern) kinds once — as in the reference."""
     _dev.check_family(cfg)
+    if cfg.recurrent is not None:
+        pat = cfg.recurrent.block_pattern
+        full, rem = divmod(cfg.num_layers, len(pat))
+        gs = [Group(pat, full)]
+        if rem:
+            gs.append(Group(pat[:rem], 1))
+        return gs
     if cfg.is_moe and cfg.moe.first_dense_layers:
         fd = cfg.moe.first_dense_layers
         return [Group((ATTN,), fd, moe=False),
@@ -57,9 +68,14 @@ def layer_params(stacked: Any, i: int) -> Any:
 # --------------------------------------------------------------------------- #
 # Init
 # --------------------------------------------------------------------------- #
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, moe: bool,
-                device: torch.device) -> Params:
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                moe: bool, device: torch.device) -> Params:
     d = cfg.d_model
+    if kind == RECURRENT:
+        return {"norm1": torch.ones((d,), dtype=cfg.pdtype, device=device),
+                "rglru": L.init_rglru(gen, cfg, device),
+                "norm2": torch.ones((d,), dtype=cfg.pdtype, device=device),
+                "mlp": L.init_mlp(gen, cfg, device)}
     mlp = L.init_moe(gen, cfg, device) if moe else \
         L.init_mlp(gen, cfg, device)
     attn = L.init_mla(gen, cfg, device) if _is_mla(cfg) else \
@@ -70,10 +86,11 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, moe: bool,
 
 
 def _init_group(gen: torch.Generator, cfg: ModelConfig, g: Group,
-                device: torch.device) -> Params:
-    """``g.count`` layers drawn one after the other, each written into its
-    slot of the stacked tensors as it is made: the values of stacking
-    every layer at the end, at the memory of the stack plus one layer."""
+                kind: str, device: torch.device) -> Params:
+    """The ``g.count`` layers of one position of a group, drawn one after
+    the other, each written into its slot of the stacked tensors as it is
+    made: the values of stacking every layer at the end, at the memory of
+    the stack plus one layer."""
     count = g.count
 
     def put(dst, src, i):
@@ -88,11 +105,11 @@ def _init_group(gen: torch.Generator, cfg: ModelConfig, g: Group,
             return {k: empty(v) for k, v in t.items()}
         return t.new_empty((count,) + tuple(t.shape))
 
-    layer = _init_layer(gen, cfg, g.moe, device)
+    layer = _init_layer(gen, cfg, kind, g.moe, device)
     stacked = empty(layer)
     put(stacked, layer, 0)
     for i in range(1, count):
-        put(stacked, _init_layer(gen, cfg, g.moe, device), i)
+        put(stacked, _init_layer(gen, cfg, kind, g.moe, device), i)
     return stacked
 
 
@@ -111,7 +128,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                   ).to(cfg.pdtype),
         "final_norm": torch.ones((d,), dtype=cfg.pdtype, device=dev),
         "groups": tuple(
-            (_init_group(gen, cfg, g, dev),)
+            tuple(_init_group(gen, cfg, g, kind, dev) for kind in g.kinds)
             for g in groups),
     }
     if not cfg.tie_embeddings:
@@ -127,8 +144,9 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
                 full_capacity: bool = False,
                 device: _dev.DeviceLike = None):
     """Dense position-tagged caches, one group-stacked ``KVCache`` (an
-    ``MLACache`` of latent rows for MLA) per group position (leaves are
-    (count, B, cap, ...)). A sliding layer's
+    ``MLACache`` of latent rows for MLA) per attention position of a group
+    and one group-stacked ``RGLRUState`` per recurrent position (leaves
+    are (count, B, ...)). A sliding layer's
     cache is a ring buffer of ``min(capacity, window)`` slots unless
     ``full_capacity``: chunked prefill opts out (writing chunk c would
     evict positions still inside the window of chunk c's own queries), so
@@ -138,37 +156,46 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
     cap = capacity
     if _window(cfg) and not full_capacity:
         cap = min(cap, _window(cfg))
-    if _is_mla(cfg):
-        return tuple(
-            tuple(L.mla_cache_init(batch, cap, cfg, dtype, dev, count=g.count,
-                                   full_capacity=full_capacity)
-                  for _kind in g.kinds)
-            for g in block_groups(cfg))
-    return tuple(
-        tuple(L.kv_cache_init(batch, cap, cfg.num_kv_heads, cfg.hd,
-                              dtype, dev, count=g.count,
-                              full_capacity=full_capacity)
-              for _kind in g.kinds)
-        for g in block_groups(cfg))
+
+    def one(kind, count):
+        if kind == RECURRENT:
+            return L.rglru_state_init(batch, cfg, dtype, dev, count=count)
+        if _is_mla(cfg):
+            return L.mla_cache_init(batch, cap, cfg, dtype, dev, count=count,
+                                    full_capacity=full_capacity)
+        return L.kv_cache_init(batch, cap, cfg.num_kv_heads, cfg.hd, dtype,
+                               dev, count=count, full_capacity=full_capacity)
+
+    return tuple(tuple(one(kind, g.count) for kind in g.kinds)
+                 for g in block_groups(cfg))
 
 
 def init_paged_caches(cfg: ModelConfig, specs: Dict[str, PC.KVPageSpec],
-                      num_blocks: int, device: _dev.DeviceLike = None):
-    """Paged pools of (count, N, *page) per group position: {"k_pool",
-    "v_pool"} of ``specs["kv"]``, or for MLA {"ckv_pool", "kpe_pool"} of
-    ``specs["ckv"]`` and ``specs["kpe"]``."""
+                      num_blocks: int, batch: int = 0,
+                      device: _dev.DeviceLike = None):
+    """Paged pools of (count, N, *page) per attention position of a group:
+    {"k_pool", "v_pool"} of ``specs["kv"]``, or for MLA {"ckv_pool",
+    "kpe_pool"} of ``specs["ckv"]`` and ``specs["kpe"]``; a recurrent
+    position holds its dense per-slot state, an ``RGLRUState`` of
+    ``batch`` rows in the compute dtype (h float32), so a model with
+    recurrent layers needs ``batch`` > 0."""
     dev = _dev.resolve(device)
     names = (("ckv_pool", "ckv"), ("kpe_pool", "kpe")) if _is_mla(cfg) \
         else (("k_pool", "kv"), ("v_pool", "kv"))
 
-    def pool(g, spec):
-        return torch.zeros((g.count,) + spec.pool_shape(num_blocks),
-                           dtype=spec.tdtype, device=dev)
+    def one(kind, count):
+        if kind == RECURRENT:
+            if batch <= 0:
+                raise ValueError(f"init_paged_caches: {cfg.name} holds "
+                                 "per-slot recurrent states; pass batch > 0")
+            return L.rglru_state_init(batch, cfg, cfg.cdtype, dev,
+                                      count=count)
+        return {name: torch.zeros((count,) + specs[key].pool_shape(
+            num_blocks), dtype=specs[key].tdtype, device=dev)
+            for name, key in names}
 
-    return tuple(
-        tuple({name: pool(g, specs[key]) for name, key in names}
-              for _kind in g.kinds)
-        for g in block_groups(cfg))
+    return tuple(tuple(one(kind, g.count) for kind in g.kinds)
+                 for g in block_groups(cfg))
 
 
 # --------------------------------------------------------------------------- #
@@ -216,22 +243,32 @@ def _mlp_residual(p, cfg: ModelConfig, moe: bool,
                 else L.swiglu_mlp(p["mlp"], h))
 
 
+def _recurrent(p, cfg: ModelConfig, x: torch.Tensor, state) -> torch.Tensor:
+    """A recurrent layer: the RG-LRU block from ``state`` (views of one
+    layer's stacked state, written in place), then the MLP."""
+    h, new = L.rglru_block(p["rglru"], cfg,
+                           L.rms_norm(p["norm1"], x, cfg.norm_eps), state)
+    L.state_put(state, new)
+    return _mlp_residual(p, cfg, False, x + h)
+
+
 def _layers(params, cfg: ModelConfig):
-    """(group index, position, layer index, group, layer params) in model
-    order."""
+    """(group index, position, layer index, kind, group, layer params) in
+    model order: each repetition of a group runs its positions in turn."""
     for gi, g in enumerate(block_groups(cfg)):
-        for pi, _kind in enumerate(g.kinds):
-            stacked = params["groups"][gi][pi]
-            for li in range(g.count):
-                yield gi, pi, li, g, layer_params(stacked, li)
+        for li in range(g.count):
+            for pi, kind in enumerate(g.kinds):
+                yield gi, pi, li, kind, g, layer_params(
+                    params["groups"][gi][pi], li)
 
 
 # --------------------------------------------------------------------------- #
 # Entry points
 # --------------------------------------------------------------------------- #
 def prefill(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor], caches):
-    """Fill ``caches`` (capacity >= prompt) from a prompt, in place.
-    inputs: tokens (B,S). Returns (last_token_logits (B,V), caches)."""
+    """Fill ``caches`` (capacity >= prompt; recurrent states from zero) from
+    a prompt, in place. inputs: tokens (B,S). Returns (last_token_logits
+    (B,V), caches)."""
     tokens = inputs["tokens"]
     b, s = tokens.shape
     x = embed_tokens(params, cfg, tokens)
@@ -239,10 +276,14 @@ def prefill(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor], caches):
                              device=tokens.device)[None].expand(b, s)
     fill = L.mla_cache_from_prefill if _is_mla(cfg) else \
         L.kv_cache_from_prefill
-    for gi, pi, li, g, p in _layers(params, cfg):
+    for gi, pi, li, kind, g, p in _layers(params, cfg):
+        cache = caches[gi][pi].layer(li)
+        if kind == RECURRENT:
+            x = _recurrent(p, cfg, x, cache)
+            continue
         h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
         out, rows = attention_full(p["attn"], cfg, h, positions)
-        fill(caches[gi][pi].layer(li), *rows, positions)
+        fill(cache, *rows, positions)
         x = _mlp_residual(p, cfg, g.moe, x + out)
     return lm_logits(params, cfg, x[:, -1]), caches
 
@@ -250,16 +291,20 @@ def prefill(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor], caches):
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, caches,
                 q_offset: Optional[int] = None):
-    """One decode step / incremental-prefill chunk over dense caches.
-    tokens, positions: (B,T). ``q_offset`` (host int == positions[:, 0])
+    """One decode step / incremental-prefill chunk over dense caches (and
+    recurrent states carried from the previous chunk). tokens, positions:
+    (B,T). ``q_offset`` (host int == positions[:, 0])
     lets the CUDA route call the flash kernel without reading positions
     back from the card; MLA needs it on both devices (``mla_decode``).
     Returns (logits (B,T,V), caches)."""
     x = embed_tokens(params, cfg, tokens)
     win = _window(cfg)
-    for gi, pi, li, g, p in _layers(params, cfg):
-        h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
+    for gi, pi, li, kind, g, p in _layers(params, cfg):
         cache = caches[gi][pi].layer(li)
+        if kind == RECURRENT:
+            x = _recurrent(p, cfg, x, cache)
+            continue
+        h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
         if _is_mla(cfg):
             out, _ = L.mla_decode(p["attn"], cfg, h, positions, cache,
                                   q_offset=q_offset)
@@ -276,7 +321,8 @@ def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
                       caches, specs: Dict[str, PC.KVPageSpec],
                       max_len: Optional[int] = None):
     """One continuous-batching decode step against paged pools (appended
-    in place). tokens: (B,1); seq_lens: (B,) int32 lengths BEFORE this
+    in place) and per-slot recurrent states (stepped in place). tokens:
+    (B,1); seq_lens: (B,) int32 lengths BEFORE this
     step (== rope position); block_table: (B, max_blocks) int32;
     write_blocks/slots: (B,). ``max_len`` (host int, the longest length
     after this step) lets MLA gather only the table's live columns.
@@ -284,7 +330,10 @@ def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = seq_lens[:, None].to(torch.int32)
     x = embed_tokens(params, cfg, tokens)
     win = _window(cfg)
-    for gi, pi, li, g, p in _layers(params, cfg):
+    for gi, pi, li, kind, g, p in _layers(params, cfg):
+        if kind == RECURRENT:
+            x = _recurrent(p, cfg, x, caches[gi][pi].layer(li))
+            continue
         pools = {name: pool[li] for name, pool in caches[gi][pi].items()}
         h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
         if _is_mla(cfg):

@@ -1,6 +1,6 @@
 """Model-instance engine: prefill, continuous-batching paged decode —
 PyTorch port of ``repro.serving.engine`` for the dense, sliding-window,
-MoE and MLA families.
+MoE, MLA and hybrid RG-LRU families.
 
 One Engine == one "model instance" in the paper's sense (a P instance, a D
 instance, or an integrated instance). Vendor-specific VRAM management is
@@ -18,8 +18,12 @@ snapshot its window of KV rows mid-stream so that a retry on the same P
 resumes instead of recomputing. An MLA engine keeps latent pools
 (``ckv_pool``, ``kpe_pool``: one KV "head" of the latent and of the rope
 key) and its wire entries are ``"mla"`` entries of ``ckv``/``kpe`` rows.
-Not ported yet: layer states (recurrent,
-SSM) and encoder or vision prompts (ROADMAP queue 1).
+A hybrid (RG-LRU) engine carries its recurrent layer states across a
+stream's chunks; they leave P in the stream's *tail* (``tail_package``:
+``("state", gi, pi, {"h", "conv"})`` rows of one sequence), ride the
+mid-stream snapshot beside the window's KV rows, and are placed into a D
+slot's rows by ``place_states``. Not ported yet: SSM states and encoder
+or vision prompts (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -34,8 +38,10 @@ import numpy as np
 import torch
 
 from repro_torch import device as _dev
-from repro_torch.configs.base import ModelConfig, PrefillCapabilities
+from repro_torch.configs.base import RECURRENT, ModelConfig, \
+    PrefillCapabilities
 from repro_torch.kernels import ops as kops
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.serving.paged_cache import BlockAllocator, KVPageSpec
 from repro_torch.serving.prefix_cache import (HostPrefixStore, PrefixStore,
@@ -131,6 +137,12 @@ def _chronological(arr: torch.Tensor, pos: torch.Tensor
     return arr[:, order.to(arr.device)], int(p0[order[0]])
 
 
+def state_rows(state, fn) -> Dict[str, torch.Tensor]:
+    """A layer state's fields as a plain dict (what the wire and the
+    snapshot carry), each passed through ``fn``."""
+    return {name: fn(t) for name, t in vars(state).items()}
+
+
 def kv_entries_with_start(package_kv: List[Tuple]) -> List[Tuple]:
     """A prefill package's KV entries in chronological order with an
     absolute ``start``: the canonical pre-wire form that both the
@@ -190,7 +202,8 @@ class PrefillStream:
         position the package holds (a sliding layer keeps only its last
         window).
 
-    ``first_token`` is known once the final chunk has been produced.
+    ``first_token`` and ``tail_package()`` (a hybrid's recurrent states)
+    are known once the final chunk has been produced.
 
     With a host prefix store on the engine, an incremental stream replays
     the longest cached prefix of its prompt as chunks with no compute,
@@ -256,6 +269,7 @@ class PrefillStream:
         self.chunks_emitted = 0
         self._next_start = 0
         self._wire_sent = 0                           # wire progress (abs pos)
+        self._tail: Optional[Dict[str, Any]] = None
         self._entries: Optional[List[Tuple]] = None   # monolithic mode
         self._caches = None                           # incremental mode
         # P-side shared-prefix reuse: replay cached chunks instead of
@@ -285,8 +299,12 @@ class PrefillStream:
         return self._next_start >= self.seq_len and self.chunks_emitted > 0
 
     def tail_package(self) -> Dict[str, Any]:
+        """The states that ride with finalize: ``{"states": [("state", gi,
+        pi, {"h", "conv"})], "cross": []}``, empty for stateless
+        families."""
         assert self.done, "tail_package before stream exhausted"
-        return {"states": [], "cross": []}
+        return self._tail if self._tail is not None \
+            else {"states": [], "cross": []}
 
     def next_chunk(self) -> Optional[Dict[str, Any]]:
         if self.done:
@@ -326,6 +344,8 @@ class PrefillStream:
             package = self.engine.prefill(self.req)
             compute_s = time.perf_counter() - t0
             self.first_token = package["first_token"]
+            self._tail = {"states": package["states"],
+                          "cross": package["cross"]}
             self._entries = kv_entries_with_start(package["kv"])
             # ring-buffer (sliding) entries cover only the last window of
             # the prompt: stream from the first position on the wire, no
@@ -376,6 +396,8 @@ class PrefillStream:
         if c1 == self.seq_len:
             self.first_token = int(eng._sample(
                 logits[:, -1].float().cpu().numpy(), req)[0])
+            self._tail = {"states": self._states(lambda t: t[:, 0]),
+                          "cross": []}
         dt = time.perf_counter() - t0
         eng._note_prefill_compute(dt)
         w0 = max(self._wire_sent, self._wire_floor)
@@ -401,13 +423,22 @@ class PrefillStream:
         if self._resume is not None:
             self._apply_resume(self._resume)
 
+    def _states(self, fn) -> List[Tuple]:
+        """("state", gi, pi, rows) of every recurrent position of the
+        stream's caches, each field passed through ``fn``."""
+        return [("state", gi, pi, state_rows(self._caches[gi][pi], fn))
+                for gi, g in enumerate(M.block_groups(self.engine.cfg))
+                for pi, kind in enumerate(g.kinds) if kind == RECURRENT]
+
     def _extract_entries(self, w0: int, w1: int) -> List[Tuple]:
         """Wire entries for absolute positions [w0, w1) — slot == position
         because incremental caches are full-capacity. Views of the cache:
         later chunks write only later slots."""
         entries = []
         for gi, g in enumerate(M.block_groups(self.engine.cfg)):
-            for pi, _kind in enumerate(g.kinds):
+            for pi, kind in enumerate(g.kinds):
+                if kind == RECURRENT:
+                    continue
                 c = self._caches[gi][pi]
                 if self.caps.latent_kv:
                     entries.append(("mla", gi, pi, {
@@ -421,29 +452,36 @@ class PrefillStream:
 
     # -- mid-stream snapshot resume ------------------------------------- #
     def snapshot(self) -> Optional[Dict[str, Any]]:
-        """Portable mid-stream progress: the KV rows still inside the
-        sliding window below ``next_start``, copied to the host (no ported
-        family carries layer states, so ``states`` is empty). Replaying it
-        on a fresh stream (same request, same params) skips recomputing
-        the first ``next_start`` prompt tokens after a failure."""
+        """Portable mid-stream progress: the recurrent layer states and the
+        KV rows still inside the sliding window below ``next_start``,
+        copied to the host. Replaying it on a fresh stream (same request,
+        same params) skips recomputing the first ``next_start`` prompt
+        tokens after a failure."""
         if not (self.caps.resumable and self.chunked_compute):
             return None
         if self._caches is None or self._next_start <= 0 or self.done:
             return None
         ns = self._next_start
         lo = max(0, ns - self.caps.window) if self.caps.window else ns
-        kv = []
+        states, kv = [], []
         for gi, g in enumerate(M.block_groups(self.engine.cfg)):
-            for pi, _kind in enumerate(g.kinds):
+            for pi, kind in enumerate(g.kinds):
                 c = self._caches[gi][pi]
-                kv.append((gi, pi, {"k": c.k[:, :, lo:ns].cpu(),
-                                    "v": c.v[:, :, lo:ns].cpu()}))
+                if kind == RECURRENT:
+                    # a copy: later chunks step the live state in place
+                    states.append((gi, pi, state_rows(
+                        c, lambda t: t.to("cpu", copy=True))))
+                else:
+                    kv.append((gi, pi, {"k": c.k[:, :, lo:ns].cpu(),
+                                        "v": c.v[:, :, lo:ns].cpu()}))
         return {"seq_len": self.seq_len, "next_start": ns,
-                "row_start": lo, "states": [], "kv": kv}
+                "row_start": lo, "states": states, "kv": kv}
 
     def _apply_resume(self, snap: Dict[str, Any]) -> None:
         ns = int(snap["next_start"])
         s0 = int(snap["row_start"])
+        for gi, pi, rows in snap["states"]:
+            L.state_put(self._caches[gi][pi], rows)
         for gi, pi, ent in snap["kv"]:
             c = self._caches[gi][pi]
             c.k[:, :, s0:ns] = ent["k"].to(c.k.device, c.k.dtype)
@@ -499,7 +537,7 @@ class Engine:
         self.allocator.allocate("__scratch__", 1)   # trash page for idle slots
         self._scratch_block = self.allocator.blocks_of("__scratch__")[0]
         self.caches = M.init_paged_caches(cfg, self.specs, num_blocks,
-                                          device=self.device)
+                                          batch=max_batch, device=self.device)
         # slot bookkeeping (host side)
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         # a slot is reserved when slot_req is set; ready once its KV has
@@ -551,8 +589,9 @@ class Engine:
     def prefill(self, req: Request) -> Dict[str, Any]:
         """Run prefill for one request; returns the handoff package:
         {"first_token", "kv": per-group list, "states", "cross", "seq_len"}.
-        The KV stays on this engine's device in canonical per-layer form;
-        the transfer module converts it to the wire."""
+        The KV and the recurrent states stay on this engine's device in
+        canonical per-layer form; the transfer module converts them to the
+        wire."""
         if self.failed:
             raise RuntimeError(f"instance {self.name} is down")
         t0 = time.perf_counter()
@@ -564,11 +603,14 @@ class Engine:
         last_logits, caches = M.prefill(self.params, cfg, {"tokens": tokens},
                                         caches)
         first_token = self._sample(last_logits.float().cpu().numpy(), req)[0]
-        kv = []
+        kv, states = [], []
         for gi, g in enumerate(M.block_groups(cfg)):
-            for pi, _kind in enumerate(g.kinds):
+            for pi, kind in enumerate(g.kinds):
                 c = caches[gi][pi]
-                if cfg.attention_kind == "mla":
+                if kind == RECURRENT:
+                    states.append(("state", gi, pi,
+                                   state_rows(c, lambda t: t[:, 0])))
+                elif cfg.attention_kind == "mla":
                     kv.append(("mla", gi, pi, {"ckv": c.ckv[:, 0, :plen],
                                                "kpe": c.kpe[:, 0, :plen]}))
                 elif c.capacity >= plen:
@@ -583,7 +625,7 @@ class Engine:
         self.stats.prefill_tokens += plen
         self.stats.prefill_chunks += 1
         self._note_prefill_compute(time.perf_counter() - t0)
-        return {"kv": kv, "states": [], "cross": [],
+        return {"kv": kv, "states": states, "cross": [],
                 "first_token": int(first_token), "seq_len": plen}
 
     def _note_prefill_compute(self, dt: float) -> None:
@@ -703,12 +745,25 @@ class Engine:
         card a gather kernel into a separate buffer, then a scatter
         kernel, in stream order."""
         ids = torch.tensor([src, dst], dtype=torch.int32, device=self.device)
-        for g in self.caches:
-            for pools in g:
-                for name, pool in pools.items():
-                    spec = self._pool_spec(name)
-                    kops.repack(spec, spec, pool, ids[:1], pool, ids[1:],
-                                self.block_size)
+        for pools in self.paged_pools():
+            for name, pool in pools.items():
+                spec = self._pool_spec(name)
+                kops.repack(spec, spec, pool, ids[:1], pool, ids[1:],
+                            self.block_size)
+
+    def paged_pools(self) -> List[Dict[str, torch.Tensor]]:
+        """The {name: pool} dicts of every attention position (recurrent
+        positions hold per-slot states, not pages)."""
+        return [c for g in self.caches for c in g if isinstance(c, dict)]
+
+    def place_states(self, slot: int, states: List[Tuple]) -> None:
+        """Write one sequence's recurrent state rows (``("state", gi, pi,
+        {"h", "conv"})``, any device) into decode slot ``slot``, in place,
+        cast to the states' dtypes (the reference's ``_place``)."""
+        for _tag, gi, pi, rows in states:
+            state = self.caches[gi][pi]
+            L.state_put(type(state)(**{name: t[:, slot] for name, t
+                                       in vars(state).items()}), rows)
 
     def activate_sequence(self, slot: int, first_token: int,
                           seq_len: int) -> None:

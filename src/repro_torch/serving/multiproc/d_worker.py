@@ -6,7 +6,8 @@ the re-page half of ``StreamedHandoff`` folded in: adopt each announced
 shared-memory segment into this process's ``SharedMemoryConnector``,
 ``issue_read`` it, re-page completed reads into the paged pools (RMW so
 chunk boundaries may straddle blocks), and — once the stream finalizes —
-activate the slot and join continuous batching. Decode steps interleave
+adopt the stream's tail segment (a hybrid's recurrent states) and place
+it into the slot, then activate the slot and join continuous batching. Decode steps interleave
 with re-paging: a request already decoding never waits on another
 request's chunks.
 
@@ -74,7 +75,7 @@ class DWorker:
         # measured KV-pool footprint per paged block (exact: taken from the
         # pools this engine actually allocated) — free_bytes in heartbeats
         pool_bytes = sum(pool.untyped_storage().nbytes()
-                         for group in self.engine.caches for pools in group
+                         for pools in self.engine.paged_pools()
                          for pool in pools.values())
         self._block_bytes = pool_bytes // max(spec.engine.num_blocks, 1)
         self.stop = False
@@ -174,7 +175,28 @@ class DWorker:
         return progressed
 
     def _finalize(self, st: _DStream) -> None:
-        fin = st.finalize               # no ported family has a state tail
+        fin = st.finalize
+        if fin.tail is not None:        # recurrent states: adopt, place
+            t0 = time.monotonic()
+            tkey = fin.tail["key"]
+            try:
+                self.connector.adopt_segment(tkey, fin.tail["segment"],
+                                             fin.tail["nbytes"])
+            except Exception as e:                # noqa: BLE001
+                self._fail_stream(st, f"tail adopt failed: {e!r}")
+                return
+            try:
+                payload, meta = self.connector.issue_read(tkey).wait()
+                self.pipeline.materialize(self.engine, st.slot, st.block_ids,
+                                          payload, meta)
+            except Exception as e:                # noqa: BLE001
+                self.connector.drop(tkey)         # adopted: free pool+detach
+                self._fail_stream(st, f"tail transfer failed: {e!r}")
+                return
+            self.connector.complete(tkey)
+            self.evt_q.put(ChunkRepaged(st.req.req_id, st.attempt, tkey,
+                                        (t0, time.monotonic()),
+                                        src=self.iid))
         self.engine.activate_sequence(st.slot, fin.first_token, fin.seq_len)
         self.streams.pop(st.req.req_id)
         # the prefill's token starts the stream (scheduler's

@@ -120,7 +120,8 @@ class PWorker:
 
     def _run_flight(self, req, wire_skip: int = 0) -> None:
         """Stream one request's prefill: compute chunk → encode → stage →
-        announce, then PrefillDone. ``wire_skip`` leading
+        announce, then the tail (recurrent states, if any) and
+        PrefillDone. ``wire_skip`` leading
         tokens (already resident on the stream's D via its prefix store)
         are computed/replayed but never encoded or staged."""
         from repro_torch.serving.engine import PrefillMode, slice_kv_entries
@@ -181,10 +182,16 @@ class PWorker:
                 # bytes/token on this wire format
                 self.connector.stats.bytes_saved += int(
                     sent_bytes / sent_tokens * skipped_tokens)
-            # the ported families carry no state or cross tail
+            # the recurrent states ride a tail segment of their own
+            tail_pkg = stream.tail_package()
+            tail = None
+            if tail_pkg["states"] or tail_pkg["cross"]:
+                tkey = f"{req.req_id}@{eng.name}#t{attempt}tail"
+                self._stage_with_backpressure(tkey, tail_pkg, meta)
+                tail = self.connector.export_descriptor(tkey)
             self.evt_q.put(PrefillDone(req.req_id, attempt,
                                        int(stream.first_token),
-                                       stream.seq_len, index, None,
+                                       stream.seq_len, index, tail,
                                        ack_seq=self.release_ack,
                                        src=self.iid))
         except _ShutdownRequested:

@@ -163,6 +163,41 @@ def test_flash_kernel_value_head_dim(cuda, dtype, b, h, kv, sq, skv, dk, dv,
                                want.float().cpu().numpy(), atol=ATOL[dtype])
 
 
+# (b, h, kv, sq, skv, dk, dv, q_offset, kv_len, window): head dims above
+# 192 / 128, the bf16 kernel's instance of 64-row tiles: RecurrentGemma's
+# 16 query heads on one KV head at 256 / 256 with its 2048-token window
+# over the last 500-token chunk of an 8192-token prompt, a short prefill,
+# GQA with a window across a 64-key tile's edge and kv_len < Skv, and
+# narrower head dims that this instance covers (dk 208 / dv 160, dk 192 /
+# dv 144, dk 256 / dv 128)
+FLASH_WIDE_CASES = [(1, 16, 1, 500, 8192, 256, 256, 7692, 8192, 2048),
+                    (1, 16, 1, 70, 70, 256, 256, 0, 70, 0),
+                    (2, 4, 2, 130, 300, 256, 256, 100, 230, 50),
+                    (1, 4, 4, 65, 200, 208, 160, 0, 200, 0),
+                    (1, 8, 2, 64, 64, 192, 144, 0, 64, 0),
+                    (1, 2, 2, 200, 200, 256, 128, 0, 200, 0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,sq,skv,dk,dv,q_offset,kv_len,window",
+                         FLASH_WIDE_CASES)
+def test_flash_kernel_head_dim_256(cuda, dtype, b, h, kv, sq, skv, dk, dv,
+                                   q_offset, kv_len, window):
+    """Head dims up to 256, passed transposed from (B, S, H, d) tensors
+    as the model passes them."""
+    rng = np.random.default_rng(sq + dk + dv)
+    q = _rand(rng, (b, sq, h, dk), dtype, cuda).transpose(1, 2)
+    k = _rand(rng, (b, skv, kv, dk), dtype, cuda).transpose(1, 2)
+    v = _rand(rng, (b, skv, kv, dv), dtype, cuda).transpose(1, 2)
+    args = dict(causal=True, window=window, q_offset=q_offset, kv_len=kv_len)
+    got = ops.flash_attention(q, k, v, **args)
+    want = ref.flash_attention_ref(q, k, v, **args)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h, sq, dv)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=ATOL[dtype])
+
+
 @pytest.mark.parametrize("dk,dv", [(24, 16), (40, 24), (192, 100)])
 def test_flash_kernel_value_head_dim_float32_any_width(cuda, dk, dv):
     """float32 takes head dims that are not multiples of 16: the tiny MLA
@@ -263,6 +298,10 @@ PAGED_SPLIT_CASES = [
     (8, 1, 16, 4, [5, 37, "split"]),
     (4, 2, 128, 96, [1, 500]),           # f32: a ring of 2 stages
     (4, 2, 128, 128, [1, 300, "split"]),  # f32: one stage, nothing in flight
+    (16, 1, 256, 32, [1, 2081, "split"]),  # a group of 4096: two blocks
+    (32, 1, 128, 16, [300, 17, 2048]),    # the same split at head dim 128
+    (64, 1, 128, 16, [300, 17, 2048]),    # four blocks of 16 heads
+    (9, 1, 256, 32, [1, 700, "split"]),   # three blocks of 3 heads
 ]
 
 
@@ -276,11 +315,14 @@ def test_paged_kernel_split_lengths(cuda, dtype, layout, h, kv, d, bs, lens,
     multiple of the block, exactly one split, 2081, a batch mixing 1 with
     2048; GQA groups of 4, 5 and 8; head dims padded to the lanes (80, 16);
     pages too large for 3 stages in float32; a window of 100 that starts
-    inside a split."""
-    from repro_torch.kernels.paged_attention import sm_count, split_plan
+    inside a split; groups wider than 2048 (query heads x head dim) on one
+    KV head, served by two, three or four blocks sharing the heads."""
+    from repro_torch.kernels.paged_attention import (launch_plan, sm_count,
+                                                     split_plan)
     rng = np.random.default_rng(bs + d + len(lens))
     width = max(-(-n // bs) for n in lens if n != "split")
-    _, pps = split_plan(width, len(lens), kv, sm_count(cuda))
+    hs = launch_plan(h, kv, d, bs, 4, 16)["head_split"]
+    _, pps = split_plan(width, len(lens), kv * hs, sm_count(cuda))
     lens = [pps * bs if n == "split" else n for n in lens]
     args = _paged_lens(rng, h, kv, d, bs, lens, dtype, layout, cuda)
     got = ops.paged_attention(*args, layout=layout, window=window)
@@ -310,6 +352,8 @@ def test_paged_kernel_idle_slots(cuda, dtype, layout):
 # Mixtral's windowed shapes (chip_smoke.py phase 6): 32 query heads over 8
 # KV heads, head dim 128, window 4096; the eight prompt lengths
 MIXTRAL_LENS = [8192, 7000, 6100, 5000, 4600, 4097, 3000, 2048]
+# RecurrentGemma-9B's decode (chip_smoke.py phase 8): 16 query heads on
+# one KV head of 256, window 2048, the same eight prompts
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -359,6 +403,7 @@ def _stale_nan(args, bs, layout, window):
 @pytest.mark.parametrize("h,kv,d,bs,lens,window", [
     (4, 2, 64, 8, [37, 20, 9], 11),              # floors 26 (row 2), 9, 0
     (32, 8, 128, 32, [n + 32 for n in MIXTRAL_LENS], 4096),
+    (16, 1, 256, 32, [n + 32 for n in MIXTRAL_LENS], 2048),
 ])
 def test_paged_kernel_window_with_nan_below_the_floor(cuda, dtype, layout, h,
                                                       kv, d, bs, lens,
@@ -883,3 +928,52 @@ def test_mla_serving_on_card_matches_cpu(cuda, moe, chunk, wire,
     if prefix_cache:
         expect |= {"scatter_pages", "repack"}
     assert launched == expect, counts
+
+
+HYBRID_TINY = dict(name="hy-t", family="hybrid", num_layers=5, d_model=64,
+                   num_heads=4, num_kv_heads=1, head_dim=16, d_ff=128,
+                   vocab_size=256, attention_kind="sliding", sliding_window=8,
+                   recurrent=dict(lru_width=48, d_conv=4,
+                                  block_pattern=("rglru", "rglru", "attn")),
+                   param_dtype="float32", compute_dtype="float32")
+
+
+@pytest.mark.parametrize("chunk,wire", [(None, ("raw", "float32")),
+                                        (7, ("raw", "bfloat16")),
+                                        (4, ("int8", "bfloat16"))])
+def test_hybrid_serving_on_card_matches_cpu(cuda, chunk, wire):
+    """The hybrid RG-LRU family (tiny: (rglru, rglru, attn) then (rglru,
+    rglru), 4 query heads on one KV head, window 8, float32) disaggregated
+    on the card against the same path on the CPU: the recurrent states
+    carried across chunks and shipped as the stream's tail, greedy tokens
+    identical; exactly flash, paged and the overlay launch."""
+    cfg = config_from_dict(HYBRID_TINY)
+    params = TM.init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (11, 23, 30)]
+
+    def serve(dev, p):
+        kw = dict(num_blocks=64, max_batch=4, max_seq_len=64, device=dev)
+        pe = Engine("P0", cfg, p, VendorProfile("b", block_size=8,
+                                                 layout="nhbd", tp=1),
+                    role="prefill", **kw)
+        de = Engine("D0", cfg, p, VendorProfile("a", block_size=4,
+                                                 layout="nhdb", tp=1),
+                    role="decode", **kw)
+        sched = GlobalScheduler(DisaggPipeline(TransferEngine(),
+                                               WireFormat(*wire)),
+                                prefill_chunk=chunk, device=dev)
+        sched.add_instance(pe)
+        sched.add_instance(de)
+        reqs = [Request(f"r{i}", pr, 6) for i, pr in enumerate(prompts)]
+        Server(sched).serve(reqs)
+        return [r.output_tokens for r in reqs]
+
+    ops.reset_launch_counts()
+    got = serve(cuda, params)
+    counts = ops.launch_counts()
+    want = serve(torch.device("cpu"), _to_cpu(params))
+    assert got == want and all(len(t) == 6 for t in got)
+    launched = {k for k, n in counts.items() if n > 0}
+    assert launched == {"flash_attention", "paged_attention",
+                        "scatter_pages_overlay"}, counts

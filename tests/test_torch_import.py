@@ -142,12 +142,13 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
 
 
 def test_other_families_raise_not_implemented():
-    """Sliding window, MoE and MLA are ported; recurrent, SSM, enc-dec and
-    VLM are not, nor a "moe" family with no experts, nor MLA without its
-    sub-config."""
+    """Sliding window, MoE, MLA and the hybrid RG-LRU family are ported;
+    SSM, enc-dec and VLM are not, nor a "moe" family with no experts, nor
+    MLA without its sub-config, nor a recurrent pattern outside the hybrid
+    family."""
     for kw in (dict(family="moe"),
                dict(attention_kind="mla"),
-               dict(family="hybrid", attention_kind="sliding",
+               dict(family="dense", attention_kind="sliding",
                     sliding_window=8,
                     recurrent=dict(lru_width=64, d_conv=4,
                                    block_pattern=("rglru", "rglru", "attn"))),

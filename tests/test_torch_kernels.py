@@ -349,6 +349,7 @@ def test_cpu_calls_count_no_launch():
     (16, 40, True, 1, 0, 4),
     (33, 0, True, 0, 0, 8),              # no key at all
     (100, 300, True, 0, 200, 16),
+    (500, 8192, True, 2048, 7692, 64),   # RecurrentGemma's last chunk
 ])
 def test_flash_tile_plan_covers_exactly_the_visible_pairs(
         sq, kv_len, causal, window, q_offset, block):
@@ -583,10 +584,18 @@ def test_paged_split_plan_fills_the_card(batch, kvh, width, want):
     (4, 1, 20, 4, 4, 16, dict(head_dim=32, pitch=20, stages=3)),
     (4, 4, 128, 64, 4, 16, dict(head_dim=128, pitch=128, stages=3)),
     (4, 4, 128, 128, 4, 16, dict(head_dim=128, pitch=128, stages=1)),
+    (16, 1, 256, 32, 2, 16, dict(head_dim=256, head_split=2, pitch=256,
+                                 stages=3)),
+    (32, 1, 128, 16, 2, 16, dict(head_dim=128, head_split=2)),
+    (16, 2, 256, 32, 2, 0, dict(head_dim=256, head_split=1, pitch=260)),
+    (64, 1, 128, 16, 2, 16, dict(head_dim=128, head_split=4)),
+    (9, 1, 256, 32, 2, 16, dict(head_dim=256, head_split=3)),
 ])
 def test_paged_launch_plan(h, kv, d, bs, es, cb, want):
     """Padded head dim, staged row pitch (16-byte rows for cp.async, padded
-    rows for the register path), ring depth within shared memory."""
+    rows for the register path), ring depth within shared memory; a group
+    of more than 2048 (query heads x padded head dim) split over the
+    fewest blocks that share its heads evenly."""
     from repro_torch.kernels.paged_attention import SMEM_LIMIT, launch_plan
     plan = launch_plan(h, kv, d, bs, es, cb)
     assert {k: plan[k] for k in want} == want
@@ -595,11 +604,13 @@ def test_paged_launch_plan(h, kv, d, bs, es, cb, want):
         assert plan["pitch"] * es % 16 == 0
 
 
-@pytest.mark.parametrize("h,kv,d,bs", [(32, 1, 128, 16), (4, 4, 300, 8),
-                                       (4, 4, 256, 256), (3, 2, 64, 8)])
+@pytest.mark.parametrize("h,kv,d,bs", [(65536, 65536, 32, 8),
+                                       (4, 4, 300, 8), (4, 4, 256, 256),
+                                       (3, 2, 64, 8)])
 def test_paged_launch_plan_refuses(h, kv, d, bs):
-    """A group too wide for the lanes' registers, a head dim past 256, a
-    page whose ring does not fit in shared memory, uneven groups."""
+    """More (KV head, head split) blocks than the grid's y axis takes, a
+    head dim past 256, a page whose ring does not fit in shared memory,
+    uneven groups."""
     from repro_torch.kernels.paged_attention import launch_plan
     with pytest.raises(ValueError, match="paged_attention"):
         launch_plan(h, kv, d, bs, 4, 16)

@@ -606,12 +606,15 @@ def test_spawned_pair_equals_single_process(tmp_path):
 @pytest.mark.parametrize("dk,dv,dtype,ok", [
     (192, 128, torch.bfloat16, True), (24, 16, torch.float32, True),
     (128, 128, torch.bfloat16, True), (192, 64, torch.float32, True),
-    (208, 128, torch.bfloat16, False), (256, 128, torch.float32, False),
-    (192, 144, torch.bfloat16, False), (64, 80, torch.float32, False),
-    (24, 16, torch.bfloat16, False), (192, 100, torch.bfloat16, False)])
+    (208, 128, torch.bfloat16, True), (256, 128, torch.float32, True),
+    (192, 144, torch.bfloat16, True), (64, 80, torch.float32, False),
+    (24, 16, torch.bfloat16, False), (192, 100, torch.bfloat16, False),
+    (256, 256, torch.bfloat16, True), (272, 128, torch.float32, False),
+    (256, 272, torch.bfloat16, False)])
 def test_flash_wrapper_head_dim_rules(dk, dv, dtype, ok):
-    """dv ≠ dk is accepted; dk > 192, dv > 128 or dv > dk raise, and so do
-    bf16 head dims that are not multiples of 16."""
+    """dv ≠ dk is accepted up to dk 256 (RecurrentGemma's 256 / 256);
+    dk > 256 or dv > dk raise, and so do bf16 head dims that are not
+    multiples of 16."""
     q = torch.zeros((1, 4, 3, dk), dtype=dtype, device="meta")
     k = torch.zeros((1, 2, 5, dk), dtype=dtype, device="meta")
     v = torch.zeros((1, 2, 5, dv), dtype=dtype, device="meta")
