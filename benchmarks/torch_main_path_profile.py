@@ -6,12 +6,15 @@ output tokens, 500-token streamed prefill chunks — or, with ``--phase 6``,
 ``chip_smoke.phase6`` (Mixtral-8x7B, 24 layers, sliding window and MoE,
 8 requests of 2048-8192 tokens), with ``--phase 7``
 ``chip_smoke.phase7`` (DeepSeek-V2-Lite, 27 layers, MLA and MoE, the same
-8 prompts), or with ``--phase 8`` ``chip_smoke.phase8`` (RecurrentGemma-9B,
+8 prompts), with ``--phase 8`` ``chip_smoke.phase8`` (RecurrentGemma-9B,
 38 layers, RG-LRU and local attention at head dim 256, the same 8
-prompts) — under ``torch.profiler`` (CPU + CUDA activity) around the
-serving loop only, and prints one JSON line: device time by kernel family
-(the port's kernels, flash at dk 192 and at dk 256 apart, matrix
-products, copies, everything else), the top kernels by name, the
+prompts), with ``--phase 9`` ``chip_smoke.phase9`` (Mamba2-370M, 48 SSD
+layers, no attention, the same 8 prompts) or with ``--phase 10``
+``chip_smoke.phase10`` (InternVL2-2B, 24 layers, phase 3's prompts after
+256 patch embeddings each) — under ``torch.profiler`` (CPU + CUDA
+activity) around the serving loop only, and prints one JSON line: device
+time by kernel family (the port's kernels, flash at dk 192 and at dk 256
+apart, matrix products, copies, everything else), the top kernels by name, the
 device's idle share of the serving wall time, and for each profiler span
 of the port the host time inside it and the device time of the kernels
 it launched (``moe.group_sizes_to_host``: the MoE layer's read-back of its
@@ -20,10 +23,12 @@ group sizes, which waits for the work queued before it;
 paged MLA decode's float32 products in the latent space;
 ``rglru.block``: a whole RG-LRU block, with inside it
 ``rglru.f32_weights``, the gate weights' cast to float32, and
-``rglru.scan``, the recurrence). Spans may nest: a kernel counts in
-every span whose device range holds it.
+``rglru.scan``, the recurrence; ``ssd.block``: a whole SSD block, with
+inside it ``ssd.scan``, the recurrence across chunks). Spans may nest:
+a kernel counts in every span whose device range holds it.
 
-    PYTHONPATH=src python benchmarks/torch_main_path_profile.py [--phase 6|7|8]
+    PYTHONPATH=src python benchmarks/torch_main_path_profile.py \
+        [--phase 6|7|8|9|10]
 
 Needs a CUDA device (it fails without one). The kernels build first, as
 in ``chip_smoke.py``.
@@ -74,7 +79,7 @@ def summarize(events, wall_s: float):
     nest)."""
     spans, ranges = {}, {}
     for e in events:
-        if e["name"].startswith(("moe.", "mla.", "rglru.")) and e.get(
+        if e["name"].startswith(("moe.", "mla.", "rglru.", "ssd.")) and e.get(
                 "cat") in (
                 "user_annotation", "gpu_user_annotation"):
             host = e["cat"] == "user_annotation"
@@ -141,7 +146,8 @@ def main() -> int:
     phase = int(sys.argv[sys.argv.index("--phase") + 1]) \
         if "--phase" in sys.argv else 3
     run = {3: chip_smoke.phase3, 6: chip_smoke.phase6,
-           7: chip_smoke.phase7, 8: chip_smoke.phase8}[phase]
+           7: chip_smoke.phase7, 8: chip_smoke.phase8,
+           9: chip_smoke.phase9, 10: chip_smoke.phase10}[phase]
     out = run(dev, around_serve=profiled)
     with open(trace) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, then runs nine phases, each printing JSON lines:
+nvcc, then runs eleven phases, each printing JSON lines:
 
   0. card: name and power limit (``nvidia-smi``), kernel build time, and
      the count of HGMMA (wgmma), UTMALDG (TMA load), SYNCS (mbarrier),
@@ -121,13 +121,36 @@ nvcc, then runs nine phases, each printing JSON lines:
      request of the recurrent states (1,064,960 bytes); the progress
      markers what the floors predict; the last-token check and phase 3's
      float32 first-token check hold. Phase 1 adds flash, paged and the
-     overlay at this model's shapes (``phase1_rg``).
+     overlay at this model's shapes (``phase1_rg``);
+  9. the Mamba-2 SSD family: Mamba2-370M at full width and all 48 layers
+     (32 SSD heads x 64, d_state 128, chunk 256; no attention, no KV),
+     bf16, random weights from the seed, served to phase 6's eight
+     prompts by phase 3's vendors with P at TP 1. No kernel may launch:
+     the SSD chunk scan and recurrence are tensor code, as in the
+     reference. Each request's stream is progress markers (counted, never
+     sent) and one package of no entries that declares its whole length;
+     the wire carries no KV byte, one header a request, and one tail a
+     request of exactly 50,995,200 bytes of states; D has no pools. The
+     last-token and float32 first-token checks of phase 3 hold;
+ 10. the vision frontend: InternVL2-2B at full width and all 24 layers
+     (16 heads on 8 KV heads x 128), bf16, random weights from the seed,
+     served by phase 3's vendors (P at TP 2) to phase 3's eight prompts,
+     each after 256 patch embeddings from the seed (merged sequences of
+     512-2304 positions), with a prefix cache on both engines. Exactly
+     flash, paged and the overlay must launch; the wire must carry every
+     merged position's KV (98,304 bytes a position) plus the codec's
+     headers, to the byte; every request must bypass both prefix caches
+     (counted, no hit: the vlm family's capability row has no prefix
+     cache); the last-token and float32 first-token checks, on the
+     patches and the prompt, hold. Phase 1 adds flash, paged and the
+     overlay at this model's shapes (``phase1_vlm``).
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
 processes report at shutdown). The kernels line gives each kernel's
-launches on every serving phase, and its timing at phase 7's MLA shape
-(``"mla"``) and phase 8's RecurrentGemma shape (``"rg"``) where those
+launches on every serving phase (phases 3-10, none on phase 9), and its
+timing at phase 7's MLA shape (``"mla"``), phase 8's RecurrentGemma
+shape (``"rg"``) and phase 10's InternVL2 shape (``"vlm"``) where those
 phases run it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
@@ -209,6 +232,16 @@ PHASE7_KERNELS = ("flash_attention", "gather_pages", "scatter_pages_overlay")
 # cut to its first 3 layers (rglru, rglru, attn), in float32
 MODEL8, PARITY8_LAYERS = "recurrentgemma-9b", 3
 P_VENDOR8 = dict(P_VENDOR, tp=1)
+# phase 9: the Mamba-2 SSD family, Mamba2-370M at full width and all 48
+# layers (d 1024, 32 SSD heads x 64, d_state 128, one group, chunk 256; no
+# attention, no KV), phase 6's prompts, P at TP 1. Each request's tail
+# carries 48 x (32 x 64 x 128 x 4 + 3 x 2304 x 2) = 50,995,200 bytes of
+# states (h float32, the conv tail bf16)
+MODEL9, PHASE9_TAIL_BYTES = "mamba2-370m", 50_995_200
+# phase 10: the vision frontend, InternVL2-2B at full width and all 24
+# layers (16 heads on 8 KV heads x 128), phase 3's prompts after 256 patch
+# embeddings each (merged sequences of 512-2304 positions), P at TP 2
+MODEL10, PHASE10_PATCHES = "internvl2-2b", 256
 
 
 def emit(obj) -> None:
@@ -460,7 +493,8 @@ def _check(what, got, want, dtype, main):
 def _flash_case(gen, dev, dtype, b, h, kv, sq, skv, d, window, q_offset,
                 main=False, dv=None):
     """flash against its plain version; at a main-path shape in bfloat16,
-    against the yardstick (see FLASH_VS_SDPA). ``dv``: v's head dim where
+    against the yardstick (see FLASH_VS_SDPA; k and v repeated to the
+    query heads for SDPA where ``kv < h``). ``dv``: v's head dim where
     it differs from q's and k's ``d`` (MLA). Returns (max abs error,
     inputs, the yardstick's numbers or None)."""
     import torch
@@ -480,8 +514,9 @@ def _flash_case(gen, dev, dtype, b, h, kv, sq, skv, d, window, q_offset,
         return _check(what, got, want, dtype, False), (q, k, v), None
     want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                    window=window, q_offset=q_offset)
+    k_rep, v_rep = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
     lib = F.scaled_dot_product_attention(
-        q, k, v, attn_mask=flash_mask(sq, skv, q_offset, window, dev))
+        q, k_rep, v_rep, attn_mask=flash_mask(sq, skv, q_offset, window, dev))
     torch.cuda.synchronize()
     err = (got.float() - want).abs()
     lib_err = (lib.float() - want).abs()
@@ -567,6 +602,31 @@ def _overlay_case(gen, dev, layout, pool_dt, canon_dt, layers, bs, kv, hd,
                              f"front={front} seq_len={seq_len} "
                              f"stream_rows={stream_rows}: pools differ")
     return 0.0, (spec, pool, ids, canon)
+
+
+def overlay_vs_index_copy(gen, spec, pool, pids, canon, front, n):
+    """The overlay of ``n`` streamed rows ``canon`` (layers, n, kv, hd)
+    at ``front`` of the pages ``pids`` into a fresh random nbhd pool
+    shaped as ``pool``, against ``index_copy_`` of the same rows into the
+    same pool, bit for bit. Returns ``pool`` viewed (layers, rows, kv*hd),
+    the row indices and the rows: the library call's arguments."""
+    import torch
+    from repro_torch.kernels import ops
+    layers, bs = pool.shape[0], spec.block_size
+    width = spec.kv_heads * spec.head_dim
+    r = torch.arange(front, front + n, device=pool.device)
+    rows = pids.long()[r // bs] * bs + r % bs
+    src = canon.reshape(layers, n, width)
+    fresh = _rand(gen, tuple(pool.shape), pool.dtype, pool.device)
+    got = ops.scatter_pages_overlay(spec, fresh.clone(), pids, canon,
+                                    front=front, seq_len=n)
+    lib = fresh.view(layers, -1, width).index_copy_(1, rows, src)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(layers, -1, width), lib):
+        raise AssertionError(f"overlay of {n} rows at front {front} into "
+                             f"{layers} layers of {width} differs from "
+                             "index_copy_")
+    return pool.view(layers, -1, width), rows, src
 
 
 def _pages_case(gen, dev, kind, layout, pool_dt, other_dt, layers, bs, kv,
@@ -1023,6 +1083,7 @@ def phase1(dev):
     phase1_windowed(gen, dev)
     mla = phase1_mla(gen, dev)
     rg = phase1_rg(gen, dev)
+    vlm = phase1_vlm(gen, dev)
     timings["scatter_pages_overlay"] = phase1_overlay(gen, dev)
     from repro_torch.configs import get_config
     timings.update(phase1_pages(gen, dev, get_config(MODEL)))
@@ -1032,6 +1093,8 @@ def phase1(dev):
         timings[name]["mla"] = t
     for name, t in rg.items():
         timings[name]["rg"] = t
+    for name, t in vlm.items():
+        timings[name]["vlm"] = t
     return timings
 
 
@@ -1372,19 +1435,8 @@ def phase1_rg(gen, dev):
     _, (spec, pool, pids, canon) = _overlay_case(
         gen, dev, "nbhd", "bfloat16", "bfloat16", n_attn, bs, kv, d, front,
         s_rows, True)
-    r = torch.arange(front, front + s_rows, device=dev)
-    rows = pids.long()[r // bs] * bs + r % bs
-    flat = pool.view(n_attn, -1, kv * d)
-    src = canon.reshape(n_attn, s_rows, kv * d)
-    fresh = _rand(gen, tuple(pool.shape), pool.dtype, dev)
-    got = ops.scatter_pages_overlay(spec, fresh.clone(), pids, canon,
-                                    front=front, seq_len=s_rows)
-    lib = fresh.view(n_attn, -1, kv * d).index_copy_(1, rows, src)
-    torch.cuda.synchronize()
-    if not torch.equal(got.view(n_attn, -1, kv * d), lib):
-        raise AssertionError("overlay of a RecurrentGemma chunk differs "
-                             "from index_copy_")
-    del fresh, got, lib
+    flat, rows, src = overlay_vs_index_copy(gen, spec, pool, pids, canon,
+                                            front, s_rows)
     b_ms, b_by = bound(0.0, 2.0 * 2 * n_attn * s_rows * kv * d, "bfloat16")
     row = dict(shape=f"rows ({n_attn},{s_rows},{kv},{d}) into pool "
                      f"({n_attn},N,{bs},{kv},{d}) nbhd bf16, front {front}",
@@ -1404,6 +1456,133 @@ def phase1_rg(gen, dev):
     emit({"phase": 1, "rg_checks": {"flash_small": n_small, "flash_chunk": 2,
                                     "paged_layouts": 3,
                                     "overlay": len(cases) + 1}})
+    return out
+
+
+def phase1_vlm(gen, dev):
+    """The attention kernels and the overlay at phase 10's shapes
+    (InternVL2-2B: 16 query heads on 8 KV heads of 128, full causal; 256
+    patches before phase 3's prompts, merged sequences of 541-2037
+    positions). flash: P's chunks of the longest sequence in its stream's
+    cache (capacity rounded up to a chunk multiple): the first (patches
+    and text), the one at q_offset 1500 and the last, in bf16 against the
+    float32 plain version and the yardstick (SDPA with k/v repeated to 16
+    heads), and in float32 within 2e-5; then the monolithic prefill of
+    that sequence and its output, as the last-token and first-token
+    checks run it, in both dtypes. paged: phase 10's eight
+    sequences at their last decode step in a table as wide as D's, in
+    nbhd (D's layout), nhbd and nhdb within the main-path bf16 limits,
+    and in float32 nbhd within 2e-5. overlay: every (front, rows) of
+    phase 10's streamed chunks into D's pools (24 layers, 8 KV heads of
+    128, block 32), bit-identical to the plain version and to
+    ``index_copy_``. Returns flash's (the chunk at 1500), paged's (nbhd)
+    and the overlay's (500 rows at front 20) timings, keyed by kernel
+    name."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    cfg = get_config(MODEL10)
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    seqs = [int(n) + PHASE10_PATCHES for n in np.random.default_rng(
+        SEED).integers(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, N_REQUESTS)]
+    out = {}
+    n = max(seqs)
+    cap = -(-n // PREFILL_CHUNK) * PREFILL_CHUNK
+    last = (n - 1) // PREFILL_CHUNK * PREFILL_CHUNK
+    for c0 in sorted({0, 1500, last}):
+        sq = min(PREFILL_CHUNK, n - c0)
+        _flash_case(gen, dev, "float32", 1, h, kv, sq, cap, d, 0, c0,
+                    main=True)
+        err, (q, k, v), yard = _flash_case(gen, dev, "bfloat16", 1, h, kv,
+                                           sq, cap, d, 0, c0, main=True)
+        k_rep, v_rep = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
+        mask = flash_mask(sq, cap, c0, 0, dev)
+        pairs = sq * c0 + sq * (sq + 1) // 2
+        b_ms, b_by = bound(4.0 * d * h * pairs,
+                           2.0 * (2 * sq * h * d + 2 * (c0 + sq) * kv * d),
+                           "bfloat16")
+        row = dict(shape=f"q(1,{h},{sq},{d}) kv(1,{kv},{cap},{d}) "
+                         f"q_offset={c0} bf16",
+                   max_abs_err=err, yardstick=yard,
+                   **time_all(lambda: ops.flash_attention(q, k, v,
+                                                          q_offset=c0),
+                              plain=lambda: ref.flash_attention_ref(
+                                  q, k, v, q_offset=c0),
+                              library=lambda: F.scaled_dot_product_attention(
+                                  q, k_rep, v_rep, attn_mask=mask)),
+                   library="scaled_dot_product_attention, k/v repeated to "
+                           f"{h} heads, boolean mask",
+                   bound_ms=b_ms, bound_by=b_by)
+        emit({"phase": 1, "extra": f"flash_attention, InternVL2 chunk at "
+                                   f"{c0}", **row})
+        if c0 == 1500:
+            out["flash_attention"] = row
+        del q, k, v, k_rep, v_rep, mask
+    # the checks' monolithic prefills: the longest sequence and its output
+    for dtype in ("float32", "bfloat16"):
+        _flash_case(gen, dev, dtype, 1, h, kv, n + MAX_NEW, n + MAX_NEW, d, 0,
+                    0, main=True)
+    bs = D_VENDOR["block_size"]
+    lens = [s + MAX_NEW for s in seqs]
+    width = -(-(n + MAX_NEW) // bs)
+    tokens = sum(lens)
+    p_ms, p_by = bound(4.0 * d * h * tokens, 2.0 * 2 * tokens * kv * d
+                       + 2.0 * 2 * len(lens) * h * d, "bfloat16")
+    _paged_case(gen, dev, "float32", "nbhd", len(lens), h, kv, d, bs, lens,
+                0, main=True, width=width)
+    for layout in ("nbhd", "nhbd", "nhdb"):
+        err, a = _paged_case(gen, dev, "bfloat16", layout, len(lens), h, kv,
+                             d, bs, lens, 0, main=True, width=width)
+        row = dict(shape=f"q({len(lens)},{h},{d}) pools {layout} bs{bs} bf16,"
+                         f" {kv} KV heads, table {width} pages, "
+                         f"seq_lens {lens}",
+                   max_abs_err=err,
+                   **time_all(lambda: ops.paged_attention(*a, layout=layout),
+                              plain=lambda: ref.paged_attention_ref(
+                                  *a, layout=layout)),
+                   bound_ms=p_ms, bound_by=p_by)
+        emit({"phase": 1, "extra": f"paged_attention, InternVL2 decode, "
+                                   f"{layout}", **row})
+        out.setdefault("paged_attention", row)
+        del a
+    # the overlay: every (front, rows) a streamed chunk of phase 10 has in
+    # D's pools, bit for bit against the plain version and index_copy_
+    cases = sorted({(c0 % bs, min(PREFILL_CHUNK, s - c0)) for s in seqs
+                    for c0 in range(0, s, PREFILL_CHUNK)})
+    for front, rows_n in cases:
+        _, (spec, pool, pids, canon) = _overlay_case(
+            gen, dev, "nbhd", "bfloat16", "bfloat16", cfg.num_layers, bs, kv,
+            d, front, rows_n, True)
+        flat, rows, src = overlay_vs_index_copy(gen, spec, pool, pids, canon,
+                                                front, rows_n)
+        if (front, rows_n) == (PREFILL_CHUNK % bs, PREFILL_CHUNK):
+            b_ms, b_by = bound(0.0, 2.0 * 2 * cfg.num_layers * rows_n * kv * d,
+                               "bfloat16")
+            row = dict(
+                shape=f"rows ({cfg.num_layers},{rows_n},{kv},{d}) into pool "
+                      f"({cfg.num_layers},N,{bs},{kv},{d}) nbhd bf16, "
+                      f"front {front}",
+                max_abs_err=0.0, library_bit_identical=True,
+                **time_all(lambda: ops.scatter_pages_overlay(
+                               spec, pool, pids, canon, front=front,
+                               seq_len=rows_n),
+                           plain=lambda: ref.scatter_pages_overlay_ref(
+                               spec, pool, pids, canon, front=front,
+                               seq_len=rows_n),
+                           library=lambda: flat.index_copy_(1, rows, src)),
+                bound_ms=b_ms, bound_by=b_by)
+            emit({"phase": 1, "extra": "scatter_pages_overlay, InternVL2 "
+                                       "chunk", **row})
+            out["scatter_pages_overlay"] = row
+        del pool, canon, flat, src
+    if set(out) != {"flash_attention", "paged_attention",
+                    "scatter_pages_overlay"}:
+        raise AssertionError(f"phase1_vlm timed only {sorted(out)}")
+    emit({"phase": 1, "vlm_checks": {"flash": 8, "paged": 4,
+                                     "overlay": len(cases),
+                                     "overlay_cases": cases}})
     return out
 
 
@@ -1567,6 +1746,15 @@ def tree_to(tree, dev):
     return tree.to(dev)
 
 
+def param_billions(tree) -> float:
+    """Parameters in the tensors of a weight tree, in billions."""
+    if isinstance(tree, dict):
+        return sum(param_billions(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(param_billions(v) for v in tree)
+    return tree.numel() / 1e9
+
+
 def phase2(dev, model=MODEL, layers=PARITY_LAYERS, phase=2):
     """Path parity of ``model`` at full width cut to ``layers`` layers in
     float32 with TF32 off: one PARITY_PROMPT-token request through
@@ -1625,21 +1813,36 @@ def check_launched(phase: int, launches, expected) -> None:
                              f"the path runs {set(expected)}")
 
 
-def last_token_gap(cfg, params, dev, reqs) -> float:
-    """Each request's last token against a monolithic prefill of prompt +
-    output[:-1]: the decoded token must be (within bf16 noise) the
-    prefill's top choice, and the logits finite. Returns the worst gap."""
+def prefill_last(params, cfg, dev, tokens, patches=None):
+    """The last position's logits (V,) of a monolithic prefill of
+    ``tokens``, after ``patches`` (P, d) when given (a vision request)."""
     import numpy as np
     import torch
     from repro_torch.models import model as M
+    inputs = {"tokens": torch.as_tensor(np.asarray(tokens, np.int32),
+                                        device=dev)[None]}
+    n = len(tokens)
+    if patches is not None:
+        inputs["patches"] = torch.as_tensor(patches, device=dev)[None]
+        n += len(patches)
+    last, _ = M.prefill(params, cfg, inputs,
+                        M.init_caches(cfg, 1, n, device=dev))
+    return last[0]
+
+
+def last_token_gap(cfg, params, dev, reqs) -> float:
+    """Each request's last token against a monolithic prefill of its
+    patches (if any), prompt and output[:-1]: the decoded token must be
+    (within bf16 noise) the prefill's top choice, and the logits finite.
+    Returns the worst gap."""
+    import numpy as np
+    import torch
     worst = 0.0
     for r in reqs:
         seq = np.concatenate([r.prompt, np.asarray(r.output_tokens[:-1],
                                                    np.int32)])
-        toks = torch.as_tensor(seq, device=dev)[None]
-        last, _ = M.prefill(params, cfg, {"tokens": toks},
-                            M.init_caches(cfg, 1, len(seq), device=dev))
-        last = last[0].float()
+        last = prefill_last(params, cfg, dev, seq, r.patches)
+        last = last.float()
         if not bool(torch.isfinite(last).all()):
             raise AssertionError(f"{r.req_id}: non-finite logits")
         gap = float(last.max() - last[r.output_tokens[-1]])
@@ -1652,25 +1855,19 @@ def last_token_gap(cfg, params, dev, reqs) -> float:
 
 def first_token_yardstick(cfg, params, dev, prompts, reqs):
     """Each request's served first token against a float32 prefill of its
-    prompt (params upcast with ``.float()``, which takes the float32 flash
-    kernel): its float32 logit must be within LOGIT_SLACK of the float32
-    maximum, whatever order bf16 summed in. Returns the worst gap and the
-    largest |bf16 - f32| of the last-position logits of ``M.prefill`` in
-    bf16. The float32 copy of the weights (27 GB at llama2-7b) is freed
-    before the return."""
-    import numpy as np
+    patches (if any) and prompt (params upcast with ``.float()``, which
+    takes the float32 flash kernel): its float32 logit must be within
+    LOGIT_SLACK of the float32 maximum, whatever order bf16 summed in.
+    Returns the worst gap and the largest |bf16 - f32| of the
+    last-position logits of ``M.prefill`` in bf16. The float32 copy of
+    the weights (27 GB at llama2-7b) is freed before the return."""
     import torch
-    from repro_torch.models import model as M
     cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
     params32 = tree_to(params, torch.float32)
     gap_max = err_max = 0.0
     for prompt, r in zip(prompts, reqs):
-        toks = torch.as_tensor(np.asarray(prompt, np.int32), device=dev)[None]
-        l16, _ = M.prefill(params, cfg, {"tokens": toks},
-                           M.init_caches(cfg, 1, len(prompt), device=dev))
-        l32, _ = M.prefill(params32, cfg32, {"tokens": toks},
-                           M.init_caches(cfg32, 1, len(prompt), device=dev))
-        l16, l32 = l16[0].float(), l32[0].float()
+        l16 = prefill_last(params, cfg, dev, prompt, r.patches).float()
+        l32 = prefill_last(params32, cfg32, dev, prompt, r.patches).float()
         if not bool(torch.isfinite(l32).all()):
             raise AssertionError(f"{r.req_id}: non-finite float32 logits")
         gap = float(l32.max() - l32[r.output_tokens[0]])
@@ -2145,15 +2342,19 @@ def wire_plan(lens, window, chunk):
     return out
 
 
-def serve_long_prompts(phase, cfg, p_vendor, dev, around_serve, kernels):
-    """The serving run phases 6-8 share: ``cfg`` in bf16 with random
+def serve_long_prompts(phase, cfg, p_vendor, dev, around_serve, kernels,
+                       make_reqs=None, prefix_cache=False):
+    """The serving run phases 6-10 share: ``cfg`` in bf16 with random
     weights from SEED, phase 6's eight prompts (MAX_NEW greedy tokens
-    each) served by one P (``p_vendor``) and phase 3's D over a raw bf16
-    wire in PREFILL_CHUNK-token chunks. The launch counts are set to 0
-    just before the serving loop and read just after; every request must
-    finish and exactly ``kernels`` must launch. Returns the run: weights,
-    requests, engines, pipe, scheduler, the positions each request
-    shipped, the server's result, launches and the loop's peak memory."""
+    each; or the requests ``make_reqs(cfg)`` returns) served by one P
+    (``p_vendor``) and phase 3's D over a raw bf16 wire in
+    PREFILL_CHUNK-token chunks, both engines with a prefix cache when
+    ``prefix_cache``. The launch counts are set to 0 just before the
+    serving loop and read just after; every request must finish and
+    exactly ``kernels`` must launch. Returns the run: weights, requests,
+    engines, pipe, scheduler, the positions each request shipped, the
+    bytes staged under each wire key, the server's result, launches and
+    the loop's peak memory."""
     import collections
     import types
     import numpy as np
@@ -2173,21 +2374,33 @@ def serve_long_prompts(phase, cfg, p_vendor, dev, around_serve, kernels):
     params = M.init_params(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
     params_gib = torch.cuda.memory_allocated() / 2 ** 30
-    rng = np.random.default_rng(SEED)
-    reqs = [Request(f"req{i}", rng.integers(0, cfg.vocab_size, n)
-                    .astype(np.int32), MAX_NEW)
-            for i, n in enumerate(PHASE6_PROMPTS)]
+    if make_reqs is None:
+        rng = np.random.default_rng(SEED)
+        reqs = [Request(f"req{i}", rng.integers(0, cfg.vocab_size, n)
+                        .astype(np.int32), MAX_NEW)
+                for i, n in enumerate(PHASE6_PROMPTS)]
+    else:
+        reqs = make_reqs(cfg)
     prompts = [r.prompt.copy() for r in reqs]
-    max_seq = max(PHASE6_PROMPTS) + MAX_NEW
+    seqs = [r.prompt_len + r.num_patches for r in reqs]
+    max_seq = max(seqs) + MAX_NEW
     bs = d_vendor.block_size
-    d_blocks = sum(-(-(n + MAX_NEW) // bs) for n in PHASE6_PROMPTS) + 1
+    d_blocks = sum(-(-(n + MAX_NEW) // bs) for n in seqs) + 1
     p_eng = Engine("P0", cfg, params, p_vendor, num_blocks=2, max_batch=1,
-                   max_seq_len=max_seq, role="prefill", device=dev)
+                   max_seq_len=max_seq, role="prefill",
+                   prefix_cache=prefix_cache, device=dev)
     d_eng = Engine("D0", cfg, params, d_vendor, num_blocks=d_blocks,
                    max_batch=len(reqs), max_seq_len=max_seq, role="decode",
-                   device=dev)
+                   prefix_cache=prefix_cache, device=dev)
     wire = WireFormat("raw", "bfloat16")
     pipe = DisaggPipeline(TransferEngine(), wire)
+    staged = {}
+    stage = pipe.transfer.stage
+
+    def counted_stage(key, payload, meta=None):   # bytes under each key
+        staged[key] = stage(key, payload, meta)
+        return staged[key]
+    pipe.transfer.stage = counted_stage
     shipped = collections.Counter()
     begin = pipe.begin_handoff
 
@@ -2220,18 +2433,20 @@ def serve_long_prompts(phase, cfg, p_vendor, dev, around_serve, kernels):
         params=params, params_gib=params_gib, setup_s=setup_s, reqs=reqs,
         prompts=prompts, p_vendor=p_vendor, d_vendor=d_vendor, wire=wire,
         p_eng=p_eng, d_eng=d_eng, pipe=pipe, sched=sched, shipped=shipped,
-        result=result, launches=launches, peak=peak)
+        staged=staged, result=result, launches=launches, peak=peak)
 
 
 def serving_report(run) -> dict:
-    """The keys of the phase line that phases 6-8 share: the traffic, the
+    """The keys of the phase line that phases 6-10 share: the traffic, the
     vendors, TTFT/TPOT/tok/s, memory, launches, P's and D's times and the
     wire's."""
     import numpy as np
     ttft, tpot = run.result.ttft(), run.result.tpot()
     p, d = run.p_eng.stats, run.d_eng.stats
     st = run.pipe.transfer.stats
-    return {"requests": len(run.reqs), "prompt_lens": list(PHASE6_PROMPTS),
+    return {"requests": len(run.reqs),
+            "prompt_lens": [r.prompt_len for r in run.reqs],
+            "patches": [r.num_patches for r in run.reqs],
             "max_new_tokens": MAX_NEW, "prefill_chunk": PREFILL_CHUNK,
             "p_vendor": dataclasses.asdict(run.p_vendor),
             "d_vendor": dataclasses.asdict(run.d_vendor),
@@ -2452,12 +2667,6 @@ def phase8(dev, around_serve=contextlib.nullcontext):
     run = serve_long_prompts(8, cfg, VendorProfile(**P_VENDOR8), dev,
                              around_serve, PHASE3_KERNELS)
 
-    def numel(t):
-        if isinstance(t, dict):
-            return sum(numel(v) for v in t.values())
-        if isinstance(t, (tuple, list)):
-            return sum(numel(v) for v in t)
-        return t.numel()
     plan, markers = check_window_wire(8, run, win)
     # the wire: each chunk one "kv" entry (the 12 attention layers of the
     # first group; the second group has none), plus per request the tail
@@ -2484,7 +2693,7 @@ def phase8(dev, around_serve=contextlib.nullcontext):
            "layers_published": cfg.num_layers, "recurrent_layers": n_rec,
            "dtype": cfg.compute_dtype, "window": win, "heads": cfg.num_heads,
            "kv_heads": cfg.num_kv_heads, "head_dim": cfg.hd, "lru_width": w,
-           "params_b": numel(run.params) / 1e9,
+           "params_b": param_billions(run.params),
            "param_count_b": cfg.param_count() / 1e9,
            **report,
            "peak_mem_gib_with_checks":
@@ -2492,6 +2701,179 @@ def phase8(dev, around_serve=contextlib.nullcontext):
            "progress_markers_skipped": markers,
            "wire_bytes_predicted": want_bytes,
            "wire_kv_bytes": kv_bytes, "tail_bytes_per_request": tail_bytes,
+           "last_token_logit_gap_max": worst,
+           "first_token_gap_f32_max": gap32,
+           "last_logits_bf16_vs_f32_max_abs": err32,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 9: the Mamba-2 SSD family (Mamba2-370M) at full width and depth
+# --------------------------------------------------------------------------- #
+def phase9(dev, around_serve=contextlib.nullcontext):
+    """Mamba2-370M at full width and all 48 layers, bf16, random weights
+    from SEED, served to phase 6's prompts by a P at TP 1 and phase 3's
+    D: every chunk through the 48 SSD layers' chunk scan with the states
+    carried from chunk to chunk, each request's stream a run of progress
+    markers and then one package of no entries that declares its whole
+    length, the states' tail placed into D's slot at finalize, and
+    decode through the single-step recurrence. No attention kernel runs:
+    the family has no attention and no KV. ``around_serve`` as in
+    ``phase3``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.transport.wirefmt import WireChunk
+    from repro_torch.serving.engine import VendorProfile
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MODEL9)
+    s = cfg.ssm
+    run = serve_long_prompts(9, cfg, VendorProfile(**P_VENDOR8), dev,
+                             around_serve, ())
+    # the wire: per request one empty chunk (a header that declares the
+    # whole length) and one tail of every layer's h (float32) and conv
+    # tail (bf16); no KV byte
+    conv_dim = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+    tail_bytes = cfg.num_layers * (
+        s.n_heads(cfg.d_model) * s.head_dim * s.d_state * 4
+        + (s.d_conv - 1) * conv_dim * 2)
+    tails = {k: n for k, n in run.staged.items() if k.endswith("tail")}
+    if sorted(tails.values()) != [tail_bytes] * len(run.reqs) or \
+            tail_bytes != PHASE9_TAIL_BYTES:
+        raise AssertionError(f"phase 9: tails {tails}, the states say "
+                             f"{tail_bytes} a request")
+    header = WireChunk.from_entries([], run.wire, run.p_vendor.tp,
+                                    seq_len=1).nbytes
+    st = run.pipe.transfer.stats
+    want_bytes = len(run.reqs) * (header + tail_bytes)
+    if st.payload_bytes != len(run.reqs) * tail_bytes or \
+            st.bytes_moved != want_bytes:
+        raise AssertionError(f"phase 9: wire payload {st.payload_bytes} / "
+                             f"bytes {st.bytes_moved}, the tails say "
+                             f"{len(run.reqs) * tail_bytes} / {want_bytes}")
+    if [run.shipped[r.req_id] for r in run.reqs] != list(PHASE6_PROMPTS) \
+            or run.sched.stats.chunks_streamed != len(run.reqs):
+        raise AssertionError(f"phase 9: {run.sched.stats.chunks_streamed} "
+                             f"chunks, positions declared {dict(run.shipped)}")
+    markers = run.p_eng.stats.prefill_chunks - run.sched.stats.chunks_streamed
+    want_markers = sum(-(-n // PREFILL_CHUNK) - 1 for n in PHASE6_PROMPTS)
+    if markers != want_markers or run.d_eng.paged_pools():
+        raise AssertionError(f"phase 9: {markers} progress markers, "
+                             f"{want_markers} expected; D pools "
+                             f"{len(run.d_eng.paged_pools())}")
+    report = serving_report(run)
+    del run.sched, run.p_eng, run.d_eng, run.pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = last_token_gap(cfg, run.params, dev, run.reqs)
+    gap32, err32 = first_token_yardstick(cfg, run.params, dev, run.prompts,
+                                         run.reqs)
+    out = {"phase": 9, "model": cfg.name, "layers": cfg.num_layers,
+           "layers_published": cfg.num_layers, "dtype": cfg.compute_dtype,
+           "d_model": cfg.d_model, "ssd_heads": s.n_heads(cfg.d_model),
+           "ssd_head_dim": s.head_dim, "d_state": s.d_state,
+           "chunk_size": s.chunk_size,
+           "params_b": param_billions(run.params),
+           **report,
+           "peak_mem_gib_with_checks":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "progress_markers_skipped": markers,
+           "wire_bytes_predicted": want_bytes,
+           "tail_bytes_per_request": tail_bytes,
+           "last_token_logit_gap_max": worst,
+           "first_token_gap_f32_max": gap32,
+           "last_logits_bf16_vs_f32_max_abs": err32,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 10: the vision frontend (InternVL2-2B) at full width and depth
+# --------------------------------------------------------------------------- #
+def phase10_requests(cfg):
+    """Phase 3's eight prompts (lengths and tokens from the same draws),
+    each after PHASE10_PATCHES patch embeddings (d_model wide, float32,
+    unit normal, from the same generator after the prompts): the stub
+    frontend, as the JAX package's tests feed it."""
+    import numpy as np
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, N_REQUESTS)
+    reqs = [Request(f"req{i}", rng.integers(0, cfg.vocab_size, int(n))
+                    .astype(np.int32), MAX_NEW) for i, n in enumerate(lens)]
+    for r in reqs:
+        r.patches = rng.normal(size=(PHASE10_PATCHES, cfg.d_model)).astype(
+            np.float32)
+    return reqs
+
+
+def phase10(dev, around_serve=contextlib.nullcontext):
+    """InternVL2-2B at full width and all 24 layers, bf16, random weights
+    from SEED, served by phase 3's vendors (P at TP 2) to phase 3's
+    prompts, each after 256 patch embeddings: P's chunks slice the merged
+    patch + token sequence (the first spans the boundary) through flash,
+    the wire carries every position's KV, the overlay re-pages it into
+    D's pools and paged attention decodes. Both engines have a prefix
+    cache, which every request must bypass and count: the vlm family's
+    capability row has no prefix cache (its KV is not prefix-cacheable),
+    so the check reads that row.
+    ``around_serve`` as in ``phase3``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import VendorProfile
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MODEL10)
+    run = serve_long_prompts(10, cfg, VendorProfile(**P_VENDOR), dev,
+                             around_serve, PHASE3_KERNELS,
+                             make_reqs=phase10_requests, prefix_cache=True)
+    seqs = [r.prompt_len + r.num_patches for r in run.reqs]
+    # the wire: every position of patches + prompt, K and V of 24 layers x
+    # 8 heads x 128 in bf16 (98,304 bytes), in PREFILL_CHUNK chunks
+    per_pos = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.hd * 2
+    chunks = [(c0, min(PREFILL_CHUNK, n - c0)) for n in seqs
+              for c0 in range(0, n, PREFILL_CHUNK)]
+    want_bytes = sum(kv_chunk_bytes(cfg, run.wire, run.p_vendor.tp, *c)
+                     for c in chunks)
+    st = run.pipe.transfer.stats
+    if [run.shipped[r.req_id] for r in run.reqs] != seqs or \
+            st.payload_bytes != sum(seqs) * per_pos or \
+            st.bytes_moved != want_bytes or \
+            run.sched.stats.chunks_streamed != len(chunks):
+        raise AssertionError(
+            f"phase 10: positions {dict(run.shipped)}, payload "
+            f"{st.payload_bytes} / bytes {st.bytes_moved} / chunks "
+            f"{run.sched.stats.chunks_streamed}; patches + prompt say "
+            f"{sum(seqs) * per_pos} / {want_bytes} / {len(chunks)}")
+    # the prefix caches: never consulted, every request counted
+    p, d = run.p_eng.stats, run.d_eng.stats
+    bypassed = (p.resume_unsupported, d.resume_unsupported)
+    if bypassed != (len(run.reqs), len(run.reqs)) or st.prefix_hit_tokens \
+            or p.prefix_cached_tokens or len(run.d_eng.prefix_store):
+        raise AssertionError(f"phase 10: prefix cache bypassed {bypassed}, "
+                             f"hits {st.prefix_hit_tokens} / "
+                             f"{p.prefix_cached_tokens}")
+    report = serving_report(run)
+    del run.sched, run.p_eng, run.d_eng, run.pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = last_token_gap(cfg, run.params, dev, run.reqs)
+    gap32, err32 = first_token_yardstick(cfg, run.params, dev, run.prompts,
+                                         run.reqs)
+    out = {"phase": 10, "model": cfg.name, "layers": cfg.num_layers,
+           "layers_published": cfg.num_layers, "dtype": cfg.compute_dtype,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.hd,
+           "params_b": param_billions(run.params),
+           **report,
+           "peak_mem_gib_with_checks":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "sequence_lens": seqs, "kv_bytes_per_position": per_pos,
+           "wire_bytes_predicted": want_bytes,
+           "prefix_cache_bypassed": list(bypassed),
            "last_token_logit_gap_max": worst,
            "first_token_gap_f32_max": gap32,
            "last_logits_bf16_vs_f32_max_abs": err32,
@@ -2563,6 +2945,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths[8] = phase8(dev)
+    gc.collect()                         # RecurrentGemma's weights: Mamba's
+    torch.cuda.empty_cache()
+    paths[9] = phase9(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths[10] = phase10(dev)
 
     rows = []
     for name, source, replaces, phase in KERNELS:
@@ -2578,7 +2966,7 @@ def main() -> int:
                "device_method": t["device_method"], "host_us": t["host_us"],
                "launches_by_phase": {ph: paths[ph]["launches"][name]
                                      for ph in sorted(paths)}}
-        for key in ("mla", "rg"):        # at phase 7's / phase 8's shapes
+        for key in ("mla", "rg", "vlm"):  # at phase 7's, 8's, 10's shapes
             if key in t:
                 row[key] = {k: t[key][k] for k in (
                     "shape", "max_abs_err", "ms", "device_ms", "plain_ms",

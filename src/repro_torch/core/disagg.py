@@ -26,7 +26,10 @@ the last KV chunk, the stream's *tail* (``{"states": [("state", gi, pi,
 {"h", "conv"})], "cross": []}``, one sequence's rows) is staged as a
 plain tree under its own key and placed into the D slot's state rows
 (``Engine.place_states``) before the slot is activated; its bytes count
-on the wire like a chunk's.
+on the wire like a chunk's. An SSM model (Mamba-2) ships no KV at all:
+its one chunk is a ``WireChunk`` of no entries that declares the whole
+length (a header, no payload; D re-pages nothing and has no pools), and
+its SSD states are the tail.
 
 A sliding-window stream starts at its window floor, which may lie inside
 one of D's pages: its first chunk lands ``front = start % block_size`` rows

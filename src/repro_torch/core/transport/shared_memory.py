@@ -24,6 +24,10 @@ zero-copy reader must drop its views (``WireChunk.release``) before
 ``complete(key)``; ``_evict`` tolerates stragglers by deferring the close
 until the buffer is unpinned.
 
+Segments this package creates are named ``rtsm_<16 hex digits>``
+(``SEGMENT_PREFIX``); a segment of either package is adopted by the name
+its descriptor carries.
+
 Segment lifetime is guarded by a ``weakref.finalize`` cleanup: a process
 that drops its connector without calling ``drop()``/``close()`` — or exits
 normally mid-stream — unlinks every segment it created (and detaches every
@@ -35,12 +39,18 @@ from __future__ import annotations
 
 import dataclasses
 import pickle
+import secrets
 import weakref
 from multiprocessing import shared_memory
 from typing import Any, Dict, Set, Tuple
 
 from repro_torch.core.transport import wirefmt
 from repro_torch.core.transport.base import KVConnector
+
+# the segments this package creates: its own name prefix (CPython's
+# default is ``psm_``), so that a process that watches ``psm_*`` segments
+# never sees them; a reader attaches by the name in the descriptor
+SEGMENT_PREFIX = "rtsm_"
 
 
 def _cleanup_segments(segments: Dict[str, shared_memory.SharedMemory],
@@ -141,7 +151,13 @@ class SharedMemoryConnector(KVConnector):
     def _new_segment(self, nbytes: int) -> shared_memory.SharedMemory:
         self.pool.acquire(nbytes)
         try:
-            return shared_memory.SharedMemory(create=True, size=nbytes)
+            while True:
+                try:
+                    return shared_memory.SharedMemory(
+                        name=SEGMENT_PREFIX + secrets.token_hex(8),
+                        create=True, size=nbytes)
+                except FileExistsError:
+                    continue                 # a name taken: draw another
         except Exception:
             self.pool.release(nbytes)
             raise

@@ -34,21 +34,28 @@ def resolve(device: DeviceLike = None) -> torch.device:
 def check_family(cfg) -> None:
     """The port covers the dense GQA/MHA family (optional qkv bias and
     qk-norm), sliding-window attention, multi-head latent attention (MLA,
-    DeepSeek-V2), MoE MLPs over any of these (Mixtral, DeepSeek-V2-Lite)
-    and the hybrid of RG-LRU recurrent blocks and local attention
-    (Griffin / RecurrentGemma). Every other family (SSM, enc-dec, VLM)
-    stays in ROADMAP queue 1 item 7."""
-    attention_ok = cfg.attention_kind in ("full", "sliding") or (
-        cfg.attention_kind == "mla" and cfg.mla is not None)
+    DeepSeek-V2), MoE MLPs over any of these (Mixtral, DeepSeek-V2-Lite),
+    the hybrid of RG-LRU recurrent blocks and local attention (Griffin /
+    RecurrentGemma), the attention-free Mamba-2 SSD family and the vision
+    frontend (patch embeddings before the prompt) over full attention.
+    Encoder-decoder models (the audio frontend) stay in ROADMAP queue 1
+    item 7."""
     hybrid = (cfg.family == "hybrid" and cfg.recurrent is not None
               and cfg.attention_kind in ("full", "sliding") and not cfg.is_moe
               and set(cfg.recurrent.block_pattern) <= {RECURRENT, ATTN})
-    family_ok = cfg.family == "dense" or hybrid or (
+    ssm = (cfg.family == "ssm" and cfg.ssm is not None
+           and cfg.attention_kind == "none" and not cfg.is_moe)
+    vlm = (cfg.family == "vlm" and cfg.frontend.kind == "vision"
+           and cfg.attention_kind == "full" and not cfg.is_moe)
+    attention_ok = ssm or cfg.attention_kind in ("full", "sliding") or (
+        cfg.attention_kind == "mla" and cfg.mla is not None)
+    family_ok = cfg.family == "dense" or hybrid or ssm or vlm or (
         cfg.family == "moe" and cfg.is_moe)
     if (not attention_ok or not family_ok
             or (cfg.is_moe and cfg.family != "moe") or cfg.is_enc_dec
             or (cfg.recurrent is not None and not hybrid)
-            or cfg.ssm is not None or cfg.frontend.kind != "none"):
+            or (cfg.ssm is not None and not ssm)
+            or (cfg.frontend.kind != "none" and not vlm)):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (attention "
             f"{cfg.attention_kind!r}) is not ported yet — see ROADMAP "

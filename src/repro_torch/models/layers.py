@@ -3,7 +3,8 @@
 sliding window, position-tagged KV caches with the ring buffer,
 multi-head latent attention (MLA) with its latent cache, SwiGLU, top-k
 routed MoE with shared experts, the RG-LRU recurrent block of Griffin /
-RecurrentGemma with its layer state).
+RecurrentGemma with its layer state, the Mamba-2 SSD mixer with its
+layer state).
 
 Layers are plain functions over plain dict params, as in the JAX package.
 Conventions: activations (B, S, d); attention heads (B, S, H, hd);
@@ -30,6 +31,14 @@ plain tensor code (the reference's ``jax.lax.associative_scan`` becomes a
 log-depth scan over the token axis). Its state — the float32 hidden
 ``h`` and the conv's last ``d_conv - 1`` inputs — is updated in place by
 the model, like the caches.
+
+The Mamba-2 SSD mixer has no kernel either (the reference computes it in
+jnp): the chunked scan's intra-chunk scores, chunk end states and
+inter-chunk terms are float32 tensor products (``torch.einsum`` of two
+operands, a batched product each; TF32 stays off, as PyTorch's default
+has it), and the recurrence across chunks is a loop in chunk order. Its
+``SSMState`` (float32 ``h`` of (heads, head dim, d_state) and the conv
+tail) is carried and updated like the RG-LRU state.
 """
 from __future__ import annotations
 
@@ -700,6 +709,11 @@ def moe_experts(p: Params, cfg: ModelConfig, x2d: torch.Tensor,
     return y
 
 
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) with no threshold, as ``jax.nn.softplus``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
 # --------------------------------------------------------------------------- #
 # RG-LRU recurrent block (Griffin / RecurrentGemma)
 # --------------------------------------------------------------------------- #
@@ -812,8 +826,7 @@ def rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
             w_a, w_i = p["lru_a_w"].float(), p["lru_in_w"].float()
         r_g = torch.sigmoid(xf @ w_a + p["lru_a_b"])
         i_g = torch.sigmoid(xf @ w_i + p["lru_in_b"])
-        lam = p["lam"]
-        log_a = -8.0 * r_g * torch.logaddexp(lam, torch.zeros_like(lam))
+        log_a = -8.0 * r_g * _softplus(p["lam"])
         a = torch.exp(log_a)
         b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
             * (xf * i_g)
@@ -828,3 +841,173 @@ def rglru_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  state: RGLRUState) -> Tuple[torch.Tensor, RGLRUState]:
     """Single-step decode; x: (B,1,d)."""
     return rglru_block(p, cfg, x, state)
+
+
+# --------------------------------------------------------------------------- #
+# Mamba-2 SSD (state-space duality, chunked)
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass
+class SSMState:
+    h: torch.Tensor          # (..., B, H, P, N) float32 SSD state
+    conv: torch.Tensor       # (..., B, d_conv-1, conv_dim) conv tail
+
+    def layer(self, i: int) -> "SSMState":
+        """View of layer ``i`` of a group-stacked state."""
+        return SSMState(self.h[i], self.conv[i])
+
+
+def _ssd_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    """(d_inner, heads, groups x d_state, conv width)."""
+    s = cfg.ssm
+    di = s.d_inner(cfg.d_model)
+    gn = s.n_groups * s.d_state
+    return di, s.n_heads(cfg.d_model), gn, di + 2 * gn
+
+
+def ssm_state_init(batch: int, cfg: ModelConfig, dtype,
+                   device: torch.device, count: int = 1) -> SSMState:
+    s = cfg.ssm
+    _, nh, _, conv_dim = _ssd_dims(cfg)
+    return SSMState(
+        h=torch.zeros((count, batch, nh, s.head_dim, s.d_state),
+                      dtype=torch.float32, device=device),
+        conv=torch.zeros((count, batch, s.d_conv - 1, conv_dim), dtype=dtype,
+                         device=device))
+
+
+def init_ssd(gen: torch.Generator, cfg: ModelConfig,
+             device: torch.device) -> Params:
+    s = cfg.ssm
+    d = cfg.d_model
+    di, nh, gn, conv_dim = _ssd_dims(cfg)
+
+    def rnd(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device) * scale
+                ).to(cfg.pdtype)
+
+    def uniform(lo, hi):
+        return torch.rand((nh,), generator=gen, device=device) * (hi - lo) + lo
+
+    return {
+        "w_in": rnd((d, 2 * di + 2 * gn + nh), 1.0 / math.sqrt(d)),
+        "conv_w": rnd((s.d_conv, conv_dim), 1.0 / math.sqrt(s.d_conv)),
+        "conv_b": torch.zeros((conv_dim,), dtype=cfg.pdtype, device=device),
+        "a_log": torch.log(uniform(1.0, 16.0)),
+        "d_skip": torch.ones((nh,), dtype=torch.float32, device=device),
+        "dt_bias": torch.log(torch.expm1(uniform(1e-3, 0.1))),
+        "out_norm": torch.ones((di,), dtype=cfg.pdtype, device=device),
+        "w_out": rnd((di, d), 1.0 / math.sqrt(di)
+                     / math.sqrt(2 * cfg.num_layers)),
+    }
+
+
+def _ssd_inputs(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                state: SSMState):
+    """The in-projection, the conv over the state's tail and the split:
+    (z, x heads (B,S,H,P), B and C per head (B,S,H,N), dt (B,S,H), new conv
+    tail). x, B, C and dt in float32, z in x's dtype."""
+    s = cfg.ssm
+    b, S, _ = x.shape
+    di, nh, gn, _ = _ssd_dims(cfg)
+    z, xbc, dt = torch.split(x @ p["w_in"].to(x.dtype), [di, di + 2 * gn, nh],
+                             dim=-1)
+    new_tail = torch.cat([state.conv.to(xbc.dtype), xbc],
+                         dim=1)[:, -(s.d_conv - 1):]
+    xbc = F.silu(_causal_conv1d(xbc, p["conv_w"], p["conv_b"],
+                                state.conv.to(xbc.dtype)))
+    xs, b_, c_ = torch.split(xbc, [di, gn, gn], dim=-1)
+    rep = nh // s.n_groups
+
+    def heads(t):            # groups → heads, as the reference's jnp.repeat
+        return t.reshape(b, S, s.n_groups, s.d_state).float() \
+            .repeat_interleave(rep, dim=2)
+    xh = xs.reshape(b, S, nh, s.head_dim).float()
+    dtf = _softplus(dt.float() + p["dt_bias"])
+    return z, xh, heads(b_), heads(c_), dtf, new_tail
+
+
+def _ssd_out(p: Params, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """The gated norm and the out-projection of y (B,S,di) float32."""
+    y = rms_norm(p["out_norm"], y.to(x.dtype) * F.silu(z), cfg.norm_eps)
+    return y @ p["w_out"].to(x.dtype)
+
+
+def _segsum_exp(da_cs: torch.Tensor) -> torch.Tensor:
+    """L[i,j] = exp(cum_i - cum_j) for i >= j else 0. da_cs: (..., Q).
+    The upper triangle is masked to -inf before the exp, so no inf is
+    ever made (an inf there times a zero elsewhere would be NaN)."""
+    diff = da_cs[..., :, None] - da_cs[..., None, :]
+    q = diff.shape[-1]
+    mask = torch.ones((q, q), dtype=torch.bool, device=diff.device).tril()
+    return torch.exp(diff.masked_fill(~mask, float("-inf")))
+
+
+def ssd_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              state: SSMState) -> Tuple[torch.Tensor, SSMState]:
+    """Chunked SSD over a sequence x (B,S,d) from ``state`` (B rows,
+    unstacked; not written). The sequence is padded to a multiple of
+    ``Q = min(chunk_size, S)``; within a chunk the scores are quadratic,
+    across chunks the states recur in order (``h_prev`` is the state
+    entering each chunk). Everything after the projections runs in
+    float32, with plain tensor products as the reference's einsums (three-
+    operand contractions taken as an elementwise product, then one
+    batched product). Returns (out, final state). Profiler spans:
+    ``ssd.block`` around the block, ``ssd.scan`` around the inter-chunk
+    recurrence."""
+    s = cfg.ssm
+    with torch.profiler.record_function("ssd.block"):
+        b, S, _ = x.shape
+        di, nh, _, _ = _ssd_dims(cfg)
+        z, xh, bh, ch, dtf, new_tail = _ssd_inputs(p, cfg, x, state)
+        da = dtf * -torch.exp(p["a_log"])                    # (B,S,H)
+        q = min(s.chunk_size, S)
+        pad = (-S) % q
+        if pad:
+            xh, bh, ch = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xh, bh, ch))
+            da, dtf = (F.pad(t, (0, 0, 0, pad)) for t in (da, dtf))
+        nc = (S + pad) // q
+
+        def chunks(t):                     # (B, S', ...) -> (B, nc, Q, ...)
+            return t.reshape((b, nc, q) + tuple(t.shape[2:]))
+        xc, bc, cc, dac, dtc = map(chunks, (xh, bh, ch, da, dtf))
+        da_cs = torch.cumsum(dac, dim=2)                     # (B,nc,Q,H)
+        # intra-chunk: quadratic within each chunk
+        seg = _segsum_exp(da_cs.movedim(-1, 2))              # (B,nc,H,Q,Q)
+        scores = torch.einsum("bcqhn,bckhn->bchqk", cc, bc) * seg \
+            * dtc.movedim(-1, 2)[:, :, :, None, :]
+        y = torch.einsum("bchqk,bckhp->bcqhp", scores, xc)
+        # chunk-local end states
+        decay_to_end = torch.exp(da_cs[:, :, -1:, :] - da_cs)
+        states = torch.einsum("bcqhn,bcqhp->bchpn",
+                              (decay_to_end * dtc)[..., None] * bc, xc)
+        # inter-chunk recurrence, in chunk order
+        chunk_decay = torch.exp(dac.sum(dim=2))              # (B,nc,H)
+        with torch.profiler.record_function("ssd.scan"):
+            h = state.h
+            h_prev = []
+            for c in range(nc):
+                h_prev.append(h)
+                h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+            h_prev = torch.stack(h_prev, dim=1)              # (B,nc,H,P,N)
+        y = y + torch.einsum("bcqhn,bchpn->bcqhp",
+                             torch.exp(da_cs)[..., None] * cc, h_prev)
+        y = y.reshape(b, S + pad, nh, s.head_dim)[:, :S]
+        y = y + xh[:, :S] * p["d_skip"][None, None, :, None]
+        out = _ssd_out(p, cfg, y.reshape(b, S, di), z, x)
+    return out, SSMState(h=h, conv=new_tail)
+
+
+def ssd_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               state: SSMState) -> Tuple[torch.Tensor, SSMState]:
+    """Single-step SSD recurrence. x: (B,1,d)."""
+    b = x.shape[0]
+    di = _ssd_dims(cfg)[0]
+    z, xh, bh, ch, dtf, new_tail = _ssd_inputs(p, cfg, x, state)
+    xh, bh, ch, dtf = xh[:, 0], bh[:, 0], ch[:, 0], dtf[:, 0]
+    decay = torch.exp(dtf * -torch.exp(p["a_log"]))          # (B,H)
+    h = state.h * decay[:, :, None, None] + \
+        (dtf[:, :, None, None] * xh[..., None]) * bh[:, :, None, :]
+    y = torch.einsum("bhn,bhpn->bhp", ch, h) + xh * p["d_skip"][None, :, None]
+    return _ssd_out(p, cfg, y.reshape(b, 1, di), z, x), \
+        SSMState(h=h, conv=new_tail)

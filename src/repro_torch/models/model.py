@@ -1,5 +1,8 @@
 """Config-driven model assembly — PyTorch port of ``repro.models.model``
-for the dense, sliding-window, MoE, MLA and hybrid RG-LRU families.
+for the dense, sliding-window, MoE, MLA, hybrid RG-LRU and Mamba-2 SSD
+families, and the vision frontend's patch embeddings before the prompt
+(VLM; the frontend itself is a stub, as in the reference: the request
+carries precomputed patch embeddings).
 
 A model is a list of *block groups* whose parameters are stacked along a
 leading ``count`` axis, exactly as in the JAX package (so
@@ -9,11 +12,14 @@ A group repeats its tuple of layer kinds ``count`` times (the hybrid:
 parameter tree per position in the tuple. Where the JAX code scans over
 the stacked axis with the caches in the carry, the port loops over layer
 slices of the stacked tensors (each repetition's positions in order) and
-updates each layer's cache or recurrent state slice in place.
+updates each layer's cache or recurrent state slice in place. An SSM
+model is one group of SSD layers (a norm and the SSD mixer, no MLP).
 
 Entry points:
   prefill(params, cfg, inputs, caches)                  -> (last_logits, caches)
   decode_step(params, cfg, tokens, positions, caches)   -> (logits, caches)
+  decode_step_embeds(params, cfg, embeds, positions, caches)
+                                                        -> (logits, caches)
   decode_step_paged(params, cfg, tokens, seq_lens, ...) -> (logits, caches)
 """
 from __future__ import annotations
@@ -25,7 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import device as _dev
-from repro_torch.configs.base import ATTN, RECURRENT, ModelConfig
+from repro_torch.configs.base import ATTN, RECURRENT, SSD, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.serving import paged_cache as PC
 
@@ -42,8 +48,11 @@ class Group:
 def block_groups(cfg: ModelConfig) -> List[Group]:
     """dense: [Group(("attn",), L)]; moe: the first dense layers, if any,
     then the MoE layers; hybrid: the block pattern repeated, then its
-    first L mod len(pattern) kinds once — as in the reference."""
+    first L mod len(pattern) kinds once; ssm: [Group(("ssd",), L)] — as
+    in the reference."""
     _dev.check_family(cfg)
+    if cfg.family == "ssm":
+        return [Group((SSD,), cfg.num_layers)]
     if cfg.recurrent is not None:
         pat = cfg.recurrent.block_pattern
         full, rem = divmod(cfg.num_layers, len(pat))
@@ -71,6 +80,9 @@ def layer_params(stacked: Any, i: int) -> Any:
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
                 moe: bool, device: torch.device) -> Params:
     d = cfg.d_model
+    if kind == SSD:
+        return {"norm": torch.ones((d,), dtype=cfg.pdtype, device=device),
+                "ssd": L.init_ssd(gen, cfg, device)}
     if kind == RECURRENT:
         return {"norm1": torch.ones((d,), dtype=cfg.pdtype, device=device),
                 "rglru": L.init_rglru(gen, cfg, device),
@@ -145,12 +157,12 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
                 device: _dev.DeviceLike = None):
     """Dense position-tagged caches, one group-stacked ``KVCache`` (an
     ``MLACache`` of latent rows for MLA) per attention position of a group
-    and one group-stacked ``RGLRUState`` per recurrent position (leaves
-    are (count, B, ...)). A sliding layer's
-    cache is a ring buffer of ``min(capacity, window)`` slots unless
-    ``full_capacity``: chunked prefill opts out (writing chunk c would
-    evict positions still inside the window of chunk c's own queries), so
-    slot == position and attention applies the window."""
+    and one group-stacked ``RGLRUState`` per recurrent position or
+    ``SSMState`` per SSD position (leaves are (count, B, ...)). A sliding
+    layer's cache is a ring buffer of ``min(capacity, window)`` slots
+    unless ``full_capacity``: chunked prefill opts out (writing chunk c
+    would evict positions still inside the window of chunk c's own
+    queries), so slot == position and attention applies the window."""
     dev = _dev.resolve(device)
     dtype = dtype or cfg.cdtype
     cap = capacity
@@ -158,6 +170,8 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
         cap = min(cap, _window(cfg))
 
     def one(kind, count):
+        if kind == SSD:
+            return L.ssm_state_init(batch, cfg, dtype, dev, count=count)
         if kind == RECURRENT:
             return L.rglru_state_init(batch, cfg, dtype, dev, count=count)
         if _is_mla(cfg):
@@ -175,21 +189,22 @@ def init_paged_caches(cfg: ModelConfig, specs: Dict[str, PC.KVPageSpec],
                       device: _dev.DeviceLike = None):
     """Paged pools of (count, N, *page) per attention position of a group:
     {"k_pool", "v_pool"} of ``specs["kv"]``, or for MLA {"ckv_pool",
-    "kpe_pool"} of ``specs["ckv"]`` and ``specs["kpe"]``; a recurrent
-    position holds its dense per-slot state, an ``RGLRUState`` of
-    ``batch`` rows in the compute dtype (h float32), so a model with
-    recurrent layers needs ``batch`` > 0."""
+    "kpe_pool"} of ``specs["ckv"]`` and ``specs["kpe"]``; a recurrent or
+    SSD position holds its dense per-slot state, an ``RGLRUState`` or
+    ``SSMState`` of ``batch`` rows in the compute dtype (h float32), so a
+    model with such layers needs ``batch`` > 0. An SSM model has no pool
+    at all."""
     dev = _dev.resolve(device)
     names = (("ckv_pool", "ckv"), ("kpe_pool", "kpe")) if _is_mla(cfg) \
         else (("k_pool", "kv"), ("v_pool", "kv"))
 
     def one(kind, count):
-        if kind == RECURRENT:
+        if kind in (RECURRENT, SSD):
             if batch <= 0:
                 raise ValueError(f"init_paged_caches: {cfg.name} holds "
                                  "per-slot recurrent states; pass batch > 0")
-            return L.rglru_state_init(batch, cfg, cfg.cdtype, dev,
-                                      count=count)
+            init = L.ssm_state_init if kind == SSD else L.rglru_state_init
+            return init(batch, cfg, cfg.cdtype, dev, count=count)
         return {name: torch.zeros((count,) + specs[key].pool_shape(
             num_blocks), dtype=specs[key].tdtype, device=dev)
             for name, key in names}
@@ -206,6 +221,24 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor
     if cfg.tie_embeddings:
         return e * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype)
     return e
+
+
+def merged_embeds(params, cfg: ModelConfig, patches: Optional[torch.Tensor],
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """The sequence a vision model runs: the patch embeddings (B,P,d) in
+    the compute dtype, then the token embeddings (ref ``_merge_frontend``
+    and the engine's merged embeds). Tokens alone when ``patches`` is
+    None. Patches given to a model without a vision frontend raise: the
+    serving path counts them in a sequence's length, so dropping them
+    would size the stream for positions the embeddings do not have."""
+    emb = embed_tokens(params, cfg, tokens)
+    if patches is None:
+        return emb
+    if cfg.frontend.kind != "vision":
+        raise ValueError(f"{cfg.name}: patches given to a model without a "
+                         "vision frontend")
+    return torch.cat([patches.to(device=emb.device, dtype=cfg.cdtype), emb],
+                     dim=1)
 
 
 def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -252,6 +285,17 @@ def _recurrent(p, cfg: ModelConfig, x: torch.Tensor, state) -> torch.Tensor:
     return _mlp_residual(p, cfg, False, x + h)
 
 
+def _ssd(p, cfg: ModelConfig, x: torch.Tensor, state,
+         step: bool = False) -> torch.Tensor:
+    """An SSD layer: the chunked block (or, with ``step``, the single-token
+    recurrence) from ``state`` (views of one layer's stacked state,
+    written in place), added to the residual."""
+    fn = L.ssd_decode if step else L.ssd_block
+    h, new = fn(p["ssd"], cfg, L.rms_norm(p["norm"], x, cfg.norm_eps), state)
+    L.state_put(state, new)
+    return x + h
+
+
 def _layers(params, cfg: ModelConfig):
     """(group index, position, layer index, kind, group, layer params) in
     model order: each repetition of a group runs its positions in turn."""
@@ -266,18 +310,23 @@ def _layers(params, cfg: ModelConfig):
 # Entry points
 # --------------------------------------------------------------------------- #
 def prefill(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor], caches):
-    """Fill ``caches`` (capacity >= prompt; recurrent states from zero) from
-    a prompt, in place. inputs: tokens (B,S). Returns (last_token_logits
-    (B,V), caches)."""
+    """Fill ``caches`` (capacity >= the sequence; recurrent states from
+    zero) from a prompt, in place. inputs: tokens (B,S) and, for a vision
+    model, optional patches (B,P,d): the sequence is the patches, then
+    the tokens, at positions 0..P+S-1. Returns (last_token_logits (B,V),
+    caches)."""
     tokens = inputs["tokens"]
-    b, s = tokens.shape
-    x = embed_tokens(params, cfg, tokens)
+    x = merged_embeds(params, cfg, inputs.get("patches"), tokens)
+    b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
     fill = L.mla_cache_from_prefill if _is_mla(cfg) else \
         L.kv_cache_from_prefill
     for gi, pi, li, kind, g, p in _layers(params, cfg):
         cache = caches[gi][pi].layer(li)
+        if kind == SSD:
+            x = _ssd(p, cfg, x, cache)
+            continue
         if kind == RECURRENT:
             x = _recurrent(p, cfg, x, cache)
             continue
@@ -297,10 +346,25 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     lets the CUDA route call the flash kernel without reading positions
     back from the card; MLA needs it on both devices (``mla_decode``).
     Returns (logits (B,T,V), caches)."""
-    x = embed_tokens(params, cfg, tokens)
+    return decode_step_embeds(params, cfg, embed_tokens(params, cfg, tokens),
+                              positions, caches, q_offset=q_offset)
+
+
+def decode_step_embeds(params, cfg: ModelConfig, embeds: torch.Tensor,
+                       positions: torch.Tensor, caches,
+                       q_offset: Optional[int] = None):
+    """``decode_step`` over precomputed embeddings (B,T,d): the route of
+    chunked prefill over a vision prompt, where each chunk is a slice of
+    the merged patch + token sequence. An SSD layer takes the chunk scan
+    for more than one position and the single-step recurrence for one,
+    as the reference. Returns (logits (B,T,V), caches)."""
+    x = embeds.to(cfg.cdtype)
     win = _window(cfg)
     for gi, pi, li, kind, g, p in _layers(params, cfg):
         cache = caches[gi][pi].layer(li)
+        if kind == SSD:
+            x = _ssd(p, cfg, x, cache, step=x.shape[1] == 1)
+            continue
         if kind == RECURRENT:
             x = _recurrent(p, cfg, x, cache)
             continue
@@ -321,7 +385,7 @@ def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
                       caches, specs: Dict[str, PC.KVPageSpec],
                       max_len: Optional[int] = None):
     """One continuous-batching decode step against paged pools (appended
-    in place) and per-slot recurrent states (stepped in place). tokens:
+    in place) and per-slot recurrent or SSD states (stepped in place). tokens:
     (B,1); seq_lens: (B,) int32 lengths BEFORE this
     step (== rope position); block_table: (B, max_blocks) int32;
     write_blocks/slots: (B,). ``max_len`` (host int, the longest length
@@ -331,6 +395,9 @@ def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_tokens(params, cfg, tokens)
     win = _window(cfg)
     for gi, pi, li, kind, g, p in _layers(params, cfg):
+        if kind == SSD:
+            x = _ssd(p, cfg, x, caches[gi][pi].layer(li), step=True)
+            continue
         if kind == RECURRENT:
             x = _recurrent(p, cfg, x, caches[gi][pi].layer(li))
             continue

@@ -1,6 +1,7 @@
 """Model-instance engine: prefill, continuous-batching paged decode —
 PyTorch port of ``repro.serving.engine`` for the dense, sliding-window,
-MoE, MLA and hybrid RG-LRU families.
+MoE, MLA, hybrid RG-LRU and Mamba-2 SSD families and the vision
+frontend.
 
 One Engine == one "model instance" in the paper's sense (a P instance, a D
 instance, or an integrated instance). Vendor-specific VRAM management is
@@ -22,8 +23,13 @@ A hybrid (RG-LRU) engine carries its recurrent layer states across a
 stream's chunks; they leave P in the stream's *tail* (``tail_package``:
 ``("state", gi, pi, {"h", "conv"})`` rows of one sequence), ride the
 mid-stream snapshot beside the window's KV rows, and are placed into a D
-slot's rows by ``place_states``. Not ported yet: SSM states and encoder
-or vision prompts (ROADMAP queue 1).
+slot's rows by ``place_states``. An SSM engine (Mamba-2) has no KV at
+all: no pools on D, and its streams ship zero-length progress markers,
+then one package that declares the whole length with no entries; the SSD
+states ride the tail as a hybrid's do. A vision request's patch
+embeddings come before its prompt: the sequence, the positions and the
+KV cover both, and such a request never takes the prefix cache. Not
+ported yet: encoder prompts (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _dev
-from repro_torch.configs.base import RECURRENT, ModelConfig, \
+from repro_torch.configs.base import RECURRENT, SSD, ModelConfig, \
     PrefillCapabilities
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
@@ -49,6 +55,9 @@ from repro_torch.serving.prefix_cache import (HostPrefixStore, PrefixStore,
 from repro_torch.serving.request import Request
 
 log = logging.getLogger(__name__)
+
+# layer kinds that carry a state instead of KV
+STATE_KINDS = (RECURRENT, SSD)
 
 
 class PrefillMode(enum.Enum):
@@ -202,7 +211,13 @@ class PrefillStream:
         position the package holds (a sliding layer keeps only its last
         window).
 
-    ``first_token`` and ``tail_package()`` (a hybrid's recurrent states)
+    A family with no KV on the wire (SSM) returns zero-length progress
+    markers for every chunk but the last, and for the last one package
+    of no entries that declares the whole length (``start`` 0,
+    ``length`` = ``seq_len``). A vision request's stream runs the merged
+    patch + token sequence: its chunks are slices of it.
+
+    ``first_token`` and ``tail_package()`` (the recurrent or SSD states)
     are known once the final chunk has been produced.
 
     With a host prefix store on the engine, an incremental stream replays
@@ -219,7 +234,7 @@ class PrefillStream:
         self.engine = engine
         self.req = req
         self.caps: PrefillCapabilities = engine.prefill_capabilities()
-        self.seq_len = req.prompt_len
+        self.seq_len = req.prompt_len + req.num_patches
         if chunk_tokens is not None and chunk_tokens <= 0:
             warnings.warn(
                 "chunk_tokens <= 0 as a monolithic sentinel is deprecated; "
@@ -249,8 +264,9 @@ class PrefillStream:
             self.chunked_compute = (self.caps.incremental
                                     and chunk_tokens is not None
                                     and chunk_tokens < self.seq_len)
-        # mid-stream snapshot resume (sliding window): skip the already
-        # computed prefix, re-ship the wire from the window floor
+        # mid-stream snapshot resume (layer states and/or a sliding
+        # window): skip the already computed prefix, re-ship the wire from
+        # the window floor
         self._resume: Optional[Dict[str, Any]] = None
         if resume is not None:
             if not self.caps.resumable:
@@ -272,6 +288,7 @@ class PrefillStream:
         self._tail: Optional[Dict[str, Any]] = None
         self._entries: Optional[List[Tuple]] = None   # monolithic mode
         self._caches = None                           # incremental mode
+        self._emb: Optional[torch.Tensor] = None      # vision: merged embeds
         # P-side shared-prefix reuse: replay cached chunks instead of
         # recomputing them, and seed the dense cache so compute resumes
         # at the divergence point. The final token is always computed
@@ -300,8 +317,8 @@ class PrefillStream:
 
     def tail_package(self) -> Dict[str, Any]:
         """The states that ride with finalize: ``{"states": [("state", gi,
-        pi, {"h", "conv"})], "cross": []}``, empty for stateless
-        families."""
+        pi, {"h", "conv"})], "cross": []}`` (RG-LRU or SSD states), empty
+        for stateless families."""
         assert self.done, "tail_package before stream exhausted"
         return self._tail if self._tail is not None \
             else {"states": [], "cross": []}
@@ -347,14 +364,15 @@ class PrefillStream:
             self._tail = {"states": package["states"],
                           "cross": package["cross"]}
             self._entries = kv_entries_with_start(package["kv"])
-            # ring-buffer (sliding) entries cover only the last window of
-            # the prompt: stream from the first position on the wire, no
-            # empty chunks for the evicted prefix
-            self._next_start = min(
-                min(e[3]["start"] for e in self._entries), self.seq_len)
+            if self._entries:
+                # ring-buffer (sliding) entries cover only the last window
+                # of the prompt: stream from the first position on the
+                # wire, no empty chunks for the evicted prefix
+                self._next_start = min(
+                    min(e[3]["start"] for e in self._entries), self.seq_len)
         w0 = self._next_start
-        if self.chunk_tokens is None:
-            w1 = self.seq_len
+        if not self._entries or self.chunk_tokens is None:
+            w1 = self.seq_len        # states only: nothing to chunk
         else:
             w1 = min(w0 + self.chunk_tokens, self.seq_len)
         self._next_start = w1
@@ -373,8 +391,9 @@ class PrefillStream:
 
     def _next_incremental(self) -> Dict[str, Any]:
         """Compute exactly ONE chunk per call (one unit of per-tick P
-        work). A chunk wholly below the wire floor returns a zero-length
-        progress marker."""
+        work). A chunk that produced nothing for the wire — every chunk
+        but the last of a family with no KV on the wire, or one wholly
+        below the window floor — returns a zero-length progress marker."""
         eng, req = self.engine, self.req
         if eng.failed:
             raise RuntimeError(f"instance {eng.name} is down")
@@ -383,13 +402,7 @@ class PrefillStream:
             self._setup_incremental()
         c0 = self._next_start
         c1 = min(c0 + self.chunk_tokens, self.seq_len)
-        positions = torch.arange(c0, c1, dtype=torch.int32,
-                                 device=eng.device)[None]
-        tokens = torch.as_tensor(np.asarray(req.prompt[c0:c1], np.int32),
-                                 device=eng.device)[None]
-        logits, self._caches = M.decode_step(eng.params, eng.cfg, tokens,
-                                             positions, self._caches,
-                                             q_offset=c0)
+        logits = self._compute_chunk(c0, c1)
         self._next_start = c1
         eng.stats.prefill_tokens += c1 - c0
         eng.stats.prefill_chunks += 1
@@ -400,6 +413,14 @@ class PrefillStream:
                           "cross": []}
         dt = time.perf_counter() - t0
         eng._note_prefill_compute(dt)
+        if not self.caps.kv_on_wire:
+            # no KV ever lands on the wire: the one final package declares
+            # the whole length, the states ride the tail
+            if c1 < self.seq_len:
+                return {"kv": [], "start": c0, "length": 0,
+                        "compute_seconds": dt}
+            return {"kv": [], "start": 0, "length": self.seq_len,
+                    "compute_seconds": dt}
         w0 = max(self._wire_sent, self._wire_floor)
         if c1 <= w0:
             return {"kv": [], "start": c0, "length": 0,
@@ -412,23 +433,49 @@ class PrefillStream:
     def _setup_incremental(self) -> None:
         """The dense cache of an incremental stream: capacity rounded to a
         chunk multiple, full_capacity (slot == position, even for a
-        sliding layer); entries past seq_len stay pos=-1 and masked. Then
-        the replayed prefix or a resume snapshot, if any."""
-        eng = self.engine
+        sliding layer); entries past seq_len stay pos=-1 and masked. A
+        vision request's patch and token embeddings are merged once
+        here. Then the replayed prefix or a resume snapshot, if any."""
+        eng, req = self.engine, self.req
         cap = -(-self.seq_len // self.chunk_tokens) * self.chunk_tokens
         self._caches = M.init_caches(eng.cfg, 1, cap, eng.cfg.cdtype,
                                      full_capacity=True, device=eng.device)
+        if req.patches is not None:
+            self._emb = M.merged_embeds(
+                eng.params, eng.cfg,
+                torch.as_tensor(np.asarray(req.patches))[None],
+                torch.as_tensor(np.asarray(req.prompt, np.int32),
+                                device=eng.device)[None])
         if self.prefix_tokens:
             self._preload_caches()
         if self._resume is not None:
             self._apply_resume(self._resume)
 
+    def _compute_chunk(self, c0: int, c1: int) -> torch.Tensor:
+        """Positions [c0, c1) through the decode path: a slice of the
+        merged embeddings for a vision request, else the prompt's
+        tokens. Returns the chunk's logits."""
+        eng = self.engine
+        positions = torch.arange(c0, c1, dtype=torch.int32,
+                                 device=eng.device)[None]
+        if self._emb is not None:
+            logits, self._caches = M.decode_step_embeds(
+                eng.params, eng.cfg, self._emb[:, c0:c1], positions,
+                self._caches, q_offset=c0)
+            return logits
+        tokens = torch.as_tensor(np.asarray(self.req.prompt[c0:c1], np.int32),
+                                 device=eng.device)[None]
+        logits, self._caches = M.decode_step(eng.params, eng.cfg, tokens,
+                                             positions, self._caches,
+                                             q_offset=c0)
+        return logits
+
     def _states(self, fn) -> List[Tuple]:
-        """("state", gi, pi, rows) of every recurrent position of the
-        stream's caches, each field passed through ``fn``."""
+        """("state", gi, pi, rows) of every recurrent or SSD position of
+        the stream's caches, each field passed through ``fn``."""
         return [("state", gi, pi, state_rows(self._caches[gi][pi], fn))
                 for gi, g in enumerate(M.block_groups(self.engine.cfg))
-                for pi, kind in enumerate(g.kinds) if kind == RECURRENT]
+                for pi, kind in enumerate(g.kinds) if kind in STATE_KINDS]
 
     def _extract_entries(self, w0: int, w1: int) -> List[Tuple]:
         """Wire entries for absolute positions [w0, w1) — slot == position
@@ -437,7 +484,7 @@ class PrefillStream:
         entries = []
         for gi, g in enumerate(M.block_groups(self.engine.cfg)):
             for pi, kind in enumerate(g.kinds):
-                if kind == RECURRENT:
+                if kind in STATE_KINDS:
                     continue
                 c = self._caches[gi][pi]
                 if self.caps.latent_kv:
@@ -452,8 +499,8 @@ class PrefillStream:
 
     # -- mid-stream snapshot resume ------------------------------------- #
     def snapshot(self) -> Optional[Dict[str, Any]]:
-        """Portable mid-stream progress: the recurrent layer states and the
-        KV rows still inside the sliding window below ``next_start``,
+        """Portable mid-stream progress: the recurrent or SSD layer states
+        and the KV rows still inside the sliding window below ``next_start``,
         copied to the host. Replaying it on a fresh stream (same request,
         same params) skips recomputing the first ``next_start`` prompt
         tokens after a failure."""
@@ -467,7 +514,7 @@ class PrefillStream:
         for gi, g in enumerate(M.block_groups(self.engine.cfg)):
             for pi, kind in enumerate(g.kinds):
                 c = self._caches[gi][pi]
-                if kind == RECURRENT:
+                if kind in STATE_KINDS:
                     # a copy: later chunks step the live state in place
                     states.append((gi, pi, state_rows(
                         c, lambda t: t.to("cpu", copy=True))))
@@ -577,8 +624,8 @@ class Engine:
         reference's meaning when ``mode`` is None: True forces incremental
         compute, False monolithic, None the automatic choice. ``resume``:
         a ``PrefillStream.snapshot()`` of an aborted stream of the same
-        request on this engine (sliding window; other families refuse it
-        with ``PrefillModeError``)."""
+        request on this engine (the families that carry layer states or a
+        sliding window; the others refuse it with ``PrefillModeError``)."""
         return PrefillStream(self, req, chunk_tokens,
                              chunked_compute=chunked_compute, mode=mode,
                              resume=resume)
@@ -589,25 +636,28 @@ class Engine:
     def prefill(self, req: Request) -> Dict[str, Any]:
         """Run prefill for one request; returns the handoff package:
         {"first_token", "kv": per-group list, "states", "cross", "seq_len"}.
-        The KV and the recurrent states stay on this engine's device in
-        canonical per-layer form; the transfer module converts them to the
-        wire."""
+        A vision request's patches come before its tokens, and
+        ``seq_len`` counts both. The KV and the layer states stay on this
+        engine's device in canonical per-layer form; the transfer module
+        converts them to the wire."""
         if self.failed:
             raise RuntimeError(f"instance {self.name} is down")
         t0 = time.perf_counter()
         cfg = self.cfg
-        plen = req.prompt_len
-        tokens = torch.as_tensor(np.asarray(req.prompt, np.int32),
-                                 device=self.device)[None]
+        plen = req.prompt_len + req.num_patches
+        inputs = {"tokens": torch.as_tensor(np.asarray(req.prompt, np.int32),
+                                            device=self.device)[None]}
+        if req.patches is not None:
+            inputs["patches"] = torch.as_tensor(
+                np.asarray(req.patches), device=self.device)[None]
         caches = M.init_caches(cfg, 1, plen, cfg.cdtype, device=self.device)
-        last_logits, caches = M.prefill(self.params, cfg, {"tokens": tokens},
-                                        caches)
+        last_logits, caches = M.prefill(self.params, cfg, inputs, caches)
         first_token = self._sample(last_logits.float().cpu().numpy(), req)[0]
         kv, states = [], []
         for gi, g in enumerate(M.block_groups(cfg)):
             for pi, kind in enumerate(g.kinds):
                 c = caches[gi][pi]
-                if kind == RECURRENT:
+                if kind in STATE_KINDS:
                     states.append(("state", gi, pi,
                                    state_rows(c, lambda t: t[:, 0])))
                 elif cfg.attention_kind == "mla":
@@ -671,9 +721,12 @@ class Engine:
 
     def _prefix_eligible(self, req: Request) -> bool:
         """Prefix reuse needs every cached row to stay attendable across
-        the whole decode (caps.prefix_cache); the port's prompts are
-        tokens only."""
-        return self.prefill_capabilities().prefix_cache
+        the whole decode (caps.prefix_cache) and a pure-token prompt, as
+        the reference's gate. The only family that takes patches (vlm)
+        has no prefix cache in its capability row, so that row decides;
+        the patches test guards the gate, it changes no outcome."""
+        return self.prefill_capabilities().prefix_cache \
+            and req.patches is None
 
     def reserve_sequence(self, req: Request, seq_len: int, *,
                          use_prefix_cache: bool = False
@@ -753,12 +806,13 @@ class Engine:
 
     def paged_pools(self) -> List[Dict[str, torch.Tensor]]:
         """The {name: pool} dicts of every attention position (recurrent
-        positions hold per-slot states, not pages)."""
+        and SSD positions hold per-slot states, not pages; an SSM model
+        has none)."""
         return [c for g in self.caches for c in g if isinstance(c, dict)]
 
     def place_states(self, slot: int, states: List[Tuple]) -> None:
-        """Write one sequence's recurrent state rows (``("state", gi, pi,
-        {"h", "conv"})``, any device) into decode slot ``slot``, in place,
+        """Write one sequence's recurrent or SSD state rows (``("state", gi,
+        pi, {"h", "conv"})``, any device) into decode slot ``slot``, in place,
         cast to the states' dtypes (the reference's ``_place``)."""
         for _tag, gi, pi, rows in states:
             state = self.caches[gi][pi]

@@ -473,7 +473,7 @@ class ClusterRuntime:
             if req.state == State.FAILED:
                 self._pending.popleft()
                 continue
-            seq_len = req.prompt_len
+            seq_len = req.prompt_len + req.num_patches
             p_snaps = self._p_snapshots()
             d_pick = router.pick_d(
                 self._d_snapshots(), seq_len, req.max_new_tokens,

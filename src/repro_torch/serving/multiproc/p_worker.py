@@ -40,7 +40,8 @@ class _ShutdownRequested(Exception):
 
 
 def _est_tokens(req) -> int:
-    return req.prompt_len
+    """The positions a request's prefill runs: its patches and prompt."""
+    return req.prompt_len + req.num_patches
 
 
 class PWorker:
@@ -120,7 +121,7 @@ class PWorker:
 
     def _run_flight(self, req, wire_skip: int = 0) -> None:
         """Stream one request's prefill: compute chunk → encode → stage →
-        announce, then the tail (recurrent states, if any) and
+        announce, then the tail (recurrent or SSD states, if any) and
         PrefillDone. ``wire_skip`` leading
         tokens (already resident on the stream's D via its prefix store)
         are computed/replayed but never encoded or staged."""
@@ -182,7 +183,7 @@ class PWorker:
                 # bytes/token on this wire format
                 self.connector.stats.bytes_saved += int(
                     sent_bytes / sent_tokens * skipped_tokens)
-            # the recurrent states ride a tail segment of their own
+            # the recurrent or SSD states ride a tail segment of their own
             tail_pkg = stream.tail_package()
             tail = None
             if tail_pkg["states"] or tail_pkg["cross"]:

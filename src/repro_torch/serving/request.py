@@ -1,6 +1,8 @@
 """Request lifecycle (paper Fig. 2 workflow) — port of
-``repro.serving.request`` (token prompts only: the audio and vision
-frontends are not ported)."""
+``repro.serving.request``. A prompt is token ids, optionally preceded by
+a vision frontend's patch embeddings (the frontend is a stub, as in the
+reference: the request carries them precomputed). Audio frames wait for
+the encoder-decoder family."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,6 +36,8 @@ class Request:
     arrival_time: Optional[float] = None
     # sampling
     temperature: float = 0.0                # 0 → greedy
+    # multimodal (STUB frontend)
+    patches: Optional[np.ndarray] = None    # (P, d) vision patch embeddings
     # lifecycle
     state: State = State.QUEUED
     output_tokens: List[int] = dataclasses.field(default_factory=list)
@@ -49,6 +53,11 @@ class Request:
     @property
     def prompt_len(self) -> int:
         return int(len(self.prompt))
+
+    @property
+    def num_patches(self) -> int:
+        """Patch embeddings before the prompt (0 for a text request)."""
+        return 0 if self.patches is None else int(self.patches.shape[0])
 
     @property
     def seq_len(self) -> int:

@@ -137,7 +137,7 @@ class PrefillFlightLoop:
         while s.pending:
             req = s.pending.popleft()
             p_eng = s._pick_p(busy_p)
-            d_eng = s._pick_d(req, req.prompt_len)
+            d_eng = s._pick_d(req, req.prompt_len + req.num_patches)
             if p_eng is None or d_eng is None:
                 still_pending.append(req)
                 continue

@@ -690,8 +690,8 @@ def test_multiproc_pair_ships_the_states_tail(tmp_path):
 # --------------------------------------------------------------------- #
 def test_kernel_shape_rules_take_recurrentgemma():
     """Flash takes dk = dv = 256 in both dtypes; paged takes 16 query heads x 256 on one KV head as two
-    blocks of 8 heads; the family check admits the hybrid and still
-    refuses SSM, enc-dec and VLM."""
+    blocks of 8 heads; the family check admits the hybrid, SSM and VLM
+    and still refuses enc-dec."""
     from repro_torch.device import check_family
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.paged_attention import launch_plan
@@ -704,7 +704,8 @@ def test_kernel_shape_rules_take_recurrentgemma():
     assert plan["head_split"] == 2 and plan["head_dim"] == 256
     check_family(tget("recurrentgemma-9b"))
     check_family(config_from_dict(dataclasses.asdict(TINY_FAMILIES[NAME])))
-    for fam in ("ssm", "encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            check_family(config_from_dict(
-                dataclasses.asdict(TINY_FAMILIES[fam])))
+    for fam in ("ssm", "vlm"):
+        check_family(config_from_dict(dataclasses.asdict(TINY_FAMILIES[fam])))
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        check_family(config_from_dict(
+            dataclasses.asdict(TINY_FAMILIES["encdec"])))

@@ -220,6 +220,29 @@ def test_shm_segment_readable_by_name():
     conn.close()
 
 
+def test_shm_segments_carry_the_port_prefix():
+    """Every segment the port stages, a chunk or a plain payload, is named
+    with the port's prefix, never CPython's ``psm_``, and is gone after
+    ``complete``."""
+    import os
+    from repro_torch.core.transport.shared_memory import SEGMENT_PREFIX
+    conn = SharedMemoryConnector()
+    chunk, _ = _chunks(("raw", "float32"))
+    conn.stage("zc", chunk, chunk.meta())
+    conn.stage("plain", _payload(seed=8), {})
+    names = [conn.segment_name(k) for k in ("zc", "plain")]
+    assert len(set(names)) == 2
+    for n in names:
+        assert n.startswith(SEGMENT_PREFIX) and not n.startswith("psm_")
+        if os.path.isdir("/dev/shm"):
+            assert os.path.exists(f"/dev/shm/{n}")
+    conn.complete("zc")
+    conn.complete("plain")
+    if os.path.isdir("/dev/shm"):
+        assert not any(os.path.exists(f"/dev/shm/{n}") for n in names)
+    conn.close()
+
+
 def test_shm_get_reuses_held_mapping(monkeypatch):
     """A read never re-attaches the segment by name."""
     import repro_torch.core.transport.shared_memory as shm_mod
