@@ -9,9 +9,11 @@ output tokens, 500-token streamed prefill chunks — or, with ``--phase 6``,
 8 prompts), with ``--phase 8`` ``chip_smoke.phase8`` (RecurrentGemma-9B,
 38 layers, RG-LRU and local attention at head dim 256, the same 8
 prompts), with ``--phase 9`` ``chip_smoke.phase9`` (Mamba2-370M, 48 SSD
-layers, no attention, the same 8 prompts) or with ``--phase 10``
+layers, no attention, the same 8 prompts), with ``--phase 10``
 ``chip_smoke.phase10`` (InternVL2-2B, 24 layers, phase 3's prompts after
-256 patch embeddings each) — under ``torch.profiler`` (CPU + CUDA
+256 patch embeddings each) or with ``--phase 11`` ``chip_smoke.phase11``
+(Whisper-large-v3, 32 encoder + 32 decoder layers, 8 requests of 1500
+frames and 16-224 prompt tokens, 64-token chunks) — under ``torch.profiler`` (CPU + CUDA
 activity) around the serving loop only, and prints one JSON line: device
 time by kernel family (the port's kernels, flash at dk 192 and at dk 256
 apart, matrix products, copies, everything else), the top kernels by name, the
@@ -24,11 +26,13 @@ paged MLA decode's float32 products in the latent space;
 ``rglru.block``: a whole RG-LRU block, with inside it
 ``rglru.f32_weights``, the gate weights' cast to float32, and
 ``rglru.scan``, the recurrence; ``ssd.block``: a whole SSD block, with
-inside it ``ssd.scan``, the recurrence across chunks). Spans may nest:
+inside it ``ssd.scan``, the recurrence across chunks;
+``encdec.cross_decode``: D's per-slot cross-attention over the memory
+rows, plain tensor ops). Spans may nest:
 a kernel counts in every span whose device range holds it.
 
     PYTHONPATH=src python benchmarks/torch_main_path_profile.py \
-        [--phase 6|7|8|9|10]
+        [--phase 6|7|8|9|10|11]
 
 Needs a CUDA device (it fails without one). The kernels build first, as
 in ``chip_smoke.py``.
@@ -79,7 +83,8 @@ def summarize(events, wall_s: float):
     nest)."""
     spans, ranges = {}, {}
     for e in events:
-        if e["name"].startswith(("moe.", "mla.", "rglru.", "ssd.")) and e.get(
+        if e["name"].startswith(("moe.", "mla.", "rglru.", "ssd.",
+                                 "encdec.")) and e.get(
                 "cat") in (
                 "user_annotation", "gpu_user_annotation"):
             host = e["cat"] == "user_annotation"
@@ -147,7 +152,8 @@ def main() -> int:
         if "--phase" in sys.argv else 3
     run = {3: chip_smoke.phase3, 6: chip_smoke.phase6,
            7: chip_smoke.phase7, 8: chip_smoke.phase8,
-           9: chip_smoke.phase9, 10: chip_smoke.phase10}[phase]
+           9: chip_smoke.phase9, 10: chip_smoke.phase10,
+           11: chip_smoke.phase11}[phase]
     out = run(dev, around_serve=profiled)
     with open(trace) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]

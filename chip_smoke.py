@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, then runs eleven phases, each printing JSON lines:
+nvcc, then runs twelve phases, each printing JSON lines:
 
   0. card: name and power limit (``nvidia-smi``), kernel build time, and
      the count of HGMMA (wgmma), UTMALDG (TMA load), SYNCS (mbarrier),
@@ -143,15 +143,35 @@ nvcc, then runs eleven phases, each printing JSON lines:
      (counted, no hit: the vlm family's capability row has no prefix
      cache); the last-token and float32 first-token checks, on the
      patches and the prompt, hold. Phase 1 adds flash, paged and the
-     overlay at this model's shapes (``phase1_vlm``).
+     overlay at this model's shapes (``phase1_vlm``);
+ 11. the encoder-decoder family: first phase 2's path parity at
+     Whisper-large-v3's full width cut to 2 encoder + 2 decoder layers
+     (float32, 1500 frames: the encoder, the memory rows in the chunks'
+     caches and in the paged caches' slot), then Whisper-large-v3 at full
+     width and all 32 + 32 layers (20 heads x 64, d_ff 5120, 1500 memory
+     rows), bf16, random weights from the seed, served by phase 3's
+     vendors (P at TP 2) in 64-token chunks to 8 requests of 1500 unit
+     normal frames and 16-224 prompt tokens, with a prefix cache on both
+     engines. P runs each encoder once (flash non-causal), each chunk's
+     self-attention (flash) and cross-attention (flash non-causal over the
+     memory rows); D places each request's memory rows and decodes
+     (paged, and the per-slot cross-attention in plain ops). Exactly
+     flash, paged and the overlay must launch, each as many times as the
+     path predicts; the wire must carry every prompt position's KV
+     (163,840 bytes a position) with the codec's headers and one tail a
+     request of 245,760,000 bytes of memory rows and 128 of lengths, to
+     the byte; every request must bypass both prefix caches (counted, no
+     hit); the last-token and float32 first-token checks, beside the
+     frames, hold. Phase 1 adds flash, paged, the overlay and the layout
+     module's ``convert`` at this model's shapes (``phase1_encdec``).
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
 processes report at shutdown). The kernels line gives each kernel's
-launches on every serving phase (phases 3-10, none on phase 9), and its
+launches on every serving phase (phases 3-11, none on phase 9), and its
 timing at phase 7's MLA shape (``"mla"``), phase 8's RecurrentGemma
-shape (``"rg"``) and phase 10's InternVL2 shape (``"vlm"``) where those
-phases run it.
+shape (``"rg"``), phase 10's InternVL2 shape (``"vlm"``) and phase 11's
+Whisper shape (``"encdec"``) where those phases run it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the script exits non-zero. Without a CUDA device, or without
@@ -242,6 +262,16 @@ MODEL9, PHASE9_TAIL_BYTES = "mamba2-370m", 50_995_200
 # layers (16 heads on 8 KV heads x 128), phase 3's prompts after 256 patch
 # embeddings each (merged sequences of 512-2304 positions), P at TP 2
 MODEL10, PHASE10_PATCHES = "internvl2-2b", 256
+# phase 11: the encoder-decoder family, Whisper-large-v3 at full width and
+# all 32 + 32 layers (20 heads x 64, 1500 memory rows), 8 requests of 1500
+# frames and decoder prompts of 16-224 tokens (224: half of Whisper's 448
+# decoder positions), P at TP 2, 64-token chunks so that prompts span 1-4
+# chunks. Each request's tail carries 32 x 1500 x 20 x 64 x 2 x 2 =
+# 245,760,000 bytes of memory rows (and 32 int32 lengths). Path parity at
+# full width cut to 2 encoder + 2 decoder layers, in float32
+MODEL11, PARITY11_LAYERS = "whisper-large-v3", 2
+PHASE11_PROMPTS, PHASE11_CHUNK = (16, 224), 64
+PHASE11_CROSS_BYTES = 245_760_000
 
 
 def emit(obj) -> None:
@@ -491,32 +521,55 @@ def _check(what, got, want, dtype, main):
 
 
 def _flash_case(gen, dev, dtype, b, h, kv, sq, skv, d, window, q_offset,
-                main=False, dv=None):
+                main=False, dv=None, causal=True, kv_len=None,
+                seq_major=False):
     """flash against its plain version; at a main-path shape in bfloat16,
     against the yardstick (see FLASH_VS_SDPA; k and v repeated to the
-    query heads for SDPA where ``kv < h``). ``dv``: v's head dim where
-    it differs from q's and k's ``d`` (MLA). Returns (max abs error,
-    inputs, the yardstick's numbers or None)."""
+    query heads for SDPA where ``kv < h``; non-causal, SDPA over the first
+    ``kv_len`` keys with no mask). ``dv``: v's head dim where it differs
+    from q's and k's ``d`` (MLA). ``seq_major``: q, k and v drawn as
+    (b, seq, heads, d) and passed transposed, as the models pass their
+    caches. Returns (max abs error, inputs, the yardstick's numbers or
+    None)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     dt = getattr(torch, dtype)
     dv = d if dv is None else dv
-    q = _rand(gen, (b, h, sq, d), dt, dev)
-    k = _rand(gen, (b, kv, skv, d), dt, dev)
-    v = _rand(gen, (b, kv, skv, dv), dt, dev)
+
+    def draw(heads, n, dim):
+        if seq_major:
+            return _rand(gen, (b, n, heads, dim), dt, dev).transpose(1, 2)
+        return _rand(gen, (b, heads, n, dim), dt, dev)
+
+    q, k, v = draw(h, sq, d), draw(kv, skv, d), draw(kv, skv, dv)
     what = (f"flash {dtype} {(b, h, kv, sq, skv, d, dv)} window={window} "
-            f"q_offset={q_offset}")
-    got = ops.flash_attention(q, k, v, window=window, q_offset=q_offset)
+            f"q_offset={q_offset} causal={causal} kv_len={kv_len}")
+    args = dict(causal=causal, window=window, q_offset=q_offset,
+                kv_len=kv_len)
+    got = ops.flash_attention(q, k, v, **args)
     if not (main and dtype == "bfloat16"):
-        want = ref.flash_attention_ref(q, k, v, window=window,
-                                       q_offset=q_offset)
+        want = ref.flash_attention_ref(q, k, v, **args)
         return _check(what, got, want, dtype, False), (q, k, v), None
-    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                   window=window, q_offset=q_offset)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **args)
     k_rep, v_rep = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
-    lib = F.scaled_dot_product_attention(
-        q, k_rep, v_rep, attn_mask=flash_mask(sq, skv, q_offset, window, dev))
+    if causal:
+        lib = F.scaled_dot_product_attention(
+            q, k_rep, v_rep,
+            attn_mask=flash_mask(sq, skv, q_offset, window, dev))
+    else:
+        n = skv if kv_len is None else kv_len
+        lib = F.scaled_dot_product_attention(q, k_rep[:, :, :n],
+                                             v_rep[:, :, :n])
+    yard = _yardstick(what, got, want, lib)
+    return yard["max_abs_err"], (q, k, v), yard
+
+
+def _yardstick(what, got, want, lib):
+    """The bf16 flash kernel's max and mean error against the float32 plain
+    version ``want``, each at most FLASH_VS_SDPA times those of the
+    library call's output ``lib`` on the same bf16 inputs."""
+    import torch
     torch.cuda.synchronize()
     err = (got.float() - want).abs()
     lib_err = (lib.float() - want).abs()
@@ -529,7 +582,7 @@ def _flash_case(gen, dev, dtype, b, h, kv, sq, skv, d, window, q_offset,
         raise AssertionError(f"{what}: errors against the float32 plain "
                              f"version exceed {FLASH_VS_SDPA}x "
                              f"scaled_dot_product_attention's: {yard}")
-    return yard["max_abs_err"], (q, k, v), yard
+    return yard
 
 
 def flash_mask(sq, skv, q_offset, window, dev):
@@ -1084,6 +1137,7 @@ def phase1(dev):
     mla = phase1_mla(gen, dev)
     rg = phase1_rg(gen, dev)
     vlm = phase1_vlm(gen, dev)
+    encdec = phase1_encdec(gen, dev)
     timings["scatter_pages_overlay"] = phase1_overlay(gen, dev)
     from repro_torch.configs import get_config
     timings.update(phase1_pages(gen, dev, get_config(MODEL)))
@@ -1095,6 +1149,8 @@ def phase1(dev):
         timings[name]["rg"] = t
     for name, t in vlm.items():
         timings[name]["vlm"] = t
+    for name, t in encdec.items():
+        timings[name]["encdec"] = t
     return timings
 
 
@@ -1459,6 +1515,79 @@ def phase1_rg(gen, dev):
     return out
 
 
+def decode_rows(gen, dev, model, seqs, h, kv, d):
+    """Paged attention over sequences ``seqs`` at their last decode step
+    (each + MAX_NEW) in a table as wide as D's (block 32): float32 nbhd
+    within 2e-5, and bf16 in nbhd (D's layout), nhbd and nhdb within the
+    main-path limits, each timed. Returns the bf16 nbhd row."""
+    from repro_torch.kernels import ops, ref
+    bs = D_VENDOR["block_size"]
+    lens = [n + MAX_NEW for n in seqs]
+    width = -(-(max(seqs) + MAX_NEW) // bs)
+    tokens = sum(lens)
+    p_ms, p_by = bound(4.0 * d * h * tokens, 2.0 * 2 * tokens * kv * d
+                       + 2.0 * 2 * len(lens) * h * d, "bfloat16")
+    _paged_case(gen, dev, "float32", "nbhd", len(lens), h, kv, d, bs, lens,
+                0, main=True, width=width)
+    rows = {}
+    for layout in ("nbhd", "nhbd", "nhdb"):
+        err, a = _paged_case(gen, dev, "bfloat16", layout, len(lens), h, kv,
+                             d, bs, lens, 0, main=True, width=width)
+        rows[layout] = dict(
+            shape=f"q({len(lens)},{h},{d}) pools {layout} bs{bs} bf16, {kv} "
+                  f"KV heads, table {width} pages, seq_lens {lens}",
+            max_abs_err=err,
+            **time_all(lambda: ops.paged_attention(*a, layout=layout),
+                       plain=lambda: ref.paged_attention_ref(
+                           *a, layout=layout)),
+            bound_ms=p_ms, bound_by=p_by)
+        emit({"phase": 1, "extra": f"paged_attention, {model} decode, "
+                                   f"{layout}", **rows[layout]})
+        del a
+    return rows["nbhd"]
+
+
+def repage_rows(gen, dev, model, seqs, chunk, layers, kv, d):
+    """The overlay at every (front, rows) that the streamed ``chunk``-token
+    chunks of sequences ``seqs`` have in D's nbhd pools (``layers``
+    layers, block 32, bf16), bit for bit against the plain version and
+    ``index_copy_``; the full chunk at front ``chunk % 32`` timed.
+    Returns (its row, the cases)."""
+    from repro_torch.kernels import ops, ref
+    bs = D_VENDOR["block_size"]
+    cases = sorted({(c0 % bs, min(chunk, n - c0)) for n in seqs
+                    for c0 in range(0, n, chunk)})
+    row = None
+    for front, rows_n in cases:
+        _, (spec, pool, pids, canon) = _overlay_case(
+            gen, dev, "nbhd", "bfloat16", "bfloat16", layers, bs, kv, d,
+            front, rows_n, True)
+        flat, rows, src = overlay_vs_index_copy(gen, spec, pool, pids, canon,
+                                                front, rows_n)
+        if (front, rows_n) == (chunk % bs, chunk):
+            b_ms, b_by = bound(0.0, 2.0 * 2 * layers * rows_n * kv * d,
+                               "bfloat16")
+            row = dict(
+                shape=f"rows ({layers},{rows_n},{kv},{d}) into pool "
+                      f"({layers},N,{bs},{kv},{d}) nbhd bf16, front {front}",
+                max_abs_err=0.0, library_bit_identical=True,
+                **time_all(lambda: ops.scatter_pages_overlay(
+                               spec, pool, pids, canon, front=front,
+                               seq_len=rows_n),
+                           plain=lambda: ref.scatter_pages_overlay_ref(
+                               spec, pool, pids, canon, front=front,
+                               seq_len=rows_n),
+                           library=lambda: flat.index_copy_(1, rows, src)),
+                bound_ms=b_ms, bound_by=b_by)
+            emit({"phase": 1, "extra": f"scatter_pages_overlay, {model} "
+                                       "chunk", **row})
+        del pool, canon, flat, src
+    if row is None:
+        raise AssertionError(f"{model}: no full {chunk}-row chunk at front "
+                             f"{chunk % bs} among {cases}")
+    return row, cases
+
+
 def phase1_vlm(gen, dev):
     """The attention kernels and the overlay at phase 10's shapes
     (InternVL2-2B: 16 query heads on 8 KV heads of 128, full causal; 256
@@ -1524,65 +1653,158 @@ def phase1_vlm(gen, dev):
     for dtype in ("float32", "bfloat16"):
         _flash_case(gen, dev, dtype, 1, h, kv, n + MAX_NEW, n + MAX_NEW, d, 0,
                     0, main=True)
-    bs = D_VENDOR["block_size"]
-    lens = [s + MAX_NEW for s in seqs]
-    width = -(-(n + MAX_NEW) // bs)
-    tokens = sum(lens)
-    p_ms, p_by = bound(4.0 * d * h * tokens, 2.0 * 2 * tokens * kv * d
-                       + 2.0 * 2 * len(lens) * h * d, "bfloat16")
-    _paged_case(gen, dev, "float32", "nbhd", len(lens), h, kv, d, bs, lens,
-                0, main=True, width=width)
-    for layout in ("nbhd", "nhbd", "nhdb"):
-        err, a = _paged_case(gen, dev, "bfloat16", layout, len(lens), h, kv,
-                             d, bs, lens, 0, main=True, width=width)
-        row = dict(shape=f"q({len(lens)},{h},{d}) pools {layout} bs{bs} bf16,"
-                         f" {kv} KV heads, table {width} pages, "
-                         f"seq_lens {lens}",
-                   max_abs_err=err,
-                   **time_all(lambda: ops.paged_attention(*a, layout=layout),
-                              plain=lambda: ref.paged_attention_ref(
-                                  *a, layout=layout)),
-                   bound_ms=p_ms, bound_by=p_by)
-        emit({"phase": 1, "extra": f"paged_attention, InternVL2 decode, "
-                                   f"{layout}", **row})
-        out.setdefault("paged_attention", row)
-        del a
-    # the overlay: every (front, rows) a streamed chunk of phase 10 has in
-    # D's pools, bit for bit against the plain version and index_copy_
-    cases = sorted({(c0 % bs, min(PREFILL_CHUNK, s - c0)) for s in seqs
-                    for c0 in range(0, s, PREFILL_CHUNK)})
-    for front, rows_n in cases:
-        _, (spec, pool, pids, canon) = _overlay_case(
-            gen, dev, "nbhd", "bfloat16", "bfloat16", cfg.num_layers, bs, kv,
-            d, front, rows_n, True)
-        flat, rows, src = overlay_vs_index_copy(gen, spec, pool, pids, canon,
-                                                front, rows_n)
-        if (front, rows_n) == (PREFILL_CHUNK % bs, PREFILL_CHUNK):
-            b_ms, b_by = bound(0.0, 2.0 * 2 * cfg.num_layers * rows_n * kv * d,
-                               "bfloat16")
-            row = dict(
-                shape=f"rows ({cfg.num_layers},{rows_n},{kv},{d}) into pool "
-                      f"({cfg.num_layers},N,{bs},{kv},{d}) nbhd bf16, "
-                      f"front {front}",
-                max_abs_err=0.0, library_bit_identical=True,
-                **time_all(lambda: ops.scatter_pages_overlay(
-                               spec, pool, pids, canon, front=front,
-                               seq_len=rows_n),
-                           plain=lambda: ref.scatter_pages_overlay_ref(
-                               spec, pool, pids, canon, front=front,
-                               seq_len=rows_n),
-                           library=lambda: flat.index_copy_(1, rows, src)),
-                bound_ms=b_ms, bound_by=b_by)
-            emit({"phase": 1, "extra": "scatter_pages_overlay, InternVL2 "
-                                       "chunk", **row})
-            out["scatter_pages_overlay"] = row
-        del pool, canon, flat, src
-    if set(out) != {"flash_attention", "paged_attention",
-                    "scatter_pages_overlay"}:
-        raise AssertionError(f"phase1_vlm timed only {sorted(out)}")
+    out["paged_attention"] = decode_rows(gen, dev, "InternVL2", seqs, h,
+                                         kv, d)
+    out["scatter_pages_overlay"], cases = repage_rows(
+        gen, dev, "InternVL2", seqs, PREFILL_CHUNK, cfg.num_layers, kv, d)
     emit({"phase": 1, "vlm_checks": {"flash": 8, "paged": 4,
                                      "overlay": len(cases),
                                      "overlay_cases": cases}})
+    return out
+
+
+def phase1_encdec(gen, dev):
+    """The attention kernels, the overlay and the layout module at phase
+    11's shapes (Whisper-large-v3: 20 heads on 20 KV heads of 64, 1500
+    memory rows; phase 11's eight prompts of 16-224 tokens in 64-token
+    chunks). flash, with q, k and v laid out as the model passes them
+    (sequence-major, transposed): the encoder's non-causal
+    self-attention over 1500 frames; every chunk phase 11 streams, causal
+    at its q_offset in the stream's cache (capacity rounded up to a chunk
+    multiple); P's cross-attention of every chunk length over the 1500
+    memory rows (kv_len 1500); and the checks' monolithic prefill of the
+    longest prompt and its output, self and cross. Each in bf16 against
+    the float32 plain version and the yardstick (SDPA over the same keys,
+    the causal mask or none) and in float32 within 2e-5; the encoder,
+    the deepest full causal chunk and the full cross chunk timed. paged:
+    phase 11's eight sequences at their last decode step in a table as
+    wide as D's, in nbhd (D's layout), nhbd and nhdb within the main-path
+    bf16 limits, and in float32 nbhd within 2e-5. overlay: every (front,
+    rows) of phase 11's streamed chunks into D's pools (32 layers, 20 KV
+    heads of 64, block 32), bit-identical to the plain version and to
+    ``index_copy_``.
+    layout: ``convert`` of the longest prompt's pages from P's vendor
+    (nhbd, block 16) to D's (nbhd, block 32) in bf16 — the gather and
+    scatter kernels — bit-identical to the same call on the CPU. Returns
+    flash's (the encoder), paged's (nbhd) and the overlay's (64 rows at
+    front 0) timings, keyed by kernel name."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.compat import layout
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving.paged_cache import KVPageSpec
+    cfg = get_config(MODEL11)
+    h, kv, d, mem = cfg.num_heads, cfg.num_kv_heads, cfg.hd, \
+        cfg.max_source_len
+    seqs = [r.prompt_len for r in phase11_requests(cfg)]
+    out = {}
+    # the encoder: q and k of 1500 frames, every key visible
+    nc = dict(main=True, causal=False, seq_major=True)
+    _flash_case(gen, dev, "float32", 1, h, kv, mem, mem, d, 0, 0, **nc)
+    err, (q, k, v), yard = _flash_case(gen, dev, "bfloat16", 1, h, kv, mem,
+                                       mem, d, 0, 0, **nc)
+    b_ms, b_by = bound(4.0 * d * h * mem * mem, 2.0 * 4 * mem * h * d,
+                       "bfloat16")
+    out["flash_attention"] = row = dict(
+        shape=f"q(1,{h},{mem},{d}) kv(1,{kv},{mem},{d}) non-causal bf16 "
+              "(the encoder)",
+        max_abs_err=err, yardstick=yard,
+        **time_all(lambda: ops.flash_attention(q, k, v, causal=False),
+                   plain=lambda: ref.flash_attention_ref(q, k, v,
+                                                         causal=False),
+                   library=lambda: F.scaled_dot_product_attention(q, k, v)),
+        library="scaled_dot_product_attention, no mask",
+        bound_ms=b_ms, bound_by=b_by)
+    emit({"phase": 1, "extra": "flash_attention, Whisper encoder", **row})
+    del q, k, v
+    # P's chunks: each chunk's causal self-attention at its q_offset in the
+    # stream's cache (capacity rounded up to a chunk multiple), and its
+    # cross-attention over the memory rows (kv_len 1500); one full chunk
+    # at the deepest offset of each kind timed
+    chunks = sorted({(c0, min(PHASE11_CHUNK, n - c0),
+                      -(-n // PHASE11_CHUNK) * PHASE11_CHUNK)
+                     for n in seqs for c0 in range(0, n, PHASE11_CHUNK)})
+    deepest = max(c for c in chunks if c[1] == PHASE11_CHUNK)
+    for c0, sq, cap in chunks:
+        for dtype in ("float32", "bfloat16"):
+            err, (q, k, v), yard = _flash_case(gen, dev, dtype, 1, h, kv, sq,
+                                               cap, d, 0, c0, main=True,
+                                               seq_major=True)
+        if (c0, sq, cap) == deepest:
+            pairs = sq * c0 + sq * (sq + 1) // 2
+            b_ms, b_by = bound(4.0 * d * h * pairs,
+                               2.0 * (2 * sq * h * d + 2 * (c0 + sq) * kv * d),
+                               "bfloat16")
+            mask = flash_mask(sq, cap, c0, 0, dev)
+            emit({"phase": 1, "extra": "flash_attention, Whisper decoder "
+                                       f"chunk at {c0}",
+                  "shape": f"q(1,{h},{sq},{d}) kv(1,{kv},{cap},{d}) "
+                           f"q_offset={c0} bf16",
+                  "max_abs_err": err, "yardstick": yard,
+                  **time_all(lambda: ops.flash_attention(q, k, v,
+                                                         q_offset=c0),
+                             plain=lambda: ref.flash_attention_ref(
+                                 q, k, v, q_offset=c0),
+                             library=lambda: F.scaled_dot_product_attention(
+                                 q, k, v, attn_mask=mask)),
+                  "library": "scaled_dot_product_attention, boolean mask",
+                  "bound_ms": b_ms, "bound_by": b_by})
+            del mask
+        del q, k, v
+    chunk_lens = sorted({sq for _, sq, _ in chunks})
+    for sq in chunk_lens:
+        for dtype in ("float32", "bfloat16"):
+            err, (q, k, v), yard = _flash_case(gen, dev, dtype, 1, h, kv, sq,
+                                               mem, d, 0, 0, kv_len=mem, **nc)
+        if sq == PHASE11_CHUNK:
+            b_ms, b_by = bound(4.0 * d * h * sq * mem,
+                               2.0 * (2 * sq * h * d + 2 * mem * kv * d),
+                               "bfloat16")
+            emit({"phase": 1, "extra": "flash_attention, Whisper cross "
+                                       "chunk",
+                  "shape": f"q(1,{h},{sq},{d}) kv(1,{kv},{mem},{d}) "
+                           f"non-causal kv_len {mem} bf16",
+                  "max_abs_err": err, "yardstick": yard,
+                  **time_all(lambda: ops.flash_attention(
+                                 q, k, v, causal=False, kv_len=mem),
+                             plain=lambda: ref.flash_attention_ref(
+                                 q, k, v, causal=False, kv_len=mem),
+                             library=lambda: F.scaled_dot_product_attention(
+                                 q, k, v)),
+                  "library": "scaled_dot_product_attention, no mask",
+                  "bound_ms": b_ms, "bound_by": b_by})
+        del q, k, v
+    # the checks' monolithic prefill of the longest prompt and its output:
+    # causal self-attention over itself, cross-attention over the memory
+    n = max(seqs) + MAX_NEW
+    for dtype in ("float32", "bfloat16"):
+        _flash_case(gen, dev, dtype, 1, h, kv, n, n, d, 0, 0, main=True,
+                    seq_major=True)
+        _flash_case(gen, dev, dtype, 1, h, kv, n, mem, d, 0, 0, kv_len=mem,
+                    **nc)
+    out["paged_attention"] = decode_rows(gen, dev, "Whisper", seqs, h, kv,
+                                         d)
+    out["scatter_pages_overlay"], cases = repage_rows(
+        gen, dev, "Whisper", seqs, PHASE11_CHUNK, cfg.num_layers, kv, d)
+    # the layout module: P's pages to D's, on the card and on the CPU
+    src = KVPageSpec(P_VENDOR["block_size"], P_VENDOR["layout"], "bfloat16",
+                     kv, d)
+    dst = KVPageSpec(D_VENDOR["block_size"], D_VENDOR["layout"], "bfloat16",
+                     kv, d)
+    n = max(seqs)
+    pages = _rand(gen, src.pool_shape(src.blocks_for(n)), torch.bfloat16, dev)
+    got = layout.convert(src, dst, pages, n)
+    want = layout.convert(src, dst, pages.cpu(), n)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("layout.convert nhbd/16 -> nbhd/32 bf16 on the "
+                             "card differs from the CPU")
+    emit({"phase": 1, "encdec_checks": {
+        "flash": 2 * (1 + len(chunks) + len(chunk_lens) + 2),
+        "flash_chunks": chunks, "flash_cross_chunk_lens": chunk_lens,
+        "paged": 4, "overlay": len(cases), "overlay_cases": cases,
+        "layout_convert": f"{n} rows, {src.layout}/{src.block_size} -> "
+                          f"{dst.layout}/{dst.block_size} bf16"}})
     return out
 
 
@@ -1683,12 +1905,14 @@ def phase1_windowed(gen, dev):
 # --------------------------------------------------------------------------- #
 # phase 2: path parity, card (kernels) against CPU (plain versions)
 # --------------------------------------------------------------------------- #
-def run_path(cfg, params, dev, prompt):
+def run_path(cfg, params, dev, prompt, frames=None):
     """Prefill, chunked prefill and PARITY_STEPS greedy paged decode steps
     of one request: the decode starts from the prefill's KV re-paged into
-    pools and its recurrent states (a hybrid's) copied into the paged
-    caches' one slot. Returns (list of logits rows as float32 CPU tensors,
-    greedy tokens)."""
+    pools and its recurrent states (a hybrid's) or memory rows (an
+    enc-dec model's, after ``frames`` through the encoder; the chunks'
+    caches are seeded from a second encoder run) copied into the paged
+    caches' one slot. Returns (list of logits rows as float32 CPU
+    tensors, greedy tokens)."""
     import torch
     from repro_torch.core.disagg import _repage_pool
     from repro_torch.models import layers as L
@@ -1696,23 +1920,33 @@ def run_path(cfg, params, dev, prompt):
     from repro_torch.serving.paged_cache import KVPageSpec
     s = len(prompt)
     toks = torch.tensor(prompt, dtype=torch.int32, device=dev)[None]
-    last, caches = M.prefill(params, cfg, {"tokens": toks},
-                             M.init_caches(cfg, 1, s, device=dev))
+    inputs, mem = {"tokens": toks}, 0
+    if frames is not None:
+        inputs["frames"] = torch.as_tensor(frames, device=dev)[None]
+        mem = len(frames)
+    last, caches = M.prefill(params, cfg, inputs,
+                             M.init_caches(cfg, 1, s, device=dev,
+                                           mem_len=mem))
     rows = [last[0].float().cpu()]
     steps, chunk = PARITY_STEPS, PARITY_CHUNK
     cap = -(-s // chunk) * chunk
-    dense = M.init_caches(cfg, 1, cap, full_capacity=True, device=dev)
+    dense = M.init_caches(cfg, 1, cap, full_capacity=True, device=dev,
+                          mem_len=mem)
+    if frames is not None:
+        memory = M.encode(params, cfg, inputs["frames"])
+        M.seed_cross(dense, M.encoder_cross_kv(params, cfg, memory), mem)
     for c0 in range(0, s, chunk):
         c1 = min(c0 + chunk, s)
         logits, dense = M.decode_step(
             params, cfg, toks[:, c0:c1],
-            torch.arange(c0, c1, device=dev)[None], dense, q_offset=c0)
+            torch.arange(c0, c1, device=dev)[None], dense, q_offset=c0,
+            mem_len=mem or None)
     rows.append(logits[0, -1].float().cpu())
     bs = 32
     spec = KVPageSpec(bs, "nbhd", cfg.compute_dtype, cfg.num_kv_heads, cfg.hd)
     nb = -(-(s + steps) // bs)
     pools = M.init_paged_caches(cfg, {"kv": spec}, nb + 2, batch=1,
-                                device=dev)
+                                device=dev, mem_len=mem)
     blocks = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)
     for cg, pg in zip(caches, pools):
         for c, dst in zip(cg, pg):
@@ -1722,6 +1956,8 @@ def run_path(cfg, params, dev, prompt):
             for name, src in (("k_pool", c.k), ("v_pool", c.v)):
                 _repage_pool(spec, dst[name], blocks, src[:, 0, :s], 0,
                              front=0, rmw=False)
+            for name in ("cross_k", "cross_v", "mem_len") if mem else ():
+                dst[name][:, 0] = getattr(c, name)[:, 0]
     tok = int(torch.argmax(rows[0]))
     out = [tok]
     for step in range(steps):
@@ -1756,10 +1992,13 @@ def param_billions(tree) -> float:
 
 
 def phase2(dev, model=MODEL, layers=PARITY_LAYERS, phase=2):
-    """Path parity of ``model`` at full width cut to ``layers`` layers in
-    float32 with TF32 off: one PARITY_PROMPT-token request through
-    ``run_path`` on the card (the kernels) and on the CPU (the plain
-    versions); logits within PARITY_ATOL, the greedy tokens identical."""
+    """Path parity of ``model`` at full width cut to ``layers`` layers (an
+    enc-dec model: ``layers`` encoder and ``layers`` decoder layers, and
+    the request has its full memory of frames, unit normal, from SEED's
+    generator after the prompt) in float32 with TF32 off: one
+    PARITY_PROMPT-token request through ``run_path`` on the card (the
+    kernels) and on the CPU (the plain versions); logits within
+    PARITY_ATOL, the greedy tokens identical."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1768,23 +2007,30 @@ def phase2(dev, model=MODEL, layers=PARITY_LAYERS, phase=2):
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(model).with_(num_layers=layers, param_dtype="float32",
                                   compute_dtype="float32")
+    if cfg.is_enc_dec:
+        cfg = cfg.with_(encoder_layers=layers)
     params = M.init_params(cfg, seed=SEED, device=dev)
-    prompt = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, PARITY_PROMPT).astype(np.int32).tolist()
+    rng = np.random.default_rng(SEED)
+    prompt = rng.integers(0, cfg.vocab_size, PARITY_PROMPT).astype(
+        np.int32).tolist()
+    frames = rng.normal(size=(cfg.max_source_len, cfg.d_model)).astype(
+        np.float32) if cfg.is_enc_dec else None
     t0 = time.perf_counter()
-    rows_dev, toks_dev = run_path(cfg, params, dev, prompt)
+    rows_dev, toks_dev = run_path(cfg, params, dev, prompt, frames)
     t_dev = time.perf_counter() - t0
     cpu_params = tree_to(params, "cpu")
     del params
     t0 = time.perf_counter()
     rows_cpu, toks_cpu = run_path(cfg, cpu_params, torch.device("cpu"),
-                                  prompt)
+                                  prompt, frames)
     t_cpu = time.perf_counter() - t0
     err = max((a - b).abs().max().item() for a, b in zip(rows_dev, rows_cpu))
     finite = all(bool(torch.isfinite(r).all()) for r in rows_dev)
     result = {"phase": phase, "parity": True,
               "model": f"{cfg.name} x{cfg.num_layers} layers "
-              f"{cfg.compute_dtype}", "prompt": PARITY_PROMPT,
+              f"{cfg.compute_dtype}", "encoder_layers": cfg.encoder_layers,
+              "frames": 0 if frames is None else len(frames),
+              "prompt": PARITY_PROMPT,
               "logits_max_abs_err": err, "atol": PARITY_ATOL, "tf32": False,
               "tokens_device": toks_dev, "tokens_cpu": toks_cpu,
               "device_s": round(t_dev, 3), "cpu_s": round(t_cpu, 3)}
@@ -1813,9 +2059,10 @@ def check_launched(phase: int, launches, expected) -> None:
                              f"the path runs {set(expected)}")
 
 
-def prefill_last(params, cfg, dev, tokens, patches=None):
+def prefill_last(params, cfg, dev, tokens, patches=None, frames=None):
     """The last position's logits (V,) of a monolithic prefill of
-    ``tokens``, after ``patches`` (P, d) when given (a vision request)."""
+    ``tokens``, after ``patches`` (P, d) when given (a vision request),
+    beside ``frames`` (F, d) when given (an enc-dec request)."""
     import numpy as np
     import torch
     from repro_torch.models import model as M
@@ -1825,14 +2072,18 @@ def prefill_last(params, cfg, dev, tokens, patches=None):
     if patches is not None:
         inputs["patches"] = torch.as_tensor(patches, device=dev)[None]
         n += len(patches)
-    last, _ = M.prefill(params, cfg, inputs,
-                        M.init_caches(cfg, 1, n, device=dev))
+    if frames is not None:
+        inputs["frames"] = torch.as_tensor(frames, device=dev)[None]
+    last, _ = M.prefill(params, cfg, inputs, M.init_caches(
+        cfg, 1, n, device=dev,
+        mem_len=0 if frames is None else len(frames)))
     return last[0]
 
 
 def last_token_gap(cfg, params, dev, reqs) -> float:
     """Each request's last token against a monolithic prefill of its
-    patches (if any), prompt and output[:-1]: the decoded token must be
+    patches (if any), prompt and output[:-1] (beside its frames, if any):
+    the decoded token must be
     (within bf16 noise) the prefill's top choice, and the logits finite.
     Returns the worst gap."""
     import numpy as np
@@ -1841,7 +2092,7 @@ def last_token_gap(cfg, params, dev, reqs) -> float:
     for r in reqs:
         seq = np.concatenate([r.prompt, np.asarray(r.output_tokens[:-1],
                                                    np.int32)])
-        last = prefill_last(params, cfg, dev, seq, r.patches)
+        last = prefill_last(params, cfg, dev, seq, r.patches, r.frames)
         last = last.float()
         if not bool(torch.isfinite(last).all()):
             raise AssertionError(f"{r.req_id}: non-finite logits")
@@ -1855,9 +2106,10 @@ def last_token_gap(cfg, params, dev, reqs) -> float:
 
 def first_token_yardstick(cfg, params, dev, prompts, reqs):
     """Each request's served first token against a float32 prefill of its
-    patches (if any) and prompt (params upcast with ``.float()``, which
-    takes the float32 flash kernel): its float32 logit must be within
-    LOGIT_SLACK of the float32 maximum, whatever order bf16 summed in.
+    patches (if any) and prompt (beside its frames, if any; params upcast
+    with ``.float()``, which takes the float32 flash kernel): its float32
+    logit must be within LOGIT_SLACK of the float32 maximum, whatever
+    order bf16 summed in.
     Returns the worst gap and the largest |bf16 - f32| of the
     last-position logits of ``M.prefill`` in bf16. The float32 copy of
     the weights (27 GB at llama2-7b) is freed before the return."""
@@ -1866,8 +2118,10 @@ def first_token_yardstick(cfg, params, dev, prompts, reqs):
     params32 = tree_to(params, torch.float32)
     gap_max = err_max = 0.0
     for prompt, r in zip(prompts, reqs):
-        l16 = prefill_last(params, cfg, dev, prompt, r.patches).float()
-        l32 = prefill_last(params32, cfg32, dev, prompt, r.patches).float()
+        l16 = prefill_last(params, cfg, dev, prompt, r.patches,
+                           r.frames).float()
+        l32 = prefill_last(params32, cfg32, dev, prompt, r.patches,
+                           r.frames).float()
         if not bool(torch.isfinite(l32).all()):
             raise AssertionError(f"{r.req_id}: non-finite float32 logits")
         gap = float(l32.max() - l32[r.output_tokens[0]])
@@ -2343,14 +2597,15 @@ def wire_plan(lens, window, chunk):
 
 
 def serve_long_prompts(phase, cfg, p_vendor, dev, around_serve, kernels,
-                       make_reqs=None, prefix_cache=False):
-    """The serving run phases 6-10 share: ``cfg`` in bf16 with random
+                       make_reqs=None, prefix_cache=False,
+                       chunk=PREFILL_CHUNK):
+    """The serving run phases 6-11 share: ``cfg`` in bf16 with random
     weights from SEED, phase 6's eight prompts (MAX_NEW greedy tokens
     each; or the requests ``make_reqs(cfg)`` returns) served by one P
-    (``p_vendor``) and phase 3's D over a raw bf16 wire in
-    PREFILL_CHUNK-token chunks, both engines with a prefix cache when
-    ``prefix_cache``. The launch counts are set to 0 just before the
-    serving loop and read just after; every request must finish and
+    (``p_vendor``) and phase 3's D over a raw bf16 wire in ``chunk``-token
+    chunks, both engines with a prefix cache when ``prefix_cache``. The
+    launch counts are set to 0 just before the serving loop and read just
+    after; every request must finish and
     exactly ``kernels`` must launch. Returns the run: weights, requests,
     engines, pipe, scheduler, the positions each request shipped, the
     bytes staged under each wire key, the server's result, launches and
@@ -2414,7 +2669,7 @@ def serve_long_prompts(phase, cfg, p_vendor, dev, around_serve, kernels,
         h.send_chunk = send_chunk
         return h
     pipe.begin_handoff = counted_begin
-    sched = GlobalScheduler(pipe, prefill_chunk=PREFILL_CHUNK, device=dev)
+    sched = GlobalScheduler(pipe, prefill_chunk=chunk, device=dev)
     sched.add_instance(p_eng)
     sched.add_instance(d_eng)
     setup_s = time.perf_counter() - t0
@@ -2433,11 +2688,12 @@ def serve_long_prompts(phase, cfg, p_vendor, dev, around_serve, kernels,
         params=params, params_gib=params_gib, setup_s=setup_s, reqs=reqs,
         prompts=prompts, p_vendor=p_vendor, d_vendor=d_vendor, wire=wire,
         p_eng=p_eng, d_eng=d_eng, pipe=pipe, sched=sched, shipped=shipped,
-        staged=staged, result=result, launches=launches, peak=peak)
+        staged=staged, result=result, launches=launches, peak=peak,
+        chunk=chunk)
 
 
 def serving_report(run) -> dict:
-    """The keys of the phase line that phases 6-10 share: the traffic, the
+    """The keys of the phase line that phases 6-11 share: the traffic, the
     vendors, TTFT/TPOT/tok/s, memory, launches, P's and D's times and the
     wire's."""
     import numpy as np
@@ -2447,7 +2703,7 @@ def serving_report(run) -> dict:
     return {"requests": len(run.reqs),
             "prompt_lens": [r.prompt_len for r in run.reqs],
             "patches": [r.num_patches for r in run.reqs],
-            "max_new_tokens": MAX_NEW, "prefill_chunk": PREFILL_CHUNK,
+            "max_new_tokens": MAX_NEW, "prefill_chunk": run.chunk,
             "p_vendor": dataclasses.asdict(run.p_vendor),
             "d_vendor": dataclasses.asdict(run.d_vendor),
             "ttft_p50_s": float(np.percentile(ttft, 50)),
@@ -2882,6 +3138,132 @@ def phase10(dev, around_serve=contextlib.nullcontext):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: the encoder-decoder family (Whisper-large-v3) at full width and
+# depth
+# --------------------------------------------------------------------------- #
+def phase11_requests(cfg):
+    """Eight requests of MAX_NEW greedy tokens: decoder prompts of
+    PHASE11_PROMPTS tokens (lengths, then tokens, from SEED's generator),
+    each with ``max_source_len`` frame embeddings (d_model wide, float32,
+    unit normal, from the same generator after the prompts): the stub
+    frontend, as the JAX package's tests feed it."""
+    import numpy as np
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(PHASE11_PROMPTS[0], PHASE11_PROMPTS[1] + 1,
+                        N_REQUESTS)
+    reqs = [Request(f"req{i}", rng.integers(0, cfg.vocab_size, int(n))
+                    .astype(np.int32), MAX_NEW) for i, n in enumerate(lens)]
+    for r in reqs:
+        r.frames = rng.normal(size=(cfg.max_source_len, cfg.d_model)).astype(
+            np.float32)
+    return reqs
+
+
+def phase11(dev, around_serve=contextlib.nullcontext):
+    """Whisper-large-v3 at full width and all 32 + 32 layers, bf16, random
+    weights from SEED, served by phase 3's vendors (P at TP 2) to eight
+    requests of 1500 frames and 16-224 prompt tokens in 64-token chunks:
+    P runs each request's encoder once (flash non-causal over 1500
+    frames, 32 layers) and seeds every decoder layer's memory rows, then
+    each chunk's self-attention (flash, causal) and cross-attention
+    (flash, non-causal at kv_len 1500); the wire carries the prompt's
+    self KV in chunks and one tail of memory rows a request; the overlay
+    re-pages the KV into D's pools, D places the rows into the slot and
+    decodes (paged for self-attention, plain ops for the per-slot
+    cross-attention). Both engines have a prefix cache, which every
+    request must bypass and count (the family's capability row has
+    none). ``around_serve`` as in ``phase3``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import VendorProfile
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MODEL11)
+    run = serve_long_prompts(11, cfg, VendorProfile(**P_VENDOR), dev,
+                             around_serve, PHASE3_KERNELS,
+                             make_reqs=phase11_requests, prefix_cache=True,
+                             chunk=PHASE11_CHUNK)
+    lens = [r.prompt_len for r in run.reqs]
+    n_dec, n_enc = cfg.num_layers, cfg.encoder_layers
+    chunks = [(c0, min(PHASE11_CHUNK, n - c0)) for n in lens
+              for c0 in range(0, n, PHASE11_CHUNK)]
+    # launches: each request's encoder once; each chunk's self- and
+    # cross-attention in every decoder layer; the overlay for k and v of
+    # each chunk (all 32 layers a launch); paged a layer a decode step
+    want_launches = {
+        "flash_attention": len(run.reqs) * n_enc + 2 * n_dec * len(chunks),
+        "scatter_pages_overlay": 2 * len(chunks),
+        "paged_attention": n_dec * run.d_eng.stats.decode_steps}
+    got_launches = {k: run.launches[k] for k in want_launches}
+    if got_launches != want_launches:
+        raise AssertionError(f"phase 11: launches {got_launches}, the path "
+                             f"predicts {want_launches}")
+    # the wire: every prompt position's self KV (32 layers x 20 heads x 64
+    # x k, v in bf16: 163,840 bytes) in 64-token chunks with their
+    # headers, and one tail a request of the memory rows and lengths
+    per_pos = n_dec * 2 * cfg.num_kv_heads * cfg.hd * 2
+    cross = n_dec * 2 * cfg.max_source_len * cfg.num_kv_heads * cfg.hd * 2
+    tail = cross + n_dec * 4
+    tails = {k: n for k, n in run.staged.items() if k.endswith("tail")}
+    if sorted(tails.values()) != [tail] * len(run.reqs) or \
+            cross != PHASE11_CROSS_BYTES:
+        raise AssertionError(f"phase 11: tails {tails}, the memory rows say "
+                             f"{tail} a request")
+    want_bytes = sum(kv_chunk_bytes(cfg, run.wire, run.p_vendor.tp, *c)
+                     for c in chunks) + len(run.reqs) * tail
+    st = run.pipe.transfer.stats
+    if [run.shipped[r.req_id] for r in run.reqs] != lens or \
+            st.payload_bytes != sum(lens) * per_pos + len(run.reqs) * tail \
+            or st.bytes_moved != want_bytes or \
+            run.sched.stats.chunks_streamed != len(chunks):
+        raise AssertionError(
+            f"phase 11: positions {dict(run.shipped)}, payload "
+            f"{st.payload_bytes} / bytes {st.bytes_moved} / chunks "
+            f"{run.sched.stats.chunks_streamed}; prompts and tails say "
+            f"{sum(lens) * per_pos + len(run.reqs) * tail} / {want_bytes} / "
+            f"{len(chunks)}")
+    # the prefix caches: never consulted, every request counted
+    p, d = run.p_eng.stats, run.d_eng.stats
+    bypassed = (p.resume_unsupported, d.resume_unsupported)
+    if bypassed != (len(run.reqs), len(run.reqs)) or st.prefix_hit_tokens \
+            or p.prefix_cached_tokens or len(run.d_eng.prefix_store):
+        raise AssertionError(f"phase 11: prefix cache bypassed {bypassed}, "
+                             f"hits {st.prefix_hit_tokens} / "
+                             f"{p.prefix_cached_tokens}")
+    mem_len = run.d_eng.mem_len
+    report = serving_report(run)
+    del run.sched, run.p_eng, run.d_eng, run.pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = last_token_gap(cfg, run.params, dev, run.reqs)
+    gap32, err32 = first_token_yardstick(cfg, run.params, dev, run.prompts,
+                                         run.reqs)
+    out = {"phase": 11, "model": cfg.name, "layers": n_dec,
+           "encoder_layers": n_enc,
+           "layers_published": [cfg.encoder_layers, cfg.num_layers],
+           "dtype": cfg.compute_dtype, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "head_dim": cfg.hd,
+           "mem_len": mem_len, "frames": [len(r.frames) for r in run.reqs],
+           "params_b": param_billions(run.params),
+           **report,
+           "peak_mem_gib_with_checks":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "chunks": len(chunks), "launches_predicted": want_launches,
+           "kv_bytes_per_position": per_pos,
+           "cross_bytes_per_request": cross,
+           "tail_bytes_per_request": tail,
+           "wire_bytes_predicted": want_bytes,
+           "prefix_cache_bypassed": list(bypassed),
+           "last_token_logit_gap_max": worst,
+           "first_token_gap_f32_max": gap32,
+           "last_logits_bf16_vs_f32_max_abs": err32,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 # (name, source, TPU kernel, the phase whose launches the row reports);
 # every row also carries its launches on every serving phase
 KERNELS = [
@@ -2951,6 +3333,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths[10] = phase10(dev)
+    gc.collect()                         # InternVL2's weights: Whisper's
+    torch.cuda.empty_cache()
+    phase2(dev, MODEL11, PARITY11_LAYERS, phase=11)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths[11] = phase11(dev)
 
     rows = []
     for name, source, replaces, phase in KERNELS:
@@ -2966,7 +3354,8 @@ def main() -> int:
                "device_method": t["device_method"], "host_us": t["host_us"],
                "launches_by_phase": {ph: paths[ph]["launches"][name]
                                      for ph in sorted(paths)}}
-        for key in ("mla", "rg", "vlm"):  # at phase 7's, 8's, 10's shapes
+        # at phase 7's, 8's, 10's and 11's shapes
+        for key in ("mla", "rg", "vlm", "encdec"):
             if key in t:
                 row[key] = {k: t[key][k] for k in (
                     "shape", "max_abs_err", "ms", "device_ms", "plain_ms",

@@ -1,3 +1,3 @@
-"""Heterogeneous compatibility components: precision and parallel-strategy
-alignment (layout alignment lives in ``serving.paged_cache`` and the
-re-page kernel)."""
+"""Heterogeneous compatible transmission module (paper §III-B): precision
+(``precision``), parallel-strategy (``parallel_align``) and VRAM-layout
+(``layout``) alignment."""

@@ -29,7 +29,12 @@ plain tree under its own key and placed into the D slot's state rows
 on the wire like a chunk's. An SSM model (Mamba-2) ships no KV at all:
 its one chunk is a ``WireChunk`` of no entries that declares the whole
 length (a header, no payload; D re-pages nothing and has no pools), and
-its SSD states are the tail.
+its SSD states are the tail. An encoder-decoder model (Whisper) ships its
+self-attention KV as any model does and its tail is the encoder memory's
+cross K/V rows of every decoder layer with their length (``{"states":
+[], "cross": [(gi, pi, {"cross_k", "cross_v", "mem_len"})]}``), staged
+in the compute dtype on every wire and placed into the D slot's memory
+rows (``Engine.place_cross``).
 
 A sliding-window stream starts at its window floor, which may lie inside
 one of D's pages: its first chunk lands ``front = start % block_size`` rows
@@ -158,14 +163,12 @@ class DisaggPipeline:
                     rmw: bool = False) -> None:
         """Re-page a wire chunk into the D instance's pools (in place), or
         place a stream's tail (``{"states", "cross"}``) into the slot's
-        state rows. ``rmw`` keeps the untouched rows of partly covered
-        pages — required when streamed chunk boundaries do not align with
-        D's block size."""
+        state rows and memory rows. ``rmw`` keeps the untouched rows of
+        partly covered pages — required when streamed chunk boundaries do
+        not align with D's block size."""
         if not isinstance(payload, WireChunk):
-            if payload.get("cross"):
-                raise NotImplementedError(
-                    "cross-attention tails (enc-dec) are not ported")
             d_engine.place_states(slot, payload["states"])
+            d_engine.place_cross(slot, payload["cross"])
             return
         dev = d_engine.device
         bids = torch.from_numpy(np.asarray(block_ids, np.int32)).to(dev)
@@ -203,9 +206,11 @@ class DisaggPipeline:
     def ship_tail(self, key: str, d_engine: Engine, slot: int,
                   block_ids: np.ndarray, tail: Dict[str, Any],
                   meta: Dict[str, Any]) -> int:
-        """Stage a stream's tail (recurrent states) under ``key``, read it
-        back and place it into ``slot``. Returns its staged bytes (0 when
-        the tail is empty: nothing is staged)."""
+        """Stage a stream's tail (recurrent states, an enc-dec model's
+        memory rows) under ``key`` as a plain tree, in the dtypes P holds
+        them (the compute dtype; no wire format applies, as in the
+        reference), read it back and place it into ``slot``. Returns its
+        staged bytes (0 when the tail is empty: nothing is staged)."""
         if not tail.get("states") and not tail.get("cross"):
             return 0
         tr = self.transfer
@@ -427,8 +432,8 @@ class StreamedHandoff:
 
     def finalize(self, first_token: int, tail_package: Dict[str, Any]
                  ) -> Dict[str, Any]:
-        """Ship the recurrent states (the tail), activate the D slot,
-        account overlap."""
+        """Ship the tail (recurrent states, memory rows), activate the D
+        slot, account overlap."""
         assert not self._closed
         self.drain()
         tr = self.pipeline.transfer

@@ -36,10 +36,11 @@ def check_family(cfg) -> None:
     qk-norm), sliding-window attention, multi-head latent attention (MLA,
     DeepSeek-V2), MoE MLPs over any of these (Mixtral, DeepSeek-V2-Lite),
     the hybrid of RG-LRU recurrent blocks and local attention (Griffin /
-    RecurrentGemma), the attention-free Mamba-2 SSD family and the vision
-    frontend (patch embeddings before the prompt) over full attention.
-    Encoder-decoder models (the audio frontend) stay in ROADMAP queue 1
-    item 7."""
+    RecurrentGemma), the attention-free Mamba-2 SSD family, the vision
+    frontend (patch embeddings before the prompt) and the encoder-decoder
+    family (the audio frontend: an encoder over frame embeddings, decoder
+    layers that cross-attend to its memory), each over full attention
+    and without MoE. Anything else raises ``NotImplementedError``."""
     hybrid = (cfg.family == "hybrid" and cfg.recurrent is not None
               and cfg.attention_kind in ("full", "sliding") and not cfg.is_moe
               and set(cfg.recurrent.block_pattern) <= {RECURRENT, ATTN})
@@ -47,16 +48,20 @@ def check_family(cfg) -> None:
            and cfg.attention_kind == "none" and not cfg.is_moe)
     vlm = (cfg.family == "vlm" and cfg.frontend.kind == "vision"
            and cfg.attention_kind == "full" and not cfg.is_moe)
+    encdec = (cfg.is_enc_dec and cfg.frontend.kind == "audio"
+              and cfg.attention_kind == "full" and not cfg.is_moe
+              and cfg.recurrent is None and cfg.ssm is None)
     attention_ok = ssm or cfg.attention_kind in ("full", "sliding") or (
         cfg.attention_kind == "mla" and cfg.mla is not None)
-    family_ok = cfg.family == "dense" or hybrid or ssm or vlm or (
+    family_ok = cfg.family == "dense" or hybrid or ssm or vlm or encdec or (
         cfg.family == "moe" and cfg.is_moe)
     if (not attention_ok or not family_ok
-            or (cfg.is_moe and cfg.family != "moe") or cfg.is_enc_dec
+            or (cfg.is_moe and cfg.family != "moe")
+            or (cfg.is_enc_dec and not encdec)
             or (cfg.recurrent is not None and not hybrid)
             or (cfg.ssm is not None and not ssm)
-            or (cfg.frontend.kind != "none" and not vlm)):
+            or (cfg.frontend.kind != "none" and not (vlm or encdec))):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (attention "
-            f"{cfg.attention_kind!r}) is not ported yet — see ROADMAP "
-            "queue 1 item 7 (remaining model families)")
+            f"{cfg.attention_kind!r}) is not a family the port serves — "
+            "see ROADMAP queue 1 item 7 (the model families)")

@@ -8,7 +8,9 @@ and an RG-LRU block's ``lam`` and gate biases (``lru_a_b``,
 ``lru_in_b``), float32 whatever the parameter dtype, stay float32. The tree structure
 (dicts, tuples of group positions, MoE and dense groups) is kept, and
 with it every leaf by name: an MLA layer's ``wq``, ``w_dkv``,
-``kv_norm``, ``w_ukv`` and ``wo`` cross like any other.
+``kv_norm``, ``w_ukv`` and ``wo`` cross like any other, and so do an
+enc-dec model's ``enc_groups`` and ``enc_norm`` and each decoder layer's
+``cross`` and ``norm_x``.
 """
 from __future__ import annotations
 

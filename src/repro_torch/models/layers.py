@@ -4,7 +4,8 @@ sliding window, position-tagged KV caches with the ring buffer,
 multi-head latent attention (MLA) with its latent cache, SwiGLU, top-k
 routed MoE with shared experts, the RG-LRU recurrent block of Griffin /
 RecurrentGemma with its layer state, the Mamba-2 SSD mixer with its
-layer state).
+layer state, the cross-attention of encoder-decoder models with its
+memory rows).
 
 Layers are plain functions over plain dict params, as in the JAX package.
 Conventions: activations (B, S, d); attention heads (B, S, H, hd);
@@ -12,7 +13,11 @@ softmax and norms accumulate in float32.
 
 Two routes through attention. On a CUDA tensor (``kernel_route``) prefill
 and chunked prefill call the flash kernel and paged decode calls the paged
-kernel, both through ``repro_torch.kernels.ops``. On the CPU the layers
+kernel, both through ``repro_torch.kernels.ops``. Cross-attention runs
+flash non-causal over the memory where one memory length serves the whole
+batch (a prefill, a chunk of one request) and, with a per-sequence length
+(D's decode slots), the plain masked ``sdpa`` on both devices, as the
+reference computes it in no kernel. On the CPU the layers
 take the plain path the JAX package takes — ``sdpa`` under an additive
 mask, ``paged_cache.paged_attention_ref`` — so the two packages compute
 the same expressions. Caches and pools are updated in place (the JAX code
@@ -366,6 +371,84 @@ def attention_decode_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
         out = PC.paged_attention_ref(q, k_pool, v_pool, block_table, new_lens,
                                      spec, window=window)
     return _out_proj(out, p["wo"]), pcache
+
+
+# --------------------------------------------------------------------------- #
+# Cross-attention (enc-dec). Cache = encoder memory K/V, built once.
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass
+class CrossKVCache(KVCache):
+    """A decoder layer's self-attention ``KVCache`` and its cross-attention
+    rows: the encoder memory's K and V (..., B, mem, KV, hd) and each
+    sequence's memory length (..., B) int32 (the reference's {"self",
+    "cross_k", "cross_v", "mem_len"})."""
+    cross_k: Optional[torch.Tensor] = None
+    cross_v: Optional[torch.Tensor] = None
+    mem_len: Optional[torch.Tensor] = None
+
+    def layer(self, i: int) -> "CrossKVCache":
+        return CrossKVCache(self.k[i], self.v[i], self.pos[i],
+                            self.full_capacity, self.cross_k[i],
+                            self.cross_v[i], self.mem_len[i])
+
+
+def cross_rows_init(batch: int, mem_len: int, cfg: ModelConfig, dtype,
+                    device: torch.device, count: int = 1
+                    ) -> Dict[str, torch.Tensor]:
+    """Zeroed cross rows of ``count`` layers: {"cross_k", "cross_v"}
+    (count, B, mem_len, KV, hd) and "mem_len" (count, B) int32 — an idle
+    slot attends no memory row."""
+    shape = (count, batch, mem_len, cfg.num_kv_heads, cfg.hd)
+    return {"cross_k": torch.zeros(shape, dtype=dtype, device=device),
+            "cross_v": torch.zeros(shape, dtype=dtype, device=device),
+            "mem_len": torch.zeros((count, batch), dtype=torch.int32,
+                                   device=device)}
+
+
+def length_mask(lengths: torch.Tensor, skv: int) -> torch.Tensor:
+    """(B,1,1,skv) additive mask blanking positions >= per-seq length."""
+    ok = torch.arange(skv, device=lengths.device)[None] < lengths[:, None]
+    return torch.where(ok, 0.0, NEG_INF)[:, None, None].float()
+
+
+def init_cross_attention(gen: torch.Generator, cfg: ModelConfig,
+                         device: torch.device) -> Params:
+    return init_attention(gen, cfg.with_(qkv_bias=False, qk_norm=False),
+                          device)
+
+
+def cross_attention_kv(p: Params, cfg: ModelConfig, memory: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The memory's (B,S_mem,d) cross K and V (B,S_mem,KV,hd): no RoPE."""
+    return _proj(memory, p["wk"]), _proj(memory, p["wv"])
+
+
+def cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                    mem_kv: Tuple[torch.Tensor, torch.Tensor],
+                    mem_lengths: Optional[torch.Tensor] = None,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """Queries x (B,Sq,d) over the memory's K/V (B,S_mem,KV,hd), no RoPE,
+    no causal mask. ``kv_len`` (host int): the memory rows that every
+    sequence of the batch attends; with it a CUDA tensor runs the flash
+    kernel non-causal over the first ``kv_len`` rows (a prefill or a
+    chunk of one request). Otherwise the plain path: ``sdpa`` under an
+    additive mask that blanks rows at or past each sequence's
+    ``mem_lengths`` (all rows when None), as the reference computes it
+    — a slot with length 0 attends uniformly over finite scores and stays
+    finite."""
+    k, v = mem_kv
+    q = _proj(x, p["wq"])
+    if kv_len is not None and kernel_route(x):
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=False,
+                                  kv_len=kv_len).transpose(1, 2)
+    else:
+        mask = torch.zeros((x.shape[0], 1, x.shape[1], k.shape[1]),
+                           device=x.device)
+        if mem_lengths is not None:
+            mask = mask + length_mask(mem_lengths, k.shape[1])
+        out = sdpa(q, k, v, mask)
+    return _out_proj(out, p["wo"])
 
 
 # --------------------------------------------------------------------------- #

@@ -1,8 +1,10 @@
 """Config-driven model assembly — PyTorch port of ``repro.models.model``
 for the dense, sliding-window, MoE, MLA, hybrid RG-LRU and Mamba-2 SSD
-families, and the vision frontend's patch embeddings before the prompt
-(VLM; the frontend itself is a stub, as in the reference: the request
-carries precomputed patch embeddings).
+families, the vision frontend's patch embeddings before the prompt
+(VLM), and the encoder-decoder family (the audio frontend: a non-causal
+encoder over frame embeddings whose memory every decoder layer
+cross-attends). Both frontends are stubs, as in the reference: a request
+carries precomputed patch or frame embeddings.
 
 A model is a list of *block groups* whose parameters are stacked along a
 leading ``count`` axis, exactly as in the JAX package (so
@@ -13,9 +15,16 @@ parameter tree per position in the tuple. Where the JAX code scans over
 the stacked axis with the caches in the carry, the port loops over layer
 slices of the stacked tensors (each repetition's positions in order) and
 updates each layer's cache or recurrent state slice in place. An SSM
-model is one group of SSD layers (a norm and the SSD mixer, no MLP).
+model is one group of SSD layers (a norm and the SSD mixer, no MLP). An
+encoder-decoder model has its encoder groups beside (``enc_groups``,
+``enc_norm``), and each decoder layer a cross-attention (``cross``, its
+norm ``norm_x``) over the encoder's memory; its caches hold the memory's
+cross K/V rows beside the self-attention KV (``L.CrossKVCache``; in the
+paged caches ``cross_k``/``cross_v``/``mem_len`` per slot).
 
 Entry points:
+  encode(params, cfg, frames)                           -> memory (B,S,d)
+  encoder_cross_kv(params, cfg, memory)                 -> {(gi, pi): (k, v)}
   prefill(params, cfg, inputs, caches)                  -> (last_logits, caches)
   decode_step(params, cfg, tokens, positions, caches)   -> (logits, caches)
   decode_step_embeds(params, cfg, embeds, positions, caches)
@@ -43,13 +52,16 @@ class Group:
     kinds: Tuple[str, ...]
     count: int
     moe: bool = False
+    cross: bool = False     # decoder layers of an enc-dec model
+    causal: bool = True
 
 
 def block_groups(cfg: ModelConfig) -> List[Group]:
     """dense: [Group(("attn",), L)]; moe: the first dense layers, if any,
     then the MoE layers; hybrid: the block pattern repeated, then its
-    first L mod len(pattern) kinds once; ssm: [Group(("ssd",), L)] — as
-    in the reference."""
+    first L mod len(pattern) kinds once; ssm: [Group(("ssd",), L)];
+    enc-dec: the decoder's [Group(("attn",), L, cross=True)] — as in the
+    reference."""
     _dev.check_family(cfg)
     if cfg.family == "ssm":
         return [Group((SSD,), cfg.num_layers)]
@@ -64,7 +76,13 @@ def block_groups(cfg: ModelConfig) -> List[Group]:
         fd = cfg.moe.first_dense_layers
         return [Group((ATTN,), fd, moe=False),
                 Group((ATTN,), cfg.num_layers - fd, moe=True)]
-    return [Group((ATTN,), cfg.num_layers, moe=cfg.is_moe)]
+    return [Group((ATTN,), cfg.num_layers, moe=cfg.is_moe,
+                  cross=cfg.is_enc_dec)]
+
+
+def encoder_groups(cfg: ModelConfig) -> List[Group]:
+    """The encoder of an enc-dec model: non-causal attention layers."""
+    return [Group((ATTN,), cfg.encoder_layers, causal=False)]
 
 
 def layer_params(stacked: Any, i: int) -> Any:
@@ -78,7 +96,7 @@ def layer_params(stacked: Any, i: int) -> Any:
 # Init
 # --------------------------------------------------------------------------- #
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
-                moe: bool, device: torch.device) -> Params:
+                moe: bool, cross: bool, device: torch.device) -> Params:
     d = cfg.d_model
     if kind == SSD:
         return {"norm": torch.ones((d,), dtype=cfg.pdtype, device=device),
@@ -92,9 +110,13 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
         L.init_mlp(gen, cfg, device)
     attn = L.init_mla(gen, cfg, device) if _is_mla(cfg) else \
         L.init_attention(gen, cfg, device)
-    return {"norm1": torch.ones((d,), dtype=cfg.pdtype, device=device),
-            "norm2": torch.ones((d,), dtype=cfg.pdtype, device=device),
-            "attn": attn, "mlp": mlp}
+    p = {"norm1": torch.ones((d,), dtype=cfg.pdtype, device=device),
+         "norm2": torch.ones((d,), dtype=cfg.pdtype, device=device),
+         "attn": attn, "mlp": mlp}
+    if cross:
+        p["norm_x"] = torch.ones((d,), dtype=cfg.pdtype, device=device)
+        p["cross"] = L.init_cross_attention(gen, cfg, device)
+    return p
 
 
 def _init_group(gen: torch.Generator, cfg: ModelConfig, g: Group,
@@ -117,11 +139,11 @@ def _init_group(gen: torch.Generator, cfg: ModelConfig, g: Group,
             return {k: empty(v) for k, v in t.items()}
         return t.new_empty((count,) + tuple(t.shape))
 
-    layer = _init_layer(gen, cfg, kind, g.moe, device)
+    layer = _init_layer(gen, cfg, kind, g.moe, g.cross, device)
     stacked = empty(layer)
     put(stacked, layer, 0)
     for i in range(1, count):
-        put(stacked, _init_layer(gen, cfg, kind, g.moe, device), i)
+        put(stacked, _init_layer(gen, cfg, kind, g.moe, g.cross, device), i)
     return stacked
 
 
@@ -146,6 +168,11 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         p["lm_head"] = (torch.randn((d, v), generator=gen, device=dev)
                         / math.sqrt(d)).to(cfg.pdtype)
+    if cfg.is_enc_dec:
+        p["enc_groups"] = tuple(
+            tuple(_init_group(gen, cfg, g, kind, dev) for kind in g.kinds)
+            for g in encoder_groups(cfg))
+        p["enc_norm"] = torch.ones((d,), dtype=cfg.pdtype, device=dev)
     return p
 
 
@@ -154,11 +181,13 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 # --------------------------------------------------------------------------- #
 def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
                 full_capacity: bool = False,
-                device: _dev.DeviceLike = None):
+                device: _dev.DeviceLike = None, mem_len: int = 0):
     """Dense position-tagged caches, one group-stacked ``KVCache`` (an
-    ``MLACache`` of latent rows for MLA) per attention position of a group
-    and one group-stacked ``RGLRUState`` per recurrent position or
-    ``SSMState`` per SSD position (leaves are (count, B, ...)). A sliding
+    ``MLACache`` of latent rows for MLA; a ``CrossKVCache`` with
+    ``mem_len`` zeroed memory rows for an enc-dec decoder) per attention
+    position of a group and one group-stacked ``RGLRUState`` per recurrent
+    position or ``SSMState`` per SSD position (leaves are (count, B,
+    ...)). A sliding
     layer's cache is a ring buffer of ``min(capacity, window)`` slots
     unless ``full_capacity``: chunked prefill opts out (writing chunk c
     would evict positions still inside the window of chunk c's own
@@ -169,7 +198,8 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
     if _window(cfg) and not full_capacity:
         cap = min(cap, _window(cfg))
 
-    def one(kind, count):
+    def one(kind, g):
+        count = g.count
         if kind == SSD:
             return L.ssm_state_init(batch, cfg, dtype, dev, count=count)
         if kind == RECURRENT:
@@ -177,19 +207,26 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
         if _is_mla(cfg):
             return L.mla_cache_init(batch, cap, cfg, dtype, dev, count=count,
                                     full_capacity=full_capacity)
-        return L.kv_cache_init(batch, cap, cfg.num_kv_heads, cfg.hd, dtype,
-                               dev, count=count, full_capacity=full_capacity)
+        c = L.kv_cache_init(batch, cap, cfg.num_kv_heads, cfg.hd, dtype,
+                            dev, count=count, full_capacity=full_capacity)
+        if g.cross:
+            return L.CrossKVCache(**vars(c), **L.cross_rows_init(
+                batch, mem_len, cfg, dtype, dev, count=count))
+        return c
 
-    return tuple(tuple(one(kind, g.count) for kind in g.kinds)
+    return tuple(tuple(one(kind, g) for kind in g.kinds)
                  for g in block_groups(cfg))
 
 
 def init_paged_caches(cfg: ModelConfig, specs: Dict[str, PC.KVPageSpec],
                       num_blocks: int, batch: int = 0,
-                      device: _dev.DeviceLike = None):
+                      device: _dev.DeviceLike = None, mem_len: int = 0):
     """Paged pools of (count, N, *page) per attention position of a group:
     {"k_pool", "v_pool"} of ``specs["kv"]``, or for MLA {"ckv_pool",
-    "kpe_pool"} of ``specs["ckv"]`` and ``specs["kpe"]``; a recurrent or
+    "kpe_pool"} of ``specs["ckv"]`` and ``specs["kpe"]``; an enc-dec
+    decoder position also holds each slot's memory rows ("cross_k",
+    "cross_v": (count, batch, mem_len, KV, hd) in the compute dtype,
+    "mem_len": (count, batch) int32, 0 for an idle slot); a recurrent or
     SSD position holds its dense per-slot state, an ``RGLRUState`` or
     ``SSMState`` of ``batch`` rows in the compute dtype (h float32), so a
     model with such layers needs ``batch`` > 0. An SSM model has no pool
@@ -198,18 +235,23 @@ def init_paged_caches(cfg: ModelConfig, specs: Dict[str, PC.KVPageSpec],
     names = (("ckv_pool", "ckv"), ("kpe_pool", "kpe")) if _is_mla(cfg) \
         else (("k_pool", "kv"), ("v_pool", "kv"))
 
-    def one(kind, count):
+    def one(kind, g):
+        count = g.count
         if kind in (RECURRENT, SSD):
             if batch <= 0:
                 raise ValueError(f"init_paged_caches: {cfg.name} holds "
                                  "per-slot recurrent states; pass batch > 0")
             init = L.ssm_state_init if kind == SSD else L.rglru_state_init
             return init(batch, cfg, cfg.cdtype, dev, count=count)
-        return {name: torch.zeros((count,) + specs[key].pool_shape(
+        pools = {name: torch.zeros((count,) + specs[key].pool_shape(
             num_blocks), dtype=specs[key].tdtype, device=dev)
             for name, key in names}
+        if g.cross:
+            pools.update(L.cross_rows_init(batch, mem_len, cfg, cfg.cdtype,
+                                           dev, count=count))
+        return pools
 
-    return tuple(tuple(one(kind, g.count) for kind in g.kinds)
+    return tuple(tuple(one(kind, g) for kind in g.kinds)
                  for g in block_groups(cfg))
 
 
@@ -296,6 +338,22 @@ def _ssd(p, cfg: ModelConfig, x: torch.Tensor, state,
     return x + h
 
 
+def _cross(p, cfg: ModelConfig, x: torch.Tensor, mem_kv,
+           mem_lengths: Optional[torch.Tensor] = None,
+           kv_len: Optional[int] = None) -> torch.Tensor:
+    """A decoder layer's cross-attention over the memory rows, added to
+    the residual (``L.cross_attention``'s routes)."""
+    hx = L.rms_norm(p["norm_x"], x, cfg.norm_eps)
+    return x + L.cross_attention(p["cross"], cfg, hx, mem_kv, mem_lengths,
+                                 kv_len)
+
+
+def _check_mem(cache: L.CrossKVCache, mem: int) -> None:
+    if mem > cache.cross_k.shape[-3]:
+        raise ValueError(f"encoder memory of {mem} rows exceeds the "
+                         f"cache's {cache.cross_k.shape[-3]} (mem_len)")
+
+
 def _layers(params, cfg: ModelConfig):
     """(group index, position, layer index, kind, group, layer params) in
     model order: each repetition of a group runs its positions in turn."""
@@ -307,19 +365,79 @@ def _layers(params, cfg: ModelConfig):
 
 
 # --------------------------------------------------------------------------- #
+# The encoder (enc-dec)
+# --------------------------------------------------------------------------- #
+def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Encoder forward over frame embeddings (B,S,d) (the audio frontend is
+    a stub: frames are embeddings): non-causal self-attention with RoPE at
+    positions 0..S-1 (flash with ``causal=False`` on the card), the MLP,
+    then the encoder's final norm. Returns the memory (B,S,d) in the
+    compute dtype."""
+    x = frames.to(cfg.cdtype)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    for gi, g in enumerate(encoder_groups(cfg)):
+        for li in range(g.count):
+            for pi, _kind in enumerate(g.kinds):
+                p = layer_params(params["enc_groups"][gi][pi], li)
+                h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
+                out, _ = L.attention_block(p["attn"], cfg, h, positions,
+                                           causal=g.causal)
+                x = _mlp_residual(p, cfg, g.moe, x + out)
+    return L.rms_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def encoder_cross_kv(params, cfg: ModelConfig, memory: torch.Tensor):
+    """Every decoder layer's cross-attention K/V of the encoder's
+    ``memory`` (B,S_mem,d) — the non-resumable preamble of a chunked
+    enc-dec prefill. Returns {(gi, pi): (k, v)}, each stacked (count, B,
+    S_mem, KV, hd) as the cache rows are."""
+    out = {}
+    for gi, g in enumerate(block_groups(cfg)):
+        if not g.cross:
+            continue
+        for pi, _kind in enumerate(g.kinds):
+            cp = params["groups"][gi][pi]["cross"]
+            ks, vs = zip(*(L.cross_attention_kv(layer_params(cp, li), cfg,
+                                                memory)
+                           for li in range(g.count)))
+            out[(gi, pi)] = (torch.stack(ks), torch.stack(vs))
+    return out
+
+
+def seed_cross(caches, cross, mem: int):
+    """Write ``encoder_cross_kv``'s rows into the first ``mem`` memory rows
+    of every sequence of the dense ``caches``, in place, and set each
+    sequence's memory length to ``mem``. Returns ``caches``."""
+    for (gi, pi), (mk, mv) in cross.items():
+        c = caches[gi][pi]
+        _check_mem(c, mem)
+        c.cross_k[:, :, :mem] = mk.to(c.cross_k.dtype)
+        c.cross_v[:, :, :mem] = mv.to(c.cross_v.dtype)
+        c.mem_len.fill_(mem)
+    return caches
+
+
+# --------------------------------------------------------------------------- #
 # Entry points
 # --------------------------------------------------------------------------- #
 def prefill(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor], caches):
     """Fill ``caches`` (capacity >= the sequence; recurrent states from
     zero) from a prompt, in place. inputs: tokens (B,S) and, for a vision
     model, optional patches (B,P,d): the sequence is the patches, then
-    the tokens, at positions 0..P+S-1. Returns (last_token_logits (B,V),
-    caches)."""
+    the tokens, at positions 0..P+S-1; for an enc-dec model, frames
+    (B,S_mem,d): the encoder runs first, each decoder layer cross-attends
+    to its memory (every row of it) and its cache keeps the memory's K/V
+    rows and length. Returns (last_token_logits (B,V), caches)."""
     tokens = inputs["tokens"]
     x = merged_embeds(params, cfg, inputs.get("patches"), tokens)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
+    if cfg.is_enc_dec:
+        memory = encode(params, cfg, inputs["frames"].to(tokens.device))
+        mem = memory.shape[1]
     fill = L.mla_cache_from_prefill if _is_mla(cfg) else \
         L.kv_cache_from_prefill
     for gi, pi, li, kind, g, p in _layers(params, cfg):
@@ -333,31 +451,47 @@ def prefill(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor], caches):
         h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
         out, rows = attention_full(p["attn"], cfg, h, positions)
         fill(cache, *rows, positions)
-        x = _mlp_residual(p, cfg, g.moe, x + out)
+        x = x + out
+        if g.cross:
+            _check_mem(cache, mem)
+            mk, mv = L.cross_attention_kv(p["cross"], cfg, memory)
+            x = _cross(p, cfg, x, (mk, mv), kv_len=mem)
+            cache.cross_k[:, :mem] = mk.to(cache.cross_k.dtype)
+            cache.cross_v[:, :mem] = mv.to(cache.cross_v.dtype)
+            cache.mem_len.fill_(mem)
+        x = _mlp_residual(p, cfg, g.moe, x)
     return lm_logits(params, cfg, x[:, -1]), caches
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, caches,
-                q_offset: Optional[int] = None):
+                q_offset: Optional[int] = None,
+                mem_len: Optional[int] = None):
     """One decode step / incremental-prefill chunk over dense caches (and
     recurrent states carried from the previous chunk). tokens, positions:
-    (B,T). ``q_offset`` (host int == positions[:, 0])
-    lets the CUDA route call the flash kernel without reading positions
-    back from the card; MLA needs it on both devices (``mla_decode``).
-    Returns (logits (B,T,V), caches)."""
+    (B,T). ``q_offset`` (host int == positions[:, 0]) and, for an enc-dec
+    model, ``mem_len`` (host int == the caches' ``mem_len``, which
+    ``seed_cross`` set) let the CUDA route call the flash kernel without
+    reading positions or memory lengths back from the card; MLA needs
+    ``q_offset`` on both devices (``mla_decode``). Returns (logits
+    (B,T,V), caches)."""
     return decode_step_embeds(params, cfg, embed_tokens(params, cfg, tokens),
-                              positions, caches, q_offset=q_offset)
+                              positions, caches, q_offset=q_offset,
+                              mem_len=mem_len)
 
 
 def decode_step_embeds(params, cfg: ModelConfig, embeds: torch.Tensor,
                        positions: torch.Tensor, caches,
-                       q_offset: Optional[int] = None):
+                       q_offset: Optional[int] = None,
+                       mem_len: Optional[int] = None):
     """``decode_step`` over precomputed embeddings (B,T,d): the route of
     chunked prefill over a vision prompt, where each chunk is a slice of
     the merged patch + token sequence. An SSD layer takes the chunk scan
     for more than one position and the single-step recurrence for one,
-    as the reference. Returns (logits (B,T,V), caches)."""
+    as the reference. An enc-dec decoder layer cross-attends to its
+    cache's memory rows (seeded by ``seed_cross``): on the card through
+    flash non-causal at ``kv_len`` = ``mem_len``. Returns
+    (logits (B,T,V), caches)."""
     x = embeds.to(cfg.cdtype)
     win = _window(cfg)
     for gi, pi, li, kind, g, p in _layers(params, cfg):
@@ -375,7 +509,14 @@ def decode_step_embeds(params, cfg: ModelConfig, embeds: torch.Tensor,
         else:
             out, _ = L.attention_decode(p["attn"], cfg, h, positions, cache,
                                         window=win, q_offset=q_offset)
-        x = _mlp_residual(p, cfg, g.moe, x + out)
+        x = x + out
+        if g.cross:
+            if L.kernel_route(x) and mem_len is None:
+                raise ValueError("the flash route of the cross-attention "
+                                 "needs the host's mem_len")
+            x = _cross(p, cfg, x, (cache.cross_k, cache.cross_v),
+                       cache.mem_len, kv_len=mem_len)
+        x = _mlp_residual(p, cfg, g.moe, x)
     return lm_logits(params, cfg, x), caches
 
 
@@ -385,7 +526,10 @@ def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
                       caches, specs: Dict[str, PC.KVPageSpec],
                       max_len: Optional[int] = None):
     """One continuous-batching decode step against paged pools (appended
-    in place) and per-slot recurrent or SSD states (stepped in place). tokens:
+    in place) and per-slot recurrent or SSD states (stepped in place). An
+    enc-dec decoder layer cross-attends to each slot's memory rows under
+    its own length, in plain tensor ops as the reference (profiler span
+    ``encdec.cross_decode``). tokens:
     (B,1); seq_lens: (B,) int32 lengths BEFORE this
     step (== rope position); block_table: (B, max_blocks) int32;
     write_blocks/slots: (B,). ``max_len`` (host int, the longest length
@@ -412,5 +556,10 @@ def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
             out, _ = L.attention_decode_paged(
                 p["attn"], cfg, h, positions, pools, block_table, seq_lens,
                 write_blocks, write_slots, specs["kv"], window=win)
-        x = _mlp_residual(p, cfg, g.moe, x + out)
+        x = x + out
+        if g.cross:
+            with torch.profiler.record_function("encdec.cross_decode"):
+                x = _cross(p, cfg, x, (pools["cross_k"], pools["cross_v"]),
+                           pools["mem_len"])
+        x = _mlp_residual(p, cfg, g.moe, x)
     return lm_logits(params, cfg, x), caches

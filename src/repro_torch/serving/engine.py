@@ -1,7 +1,7 @@
 """Model-instance engine: prefill, continuous-batching paged decode —
 PyTorch port of ``repro.serving.engine`` for the dense, sliding-window,
-MoE, MLA, hybrid RG-LRU and Mamba-2 SSD families and the vision
-frontend.
+MoE, MLA, hybrid RG-LRU, Mamba-2 SSD and encoder-decoder families and
+the vision frontend.
 
 One Engine == one "model instance" in the paper's sense (a P instance, a D
 instance, or an integrated instance). Vendor-specific VRAM management is
@@ -28,8 +28,13 @@ all: no pools on D, and its streams ship zero-length progress markers,
 then one package that declares the whole length with no entries; the SSD
 states ride the tail as a hybrid's do. A vision request's patch
 embeddings come before its prompt: the sequence, the positions and the
-KV cover both, and such a request never takes the prefix cache. Not
-ported yet: encoder prompts (ROADMAP queue 1).
+KV cover both, and such a request never takes the prefix cache. An
+encoder-decoder request carries audio frame embeddings: its stream runs
+the encoder on P once, as a preamble that cannot be resumed, seeds every
+decoder layer's cross-attention rows from the memory, and ships those
+rows in its tail (``(gi, pi, {"cross_k", "cross_v", "mem_len"})``, no
+states); D places them into the slot's rows (``place_cross``). The
+family has no prefix cache: a request with frames bypasses it, counted.
 """
 from __future__ import annotations
 
@@ -152,6 +157,16 @@ def state_rows(state, fn) -> Dict[str, torch.Tensor]:
     return {name: fn(t) for name, t in vars(state).items()}
 
 
+def cross_rows(cfg: ModelConfig, caches) -> List[Tuple]:
+    """(gi, pi, {"cross_k", "cross_v", "mem_len"}) of every enc-dec decoder
+    position of one sequence's dense ``caches`` (views, batch row 0);
+    empty for the other families."""
+    return [(gi, pi, {"cross_k": c.cross_k[:, 0], "cross_v": c.cross_v[:, 0],
+                      "mem_len": c.mem_len[:, 0]})
+            for gi, g in enumerate(M.block_groups(cfg)) if g.cross
+            for pi, c in enumerate(caches[gi])]
+
+
 def kv_entries_with_start(package_kv: List[Tuple]) -> List[Tuple]:
     """A prefill package's KV entries in chronological order with an
     absolute ``start``: the canonical pre-wire form that both the
@@ -217,8 +232,13 @@ class PrefillStream:
     ``length`` = ``seq_len``). A vision request's stream runs the merged
     patch + token sequence: its chunks are slices of it.
 
-    ``first_token`` and ``tail_package()`` (the recurrent or SSD states)
-    are known once the final chunk has been produced.
+    An enc-dec request's stream first runs the encoder over its frames
+    (the preamble) and seeds every decoder layer's memory rows; each chunk
+    then cross-attends to them.
+
+    ``first_token`` and ``tail_package()`` (the recurrent or SSD states,
+    or an enc-dec model's memory rows) are known once the final chunk has
+    been produced.
 
     With a host prefix store on the engine, an incremental stream replays
     the longest cached prefix of its prompt as chunks with no compute,
@@ -289,6 +309,7 @@ class PrefillStream:
         self._entries: Optional[List[Tuple]] = None   # monolithic mode
         self._caches = None                           # incremental mode
         self._emb: Optional[torch.Tensor] = None      # vision: merged embeds
+        self._mem: Optional[int] = None               # enc-dec: memory rows
         # P-side shared-prefix reuse: replay cached chunks instead of
         # recomputing them, and seed the dense cache so compute resumes
         # at the divergence point. The final token is always computed
@@ -316,9 +337,11 @@ class PrefillStream:
         return self._next_start >= self.seq_len and self.chunks_emitted > 0
 
     def tail_package(self) -> Dict[str, Any]:
-        """The states that ride with finalize: ``{"states": [("state", gi,
-        pi, {"h", "conv"})], "cross": []}`` (RG-LRU or SSD states), empty
-        for stateless families."""
+        """What rides with finalize: ``{"states": [("state", gi, pi, {"h",
+        "conv"})], "cross": [(gi, pi, {"cross_k", "cross_v",
+        "mem_len"})]}`` — RG-LRU or SSD states, an enc-dec model's memory
+        rows of one sequence (every decoder layer, (count, mem_len, KV,
+        hd) and (count,)); both empty for the other families."""
         assert self.done, "tail_package before stream exhausted"
         return self._tail if self._tail is not None \
             else {"states": [], "cross": []}
@@ -410,7 +433,7 @@ class PrefillStream:
             self.first_token = int(eng._sample(
                 logits[:, -1].float().cpu().numpy(), req)[0])
             self._tail = {"states": self._states(lambda t: t[:, 0]),
-                          "cross": []}
+                          "cross": cross_rows(eng.cfg, self._caches)}
         dt = time.perf_counter() - t0
         eng._note_prefill_compute(dt)
         if not self.caps.kv_on_wire:
@@ -433,13 +456,23 @@ class PrefillStream:
     def _setup_incremental(self) -> None:
         """The dense cache of an incremental stream: capacity rounded to a
         chunk multiple, full_capacity (slot == position, even for a
-        sliding layer); entries past seq_len stay pos=-1 and masked. A
-        vision request's patch and token embeddings are merged once
-        here. Then the replayed prefix or a resume snapshot, if any."""
+        sliding layer); entries past seq_len stay pos=-1 and masked. An
+        enc-dec request's encoder runs here, once (the preamble), and its
+        memory seeds every decoder layer's cross rows. A vision request's
+        patch and token embeddings are merged once here. Then the
+        replayed prefix or a resume snapshot, if any."""
         eng, req = self.engine, self.req
         cap = -(-self.seq_len // self.chunk_tokens) * self.chunk_tokens
         self._caches = M.init_caches(eng.cfg, 1, cap, eng.cfg.cdtype,
-                                     full_capacity=True, device=eng.device)
+                                     full_capacity=True, device=eng.device,
+                                     mem_len=eng.mem_len)
+        if req.frames is not None:
+            memory = M.encode(eng.params, eng.cfg, torch.as_tensor(
+                np.asarray(req.frames), device=eng.device)[None])
+            self._mem = memory.shape[1]
+            M.seed_cross(self._caches,
+                         M.encoder_cross_kv(eng.params, eng.cfg, memory),
+                         self._mem)
         if req.patches is not None:
             self._emb = M.merged_embeds(
                 eng.params, eng.cfg,
@@ -467,7 +500,7 @@ class PrefillStream:
                                  device=eng.device)[None]
         logits, self._caches = M.decode_step(eng.params, eng.cfg, tokens,
                                              positions, self._caches,
-                                             q_offset=c0)
+                                             q_offset=c0, mem_len=self._mem)
         return logits
 
     def _states(self, fn) -> List[Tuple]:
@@ -562,7 +595,8 @@ class Engine:
     def __init__(self, name: str, cfg: ModelConfig, params,
                  vendor: VendorProfile, *, num_blocks: int = 256,
                  max_batch: int = 8, max_seq_len: int = 512,
-                 role: str = "both", prefix_cache: bool = False,
+                 mem_len: int = 0, role: str = "both",
+                 prefix_cache: bool = False,
                  device: _dev.DeviceLike = None, sample_seed: int = 0):
         _dev.check_family(cfg)
         self.device = _dev.resolve(device)
@@ -576,6 +610,10 @@ class Engine:
         self.role = role
         self.max_batch = max_batch
         self.max_seq_len = max_seq_len
+        # encoder memory rows a sequence may hold (enc-dec): the cross rows
+        # of D's slots and of P's caches
+        self.mem_len = mem_len or (cfg.max_source_len if cfg.is_enc_dec
+                                   else 0)
         self.specs = page_specs_for(cfg, vendor.block_size, vendor.layout,
                                     vendor.kv_dtype)
         self.block_size = vendor.block_size
@@ -584,7 +622,8 @@ class Engine:
         self.allocator.allocate("__scratch__", 1)   # trash page for idle slots
         self._scratch_block = self.allocator.blocks_of("__scratch__")[0]
         self.caches = M.init_paged_caches(cfg, self.specs, num_blocks,
-                                          batch=max_batch, device=self.device)
+                                          batch=max_batch, device=self.device,
+                                          mem_len=self.mem_len)
         # slot bookkeeping (host side)
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         # a slot is reserved when slot_req is set; ready once its KV has
@@ -637,7 +676,9 @@ class Engine:
         """Run prefill for one request; returns the handoff package:
         {"first_token", "kv": per-group list, "states", "cross", "seq_len"}.
         A vision request's patches come before its tokens, and
-        ``seq_len`` counts both. The KV and the layer states stay on this
+        ``seq_len`` counts both; an enc-dec request's frames go through
+        the encoder, and ``cross`` holds every decoder layer's memory
+        rows. The KV, the layer states and the memory rows stay on this
         engine's device in canonical per-layer form; the transfer module
         converts them to the wire."""
         if self.failed:
@@ -650,7 +691,11 @@ class Engine:
         if req.patches is not None:
             inputs["patches"] = torch.as_tensor(
                 np.asarray(req.patches), device=self.device)[None]
-        caches = M.init_caches(cfg, 1, plen, cfg.cdtype, device=self.device)
+        if req.frames is not None:
+            inputs["frames"] = torch.as_tensor(
+                np.asarray(req.frames), device=self.device)[None]
+        caches = M.init_caches(cfg, 1, plen, cfg.cdtype, device=self.device,
+                               mem_len=self.mem_len)
         last_logits, caches = M.prefill(self.params, cfg, inputs, caches)
         first_token = self._sample(last_logits.float().cpu().numpy(), req)[0]
         kv, states = [], []
@@ -675,7 +720,8 @@ class Engine:
         self.stats.prefill_tokens += plen
         self.stats.prefill_chunks += 1
         self._note_prefill_compute(time.perf_counter() - t0)
-        return {"kv": kv, "states": states, "cross": [],
+        return {"kv": kv, "states": states,
+                "cross": cross_rows(cfg, caches),
                 "first_token": int(first_token), "seq_len": plen}
 
     def _note_prefill_compute(self, dt: float) -> None:
@@ -722,11 +768,12 @@ class Engine:
     def _prefix_eligible(self, req: Request) -> bool:
         """Prefix reuse needs every cached row to stay attendable across
         the whole decode (caps.prefix_cache) and a pure-token prompt, as
-        the reference's gate. The only family that takes patches (vlm)
-        has no prefix cache in its capability row, so that row decides;
-        the patches test guards the gate, it changes no outcome."""
-        return self.prefill_capabilities().prefix_cache \
-            and req.patches is None
+        the reference's gate. The only families that take patches (vlm)
+        or frames (enc-dec) have no prefix cache in their capability row,
+        so that row decides; the patches and frames tests guard the gate,
+        they change no outcome."""
+        return (self.prefill_capabilities().prefix_cache
+                and req.patches is None and req.frames is None)
 
     def reserve_sequence(self, req: Request, seq_len: int, *,
                          use_prefix_cache: bool = False
@@ -805,10 +852,12 @@ class Engine:
                             self.block_size)
 
     def paged_pools(self) -> List[Dict[str, torch.Tensor]]:
-        """The {name: pool} dicts of every attention position (recurrent
-        and SSD positions hold per-slot states, not pages; an SSM model
-        has none)."""
-        return [c for g in self.caches for c in g if isinstance(c, dict)]
+        """The {name: pool} dicts of every attention position, pools only
+        (recurrent and SSD positions hold per-slot states, not pages; an
+        SSM model has none; an enc-dec position's per-slot memory rows
+        are not pages either)."""
+        return [{n: t for n, t in c.items() if n.endswith("_pool")}
+                for g in self.caches for c in g if isinstance(c, dict)]
 
     def place_states(self, slot: int, states: List[Tuple]) -> None:
         """Write one sequence's recurrent or SSD state rows (``("state", gi,
@@ -818,6 +867,18 @@ class Engine:
             state = self.caches[gi][pi]
             L.state_put(type(state)(**{name: t[:, slot] for name, t
                                        in vars(state).items()}), rows)
+
+    def place_cross(self, slot: int, cross: List[Tuple]) -> None:
+        """Write one sequence's memory rows (``(gi, pi, {"cross_k",
+        "cross_v", "mem_len"})``, any device) into decode slot ``slot`` of
+        every decoder layer, in place, cast to the rows' dtypes (the
+        reference's placement in ``materialize``)."""
+        for gi, pi, rows in cross:
+            c = self.caches[gi][pi]
+            for name in ("cross_k", "cross_v", "mem_len"):
+                dst = c[name][:, slot]
+                dst.copy_(torch.as_tensor(rows[name]).to(dst.device,
+                                                         dst.dtype))
 
     def activate_sequence(self, slot: int, first_token: int,
                           seq_len: int) -> None:

@@ -6,8 +6,8 @@ the re-page half of ``StreamedHandoff`` folded in: adopt each announced
 shared-memory segment into this process's ``SharedMemoryConnector``,
 ``issue_read`` it, re-page completed reads into the paged pools (RMW so
 chunk boundaries may straddle blocks), and — once the stream finalizes —
-adopt the stream's tail segment (a hybrid's recurrent states) and place
-it into the slot, then activate the slot and join continuous batching. Decode steps interleave
+adopt the stream's tail segment (recurrent or SSD states, an enc-dec
+model's memory rows) and place it into the slot, then activate the slot and join continuous batching. Decode steps interleave
 with re-paging: a request already decoding never waits on another
 request's chunks.
 
@@ -176,7 +176,7 @@ class DWorker:
 
     def _finalize(self, st: _DStream) -> None:
         fin = st.finalize
-        if fin.tail is not None:        # recurrent states: adopt, place
+        if fin.tail is not None:        # states, memory rows: adopt, place
             t0 = time.monotonic()
             tkey = fin.tail["key"]
             try:

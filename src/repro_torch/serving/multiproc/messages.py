@@ -65,6 +65,7 @@ class EngineSpec:
     max_seq_len: int = 512
     role: str = "both"
     prefix_cache: bool = False
+    mem_len: int = 0                # encoder memory positions (enc-dec)
     # where the engine runs: None is the card (cuda), "cpu" the plain path
     device: Optional[str] = None
     # a torch.save'd parameter tree to load instead of drawing params from
@@ -86,8 +87,9 @@ class EngineSpec:
                                    device=dev)
         return Engine(self.name, self.cfg, params, self.vendor,
                       num_blocks=self.num_blocks, max_batch=self.max_batch,
-                      max_seq_len=self.max_seq_len, role=self.role,
-                      prefix_cache=self.prefix_cache, device=dev)
+                      max_seq_len=self.max_seq_len, mem_len=self.mem_len,
+                      role=self.role, prefix_cache=self.prefix_cache,
+                      device=dev)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -121,7 +121,7 @@ class PWorker:
 
     def _run_flight(self, req, wire_skip: int = 0) -> None:
         """Stream one request's prefill: compute chunk → encode → stage →
-        announce, then the tail (recurrent or SSD states, if any) and
+        announce, then the tail (states or memory rows, if any) and
         PrefillDone. ``wire_skip`` leading
         tokens (already resident on the stream's D via its prefix store)
         are computed/replayed but never encoded or staged."""

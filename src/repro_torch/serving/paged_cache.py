@@ -9,7 +9,9 @@ PyTorch port of ``repro.serving.paged_cache``. Different vendors
 
 Where the JAX functions return a new pool, the functions here update
 ``pool`` in place (and return it, so call sites read the same): a pool
-holds gigabytes at serving widths and is never copied.
+holds gigabytes at serving widths and is never copied. The canonical
+(wire) form of one sequence's KV is (S, kv_heads, head_dim), flattened
+to 1-D by ``core.compat.layout``.
 """
 from __future__ import annotations
 
@@ -77,23 +79,44 @@ def pages_to_canonical(spec: KVPageSpec, pages: torch.Tensor) -> torch.Tensor:
     return pages.permute((0,) + tuple(i + 1 for i in inv))
 
 
+def init_pool(spec: KVPageSpec, num_blocks: int,
+              device=None) -> torch.Tensor:
+    """A zeroed pool of ``num_blocks`` pages in the spec's layout and dtype."""
+    return torch.zeros(spec.pool_shape(num_blocks), dtype=spec.tdtype,
+                       device=device)
+
+
 # --------------------------------------------------------------------------- #
 # torch pool ops (plain implementations; CUDA kernels in repro_torch.kernels)
 # --------------------------------------------------------------------------- #
+def gather_sequence(spec: KVPageSpec, pool: torch.Tensor,
+                    block_ids: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """Gather one sequence from a pool (N, *page) → new canonical
+    (seq_len, kv, hd) rows: the gather kernel on the card, its plain
+    version on the CPU (``ops.gather_pages`` over a one-layer view).
+    block_ids: (nb,) int32; seq_len on the host."""
+    from repro_torch.kernels import ops
+    pages = ops.gather_pages(spec, pool[None], block_ids.to(torch.int32))[0]
+    return pages.reshape(-1, spec.kv_heads, spec.head_dim)[:seq_len]
+
+
 def scatter_sequence(spec: KVPageSpec, pool: torch.Tensor,
                      block_ids: torch.Tensor,
                      kv_canon: torch.Tensor) -> torch.Tensor:
-    """Write canonical (S, kv, hd) into pool pages at ``block_ids``, in
-    place. S is zero-padded up to a whole number of blocks."""
+    """Write canonical (S, kv, hd) into pool (N, *page) pages at
+    ``block_ids``, in place: the scatter kernel on the card, its plain
+    version on the CPU (``ops.scatter_pages`` over a one-layer view). S is
+    zero-padded up to a whole number of blocks."""
+    from repro_torch.kernels import ops
     s = kv_canon.shape[0]
     nb = block_ids.shape[0]
-    pad = nb * spec.block_size - s
-    assert pad >= 0, (s, nb, spec.block_size)
-    canon = torch.zeros((nb * spec.block_size, spec.kv_heads, spec.head_dim),
-                        dtype=pool.dtype, device=pool.device)
-    canon[:s] = kv_canon.to(pool.dtype)
-    canon = canon.reshape(nb, spec.block_size, spec.kv_heads, spec.head_dim)
-    pool[block_ids.long()] = pages_from_canonical(spec, canon)
+    bs = spec.block_size
+    pad = nb * bs - s
+    assert pad >= 0, (s, nb, bs)
+    rows = torch.nn.functional.pad(kv_canon.to(pool.dtype),
+                                   (0, 0, 0, 0, 0, pad))
+    ops.scatter_pages(spec, pool[None], block_ids.to(torch.int32),
+                      rows.reshape(1, nb, bs, spec.kv_heads, spec.head_dim))
     return pool
 
 

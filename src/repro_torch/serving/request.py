@@ -1,8 +1,8 @@
 """Request lifecycle (paper Fig. 2 workflow) — port of
 ``repro.serving.request``. A prompt is token ids, optionally preceded by
-a vision frontend's patch embeddings (the frontend is a stub, as in the
-reference: the request carries them precomputed). Audio frames wait for
-the encoder-decoder family."""
+a vision frontend's patch embeddings, or beside an audio frontend's frame
+embeddings that an encoder-decoder model's encoder reads (the frontends
+are stubs, as in the reference: the request carries them precomputed)."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,8 +36,11 @@ class Request:
     arrival_time: Optional[float] = None
     # sampling
     temperature: float = 0.0                # 0 → greedy
-    # multimodal (STUB frontend)
+    # multimodal (STUB frontends)
     patches: Optional[np.ndarray] = None    # (P, d) vision patch embeddings
+    # (F, d) audio frame embeddings, float32: the encoder's input. They
+    # occupy no self-attention KV, so no length here counts them
+    frames: Optional[np.ndarray] = None
     # lifecycle
     state: State = State.QUEUED
     output_tokens: List[int] = dataclasses.field(default_factory=list)

@@ -104,6 +104,33 @@ def test_flash_kernel_tiles(cuda, dtype, b, h, kv, sq, cap, d, q_offset,
                                want.float().cpu().numpy(), atol=ATOL[dtype])
 
 
+# (b, h, kv, sq, cap, kv_len), non-causal at head dim 64 (the bf16 kernel
+# pads Q/K and V/O to 128 columns): Whisper's encoder (q = k, 1500 keys)
+# and P's cross-attention (a 64-row chunk over 1500 memory rows in a
+# 1536-row cache), then kv_len below the cache and not a multiple of 128
+CROSS_CASES = [(1, 20, 20, 1500, 1500, 1500), (1, 20, 20, 64, 1536, 1500),
+               (1, 20, 20, 37, 1500, 1300), (2, 4, 4, 130, 400, 333),
+               (1, 4, 2, 1, 200, 77)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,sq,cap,kv_len", CROSS_CASES)
+def test_flash_kernel_non_causal_head_dim_64(cuda, dtype, b, h, kv, sq, cap,
+                                             kv_len):
+    """Non-causal flash over the first ``kv_len`` rows of a (B, cap, KV,
+    64) cache passed transposed, as the encoder and the cross-attention
+    pass them: every query row sees exactly those keys."""
+    rng = np.random.default_rng(sq + kv_len)
+    q = _rand(rng, (b, sq, h, 64), dtype, cuda).transpose(1, 2)
+    k = _rand(rng, (b, cap, kv, 64), dtype, cuda).transpose(1, 2)
+    v = _rand(rng, (b, cap, kv, 64), dtype, cuda).transpose(1, 2)
+    got = ops.flash_attention(q, k, v, causal=False, kv_len=kv_len)
+    want = ref.flash_attention_ref(q, k, v, causal=False, kv_len=kv_len)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=ATOL[dtype])
+
+
 @pytest.mark.parametrize("what", ["pointer", "stride", "head_dim"])
 def test_flash_kernel_refuses_what_tma_cannot_take(cuda, what):
     """bf16 goes through TMA: a base pointer or a stride that is not 16-byte
@@ -977,3 +1004,122 @@ def test_hybrid_serving_on_card_matches_cpu(cuda, chunk, wire):
     launched = {k for k, n in counts.items() if n > 0}
     assert launched == {"flash_attention", "paged_attention",
                         "scatter_pages_overlay"}, counts
+
+
+def _family_serving(cuda, cfg, prompts, chunk, wire, p_tp=2, mem_len=0,
+                    extra=None):
+    """A tiny float32 family disaggregated on the card (kernels) and on
+    the CPU (plain versions) behind the scheduler, P (8, nhbd, ``p_tp``)
+    and D (4, nhdb): the greedy tokens must be identical. ``extra(req,
+    i)`` adds a request's patches or frames. Returns the kernels the card
+    run launched."""
+    params = TM.init_params(cfg, seed=0, device=cuda)
+
+    def serve(dev, p):
+        kw = dict(num_blocks=64, max_batch=4, max_seq_len=64,
+                  mem_len=mem_len, device=dev)
+        pe = Engine("P0", cfg, p, VendorProfile("b", block_size=8,
+                                                 layout="nhbd", tp=p_tp),
+                    role="prefill", **kw)
+        de = Engine("D0", cfg, p, VendorProfile("a", block_size=4,
+                                                 layout="nhdb", tp=1),
+                    role="decode", **kw)
+        sched = GlobalScheduler(DisaggPipeline(TransferEngine(),
+                                               WireFormat(*wire)),
+                                prefill_chunk=chunk, device=dev)
+        sched.add_instance(pe)
+        sched.add_instance(de)
+        reqs = [Request(f"r{i}", pr, 6) for i, pr in enumerate(prompts)]
+        for i, r in enumerate(reqs):
+            if extra is not None:
+                extra(r, i)
+        Server(sched).serve(reqs)
+        return [r.output_tokens for r in reqs]
+
+    ops.reset_launch_counts()
+    got = serve(cuda, params)
+    counts = ops.launch_counts()
+    want = serve(torch.device("cpu"), _to_cpu(params))
+    assert got == want and all(len(t) == 6 for t in got)
+    return {k for k, n in counts.items() if n > 0}
+
+
+SSM_TINY = dict(name="ssm-t", family="ssm", num_layers=3, d_model=64,
+                num_heads=8, num_kv_heads=0, head_dim=16, d_ff=0,
+                vocab_size=256, attention_kind="none",
+                ssm=dict(d_state=16, head_dim=16, expand=2, d_conv=4,
+                         chunk_size=4),
+                param_dtype="float32", compute_dtype="float32")
+
+
+@pytest.mark.parametrize("chunk,wire", [(None, ("raw", "float32")),
+                                        (7, ("raw", "bfloat16")),
+                                        (4, ("int8", "bfloat16"))])
+def test_ssm_serving_on_card_matches_cpu(cuda, chunk, wire):
+    """The Mamba-2 SSD family (tiny: 3 SSD layers, 8 heads of 16, d_state
+    16, chunk 4, float32) disaggregated on the card against the CPU: the
+    states carried across chunks and shipped as the tail, no KV on the
+    wire, greedy tokens identical; no kernel launches."""
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (11, 23, 30)]
+    assert _family_serving(cuda, config_from_dict(SSM_TINY), prompts, chunk,
+                           wire, p_tp=1) == set()
+
+
+VLM_TINY = dict(name="vlm-t", family="vlm", num_layers=3, d_model=64,
+                num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
+                vocab_size=256, frontend=dict(kind="vision", num_patches=4),
+                param_dtype="float32", compute_dtype="float32")
+
+
+@pytest.mark.parametrize("chunk,wire", [(None, ("raw", "float32")),
+                                        (6, ("raw", "bfloat16")),
+                                        (3, ("int8", "bfloat16"))])
+def test_vlm_serving_on_card_matches_cpu(cuda, chunk, wire):
+    """The vision frontend (tiny: 4 patches before each prompt, 4 heads on
+    2 KV heads, float32) disaggregated on the card against the CPU: P's
+    chunks slice the merged sequence and one of them spans the patch/text
+    boundary (6: positions 0-5; 3: positions 3-5), greedy tokens
+    identical; exactly flash, paged and the overlay launch."""
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (9, 14, 21)]
+    patches = [rng.standard_normal((4, 64)).astype(np.float32)
+               for _ in prompts]
+
+    def extra(req, i):
+        req.patches = patches[i]
+
+    assert _family_serving(cuda, config_from_dict(VLM_TINY), prompts, chunk,
+                           wire, extra=extra) == {
+        "flash_attention", "paged_attention", "scatter_pages_overlay"}
+
+
+ENCDEC_TINY = dict(name="encdec-t", family="audio", num_layers=3,
+                   encoder_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
+                   head_dim=16, d_ff=128, vocab_size=256,
+                   frontend=dict(kind="audio"),
+                   param_dtype="float32", compute_dtype="float32")
+
+
+@pytest.mark.parametrize("chunk,wire", [(None, ("raw", "float32")),
+                                        (4, ("raw", "bfloat16")),
+                                        (7, ("int8", "bfloat16"))])
+def test_encdec_serving_on_card_matches_cpu(cuda, chunk, wire):
+    """The encoder-decoder family (tiny: 2 encoder + 3 decoder layers, 10
+    frames a request in 12 memory rows, float32) disaggregated on the
+    card against the CPU: the encoder through flash non-causal, each
+    chunk's cross-attention through flash at kv_len 10, the memory rows
+    shipped as the tail and D's per-slot cross-attention in plain ops;
+    greedy tokens identical; exactly flash, paged and the overlay
+    launch."""
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (9, 14, 21)]
+    frames = [rng.standard_normal((10, 64)).astype(np.float32)
+              for _ in prompts]
+
+    def extra(req, i):
+        req.frames = frames[i]
+
+    assert _family_serving(cuda, config_from_dict(ENCDEC_TINY), prompts,
+                           chunk, wire, mem_len=12, extra=extra) == {
+        "flash_attention", "paged_attention", "scatter_pages_overlay"}

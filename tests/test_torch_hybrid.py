@@ -690,8 +690,8 @@ def test_multiproc_pair_ships_the_states_tail(tmp_path):
 # --------------------------------------------------------------------- #
 def test_kernel_shape_rules_take_recurrentgemma():
     """Flash takes dk = dv = 256 in both dtypes; paged takes 16 query heads x 256 on one KV head as two
-    blocks of 8 heads; the family check admits the hybrid, SSM and VLM
-    and still refuses enc-dec."""
+    blocks of 8 heads; the family check admits the hybrid, SSM, VLM and
+    enc-dec families, and enc-dec builds its params on the CPU."""
     from repro_torch.device import check_family
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.paged_attention import launch_plan
@@ -706,6 +706,6 @@ def test_kernel_shape_rules_take_recurrentgemma():
     check_family(config_from_dict(dataclasses.asdict(TINY_FAMILIES[NAME])))
     for fam in ("ssm", "vlm"):
         check_family(config_from_dict(dataclasses.asdict(TINY_FAMILIES[fam])))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        check_family(config_from_dict(
-            dataclasses.asdict(TINY_FAMILIES["encdec"])))
+    encdec = config_from_dict(dataclasses.asdict(TINY_FAMILIES["encdec"]))
+    check_family(encdec)
+    assert "enc_groups" in TM.init_params(encdec, device="cpu")

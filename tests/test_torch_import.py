@@ -143,15 +143,18 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
 
 def test_other_families_raise_not_implemented():
     """Sliding window, MoE, MLA, the hybrid RG-LRU family, the Mamba-2 SSD
-    family and the vision frontend are ported (ssm and vlm build their
-    params); enc-dec is not, nor a "moe" family with no experts, nor MLA
-    without its sub-config, nor a recurrent pattern outside the hybrid
-    family, nor a vision frontend outside the vlm family."""
+    family, the vision frontend and the encoder-decoder family are ported
+    (ssm, vlm and enc-dec build their params); a "moe" family with no
+    experts is not, nor MLA without its sub-config, nor a recurrent
+    pattern outside the hybrid family, nor a vision frontend outside the
+    vlm family, nor an encoder without the audio frontend."""
     for kw in (dict(family="ssm", attention_kind="none", num_kv_heads=0,
                     d_ff=0, ssm=dict(d_state=16, head_dim=16, expand=2,
                                      d_conv=4, chunk_size=4)),
                dict(family="vlm", frontend=dict(kind="vision",
-                                                num_patches=4))):
+                                                num_patches=4)),
+               dict(family="audio", encoder_layers=2,
+                    frontend=dict(kind="audio"))):
         params = TM.init_params(config_from_dict(dict(TINY, **kw)),
                                 device="cpu")
         assert params["embed"].device.type == "cpu"
@@ -161,8 +164,7 @@ def test_other_families_raise_not_implemented():
                     sliding_window=8,
                     recurrent=dict(lru_width=64, d_conv=4,
                                    block_pattern=("rglru", "rglru", "attn"))),
-               dict(family="audio", encoder_layers=2,
-                    frontend=dict(kind="audio")),
+               dict(family="audio", encoder_layers=2),
                dict(family="dense", frontend=dict(kind="vision",
                                                   num_patches=4))):
         cfg = config_from_dict(dict(TINY, **kw))

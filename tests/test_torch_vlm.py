@@ -417,3 +417,32 @@ def test_no_prefix_hit_for_a_request_with_patches():
     assert d.stats.resume_unsupported == jd.stats.resume_unsupported == 3
     assert p.stats.resume_unsupported == jp_.stats.resume_unsupported == 3
     assert len(d.prefix_store) == 0
+
+
+def test_multiproc_pair_serves_patches(tmp_path):
+    """Tiny VLM through two spawned CPU worker processes (chunks of 6
+    positions over the merged patch + token sequences, the first spanning
+    the boundary, over shm): ``Request.patches`` reaches P across the
+    process boundary, the tokens are the reference's single-process
+    scheduler's, and every segment the run announced is unlinked."""
+    import os
+    from repro_torch.serving.multiproc import EngineSpec, serve_two_process
+    jcfg, tcfg, jp, tp = _params()
+    path = tmp_path / "vlm.pt"
+    torch.save(tp, path)
+    common = dict(cfg=tcfg, params_seed=1, device="cpu",
+                  params_path=str(path), **ENGINE)
+    reqs = [_req(True, f"q{i}", n, i) for i, n in enumerate(PLENS)]
+    tokens, rt = serve_two_process(
+        EngineSpec(name="P0", vendor=VendorProfile("B", **P_VENDOR),
+                   role="prefill", **common),
+        EngineSpec(name="D0", vendor=VendorProfile("A", **D_VENDOR),
+                   role="decode", **common),
+        reqs, prefill_chunk=6, max_wall_s=300.0)
+    assert rt.stats.finished == len(reqs)
+    assert tokens == _serve(6, torch_side=False)[0] == _ref_tokens()
+    chunks = sum(-(-(n + NP) // 6) for n in PLENS)
+    assert rt.stats.chunks_streamed == chunks
+    assert len(rt.segments_seen) == chunks
+    assert [n for n in rt.segments_seen
+            if os.path.exists(f"/dev/shm/{n}")] == []
