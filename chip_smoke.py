@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, then runs twelve phases, each printing JSON lines:
+nvcc, then runs thirteen phases, each printing JSON lines:
 
   0. card: name and power limit (``nvidia-smi``), kernel build time, and
      the count of HGMMA (wgmma), UTMALDG (TMA load), SYNCS (mbarrier),
@@ -163,15 +163,52 @@ nvcc, then runs twelve phases, each printing JSON lines:
      the byte; every request must bypass both prefix caches (counted, no
      hit); the last-token and float32 first-token checks, beside the
      frames, hold. Phase 1 adds flash, paged, the overlay and the layout
-     module's ``convert`` at this model's shapes (``phase1_encdec``).
+     module's ``convert`` at this model's shapes (``phase1_encdec``);
+ 12. the planner, the open-loop load harness and the live autoscaler:
+     the port's ``plan_deployment`` for llama2-7b under 1 request/s of
+     256 + 32 tokens (TTFT SLO 2 s, TPOT 0.1 s) on the nominal
+     ``h100-sxm`` spec for both stages, made executable by
+     ``DeploymentPlan.to_cluster_spec`` with phase 3's vendors (P block
+     16 nhbd TP 2, D block 32 nbhd TP 1; D's pool for 8 x 1088 rows) and
+     launched by ``ClusterRuntime`` over shm: llama2-7b at full width and
+     all 32 layers, bf16, random weights from the seed, each worker in
+     its own process and CUDA context, a raw bf16 wire, 500-token chunks,
+     admission at 8 queued requests or a TTFT EMA over 2 s. After 3
+     untimed warmup requests, ``run_open_loop`` replays a bursty schedule
+     (1 request/s on average over 30 s, 4 request/s in bursts) of
+     ShareGPT-like lengths (prompts 32-1024, outputs 8-64) while a
+     ``PDAutoscaler`` over ``ClusterLoadSource``, its baseline the plan's
+     counts, ticks every 0.25 s and may grow one P and one D worker that
+     join the pool when their hello lands. On one card a grown worker
+     adds a CUDA context, not SMs: this shows the mechanism, not scaling.
+     Offered must equal admitted + shed; every admitted request must
+     finish; no failure, requeue, crash or stream failure; a shed request
+     holds no token and streamed no chunk; at least one grow, at least
+     one grown worker served, and a grown worker that reached its hello
+     served, unless no request that the router's order ranked it first
+     for went to its role while it was routable (from its hello to its
+     drain, or to the end if it was kept); exactly flash, paged and the
+     overlay launched in the open-loop run, summed over every worker
+     (grown ones too; the counts are zeroed in every worker after the
+     warmup); no segment left; then
+     the parent builds the weights (none are held while workers live)
+     and runs the last-token and float32 first-token checks on every
+     finished request. It prints the plan, the schedule's digest, the
+     counts, each action with its time, each grown worker's
+     action-to-hello seconds, TTFT and TPOT p50/p95/p99, goodput,
+     output tok/s, the plan beside the measurement and the tokens'
+     digest. Phase 1 adds flash, paged and the overlay at this phase's
+     shapes (``phase1_load``).
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
-processes report at shutdown). The kernels line gives each kernel's
-launches on every serving phase (phases 3-11, none on phase 9), and its
+processes report at shutdown, phase 12 those of every worker it
+started, zeroed after its warmup). The kernels line gives each kernel's
+launches on every serving phase (phases 3-12, none on phase 9), and its
 timing at phase 7's MLA shape (``"mla"``), phase 8's RecurrentGemma
-shape (``"rg"``), phase 10's InternVL2 shape (``"vlm"``) and phase 11's
-Whisper shape (``"encdec"``) where those phases run it.
+shape (``"rg"``), phase 10's InternVL2 shape (``"vlm"``), phase 11's
+Whisper shape (``"encdec"``) and phase 12's (``"load"``) where those
+phases run it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the script exits non-zero. Without a CUDA device, or without
@@ -180,6 +217,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -272,6 +310,26 @@ MODEL10, PHASE10_PATCHES = "internvl2-2b", 256
 MODEL11, PARITY11_LAYERS = "whisper-large-v3", 2
 PHASE11_PROMPTS, PHASE11_CHUNK = (16, 224), 64
 PHASE11_CROSS_BYTES = 245_760_000
+# phase 12: the planner, the open-loop load harness and the live P/D
+# autoscaler. llama2-7b at full width and depth from the port's plan for
+# this workload on the nominal h100-sxm spec (1P1D), launched through
+# ClusterRuntime with phase 3's vendors, D's pool sized for 8 x 1088 rows
+# (prompts <= 1024, outputs <= 64). Traffic: a two-state bursty process
+# averaging 1 request/s over 30 s (4 req/s in bursts a quarter of each
+# ~2 s period), ShareGPT-like lengths (prompt median ~245, output ~30)
+PHASE12_PLAN = dict(qps=1.0, input_len=256, output_len=32, slo_ttft_s=2.0,
+                    slo_tpot_s=0.1)
+PHASE12_RATE, PHASE12_DURATION_S, PHASE12_SEED = 1.0, 30.0, 7
+PHASE12_BURSTS = dict(burst_factor=4, duty=0.25, period_s=2.0)
+PHASE12_WORKLOAD = dict(vocab_size=32000, prompt_mu=5.5, prompt_sigma=0.6,
+                        prompt_min=32, prompt_max=1024, output_mu=3.4,
+                        output_sigma=0.4, output_min=8, output_max=64)
+PHASE12_WARMUP = dict(n=3, seed=8, max_new_tokens=2)
+PHASE12_MAX_BATCH, PHASE12_MAX_SEQ = 8, 1088
+PHASE12_ADMISSION = dict(max_queue_depth=8, slo_ttft_s=2.0, headroom=1.0)
+PHASE12_AUTOSCALER = dict(slo_ttft_s=2.0, slo_tpot_s=0.1, cooldown_ticks=8,
+                          max_p=2, max_d=2)
+PHASE12_TICK_S = 0.25
 
 
 def emit(obj) -> None:
@@ -627,16 +685,18 @@ def _paged_case(gen, dev, dtype, layout, b, h, kv, d, bs, lens, window,
 
 
 def _overlay_case(gen, dev, layout, pool_dt, canon_dt, layers, bs, kv, hd,
-                  front, seq_len, stream_rows, offset=0):
+                  front, seq_len, stream_rows, offset=0, n_blocks=None):
     """``stream_rows``: canon is the rows alone (the streamed re-page),
     else zero-padded whole pages (the monolithic one). ``offset``: canon
-    starts that many elements into each row of a wider buffer."""
+    starts that many elements into each row of a wider buffer.
+    ``n_blocks``: the pool's blocks (default: twice the pages written,
+    and 3)."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.serving.paged_cache import KVPageSpec
     spec = KVPageSpec(bs, layout, pool_dt, kv, hd)
     nb = -(-(front + seq_len) // bs)
-    n_blocks = 2 * nb + 3
+    n_blocks = n_blocks or 2 * nb + 3
     pool = _rand(gen, (layers,) + spec.pool_shape(n_blocks),
                  getattr(torch, pool_dt), dev)
     shape = (seq_len,) if stream_rows else (nb, bs)
@@ -1138,6 +1198,7 @@ def phase1(dev):
     rg = phase1_rg(gen, dev)
     vlm = phase1_vlm(gen, dev)
     encdec = phase1_encdec(gen, dev)
+    load = phase1_load(gen, dev)
     timings["scatter_pages_overlay"] = phase1_overlay(gen, dev)
     from repro_torch.configs import get_config
     timings.update(phase1_pages(gen, dev, get_config(MODEL)))
@@ -1151,6 +1212,8 @@ def phase1(dev):
         timings[name]["vlm"] = t
     for name, t in encdec.items():
         timings[name]["encdec"] = t
+    for name, t in load.items():
+        timings[name]["load"] = t
     return timings
 
 
@@ -1547,29 +1610,33 @@ def decode_rows(gen, dev, model, seqs, h, kv, d):
     return rows["nbhd"]
 
 
-def repage_rows(gen, dev, model, seqs, chunk, layers, kv, d):
+def repage_rows(gen, dev, model, seqs, chunk, layers, kv, d, n_blocks=None,
+                timed=None):
     """The overlay at every (front, rows) that the streamed ``chunk``-token
     chunks of sequences ``seqs`` have in D's nbhd pools (``layers``
-    layers, block 32, bf16), bit for bit against the plain version and
-    ``index_copy_``; the full chunk at front ``chunk % 32`` timed.
-    Returns (its row, the cases)."""
+    layers, block 32, bf16; ``n_blocks`` blocks, default a few more than
+    the pages written), bit for bit against the plain version and
+    ``index_copy_``; the (front, rows) case ``timed`` (default: the full
+    chunk at front ``chunk % 32``) timed. Returns (its row, the cases)."""
     from repro_torch.kernels import ops, ref
     bs = D_VENDOR["block_size"]
+    timed = timed or (chunk % bs, chunk)
     cases = sorted({(c0 % bs, min(chunk, n - c0)) for n in seqs
                     for c0 in range(0, n, chunk)})
     row = None
     for front, rows_n in cases:
         _, (spec, pool, pids, canon) = _overlay_case(
             gen, dev, "nbhd", "bfloat16", "bfloat16", layers, bs, kv, d,
-            front, rows_n, True)
+            front, rows_n, True, n_blocks=n_blocks)
         flat, rows, src = overlay_vs_index_copy(gen, spec, pool, pids, canon,
                                                 front, rows_n)
-        if (front, rows_n) == (chunk % bs, chunk):
+        if (front, rows_n) == timed:
             b_ms, b_by = bound(0.0, 2.0 * 2 * layers * rows_n * kv * d,
                                "bfloat16")
             row = dict(
                 shape=f"rows ({layers},{rows_n},{kv},{d}) into pool "
-                      f"({layers},N,{bs},{kv},{d}) nbhd bf16, front {front}",
+                      f"({layers},{pool.shape[1]},{bs},{kv},{d}) nbhd bf16, "
+                      f"front {front}",
                 max_abs_err=0.0, library_bit_identical=True,
                 **time_all(lambda: ops.scatter_pages_overlay(
                                spec, pool, pids, canon, front=front,
@@ -1583,8 +1650,8 @@ def repage_rows(gen, dev, model, seqs, chunk, layers, kv, d):
                                        "chunk", **row})
         del pool, canon, flat, src
     if row is None:
-        raise AssertionError(f"{model}: no full {chunk}-row chunk at front "
-                             f"{chunk % bs} among {cases}")
+        raise AssertionError(f"{model}: no {timed[1]}-row chunk at front "
+                             f"{timed[0]} among {cases}")
     return row, cases
 
 
@@ -1805,6 +1872,115 @@ def phase1_encdec(gen, dev):
         "paged": 4, "overlay": len(cases), "overlay_cases": cases,
         "layout_convert": f"{n} rows, {src.layout}/{src.block_size} -> "
                           f"{dst.layout}/{dst.block_size} bf16"}})
+    return out
+
+
+def phase1_load(gen, dev):
+    """The attention kernels and the overlay at phase 12's shapes
+    (llama2-7b: 32 heads of 128 on 32 KV heads; its warmup and open-loop
+    requests, prompts of 32-1024 tokens, streamed in 500-token chunks).
+    flash, with q, k and v sequence-major as the model passes them: every
+    (q_offset, rows, capacity) of those chunks in the stream's cache
+    (capacity rounded up to a chunk multiple), and the checks' monolithic
+    prefills of the longest request (its prompt, for the first token;
+    its prompt and output, for the last), each in bf16 against the
+    float32 plain version and the yardstick (SDPA under the causal mask)
+    and in float32 within 2e-5; the deepest full chunk timed. paged: D's
+    batch of 8 slots and 34-page table (1088 rows of block 32), nbhd,
+    with 1-8 slots active at their last decode step (an idle slot attends
+    to 1 row, as the engine passes it): the requests in arrival order,
+    eight at a time, and the k longest for k < 8; bf16 within the
+    main-path limits and float32 within 2e-5, the fullest batch timed.
+    overlay: every (front, rows) of those chunks into D's 273-block pools
+    (32 layers), bit-identical to the plain version and to
+    ``index_copy_``, the first full chunk timed. Returns flash's, paged's
+    and the overlay's timings, keyed by kernel name."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import loadgen
+    cfg = get_config(MODEL)
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    reqs = [it.request for it in phase12_warmup(loadgen)
+            + phase12_workload(loadgen)]
+    seqs = [r.prompt_len for r in reqs]
+    out = {}
+    chunks = sorted({(c0, min(PREFILL_CHUNK, n - c0),
+                      -(-n // PREFILL_CHUNK) * PREFILL_CHUNK)
+                     for n in seqs for c0 in range(0, n, PREFILL_CHUNK)})
+    deepest = max(c for c in chunks if c[1] == PREFILL_CHUNK)
+    for c0, sq, cap in chunks:
+        for dtype in ("float32", "bfloat16"):
+            err, (q, k, v), yard = _flash_case(gen, dev, dtype, 1, h, kv, sq,
+                                               cap, d, 0, c0, main=True,
+                                               seq_major=True)
+        if (c0, sq, cap) == deepest:
+            pairs = sq * c0 + sq * (sq + 1) // 2
+            b_ms, b_by = bound(4.0 * d * h * pairs,
+                               2.0 * (2 * sq * h * d + 2 * (c0 + sq) * kv * d),
+                               "bfloat16")
+            mask = flash_mask(sq, cap, c0, 0, dev)
+            out["flash_attention"] = row = dict(
+                shape=f"q(1,{h},{sq},{d}) kv(1,{kv},{cap},{d}) "
+                      f"q_offset={c0} bf16",
+                max_abs_err=err, yardstick=yard,
+                **time_all(lambda: ops.flash_attention(q, k, v, q_offset=c0),
+                           plain=lambda: ref.flash_attention_ref(
+                               q, k, v, q_offset=c0),
+                           library=lambda: F.scaled_dot_product_attention(
+                               q, k, v, attn_mask=mask)),
+                library="scaled_dot_product_attention, boolean mask",
+                bound_ms=b_ms, bound_by=b_by)
+            emit({"phase": 1, "extra": f"flash_attention, phase 12 chunk at "
+                                       f"{c0}", **row})
+            del mask
+        del q, k, v
+    # the checks' monolithic prefills of the longest request
+    r = max(reqs, key=lambda r: r.prompt_len)
+    monolithic = (r.prompt_len, r.prompt_len + r.max_new_tokens - 1)
+    for n in monolithic:
+        for dtype in ("float32", "bfloat16"):
+            _flash_case(gen, dev, dtype, 1, h, kv, n, n, d, 0, 0, main=True,
+                        seq_major=True)
+    # D's decode batches at their last step, in its 34-page table
+    bs, slots = D_VENDOR["block_size"], PHASE12_MAX_BATCH
+    width = -(-PHASE12_MAX_SEQ // bs)
+    last = [r.prompt_len + r.max_new_tokens - 1 for r in reqs]
+    active = [last[i:i + slots] for i in range(0, len(last), slots)]
+    active += [sorted(last)[-k:] for k in range(1, slots)]
+    batches = [a + [1] * (slots - len(a)) for a in active]
+    fullest = max((b for b, a in zip(batches, active) if len(a) == slots),
+                  key=sum)
+    for lens in batches:
+        _paged_case(gen, dev, "float32", "nbhd", slots, h, kv, d, bs, lens,
+                    0, main=True, width=width)
+        err, a = _paged_case(gen, dev, "bfloat16", "nbhd", slots, h, kv, d,
+                             bs, lens, 0, main=True, width=width)
+        if lens is fullest:
+            tokens = sum(lens)
+            p_ms, p_by = bound(4.0 * d * h * tokens, 2.0 * 2 * tokens * kv * d
+                               + 2.0 * 2 * slots * h * d, "bfloat16")
+            out["paged_attention"] = row = dict(
+                shape=f"q({slots},{h},{d}) pools nbhd bs{bs} bf16, table "
+                      f"{width} pages, seq_lens {lens}",
+                max_abs_err=err,
+                **time_all(lambda: ops.paged_attention(*a, layout="nbhd"),
+                           plain=lambda: ref.paged_attention_ref(
+                               *a, layout="nbhd")),
+                bound_ms=p_ms, bound_by=p_by)
+            emit({"phase": 1, "extra": "paged_attention, phase 12 decode",
+                  **row})
+        del a
+    d_blocks = slots * width + 1
+    out["scatter_pages_overlay"], cases = repage_rows(
+        gen, dev, "phase 12", seqs, PREFILL_CHUNK, cfg.num_layers, kv, d,
+        n_blocks=d_blocks, timed=(0, PREFILL_CHUNK))
+    emit({"phase": 1, "load_checks": {
+        "flash": 2 * (len(chunks) + len(monolithic)), "flash_chunks": chunks,
+        "flash_monolithic": monolithic, "paged": 2 * len(batches),
+        "paged_active": [len(a) for a in active], "paged_table": width,
+        "overlay": len(cases), "overlay_cases": cases,
+        "overlay_pool_blocks": d_blocks}})
     return out
 
 
@@ -3264,6 +3440,312 @@ def phase11(dev, around_serve=contextlib.nullcontext):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: the planner, the open-loop load harness and the live autoscaler
+# --------------------------------------------------------------------------- #
+def phase12_workload(loadgen):
+    """Phase 12's traffic from a ``loadgen`` package (the port's; the CPU
+    tests also pass the JAX package's, which must give the same)."""
+    offsets = loadgen.bursty_arrivals(PHASE12_RATE, PHASE12_DURATION_S,
+                                      PHASE12_SEED, **PHASE12_BURSTS)
+    return loadgen.build_workload(
+        offsets, loadgen.WorkloadConfig(**PHASE12_WORKLOAD),
+        seed=PHASE12_SEED)
+
+
+def phase12_warmup(loadgen):
+    """Phase 12's untimed warmup requests: the same mixture from another
+    seed, each cut to a few tokens, all due at once."""
+    warm = loadgen.build_workload([0.0] * PHASE12_WARMUP["n"],
+                                  loadgen.WorkloadConfig(**PHASE12_WORKLOAD),
+                                  seed=PHASE12_WARMUP["seed"],
+                                  id_prefix="warm")
+    for it in warm:
+        it.request.max_new_tokens = PHASE12_WARMUP["max_new_tokens"]
+    return warm
+
+
+def schedule_digest(workload) -> str:
+    """sha256 of a schedule: each item's offset, prompt bytes and
+    ``max_new_tokens``, in order."""
+    import numpy as np
+    h = hashlib.sha256()
+    for it in workload:
+        h.update(np.float64(it.offset_s).tobytes())
+        h.update(np.asarray(it.request.prompt, np.int32).tobytes())
+        h.update(np.int64(it.request.max_new_tokens).tobytes())
+    return h.hexdigest()[:16]
+
+
+class _Timeline:
+    """What phase 12 observes of a live run, between ``run_open_loop`` and
+    the runtime and autoscaler it drives: each autoscale action (with
+    the instance id it spawned), when each grown worker's hello landed,
+    when each drain came, and for each grown worker how many requests the
+    router gave another member of its role while the grown one was
+    routable, idle, and so ranked first by the router's own order. Stands in for
+    both: ``try_submit`` and ``step`` for the runtime, ``tick`` for the
+    autoscaler."""
+
+    def __init__(self, rt, autoscaler):
+        self.rt, self.autoscaler = rt, autoscaler
+        self.actions = []          # (action, monotonic time, iid or None)
+        self.hello_at = {}         # grown iid -> monotonic time of its hello
+        self.drained = set()       # iids the autoscaler drained
+        self.passed_over = collections.Counter()   # grown iid -> requests
+
+    def _load(self, inst) -> int:
+        """The router's load key for a member: a P's queued prefill tokens
+        and requests, a D's occupied slots (its reserved blocks move with
+        them)."""
+        return inst.queue_tokens + inst.queue_reqs if inst.role == "P" \
+            else inst.active
+
+    def try_submit(self, req) -> bool:
+        return self.rt.try_submit(req)
+
+    def step(self, timeout: float) -> None:
+        rt = self.rt
+        before = set(rt._active)
+        load = {iid: self._load(i) for iid, i in rt._instances.items()}
+        rt.step(timeout=timeout)
+        # the requests this step routed, in routing order (a step routes
+        # before it handles one event, so no load fell in between). The
+        # router ranks an idle grown member first over a busy member, and
+        # over an idle one of a larger id (pick_p, pick_d: equal specs,
+        # equal free pools)
+        routable = [g for g in self.hello_at if g not in self.drained]
+        got = collections.Counter()
+        for req_id, rec in rt._active.items():
+            if req_id in before:
+                continue
+            for role, member in (("P", rec.p_id), ("D", rec.d_id)):
+                busy = load.get(member, 0) > 0 or got[member] > 0
+                for g in routable:
+                    idle = load.get(g, 0) == 0 and got[g] == 0
+                    if g[0] == role and g != member and idle \
+                            and (busy or g < member):
+                        self.passed_over[g] += 1
+                got[member] += 1
+        for _, _, iid in self.actions:
+            if iid is not None and iid not in self.hello_at \
+                    and iid in rt.worker_pids:
+                self.hello_at[iid] = time.monotonic()
+
+    def tick(self):
+        before = set(self.rt._instances)
+        now = time.monotonic()
+        action = self.autoscaler.tick()
+        if action:
+            spawned = sorted(set(self.rt._instances) - before)
+            self.actions.append((action, now, spawned[0] if spawned
+                                 else None))
+            if action.startswith("drain:"):
+                self.drained.add(action.split(":", 1)[1])
+        return action
+
+
+def phase12(dev):
+    """llama2-7b served from the port's plan: ``plan_deployment`` →
+    ``DeploymentPlan.to_cluster_spec`` → ``ClusterRuntime`` (over shm)
+    under ``run_open_loop``, with admission and a ``PDAutoscaler`` over
+    ``ClusterLoadSource`` whose baseline is the plan. The parent holds no
+    weights while the workers live; it builds them after shutdown for the
+    token checks."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.autoscale import (AutoscalerConfig,
+                                            ClusterLoadSource, PDAutoscaler)
+    from repro_torch.core.compat.precision import WireFormat
+    from repro_torch.core.planner.hardware import get as get_hw
+    from repro_torch.core.planner.optimizer import plan_deployment
+    from repro_torch.core.planner.workload import Workload
+    from repro_torch.models import model as M
+    from repro_torch.serving import loadgen
+    from repro_torch.serving.engine import VendorProfile
+    from repro_torch.serving.multiproc import ClusterRuntime
+    from repro_torch.serving.multiproc.report import (plan_section,
+                                                      plan_vs_measured,
+                                                      slo_section)
+    from repro_torch.serving.request import State
+    from repro_torch.serving.router import AdmissionConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MODEL)
+    h100 = get_hw("h100-sxm")
+    plan = plan_deployment(cfg, Workload(**PHASE12_PLAN), h100, h100)
+    # the card holds the baseline and one grown worker of each role
+    auto_cfg = AutoscalerConfig(**PHASE12_AUTOSCALER)
+    clamped = plan.n_prefill >= auto_cfg.max_p \
+        or plan.n_decode >= auto_cfg.max_d
+    n_p, n_d = (1, 1) if clamped else (plan.n_prefill, plan.n_decode)
+    p_vendor, d_vendor = VendorProfile(**P_VENDOR), VendorProfile(**D_VENDOR)
+    d_blocks = PHASE12_MAX_BATCH * -(-PHASE12_MAX_SEQ
+                                     // d_vendor.block_size) + 1
+    spec = plan.to_cluster_spec(
+        cfg, p_vendor=p_vendor, d_vendor=d_vendor, params_seed=SEED,
+        num_blocks=d_blocks, max_batch=PHASE12_MAX_BATCH,
+        max_seq_len=PHASE12_MAX_SEQ, num_p=n_p, num_d=n_d,
+        device=None if dev.type == "cuda" else "cpu")
+    # P streams its prefills through dense caches and never fills its
+    # pool: phase 5's 2 blocks, not D's 273, leave 2.1 GiB a P for the
+    # moments when a drained member still boots beside a new one
+    spec = dataclasses.replace(spec, p=tuple(
+        dataclasses.replace(e, num_blocks=2) for e in spec.p))
+    workload = phase12_workload(loadgen)
+    reqs = [it.request for it in workload]
+    prompts = [r.prompt.copy() for r in reqs]
+    warm = phase12_warmup(loadgen)
+    rt = ClusterRuntime(spec, wire=WireFormat("raw", "bfloat16"),
+                        prefill_chunk=PREFILL_CHUNK,
+                        admission=AdmissionConfig(**PHASE12_ADMISSION))
+    try:
+        t0 = time.perf_counter()
+        rt.start(spawn_timeout_s=300.0)
+        spawn_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rt.serve([it.request for it in warm], max_wall_s=600.0)
+        warmup_s = time.perf_counter() - t0
+        rt.reset_latency_measurements()   # warmup TTFTs are not the system
+        rt.reset_launch_counts()          # nor are its launches
+        auto = PDAutoscaler(
+            ClusterLoadSource(rt),
+            p_factory=lambda name: dataclasses.replace(spec.p[0], name=name),
+            d_factory=lambda name: dataclasses.replace(spec.d[0], name=name),
+            baseline_p=n_p, baseline_d=n_d, config=auto_cfg)
+        line = _Timeline(rt, auto)
+        res = loadgen.run_open_loop(line, workload, autoscaler=line,
+                                    autoscale_every_s=PHASE12_TICK_S,
+                                    max_wall_s=PHASE12_DURATION_S + 600.0)
+        hello_by_end = set(rt.worker_pids)
+        dispatches = {**rt.stats.p_dispatches, **rt.stats.d_dispatches}
+    finally:
+        rt.shutdown()
+    left = segments_left(rt.segments_seen)
+    launches = {name: 0 for name, *_ in KERNELS}
+    for counts in rt.worker_launches.values():
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    # --- checks: each failure is listed, the line printed, then raised --- #
+    t_epoch = reqs[0].arrival_time - workload[0].offset_s  # run_open_loop's t0
+    admitted = [r for r in reqs if r.state != State.SHED]
+    problems = []
+    if res.offered != res.admitted + res.shed or res.admitted != len(admitted):
+        problems.append(f"offered {res.offered}, admitted {res.admitted}, "
+                        f"shed {res.shed}")
+    for r in reqs:
+        if r.state == State.SHED:
+            if r.output_tokens or r.first_token_time is not None \
+                    or r.chunks_streamed:
+                problems.append(f"shed {r.req_id} was served")
+        elif r.state != State.FINISHED \
+                or len(r.output_tokens) != r.max_new_tokens \
+                or not all(0 <= t < cfg.vocab_size for t in r.output_tokens):
+            problems.append(f"{r.req_id} {r.state}, {len(r.output_tokens)} "
+                            f"of {r.max_new_tokens} tokens")
+    if (rt.stream_failures or sum(rt.crashes.values())
+            or rt.stats.requeues or rt.stats.failed or res.failed):
+        problems.append(f"stream failures {rt.stream_failures}, crashes "
+                        f"{rt.crashes}, requeues {rt.stats.requeues}, "
+                        f"failed {rt.stats.failed} / {res.failed}")
+    drained_at = {a.split(":", 1)[1]: t for a, t, _ in line.actions
+                  if a.startswith("drain:")}
+    grown = []
+    for action, t_act, iid in line.actions:
+        if not action.startswith("grow-"):
+            continue
+        hello = line.hello_at.get(iid)
+        grown.append({"action": action, "iid": iid, "t_s": t_act - t_epoch,
+                      "action_to_hello_s": None if hello is None
+                      else hello - t_act,
+                      "drained_t_s": drained_at[iid] - t_epoch
+                      if iid in drained_at else None,
+                      "served": dispatches.get(iid, 0),
+                      "passed_over": line.passed_over[iid]})
+        # a grown worker that reached its hello and served nothing fails
+        # if, while it was routable, the router gave its role a request
+        # that the router's own order owed to it
+        if hello is not None and not dispatches.get(iid, 0) \
+                and line.passed_over[iid]:
+            problems.append(f"grown {iid} joined and served nothing while "
+                            f"{line.passed_over[iid]} requests it ranked "
+                            "first for went to its role")
+    if not grown:
+        problems.append(f"no grow action ({res.autoscale_actions})")
+    elif not any(g["served"] for g in grown):
+        problems.append("no grown worker served")
+    if not hello_by_end <= set(rt.worker_launches):
+        problems.append(f"launch counts from {sorted(rt.worker_launches)}, "
+                        f"workers {sorted(hello_by_end)}")
+    launched = {k for k, n in launches.items() if n > 0}
+    if dev.type == "cuda" and launched != PHASE3_KERNELS:
+        problems.append(f"kernels launched {launched}, the path runs "
+                        f"{PHASE3_KERNELS}")
+    if not rt.segments_seen or left:
+        problems.append(f"{len(rt.segments_seen)} segments seen, {left} "
+                        "left after shutdown")
+
+    lat = slo_section(reqs, res.wall_s,
+                      slo_ttft_s=PHASE12_AUTOSCALER["slo_ttft_s"],
+                      slo_tpot_s=PHASE12_AUTOSCALER["slo_tpot_s"])
+    report = plan_vs_measured(rt, reqs, plan=plan, wall_s=res.wall_s)
+    report["measured"].pop("worker_stats")        # printed below, in short
+    out = {"phase": 12, "model": cfg.name, "layers": cfg.num_layers,
+           "dtype": cfg.compute_dtype, "runtime": "ClusterRuntime",
+           "connector": "shm", "plan": plan_section(plan),
+           "plan_strategies": {"prefill": dataclasses.asdict(
+               plan.prefill.strategy), "decode": dataclasses.asdict(
+               plan.decode.strategy), "decode_batch": plan.decode.batch},
+           "launched": spec.ratio(), "clamped": clamped,
+           "schedule_sha256": schedule_digest(workload),
+           "arrivals": {"rate_rps": PHASE12_RATE,
+                        "duration_s": PHASE12_DURATION_S,
+                        "seed": PHASE12_SEED, **PHASE12_BURSTS},
+           "prompt_len_p50": float(np.median([r.prompt_len for r in reqs])),
+           "max_new_p50": float(np.median([r.max_new_tokens
+                                           for r in reqs])),
+           "offered": res.offered, "admitted": res.admitted,
+           "shed": res.shed, "finished": res.finished,
+           "autoscale_actions": [{"action": a, "t_s": t - t_epoch}
+                                 for a, t, _ in line.actions],
+           "grown": grown, **lat,
+           "output_tok_s": sum(len(r.output_tokens) for r in admitted)
+           / res.wall_s,
+           "spawn_to_hello_s": spawn_s, "warmup_s": warmup_s,
+           "worker_pids": rt.worker_pids,
+           "worker_peak_mem_gib": {k: v / 2 ** 30 for k, v in
+                                   rt.worker_peak_mem_bytes.items()},
+           "worker_prefill_s": {k: v["prefill_seconds"] for k, v in
+                                rt.worker_stats.items()},
+           "worker_decode_steps": {k: v["decode_steps"] for k, v in
+                                   rt.worker_stats.items()},
+           "launches": launches, "worker_launches": rt.worker_launches,
+           "segments_seen": len(rt.segments_seen),
+           "segments_left": len(left),
+           "plan_vs_measured": report,
+           "tokens_sha256": tokens_digest(admitted)}
+    if problems:
+        emit(dict(out, problems=problems))
+        raise AssertionError(f"phase 12: {problems}")
+    # the parent's weights only now: no worker holds any
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    out["last_token_logit_gap_max"] = last_token_gap(cfg, params, dev,
+                                                     admitted)
+    out["first_token_gap_f32_max"], out["last_logits_bf16_vs_f32_max_abs"] = \
+        first_token_yardstick(cfg, params, dev,
+                              [p for p, r in zip(prompts, reqs)
+                               if r.state != State.SHED], admitted)
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 # (name, source, TPU kernel, the phase whose launches the row reports);
 # every row also carries its launches on every serving phase
 KERNELS = [
@@ -3339,6 +3821,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths[11] = phase11(dev)
+    gc.collect()                         # Whisper's weights: the workers'
+    torch.cuda.empty_cache()
+    paths[12] = phase12(dev)
 
     rows = []
     for name, source, replaces, phase in KERNELS:
@@ -3354,8 +3839,8 @@ def main() -> int:
                "device_method": t["device_method"], "host_us": t["host_us"],
                "launches_by_phase": {ph: paths[ph]["launches"][name]
                                      for ph in sorted(paths)}}
-        # at phase 7's, 8's, 10's and 11's shapes
-        for key in ("mla", "rg", "vlm", "encdec"):
+        # at phase 7's, 8's, 10's, 11's and 12's shapes
+        for key in ("mla", "rg", "vlm", "encdec", "load"):
             if key in t:
                 row[key] = {k: t[key][k] for k in (
                     "shape", "max_abs_err", "ms", "device_ms", "plain_ms",

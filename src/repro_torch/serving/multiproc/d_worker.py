@@ -32,10 +32,12 @@ import queue
 import time
 from typing import Any, Deque, Dict, Optional, Tuple
 
+from repro_torch.kernels import ops
 from repro_torch.serving.multiproc.messages import (AbortStream, BeginStream,
                                                     ChunkReady, ChunkRepaged,
                                                     FinalizeStream, Heartbeat,
                                                     Hello, RequestDone,
+                                                    ResetLaunchCounts,
                                                     Shutdown, StreamAccepted,
                                                     StreamFailed,
                                                     TokenEmitted, WorkerSpec,
@@ -262,6 +264,8 @@ class DWorker:
                     st.finalize = msg
             elif isinstance(msg, AbortStream):
                 self._abort(msg)
+            elif isinstance(msg, ResetLaunchCounts):
+                ops.reset_launch_counts()
         return progressed
 
     def _load(self) -> dict:

@@ -49,7 +49,9 @@ The kernels are built once: when any worker runs on the card, ``start()``
 builds the CUDA kernel library into ``_build.build_dir()`` before it
 spawns, and every worker loads it from there (``WorkerSpec.build_dir``).
 Each worker reports the hand kernels it launched at shutdown
-(``worker_launches``).
+(``worker_launches``: since its start or the last ``reset_launch_counts``)
+and its peak device memory
+(``worker_peak_mem_bytes``).
 """
 from __future__ import annotations
 
@@ -74,7 +76,9 @@ from repro_torch.serving.multiproc.messages import (AbortStream, BeginStream,
                                                     PrefillDone,
                                                     PrefillFailed,
                                                     ReleaseStaged,
-                                                    RequestDone, Shutdown,
+                                                    RequestDone,
+                                                    ResetLaunchCounts,
+                                                    Shutdown,
                                                     StreamAccepted,
                                                     StreamFailed,
                                                     SubmitPrefill,
@@ -226,6 +230,7 @@ class ClusterRuntime:
         self.transfer_stats = TransferStats()     # parent-measured + merged
         self.worker_stats: Dict[str, Dict[str, float]] = {}
         self.worker_launches: Dict[str, Dict[str, int]] = {}
+        self.worker_peak_mem_bytes: Dict[str, int] = {}
         # every shared-memory segment a worker announced: what shutdown()
         # must leave unlinked
         self.segments_seen: set = set()
@@ -388,6 +393,16 @@ class ClusterRuntime:
                     if r.state in (State.FINISHED, State.FAILED,
                                    State.SHED)]:
             del self._requests[rid]
+
+    def reset_launch_counts(self) -> None:
+        """Zero every live worker's hand-kernel launch counts, so that
+        ``worker_launches`` covers only the work submitted after this call
+        (a worker spawned later starts at 0). Call while the workers are
+        idle, e.g. between a warmup pass and a measured run: the command
+        queue orders it before any later dispatch."""
+        for inst in self._instances.values():
+            if inst.alive() and not inst.stopping:
+                inst.cmd_q.put(ResetLaunchCounts())
 
     def try_submit(self, req: Request) -> bool:
         """Admission-controlled non-blocking submit: shed at the door when
@@ -563,6 +578,7 @@ class ClusterRuntime:
             self.transfer_stats.merge(msg.transfer)
             self.worker_stats[msg.src] = msg.engine
             self.worker_launches[msg.src] = dict(msg.launches)
+            self.worker_peak_mem_bytes[msg.src] = msg.peak_mem_bytes
             self._final_stats_expected -= 1
             return
         if isinstance(msg, (ChunkStaged, PrefillDone, PrefillFailed)):

@@ -23,11 +23,11 @@ plain dataclasses and dicts.
 Wire protocol (parent = launcher/router, P = a prefill worker, D = a
 decode worker — N of the former, M of the latter):
 
-  parent→P   SubmitPrefill · ReleaseStaged · Shutdown
+  parent→P   SubmitPrefill · ReleaseStaged · ResetLaunchCounts · Shutdown
   P→parent   Hello · ChunkStaged · PrefillDone · PrefillFailed ·
              Heartbeat · WorkerStats
   parent→D   BeginStream · ChunkReady · FinalizeStream · AbortStream ·
-             Shutdown
+             ResetLaunchCounts · Shutdown
   D→parent   Hello · StreamAccepted · ChunkRepaged · TokenEmitted ·
              RequestDone · StreamFailed · Heartbeat · WorkerStats
 
@@ -172,6 +172,12 @@ class ReleaseStaged:
 @dataclasses.dataclass(frozen=True)
 class Shutdown:
     pass
+
+
+@dataclasses.dataclass(frozen=True)
+class ResetLaunchCounts:
+    """Zero the worker's hand-kernel launch counts (to P and D): the
+    counts its ``WorkerStats`` ships then cover only what came after."""
 
 
 # --------------------------------------------------------------------- #
@@ -338,6 +344,9 @@ class WorkerStats:
     # the worker's kernels.ops.launch_counts() at shutdown: which hand
     # kernels its path launched, and how often (0 everywhere on the CPU)
     launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # the most device memory the worker's tensors held at once (0 on the
+    # CPU): torch.cuda.max_memory_allocated of its card
+    peak_mem_bytes: int = 0
 
 
 def setup_worker(spec: WorkerSpec) -> None:
@@ -354,6 +363,10 @@ def setup_worker(spec: WorkerSpec) -> None:
 
 def worker_stats(iid: str, connector, engine) -> WorkerStats:
     """The final accounting a worker ships home: plain data only."""
+    import torch
+
     from repro_torch.kernels import ops
+    peak = torch.cuda.max_memory_allocated(engine.device) \
+        if engine.device.type == "cuda" else 0
     return WorkerStats(iid, connector.stats, engine.stats.as_dict(),
-                       launches=ops.launch_counts())
+                       launches=ops.launch_counts(), peak_mem_bytes=peak)

@@ -26,11 +26,14 @@ import queue
 import time
 from typing import Any, Deque
 
+from repro_torch.kernels import ops
 from repro_torch.serving.multiproc.messages import (ChunkStaged, Heartbeat,
                                                     Hello, PrefillDone,
                                                     PrefillFailed,
-                                                    ReleaseStaged, Shutdown,
-                                                    SubmitPrefill, WorkerSpec,
+                                                    ReleaseStaged,
+                                                    ResetLaunchCounts,
+                                                    Shutdown, SubmitPrefill,
+                                                    WorkerSpec,
                                                     setup_worker,
                                                     worker_stats)
 
@@ -76,6 +79,8 @@ class PWorker:
         if isinstance(msg, SubmitPrefill):
             self.backlog.append(msg)
             return
+        if isinstance(msg, ResetLaunchCounts):
+            ops.reset_launch_counts()
 
     def _pump_cmds(self, timeout: float) -> bool:
         """Process one waiting command; True if one arrived."""

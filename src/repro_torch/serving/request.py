@@ -81,3 +81,15 @@ class Request:
             return None
         n = max(len(self.output_tokens) - 1, 1)
         return (self.finish_time - self.first_token_time) / n
+
+    def tpot_live(self) -> Optional[float]:
+        """Per-output-token latency including *in-flight* streams: uses the
+        last emitted token's timestamp when the request hasn't finished.
+        The autoscaler steers on this — a completed-only sample is biased
+        toward short requests and reacts a full request-length late."""
+        end = self.finish_time if self.finish_time is not None \
+            else self.last_token_time
+        if end is None or self.first_token_time is None \
+                or len(self.output_tokens) < 2:
+            return None
+        return (end - self.first_token_time) / (len(self.output_tokens) - 1)

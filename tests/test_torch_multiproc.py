@@ -574,3 +574,52 @@ def test_interval_overlap_and_union_match_reference(spans):
         == [(0.0, 3.0)]
     assert _interval_overlap((0.5, 2.5), [(0.0, 1.0), (2.0, 3.0)]) \
         == pytest.approx(1.0)
+
+
+def test_reset_launch_counts_zeroes_both_workers_and_reaches_live_ones():
+    """``ResetLaunchCounts`` zeroes a P's and a D's kernel launch counts
+    from their command queues, and ``ClusterRuntime.reset_launch_counts``
+    sends it to every live member and to no stopping or dead one."""
+    import queue
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.multiproc.d_worker import DWorker
+    from repro_torch.serving.multiproc.messages import ResetLaunchCounts
+    from repro_torch.serving.multiproc.p_worker import PWorker
+
+    def set_counts(n):
+        for mod in ops._WRAPPERS:
+            for name in mod.LAUNCHES:
+                mod.LAUNCHES[name] = n
+
+    try:
+        set_counts(3)
+        p = object.__new__(PWorker)
+        p._handle(ResetLaunchCounts())
+        assert set(ops.launch_counts().values()) == {0}
+        set_counts(5)
+        d = object.__new__(DWorker)
+        d.cmd_q = queue.Queue()
+        d.cmd_q.put(ResetLaunchCounts())
+        assert d._drain_cmds() is True
+        assert set(ops.launch_counts().values()) == {0}
+    finally:
+        set_counts(0)
+
+    def member(alive, stopping):
+        return SimpleNamespace(alive=lambda: alive, stopping=stopping,
+                               cmd_q=queue.Queue())
+    rt = object.__new__(ClusterRuntime)
+    rt._instances = {"P0": member(True, False), "D0": member(True, False),
+                     "D1": member(True, True), "P1": member(False, False)}
+    rt.reset_launch_counts()
+
+    def sent(q):
+        out = []
+        while not q.empty():
+            out.append(type(q.get_nowait()).__name__)
+        return out
+    assert {iid: sent(i.cmd_q) for iid, i in rt._instances.items()} == {
+        "P0": ["ResetLaunchCounts"], "D0": ["ResetLaunchCounts"],
+        "D1": [], "P1": []}
