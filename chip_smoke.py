@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, then runs thirteen phases, each printing JSON lines:
+nvcc, then runs fourteen phases, each printing JSON lines:
 
   0. card: name and power limit (``nvidia-smi``), kernel build time, and
      the count of HGMMA (wgmma), UTMALDG (TMA load), SYNCS (mbarrier),
@@ -198,13 +198,35 @@ nvcc, then runs thirteen phases, each printing JSON lines:
      action-to-hello seconds, TTFT and TPOT p50/p95/p99, goodput,
      output tok/s, the plan beside the measurement and the tokens'
      digest. Phase 1 adds flash, paged and the overlay at this phase's
-     shapes (``phase1_load``).
+     shapes (``phase1_load``);
+ 13. training, on the path the reference trains on (plain attention in
+     float32, no kernel; every kernel wrapper refuses a CUDA input that
+     requires grad): Qwen3-4B, the reference's own training target, at
+     full width. 13a: cut to 2 layers in float32 (TF32 off), parameters
+     drawn once on the CPU and copied to the card, one 2 x 128 batch of
+     ``SyntheticTokens``: the loss and every leaf's gradient on the card
+     against the CPU's (loss within 1e-5 relative, each leaf's
+     ||dg|| / ||g|| within 1e-4), then bf16 on the card against the
+     float32 CPU gradients (within 5e-2 a leaf); every gradient finite
+     and nonzero. 13b: all 36 layers in bf16, the train state drawn on
+     the card (weights, float32 AdamW moments), ``make_train_step`` with
+     remat and 2 micro-batches into a bf16 accumulator, 2 x 2048 tokens
+     a step, one warmup step then 6 timed: a finite loss every step and
+     the last at least 1 nat below the first, a positive grad norm, after
+     the first step every leaf's first moment nonzero and every leaf
+     changed but the norm weights (1.0 at init, where lr x 1.1 is below
+     half a bf16 step); it prints the step seconds, tokens/s,
+     ``max_memory_allocated`` and the draw's seconds. 13c: a tiny bf16
+     train state saved from the card by the async checkpoint writer and
+     restored onto it bit for bit, the next step's loss equal within
+     1e-6. No kernel may launch in phase 13.
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
 processes report at shutdown, phase 12 those of every worker it
 started, zeroed after its warmup). The kernels line gives each kernel's
-launches on every serving phase (phases 3-12, none on phase 9), and its
+launches on every serving phase (phases 3-12, none on phase 9; 0 on
+phase 13, training), and its
 timing at phase 7's MLA shape (``"mla"``), phase 8's RecurrentGemma
 shape (``"rg"``), phase 10's InternVL2 shape (``"vlm"``), phase 11's
 Whisper shape (``"encdec"``) and phase 12's (``"load"``) where those
@@ -330,6 +352,28 @@ PHASE12_ADMISSION = dict(max_queue_depth=8, slo_ttft_s=2.0, headroom=1.0)
 PHASE12_AUTOSCALER = dict(slo_ttft_s=2.0, slo_tpot_s=0.1, cooldown_ticks=8,
                           max_p=2, max_d=2)
 PHASE12_TICK_S = 0.25
+# phase 13: training. Qwen3-4B, the reference's own training target
+# (launch/train.py's default arch, launch/cells.py's qwen3-4b@train_4k), at
+# full width: d 2560, 32 heads on 8 KV heads x 128 with qk-norm, d_ff 9728,
+# vocab 151,936, untied head; 4,411,424,256 parameters. 13a: float32
+# parity card vs CPU at full width cut to 2 layers (batch 2 x 128), and
+# bf16 on the card against the float32 CPU gradients. 13b: all 36 layers in
+# bf16 with remat and 2 micro-batches of 1 x 2048 (8.22 GiB of weights,
+# 32.87 GiB of float32 moments, an 8.22 GiB bf16 accumulator). 13c: a tiny
+# bf16 state checkpointed from the card and restored onto it
+MODEL13 = "qwen3-4b"
+PHASE13_PARITY = dict(layers=2, batch=2, seq=128)
+PHASE13_F32_REL = 1e-4       # per leaf, ||g_card - g_cpu|| / ||g_cpu||
+PHASE13_LOSS_RTOL = 1e-5
+PHASE13_BF16_REL = 5e-2      # per leaf, bf16 on the card vs float32 CPU
+PHASE13_TRAIN = dict(batch=2, seq=2048, n_micro=2, warmup=1, timed=6)
+PHASE13_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100,
+                   weight_decay=0.1, grad_clip=1.0)
+PHASE13_MIN_DROP = 1.0       # nats from the first step's loss to the last
+PHASE13_CKPT_MODEL = dict(name="ckpt-tiny", family="dense", num_layers=2,
+                          d_model=64, num_heads=4, num_kv_heads=2,
+                          head_dim=16, d_ff=128, vocab_size=256,
+                          qk_norm=True)
 
 
 def emit(obj) -> None:
@@ -3746,6 +3790,367 @@ def phase12(dev):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: training
+# --------------------------------------------------------------------------- #
+def rel_err(got, want) -> float:
+    """||got - want|| / ||want||, on ``got``'s device."""
+    want = want.to(got.device).float()
+    return float((got.float() - want).norm() / want.norm())
+
+
+def phase13a(dev):
+    """Parity at Qwen3-4B's full width cut to PHASE13_PARITY's layers:
+    parameters drawn once on the CPU in float32 and copied to the card, one
+    batch from SyntheticTokens(SEED); the loss and every leaf's gradient on
+    the card against the CPU's (float32, TF32 off), then bf16 on the card
+    (the same draw rounded) against the float32 CPU gradients. Every card
+    gradient must be finite and nonzero, and no kernel may launch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.train_step import device_batch, loss_and_grads
+    from repro_torch.training.tree import leaves, leaves_with_paths, unflatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    pp = PHASE13_PARITY
+    cfg = get_config(MODEL13).with_(num_layers=pp["layers"],
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+    cpu_params = M.init_params(cfg, seed=SEED, device="cpu")
+    paths = [p for p, _ in leaves_with_paths(cpu_params)]
+    host = next(iter(SyntheticTokens(cfg, DataConfig(
+        batch_size=pp["batch"], seq_len=pp["seq"], seed=SEED))))
+    params = tree_to(cpu_params, dev)
+    counts0 = ops.launch_counts()
+    t0 = time.perf_counter()
+    loss_d, g_d = loss_and_grads(cfg, params, device_batch(host, dev),
+                                 remat=False)
+    g_d = leaves(g_d)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_c, g_c = loss_and_grads(cfg, cpu_params, device_batch(host, "cpu"),
+                                 remat=False)
+    g_c = leaves(g_c)
+    t_cpu = time.perf_counter() - t0
+    rel32 = {p: rel_err(g, w) for p, g, w in zip(paths, g_d, g_c)}
+    bad = [p for p, g in zip(paths, g_d)
+           if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0)]
+    c16 = cfg.with_(param_dtype="bfloat16", compute_dtype="bfloat16")
+    p16 = unflatten(params, [p.to(torch.bfloat16) for p in leaves(params)])
+    del params, g_d
+    loss_h, g_h = loss_and_grads(c16, p16, device_batch(host, dev),
+                                 remat=False)
+    g_h = leaves(g_h)
+    rel16 = {p: rel_err(g, w) for p, g, w in zip(paths, g_h, g_c)}
+    bad += [p + " (bf16)" for p, g in zip(paths, g_h)
+            if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0)]
+    launched = ops.launch_counts() != counts0
+    loss_d, loss_c, loss_h = float(loss_d), float(loss_c), float(loss_h)
+    out = {"phase": 13, "part": "13a", "model": f"{cfg.name} x{cfg.num_layers}"
+           " layers, float32 and bf16", "batch": [pp["batch"], pp["seq"]],
+           "loss_card_f32": loss_d, "loss_cpu_f32": loss_c,
+           "loss_card_bf16": loss_h,
+           "loss_rel_err": abs(loss_d - loss_c) / abs(loss_c),
+           "grad_rel_err_f32_max": max(rel32.values()),
+           "grad_rel_err_f32": rel32, "f32_limit": PHASE13_F32_REL,
+           "grad_rel_err_bf16_max": max(rel16.values()),
+           "grad_rel_err_bf16": rel16, "bf16_limit": PHASE13_BF16_REL,
+           "leaves_zero_or_nonfinite": bad, "launched": launched,
+           "card_s": round(t_dev, 3), "cpu_s": round(t_cpu, 3)}
+    del p16, g_h, cpu_params, g_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    emit(out)
+    if bad:
+        raise AssertionError(f"phase 13a: zero or non-finite gradients {bad}")
+    if launched:
+        raise AssertionError("phase 13a: training launched a kernel")
+    if not out["loss_rel_err"] <= PHASE13_LOSS_RTOL:
+        raise AssertionError(f"phase 13a: loss {loss_d} vs {loss_c}")
+    if not out["grad_rel_err_f32_max"] <= PHASE13_F32_REL:
+        raise AssertionError(f"phase 13a: float32 gradients {rel32}")
+    if not out["grad_rel_err_bf16_max"] <= PHASE13_BF16_REL:
+        raise AssertionError(f"phase 13a: bf16 gradients {rel16}")
+    return out
+
+
+def phase13_breakdown(cfg, state, opt, host, dev) -> dict:
+    """Where a train step's time goes, on the trained state (which it
+    changes): CUDA events around one micro-batch's forward and backward
+    (remat), one AdamW update of the whole state (bf16 gradients, as the
+    accumulator hands them over), and one layer's attention core (``sdpa``
+    under the causal mask, bf16 in, float32 math) forward and backward at
+    a micro-batch's shape, beside ``scaled_dot_product_attention`` on the
+    same bf16 inputs (a yardstick, timed only). AdamW's bound: the bytes
+    it must move (weights read and written in bf16, gradients read in
+    bf16, both moments read and written in float32) over PEAK_BYTES."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    from repro_torch.training import optim as O
+    from repro_torch.training.train_step import device_batch, loss_and_grads
+    from repro_torch.training.tree import leaves, tree_map
+    micro = {k: v[:1] for k, v in device_batch(host, dev).items()}
+    fwd_bwd = time_ms(lambda: loss_and_grads(cfg, state.params, micro),
+                      iters=2, warmup=1)
+    grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.bfloat16),
+                     state.params)
+    adamw = time_ms(lambda: O.adamw_update(opt, state.params, grads,
+                                           state.opt), iters=2, warmup=1)
+    n = sum(p.numel() for p in leaves(state.params))
+    del grads
+    s_len, h, kvh, hd = host["tokens"].shape[1], cfg.num_heads, \
+        cfg.num_kv_heads, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rnd(heads):
+        return torch.randn((1, s_len, heads, hd), generator=gen, device=dev,
+                           dtype=torch.bfloat16).requires_grad_()
+    q, k, v = rnd(h), rnd(kvh), rnd(kvh)
+    mask = L.causal_mask(s_len, s_len, device=dev)
+    dout = torch.randn((1, s_len, h, hd), generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+
+    def core_fwd():
+        return L.sdpa(q, k, v, mask)
+
+    def core_fwd_bwd():
+        torch.autograd.grad(core_fwd(), (q, k, v), dout)
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(lib_fwd(), (q, k, v), dout.transpose(1, 2))
+    attn_fwd = time_ms(core_fwd, iters=5, warmup=1)
+    attn_fwd_bwd = time_ms(core_fwd_bwd, iters=5, warmup=1)
+    lib = time_ms(lib_fwd, iters=5, warmup=1)
+    lib_bwd = time_ms(lib_fwd_bwd, iters=5, warmup=1)
+    layers, n_micro = cfg.num_layers, PHASE13_TRAIN["n_micro"]
+    return {"micro_fwd_bwd_ms": fwd_bwd, "adamw_ms": adamw,
+            "adamw_bound_ms": n * (2 + 2 + 2 + 8 + 8) / PEAK_BYTES * 1e3,
+            "attn_core_fwd_ms": attn_fwd,
+            "attn_core_fwd_bwd_ms": attn_fwd_bwd,
+            # remat: each layer's forward runs twice, its backward once
+            "attn_core_step_ms": n_micro * layers * (attn_fwd
+                                                     + attn_fwd_bwd),
+            "sdpa_library_fwd_ms": lib,
+            "sdpa_library_fwd_bwd_ms": lib_bwd,
+            "sdpa_library_step_ms": n_micro * layers * (lib + lib_bwd),
+            "attn_shape": [1, s_len, h, kvh, hd]}
+
+
+def first_update_prediction(opt, lr, paths, before, state, dev,
+                            chunk=2 ** 26):
+    """AdamW's first step recomputed in plain float32 from the weights
+    before it (``before``, on the host) and the moments after it: with
+    step 1, delta = (mu / (1-b1)) / (sqrt(nu / (1-b2)) + eps), plus weight
+    decay on a leaf of ndim >= 2, and the new weight is bf16(p - lr x
+    delta). Returns, per leaf, the share of elements whose predicted new
+    weight differs from the old one (0: the leaf is predicted unchanged,
+    every move below half a bf16 step at its value) and the share whose
+    predicted new weight equals the card's. In chunks of ``chunk``
+    elements, so the float32 temporaries stay small."""
+    import torch
+    from repro_torch.training.tree import leaves
+    b1c, b2c = 1 - opt.b1, 1 - opt.b2
+    moved, agree = {}, {}
+    for path, b, p, mu, nu in zip(paths, before, leaves(state.params),
+                                  leaves(state.opt["mu"]),
+                                  leaves(state.opt["nu"])):
+        n_moved = n_equal = 0
+        for b_c, p_c, mu_c, nu_c in zip(b.reshape(-1).split(chunk),
+                                        p.reshape(-1).split(chunk),
+                                        mu.reshape(-1).split(chunk),
+                                        nu.reshape(-1).split(chunk)):
+            p0 = b_c.to(dev).float()
+            delta = (mu_c / b1c) / (torch.sqrt(nu_c / b2c) + opt.eps)
+            if b.dim() >= 2:
+                delta = delta + opt.weight_decay * p0
+            new = (p0 - lr * delta).to(b.dtype)
+            n_moved += int((new != b_c.to(dev)).sum())
+            n_equal += int((new == p_c).sum())
+            del p0, delta, new
+        moved[path] = n_moved / b.numel()
+        agree[path] = n_equal / b.numel()
+    return moved, agree
+
+
+def phase13b(dev):
+    """Qwen3-4B at full width and all 36 layers in bf16: the train state
+    drawn on the card, ``make_train_step`` with remat and PHASE13_TRAIN's
+    micro-batches, batches from SyntheticTokens(SEED), one warmup step then
+    the timed ones. Checks: a finite loss every step and the last below the
+    first by PHASE13_MIN_DROP; a finite, positive grad_norm; after the
+    first step every leaf's first moment is nonzero (its gradient reached
+    AdamW), and the leaves the step left unchanged are exactly those that
+    ``first_update_prediction`` predicts from the data; no kernel
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.training import optim as O
+    from repro_torch.training import train_step as T
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.tree import leaves, leaves_with_paths
+    t_phase = time.perf_counter()
+    tr = PHASE13_TRAIN
+    cfg = get_config(MODEL13)
+    free, total = torch.cuda.mem_get_info()
+    emit({"phase": 13, "part": "13b", "mem_get_info_gib":
+          [free / 2 ** 30, total / 2 ** 30]})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = T.train_state_init(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
+    paths = [p for p, _ in leaves_with_paths(state.params)]
+    n_params = sum(p.numel() for p in leaves(state.params))
+    opt = O.AdamWConfig(**PHASE13_OPT)
+    step = T.make_train_step(cfg, opt, remat=True, n_micro=tr["n_micro"])
+    data = iter(SyntheticTokens(cfg, DataConfig(
+        batch_size=tr["batch"], seq_len=tr["seq"], seed=SEED)))
+    before = [p.to("cpu", copy=True) for p in leaves(state.params)]
+    counts0 = ops.launch_counts()
+    losses, gnorms, lrs, secs = [], [], [], []
+    changed = moment = None
+    for i in range(tr["warmup"] + tr["timed"]):
+        batch = T.device_batch(next(data), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+        if i == 0:
+            changed = {p: float((a != b.to(dev)).sum()) / a.numel()
+                       for p, a, b in zip(paths, leaves(state.params),
+                                          before)}
+            moment = {p: float(mu.abs().max()) for p, mu in
+                      zip(paths, leaves(state.opt["mu"]))}
+            predicted, agree = first_update_prediction(
+                opt, lrs[0], paths, before, state, dev)
+            del before
+    counts1 = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    breakdown = phase13_breakdown(cfg, state, opt, next(data), dev)
+    timed = secs[tr["warmup"]:]
+    step_s = float(np.median(timed))
+    tokens = tr["batch"] * tr["seq"]
+    still = sorted(p for p, f in changed.items() if f == 0)
+    predicted_still = sorted(p for p, f in predicted.items() if f == 0)
+    out = {"phase": 13, "part": "13b", "model": f"{cfg.name} x"
+           f"{cfg.num_layers} layers {cfg.compute_dtype}",
+           "params": n_params, "params_draw_s": round(t_draw, 3),
+           "batch": [tr["batch"], tr["seq"]], "n_micro": tr["n_micro"],
+           "remat": True, "opt": PHASE13_OPT, "losses": losses,
+           "grad_norms": gnorms, "lrs": lrs, "step_s": secs,
+           "step_s_median": step_s, "tokens_per_s": tokens / step_s,
+           "max_memory_allocated_gib": peak,
+           "first_step_changed_share": changed,
+           "first_step_unchanged": still,
+           "first_step_predicted_changed_share": predicted,
+           "first_step_predicted_equal_share": agree,
+           "first_moment_absmax": moment,
+           "launches_before": counts0, "launches_after": counts1,
+           "breakdown": breakdown}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    emit(out)
+    if not all(np.isfinite(losses)) or \
+            not losses[-1] <= losses[0] - PHASE13_MIN_DROP:
+        raise AssertionError(f"phase 13b: losses {losses}")
+    if not all(np.isfinite(gnorms)) or min(gnorms) <= 0:
+        raise AssertionError(f"phase 13b: grad norms {gnorms}")
+    if [p for p, v in moment.items() if not v > 0]:
+        raise AssertionError(f"phase 13b: zero first moments {moment}")
+    if still != predicted_still:
+        raise AssertionError(f"phase 13b: leaves left unchanged by the "
+                             f"first step {still}, predicted "
+                             f"{predicted_still}")
+    if counts1 != counts0:
+        raise AssertionError(f"phase 13b: training launched kernels: "
+                             f"{counts0} -> {counts1}")
+    return out
+
+
+def phase13c(dev):
+    """A tiny bf16 train state on the card after one step, saved with the
+    async writer, restored onto the card: every leaf bit-identical; the
+    next step's loss from the restored state equals the continued one's
+    within 1e-6."""
+    import tempfile
+    import torch
+    from repro_torch.configs.base import config_from_dict
+    from repro_torch.kernels import ops
+    from repro_torch.training import optim as O
+    from repro_torch.training import train_step as T
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.tree import leaves
+    t_phase = time.perf_counter()
+    cfg = config_from_dict(PHASE13_CKPT_MODEL)
+    state = T.train_state_init(cfg, seed=SEED, device=dev)
+    step = T.make_train_step(cfg, O.AdamWConfig(lr=1e-3, warmup_steps=0))
+    data = iter(SyntheticTokens(cfg, DataConfig(batch_size=4, seq_len=32,
+                                                seed=SEED)))
+    counts0 = ops.launch_counts()
+    state, _ = step(state, T.device_batch(next(data), dev))
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        mgr = CheckpointManager(d, keep=2)
+        mgr.save(1, state, meta={"phase": 13})
+        mgr.wait()
+        restored = mgr.restore(1, like=T.abstract_train_state(cfg),
+                               device=dev)
+        dtypes = sorted({str(e.dtype) for e in leaves(restored)})
+        mgr.writer.close()
+    same = all(a.dtype == b.dtype and a.device == b.device
+               and torch.equal(a, b)
+               for a, b in zip(leaves(state), leaves(restored)))
+    batch = T.device_batch(next(data), dev)
+    _, m_cont = step(state, batch)
+    _, m_rest = step(restored, batch)
+    gap = abs(float(m_cont["loss"]) - float(m_rest["loss"]))
+    launched = ops.launch_counts() != counts0
+    out = {"phase": 13, "part": "13c", "model": cfg.name,
+           "leaves": len(leaves(state)), "dtypes": dtypes,
+           "bit_identical": same, "next_loss_gap": gap,
+           "launched": launched,
+           "phase_s": round(time.perf_counter() - t_phase, 3)}
+    emit(out)
+    if not same or not gap <= 1e-6 or "torch.bfloat16" not in dtypes:
+        raise AssertionError(f"phase 13c: checkpoint round trip {out}")
+    if launched:
+        raise AssertionError("phase 13c: training launched a kernel")
+    return out
+
+
+def phase13(dev):
+    """Training: 13a, 13b and 13c, each checking that it launched no
+    kernel. Returns the phase's launches (all 0) and the parts' lines."""
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    parts = {"13a": phase13a(dev), "13b": phase13b(dev),
+             "13c": phase13c(dev)}
+    emit({"phase": 13, "phase_s": round(time.perf_counter() - t_phase, 3),
+          "parts_s": {k: v.get("phase_s") for k, v in parts.items()}})
+    return {"launches": ops.launch_counts(), **parts}
+
+
 # (name, source, TPU kernel, the phase whose launches the row reports);
 # every row also carries its launches on every serving phase
 KERNELS = [
@@ -3824,6 +4229,9 @@ def main() -> int:
     gc.collect()                         # Whisper's weights: the workers'
     torch.cuda.empty_cache()
     paths[12] = phase12(dev)
+    gc.collect()                         # the workers are gone: training's
+    torch.cuda.empty_cache()             # ~60 GiB
+    paths[13] = phase13(dev)
 
     rows = []
     for name, source, replaces, phase in KERNELS:

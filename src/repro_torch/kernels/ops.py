@@ -3,7 +3,10 @@
 
 A CPU tensor goes to the kernel's plain PyTorch version in ``ref``; a
 CUDA tensor launches the hand-written kernel or raises. There is no
-fallback from one to the other. Each kernel wrapper counts its launches
+fallback from one to the other. The kernels have no backward pass: a
+CUDA input that requires grad while grad mode is on raises, so that no
+path can drop a gradient silently (training takes the plain attention
+route explicitly, ``models.layers``). Each kernel wrapper counts its launches
 by kernel name (``launch_counts``), so a run can show that the serving
 path went through each kernel; a call that goes to a plain version counts
 nothing.
@@ -23,8 +26,16 @@ from repro_torch.serving.paged_cache import KVPageSpec
 _WRAPPERS = (_fa, _pa, _kr)          # modules holding LAUNCHES by name
 
 
-def _on_cuda(t: torch.Tensor, op: str) -> bool:
+def _on_cuda(t: torch.Tensor, op: str, *inputs: torch.Tensor) -> bool:
+    """Whether ``t`` sends the call to the kernel. On the card, raises if
+    any of ``inputs`` requires grad while grad mode is on: the kernel's
+    output would carry no gradient back to it."""
     if t.device.type == "cuda":
+        if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+            raise RuntimeError(
+                f"{op}: the CUDA kernel has no backward pass, and an input "
+                "requires grad; differentiate the plain route "
+                "(models.layers: plain=True)")
         return True
     if t.device.type == "cpu":
         return False
@@ -41,7 +52,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     256 and 256); bfloat16 takes head dims that are multiples of 16 and 16-byte
     aligned pointers and (batch, head, seq) strides (TMA); float32 any
     head dims within those limits."""
-    if _on_cuda(q, "flash_attention"):
+    if _on_cuda(q, "flash_attention", q, k, v):
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    scale=scale, q_offset=q_offset,
                                    kv_len=kv_len)
@@ -57,7 +68,7 @@ def paged_attention(q, k_pool, v_pool, block_table, seq_lens, *,
     the card, each sequence's pages are split across blocks and the splits
     merged in float32 within the call; a KV head's group wider than 2048
     (query heads x padded head dim) is split evenly over blocks."""
-    if _on_cuda(q, "paged_attention"):
+    if _on_cuda(q, "paged_attention", q, k_pool, v_pool):
         return _pa.paged_attention(q, k_pool, v_pool, block_table, seq_lens,
                                    layout=layout, scale=scale, window=window)
     return ref.paged_attention_ref(q, k_pool, v_pool, block_table, seq_lens,
@@ -72,7 +83,7 @@ def scatter_pages_overlay(spec: KVPageSpec, pool, block_ids, canon, *,
     [front, front+seq_len) keep their contents. Any canon strides; on the
     card, only the chunks of pages that hold such rows are launched, with
     accesses as wide (up to 16 bytes) as the alignments allow."""
-    if _on_cuda(pool, "scatter_pages_overlay"):
+    if _on_cuda(pool, "scatter_pages_overlay", pool, canon):
         return _kr.scatter_pages_overlay(spec, pool, block_ids, canon,
                                          front=front, seq_len=seq_len)
     return ref.scatter_pages_overlay_ref(spec, pool, block_ids, canon,
@@ -85,7 +96,7 @@ def gather_pages(spec: KVPageSpec, pool, block_ids,
     (L, nb, bs, kv, hd) in ``out_dtype`` (default the pool's). Any pool
     strides; on the card, accesses are as wide (up to 16 bytes) as the
     pointers' and strides' alignment allows."""
-    if _on_cuda(pool, "gather_pages"):
+    if _on_cuda(pool, "gather_pages", pool):
         return _kr.gather_pages(spec, pool, block_ids, out_dtype)
     return ref.gather_pages_ref(spec, pool, block_ids, out_dtype)
 
@@ -95,7 +106,7 @@ def scatter_pages(spec: KVPageSpec, pool, block_ids, canon) -> torch.Tensor:
     (L, N, *page) pool, cast to its dtype; in place, returns ``pool``. Any
     canon strides; on the card, accesses are as wide (up to 16 bytes) as
     the pointers' and strides' alignment allows."""
-    if _on_cuda(pool, "scatter_pages"):
+    if _on_cuda(pool, "scatter_pages", pool, canon):
         return _kr.scatter_pages(spec, pool, block_ids, canon)
     return ref.scatter_pages_ref(spec, pool, block_ids, canon)
 
@@ -105,7 +116,7 @@ def repack(src: KVPageSpec, dst: KVPageSpec, src_pool, src_blocks,
     """Vendor alignment (paper Fig. 3): ``seq_len`` tokens from the src
     pool's pages into the dst pool's, every layer, gathered then
     scattered; in place, returns ``dst_pool``."""
-    if _on_cuda(dst_pool, "repack"):
+    if _on_cuda(dst_pool, "repack", src_pool, dst_pool):
         return _kr.repack(src, dst, src_pool, src_blocks, dst_pool,
                           dst_blocks, seq_len)
     return ref.repack_ref(src, dst, src_pool, src_blocks, dst_pool,

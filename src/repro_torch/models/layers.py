@@ -17,7 +17,11 @@ kernel, both through ``repro_torch.kernels.ops``. Cross-attention runs
 flash non-causal over the memory where one memory length serves the whole
 batch (a prefill, a chunk of one request) and, with a per-sequence length
 (D's decode slots), the plain masked ``sdpa`` on both devices, as the
-reference computes it in no kernel. On the CPU the layers
+reference computes it in no kernel. Training asks for the plain route
+explicitly (``plain=True`` on ``attention_block`` and ``mla_block``;
+``cross_attention`` without ``kv_len``), on the card as well: the kernels
+have no backward pass, and ``ops`` refuses a CUDA input that requires
+grad. On the CPU the layers
 take the plain path the JAX package takes — ``sdpa`` under an additive
 mask, ``paged_cache.paged_attention_ref`` — so the two packages compute
 the same expressions. Caches and pools are updated in place (the JAX code
@@ -291,21 +295,33 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def attention_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
-                    window: int = 0
+                    window: int = 0, lengths: Optional[torch.Tensor] = None,
+                    plain: bool = False
                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Self-attention over a full sequence (prefill). positions: (B,S),
-    0..S-1. Returns (out, (k, v)) — k/v for cache construction."""
+    """Self-attention over a full sequence (prefill, training). positions:
+    (B,S), 0..S-1 (-1 at a training batch's padding). Returns (out,
+    (k, v)) — k/v for cache construction.
+
+    ``plain`` takes ``sdpa`` under the reference's additive masks on any
+    device: the training route, which autograd differentiates (the flash
+    kernel has no backward pass). ``lengths`` (B,) blanks the keys at or
+    past each sequence's length, on the plain route only."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
-    if kernel_route(x):
+    if plain or not kernel_route(x):
+        mask = causal_mask(s, s, 0, window, x.device) if causal else \
+            torch.zeros((1, 1, s, s), device=x.device)
+        if lengths is not None:
+            mask = mask + length_mask(lengths, s)
+        out = sdpa(q, k, v, mask)
+    elif lengths is not None:
+        raise ValueError("per-sequence lengths take the plain route "
+                         "(plain=True)")
+    else:
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal,
                                   window=window, q_offset=0,
                                   kv_len=s).transpose(1, 2)
-    else:
-        mask = causal_mask(s, s, 0, window, x.device) if causal else \
-            torch.zeros((1, 1, s, s), device=x.device)
-        out = sdpa(q, k, v, mask)
     return _out_proj(out, p["wo"]), (k, v)
 
 
@@ -594,15 +610,40 @@ def _mla_expanded_attention(p: Params, cfg: ModelConfig, q_nope, q_pe,
 
 
 def mla_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor
+              positions: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+              plain: bool = False
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Prefill MLA over a whole sequence (positions 0..S-1): the latent
     expanded to per-head K/V and one flash call (dk 192, dv 128). Returns
     (out, (ckv, kpe)) for latent caching. The reference's
     ``_chunked_mla_sdpa`` bounds memory under a distributed context; the
-    flash kernel never materialises the scores."""
+    flash kernel never materialises the scores.
+
+    ``plain`` takes the reference's float32 expression (the nope and rope
+    scores summed, the causal mask plus ``lengths``' mask, softmax, the
+    value product) on any device: the training route, which autograd
+    differentiates. A CPU tensor takes it too. ``lengths`` is taken on
+    that route only."""
     q_nope, q_pe, ckv, kpe = _mla_qkv_latent(p, cfg, x, positions)
-    out = _mla_expanded_attention(p, cfg, q_nope, q_pe, ckv, kpe, 0)
+    if plain or not kernel_route(x):
+        m = cfg.mla
+        s = x.shape[1]
+        k_nope, v = _proj(ckv, p["w_ukv"]).split(
+            [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+        mask = causal_mask(s, s, device=x.device)
+        if lengths is not None:
+            mask = mask + length_mask(lengths, s)
+        scores = (torch.einsum("bqhd,bshd->bhqs", q_nope.float(),
+                               k_nope.float())
+                  + torch.einsum("bqhd,bsd->bhqs", q_pe.float(), kpe.float())
+                  ) * _mla_scale(cfg)
+        probs = torch.softmax(scores + mask, dim=-1)
+        out = torch.einsum("bhqs,bshd->bqhd", probs, v.float()).to(x.dtype)
+    elif lengths is not None:
+        raise ValueError("per-sequence lengths take the plain route "
+                         "(plain=True)")
+    else:
+        out = _mla_expanded_attention(p, cfg, q_nope, q_pe, ckv, kpe, 0)
     return _out_proj(out, p["wo"]), (ckv, kpe)
 
 
@@ -790,6 +831,21 @@ def moe_experts(p: Params, cfg: ModelConfig, x2d: torch.Tensor,
     if e.num_shared_experts:
         y = y + swiglu_mlp(p["shared"], x2d)
     return y
+
+
+def moe_load_balance_loss(p: Params, cfg: ModelConfig,
+                          x: torch.Tensor) -> torch.Tensor:
+    """Switch-style auxiliary loss E * sum_e f_e * P_e of tokens x (..., d):
+    f_e the share of the top-k choices that go to expert e, P_e the mean
+    router probability of e. ``loss_fn`` does not add it, as in the
+    reference."""
+    e = cfg.moe
+    x2d = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax(x2d.float() @ p["router"].float(), dim=-1)
+    _, idx = torch.topk(probs, e.top_k, dim=-1)
+    counts = F.one_hot(idx, e.num_experts).float().sum(dim=(0, 1))
+    frac = counts / torch.clamp_min(counts.sum(), 1.0)
+    return e.num_experts * torch.sum(frac * probs.mean(dim=0))
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:

@@ -23,21 +23,34 @@ cross K/V rows beside the self-attention KV (``L.CrossKVCache``; in the
 paged caches ``cross_k``/``cross_v``/``mem_len`` per slot).
 
 Entry points:
-  encode(params, cfg, frames)                           -> memory (B,S,d)
+  train_forward(params, cfg, batch, remat=True)         -> logits (B,S,V)
+  loss_fn(params, cfg, batch, remat=True)               -> mean NLL ()
+  encode(params, cfg, frames, frame_lengths)            -> memory (B,S,d)
   encoder_cross_kv(params, cfg, memory)                 -> {(gi, pi): (k, v)}
   prefill(params, cfg, inputs, caches)                  -> (last_logits, caches)
   decode_step(params, cfg, tokens, positions, caches)   -> (logits, caches)
   decode_step_embeds(params, cfg, embeds, positions, caches)
                                                         -> (logits, caches)
   decode_step_paged(params, cfg, tokens, seq_lens, ...) -> (logits, caches)
+
+Training (``train_forward``, ``loss_fn``) runs every layer over the whole
+sequence from zero recurrent states, writes no cache and no state, and
+takes the plain attention route on every device (``plain=True``): the
+kernels have no backward pass. Each stacked leaf is unbound once per
+forward (``unbind_layers``), so its backward stacks the layer gradients
+once instead of summing a stack-sized zero tensor per layer; with
+``remat`` each layer runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` around its scan body).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _dev
 from repro_torch.configs.base import ATTN, RECURRENT, SSD, ModelConfig
@@ -90,6 +103,18 @@ def layer_params(stacked: Any, i: int) -> Any:
     if isinstance(stacked, dict):
         return {k: layer_params(v, i) for k, v in stacked.items()}
     return stacked[i]
+
+
+def unbind_layers(stacked: Any) -> List[Any]:
+    """Every layer of a stacked parameter tree, as trees of views: one
+    ``torch.unbind`` per leaf, whose backward stacks the layers' gradients
+    once (indexing each layer, as ``layer_params`` does, would add a
+    stack-sized zero tensor per layer)."""
+    if isinstance(stacked, dict):
+        per_key = {k: unbind_layers(v) for k, v in stacked.items()}
+        count = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(count)]
+    return list(torch.unbind(stacked, 0))
 
 
 # --------------------------------------------------------------------------- #
@@ -152,9 +177,18 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     """Random parameters with the JAX package's shapes and scales, drawn
     from a ``torch.Generator`` seeded with ``seed`` on the target device
     (the card unless ``device="cpu"``)."""
-    dev = _dev.resolve(device)
+    return _init_params(cfg, seed, _dev.resolve(device))
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The parameter tree's shapes and dtypes as tensors on the ``meta``
+    device: nothing is allocated or drawn."""
+    return _init_params(cfg, 0, torch.device("meta"))
+
+
+def _init_params(cfg: ModelConfig, seed: int, dev: torch.device) -> Params:
     groups = block_groups(cfg)
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
     d, v = cfg.d_model, cfg.vocab_size
     p: Params = {
@@ -367,24 +401,26 @@ def _layers(params, cfg: ModelConfig):
 # --------------------------------------------------------------------------- #
 # The encoder (enc-dec)
 # --------------------------------------------------------------------------- #
-def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+def encode(params, cfg: ModelConfig, frames: torch.Tensor,
+           frame_lengths: Optional[torch.Tensor] = None, *,
+           plain: bool = False) -> torch.Tensor:
     """Encoder forward over frame embeddings (B,S,d) (the audio frontend is
     a stub: frames are embeddings): non-causal self-attention with RoPE at
-    positions 0..S-1 (flash with ``causal=False`` on the card), the MLP,
-    then the encoder's final norm. Returns the memory (B,S,d) in the
-    compute dtype."""
+    positions 0..S-1 (flash with ``causal=False`` on the card unless
+    ``plain``), the MLP, then the encoder's final norm. ``frame_lengths``
+    (B,) blanks each sequence's frames at or past its length as keys (the
+    plain route only). Returns the memory (B,S,d) in the compute dtype."""
     x = frames.to(cfg.cdtype)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
     for gi, g in enumerate(encoder_groups(cfg)):
+        per_pos = [unbind_layers(t) for t in params["enc_groups"][gi]]
         for li in range(g.count):
-            for pi, _kind in enumerate(g.kinds):
-                p = layer_params(params["enc_groups"][gi][pi], li)
-                h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
-                out, _ = L.attention_block(p["attn"], cfg, h, positions,
-                                           causal=g.causal)
-                x = _mlp_residual(p, cfg, g.moe, x + out)
+            for pi, kind in enumerate(g.kinds):
+                x = _layer_full(per_pos[pi][li], x, cfg=cfg, g=g, kind=kind,
+                                positions=positions, lengths=frame_lengths,
+                                plain=plain)
     return L.rms_norm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -563,3 +599,111 @@ def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
                            pools["mem_len"])
         x = _mlp_residual(p, cfg, g.moe, x)
     return lm_logits(params, cfg, x), caches
+
+
+# --------------------------------------------------------------------------- #
+# Training
+# --------------------------------------------------------------------------- #
+def _layer_full(p, x: torch.Tensor, *, cfg: ModelConfig, g: Group,
+                kind: str, positions: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None,
+                memory: Optional[torch.Tensor] = None,
+                mem_lengths: Optional[torch.Tensor] = None,
+                plain: bool = True) -> torch.Tensor:
+    """One layer over a whole sequence with no cache (the reference's
+    ``_apply_layer_full`` with ``cache=None``; also the encoder's layer on
+    the serving route, with ``plain=False``): a recurrent or SSD layer
+    from zero states, whose final state is dropped; an attention layer
+    with ``lengths``' mask (the encoder's: non-causal, no window); a
+    decoder layer's cross-attention over ``memory`` under
+    ``mem_lengths`` (plain ``sdpa``)."""
+    b = x.shape[0]
+    if kind == SSD:
+        zero = L.ssm_state_init(b, cfg, x.dtype, x.device).layer(0)
+        h, _ = L.ssd_block(p["ssd"], cfg,
+                           L.rms_norm(p["norm"], x, cfg.norm_eps), zero)
+        return x + h
+    if kind == RECURRENT:
+        zero = L.rglru_state_init(b, cfg, x.dtype, x.device).layer(0)
+        h, _ = L.rglru_block(p["rglru"], cfg,
+                             L.rms_norm(p["norm1"], x, cfg.norm_eps), zero)
+        return _mlp_residual(p, cfg, False, x + h)
+    h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
+    if _is_mla(cfg):
+        out, _ = L.mla_block(p["attn"], cfg, h, positions, lengths=lengths,
+                             plain=plain)
+    else:
+        out, _ = L.attention_block(p["attn"], cfg, h, positions,
+                                   causal=g.causal, lengths=lengths,
+                                   window=_window(cfg) if g.causal else 0,
+                                   plain=plain)
+    x = x + out
+    if g.cross:
+        x = _cross(p, cfg, x, L.cross_attention_kv(p["cross"], cfg, memory),
+                   mem_lengths)
+    return _mlp_residual(p, cfg, g.moe, x)
+
+
+def _merge_frontend(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """(x (B,S,d), positions (B,S), lengths or None) of a training batch:
+    a vision model's patches before the tokens (its lengths then count
+    them); positions at or past a sequence's length are -1. Patches given
+    to another model are ignored, as in the reference."""
+    tokens = batch["tokens"]
+    patches = batch.get("patches") if cfg.frontend.kind == "vision" else None
+    x = merged_embeds(params, cfg, patches, tokens)
+    lengths = batch.get("lengths")
+    if lengths is not None and patches is not None:
+        lengths = lengths + patches.shape[1]
+    b, s = x.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    if lengths is not None:
+        positions = torch.where(positions < lengths[:, None], positions,
+                                torch.full_like(positions, -1))
+    return x, positions, lengths
+
+
+def train_forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                  remat: bool = True) -> torch.Tensor:
+    """Teacher-forced logits (B,S,V) of a batch: tokens (B,S), optional
+    lengths (B,), patches (B,P,d) for a vision model (S counts them),
+    frames (B,F,d) and optional frame_lengths (B,) for an enc-dec model.
+    Attention takes the plain route on every device; ``remat`` recomputes
+    each layer's activations in the backward pass."""
+    memory = mem_lengths = None
+    if cfg.is_enc_dec:
+        mem_lengths = batch.get("frame_lengths")
+        memory = encode(params, cfg, batch["frames"], mem_lengths, plain=True)
+    x, positions, lengths = _merge_frontend(params, cfg, batch)
+    for gi, g in enumerate(block_groups(cfg)):
+        per_pos = [unbind_layers(t) for t in params["groups"][gi]]
+        for li in range(g.count):
+            for pi, kind in enumerate(g.kinds):
+                layer = functools.partial(
+                    _layer_full, cfg=cfg, g=g, kind=kind, positions=positions,
+                    lengths=lengths, memory=memory, mem_lengths=mem_lengths)
+                if remat:
+                    x = checkpoint(layer, per_pos[pi][li], x,
+                                   use_reentrant=False)
+                else:
+                    x = layer(per_pos[pi][li], x)
+    return lm_logits(params, cfg, x)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross-entropy (float32 ``log_softmax``) over the
+    positions whose label is >= 0; a vision model's patch positions take
+    label -1."""
+    logits = train_forward(params, cfg, batch, remat=remat)
+    labels = batch["labels"]
+    if cfg.frontend.kind == "vision" and "patches" in batch:
+        n = batch["patches"].shape[1]
+        labels = torch.cat([labels.new_full((labels.shape[0], n), -1),
+                            labels], dim=1)
+    mask = labels >= 0
+    lab = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(lp, -1, lab[..., None])[..., 0]
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1)

@@ -1123,3 +1123,153 @@ def test_encdec_serving_on_card_matches_cpu(cuda, chunk, wire):
     assert _family_serving(cuda, config_from_dict(ENCDEC_TINY), prompts,
                            chunk, wire, mem_len=12, extra=extra) == {
         "flash_attention", "paged_attention", "scatter_pages_overlay"}
+
+
+# --------------------------------------------------------------------------- #
+# Training on the card: the plain attention route, no kernel
+# --------------------------------------------------------------------------- #
+_TINY = dict(num_layers=3, d_model=64, num_heads=4, num_kv_heads=4,
+             head_dim=16, d_ff=128, vocab_size=128, param_dtype="float32",
+             compute_dtype="float32")
+# tests/conftest.py's TINY_FAMILIES, as dicts (that file imports JAX)
+TRAIN_FAMILIES = {
+    "dense": dict(family="dense"),
+    "dense-bias-qknorm": dict(family="dense", qkv_bias=True, qk_norm=True,
+                              num_kv_heads=2),
+    "sliding": dict(family="dense", attention_kind="sliding",
+                    sliding_window=8),
+    "mla": dict(family="dense", attention_kind="mla",
+                mla=dict(kv_lora_rank=32, qk_nope_head_dim=16,
+                         qk_rope_head_dim=8, v_head_dim=16)),
+    "moe": dict(family="moe", moe=dict(num_experts=4, num_shared_experts=1,
+                                       top_k=2, d_ff_expert=32,
+                                       first_dense_layers=1)),
+    "hybrid": dict(family="hybrid", attention_kind="sliding",
+                   sliding_window=8, num_layers=5,
+                   recurrent=dict(lru_width=64, d_conv=4,
+                                  block_pattern=("rglru", "rglru", "attn"))),
+    "ssm": dict(family="ssm", attention_kind="none", num_kv_heads=0, d_ff=0,
+                num_heads=8, ssm=dict(d_state=16, head_dim=16, expand=2,
+                                      d_conv=4, chunk_size=4)),
+    "encdec": dict(family="audio", encoder_layers=2,
+                   frontend=dict(kind="audio")),
+    "vlm": dict(family="vlm", num_kv_heads=2,
+                frontend=dict(kind="vision", num_patches=4)),
+}
+
+
+@pytest.mark.parametrize("family", sorted(TRAIN_FAMILIES))
+def test_train_step_on_card_matches_cpu(cuda, family):
+    """One float32 train step of each tiny family on the card against the
+    same step on the CPU: loss within rtol 1e-5, every leaf's gradient
+    within rtol 1e-4 and an atol of 1e-5 times its largest element (at
+    least 1e-5: the tiny families' gradients reach 5, and float32 sums in
+    another order differ by a few ulps of the leaf's scale), parameters
+    after the step within atol 5e-3 at lr 1e-3 (tests/test_training.py's
+    bound); no kernel launches."""
+    from repro_torch.training import optim as TO
+    from repro_torch.training import train_step as TT
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.tree import leaves
+    cfg = config_from_dict(dict(_TINY, name=family, **TRAIN_FAMILIES[family]))
+    host = next(iter(SyntheticTokens(cfg, DataConfig(batch_size=2,
+                                                     seq_len=16, seed=0))))
+    opt = TO.AdamWConfig(lr=1e-3, warmup_steps=0)
+
+    def run(dev):
+        state = TT.train_state_init(cfg, seed=0, device="cpu")
+        state = TT.TrainState(*(_to_dev(t, dev) for t in (state.params,
+                                                         state.opt)))
+        batch = TT.device_batch(host, dev)
+        _, grads = TT.loss_and_grads(cfg, state.params, batch)
+        state, m = TT.make_train_step(cfg, opt)(state, batch)
+        return (float(m["loss"]), [g.cpu() for g in leaves(grads)],
+                [p.cpu() for p in leaves(state.params)])
+
+    ops.reset_launch_counts()
+    loss, grads, params = run(cuda)
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    loss0, grads0, params0 = run(torch.device("cpu"))
+    np.testing.assert_allclose(loss, loss0, rtol=1e-5)
+    for g, g0 in zip(grads, grads0):
+        scale = max(1.0, float(g0.abs().max()))
+        np.testing.assert_allclose(g.numpy(), g0.numpy(), rtol=1e-4,
+                                   atol=1e-5 * scale)
+    for p, p0 in zip(params, params0):
+        np.testing.assert_allclose(p.numpy(), p0.numpy(), atol=5e-3)
+
+
+def _to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to_dev(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def _grad_inputs(cuda):
+    """One small call of each ``ops`` wrapper: (name, fn(grad_input))."""
+    rng = np.random.default_rng(40)
+    spec = KVPageSpec(4, "nbhd", "float32", 2, 16)
+    pool, ids = _pool_and_ids(rng, spec, 1, 8, 2, cuda)
+    canon = _rand(rng, (1, 2, 4, 2, 16), "float32", cuda)
+    q4 = _rand(rng, (1, 2, 8, 16), "float32", cuda)
+    q3 = _rand(rng, (2, 2, 16), "float32", cuda)
+    table = torch.tensor([[1, 3], [5, 7]], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([6, 8], dtype=torch.int32, device=cuda)
+    return [
+        ("flash_attention", q4, lambda x: ops.flash_attention(x, q4, q4)),
+        ("paged_attention", pool[0],
+         lambda x: ops.paged_attention(q3, x, pool[0], table, lens)),
+        ("scatter_pages_overlay", canon,
+         lambda x: ops.scatter_pages_overlay(spec, pool.clone(), ids, x,
+                                             front=0, seq_len=8)),
+        ("gather_pages", pool, lambda x: ops.gather_pages(spec, x, ids)),
+        ("scatter_pages", canon,
+         lambda x: ops.scatter_pages(spec, pool.clone(), ids, x)),
+        ("repack", pool,
+         lambda x: ops.repack(spec, spec, x, ids, pool.clone(), ids, 8)),
+    ]
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "paged_attention",
+                                "scatter_pages_overlay", "gather_pages",
+                                "scatter_pages", "repack"])
+def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda, op):
+    """The kernels have no backward pass: a CUDA input that requires grad
+    raises while grad mode is on (the output would carry no gradient), and
+    launches under ``torch.no_grad()``."""
+    name, x, call = next(c for c in _grad_inputs(cuda) if c[0] == op)
+    live = x.detach().clone().requires_grad_()
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        call(live)
+    assert ops.launch_counts()[name] == 0
+    with torch.no_grad():
+        call(live)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == 1
+
+
+def test_attention_block_serving_route_still_launches_flash(cuda):
+    """``attention_block`` on a CUDA tensor launches flash once (the serving
+    route); ``plain=True`` launches nothing and agrees within 1e-5; the
+    kernel route refuses parameters that require grad."""
+    cfg = config_from_dict(dict(_TINY, name="t", family="dense",
+                                num_kv_heads=2, qk_norm=True))
+    params = TM.init_params(cfg, seed=3, device=cuda)
+    p = params["groups"][0][0]["attn"]
+    p = {k: v[0] for k, v in p.items()}
+    x = torch.randn((2, 24, 64), generator=torch.Generator(device=cuda)
+                    .manual_seed(0), device=cuda)
+    pos = torch.arange(24, device=cuda)[None].expand(2, 24)
+    ops.reset_launch_counts()
+    got, _ = TL.attention_block(p, cfg, x, pos)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want, _ = TL.attention_block(p, cfg, x, pos, plain=True)
+    assert ops.launch_counts()["flash_attention"] == 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-5)
+    live = {k: v.detach().requires_grad_() for k, v in p.items()}
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        TL.attention_block(live, cfg, x, pos)
