@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, then runs fourteen phases, each printing JSON lines:
+nvcc, then runs fifteen phases, each printing JSON lines:
 
   0. card: name and power limit (``nvidia-smi``), kernel build time, and
      the count of HGMMA (wgmma), UTMALDG (TMA load), SYNCS (mbarrier),
@@ -220,16 +220,49 @@ nvcc, then runs fourteen phases, each printing JSON lines:
      train state saved from the card by the async checkpoint writer and
      restored onto it bit for bit, the next step's loss equal within
      1e-6. No kernel may launch in phase 13.
+ 14. the launch layer (``repro_torch.launch``: the cell grid, deploy
+     configs, the step builders on the one-card mesh, the roofline).
+     14a: Qwen3-4B's prefill_32k -> handoff -> decode_32k at full width
+     and all 36 layers, both cells cut to batch 2: the prefill of 2 x
+     32,768 random tokens from the seed, the handoff into D's 32,896-slot
+     caches, 4 greedy decode steps. Exactly 36 + 4 x 36 flash launches;
+     D's caches bf16 and equal to P's bit for bit in slots 0..32,767,
+     pos -1 in the pad slots; every logit finite; the one-shot prefill's
+     last logits within PHASE14_LOGIT_STEPS bf16 steps (at the logits'
+     largest magnitude) of a prefill in 512-token chunks (``decode_step``
+     over a full-capacity cache, the q_offset flash route; the same flash
+     kernel on both sides, so this holds the launch path, not the
+     kernel), the argmax equal or the top-2 gap within the bound; layer
+     0's 32k flash call on its last 512 query rows, and the decode step's
+     one-row call, against the float32 plain version by the yardstick
+     (FLASH_VS_SDPA); the roofline (``analyze_step`` on ``meta`` at full
+     depth as the card runs it, the nominal H100 SXM constants) beside
+     the measured seconds. 14b:
+     DeepSeek-V2-Lite's prefill_32k at full width and all 27 layers,
+     batch 1: exactly 27 flash launches (dk 192 / dv 128 at 32,768
+     keys), finite logits, the capacity MoE (factor 1.25) under
+     ``moe_shard_map`` with each layer's dropped share printed, and 2
+     layers at 4,096 tokens under capacity factor 8 (no pair dropped)
+     within PHASE14_LOGIT_STEPS bf16 steps of the exact ``moe_experts``;
+     the MLA flash call by the yardstick. 14c:
+     Qwen3-4B's train_4k through ``make_train_artifacts`` cut to 2 x
+     4,096 tokens in 2 micro-batches: finite loss and grad norm, no
+     kernel, no ``chunked_sdpa``; the MFU (6·N·D over the step seconds
+     and the nominal 989.4 TFLOP/s). Each sub-phase prints
+     ``mem_get_info`` before it, its peak memory and the predictions
+     written before the phase first ran on the card
+     (``PHASE14_PREDICTED``).
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
 processes report at shutdown, phase 12 those of every worker it
 started, zeroed after its warmup). The kernels line gives each kernel's
 launches on every serving phase (phases 3-12, none on phase 9; 0 on
-phase 13, training), and its
+phase 13, training; phase 14: 14a's and 14b's main paths), and its
 timing at phase 7's MLA shape (``"mla"``), phase 8's RecurrentGemma
 shape (``"rg"``), phase 10's InternVL2 shape (``"vlm"``), phase 11's
-Whisper shape (``"encdec"``) and phase 12's (``"load"``) where those
+Whisper shape (``"encdec"``), phase 12's (``"load"``) and phase 14's
+32k shapes (``"launch_p"``, ``"launch_d"``, ``"launch_k"``) where those
 phases run it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
@@ -374,6 +407,38 @@ PHASE13_CKPT_MODEL = dict(name="ckpt-tiny", family="dense", num_layers=2,
                           d_model=64, num_heads=4, num_kv_heads=2,
                           head_dim=16, d_ff=128, vocab_size=256,
                           qk_norm=True)
+
+
+# phase 14: the launch layer (cells, deploy configs, step builders, the
+# roofline) on one card. 14a: Qwen3-4B's prefill_32k -> handoff ->
+# decode_32k at full width and all 36 layers, both cells cut to batch 2
+# (from 32 and 128); 14b: DeepSeek-V2-Lite's prefill_32k at full width and
+# all 27 layers, batch 1 (from 32), the capacity MoE under moe_shard_map;
+# 14c: Qwen3-4B's train_4k cut to 2 x 4096 tokens in 2 micro-batches (from
+# 256 x 4096 in 16). The predictions were written down before the phase first
+# ran on the card and are printed beside what is measured.
+MODEL14, MODEL14B = "qwen3-4b", "deepseek-v2-lite-16b"
+PHASE14_BATCH = {"14a": 2, "14b": 1, "14c": 2}
+PHASE14_DECODE_STEPS = 4
+PHASE14_CHECK_CHUNK = 512     # the chunked cross-check's decode_step chunk
+PHASE14_FLASH_ROWS = 512      # query rows of the 32k slice held to plain
+# 14a's one-shot vs chunked last logits and 14b's capacity MoE vs the
+# exact moe_experts: at most this many bf16 steps at the logits' largest
+# magnitude (both read 0.0 on the card: NVIDIA H100 80GB HBM3, 700.00 W)
+PHASE14_LOGIT_STEPS = 1
+PHASE14B_PARITY = dict(layers=2, seq=4096, capacity_factor=8.0)
+PHASE14C_TRAIN = dict(warmup=1, timed=2)
+PHASE14_PREDICTED = {
+    "14a": {"flash_launches": 36 + 4 * 36, "prefill_s": [2.5, 4.0],
+            "decode_ms_per_step": [10.0, 60.0],
+            "max_abs_logit_gap": [0.01, 0.15], "peak_gib": [26, 40],
+            "flash_slice_max_abs_err": [0.0, 2e-2]},
+    "14b": {"flash_launches": 27, "prefill_s": [1.5, 6.0],
+            "peak_gib": [33, 45], "parity_max_abs": [0.005, 0.05],
+            "dropped_share": [0.0, 0.05]},
+    "14c": {"step_s": [4.2, 4.7], "peak_gib": [66, 70],
+            "mfu": [0.046, 0.052]},
+}
 
 
 def emit(obj) -> None:
@@ -4151,6 +4216,509 @@ def phase13(dev):
     return {"launches": ops.launch_counts(), **parts}
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: the launch layer
+# --------------------------------------------------------------------------- #
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mem_line(dev, part: str) -> None:
+    """``torch.cuda.mem_get_info()`` before a sub-phase, after freeing the
+    last one's tensors."""
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.init()          # phase 14 alone: nothing ran before it
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        free, total = torch.cuda.mem_get_info(dev)
+        emit({"phase": 14, "part": part,
+              "mem_get_info_gib": [free / 2 ** 30, total / 2 ** 30]})
+
+
+def _peak_gib(dev):
+    import torch
+    return (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None)
+
+
+@contextlib.contextmanager
+def capture_calls(module, name: str, keep: int = 1):
+    """Records the arguments of the first ``keep`` calls of
+    ``module.name`` (forwarded unchanged) in the yielded list."""
+    real = getattr(module, name)
+    seen = []
+
+    def spy(*args, **kwargs):
+        if len(seen) < keep:
+            seen.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def expect_flash(part: str, launches, n: int) -> None:
+    """The part launched flash exactly ``n`` times and no other kernel."""
+    check_launched(14, launches, ("flash_attention",))
+    if launches["flash_attention"] != n:
+        raise AssertionError(f"phase {part}: {launches['flash_attention']} "
+                             f"flash launches, the path makes {n}")
+
+
+def bf16_step(x) -> float:
+    """One bfloat16 step (the spacing of bf16 values) at the largest
+    magnitude in ``x``."""
+    import math
+    top = float(x.float().abs().max())
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def phase14_flash_row(dev, shape: str, call, rows: int = 0):
+    """Flash at a shape the launch path gives it (``call``: the captured
+    (args, kwargs) of one launch, q/k/v as the model passes them): its
+    output's last ``rows`` query rows (all when 0) against the float32
+    plain version by the yardstick (FLASH_VS_SDPA: max and mean error at
+    most twice SDPA's on the same rows; SDPA with no backend for these
+    dims fails the phase); then the kernel's times (events, graph replay,
+    host), the plain version's on those rows, SDPA's at the full shape
+    (k/v repeated to the query heads; ``is_causal`` from position 0, else
+    a boolean mask) and the bound (the visible keys' products in bf16, or
+    q, the visible K/V rows and o once each)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    (q, k, v), kw = call
+    b, h, sq, dk = q.shape
+    kvh, dv = k.shape[1], v.shape[3]
+    q_offset, kv_len = kw.get("q_offset", 0), kw.get("kv_len") or k.shape[2]
+    scale = kw.get("scale")
+
+    def kernel():
+        return ops.flash_attention(q, k, v, **kw)
+
+    rows = rows or sq
+    qs = q[:, :, sq - rows:]
+    ks, vs = k[:, :, :kv_len], v[:, :, :kv_len]
+
+    def plain():
+        return ref.flash_attention_ref(qs.float(), ks.float(), vs.float(),
+                                       causal=True, scale=scale,
+                                       q_offset=q_offset + sq - rows)
+
+    grp = h // kvh
+    kr = ks.repeat_interleave(grp, 1) if grp > 1 else ks
+    vr = vs.repeat_interleave(grp, 1) if grp > 1 else vs
+    mask = None if q_offset == 0 and sq == kv_len else \
+        flash_mask(sq, kv_len, q_offset, 0, dev)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q, kr, vr, attn_mask=mask, is_causal=mask is None, scale=scale)
+
+    ops.reset_launch_counts()
+    got = kernel()[:, :, sq - rows:]
+    want = plain()
+    yard = _yardstick(f"14 flash {shape}", got, want,
+                      library()[:, :, sq - rows:])
+    del got, want
+    t = time_all(kernel, plain, library, iters=3, plain_iters=2)
+    visible = ops.flash_visible_keys(sq, kv_len, q_offset=q_offset)
+    flops = 2.0 * b * h * visible * (dk + dv)
+    nbytes = (q.numel() + b * h * sq * dv) * q.element_size() \
+        + b * kvh * (visible // sq if sq == 1 else kv_len) * (dk + dv) \
+        * k.element_size()
+    t["bound_ms"], t["bound_by"] = bound(flops, nbytes, "bfloat16")
+    t.update(shape=shape, q=list(q.shape), k=list(k.shape),
+             v=list(v.shape), q_offset=q_offset, kv_len=kv_len,
+             rows_checked=rows, **yard)
+    return t
+
+
+def phase14_roofline(mesh, arts, measured_s: float, tokens: int, mode: str):
+    """``analyze_step`` of ``arts`` (the builder and the cell) on the meta
+    mesh, once at full depth as the card runs it (flash's products are the
+    visible keys'; caches updated in place counted once), on the nominal
+    H100 SXM constants; beside the measured seconds."""
+    from repro_torch.launch.mesh import shape_only
+    from repro_torch.roofline import analysis as RA
+    make, cell = arts
+    a = make(cell, shape_only(mesh))
+    terms = RA.analyze_step(a.fn, *a.abstract_args)
+    secs = terms.seconds(RA.H100_SXM)
+    return {"flops": terms.flops, "flash_flops": terms.flash_flops,
+            "hbm_bytes": terms.hbm_bytes,
+            "compute_s": secs["compute"], "memory_s": secs["memory"],
+            "dominant": terms.dominant(RA.H100_SXM),
+            "roofline_s": terms.step_time(RA.H100_SXM),
+            "measured_s": measured_s,
+            "measured_over_roofline": measured_s
+            / terms.step_time(RA.H100_SXM),
+            "useful_ratio": RA.useful_ratio(cell.arch, mode, tokens,
+                                            terms.flops),
+            "hw": f"{RA.H100_SXM.name} nominal "
+                  f"({RA.H100_SXM.peak_flops:.4g} FLOP/s, "
+                  f"{RA.H100_SXM.hbm_bw:.4g} B/s)"}
+
+
+def phase14a(dev):
+    """Qwen3-4B: the launch prefill (2 x 32,768) → handoff → 4 greedy
+    decode steps through the step builders on the one-card mesh. Checks:
+    exactly 36 + 4 x 36 flash launches; D's caches bf16, equal to P's bit
+    for bit in slots 0..32,767 and pos -1 in the 128 pad slots; every
+    logit finite; the one-shot prefill's last logits within
+    PHASE14_LOGIT_STEPS bf16 steps of a chunked prefill (``decode_step``
+    in 512-token chunks over a full-capacity cache: 64 chunks through the
+    q_offset flash route; the same kernel as the one-shot, so this holds
+    the launch path and not the kernel), the argmax equal or the one-shot
+    top-2 gap within the bound; layer 0's 32k flash call's last 512 rows
+    against the plain version by the yardstick (``phase14_flash_row``,
+    also the decode step's flash call)."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.cells import get_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    t_part = time.perf_counter()
+    _mem_line(dev, "14a")
+    if dev.type == "cuda":         # built in phase 0; alone, build first
+        from repro_torch.kernels import _build
+        _build.load()
+    b = PHASE14_BATCH["14a"]
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    cell_p = dc.replace(get_cell(MODEL14, "prefill_32k"), batch=b)
+    cell_d = dc.replace(get_cell(MODEL14, "decode_32k"), batch=b)
+    pre = S.make_prefill_artifacts(cell_p, mesh)
+    srv = S.make_serve_artifacts(cell_d, mesh)
+    ho = S.make_handoff_artifacts(MODEL14, mesh, batch=b)
+    cfg = pre.cfg
+    s = cell_p.seq_len
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    inputs = S.random_inputs(pre.abstract_args[1], cfg.vocab_size, SEED, dev)
+    ops.reset_launch_counts()
+    with torch.no_grad(), capture_calls(ops, "flash_attention") as pf:
+        _sync(dev)
+        t0 = time.perf_counter()
+        last, caches_p = pre.fn(params, inputs)
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        caches_d = ho.fn(caches_p)
+        _sync(dev)
+        handoff_s = time.perf_counter() - t0
+    bad = []
+    for cp, cd in zip((c for g in caches_p for c in g),
+                      (c for g in caches_d for c in g)):
+        if not (cd.k.dtype == cd.v.dtype == torch.bfloat16
+                and cd.full_capacity
+                and cd.k.shape[2] == cell_d.decode_capacity()
+                and torch.equal(cd.k[:, :, :s], cp.k)
+                and torch.equal(cd.v[:, :, :s], cp.v)
+                and torch.equal(cd.pos[:, :, :s], cp.pos)
+                and bool((cd.pos[:, :, s:] == -1).all())):
+            bad.append(tuple(cd.k.shape))
+    del caches_p
+    gc.collect()
+    tok = last.argmax(-1).to(torch.int32)[:, None]
+    steps_ms, tokens = [], [tok]
+    with torch.no_grad(), capture_calls(ops, "flash_attention") as df:
+        for i in range(PHASE14_DECODE_STEPS):
+            io = {"tokens": tok, "positions": torch.full_like(tok, s + i)}
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, caches_d = srv.fn(params, caches_d, io, q_offset=s + i)
+            _sync(dev)
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            tokens.append(tok)
+            if not bool(torch.isfinite(logits).all()):
+                bad.append(f"decode step {i}: non-finite logits")
+    launches = ops.launch_counts()
+    peak_main = _peak_gib(dev)
+    flash_d = phase14_flash_row(dev, "decode_32k", df[0])
+    del caches_d, df               # df[0] holds views of D's caches
+    gc.collect()
+    # the chunked cross-check: the same parameters and tokens
+    c = PHASE14_CHECK_CHUNK
+    with torch.no_grad():
+        caches_c = M.init_caches(cfg, b, s, full_capacity=True, device=dev)
+        for i in range(0, s, c):
+            pos = torch.arange(i, i + c, dtype=torch.int32,
+                               device=dev)[None].expand(b, c)
+            lc, caches_c = M.decode_step(params, cfg,
+                                         inputs["tokens"][:, i:i + c], pos,
+                                         caches_c, q_offset=i)
+        chunked = lc[:, -1].float()
+        del caches_c, lc
+    one = last.float()
+    gap = float((one - chunked).abs().max())
+    logit_bound = PHASE14_LOGIT_STEPS * bf16_step(one)
+    top2 = one.topk(2, dim=-1).values
+    same = (one.argmax(-1) == chunked.argmax(-1)).tolist()
+    top2_gap = (top2[:, 0] - top2[:, 1]).tolist()
+    finite = bool(torch.isfinite(one).all())
+    peak_check = _peak_gib(dev)
+    flash_p = phase14_flash_row(dev, "prefill_32k", pf[0],
+                                PHASE14_FLASH_ROWS)
+    del pf
+    roof_p = phase14_roofline(mesh, (S.make_prefill_artifacts, cell_p),
+                              prefill_s, b * s, "prefill")
+    roof_d = phase14_roofline(mesh, (S.make_serve_artifacts, cell_d),
+                              float(np.median(steps_ms)) / 1e3, b, "decode")
+    out = {"phase": 14, "part": "14a",
+           "model": f"{cfg.name} x{cfg.num_layers} layers "
+                    f"{cfg.compute_dtype}", "batch": b, "seq_len": s,
+           "decode_capacity": cell_d.decode_capacity(),
+           "prefill_s": prefill_s, "prefill_tokens_per_s": b * s / prefill_s,
+           "handoff_s": handoff_s, "decode_ms": steps_ms,
+           "decode_ms_per_step": float(np.median(steps_ms)),
+           "tokens": torch.cat(tokens, 1).tolist(),
+           "flash_launches": launches.get("flash_attention", 0),
+           "launches": launches, "peak_gib": peak_main,
+           "peak_gib_with_check": peak_check,
+           "max_abs_logit_gap": gap, "logit_bound": logit_bound,
+           "argmax_equal": same,
+           "one_shot_top2_gap": top2_gap, "logits_finite": finite,
+           "flash_prefill_32k": flash_p, "flash_decode_32k": flash_d,
+           "roofline_prefill": roof_p, "roofline_decode": roof_d,
+           "problems": bad, "predicted": PHASE14_PREDICTED["14a"]}
+    del params, inputs, last
+    out["part_s"] = round(time.perf_counter() - t_part, 3)
+    emit(out)
+    if bad:
+        raise AssertionError(f"phase 14a: {bad}")
+    expect_flash("14a", launches, cfg.num_layers * (1 + PHASE14_DECODE_STEPS))
+    if not finite:
+        raise AssertionError("phase 14a: non-finite prefill logits")
+    for ok, g in zip(same, top2_gap):
+        if not ok and not g <= logit_bound:
+            raise AssertionError(f"phase 14a: argmax differs with a top-2 "
+                                 f"gap of {g} > {logit_bound}")
+    if not gap <= logit_bound:
+        raise AssertionError(f"phase 14a: one-shot vs chunked last logits "
+                             f"differ by {gap} > {logit_bound}")
+    return {"launches": launches, "timing": {"launch_p": flash_p,
+                                             "launch_d": flash_d}, **out}
+
+
+def phase14b(dev):
+    """DeepSeek-V2-Lite's launch prefill at 1 x 32,768: expanded-MLA flash
+    (dk 192 / dv 128) and the capacity MoE under ``moe_shard_map``.
+    Checks: 27 flash launches and no other kernel; finite logits; then
+    2 layers (one dense, one MoE) at the same widths and 4,096 tokens under
+    a one-card ``DistContext`` at capacity factor 8.0 (no pair dropped)
+    against the serving path's exact ``moe_experts`` on the same
+    parameters, within PHASE14_LOGIT_STEPS bf16 steps of the logits'
+    largest magnitude; the MLA flash call's last 512 rows against the
+    plain version by the yardstick. Prints the share of routed
+    pairs each MoE layer's windows drop, from the group sizes read after
+    the run."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.cells import get_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import dist
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    t_part = time.perf_counter()
+    _mem_line(dev, "14b")
+    b = PHASE14_BATCH["14b"]
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    cell = dc.replace(get_cell(MODEL14B, "prefill_32k"), batch=b)
+    pre = S.make_prefill_artifacts(cell, mesh)
+    cfg = pre.cfg
+    s = cell.seq_len
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    inputs = S.random_inputs(pre.abstract_args[1], cfg.vocab_size, SEED, dev)
+    sizes = []
+    real_capacity = L._moe_mlp_capacity
+
+    def traced(p, cfg_, x, capacity_factor=1.25):
+        _, idx = L.moe_route(p, cfg_, x.reshape(-1, x.shape[-1]))
+        flat = idx.reshape(-1)
+        sizes.append((torch.zeros(cfg_.moe.num_experts, dtype=torch.int64,
+                                  device=x.device).scatter_add_(
+            0, flat, torch.ones_like(flat)), x.reshape(-1, x.shape[-1])
+            .shape[0], capacity_factor))
+        return real_capacity(p, cfg_, x, capacity_factor=capacity_factor)
+
+    ops.reset_launch_counts()
+    L._moe_mlp_capacity = traced
+    try:
+        with torch.no_grad(), capture_calls(ops, "flash_attention") as kf:
+            _sync(dev)
+            t0 = time.perf_counter()
+            last, caches = pre.fn(params, inputs)
+            _sync(dev)
+            prefill_s = time.perf_counter() - t0
+    finally:
+        L._moe_mlp_capacity = real_capacity
+    launches = ops.launch_counts()
+    peak = _peak_gib(dev)
+    finite = bool(torch.isfinite(last).all())
+    dropped = []
+    for g, t, cf in sizes:
+        cap = L.moe_capacity(cfg, t, cf)
+        dropped.append(L.moe_capacity_drops(g.tolist(), cap)
+                       / (t * cfg.moe.top_k))
+    del caches, last
+    flash_k = phase14_flash_row(dev, "mla_prefill_32k", kf[0],
+                                PHASE14_FLASH_ROWS)
+    del kf, params, inputs
+    gc.collect()
+    # the reduced-depth parity of the capacity MoE
+    pr = PHASE14B_PARITY
+    cfg2 = cfg.with_(num_layers=pr["layers"])
+    p2 = M.init_params(cfg2, seed=SEED, device=dev)
+    toks = S.random_inputs({"tokens": torch.empty(
+        (1, pr["seq"]), dtype=torch.int32, device="meta")},
+        cfg.vocab_size, SEED + 1, dev)["tokens"]
+    sizes.clear()
+    ctx = dist.DistContext(mesh=mesh, dp_axes=("data",), model_axis="model",
+                           moe_shard_map=True,
+                           moe_capacity_factor=pr["capacity_factor"])
+    L._moe_mlp_capacity = traced
+    try:
+        with torch.no_grad(), dist.use(ctx):
+            cap_last, _ = M.prefill(p2, cfg2, {"tokens": toks}, M.init_caches(
+                cfg2, 1, pr["seq"], device=dev))
+    finally:
+        L._moe_mlp_capacity = real_capacity
+    with torch.no_grad():
+        exact_last, _ = M.prefill(p2, cfg2, {"tokens": toks}, M.init_caches(
+            cfg2, 1, pr["seq"], device=dev))
+    parity_drops = [L.moe_capacity_drops(g.tolist(),
+                                         L.moe_capacity(cfg2, t, cf))
+                    for g, t, cf in sizes]
+    parity = float((cap_last.float() - exact_last.float()).abs().max())
+    parity_bound = PHASE14_LOGIT_STEPS * bf16_step(exact_last)
+    parity_argmax = bool((cap_last.argmax(-1) == exact_last.argmax(-1))
+                         .all())
+    del p2, cap_last, exact_last
+    out = {"phase": 14, "part": "14b",
+           "model": f"{cfg.name} x{cfg.num_layers} layers "
+                    f"{cfg.compute_dtype}", "batch": b, "seq_len": s,
+           "prefill_s": prefill_s, "prefill_tokens_per_s": b * s / prefill_s,
+           "flash_launches": launches.get("flash_attention", 0),
+           "launches": launches, "peak_gib": peak, "logits_finite": finite,
+           "moe_capacity": L.moe_capacity(cfg, b * s),
+           "dropped_share_by_layer": dropped,
+           "parity": {"layers": pr["layers"], "seq": pr["seq"],
+                      "capacity_factor": pr["capacity_factor"],
+                      "max_abs_logit_gap": parity, "bound": parity_bound,
+                      "argmax_equal": parity_argmax,
+                      "dropped_pairs": parity_drops},
+           "flash_mla_prefill_32k": flash_k,
+           "predicted": PHASE14_PREDICTED["14b"]}
+    out["part_s"] = round(time.perf_counter() - t_part, 3)
+    emit(out)
+    expect_flash("14b", launches, cfg.num_layers)
+    if not finite:
+        raise AssertionError("phase 14b: non-finite logits")
+    if len(dropped) != cfg.num_layers - cfg.moe.first_dense_layers:
+        raise AssertionError(f"phase 14b: {len(dropped)} capacity MoE calls")
+    if any(parity_drops) or len(parity_drops) != 1:
+        raise AssertionError(f"phase 14b: the parity run dropped pairs "
+                             f"{parity_drops}")
+    if not parity <= parity_bound:
+        raise AssertionError(f"phase 14b: capacity MoE vs exact: {parity} > "
+                             f"{parity_bound}")
+    return {"launches": launches, "timing": {"launch_k": flash_k}, **out}
+
+
+def phase14c(dev):
+    """Qwen3-4B's train_4k through ``make_train_artifacts`` at 2 x 4,096
+    tokens in 2 micro-batches: one warmup and PHASE14C_TRAIN's timed
+    steps. Checks: finite loss and grad_norm, grad_norm > 0, no kernel
+    launched, ``chunked_sdpa`` not called (chunk_kv 8192 > 4096). Prints
+    the MFU: ``model_flops`` (6·N·D) over the step seconds and the nominal
+    989.4 TFLOP/s."""
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.cells import get_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.roofline import analysis as RA
+    from repro_torch.training.train_step import train_state_init
+    t_part = time.perf_counter()
+    _mem_line(dev, "14c")
+    b = PHASE14_BATCH["14c"]
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    cell = dc.replace(get_cell(MODEL14, "train_4k"), batch=b, n_micro=2)
+    art = S.make_train_artifacts(cell, mesh)
+    state = train_state_init(art.cfg, seed=SEED, device=dev)
+    tokens = b * cell.seq_len
+    flops = RA.model_flops(MODEL14, "train", tokens)
+    ops.reset_launch_counts()
+    secs, losses, gnorms = [], [], []
+    with capture_calls(L, "chunked_sdpa") as chunked:
+        for i in range(PHASE14C_TRAIN["warmup"] + PHASE14C_TRAIN["timed"]):
+            batch = S.random_inputs(art.abstract_args[1], art.cfg.vocab_size,
+                                    SEED + i, dev)
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, m = art.fn(state, batch)
+            _sync(dev)
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+    launches = ops.launch_counts()
+    peak = _peak_gib(dev)
+    timed = secs[PHASE14C_TRAIN["warmup"]:]
+    step_s = float(np.median(timed))
+    del state
+    out = {"phase": 14, "part": "14c", "model": f"{art.cfg.name} x"
+           f"{art.cfg.num_layers} layers {art.cfg.compute_dtype}",
+           "batch": [b, cell.seq_len], "n_micro": cell.n_micro,
+           "step_s": secs, "step_s_median": step_s,
+           "tokens_per_s": tokens / step_s, "losses": losses,
+           "grad_norms": gnorms, "peak_gib": peak,
+           "model_flops": flops, "mfu": flops / step_s / RA.H100_SXM.peak_flops,
+           "mfu_peak": f"{RA.H100_SXM.name} nominal "
+                       f"{RA.H100_SXM.peak_flops:.4g} FLOP/s",
+           "chunked_sdpa_calls": len(chunked), "launches": launches,
+           "predicted": PHASE14_PREDICTED["14c"]}
+    out["part_s"] = round(time.perf_counter() - t_part, 3)
+    emit(out)
+    if not (all(np.isfinite(losses)) and all(np.isfinite(gnorms))
+            and min(gnorms) > 0):
+        raise AssertionError(f"phase 14c: losses {losses}, grad norms "
+                             f"{gnorms}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 14c: training launched {launches}")
+    if chunked:
+        raise AssertionError("phase 14c: chunked_sdpa ran at 4,096 tokens")
+    return {"launches": launches, **out}
+
+
+def phase14(dev):
+    """The launch layer: 14a, 14b and 14c. Returns the summed launches of
+    14a's and 14b's main paths and the flash rows' timings."""
+    t_phase = time.perf_counter()
+    parts = {"14a": phase14a(dev), "14b": phase14b(dev)}
+    parts["14c"] = phase14c(dev)
+    launches = collections.Counter()
+    timing = {}
+    for part in parts.values():
+        launches.update(part["launches"])
+        timing.update(part.get("timing", {}))
+    emit({"phase": 14, "phase_s": round(time.perf_counter() - t_phase, 3),
+          "parts_s": {k: v["part_s"] for k, v in parts.items()}})
+    return {"launches": dict(launches), "timing": timing}
+
+
 # (name, source, TPU kernel, the phase whose launches the row reports);
 # every row also carries its launches on every serving phase
 KERNELS = [
@@ -4232,6 +4800,10 @@ def main() -> int:
     gc.collect()                         # the workers are gone: training's
     torch.cuda.empty_cache()             # ~60 GiB
     paths[13] = phase13(dev)
+    gc.collect()                         # training's state: phase 14's
+    torch.cuda.empty_cache()
+    paths[14] = phase14(dev)
+    timings["flash_attention"].update(paths[14]["timing"])
 
     rows = []
     for name, source, replaces, phase in KERNELS:
@@ -4247,8 +4819,9 @@ def main() -> int:
                "device_method": t["device_method"], "host_us": t["host_us"],
                "launches_by_phase": {ph: paths[ph]["launches"][name]
                                      for ph in sorted(paths)}}
-        # at phase 7's, 8's, 10's, 11's and 12's shapes
-        for key in ("mla", "rg", "vlm", "encdec", "load"):
+        # at phase 7's, 8's, 10's, 11's, 12's and 14's shapes
+        for key in ("mla", "rg", "vlm", "encdec", "load", "launch_p",
+                    "launch_d", "launch_k"):
             if key in t:
                 row[key] = {k: t[key][k] for k in (
                     "shape", "max_abs_err", "ms", "device_ms", "plain_ms",

@@ -14,7 +14,10 @@ def resolve(device: DeviceLike = None) -> torch.device:
     """``None`` means the card: ``cuda`` when one is present, else raise.
 
     The port never falls back to the CPU on its own — a CPU run is asked
-    for explicitly with ``device="cpu"`` (the tests do so)."""
+    for explicitly with ``device="cpu"`` (the tests do so). ``"meta"``
+    (shapes and dtypes, nothing allocated or computed: the launch layer's
+    abstract arguments and the roofline's counts) is taken only when
+    asked for by name, never as a default."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -24,7 +27,7 @@ def resolve(device: DeviceLike = None) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -3,7 +3,11 @@
 
 A CPU tensor goes to the kernel's plain PyTorch version in ``ref``; a
 CUDA tensor launches the hand-written kernel or raises. There is no
-fallback from one to the other. The kernels have no backward pass: a
+fallback from one to the other. A ``meta`` tensor (shapes only) goes to
+the plain version too, which computes nothing there; within
+``count_as_card`` (the roofline's count) it takes the card's route
+instead, and ``flash_attention`` tallies the products the kernel does
+rather than those of its plain version. The kernels have no backward pass: a
 CUDA input that requires grad while grad mode is on raises, so that no
 path can drop a gradient silently (training takes the plain attention
 route explicitly, ``models.layers``). Each kernel wrapper counts its launches
@@ -13,7 +17,8 @@ nothing.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -24,6 +29,44 @@ from repro_torch.kernels import ref
 from repro_torch.serving.paged_cache import KVPageSpec
 
 _WRAPPERS = (_fa, _pa, _kr)          # modules holding LAUNCHES by name
+FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+_card_tally: Optional[Dict[str, float]] = None   # set by count_as_card
+
+
+@contextlib.contextmanager
+def count_as_card() -> Iterator[Dict[str, float]]:
+    """Within, ``meta`` tensors take the card's route
+    (``models.layers.kernel_route``), and ``flash_attention`` on them
+    raises where the card raises, returns an uninitialised output and adds
+    the FLOPs the kernel does — each query row against its visible keys
+    only — to the tally it yields, ``{"flash_attention": FLOPs}``."""
+    global _card_tally
+    prev, _card_tally = _card_tally, {}
+    try:
+        yield _card_tally
+    finally:
+        _card_tally = prev
+
+
+def counting_as_card(where) -> bool:
+    """Whether ``where`` (a tensor or a device) is on ``meta`` inside
+    ``count_as_card``."""
+    dev = where.device if isinstance(where, torch.Tensor) else \
+        torch.device(where)
+    return _card_tally is not None and dev.type == "meta"
+
+
+def flash_visible_keys(sq: int, kv_len: int, *, causal: bool = True,
+                       window: int = 0, q_offset: int = 0) -> int:
+    """Keys that the ``sq`` query rows at ``q_offset..`` see in all: below
+    ``kv_len``, at or before the row's position when ``causal``, within
+    ``window`` of it when > 0 — the pairs flash computes."""
+    pos = torch.arange(q_offset, q_offset + sq, dtype=torch.int64)
+    hi = (pos + 1).clamp(max=kv_len) if causal else \
+        torch.full_like(pos, kv_len)
+    lo = (pos - window + 1).clamp(min=0) if window > 0 else \
+        torch.zeros_like(pos)
+    return int((hi - lo).clamp(min=0).sum())
 
 
 def _on_cuda(t: torch.Tensor, op: str, *inputs: torch.Tensor) -> bool:
@@ -37,7 +80,7 @@ def _on_cuda(t: torch.Tensor, op: str, *inputs: torch.Tensor) -> bool:
                 "requires grad; differentiate the plain route "
                 "(models.layers: plain=True)")
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{op}: unsupported device {t.device}")
 
@@ -51,8 +94,24 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     card, dv <= dk <= 256 (MLA's prefill: 192 and 128; RecurrentGemma:
     256 and 256); bfloat16 takes head dims that are multiples of 16 and 16-byte
     aligned pointers and (batch, head, seq) strides (TMA); float32 any
-    head dims within those limits."""
-    if _on_cuda(q, "flash_attention", q, k, v):
+    head dims within those limits. Float8 K/V (a float8 dense cache) on the
+    card raise: the kernel reads bfloat16 or float32."""
+    counted = counting_as_card(q)
+    if counted or _on_cuda(q, "flash_attention", q, k, v):
+        if any(t.dtype in FLOAT8 for t in (k, v)):
+            raise NotImplementedError(
+                f"flash_attention: {k.dtype} K/V on the card; the kernel "
+                "reads bfloat16 or float32 — see ROADMAP queue 1 item 16 "
+                "(flash on float8 caches)")
+        if counted:
+            b, h, sq, dk = q.shape
+            dv = v.shape[-1]
+            seen = flash_visible_keys(
+                sq, k.shape[2] if kv_len is None else kv_len, causal=causal,
+                window=window, q_offset=q_offset)
+            _card_tally["flash_attention"] = _card_tally.get(
+                "flash_attention", 0.0) + 2.0 * b * h * seen * (dk + dv)
+            return q.new_empty((b, h, sq, dv))
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    scale=scale, q_offset=q_offset,
                                    kv_len=kv_len)

@@ -1,0 +1,326 @@
+"""Deploy-time config transforms and the sharding rules of params, caches,
+batches and optimizer state (PyTorch port of ``repro.launch.sharding``).
+
+Scheme (Megatron-style TP on the "model" axis, DP over ("pod", "data")):
+
+  * attention: q/o weights sharded on the head axis; k/v weights on
+    head_dim. Head counts that do not divide the model axis are padded at
+    deploy time (``pad_heads``) for train and prefill programs; decode
+    runs unpadded.
+  * MLP: column (d_ff) then row (d_ff). MoE: expert-TP (d_ff_expert
+    sharded), as ``layers.moe_mlp_dist_specs`` states.
+  * embeddings / LM head: vocab-sharded (padded by ``pad_vocab``).
+  * decode KV caches: sharded on the capacity (sequence) axis; prefill
+    emits head-dim-sharded caches, and the P→D handoff reshards.
+  * ZeRO-1: optimizer moments also sharded over the data axes on the first
+    free divisible dim.
+
+Every rule falls back towards replication when a dim does not divide.
+
+The rules make the reference's decisions over the port's trees. A spec is
+a plain tuple with one entry a dimension — an axis name, a tuple of
+names, or None — and ``()`` is replicated, as ``tuple(PartitionSpec(...))``
+reads. Each ``*_pspecs`` function returns ``{path: spec}`` over a tree's
+tensor leaves in the reference's flattening order, the paths being
+``training.tree``'s (``['groups'][0][0]['attn']['wq']``, ``[0][0].k``).
+Leaf names come from those paths; cache fields are ``k``, ``v``, ``pos``,
+``ckv``, ``kpe``, ``cross_k``, ``cross_v``, ``mem_len``, ``h`` and
+``conv``.
+
+On one card every spec is satisfied by placing the tree on the card:
+``to_shardings`` does that, and raises for a mesh of more devices.
+"""
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Dict, List, Optional, Set, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import Mesh, check_runnable
+from repro_torch.training.tree import leaves_with_paths, tree_map
+
+Spec = Tuple[Any, ...]
+Specs = Dict[str, Spec]
+
+_NAME = re.compile(r"\['([^']*)'\]|\.(\w+)")
+
+
+# --------------------------------------------------------------------------- #
+# Deploy-time config transforms (data alignment)
+# --------------------------------------------------------------------------- #
+def pad_heads(cfg: ModelConfig, axis: int) -> ModelConfig:
+    """Pad num_heads up to a multiple of the model axis, then num_kv_heads
+    up to the nearest divisor of the padded head count (the group stays
+    integral). Identity when already aligned."""
+    h = cfg.num_heads
+    if h <= 0 or cfg.attention_kind == "none":
+        return cfg
+    h2 = math.ceil(h / axis) * axis if h % axis else h
+    kv = max(cfg.num_kv_heads, 1)
+    kv2 = kv
+    while h2 % kv2:
+        kv2 += 1
+    if (h2, kv2) == (h, kv):
+        return cfg
+    # hd stays explicit so padding heads keeps the per-head dim
+    return cfg.with_(num_heads=h2, num_kv_heads=kv2, head_dim=cfg.hd)
+
+
+def pad_vocab(cfg: ModelConfig, axis: int) -> ModelConfig:
+    v = cfg.vocab_size
+    v2 = math.ceil(v / axis) * axis
+    return cfg if v2 == v else cfg.with_(vocab_size=v2)
+
+
+def deploy_config(cfg: ModelConfig, axis: int, mode: str) -> ModelConfig:
+    """The deployed model of a program kind: train and prefill shard
+    attention scores on heads (head padding); decode shards them on the
+    cache's capacity axis (unpadded)."""
+    cfg = pad_vocab(cfg, axis)
+    if mode in ("train", "prefill"):
+        cfg = pad_heads(cfg, axis)
+    return cfg
+
+
+# --------------------------------------------------------------------------- #
+# Trees
+# --------------------------------------------------------------------------- #
+def named_leaves(tree: Any) -> List[Tuple[str, torch.Tensor]]:
+    """(path, tensor) of every tensor leaf in the reference's order; other
+    leaves (a cache's ``full_capacity`` flag) carry no data and are
+    skipped."""
+    return [(p, x) for p, x in leaves_with_paths(tree)
+            if isinstance(x, torch.Tensor)]
+
+
+def storage_ids(tree: Any) -> Set[int]:
+    """The storages that the tensor leaves of a tree lie in (``meta``
+    tensors have storages too, without data): an output in one of an
+    argument's is that argument updated in place."""
+    return {x.untyped_storage()._cdata for _, x in named_leaves(tree)}
+
+
+def path_names(path: str) -> Tuple[str, ...]:
+    """The dict keys and field names along a path, in order."""
+    return tuple(a or b for a, b in _NAME.findall(path))
+
+
+def _leaf_name(path: str) -> str:
+    names = path_names(path)
+    return names[-1] if names else ""
+
+
+# --------------------------------------------------------------------------- #
+# Param rules
+# --------------------------------------------------------------------------- #
+def _div(n: int, size: int) -> bool:
+    return n >= size and n % size == 0
+
+
+def _pick(shape: Tuple[int, ...], prefs: Tuple[int, ...], size: int
+          ) -> Optional[int]:
+    for d in prefs:
+        if d < len(shape) and _div(shape[d], size):
+            return d
+    return None
+
+
+_LEAF_PREFS = {
+    # name: preference order of dims (unstacked leaf coordinates)
+    "embed": (0, 1),          # (V, d)
+    "lm_head": (1, 0),        # (d, V)
+    "wq": (1, 2),             # (d, h, hd)
+    "wk": (2,),               # (d, kv, hd) → hd only (kv never divides)
+    "wv": (2,),
+    "wo": (0, 1),             # (h, hd, d)
+    "bq": (0, 1),             # (h, hd)
+    "bk": (1,),               # (kv, hd)
+    "bv": (1,),
+    "w_ukv": (1,),            # (lora, h, ·)
+    "w_gate": (1,),           # (d, f) | moe (E, d, fe) handled by ndim
+    "w_up": (1,),
+    "w_down": (0,),           # (f, d) | moe (E, fe, d)
+    "w_x": (1,),              # rglru (d, w)
+    "conv_w": (1,),           # rglru (K, w)
+    "conv_b": (0,),
+    "lru_in_w": (1,),         # (w, w)
+    "lru_a_w": (1,),
+    "lru_in_b": (0,),
+    "lru_a_b": (0,),
+    "lam": (0,),
+    "w_out": (0,),            # rglru (w, d)
+}
+
+_MOE_PREFS = {"w_gate": (2,), "w_up": (2,), "w_down": (1,)}     # (E,d,fe)
+_REPLICATED = {"router", "w_dkv", "kv_norm", "q_norm", "k_norm",
+               "norm", "norm1", "norm2", "norm_x", "final_norm", "enc_norm"}
+
+
+def param_pspec(path: str, leaf: torch.Tensor, cfg: ModelConfig,
+                axis_name: str, axis_size: int) -> Spec:
+    """The spec of one param leaf (a group's stacked leaves have a leading
+    ``count`` dim, known from the 'groups' / 'enc_groups' path)."""
+    names = path_names(path)
+    name = names[-1] if names else ""
+    shape = tuple(leaf.shape)
+    off = 1 if ("groups" in names or "enc_groups" in names) else 0
+    base = shape[off:]
+    if "ssd" in names:
+        return ()                      # SSD params replicated
+    if name in _REPLICATED or len(base) <= 1 and name not in _LEAF_PREFS:
+        return ()
+    prefs = _LEAF_PREFS.get(name)
+    if ("mlp" in names and len(base) == 3 and "shared" not in names
+            and name in _MOE_PREFS):
+        prefs = _MOE_PREFS[name]
+    if prefs is None:
+        return ()
+    dim = _pick(base, prefs, axis_size)
+    if dim is None:
+        return ()
+    spec: List[Any] = [None] * len(shape)
+    spec[dim + off] = axis_name
+    return tuple(spec)
+
+
+def param_pspecs(abstract_params: Any, cfg: ModelConfig,
+                 axis_name: str = "model", axis_size: int = 16) -> Specs:
+    return {p: param_pspec(p, x, cfg, axis_name, axis_size)
+            for p, x in named_leaves(abstract_params)}
+
+
+# --------------------------------------------------------------------------- #
+# ZeRO-1 optimizer-state rules
+# --------------------------------------------------------------------------- #
+def zero1_pspec(pspec: Spec, shape: Tuple[int, ...],
+                data_axes: Tuple[str, ...], data_size: int) -> Spec:
+    """Add the data axes on the first unsharded divisible dim (idempotent:
+    a spec that already uses a data axis comes back unchanged)."""
+    spec = list(pspec) + [None] * (len(shape) - len(pspec))
+    used = {a for s in spec if s is not None
+            for a in (s if isinstance(s, tuple) else (s,))}
+    if used & set(data_axes):
+        return tuple(spec)
+    for d, s in enumerate(shape):
+        if spec[d] is None and _div(s, data_size):
+            spec[d] = data_axes if len(data_axes) > 1 else data_axes[0]
+            break
+    return tuple(spec)
+
+
+def zero1_pspecs(abstract_params: Any, pspecs: Specs,
+                 data_axes: Tuple[str, ...], data_size: int) -> Specs:
+    """``zero1_pspec`` over every param leaf (ZeRO-3 weights, the
+    accumulator)."""
+    return {p: zero1_pspec(pspecs[p], tuple(x.shape), data_axes, data_size)
+            for p, x in named_leaves(abstract_params)}
+
+
+def opt_pspecs(abstract_opt: dict, pspecs: Specs,
+               data_axes: Tuple[str, ...], data_size: int) -> Specs:
+    """AdamW's {"mu", "nu", "step"}: each moment leaf gets its param's
+    spec plus the data axes; the step is replicated."""
+    out: Specs = {}
+    for key in ("mu", "nu"):
+        for p, x in named_leaves(abstract_opt[key]):
+            out[f"['{key}']{p}"] = zero1_pspec(pspecs[p], tuple(x.shape),
+                                               data_axes, data_size)
+    out["['step']"] = ()
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Cache + batch rules
+# --------------------------------------------------------------------------- #
+def _dp(batch: int, data_axes: Tuple[str, ...], data_size: int):
+    if not data_axes or not _div(batch, data_size):
+        return None
+    return data_axes if len(data_axes) > 1 else data_axes[0]
+
+
+def cache_pspec(name: str, shape: Tuple[int, ...], batch: int, dp,
+                axis_name: str, axis_size: int, mode: str) -> Spec:
+    """One stacked (count, B, ...) cache leaf: decode caches sharded on
+    capacity (seq), prefill-emitted ones on head_dim; recurrent and SSM
+    states on the batch only (an RG-LRU state also on its width)."""
+    spec: List[Any] = [None] * len(shape)
+    if len(shape) >= 2 and shape[1] == batch:
+        spec[1] = dp
+    # k/v: (count,B,cap,kv,hd); pos: (count,B,cap)
+    if name in ("k", "v"):
+        if mode == "decode" and _div(shape[2], axis_size):
+            spec[2] = axis_name
+        elif mode == "prefill" and _div(shape[4], axis_size):
+            spec[4] = axis_name
+    elif name == "pos" and len(shape) == 3:
+        if mode == "decode" and _div(shape[2], axis_size):
+            spec[2] = axis_name
+    # MLA: ckv (count,B,cap,lora), kpe (count,B,cap,rope)
+    elif name in ("ckv", "kpe"):
+        if mode == "decode" and _div(shape[2], axis_size):
+            spec[2] = axis_name
+    elif name in ("cross_k", "cross_v"):
+        if _div(shape[4], axis_size):
+            spec[4] = axis_name
+    # rglru h: (count,B,w); conv: (count,B,K-1,w)
+    elif name == "h" and len(shape) == 3 and _div(shape[2], axis_size):
+        spec[2] = axis_name
+    elif name == "conv" and len(shape) == 4 and _div(shape[3], axis_size):
+        spec[3] = axis_name
+    # SSM h (count,B,H,P,N) / conv: batch-sharded only
+    return tuple(spec)
+
+
+def cache_pspecs(abstract_caches: Any, cfg: ModelConfig, batch: int,
+                 data_axes: Tuple[str, ...], data_size: int,
+                 axis_name: str = "model", axis_size: int = 16,
+                 mode: str = "decode") -> Specs:
+    dp = _dp(batch, data_axes, data_size)
+    return {p: cache_pspec(_leaf_name(p), tuple(x.shape), batch, dp,
+                           axis_name, axis_size, mode)
+            for p, x in named_leaves(abstract_caches)}
+
+
+def batch_pspecs(abstract_batch: Any, data_axes: Tuple[str, ...],
+                 data_size: int) -> Specs:
+    out: Specs = {}
+    for p, x in named_leaves(abstract_batch):
+        dp = _dp(x.shape[0], data_axes, data_size)
+        out[p] = (dp,) + (None,) * (x.dim() - 1)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Placement and per-chip sizes
+# --------------------------------------------------------------------------- #
+def to_shardings(mesh: Mesh, tree: Any) -> Any:
+    """``tree`` on the mesh's device (every spec holds trivially on one
+    device); tensors already there are returned as they are. Raises for
+    an abstract mesh and for more than one device (``check_runnable``)."""
+    dev = check_runnable(mesh)
+    return tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor)
+                    else x, tree)
+
+
+def spec_ways(spec: Spec, axis_sizes: Dict[str, int]) -> int:
+    """Into how many shards a spec cuts its leaf: the product of the sizes
+    of every axis it names."""
+    n = 1
+    for s in spec:
+        for a in (s if isinstance(s, tuple) else (s,) if s else ()):
+            n *= axis_sizes[a]
+    return n
+
+
+def per_chip_bytes(tree: Any, specs: Specs, axis_sizes: Dict[str, int],
+                   only: Optional[Set[int]] = None) -> int:
+    """Bytes a chip holds of ``tree`` under ``specs``: each leaf's bytes
+    over the product of its spec's axis sizes (replicated leaves whole);
+    with ``only``, of the leaves whose storage is in that set."""
+    return sum(x.numel() * x.element_size()
+               // spec_ways(specs[p], axis_sizes)
+               for p, x in named_leaves(tree)
+               if only is None or storage_ids(x) <= only)

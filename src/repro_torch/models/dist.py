@@ -1,0 +1,67 @@
+"""Distribution context — launch-layer knobs consulted by the model code
+(PyTorch port of ``repro.models.dist``: the same fields and defaults).
+
+The serving engines and the unit tests run with the default context
+(everything off). The launch layer (``repro_torch.launch.steps``) installs
+one to switch on:
+
+  * chunk_kv      — on the plain attention route, chunked (online-softmax)
+                    attention from this sequence length on
+                    (``layers.chunked_sdpa``); it bounds the score buffer
+                    of a 32k prefill. The card's kernel route never
+                    materialises the scores (flash), so it ignores it.
+  * moe_shard_map — with a mesh, the capacity-bounded MoE
+                    (``layers._moe_mlp_capacity``) in place of the exact
+                    per-expert route; on a mesh whose model axis is 1 (one
+                    card) the reference's shard_map body is that function
+                    with a sum over one member.
+  * moe_capacity_factor, chunk_size, attn_p_bf16 — as in the reference.
+  * vocab_parallel — kept for parity; no port code reads it (nor does the
+                    reference's model code).
+  * unroll, act_spec — inert: kept for parity of the fields, set by
+                    nothing and read by nothing. The port's layer loop is
+                    Python (there is no scan to unroll, and a FLOP count
+                    covers every layer), and one device has no sharding
+                    constraint to anchor the residual stream to.
+
+``mesh`` is a ``repro_torch.launch.mesh.Mesh`` or None.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class DistContext:
+    mesh: Any = None
+    dp_axes: Tuple[str, ...] = ()
+    model_axis: Optional[str] = None
+    chunk_kv: int = 0            # 0 = never chunk
+    chunk_size: int = 1024
+    vocab_parallel: bool = False
+    moe_shard_map: bool = False
+    moe_capacity_factor: float = 1.25
+    attn_p_bf16: bool = False    # bf16 probabilities into the PV product
+    unroll: bool = False
+    act_spec: Any = None         # spec of the (B, S, d) residuals
+
+
+_DEFAULT = DistContext()
+_CURRENT = _DEFAULT
+
+
+def ctx() -> DistContext:
+    return _CURRENT
+
+
+@contextlib.contextmanager
+def use(context: DistContext):
+    global _CURRENT
+    prev = _CURRENT
+    _CURRENT = context
+    try:
+        yield context
+    finally:
+        _CURRENT = prev

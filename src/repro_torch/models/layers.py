@@ -60,6 +60,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import dist
 from repro_torch.serving import paged_cache as PC
 
 Params = Dict[str, Any]
@@ -68,8 +69,10 @@ NEG_INF = -1e30
 
 
 def kernel_route(x: torch.Tensor) -> bool:
-    """Attention runs through the hand-written kernels on CUDA tensors."""
-    return x.is_cuda
+    """Attention runs through the hand-written kernels on CUDA tensors,
+    and on ``meta`` tensors counted as the card runs them
+    (``ops.count_as_card``)."""
+    return x.is_cuda or ops.counting_as_card(x)
 
 
 # --------------------------------------------------------------------------- #
@@ -124,6 +127,72 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
     return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+def _pad_chunks(chunk: int, k_pos: torch.Tensor, *kv: torch.Tensor):
+    """Pad the key axis (1) of ``kv`` with zeros and ``k_pos`` with -1 up
+    to a multiple of ``chunk``; returns (number of chunks, k_pos, *kv)."""
+    skv = k_pos.shape[1]
+    pad = (-skv) % chunk
+    if pad:
+        kv = tuple(F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in kv)
+        k_pos = F.pad(k_pos, (0, pad), value=-1)
+    return (skv + pad) // chunk, k_pos, *kv
+
+
+def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                 causal: bool = True, window: int = 0,
+                 scale: Optional[float] = None,
+                 chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (the reference's scan, as a
+    loop in chunk order): ``sdpa`` under the positional mask with a score
+    buffer of (..., Sq, chunk) in place of (..., Sq, Skv), in float32.
+
+    q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd); q_pos: (B,Sq), k_pos: (B,Skv) int
+    absolute positions, -1 = invalid (padding). Returns (B,Sq,H,hd).
+
+    The reference's arithmetic, step for step: a masked score is NEG_INF,
+    so a row whose chunk holds no valid key adds exp(0) = 1 for each
+    masked column until a chunk with a valid key rescales the sums by
+    alpha = 0; a row that never sees one returns the mean of V. Under the
+    context's ``attn_p_bf16`` the probabilities and V are rounded to
+    bfloat16 and multiplied in float32 (exact products, float32 sums), as
+    the reference's bf16 product with a float32 result."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    grp = h // kvh
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    nc, k_pos, k, v = _pad_chunks(chunk, k_pos, k, v)
+    qg = q.reshape(b, sq, kvh, grp, hd).float()
+    p_bf16 = dist.ctx().attn_p_bf16
+    m = torch.full((b, kvh, grp, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, kvh, grp, sq), dtype=torch.float32, device=q.device)
+    # the accumulator keeps the scores' (b,kv,grp,sq,hd) layout throughout
+    acc = torch.zeros((b, kvh, grp, sq, hd), dtype=torch.float32,
+                      device=q.device)
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        kj, vj, pj = k[:, sl], v[:, sl], k_pos[:, sl]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kj.float()) * scale
+        ok = pj[:, None, :] >= 0                            # (B,1,C)
+        if causal:
+            ok = ok & (pj[:, None, :] <= q_pos[:, :, None])   # (B,Sq,C)
+        if window > 0:
+            ok = ok & ((q_pos[:, :, None] - pj[:, None, :]) < window)
+        s = torch.where(ok[:, None, None], s, NEG_INF)      # (B,KV,G,Sq,C)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        if p_bf16:
+            p, vj = p.bfloat16(), vj.bfloat16()
+        upd = torch.einsum("bkgqs,bskd->bkgqd", p.float(), vj.float())
+        acc = acc * alpha[..., None] + upd
+        m = m_new
+    out = (acc / torch.clamp_min(l[..., None], 1e-30)).movedim(3, 1)
+    return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
 def causal_mask(sq: int, skv: int, q_offset: int = 0, window: int = 0,
@@ -202,24 +271,20 @@ def kv_cache_write(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
-def _ring_positions(positions: torch.Tensor, capacity: int) -> torch.Tensor:
-    """Drop (-1) positions that have already slid out of a ring buffer."""
-    last = positions.max(dim=-1, keepdim=True).values
-    return torch.where(positions > last - capacity, positions,
-                       torch.full_like(positions, -1))
-
-
 def kv_cache_from_prefill(cache: KVCache, k_new: torch.Tensor,
                           v_new: torch.Tensor,
                           positions: torch.Tensor) -> KVCache:
     """Fill a cache from a full prefill pass (positions 0..S-1), in place.
     When the capacity covers the prompt the rows go to slots 0..S-1; a
     ring buffer (a sliding layer's window-sized cache) keeps the last
-    ``capacity`` positions at slots ``position % capacity``."""
+    ``capacity`` positions at slots ``position % capacity`` — those the
+    reference's ``_ring_positions`` keeps, taken as a slice, so no shape
+    depends on the data (the ``meta`` device runs it)."""
     s = k_new.shape[1]
     if cache.capacity < s:
-        return kv_cache_write(cache, k_new, v_new,
-                              _ring_positions(positions, cache.capacity))
+        keep = slice(s - cache.capacity, s)
+        return _kv_cache_put(cache, k_new[:, keep], v_new[:, keep],
+                             positions[:, keep])
     cache.k[:, :s] = k_new.to(cache.k.dtype)
     cache.v[:, :s] = v_new.to(cache.v.dtype)
     cache.pos[:, :s] = positions.to(torch.int32)
@@ -305,10 +370,19 @@ def attention_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     ``plain`` takes ``sdpa`` under the reference's additive masks on any
     device: the training route, which autograd differentiates (the flash
     kernel has no backward pass). ``lengths`` (B,) blanks the keys at or
-    past each sequence's length, on the plain route only."""
+    past each sequence's length, on the plain route only. On that route a
+    distribution context with ``chunk_kv`` <= S takes ``chunked_sdpa``
+    (``chunk_size`` keys a chunk), as the reference does."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
-    if plain or not kernel_route(x):
+    dctx = dist.ctx()
+    if (plain or not kernel_route(x)) and dctx.chunk_kv \
+            and s >= dctx.chunk_kv:
+        out = chunked_sdpa(q, k, v, positions,
+                           _valid_key_positions(positions, lengths),
+                           causal=causal, window=window,
+                           chunk=dctx.chunk_size)
+    elif plain or not kernel_route(x):
         mask = causal_mask(s, s, 0, window, x.device) if causal else \
             torch.zeros((1, 1, s, s), device=x.device)
         if lengths is not None:
@@ -427,6 +501,17 @@ def length_mask(lengths: torch.Tensor, skv: int) -> torch.Tensor:
     return torch.where(ok, 0.0, NEG_INF)[:, None, None].float()
 
 
+def _valid_key_positions(positions: torch.Tensor,
+                         lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """The chunked routes' key positions: -1 at or past each sequence's
+    length, the query positions otherwise."""
+    if lengths is None:
+        return positions
+    s = positions.shape[1]
+    ok = torch.arange(s, device=positions.device)[None] < lengths[:, None]
+    return torch.where(ok, positions, torch.full_like(positions, -1))
+
+
 def init_cross_attention(gen: torch.Generator, cfg: ModelConfig,
                          device: torch.device) -> Params:
     return init_attention(gen, cfg.with_(qkv_bias=False, qk_norm=False),
@@ -534,11 +619,13 @@ def mla_cache_from_prefill(cache: MLACache, ckv_new: torch.Tensor,
                            kpe_new: torch.Tensor,
                            positions: torch.Tensor) -> MLACache:
     """Fill a cache from a full prefill pass (positions 0..S-1), in place:
-    slots 0..S-1, or the last ``capacity`` positions of a shorter cache."""
+    slots 0..S-1, or the last ``capacity`` positions of a shorter cache
+    (a slice, as ``kv_cache_from_prefill``)."""
     s = ckv_new.shape[1]
     if cache.capacity < s:
-        return mla_cache_write(cache, ckv_new, kpe_new,
-                               _ring_positions(positions, cache.capacity))
+        keep = slice(s - cache.capacity, s)
+        return _mla_cache_put(cache, ckv_new[:, keep], kpe_new[:, keep],
+                              positions[:, keep])
     cache.ckv[:, :s] = ckv_new.to(cache.ckv.dtype)
     cache.kpe[:, :s] = kpe_new.to(cache.kpe.dtype)
     cache.pos[:, :s] = positions.to(torch.int32)
@@ -615,9 +702,10 @@ def mla_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Prefill MLA over a whole sequence (positions 0..S-1): the latent
     expanded to per-head K/V and one flash call (dk 192, dv 128). Returns
-    (out, (ckv, kpe)) for latent caching. The reference's
-    ``_chunked_mla_sdpa`` bounds memory under a distributed context; the
-    flash kernel never materialises the scores.
+    (out, (ckv, kpe)) for latent caching. On the plain route a
+    distribution context with ``chunk_kv`` <= S takes
+    ``_chunked_mla_sdpa``, as the reference; the flash kernel never
+    materialises the scores, so the kernel route ignores it.
 
     ``plain`` takes the reference's float32 expression (the nope and rope
     scores summed, the causal mask plus ``lengths``' mask, softmax, the
@@ -625,9 +713,19 @@ def mla_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     differentiates. A CPU tensor takes it too. ``lengths`` is taken on
     that route only."""
     q_nope, q_pe, ckv, kpe = _mla_qkv_latent(p, cfg, x, positions)
-    if plain or not kernel_route(x):
+    dctx = dist.ctx()
+    s = x.shape[1]
+    if (plain or not kernel_route(x)) and dctx.chunk_kv \
+            and s >= dctx.chunk_kv:
         m = cfg.mla
-        s = x.shape[1]
+        k_nope, v = _proj(ckv, p["w_ukv"]).split(
+            [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+        out = _chunked_mla_sdpa(q_nope, q_pe, k_nope, kpe, v, positions,
+                                _valid_key_positions(positions, lengths),
+                                scale=_mla_scale(cfg),
+                                chunk=dctx.chunk_size).to(x.dtype)
+    elif plain or not kernel_route(x):
+        m = cfg.mla
         k_nope, v = _proj(ckv, p["w_ukv"]).split(
             [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
         mask = causal_mask(s, s, device=x.device)
@@ -645,6 +743,42 @@ def mla_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     else:
         out = _mla_expanded_attention(p, cfg, q_nope, q_pe, ckv, kpe, 0)
     return _out_proj(out, p["wo"]), (ckv, kpe)
+
+
+def _chunked_mla_sdpa(q_nope: torch.Tensor, q_pe: torch.Tensor,
+                      k_nope: torch.Tensor, kpe: torch.Tensor,
+                      v: torch.Tensor, q_pos: torch.Tensor,
+                      k_pos: torch.Tensor, *, scale: float,
+                      chunk: int = 1024) -> torch.Tensor:
+    """Chunked online-softmax for MLA's two-term scores (nope + rope),
+    causal, in float32 — the reference's scan as a loop in chunk order.
+
+    q_nope/k_nope: (B,S,H,dn); q_pe: (B,S,H,dr); kpe: (B,S,dr);
+    v: (B,S,H,dv). Returns (B,Sq,H,dv) float32."""
+    b, sq, h, _ = q_nope.shape
+    dv = v.shape[-1]
+    nc, k_pos, k_nope, kpe, v = _pad_chunks(chunk, k_pos, k_nope, kpe, v)
+    qn, qp = q_nope.float(), q_pe.float()
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32,
+                   device=q_nope.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q_nope.device)
+    acc = torch.zeros((b, sq, h, dv), dtype=torch.float32,
+                      device=q_nope.device)
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        kn, kp, vj, pj = k_nope[:, sl], kpe[:, sl], v[:, sl], k_pos[:, sl]
+        s = (torch.einsum("bqhd,bshd->bhqs", qn, kn.float())
+             + torch.einsum("bqhd,bsd->bhqs", qp, kp.float())) * scale
+        ok = (pj[:, None, :] >= 0) & (pj[:, None, :] <= q_pos[:, :, None])
+        s = torch.where(ok[:, None], s, NEG_INF)            # (B,H,Sq,C)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        upd = torch.einsum("bhqs,bshd->bqhd", p, vj.float())
+        acc = acc * alpha.movedim(1, 2)[..., None] + upd
+        m = m_new
+    return acc / torch.clamp_min(l.movedim(1, 2)[..., None], 1e-30)
 
 
 def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -789,8 +923,13 @@ def moe_route(p: Params, cfg: ModelConfig, x2d: torch.Tensor):
 
 def moe_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Route → the chosen experts → combine. x: (B,S,d) or (T,d). The
-    reference's single-device path (``_moe_mlp_local``); its capacity-
-    bounded and ``shard_map`` routes are distributed only."""
+    reference's single-device path (``_moe_mlp_local``), exact: every
+    token reaches its k experts. Under a distribution context with
+    ``moe_shard_map`` and a mesh, the launch layer's capacity-bounded route
+    (``_moe_mlp_shard_map``), as in the reference."""
+    dctx = dist.ctx()
+    if dctx.moe_shard_map and dctx.mesh is not None:
+        return _moe_mlp_shard_map(p, cfg, x, dctx)
     shape = x.shape
     x2d = x.reshape(-1, shape[-1])
     weights, idx = moe_route(p, cfg, x2d)
@@ -831,6 +970,118 @@ def moe_experts(p: Params, cfg: ModelConfig, x2d: torch.Tensor,
     if e.num_shared_experts:
         y = y + swiglu_mlp(p["shared"], x2d)
     return y
+
+
+def _moe_mlp_shard_map(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                       dctx) -> torch.Tensor:
+    """The reference's expert-TP MoE under ``shard_map``: each shard routes
+    its own tokens and computes every expert's d_ff slice, then the slices
+    are summed over the model axis. On one card (a model axis of 1) that
+    is ``_moe_mlp_capacity`` over all tokens with a sum over one member;
+    on the ``meta`` device (a shape-only count) the same global program
+    stands for every shard's. A mesh of more than one card raises."""
+    mesh = dctx.mesh
+    if mesh.size > 1 and getattr(mesh.device, "type", None) != "meta":
+        raise NotImplementedError(
+            f"the MoE over a mesh of {mesh.size} devices needs a "
+            "torch.distributed mesh — see ROADMAP queue 1 item 14 (a "
+            "multi-GPU mesh)")
+    return _moe_mlp_capacity(p, cfg, x,
+                             capacity_factor=dctx.moe_capacity_factor)
+
+
+def moe_mlp_dist_specs(cfg: ModelConfig, model_axis: str) -> Dict[str, Any]:
+    """The weight specs ``_moe_mlp_shard_map`` expects (as tuples, one
+    entry a dimension): the launch layer shards MoE weights exactly so."""
+    spec: Dict[str, Any] = {"router": (None, None),
+                            "w_gate": (None, None, model_axis),
+                            "w_up": (None, None, model_axis),
+                            "w_down": (None, model_axis, None)}
+    if cfg.moe.num_shared_experts:
+        spec["shared"] = {"w_gate": (None, model_axis),
+                          "w_up": (None, model_axis),
+                          "w_down": (model_axis, None)}
+    return spec
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int,
+                 capacity_factor: float = 1.25) -> int:
+    """Rows of an expert's window in ``_moe_mlp_capacity``: the routed
+    pairs an expert would get under an even split, times the factor,
+    rounded up to 8, at least 8 and at most every pair."""
+    e = cfg.moe
+    tk = tokens * e.top_k
+    return min(tk, max(8, int(math.ceil(tk / e.num_experts
+                                        * capacity_factor / 8) * 8)))
+
+
+def moe_capacity_drops(group_sizes, cap: int) -> int:
+    """Routed (token, choice) pairs that ``_moe_mlp_capacity``'s windows
+    leave out, from the group sizes (host ints, expert order) and the
+    window ``cap``. A window starts at its expert's offset, or at
+    ``tk - cap`` where that is earlier (then it covers the whole group):
+    so an expert drops max(size - cap, 0) pairs if its offset is at most
+    ``tk - cap``, else none."""
+    sizes = [int(n) for n in group_sizes]
+    tk, off, dropped = sum(sizes), 0, 0
+    for n in sizes:
+        if off <= tk - cap:
+            dropped += max(n - cap, 0)
+        off += n
+    return dropped
+
+
+def _moe_mlp_capacity(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                      capacity_factor: float = 1.25) -> torch.Tensor:
+    """Capacity-bounded experts: the (token, choice) pairs sorted by expert
+    (a stable sort, as ``jnp.argsort``), then a fixed window of ``cap``
+    rows (``moe_capacity``) into the sorted stream for each expert —
+    starting at its offset, clamped to end at the stream's end — whose
+    rows outside the expert's range get weight 0; pairs past an expert's
+    window are dropped. Three batched products over (E, cap, d) (no Pallas
+    kernel computes them in the reference either), so no shape depends on
+    the data and nothing is read back to the host; group sizes are
+    counted with ``scatter_add_``, which the ``meta`` device runs.
+
+    The combine is in a fixed order, so two runs on the card give the same
+    bits: each window row in range lands on its own row of the sorted
+    stream (rows out of range go to a spare row that is dropped), the
+    stream goes back to (token, choice) order and the k choices are summed
+    — where the reference adds the rows into the tokens with ``.at[].add``
+    (atomics on a GPU)."""
+    e = cfg.moe
+    shape = x.shape
+    x2d = x.reshape(-1, shape[-1])
+    t, d = x2d.shape
+    weights, idx = moe_route(p, cfg, x2d)
+    flat_expert = idx.reshape(-1)                                # (T*k,)
+    order = torch.argsort(flat_expert, stable=True)
+    token_of = order // e.top_k
+    flat_w = weights.reshape(-1)[order]
+    group_sizes = torch.zeros(e.num_experts, dtype=torch.int64,
+                              device=x.device).scatter_add_(
+        0, flat_expert, torch.ones_like(flat_expert))
+    offsets = torch.cumsum(group_sizes, 0) - group_sizes
+    tk = t * e.top_k
+    cap = moe_capacity(cfg, t, capacity_factor)
+    starts = torch.clamp(offsets, max=tk - cap)
+    pos = starts[:, None] + torch.arange(cap, device=x.device)[None]
+    valid = (pos >= offsets[:, None]) & (pos < (offsets + group_sizes)[:, None])
+    flat_pos = pos.reshape(-1)
+    xw = x2d[token_of[flat_pos]].reshape(e.num_experts, cap, d)
+    gate_w = torch.where(valid, flat_w[flat_pos].reshape(pos.shape), 0.0)
+    g = torch.bmm(xw, p["w_gate"].to(x.dtype))
+    u = torch.bmm(xw, p["w_up"].to(x.dtype))
+    ye = torch.bmm(F.silu(g) * u, p["w_down"].to(x.dtype))
+    ye = ye * gate_w[..., None].to(x.dtype)
+    dest = torch.where(valid, pos, tk).reshape(-1)
+    y_sorted = x2d.new_zeros((tk + 1, d)).index_copy_(
+        0, dest, ye.reshape(-1, d))[:tk]
+    y = x2d.new_empty((tk, d)).index_copy_(0, order, y_sorted)
+    y = y.view(t, e.top_k, d).sum(dim=1)
+    if e.num_shared_experts:
+        y = y + swiglu_mlp(p["shared"], x2d)
+    return y.reshape(shape)
 
 
 def moe_load_balance_loss(p: Params, cfg: ModelConfig,

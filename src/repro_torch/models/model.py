@@ -252,6 +252,14 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
                  for g in block_groups(cfg))
 
 
+def abstract_caches(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
+                    mem_len: int = 0, full_capacity: bool = False):
+    """``init_caches``' tree on the ``meta`` device: shapes and dtypes,
+    nothing allocated (the reference's ``jax.eval_shape`` of it)."""
+    return init_caches(cfg, batch, capacity, dtype, full_capacity,
+                       device="meta", mem_len=mem_len)
+
+
 def init_paged_caches(cfg: ModelConfig, specs: Dict[str, PC.KVPageSpec],
                       num_blocks: int, batch: int = 0,
                       device: _dev.DeviceLike = None, mem_len: int = 0):

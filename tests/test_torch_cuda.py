@@ -1273,3 +1273,169 @@ def test_attention_block_serving_route_still_launches_flash(cuda):
     live = {k: v.detach().requires_grad_() for k, v in p.items()}
     with pytest.raises(RuntimeError, match="no backward pass"):
         TL.attention_block(live, cfg, x, pos)
+
+
+# --------------------------------------------------------------------------- #
+# The launch layer (step builders, the capacity MoE, flash at 32k keys)
+# --------------------------------------------------------------------------- #
+# Flash over 32k keys averages thousands of V rows, so its outputs are
+# near 0.01 for unit normal inputs: an absolute bf16 tolerance would pass
+# a kernel that drops keys. Its error is held relative to the output's
+# size instead: max error at most 2**-5 of the largest |output|, mean
+# error at most 2**-7 of the mean |output|. Rounding P to bf16 (what
+# flash does) gives about 0.3 % and 0.2 % at these shapes; dropping half
+# the keys gives about 100 %.
+FLASH_32K_MAX, FLASH_32K_MEAN = 2.0 ** -5, 2.0 ** -7
+
+
+def _close_to_size(got, want):
+    err = (got.float() - want).abs()
+    size = want.abs()
+    assert float(err.max()) <= FLASH_32K_MAX * float(size.max()), \
+        (float(err.max()), float(size.max()))
+    assert float(err.mean()) <= FLASH_32K_MEAN * float(size.mean()), \
+        (float(err.mean()), float(size.mean()))
+
+
+def test_flash_at_32k_keys_against_plain_rows(cuda):
+    """Flash at 32,768 causal keys in bf16 (the launch prefill's length):
+    the last 256 query rows against the float32 plain version of those
+    rows (the plain version cannot hold all of them), and one query row at
+    q_offset 32,768 over a 32,896-slot cache given as the decode step
+    gives it (sequence-major, transposed), within FLASH_32K_MAX and
+    FLASH_32K_MEAN of the output's size."""
+    rng = np.random.default_rng(32)
+    s, rows = 32768, 256
+    q = _rand(rng, (1, 4, s, 128), "bfloat16", cuda)
+    k = _rand(rng, (1, 2, s, 128), "bfloat16", cuda)
+    v = _rand(rng, (1, 2, s, 128), "bfloat16", cuda)
+    got = ops.flash_attention(q, k, v, causal=True)[:, :, s - rows:]
+    want = ref.flash_attention_ref(q[:, :, s - rows:].float(), k.float(),
+                                   v.float(), causal=True, q_offset=s - rows)
+    torch.cuda.synchronize()
+    _close_to_size(got, want)
+    cap = s + 128
+    cache = _rand(rng, (1, cap, 2, 128), "bfloat16", cuda)
+    q1 = _rand(rng, (1, 4, 1, 128), "bfloat16", cuda)
+    kt = cache.transpose(1, 2)
+    got = ops.flash_attention(q1, kt, kt, causal=True, q_offset=s,
+                              kv_len=cap)
+    want = ref.flash_attention_ref(q1.float(), kt.float(), kt.float(),
+                                   causal=True, q_offset=s, kv_len=cap)
+    torch.cuda.synchronize()
+    _close_to_size(got, want)
+
+
+def test_flash_refuses_float8_kv(cuda):
+    q = torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 2, 8, 64), device=cuda).to(torch.float8_e4m3fn)
+    ops.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
+        ops.flash_attention(q, k, k)
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
+def test_fp8_cast_on_card_equals_cpu(cuda):
+    """The handoff's float8 cast: the card's bits equal the CPU's over
+    every bf16 value (saturation past ±448 included)."""
+    x = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16)
+    x = x[torch.isfinite(x)]
+    got = x.to(cuda).to(torch.float8_e4m3fn).view(torch.uint8).cpu()
+    want = x.to(torch.float8_e4m3fn).view(torch.uint8)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_capacity_moe_on_card_matches_cpu(cuda, dtype):
+    """``_moe_mlp_capacity`` (the launch layer's MoE) on the card against
+    the CPU on the same inputs: float32 within 1e-5, bf16 within 2e-2;
+    two runs on the card give the same bits (the combine has no atomics)."""
+    cfg = config_from_dict(dict(_TINY, name="moe", param_dtype=dtype,
+                                compute_dtype=dtype,
+                                **TRAIN_FAMILIES["moe"]))
+    p = TM.init_params(cfg, seed=1, device="cpu")["groups"][1][0]["mlp"]
+    p = {k: (v[0] if isinstance(v, torch.Tensor)
+             else {kk: vv[0] for kk, vv in v.items()}) for k, v in p.items()}
+    x = _rand(np.random.default_rng(5), (2, 40, 64), dtype, "cpu")
+    want = TL._moe_mlp_capacity(p, cfg, x, capacity_factor=1.0)
+    pc = {k: (v.to(cuda) if isinstance(v, torch.Tensor)
+              else {kk: vv.to(cuda) for kk, vv in v.items()})
+          for k, v in p.items()}
+    got = TL._moe_mlp_capacity(pc, cfg, x.to(cuda), capacity_factor=1.0)
+    again = TL._moe_mlp_capacity(pc, cfg, x.to(cuda), capacity_factor=1.0)
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(),
+                               atol=1e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("family", ["dense-bias-qknorm", "mla", "moe"])
+def test_launch_steps_on_card_match_cpu(cuda, family, monkeypatch):
+    """The launch prefill → handoff → serve step of a tiny float32 family
+    (batch 2 x 24) on the one-card mesh against the CPU's: logits within
+    1e-4 (the float32 flash kernel against the plain route), D's caches
+    within 1e-5; flash launches on the card only."""
+    import dataclasses
+    from repro_torch.launch import cells as TC
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import named_leaves
+    cfg = config_from_dict(dict(_TINY, name=family, **TRAIN_FAMILIES[family]))
+    cells = {s: dataclasses.replace(TC.get_cell("qwen3-4b", s), batch=2,
+                                    seq_len=24, cache_dtype="float32")
+             for s in ("prefill_32k", "decode_32k")}
+    monkeypatch.setattr(TS, "get_config", lambda arch: cfg)
+    monkeypatch.setattr(TS, "get_cell", lambda arch, shape: cells[shape])
+    params = TM.init_params(cfg, seed=2, device="cpu")
+
+    def run(dev):
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        pre = TS.make_prefill_artifacts(cells["prefill_32k"], mesh)
+        srv = TS.make_serve_artifacts(cells["decode_32k"], mesh)
+        ho = TS.make_handoff_artifacts("qwen3-4b", mesh, batch=2)
+        inputs = TS.random_inputs(pre.abstract_args[1], cfg.vocab_size, 0,
+                                  mesh.device)
+        p = _to_dev(params, mesh.device)
+        with torch.no_grad():
+            last, caches = pre.fn(p, inputs)
+            caches = ho.fn(caches)
+            tok = last.argmax(-1).to(torch.int32)[:, None]
+            io = {"tokens": tok, "positions": torch.full_like(tok, 24)}
+            logits, caches = srv.fn(p, caches, io)
+        return (last.cpu(), logits.cpu(),
+                [x.cpu() for _, x in named_leaves(caches)])
+
+    ops.reset_launch_counts()
+    got = run(cuda)
+    assert ops.launch_counts()["flash_attention"] > 0
+    want = run(torch.device("cpu"))
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-4)
+    for g, w in zip(got[2], want[2]):
+        np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
+                                   atol=1e-5)
+
+
+def test_launch_serve_step_refuses_ring_caches_on_card(cuda, monkeypatch):
+    """A sliding-window arch's D caches are ring buffers, which the flash
+    route cannot read: the serve step raises on the card, naming the
+    ROADMAP item (the CPU's plain route serves them)."""
+    import dataclasses
+    from repro_torch.launch import cells as TC
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.mesh import make_mesh
+    cfg = config_from_dict(dict(_TINY, name="sliding",
+                                **TRAIN_FAMILIES["sliding"]))
+    monkeypatch.setattr(TS, "get_config", lambda arch: cfg)
+    cell = dataclasses.replace(TC.get_cell("mixtral-8x7b", "decode_32k"),
+                               batch=1, seq_len=16)
+    art = TS.make_serve_artifacts(cell, make_mesh((1, 1), ("data", "model"),
+                                                  cuda))
+    params = TM.init_params(cfg, seed=0, device=cuda)
+    caches = TM.init_caches(cfg, 1, cell.decode_capacity(), device=cuda)
+    io = {"tokens": torch.zeros((1, 1), dtype=torch.int32, device=cuda),
+          "positions": torch.full((1, 1), 16, dtype=torch.int32,
+                                  device=cuda)}
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
+        art.fn(params, caches, io)
