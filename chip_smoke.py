@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, then runs fifteen phases, each printing JSON lines:
+nvcc, then runs sixteen phases, each printing JSON lines:
 
   0. card: name and power limit (``nvidia-smi``), kernel build time, and
      the count of HGMMA (wgmma), UTMALDG (TMA load), SYNCS (mbarrier),
@@ -252,18 +252,60 @@ nvcc, then runs fifteen phases, each printing JSON lines:
      ``mem_get_info`` before it, its peak memory and the predictions
      written before the phase first ran on the card
      (``PHASE14_PREDICTED``).
+ 15. the launch grid's last five cells, whose D caches the flash route
+     cannot read, through the flash_decode kernel
+     (``ops.cache_attention``). 15a: Qwen1.5-32B at full width cut to 16
+     of 64 layers, batch 2: prefill_32k in bf16, the handoff into D's
+     32,896-slot float8 e4m3 caches (the precision alignment), 4 greedy
+     decode_32k steps; D's bytes equal to the CPU's e4m3 cast of P's
+     caches (a table of the CPU's cast of every bf16 value, looked up on
+     the card), the tags equal, -1 and zeros in the pad slots. 15b:
+     Mixtral-8x7B cut to 12 of 32 layers and 15c: RecurrentGemma-9B at
+     all 38 layers, batch 2: prefill_32k, the handoff into D's rings of
+     the window (4096 / 2048 slots), 4 greedy decode_32k steps. Each
+     part launches exactly one flash a layer that attends in the prefill
+     and one flash_decode a layer that attends a step, nothing else. The
+     last step's flash_decode call of every layer that attends is held,
+     on its exact inputs, to the float32 plain version by the SDPA
+     yardstick (max and mean error at most FLASH_VS_SDPA x those of
+     ``scaled_dot_product_attention`` in bf16 on the same values). From
+     copies of D's caches taken before the steps and fed the same tokens:
+     the plain route (``sdpa`` under the reference's mask) in bf16, and
+     the same steps in float32 (the config's compute dtype float32 on the
+     same weights, plain route); the kernel route's max and mean logit
+     error against the float32 steps at most FLASH_VS_SDPA x the plain
+     bf16 route's (the bf16 model's own rounding puts both about three
+     bf16 steps off: the gap between the two bf16 routes is printed
+     beside a bound of PHASE15_LOGIT_STEPS bf16 steps at the logits'
+     largest magnitude, and not held to it). For 15b and 15c also the
+     same prefill handed into a full-capacity cache decoded through
+     flash: the gaps and argmax against the ring route printed, not held
+     (MoE routing near a tie flips under bf16's noise). 15d: long_500k
+     for both windowed models at batch 1: one serve step at q_offset
+     524,288 over a slice of D's rings from the handoff with every tag
+     shifted by 491,520 (each entry keeps its slot, every row sees the
+     window's slots), exactly one flash_decode a layer that attends, each
+     call held by the SDPA yardstick and the logits by the float32 one.
+     Phase 1 holds flash_decode against its plain version over small
+     rings, full-capacity caches, windows, groups 1 / 4 / 16 at head
+     dims 64 / 128 / 256 in float32, bf16 and float8 K/V, then times rows
+     1r (Mixtral's and RecurrentGemma's rings, starting mid-buffer) and
+     1f (Qwen1.5-32B's e4m3 cache) by the SDPA yardstick
+     (``phase1_decode``).
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
 processes report at shutdown, phase 12 those of every worker it
 started, zeroed after its warmup). The kernels line gives each kernel's
 launches on every serving phase (phases 3-12, none on phase 9; 0 on
-phase 13, training; phase 14: 14a's and 14b's main paths), and its
-timing at phase 7's MLA shape (``"mla"``), phase 8's RecurrentGemma
-shape (``"rg"``), phase 10's InternVL2 shape (``"vlm"``), phase 11's
-Whisper shape (``"encdec"``), phase 12's (``"load"``) and phase 14's
-32k shapes (``"launch_p"``, ``"launch_d"``, ``"launch_k"``) where those
-phases run it.
+phase 13, training; phase 14: 14a's and 14b's main paths; phase 15: its
+parts' main paths, 15d's included), and its timing at phase 7's MLA
+shape (``"mla"``), phase 8's RecurrentGemma shape (``"rg"``), phase
+10's InternVL2 shape (``"vlm"``), phase 11's Whisper shape
+(``"encdec"``), phase 12's (``"load"``) and phase 14's 32k shapes
+(``"launch_p"``, ``"launch_d"``, ``"launch_k"``) where those phases run
+it; flash_decode's row is phase 15's Mixtral ring, with RecurrentGemma's
+ring as ``"rg"`` and Qwen1.5-32B's e4m3 cache as ``"fp8"``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the script exits non-zero. Without a CUDA device, or without
@@ -279,6 +321,7 @@ import functools
 import gc
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -440,6 +483,49 @@ PHASE14_PREDICTED = {
             "mfu": [0.046, 0.052]},
 }
 
+# phase 15: the launch grid's last five cells on one card, through the
+# flash_decode kernel (D's caches: rings of the window, or float8). 15a:
+# Qwen1.5-32B's prefill_32k (bf16) -> handoff (the e4m3 cast) -> 4
+# decode_32k steps, at full width cut to 16 of 64 layers (a layer is 1.05
+# GB of bf16 weights and 671 MB of bf16 KV a 32k sequence; the embedding
+# and head 3.1 GB), batch 2 (from 32 and 128). 15b: Mixtral-8x7B cut to 12
+# of 32 layers (2.9 GB a layer), 15c: RecurrentGemma-9B at all 38 layers
+# (about 21 GB: no cut), both prefill_32k -> handoff into D's rings -> 4
+# decode_32k steps at batch 2, against the same prefill in a
+# full-capacity D cache through flash and against the plain route. 15d:
+# long_500k for both at batch 1: one serve step at q_offset 524,288 over
+# D's rings from the handoff with every tag shifted by PHASE15_SHIFT =
+# 120 x 4096 = 240 x 2048 (each row keeps its slot, the window is full;
+# the rows' RoPE phases are the old positions': this holds the route, not
+# the model's meaning), against the plain route. Each flash_decode call of
+# the last step is held on its own inputs to the float32 plain version by
+# the SDPA yardstick, and each route's logits to float32 steps of the same
+# weights; the gaps to the plain bf16 route are printed beside one bf16
+# step. The predictions were
+# written down before the phase first ran on the card.
+PHASE15_MODELS = {"15a": ("qwen1.5-32b", 16), "15b": ("mixtral-8x7b", 12),
+                  "15c": ("recurrentgemma-9b", 38)}
+PHASE15_BATCH, PHASE15_DECODE_STEPS = 2, 4
+PHASE15_SHIFT = 491_520
+# the printed gaps' bound, bf16 steps at the logits' largest magnitude (not
+# held: the plain bf16 route is itself about 3 steps from float32 at 16+
+# layers; NVIDIA H100 80GB HBM3, 700.00 W)
+PHASE15_LOGIT_STEPS = 1
+PHASE15_PREDICTED = {
+    "15a": {"flash_decode_launches": 16 * 4, "prefill_s": [2.5, 6.0],
+            "decode_ms_per_step": [12.0, 60.0], "peak_gib": [45, 66],
+            "max_abs_logit_gap_plain": [0.0, 0.0625]},
+    "15b": {"flash_decode_launches": 12 * 4, "prefill_s": [1.5, 8.0],
+            "decode_ms_per_step": [15.0, 120.0], "peak_gib": [38, 50],
+            "max_abs_logit_gap_flash": [0.0, 0.0625]},
+    "15c": {"flash_decode_launches": 12 * 4, "prefill_s": [2.0, 12.0],
+            "decode_ms_per_step": [15.0, 120.0], "peak_gib": [24, 40],
+            "max_abs_logit_gap_flash": [0.0, 0.0625]},
+    "15d": {"flash_decode_launches": 12 + 12,
+            "max_abs_logit_gap_plain": [0.0, 0.0625]},
+    "phase_s": [50, 120],
+}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -563,12 +649,14 @@ def phase0():
     wide = {name: {op: c[op] for op in ("LDGSTS", "LDG.E.128")}
             for name, c in sass.items()
             if name.startswith(("paged_split_kernel", "page_gather_kernel",
-                                "page_overlay_kernel"))}
+                                "page_overlay_kernel", "decode_split_kernel"))}
     emit({"phase": 0, "wide_loads": wide})
-    if not wide or not all(c["LDGSTS"] for name, c in wide.items()
-                           if name.startswith("paged_split_kernel")):
-        raise AssertionError(f"phase 0: a paged split kernel has no "
-                             f"cp.async (LDGSTS) instructions: {wide}")
+    split = {name: c for name, c in wide.items()
+             if name.startswith(("paged_split_kernel", "decode_split_kernel"))}
+    if not any(n.startswith("decode_split_kernel") for n in split) or \
+            not all(c["LDGSTS"] for c in split.values()):
+        raise AssertionError(f"phase 0: a paged or decode split kernel has "
+                             f"no cp.async (LDGSTS) instructions: {wide}")
     overlay16 = {name: c["LDG.E.128"] for name, c in wide.items()
                  if name.startswith("page_overlay_kernel")
                  and canon_load_bytes(name) == 16}
@@ -732,20 +820,30 @@ def _flash_case(gen, dev, dtype, b, h, kv, sq, skv, d, window, q_offset,
     return yard["max_abs_err"], (q, k, v), yard
 
 
-def _yardstick(what, got, want, lib):
-    """The bf16 flash kernel's max and mean error against the float32 plain
-    version ``want``, each at most FLASH_VS_SDPA times those of the
-    library call's output ``lib`` on the same bf16 inputs."""
+def _yard_errors(got, want, lib):
+    """The max and mean error of ``got`` and of the library call's output
+    ``lib`` against the float32 plain version ``want``."""
     import torch
     torch.cuda.synchronize()
     err = (got.float() - want).abs()
     lib_err = (lib.float() - want).abs()
-    yard = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+    return {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
             "sdpa_max_abs_err": float(lib_err.max()),
             "sdpa_mean_abs_err": float(lib_err.mean())}
-    if not (yard["max_abs_err"] <= FLASH_VS_SDPA * yard["sdpa_max_abs_err"]
+
+
+def _within_yard(yard) -> bool:
+    return (yard["max_abs_err"] <= FLASH_VS_SDPA * yard["sdpa_max_abs_err"]
             and yard["mean_abs_err"]
-            <= FLASH_VS_SDPA * yard["sdpa_mean_abs_err"]):
+            <= FLASH_VS_SDPA * yard["sdpa_mean_abs_err"])
+
+
+def _yardstick(what, got, want, lib):
+    """The bf16 flash kernel's max and mean error against the float32 plain
+    version ``want``, each at most FLASH_VS_SDPA times those of the
+    library call's output ``lib`` on the same bf16 inputs."""
+    yard = _yard_errors(got, want, lib)
+    if not _within_yard(yard):
         raise AssertionError(f"{what}: errors against the float32 plain "
                              f"version exceed {FLASH_VS_SDPA}x "
                              f"scaled_dot_product_attention's: {yard}")
@@ -1308,6 +1406,7 @@ def phase1(dev):
     vlm = phase1_vlm(gen, dev)
     encdec = phase1_encdec(gen, dev)
     load = phase1_load(gen, dev)
+    timings["flash_decode"] = phase1_decode(gen, dev)
     timings["scatter_pages_overlay"] = phase1_overlay(gen, dev)
     from repro_torch.configs import get_config
     timings.update(phase1_pages(gen, dev, get_config(MODEL)))
@@ -2185,6 +2284,147 @@ def phase1_windowed(gen, dev):
                      plain=lambda: ref.paged_attention_ref(
                          *args, layout="nbhd", window=win)),
           "bound_ms": p_ms, "bound_by": p_by})
+
+
+def decode_cache(gen, dev, b, cap, n, kvh, hd, kv_dtype):
+    """K/V (b, cap, kvh, hd) of unit normals cast to ``kv_dtype`` and pos
+    tags of positions 0..n-1 at slot position % cap (-1 where none): a
+    ring of the last ``cap`` positions starting at slot n % cap, or a
+    full-capacity cache with room left."""
+    import torch
+    k = _rand(gen, (b, cap, kvh, hd), torch.float32, dev).to(kv_dtype)
+    v = _rand(gen, (b, cap, kvh, hd), torch.float32, dev).to(kv_dtype)
+    pos = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+    held = torch.arange(max(0, n - cap), n, dtype=torch.int32, device=dev)
+    pos[held.long() % cap] = held
+    return k, v, pos[None].expand(b, cap).contiguous()
+
+
+def decode_library(q, k, v, pos, q_offset: int, window: int):
+    """flash_decode's library counterpart on the same values: a callable of
+    ``scaled_dot_product_attention`` in bf16 with k/v repeated to the query
+    heads and a boolean mask from the tags, float8 K/V dequantized to bf16
+    here (outside the callable's time), returning (B, Sq, H, d)."""
+    import torch
+    import torch.nn.functional as F
+    grp = q.shape[2] // k.shape[2]
+    kb, vb = (t.to(torch.bfloat16).transpose(1, 2) for t in (k, v))
+    kr = (kb.repeat_interleave(grp, 1) if grp > 1 else kb).contiguous()
+    vr = (vb.repeat_interleave(grp, 1) if grp > 1 else vb).contiguous()
+    qp = torch.arange(q_offset, q_offset + q.shape[1],
+                      device=q.device)[None, :, None]
+    tags = pos.long()[:, None, :]
+    ok = (tags >= 0) & (tags <= qp)                       # (b, sq, cap)
+    if window > 0:
+        ok &= (qp - tags) < window
+    mask = ok[:, None]                                    # (b, 1, sq, cap)
+    qt = q.to(torch.bfloat16).transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kr, vr, attn_mask=mask)\
+            .transpose(1, 2)
+
+    return library, ok
+
+
+def decode_row(gen, dev, what, b, cap, n, kvh, h, hd, window, kv_dtype):
+    """flash_decode at one main-path shape (one query row a sequence at
+    position n - 1): held to the SDPA yardstick against the float32 plain
+    version (max and mean error at most FLASH_VS_SDPA x those of
+    ``scaled_dot_product_attention`` on the same values in bf16 — k/v
+    repeated to the query heads, a boolean mask from the tags, float8 K/V
+    dequantized to bf16 first, that copy outside SDPA's time), then timed;
+    the bound: q, o, the tags and the visible slots' K/V once, or the
+    float32 products over 67 TFLOP/s (the kernel's arithmetic)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    k, v, pos = decode_cache(gen, dev, b, cap, n, kvh, hd, kv_dtype)
+    q = _rand(gen, (b, 1, h, hd), torch.bfloat16, dev)
+    args = dict(q_offset=n - 1, window=window)
+
+    def kernel():
+        return ops.cache_attention(q, k, v, pos, **args)
+
+    def plain():
+        return ref.cache_attention_ref(q, k, v, pos, **args)
+
+    qp = n - 1
+    library, ok = decode_library(q, k, v, pos, qp, window)
+    got = kernel()
+    want = ref.cache_attention_ref(q.float(), k.float(), v.float(), pos,
+                                   **args)
+    yard = _yardstick(f"1 flash_decode {what}", got, want, library())
+    del got, want
+    t = time_all(kernel, plain, library)
+    seen = ops.cache_visible_slots(1, cap, window=window, q_offset=qp)
+    if seen != int(ok[0, 0].sum()):
+        raise AssertionError(f"flash_decode {what}: {seen} visible slots "
+                             f"counted, the tags give {int(ok[0, 0].sum())}")
+    flops = 2.0 * b * h * seen * 2 * hd
+    nbytes = 2.0 * 2 * b * h * hd + 4.0 * b * cap \
+        + b * kvh * seen * 2 * hd * k.element_size()
+    t["bound_ms"], t["bound_by"] = bound(flops, nbytes, "float32")
+    held = (f"a ring starting at slot {n % cap}" if n > cap
+            else f"{cap - n} slots empty")
+    t.update(shape=f"q({b},1,{h},{hd}) bf16, K/V ({b},{cap},{kvh},{hd}) "
+                   f"{str(kv_dtype).replace('torch.', '')}, positions "
+                   f"{max(0, n - cap)}..{n - 1} ({held}), q_offset {qp}, "
+                   f"window {window}", visible_slots=seen, **yard)
+    t["library"] = ("scaled_dot_product_attention, k/v repeated to the "
+                    "query heads, boolean mask from the tags"
+                    + ("; K/V dequantized to bf16 outside its time"
+                       if kv_dtype == torch.float8_e4m3fn else ""))
+    return t
+
+
+def phase1_decode(gen, dev):
+    """flash_decode (``ops.cache_attention``): first against its plain
+    version over small rings (filled to an unaligned length, partly
+    filled), full-capacity caches, windows 0 and 6, groups 1 / 4 / 16 at
+    head dims 64 / 128 / 256, one and three rows, in float32 (2e-5),
+    bf16 and float8 K/V under a bf16 q (2e-2); then rows 1r (Mixtral's
+    4096-slot ring and RecurrentGemma's 2048-slot ring at batch 2, each
+    ring starting mid-buffer, 34,000 positions written) and 1f
+    (Qwen1.5-32B's e4m3 cache of 32,896 slots holding 32,769 positions)
+    by the yardstick. Returns the kernels line's row: 1r Mixtral, with
+    RecurrentGemma's as ``"rg"`` and 1f as ``"fp8"``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    n_checks = 0
+    for kv_dt, q_dt in ((torch.float32, torch.float32),
+                        (torch.bfloat16, torch.bfloat16),
+                        (torch.float8_e4m3fn, torch.bfloat16)):
+        dtype = "float32" if q_dt == torch.float32 else "bfloat16"
+        for cap, n in ((16, 37), (16, 10), (48, 37)):
+            for kvh, h, hd in ((2, 2, 64), (2, 8, 128), (1, 16, 256)):
+                for window in (0, 6):
+                    for sq in (1, 3):
+                        k, v, pos = decode_cache(gen, dev, 2, cap, n, kvh,
+                                                 hd, kv_dt)
+                        q = _rand(gen, (2, sq, h, hd), q_dt, dev)
+                        args = dict(q_offset=n - sq, window=window)
+                        _check(f"flash_decode {dtype}/{kv_dt} cap {cap} n {n}"
+                               f" {(kvh, h, hd)} window {window} sq {sq}",
+                               ops.cache_attention(q, k, v, pos, **args),
+                               ref.cache_attention_ref(q, k, v, pos, **args),
+                               dtype, False)
+                        n_checks += 1
+    emit({"phase": 1, "extra": "flash_decode sweep", "checks": n_checks,
+          "atol": ATOL})
+    mix, rg, qw = (get_config(m) for m in (MODEL6, MODEL8, "qwen1.5-32b"))
+    cap_q = -(-(32_768 + 128) // 16) * 16
+    row = decode_row(gen, dev, "1r mixtral ring", 2, mix.sliding_window,
+                     34_000, mix.num_kv_heads, mix.num_heads, mix.hd,
+                     mix.sliding_window, torch.bfloat16)
+    row["rg"] = decode_row(gen, dev, "1r recurrentgemma ring", 2,
+                           rg.sliding_window, 34_000, rg.num_kv_heads,
+                           rg.num_heads, rg.hd, rg.sliding_window,
+                           torch.bfloat16)
+    row["fp8"] = decode_row(gen, dev, "1f qwen1.5-32b e4m3", 2, cap_q,
+                            32_769, qw.num_kv_heads, qw.num_heads, qw.hd, 0,
+                            torch.float8_e4m3fn)
+    return row
 
 
 # --------------------------------------------------------------------------- #
@@ -4225,17 +4465,17 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _mem_line(dev, part: str) -> None:
+def _mem_line(dev, part: str, phase: int = 14) -> None:
     """``torch.cuda.mem_get_info()`` before a sub-phase, after freeing the
     last one's tensors."""
     import torch
     gc.collect()
     if dev.type == "cuda":
-        torch.cuda.init()          # phase 14 alone: nothing ran before it
+        torch.cuda.init()          # a phase alone: nothing ran before it
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         free, total = torch.cuda.mem_get_info(dev)
-        emit({"phase": 14, "part": part,
+        emit({"phase": phase, "part": part,
               "mem_get_info_gib": [free / 2 ** 30, total / 2 ** 30]})
 
 
@@ -4246,16 +4486,18 @@ def _peak_gib(dev):
 
 
 @contextlib.contextmanager
-def capture_calls(module, name: str, keep: int = 1):
+def capture_calls(module, name: str, keep: float = 1, outputs: bool = False):
     """Records the arguments of the first ``keep`` calls of
-    ``module.name`` (forwarded unchanged) in the yielded list."""
+    ``module.name`` (forwarded unchanged) in the yielded list, each with
+    its output when ``outputs``."""
     real = getattr(module, name)
     seen = []
 
     def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
         if len(seen) < keep:
-            seen.append((args, kwargs))
-        return real(*args, **kwargs)
+            seen.append((args, kwargs, out) if outputs else (args, kwargs))
+        return out
 
     setattr(module, name, spy)
     try:
@@ -4719,6 +4961,457 @@ def phase14(dev):
     return {"launches": dict(launches), "timing": timing}
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: ring-buffer and float8 decode caches (the flash_decode kernel)
+# --------------------------------------------------------------------------- #
+def map_caches(caches, fn):
+    """The cache tree with ``fn`` applied to every tensor leaf (flags such
+    as ``full_capacity`` kept)."""
+    import torch
+    from repro_torch.training.tree import leaves_with_paths, unflatten
+    return unflatten(caches, [fn(x) if isinstance(x, torch.Tensor) else x
+                              for _, x in leaves_with_paths(caches)])
+
+
+def full_capacity_copy(caches, capacity: int):
+    """D's caches with every ring re-laid as a full-capacity cache of
+    ``capacity`` slots (each entry at slot == its position, pos -1
+    elsewhere), the other leaves (recurrent states) copied: the same
+    prefill handed into caches that the flash route reads."""
+    from repro_torch.models import layers as L
+    out = []
+    for group in caches:
+        row = []
+        for c in group:
+            if isinstance(c, L.KVCache) and not c.full_capacity:
+                count, b, _, kvh, hd = c.k.shape
+                f = L.kv_cache_init(b, capacity, kvh, hd, c.k.dtype,
+                                    c.k.device, count=count,
+                                    full_capacity=True)
+                for i in range(count):    # a ring after 32k: every tag >= 0
+                    L._kv_cache_put(f.layer(i), c.k[i], c.v[i], c.pos[i])
+                row.append(f)
+            else:
+                row.append(map_caches(c, lambda x: x.clone()))
+        out.append(tuple(row))
+    return tuple(out)
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Attention on the plain route (``sdpa`` under the reference's masks)
+    on CUDA tensors too: the phase's yardstick route."""
+    from repro_torch.models import layers as L
+    real = L.kernel_route
+    L.kernel_route = lambda x: False
+    try:
+        yield
+    finally:
+        L.kernel_route = real
+
+
+def decode_steps(srv, params, caches, tokens, q_offset, dev, feed=None,
+                 calls=None):
+    """len(feed) or PHASE15_DECODE_STEPS serve steps from ``tokens`` (B, 1)
+    at ``q_offset``..: greedy, or fed ``feed`` (a list of (B, 1) tokens,
+    the first of which is ``tokens``). With a list ``calls``, the last
+    step's ``ops.cache_attention`` calls are recorded there (arguments and
+    output; nothing writes those caches after the last step, so they are
+    each call's exact inputs). Returns (float32 logits of each step, the
+    tokens fed, ms a step)."""
+    import torch
+    from repro_torch.kernels import ops
+    logits_all, fed, ms = [], [], []
+    tok = tokens
+    n = len(feed) if feed is not None else PHASE15_DECODE_STEPS
+    with torch.no_grad():
+        for i in range(n):
+            if feed is not None:
+                tok = feed[i]
+            fed.append(tok)
+            io = {"tokens": tok, "positions": torch.full_like(tok,
+                                                              q_offset + i)}
+            spy = (capture_calls(ops, "cache_attention", math.inf, True)
+                   if calls is not None and i == n - 1
+                   else contextlib.nullcontext([]))
+            with spy as seen:
+                _sync(dev)
+                t0 = time.perf_counter()
+                logits, caches = srv.fn(params, caches, io,
+                                        q_offset=q_offset + i)
+                _sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if calls is not None:
+                calls.extend(seen)
+            logits_all.append(logits[:, -1].float())
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    return logits_all, fed, ms
+
+
+def logit_gaps(got, want):
+    """Per step: the max abs gap, its bound (PHASE15_LOGIT_STEPS bf16 steps
+    at ``got``'s largest magnitude) and whether every argmax agrees."""
+    out = []
+    for g, w in zip(got, want):
+        out.append({"gap": float((g - w).abs().max()),
+                    "bound": PHASE15_LOGIT_STEPS * bf16_step(g),
+                    "argmax_equal": bool((g.argmax(-1)
+                                          == w.argmax(-1)).all())})
+    return out
+
+
+def f32_steps(cell, mesh, over, params, caches, fed, q_offset, dev):
+    """The same steps in float32: the serve step of the config with a
+    float32 compute dtype on the same bf16 weights (each cast at its use),
+    on the plain route (float32 scores over the cache widened), from
+    ``caches`` (a copy of D's, the same bytes), fed ``fed``."""
+    from repro_torch.launch import steps as S
+    srv32 = S.make_serve_artifacts(
+        cell, mesh, layer_override={**over, "compute_dtype": "float32"})
+    with plain_route():
+        truth, _, _ = decode_steps(srv32, params, caches, None, q_offset, dev,
+                                   feed=fed)
+    return truth
+
+
+def yardstick(got, plain, truth):
+    """Per step: the route's max and mean error against the float32 steps,
+    beside the plain bf16 route's (the yardstick: FLASH_VS_SDPA x those)."""
+    out = []
+    for g, p, t in zip(got, plain, truth):
+        e, ep = (g - t).abs(), (p - t).abs()
+        out.append({"max_abs_err": float(e.max()),
+                    "mean_abs_err": float(e.mean()),
+                    "plain_max_abs_err": float(ep.max()),
+                    "plain_mean_abs_err": float(ep.mean())})
+    return out
+
+
+def check_yardstick(part: str, what: str, ys) -> None:
+    for i, y in enumerate(ys):
+        if not (y["max_abs_err"] <= FLASH_VS_SDPA * y["plain_max_abs_err"]
+                and y["mean_abs_err"]
+                <= FLASH_VS_SDPA * y["plain_mean_abs_err"]):
+            raise AssertionError(f"phase {part}: {what} at step {i}: errors "
+                                 f"against the float32 steps exceed "
+                                 f"{FLASH_VS_SDPA}x the plain route's: {y}")
+
+
+def hold_layer_calls(calls) -> dict:
+    """Each recorded ``ops.cache_attention`` call of the main path (one a
+    layer that attends) held on its exact inputs to the float32 plain
+    version by the yardstick: its max and mean error at most
+    FLASH_VS_SDPA x those of ``decode_library`` (SDPA in bf16) on the same
+    values. Returns the worst ratios over the layers and the calls that
+    failed (checked by ``check_layers``)."""
+    from repro_torch.kernels import ref
+    ratios, failed = [], []
+    for i, ((q, k, v, pos), kw, out) in enumerate(calls):
+        want = ref.cache_attention_ref(q.float(), k.float(), v.float(), pos,
+                                       **kw)
+        library, _ = decode_library(q, k, v, pos, kw["q_offset"],
+                                    kw.get("window", 0))
+        yard = _yard_errors(out, want, library())
+        del want, library
+        ratios.append(tuple(
+            yard[e] / yard["sdpa_" + e] if yard["sdpa_" + e] > 0
+            else 0.0 if yard[e] == 0 else math.inf
+            for e in ("max_abs_err", "mean_abs_err")))
+        if not _within_yard(yard):
+            failed.append({"layer": i, **yard})
+    return {"calls": len(calls), "limit": FLASH_VS_SDPA,
+            "worst_max_ratio": max(r[0] for r in ratios),
+            "worst_mean_ratio": max(r[1] for r in ratios),
+            "failed": failed}
+
+
+def check_layers(part: str, held: dict, attn: int) -> None:
+    if held["calls"] != attn or held["failed"]:
+        raise AssertionError(f"phase {part}: flash_decode on the main path's "
+                             f"last step against the float32 plain version "
+                             f"({held['calls']} calls, {attn} layers attend): "
+                             f"{held['failed']}")
+
+
+def expect_decode(part: str, launches, flash: int, decode: int) -> None:
+    """The part's main path launched exactly ``flash`` flash and
+    ``decode`` flash_decode kernels and no other."""
+    check_launched(15, launches, ("flash_attention", "flash_decode")
+                   if flash else ("flash_decode",))
+    if launches["flash_attention"] != flash or \
+            launches["flash_decode"] != decode:
+        raise AssertionError(f"phase {part}: launches {launches}, the path "
+                             f"makes {flash} flash and {decode} flash_decode")
+
+
+def attending_layers(cfg) -> int:
+    from repro_torch.models import model as M
+    return sum(g.count * sum(k == M.ATTN for k in g.kinds)
+               for g in M.block_groups(cfg))
+
+
+def f8_cast_table(dev):
+    """The CPU's e4m3 cast of every bf16 bit pattern, as a 65,536-entry
+    byte table on ``dev`` (saturating past +-448, as torch casts)."""
+    import torch
+    x = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16)
+    return x.to(torch.float8_e4m3fn).view(torch.uint8).to(dev)
+
+
+def d_equals_cpu_cast(caches_p, caches_d, s: int, table) -> list:
+    """D's float8 caches against the CPU's cast of P's bf16 caches, byte
+    for byte in slots 0..s-1 (each element looked up in ``table``), the
+    tags equal and -1 in the pad slots, K/V zero there. Returns the
+    problems found."""
+    import torch
+    bad = []
+    for cp, cd in zip((c for g in caches_p for c in g),
+                      (c for g in caches_d for c in g)):
+        if cd.k.dtype != torch.float8_e4m3fn or not cd.full_capacity:
+            bad.append(f"D cache {cd.k.dtype} full={cd.full_capacity}")
+            continue
+        for name in ("k", "v"):
+            src, dst = getattr(cp, name), getattr(cd, name)
+            for i in range(src.shape[0]):
+                for b in range(src.shape[1]):
+                    idx = src[i, b].view(torch.int16).to(torch.int32) & 0xffff
+                    if not torch.equal(table[idx],
+                                       dst[i, b, :s].view(torch.uint8)):
+                        bad.append(f"{name} layer {i} seq {b}: bytes differ")
+                    del idx
+            if bool(dst[:, :, s:].view(torch.uint8).any()):
+                bad.append(f"{name}: nonzero pad slots")
+        if not (torch.equal(cd.pos[:, :, :s], cp.pos)
+                and bool((cd.pos[:, :, s:] == -1).all())):
+            bad.append("pos differ")
+    return bad
+
+
+def phase15_part(dev, part: str):
+    """One of 15a-15c: ``PHASE15_MODELS[part]`` at full width through the
+    step builders on the one-card mesh at batch 2: prefill_32k → handoff
+    → PHASE15_DECODE_STEPS greedy decode_32k steps (the main path: flash
+    per attending layer in the prefill, flash_decode per attending layer
+    a step, nothing else). The last step's flash_decode call of every
+    layer that attends is held on its exact inputs to the float32 plain
+    version by the SDPA yardstick (``hold_layer_calls``). Then the same
+    steps from copies of D's caches taken before them, fed the main
+    path's tokens: on the plain route in bf16 and in float32 (the logits'
+    yardstick, ``check_yardstick``) and, for a ring (15b, 15c), from a
+    full-capacity copy through flash (its gaps and argmax printed). 15a
+    also holds D's bytes to the CPU's e4m3 cast of P's caches. The
+    launches are counted from the prefill to the last decode step (the
+    checks and copies in between launch none). 15b and 15c return a
+    batch-1 slice of D's caches for 15d."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.cells import get_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    t_part = time.perf_counter()
+    _mem_line(dev, part, 15)
+    if dev.type == "cuda":         # built in phase 0; alone, build first
+        from repro_torch.kernels import _build
+        _build.load()
+    arch, layers = PHASE15_MODELS[part]
+    b = PHASE15_BATCH
+    over = {"num_layers": layers}
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    cell_p = dc.replace(get_cell(arch, "prefill_32k"), batch=b)
+    cell_d = dc.replace(get_cell(arch, "decode_32k"), batch=b)
+    pre = S.make_prefill_artifacts(cell_p, mesh, layer_override=over)
+    srv = S.make_serve_artifacts(cell_d, mesh, layer_override=over)
+    ho = S.make_handoff_artifacts(arch, mesh, layer_override=over, batch=b)
+    cfg = pre.cfg
+    s = cell_p.seq_len
+    attn = attending_layers(cfg)
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    inputs = S.random_inputs(pre.abstract_args[1], cfg.vocab_size, SEED, dev)
+    bad = []
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        _sync(dev)
+        t0 = time.perf_counter()
+        last, caches_p = pre.fn(params, inputs)
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        caches_d = ho.fn(caches_p)
+        _sync(dev)
+        handoff_s = time.perf_counter() - t0
+    kv = [c for g in caches_d for c in g if hasattr(c, "full_capacity")]
+    ring = any(not c.full_capacity for c in kv)
+    cast_ok = None
+    if cell_d.cache_dtype == "float8_e4m3fn":
+        with torch.no_grad():
+            cast_bad = d_equals_cpu_cast(caches_p, caches_d, s,
+                                         f8_cast_table(dev))
+        bad += cast_bad
+        cast_ok = not cast_bad
+    del caches_p
+    gc.collect()
+    # the copies the yardsticks decode from, taken before D's caches move
+    plain_caches = map_caches(caches_d, lambda x: x.clone())
+    f32_caches = map_caches(caches_d, lambda x: x.clone())
+    full_caches = (full_capacity_copy(caches_d, cell_d.decode_capacity())
+                   if ring else None)
+    long_caches = (map_caches(caches_d, lambda x: x[:, :1].clone())
+                   if ring else None)
+    tok = last.argmax(-1).to(torch.int32)[:, None]
+    calls = []
+    got, fed, steps_ms = decode_steps(srv, params, caches_d, tok, s, dev,
+                                      calls=calls)
+    launches = ops.launch_counts()
+    peak_main = _peak_gib(dev)
+    for i, g in enumerate(got):
+        if not bool(torch.isfinite(g).all()):
+            bad.append(f"decode step {i}: non-finite logits")
+    with torch.no_grad():
+        held = hold_layer_calls(calls)
+    del caches_d, calls
+    out = {"phase": 15, "part": part,
+           "model": f"{cfg.name} x{cfg.num_layers} layers "
+                    f"{cfg.compute_dtype}",
+           "batch": b, "seq_len": s, "attending_layers": attn,
+           "d_cache": {"dtype": cell_d.cache_dtype, "ring": ring,
+                       "slots": kv[0].capacity},
+           "prefill_s": prefill_s, "handoff_s": handoff_s,
+           "decode_ms": steps_ms,
+           "decode_ms_per_step": float(np.median(steps_ms)),
+           "tokens": torch.cat(fed + [got[-1].argmax(-1).to(torch.int32)
+                                       [:, None]], 1).tolist(),
+           "launches": launches, "peak_gib": peak_main,
+           "d_bytes_equal_cpu_cast": cast_ok,
+           "layers_vs_float32_plain": held}
+    with plain_route():
+        plain, _, plain_ms = decode_steps(srv, params, plain_caches, None, s,
+                                          dev, feed=fed)
+    del plain_caches
+    truth = f32_steps(cell_d, mesh, over, params, f32_caches, fed, s, dev)
+    del f32_caches
+    out["plain_ms_per_step"] = float(np.median(plain_ms))
+    out["gaps_plain"] = logit_gaps(got, plain)
+    out["vs_float32"] = yardstick(got, plain, truth)
+    if ring:
+        ops.reset_launch_counts()
+        flash, _, flash_ms = decode_steps(srv, params, full_caches, None, s,
+                                          dev, feed=fed)
+        flash_launches = ops.launch_counts()
+        del full_caches
+        out["flash_ms_per_step"] = float(np.median(flash_ms))
+        out["flash_route_launches"] = flash_launches
+        out["gaps_flash"] = logit_gaps(got, flash)
+        out["flash_vs_float32"] = yardstick(flash, plain, truth)
+        if flash_launches["flash_attention"] != attn * len(fed) or \
+                flash_launches["flash_decode"]:
+            bad.append(f"full-capacity copy launched {flash_launches}")
+    out["peak_gib_with_checks"] = _peak_gib(dev)
+    out["predicted"] = PHASE15_PREDICTED[part]
+    out["problems"] = bad
+    out["part_s"] = round(time.perf_counter() - t_part, 3)
+    emit(out)
+    if bad:
+        raise AssertionError(f"phase {part}: {bad}")
+    expect_decode(part, launches, attn, attn * PHASE15_DECODE_STEPS)
+    check_layers(part, held, attn)
+    check_yardstick(part, "the flash_decode route", out["vs_float32"])
+    if ring:
+        long = phase15_long(dev, arch, over, mesh, params, long_caches,
+                            fed[0][:1], attn)
+        launches = dict(collections.Counter(launches) + collections.Counter(
+            long["launches"]))
+    return {"launches": launches, "part_s": out["part_s"]}
+
+
+def phase15_long(dev, arch: str, over, mesh, params, caches, tok, attn):
+    """15d: the long_500k serve step (batch 1) at q_offset 524,288 over
+    ``caches`` — a batch-1 slice of D's rings straight from the handoff —
+    with every tag shifted by PHASE15_SHIFT, so that each entry keeps its
+    slot (the shift is a multiple of the ring) and the window is full:
+    exactly one flash_decode launch a layer that attends, each row seeing
+    the window's slots; its logits against the float32 steps on a copy of
+    the same caches by the yardstick (``check_yardstick``), the gap to the
+    plain bf16 route printed."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.cells import get_cell
+    from repro_torch.models import layers as L
+    t0 = time.perf_counter()
+    cell = get_cell(arch, "long_500k")
+    srv = S.make_serve_artifacts(cell, mesh, layer_override=over)
+    q = cell.seq_len
+    bad = []
+    for c in (c for g in caches for c in g if isinstance(c, L.KVCache)):
+        c.pos.copy_(torch.where(c.pos >= 0, c.pos + PHASE15_SHIFT, c.pos))
+        cap = c.capacity
+        slot = torch.arange(cap, device=c.pos.device)
+        if not (cap == srv.cfg.sliding_window
+                and bool((c.pos % cap == slot).all())
+                and int(c.pos.max()) == q - 1):
+            bad.append(f"ring of {cap}: tags off their slots after the shift")
+    seen = ops.cache_visible_slots(1, cap, window=srv.cfg.sliding_window,
+                                   q_offset=q)
+    plain_caches = map_caches(caches, lambda x: x.clone())
+    f32_caches = map_caches(caches, lambda x: x.clone())
+    ops.reset_launch_counts()
+    calls = []
+    got, _, ms = decode_steps(srv, params, caches, tok, q, dev, feed=[tok],
+                              calls=calls)
+    launches = ops.launch_counts()
+    with torch.no_grad():
+        held = hold_layer_calls(calls)
+    del calls
+    with plain_route():
+        plain, _, plain_ms = decode_steps(srv, params, plain_caches, None, q,
+                                          dev, feed=[tok])
+    truth = f32_steps(cell, mesh, over, params, f32_caches, [tok], q, dev)
+    ys = yardstick(got, plain, truth)
+    if not bool(torch.isfinite(got[0]).all()):
+        bad.append("non-finite logits")
+    emit({"phase": 15, "part": "15d", "arch": arch, "batch": cell.batch,
+          "q_offset": q, "shift": PHASE15_SHIFT, "ring_slots": cap,
+          "slots_a_row": seen, "decode_ms": float(np.median(ms)),
+          "plain_ms": float(np.median(plain_ms)), "launches": launches,
+          "layers_vs_float32_plain": held,
+          "gaps_plain": logit_gaps(got, plain), "vs_float32": ys,
+          "problems": bad, "predicted": PHASE15_PREDICTED["15d"],
+          "part_s": round(time.perf_counter() - t0, 3)})
+    if bad:
+        raise AssertionError(f"phase 15d ({arch}): {bad}")
+    if seen != srv.cfg.sliding_window:
+        raise AssertionError(f"phase 15d ({arch}): {seen} slots a row")
+    expect_decode("15d", launches, 0, attn)
+    check_layers(f"15d ({arch})", held, attn)
+    check_yardstick("15d", f"{arch} flash_decode route", ys)
+    return {"launches": launches}
+
+
+def phase15(dev):
+    """15a, 15b (with its 15d) and 15c (with its 15d), each model freed
+    before the next. Returns the launches summed over their main paths."""
+    import torch
+    t_phase = time.perf_counter()
+    launches, parts_s = collections.Counter(), {}
+    for part in ("15a", "15b", "15c"):
+        r = phase15_part(dev, part)
+        launches.update(r["launches"])
+        parts_s[part] = r["part_s"]
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    phase_s = round(time.perf_counter() - t_phase, 3)
+    emit({"phase": 15, "phase_s": phase_s, "parts_s": parts_s,
+          "launches": dict(launches),
+          "predicted_s": PHASE15_PREDICTED["phase_s"]})
+    return {"launches": dict(launches)}
+
+
 # (name, source, TPU kernel, the phase whose launches the row reports);
 # every row also carries its launches on every serving phase
 KERNELS = [
@@ -4734,6 +5427,8 @@ KERNELS = [
      "src/repro/kernels/kv_repack.py:75", 4),
     ("repack", "src/repro_torch/kernels/kv_repack.py",
      "src/repro/kernels/kv_repack.py:154", 4),
+    ("flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
+     "src/repro/kernels/flash_attention.py:78", 15),
 ]
 
 
@@ -4804,24 +5499,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths[14] = phase14(dev)
     timings["flash_attention"].update(paths[14]["timing"])
+    gc.collect()                         # phase 14's models: phase 15's
+    torch.cuda.empty_cache()
+    paths[15] = phase15(dev)
 
     rows = []
     for name, source, replaces, phase in KERNELS:
         t = timings[name]
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
-               "launches": paths[phase]["launches"][name],
+               "launches": paths[phase]["launches"].get(name, 0),
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                "device_ms": t["device_ms"],
                "library_device_ms": t["library_device_ms"],
                "device_method": t["device_method"], "host_us": t["host_us"],
-               "launches_by_phase": {ph: paths[ph]["launches"][name]
+               "launches_by_phase": {ph: paths[ph]["launches"].get(name, 0)
                                      for ph in sorted(paths)}}
-        # at phase 7's, 8's, 10's, 11's, 12's and 14's shapes
+        # at phase 7's, 8's, 10's, 11's, 12's and 14's shapes; flash_decode
+        # at phase 15's (the Mixtral ring the row, RecurrentGemma's ring
+        # "rg", Qwen1.5-32B's e4m3 cache "fp8")
         for key in ("mla", "rg", "vlm", "encdec", "load", "launch_p",
-                    "launch_d", "launch_k"):
+                    "launch_d", "launch_k", "fp8"):
             if key in t:
                 row[key] = {k: t[key][k] for k in (
                     "shape", "max_abs_err", "ms", "device_ms", "plain_ms",

@@ -6,8 +6,8 @@ CUDA tensor launches the hand-written kernel or raises. There is no
 fallback from one to the other. A ``meta`` tensor (shapes only) goes to
 the plain version too, which computes nothing there; within
 ``count_as_card`` (the roofline's count) it takes the card's route
-instead, and ``flash_attention`` tallies the products the kernel does
-rather than those of its plain version. The kernels have no backward pass: a
+instead, and ``flash_attention`` and ``cache_attention`` tally the
+products their kernels do rather than those of their plain versions. The kernels have no backward pass: a
 CUDA input that requires grad while grad mode is on raises, so that no
 path can drop a gradient silently (training takes the plain attention
 route explicitly, ``models.layers``). Each kernel wrapper counts its launches
@@ -23,12 +23,13 @@ from typing import Dict, Iterator, Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import kv_repack as _kr
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 from repro_torch.serving.paged_cache import KVPageSpec
 
-_WRAPPERS = (_fa, _pa, _kr)          # modules holding LAUNCHES by name
+_WRAPPERS = (_fa, _fd, _pa, _kr)          # modules holding LAUNCHES by name
 FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 _card_tally: Optional[Dict[str, float]] = None   # set by count_as_card
 
@@ -36,10 +37,11 @@ _card_tally: Optional[Dict[str, float]] = None   # set by count_as_card
 @contextlib.contextmanager
 def count_as_card() -> Iterator[Dict[str, float]]:
     """Within, ``meta`` tensors take the card's route
-    (``models.layers.kernel_route``), and ``flash_attention`` on them
-    raises where the card raises, returns an uninitialised output and adds
-    the FLOPs the kernel does — each query row against its visible keys
-    only — to the tally it yields, ``{"flash_attention": FLOPs}``."""
+    (``models.layers.kernel_route``), and ``flash_attention`` and
+    ``cache_attention`` on them raise where the card raises, return an
+    uninitialised output and add the FLOPs their kernels do — each query
+    row against its visible keys or slots only — to the tally it yields,
+    ``{"flash_attention": FLOPs, "flash_decode": FLOPs}``."""
     global _card_tally
     prev, _card_tally = _card_tally, {}
     try:
@@ -69,6 +71,20 @@ def flash_visible_keys(sq: int, kv_len: int, *, causal: bool = True,
     return int((hi - lo).clamp(min=0).sum())
 
 
+def cache_visible_slots(sq: int, capacity: int, *, window: int = 0,
+                        q_offset: int = 0) -> int:
+    """Slots that the ``sq`` query rows at ``q_offset..`` see in all on a
+    ``capacity``-slot cache that holds every position up to each row's
+    own, as a decode step's does (a full ring, or a full-capacity cache
+    filled up to the row): min(position + 1, capacity, ``window`` when
+    > 0) a row — the pairs ``cache_attention``'s kernel scores."""
+    pos = torch.arange(q_offset, q_offset + sq, dtype=torch.int64)
+    seen = (pos + 1).clamp(max=capacity)
+    if window > 0:
+        seen = seen.clamp(max=window)
+    return int(seen.sum())
+
+
 def _on_cuda(t: torch.Tensor, op: str, *inputs: torch.Tensor) -> bool:
     """Whether ``t`` sends the call to the kernel. On the card, raises if
     any of ``inputs`` requires grad while grad mode is on: the kernel's
@@ -95,14 +111,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     256 and 256); bfloat16 takes head dims that are multiples of 16 and 16-byte
     aligned pointers and (batch, head, seq) strides (TMA); float32 any
     head dims within those limits. Float8 K/V (a float8 dense cache) on the
-    card raise: the kernel reads bfloat16 or float32."""
+    card raise: the kernel reads bfloat16 or float32; a float8 decode
+    cache goes to ``cache_attention``."""
     counted = counting_as_card(q)
     if counted or _on_cuda(q, "flash_attention", q, k, v):
         if any(t.dtype in FLOAT8 for t in (k, v)):
             raise NotImplementedError(
                 f"flash_attention: {k.dtype} K/V on the card; the kernel "
-                "reads bfloat16 or float32 — see ROADMAP queue 1 item 16 "
-                "(flash on float8 caches)")
+                "reads bfloat16 or float32 — a float8 decode cache takes "
+                "ops.cache_attention")
         if counted:
             b, h, sq, dk = q.shape
             dv = v.shape[-1]
@@ -118,6 +135,32 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale, q_offset=q_offset,
                                    kv_len=kv_len)
+
+
+def cache_attention(q, k, v, pos, *, q_offset: int, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Decode attention over a dense position-tagged cache (a ring buffer
+    or a full-capacity cache). q: (B,Sq,H,d); k, v: (B,cap,KV,d); pos:
+    (B,cap) int32, -1 = empty → (B,Sq,H,d). Query row i at absolute
+    position ``q_offset + i`` sees the slots with 0 <= pos <= its position
+    and, when ``window`` > 0, within ``window`` of it — whatever the slot
+    order. On the card, the flash_decode kernel: K/V bfloat16 or float32 as
+    q, or float8 e4m3 under a bfloat16 q (widened exactly, no scale)."""
+    counted = counting_as_card(q)
+    if counted or _on_cuda(q, "cache_attention", q, k, v):
+        _fd.check_dtypes(q, k, v)
+        if counted:
+            b, sq, h, dk = q.shape
+            dv = v.shape[-1]
+            seen = cache_visible_slots(sq, k.shape[1], window=window,
+                                       q_offset=q_offset)
+            _card_tally["flash_decode"] = _card_tally.get(
+                "flash_decode", 0.0) + 2.0 * b * h * seen * (dk + dv)
+            return q.new_empty((b, sq, h, dv))
+        return _fd.flash_decode(q, k, v, pos, q_offset=q_offset,
+                                window=window, scale=scale)
+    return ref.cache_attention_ref(q, k, v, pos, q_offset=q_offset,
+                                   window=window, scale=scale)
 
 
 def paged_attention(q, k_pool, v_pool, block_table, seq_lens, *,

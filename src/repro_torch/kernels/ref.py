@@ -50,6 +50,38 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(b, h, sq, v.shape[-1]).to(q.dtype)
 
 
+def cache_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        pos: torch.Tensor, *, q_offset: int, window: int = 0,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,Sq,H,dk); k: (B,cap,KV,dk); v: (B,cap,KV,dv); pos: (B,cap)
+    int position tags (-1 = empty) → (B,Sq,H,dv) in q's dtype.
+
+    Query row i sits at absolute position ``q_offset + i`` and sees the
+    slots with 0 <= pos <= its position and, when ``window`` > 0, within
+    ``window`` of it: ``cache_attention_mask`` + ``sdpa`` of
+    ``models.layers``, whatever the slot order (a ring buffer or a
+    full-capacity cache). K and V are widened to float32 (float8 exactly,
+    no scale); scores and the softmax are float32. A row that sees no slot
+    returns zeros, and a slot that no row sees is selected away, V
+    included (it may hold anything), as in the kernel."""
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    grp = h // kv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, sq, kv, grp, d).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    qp = torch.arange(q_offset, q_offset + sq, device=q.device)[None, :, None]
+    cp = pos.long()[:, None, :]                              # (B,1,cap)
+    ok = (cp >= 0) & (cp <= qp)                              # (B,Sq,cap)
+    if window > 0:
+        ok = ok & ((qp - cp) < window)
+    s = torch.where(ok[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1) * ok.any(-1)[:, None, None, :, None]
+    v = torch.where(ok.any(1)[:, :, None, None], v.float(), 0.0)  # select
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v)
+    return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, block_table: torch.Tensor,
                         seq_lens: torch.Tensor, *, layout: str = "nbhd",

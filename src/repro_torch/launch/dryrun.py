@@ -19,9 +19,14 @@ compiled code size and collective bytes have none (there is no compiled
 program); the wire is 0, and the count covers products only
 (``roofline.count_flops``). ``alias_size_in_bytes`` is the outputs that
 are arguments updated in place (the decode caches, the train state);
-the HBM bytes count them once. A cell the card has no route for yet (a
-ring-buffer dense cache, float8 K/V into flash) is skipped with the
-ROADMAP item that the count raised.
+the HBM bytes count them once. Every runnable cell has a route on the
+card: a ring-buffer or float8 decode cache is counted as the flash_decode
+kernel scores it (each row's visible slots).
+
+  python -m repro_torch.launch.dryrun --handoff [--arch A] [--out F]
+
+gives one record per arch of the P→D handoff program's bytes
+(``run_handoffs``).
 """
 from __future__ import annotations
 
@@ -29,13 +34,14 @@ import argparse
 import json
 import time
 import traceback
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 from repro_torch.configs import ASSIGNED
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.cells import Cell, get_cell, make_cells
 from repro_torch.launch.mesh import make_production_mesh, shape_only
-from repro_torch.launch.steps import StepArtifacts, make_artifacts
+from repro_torch.launch.steps import (StepArtifacts, make_artifacts,
+                                      make_handoff_artifacts)
 from repro_torch.roofline import analysis as RA
 
 
@@ -81,15 +87,7 @@ def run_cell(cell: Cell, mesh_kind: str, *, hw: RA.HW = RA.H100_SXM,
     t0 = time.time()
     try:
         art = make_artifacts(cell, mesh)
-        try:
-            flops, _, out = RA.count_flops(art.fn, *art.abstract_args)
-        except NotImplementedError as e:       # no route on the card yet
-            rec["ok"] = None
-            rec["skip"] = f"no route on the card: {e}"
-            if verbose:
-                print(f"[skip] {cell.name} ({mesh_kind}): {rec['skip']}",
-                      flush=True)
-            return rec
+        flops, _, out = RA.count_flops(art.fn, *art.abstract_args)
         rec["ok"] = True
         rec["seconds"] = {"count": round(time.time() - t0, 1)}
         rec["memory_analysis"] = memory_per_chip(art, out)
@@ -129,6 +127,56 @@ def run_cell(cell: Cell, mesh_kind: str, *, hw: RA.HW = RA.H100_SXM,
     return rec
 
 
+def run_handoffs(arch: Optional[str], out: Optional[str] = None, *,
+                 verbose: bool = True) -> List[Dict[str, Any]]:
+    """The P→D cache-realignment program (the paper's compatible
+    transmission module) of each arch on the abstract production mesh,
+    run once on ``meta``: one record of its bytes an arch (the reference's
+    ``run_handoffs``). ``kv_bytes_global``: P's caches, the prefill cell's
+    32 sequences (the reference's number); ``d_bytes_global``: D's, with
+    the capacity pad, the rings of a window and the float8 cast of
+    qwen1.5-32b; ``memory_analysis``: both per chip under their specs. The
+    reference's ``wire_bytes_per_chip`` and ``by_kind`` read XLA's
+    collectives; the port has no collective program (ROADMAP B12), so they
+    are 0 and empty."""
+    mesh = shape_only(make_production_mesh())
+    archs = ASSIGNED if arch in (None, "all") else [arch]
+    if verbose:
+        print("| arch | P's KV bytes (32-seq batch) | D's bytes | "
+              "args / outputs per chip |")
+    records = []
+    for a in archs:
+        try:
+            art = make_handoff_artifacts(a, mesh)
+            caches_d = art.fn(*art.abstract_args)
+            sizes = art.mesh.shape
+            ma = {"argument_size_in_bytes": SH.per_chip_bytes(
+                      art.abstract_args[0], art.in_shardings[0], sizes),
+                  "output_size_in_bytes": SH.per_chip_bytes(
+                      caches_d, art.out_shardings, sizes)}
+            rec = {"arch": a, "kind": "handoff",
+                   "kv_bytes_global": RA.tree_bytes(art.abstract_args[0]),
+                   "d_bytes_global": RA.tree_bytes(caches_d),
+                   "memory_analysis": ma, "wire_bytes_per_chip": 0.0,
+                   "by_kind": {}, "ok": True}
+            if verbose:
+                print(f"| {a} | {rec['kv_bytes_global'] / 2**30:.2f} GiB | "
+                      f"{rec['d_bytes_global'] / 2**30:.2f} GiB | "
+                      f"{ma['argument_size_in_bytes'] / 2**20:.1f} / "
+                      f"{ma['output_size_in_bytes'] / 2**20:.1f} MiB |",
+                      flush=True)
+        except Exception as e:        # a record per arch, as the reference
+            rec = {"arch": a, "kind": "handoff", "ok": False,
+                   "error": f"{type(e).__name__}: {str(e)[:300]}"}
+            if verbose:
+                print(f"| {a} | FAILED {rec['error'][:120]} |", flush=True)
+        records.append(rec)
+        if out:
+            with open(out, "a") as fh:
+                fh.write(json.dumps(rec) + "\n")
+    return records
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=None, choices=ASSIGNED + ["all"],
@@ -140,8 +188,14 @@ def main(argv=None) -> None:
                     choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true",
                     help="every (arch × shape) cell")
+    ap.add_argument("--handoff", action="store_true",
+                    help="the P→D handoff program's bytes per arch")
     ap.add_argument("--out", default=None, help="append JSON records here")
     args = ap.parse_args(argv)
+    if args.handoff:
+        if not all(r["ok"] for r in run_handoffs(args.arch, args.out)):
+            raise SystemExit(1)
+        return
 
     if args.all or args.arch in (None, "all"):
         cells = make_cells()

@@ -7,6 +7,10 @@ becomes seconds and peak GiB of a run on the card).
   python -m repro_torch.launch.serve --arch qwen3-4b --shape decode_32k --batch 2
 
 Weights are random from ``--seed``, tokens from ``default_rng(seed)``.
+Every assigned arch's decode runs on the card: D's dense caches of a
+sliding-window arch (mixtral-8x7b, recurrentgemma-9b) are rings of the
+window and qwen1.5-32b's are float8 e4m3 (the handoff's cast), and both
+go through the flash_decode kernel; the rest through flash.
 ``--layers`` cuts the depth. One card only:
 ``--multi-pod`` raises (ROADMAP queue 1 item 14). The reference's
 ``--demo`` runs a JAX example script and is not ported (ROADMAP queue 1

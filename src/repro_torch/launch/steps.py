@@ -36,7 +36,6 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, get_config, torch_dtype
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.cells import Cell, get_cell
-from repro_torch.kernels import ops
 from repro_torch.launch.mesh import (Mesh, check_runnable, data_axes,
                                      model_axis)
 from repro_torch.models import dist
@@ -114,8 +113,8 @@ def _deployed(arch: str, m_size: int, mode: str,
 
 def _full_capacity(cfg: ModelConfig) -> bool:
     """D's dense caches hold slot == position (what the flash route of
-    ``attention_decode`` needs) unless the arch's window makes them ring
-    buffers."""
+    ``attention_decode`` reads) unless the arch's window makes them ring
+    buffers, as the reference's are (those take ``ops.cache_attention``)."""
     return not M._window(cfg)
 
 
@@ -195,10 +194,12 @@ def make_serve_artifacts(cell: Cell, mesh: Mesh, *,
     ``fn(params, caches, io, q_offset=None)``: io {"tokens", "positions"}
     (B, 1). Every row decodes at the same position, ``q_offset`` — a host
     int, ``cell.seq_len`` unless given — so the card reads no position
-    back (the flash route of attention, MLA's expanded decode). The caches
-    are updated in place. An arch whose window makes D's caches ring
-    buffers has no kernel route on the card and raises there, and in a
-    count of the card's work on ``meta`` (``ops.count_as_card``)."""
+    back (the kernel routes of attention, MLA's expanded decode). The
+    caches are updated in place. D's dense caches of an arch with a window
+    are ring buffers of the window, and qwen1.5-32b's are float8: on the
+    card (and in a count of its work on ``meta``, ``ops.count_as_card``)
+    both take the flash_decode kernel (``ops.cache_attention``), the rest
+    flash."""
     dp, dp_size, m, m_size = _axis_sizes(mesh)
     cfg = _deployed(cell.arch, m_size, "decode", layer_override)
     dctx = _dctx(mesh, dp, m, mode="decode")
@@ -219,14 +220,7 @@ def make_serve_artifacts(cell: Cell, mesh: Mesh, *,
     logits_spec = (SH._dp(b, dp, dp_size), None, m)
 
     def serve_step(params, caches, io, q_offset: Optional[int] = None):
-        dev = check_runnable(mesh)
-        if (dev.type == "cuda" or ops.counting_as_card(dev)) \
-                and not _full_capacity(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: D's dense caches are ring buffers of the "
-                f"{cfg.sliding_window}-token window, which the flash route "
-                "cannot read — see ROADMAP queue 1 item 15 (a kernel route "
-                "for ring-buffer dense caches)")
+        check_runnable(mesh)
         params, caches, io = SH.to_shardings(mesh, (params, caches, io))
         with dist.use(dctx):
             return M.decode_step(

@@ -26,6 +26,9 @@ def tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
     a = np.array(a, copy=True, order="C")     # writable, owned by torch
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    elif a.dtype.name in ("float8_e4m3fn", "float8_e5m2"):
+        t = torch.from_numpy(a.view(np.uint8)).view(getattr(torch,
+                                                            a.dtype.name))
     else:
         t = torch.from_numpy(a)
     return t.to(device)

@@ -12,8 +12,10 @@ Conventions: activations (B, S, d); attention heads (B, S, H, hd);
 softmax and norms accumulate in float32.
 
 Two routes through attention. On a CUDA tensor (``kernel_route``) prefill
-and chunked prefill call the flash kernel and paged decode calls the paged
-kernel, both through ``repro_torch.kernels.ops``. Cross-attention runs
+and chunked prefill call the flash kernel, paged decode calls the paged
+kernel, and decode over a ring-buffer or float8 dense cache calls the
+flash_decode kernel (``ops.cache_attention``), all through
+``repro_torch.kernels.ops``. Cross-attention runs
 flash non-causal over the memory where one memory length serves the whole
 batch (a prefill, a chunk of one request) and, with a per-sequence length
 (D's decode slots), the plain masked ``sdpa`` on both devices, as the
@@ -407,24 +409,33 @@ def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     position-tagged cache, written in place. x: (B,Sq,d); positions:
     (B,Sq) absolute.
 
-    The flash route needs ``q_offset`` — the absolute position of query
-    row 0, equal to positions[:, 0] — and a full-capacity cache, where the
-    slot of every entry is its position: slots below q_offset hold earlier
-    chunks, slots at or past q_offset + Sq were never written (pos -1) and
-    lie above the causal diagonal. Then ``causal_mask(q_offset)`` over the
-    slots is exactly ``cache_attention_mask`` over the positions."""
+    The kernel route needs ``q_offset`` — the absolute position of query
+    row 0, equal to positions[:, 0]. A full-capacity bfloat16 or float32
+    cache takes flash: there the slot of every entry is its position,
+    slots below q_offset hold earlier chunks, slots at or past q_offset +
+    Sq were never written (pos -1) and lie above the causal diagonal, so
+    ``causal_mask(q_offset)`` over the slots is exactly
+    ``cache_attention_mask`` over the positions. Any other cache — a ring
+    buffer (a sliding layer's window-sized cache) or float8 K/V — takes
+    ``ops.cache_attention``, which reads each slot's position tag."""
     q, k, v = _project_qkv(p, cfg, x, positions)
     _kv_cache_put(cache, k, v, positions)
     if kernel_route(x):
-        if q_offset is None or not cache.full_capacity \
-                or q_offset + x.shape[1] > cache.capacity:
-            raise AssertionError(
-                "flash route of attention_decode needs q_offset and a "
-                "full-capacity cache (slot == position)")
-        out = ops.flash_attention(q.transpose(1, 2), cache.k.transpose(1, 2),
-                                  cache.v.transpose(1, 2), causal=True,
-                                  window=window, q_offset=q_offset,
-                                  kv_len=cache.capacity).transpose(1, 2)
+        if q_offset is None:
+            raise AssertionError("the kernel route of attention_decode "
+                                 "needs q_offset (== positions[:, 0])")
+        if cache.full_capacity and cache.k.dtype not in ops.FLOAT8:
+            if q_offset + x.shape[1] > cache.capacity:
+                raise AssertionError(
+                    f"attention_decode: rows up to {q_offset + x.shape[1]} "
+                    f"past a full-capacity cache of {cache.capacity}")
+            out = ops.flash_attention(
+                q.transpose(1, 2), cache.k.transpose(1, 2),
+                cache.v.transpose(1, 2), causal=True, window=window,
+                q_offset=q_offset, kv_len=cache.capacity).transpose(1, 2)
+        else:
+            out = ops.cache_attention(q, cache.k, cache.v, cache.pos,
+                                      q_offset=q_offset, window=window)
     else:
         mask = cache_attention_mask(cache, positions, window)
         out = sdpa(q, cache.k, cache.v, mask)

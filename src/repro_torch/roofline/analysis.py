@@ -19,8 +19,9 @@ as it does on CUDA tensors), and nothing is allocated or computed.
 reference's XLA ``cost_analysis`` counts both; ``useful_ratio`` therefore
 reads higher than the reference's for the same program. The flash
 kernel's products are those of each query row against its visible keys
-(causal, window, ``kv_len``), as the kernel does them, not the masked
-square of its plain version. The port's layer loop is Python, so one
+(causal, window, ``kv_len``), and the flash_decode kernel's those of each
+row against the slots it sees on a ring or float8 cache, as the kernels
+do them, not the masked square of their plain versions. The port's layer loop is Python, so one
 count covers every layer at full depth: the reference's probe plans
 (XLA counts a while body once) have nothing to correct here and are not
 ported. Nor are its HLO-text parsers (``collective_bytes``,
@@ -63,7 +64,7 @@ class RooflineTerms:
     hbm_bytes: float = 0.0              # per chip
     wire_bytes: float = 0.0             # per chip
     convert_bytes: float = 0.0          # the reference's CPU-emulation term
-    flash_flops: float = 0.0            # the flash kernel's, within flops
+    flash_flops: float = 0.0            # the attention kernels', within flops
 
     @property
     def hbm_bytes_corrected(self) -> float:
@@ -121,13 +122,13 @@ def analyze_step(fn: Callable, *args: Any, chips: int = 1) -> RooflineTerms:
 
 def count_flops(fn: Callable, *args: Any) -> Tuple[float, float, Any]:
     """Runs ``fn(*args)`` once on ``meta`` arguments as the card runs it
-    (``ops.count_as_card``): (the FLOPs of its products, the flash
-    kernel's share of them, its outputs)."""
+    (``ops.count_as_card``): (the FLOPs of its products, the attention
+    kernels' share of them — flash and flash_decode —, its outputs)."""
     counter = FlopCounterMode(display=False)
     with counter, ops.count_as_card() as tally:
         out = fn(*args)
-    flash = tally.get("flash_attention", 0.0)
-    return float(counter.get_total_flops()) + flash, flash, out
+    attn = tally.get("flash_attention", 0.0) + tally.get("flash_decode", 0.0)
+    return float(counter.get_total_flops()) + attn, attn, out
 
 
 # --------------------------------------------------------------------------- #

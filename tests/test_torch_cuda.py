@@ -876,6 +876,7 @@ def test_cached_serving_on_card_matches_cold(cuda):
     assert p_stats.prefix_cached_tokens >= 2 * 40
     assert counts["repack"] == counts["gather_pages"] == \
         counts["scatter_pages"] == 2 * 2             # k, v per cached request
+    assert counts.pop("flash_decode") == 0          # dense decode caches only
     assert all(n > 0 for n in counts.values()), counts
 
 
@@ -1217,8 +1218,13 @@ def _grad_inputs(cuda):
     q3 = _rand(rng, (2, 2, 16), "float32", cuda)
     table = torch.tensor([[1, 3], [5, 7]], dtype=torch.int32, device=cuda)
     lens = torch.tensor([6, 8], dtype=torch.int32, device=cuda)
+    ring_pos = torch.arange(8, dtype=torch.int32, device=cuda)[None]
     return [
         ("flash_attention", q4, lambda x: ops.flash_attention(x, q4, q4)),
+        ("flash_decode", q4,
+         lambda x: ops.cache_attention(
+             x[:, :, :1].transpose(1, 2), q4.transpose(1, 2),
+             q4.transpose(1, 2), ring_pos, q_offset=7, window=4)),
         ("paged_attention", pool[0],
          lambda x: ops.paged_attention(q3, x, pool[0], table, lens)),
         ("scatter_pages_overlay", canon,
@@ -1232,9 +1238,9 @@ def _grad_inputs(cuda):
     ]
 
 
-@pytest.mark.parametrize("op", ["flash_attention", "paged_attention",
-                                "scatter_pages_overlay", "gather_pages",
-                                "scatter_pages", "repack"])
+@pytest.mark.parametrize("op", ["flash_attention", "flash_decode",
+                                "paged_attention", "scatter_pages_overlay",
+                                "gather_pages", "scatter_pages", "repack"])
 def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda, op):
     """The kernels have no backward pass: a CUDA input that requires grad
     raises while grad mode is on (the output would carry no gradient), and
@@ -1330,7 +1336,7 @@ def test_flash_refuses_float8_kv(cuda):
     q = torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16, device=cuda)
     k = torch.zeros((1, 2, 8, 64), device=cuda).to(torch.float8_e4m3fn)
     ops.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
+    with pytest.raises(NotImplementedError, match="ops.cache_attention"):
         ops.flash_attention(q, k, k)
     assert ops.launch_counts()["flash_attention"] == 0
 
@@ -1417,25 +1423,226 @@ def test_launch_steps_on_card_match_cpu(cuda, family, monkeypatch):
                                    atol=1e-5)
 
 
-def test_launch_serve_step_refuses_ring_caches_on_card(cuda, monkeypatch):
-    """A sliding-window arch's D caches are ring buffers, which the flash
-    route cannot read: the serve step raises on the card, naming the
-    ROADMAP item (the CPU's plain route serves them)."""
-    import dataclasses
-    from repro_torch.launch import cells as TC
+def _launch_serve(cfg, cells, params, dev, steps, monkeypatch,
+                  plain_decode=False):
+    """The launch prefill → handoff → ``steps`` serve steps on the one-card
+    mesh of ``dev`` (tokens after the first fixed, so two runs decode the
+    same inputs): (the steps' logits on the CPU, D's caches after them).
+    ``plain_decode``: the serve steps on the plain route."""
     from repro_torch.launch import steps as TS
     from repro_torch.launch.mesh import make_mesh
-    cfg = config_from_dict(dict(_TINY, name="sliding",
-                                **TRAIN_FAMILIES["sliding"]))
     monkeypatch.setattr(TS, "get_config", lambda arch: cfg)
-    cell = dataclasses.replace(TC.get_cell("mixtral-8x7b", "decode_32k"),
-                               batch=1, seq_len=16)
-    art = TS.make_serve_artifacts(cell, make_mesh((1, 1), ("data", "model"),
-                                                  cuda))
-    params = TM.init_params(cfg, seed=0, device=cuda)
-    caches = TM.init_caches(cfg, 1, cell.decode_capacity(), device=cuda)
-    io = {"tokens": torch.zeros((1, 1), dtype=torch.int32, device=cuda),
-          "positions": torch.full((1, 1), 16, dtype=torch.int32,
-                                  device=cuda)}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
-        art.fn(params, caches, io)
+    monkeypatch.setattr(TS, "get_cell", lambda arch, shape: cells[shape])
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    pre = TS.make_prefill_artifacts(cells["prefill_32k"], mesh)
+    srv = TS.make_serve_artifacts(cells["decode_32k"], mesh)
+    ho = TS.make_handoff_artifacts("qwen3-4b", mesh, batch=2)
+    inputs = TS.random_inputs(pre.abstract_args[1], cfg.vocab_size, 0, dev)
+    p = _to_dev(params, dev)
+    s = cells["prefill_32k"].seq_len
+    out = []
+    with torch.no_grad():
+        last, caches = pre.fn(p, inputs)
+        caches = ho.fn(caches)
+        tok = last.argmax(-1).to(torch.int32)[:, None]
+        with monkeypatch.context() as m:
+            if plain_decode:
+                m.setattr(TL, "kernel_route", lambda x: False)
+            for i in range(steps):
+                io = {"tokens": tok, "positions": torch.full_like(tok, s + i)}
+                logits, caches = srv.fn(p, caches, io, q_offset=s + i)
+                out.append(logits.float().cpu())
+                tok = torch.full_like(tok, 5 + i)
+    return out, caches
+
+
+def _tiny_cells(cache_p, cache_d):
+    import dataclasses
+    from repro_torch.launch import cells as TC
+    return {"prefill_32k": dataclasses.replace(
+                TC.get_cell("qwen3-4b", "prefill_32k"), batch=2, seq_len=24,
+                cache_dtype=cache_p),
+            "decode_32k": dataclasses.replace(
+                TC.get_cell("qwen3-4b", "decode_32k"), batch=2, seq_len=24,
+                cache_dtype=cache_d)}
+
+
+def _attending(cfg):
+    return sum(g.count * sum(k == TM.ATTN for k in g.kinds)
+               for g in TM.block_groups(cfg))
+
+
+@pytest.mark.parametrize("family", ["sliding", "hybrid"])
+def test_launch_serve_step_on_ring_caches_matches_cpu(cuda, family,
+                                                      monkeypatch):
+    """A tiny float32 family whose D caches are rings of its window
+    (sliding, hybrid): the launch prefill → handoff → 3 serve steps on the
+    card against the CPU; one flash_decode launch a layer that attends and
+    step; logits within 1e-4, D's caches (rings and states) within 1e-5."""
+    from repro_torch.launch.sharding import named_leaves
+    cfg = config_from_dict(dict(_TINY, name=family, **TRAIN_FAMILIES[family]))
+    cells = _tiny_cells("float32", "float32")
+    params = TM.init_params(cfg, seed=2, device="cpu")
+    ops.reset_launch_counts()
+    got, gc = _launch_serve(cfg, cells, params, cuda, 3, monkeypatch)
+    assert ops.launch_counts()["flash_decode"] == _attending(cfg) * 3
+    want, wc = _launch_serve(cfg, cells, params, torch.device("cpu"), 3,
+                             monkeypatch)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-4)
+    for (_, g), (_, w) in zip(named_leaves(gc), named_leaves(wc)):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().numpy(), atol=1e-5)
+
+
+def test_launch_serve_step_on_float8_caches_matches_plain_route(cuda,
+                                                                monkeypatch):
+    """The tiny dense family in bfloat16 with a float8 D cache (the
+    handoff's cast): from one handoff on the card, 3 serve steps through
+    flash_decode (one launch a layer and step) against the same steps on
+    the plain route (``sdpa`` over the float8 cache widened to float32);
+    logits within 2e-2."""
+    cfg = config_from_dict(dict(_TINY, name="dense", family="dense",
+                                param_dtype="bfloat16",
+                                compute_dtype="bfloat16"))
+    cells = _tiny_cells("bfloat16", "float8_e4m3fn")
+    params = TM.init_params(cfg, seed=2, device="cpu")
+    ops.reset_launch_counts()
+    got, caches = _launch_serve(cfg, cells, params, cuda, 3, monkeypatch)
+    assert ops.launch_counts()["flash_decode"] == cfg.num_layers * 3
+    assert all(c.k.dtype == torch.float8_e4m3fn for g in caches for c in g)
+    want, _ = _launch_serve(cfg, cells, params, cuda, 3, monkeypatch,
+                            plain_decode=True)
+    assert ops.launch_counts()["flash_decode"] == cfg.num_layers * 3
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-2)
+
+
+# --------------------------------------------------------------------------- #
+# flash_decode: decode attention over rings and float8 caches
+# --------------------------------------------------------------------------- #
+# (capacity, positions written) as tests/test_torch_cache_attention.py: a
+# ring filled to an unaligned length (starting mid-buffer), a partly filled
+# ring (pos -1), a full-capacity cache with room left
+DECODE_FILLS = {"ring": (16, 37), "ring_partial": (16, 10),
+                "full": (48, 37)}
+DECODE_GROUPS = [(2, 2, 64), (2, 8, 128), (1, 16, 256)]
+# the main path's sizes, batch 2, one row: (name, capacity, positions
+# written, KV heads, query heads, head dim, window, K/V dtype)
+DECODE_MAIN = [
+    ("mixtral", 4096, 34_000, 8, 32, 128, 4096, torch.bfloat16),
+    ("recurrentgemma", 2048, 34_000, 1, 16, 256, 2048, torch.bfloat16),
+    ("qwen1.5-32b", 32_896, 32_769, 40, 40, 128, 0, torch.float8_e4m3fn)]
+
+
+def _decode_cache(rng, b, cap, n, kvh, hd, kv_dtype, device):
+    """K/V (b, cap, kvh, hd) of unit normals cast to ``kv_dtype`` and pos
+    tags of positions 0..n-1 at slot position % cap (-1 where none)."""
+    k = torch.from_numpy(rng.standard_normal((b, cap, kvh, hd))
+                         .astype(np.float32)).to(device)
+    v = torch.from_numpy(rng.standard_normal((b, cap, kvh, hd))
+                         .astype(np.float32)).to(device)
+    pos = torch.full((cap,), -1, dtype=torch.int32)
+    held = torch.arange(max(0, n - cap), n, dtype=torch.int32)
+    pos[held.long() % cap] = held
+    return (k.to(kv_dtype), v.to(kv_dtype),
+            pos[None].expand(b, cap).contiguous().to(device))
+
+
+@pytest.mark.parametrize("dtypes", ["float32", "bfloat16", "bf16-e4m3"])
+@pytest.mark.parametrize("sq", [1, 3])
+@pytest.mark.parametrize("window", [0, 6])
+@pytest.mark.parametrize("kvh,h,hd", DECODE_GROUPS)
+@pytest.mark.parametrize("fill", sorted(DECODE_FILLS))
+def test_flash_decode_kernel(cuda, fill, kvh, h, hd, window, sq, dtypes):
+    """The kernel against its plain version on the same CUDA tensors:
+    float32 within 2e-5, bfloat16 (and float8 K/V under a bf16 q, widened
+    exactly on both sides) within 2e-2; one launch a call."""
+    cap, n = DECODE_FILLS[fill]
+    q_dt = torch.float32 if dtypes == "float32" else torch.bfloat16
+    kv_dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+             "bf16-e4m3": torch.float8_e4m3fn}[dtypes]
+    rng = np.random.default_rng(cap + hd + window + sq)
+    k, v, pos = _decode_cache(rng, 2, cap, n, kvh, hd, kv_dt, cuda)
+    q = torch.from_numpy(rng.standard_normal((2, sq, h, hd))
+                         .astype(np.float32)).to(cuda, q_dt)
+    ops.reset_launch_counts()
+    got = ops.cache_attention(q, k, v, pos, q_offset=n - sq, window=window)
+    assert ops.launch_counts()["flash_decode"] == 1
+    want = ref.cache_attention_ref(q, k, v, pos, q_offset=n - sq,
+                                   window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dt and got.shape == (2, sq, h, hd)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=2e-5 if dtypes == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("name,cap,n,kvh,h,hd,window,kv_dt", DECODE_MAIN)
+def test_flash_decode_kernel_at_the_main_path_sizes(cuda, name, cap, n, kvh,
+                                                    h, hd, window, kv_dt):
+    """The rings of Mixtral (start at slot 1232) and RecurrentGemma (a
+    group of 16 x 256 on one KV head: two blocks share it) and
+    Qwen1.5-32B's float8 cache of 32,896 slots (128 empty), many splits
+    combined: bf16 against the float32 plain version within FLASH_32K_MAX
+    and FLASH_32K_MEAN of the output's size (a weighted mean over
+    thousands of slots, about 0.01-0.04 for unit normals, so a flat
+    tolerance would pass a kernel that drops tiles of slots; one 32-slot
+    tile dropped puts the mean error several times past the bound)."""
+    rng = np.random.default_rng(cap + h)
+    k, v, pos = _decode_cache(rng, 2, cap, n, kvh, hd, kv_dt, cuda)
+    q = torch.from_numpy(rng.standard_normal((2, 1, h, hd))
+                         .astype(np.float32)).to(cuda, torch.bfloat16)
+    got = ops.cache_attention(q, k, v, pos, q_offset=n - 1, window=window)
+    want = ref.cache_attention_ref(q.float(), k.float(), v.float(), pos,
+                                   q_offset=n - 1, window=window)
+    torch.cuda.synchronize()
+    _close_to_size(got, want)
+
+
+def test_flash_decode_masks_stale_slots_and_empty_rows(cuda):
+    """Slots the mask drops may hold anything (NaN): the output stays equal
+    to that over finite values; a row that sees no slot gives zeros."""
+    rng = np.random.default_rng(7)
+    k, v, pos = _decode_cache(rng, 2, 64, 40, 2, 128, torch.bfloat16, cuda)
+    q = torch.from_numpy(rng.standard_normal((2, 1, 8, 128))
+                         .astype(np.float32)).to(cuda, torch.bfloat16)
+    want = ops.cache_attention(q, k, v, pos, q_offset=39, window=10)
+    stale = (pos < 30)[:, :, None, None]
+    kn = k.masked_fill(stale, float("nan"))
+    vn = v.masked_fill(stale, float("nan"))
+    got = ops.cache_attention(q, kn, vn, pos, q_offset=39, window=10)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    empty = ops.cache_attention(q, k, v, torch.full_like(pos, -1),
+                                q_offset=39)
+    torch.cuda.synchronize()
+    assert bool((empty == 0).all())
+
+
+def test_flash_decode_refuses_misaligned_and_strided_inputs(cuda):
+    """K/V whose head dim is not unit-stride, or whose rows are not 4-byte
+    aligned, pos not int32, a dtype pair the kernel does not take, or
+    mismatched shapes raise before any launch."""
+    rng = np.random.default_rng(8)
+    k, v, pos = _decode_cache(rng, 1, 32, 32, 2, 64, torch.bfloat16, cuda)
+    q = torch.zeros((1, 1, 4, 64), dtype=torch.bfloat16, device=cuda)
+    ops.reset_launch_counts()
+    strided = k.transpose(1, 3).contiguous().transpose(1, 3)
+    with pytest.raises(ValueError, match="unit-stride"):
+        ops.cache_attention(q, strided, strided, pos, q_offset=31)
+    wide = torch.zeros((1, 32, 2, 65), dtype=torch.bfloat16, device=cuda)
+    odd = wide[..., 1:]                      # rows 2 bytes off 4
+    with pytest.raises(ValueError, match="aligned"):
+        ops.cache_attention(q, odd, odd, pos, q_offset=31)
+    with pytest.raises(TypeError, match="int32"):
+        ops.cache_attention(q, k, v, pos.long(), q_offset=31)
+    with pytest.raises(TypeError, match="float8_e4m3fn"):
+        ops.cache_attention(q.float(), k.to(torch.float8_e4m3fn),
+                            v.to(torch.float8_e4m3fn), pos, q_offset=31)
+    with pytest.raises(TypeError):
+        ops.cache_attention(q, k.to(torch.float8_e5m2),
+                            v.to(torch.float8_e5m2), pos, q_offset=31)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.cache_attention(q, k, v, pos[:, :16].contiguous(), q_offset=31)
+    assert ops.launch_counts()["flash_decode"] == 0

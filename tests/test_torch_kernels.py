@@ -327,8 +327,12 @@ def test_cpu_calls_count_no_launch():
     ops.paged_attention(torch.randn(1, 2, 8), pool[0], pool[1],
                         ids[None], torch.tensor([5], dtype=torch.int32),
                         layout="nhbd")
+    ops.cache_attention(q.transpose(1, 2), q[:, :1].transpose(1, 2),
+                        q[:, :1].transpose(1, 2),
+                        torch.arange(8, dtype=torch.int32)[None],
+                        q_offset=7, window=4)
     assert ops.launch_counts() == {
-        "flash_attention": 0, "paged_attention": 0,
+        "flash_attention": 0, "flash_decode": 0, "paged_attention": 0,
         "scatter_pages_overlay": 0, "gather_pages": 0, "scatter_pages": 0,
         "repack": 0}
 
@@ -614,6 +618,50 @@ def test_paged_launch_plan_refuses(h, kv, d, bs):
     from repro_torch.kernels.paged_attention import launch_plan
     with pytest.raises(ValueError, match="paged_attention"):
         launch_plan(h, kv, d, bs, 4, 16)
+
+
+# flash_decode's plans at the main path's shapes and the sweep's edges:
+# (query heads, KV heads, head dim, K/V element bytes) -> plan
+@pytest.mark.parametrize("h,kv,d,es,want", [
+    (32, 8, 128, 2, dict(head_dim=128, head_split=1, pitch=128,
+                         smem=3 * (2 * 32 * 128 * 2 + 128))),   # Mixtral
+    (16, 1, 256, 2, dict(head_dim=256, head_split=2, pitch=256,
+                         smem=3 * (2 * 32 * 256 * 2 + 128))),   # RG
+    (40, 40, 128, 1, dict(head_dim=128, head_split=1, pitch=128,
+                          smem=3 * (2 * 32 * 128 + 128))),     # e4m3
+    (2, 2, 64, 4, dict(head_dim=64, head_split=1, pitch=64)),
+    (64, 1, 256, 4, dict(head_dim=256, head_split=8, pitch=256,
+                         smem=3 * (2 * 32 * 256 * 4 + 128))),
+    (8, 2, 20, 1, dict(head_dim=64, head_split=1, pitch=32)),
+    (8, 2, 20, 2, dict(head_dim=64, head_split=1, pitch=24)),
+    (12, 1, 256, 2, dict(head_dim=256, head_split=2)),
+    (9, 1, 256, 2, dict(head_dim=256, head_split=3)),
+])
+def test_flash_decode_launch_plan(h, kv, d, es, want):
+    """Padded head dim, the head split (the fewest blocks sharing a KV
+    head's group evenly, each at most 2048 query heads x padded head
+    dim), 16-byte staged rows, and shared memory for the 3-stage ring or
+    the warps' merge buffer, whichever is larger, within the card's."""
+    from repro_torch.kernels.flash_decode import STAGES, TILE, launch_plan
+    from repro_torch.kernels.paged_attention import SMEM_LIMIT, WARPS
+    plan = launch_plan(h, kv, d, es)
+    assert {k: plan[k] for k in want} == want
+    grp = h // kv // plan["head_split"]
+    assert grp * plan["head_dim"] <= 2048
+    assert plan["pitch"] * es % 16 == 0 and plan["pitch"] >= d
+    assert plan["smem"] == max(
+        STAGES * (2 * TILE * plan["pitch"] * es + 4 * TILE),
+        4 * WARPS * (2 * grp + grp * plan["head_dim"])) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("h,kv,d", [(4, 4, 300), (3, 2, 64), (4, 0, 64),
+                                    (65536 * 2, 65536, 256)])
+def test_flash_decode_launch_plan_refuses(h, kv, d):
+    """A head dim past 256, uneven groups, no KV head, more (KV head, head
+    split) blocks than the grid's y axis takes."""
+    from repro_torch.kernels.flash_decode import launch_plan
+    with pytest.raises(ValueError, match="flash_decode"):
+        launch_plan(h, kv, d, 2)
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)

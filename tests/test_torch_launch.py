@@ -18,14 +18,18 @@ arguments, the handoff's float8 cast, the dry run and the launchers.
     bit over ties, subnormals and everything within ±448; past it the
     difference is recorded (torch saturates to ±448, the reference gives
     NaN from 464 on).
-  * ``dryrun.run_cell`` gives the stated keys on three cells, and skips
-    a cell the card has no route for, naming the ROADMAP item;
+  * ``dryrun.run_cell`` gives the stated keys on three cells, and counts
+    the five decode cells on rings or float8 caches as the card runs them
+    (``ops.cache_attention``: at long_500k the window's slots a row);
+    ``dryrun.run_handoffs`` gives the reference's keys, P's bytes and D's
+    (the reference's own handoff dry run, in a process of its own);
     qwen3-4b@decode_32k's per-chip argument bytes equal a hand count; the
     launchers' ``main`` runs with ``--help``; the serve and train
     launchers run a tiny config on the CPU; a program on more than one
     device raises, naming the ROADMAP item.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +46,7 @@ from repro.launch import steps as RS
 from repro.models import model as JM
 from repro.training import train_step as JT
 from repro_torch.configs.base import config_from_dict, get_config
+from repro_torch.kernels import ops
 from repro_torch.launch import cells as TC
 from repro_torch.launch import dryrun, serve, train
 from repro_torch.launch import sharding as TSH
@@ -323,14 +328,91 @@ def test_dryrun_records(arch, shape, mesh):
     assert skip["ok"] is None and "skip" in skip
 
 
-@pytest.mark.parametrize("arch,item", [("qwen1.5-32b", "item 16"),
-                                       ("recurrentgemma-9b", "item 15")])
-def test_dryrun_skips_a_cell_the_card_has_no_route_for(arch, item):
-    """float8 K/V into flash and ring-buffer dense caches raise in the count
-    as on the card; the record is a skip naming the ROADMAP item."""
-    rec = dryrun.run_cell(TC.get_cell(arch, "decode_32k"), "single",
-                          verbose=False)
-    assert rec["ok"] is None and item in rec["skip"]
+@pytest.mark.parametrize("arch,shape", [
+    ("qwen1.5-32b", "decode_32k"), ("mixtral-8x7b", "decode_32k"),
+    ("mixtral-8x7b", "long_500k"), ("recurrentgemma-9b", "decode_32k"),
+    ("recurrentgemma-9b", "long_500k")])
+def test_dryrun_counts_the_cells_that_had_no_card_route(arch, shape,
+                                                        monkeypatch):
+    """The five decode cells whose D caches are rings (a window) or float8
+    are counted as the card runs them: an ok record with a positive FLOP
+    count, every attending layer through ``ops.cache_attention``; at
+    long_500k each row sees exactly the window's slots."""
+    calls = []
+    real = ops.cache_attention
+
+    def spy(q, k, v, pos, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), k.dtype, kw))
+        return real(q, k, v, pos, **kw)
+
+    monkeypatch.setattr(ops, "cache_attention", spy)
+    cell = TC.get_cell(arch, shape)
+    rec = dryrun.run_cell(cell, "single", verbose=False)
+    assert rec["ok"] is True and rec["roofline"]["flops_per_chip"] > 0
+    cfg = get_config(arch)
+    attending = sum(g.count * sum(k == TM.ATTN for k in g.kinds)
+                    for g in TM.block_groups(cfg))
+    assert len(calls) == attending
+    window = cfg.sliding_window if cfg.attention_kind == "sliding" else 0
+    for (b, sq, _, _), (_, cap, _, _), dtype, kw in calls:
+        assert sq == 1 and kw["q_offset"] == cell.seq_len
+        assert kw["window"] == window
+        assert dtype == (torch.float8_e4m3fn if arch == "qwen1.5-32b"
+                         else torch.bfloat16)
+        if shape == "long_500k":
+            assert cap == window
+            assert ops.cache_visible_slots(1, cap, window=window,
+                                           q_offset=cell.seq_len) == window
+
+
+# The reference's handoff dry run in a process of its own: its dryrun
+# module sets XLA_FLAGS (512 host devices) before JAX starts, which this
+# process's JAX has done already. D's bytes from jax.eval_shape.
+_REF_HANDOFFS = """
+import json, sys
+from repro.launch import dryrun as D
+import jax
+from repro.launch.mesh import make_production_mesh
+from repro.launch.steps import make_handoff_artifacts
+D.run_handoffs(None, sys.argv[1])
+recs = [json.loads(line) for line in open(sys.argv[1])]
+for r in recs:
+    art = make_handoff_artifacts(r["arch"], make_production_mesh())
+    out = jax.eval_shape(art.fn, *art.abstract_args)
+    r["d_bytes_global"] = sum(x.size * x.dtype.itemsize
+                              for x in jax.tree.leaves(out))
+json.dump(recs, open(sys.argv[1], "w"))
+"""
+
+
+def test_dryrun_handoff_records_match_reference(tmp_path):
+    """``dryrun.run_handoffs``: one ok record an arch with the reference's
+    keys; P's bytes (the prefill cell's 32 sequences) and D's (capacity
+    pad, rings, the float8 cast) equal the reference's, which runs its own
+    ``run_handoffs`` on its production mesh. The port has no collective
+    program: wire 0, no breakdown (ROADMAP B12)."""
+    import os
+    import subprocess
+    import sys
+    out = tmp_path / "ref.json"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(sys.path))
+    subprocess.run([sys.executable, "-c", _REF_HANDOFFS, str(out)],
+                   check=True, env=env, capture_output=True, timeout=600)
+    want = {r["arch"]: r for r in json.loads(out.read_text())}
+    got = {r["arch"]: r for r in dryrun.run_handoffs(None, verbose=False)}
+    assert sorted(got) == sorted(want) == sorted(ASSIGNED)
+    for arch, w in want.items():
+        g = got[arch]
+        assert w["ok"] and g["ok"], (arch, g)
+        assert set(w) <= set(g), arch
+        assert g["kv_bytes_global"] == w["kv_bytes_global"], arch
+        assert g["d_bytes_global"] == w["d_bytes_global"], arch
+        assert g["wire_bytes_per_chip"] == 0.0 and g["by_kind"] == {}
+        ma = g["memory_analysis"]
+        assert 0 < ma["output_size_in_bytes"] <= g["d_bytes_global"]
+    assert got["qwen1.5-32b"]["d_bytes_global"] < \
+        got["qwen1.5-32b"]["kv_bytes_global"] / 2   # float8, no pad heads
 
 
 def test_decode_argument_bytes_per_chip_by_hand():

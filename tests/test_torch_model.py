@@ -216,9 +216,34 @@ def test_kernel_route_matches_plain_route(pair, layout, monkeypatch):
 
 def test_flash_route_refuses_a_cache_without_slot_equals_position(pair,
                                                                  monkeypatch):
+    """Flash reads a cache only where slot == position: a cache not
+    flagged full-capacity goes to ``ops.cache_attention`` instead (the
+    flash_decode kernel on the card, which reads the position tags), with
+    the plain route's logits; a full-capacity cache whose rows would run
+    past its capacity raises."""
+    from repro_torch.kernels import ops
     _, tcfg, _, tp = pair
-    monkeypatch.setattr(TL, "kernel_route", lambda x: True)
     toks = torch.from_numpy(_tokens(tcfg, 4))
+    pos = torch.arange(4)[None]
+    plain, _ = TM.decode_step(tp, tcfg, toks, pos,
+                              TM.init_caches(tcfg, 1, 8, device="cpu"),
+                              q_offset=0)
+    monkeypatch.setattr(TL, "kernel_route", lambda x: True)
+    calls = {"flash_attention": 0, "cache_attention": 0}
+    for name in calls:
+        real = getattr(ops, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(ops, name, spy)
+    got, _ = TM.decode_step(tp, tcfg, toks, pos,
+                            TM.init_caches(tcfg, 1, 8, device="cpu"),
+                            q_offset=0)
+    assert calls == {"flash_attention": 0,
+                     "cache_attention": tcfg.num_layers}
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL)
     with pytest.raises(AssertionError, match="full-capacity"):
-        TM.decode_step(tp, tcfg, toks, torch.arange(4)[None],
-                       TM.init_caches(tcfg, 1, 8, device="cpu"), q_offset=0)
+        TM.decode_step(tp, tcfg, toks, pos + 6,
+                       TM.init_caches(tcfg, 1, 8, full_capacity=True,
+                                      device="cpu"), q_offset=6)

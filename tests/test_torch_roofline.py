@@ -13,8 +13,10 @@
     the serve step updates in place are counted once.
   * For every ``ASSIGNED`` arch at narrow widths and its full depth, the
     prefill and serve steps counted as the card runs them: one flash call
-    a layer that attends, their products the pairs the plain version's
-    mask lets through, and the outputs that update an argument in place
+    a layer that attends (a serve step over ring buffers: one
+    ``cache_attention`` call, the flash_decode kernel), their products the
+    pairs the plain versions' masks let through, and the outputs that
+    update an argument in place
     (every cache of a serve step) not counted again; a train step's count
     is linear in depth.
 """
@@ -199,37 +201,54 @@ def _attending_layers(cfg, mode):
                 else 0)
 
 
+def _ring_pairs(sq, cap, *, window, q_offset):
+    """The pairs ``cache_attention_ref``'s mask lets through on a decode
+    step's cache: every position up to the last row's written at slot
+    position % cap (a ring keeps the last ``cap``)."""
+    last = q_offset + sq - 1
+    pos = torch.full((cap,), -1, dtype=torch.int64)
+    held = torch.arange(max(0, last + 1 - cap), last + 1)
+    pos[held % cap] = held
+    qp = torch.arange(q_offset, q_offset + sq)[:, None]
+    ok = (pos >= 0) & (pos <= qp)
+    if window > 0:
+        ok = ok & ((qp - pos) < window)
+    return int(ok.sum())
+
+
 @pytest.mark.parametrize("mode", ["prefill", "decode"])
 @pytest.mark.parametrize("arch", ASSIGNED)
 def test_every_arch_is_counted_as_the_card_runs_it(arch, mode, monkeypatch):
-    """Full depth at narrow widths: one flash call a layer that attends,
-    the flash products those of the pairs the plain version's mask lets
-    through, and of the outputs only those that are not an argument
-    updated in place counted as bytes (a serve step: the logits alone).
-    A serve step over ring-buffer caches (a window) raises, as on the
-    card."""
+    """Full depth at narrow widths: one attention kernel call a layer that
+    attends — flash, or on a serve step's ring-buffer caches (a window)
+    flash_decode through ``ops.cache_attention`` —, their products those
+    of the pairs the plain versions' masks let through, and of the outputs
+    only those that are not an argument updated in place counted as bytes
+    (a serve step: the logits alone)."""
     cfg = _narrow(arch)
     monkeypatch.setattr(TS, "get_config", lambda a: cfg)
-    calls = []
-    real = ops.flash_attention
+    calls, ring_calls = [], []
+    real, real_ring = ops.flash_attention, ops.cache_attention
 
     def spy(q, k, v, **kw):
         calls.append((q.shape, k.shape, v.shape, kw))
         return real(q, k, v, **kw)
 
+    def spy_ring(q, k, v, pos, **kw):
+        ring_calls.append((q.shape, k.shape, v.shape, kw))
+        return real_ring(q, k, v, pos, **kw)
+
     monkeypatch.setattr(ops, "flash_attention", spy)
+    monkeypatch.setattr(ops, "cache_attention", spy_ring)
     cell = dataclasses.replace(
         TC.get_cell("qwen3-4b", {"prefill": "prefill_32k",
                                  "decode": "decode_32k"}[mode]),
         batch=1, seq_len=32, n_micro=1)
     art = TS.make_artifacts(cell, META)
-    if mode == "decode" and M._window(cfg):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            RA.analyze_step(art.fn, *art.abstract_args)
-        return
     flops, flash, out = RA.count_flops(art.fn, *art.abstract_args)
     assert flops > flash >= 0
-    assert len(calls) == _attending_layers(cfg, mode)
+    assert len(calls) + len(ring_calls) == _attending_layers(cfg, mode)
+    assert bool(ring_calls) == (mode == "decode" and bool(M._window(cfg)))
     want = 0
     for (b, h, sq, dk), (_, _, skv, _), (*_, dv), kw in calls:
         kv_len = kw.get("kv_len") or skv
@@ -237,6 +256,9 @@ def test_every_arch_is_counted_as_the_card_runs_it(arch, mode, monkeypatch):
             sq, skv, causal=kw.get("causal", True),
             window=kw.get("window", 0), q_offset=kw.get("q_offset", 0),
             kv_len=kv_len)
+    for (b, sq, h, dk), (_, cap, _, _), (*_, dv), kw in ring_calls:
+        want += 2 * b * h * (dk + dv) * _ring_pairs(
+            sq, cap, window=kw["window"], q_offset=kw["q_offset"])
     assert flash == want
     fresh = out[0] if mode == "decode" else out
     assert RA.fresh_bytes(out, art.abstract_args) == RA.tree_bytes(fresh)
