@@ -13,7 +13,9 @@ nvcc, then runs sixteen phases, each printing JSON lines:
      registers, spill bytes and whether ptxas serialized its wgmma
      instructions (the build's ``-Xptxas=-v`` output); the bf16 flash
      kernel must have HGMMA and UTMALDG, every paged split kernel LDGSTS,
-     and every overlay page kernel whose canon load is 16 bytes LDG.E.128;
+     every flash_decode tensor-core kernel HMMA (mma.sync) and LDGSTS, no
+     flash_decode kernel may spill, and every overlay page kernel whose
+     canon load is 16 bytes LDG.E.128;
   1. every kernel against its plain PyTorch version on the card, over the
      JAX test-suite sweep shapes and the main path's llama2-7b shapes
      (float32 within 2e-5; bfloat16 within 2e-2 at the sweep shapes; at
@@ -225,7 +227,9 @@ nvcc, then runs sixteen phases, each printing JSON lines:
      14a: Qwen3-4B's prefill_32k -> handoff -> decode_32k at full width
      and all 36 layers, both cells cut to batch 2: the prefill of 2 x
      32,768 random tokens from the seed, the handoff into D's 32,896-slot
-     caches, 4 greedy decode steps. Exactly 36 + 4 x 36 flash launches;
+     caches, 4 greedy decode steps. Exactly 36 flash launches (the
+     prefill) and 4 x 36 flash_decode launches (each step's one-row
+     attention over the full-capacity caches);
      D's caches bf16 and equal to P's bit for bit in slots 0..32,767,
      pos -1 in the pad slots; every logit finite; the one-shot prefill's
      last logits within PHASE14_LOGIT_STEPS bf16 steps (at the logits'
@@ -233,8 +237,10 @@ nvcc, then runs sixteen phases, each printing JSON lines:
      over a full-capacity cache, the q_offset flash route; the same flash
      kernel on both sides, so this holds the launch path, not the
      kernel), the argmax equal or the top-2 gap within the bound; layer
-     0's 32k flash call on its last 512 query rows, and the decode step's
-     one-row call, against the float32 plain version by the yardstick
+     0's 32k flash call on its last 512 query rows, and flash on the
+     decode step's first one-row call (row 1d: the route before the
+     one-row rule, kept as the reference for row 1q), against the float32
+     plain version by the yardstick
      (FLASH_VS_SDPA); the roofline (``analyze_step`` on ``meta`` at full
      depth as the card runs it, the nominal H100 SXM constants) beside
      the measured seconds. 14b:
@@ -264,9 +270,9 @@ nvcc, then runs sixteen phases, each printing JSON lines:
      all 38 layers, batch 2: prefill_32k, the handoff into D's rings of
      the window (4096 / 2048 slots), 4 greedy decode_32k steps. Each
      part launches exactly one flash a layer that attends in the prefill
-     and one flash_decode a layer that attends a step, nothing else. The
-     last step's flash_decode call of every layer that attends is held,
-     on its exact inputs, to the float32 plain version by the SDPA
+     and one flash_decode a layer that attends a step, nothing else.
+     Every flash_decode call of every step (184 in all, 15d's included)
+     is held, on its exact inputs, to the float32 plain version by the SDPA
      yardstick (max and mean error at most FLASH_VS_SDPA x those of
      ``scaled_dot_product_attention`` in bf16 on the same values). From
      copies of D's caches taken before the steps and fed the same tokens:
@@ -280,18 +286,24 @@ nvcc, then runs sixteen phases, each printing JSON lines:
      largest magnitude, and not held to it). For 15b and 15c also the
      same prefill handed into a full-capacity cache decoded through
      flash: the gaps and argmax against the ring route printed, not held
-     (MoE routing near a tie flips under bf16's noise). 15d: long_500k
+     (MoE routing near a tie flips under bf16's noise) — through
+     flash_decode too, which takes every one-row step. 15c also times its
+     decode step on the plain and the kernel route in turns (plain,
+     kernel, kernel, plain), each from a fresh copy of the caches taken
+     before the main path's steps. 15d: long_500k
      for both windowed models at batch 1: one serve step at q_offset
      524,288 over a slice of D's rings from the handoff with every tag
      shifted by 491,520 (each entry keeps its slot, every row sees the
      window's slots), exactly one flash_decode a layer that attends, each
-     call held by the SDPA yardstick and the logits by the float32 one.
+     call held by the SDPA yardstick and the logits by the float32 one,
+     then 4 steps on each route in turns as 15c.
      Phase 1 holds flash_decode against its plain version over small
      rings, full-capacity caches, windows, groups 1 / 4 / 16 at head
      dims 64 / 128 / 256 in float32, bf16 and float8 K/V, then times rows
-     1r (Mixtral's and RecurrentGemma's rings, starting mid-buffer) and
-     1f (Qwen1.5-32B's e4m3 cache) by the SDPA yardstick
-     (``phase1_decode``).
+     1r (Mixtral's and RecurrentGemma's rings, starting mid-buffer), 1f
+     (Qwen1.5-32B's e4m3 cache) and 1q (Qwen3-4B's full-capacity bf16
+     cache: phase 14a's one-row decode, row 1d's shape) by the SDPA
+     yardstick (``phase1_decode``).
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
@@ -305,7 +317,8 @@ shape (``"mla"``), phase 8's RecurrentGemma shape (``"rg"``), phase
 (``"encdec"``), phase 12's (``"load"``) and phase 14's 32k shapes
 (``"launch_p"``, ``"launch_d"``, ``"launch_k"``) where those phases run
 it; flash_decode's row is phase 15's Mixtral ring, with RecurrentGemma's
-ring as ``"rg"`` and Qwen1.5-32B's e4m3 cache as ``"fp8"``.
+ring as ``"rg"``, Qwen1.5-32B's e4m3 cache as ``"fp8"`` and Qwen3-4B's
+full-capacity bf16 cache (row 1q) as ``"dense"``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the script exits non-zero. Without a CUDA device, or without
@@ -459,7 +472,9 @@ PHASE13_CKPT_MODEL = dict(name="ckpt-tiny", family="dense", num_layers=2,
 # all 27 layers, batch 1 (from 32), the capacity MoE under moe_shard_map;
 # 14c: Qwen3-4B's train_4k cut to 2 x 4096 tokens in 2 micro-batches (from
 # 256 x 4096 in 16). The predictions were written down before the phase first
-# ran on the card and are printed beside what is measured.
+# ran on the card and are printed beside what is measured; 14a's launches
+# and decode step are the one-row route's (flash_decode for each step's
+# attention), predicted before that route first ran.
 MODEL14, MODEL14B = "qwen3-4b", "deepseek-v2-lite-16b"
 PHASE14_BATCH = {"14a": 2, "14b": 1, "14c": 2}
 PHASE14_DECODE_STEPS = 4
@@ -472,8 +487,8 @@ PHASE14_LOGIT_STEPS = 1
 PHASE14B_PARITY = dict(layers=2, seq=4096, capacity_factor=8.0)
 PHASE14C_TRAIN = dict(warmup=1, timed=2)
 PHASE14_PREDICTED = {
-    "14a": {"flash_launches": 36 + 4 * 36, "prefill_s": [2.5, 4.0],
-            "decode_ms_per_step": [10.0, 60.0],
+    "14a": {"flash_launches": 36, "flash_decode_launches": 4 * 36,
+            "prefill_s": [2.5, 4.0], "decode_ms_per_step": [33.0, 42.0],
             "max_abs_logit_gap": [0.01, 0.15], "peak_gib": [26, 40],
             "flash_slice_max_abs_err": [0.0, 2e-2]},
     "14b": {"flash_launches": 27, "prefill_s": [1.5, 6.0],
@@ -492,7 +507,8 @@ PHASE14_PREDICTED = {
 # of 32 layers (2.9 GB a layer), 15c: RecurrentGemma-9B at all 38 layers
 # (about 21 GB: no cut), both prefill_32k -> handoff into D's rings -> 4
 # decode_32k steps at batch 2, against the same prefill in a
-# full-capacity D cache through flash and against the plain route. 15d:
+# full-capacity D cache (through flash_decode too, which takes every
+# one-row step) and against the plain route. 15d:
 # long_500k for both at batch 1: one serve step at q_offset 524,288 over
 # D's rings from the handoff with every tag shifted by PHASE15_SHIFT =
 # 120 x 4096 = 240 x 2048 (each row keeps its slot, the window is full;
@@ -507,6 +523,7 @@ PHASE15_MODELS = {"15a": ("qwen1.5-32b", 16), "15b": ("mixtral-8x7b", 12),
                   "15c": ("recurrentgemma-9b", 38)}
 PHASE15_BATCH, PHASE15_DECODE_STEPS = 2, 4
 PHASE15_SHIFT = 491_520
+PHASE15_TURNS = ("15c",)      # parts whose decode step is timed in turns
 # the printed gaps' bound, bf16 steps at the logits' largest magnitude (not
 # held: the plain bf16 route is itself about 3 steps from float32 at 16+
 # layers; NVIDIA H100 80GB HBM3, 700.00 W)
@@ -517,10 +534,10 @@ PHASE15_PREDICTED = {
             "max_abs_logit_gap_plain": [0.0, 0.0625]},
     "15b": {"flash_decode_launches": 12 * 4, "prefill_s": [1.5, 8.0],
             "decode_ms_per_step": [15.0, 120.0], "peak_gib": [38, 50],
-            "max_abs_logit_gap_flash": [0.0, 0.0625]},
+            "max_abs_logit_gap_full": [0.0, 0.0625]},
     "15c": {"flash_decode_launches": 12 * 4, "prefill_s": [2.0, 12.0],
             "decode_ms_per_step": [15.0, 120.0], "peak_gib": [24, 40],
-            "max_abs_logit_gap_flash": [0.0, 0.0625]},
+            "max_abs_logit_gap_full": [0.0, 0.0625]},
     "15d": {"flash_decode_launches": 12 + 12,
             "max_abs_logit_gap_plain": [0.0, 0.0625]},
     "phase_s": [50, 120],
@@ -639,8 +656,22 @@ def phase0():
     sass = sass_counts(lib, cuda_bin)
     emit({"phase": 0, "sass": sass})
     log = _build.build_dir() / "build.log"
-    if log.exists():
-        emit({"phase": 0, "ptxas": ptxas_report(log.read_text(), cuda_bin)})
+    ptxas = ptxas_report(log.read_text(), cuda_bin) if log.exists() else {}
+    if ptxas:
+        emit({"phase": 0, "ptxas": ptxas})
+    decode = {name: {**sass[name], **ptxas.get(name, {})}
+              for name in sass if name.startswith(DECODE_KERNELS)}
+    emit({"phase": 0, "flash_decode_kernels": decode})
+    mma = {n: c for n, c in decode.items()
+           if n.startswith("decode_mma_kernel")}
+    if not mma or not all(c["HMMA"] and c["LDGSTS"] for c in mma.values()):
+        raise AssertionError(f"phase 0: a flash_decode tensor-core kernel "
+                             f"has no HMMA (mma.sync) or LDGSTS: {mma}")
+    spilled = {n: c.get("spill_bytes") for n, c in decode.items()
+               if c.get("spill_bytes", 0) != 0}
+    if log.exists() and spilled:
+        raise AssertionError(f"phase 0: flash_decode kernels spill: "
+                             f"{spilled}")
     flash = [c for name, c in sass.items()
              if name.startswith("flash_fwd_kernel_wgmma")]
     if not flash or not all(c["HGMMA"] and c["UTMALDG"] for c in flash):
@@ -649,10 +680,12 @@ def phase0():
     wide = {name: {op: c[op] for op in ("LDGSTS", "LDG.E.128")}
             for name, c in sass.items()
             if name.startswith(("paged_split_kernel", "page_gather_kernel",
-                                "page_overlay_kernel", "decode_split_kernel"))}
+                                "page_overlay_kernel", "decode_split_kernel",
+                                "decode_mma_kernel"))}
     emit({"phase": 0, "wide_loads": wide})
     split = {name: c for name, c in wide.items()
-             if name.startswith(("paged_split_kernel", "decode_split_kernel"))}
+             if name.startswith(("paged_split_kernel", "decode_split_kernel",
+                                 "decode_mma_kernel"))}
     if not any(n.startswith("decode_split_kernel") for n in split) or \
             not all(c["LDGSTS"] for c in split.values()):
         raise AssertionError(f"phase 0: a paged or decode split kernel has "
@@ -666,6 +699,10 @@ def phase0():
     return smi
 
 
+DECODE_KERNELS = ("decode_mma_kernel", "decode_split_kernel",
+                  "decode_combine_kernel")
+
+
 def canon_load_bytes(name: str) -> int:
     """Bytes of one canon load of ``page_overlay_kernel<Tp, Tc, VEC>``:
     VEC elements of Tc (``(int)8`` as cu++filt writes the width)."""
@@ -673,7 +710,7 @@ def canon_load_bytes(name: str) -> int:
     return (2 if "bfloat16" in tc else 4) * int(vec.removeprefix("(int)"))
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "LDGSTS", "LDG.E.128")
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS", "LDGSTS", "LDG.E.128")
 
 
 def sass_counts(lib: Path, cuda_bin: Path):
@@ -2335,7 +2372,8 @@ def decode_row(gen, dev, what, b, cap, n, kvh, h, hd, window, kv_dtype):
     repeated to the query heads, a boolean mask from the tags, float8 K/V
     dequantized to bf16 first, that copy outside SDPA's time), then timed;
     the bound: q, o, the tags and the visible slots' K/V once, or the
-    float32 products over 67 TFLOP/s (the kernel's arithmetic)."""
+    products over 989 TFLOP/s (the kernel's arithmetic: bf16 mma.sync
+    on the tensor cores)."""
     import torch
     from repro_torch.kernels import ops, ref
     k, v, pos = decode_cache(gen, dev, b, cap, n, kvh, hd, kv_dtype)
@@ -2363,7 +2401,7 @@ def decode_row(gen, dev, what, b, cap, n, kvh, h, hd, window, kv_dtype):
     flops = 2.0 * b * h * seen * 2 * hd
     nbytes = 2.0 * 2 * b * h * hd + 4.0 * b * cap \
         + b * kvh * seen * 2 * hd * k.element_size()
-    t["bound_ms"], t["bound_by"] = bound(flops, nbytes, "float32")
+    t["bound_ms"], t["bound_by"] = bound(flops, nbytes, "bfloat16")
     held = (f"a ring starting at slot {n % cap}" if n > cap
             else f"{cap - n} slots empty")
     t.update(shape=f"q({b},1,{h},{hd}) bf16, K/V ({b},{cap},{kvh},{hd}) "
@@ -2386,8 +2424,11 @@ def phase1_decode(gen, dev):
     4096-slot ring and RecurrentGemma's 2048-slot ring at batch 2, each
     ring starting mid-buffer, 34,000 positions written) and 1f
     (Qwen1.5-32B's e4m3 cache of 32,896 slots holding 32,769 positions)
-    by the yardstick. Returns the kernels line's row: 1r Mixtral, with
-    RecurrentGemma's as ``"rg"`` and 1f as ``"fp8"``."""
+    by the yardstick, and 1q (phase 14a's one-row decode: Qwen3-4B's
+    full-capacity bf16 cache of 32,896 slots holding 32,769 positions,
+    row 1d's shape). Returns the kernels line's row: 1r Mixtral, with
+    RecurrentGemma's as ``"rg"``, 1f as ``"fp8"`` and 1q as
+    ``"dense"``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
@@ -2412,7 +2453,8 @@ def phase1_decode(gen, dev):
                         n_checks += 1
     emit({"phase": 1, "extra": "flash_decode sweep", "checks": n_checks,
           "atol": ATOL})
-    mix, rg, qw = (get_config(m) for m in (MODEL6, MODEL8, "qwen1.5-32b"))
+    mix, rg, qw, q3 = (get_config(m) for m in (MODEL6, MODEL8, "qwen1.5-32b",
+                                                MODEL14))
     cap_q = -(-(32_768 + 128) // 16) * 16
     row = decode_row(gen, dev, "1r mixtral ring", 2, mix.sliding_window,
                      34_000, mix.num_kv_heads, mix.num_heads, mix.hd,
@@ -2424,6 +2466,9 @@ def phase1_decode(gen, dev):
     row["fp8"] = decode_row(gen, dev, "1f qwen1.5-32b e4m3", 2, cap_q,
                             32_769, qw.num_kv_heads, qw.num_heads, qw.hd, 0,
                             torch.float8_e4m3fn)
+    row["dense"] = decode_row(gen, dev, "1q qwen3-4b dense", 2, cap_q,
+                              32_769, q3.num_kv_heads, q3.num_heads, q3.hd,
+                              0, torch.bfloat16)
     return row
 
 
@@ -2574,6 +2619,14 @@ def phase2(dev, model=MODEL, layers=PARITY_LAYERS, phase=2):
 PHASE3_KERNELS = {"flash_attention", "paged_attention",
                   "scatter_pages_overlay"}
 PHASE4_KERNELS = PHASE3_KERNELS | {"gather_pages", "scatter_pages", "repack"}
+
+
+def one_row_chunks(lens, chunk: int) -> int:
+    """Prefill chunks of exactly one row among streams of ``lens``
+    positions in ``chunk``-position chunks from position 0 (a stream no
+    longer than one chunk computes in one pass): ``attention_decode``
+    sends each one's self-attention to flash_decode."""
+    return sum(1 for n in lens if n > chunk and n % chunk == 1)
 
 
 def check_launched(phase: int, launches, expected) -> None:
@@ -3692,7 +3745,8 @@ def phase11(dev, around_serve=contextlib.nullcontext):
     requests of 1500 frames and 16-224 prompt tokens in 64-token chunks:
     P runs each request's encoder once (flash non-causal over 1500
     frames, 32 layers) and seeds every decoder layer's memory rows, then
-    each chunk's self-attention (flash, causal) and cross-attention
+    each chunk's self-attention (flash, causal; flash_decode for the
+    one-row chunk that ends the 193-token prompt) and cross-attention
     (flash, non-causal at kv_len 1500); the wire carries the prompt's
     self KV in chunks and one tail of memory rows a request; the overlay
     re-pages the KV into D's pools, D places the rows into the slot and
@@ -3706,19 +3760,26 @@ def phase11(dev, around_serve=contextlib.nullcontext):
 
     t_phase = time.perf_counter()
     cfg = get_config(MODEL11)
+    lens = [r.prompt_len for r in phase11_requests(cfg)]
+    one_row = one_row_chunks(lens, PHASE11_CHUNK)
     run = serve_long_prompts(11, cfg, VendorProfile(**P_VENDOR), dev,
-                             around_serve, PHASE3_KERNELS,
+                             around_serve, PHASE3_KERNELS
+                             | ({"flash_decode"} if one_row else set()),
                              make_reqs=phase11_requests, prefix_cache=True,
                              chunk=PHASE11_CHUNK)
-    lens = [r.prompt_len for r in run.reqs]
+    if [r.prompt_len for r in run.reqs] != lens:
+        raise AssertionError("phase 11: the requests changed between calls")
     n_dec, n_enc = cfg.num_layers, cfg.encoder_layers
     chunks = [(c0, min(PHASE11_CHUNK, n - c0)) for n in lens
               for c0 in range(0, n, PHASE11_CHUNK)]
     # launches: each request's encoder once; each chunk's self- and
-    # cross-attention in every decoder layer; the overlay for k and v of
+    # cross-attention in every decoder layer (a one-row chunk's
+    # self-attention through flash_decode); the overlay for k and v of
     # each chunk (all 32 layers a launch); paged a layer a decode step
     want_launches = {
-        "flash_attention": len(run.reqs) * n_enc + 2 * n_dec * len(chunks),
+        "flash_attention": len(run.reqs) * n_enc
+        + n_dec * (2 * len(chunks) - one_row),
+        "flash_decode": n_dec * one_row,
         "scatter_pages_overlay": 2 * len(chunks),
         "paged_attention": n_dec * run.d_eng.stats.decode_steps}
     got_launches = {k: run.launches[k] for k in want_launches}
@@ -4506,12 +4567,80 @@ def capture_calls(module, name: str, keep: float = 1, outputs: bool = False):
         setattr(module, name, real)
 
 
-def expect_flash(part: str, launches, n: int) -> None:
-    """The part launched flash exactly ``n`` times and no other kernel."""
-    check_launched(14, launches, ("flash_attention",))
-    if launches["flash_attention"] != n:
+def expect_flash(part: str, launches, n: int, decode: int = 0) -> None:
+    """The part launched flash exactly ``n`` times, flash_decode exactly
+    ``decode`` times and no other kernel."""
+    check_launched(14, launches, ("flash_attention", "flash_decode")
+                   if decode else ("flash_attention",))
+    if launches["flash_attention"] != n or \
+            launches["flash_decode"] != decode:
         raise AssertionError(f"phase {part}: {launches['flash_attention']} "
-                             f"flash launches, the path makes {n}")
+                             f"flash and {launches['flash_decode']} "
+                             f"flash_decode launches, the path makes {n} "
+                             f"and {decode}")
+
+
+def flash_call_of(call):
+    """The flash call that a one-row ``ops.cache_attention`` call over a
+    full-capacity cache (``call``: its captured (args, kwargs)) replaced:
+    q, K and V transposed to (B, heads, rows, d), causal at its q_offset
+    over all the cache's slots — the route before the one-row rule, timed
+    as row 1d's reference."""
+    (q, k, v, _), kw = call
+    return ((q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+            {"causal": True, "window": kw.get("window", 0),
+             "q_offset": kw["q_offset"], "kv_len": k.shape[1]})
+
+
+@contextlib.contextmanager
+def one_row_flash_route():
+    """The route before the one-row rule, to time beside it: within, every
+    ``ops.cache_attention`` call goes to flash as ``flash_call_of`` lays
+    it out (phase 14a's caches are all full-capacity bf16, where
+    ``attention_decode`` sent one row to flash)."""
+    from repro_torch.kernels import ops
+    real = ops.cache_attention
+
+    def route(q, k, v, pos, **kw):
+        args, fkw = flash_call_of(((q, k, v, pos), kw))
+        return ops.flash_attention(*args, **fkw).transpose(1, 2)
+
+    ops.cache_attention = route
+    try:
+        yield
+    finally:
+        ops.cache_attention = real
+
+
+def step_device_ms(srv, params, caches, fed, q_offset: int) -> float:
+    """The device time of one serve step (the sum of its kernels' times
+    under ``torch.profiler``), fed ``fed[0]`` at ``q_offset``; None when
+    the profiler sees no device time."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        io = {"tokens": fed[0],
+              "positions": torch.full_like(fed[0], q_offset)}
+        srv.fn(params, caches, io, q_offset=q_offset)
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages())
+    return us / 1e3 if us > 0 else None
+
+
+def phase14_turns(srv, params, caches, fed, q_offset: int, dev):
+    """14a's decode steps fed ``fed`` on the route before the one-row rule
+    (flash) and on the rule's (flash_decode) in turns over the same
+    caches (``route_turns``; a copy of D's would take 9.7 GB), and one
+    profiled step's device ms on each route."""
+    routes = {"flash": one_row_flash_route,
+              "flash_decode": contextlib.nullcontext}
+    out = route_turns(srv, params, caches, fed, q_offset, dev, routes,
+                      fresh=False)
+    for name, ctx in routes.items():
+        with ctx():
+            out[f"{name}_device_ms"] = step_device_ms(srv, params, caches,
+                                                      fed, q_offset)
+    return out
 
 
 def bf16_step(x) -> float:
@@ -4611,7 +4740,8 @@ def phase14_roofline(mesh, arts, measured_s: float, tokens: int, mode: str):
 def phase14a(dev):
     """Qwen3-4B: the launch prefill (2 x 32,768) → handoff → 4 greedy
     decode steps through the step builders on the one-card mesh. Checks:
-    exactly 36 + 4 x 36 flash launches; D's caches bf16, equal to P's bit
+    exactly 36 flash launches (the prefill) and 4 x 36 flash_decode
+    launches (each step's one-row attention); D's caches bf16, equal to P's bit
     for bit in slots 0..32,767 and pos -1 in the 128 pad slots; every
     logit finite; the one-shot prefill's last logits within
     PHASE14_LOGIT_STEPS bf16 steps of a chunked prefill (``decode_step``
@@ -4619,8 +4749,11 @@ def phase14a(dev):
     q_offset flash route; the same kernel as the one-shot, so this holds
     the launch path and not the kernel), the argmax equal or the one-shot
     top-2 gap within the bound; layer 0's 32k flash call's last 512 rows
-    against the plain version by the yardstick (``phase14_flash_row``,
-    also the decode step's flash call)."""
+    against the plain version by the yardstick (``phase14_flash_row``;
+    also flash on the decode step's first one-row call, row 1d: the
+    route before the one-row rule, beside phase 1's row 1q); the decode
+    steps on that route and on the one-row rule's in turns
+    (``phase14_turns``)."""
     import dataclasses as dc
     import numpy as np
     import torch
@@ -4671,7 +4804,7 @@ def phase14a(dev):
     gc.collect()
     tok = last.argmax(-1).to(torch.int32)[:, None]
     steps_ms, tokens = [], [tok]
-    with torch.no_grad(), capture_calls(ops, "flash_attention") as df:
+    with torch.no_grad(), capture_calls(ops, "cache_attention") as df:
         for i in range(PHASE14_DECODE_STEPS):
             io = {"tokens": tok, "positions": torch.full_like(tok, s + i)}
             _sync(dev)
@@ -4685,8 +4818,10 @@ def phase14a(dev):
                 bad.append(f"decode step {i}: non-finite logits")
     launches = ops.launch_counts()
     peak_main = _peak_gib(dev)
-    flash_d = phase14_flash_row(dev, "decode_32k", df[0])
-    del caches_d, df               # df[0] holds views of D's caches
+    flash_d = phase14_flash_row(dev, "decode_32k", flash_call_of(df[0]))
+    del df                         # df[0] holds views of D's caches
+    turns = phase14_turns(srv, params, caches_d, tokens[:-1], s, dev)
+    del caches_d
     gc.collect()
     # the chunked cross-check: the same parameters and tokens
     c = PHASE14_CHECK_CHUNK
@@ -4722,8 +4857,10 @@ def phase14a(dev):
            "prefill_s": prefill_s, "prefill_tokens_per_s": b * s / prefill_s,
            "handoff_s": handoff_s, "decode_ms": steps_ms,
            "decode_ms_per_step": float(np.median(steps_ms)),
+           "decode_turns_ms_per_step": turns,
            "tokens": torch.cat(tokens, 1).tolist(),
            "flash_launches": launches.get("flash_attention", 0),
+           "flash_decode_launches": launches.get("flash_decode", 0),
            "launches": launches, "peak_gib": peak_main,
            "peak_gib_with_check": peak_check,
            "max_abs_logit_gap": gap, "logit_bound": logit_bound,
@@ -4737,7 +4874,8 @@ def phase14a(dev):
     emit(out)
     if bad:
         raise AssertionError(f"phase 14a: {bad}")
-    expect_flash("14a", launches, cfg.num_layers * (1 + PHASE14_DECODE_STEPS))
+    expect_flash("14a", launches, cfg.num_layers,
+                 cfg.num_layers * PHASE14_DECODE_STEPS)
     if not finite:
         raise AssertionError("phase 14a: non-finite prefill logits")
     for ok, g in zip(same, top2_gap):
@@ -4977,7 +5115,8 @@ def full_capacity_copy(caches, capacity: int):
     """D's caches with every ring re-laid as a full-capacity cache of
     ``capacity`` slots (each entry at slot == its position, pos -1
     elsewhere), the other leaves (recurrent states) copied: the same
-    prefill handed into caches that the flash route reads."""
+    prefill handed into caches whose chunks the flash route reads (a
+    one-row step takes flash_decode on them too)."""
     from repro_torch.models import layers as L
     out = []
     for group in caches:
@@ -5011,14 +5150,14 @@ def plain_route():
 
 
 def decode_steps(srv, params, caches, tokens, q_offset, dev, feed=None,
-                 calls=None):
+                 hold=None):
     """len(feed) or PHASE15_DECODE_STEPS serve steps from ``tokens`` (B, 1)
     at ``q_offset``..: greedy, or fed ``feed`` (a list of (B, 1) tokens,
-    the first of which is ``tokens``). With a list ``calls``, the last
-    step's ``ops.cache_attention`` calls are recorded there (arguments and
-    output; nothing writes those caches after the last step, so they are
-    each call's exact inputs). Returns (float32 logits of each step, the
-    tokens fed, ms a step)."""
+    the first of which is ``tokens``). With ``hold``, each step's
+    ``ops.cache_attention`` calls (arguments and output) go to
+    ``hold(calls)`` right after the step, outside its time, while nothing
+    has written the caches since: each call's exact inputs. Returns
+    (float32 logits of each step, the tokens fed, ms a step)."""
     import torch
     from repro_torch.kernels import ops
     logits_all, fed, ms = [], [], []
@@ -5032,8 +5171,7 @@ def decode_steps(srv, params, caches, tokens, q_offset, dev, feed=None,
             io = {"tokens": tok, "positions": torch.full_like(tok,
                                                               q_offset + i)}
             spy = (capture_calls(ops, "cache_attention", math.inf, True)
-                   if calls is not None and i == n - 1
-                   else contextlib.nullcontext([]))
+                   if hold is not None else contextlib.nullcontext([]))
             with spy as seen:
                 _sync(dev)
                 t0 = time.perf_counter()
@@ -5041,8 +5179,9 @@ def decode_steps(srv, params, caches, tokens, q_offset, dev, feed=None,
                                         q_offset=q_offset + i)
                 _sync(dev)
             ms.append((time.perf_counter() - t0) * 1e3)
-            if calls is not None:
-                calls.extend(seen)
+            if hold is not None:
+                hold(seen)
+                del seen
             logits_all.append(logits[:, -1].float())
             tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     return logits_all, fed, ms
@@ -5098,8 +5237,8 @@ def check_yardstick(part: str, what: str, ys) -> None:
 
 
 def hold_layer_calls(calls) -> dict:
-    """Each recorded ``ops.cache_attention`` call of the main path (one a
-    layer that attends) held on its exact inputs to the float32 plain
+    """Each recorded ``ops.cache_attention`` call of a step (one a layer
+    that attends) held on its exact inputs to the float32 plain
     version by the yardstick: its max and mean error at most
     FLASH_VS_SDPA x those of ``decode_library`` (SDPA in bf16) on the same
     values. Returns the worst ratios over the layers and the calls that
@@ -5125,12 +5264,54 @@ def hold_layer_calls(calls) -> dict:
             "failed": failed}
 
 
-def check_layers(part: str, held: dict, attn: int) -> None:
-    if held["calls"] != attn or held["failed"]:
-        raise AssertionError(f"phase {part}: flash_decode on the main path's "
-                             f"last step against the float32 plain version "
-                             f"({held['calls']} calls, {attn} layers attend): "
-                             f"{held['failed']}")
+def holder():
+    """A ``hold`` for ``decode_steps`` that holds each step's calls
+    (``hold_layer_calls``), and the summary of all of them so far: calls,
+    the worst ratios, and the failed calls by step."""
+    out = {"calls": 0, "steps": [], "limit": FLASH_VS_SDPA,
+           "worst_max_ratio": 0.0, "worst_mean_ratio": 0.0, "failed": []}
+
+    def hold(calls):
+        h = hold_layer_calls(calls)
+        out["failed"] += [{"step": len(out["steps"]), **f}
+                          for f in h["failed"]]
+        out["steps"].append(h["calls"])
+        out["calls"] += h["calls"]
+        for k in ("worst_max_ratio", "worst_mean_ratio"):
+            out[k] = max(out[k], h[k])
+
+    return hold, out
+
+
+def check_layers(part: str, held: dict, want: int) -> None:
+    if held["calls"] != want or held["failed"]:
+        raise AssertionError(f"phase {part}: flash_decode on the main path "
+                             f"against the float32 plain version "
+                             f"({held['calls']} calls held, the path makes "
+                             f"{want}): {held['failed']}")
+
+
+def route_turns(srv, params, caches, fed, q_offset: int, dev,
+                routes=None, fresh: bool = True):
+    """The decode steps fed ``fed`` on two routes in turns (a, b, b, a):
+    ``routes`` maps each name to the context that selects it (default
+    the plain route, then the kernel route). Each run starts from a fresh
+    copy of ``caches`` when ``fresh``, else from ``caches`` themselves
+    (each run rewrites the same slots). Returns each run's median ms a
+    step, by route."""
+    import numpy as np
+    routes = routes or {"plain": plain_route,
+                        "kernel": contextlib.nullcontext}
+    (a, ctx_a), (b, ctx_b) = routes.items()
+    out = {a: [], b: []}
+    for name, ctx in ((a, ctx_a), (b, ctx_b), (b, ctx_b), (a, ctx_a)):
+        run = map_caches(caches, lambda x: x.clone()) if fresh else caches
+        with ctx():
+            _, _, ms = decode_steps(srv, params, run, None, q_offset, dev,
+                                    feed=fed)
+        out[name].append(float(np.median(ms)))
+        del run
+    return out
 
 
 def expect_decode(part: str, launches, flash: int, decode: int) -> None:
@@ -5193,13 +5374,15 @@ def phase15_part(dev, part: str):
     step builders on the one-card mesh at batch 2: prefill_32k → handoff
     → PHASE15_DECODE_STEPS greedy decode_32k steps (the main path: flash
     per attending layer in the prefill, flash_decode per attending layer
-    a step, nothing else). The last step's flash_decode call of every
-    layer that attends is held on its exact inputs to the float32 plain
-    version by the SDPA yardstick (``hold_layer_calls``). Then the same
+    a step, nothing else). Every step's flash_decode calls are held, right
+    after the step, on their exact inputs to the float32 plain version by
+    the SDPA yardstick (``holder``, ``hold_layer_calls``). Then the same
     steps from copies of D's caches taken before them, fed the main
     path's tokens: on the plain route in bf16 and in float32 (the logits'
     yardstick, ``check_yardstick``) and, for a ring (15b, 15c), from a
-    full-capacity copy through flash (its gaps and argmax printed). 15a
+    full-capacity copy (through flash_decode as well: the same kernel
+    over the other slot order; its gaps and argmax printed). 15c then
+    times the steps on both routes in turns (``route_turns``). 15a
     also holds D's bytes to the CPU's e4m3 cast of P's caches. The
     launches are counted from the prefill to the last decode step (the
     checks and copies in between launch none). 15b and 15c return a
@@ -5259,20 +5442,20 @@ def phase15_part(dev, part: str):
     f32_caches = map_caches(caches_d, lambda x: x.clone())
     full_caches = (full_capacity_copy(caches_d, cell_d.decode_capacity())
                    if ring else None)
+    turn_caches = (map_caches(caches_d, lambda x: x.clone())
+                   if part in PHASE15_TURNS else None)
     long_caches = (map_caches(caches_d, lambda x: x[:, :1].clone())
                    if ring else None)
     tok = last.argmax(-1).to(torch.int32)[:, None]
-    calls = []
+    hold, held = holder()
     got, fed, steps_ms = decode_steps(srv, params, caches_d, tok, s, dev,
-                                      calls=calls)
+                                      hold=hold)
     launches = ops.launch_counts()
     peak_main = _peak_gib(dev)
     for i, g in enumerate(got):
         if not bool(torch.isfinite(g).all()):
             bad.append(f"decode step {i}: non-finite logits")
-    with torch.no_grad():
-        held = hold_layer_calls(calls)
-    del caches_d, calls
+    del caches_d
     out = {"phase": 15, "part": part,
            "model": f"{cfg.name} x{cfg.num_layers} layers "
                     f"{cfg.compute_dtype}",
@@ -5298,17 +5481,21 @@ def phase15_part(dev, part: str):
     out["vs_float32"] = yardstick(got, plain, truth)
     if ring:
         ops.reset_launch_counts()
-        flash, _, flash_ms = decode_steps(srv, params, full_caches, None, s,
-                                          dev, feed=fed)
-        flash_launches = ops.launch_counts()
+        full, _, full_ms = decode_steps(srv, params, full_caches, None, s,
+                                        dev, feed=fed)
+        full_launches = ops.launch_counts()
         del full_caches
-        out["flash_ms_per_step"] = float(np.median(flash_ms))
-        out["flash_route_launches"] = flash_launches
-        out["gaps_flash"] = logit_gaps(got, flash)
-        out["flash_vs_float32"] = yardstick(flash, plain, truth)
-        if flash_launches["flash_attention"] != attn * len(fed) or \
-                flash_launches["flash_decode"]:
-            bad.append(f"full-capacity copy launched {flash_launches}")
+        out["full_ms_per_step"] = float(np.median(full_ms))
+        out["full_cache_launches"] = full_launches
+        out["gaps_full"] = logit_gaps(got, full)
+        out["full_vs_float32"] = yardstick(full, plain, truth)
+        if full_launches["flash_decode"] != attn * len(fed) or \
+                full_launches["flash_attention"]:
+            bad.append(f"full-capacity copy launched {full_launches}")
+    if turn_caches is not None:
+        out["turns_ms_per_step"] = route_turns(srv, params, turn_caches, fed,
+                                               s, dev)
+        del turn_caches
     out["peak_gib_with_checks"] = _peak_gib(dev)
     out["predicted"] = PHASE15_PREDICTED[part]
     out["problems"] = bad
@@ -5317,7 +5504,7 @@ def phase15_part(dev, part: str):
     if bad:
         raise AssertionError(f"phase {part}: {bad}")
     expect_decode(part, launches, attn, attn * PHASE15_DECODE_STEPS)
-    check_layers(part, held, attn)
+    check_layers(part, held, attn * PHASE15_DECODE_STEPS)
     check_yardstick(part, "the flash_decode route", out["vs_float32"])
     if ring:
         long = phase15_long(dev, arch, over, mesh, params, long_caches,
@@ -5335,7 +5522,8 @@ def phase15_long(dev, arch: str, over, mesh, params, caches, tok, attn):
     exactly one flash_decode launch a layer that attends, each row seeing
     the window's slots; its logits against the float32 steps on a copy of
     the same caches by the yardstick (``check_yardstick``), the gap to the
-    plain bf16 route printed."""
+    plain bf16 route printed; then PHASE15_DECODE_STEPS steps of the same
+    token on both routes in turns (``route_turns``)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -5359,25 +5547,28 @@ def phase15_long(dev, arch: str, over, mesh, params, caches, tok, attn):
                                    q_offset=q)
     plain_caches = map_caches(caches, lambda x: x.clone())
     f32_caches = map_caches(caches, lambda x: x.clone())
+    turn_caches = map_caches(caches, lambda x: x.clone())
     ops.reset_launch_counts()
-    calls = []
+    hold, held = holder()
     got, _, ms = decode_steps(srv, params, caches, tok, q, dev, feed=[tok],
-                              calls=calls)
+                              hold=hold)
     launches = ops.launch_counts()
-    with torch.no_grad():
-        held = hold_layer_calls(calls)
-    del calls
     with plain_route():
         plain, _, plain_ms = decode_steps(srv, params, plain_caches, None, q,
                                           dev, feed=[tok])
     truth = f32_steps(cell, mesh, over, params, f32_caches, [tok], q, dev)
+    del plain_caches, f32_caches
     ys = yardstick(got, plain, truth)
+    turns = route_turns(srv, params, turn_caches,
+                        [tok] * PHASE15_DECODE_STEPS, q, dev)
+    del turn_caches
     if not bool(torch.isfinite(got[0]).all()):
         bad.append("non-finite logits")
     emit({"phase": 15, "part": "15d", "arch": arch, "batch": cell.batch,
           "q_offset": q, "shift": PHASE15_SHIFT, "ring_slots": cap,
           "slots_a_row": seen, "decode_ms": float(np.median(ms)),
           "plain_ms": float(np.median(plain_ms)), "launches": launches,
+          "turns_ms_per_step": turns,
           "layers_vs_float32_plain": held,
           "gaps_plain": logit_gaps(got, plain), "vs_float32": ys,
           "problems": bad, "predicted": PHASE15_PREDICTED["15d"],
@@ -5519,9 +5710,9 @@ def main() -> int:
                                      for ph in sorted(paths)}}
         # at phase 7's, 8's, 10's, 11's, 12's and 14's shapes; flash_decode
         # at phase 15's (the Mixtral ring the row, RecurrentGemma's ring
-        # "rg", Qwen1.5-32B's e4m3 cache "fp8")
+        # "rg", Qwen1.5-32B's e4m3 cache "fp8") and 14a's ("dense")
         for key in ("mla", "rg", "vlm", "encdec", "load", "launch_p",
-                    "launch_d", "launch_k", "fp8"):
+                    "launch_d", "launch_k", "fp8", "dense"):
             if key in t:
                 row[key] = {k: t[key][k] for k in (
                     "shape", "max_abs_err", "ms", "device_ms", "plain_ms",

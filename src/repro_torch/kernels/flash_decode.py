@@ -6,32 +6,35 @@ reads: a ring buffer (a sliding layer's window-sized cache, slot =
 position % capacity) or a full-capacity cache, K/V in float32, bfloat16
 or float8 e4m3. The reference computes that step in jnp
 (``repro.models.layers.attention_decode``: ``cache_attention_mask`` +
-``sdpa``); the port's flash kernel reads a cache only where slot ==
-position, in bfloat16 or float32. Its plain version is
-``ref.cache_attention_ref``.
+``sdpa``). The port sends here every one-row decode over a dense cache and
+every chunk over a ring or a float8 cache (``models.layers``). Its plain
+version is ``ref.cache_attention_ref``.
 
-The kernel cuts the cache's slots into tiles of ``TILE`` and the tiles
-across blocks with the paged kernel's ``split_plan`` and, with more than
-one split, merges the splits' float32 partials in a second launch of the
-same call; ``launch_plan`` holds every other choice the host makes
-(padded head dim, the head split, stage row pitch, shared memory), so the
-CPU tests can check them.
+A bfloat16 q (over bfloat16 or float8 K/V) runs the tensor-core kernel:
+tiles of ``16 x`` slot groups a block, the KV group's query heads as the
+rows of an ``mma.sync`` product, a ring of 2-4 stages (as many as keep
+``REG_BLOCKS`` blocks an SM). A float32 q and
+K/V run the scalar kernel (tiles of ``TILE_F32`` slots, 3 stages, a
+group wider than ``BLOCK_GROUP_DIM`` flattened elements shared by several
+blocks). The cache's slot tiles are cut across blocks by ``split_plan``
+and, with more than one split, the splits' float32 partials are merged in
+a second launch of the same call. ``launch_plan`` holds every other choice
+the host makes (padded head dim, tile, head split, staged row pitches,
+stages, shared memory), so the CPU tests can check them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import (BLOCK_GROUP_DIM,
-                                                 BLOCKS_PER_SM, MAX_GRID_Y,
-                                                 MAX_HEAD_DIM,
-                                                 MIN_PAGES_PER_SPLIT,
+                                                 MAX_GRID_Y, MAX_HEAD_DIM,
                                                  SMEM_LIMIT, WARPS, sm_count,
-                                                 split_plan,
                                                  stage_copy_bytes)
 
 LAUNCHES = {"flash_decode": 0}         # wrapper calls that launched
@@ -40,12 +43,25 @@ KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 # (q, K/V) pairs the kernel takes: float8 K/V under a bfloat16 query
 PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
          (torch.bfloat16, torch.float8_e4m3fn)}
-TILE = 32                              # slots a stage holds
-STAGES = 3                             # the kernel's cp.async ring
+TILE_F32 = 32                          # the scalar kernel's slots a stage
+STAGES_F32 = 3                         # and its cp.async ring
+MMA_ROWS = 16                          # query heads an mma A tile holds
+MAX_STAGES = 4                         # the tensor-core kernel's ring, at most
+SM_SMEM = 228 * 1024                   # an SM's shared memory
+BLOCK_RESERVED = 1024                  # the runtime's share of it a block
+# blocks an SM holds by registers: the tensor-core kernel's launch bounds
+# (Mma::MINB: 3 up to head dim 128, 2 at 256) and the scalar kernel's
+# (up to 254 registers a thread)
+REG_BLOCKS = {64: 3, 128: 3, 256: 2}
+REG_BLOCKS_F32 = 2
+WAVES = 2                              # blocks >= WAVES x SMs, cache allowing
+SETUP_TILES = 2                        # a block's set-up, in tiles streamed
+MAX_GRID_X = 65535                     # splits
 MAX_GRID_Z = 65535                     # sequences x query rows
-# the ring at the widest stage (float32 rows of MAX_HEAD_DIM) and the warps'
-# merge buffer at the widest block fit, so every shape gets the 3 stages
-assert STAGES * (2 * TILE * MAX_HEAD_DIM * 4 + 4 * TILE) <= SMEM_LIMIT
+# the scalar kernel's ring at the widest stage (float32 rows of
+# MAX_HEAD_DIM) and its warps' merge buffer at the widest share fit
+assert STAGES_F32 * (2 * TILE_F32 * MAX_HEAD_DIM * 4 + 4 * TILE_F32) \
+    <= SMEM_LIMIT
 assert 4 * WARPS * (2 * BLOCK_GROUP_DIM // 64 + BLOCK_GROUP_DIM) <= SMEM_LIMIT
 
 _fn = None
@@ -56,7 +72,7 @@ def _kernel():
     if _fn is None:
         f = _build.load().rt_flash_decode
         f.restype = ctypes.c_int
-        f.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
+        f.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 16
                       + [ctypes.c_longlong] * 10
                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                          ctypes.c_void_p])
@@ -72,29 +88,87 @@ def check_dtypes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                         "bfloat16/bfloat16 or bfloat16/float8_e4m3fn")
 
 
+@functools.lru_cache(maxsize=256)
 def launch_plan(h: int, kvh: int, d: int, kv_elem: int) -> Dict[str, int]:
-    """Head dim padded to the lanes' layout (64, 128 or 256), the head
-    split (blocks per KV head's group: the fewest that divide it into equal
-    shares of at most BLOCK_GROUP_DIM query heads x padded head dim), stage
-    row pitch (elements, a multiple of 16 bytes) and dynamic shared memory
-    of one launch; raises ValueError for a shape the kernel does not
-    take."""
+    """One launch's plan for q (.., h, d) over K/V (.., kvh, d) of
+    ``kv_elem`` bytes an element (4: the float32 scalar kernel; 2 or 1:
+    the tensor-core kernel under a bfloat16 q): head dim padded to 64, 128
+    or 256, slots a tile, the head split (blocks sharing a KV head's group;
+    1 on the tensor-core kernel, whose 16-row head tiles loop inside the
+    block: ``m_tiles``), staged K and V row pitches (elements), ring
+    stages, dynamic shared memory, and the blocks an SM holds (by
+    registers and shared memory). Raises ValueError for a shape the
+    kernel does not take."""
     if kvh <= 0 or h % kvh or not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"flash_decode: unsupported h={h} kv={kvh} d={d}")
     grp = h // kvh
     hd = next(n for n in (64, 128, MAX_HEAD_DIM) if d <= n)
-    hs = next(s for s in range(-(-grp * hd // BLOCK_GROUP_DIM), grp + 1)
-              if grp % s == 0)
+    if kv_elem == 4:
+        hs = next(s for s in range(-(-grp * hd // BLOCK_GROUP_DIM), grp + 1)
+                  if grp % s == 0)
+        tile, stages, m_tiles = TILE_F32, STAGES_F32, 1
+        pitch_k = pitch_v = -(-d // 4) * 4
+        merge = 4 * WARPS * (2 * (grp // hs) + grp // hs * hd)
+    else:
+        hs, m_tiles = 1, -(-grp // MMA_ROWS)
+        slot_groups = 2 if hd == MAX_HEAD_DIM else WARPS
+        tile = MMA_ROWS * slot_groups
+        # bank-conflict-free fragment loads: K rows 16 bytes past a
+        # multiple of 32; V rows an odd multiple of 16 bytes (bf16,
+        # ldmatrix) or 32 past a multiple of 128 (e4m3, 4 rows a load)
+        pitch_k = hd + 16 // kv_elem
+        pitch_v = hd + 8 if kv_elem == 2 else hd + 32
+        merge = 4 * slot_groups * MMA_ROWS * (2 + hd)
     if kvh * hs > MAX_GRID_Y:
         raise ValueError(f"flash_decode: {kvh} KV heads x head split {hs} "
                          f"> {MAX_GRID_Y} blocks on the grid's y axis")
-    grp //= hs
-    unit = 16 // kv_elem
-    pitch = -(-d // unit) * unit
-    stage = 2 * TILE * pitch * kv_elem + 4 * TILE
-    merge = 4 * WARPS * (2 * grp + grp * hd)
-    return {"head_dim": hd, "head_split": hs, "pitch": pitch,
-            "smem": max(STAGES * stage, merge)}
+    stage = tile * (pitch_k + pitch_v) * kv_elem + 4 * tile
+    blocks = REG_BLOCKS_F32 if kv_elem == 4 else REG_BLOCKS[hd]
+    if kv_elem != 4:          # the most stages that keep `blocks` an SM
+        stages = max(2, min(MAX_STAGES, ring_budget(hd) // stage))
+    smem = max(stages * stage, merge)
+    return {"head_dim": hd, "tile": tile, "head_split": hs,
+            "m_tiles": m_tiles, "pitch_k": pitch_k, "pitch_v": pitch_v,
+            "stages": stages, "smem": smem,
+            "resident": max(1, min(blocks,
+                                   SM_SMEM // (smem + BLOCK_RESERVED)))}
+
+
+def ring_budget(head_dim: int) -> int:
+    """Shared memory a tensor-core block's ring may take so that as many
+    blocks share an SM as its registers allow."""
+    return SM_SMEM // REG_BLOCKS[head_dim] - BLOCK_RESERVED
+
+
+@functools.lru_cache(maxsize=1024)
+def split_plan(n_tiles: int, pairs: int, n_sm: int = 132,
+               resident: int = 2) -> Tuple[int, int]:
+    """(n_splits, tiles per split) for ``pairs`` (sequence x query row, KV
+    head [x head share]) blocks' worth of ``n_tiles`` slot tiles each:
+    among the splits that give at least WAVES x ``n_sm`` blocks (or one
+    block a tile, where the cache has fewer), the one that finishes in the
+    least time as the host can count it — the rounds of ``n_sm`` x
+    ``resident`` blocks times the tiles a block streams plus its set-up —
+    preferring fewer splits at a tie. Split s covers tiles [s * tps,
+    (s + 1) * tps). Uses only what the host knows: no sequence length."""
+    if n_tiles <= 0:
+        return 1, 1
+    floor = min(WAVES * n_sm, pairs * n_tiles)
+    slots = n_sm * max(1, resident)
+    best = None
+    for tps in range(1, n_tiles + 1):
+        splits = -(-n_tiles // tps)
+        if pairs * splits < floor:
+            break
+        if splits > MAX_GRID_X:
+            continue
+        cost = -(-pairs * splits // slots) * (tps + SETUP_TILES)
+        if best is None or cost <= best[0]:
+            best = (cost, splits, tps)
+    if best is None:
+        raise ValueError(f"flash_decode: {n_tiles} tiles need more than "
+                         f"{MAX_GRID_X} splits")
+    return best[1], best[2]
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,27 +206,27 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_decode: {b} x {sq} query rows at q_offset "
                          f"{q_offset}")
     plan = launch_plan(h, kvh, d, k.element_size())
-    n_tiles = -(-cap // TILE)
-    n_splits, tps = split_plan(n_tiles, b * sq, kvh * plan["head_split"],
-                               sm_count(q.device), BLOCKS_PER_SM,
-                               MIN_PAGES_PER_SPLIT)
+    n_splits, tps = split_plan(-(-cap // plan["tile"]),
+                               b * sq * kvh * plan["head_split"],
+                               sm_count(q.device), plan["resident"])
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     part_acc = part_ml = None
-    if n_splits > 1:
-        part_acc = torch.empty((b * sq, n_splits, h, d), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((b * sq, n_splits, h, 2), dtype=torch.float32,
-                              device=q.device)
+    if n_splits > 1:          # (B*Sq, splits, H, d) then (B*Sq, splits, H, 2)
+        rows = b * sq * n_splits * h
+        part = torch.empty(rows * (d + 2), dtype=torch.float32,
+                           device=q.device)
+        part_acc, part_ml = part.data_ptr(), part.data_ptr() + 4 * rows * d
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), o.data_ptr(),
-        part_acc.data_ptr() if part_acc is not None else None,
-        part_ml.data_ptr() if part_ml is not None else None,
+        part_acc, part_ml,
         Q_DTYPES[q.dtype], KV_DTYPES[k.dtype], b, sq, h, kvh,
-        plan["head_split"], d, cap, TILE, n_splits, tps, plan["pitch"], cb, q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2), pos.stride(0), o.stride(0),
-        o.stride(1), o.stride(2), scale, int(window), int(q_offset), stream)
+        plan["head_split"], d, cap, plan["tile"], n_splits, tps,
+        plan["pitch_k"], plan["pitch_v"], plan["stages"], cb, q.stride(0),
+        q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+        pos.stride(0), o.stride(0), o.stride(1), o.stride(2), scale,
+        int(window), int(q_offset), stream)
     _build.check(err, "flash_decode")
     LAUNCHES["flash_decode"] += 1
     return o

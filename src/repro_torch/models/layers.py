@@ -410,25 +410,31 @@ def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     (B,Sq) absolute.
 
     The kernel route needs ``q_offset`` — the absolute position of query
-    row 0, equal to positions[:, 0]. A full-capacity bfloat16 or float32
-    cache takes flash: there the slot of every entry is its position,
-    slots below q_offset hold earlier chunks, slots at or past q_offset +
-    Sq were never written (pos -1) and lie above the causal diagonal, so
-    ``causal_mask(q_offset)`` over the slots is exactly
-    ``cache_attention_mask`` over the positions. Any other cache — a ring
-    buffer (a sliding layer's window-sized cache) or float8 K/V — takes
-    ``ops.cache_attention``, which reads each slot's position tag."""
+    row 0, equal to positions[:, 0]. One query row (a decode step) takes
+    ``ops.cache_attention`` on every cache: the flash_decode kernel, which
+    reads each slot's position tag and streams the cache once for the
+    row's KV groups. A chunk of several rows (incremental prefill) over a
+    full-capacity bfloat16 or float32 cache takes flash, which reads the
+    cache once for the whole chunk: there the slot of every entry is its
+    position, slots below q_offset hold earlier chunks, slots at or past
+    q_offset + Sq were never written (pos -1) and lie above the causal
+    diagonal, so ``causal_mask(q_offset)`` over the slots is exactly
+    ``cache_attention_mask`` over the positions. A chunk over any other
+    cache — a ring buffer (a sliding layer's window-sized cache) or
+    float8 K/V — takes ``ops.cache_attention`` too. Rows past a
+    full-capacity cache raise on either kernel."""
     q, k, v = _project_qkv(p, cfg, x, positions)
     _kv_cache_put(cache, k, v, positions)
     if kernel_route(x):
         if q_offset is None:
             raise AssertionError("the kernel route of attention_decode "
                                  "needs q_offset (== positions[:, 0])")
-        if cache.full_capacity and cache.k.dtype not in ops.FLOAT8:
-            if q_offset + x.shape[1] > cache.capacity:
-                raise AssertionError(
-                    f"attention_decode: rows up to {q_offset + x.shape[1]} "
-                    f"past a full-capacity cache of {cache.capacity}")
+        dense = cache.full_capacity and cache.k.dtype not in ops.FLOAT8
+        if dense and q_offset + x.shape[1] > cache.capacity:
+            raise AssertionError(
+                f"attention_decode: rows up to {q_offset + x.shape[1]} "
+                f"past a full-capacity cache of {cache.capacity}")
+        if dense and x.shape[1] > 1:
             out = ops.flash_attention(
                 q.transpose(1, 2), cache.k.transpose(1, 2),
                 cache.v.transpose(1, 2), causal=True, window=window,

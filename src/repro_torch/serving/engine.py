@@ -217,7 +217,8 @@ class PrefillStream:
         dense full-capacity cache (slot == position), one chunk of tokens
         per call, so each chunk's KV can hit the wire while the next chunk
         computes. On the card each chunk's attention is one flash-kernel
-        launch per layer at ``q_offset`` = the chunk's start. A sliding
+        launch per layer at ``q_offset`` = the chunk's start (a chunk of
+        one row: one flash_decode launch). A sliding
         window masks in attention and ships only positions at or above
         the window floor; a chunk wholly below it returns a zero-length
         *progress marker* that callers account but never send.

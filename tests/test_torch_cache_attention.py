@@ -14,10 +14,10 @@ float8 caches — against the JAX package, on the CPU.
     caches equals the reference's within 1e-5;
   * ``ops.cache_attention`` on CPU tensors is the plain version and
     launches nothing;
-  * the route: on ``meta`` under ``ops.count_as_card`` a decode over a
-    ring or a float8 cache calls ``ops.cache_attention`` (tallying each
-    row's visible slots) and one over a full-capacity bfloat16 cache calls
-    flash;
+  * the route: on ``meta`` under ``ops.count_as_card`` a one-row decode
+    over any dense cache, and a chunk of rows over a ring or a float8
+    cache, call ``ops.cache_attention`` (tallying each row's visible
+    slots); a chunk over a full-capacity bfloat16 cache calls flash;
   * the serve step of the tiny sliding and hybrid families on rings, and
     of the tiny dense family from a float8 D cache, on the kernel route
     (``layers.kernel_route`` patched to True: ``ops`` runs the plain
@@ -182,7 +182,8 @@ def test_visible_slots_equal_the_plain_mask(cap, window, q_offset, sq):
                                    q_offset=q_offset) == int(ok.sum())
 
 
-# (cache, K/V dtype, window) → the op the kernel route calls
+# (cache, K/V dtype, window) → the op the kernel route calls for a chunk of
+# several rows; one row takes ``cache_attention`` on every cache
 ROUTES = [("ring", torch.bfloat16, 8, "cache_attention"),
           ("full", torch.float8_e4m3fn, 0, "cache_attention"),
           ("ring", torch.float8_e4m3fn, 8, "cache_attention"),
@@ -192,9 +193,11 @@ ROUTES = [("ring", torch.bfloat16, 8, "cache_attention"),
 
 @pytest.mark.parametrize("kind,kv_dtype,window,op", ROUTES)
 def test_decode_route_on_meta(kind, kv_dtype, window, op, monkeypatch):
-    """``attention_decode`` on ``meta`` as the card runs it: a ring or a
-    float8 cache goes to ``ops.cache_attention``, whose tally is each row's
-    visible slots; a full-capacity bfloat16 cache to flash."""
+    """``attention_decode`` on ``meta`` as the card runs it: one query row
+    goes to ``ops.cache_attention`` on every cache, whose tally is the
+    row's visible slots; a chunk of 3 rows over a ring or a float8 cache
+    too (each row's visible slots), and over a full-capacity bfloat16
+    cache to flash."""
     cfg = config_from_dict(dict(
         dataclasses.asdict(TINY_FAMILIES["dense-bias-qknorm"]),
         param_dtype="bfloat16", compute_dtype="bfloat16"))
@@ -203,9 +206,6 @@ def test_decode_route_on_meta(kind, kv_dtype, window, op, monkeypatch):
          TL.init_attention(gen, cfg, torch.device("cpu")).items()}
     b, q_offset = 2, 40
     cap = window if kind == "ring" else 64
-    cache = TL.kv_cache_init(b, cap, cfg.num_kv_heads, cfg.hd, kv_dtype,
-                             torch.device("meta"),
-                             full_capacity=kind == "full").layer(0)
     calls = {"cache_attention": 0, "flash_attention": 0}
     for name in calls:
         real = getattr(ops, name)
@@ -214,19 +214,27 @@ def test_decode_route_on_meta(kind, kv_dtype, window, op, monkeypatch):
             calls[_name] += 1
             return _real(*a, **kw)
         monkeypatch.setattr(ops, name, spy)
-    x = torch.empty((b, 1, cfg.d_model), dtype=torch.bfloat16, device="meta")
-    positions = torch.empty((b, 1), dtype=torch.int32, device="meta")
-    with ops.count_as_card() as tally:
-        out, _ = TL.attention_decode(p, cfg, x, positions, cache,
-                                     window=window, q_offset=q_offset)
-    assert out.shape == (b, 1, cfg.d_model)
-    assert calls == {o: int(o == op) for o in calls}
-    seen = min(q_offset + 1, cap, window or cap)
-    if op == "cache_attention":
-        assert tally == {"flash_decode": 2.0 * b * cfg.num_heads * seen
-                         * 2 * cfg.hd}
-    else:
-        assert set(tally) == {"flash_attention"}
+    for sq, want_op in ((1, "cache_attention"), (3, op)):
+        cache = TL.kv_cache_init(b, cap, cfg.num_kv_heads, cfg.hd, kv_dtype,
+                                 torch.device("meta"),
+                                 full_capacity=kind == "full").layer(0)
+        x = torch.empty((b, sq, cfg.d_model), dtype=torch.bfloat16,
+                        device="meta")
+        positions = torch.empty((b, sq), dtype=torch.int32, device="meta")
+        for name in calls:
+            calls[name] = 0
+        with ops.count_as_card() as tally:
+            out, _ = TL.attention_decode(p, cfg, x, positions, cache,
+                                         window=window, q_offset=q_offset)
+        assert out.shape == (b, sq, cfg.d_model)
+        assert calls == {o: int(o == want_op) for o in calls}
+        if want_op == "cache_attention":
+            seen = sum(min(q_offset + i + 1, cap, window or cap)
+                       for i in range(sq))
+            assert tally == {"flash_decode": 2.0 * b * cfg.num_heads * seen
+                             * 2 * cfg.hd}
+        else:
+            assert set(tally) == {"flash_attention"}
 
 
 @pytest.fixture(params=["sliding", "hybrid", "dense-f8"])

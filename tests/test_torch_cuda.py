@@ -1007,6 +1007,16 @@ def test_hybrid_serving_on_card_matches_cpu(cuda, chunk, wire):
                         "scatter_pages_overlay"}, counts
 
 
+def _one_row_kernels(lens, chunk):
+    """{"flash_decode"} when a prefill stream of one of ``lens`` positions
+    in ``chunk``-position chunks (incremental when chunk < its length)
+    ends in a chunk of exactly one row: ``attention_decode`` sends one
+    query row to flash_decode. Else nothing."""
+    one_row = chunk is not None and any(n > chunk and n % chunk == 1
+                                        for n in lens)
+    return {"flash_decode"} if one_row else set()
+
+
 def _family_serving(cuda, cfg, prompts, chunk, wire, p_tp=2, mem_len=0,
                     extra=None):
     """A tiny float32 family disaggregated on the card (kernels) and on
@@ -1081,7 +1091,9 @@ def test_vlm_serving_on_card_matches_cpu(cuda, chunk, wire):
     2 KV heads, float32) disaggregated on the card against the CPU: P's
     chunks slice the merged sequence and one of them spans the patch/text
     boundary (6: positions 0-5; 3: positions 3-5), greedy tokens
-    identical; exactly flash, paged and the overlay launch."""
+    identical; exactly flash, paged and the overlay launch, and
+    flash_decode where a stream ends in a one-row chunk (13 and 25
+    positions in chunks of 6 or 3)."""
     rng = np.random.default_rng(15)
     prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (9, 14, 21)]
     patches = [rng.standard_normal((4, 64)).astype(np.float32)
@@ -1092,7 +1104,8 @@ def test_vlm_serving_on_card_matches_cpu(cuda, chunk, wire):
 
     assert _family_serving(cuda, config_from_dict(VLM_TINY), prompts, chunk,
                            wire, extra=extra) == {
-        "flash_attention", "paged_attention", "scatter_pages_overlay"}
+        "flash_attention", "paged_attention", "scatter_pages_overlay",
+        *_one_row_kernels([4 + len(p) for p in prompts], chunk)}
 
 
 ENCDEC_TINY = dict(name="encdec-t", family="audio", num_layers=3,
@@ -1112,7 +1125,8 @@ def test_encdec_serving_on_card_matches_cpu(cuda, chunk, wire):
     chunk's cross-attention through flash at kv_len 10, the memory rows
     shipped as the tail and D's per-slot cross-attention in plain ops;
     greedy tokens identical; exactly flash, paged and the overlay
-    launch."""
+    launch, and flash_decode for the self-attention of a one-row chunk
+    (9 and 21 positions in chunks of 4)."""
     rng = np.random.default_rng(16)
     prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (9, 14, 21)]
     frames = [rng.standard_normal((10, 64)).astype(np.float32)
@@ -1123,7 +1137,8 @@ def test_encdec_serving_on_card_matches_cpu(cuda, chunk, wire):
 
     assert _family_serving(cuda, config_from_dict(ENCDEC_TINY), prompts,
                            chunk, wire, mem_len=12, extra=extra) == {
-        "flash_attention", "paged_attention", "scatter_pages_overlay"}
+        "flash_attention", "paged_attention", "scatter_pages_overlay",
+        *_one_row_kernels([len(p) for p in prompts], chunk)}
 
 
 # --------------------------------------------------------------------------- #
@@ -1532,7 +1547,8 @@ DECODE_GROUPS = [(2, 2, 64), (2, 8, 128), (1, 16, 256)]
 DECODE_MAIN = [
     ("mixtral", 4096, 34_000, 8, 32, 128, 4096, torch.bfloat16),
     ("recurrentgemma", 2048, 34_000, 1, 16, 256, 2048, torch.bfloat16),
-    ("qwen1.5-32b", 32_896, 32_769, 40, 40, 128, 0, torch.float8_e4m3fn)]
+    ("qwen1.5-32b", 32_896, 32_769, 40, 40, 128, 0, torch.float8_e4m3fn),
+    ("qwen3-4b", 32_896, 32_769, 8, 32, 128, 0, torch.bfloat16)]
 
 
 def _decode_cache(rng, b, cap, n, kvh, hd, kv_dtype, device):
@@ -1582,9 +1598,10 @@ def test_flash_decode_kernel(cuda, fill, kvh, h, hd, window, sq, dtypes):
 def test_flash_decode_kernel_at_the_main_path_sizes(cuda, name, cap, n, kvh,
                                                     h, hd, window, kv_dt):
     """The rings of Mixtral (start at slot 1232) and RecurrentGemma (a
-    group of 16 x 256 on one KV head: two blocks share it) and
-    Qwen1.5-32B's float8 cache of 32,896 slots (128 empty), many splits
-    combined: bf16 against the float32 plain version within FLASH_32K_MAX
+    group of 16 x 256 on one KV head), Qwen1.5-32B's float8 cache of
+    32,896 slots (128 empty) and Qwen3-4B's bf16 one (the one-row dense
+    decode's shape), many splits combined: bf16 against the float32
+    plain version within FLASH_32K_MAX
     and FLASH_32K_MEAN of the output's size (a weighted mean over
     thousands of slots, about 0.01-0.04 for unit normals, so a flat
     tolerance would pass a kernel that drops tiles of slots; one 32-slot
@@ -1598,6 +1615,68 @@ def test_flash_decode_kernel_at_the_main_path_sizes(cuda, name, cap, n, kvh,
                                    q_offset=n - 1, window=window)
     torch.cuda.synchronize()
     _close_to_size(got, want)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_decode_widens_every_e4m3_code_exactly(cuda, hd):
+    """Every e4m3 byte in V's rows under one visible slot (its softmax
+    weight exactly 1, so each output element is the widened value
+    rounded once to bf16, which changes nothing): the kernel's widening
+    equals torch's ``.to(torch.bfloat16)`` on all 254 finite codes (the
+    same bits, but +0 for -0), and the two NaN codes stay NaN. The 256
+    codes fill 256 / hd rows four times over, rolled, so each code meets
+    several lane and byte positions."""
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    rows = torch.cat([codes.roll(17 * r).view(256 // hd, hd)
+                      for r in range(4)])
+    kvh = rows.shape[0]
+    v = torch.zeros((1, 8, kvh, hd), dtype=torch.uint8)
+    v[0, 3] = rows
+    v = v.view(torch.float8_e4m3fn).to(cuda)
+    k = torch.zeros_like(v)
+    pos = torch.full((1, 8), -1, dtype=torch.int32)
+    pos[0, 3] = 5
+    q = torch.ones((1, 1, 2 * kvh, hd), dtype=torch.bfloat16, device=cuda)
+    got = ops.cache_attention(q, k, v, pos.to(cuda), q_offset=5)[0, 0]
+    torch.cuda.synchronize()
+    want = v[0, 3].to(torch.bfloat16).repeat_interleave(2, 0)
+    nan = torch.isnan(want)
+    assert int(nan.sum()) == 2 * 2 * 4                # 2 codes, 4 rolls, 2 heads
+    assert bool(torch.isnan(got[nan]).all())
+    # equal values are equal bits, but for the sign of zero: the output
+    # is a sum over the slots, whose masked ones add +0 to code 0x80's -0
+    assert torch.equal(got[~nan].float(), want[~nan].float())
+    assert v[0, 3].view(torch.uint8)[~torch.isnan(
+        v[0, 3].to(torch.bfloat16))].unique().numel() == 254
+
+
+def test_flash_decode_widens_every_e4m3_key_code_exactly(cuda):
+    """Every finite e4m3 byte as the one nonzero element of a key, under a
+    query of a power of two (exact in bf16) that scales its score to
+    1-2 in magnitude, beside a zero key whose V row is 1: each output is
+    1 / (1 + exp(score)), which the kernel gives within 4e-3 of the plain
+    version's (exact float32 widening) for all 254 codes, zeros and
+    subnormals included; a key widened one mantissa step off moves it by
+    1e-2 or more."""
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    codes = codes[(codes & 0x7f) != 0x7f]                # the 254 finite
+    n, d = codes.numel(), 64
+    vals = codes.view(torch.float8_e4m3fn).float()
+    k = torch.zeros((1, 2, n, d), dtype=torch.uint8)
+    k[0, 0, :, 5] = codes
+    v = torch.zeros((1, 2, n, d), dtype=torch.uint8)
+    v[0, 1] = 0x38                                       # e4m3 1.0
+    q = torch.zeros((1, 1, n, d))
+    e = torch.floor(torch.log2(vals.abs().clamp(min=2.0 ** -9)))
+    q[0, 0, :, 5] = torch.exp2(3.0 - e)                  # |score| in [1, 2)
+    k, v = (t.view(torch.float8_e4m3fn).to(cuda) for t in (k, v))
+    q = q.to(cuda, torch.bfloat16)
+    pos = torch.tensor([[0, 1]], dtype=torch.int32, device=cuda)
+    got = ops.cache_attention(q, k, v, pos, q_offset=1)
+    want = ref.cache_attention_ref(q.float(), k.float(), v.float(), pos,
+                                   q_offset=1)
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= 4e-3
 
 
 def test_flash_decode_masks_stale_slots_and_empty_rows(cuda):

@@ -621,47 +621,117 @@ def test_paged_launch_plan_refuses(h, kv, d, bs):
 
 
 # flash_decode's plans at the main path's shapes and the sweep's edges:
-# (query heads, KV heads, head dim, K/V element bytes) -> plan
+# (query heads, KV heads, head dim, K/V element bytes) -> plan. Element
+# bytes 4 is the float32 scalar kernel, 2 and 1 the tensor-core kernel
+# under a bfloat16 q (bf16 and float8 e4m3 K/V).
 @pytest.mark.parametrize("h,kv,d,es,want", [
-    (32, 8, 128, 2, dict(head_dim=128, head_split=1, pitch=128,
-                         smem=3 * (2 * 32 * 128 * 2 + 128))),   # Mixtral
-    (16, 1, 256, 2, dict(head_dim=256, head_split=2, pitch=256,
-                         smem=3 * (2 * 32 * 256 * 2 + 128))),   # RG
-    (40, 40, 128, 1, dict(head_dim=128, head_split=1, pitch=128,
-                          smem=3 * (2 * 32 * 128 + 128))),     # e4m3
-    (2, 2, 64, 4, dict(head_dim=64, head_split=1, pitch=64)),
-    (64, 1, 256, 4, dict(head_dim=256, head_split=8, pitch=256,
+    (32, 8, 128, 2, dict(head_dim=128, tile=64, head_split=1, m_tiles=1,
+                         pitch_k=136, pitch_v=136, stages=2,
+                         smem=2 * (64 * 272 * 2 + 256))),   # Mixtral, Qwen3-4B
+    (16, 1, 256, 2, dict(head_dim=256, tile=32, head_split=1, m_tiles=1,
+                         pitch_k=264, pitch_v=264, stages=3,
+                         smem=3 * (32 * 528 * 2 + 128))),   # RG
+    (40, 40, 128, 1, dict(head_dim=128, tile=64, head_split=1, m_tiles=1,
+                          pitch_k=144, pitch_v=160, stages=3,
+                          smem=3 * (64 * 304 + 256))),     # e4m3
+    (2, 2, 64, 4, dict(head_dim=64, tile=32, head_split=1, pitch_k=64,
+                       pitch_v=64, stages=3)),
+    (64, 1, 256, 4, dict(head_dim=256, tile=32, head_split=8, pitch_k=256,
                          smem=3 * (2 * 32 * 256 * 4 + 128))),
-    (8, 2, 20, 1, dict(head_dim=64, head_split=1, pitch=32)),
-    (8, 2, 20, 2, dict(head_dim=64, head_split=1, pitch=24)),
-    (12, 1, 256, 2, dict(head_dim=256, head_split=2)),
-    (9, 1, 256, 2, dict(head_dim=256, head_split=3)),
+    (64, 1, 256, 2, dict(head_dim=256, head_split=1, m_tiles=4)),
+    (8, 2, 20, 1, dict(head_dim=64, tile=64, pitch_k=80, pitch_v=96,
+                       stages=4)),
+    (8, 2, 20, 2, dict(head_dim=64, tile=64, pitch_k=72, pitch_v=72,
+                       stages=4)),
+    (12, 1, 256, 1, dict(head_dim=256, tile=32, m_tiles=1, pitch_k=272,
+                         pitch_v=288)),
+    (9, 1, 256, 4, dict(head_dim=256, head_split=3)),
+    (33, 1, 128, 2, dict(head_split=1, m_tiles=3)),
 ])
 def test_flash_decode_launch_plan(h, kv, d, es, want):
-    """Padded head dim, the head split (the fewest blocks sharing a KV
-    head's group evenly, each at most 2048 query heads x padded head
-    dim), 16-byte staged rows, and shared memory for the 3-stage ring or
-    the warps' merge buffer, whichever is larger, within the card's."""
-    from repro_torch.kernels.flash_decode import STAGES, TILE, launch_plan
+    """Padded head dim; on the float32 kernel the head split (the fewest
+    blocks sharing a KV head's group evenly, each at most 2048 query heads
+    x padded head dim), 16-byte staged rows and its 3-stage ring; on the
+    tensor-core kernel 16-row head tiles in a loop (no head split), tiles
+    of 16 slots a warp's group (two warps a group at head dim 256), row
+    pitches that keep the fragment loads off each other's banks, and the
+    most stages (2-4) that leave an SM as many blocks as the kernel's
+    registers allow; shared memory for the ring or the warps' merge
+    buffer, whichever is larger, within the card's."""
+    from repro_torch.kernels.flash_decode import (MMA_ROWS, REG_BLOCKS,
+                                                  launch_plan, ring_budget)
     from repro_torch.kernels.paged_attention import SMEM_LIMIT, WARPS
     plan = launch_plan(h, kv, d, es)
     assert {k: plan[k] for k in want} == want
-    grp = h // kv // plan["head_split"]
-    assert grp * plan["head_dim"] <= 2048
-    assert plan["pitch"] * es % 16 == 0 and plan["pitch"] >= d
-    assert plan["smem"] == max(
-        STAGES * (2 * TILE * plan["pitch"] * es + 4 * TILE),
-        4 * WARPS * (2 * grp + grp * plan["head_dim"])) <= SMEM_LIMIT
+    hd, tile = plan["head_dim"], plan["tile"]
+    stage = tile * (plan["pitch_k"] + plan["pitch_v"]) * es + 4 * tile
+    assert min(plan["pitch_k"], plan["pitch_v"]) >= d
+    assert plan["pitch_k"] * es % 16 == plan["pitch_v"] * es % 16 == 0
+    if es == 4:
+        grp = h // kv // plan["head_split"]
+        assert grp * hd <= 2048 and plan["m_tiles"] == 1
+        merge = 4 * WARPS * (2 * grp + grp * hd)
+    else:
+        groups = tile // MMA_ROWS
+        assert groups == (2 if hd == 256 else WARPS)
+        assert plan["m_tiles"] * MMA_ROWS >= h // kv > \
+            (plan["m_tiles"] - 1) * MMA_ROWS
+        assert min(plan["pitch_k"], plan["pitch_v"]) >= hd
+        assert plan["pitch_k"] * es % 32 == 16            # K: 2 rows a phase
+        if es == 2:                                       # ldmatrix: 8 rows
+            assert plan["pitch_v"] * es // 16 % 2 == 1
+        else:                                             # 4 rows a load
+            assert plan["pitch_v"] % 128 in (32, 96)
+        budget = ring_budget(hd)
+        assert 2 <= plan["stages"] <= 4
+        assert plan["stages"] * stage <= budget or plan["stages"] == 2
+        assert (plan["stages"] + 1) * stage > budget or plan["stages"] == 4
+        assert plan["resident"] == min(REG_BLOCKS[hd], (228 * 1024)
+                                       // (plan["smem"] + 1024))
+        merge = 4 * groups * MMA_ROWS * (2 + hd)
+    assert plan["smem"] == max(plan["stages"] * stage, merge) <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("h,kv,d", [(4, 4, 300), (3, 2, 64), (4, 0, 64),
                                     (65536 * 2, 65536, 256)])
-def test_flash_decode_launch_plan_refuses(h, kv, d):
+@pytest.mark.parametrize("es", [4, 2])
+def test_flash_decode_launch_plan_refuses(h, kv, d, es):
     """A head dim past 256, uneven groups, no KV head, more (KV head, head
-    split) blocks than the grid's y axis takes."""
+    split) blocks than the grid's y axis takes, on either kernel."""
     from repro_torch.kernels.flash_decode import launch_plan
     with pytest.raises(ValueError, match="flash_decode"):
-        launch_plan(h, kv, d, 2)
+        launch_plan(h, kv, d, es)
+
+
+# the main path's flash_decode calls, batch 2, one row: (query heads, KV
+# heads, head dim, K/V element bytes, capacity) -> (splits, tiles a split)
+@pytest.mark.parametrize("h,kv,d,es,cap,want", [
+    (32, 8, 128, 2, 4096, (22, 3)),         # Mixtral's ring (15b, 15d)
+    (16, 1, 256, 2, 2048, (64, 1)),         # RecurrentGemma's ring (15c)
+    (40, 40, 128, 1, 32_896, (14, 37)),     # Qwen1.5-32B's e4m3 cache (15a)
+    (32, 8, 128, 2, 32_896, (24, 22)),      # Qwen3-4B's dense cache (14a)
+    (32, 8, 128, 2, 64, (1, 1)),
+    (16, 1, 256, 2, 48, (2, 1)),
+    (8, 2, 64, 4, 524_288, None),
+])
+def test_flash_decode_split_plan(h, kv, d, es, cap, want):
+    """The splits of each (sequence x row, KV head) at the main path's
+    shapes on 132 SMs: the grid holds at least 2 blocks an SM where the
+    cache has that many tiles (else one block a tile), the splits cover
+    the tiles with none empty, and RecurrentGemma's ring gets one tile a
+    split."""
+    from repro_torch.kernels.flash_decode import (MAX_GRID_X, launch_plan,
+                                                  split_plan)
+    from repro_torch.kernels.paged_attention import SMEM_LIMIT
+    plan = launch_plan(h, kv, d, es)
+    n_tiles = -(-cap // plan["tile"])
+    pairs = 2 * kv * plan["head_split"]
+    splits, tps = split_plan(n_tiles, pairs, 132, plan["resident"])
+    if want is not None:
+        assert (splits, tps) == want
+    assert pairs * splits >= min(2 * 132, pairs * n_tiles)
+    assert splits * tps >= n_tiles > (splits - 1) * tps
+    assert splits <= MAX_GRID_X and plan["smem"] <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)

@@ -214,6 +214,58 @@ def test_kernel_route_matches_plain_route(pair, layout, monkeypatch):
         np.testing.assert_allclose(k.numpy(), p.numpy(), atol=ATOL)
 
 
+def test_one_row_decode_takes_flash_decode_and_chunks_take_flash(
+        pair, monkeypatch):
+    """The kernel route on a full-capacity cache (``kernel_route`` patched:
+    ``ops`` runs the kernels' plain versions on CPU tensors): a chunk of
+    12 rows calls ``ops.flash_attention`` once a layer and no
+    ``ops.cache_attention``; each following one-row step calls
+    ``ops.cache_attention`` (the flash_decode kernel on the card) once a
+    layer and no flash. Every step's logits equal the plain route's and
+    the reference's within ATOL."""
+    from repro_torch.kernels import ops
+    jcfg, tcfg, jp, tp = pair
+    toks = _tokens(jcfg, PROMPT + 2, seed=4)
+    spans = [(0, 12), (12, 13), (13, 14), (14, 15)]
+    cap = 16
+
+    def run(kernel):
+        calls = {"flash_attention": 0, "cache_attention": 0}
+        out = []
+        with monkeypatch.context() as mp:
+            if kernel:
+                mp.setattr(TL, "kernel_route", lambda x: True)
+                for name in calls:
+                    real = getattr(ops, name)
+
+                    def spy(*a, _real=real, _name=name, **kw):
+                        calls[_name] += 1
+                        return _real(*a, **kw)
+                    mp.setattr(ops, name, spy)
+            tc = TM.init_caches(tcfg, 1, cap, full_capacity=True,
+                                device="cpu")
+            for c0, c1 in spans:
+                calls.update(dict.fromkeys(calls, 0))
+                pos = torch.arange(c0, c1, dtype=torch.int32)[None]
+                logits, tc = TM.decode_step(
+                    tp, tcfg, torch.from_numpy(toks[:, c0:c1]), pos, tc,
+                    q_offset=c0)
+                out.append((logits, dict(calls)))
+        return out
+
+    jc = JM.init_caches(jcfg, 1, cap, full_capacity=True)
+    kernel, plain = run(True), run(False)
+    for (c0, c1), (kl, kc), (pl, _) in zip(spans, kernel, plain):
+        jl, jc = JM.decode_step(jp, jcfg, jnp.asarray(toks[:, c0:c1]),
+                                jnp.arange(c0, c1, dtype=jnp.int32)[None],
+                                jc)
+        chunk = c1 - c0 > 1
+        assert kc == {"flash_attention": tcfg.num_layers * chunk,
+                      "cache_attention": tcfg.num_layers * (not chunk)}
+        np.testing.assert_allclose(kl.numpy(), pl.numpy(), atol=ATOL)
+        np.testing.assert_allclose(kl.numpy(), np.asarray(jl), atol=ATOL)
+
+
 def test_flash_route_refuses_a_cache_without_slot_equals_position(pair,
                                                                  monkeypatch):
     """Flash reads a cache only where slot == position: a cache not

@@ -13,7 +13,7 @@
     the serve step updates in place are counted once.
   * For every ``ASSIGNED`` arch at narrow widths and its full depth, the
     prefill and serve steps counted as the card runs them: one flash call
-    a layer that attends (a serve step over ring buffers: one
+    a layer that attends (a serve step's one-row self-attention: one
     ``cache_attention`` call, the flash_decode kernel), their products the
     pairs the plain versions' masks let through, and the outputs that
     update an argument in place
@@ -220,8 +220,9 @@ def _ring_pairs(sq, cap, *, window, q_offset):
 @pytest.mark.parametrize("arch", ASSIGNED)
 def test_every_arch_is_counted_as_the_card_runs_it(arch, mode, monkeypatch):
     """Full depth at narrow widths: one attention kernel call a layer that
-    attends — flash, or on a serve step's ring-buffer caches (a window)
-    flash_decode through ``ops.cache_attention`` —, their products those
+    attends — flash, or for a serve step's one-row self-attention on any
+    dense cache flash_decode through ``ops.cache_attention`` (MLA's latent
+    attention and cross-attention stay on flash) —, their products those
     of the pairs the plain versions' masks let through, and of the outputs
     only those that are not an argument updated in place counted as bytes
     (a serve step: the logits alone)."""
@@ -248,7 +249,13 @@ def test_every_arch_is_counted_as_the_card_runs_it(arch, mode, monkeypatch):
     flops, flash, out = RA.count_flops(art.fn, *art.abstract_args)
     assert flops > flash >= 0
     assert len(calls) + len(ring_calls) == _attending_layers(cfg, mode)
-    assert bool(ring_calls) == (mode == "decode" and bool(M._window(cfg)))
+    # a serve step's one-row self-attention takes flash_decode on every
+    # dense cache; MLA's latent attention and cross-attention stay on flash
+    self_attn = sum(g.count * sum(k == M.ATTN for k in g.kinds)
+                    for g in M.block_groups(cfg))
+    assert len(ring_calls) == (self_attn if mode == "decode"
+                               and cfg.mla is None else 0)
+    assert all(q[1] == 1 for q, *_ in ring_calls)
     want = 0
     for (b, h, sq, dk), (_, _, skv, _), (*_, dv), kw in calls:
         kv_len = kw.get("kv_len") or skv
