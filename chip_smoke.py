@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, then runs sixteen phases, each printing JSON lines:
+nvcc, then runs eighteen phases, each printing JSON lines:
 
   0. card: name and power limit (``nvidia-smi``), kernel build time, and
      the count of HGMMA (wgmma), UTMALDG (TMA load), SYNCS (mbarrier),
@@ -304,21 +304,73 @@ nvcc, then runs sixteen phases, each printing JSON lines:
      (Qwen1.5-32B's e4m3 cache) and 1q (Qwen3-4B's full-capacity bf16
      cache: phase 14a's one-row decode, row 1d's shape) by the SDPA
      yardstick (``phase1_decode``).
+ 16. the MLA and hybrid families across worker processes: phases 7 and
+     8's serving again (phase 6's eight prompts, phase 3's vendors with P
+     at TP 2 / TP 1, 500-token chunks, MAX_NEW tokens) through
+     ``TwoProcessRuntime`` over shm, P and D each in a spawned worker that
+     builds the weights on the card from the seed: 16a DeepSeek-V2-Lite
+     at all 27 layers (the latent wire; two copies of the weights, one a
+     worker), 16b RecurrentGemma-9B at all 38 (window-floored KV and the
+     RG-LRU states' tail, staged from device memory into a pickled shm
+     segment). Held to the in-process phase's record from earlier in the
+     same run: the bytes under every wire key to the byte (a chunk's
+     segment; a tail's arrays, its segment's pickle framing printed
+     beside), the prefill tokens computed, each kernel's launches summed
+     over the workers' counts (flash and the overlay equal; paged and
+     gather, which launch a fixed number a decode step, equal per D step:
+     D's step count follows the arrivals), every request finished with
+     no stream failure, crash or requeue, no segment left after
+     shutdown, and the tokens identical or, at the first difference, the
+     token within the phase's own first-token yardstick or no further
+     from its float32 best than the in-process token there (a decoded
+     token of the record can itself sit past the yardstick: a decode step
+     is not the prefill); the weights are built in the parent only after
+     the workers are gone; which of these happened is printed;
+ 17. the examples and the launcher's ``--demo`` on the card, each in a
+     subprocess of its own session (every process of it killed when it
+     ends; all started at once, 17c running meanwhile) that must exit 0,
+     its last lines printed: 17a ``python -m
+     repro_torch.launch.serve --demo`` single-process (D0 fails at tick
+     6, D2 joins at tick 14: at least one requeue) and at 2P2D over shm;
+     17b ``examples/torch_serve_disagg.py`` (8 requests of 8 new tokens)
+     with the modeled-RDMA connector, with ``--parity`` at 2P2D over shm
+     (token-exact) and sized by the planner with the prefix cache; 17c
+     its ``run_single(faults=True)`` in this process at llama2-7b's full
+     width and depth in bf16 (the module's ``CFG`` / ``VENDOR_*`` set to
+     llama2-7b and phase 3's vendors, phase 3's weights): at least one
+     requeue, every request finished, D2 serving after its join, the main
+     path's kernels launched, each requeued request's tokens equal to a
+     fault-free run's or, at the first difference, within phase 3's
+     first-token yardstick or no further from it than the fault-free
+     run's token; 17d ``examples/torch_quickstart.py``,
+     ``torch_plan_deployment.py`` and ``torch_train_tiny.py`` (100 of
+     its 300 steps: its loss must fall by more than 0.5, the restored
+     step's loss be finite). Phase 1 holds the float32 kernels at these
+     examples' shapes (``phase1_demo``): flash at dk 64 (10 heads on 5 KV
+     heads) over every 16-token chunk and at dk 16 (the quickstart),
+     paged at head dim 64 in D's block-8 nbhd pools and at 16 in block 4,
+     within 2e-5; the D-side re-page of every chunk from P's TP 5 card ==
+     CPU and the overlay bit-identical, also to ``index_copy_``.
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
 processes report at shutdown, phase 12 those of every worker it
-started, zeroed after its warmup). The kernels line gives each kernel's
+started, zeroed after its warmup; phase 16 the sums of its workers'
+counts; phase 17 its in-process run, 17c's faulted one). The kernels
+line gives each kernel's
 launches on every serving phase (phases 3-12, none on phase 9; 0 on
 phase 13, training; phase 14: 14a's and 14b's main paths; phase 15: its
-parts' main paths, 15d's included), and its timing at phase 7's MLA
+parts' main paths, 15d's included; phases 16 and 17), and its timing at
+phase 7's MLA
 shape (``"mla"``), phase 8's RecurrentGemma shape (``"rg"``), phase
 10's InternVL2 shape (``"vlm"``), phase 11's Whisper shape
 (``"encdec"``), phase 12's (``"load"``) and phase 14's 32k shapes
 (``"launch_p"``, ``"launch_d"``, ``"launch_k"``) where those phases run
 it; flash_decode's row is phase 15's Mixtral ring, with RecurrentGemma's
 ring as ``"rg"``, Qwen1.5-32B's e4m3 cache as ``"fp8"`` and Qwen3-4B's
-full-capacity bf16 cache (row 1q) as ``"dense"``.
+full-capacity bf16 cache (row 1q) as ``"dense"``; flash, paged and the
+overlay in float32 at the serving example's shapes as ``"demo"`` and
+flash and paged at the quickstart's as ``"quickstart"``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the script exits non-zero. Without a CUDA device, or without
@@ -542,6 +594,25 @@ PHASE15_PREDICTED = {
             "max_abs_logit_gap_plain": [0.0, 0.0625]},
     "phase_s": [50, 120],
 }
+
+# phase 16: phases 7 and 8's serving again through TwoProcessRuntime (P and
+# D each in a spawned worker process with its own weights from SEED, the
+# wire over shm): DeepSeek-V2-Lite at all 27 layers (two copies of its
+# 29.3 GiB of bf16 weights, one a worker: no cut) and RecurrentGemma-9B at
+# all 38, with phases 7 and 8's vendors, prompts, chunk and MAX_NEW
+PHASE16_PARTS = {"16a": (7, MODEL7, P_VENDOR), "16b": (8, MODEL8, P_VENDOR8)}
+# the kernels a D decode step launches (a fixed number each step); the
+# rest launch a fixed number each prefill chunk
+STEP_KERNELS = ("paged_attention", "gather_pages")
+# phase 17: the examples and the launcher's --demo. The serving example
+# runs at the demo's size (8 requests of 8 new tokens) in every run, 17c
+# in this process at llama2-7b's full width and depth with phase 3's
+# vendors; train_tiny is cut to 100 of its default 300 steps (its loss
+# falls from 10.0 to 4.9 by step 50 on the card: NVIDIA H100 80GB HBM3,
+# 700.00 W)
+PHASE17_REQUESTS, PHASE17_MAX_NEW = 8, 8
+PHASE17_TRAIN_STEPS = 100
+PHASE17_RUN_TIMEOUT_S = 300
 
 
 def emit(obj) -> None:
@@ -1443,6 +1514,7 @@ def phase1(dev):
     vlm = phase1_vlm(gen, dev)
     encdec = phase1_encdec(gen, dev)
     load = phase1_load(gen, dev)
+    demo = phase1_demo(gen, dev)
     timings["flash_decode"] = phase1_decode(gen, dev)
     timings["scatter_pages_overlay"] = phase1_overlay(gen, dev)
     from repro_torch.configs import get_config
@@ -1459,6 +1531,8 @@ def phase1(dev):
         timings[name]["encdec"] = t
     for name, t in load.items():
         timings[name]["load"] = t
+    for name, rows in demo.items():
+        timings[name].update(rows)
     return timings
 
 
@@ -2229,6 +2303,182 @@ def phase1_load(gen, dev):
     return out
 
 
+def phase1_demo(gen, dev):
+    """The float32 kernels at the shapes phase 17's examples give them.
+    The serving example (demo-100m: 10 query heads on 5 KV heads of 64,
+    float32; its 8 requests of 16-63 prompt tokens and 8 new tokens, from
+    its own draws): flash at every (q_offset, rows, capacity) of P's
+    16-token chunks, q, k and v sequence-major as the model passes them,
+    the deepest full chunk timed; paged in D's block-8 nbhd pools over
+    its 8-slot, 32-page table at each of its 7 decode steps, the last
+    timed; the D-side re-page of every chunk from P's TP 5 (decode, TP 5
+    -> 1 realignment of the uneven shards and the overlay into D's
+    512-block pools of 16 layers: ``disagg._repage_kv_entry``) on the
+    card against the same on the CPU, bit for bit, and the overlay of a
+    realigned 16-row chunk against its plain version and
+    ``index_copy_``, timed. The quickstart (4 query heads on 2 KV heads
+    of 16): flash over its 8-token prompt and paged in D's block-4 nbhd
+    pool over its 16-page table at each of its 7 decode steps, both
+    timed. flash and paged within 2e-5 of their plain versions
+    (``ATOL``). Returns each kernel's demo row (``"demo"``) and
+    quickstart row (``"quickstart"``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.compat.precision import WireFormat
+    from repro_torch.core.disagg import _repage_kv_entry
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving.paged_cache import KVPageSpec
+    ex = example_module("torch_serve_disagg")
+    cfg, vp, vd = ex.CFG, ex.VENDOR_P, ex.VENDOR_D
+    h, kv, d, layers = (cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+                        cfg.num_layers)
+    reqs = ex.build_requests(PHASE17_REQUESTS, PHASE17_MAX_NEW)
+    seqs = [r.prompt_len for r in reqs]
+    chunk = ex.parse_args([]).prefill_chunk
+    f32 = torch.float32
+    out = {"flash_attention": {}, "paged_attention": {},
+           "scatter_pages_overlay": {}}
+
+    def sdpa_lib(q, k, v, mask):
+        rep = q.shape[1] // k.shape[1]
+        return F.scaled_dot_product_attention(
+            q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1),
+            attn_mask=mask)
+
+    def flash_row(what, q, k, v, c0, cap, err, heads, kvh, hd):
+        sq = q.shape[2]
+        pairs = sq * c0 + sq * (sq + 1) // 2
+        b_ms, b_by = bound(4.0 * hd * heads * pairs,
+                           4.0 * (2 * sq * heads * hd + 2 * (c0 + sq) * kvh
+                                  * hd), "float32")
+        mask = flash_mask(sq, cap, c0, 0, dev)
+        args = dict(q_offset=c0, kv_len=cap)
+        row = dict(shape=f"q(1,{heads},{sq},{hd}) kv(1,{kvh},{cap},{hd}) "
+                         f"q_offset={c0} f32, sequence-major",
+                   max_abs_err=err,
+                   **time_all(lambda: ops.flash_attention(q, k, v, **args),
+                              plain=lambda: ref.flash_attention_ref(
+                                  q, k, v, **args),
+                              library=lambda: sdpa_lib(q, k, v, mask)),
+                   library="scaled_dot_product_attention, k/v repeated, "
+                           "boolean mask",
+                   bound_ms=b_ms, bound_by=b_by)
+        emit({"phase": 1, "extra": f"flash_attention, {what}", **row})
+        return row
+
+    # flash: P's chunks of the serving example
+    chunks = sorted({(c0, min(chunk, n - c0), -(-n // chunk) * chunk)
+                     for n in seqs for c0 in range(0, n, chunk)
+                     if min(chunk, n - c0) > 1})    # one row: flash_decode
+    deepest = max(c for c in chunks if c[1] == chunk)
+    for c0, sq, cap in chunks:
+        err, (q, k, v), _ = _flash_case(gen, dev, "float32", 1, h, kv, sq,
+                                        cap, d, 0, c0, kv_len=cap,
+                                        seq_major=True)
+        if (c0, sq, cap) == deepest:
+            out["flash_attention"]["demo"] = flash_row(
+                "demo-100m chunk", q, k, v, c0, cap, err, h, kv, d)
+    # paged: D's decode batch at every step (the example's engines hold
+    # 256 positions a slot)
+    bs, width = vd.block_size, -(-256 // vd.block_size)
+    for step in range(1, PHASE17_MAX_NEW):          # the decode steps
+        lens = [n + step for n in seqs]
+        err, a = _paged_case(gen, dev, "float32", vd.layout, len(lens), h,
+                             kv, d, bs, lens, 0, width=width)
+    tokens = sum(lens)
+    p_ms, p_by = bound(4.0 * d * h * tokens, 4.0 * 2 * tokens * kv * d
+                       + 4.0 * 2 * len(lens) * h * d, "float32")
+    out["paged_attention"]["demo"] = row = dict(
+        shape=f"q({len(lens)},{h},{d}) pools {vd.layout} bs{bs} f32, {kv} "
+              f"KV heads, table {width} pages, seq_lens {lens}",
+        max_abs_err=err,
+        **time_all(lambda: ops.paged_attention(*a, layout=vd.layout),
+                   plain=lambda: ref.paged_attention_ref(*a,
+                                                         layout=vd.layout)),
+        bound_ms=p_ms, bound_by=p_by)
+    emit({"phase": 1, "extra": "paged_attention, demo-100m decode", **row})
+    del a
+    # the re-page from P's TP 5: card against CPU, every chunk
+    spec = KVPageSpec(bs, vd.layout, vd.kv_dtype, kv, d)
+    n_blocks = 512
+    pools = [_rand(gen, (layers,) + spec.pool_shape(n_blocks), f32, dev)
+             for _ in range(2)]
+    pools_cpu = [p.cpu() for p in pools]
+    kvs = kv // vp.tp
+    cases = sorted({(c0, min(chunk, n - c0)) for n in seqs
+                    for c0 in range(0, n, chunk)})
+    for c0, rows in cases:
+        ids = (torch.randperm(n_blocks - 1, generator=gen, device=dev)
+               [:-(-(c0 + rows) // bs)] + 1).to(torch.int32)
+        pay = _rand(gen, (2 * vp.tp, layers, rows, kvs, d), f32, dev)
+        args = dict(wire=WireFormat("raw", "float32"), tp_p=vp.tp,
+                    tp_d=vd.tp, count=layers, front=c0 % bs, rmw=True)
+        _repage_kv_entry(spec, *pools, ids, pay, None, c0 // bs, **args)
+        _repage_kv_entry(spec, *pools_cpu, ids.cpu(), pay.cpu(), None,
+                         c0 // bs, **args)
+        if not all(torch.equal(p.cpu(), c) for p, c in zip(pools,
+                                                           pools_cpu)):
+            raise AssertionError(f"re-page of rows {rows} at {c0} from TP "
+                                 f"{vp.tp}: card and CPU pools differ")
+    del pools_cpu
+    # the overlay of a realigned full chunk, timed
+    canon = _rand(gen, (layers, chunk, kv, d), f32, dev)
+    pids = (torch.randperm(n_blocks - 1, generator=gen, device=dev)
+            [:chunk // bs] + 1).to(torch.int32)
+    pool = pools[0]
+    want = ref.scatter_pages_overlay_ref(spec, pool.clone(), pids, canon,
+                                         front=0, seq_len=chunk)
+    got = ops.scatter_pages_overlay(spec, pool, pids, canon, front=0,
+                                    seq_len=chunk)
+    if not torch.equal(got, want):
+        raise AssertionError("overlay f32 demo chunk: differs from its "
+                             "plain version")
+    flat, rws, src = overlay_vs_index_copy(gen, spec, pool, pids, canon, 0,
+                                           chunk)
+    b_ms, b_by = bound(0.0, 4.0 * 2 * layers * chunk * kv * d, "float32")
+    out["scatter_pages_overlay"]["demo"] = row = dict(
+        shape=f"rows ({layers},{chunk},{kv},{d}) into pool ({layers},"
+              f"{n_blocks},{bs},{kv},{d}) {vd.layout} f32, front 0, "
+              f"realigned from TP {vp.tp}",
+        max_abs_err=0.0, library_bit_identical=True,
+        **time_all(lambda: ops.scatter_pages_overlay(
+                       spec, pool, pids, canon, front=0, seq_len=chunk),
+                   plain=lambda: ref.scatter_pages_overlay_ref(
+                       spec, pool, pids, canon, front=0, seq_len=chunk),
+                   library=lambda: flat.index_copy_(1, rws, src)),
+        bound_ms=b_ms, bound_by=b_by)
+    emit({"phase": 1, "extra": "scatter_pages_overlay, demo-100m chunk",
+          **row})
+    del pools, pool, flat, src, canon
+    # the quickstart: its monolithic prefill and its decode steps
+    qs = example_module("torch_quickstart").CFG
+    qh, qkv, qd, plen, qnew = qs.num_heads, qs.num_kv_heads, qs.hd, 8, 8
+    err, (q, k, v), _ = _flash_case(gen, dev, "float32", 1, qh, qkv, plen,
+                                    plen, qd, 0, 0, seq_major=True)
+    out["flash_attention"]["quickstart"] = flash_row(
+        "quickstart prefill", q, k, v, 0, plen, err, qh, qkv, qd)
+    qbs, qwidth = 4, 64 // 4          # its D: block 4, 64 positions a slot
+    for step in range(1, qnew):
+        err, a = _paged_case(gen, dev, "float32", "nbhd", 1, qh, qkv, qd,
+                             qbs, [plen + step], 0, width=qwidth)
+    tok = plen + qnew - 1
+    p_ms, p_by = bound(4.0 * qd * qh * tok, 4.0 * 2 * tok * qkv * qd
+                       + 4.0 * 2 * qh * qd, "float32")
+    out["paged_attention"]["quickstart"] = row = dict(
+        shape=f"q(1,{qh},{qd}) pools nbhd bs{qbs} f32, {qkv} KV heads, "
+              f"table {qwidth} pages, seq_lens [{tok}]",
+        max_abs_err=err,
+        **time_all(lambda: ops.paged_attention(*a, layout="nbhd"),
+                   plain=lambda: ref.paged_attention_ref(*a, layout="nbhd")),
+        bound_ms=p_ms, bound_by=p_by)
+    emit({"phase": 1, "extra": "paged_attention, quickstart decode", **row})
+    emit({"phase": 1, "demo_checks": {
+        "flash_chunks": chunks, "paged_steps": PHASE17_MAX_NEW - 1,
+        "repage_cases": cases, "repage_tp": [vp.tp, vd.tp],
+        "quickstart_paged_steps": qnew - 1}})
+    return out
+
+
 def phase1_windowed(gen, dev):
     """The window paths at phase 6's shapes (Mixtral: 32 query heads over
     8 KV heads, head dim 128, window 4096), in bf16. Bounds count only the
@@ -2682,12 +2932,13 @@ def last_token_gap(cfg, params, dev, reqs) -> float:
     return worst
 
 
-def first_token_yardstick(cfg, params, dev, prompts, reqs):
+def first_token_yardstick(cfg, params, dev, prompts, reqs,
+                          gate: bool = True):
     """Each request's served first token against a float32 prefill of its
     patches (if any) and prompt (beside its frames, if any; params upcast
     with ``.float()``, which takes the float32 flash kernel): its float32
     logit must be within LOGIT_SLACK of the float32 maximum, whatever
-    order bf16 summed in.
+    order bf16 summed in (``gate=False``: the gaps only measured).
     Returns the worst gap and the largest |bf16 - f32| of the
     last-position logits of ``M.prefill`` in bf16. The float32 copy of
     the weights (27 GB at llama2-7b) is freed before the return."""
@@ -2705,7 +2956,7 @@ def first_token_yardstick(cfg, params, dev, prompts, reqs):
         gap = float(l32.max() - l32[r.output_tokens[0]])
         gap_max = max(gap_max, gap)
         err_max = max(err_max, float((l16 - l32).abs().max()))
-        if gap > LOGIT_SLACK:
+        if gate and gap > LOGIT_SLACK:
             raise AssertionError(f"{r.req_id}: first token {r.output_tokens[0]}"
                                  f" is {gap} below the float32 prefill's "
                                  "best logit")
@@ -2714,7 +2965,8 @@ def first_token_yardstick(cfg, params, dev, prompts, reqs):
     return gap_max, err_max
 
 
-def moe_first_token_yardstick(cfg, params, dev, prompts, reqs):
+def moe_first_token_yardstick(cfg, params, dev, prompts, reqs,
+                              gate: bool = True):
     """The first-token yardstick of an MoE model. Top-k routing is
     discrete: where a token's k-th and (k+1)-th router logits lie closer
     than bf16's rounding moves them, bf16 and float32 pick different
@@ -2783,6 +3035,7 @@ def moe_first_token_yardstick(cfg, params, dev, prompts, reqs):
         tok = r.output_tokens[0]
         rows.append({"req": r.req_id, "gap": float(l32.max() - l32[tok]),
                      "gap_own_routing": float(own.max() - own[tok]),
+                     "gap_bf16": float(l16.max() - l16[tok]),
                      "served_is_bf16_argmax": int(l16.argmax()) == tok,
                      "bf16_vs_f32_max_abs": float((l16 - l32).abs().max()),
                      "last_token_choice_differs_at_layers": last_flips,
@@ -2790,7 +3043,7 @@ def moe_first_token_yardstick(cfg, params, dev, prompts, reqs):
                      "widest_f32_margin_of_a_difference": margin})
         del xs, hs
     worst = max(rows, key=lambda row: row["gap"])
-    if worst["gap"] > LOGIT_SLACK:
+    if gate and worst["gap"] > LOGIT_SLACK:
         raise AssertionError(f"{worst['req']}: first token is {worst['gap']} "
                              "below the best logit of the float32 prefill on "
                              "the bf16 routing")
@@ -3307,6 +3560,13 @@ def serving_report(run) -> dict:
             "tokens_sha256": tokens_digest(run.reqs)}
 
 
+def in_process_record(run) -> dict:
+    """What phase 16 holds its cross-process run to (not printed): the
+    bytes staged under each wire key and each request's tokens."""
+    return {"staged": dict(run.staged),
+            "tokens": {r.req_id: list(r.output_tokens) for r in run.reqs}}
+
+
 def check_window_wire(phase, run, win):
     """Each request shipped min(len, window) positions, and P's chunks
     wholly below the floor were progress markers, as ``wire_plan``
@@ -3473,7 +3733,7 @@ def phase7(dev, around_serve=contextlib.nullcontext):
                max(y["bf16_vs_f32_max_abs"] for y in yard),
            "first_token_yardstick": yard}
     emit(out)
-    return out
+    return {**out, **in_process_record(run)}
 
 
 # --------------------------------------------------------------------------- #
@@ -3540,7 +3800,229 @@ def phase8(dev, around_serve=contextlib.nullcontext):
            "last_logits_bf16_vs_f32_max_abs": err32,
            "phase_s": time.perf_counter() - t_phase}
     emit(out)
-    return out
+    return {**out, **in_process_record(run)}
+
+
+# --------------------------------------------------------------------------- #
+# phase 16: phases 7 and 8's traffic across worker processes
+# --------------------------------------------------------------------------- #
+def divergence_yardstick(cfg, params, dev, prompts, got, want, moe: bool):
+    """Where two runs' tokens of a request differ: both tokens at the first
+    difference measured by the first-token yardstick of the request's
+    phase (``first_token_yardstick``; for an MoE model
+    ``moe_first_token_yardstick``, float32 on the bf16 prefill's expert
+    choices) on the prompt and the tokens before the difference. ``want``
+    is the record: its token there can itself sit more than LOGIT_SLACK
+    below the prefill's best, since a token decoded past the prompt took
+    its decode step's path (and, in an MoE model, routing), not the
+    prefill's, and a first difference falls where the two runs'
+    computations part. So ``got``'s token must be within LOGIT_SLACK of
+    the best, or no further from it than ``want``'s. ``got`` and ``want``:
+    tokens by request id, ``got`` in the order of ``prompts``. Returns,
+    for each request that differs, where, the tokens and their gaps."""
+    import types
+    import numpy as np
+    rows = []
+    for (rid, g), prompt in zip(got.items(), prompts):
+        w = want[rid]
+        i = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if i is None:
+            continue
+        seq = np.concatenate([prompt, np.asarray(g[:i], np.int32)])
+        reqs = [types.SimpleNamespace(req_id=f"{rid}@{i}", patches=None,
+                                      frames=None, output_tokens=[tok])
+                for tok in (g[i], w[i])]
+        row = {"req": rid, "at": i, "tokens": [g[i], w[i]]}
+        if moe:
+            yard = moe_first_token_yardstick(cfg, params, dev, [seq, seq],
+                                             reqs, gate=False)
+            row.update({k: [y[k] for y in yard] for k in (
+                "gap", "gap_own_routing", "gap_bf16",
+                "last_token_choice_differs_at_layers")})
+        else:
+            row["gap"] = [first_token_yardstick(cfg, params, dev, [seq], [r],
+                                                gate=False)[0] for r in reqs]
+        if row["gap"][0] > max(LOGIT_SLACK, row["gap"][1]):
+            raise AssertionError(f"{rid}: its token at the first difference "
+                                 f"is more than {LOGIT_SLACK} below the "
+                                 "float32 best and further than the record's"
+                                 f" token: {row}")
+        rows.append(row)
+    return rows
+
+
+def phase16_part(dev, part: str, rec: dict, model: str, p_vendor: dict):
+    """Phase 6's eight prompts served to ``model`` by ``TwoProcessRuntime``
+    as its in-process phase served them (``rec``: that phase's record):
+    P (``p_vendor``) and phase 3's D in two spawned worker processes, each
+    building the weights on the card from SEED, the wire over shm
+    segments, 500-token chunks. Held to the record: the bytes under every
+    wire key (a chunk's segment; a tail's arrays, whose pickled segment
+    adds its framing), the prefill tokens computed, each kernel's
+    launches summed over the workers (a chunk's kernels equal, a decode
+    step's equal per D step: D runs as many steps as its batches need
+    while P's chunks land, not the single-process scheduler's count), and
+    the tokens (identical, or the first difference within the phase's
+    own first-token yardstick); and every request finished, no fault, no
+    segment left after shutdown."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.compat.precision import WireFormat
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import VendorProfile
+    from repro_torch.serving.multiproc import EngineSpec, TwoProcessRuntime
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.server import ServeResult
+
+    t_part = time.perf_counter()
+    cfg = get_config(model)
+    d_vendor = VendorProfile(**D_VENDOR)
+    rng = np.random.default_rng(SEED)                 # phase 6's draws
+    reqs = [Request(f"req{i}", rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), MAX_NEW)
+            for i, n in enumerate(PHASE6_PROMPTS)]
+    prompts = [r.prompt.copy() for r in reqs]
+    bs = d_vendor.block_size
+    d_blocks = sum(-(-(n + MAX_NEW) // bs) for n in PHASE6_PROMPTS) + 1
+    common = dict(cfg=cfg, params_seed=SEED, device=None
+                  if dev.type == "cuda" else "cpu",
+                  max_seq_len=max(PHASE6_PROMPTS) + MAX_NEW)
+    p_spec = EngineSpec("P0", vendor=VendorProfile(**p_vendor),
+                        num_blocks=2, max_batch=1, role="prefill", **common)
+    d_spec = EngineSpec("D0", vendor=d_vendor, num_blocks=d_blocks,
+                        max_batch=len(reqs), role="decode", **common)
+    free_before = torch.cuda.mem_get_info() if dev.type == "cuda" else None
+    rt = TwoProcessRuntime(p_spec, d_spec, wire=WireFormat("raw", "bfloat16"),
+                           prefill_chunk=PREFILL_CHUNK)
+    try:
+        t0 = time.perf_counter()
+        rt.start(spawn_timeout_s=300.0)
+        spawn_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rt.serve(reqs, max_wall_s=600.0)
+        wall = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+    left = segments_left(rt.segments_seen)
+    launches = collections.Counter()
+    for counts in rt.worker_launches.values():
+        launches.update(counts)
+    launches = {k: launches.get(k, 0) for k in rec["launches"]}
+    check_outputs(cfg, reqs)
+
+    problems = []
+    if (rt.stream_failures or sum(rt.crashes.values())
+            or rt.stats.requeues or rt.stats.failed):
+        problems.append(f"stream failures {rt.stream_failures}, crashes "
+                        f"{rt.crashes}, requeues {rt.stats.requeues}, "
+                        f"failed {rt.stats.failed}")
+    if not rt.segments_seen or left:
+        problems.append(f"{len(rt.segments_seen)} segments seen, {left} "
+                        "left after shutdown")
+    # the bytes under every key: a chunk's segment, a tail's arrays
+    staged = {k: rt.tail_payload_bytes.get(k, n)
+              for k, n in rt.staged_bytes.items()}
+    differ = sorted(k for k in set(staged) | set(rec["staged"])
+                    if staged.get(k) != rec["staged"].get(k))
+    if differ:
+        problems.append(f"wire bytes differ from phase {rec['phase']}'s "
+                        f"under {len(differ)} keys: " + ", ".join(
+                            f"{k} {staged.get(k)} vs {rec['staged'].get(k)}"
+                            for k in differ[:4]))
+    prefill_tokens = rt.worker_stats["P0"]["prefill_tokens"]
+    if prefill_tokens != rec["prefill_tokens"]:
+        problems.append(f"{prefill_tokens} prefill tokens computed, phase "
+                        f"{rec['phase']} computed {rec['prefill_tokens']}")
+    # a chunk's kernels launch once a chunk; a decode step's once a step,
+    # and D's steps follow the arrivals (its decode batches fill as P's
+    # chunks land), so those are held per step
+    steps = rt.worker_stats["D0"]["decode_steps"]
+    want = {k: (n * steps // rec["decode_steps"] if k in STEP_KERNELS
+                else n) for k, n in rec["launches"].items()}
+    if launches != want or any(rec["launches"][k] % rec["decode_steps"]
+                               for k in STEP_KERNELS):
+        problems.append(f"launches {launches} in {steps} decode steps, "
+                        f"phase {rec['phase']}'s {rec['launches']} in "
+                        f"{rec['decode_steps']}")
+    tokens = {r.req_id: list(r.output_tokens) for r in reqs}
+    tails = sorted(rt.tail_payload_bytes)
+    tr = rt.transfer_stats
+    result = ServeResult(reqs, wall)
+    ttft, tpot = result.ttft(), result.tpot()
+    out = {"phase": 16, "part": part, "of_phase": rec["phase"],
+           "model": cfg.name, "layers": cfg.num_layers,
+           "dtype": cfg.compute_dtype, "runtime": "TwoProcessRuntime",
+           "connector": "shm", "requests": len(reqs),
+           "prompt_lens": list(PHASE6_PROMPTS), "max_new_tokens": MAX_NEW,
+           "prefill_chunk": PREFILL_CHUNK,
+           "p_vendor": dataclasses.asdict(p_spec.vendor),
+           "d_vendor": dataclasses.asdict(d_vendor),
+           "ttft_p50_s": float(np.percentile(ttft, 50)),
+           "ttft_max_s": float(ttft.max()),
+           "tpot_p50_s": float(np.percentile(tpot, 50)),
+           "output_tok_s": result.throughput_tok_s(),
+           "in_process_tok_s": rec["output_tok_s"],
+           "wall_s": wall, "spawn_to_hello_s": spawn_s,
+           "worker_pids": rt.worker_pids, "parent_pid": os.getpid(),
+           "launches": launches, "worker_launches": rt.worker_launches,
+           "in_process_launches": rec["launches"], "decode_steps": steps,
+           "in_process_decode_steps": rec["decode_steps"],
+           "keys_compared": len(staged), "keys_differing": len(differ),
+           "tail_keys": len(tails),
+           "tail_payload_bytes": sum(rt.tail_payload_bytes.values()),
+           "tail_segment_bytes": sum(rt.staged_bytes[k] for k in tails),
+           "wire_bytes": tr.bytes_moved,
+           "in_process_wire_bytes": rec["wire_bytes"],
+           "prefill_tokens": prefill_tokens,
+           "wall_handoff_s": tr.wall_handoff_seconds,
+           "wall_overlap_s": tr.wall_overlap_seconds,
+           "segments_seen": len(rt.segments_seen), "segments_left": len(left),
+           "worker_peak_mem_gib": {k: v / 2 ** 30 for k, v in
+                                   rt.worker_peak_mem_bytes.items()},
+           "free_gib_before": None if free_before is None
+               else free_before[0] / 2 ** 30,
+           "tokens_sha256": tokens_digest(reqs),
+           "in_process_tokens_sha256": rec["tokens_sha256"],
+           "problems": problems}
+    if problems:
+        emit(out)
+        raise AssertionError(f"phase 16 ({part}, {cfg.name}): {problems}")
+    # the tokens: identical, or the first difference within the yardstick
+    # (the weights are built here only now, with no worker alive)
+    out["tokens"] = "identical"
+    if tokens != rec["tokens"]:
+        params = M.init_params(cfg, seed=SEED, device=dev)
+        out["divergences"] = divergence_yardstick(
+            cfg, params, dev, prompts, tokens, rec["tokens"], cfg.is_moe)
+        out["tokens"] = ("differ, each first difference within the "
+                         "yardstick or no further than the record's token")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["part_s"] = time.perf_counter() - t_part
+    emit(out)
+    return {"launches": launches}
+
+
+def phase16(dev, paths):
+    """Phases 7 and 8's serving again, across worker processes: 16a
+    DeepSeek-V2-Lite (MLA's latent wire, gather in D's decode), 16b
+    RecurrentGemma-9B (window-floored KV and the RG-LRU states' tail from
+    device memory into a shm segment), each held to its in-process
+    phase's record (``paths[7]``, ``paths[8]``)."""
+    import torch
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    for part, (phase, model, vendor) in PHASE16_PARTS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = dict(paths[phase], phase=phase)
+        launches.update(phase16_part(dev, part, rec, model,
+                                     vendor)["launches"])
+    emit({"phase": 16, "phase_s": time.perf_counter() - t0,
+          "launches": dict(launches)})
+    return {"launches": dict(launches)}
 
 
 # --------------------------------------------------------------------------- #
@@ -5603,6 +6085,250 @@ def phase15(dev):
     return {"launches": dict(launches)}
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: the examples and the launcher's --demo on the card
+# --------------------------------------------------------------------------- #
+def example_module(name: str):
+    """``examples/<name>.py`` imported as a module (examples/ is not a
+    package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def start_example(name: str, args, dev, env=None) -> dict:
+    """Start ``python <args>`` from the repository's root in a session of
+    its own, on the card (``--device cpu`` added off it). Returns the
+    run's handle for ``finish_example``."""
+    cmd = [sys.executable, *args] + (["--device", "cpu"]
+                                     if dev.type != "cuda" else [])
+    env = dict(os.environ, **(env or {}))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    return {"name": name, "args": args, "proc": proc,
+            "t0": time.perf_counter()}
+
+
+def kill_session(run) -> None:
+    """Kill every process of a run's session: the spawned workers too."""
+    import signal
+    try:
+        os.killpg(run["proc"].pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+
+
+def finish_example(run) -> str:
+    """Wait for a run until PHASE17_RUN_TIMEOUT_S after its start, then
+    kill its session. Prints its exit code, seconds and last lines; a
+    non-zero exit raises. Returns its standard output."""
+    proc, args = run["proc"], run["args"]
+    left = PHASE17_RUN_TIMEOUT_S - (time.perf_counter() - run["t0"])
+    try:
+        out, err = proc.communicate(timeout=max(left, 1.0))
+        rc = proc.returncode
+    except subprocess.TimeoutExpired:
+        kill_session(run)
+        out, err = proc.communicate()
+        rc = "timeout"
+    finally:
+        kill_session(run)
+    line = {"phase": 17, "run": run["name"],
+            "args": args[1:] if args[0] == "-m" else args, "rc": rc,
+            "seconds": time.perf_counter() - run["t0"],
+            "tail": out.splitlines()[-14:]}
+    if rc != 0:
+        line["stderr_tail"] = err.splitlines()[-30:]
+    emit(line)
+    if rc != 0:
+        raise AssertionError(f"phase 17: {run['name']} exited with {rc}")
+    return out
+
+
+def printed(out: str, prefix: str) -> str:
+    """The rest of the last printed line that starts with ``prefix``."""
+    lines = [ln for ln in out.splitlines() if ln.startswith(prefix)]
+    if not lines:
+        raise AssertionError(f"phase 17: no line starts with {prefix!r}")
+    return lines[-1][len(prefix):].strip()
+
+
+def phase17_demo_reports(out: str) -> dict:
+    """The single-process demo's requeues and D dispatches, as printed."""
+    import ast
+    return {"requeues": int(printed(out, "requeues after failure:")),
+            "d_dispatches": ast.literal_eval(printed(out, "D dispatches:"))}
+
+
+def phase17c(dev):
+    """``run_single(faults=True)`` of the serving example in this process
+    at llama2-7b's full width and depth in bf16 (the example's ``CFG``,
+    ``VENDOR_P`` and ``VENDOR_D`` set to llama2-7b and phase 3's vendors,
+    phase 3's weights from SEED), then the same requests fault-free. D0
+    fails at tick 6 and D2 joins at tick 14: at least one requeue, every
+    request finished, D2 serving after its join, each requeued request's
+    tokens equal to the fault-free run's or, at the first difference,
+    within phase 3's first-token yardstick or no further from it than the
+    fault-free run's token (``divergence_yardstick``); the main path's
+    kernels launched in the faulted run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import VendorProfile
+
+    ex = example_module("torch_serve_disagg")
+    cfg = get_config(MODEL)
+    ex.CFG = cfg
+    ex.VENDOR_P, ex.VENDOR_D = (VendorProfile(**P_VENDOR),
+                                VendorProfile(**D_VENDOR))
+    params = M.init_params(cfg, seed=SEED, device=dev)   # phase 3's weights
+    args = ex.parse_args(["--requests", str(PHASE17_REQUESTS),
+                          "--max-new", str(PHASE17_MAX_NEW)]
+                         + ([] if dev.type == "cuda" else ["--device", "cpu"]))
+    ops.reset_launch_counts()
+    faulted = ex.run_single(args, faults=True, params=params)
+    launches = ops.launch_counts()
+    gc.collect()                               # the faulted run's pools
+    torch.cuda.empty_cache()
+    clean = ex.run_single(args, faults=False, params=params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = {r.req_id: r.prompt for r in ex.build_requests(
+        args.requests, args.max_new)}
+    requeued = [r.req_id for r in faulted.requests if r.retries > 0]
+    problems = []
+    if faulted.stats.requeues < 1 or not requeued:
+        problems.append(f"requeues {faulted.stats.requeues}, requeued "
+                        f"{requeued}")
+    if not all(r.done for r in faulted.requests + clean.requests):
+        problems.append("a request did not finish")
+    d2 = faulted.stats.d_dispatches.get("D2", 0)
+    if d2 < 1:
+        problems.append(f"D2 served {d2} requests after its join")
+    launched = {k for k, n in launches.items() if n}
+    one_row = one_row_chunks([len(p) for p in prompts.values()],
+                             args.prefill_chunk)
+    if dev.type == "cuda" and not (
+            PHASE3_KERNELS <= launched <= PHASE3_KERNELS | {"flash_decode"}
+            and (not one_row or "flash_decode" in launched)):
+        problems.append(f"kernels launched {launched}")
+    ev = faulted.events
+    out = {"phase": 17, "part": "17c", "model": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.compute_dtype,
+           "requests": args.requests, "max_new_tokens": args.max_new,
+           "prefill_chunk": args.prefill_chunk,
+           "p_vendor": dataclasses.asdict(ex.VENDOR_P),
+           "d_vendor": dataclasses.asdict(ex.VENDOR_D),
+           "requeues": faulted.stats.requeues, "requeued": requeued,
+           "p_dispatches": dict(faulted.stats.p_dispatches),
+           "d_dispatches": dict(faulted.stats.d_dispatches),
+           "d2_decode_steps": faulted.engines["D2"]["decode_steps"],
+           "fail_at_s": ev["fail"] - ev["start"],
+           "join_at_s": ev["join"] - ev["start"],
+           "requeued_ttft_s": [faulted.requests[i].ttft()
+                               for i, r in enumerate(faulted.requests)
+                               if r.req_id in requeued],
+           "requeued_done_after_fail_s": max(
+               (r.finish_time - ev["fail"] for r in faulted.requests
+                if r.req_id in requeued), default=None),
+           "last_done_s": max(r.finish_time for r in faulted.requests)
+               - ev["start"],
+           "launches": launches, "one_row_chunks": one_row,
+           "tokens_equal_fault_free": sum(faulted[k] == clean[k]
+                                          for k in faulted),
+           "problems": problems}
+    if problems:
+        emit(out)
+        raise AssertionError(f"phase 17c: {problems}")
+    out["divergences"] = divergence_yardstick(
+        cfg, params, dev, [prompts[k] for k in requeued],
+        {k: faulted[k] for k in requeued}, clean, False)
+    out["requeued_tokens"] = ("identical" if not out["divergences"] else
+                              "differ, each first difference within the "
+                              "yardstick or no further than the fault-free "
+                              "run's token")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return launches
+
+
+def phase17(dev):
+    """The port's examples and its launcher's ``--demo``, on the card, the
+    subprocesses all started at once (their start-up, about 10 s a
+    process, overlaps) while 17c runs in this process: 17a ``python -m
+    repro_torch.launch.serve --demo``, single-process (the D failure and
+    the join: at least one requeue) and 2P2D over shm; 17b the serving
+    example with the modeled-RDMA connector, with ``--parity`` at 2P2D
+    over shm (token-exact) and sized by the planner with the prefix
+    cache; 17c its ``run_single`` with faults at llama2-7b's full width;
+    17d the quickstart, the planner walkthrough and ``train_tiny`` (its
+    loss must fall by more than 0.5 and the restored step's loss be
+    finite). Every subprocess must exit 0."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    serve = ["-m", "repro_torch.launch.serve", "--demo"]
+    example = ["examples/torch_serve_disagg.py", "--requests",
+               str(PHASE17_REQUESTS), "--max-new", str(PHASE17_MAX_NEW)]
+    tmp = tempfile.TemporaryDirectory()              # train_tiny's checkpoints
+    runs = (
+        ("17a demo", serve, None),
+        ("17a demo 2P2D shm", serve + ["--num-p", "2", "--num-d", "2",
+                                       "--connector", "shm"], None),
+        ("17b rdma", example + ["--connector", "rdma"], None),
+        ("17b parity 2P2D shm", example + ["--parity", "--num-p", "2",
+                                           "--num-d", "2", "--connector",
+                                           "shm"], None),
+        ("17b plan shm prefix cache", example + [
+            "--plan", "--connector", "shm", "--prefix-cache"], None),
+        ("17d quickstart", ["examples/torch_quickstart.py"], None),
+        ("17d plan_deployment", ["examples/torch_plan_deployment.py"], None),
+        ("17d train_tiny", ["examples/torch_train_tiny.py", "--steps",
+                            str(PHASE17_TRAIN_STEPS)], {"TMPDIR": tmp.name}))
+    started = []
+    try:
+        for name, args, env in runs:
+            started.append(start_example(name, args, dev, env))
+        t_c = time.perf_counter()
+        launches = phase17c(dev)
+        t_c = time.perf_counter() - t_c
+        gc.collect()
+        torch.cuda.empty_cache()
+        outs = {run["name"]: finish_example(run) for run in started}
+    finally:
+        for run in started:
+            kill_session(run)
+        tmp.cleanup()
+    demo = phase17_demo_reports(outs["17a demo"])
+    if demo["requeues"] < 1:
+        raise AssertionError(f"phase 17a: the demo printed {demo}")
+    if "PARITY OK" not in outs["17b parity 2P2D shm"]:
+        raise AssertionError("phase 17b: --parity printed no PARITY OK")
+    train = outs["17d train_tiny"]
+    loss = printed(train, "loss ")
+    if not loss.endswith("(OK)"):
+        raise AssertionError(f"phase 17d: train_tiny's loss {loss}")
+    restored = float(printed(train, "restored step_").split(
+        "next-step loss ")[1].split()[0])
+    if not math.isfinite(restored):
+        raise AssertionError(f"phase 17d: restored loss {restored}")
+    emit({"phase": 17, "phase_s": time.perf_counter() - t0, "17c_s": t_c,
+          "demo": demo, "train_tiny_steps": PHASE17_TRAIN_STEPS,
+          "train_tiny_loss": loss, "train_tiny_restored_loss": restored,
+          "launches": launches})
+    return {"launches": launches}
+
+
 # (name, source, TPU kernel, the phase whose launches the row reports);
 # every row also carries its launches on every serving phase
 KERNELS = [
@@ -5668,7 +6394,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths[8] = phase8(dev)
-    gc.collect()                         # RecurrentGemma's weights: Mamba's
+    gc.collect()                         # RecurrentGemma's weights: the
+    torch.cuda.empty_cache()             # workers' copies
+    paths[16] = phase16(dev, paths)
+    gc.collect()
     torch.cuda.empty_cache()
     paths[9] = phase9(dev)
     gc.collect()
@@ -5693,6 +6422,9 @@ def main() -> int:
     gc.collect()                         # phase 14's models: phase 15's
     torch.cuda.empty_cache()
     paths[15] = phase15(dev)
+    gc.collect()                         # phase 15's models: 17c's
+    torch.cuda.empty_cache()
+    paths[17] = phase17(dev)
 
     rows = []
     for name, source, replaces, phase in KERNELS:
@@ -5712,7 +6444,8 @@ def main() -> int:
         # at phase 15's (the Mixtral ring the row, RecurrentGemma's ring
         # "rg", Qwen1.5-32B's e4m3 cache "fp8") and 14a's ("dense")
         for key in ("mla", "rg", "vlm", "encdec", "load", "launch_p",
-                    "launch_d", "launch_k", "fp8", "dense"):
+                    "launch_d", "launch_k", "fp8", "dense", "demo",
+                    "quickstart"):
             if key in t:
                 row[key] = {k: t[key][k] for k in (
                     "shape", "max_abs_err", "ms", "device_ms", "plain_ms",

@@ -103,9 +103,12 @@ class SharedMemoryConnector(KVConnector):
     # -- cross-process descriptor plane ----------------------------------- #
     def export_descriptor(self, key: str) -> Dict[str, Any]:
         """Control-plane handle for a staged key: everything a connector in
-        another process needs to ``adopt_segment`` and read it."""
+        another process needs to ``adopt_segment`` and read it, and the
+        staged payload's array bytes (``payload_nbytes``: a pickled
+        tree's segment holds these plus the pickle's framing)."""
         return {"key": key, "segment": self._segments[key].name,
-                "nbytes": self._sizes[key]}
+                "nbytes": self._sizes[key],
+                "payload_nbytes": self._payload_sizes.get(key)}
 
     def adopt_segment(self, key: str, segment: str, nbytes: int) -> int:
         """Attach a segment staged by a connector in *another* process so

@@ -12,9 +12,18 @@ sliding-window arch (mixtral-8x7b, recurrentgemma-9b) are rings of the
 window and qwen1.5-32b's are float8 e4m3 (the handoff's cast), and both
 go through the flash_decode kernel; the rest through flash.
 ``--layers`` cuts the depth. One card only:
-``--multi-pod`` raises (ROADMAP queue 1 item 14). The reference's
-``--demo`` runs a JAX example script and is not ported (ROADMAP queue 1
-item 13).
+``--multi-pod`` raises (ROADMAP queue 1 item 14).
+
+``--demo`` runs ``examples/torch_serve_disagg.py --requests 8 --max-new
+8`` in a subprocess, as the reference's ``--demo`` runs its example:
+disaggregated serving of a ~100M-param model with a D failure and an
+elastic join, or, with ``--two-process`` / ``--num-p`` / ``--num-d`` /
+``--plan``, N x M worker processes over ``--connector shm``; on the card
+unless ``--device cpu``.
+
+  python -m repro_torch.launch.serve --demo [--connector rdma]
+  python -m repro_torch.launch.serve --demo --num-p 2 --num-d 2 \\
+      --connector shm
 """
 from __future__ import annotations
 
@@ -103,6 +112,35 @@ def run_programs(arch: str, shape: str = "decode_32k", batch: int = 2,
             "tokens": torch.cat(tokens, 1).tolist()}
 
 
+def demo(connector: str = "inproc", two_process: bool = False,
+         num_p: Optional[int] = None, num_d: Optional[int] = None,
+         plan: bool = False, prefix_cache: bool = False,
+         device: Optional[str] = None) -> None:
+    """Run the serving example on 8 requests of 8 new tokens in a
+    subprocess; a non-zero exit raises ``CalledProcessError``."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.join(os.path.dirname(__file__), "..", "..", "..")
+    cmd = [sys.executable,
+           os.path.join(root, "examples", "torch_serve_disagg.py"),
+           "--requests", "8", "--max-new", "8",
+           "--connector", connector]
+    if two_process:
+        cmd.append("--two-process")
+    if num_p is not None:
+        cmd += ["--num-p", str(num_p)]
+    if num_d is not None:
+        cmd += ["--num-d", str(num_d)]
+    if plan:
+        cmd.append("--plan")
+    if prefix_cache:
+        cmd.append("--prefix-cache")
+    if device is not None:
+        cmd += ["--device", device]
+    subprocess.run(cmd, check=True)
+
+
 def main(argv=None) -> None:
     from repro_torch.configs import ASSIGNED
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -119,7 +157,32 @@ def main(argv=None) -> None:
                     help="default: the card; 'cpu' runs the plain routes")
     ap.add_argument("--multi-pod", action="store_true",
                     help="not on one card: raises")
+    ap.add_argument("--demo", action="store_true",
+                    help="run examples/torch_serve_disagg.py on 8 requests")
+    ap.add_argument("--connector", default="inproc",
+                    choices=["inproc", "shm", "rdma"],
+                    help="KV-transport backend for the --demo serving loop")
+    ap.add_argument("--two-process", action="store_true",
+                    help="--demo only: run the P and D engines in separate "
+                         "OS processes (requires --connector shm)")
+    ap.add_argument("--num-p", type=int, default=None,
+                    help="--demo only: prefill worker processes "
+                         "(multi-process runtime; requires --connector shm)")
+    ap.add_argument("--num-d", type=int, default=None,
+                    help="--demo only: decode worker processes "
+                         "(multi-process runtime; requires --connector shm)")
+    ap.add_argument("--plan", action="store_true",
+                    help="--demo only: size the topology with the planner "
+                         "(plan_deployment → to_cluster_spec)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="--demo only: enable the shared-prefix KV cache "
+                         "(prefill-compute and wire-byte skipping plus "
+                         "cache-aware D routing)")
     args = ap.parse_args(argv)
+    if args.demo:
+        demo(args.connector, args.two_process, args.num_p, args.num_d,
+             args.plan, args.prefix_cache, args.device)
+        return
     if args.multi_pod:
         raise NotImplementedError(
             "--multi-pod needs a torch.distributed mesh — see ROADMAP "

@@ -51,7 +51,9 @@ spawns, and every worker loads it from there (``WorkerSpec.build_dir``).
 Each worker reports the hand kernels it launched at shutdown
 (``worker_launches``: since its start or the last ``reset_launch_counts``)
 and its peak device memory
-(``worker_peak_mem_bytes``).
+(``worker_peak_mem_bytes``). The parent keeps the bytes of every key a P
+worker staged (``staged_bytes``; a tail's arrays' bytes also in
+``tail_payload_bytes``), keyed as the single-process handoff keys them.
 """
 from __future__ import annotations
 
@@ -234,6 +236,11 @@ class ClusterRuntime:
         # every shared-memory segment a worker announced: what shutdown()
         # must leave unlinked
         self.segments_seen: set = set()
+        # the bytes of every key a P worker staged, as it reported them (a
+        # chunk's fixed-layout segment, a tail's pickled segment), and of
+        # each tail key its arrays' bytes (the segment less the framing)
+        self.staged_bytes: Dict[str, int] = {}
+        self.tail_payload_bytes: Dict[str, int] = {}
         self.worker_pids: Dict[str, int] = {}
         self.stream_failures: List[Tuple[str, str]] = []
         self.crashes: Dict[str, int] = {"P": 0, "D": 0}
@@ -622,6 +629,7 @@ class ClusterRuntime:
             self._prune_released(inst, msg.ack_seq)
         if isinstance(msg, ChunkStaged):
             self.segments_seen.add(msg.segment)
+            self.staged_bytes[msg.key] = msg.nbytes
             rec = self._rec_for(msg.req_id, msg.attempt)
             if rec is None:                       # stale attempt: free it
                 self._release_on(inst, msg.key, msg.segment)
@@ -640,6 +648,9 @@ class ClusterRuntime:
         if isinstance(msg, PrefillDone):
             if msg.tail is not None:
                 self.segments_seen.add(msg.tail["segment"])
+                self.staged_bytes[msg.tail["key"]] = msg.tail["nbytes"]
+                self.tail_payload_bytes[msg.tail["key"]] = \
+                    msg.tail["payload_nbytes"]
             rec = self._rec_for(msg.req_id, msg.attempt)
             if rec is None:
                 if msg.tail is not None:

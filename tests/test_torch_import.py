@@ -51,7 +51,9 @@ def test_import_leaves_jax_and_repro_out():
                                         list(PKG.rglob("*.py"))
                                         + [ROOT / "chip_smoke.py"]
                                         + list(ROOT.glob(
-                                            "benchmarks/torch_*.py"))))
+                                            "benchmarks/torch_*.py"))
+                                        + list(ROOT.glob(
+                                            "examples/torch_*.py"))))
 def test_no_jax_or_repro_import_in_source(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
