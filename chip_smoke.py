@@ -351,6 +351,33 @@ nvcc, then runs eighteen phases, each printing JSON lines:
      paged at head dim 64 in D's block-8 nbhd pools and at 16 in block 4,
      within 2e-5; the D-side re-page of every chunk from P's TP 5 card ==
      CPU and the overlay bit-identical, also to ``index_copy_``.
+ 18. a (data, model) = (1, 2) mesh of ranks: a world of two processes
+     on the one card (``launch.ranks``; gloo, as NCCL refuses two ranks
+     of one communicator on a device; its bfloat16 sum probed first),
+     each holding the shards the launch layer's specs give it: 18a
+     Qwen3-4B's 36 layers, prefill_32k at batch 2 → the handoff's
+     head_dim → capacity reshard (a block exchange) → 4 greedy steps
+     whose flash_decode calls stop at each rank's partials and are
+     combined over the ranks (``serve.programs_on_rank``, what ``launch.
+     serve --mesh 1x2`` runs); 18b DeepSeek-V2-Lite's 27 layers,
+     prefill_32k at batch 1 (MLA heads and the expert-TP MoE split, the
+     router replicated). Held to phase 14's runs in the same call: each
+     prefill's gathered logits within PHASE18_LOGIT_STEPS bf16 steps and
+     by the argmax rule, a control (the last layer's psums each missing
+     the other rank's term) failing that bound; 18a's tokens; the
+     attention and MLP / MoE sub-blocks of the first and last layers (and
+     18b's first MoE layer) on their own inputs against float32 witnesses,
+     within 3 x the one-card sub-block's error, each control failing it,
+     the MoE's routes and drops there equal to one card's; 18b's dropped
+     pairs equal on both ranks; D's shards of
+     layers 0 and 35 bit for bit the realignment of P's, gathered; every
+     rank's bytes of parameters and caches equal to ``per_chip_bytes`` at
+     {"data": 1, "model": 2}; per rank exactly 36 flash, 144
+     ``flash_decode_partial`` and 144 ``decode_combine`` (18a) and 27
+     flash (18b). Phase 1's row 1h holds the partial + combine over two
+     slot halves of row 1q's cache against the whole-cache call (one
+     bf16 step) and the SDPA yardstick, and times both entries
+     (``phase1_decode_halves``).
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
@@ -370,7 +397,11 @@ it; flash_decode's row is phase 15's Mixtral ring, with RecurrentGemma's
 ring as ``"rg"``, Qwen1.5-32B's e4m3 cache as ``"fp8"`` and Qwen3-4B's
 full-capacity bf16 cache (row 1q) as ``"dense"``; flash, paged and the
 overlay in float32 at the serving example's shapes as ``"demo"`` and
-flash and paged at the quickstart's as ``"quickstart"``.
+flash and paged at the quickstart's as ``"quickstart"``;
+``flash_decode_partial`` (one half of row 1q's cache) and
+``decode_combine`` (both halves' splits) are rows of their own, each
+with the two-halves composition as ``"halves"``, and their launches
+are phase 18's, summed over both ranks.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the script exits non-zero. Without a CUDA device, or without
@@ -613,6 +644,46 @@ STEP_KERNELS = ("paged_attention", "gather_pages")
 PHASE17_REQUESTS, PHASE17_MAX_NEW = 8, 8
 PHASE17_TRAIN_STEPS = 100
 PHASE17_RUN_TIMEOUT_S = 300
+# phase 18: the launch programs on a (data, model) = (1, 2) mesh of ranks
+PHASE18_MESH = (1, 2)
+PHASE18_CHECK_LAYERS = (0, 35)     # 18a's layers whose reshard is held
+PHASE18_TIMEOUT_S = 900            # the world's limit on one call
+# the layers whose attention and MLP / MoE sub-blocks are held on their
+# own inputs (``SubBlocks``): the first and last, and 18b's first MoE layer
+PHASE18_PROBE_LAYERS = {"18a": (0, 35), "18b": (1, 26)}
+# a mesh sub-block's max and mean error against its float32 witness, at
+# most this many times the one-card sub-block's on the same input; each
+# control (the other rank's psum term left out) must fail it
+PHASE18_WITNESS_FACTOR = 3.0
+# the gathered prefill logits against the one-card run's: at most this many
+# bf16 steps at the one-card logits' largest magnitude; the control (the
+# last layer's two psums each missing the other rank's term) must fail it
+PHASE18_LOGIT_STEPS = 16
+PHASE18_PREDICTED = {
+    "backend": "gloo (two ranks share the one card)",
+    "gloo_sums_bfloat16": True,
+    "18a": "prefill 15-60 s (several times 14a's 2.7 s: per layer two "
+           "psums of the float32 partials (2, 32768, 2560) = 671 MB and the "
+           "K/V head_dim gathers cross the host), handoff 1-5 s, decode "
+           "steps 0.1-0.5 s; each rank ~4.0 GB of weights and 4.83 / 4.85 "
+           "GB of P / D caches, peak 15-22 GiB; launches a rank: flash 36, "
+           "flash_decode_partial 144, decode_combine 144; logits within "
+           "1 bf16 step of 14a's, tokens 14a's",
+    "18b": "prefill 10-40 s; each rank ~15 GB of weights; flash 27 a rank;"
+           " logits within 1 bf16 step of 14b's; drops equal between the "
+           "ranks, and within a few pairs a layer of 14b's (TP's partial "
+           "sums move the router's input by rounding: near-ties flip)",
+    "phase_s": "60-200",
+    # written before the partials were summed in bf16 and the sub-blocks
+    # held against float32 witnesses
+    "bf16_psums": "18a prefill 35-60 s (the float32 partials' psums took "
+                  "66.6 of 74.35 s; bf16 halves their bytes), logits 2-8 "
+                  "bf16 steps from 14a's (float32 partials: 2.02), 18b 3-10 "
+                  "(4.38), each control > 30 steps; sub-blocks on the same "
+                  "input: mesh error against float32 1.0-2.0 x the one "
+                  "card's at the max, 1.0-1.5 x at the mean, every control "
+                  "> 20 x; MoE routes and drops on the same input equal",
+}
 
 
 def emit(obj) -> None:
@@ -1516,6 +1587,7 @@ def phase1(dev):
     load = phase1_load(gen, dev)
     demo = phase1_demo(gen, dev)
     timings["flash_decode"] = phase1_decode(gen, dev)
+    timings.update(phase1_decode_halves(gen, dev))
     timings["scatter_pages_overlay"] = phase1_overlay(gen, dev)
     from repro_torch.configs import get_config
     timings.update(phase1_pages(gen, dev, get_config(MODEL)))
@@ -2720,6 +2792,117 @@ def phase1_decode(gen, dev):
                               32_769, q3.num_kv_heads, q3.num_heads, q3.hd,
                               0, torch.bfloat16)
     return row
+
+
+def phase1_decode_halves(gen, dev):
+    """Row 1h: flash_decode over a cache whose slots are cut in two, as
+    each rank of phase 18's (1, 2) mesh holds its half of D's capacity-
+    sharded cache: ``ops.cache_attention_partial`` on each half (the split
+    kernel, stopped at its partials) and ``ops.cache_attention_combine``
+    over the two halves' splits (the combine kernel), at row 1q's shape
+    (Qwen3-4B: q (2,1,32,128) bf16 over 32,896 slots of 8 KV heads x 128,
+    32,769 positions). The composition is held to the whole-cache kernel
+    call (one bf16 step, as the two round once from float32 sums in
+    another order) and, by the SDPA yardstick, to the float32 plain
+    version. Returns the kernels line's rows ``flash_decode_partial`` (one
+    half's call: the rank's work) and ``decode_combine`` (the merge of both
+    halves' splits), each carrying the composition as ``"halves"``; the
+    partial and the combine have no library call."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    cfg = get_config(MODEL14)
+    b, n, d = 2, 32_769, cfg.hd
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    cap = -(-(32_768 + 128) // 16) * 16
+    half = cap // 2
+    k, v, pos = decode_cache(gen, dev, b, cap, n, kvh, d, torch.bfloat16)
+    q = _rand(gen, (b, 1, h, d), torch.bfloat16, dev)
+    qo = n - 1
+    cuts = [(k[:, s:s + half], v[:, s:s + half], pos[:, s:s + half])
+            for s in (0, half)]
+
+    def partial(i=1):
+        kh, vh, ph = cuts[i]
+        return ops.cache_attention_partial(q, kh, vh, ph, q_offset=qo)
+
+    parts = [partial(0), partial(1)]
+    acc = torch.cat([a for a, _ in parts], 2)
+    ml = torch.cat([m for _, m in parts], 2)
+
+    def combine():
+        return ops.cache_attention_combine(acc, ml, torch.bfloat16)
+
+    def halves():
+        ps = [partial(0), partial(1)]
+        return ops.cache_attention_combine(torch.cat([a for a, _ in ps], 2),
+                                           torch.cat([m for _, m in ps], 2),
+                                           torch.bfloat16)
+
+    def plain_halves():
+        ps = [ref.cache_attention_partial_ref(q, *c, q_offset=qo)
+              for c in cuts]
+        return ref.decode_combine_ref(torch.cat([a for a, _ in ps], 2),
+                                      torch.cat([m for _, m in ps], 2),
+                                      torch.bfloat16)
+
+    got = halves()
+    whole = ops.cache_attention(q, k, v, pos, q_offset=qo)
+    # two bf16 roundings of float32 sums in another order: within one bf16
+    # step of each element (the mean test of _check is for a float32 want)
+    torch.cuda.synchronize()
+    err = (got.float() - whole.float()).abs()
+    vs_whole = float(err.max())
+    steps = float((err / (BF16_FLOOR + BF16_STEP * whole.float().abs()))
+                  .max())
+    if not steps <= 1.0:
+        raise AssertionError(f"1h flash_decode halves vs the whole-cache "
+                             f"call: {steps} bf16 steps (max error "
+                             f"{vs_whole})")
+    want = ref.cache_attention_ref(q.float(), k.float(), v.float(), pos,
+                                   q_offset=qo)
+    library, ok = decode_library(q, k, v, pos, qo, 0)
+    yard = _yardstick("1h flash_decode halves", got, want, library())
+    # the plain partial + combine against the plain whole (float32)
+    plain_err = float((plain_halves().float() - ref.cache_attention_ref(
+        q, k, v, pos, q_offset=qo).float()).abs().max())
+    del got, want, whole
+    comp = time_all(halves, plain_halves, library)
+    seen = int(ok[0, 0].sum())
+    kv_bytes = b * kvh * seen * 2 * d * 2
+    comp_bytes = 2.0 * 2 * b * h * d + 4.0 * b * cap + kv_bytes
+    comp["bound_ms"], comp["bound_by"] = bound(2.0 * b * h * seen * 2 * d,
+                                               comp_bytes, "bfloat16")
+    comp.update(shape=f"q({b},1,{h},{d}) bf16 over two halves of "
+                      f"{half} slots of a {cap}-slot cache ({kvh} KV heads "
+                      f"x {d}), positions 0..{qo}", visible_slots=seen,
+                vs_whole_call_max_abs_err=vs_whole,
+                vs_whole_call_bf16_steps=steps,
+                plain_halves_vs_plain_whole=plain_err, **yard)
+    splits = acc.shape[2]
+    seen_hi = int(ok[0, 0, half:].sum())
+    part_out = 4.0 * b * (splits // 2) * h * (d + 2)
+    t_part = time_all(partial, lambda: ref.cache_attention_partial_ref(
+        q, *cuts[1], q_offset=qo))
+    t_part["bound_ms"], t_part["bound_by"] = bound(
+        2.0 * b * h * seen_hi * 2 * d,
+        2.0 * b * h * d + 4.0 * b * half + b * kvh * seen_hi * 2 * d * 2
+        + part_out, "bfloat16")
+    t_part.update(max_abs_err=yard["max_abs_err"], shape=(
+        f"q({b},1,{h},{d}) bf16 over slots {half}..{cap - 1} ({seen_hi} "
+        f"positions), {splits // 2} splits of partials out"),
+        halves=comp)
+    t_comb = time_all(combine, lambda: ref.decode_combine_ref(
+        acc, ml, torch.bfloat16))
+    t_comb["bound_ms"], t_comb["bound_by"] = bound(
+        3.0 * b * splits * h * d, 4.0 * b * splits * h * (d + 2)
+        + 2.0 * b * h * d, "float32")
+    t_comb.update(max_abs_err=yard["max_abs_err"], shape=(
+        f"partials of {splits} splits (two halves) x {h} heads x {d} "
+        f"float32 -> o ({b},1,{h},{d}) bf16"), halves=comp)
+    emit({"phase": 1, "extra": "1h flash_decode over two slot halves + "
+          "combine", **comp})
+    return {"flash_decode_partial": t_part, "decode_combine": t_comb}
 
 
 # --------------------------------------------------------------------------- #
@@ -5125,6 +5308,15 @@ def phase14_turns(srv, params, caches, fed, q_offset: int, dev):
     return out
 
 
+def top2_gap_and_bound(logits):
+    """Per row of (B, V) logits: (the top-2 gap, PHASE14_LOGIT_STEPS bf16
+    steps at the row's largest magnitude) — a token that another route
+    may pick differently where the gap is within the bound."""
+    top2 = logits.float().topk(2, dim=-1).values
+    return [(float(t[0] - t[1]), PHASE14_LOGIT_STEPS * bf16_step(row))
+            for t, row in zip(top2, logits)]
+
+
 def bf16_step(x) -> float:
     """One bfloat16 step (the spacing of bf16 values) at the largest
     magnitude in ``x``."""
@@ -5286,6 +5478,7 @@ def phase14a(dev):
     gc.collect()
     tok = last.argmax(-1).to(torch.int32)[:, None]
     steps_ms, tokens = [], [tok]
+    gaps = [top2_gap_and_bound(last)]       # phase 18a's token rule
     with torch.no_grad(), capture_calls(ops, "cache_attention") as df:
         for i in range(PHASE14_DECODE_STEPS):
             io = {"tokens": tok, "positions": torch.full_like(tok, s + i)}
@@ -5296,6 +5489,7 @@ def phase14a(dev):
             steps_ms.append((time.perf_counter() - t0) * 1e3)
             tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
             tokens.append(tok)
+            gaps.append(top2_gap_and_bound(logits[:, -1]))
             if not bool(torch.isfinite(logits).all()):
                 bad.append(f"decode step {i}: non-finite logits")
     launches = ops.launch_counts()
@@ -5351,6 +5545,7 @@ def phase14a(dev):
            "flash_prefill_32k": flash_p, "flash_decode_32k": flash_d,
            "roofline_prefill": roof_p, "roofline_decode": roof_d,
            "problems": bad, "predicted": PHASE14_PREDICTED["14a"]}
+    kept = {"last_logits": last.float().cpu(), "token_gaps": gaps}
     del params, inputs, last
     out["part_s"] = round(time.perf_counter() - t_part, 3)
     emit(out)
@@ -5368,7 +5563,8 @@ def phase14a(dev):
         raise AssertionError(f"phase 14a: one-shot vs chunked last logits "
                              f"differ by {gap} > {logit_bound}")
     return {"launches": launches, "timing": {"launch_p": flash_p,
-                                             "launch_d": flash_d}, **out}
+                                             "launch_d": flash_d},
+            **out, **kept}
 
 
 def phase14b(dev):
@@ -5405,6 +5601,8 @@ def phase14b(dev):
     sizes = []
     real_capacity = L._moe_mlp_capacity
 
+    routes = []
+
     def traced(p, cfg_, x, capacity_factor=1.25):
         _, idx = L.moe_route(p, cfg_, x.reshape(-1, x.shape[-1]))
         flat = idx.reshape(-1)
@@ -5412,6 +5610,7 @@ def phase14b(dev):
                                   device=x.device).scatter_add_(
             0, flat, torch.ones_like(flat)), x.reshape(-1, x.shape[-1])
             .shape[0], capacity_factor))
+        routes.append(idx.to(torch.int8).cpu())
         return real_capacity(p, cfg_, x, capacity_factor=capacity_factor)
 
     ops.reset_launch_counts()
@@ -5428,11 +5627,14 @@ def phase14b(dev):
     launches = ops.launch_counts()
     peak = _peak_gib(dev)
     finite = bool(torch.isfinite(last).all())
-    dropped = []
+    dropped, drops = [], []
     for g, t, cf in sizes:
         cap = L.moe_capacity(cfg, t, cf)
-        dropped.append(L.moe_capacity_drops(g.tolist(), cap)
-                       / (t * cfg.moe.top_k))
+        drops.append(L.moe_capacity_drops(g.tolist(), cap))
+        dropped.append(drops[-1] / (t * cfg.moe.top_k))
+    kept = {"last_logits": last.float().cpu(), "drops": drops,
+            "routes": list(routes)}
+    routes.clear()
     del caches, last
     flash_k = phase14_flash_row(dev, "mla_prefill_32k", kf[0],
                                 PHASE14_FLASH_ROWS)
@@ -5495,7 +5697,8 @@ def phase14b(dev):
     if not parity <= parity_bound:
         raise AssertionError(f"phase 14b: capacity MoE vs exact: {parity} > "
                              f"{parity_bound}")
-    return {"launches": launches, "timing": {"launch_k": flash_k}, **out}
+    return {"launches": launches, "timing": {"launch_k": flash_k}, **out,
+            **kept}
 
 
 def phase14c(dev):
@@ -5578,7 +5781,11 @@ def phase14(dev):
         timing.update(part.get("timing", {}))
     emit({"phase": 14, "phase_s": round(time.perf_counter() - t_phase, 3),
           "parts_s": {k: v["part_s"] for k, v in parts.items()}})
-    return {"launches": dict(launches), "timing": timing}
+    # what phase 18 holds its mesh runs to
+    held = {k: {f: parts[k][f] for f in parts[k] if f in (
+        "last_logits", "token_gaps", "tokens", "drops", "routes")}
+        for k in ("14a", "14b")}
+    return {"launches": dict(launches), "timing": timing, "held": held}
 
 
 # --------------------------------------------------------------------------- #
@@ -6331,6 +6538,460 @@ def phase17(dev):
 
 # (name, source, TPU kernel, the phase whose launches the row reports);
 # every row also carries its launches on every serving phase
+# --------------------------------------------------------------------------- #
+# phase 18: a mesh of ranks (tensor parallelism on the model axis)
+# --------------------------------------------------------------------------- #
+def phase18b_rank(rank, arch: str, batch: int, seed: int, mesh_shape):
+    """18b on one rank: ``serve.programs_on_rank``'s prefill of
+    DeepSeek-V2-Lite with the capacity MoE's routing traced (each MoE
+    layer's choices and the pairs its windows drop, from the group sizes
+    after the run); returns the rank's record with ``drops`` and, on rank
+    0, ``routes`` (int8 expert ids (T, k) a layer)."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    real = L._moe_mlp_capacity
+    seen = []
+
+    def traced(p, cfg_, x, capacity_factor=1.25, **kw):
+        _, idx = L.moe_route(p, cfg_, x.reshape(-1, x.shape[-1]))
+        flat = idx.reshape(-1)
+        sizes = torch.zeros(cfg_.moe.num_experts, dtype=torch.int64,
+                            device=x.device).scatter_add_(
+            0, flat, torch.ones_like(flat))
+        seen.append((sizes, flat.numel() // cfg_.moe.top_k,
+                     capacity_factor, idx.to(torch.int8)))
+        return real(p, cfg_, x, capacity_factor=capacity_factor, **kw)
+
+    L._moe_mlp_capacity = traced
+    try:
+        rec = serve.programs_on_rank(rank, arch, "prefill_32k", batch, 0,
+                                     None, seed, mesh_shape, (), True)
+    finally:
+        L._moe_mlp_capacity = real
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    rec["drops"] = [L.moe_capacity_drops(g.tolist(),
+                                         L.moe_capacity(cfg, t, cf))
+                    for g, t, cf, _ in seen]
+    if rank.index == 0:
+        rec["routes"] = [r.cpu() for *_, r in seen]
+    return rec
+
+
+def gloo_bf16_probe(rank):
+    """``psum`` of a bfloat16 tensor on the rank's device over the world
+    (rank 0 holds 1, rank 1 3/256 in every element): the sum each rank
+    gets, which must be 1.01171875 rounded to the nearest even bf16,
+    1.015625 (truncation would give 1.0078125)."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import collectives as C
+    mesh = make_mesh(PHASE18_MESH, ("data", "model"), rank.device)
+    x = torch.full((1024,), 3 / 256 if rank.index else 1.0,
+                   dtype=torch.bfloat16, device=rank.device)
+    y = C.psum(x, mesh.axis_shard("model"))
+    return {"dtype": str(y.dtype), "device": str(y.device),
+            "values": sorted({float(v) for v in y.cpu().float()})}
+
+
+def held_to_launch(part: str, got, want, control) -> dict:
+    """A mesh run's gathered prefill logits ``got`` (B, V) against the
+    one-card run's ``want``: the largest gap at most PHASE18_LOGIT_STEPS
+    bf16 steps of ``want``'s largest magnitude, and each row's argmax
+    equal or ``want``'s top-2 gap within that bound (a near-tie the other
+    reduction order may break the other way). ``control``: the same
+    run's logits with its last layer's psums each missing the other
+    rank's term (``SubBlocks.hold``), which must fail the bound. The mesh
+    sums its bf16 partials in another order than one card's products, and
+    over 27-36 random layers the two drift apart by a few steps (PERF.md
+    §6), so phase 14's one step is printed, not held."""
+    step = bf16_step(want)
+    limit = PHASE18_LOGIT_STEPS * step
+    gap = float((got - want).abs().max())
+    c_gap = float((control - want).abs().max())
+    same = (got.argmax(-1) == want.argmax(-1)).tolist()
+    top2 = want.topk(2, dim=-1).values
+    t2 = (top2[:, 0] - top2[:, 1]).tolist()
+    out = {"max_abs_logit_gap": gap, "bf16_step": step,
+           "gap_bf16_steps": gap / step if step else None,
+           "logit_bound": limit, "within_one_step": gap <= step,
+           "control_gap": c_gap,
+           "control_gap_bf16_steps": c_gap / step if step else None,
+           "argmax_equal": same, "one_card_top2_gap": t2}
+    bad = [f"{part}: logits {gap} from the one-card run's, past "
+           f"{PHASE18_LOGIT_STEPS} bf16 steps ({limit})"] \
+        if not gap <= limit else []
+    if c_gap <= limit:
+        bad.append(f"{part}: the control's logits ({c_gap} away) pass the "
+                   f"bound {limit}")
+    bad += [f"{part} row {i}: argmax differs, one-card top-2 gap {g} > "
+            f"{limit}" for i, (ok, g) in enumerate(zip(same, t2))
+            if not ok and not g <= limit]
+    out["problems"] = bad
+    return out
+
+
+class SubBlocks:
+    """A rank's record of the sub-blocks of chosen layers as the main path
+    runs them: each attention (``model.attention_full``) and MLP
+    (``layers.swiglu_mlp`` at the layer's width) or MoE
+    (``layers.moe_mlp``) call of those layers, counted in model order —
+    its input, its output (after the psum), a copy of the rank's shard of
+    its weights and its distribution context —, and the first
+    ``lm_logits`` call's input (the prefill's last position) with the
+    head's shards. ``hold`` then measures them on the same inputs."""
+
+    def __init__(self, layers):
+        self.layers = set(layers)
+        self.calls = {"attn": 0, "mlp": 0, "moe": 0}
+        self.got = {}            # (layer, "attn" | "mlp" | "moe") -> dict
+        self.head = None
+
+    def _keep(self, i, block, p, x, y, cfg, run, **kw):
+        from repro_torch.launch import sharding as SH
+        from repro_torch.models import dist
+        self.got[(i, block)] = dict(
+            p=SH.tree_map(lambda t: t.clone(), p), x=x, y=y, cfg=cfg,
+            ctx=dist.ctx(), run=run, **kw)
+
+    @contextlib.contextmanager
+    def recording(self):
+        from repro_torch.models import dist
+        from repro_torch.models import layers as L
+        from repro_torch.models import model as M
+        real = (M.attention_full, L.swiglu_mlp, L.moe_mlp, M.lm_logits)
+
+        def attn(p, cfg, h, positions):
+            i = self.calls["attn"]
+            self.calls["attn"] += 1
+            out = real[0](p, cfg, h, positions)
+            if i in self.layers:
+                self._keep(i, "attn", p, h, out[0], cfg, lambda q, x:
+                           M.attention_full(q, cfg, x, positions)[0])
+            return out
+
+        def swiglu(p, x, d_ff=None):
+            y = real[1](p, x, d_ff)
+            if d_ff is not None:             # a layer's MLP, not a shared
+                i = self.calls["mlp"]        # expert inside the MoE
+                self.calls["mlp"] += 1
+                if i in self.layers:
+                    self._keep(i, "mlp", p, x, y, None, lambda q, z:
+                               L.swiglu_mlp(q, z, d_ff))
+            return y
+
+        def moe(p, cfg, x):
+            i, k = self.calls["mlp"], self.calls["moe"]
+            self.calls["mlp"] += 1
+            self.calls["moe"] += 1
+            y = real[2](p, cfg, x)
+            if i in self.layers:
+                self._keep(i, "moe", p, x, y, cfg, lambda q, z:
+                           L.moe_mlp(q, cfg, z), moe_call=k)
+            return y
+
+        def head(params, cfg, x):
+            if self.head is None:
+                self.head = dict(params={k: params[k] for k in (
+                    "final_norm", "embed", "lm_head") if k in params},
+                    x=x, cfg=cfg, ctx=dist.ctx())
+            return real[3](params, cfg, x)
+
+        M.attention_full, L.swiglu_mlp, L.moe_mlp, M.lm_logits = \
+            attn, swiglu, moe, head
+        try:
+            yield self
+        finally:
+            M.attention_full, L.swiglu_mlp, L.moe_mlp, M.lm_logits = real
+
+    def hold(self, rank, routes=None):
+        """On every rank: each recorded sub-block again on its own input
+        with ``psum`` returning the rank's own partial (the control: the
+        other rank's term left out), and its weights gathered whole. On
+        rank 0: the one-card sub-block (the weights whole, the context's
+        mesh 1 x 1) and its float32 witness (the weights and the same
+        input in float32) on that input; each output's max and mean error
+        against the witness; at a MoE layer the one-card routes and
+        dropped pairs beside the mesh run's (``routes``: rank 0's, one a
+        MoE call). Then on every rank the control's logits: the last
+        layer's two sub-blocks' control deltas added to the prefill's last
+        position, through the head, gathered. Returns (rank 0's records,
+        the control logits) as CPU values."""
+        import torch
+        from repro_torch.launch import sharding as SH
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import collectives as C
+        from repro_torch.models import dist
+        from repro_torch.models import layers as L
+        from repro_torch.models import model as M
+        cfg = self.head["cfg"]
+        shard = self.head["ctx"].model_shard()
+        abstract = [lp for *_, lp in M._layers(M.abstract_params(cfg), cfg)]
+        real_psum = C.psum
+        recs = []
+        for (i, block), r in sorted(self.got.items()):
+            with torch.no_grad(), dist.use(r["ctx"]):
+                C.psum = lambda x, shard_: x
+                try:
+                    r["control"] = r["run"](r["p"], r["x"])
+                finally:
+                    C.psum = real_psum
+                want = abstract[i]["attn" if block == "attn" else "mlp"]
+                whole = SH.tree_map(
+                    lambda t, a: _gathered_whole(t, tuple(a.shape), shard),
+                    r["p"], want)
+            if rank.index:
+                continue
+            one = dataclasses.replace(r["ctx"], mesh=make_mesh(
+                (1, 1), r["ctx"].mesh.axis_names, r["x"].device))
+            with torch.no_grad(), dist.use(one):
+                y1 = r["run"](whole, r["x"])
+                w32 = r["run"](SH.tree_map(lambda t: t.float(), whole),
+                               r["x"].float())
+
+            def err(y):
+                e = (y.float() - w32).abs()
+                return [float(e.max()), float(e.mean())]
+
+            rec = {"layer": i, "block": block, "shape": list(r["x"].shape),
+                   "mesh": err(r["y"]), "one_card": err(y1),
+                   "control": err(r["control"]),
+                   "mesh_vs_one_card_max": float(
+                       (r["y"].float() - y1.float()).abs().max())}
+            if block == "moe":
+                x2d = r["x"].reshape(-1, r["x"].shape[-1])
+                _, idx = L.moe_route(whole, r["cfg"], x2d)
+                mesh_idx = routes[r["moe_call"]].to(idx.device).long()
+                cap = L.moe_capacity(r["cfg"], x2d.shape[0],
+                                     r["ctx"].moe_capacity_factor)
+                rec["routes_equal"] = bool(torch.equal(mesh_idx, idx))
+                rec["drops"] = [L.moe_capacity_drops(torch.bincount(
+                    j.reshape(-1), minlength=r["cfg"].moe.num_experts
+                ).tolist(), cap) for j in (mesh_idx, idx)]
+            recs.append(rec)
+            del y1, w32, whole
+        last = max(i for i, _ in self.got)
+        delta = sum((r["control"] - r["y"])[:, -1].float()
+                    for (i, _), r in self.got.items() if i == last)
+        x = self.head["x"]
+        with torch.no_grad(), dist.use(self.head["ctx"]):
+            logits = C.all_gather(M.lm_logits(
+                self.head["params"], cfg, (x.float() + delta).to(x.dtype)),
+                -1, shard)
+        return recs, logits.float().cpu()
+
+
+def _gathered_whole(t, shape, shard):
+    """A rank's slice ``t`` of a leaf whose whole shape is ``shape``
+    (sliced on at most one dim over the model axis), gathered whole."""
+    from repro_torch.models import collectives as C
+    dims = [d for d, (a, b) in enumerate(zip(t.shape, shape)) if a != b]
+    if not dims:
+        return t
+    (d,) = dims
+    if t.shape[d] * shard.size != shape[d]:
+        raise AssertionError(f"a slice {tuple(t.shape)} of {shape}")
+    return C.all_gather(t.contiguous(), d, shard)
+
+
+def phase18_rank(rank, layers, program, *args):
+    """``program(rank, *args)`` — a rank's main path, its record returned
+    — with the sub-blocks of ``layers`` recorded as it runs them, then
+    held on their own inputs (``SubBlocks.hold``): the record gains
+    ``probes`` and ``control_logits``."""
+    probe = SubBlocks(layers)
+    with probe.recording():
+        rec = program(rank, *args)
+    rec["probes"], rec["control_logits"] = probe.hold(rank,
+                                                      rec.get("routes"))
+    return rec
+
+
+def probe_problems(part: str, probes) -> list:
+    """Each probe (rank 0's ``SubBlocks.hold`` records) gains its mesh and
+    control error ratios (max, mean) to the one-card sub-block's: the mesh
+    must be within PHASE18_WITNESS_FACTOR on both, the control past it on
+    at least one; at a MoE layer the routes and dropped pairs equal to
+    the one card's on the same input. Returns the problems."""
+    bad = []
+    for p in probes:
+        for key in ("mesh", "control"):
+            p[f"{key}_ratio"] = [x / y if y else math.inf
+                                 for x, y in zip(p[key], p["one_card"])]
+        where = f"{part} layer {p['layer']} {p['block']}"
+        if not max(p["mesh_ratio"]) <= PHASE18_WITNESS_FACTOR:
+            bad.append(f"{where}: error {p['mesh']} against float32, "
+                       f"{p['mesh_ratio']} x one card's {p['one_card']}")
+        if max(p["control_ratio"]) <= PHASE18_WITNESS_FACTOR:
+            bad.append(f"{where}: the control passes ({p['control_ratio']}"
+                       f" x one card's error)")
+        if p["block"] == "moe" and not (p["routes_equal"]
+                                        and p["drops"][0] == p["drops"][1]):
+            bad.append(f"{where}: routes equal {p['routes_equal']}, drops "
+                       f"{p['drops']} (mesh, one card)")
+    return bad
+
+
+def tokens_held(got, want, gaps) -> list:
+    """Each sequence's greedy tokens equal the one-card run's or, at the
+    first difference, the one-card step's top-2 gap there is within its
+    bound (``top2_gap_and_bound``: a near-tie another route may break the
+    other way); after it, nothing is compared. Returns the problems."""
+    bad = []
+    for b, (g, w) in enumerate(zip(got, want)):
+        for i, (x, y) in enumerate(zip(g, w)):
+            if x != y:
+                gap, limit = gaps[i][b]
+                if not gap <= limit:
+                    bad.append(f"sequence {b} token {i}: {x} != {y} with "
+                               f"a one-card top-2 gap {gap} > {limit}")
+                break
+    return bad
+
+
+def rank_problems(part: str, recs, expect: dict) -> list:
+    """Per rank: every byte count equal to ``per_chip_bytes`` and exactly
+    ``expect``'s launches (every other kernel none)."""
+    bad = []
+    for r in recs:
+        for what, (have, predicted) in r["bytes"].items():
+            if have != predicted:
+                bad.append(f"{part} rank {r['rank']} {what}: {have} "
+                           f"bytes, per_chip_bytes {predicted}")
+        for name, n in r["launches"].items():
+            if n != expect.get(name, 0):
+                bad.append(f"{part} rank {r['rank']}: {n} {name} launches, "
+                           f"the path makes {expect.get(name, 0)}")
+    return bad
+
+
+def phase18(dev, held):
+    """The launch layer on a (data, model) = (1, 2) mesh of ranks: a
+    world of two processes on the one card (``launch.ranks``; the backend
+    it chose is printed — gloo, as NCCL refuses two ranks of one
+    communicator on a device), each holding the shards the launch layer's
+    specs give it and computing with the collectives they force. Two
+    ranks on one card run the two-card program — the same shards,
+    collectives and bytes a rank — and its time is that of the layout,
+    not of tensor parallelism.
+
+    18a: Qwen3-4B at full width and all 36 layers through the launcher's
+    rank program (``serve.programs_on_rank``, what ``python -m
+    repro_torch.launch.serve --mesh 1x2`` runs): each rank draws 14a's
+    weights from the seed one layer at a time and keeps its slices;
+    prefill_32k at batch 2 → the handoff (head_dim- to capacity-sharded,
+    a block exchange) → PHASE14_DECODE_STEPS greedy steps, each rank's
+    flash_decode stopping at its partials and the ranks' partials
+    combined. Held: the gathered prefill logits to 14a's within
+    PHASE18_LOGIT_STEPS bf16 steps, argmax equal or within the top-2 gap
+    (``held_to_launch``), a control with the last layer's psums each
+    missing a term failing that bound; the sub-blocks of layers 0 and 35
+    on their own inputs against their float32 witness, within
+    PHASE18_WITNESS_FACTOR of the one-card sub-block's error, each
+    control failing it (``SubBlocks``, ``probe_problems``); the tokens to
+    14a's (``tokens_held``); D's shards of layers
+    PHASE18_CHECK_LAYERS, gathered, bit for bit the realignment of P's
+    gathered (``serve.handoff_held``, on both ranks); every rank's bytes
+    of parameters and P's and D's caches equal to ``per_chip_bytes`` at
+    {"data": 1, "model": 2}; per rank exactly 36 flash, 4 x 36
+    flash_decode_partial and 4 x 36 decode_combine launches.
+
+    18b: DeepSeek-V2-Lite's prefill_32k at batch 1, all 27 layers: the
+    MLA heads and the expert-TP MoE split over the ranks (a psum after
+    each), the router replicated. Held: the logits to 14b's by the same
+    bound and control; the sub-blocks of layers 1 (the first MoE layer)
+    and 26 likewise, the MoE's routes and dropped pairs on the same input
+    equal to the one card's; each MoE layer's dropped pairs equal on both
+    ranks (against 14b's they are printed: the mesh's inputs differ from
+    14b's by rounding, so near-ties of the router flip); the bytes; 27
+    flash launches a rank.
+
+    Returns the summed launches of both ranks' main paths and the
+    records."""
+    from repro_torch.launch import ranks, serve
+    t_phase = time.perf_counter()
+    _mem_line(dev, "18", phase=18)
+    a14, b14 = held["14a"], held["14b"]
+    with ranks.start(math.prod(PHASE18_MESH), dev,
+                     timeout_s=PHASE18_TIMEOUT_S) as world:
+        probe = world.run(gloo_bf16_probe)
+        emit({"phase": 18, "backend": world.backend, "pids": world.pids,
+              "mesh": list(PHASE18_MESH), "bf16_psum": probe})
+        if any(p["values"] != [1.015625] for p in probe):
+            raise AssertionError(f"phase 18: a bfloat16 psum gave {probe}")
+        t0 = time.perf_counter()
+        recs_a = world.run(phase18_rank, PHASE18_PROBE_LAYERS["18a"],
+                           serve.programs_on_rank, MODEL14, "decode_32k",
+                           PHASE14_BATCH["14a"], PHASE14_DECODE_STEPS, None,
+                           SEED, PHASE18_MESH, PHASE18_CHECK_LAYERS, True)
+        a_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        recs_b = world.run(phase18_rank, PHASE18_PROBE_LAYERS["18b"],
+                           phase18b_rank, MODEL14B, PHASE14_BATCH["14b"],
+                           SEED, PHASE18_MESH)
+        b_s = time.perf_counter() - t0
+        backend = world.backend
+    probes = {"18a": recs_a[0]["probes"], "18b": recs_b[0]["probes"]}
+    controls = {"18a": recs_a[0]["control_logits"],
+                "18b": recs_b[0]["control_logits"]}
+    for r in recs_a + recs_b:
+        for key in ("probes", "control_logits"):
+            r.pop(key)
+    rec_a = serve.mesh_record(recs_a, backend)
+    n = rec_a["layers"]
+    bad = rank_problems("18a", recs_a, {
+        "flash_attention": n,
+        "flash_decode_partial": n * PHASE14_DECODE_STEPS,
+        "decode_combine": n * PHASE14_DECODE_STEPS})
+    if not rec_a["handoff_held_all_ranks"]:
+        bad.append(f"18a: D's shards are not P's reshard: "
+                   f"{[r['handoff_held'] for r in recs_a]}")
+    logits_a = held_to_launch("18a", rec_a.pop("prefill_logits"),
+                              a14["last_logits"], controls["18a"])
+    bad += logits_a.pop("problems")
+    bad += tokens_held(rec_a["tokens"], a14["tokens"], a14["token_gaps"])
+    bad += probe_problems("18a", probes["18a"])
+    emit({"phase": 18, "part": "18a", "model": f"{MODEL14} x{n} layers",
+          "batch": PHASE14_BATCH["14a"], "part_s": round(a_s, 3),
+          **rec_a, "tokens_14a": a14["tokens"], "vs_14a": logits_a,
+          "sub_blocks": probes["18a"],
+          "predicted": PHASE18_PREDICTED["18a"]})
+    rec_b = serve.mesh_record([{k: v for k, v in r.items()
+                                if k not in ("drops", "routes")}
+                               for r in recs_b], backend)
+    bad += rank_problems("18b", recs_b,
+                         {"flash_attention": rec_b["layers"]})
+    logits_b = held_to_launch("18b", rec_b.pop("prefill_logits"),
+                              b14["last_logits"], controls["18b"])
+    bad += logits_b.pop("problems")
+    bad += probe_problems("18b", probes["18b"])
+    drops = [r["drops"] for r in recs_b]
+    if drops[0] != drops[1]:
+        bad.append(f"18b: the ranks drop different pairs: {drops}")
+    if len(drops[0]) != len(b14["drops"]):
+        bad.append(f"18b: {len(drops[0])} MoE layers, 14b "
+                   f"{len(b14['drops'])}")
+    flipped = [int((r.long() != w.long()).sum())
+               for r, w in zip(recs_b[0]["routes"], b14["routes"])]
+    emit({"phase": 18, "part": "18b", "model": f"{MODEL14B} x"
+          f"{rec_b['layers']} layers", "batch": PHASE14_BATCH["14b"],
+          "part_s": round(b_s, 3), **rec_b, "vs_14b": logits_b,
+          "sub_blocks": probes["18b"],
+          "drops": drops[0], "drops_14b": b14["drops"],
+          "drops_equal_14b": drops[0] == b14["drops"],
+          "choices_routed_differently": flipped,
+          "predicted": PHASE18_PREDICTED["18b"]})
+    launches = collections.Counter()
+    for r in recs_a + recs_b:
+        launches.update(r["launches"])
+    emit({"phase": 18, "phase_s": round(time.perf_counter() - t_phase, 3),
+          "launches_both_ranks": dict(launches), "problems": bad})
+    if bad:
+        raise AssertionError(f"phase 18: {bad}")
+    return {"launches": dict(launches)}
+
+
 KERNELS = [
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
      "src/repro/kernels/flash_attention.py:78", 3),
@@ -6346,6 +7007,10 @@ KERNELS = [
      "src/repro/kernels/kv_repack.py:154", 4),
     ("flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
      "src/repro/kernels/flash_attention.py:78", 15),
+    ("flash_decode_partial", "src/repro_torch/kernels/csrc/flash_decode.cu",
+     "src/repro/kernels/flash_attention.py:78", 18),
+    ("decode_combine", "src/repro_torch/kernels/csrc/flash_decode.cu",
+     "src/repro/kernels/flash_attention.py:78", 18),
 ]
 
 
@@ -6425,6 +7090,9 @@ def main() -> int:
     gc.collect()                         # phase 15's models: 17c's
     torch.cuda.empty_cache()
     paths[17] = phase17(dev)
+    gc.collect()                         # 17c's weights: the ranks'
+    torch.cuda.empty_cache()
+    paths[18] = phase18(dev, paths[14]["held"])
 
     rows = []
     for name, source, replaces, phase in KERNELS:
@@ -6445,7 +7113,7 @@ def main() -> int:
         # "rg", Qwen1.5-32B's e4m3 cache "fp8") and 14a's ("dense")
         for key in ("mla", "rg", "vlm", "encdec", "load", "launch_p",
                     "launch_d", "launch_k", "fp8", "dense", "demo",
-                    "quickstart"):
+                    "quickstart", "halves"):
             if key in t:
                 row[key] = {k: t[key][k] for k in (
                     "shape", "max_abs_err", "ms", "device_ms", "plain_ms",

@@ -117,6 +117,13 @@
 //   once at the store. A split whose slots are all masked contributes
 //   m = -1e30, l = 0 and weighs nothing; a warp skips a 16-slot group
 //   that no row sees.
+// - Partials out, combine apart: a cache whose slots are cut across the
+//   ranks of a model axis (the launch layer's capacity-sharded decode
+//   caches) is read by one call a rank that stops at the partials (o ==
+//   nullptr: even one split writes them, m in natural-log units as the
+//   combine reads it), and rt_decode_combine merges the splits of every
+//   rank, concatenated, with the same decode_combine_kernel. Nothing of
+//   the arithmetic changes.
 //
 // float32 q and K/V (decode_split_kernel: the sweep's and the card tests'
 // 2e-5 cases, on no main-path phase) keep the scalar code: bf16 products
@@ -344,7 +351,7 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
       A += Aw[w * nq + e] * f;
     }
     const int h = h0 + g;
-    if (S == 1) {
+    if (S == 1 && o != nullptr) {
       o[b * o_sb + row * o_ss + (long long)h * o_sh + c] =
           rt::from_f<TQ>(L > 0.f ? A / L : 0.f);
     } else {
@@ -891,7 +898,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
         A += Aw[(w * 16 + r) * HD + dim] * f;
       }
       const int h = h0 + r;
-      if (S == 1) {
+      if (S == 1 && o != nullptr) {
         o[b * o_sb + row * o_ss + (long long)h * o_sh + dim] =
             __float2bfloat16(L > 0.f ? A / L : 0.f);
       } else {
@@ -919,16 +926,24 @@ struct Args {
   cudaStream_t stream;
 };
 
+// The combine on its own (rt_decode_combine), one split included.
 template <typename TQ>
-cudaError_t combine(const Args& a) {
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || a.S == 1) return err;
+cudaError_t launch_combine(const Args& a) {
   const size_t smem = a.S <= COMBINE_CACHED ? sizeof(float) * a.S : 0;
   decode_combine_kernel<TQ>
       <<<dim3(a.H, a.B * a.Sq), COMBINE_THREADS, smem, a.stream>>>(
       a.part_acc, a.part_ml, static_cast<TQ*>(a.o), a.Sq, a.H, a.d, a.S,
       a.o_sb, a.o_ss, a.o_sh);
   return cudaGetLastError();
+}
+
+// After the split kernel: merge its splits into o, unless one split wrote
+// o itself or the call stops at the partials (o == nullptr).
+template <typename TQ>
+cudaError_t combine(const Args& a) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.S == 1 || a.o == nullptr) return err;
+  return launch_combine<TQ>(a);
 }
 
 // float32: the scalar kernel (tiles of 32 slots, the 3-stage ring, rows of
@@ -1027,7 +1042,10 @@ int dispatch_mma(const Args& a) {
 // float32 / 1 bfloat16 / 2 float8 e4m3 (with a bfloat16 q). The host plan
 // (kernels/flash_decode.py : launch_plan, split_plan) picks tile, HS, PK,
 // PV, NST and the splits; this entry point refuses a plan its kernel does
-// not take.
+// not take. With o == nullptr the call stops at the partials: every split
+// writes (P.V, m, l) to part_acc / part_ml, one split included, and no
+// combine runs (kernels/flash_decode.py : flash_decode_partial; the
+// partials of several calls are merged by rt_decode_combine).
 extern "C" int rt_flash_decode(
     const void* q, const void* k, const void* v, const void* pos, void* o,
     void* part_acc, void* part_ml, int q_dtype, int kv_dtype, int B, int Sq,
@@ -1042,7 +1060,8 @@ extern "C" int rt_flash_decode(
       (long long)B * Sq > 65535 || PK < D || PV < D ||
       (cb != 4 && cb != 8 && cb != 16) ||
       (long long)n_splits * tps * tile < cap ||
-      (n_splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
+      ((n_splits > 1 || o == nullptr) &&
+       (part_acc == nullptr || part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
   Args a{q, k, v, static_cast<const int*>(pos), o,
@@ -1055,5 +1074,32 @@ extern "C" int rt_flash_decode(
     return dispatch_mma<__nv_bfloat16>(a);
   if (q_dtype == rt::kBF16 && kv_dtype == kKvE4M3)
     return dispatch_mma<unsigned char>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Merge S partials of each (sequence x query row, query head) into o:
+// decode_combine_kernel over part_acc (B*Sq, S, H, D) and part_ml (B*Sq,
+// S, H, 2) float32 — the splits of one or more rt_flash_decode calls
+// without o, concatenated on the split axis (a cache whose slots are cut
+// across ranks: each rank's splits, then the next rank's). o (B, Sq, H, D)
+// in q_dtype (0 float32 / 1 bfloat16) at element strides o_sb, o_ss, o_sh.
+extern "C" int rt_decode_combine(const void* part_acc, const void* part_ml,
+                                 void* o, int q_dtype, int B, int Sq, int H,
+                                 int D, int S, long long o_sb, long long o_ss,
+                                 long long o_sh, void* stream) {
+  if (part_acc == nullptr || part_ml == nullptr || o == nullptr || H <= 0 ||
+      H > 65535 || D <= 0 || D > 256 || Sq <= 0 || S <= 0 ||
+      (long long)B * Sq > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  Args a{};
+  a.part_acc = const_cast<float*>(static_cast<const float*>(part_acc));
+  a.part_ml = const_cast<float*>(static_cast<const float*>(part_ml));
+  a.o = o;
+  a.B = B, a.Sq = Sq, a.H = H, a.d = D, a.S = S;
+  a.o_sb = o_sb, a.o_ss = o_ss, a.o_sh = o_sh;
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (q_dtype == rt::kF32) return (int)launch_combine<float>(a);
+  if (q_dtype == rt::kBF16) return (int)launch_combine<__nv_bfloat16>(a);
   return (int)cudaErrorInvalidValue;
 }

@@ -37,7 +37,10 @@ from repro_torch.kernels.paged_attention import (BLOCK_GROUP_DIM,
                                                  SMEM_LIMIT, WARPS, sm_count,
                                                  stage_copy_bytes)
 
-LAUNCHES = {"flash_decode": 0}         # wrapper calls that launched
+# wrapper calls that launched: the merged call, the call that stops at
+# the partials, and the combine of partials from several calls
+LAUNCHES = {"flash_decode": 0, "flash_decode_partial": 0,
+            "decode_combine": 0}
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 # (q, K/V) pairs the kernel takes: float8 K/V under a bfloat16 query
@@ -65,6 +68,7 @@ assert STAGES_F32 * (2 * TILE_F32 * MAX_HEAD_DIM * 4 + 4 * TILE_F32) \
 assert 4 * WARPS * (2 * BLOCK_GROUP_DIM // 64 + BLOCK_GROUP_DIM) <= SMEM_LIMIT
 
 _fn = None
+_combine_fn = None
 
 
 def _kernel():
@@ -78,6 +82,17 @@ def _kernel():
                          ctypes.c_void_p])
         _fn = f
     return _fn
+
+
+def _combine_kernel():
+    global _combine_fn
+    if _combine_fn is None:
+        f = _build.load().rt_decode_combine
+        f.restype = ctypes.c_int
+        f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                      + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+        _combine_fn = f
+    return _combine_fn
 
 
 def check_dtypes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -178,55 +193,112 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rows 4-byte aligned; pos: (B,cap) int32 with unit-stride slots; all
     CUDA tensors on one device. Query row i sits at ``q_offset + i``.
     Returns (B,Sq,H,d) in q's dtype."""
+    return _launch(q, k, v, pos, q_offset, window, scale, partial=False)
+
+
+def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         pos: torch.Tensor, *, q_offset: int,
+                         window: int = 0, scale: Optional[float] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_decode``'s split kernel on the same inputs, stopped before
+    the merge: (acc (B,Sq,S,H,d), ml (B,Sq,S,H,2)) float32, split s's
+    unnormalised P·V and its running max m (natural-log units) and sum l
+    — S splits of the call's own plan, at least one. A split that sees no
+    slot has m = -1e30 and l = 0. ``decode_combine`` merges the partials
+    of several such calls (a cache whose slots are cut across ranks)."""
+    return _launch(q, k, v, pos, q_offset, window, scale, partial=True)
+
+
+def decode_combine(acc: torch.Tensor, ml: torch.Tensor,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """Merge partials (acc (B,Sq,S,H,d), ml (B,Sq,S,H,2) float32,
+    contiguous CUDA tensors: the splits of one or more
+    ``flash_decode_partial`` calls concatenated on axis 2) into (B,Sq,H,d)
+    in ``out_dtype`` (float32 or bfloat16): each split weighs exp(m_s -
+    max m), the output is sum(w acc) / sum(w l), or 0 where every l is 0
+    — the combine kernel of ``flash_decode``'s own splits."""
+    if acc.dim() != 5 or ml.shape != acc.shape[:4] + (2,):
+        raise ValueError(f"decode_combine: acc{tuple(acc.shape)} "
+                         f"ml{tuple(ml.shape)}")
+    for name, t in (("acc", acc), ("ml", ml)):
+        if not t.is_cuda or t.device != acc.device \
+                or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"decode_combine: {name} must be a contiguous "
+                             f"float32 CUDA tensor on {acc.device}")
+    if out_dtype not in Q_DTYPES:
+        raise TypeError(f"decode_combine: out dtype {out_dtype}")
+    b, sq, n_splits, h, d = acc.shape
+    if b * sq > MAX_GRID_Z or h > MAX_GRID_Y or not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"decode_combine: acc{tuple(acc.shape)}")
+    o = torch.empty((b, sq, h, d), dtype=out_dtype, device=acc.device)
+    stream = torch.cuda.current_stream(acc.device).cuda_stream
+    err = _combine_kernel()(
+        acc.data_ptr(), ml.data_ptr(), o.data_ptr(), Q_DTYPES[out_dtype], b,
+        sq, h, d, n_splits, o.stride(0), o.stride(1), o.stride(2), stream)
+    _build.check(err, "decode_combine")
+    LAUNCHES["decode_combine"] += 1
+    return o
+
+
+def _launch(q, k, v, pos, q_offset, window, scale, partial: bool):
     b, sq, h, d = q.shape
+    what = "flash_decode_partial" if partial else "flash_decode"
     for name, t in (("q", q), ("k", k), ("v", v), ("pos", pos)):
         if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"flash_decode: {name} must be on {q.device} "
+            raise ValueError(f"{what}: {name} must be on {q.device} "
                              f"(CUDA), got {t.device}")
     check_dtypes(q, k, v)
     if pos.dtype != torch.int32:
-        raise TypeError(f"flash_decode: pos is int32, got {pos.dtype}")
+        raise TypeError(f"{what}: pos is int32, got {pos.dtype}")
     if (k.dim() != 4 or v.shape != k.shape or k.shape[0] != b
             or k.shape[3] != d or pos.shape != k.shape[:2]):
-        raise ValueError(f"flash_decode: shapes q{tuple(q.shape)} "
+        raise ValueError(f"{what}: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"pos{tuple(pos.shape)}")
     if q.stride(-1) != 1 or pos.stride(-1) != 1 or k.stride() != v.stride():
-        raise ValueError("flash_decode: q's head dim and pos's slots must be "
+        raise ValueError(f"{what}: q's head dim and pos's slots must be "
                          "unit-stride, and k and v share strides")
     # bytes per cp.async of a K/V row, from the caches' (batch, slot,
     # head) strides and alignment as the paged kernel's pages
     cb = stage_copy_bytes(k, v, k.stride(), d)
     if cb == 0:
-        raise ValueError("flash_decode: K/V rows must be unit-stride and "
+        raise ValueError(f"{what}: K/V rows must be unit-stride and "
                          "4-byte aligned (base pointers, strides and the "
                          f"row), got strides {k.stride()}")
     cap, kvh = k.shape[1], k.shape[2]
     if b * sq > MAX_GRID_Z or not 0 <= q_offset <= 2 ** 31 - 1 - sq:
-        raise ValueError(f"flash_decode: {b} x {sq} query rows at q_offset "
+        raise ValueError(f"{what}: {b} x {sq} query rows at q_offset "
                          f"{q_offset}")
     plan = launch_plan(h, kvh, d, k.element_size())
     n_splits, tps = split_plan(-(-cap // plan["tile"]),
                                b * sq * kvh * plan["head_split"],
                                sm_count(q.device), plan["resident"])
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    o = None if partial else torch.empty((b, sq, h, d), dtype=q.dtype,
+                                         device=q.device)
+    part = None
     part_acc = part_ml = None
-    if n_splits > 1:          # (B*Sq, splits, H, d) then (B*Sq, splits, H, 2)
+    if n_splits > 1 or partial:   # (B*Sq, splits, H, d) then (.., H, 2)
         rows = b * sq * n_splits * h
         part = torch.empty(rows * (d + 2), dtype=torch.float32,
                            device=q.device)
         part_acc, part_ml = part.data_ptr(), part.data_ptr() + 4 * rows * d
+    # o's strides: those of the (B, Sq, H, d) output, or zeros (unused)
+    o_st = o.stride() if o is not None else (0, 0, 0, 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), o.data_ptr(),
-        part_acc, part_ml,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        None if o is None else o.data_ptr(), part_acc, part_ml,
         Q_DTYPES[q.dtype], KV_DTYPES[k.dtype], b, sq, h, kvh,
         plan["head_split"], d, cap, plan["tile"], n_splits, tps,
         plan["pitch_k"], plan["pitch_v"], plan["stages"], cb, q.stride(0),
         q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-        pos.stride(0), o.stride(0), o.stride(1), o.stride(2), scale,
+        pos.stride(0), o_st[0], o_st[1], o_st[2], scale,
         int(window), int(q_offset), stream)
-    _build.check(err, "flash_decode")
-    LAUNCHES["flash_decode"] += 1
-    return o
+    _build.check(err, what)
+    LAUNCHES[what] += 1
+    if o is not None:
+        return o
+    rows = b * sq * n_splits * h
+    return (part[:rows * d].view(b, sq, n_splits, h, d),
+            part[rows * d:].view(b, sq, n_splits, h, 2))

@@ -163,6 +163,34 @@ def cache_attention(q, k, v, pos, *, q_offset: int, window: int = 0,
                                    window=window, scale=scale)
 
 
+def cache_attention_partial(q, k, v, pos, *, q_offset: int,
+                            window: int = 0, scale: Optional[float] = None):
+    """``cache_attention`` over one part of a cache's slots (a rank's half
+    of a capacity-sharded cache), stopped before the merge: (acc
+    (B,Sq,S,H,d), ml (B,Sq,S,H,2)) float32, the S splits' unnormalised
+    P·V, running max (natural log) and sum. ``cache_attention_combine``
+    merges the partials of every part. On the card, flash_decode's split
+    kernel with its merge left out (S from its own plan); elsewhere the
+    plain version (one split)."""
+    if _on_cuda(q, "cache_attention_partial", q, k, v):
+        _fd.check_dtypes(q, k, v)
+        return _fd.flash_decode_partial(q, k, v, pos, q_offset=q_offset,
+                                        window=window, scale=scale)
+    return ref.cache_attention_partial_ref(q, k, v, pos, q_offset=q_offset,
+                                           window=window, scale=scale)
+
+
+def cache_attention_combine(acc, ml, out_dtype) -> torch.Tensor:
+    """Merge partials (acc (B,Sq,S,H,d), ml (B,Sq,S,H,2) float32: the
+    splits of several ``cache_attention_partial`` calls concatenated on
+    axis 2) into (B,Sq,H,d) in ``out_dtype``: flash_decode's combine
+    kernel on the card, its plain version elsewhere."""
+    if _on_cuda(acc, "cache_attention_combine", acc, ml):
+        return _fd.decode_combine(acc.contiguous(), ml.contiguous(),
+                                  out_dtype)
+    return ref.decode_combine_ref(acc, ml, out_dtype)
+
+
 def paged_attention(q, k_pool, v_pool, block_table, seq_lens, *,
                     layout: str = "nbhd", scale: Optional[float] = None,
                     window: int = 0) -> torch.Tensor:

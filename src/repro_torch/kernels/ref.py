@@ -82,6 +82,52 @@ def cache_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
+def cache_attention_partial_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, pos: torch.Tensor, *,
+                                q_offset: int, window: int = 0,
+                                scale: Optional[float] = None):
+    """``cache_attention_ref``'s slots as one split, stopped before the
+    normalisation: (acc (B,Sq,1,H,dv), ml (B,Sq,1,H,2)) float32 — the
+    unnormalised sum of exp(s - m) v over the visible slots, the running
+    max m of their scores (natural-log units; -1e30 where no slot is
+    seen) and the sum l of exp(s - m) (0 there): what
+    ``flash_decode_partial`` returns for each of its splits."""
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    grp = h // kv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, sq, kv, grp, d).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    qp = torch.arange(q_offset, q_offset + sq, device=q.device)[None, :, None]
+    cp = pos.long()[:, None, :]                              # (B,1,cap)
+    ok = (cp >= 0) & (cp <= qp)                              # (B,Sq,cap)
+    if window > 0:
+        ok = ok & ((qp - cp) < window)
+    okb = ok[:, None, None]                                  # (B,1,1,Sq,cap)
+    s = torch.where(okb, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)                                       # (B,KV,G,Sq)
+    p = torch.where(okb, torch.exp(s - m[..., None]), 0.0)
+    v = torch.where(ok.any(1)[:, :, None, None], v.float(), 0.0)  # select
+    acc = torch.einsum("bkgqs,bskd->bqkgd", p, v)
+    ml = torch.stack([m, p.sum(-1)], dim=-1).permute(0, 3, 1, 2, 4)
+    return (acc.reshape(b, sq, 1, h, v.shape[-1]),
+            ml.reshape(b, sq, 1, h, 2).contiguous())
+
+
+def decode_combine_ref(acc: torch.Tensor, ml: torch.Tensor,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """Merge partials acc (B,Sq,S,H,d), ml (B,Sq,S,H,2) over the S splits:
+    weights exp(m_s - max m), sum(w acc) / sum(w l), 0 where every l is 0;
+    (B,Sq,H,d) in ``out_dtype``."""
+    m, l = ml[..., 0], ml[..., 1]
+    w = torch.exp(m - m.amax(dim=2, keepdim=True))           # (B,Sq,S,H)
+    big_l = (l * w).sum(dim=2)
+    big_a = (acc * w[..., None]).sum(dim=2)
+    o = torch.where(big_l[..., None] > 0,
+                    big_a / torch.clamp_min(big_l, 1e-30)[..., None], 0.0)
+    return o.to(out_dtype)
+
+
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, block_table: torch.Tensor,
                         seq_lens: torch.Tensor, *, layout: str = "nbhd",

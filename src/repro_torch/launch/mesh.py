@@ -3,25 +3,36 @@
 Single pod: (data=16, model=16) — 256 chips. Multi-pod: (pod=2, data=16,
 model=16) — 512 chips; "pod" is the slow axis (data parallel across pods).
 
-The port has no ``torch.distributed`` mesh yet (ROADMAP queue 1 item 14):
-a ``Mesh`` is its axis sizes and names, and the one device its programs
-run on — the card (``make_mesh((1, 1), ...)``), the CPU when asked for,
-or ``meta`` (shapes only: nothing is allocated or computed, which is how
-the roofline counts a program). The production meshes are abstract
-(``device`` None): their sizes drive the spec rules and the per-chip
-arithmetic, and no program runs on them. A program on a mesh of more
-than one device runs only on ``meta``, as a count of the whole program;
-anywhere else it raises (``check_runnable``).
+A ``Mesh`` is its axis sizes and names and the one device the calling
+process runs its programs on — the card (``make_mesh((1, 1), ...)``),
+the CPU when asked for, or ``meta`` (shapes only: nothing is allocated
+or computed, which is how the roofline counts a program). The production
+meshes are abstract (``device`` None): their sizes drive the spec rules
+and the per-chip arithmetic, and no program runs on them.
+
+Inside a ``torch.distributed`` world whose size is the mesh's (one
+process a rank, started by ``launch/ranks.py``), ``make_mesh`` gives the
+calling rank's mesh: its coordinates (rank r sits at r's row-major
+coordinates over the axes) and, for each axis of more than one rank, an
+``AxisShard`` — its coordinate on the axis and the process group of its
+axis line, the groups that ``models/collectives.py`` reduces and gathers
+over. A program on such a mesh holds and computes the rank's shards
+(``launch/sharding.py``, ``launch/steps.py``). Outside a world a mesh of
+more than one device runs only on ``meta``, as a count of the whole
+program; anywhere else it raises (``check_runnable``).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as tdist
 
 from repro_torch import device as _dev
+from repro_torch.models.collectives import AxisShard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +40,23 @@ class Mesh:
     axis_sizes: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     device: Optional[torch.device] = None      # None: abstract
+    # in a world: the calling rank's coordinates, and per axis its
+    # AxisShard (None for an axis of one rank); () outside a world
+    coords: Tuple[int, ...] = ()
+    shards: Tuple[Optional[AxisShard], ...] = ()
+
+    @property
+    def in_world(self) -> bool:
+        """Whether this is a rank's mesh in a ``torch.distributed`` world
+        of more than one rank."""
+        return bool(self.coords) and self.size > 1
+
+    def axis_shard(self, axis: str) -> Optional[AxisShard]:
+        """The calling rank's place on ``axis``, or None (an axis of one
+        rank, or a mesh outside a world)."""
+        if not self.shards or axis not in self.axis_names:
+            return None
+        return self.shards[self.axis_names.index(axis)]
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -48,12 +76,72 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh(shape, axes)
 
 
+_LINES: Dict[Tuple, Tuple[Tuple[int, ...], Tuple[Optional[AxisShard], ...]]] \
+    = {}
+
+
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
               device: _dev.DeviceLike = None) -> Mesh:
     """A mesh whose programs run on ``device`` (the card unless asked
     otherwise): ``make_mesh((1, 1), ("data", "model"))`` is the one-card
-    mesh."""
-    return Mesh(tuple(shape), tuple(axes), _dev.resolve(device))
+    mesh. Inside a ``torch.distributed`` world of ``prod(shape)`` ranks
+    it is the calling rank's mesh, with its coordinates and its axis
+    lines' groups; every rank must call it with the same shape, since
+    each axis line's group is created by all of them (once a process,
+    then reused). A world of another size raises."""
+    shape, axes = tuple(shape), tuple(axes)
+    dev = _dev.resolve(device)
+    n = math.prod(shape)
+    if n == 1 or not (tdist.is_available() and tdist.is_initialized()):
+        return Mesh(shape, axes, dev)
+    if tdist.get_world_size() != n:
+        raise ValueError(f"a {shape} mesh in a world of "
+                         f"{tdist.get_world_size()} ranks")
+    key = (shape, axes, id(tdist.group.WORLD))
+    if key not in _LINES:
+        _LINES[key] = _rank_lines(shape, tdist.get_rank())
+    coords, shards = _LINES[key]
+    return Mesh(shape, axes, dev, coords, shards)
+
+
+def _rank_lines(shape, rank: int):
+    """The coordinates of ``rank`` and its AxisShard per axis: every
+    line of every axis of more than one rank gets a group (each process
+    creates them all, in one order), and the rank keeps its own."""
+    coords = _unravel(rank, shape)
+    shards = []
+    for a, size in enumerate(shape):
+        if size == 1:
+            shards.append(None)
+            continue
+        mine = None
+        others = [range(s) for i, s in enumerate(shape) if i != a]
+        for rest in itertools.product(*others):
+            line = []
+            for i in range(size):
+                c = list(rest)
+                c.insert(a, i)
+                line.append(_ravel(c, shape))
+            group = tdist.new_group(ranks=line)
+            if rank in line:
+                mine = AxisShard(coords[a], size, group, tuple(line))
+        shards.append(mine)
+    return coords, tuple(shards)
+
+
+def _unravel(rank: int, shape) -> Tuple[int, ...]:
+    out = []
+    for s in reversed(shape):
+        out.append(rank % s)
+        rank //= s
+    return tuple(reversed(out))
+
+
+def _ravel(coords, shape) -> int:
+    r = 0
+    for c, s in zip(coords, shape):
+        r = r * s + c
+    return r
 
 
 def shape_only(mesh: Mesh) -> Mesh:
@@ -64,14 +152,16 @@ def shape_only(mesh: Mesh) -> Mesh:
 
 def check_runnable(mesh: Mesh) -> torch.device:
     """The device a program on ``mesh`` runs on; raises for an abstract
-    mesh and for more than one device off ``meta``."""
+    mesh and, off ``meta``, for a mesh of more than one device outside a
+    world (the caller must be one of its ranks: ``launch/ranks.py``)."""
     if mesh.device is None:
         raise ValueError("an abstract mesh holds sizes for the spec rules; "
                          "build the program on make_mesh(...) to run it")
-    if mesh.size > 1 and mesh.device.type != "meta":
+    if mesh.size > 1 and mesh.device.type != "meta" and not mesh.in_world:
         raise NotImplementedError(
-            f"a program over {mesh.size} devices needs a torch.distributed "
-            "mesh — see ROADMAP queue 1 item 14 (a multi-GPU mesh)")
+            f"a program over {mesh.size} devices runs in a world of as "
+            "many ranks (launch/ranks.py), each calling make_mesh — see "
+            "ROADMAP queue 1 item 14 (a multi-GPU mesh)")
     return mesh.device
 
 

@@ -1,18 +1,32 @@
 """Serving launcher: build P's (prefill) and D's (decode) programs for an
-assigned architecture on the one-card mesh and run them: prefill →
-handoff → a few greedy decode steps, each program timed (PyTorch port of
+assigned architecture on a mesh and run them: prefill → handoff → a few
+greedy decode steps, each program timed (PyTorch port of
 ``repro.launch.serve``'s ``compile_programs``; XLA's "compiled, GiB/chip"
 becomes seconds and peak GiB of a run on the card).
 
   python -m repro_torch.launch.serve --arch qwen3-4b --shape decode_32k --batch 2
+  python -m repro_torch.launch.serve --arch qwen3-4b --mesh 1x2
+
+``--mesh 1x2`` (data x model) runs the programs with tensor parallelism
+on a model axis of 2: a world of two ranks (``launch/ranks.py``; gloo
+when they share one card, NCCL when each has its own), each holding the
+shards the launch layer's specs give it and computing with the
+collectives they force. It prints one record: each program's seconds
+(rank 0's), the backend, every rank's peak GiB, its parameter and cache
+bytes beside ``per_chip_bytes``, its collective seconds on the host clock
+and the tokens (the vocab-sharded logits gathered for the greedy token).
+Two ranks on one card run the two-card program — the same shards,
+collectives and bytes a rank — but not its time. The dense and MoE
+families serve there; DeepSeek-V2-Lite's MLA runs its prefill
+(``--shape prefill_32k``); the rest raise (ROADMAP queue 1 item 14).
 
 Weights are random from ``--seed``, tokens from ``default_rng(seed)``.
 Every assigned arch's decode runs on the card: D's dense caches of a
 sliding-window arch (mixtral-8x7b, recurrentgemma-9b) are rings of the
 window and qwen1.5-32b's are float8 e4m3 (the handoff's cast), and both
 go through the flash_decode kernel; the rest through flash.
-``--layers`` cuts the depth. One card only:
-``--multi-pod`` raises (ROADMAP queue 1 item 14).
+``--layers`` cuts the depth. ``--multi-pod`` raises: its pod axis is
+ROADMAP queue 1 item 14.
 
 ``--demo`` runs ``examples/torch_serve_disagg.py --requests 8 --max-new
 8`` in a subprocess, as the reference's ``--demo`` runs its example:
@@ -30,8 +44,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,67 +64,208 @@ def _peak_gib(dev: torch.device) -> Optional[float]:
 
 def run_programs(arch: str, shape: str = "decode_32k", batch: int = 2,
                  steps: int = 4, layers: Optional[int] = None, seed: int = 0,
-                 device=None) -> Dict[str, Any]:
+                 device=None, mesh: Tuple[int, int] = (1, 1),
+                 keep_logits: bool = False) -> Dict[str, Any]:
     """Prefill ``batch`` random prompts of the prefill cell's length, hand
     the caches to D and decode ``steps`` greedy tokens through the step
-    builders on the one-card mesh. Returns each program's seconds, the
-    peak GiB (card only), the tokens and the device's name."""
+    builders (``shape="prefill_32k"`` or ``steps=0``: the prefill alone).
+    ``mesh`` (data, model): the one-card mesh by default, or with a model
+    axis above 1 a world of as many ranks (``launch.ranks``). Every rank,
+    the lone one included, runs ``programs_on_rank``; returns their
+    ``mesh_record`` (each program's seconds, the tokens, the device's
+    name, per rank peak GiB, bytes, collectives and launches) with the
+    arch, batch and mesh. ``keep_logits`` adds the prefill's last logits
+    (float32, gathered)."""
+    from repro_torch import device as _dev
+    from repro_torch.launch import ranks
+    from repro_torch.launch.cells import get_cell
+    cell = get_cell(arch, shape)
+    if cell.skip:
+        return {"arch": arch, "shape": shape, "skip": cell.skip}
+    args = (arch, shape, batch, steps, layers, seed, tuple(mesh), (),
+            keep_logits)
+    if math.prod(mesh) > 1:
+        with ranks.start(math.prod(mesh), device) as world:
+            recs = world.run(programs_on_rank, *args)
+        backend = world.backend
+    else:
+        alone = ranks.Rank(0, 1, None, _dev.resolve(device))
+        recs, backend = [programs_on_rank(alone, *args)], None
+    return {"arch": arch, "batch": batch, "mesh": list(mesh),
+            **mesh_record(recs, backend)}
+
+
+def programs_on_rank(rank, arch: str, shape: str, batch: int, steps: int,
+                     layers: Optional[int], seed: int,
+                     mesh_shape: Tuple[int, int],
+                     check_layers: Sequence[int] = (),
+                     keep_logits: bool = False) -> Dict[str, Any]:
+    """One rank's part of ``run_programs`` (run by ``launch.ranks`` on a
+    mesh of ranks; called directly on the one-card mesh, where the
+    collectives are the identity): its mesh, its shards of the seed's
+    weights (drawn whole one layer at a time and cut,
+    ``sharding.param_keeper``), the same prompts on every rank, then
+    prefill → handoff → ``steps`` greedy steps, the logits gathered for
+    each token. Returns the rank's record (CPU values): seconds, peak
+    GiB, bytes beside ``per_chip_bytes``, collective calls / seconds /
+    bytes, launches, tokens, the handoff check of ``check_layers``, and
+    the gathered prefill logits when ``keep_logits``."""
+    import gc
+    from repro_torch.configs.base import torch_dtype
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as SH
     from repro_torch.launch.cells import get_cell
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import (make_handoff_artifacts,
                                           make_prefill_artifacts,
                                           make_serve_artifacts, random_inputs)
+    from repro_torch.models import collectives as C
     from repro_torch.models import model as M
-
-    mesh = make_mesh((1, 1), ("data", "model"), device)
-    dev = mesh.device
-    cell = get_cell(arch, shape)
-    if cell.skip:
-        return {"arch": arch, "shape": shape, "skip": cell.skip}
-    cell_p = get_cell(arch, "prefill_32k")
-    cell_d = get_cell(arch, "decode_32k")
-    cell_p = dataclasses.replace(cell_p, batch=batch)
-    cell_d = dataclasses.replace(cell_d, batch=batch)
+    dev = rank.device
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    mesh = make_mesh(mesh_shape, ("data", "model"), dev)
+    shard = mesh.axis_shard("model")
+    sizes = mesh.shape
     override = {"num_layers": layers} if layers else None
-    prefill = make_prefill_artifacts(cell_p, mesh, layer_override=override)
-    serve = make_serve_artifacts(cell_d, mesh, layer_override=override)
-    handoff = make_handoff_artifacts(arch, mesh, layer_override=override,
-                                     batch=batch)
-    params = M.init_params(prefill.cfg, seed=seed, device=dev)
-    inputs = random_inputs(prefill.abstract_args[1], prefill.cfg.vocab_size,
-                           seed, dev)
+    cell_p = dataclasses.replace(get_cell(arch, "prefill_32k"), batch=batch)
+    cell_d = dataclasses.replace(get_cell(arch, "decode_32k"), batch=batch)
+    decode = steps > 0 and shape != "prefill_32k"
+    pre = make_prefill_artifacts(cell_p, mesh, layer_override=override)
+    pspecs, cspecs_p = pre.in_shardings[0], pre.out_shardings[1]
+    params = M.init_params(pre.cfg, seed=seed, device=dev,
+                           keep=SH.param_keeper(pspecs, mesh))
+    inputs = random_inputs(pre.abstract_args[1], pre.cfg.vocab_size, seed,
+                           dev)
+    abs_p = M.abstract_caches(pre.cfg, batch, cell_p.seq_len,
+                              torch_dtype(cell_p.cache_dtype))
+    nbytes = {"params": [SH.local_bytes(params), SH.per_chip_bytes(
+        pre.abstract_args[0], pspecs, sizes)]}
+
+    def gathered(logits):
+        return C.all_gather(logits, logits.dim() - 1, shard)
+
+    C.reset_stats()
+    ops.reset_launch_counts()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     secs: Dict[str, Any] = {}
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+        else dev.type
+    rec: Dict[str, Any] = {"rank": rank.index, "backend": rank.backend,
+                           "device": name}
     with torch.no_grad():
         _sync(dev)
         t0 = time.perf_counter()
-        last, caches_p = prefill.fn(params, inputs)
+        last, caches_p = pre.fn(params, inputs)
+        last = gathered(last)
         _sync(dev)
         secs["prefill"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        caches = handoff.fn(caches_p)
-        _sync(dev)
-        secs["handoff"] = time.perf_counter() - t0
-        del caches_p
-        pos = cell_p.seq_len
+        nbytes["caches_p"] = [SH.local_bytes(caches_p), SH.per_chip_bytes(
+            abs_p, cspecs_p, sizes)]
         tok = last.argmax(-1).to(torch.int32)[:, None]
         tokens = [tok]
-        secs["decode"] = []
-        for i in range(steps):
-            io = {"tokens": tok,
-                  "positions": torch.full_like(tok, pos + i)}
+        if keep_logits:
+            rec["prefill_logits"] = last.float().cpu()
+        if decode:
+            serve = make_serve_artifacts(cell_d, mesh,
+                                         layer_override=override)
+            ho = make_handoff_artifacts(arch, mesh, layer_override=override,
+                                        batch=batch)
             t0 = time.perf_counter()
-            logits, caches = serve.fn(params, caches, io, q_offset=pos + i)
-            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            caches = ho.fn(caches_p)
             _sync(dev)
-            secs["decode"].append(time.perf_counter() - t0)
-            tokens.append(tok)
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type
-    return {"arch": arch, "batch": batch, "seq_len": cell_d.seq_len,
-            "layers": prefill.cfg.num_layers, "device": name,
-            "seconds": secs, "peak_gib": _peak_gib(dev),
-            "tokens": torch.cat(tokens, 1).tolist()}
+            secs["handoff"] = time.perf_counter() - t0
+            nbytes["caches_d"] = [SH.local_bytes(caches), SH.per_chip_bytes(
+                serve.abstract_args[1], serve.in_shardings[1], sizes)]
+            rec["handoff_held"] = {
+                int(i): handoff_held(caches_p, caches, i, ho, mesh)
+                for i in check_layers}
+            del caches_p
+            pos = cell_p.seq_len
+            secs["decode"] = []
+            for i in range(steps):
+                io = {"tokens": tok,
+                      "positions": torch.full_like(tok, pos + i)}
+                t0 = time.perf_counter()
+                logits, caches = serve.fn(params, caches, io,
+                                          q_offset=pos + i)
+                tok = gathered(logits[:, -1]).argmax(-1).to(
+                    torch.int32)[:, None]
+                _sync(dev)
+                secs["decode"].append(time.perf_counter() - t0)
+                tokens.append(tok)
+            del caches
+        else:
+            del caches_p
+    rec.update(seconds=secs, peak_gib=_peak_gib(dev), bytes=nbytes,
+               collectives=C.stats(), launches=ops.launch_counts(),
+               tokens=torch.cat(tokens, 1).tolist(),
+               layers=pre.cfg.num_layers)
+    return rec
+
+
+def handoff_held(caches_p, caches_d, layer: int, ho, mesh) -> bool:
+    """Whether the rank's D shards of attention layer ``layer`` (counted
+    over the groups in order), gathered over the model axis, are bit for
+    bit the realignment (``steps.realign_caches``: head slice, capacity
+    pad, cast) of P's shards of it gathered likewise: the handoff's
+    reshard held to a direct slice of the whole. A collective: every rank
+    calls it."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import realign_caches
+    from repro_torch.models import collectives as C
+    shard = mesh.axis_shard("model")
+    for gi, group in enumerate(caches_p):
+        for pi, cache in enumerate(group):
+            count = cache.pos.shape[0]
+            if layer >= count:
+                layer -= count
+                continue
+
+            def whole(c, specs):
+                out = {}
+                for name, x in vars(c).items():
+                    if isinstance(x, torch.Tensor):
+                        d = SH.model_dim(specs[f"[{gi}][{pi}].{name}"])
+                        x = x[layer:layer + 1]
+                        out[name] = x if d is None else \
+                            C.all_gather(x, d, shard)
+                return dataclasses.replace(c, **out)
+
+            got = whole(caches_d[gi][pi], ho.out_shardings)
+            want = realign_caches(whole(cache, ho.in_shardings[0]), got)
+            return all(torch.equal(_raw(a), _raw(b)) for (_, a), (_, b) in
+                       zip(SH.named_leaves(want), SH.named_leaves(got)))
+    raise IndexError(f"no attention layer {layer}")
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def mesh_record(recs: List[Dict[str, Any]], backend: Optional[str]) -> Dict[str, Any]:
+    """The launcher's record of a run from the ranks' records: rank 0's
+    seconds, tokens (every rank's must agree) and device, the backend
+    (None for the one-card mesh), and per rank its peak GiB, bytes beside
+    ``per_chip_bytes``, collectives and launches."""
+    first = recs[0]
+    if any(r["tokens"] != first["tokens"] for r in recs):
+        raise AssertionError("the ranks' greedy tokens differ")
+    out = {"backend": backend, "seconds": first["seconds"],
+           "tokens": first["tokens"], "layers": first["layers"],
+           "device": first["device"],
+           "ranks": [{k: r[k] for k in ("rank", "device", "peak_gib",
+                                         "bytes", "collectives", "launches")}
+                     for r in recs]}
+    for key in ("handoff_held", "prefill_logits"):
+        if key in first:
+            out[key] = first[key]
+    if "handoff_held" in first:
+        out["handoff_held_all_ranks"] = all(
+            all(r["handoff_held"].values()) for r in recs)
+    return out
 
 
 def demo(connector: str = "inproc", two_process: bool = False,
@@ -155,8 +311,11 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain routes")
+    ap.add_argument("--mesh", default="1x1",
+                    help="data x model, e.g. 1x2: tensor parallelism on a "
+                         "model axis of 2, one process a rank")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not on one card: raises")
+                    help="the pod axis: raises (ROADMAP queue 1 item 14)")
     ap.add_argument("--demo", action="store_true",
                     help="run examples/torch_serve_disagg.py on 8 requests")
     ap.add_argument("--connector", default="inproc",
@@ -185,10 +344,13 @@ def main(argv=None) -> None:
         return
     if args.multi_pod:
         raise NotImplementedError(
-            "--multi-pod needs a torch.distributed mesh — see ROADMAP "
-            "queue 1 item 14 (a multi-GPU mesh)")
+            "--multi-pod: the pod axis of a mesh of ranks is not run yet — "
+            "see ROADMAP queue 1 item 14 (a multi-GPU mesh)")
+    mesh = tuple(int(n) for n in args.mesh.lower().split("x"))
+    if len(mesh) != 2:
+        ap.error("--mesh is data x model, e.g. 1x2")
     rec = run_programs(args.arch, args.shape, args.batch, args.steps,
-                       args.layers, args.seed, args.device)
+                       args.layers, args.seed, args.device, mesh=mesh)
     print(json.dumps(rec))
 
 

@@ -27,8 +27,16 @@ Leaf names come from those paths; cache fields are ``k``, ``v``, ``pos``,
 ``ckv``, ``kpe``, ``cross_k``, ``cross_v``, ``mem_len``, ``h`` and
 ``conv``.
 
-On one card every spec is satisfied by placing the tree on the card:
-``to_shardings`` does that, and raises for a mesh of more devices.
+On one card every spec is satisfied by placing the tree on the card.
+On a rank's mesh in a ``torch.distributed`` world (``launch/mesh.py``)
+each rank holds its slice of every leaf: along each dim whose spec names
+axes of more than one rank, the equal part at the rank's coordinates
+(``rank_slice``). ``to_shardings`` and ``shard_params`` cut whole trees
+so; ``param_keeper`` cuts parameters as ``model.init_params`` draws
+them; ``reshard`` moves a leaf from one spec to another across the model
+axis (the P→D handoff's head_dim → capacity reshard); ``local_bytes``
+is what a rank holds, which ``per_chip_bytes`` predicts from the whole
+tree and the specs.
 """
 from __future__ import annotations
 
@@ -40,7 +48,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import Mesh, check_runnable
-from repro_torch.training.tree import leaves_with_paths, tree_map
+from repro_torch.models import collectives as C
+from repro_torch.training.tree import leaves_with_paths, tree_map, unflatten
 
 Spec = Tuple[Any, ...]
 Specs = Dict[str, Spec]
@@ -296,13 +305,157 @@ def batch_pspecs(abstract_batch: Any, data_axes: Tuple[str, ...],
 # --------------------------------------------------------------------------- #
 # Placement and per-chip sizes
 # --------------------------------------------------------------------------- #
-def to_shardings(mesh: Mesh, tree: Any) -> Any:
-    """``tree`` on the mesh's device (every spec holds trivially on one
-    device); tensors already there are returned as they are. Raises for
-    an abstract mesh and for more than one device (``check_runnable``)."""
+def _entry_axes(entry) -> Tuple[str, ...]:
+    return tuple(entry) if isinstance(entry, tuple) else \
+        (entry,) if entry else ()
+
+
+def _part(mesh: Mesh, axes: Tuple[str, ...]) -> Tuple[int, int]:
+    """(ways, index) of the calling rank along a spec entry's axes
+    (row-major over them, as ``PartitionSpec`` reads a tuple)."""
+    ways, index = 1, 0
+    for a in axes:
+        i = mesh.axis_names.index(a)
+        ways *= mesh.axis_sizes[i]
+        index = index * mesh.axis_sizes[i] + (mesh.coords[i]
+                                              if mesh.coords else 0)
+    return ways, index
+
+
+def rank_slice(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """The calling rank's part of a whole leaf ``x`` under ``spec`` (a
+    view): along each dim whose entry names axes of more than one rank,
+    the equal part at the rank's coordinates. Outside a world, ``x``."""
+    if not mesh.in_world:
+        return x
+    for d, entry in enumerate(spec):
+        ways, index = _part(mesh, _entry_axes(entry))
+        if ways == 1:
+            continue
+        n = x.shape[d]
+        if n % ways:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not split "
+                             f"{ways} ways ({spec})")
+        x = x.narrow(d, index * (n // ways), n // ways)
+    return x
+
+
+def local_shape(shape: Tuple[int, ...], spec: Spec,
+                mesh: Mesh) -> Tuple[int, ...]:
+    """The shape of a rank's part of a leaf of ``shape``."""
+    out = list(shape)
+    if mesh.in_world:
+        for d, entry in enumerate(spec):
+            out[d] //= _part(mesh, _entry_axes(entry))[0]
+    return tuple(out)
+
+
+def to_shardings(mesh: Mesh, tree: Any, specs: Optional[Specs] = None
+                 ) -> Any:
+    """``tree`` on the mesh's device; with ``specs`` ({path: spec} over
+    its tensor leaves) on a rank's mesh, each leaf of the whole tree cut
+    to the rank's part (``rank_slice``, a copy of its own). On one device
+    every spec holds trivially: the tree is placed there, tensors already
+    there returned as they are. Raises for an abstract mesh and for more
+    than one device outside a world (``check_runnable``)."""
     dev = check_runnable(mesh)
-    return tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor)
-                    else x, tree)
+    if not (specs is not None and mesh.in_world):
+        return tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor)
+                        else x, tree)
+    flat = [rank_slice(x, specs[p], mesh).to(dev).clone()
+            if isinstance(x, torch.Tensor) else x
+            for p, x in leaves_with_paths(tree)]
+    return unflatten(tree, flat)
+
+
+def shard_params(params: Any, specs: Specs, mesh: Mesh) -> Any:
+    """Whole parameters (any device) → the rank's slices on the mesh's
+    device, each a tensor of its own (the whole leaves can be freed)."""
+    return to_shardings(mesh, params, specs)
+
+
+def param_keeper(specs: Specs, mesh: Mesh):
+    """``model.init_params``' ``keep``: a leaf drawn at ``path`` (one
+    layer of a stacked group's leaf, or a whole top-level leaf) → a copy
+    of the rank's slice of it under ``specs[path]`` (a stacked leaf's spec
+    less its leading layer entry)."""
+    def keep(path: str, x: torch.Tensor) -> torch.Tensor:
+        spec = specs[path]
+        if len(spec) == x.dim() + 1:
+            spec = spec[1:]
+        part = rank_slice(x, spec, mesh)
+        return part.clone() if part is not x else x
+    return keep
+
+
+def check_local(mesh: Mesh, tree: Any, abstract: Any, specs: Specs) -> None:
+    """Raise ValueError unless every tensor leaf of ``tree`` has the
+    rank's shape of its ``abstract`` (whole) leaf under ``specs``."""
+    want = dict(named_leaves(abstract))
+    for p, x in named_leaves(tree):
+        shape = local_shape(tuple(want[p].shape), specs[p], mesh)
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{p}: {tuple(x.shape)} on this rank, the "
+                             f"specs give {shape}")
+
+
+def model_dim(spec: Spec, axis: str = "model") -> Optional[int]:
+    """The dim that ``spec`` shards over ``axis``, or None."""
+    for d, entry in enumerate(spec):
+        if axis in _entry_axes(entry):
+            return d
+    return None
+
+
+def reshard(x: torch.Tensor, src: Spec, dst: Spec, mesh: Mesh,
+            axis: str = "model") -> torch.Tensor:
+    """A rank's part of a leaf under ``src`` → its part under ``dst``,
+    across ``axis`` (the specs may differ on that axis alone): replicated
+    → a slice; sharded → replicated, ``all_gather``; sharded on dim a →
+    sharded on dim b, a block exchange (the rank's dim-a columns of every
+    other rank's dim-b share go to that rank; one exchange a slice of the
+    leading dim when neither is it, which bounds the staging). Every
+    block has one shape, so dim b must split evenly (the handoff pads the
+    capacity first)."""
+    shard = mesh.axis_shard(axis)
+    a, b = model_dim(src, axis), model_dim(dst, axis)
+    if shard is None or a == b:
+        return x
+    if a is None:
+        return x.narrow(b, *_start_len(shard, x.shape[b])).clone()
+    if b is None:
+        return C.all_gather(x, a, shard)
+    if 0 not in (a, b) and x.dim() > 2:
+        shape = list(x.shape)
+        shape[a] *= shard.size
+        shape[b] //= shard.size
+        out = x.new_empty(shape)
+        for i in range(x.shape[0]):
+            out[i] = _exchange_dims(x[i], a - 1, b - 1, shard)
+        return out
+    return _exchange_dims(x, a, b, shard)
+
+
+def _start_len(shard: C.AxisShard, n: int) -> Tuple[int, int]:
+    lo, hi = shard.part(n)
+    return lo, hi - lo
+
+
+def _exchange_dims(x: torch.Tensor, a: int, b: int,
+                   shard: C.AxisShard) -> torch.Tensor:
+    n = x.shape[b]
+    k = n // shard.size
+    if n % shard.size:
+        raise ValueError(f"dim {b} of {tuple(x.shape)} does not split "
+                         f"{shard.size} ways")
+    got = C.exchange([x.narrow(b, j * k, k) for j in range(shard.size)],
+                     shard)
+    return torch.cat(got, dim=a)
+
+
+def local_bytes(tree: Any) -> int:
+    """Bytes of a tree's tensor leaves as this process holds them."""
+    return sum(x.numel() * x.element_size() for _, x in named_leaves(tree))
 
 
 def spec_ways(spec: Spec, axis_sizes: Dict[str, int]) -> int:

@@ -19,8 +19,17 @@ no XLA program, so nothing is lowered (no ``lower()``); donation is the
 in-place update the train step and the cache writes already do; the
 shardings are specs (``launch.sharding``), satisfied on one card by
 placing the arguments there. ``fn`` runs on the one-card mesh (card or
-CPU) or, for any mesh, on ``meta`` as a shape-only count
-(``mesh.check_runnable``). The handoff takes a batch (deliberate
+CPU), for any mesh on ``meta`` as a shape-only count
+(``mesh.check_runnable``), and on a rank's mesh in a world of ranks
+(``launch/ranks.py``; a model axis above 1, the data axis 1): there its
+arguments are the rank's shards (``sharding.shard_params`` /
+``param_keeper``; the caches as the builders make and hand them off),
+the prefill makes head_dim-sharded caches, the handoff reshards them to
+D's capacity-sharded caches by a block exchange between the ranks, and
+the logits are the rank's vocab shard. On such a mesh the serving steps
+cover the dense, MoE and MLA-prefill families at full capacity in
+bfloat16 or float32; the rest raise ``NotImplementedError`` (ROADMAP
+queue 1 item 14), as does training. The handoff takes a batch (deliberate
 difference B12 in ROADMAP): one card cannot hold the prefill cell's 32
 sequences of 32k.
 """
@@ -76,6 +85,48 @@ def _dctx(mesh: Mesh, dp, m, *, mode: str) -> dist.DistContext:
         moe_shard_map=True)
 
 
+def _check_covered(cfg: ModelConfig, mesh: Mesh, program: str,
+                   cache_dtype: Optional[str] = None) -> None:
+    """Raise NotImplementedError for what a rank's mesh does not run yet:
+    a data axis above 1, training, and on a model axis above 1 the ring
+    (sliding-window), RG-LRU, SSD, vision and encoder-decoder families,
+    float8 caches and MLA's decode and handoff."""
+    if not mesh.in_world:
+        return
+    item = "see ROADMAP queue 1 item 14 (a multi-GPU mesh)"
+    if any(mesh.shape[a] > 1 for a in data_axes(mesh)):
+        raise NotImplementedError(f"a data axis above 1 on a world of "
+                                  f"ranks — {item}")
+    if program == "train":
+        raise NotImplementedError(f"training on a world of ranks — {item}")
+    family = ("sliding-window rings" if M._window(cfg) else
+              "RG-LRU" if cfg.recurrent is not None else
+              "SSD" if cfg.ssm is not None else
+              "vision" if cfg.frontend.kind == "vision" else
+              "encoder-decoder" if cfg.is_enc_dec else
+              "MLA decode" if M._is_mla(cfg) and program != "prefill" else
+              "float8 caches" if cache_dtype and "float8" in cache_dtype
+              else None)
+    if family:
+        raise NotImplementedError(f"{cfg.name}: {program} of the {family} "
+                                  f"on a model axis above 1 — {item}")
+
+
+def _new_caches(mesh: Mesh, abstract: Any, specs: SH.Specs, make: Callable):
+    """Zeroed caches (``pos`` -1): ``make()`` on one device; on a rank's
+    mesh each leaf at the rank's shape under ``specs``."""
+    if not mesh.in_world:
+        return make()
+    flat = []
+    for p, x in leaves_with_paths(abstract):
+        if isinstance(x, torch.Tensor):
+            shape = SH.local_shape(tuple(x.shape), specs[p], mesh)
+            fill = -1 if SH.path_names(p)[-1] == "pos" else 0
+            x = torch.full(shape, fill, dtype=x.dtype, device=mesh.device)
+        flat.append(x)
+    return unflatten(abstract, flat)
+
+
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -124,6 +175,7 @@ def make_train_artifacts(cell: Cell, mesh: Mesh, *,
                          ) -> StepArtifacts:
     dp, dp_size, m, m_size = _axis_sizes(mesh)
     cfg = _deployed(cell.arch, m_size, "train", layer_override)
+    _check_covered(cfg, mesh, "train")
     dctx = _dctx(mesh, dp, m, mode="train")
 
     state_abs = abstract_train_state(cfg)
@@ -157,6 +209,7 @@ def make_prefill_artifacts(cell: Cell, mesh: Mesh, *,
                            ) -> StepArtifacts:
     dp, dp_size, m, m_size = _axis_sizes(mesh)
     cfg = _deployed(cell.arch, m_size, "prefill", layer_override)
+    _check_covered(cfg, mesh, "prefill", cell.cache_dtype)
     dctx = _dctx(mesh, dp, m, mode="prefill")
     b, s = cell.batch, cell.seq_len
     mem_len = cfg.max_source_len if cfg.is_enc_dec else 0
@@ -173,9 +226,13 @@ def make_prefill_artifacts(cell: Cell, mesh: Mesh, *,
 
     def prefill_step(params, inputs):
         params, inputs = SH.to_shardings(mesh, (params, inputs))
+        if mesh.in_world:
+            SH.check_local(mesh, params, params_abs, pspecs)
         with dist.use(dctx):
-            caches = M.init_caches(cfg, b, s, dtype, device=mesh.device,
-                                   mem_len=mem_len)
+            caches = _new_caches(mesh, caches_abs, cspecs,
+                                 lambda: M.init_caches(
+                                     cfg, b, s, dtype, device=mesh.device,
+                                     mem_len=mem_len))
             return M.prefill(params, cfg, inputs, caches)
 
     return StepArtifacts(name=f"{cell.name}:prefill", cfg=cfg,
@@ -202,6 +259,7 @@ def make_serve_artifacts(cell: Cell, mesh: Mesh, *,
     flash."""
     dp, dp_size, m, m_size = _axis_sizes(mesh)
     cfg = _deployed(cell.arch, m_size, "decode", layer_override)
+    _check_covered(cfg, mesh, "decode", cell.cache_dtype)
     dctx = _dctx(mesh, dp, m, mode="decode")
     b = cell.batch
     cap = cell.decode_capacity()
@@ -222,6 +280,9 @@ def make_serve_artifacts(cell: Cell, mesh: Mesh, *,
     def serve_step(params, caches, io, q_offset: Optional[int] = None):
         check_runnable(mesh)
         params, caches, io = SH.to_shardings(mesh, (params, caches, io))
+        if mesh.in_world:
+            SH.check_local(mesh, params, params_abs, pspecs)
+            SH.check_local(mesh, caches, caches_abs, cspecs)
         with dist.use(dctx):
             return M.decode_step(
                 params, cfg, io["tokens"], io["positions"], caches,
@@ -290,16 +351,20 @@ def make_handoff_artifacts(arch: str, mesh: Mesh, *,
       * precision alignment: cast to the decode cell's KV dtype (float8
         for qwen1.5-32b);
       * parallel-strategy alignment: the specs go from head_dim- to
-        capacity-sharded (one card: a spec change only).
+        capacity-sharded (one card: a spec change only; on a rank's mesh
+        a block exchange, ``sharding.reshard``: rank r keeps its head_dim
+        columns of its own capacity share and receives every other
+        rank's columns of it).
 
     ``batch``: the sequences handed off (None: the prefill cell's 32).
     Returns new tensors in D's tree (``full_capacity`` set for an arch
-    without a window)."""
+    without a window); on a rank's mesh, the rank's shards of them."""
     dp, dp_size, m, m_size = _axis_sizes(mesh)
     cell_p = get_cell(arch, "prefill_32k")
     cell_d = get_cell(arch, "decode_32k")
     cfg_p = _deployed(arch, m_size, "prefill", layer_override)
     cfg_d = _deployed(arch, m_size, "decode", layer_override)
+    _check_covered(cfg_d, mesh, "handoff", cell_d.cache_dtype)
     b = cell_p.batch if batch is None else batch
     s, cap = cell_p.seq_len, cell_d.decode_capacity()
     mem_len = cfg_p.max_source_len if cfg_p.is_enc_dec else 0
@@ -316,7 +381,15 @@ def make_handoff_artifacts(arch: str, mesh: Mesh, *,
                               mode="decode")
 
     def handoff(caches):
-        return realign_caches(SH.to_shardings(mesh, caches), caches_d)
+        caches = SH.to_shardings(mesh, caches)
+        if not mesh.in_world:
+            return realign_caches(caches, caches_d)
+        SH.check_local(mesh, caches, caches_p, specs_p)
+        out = realign_caches(caches, caches_d)   # P's specs, D's sizes
+        flat = [SH.reshard(x, specs_p[p], specs_d[p], mesh)
+                if isinstance(x, torch.Tensor) else x
+                for p, x in leaves_with_paths(out)]
+        return unflatten(caches_d, flat)
 
     return StepArtifacts(name=f"{arch}@handoff", cfg=cfg_d, fn=handoff,
                          abstract_args=(caches_p,), in_shardings=(specs_p,),

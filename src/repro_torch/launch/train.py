@@ -94,8 +94,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.multi_pod:
         raise NotImplementedError(
-            "--multi-pod needs a torch.distributed mesh — see ROADMAP "
-            "queue 1 item 14 (a multi-GPU mesh)")
+            "--multi-pod: training on a mesh of ranks is not run yet — "
+            "see ROADMAP queue 1 item 14 (a multi-GPU mesh)")
     print(json.dumps(run_steps(args.arch, args.batch, args.n_micro,
                                args.steps, args.layers, args.seed,
                                args.device)))

@@ -14,7 +14,8 @@ one to switch on:
                     (``layers._moe_mlp_capacity``) in place of the exact
                     per-expert route; on a mesh whose model axis is 1 (one
                     card) the reference's shard_map body is that function
-                    with a sum over one member.
+                    with a sum over one member, on a rank's mesh the
+                    rank's expert slices summed over the model axis.
   * moe_capacity_factor, chunk_size, attn_p_bf16 — as in the reference.
   * vocab_parallel — kept for parity; no port code reads it (nor does the
                     reference's model code).
@@ -24,7 +25,13 @@ one to switch on:
                     covers every layer), and one device has no sharding
                     constraint to anchor the residual stream to.
 
-``mesh`` is a ``repro_torch.launch.mesh.Mesh`` or None.
+``mesh`` is a ``repro_torch.launch.mesh.Mesh`` or None. On a rank's
+mesh in a ``torch.distributed`` world it carries the rank's place on
+each axis and the axis lines' groups; ``model_shard()`` gives the model
+axis' (an ``AxisShard``), through which the layers hold the rank's
+shards and reduce over the axis (``models/collectives.py``). None — a
+model axis of 1, a mesh outside a world (one card, or ``meta``'s count of
+the whole program), no mesh — means the layers run the whole model.
 """
 from __future__ import annotations
 
@@ -46,6 +53,14 @@ class DistContext:
     attn_p_bf16: bool = False    # bf16 probabilities into the PV product
     unroll: bool = False
     act_spec: Any = None         # spec of the (B, S, d) residuals
+
+    def model_shard(self):
+        """The calling rank's ``AxisShard`` on the model axis, or None
+        when the layers run unsharded."""
+        if self.mesh is None or self.model_axis is None \
+                or not hasattr(self.mesh, "axis_shard"):
+            return None
+        return self.mesh.axis_shard(self.model_axis)
 
 
 _DEFAULT = DistContext()

@@ -36,6 +36,21 @@ flash; paged decode gathers the latent pages (``ops.gather_pages``) and
 attends in the latent space in float32 with plain tensor products, as
 the reference does.
 
+On a rank's mesh whose model axis has more than one rank (the launch
+layer's tensor parallelism, ``dist.DistContext.model_shard``), the
+layers take the rank's shards of the weights and caches as the
+reference's specs give them (``launch/sharding.py``) and reduce with
+``models/collectives.py``: attention projects q on the rank's heads and
+K/V on its head_dim columns, gathers K/V on head_dim before qk-norm and
+RoPE, attends with the rank's heads (prefill: its head_dim half goes to
+the cache; decode over a capacity-sharded cache: all heads over the
+rank's slots, partials exchanged and combined per head), and sums ``wo``'s
+partial with ``psum``; the MLP is column then row parallel; the MoE is
+expert-TP (every expert's d_ff_expert slice) with a replicated router;
+MLA's prefill splits its heads (``w_ukv``, ``wo``) and keeps the latent
+whole. Those are the only layers that take a model axis: the step
+builders refuse the other families there.
+
 The RG-LRU block has no kernel of its own in either package: the causal
 depthwise conv, the two float32 gate products and the recurrence are
 plain tensor code (the reference's ``jax.lax.associative_scan`` becomes a
@@ -62,6 +77,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import collectives as C
 from repro_torch.models import dist
 from repro_torch.serving import paged_cache as PC
 
@@ -336,14 +352,21 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd") as one matmul."""
+def _out_proj(out: torch.Tensor, wo: torch.Tensor,
+              tp: Optional[C.AxisShard] = None) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul; on a model axis (``tp``)
+    over the rank's heads, summed over the axis (``_row_parallel``)."""
     h, k, d = wo.shape
-    return out.reshape(*out.shape[:-2], h * k) @ wo.to(out.dtype).reshape(h * k, d)
+    return _row_parallel(out.reshape(*out.shape[:-2], h * k),
+                         wo.reshape(h * k, d), tp)
 
 
 def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor, rope: bool = True):
+                 positions: torch.Tensor, rope: bool = True,
+                 tp: Optional[C.AxisShard] = None):
+    """(q, k, v) of x: on a model axis (``tp``) q has the rank's heads and
+    K/V every KV head at the whole head_dim, gathered from the ranks'
+    head_dim columns before qk-norm and RoPE (both need the whole head)."""
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
@@ -351,6 +374,10 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
+    if tp is not None:
+        _rank_heads(cfg, q.shape[2], tp)
+        if k.shape[-1] != cfg.hd:              # head_dim-sharded K/V
+            k, v = C.all_gather(torch.stack([k, v]), 4, tp).unbind(0)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
@@ -358,6 +385,44 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _rank_heads(cfg: ModelConfig, n: int, tp: C.AxisShard
+                ) -> Tuple[int, int]:
+    """(first KV head, KV heads) of the rank's ``n`` query heads: a block
+    of ``n`` heads a rank, which must cover whole KV groups or share one
+    (``pad_heads`` makes the heads divide the axis in prefill)."""
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    if n * tp.size != h:
+        raise NotImplementedError(
+            f"{cfg.name}: {n} query heads a rank on a model axis of "
+            f"{tp.size} ({h} heads): q must be sharded on heads")
+    grp = h // kvh
+    h0 = tp.index * n
+    if n % grp == 0:
+        return h0 // grp, n // grp
+    if grp % n == 0:
+        return h0 // grp, 1
+    raise NotImplementedError(f"{cfg.name}: {n} heads a rank split a "
+                              f"KV group of {grp}")
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor,
+                  tp: Optional[C.AxisShard]) -> torch.Tensor:
+    """``x @ w`` where ``w`` holds the rank's rows of a row-parallel
+    product: the partial in x's dtype summed over the model axis in that
+    dtype, as the reference's psum sums it (off an axis, ``x @ w``)."""
+    return C.psum(x @ w.to(x.dtype), tp)
+
+
+def _rank_cols(t: torch.Tensor, cfg: ModelConfig, local: int,
+               tp: Optional[C.AxisShard]) -> torch.Tensor:
+    """The rank's head_dim columns of K or V (a view) when its cache is
+    head_dim-sharded (``local`` < the head dim), else ``t``."""
+    if tp is None or local == cfg.hd:
+        return t
+    c0, c1 = tp.part(cfg.hd)
+    return t[..., c0:c1]
 
 
 def attention_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -374,10 +439,20 @@ def attention_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     kernel has no backward pass). ``lengths`` (B,) blanks the keys at or
     past each sequence's length, on the plain route only. On that route a
     distribution context with ``chunk_kv`` <= S takes ``chunked_sdpa``
-    (``chunk_size`` keys a chunk), as the reference does."""
+    (``chunk_size`` keys a chunk), as the reference does.
+
+    On a model axis the rank attends with its query heads over the KV
+    heads they group, returns its head_dim columns of K/V (the prefill
+    cache's shard) and sums ``wo``'s partial over the axis."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions)
     dctx = dist.ctx()
+    tp = dctx.model_shard()
+    q, k, v = _project_qkv(p, cfg, x, positions, tp=tp)
+    rows = (_rank_cols(k, cfg, p["wk"].shape[-1], tp),
+            _rank_cols(v, cfg, p["wv"].shape[-1], tp))
+    if tp is not None:
+        kv0, nkv = _rank_heads(cfg, q.shape[2], tp)
+        k, v = k[:, :, kv0:kv0 + nkv], v[:, :, kv0:kv0 + nkv]
     if (plain or not kernel_route(x)) and dctx.chunk_kv \
             and s >= dctx.chunk_kv:
         out = chunked_sdpa(q, k, v, positions,
@@ -398,7 +473,7 @@ def attention_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                                   v.transpose(1, 2), causal=causal,
                                   window=window, q_offset=0,
                                   kv_len=s).transpose(1, 2)
-    return _out_proj(out, p["wo"]), (k, v)
+    return _out_proj(out, p["wo"], tp), rows
 
 
 def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -422,7 +497,14 @@ def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     ``cache_attention_mask`` over the positions. A chunk over any other
     cache — a ring buffer (a sliding layer's window-sized cache) or
     float8 K/V — takes ``ops.cache_attention`` too. Rows past a
-    full-capacity cache raise on either kernel."""
+    full-capacity cache raise on either kernel.
+
+    On a model axis the cache is the rank's contiguous share of the slots
+    (capacity-sharded): ``_attention_decode_sharded``."""
+    tp = dist.ctx().model_shard()
+    if tp is not None:
+        return _attention_decode_sharded(p, cfg, x, positions, cache,
+                                         window, q_offset, tp)
     q, k, v = _project_qkv(p, cfg, x, positions)
     _kv_cache_put(cache, k, v, positions)
     if kernel_route(x):
@@ -446,6 +528,49 @@ def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
         mask = cache_attention_mask(cache, positions, window)
         out = sdpa(q, cache.k, cache.v, mask)
     return _out_proj(out, p["wo"]), cache
+
+
+def _attention_decode_sharded(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                              positions: torch.Tensor, cache: KVCache,
+                              window: int, q_offset: Optional[int],
+                              tp: C.AxisShard
+                              ) -> Tuple[torch.Tensor, KVCache]:
+    """``attention_decode`` over the rank's share of a capacity-sharded
+    cache (slots [index x cap, (index + 1) x cap) of the whole cache's
+    size x cap): q is gathered to every head; the new rows are written,
+    with their position tags, only by the rank that owns their slot;
+    every head attends the rank's slots and stops at the partials
+    (flash_decode's split kernel on the card, ``ops.cache_attention_
+    partial``); each rank sends every other the partials of that rank's
+    heads, merges its own heads' partials of all ranks
+    (``ops.cache_attention_combine``), then ``wo`` over its heads and
+    ``psum``."""
+    q, k, v = _project_qkv(p, cfg, x, positions, tp=tp)
+    n = q.shape[2]
+    q = C.all_gather(q, 2, tp)
+    cap_l = cache.capacity
+    lo = tp.index * cap_l
+    slot = positions.long() % (cap_l * tp.size)
+    own = (slot >= lo) & (slot < lo + cap_l)
+    kv_cache_write(cache, k, v, torch.where(own, positions,
+                                            torch.full_like(positions, -1)))
+    if q_offset is None:
+        raise AssertionError("attention_decode on a model axis needs "
+                             "q_offset (== positions[:, 0]) on every route")
+    if cache.full_capacity and q_offset + x.shape[1] > cap_l * tp.size:
+        raise AssertionError(
+            f"attention_decode: rows up to {q_offset + x.shape[1]} past a "
+            f"full-capacity cache of {cap_l * tp.size}")
+    acc, ml = ops.cache_attention_partial(q, cache.k, cache.v, cache.pos,
+                                          q_offset=q_offset, window=window)
+    d = acc.shape[-1]
+    part = torch.cat([acc, ml], dim=-1)                  # (B,Sq,S,H,d+2)
+    got = C.exchange([part[:, :, :, j * n:(j + 1) * n]
+                      for j in range(tp.size)], tp)
+    part = torch.cat(got, dim=2)                         # every rank's splits
+    out = ops.cache_attention_combine(part[..., :d].contiguous(),
+                                      part[..., d:].contiguous(), q.dtype)
+    return _out_proj(out, p["wo"], tp), cache
 
 
 # --------------------------------------------------------------------------- #
@@ -728,9 +853,17 @@ def mla_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     scores summed, the causal mask plus ``lengths``' mask, softmax, the
     value product) on any device: the training route, which autograd
     differentiates. A CPU tensor takes it too. ``lengths`` is taken on
-    that route only."""
+    that route only.
+
+    On a model axis ``wq``, ``w_ukv`` and ``wo`` hold the rank's heads;
+    the latent (``w_dkv``, ``kv_norm``) is whole on every rank, so is the
+    returned latent; ``wo``'s partial is summed over the axis."""
     q_nope, q_pe, ckv, kpe = _mla_qkv_latent(p, cfg, x, positions)
     dctx = dist.ctx()
+    tp = dctx.model_shard()
+    if tp is not None and p["w_ukv"].shape[1] * tp.size != cfg.num_heads:
+        raise NotImplementedError(f"{cfg.name}: MLA on a model axis of "
+                                  f"{tp.size} needs w_ukv on heads")
     s = x.shape[1]
     if (plain or not kernel_route(x)) and dctx.chunk_kv \
             and s >= dctx.chunk_kv:
@@ -759,7 +892,7 @@ def mla_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                          "(plain=True)")
     else:
         out = _mla_expanded_attention(p, cfg, q_nope, q_pe, ckv, kpe, 0)
-    return _out_proj(out, p["wo"]), (ckv, kpe)
+    return _out_proj(out, p["wo"], tp), (ckv, kpe)
 
 
 def _chunked_mla_sdpa(q_nope: torch.Tensor, q_pe: torch.Tensor,
@@ -898,10 +1031,22 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
             "w_down": rnd((f, d), s_out)}
 
 
-def swiglu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+def swiglu_mlp(p: Params, x: torch.Tensor,
+               d_ff: Optional[int] = None) -> torch.Tensor:
+    """SwiGLU of x. With ``d_ff`` (the layer's whole width) on a model
+    axis, column then row parallel: ``w_gate``/``w_up`` hold the rank's
+    d_ff columns and ``w_down`` its rows, and the partial is summed over
+    the axis (``_row_parallel``) — unless the width was too narrow to
+    shard: then the weights are whole and so is the output."""
     g = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
-    return (F.silu(g) * u) @ p["w_down"].to(x.dtype)
+    tp = dist.ctx().model_shard() if d_ff is not None else None
+    if tp is not None and p["w_gate"].shape[-1] == d_ff:
+        tp = None
+    if tp is not None and p["w_gate"].shape[-1] * tp.size != d_ff:
+        raise ValueError(f"swiglu_mlp: {p['w_gate'].shape[-1]} of {d_ff} "
+                         f"columns on a model axis of {tp.size}")
+    return _row_parallel(F.silu(g) * u, p["w_down"], tp)
 
 
 # --------------------------------------------------------------------------- #
@@ -993,18 +1138,28 @@ def _moe_mlp_shard_map(p: Params, cfg: ModelConfig, x: torch.Tensor,
                        dctx) -> torch.Tensor:
     """The reference's expert-TP MoE under ``shard_map``: each shard routes
     its own tokens and computes every expert's d_ff slice, then the slices
-    are summed over the model axis. On one card (a model axis of 1) that
-    is ``_moe_mlp_capacity`` over all tokens with a sum over one member;
-    on the ``meta`` device (a shape-only count) the same global program
-    stands for every shard's. A mesh of more than one card raises."""
+    are summed over the model axis — its body, ``_moe_mlp_capacity`` with
+    ``psum_axis``. On a rank's mesh the weights are the rank's slices
+    (``moe_mlp_dist_specs``: every expert's and the shared experts'
+    d_ff_expert columns, the router whole), so every rank routes the same
+    (replicated) tokens alike and ``psum`` sums the slices. On one card (a
+    model axis of 1) the sum is over one member; on the ``meta`` device (a
+    shape-only count) the same global program stands for every shard's. A
+    mesh of more than one device outside a world raises."""
     mesh = dctx.mesh
-    if mesh.size > 1 and getattr(mesh.device, "type", None) != "meta":
+    tp = dctx.model_shard()
+    if tp is None and mesh.size > 1 \
+            and getattr(mesh.device, "type", None) != "meta":
         raise NotImplementedError(
-            f"the MoE over a mesh of {mesh.size} devices needs a "
-            "torch.distributed mesh — see ROADMAP queue 1 item 14 (a "
-            "multi-GPU mesh)")
-    return _moe_mlp_capacity(p, cfg, x,
-                             capacity_factor=dctx.moe_capacity_factor)
+            f"the MoE over a mesh of {mesh.size} devices runs in a world "
+            "of as many ranks (launch/ranks.py) — see ROADMAP queue 1 "
+            "item 14 (a multi-GPU mesh)")
+    if tp is not None and p["w_gate"].shape[-1] * tp.size \
+            != cfg.moe.d_ff_expert:
+        raise ValueError(f"the expert-TP MoE: {p['w_gate'].shape[-1]} of "
+                         f"{cfg.moe.d_ff_expert} columns a rank")
+    return C.psum(_moe_mlp_capacity(
+        p, cfg, x, capacity_factor=dctx.moe_capacity_factor), tp)
 
 
 def moe_mlp_dist_specs(cfg: ModelConfig, model_axis: str) -> Dict[str, Any]:
@@ -1065,7 +1220,8 @@ def _moe_mlp_capacity(p: Params, cfg: ModelConfig, x: torch.Tensor,
     stream (rows out of range go to a spare row that is dropped), the
     stream goes back to (token, choice) order and the k choices are summed
     — where the reference adds the rows into the tokens with ``.at[].add``
-    (atomics on a GPU)."""
+    (atomics on a GPU). With a rank's d_ff_expert slices (expert-TP) the
+    output is the rank's partial, which ``_moe_mlp_shard_map`` sums."""
     e = cfg.moe
     shape = x.shape
     x2d = x.reshape(-1, shape[-1])

@@ -47,17 +47,21 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _dev
 from repro_torch.configs.base import ATTN, RECURRENT, SSD, ModelConfig
+from repro_torch.models import collectives as C
+from repro_torch.models import dist
 from repro_torch.models import layers as L
 from repro_torch.serving import paged_cache as PC
 
 Params = Dict[str, Any]
+# (path of a parameter leaf, the leaf as drawn) -> the part to keep
+Keep = Callable[[str, torch.Tensor], torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,39 +149,49 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
 
 
 def _init_group(gen: torch.Generator, cfg: ModelConfig, g: Group,
-                kind: str, device: torch.device) -> Params:
+                kind: str, device: torch.device, prefix: str = "",
+                keep: Optional[Keep] = None) -> Params:
     """The ``g.count`` layers of one position of a group, drawn one after
     the other, each written into its slot of the stacked tensors as it is
     made: the values of stacking every layer at the end, at the memory of
-    the stack plus one layer."""
+    the stack plus one layer. With ``keep``, each layer's leaf is cut to
+    ``keep(path of the stacked leaf, leaf)`` before it is stored (``prefix``
+    is the path of this position's tree)."""
     count = g.count
+    keep = keep or (lambda path, t: t)
 
-    def put(dst, src, i):
+    def put(dst, src, i, path):
         if isinstance(src, dict):
             for k in src:
-                put(dst[k], src[k], i)
+                put(dst[k], src[k], i, f"{path}[{k!r}]")
         else:
-            dst[i] = src
+            dst[i] = keep(path, src)
 
-    def empty(t):
+    def empty(t, path):
         if isinstance(t, dict):
-            return {k: empty(v) for k, v in t.items()}
-        return t.new_empty((count,) + tuple(t.shape))
+            return {k: empty(v, f"{path}[{k!r}]") for k, v in t.items()}
+        return t.new_empty((count,) + tuple(keep(path, t).shape))
 
     layer = _init_layer(gen, cfg, kind, g.moe, g.cross, device)
-    stacked = empty(layer)
-    put(stacked, layer, 0)
+    stacked = empty(layer, prefix)
+    put(stacked, layer, 0, prefix)
     for i in range(1, count):
-        put(stacked, _init_layer(gen, cfg, kind, g.moe, g.cross, device), i)
+        put(stacked, _init_layer(gen, cfg, kind, g.moe, g.cross, device), i,
+            prefix)
     return stacked
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: _dev.DeviceLike = None) -> Params:
+                device: _dev.DeviceLike = None,
+                keep: Optional[Keep] = None) -> Params:
     """Random parameters with the JAX package's shapes and scales, drawn
     from a ``torch.Generator`` seeded with ``seed`` on the target device
-    (the card unless ``device="cpu"``)."""
-    return _init_params(cfg, seed, _dev.resolve(device))
+    (the card unless ``device="cpu"``). ``keep(path, tensor)`` — the
+    rank's slice on a model axis, ``launch.sharding.param_keeper`` —
+    cuts each leaf as it is drawn (a stacked group's leaves one layer at a
+    time; ``path`` is the stacked leaf's): the same values as slicing the
+    whole tree, at the memory of the slices plus one layer."""
+    return _init_params(cfg, seed, _dev.resolve(device), keep)
 
 
 def abstract_params(cfg: ModelConfig) -> Params:
@@ -186,26 +200,33 @@ def abstract_params(cfg: ModelConfig) -> Params:
     return _init_params(cfg, 0, torch.device("meta"))
 
 
-def _init_params(cfg: ModelConfig, seed: int, dev: torch.device) -> Params:
+def _init_params(cfg: ModelConfig, seed: int, dev: torch.device,
+                 keep: Optional[Keep] = None) -> Params:
     groups = block_groups(cfg)
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
     d, v = cfg.d_model, cfg.vocab_size
+    cut = keep or (lambda path, t: t)
+
+    def stacks(name, gs):
+        return tuple(
+            tuple(_init_group(gen, cfg, g, kind, dev, f"[{name!r}][{gi}][{pi}]",
+                              keep) for pi, kind in enumerate(g.kinds))
+            for gi, g in enumerate(gs))
+
     p: Params = {
-        "embed": (torch.randn((v, d), generator=gen, device=dev) * 0.02
-                  ).to(cfg.pdtype),
+        "embed": cut("['embed']", (torch.randn((v, d), generator=gen,
+                                               device=dev) * 0.02
+                                   ).to(cfg.pdtype)),
         "final_norm": torch.ones((d,), dtype=cfg.pdtype, device=dev),
-        "groups": tuple(
-            tuple(_init_group(gen, cfg, g, kind, dev) for kind in g.kinds)
-            for g in groups),
+        "groups": stacks("groups", groups),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = (torch.randn((d, v), generator=gen, device=dev)
-                        / math.sqrt(d)).to(cfg.pdtype)
+        p["lm_head"] = cut("['lm_head']", (torch.randn(
+            (d, v), generator=gen, device=dev) / math.sqrt(d)
+        ).to(cfg.pdtype))
     if cfg.is_enc_dec:
-        p["enc_groups"] = tuple(
-            tuple(_init_group(gen, cfg, g, kind, dev) for kind in g.kinds)
-            for g in encoder_groups(cfg))
+        p["enc_groups"] = stacks("enc_groups", encoder_groups(cfg))
         p["enc_norm"] = torch.ones((d,), dtype=cfg.pdtype, device=dev)
     return p
 
@@ -301,7 +322,19 @@ def init_paged_caches(cfg: ModelConfig, specs: Dict[str, PC.KVPageSpec],
 # Embedding / head
 # --------------------------------------------------------------------------- #
 def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    e = params["embed"][tokens.long()].to(cfg.cdtype)
+    """Token embeddings (B,S,d) in the compute dtype. On a model axis the
+    table holds the rank's vocab rows: ids outside them take zeros, and
+    the ranks' rows are summed (``psum``: each id is one rank's)."""
+    table = params["embed"]
+    tp = dist.ctx().model_shard()
+    if tp is not None and table.shape[0] != cfg.vocab_size:
+        v0, v1 = tp.part(cfg.vocab_size)
+        ids = tokens.long() - v0
+        inside = ((ids >= 0) & (ids < v1 - v0))[..., None]
+        e = table[ids.clamp(0, v1 - v0 - 1)].to(cfg.cdtype)
+        e = C.psum(torch.where(inside, e, torch.zeros_like(e)), tp)
+    else:
+        e = table[tokens.long()].to(cfg.cdtype)
     if cfg.tie_embeddings:
         return e * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype)
     return e
@@ -326,6 +359,9 @@ def merged_embeds(params, cfg: ModelConfig, patches: Optional[torch.Tensor],
 
 
 def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Logits of x (..., d) over the head's vocab: on a model axis the
+    rank's vocab shard (the reference's output spec (dp, ..., model)),
+    which the caller gathers where it needs the whole row."""
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params.get("lm_head")
     if head is None:
@@ -357,7 +393,7 @@ def _mlp_residual(p, cfg: ModelConfig, moe: bool,
                   x: torch.Tensor) -> torch.Tensor:
     h = L.rms_norm(p["norm2"], x, cfg.norm_eps)
     return x + (L.moe_mlp(p["mlp"], cfg, h) if moe
-                else L.swiglu_mlp(p["mlp"], h))
+                else L.swiglu_mlp(p["mlp"], h, cfg.d_ff))
 
 
 def _recurrent(p, cfg: ModelConfig, x: torch.Tensor, state) -> torch.Tensor:

@@ -1725,3 +1725,118 @@ def test_flash_decode_refuses_misaligned_and_strided_inputs(cuda):
     with pytest.raises(ValueError, match="shapes"):
         ops.cache_attention(q, k, v, pos[:, :16].contiguous(), q_offset=31)
     assert ops.launch_counts()["flash_decode"] == 0
+
+
+@pytest.mark.parametrize("name,cap,n,kvh,h,hd,window,kv_dt",
+                         [c for c in DECODE_MAIN if c[0] in
+                          ("mixtral", "recurrentgemma", "qwen3-4b")])
+def test_flash_decode_partial_and_combine_over_two_halves(cuda, name, cap, n,
+                                                          kvh, h, hd, window,
+                                                          kv_dt):
+    """A cache cut into two slot halves, as two ranks hold a capacity-
+    sharded decode cache (row 1q's Qwen3-4B cache; row 1r's rings): the
+    split kernel stopped at its partials on each half, then the combine
+    kernel over both halves' splits, against the float32 plain version of
+    the whole cache (``_close_to_size``) and against the plain partial and
+    combine on the same halves; one launch of each entry a call."""
+    rng = np.random.default_rng(cap + h + 1)
+    k, v, pos = _decode_cache(rng, 2, cap, n, kvh, hd, kv_dt, cuda)
+    q = torch.from_numpy(rng.standard_normal((2, 1, h, hd))
+                         .astype(np.float32)).to(cuda, torch.bfloat16)
+    half = cap // 2
+    cuts = [(k[:, s:s + half], v[:, s:s + half], pos[:, s:s + half])
+            for s in (0, half)]
+    args = dict(q_offset=n - 1, window=window)
+    ops.reset_launch_counts()
+    parts = [ops.cache_attention_partial(q, *c, **args) for c in cuts]
+    acc = torch.cat([a for a, _ in parts], 2)
+    ml = torch.cat([m for _, m in parts], 2)
+    got = ops.cache_attention_combine(acc, ml, torch.bfloat16)
+    counts = ops.launch_counts()
+    assert (counts["flash_decode_partial"], counts["decode_combine"],
+            counts["flash_decode"]) == (2, 1, 0)
+    assert acc.dtype == ml.dtype == torch.float32
+    assert ml.shape == acc.shape[:4] + (2,) and acc.shape[2] >= 2
+    want = ref.cache_attention_ref(q.float(), k.float(), v.float(), pos,
+                                   **args)
+    torch.cuda.synchronize()
+    _close_to_size(got, want)
+    plain = [ref.cache_attention_partial_ref(q, *c, **args) for c in cuts]
+    pl = ref.decode_combine_ref(torch.cat([a for a, _ in plain], 2),
+                                torch.cat([m for _, m in plain], 2),
+                                torch.bfloat16)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               pl.float().cpu().numpy(), atol=2e-2)
+
+
+@pytest.mark.parametrize("dtypes", ["float32", "bfloat16"])
+def test_flash_decode_partial_one_split_and_empty_half(cuda, dtypes):
+    """Partials out at a size whose plan has one split (the call still
+    writes its partials), a half that no row sees (m -1e30, l 0: it weighs
+    nothing), and the combine in float32: equal to the whole-cache plain
+    version (2e-5 / 2e-2)."""
+    q_dt = torch.float32 if dtypes == "float32" else torch.bfloat16
+    rng = np.random.default_rng(3)
+    k, v, pos = _decode_cache(rng, 2, 64, 30, 2, 64, q_dt, cuda)
+    q = torch.from_numpy(rng.standard_normal((2, 1, 8, 64))
+                         .astype(np.float32)).to(cuda, q_dt)
+    parts = [ops.cache_attention_partial(q, k[:, s:s + 32], v[:, s:s + 32],
+                                         pos[:, s:s + 32], q_offset=29)
+             for s in (0, 32)]
+    assert float(parts[1][1][..., 1].abs().max()) == 0.0
+    got = ops.cache_attention_combine(torch.cat([a for a, _ in parts], 2),
+                                      torch.cat([m for _, m in parts], 2),
+                                      q_dt)
+    want = ref.cache_attention_ref(q, k, v, pos, q_offset=29)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=2e-5 if dtypes == "float32" else 2e-2)
+
+
+def test_two_ranks_on_one_card_serve_a_tiny_layer(cuda, monkeypatch):
+    """A (1, 2) world of two gloo ranks sharing the card
+    (``launch.ranks``) runs the launcher's rank program on one tiny
+    float32 layer: prefill → handoff → 2 greedy steps. The gathered
+    prefill logits within 1e-5 of the largest of the one-card launcher's
+    on the card (in float32 the two orders of summing differ by far
+    less; in bfloat16 each rank's partial is rounded before the psum, as
+    the reference's are, and phase 18 of ``chip_smoke.py`` holds that
+    against float32 witnesses), the same tokens, the reshard held bit for
+    bit, bytes equal to ``per_chip_bytes``, and per rank one flash launch
+    and 2 of each of the partial and the combine."""
+    import dataclasses
+    import torch_mesh_ranks as R
+    from repro_torch.launch import cells as TC
+    from repro_torch.launch import ranks, serve
+    from repro_torch.launch import steps as TS
+    cfg_dict = dict(name="tiny-layer", family="dense", num_layers=1,
+                    d_model=128, num_heads=4, num_kv_heads=2, head_dim=64,
+                    d_ff=256, vocab_size=256, qk_norm=True,
+                    param_dtype="float32", compute_dtype="float32")
+    cfg = config_from_dict(cfg_dict)
+    cells = {s: dataclasses.replace(TC.get_cell("qwen3-4b", s), batch=2,
+                                    seq_len=64, cache_dtype="float32")
+             for s in ("prefill_32k", "decode_32k")}
+    monkeypatch.setattr(TS, "get_config", lambda arch: cfg)
+    monkeypatch.setattr(TS, "get_cell", lambda arch, s: cells[s])
+    monkeypatch.setattr(TC, "get_cell", lambda arch, s: cells[s])
+    one = serve.run_programs("qwen3-4b", batch=2, steps=2, keep_logits=True)
+    with ranks.start(2, timeout_s=600) as world:
+        assert world.backend == ("nccl" if torch.cuda.device_count() >= 2
+                                 else "gloo")
+        recs = world.run(R.programs_on_rank, cfg_dict, cells, "qwen3-4b",
+                         "decode_32k", 2, 2, None, 0, (1, 2), (0,), True)
+    rec = serve.mesh_record(recs, world.backend)
+    want = one["prefill_logits"]
+    assert float((rec["prefill_logits"] - want).abs().max()) \
+        <= 1e-5 * float(want.abs().max())
+    assert rec["tokens"] == one["tokens"]
+    assert rec["handoff_held_all_ranks"]
+    for r in rec["ranks"]:
+        assert r["launches"]["flash_attention"] == 1
+        assert r["launches"]["flash_decode_partial"] == 2
+        assert r["launches"]["decode_combine"] == 2
+        assert r["launches"]["flash_decode"] == 0
+        for what, (have, predicted) in r["bytes"].items():
+            assert have == predicted > 0, what

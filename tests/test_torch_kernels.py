@@ -331,8 +331,13 @@ def test_cpu_calls_count_no_launch():
                         q[:, :1].transpose(1, 2),
                         torch.arange(8, dtype=torch.int32)[None],
                         q_offset=7, window=4)
+    acc, ml = ops.cache_attention_partial(
+        q.transpose(1, 2), q[:, :1].transpose(1, 2), q[:, :1].transpose(1, 2),
+        torch.arange(8, dtype=torch.int32)[None], q_offset=7)
+    ops.cache_attention_combine(acc, ml, torch.float32)
     assert ops.launch_counts() == {
-        "flash_attention": 0, "flash_decode": 0, "paged_attention": 0,
+        "flash_attention": 0, "flash_decode": 0, "flash_decode_partial": 0,
+        "decode_combine": 0, "paged_attention": 0,
         "scatter_pages_overlay": 0, "gather_pages": 0, "scatter_pages": 0,
         "repack": 0}
 

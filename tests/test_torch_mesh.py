@@ -1,0 +1,342 @@
+"""The launch layer's serving steps on a (1, 2) mesh of ranks — tensor
+parallelism on the model axis — against the JAX package's step builders
+on an Auto-typed 1x1 mesh (its own mesh gives Explicit axes, which its
+sharding constraints reject: ROADMAP queue 3 C1), on the CPU, in float32,
+for the tiny ``dense-bias-qknorm``, ``moe`` and ``mla`` configs of
+``tests/conftest.py`` at batch 2 x 24 tokens.
+
+One world of two gloo ranks is started for the module
+(``launch/ranks.py``); the ranks run ``tests/torch_mesh_ranks.py``,
+which imports no JAX. Parameters come from the reference's
+``init_params`` through ``params_from_numpy``, whole, and each rank keeps
+its shards (``sharding.shard_params``). Held, per family:
+
+  * the prefill's last logits, assembled from the ranks' vocab shards,
+    within atol 1e-5 of the reference's;
+  * each rank's prefill cache shard equal to the spec's slice of the
+    reference's caches within 1e-5 (head_dim-sharded K/V, ``pos``
+    whole; MLA's latent whole);
+  * the handoff of the reference's P caches (each rank given its
+    shards): D's shards bit for bit the capacity slices of the
+    reference's handoff, into float32 and bfloat16 caches;
+  * the serve step over the reference's D caches: the assembled logits
+    and every rank's cache shard within 1e-5 (not MLA: its decode is not
+    run on a model axis above 1);
+  * each rank's bytes of parameters and caches equal to
+    ``per_chip_bytes`` at {"data": 1, "model": 2}.
+
+Also: ``serve.programs_on_rank`` (the ``--mesh 1x2`` launcher's rank
+program) on the tiny dense config against the one-card launcher's
+tokens, its handoff check and its record; flash_decode's plain partial
+and combine over two slot halves against the whole-cache plain version
+(1e-6); the families not covered raising on the rank mesh; a rank that
+raises surfacing in the parent with its traceback, and no rank left
+running.
+"""
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AxisType
+
+import torch_mesh_ranks as R
+from repro.launch import cells as RC
+from repro.launch import steps as RS
+from repro.models import model as JM
+from repro_torch.configs.base import config_from_dict
+from repro_torch.kernels import ref as KR
+from repro_torch.launch import ranks
+from repro_torch.launch import serve
+from repro_torch.launch import sharding as TSH
+from repro_torch.launch import steps as TS
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models.collectives import AxisShard
+from repro_torch.models.convert import params_from_numpy
+
+from conftest import TINY_FAMILIES
+from test_torch_launch_steps import _inputs, _ref_leaves, _to_port
+
+SEQ, BATCH = 24, 2
+ATOL = 1e-5
+FAMILIES = ("dense-bias-qknorm", "moe", "mla")
+
+
+@pytest.fixture(scope="module")
+def world():
+    w = ranks.start(2, device="cpu", timeout_s=300)
+    yield w
+    w.close()
+
+
+@pytest.fixture(scope="module")
+def jmesh():
+    return jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+
+
+def _rank_mesh(r: int) -> Mesh:
+    """Rank r's (1, 2) mesh as the parent sees it: for cutting the
+    reference's whole tensors to that rank's slices."""
+    return Mesh((1, 2), ("data", "model"), torch.device("cpu"), (0, r),
+                (None, AxisShard(r, 2, None, (0, 1))))
+
+
+def _cells(**kw):
+    return {s: dataclasses.replace(RC.get_cell("qwen3-4b", s), batch=BATCH,
+                                   seq_len=SEQ, cache_dtype="float32", **kw)
+            for s in ("prefill_32k", "decode_32k")}
+
+
+def _close(got: torch.Tensor, want, atol=ATOL, exact=False, what=""):
+    """``got`` within ``atol`` of ``want`` (a tensor or an array), or, with
+    ``exact``, bit for bit once ``want`` is in ``got``'s dtype."""
+    want = want if isinstance(want, torch.Tensor) else \
+        torch.from_numpy(np.array(want, np.float32))
+    if exact:
+        np.testing.assert_array_equal(
+            got.contiguous().view(torch.uint8).numpy(),
+            want.to(got.dtype).contiguous().view(torch.uint8).numpy(),
+            err_msg=what)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                                   atol=atol, rtol=0, err_msg=what)
+
+
+def _held_to_slices(outs, key, ref_tree, specs, atol=ATOL, exact=False):
+    """Every rank's tree ``outs[r][key]`` equals the rank's spec slices of
+    the reference's whole tree."""
+    ref = _ref_leaves(ref_tree)
+    for r, out in enumerate(outs):
+        mine = dict(TSH.named_leaves(out[key] if isinstance(key, str)
+                                     else key(out)))
+        assert sorted(mine) == sorted(ref)
+        for p, x in mine.items():
+            w = ref[p].astype(np.float32) \
+                if ref[p].dtype.name == "bfloat16" else ref[p]
+            want = TSH.rank_slice(torch.from_numpy(np.ascontiguousarray(w)),
+                                  specs[p], _rank_mesh(r))
+            _close(x, want, atol, exact, f"rank {r} {p}")
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def family(request, world, jmesh):
+    """The reference's prefill, handoff and serve step of a tiny family
+    and the ranks' steps on the same inputs, run once a family."""
+    jcfg = TINY_FAMILIES[request.param]
+    cfg_dict = dataclasses.asdict(jcfg)
+    cells = _cells()
+    mp = pytest.MonkeyPatch()
+    mp.setattr(RS, "get_config", lambda arch: jcfg)
+    mp.setattr(RC, "get_cell", lambda arch, shape: cells[shape])
+    try:
+        jp = jax.jit(JM.init_params, static_argnums=1)(jax.random.key(0),
+                                                       jcfg)
+        part = RS.make_prefill_artifacts(cells["prefill_32k"], jmesh)
+        batch = _inputs(part.abstract_args[1], jcfg)
+        jlast, jcaches_p = part.fn(jp, {k: jnp.asarray(v) for k, v in
+                                        batch.items()})
+        tcfg = config_from_dict(cfg_dict)
+        mp.setattr(TS, "get_config", lambda arch: tcfg)
+        mp.setattr(TS, "get_cell", lambda arch, shape: cells[shape])
+        one = Mesh((1, 1), ("data", "model"), torch.device("cpu"))
+        tho = TS.make_handoff_artifacts("qwen3-4b", one, batch=BATCH)
+        caches_p = _to_port(jcaches_p, tho.abstract_args[0])
+        handoffs, io, jserve = {}, None, None
+        d_dtypes = ("float32", "bfloat16")
+        for dt in d_dtypes:
+            cells_dt = dict(cells, decode_32k=dataclasses.replace(
+                cells["decode_32k"], cache_dtype=dt))
+            mp.setattr(RC, "get_cell", lambda arch, shape: cells_dt[shape])
+            if jcfg.attention_kind != "mla":
+                handoffs[dt] = RS.make_handoff_artifacts(
+                    "qwen3-4b", jmesh).fn(jax.tree.map(jnp.copy, jcaches_p))
+        mp.setattr(RC, "get_cell", lambda arch, shape: cells[shape])
+        caches_d = None
+        if jcfg.attention_kind != "mla":
+            tok = np.asarray(jnp.argmax(jlast, -1), np.int32)[:, None]
+            io = {"tokens": tok, "positions": np.full_like(tok, SEQ)}
+            jart = RS.make_serve_artifacts(cells["decode_32k"], jmesh)
+            tsrv = TS.make_serve_artifacts(cells["decode_32k"], one)
+            caches_d = _to_port(handoffs["float32"], tsrv.abstract_args[1])
+            # a copy: the reference's serve step donates its caches
+            jserve = jart.fn(jp, jax.tree.map(jnp.copy, handoffs["float32"]),
+                             {k: jnp.asarray(v) for k, v in io.items()})
+            io = {k: torch.tensor(v) for k, v in io.items()}
+        params = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+        outs = world.run(R.steps_on_rank, cfg_dict, cells, params,
+                         {k: torch.from_numpy(v) for k, v in batch.items()},
+                         caches_p, caches_d, io,
+                         d_dtypes if jcfg.attention_kind != "mla" else ())
+        yield dict(name=request.param, jcfg=jcfg, cells=cells, jlast=jlast,
+                   jcaches_p=jcaches_p, handoffs=handoffs, jserve=jserve,
+                   outs=outs, tcfg=tcfg)
+    finally:
+        mp.undo()
+
+
+def _specs(fam, kind, dt="float32"):
+    """The port's specs on the (1, 2) mesh: params, P's caches, D's."""
+    cells = dict(fam["cells"], decode_32k=dataclasses.replace(
+        fam["cells"]["decode_32k"], cache_dtype=dt))
+    mp = pytest.MonkeyPatch()
+    mp.setattr(TS, "get_config", lambda arch: fam["tcfg"])
+    mp.setattr(TS, "get_cell", lambda arch, shape: cells[shape])
+    try:
+        abstract = Mesh((1, 2), ("data", "model"), torch.device("meta"))
+        if kind == "handoff":
+            return TS.make_handoff_artifacts("qwen3-4b", abstract,
+                                             batch=BATCH).out_shardings
+        pre = TS.make_prefill_artifacts(cells["prefill_32k"], abstract)
+        if kind == "params":
+            return pre.in_shardings[0]
+        if kind == "caches_p":
+            return pre.out_shardings[1]
+        return TS.make_serve_artifacts(cells["decode_32k"],
+                                       abstract).in_shardings[1]
+    finally:
+        mp.undo()
+
+
+def test_backend_is_gloo_on_the_cpu(world, family):
+    assert world.backend == "gloo"
+    assert [o["backend"] for o in family["outs"]] == ["gloo", "gloo"]
+
+
+def test_prefill_logits_from_vocab_shards(family):
+    outs = family["outs"]
+    shards = [o["prefill"][0] for o in outs]
+    v = family["jcfg"].vocab_size
+    assert [tuple(s.shape) for s in shards] == [(BATCH, v // 2)] * 2
+    _close(torch.cat(shards, -1), family["jlast"])
+
+
+def test_prefill_cache_shards_are_the_specs_slices(family):
+    _held_to_slices(family["outs"], lambda o: o["prefill"][1],
+                    family["jcaches_p"], _specs(family, "caches_p"))
+
+
+# MLA's handoff and decode are not run on a model axis above 1
+SERVED = pytest.mark.parametrize("family", ["dense-bias-qknorm", "moe"],
+                                 indirect=True)
+
+
+@SERVED
+def test_handoff_shards_bit_equal_slices_of_the_reference(family):
+    for dt, want in family["handoffs"].items():
+        _held_to_slices(family["outs"],
+                        lambda o, dt=dt: o["handoff"][dt], want,
+                        _specs(family, "handoff", dt), exact=True)
+
+
+@SERVED
+def test_serve_step_logits_and_cache_shards(family):
+    jlog, jcaches = family["jserve"]
+    outs = family["outs"]
+    _close(torch.cat([o["serve"][0] for o in outs], -1), jlog)
+    _held_to_slices(outs, lambda o: o["serve"][1], jcaches,
+                    _specs(family, "caches_d"))
+
+
+def test_rank_bytes_equal_per_chip_bytes(family):
+    for out in family["outs"]:
+        for what, (have, predicted) in out["bytes"].items():
+            assert have == predicted > 0, what
+
+
+def test_rank_programs_match_the_one_card_launcher(world, monkeypatch):
+    """``serve.programs_on_rank`` on the tiny dense config at (1, 2):
+    the same tokens as the one-card launcher, the handoff check true on
+    both ranks for every layer, bytes equal to ``per_chip_bytes``,
+    collectives counted, one world's record."""
+    jcfg = TINY_FAMILIES["dense-bias-qknorm"]
+    cfg_dict = dataclasses.asdict(jcfg)
+    cells = _cells()
+    tcfg = config_from_dict(cfg_dict)
+    for mod in (TS,):
+        monkeypatch.setattr(mod, "get_config", lambda arch: tcfg)
+        monkeypatch.setattr(mod, "get_cell", lambda arch, s: cells[s])
+    from repro_torch.launch import cells as TC
+    monkeypatch.setattr(TC, "get_cell", lambda arch, s: cells[s])
+    one = serve.run_programs("qwen3-4b", batch=BATCH, steps=3, device="cpu")
+    recs = world.run(R.programs_on_rank, cfg_dict, cells, "qwen3-4b",
+                     "decode_32k", BATCH, 3, None, 0, (1, 2),
+                     (0, jcfg.num_layers - 1), True)
+    rec = serve.mesh_record(recs, world.backend)
+    assert rec["tokens"] == one["tokens"]
+    assert rec["handoff_held"] == {0: True, jcfg.num_layers - 1: True}
+    assert rec["handoff_held_all_ranks"]
+    assert rec["prefill_logits"].shape == (BATCH, jcfg.vocab_size)
+    for r in rec["ranks"]:
+        for what, (have, predicted) in r["bytes"].items():
+            assert have == predicted > 0, what
+        c = r["collectives"]
+        assert c["psum"]["calls"] > 0 and c["all_gather"]["calls"] > 0
+        assert c["exchange"]["calls"] > 0
+    assert set(rec["seconds"]) == {"prefill", "handoff", "decode"}
+
+
+def test_partial_and_combine_over_two_halves_equal_the_whole():
+    gen = torch.Generator().manual_seed(0)
+    b, cap, kvh, h, d = 2, 40, 2, 8, 16
+    k = torch.randn((b, cap, kvh, d), generator=gen)
+    v = torch.randn((b, cap, kvh, d), generator=gen)
+    pos = torch.full((b, cap), -1, dtype=torch.int32)
+    pos[0, :33] = torch.arange(33)
+    pos[1, :7] = torch.arange(7)              # the second half empty
+    for sq, window in ((1, 0), (3, 0), (1, 6)):
+        q = torch.randn((b, sq, h, d), generator=gen)
+        qo = 33 - sq
+        whole = KR.cache_attention_ref(q, k, v, pos, q_offset=qo,
+                                       window=window)
+        parts = [KR.cache_attention_partial_ref(
+            q, k[:, s:s + cap // 2], v[:, s:s + cap // 2],
+            pos[:, s:s + cap // 2], q_offset=qo, window=window)
+            for s in (0, cap // 2)]
+        got = KR.decode_combine_ref(torch.cat([a for a, _ in parts], 2),
+                                    torch.cat([m for _, m in parts], 2),
+                                    torch.float32)
+        torch.testing.assert_close(got, whole, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,program", [("sliding", "prefill"),
+                                          ("hybrid", "prefill"),
+                                          ("mla", "decode")])
+def test_families_not_covered_raise_on_the_rank_mesh(name, program,
+                                                     monkeypatch):
+    tcfg = config_from_dict(dataclasses.asdict(TINY_FAMILIES[name]))
+    cells = _cells()
+    monkeypatch.setattr(TS, "get_config", lambda arch: tcfg)
+    mesh = _rank_mesh(0)
+    build = (TS.make_prefill_artifacts if program == "prefill"
+             else TS.make_serve_artifacts)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
+        build(cells[f"{program}_32k"], mesh)
+
+
+def test_a_rank_that_raises_surfaces_and_no_rank_is_left():
+    w = ranks.start(2, device="cpu", timeout_s=120)
+    pids = w.pids
+    with pytest.raises(ranks.RankError, match="rank one fails on purpose"):
+        w.run(R.raise_on_rank_one)
+    for pid in pids:                       # killed and reaped
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)
+    with pytest.raises(ranks.RankError, match="closed"):
+        w.run(R.raise_on_rank_one)
+
+
+def test_a_world_and_the_mesh_launcher_need_the_card_unless_asked():
+    """Without a card, ``ranks.start`` and ``serve --mesh 1x2`` raise
+    rather than run on the CPU, which is asked for by name
+    (``device="cpu"``, as the tests above)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default is the card")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ranks.start(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen3-4b", "--mesh", "1x2", "--layers", "1"])
+    assert ranks.choose_backend(2, "cpu") == "gloo"

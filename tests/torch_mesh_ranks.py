@@ -1,0 +1,98 @@
+"""What the ranks of ``tests/test_torch_mesh.py`` run: module-level
+functions, which the spawned rank processes import by name — this module
+imports nothing of JAX or of the JAX package, so neither do they.
+
+Each takes the tiny config as a dict and the cells to patch in, since a
+rank process starts from a fresh interpreter.
+"""
+import dataclasses
+
+import torch
+import torch.distributed as tdist
+
+from repro_torch.configs.base import config_from_dict
+from repro_torch.launch import cells as TC
+from repro_torch.launch import serve
+from repro_torch.launch import sharding as SH
+from repro_torch.launch import steps as TS
+from repro_torch.launch.mesh import make_mesh
+
+MESH = (1, 2)
+
+
+def _patch(cfg_dict, cells):
+    cfg = config_from_dict(cfg_dict)
+    TS.get_config = lambda arch: cfg
+    TS.get_cell = TC.get_cell = lambda arch, shape: cells[shape]
+    return cfg
+
+
+def _cpu(tree):
+    return SH.tree_map(lambda x: x.detach().cpu()
+                       if isinstance(x, torch.Tensor) else x, tree)
+
+
+def steps_on_rank(rank, cfg_dict, cells, params, inputs, caches_p_ref,
+                  caches_d_ref, io, d_dtypes):
+    """The step builders on the rank's (1, 2) mesh: the prefill of the
+    whole ``params`` (cut to the rank's shards), the handoff of the
+    reference's P caches (cut likewise) into D caches of each of
+    ``d_dtypes``, and the serve step over the reference's D caches (cut
+    likewise; None: not run). Returns the rank's local outputs and bytes
+    beside ``per_chip_bytes``."""
+    _patch(cfg_dict, cells)
+    mesh = make_mesh(MESH, ("data", "model"), "cpu")
+    sizes = mesh.shape
+    out = {"rank": rank.index, "backend": rank.backend}
+    pre = TS.make_prefill_artifacts(cells["prefill_32k"], mesh)
+    pspecs = pre.in_shardings[0]
+    ps = SH.shard_params(params, pspecs, mesh)
+    with torch.no_grad():
+        last, caches_p = pre.fn(ps, inputs)
+    out["prefill"] = (last, _cpu(caches_p))
+    abs_p = TS.M.abstract_caches(pre.cfg, cells["prefill_32k"].batch,
+                                 cells["prefill_32k"].seq_len, torch.float32)
+    out["bytes"] = {"params": (SH.local_bytes(ps), SH.per_chip_bytes(
+        pre.abstract_args[0], pspecs, sizes)),
+        "caches_p": (SH.local_bytes(caches_p), SH.per_chip_bytes(
+            abs_p, pre.out_shardings[1], sizes))}
+    out["handoff"] = {}
+    for dt in d_dtypes:
+        cells_dt = dict(cells, decode_32k=dataclasses.replace(
+            cells["decode_32k"], cache_dtype=dt))
+        _patch(cfg_dict, cells_dt)
+        ho = TS.make_handoff_artifacts("qwen3-4b", mesh,
+                                       batch=cells["prefill_32k"].batch)
+        mine = SH.to_shardings(mesh, caches_p_ref, ho.in_shardings[0])
+        got = ho.fn(mine)
+        out["handoff"][dt] = _cpu(got)
+        abs_d = TS.M.abstract_caches(
+            ho.cfg, cells["prefill_32k"].batch,
+            cells["decode_32k"].decode_capacity(), getattr(torch, dt),
+            full_capacity=True)
+        out["bytes"][f"caches_d_{dt}"] = (SH.local_bytes(got),
+                                          SH.per_chip_bytes(
+                                              abs_d, ho.out_shardings,
+                                              sizes))
+    _patch(cfg_dict, cells)
+    if caches_d_ref is not None:
+        srv = TS.make_serve_artifacts(cells["decode_32k"], mesh)
+        mine = SH.to_shardings(mesh, caches_d_ref, srv.in_shardings[1])
+        with torch.no_grad():
+            logits, caches = srv.fn(ps, mine, io)
+        out["serve"] = (logits, _cpu(caches))
+    return out
+
+
+def programs_on_rank(rank, cfg_dict, cells, *args):
+    """``serve.programs_on_rank`` under the tiny config and cells."""
+    _patch(cfg_dict, cells)
+    return serve.programs_on_rank(rank, *args)
+
+
+def raise_on_rank_one(rank):
+    """Rank 1 raises while rank 0 waits for it in a collective."""
+    if rank.index == 1:
+        raise ValueError("rank one fails on purpose")
+    tdist.broadcast(torch.zeros(4), src=1)
+    return rank.index
