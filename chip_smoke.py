@@ -260,7 +260,7 @@ nvcc, then runs eighteen phases, each printing JSON lines:
      (``PHASE14_PREDICTED``).
  15. the launch grid's last five cells, whose D caches the flash route
      cannot read, through the flash_decode kernel
-     (``ops.cache_attention``). 15a: Qwen1.5-32B at full width cut to 16
+     (``ops.cache_attention``). 15a: Qwen1.5-32B at full width cut to 8
      of 64 layers, batch 2: prefill_32k in bf16, the handoff into D's
      32,896-slot float8 e4m3 caches (the precision alignment), 4 greedy
      decode_32k steps; D's bytes equal to the CPU's e4m3 cast of P's
@@ -355,13 +355,15 @@ nvcc, then runs eighteen phases, each printing JSON lines:
      on the one card (``launch.ranks``; gloo, as NCCL refuses two ranks
      of one communicator on a device; its bfloat16 sum probed first),
      each holding the shards the launch layer's specs give it: 18a
-     Qwen3-4B's 36 layers, prefill_32k at batch 2 → the handoff's
+     Qwen3-4B cut to 12 of its 36 layers, prefill_32k at batch 2 → the
+     handoff's
      head_dim → capacity reshard (a block exchange) → 4 greedy steps
      whose flash_decode calls stop at each rank's partials and are
      combined over the ranks (``serve.programs_on_rank``, what ``launch.
      serve --mesh 1x2`` runs); 18b DeepSeek-V2-Lite's 27 layers,
      prefill_32k at batch 1 (MLA heads and the expert-TP MoE split, the
-     router replicated). Held to phase 14's runs in the same call: each
+     router replicated). Held to one-card runs in the same call (18a: a
+     run of the same cut in phase 18; 18b: phase 14b's): each
      prefill's gathered logits within PHASE18_LOGIT_STEPS bf16 steps and
      by the argmax rule, a control (the last layer's psums each missing
      the other rank's term) failing that bound; 18a's tokens; the
@@ -370,14 +372,29 @@ nvcc, then runs eighteen phases, each printing JSON lines:
      within 3 x the one-card sub-block's error, each control failing it,
      the MoE's routes and drops there equal to one card's; 18b's dropped
      pairs equal on both ranks; D's shards of
-     layers 0 and 35 bit for bit the realignment of P's, gathered; every
+     layers 0 and 11 bit for bit the realignment of P's, gathered; every
      rank's bytes of parameters and caches equal to ``per_chip_bytes`` at
-     {"data": 1, "model": 2}; per rank exactly 36 flash, 144
-     ``flash_decode_partial`` and 144 ``decode_combine`` (18a) and 27
+     {"data": 1, "model": 2}; per rank exactly 12 flash, 48
+     ``flash_decode_partial`` and 48 ``decode_combine`` (18a) and 27
      flash (18b). Phase 1's row 1h holds the partial + combine over two
      slot halves of row 1q's cache against the whole-cache call (one
      bf16 step) and the SDPA yardstick, and times both entries
      (``phase1_decode_halves``).
+ 19. the same world for the other attention-cache families, each part
+     through ``serve.programs_on_rank`` and held as 18a: 19a Qwen1.5-32B
+     (8 of 64 layers, batch 2: P's bf16 caches cast to e4m3 in the
+     handoff), 19b Mixtral-8x7B (12 of 32, batch 2: rings of 4096 in slot
+     halves with their tags, the expert-TP MoE), 19c RecurrentGemma-9B
+     (38 layers, batch 2: the RG-LRU on the width's halves, its conv
+     output gathered, beside rings of 2048 on one KV head), 19d
+     DeepSeek-V2-Lite (27 layers, batch 1: MLA decode over capacity-
+     sharded latents, each rank's half expanded through every head's
+     ``w_ukv`` into flash_decode's partials at K 192 / V 128). 19a-19c
+     are held to phase 15's one-card runs (kept on the host), 19d to a
+     one-card run of its own (``phase19_one_card_mla``); the RG-LRU
+     block's control zeroes the other rank's gathered ``xb``. Phase 1's
+     rows 1h-a..d time the partial + combine at those four decode shapes
+     (``phase1_mesh_halves``).
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
@@ -400,8 +417,10 @@ overlay in float32 at the serving example's shapes as ``"demo"`` and
 flash and paged at the quickstart's as ``"quickstart"``;
 ``flash_decode_partial`` (one half of row 1q's cache) and
 ``decode_combine`` (both halves' splits) are rows of their own, each
-with the two-halves composition as ``"halves"``, and their launches
-are phase 18's, summed over both ranks.
+with the two-halves composition as ``"halves"`` (the partial's row also
+carries phase 19's four shapes as ``"mesh_fp8"``, ``"mesh_ring"``,
+``"mesh_rg"`` and ``"mesh_mla"``), and their launches are phase 18's,
+summed over both ranks, with phase 19's in ``launches_by_phase``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the script exits non-zero. Without a CUDA device, or without
@@ -584,11 +603,15 @@ PHASE14_PREDICTED = {
 # phase 15: the launch grid's last five cells on one card, through the
 # flash_decode kernel (D's caches: rings of the window, or float8). 15a:
 # Qwen1.5-32B's prefill_32k (bf16) -> handoff (the e4m3 cast) -> 4
-# decode_32k steps, at full width cut to 16 of 64 layers (a layer is 1.05
+# decode_32k steps, at full width cut to 8 of 64 layers (a layer is 1.05
 # GB of bf16 weights and 671 MB of bf16 KV a 32k sequence; the embedding
 # and head 3.1 GB), batch 2 (from 32 and 128). 15b: Mixtral-8x7B cut to 12
-# of 32 layers (2.9 GB a layer), 15c: RecurrentGemma-9B at all 38 layers
-# (about 21 GB: no cut), both prefill_32k -> handoff into D's rings -> 4
+# of 32 layers (2.9 GB a layer; at 8, 15d's one-token step meets a near-tie
+# of the router that the kernel route breaks the other way), 15c:
+# RecurrentGemma-9B at all 38 layers (15a had 16 layers until phase 19,
+# which runs these cells again on a mesh of ranks, made the script need
+# the time), both prefill_32k -> handoff into D's
+# rings -> 4
 # decode_32k steps at batch 2, against the same prefill in a
 # full-capacity D cache (through flash_decode too, which takes every
 # one-row step) and against the plain route. 15d:
@@ -601,8 +624,9 @@ PHASE14_PREDICTED = {
 # the SDPA yardstick, and each route's logits to float32 steps of the same
 # weights; the gaps to the plain bf16 route are printed beside one bf16
 # step. The predictions were
-# written down before the phase first ran on the card.
-PHASE15_MODELS = {"15a": ("qwen1.5-32b", 16), "15b": ("mixtral-8x7b", 12),
+# written down before the phase first ran on the card, at 16 / 12 / 38
+# layers.
+PHASE15_MODELS = {"15a": ("qwen1.5-32b", 8), "15b": ("mixtral-8x7b", 12),
                   "15c": ("recurrentgemma-9b", 38)}
 PHASE15_BATCH, PHASE15_DECODE_STEPS = 2, 4
 PHASE15_SHIFT = 491_520
@@ -646,11 +670,14 @@ PHASE17_TRAIN_STEPS = 100
 PHASE17_RUN_TIMEOUT_S = 300
 # phase 18: the launch programs on a (data, model) = (1, 2) mesh of ranks
 PHASE18_MESH = (1, 2)
-PHASE18_CHECK_LAYERS = (0, 35)     # 18a's layers whose reshard is held
+# 18a's depth: 12 of Qwen3-4B's 36 layers (all 36 until the script grew
+# phase 19), held to a one-card run of the same cut in this phase
+PHASE18A_LAYERS = 12
+PHASE18_CHECK_LAYERS = (0, 11)     # 18a's layers whose reshard is held
 PHASE18_TIMEOUT_S = 900            # the world's limit on one call
 # the layers whose attention and MLP / MoE sub-blocks are held on their
 # own inputs (``SubBlocks``): the first and last, and 18b's first MoE layer
-PHASE18_PROBE_LAYERS = {"18a": (0, 35), "18b": (1, 26)}
+PHASE18_PROBE_LAYERS = {"18a": (0, 11), "18b": (1, 26)}
 # a mesh sub-block's max and mean error against its float32 witness, at
 # most this many times the one-card sub-block's on the same input; each
 # control (the other rank's psum term left out) must fail it
@@ -683,6 +710,61 @@ PHASE18_PREDICTED = {
                   "input: mesh error against float32 1.0-2.0 x the one "
                   "card's at the max, 1.0-1.5 x at the mean, every control "
                   "> 20 x; MoE routes and drops on the same input equal",
+}
+
+# phase 19: the remaining attention-cache families on the same (1, 2) mesh
+# of ranks, each held to its one-card run in this call: 19a-19c to phase
+# 15's (same seed, prompts, depth — 8, 12 and 38 layers — and batch), 19d
+# to a one-card run of
+# DeepSeek-V2-Lite's prefill -> handoff -> 4 steps that phase 19 makes
+# itself (no other phase decodes that cell on one card). (arch, layers —
+# None: all —, batch, MoE routes traced)
+PHASE19_PARTS = {"19a": ("qwen1.5-32b", 8, 2, False),
+                 "19b": ("mixtral-8x7b", 12, 2, True),
+                 "19c": ("recurrentgemma-9b", None, 2, False),
+                 "19d": (MODEL14B, None, 1, True)}
+PHASE19_HELD = {"19a": "15a", "19b": "15b", "19c": "15c"}
+# layers (model order) whose D shards are held to the reshard of P's: the
+# first and last, and 19c's first attention (a ring) and last RG-LRU
+# state beside them
+PHASE19_CHECK_LAYERS = {"19a": (0, 7), "19b": (0, 11),
+                        "19c": (0, 2, 35, 37), "19d": (0, 26)}
+# the sub-blocks held on their own inputs against float32 witnesses: the
+# first and last attention layers' attention, the last layer's blocks
+# (whose psums the end-to-end control leaves out: 19c's last layer is an
+# RG-LRU block and an MLP), Mixtral's first MoE layer, 19c's first RG-LRU
+# block, 19d's first and last layers whole and its last MLA decode of the
+# first step
+# the logit bound of a part held tighter than PHASE18_LOGIT_STEPS: at
+# RecurrentGemma's 38 layers the last layer's MLP psum, left out, moves
+# the logits 8.0 bf16 steps (on the card: NVIDIA H100 80GB HBM3, 700.00
+# W), as the embedding's sqrt(d) scale dwarfs a layer's output, so 16
+# steps could not see a missing psum there; the run itself reads 5.25
+PHASE19_LOGIT_STEPS = {"19c": 8}
+PHASE19_PROBES = {
+    "19a": {"blocks": ((0, "attn"), (7, "attn"), (7, "mlp"))},
+    "19b": {"blocks": ((0, "attn"), (0, "moe"), (11, "attn"))},
+    "19c": {"blocks": ((0, "rglru"), (2, "attn"), (35, "attn"),
+                       (37, "rglru"), (37, "mlp"))},
+    "19d": {"layers": (0, 26), "mla_decode": 26}}
+PHASE19_PREDICTED = {
+    "19a": "each rank ~10 GB of weights, 10.7 GB of P caches and 5.4 GB of "
+           "e4m3 D caches; ~21.5 GB of bf16 psums a rank, prefill ~30 s; "
+           "launches a rank: flash 16, partial and combine 64 each",
+    "19b": "~17.7 GB of weights a rank, rings of 2 x 2048 slots; ~13 GB "
+           "of psums, prefill ~18 s; flash 12, partial and combine 48",
+    "19c": "~10.4 GB of weights a rank; ~41 GB of psums plus the xb "
+           "gathers of 26 RG-LRU layers, prefill 60-75 s; flash 12, "
+           "partial and combine 48",
+    "19d": "18b's prefill (~11 s), the latent halves handed off with no "
+           "bytes crossing, 4 steps each expanding ~170 MB of latent a "
+           "rank and layer; flash 27, partial and combine 108",
+    "phase_s": "under 240",
+    # written at 16 / 12 / 38 layers (19a-19c) and before these cuts
+    "cut": "at 8 / 8 / 12 layers: prefills ~26 / ~16 / ~25 s, parts "
+           "~65 / ~30 / ~40 / ~21 s, phase 19 140-170 s; 19c's end-to-end "
+           "control (its last layer now an attention layer) past 16 steps "
+           "(19b then went back to 12 layers: see PHASE15_MODELS)",
 }
 
 
@@ -1588,6 +1670,7 @@ def phase1(dev):
     demo = phase1_demo(gen, dev)
     timings["flash_decode"] = phase1_decode(gen, dev)
     timings.update(phase1_decode_halves(gen, dev))
+    timings["flash_decode_partial"].update(phase1_mesh_halves(gen, dev))
     timings["scatter_pages_overlay"] = phase1_overlay(gen, dev)
     from repro_torch.configs import get_config
     timings.update(phase1_pages(gen, dev, get_config(MODEL)))
@@ -2645,25 +2728,31 @@ def phase1_windowed(gen, dev):
           "bound_ms": p_ms, "bound_by": p_by})
 
 
-def decode_cache(gen, dev, b, cap, n, kvh, hd, kv_dtype):
-    """K/V (b, cap, kvh, hd) of unit normals cast to ``kv_dtype`` and pos
-    tags of positions 0..n-1 at slot position % cap (-1 where none): a
-    ring of the last ``cap`` positions starting at slot n % cap, or a
-    full-capacity cache with room left."""
+def decode_cache(gen, dev, b, cap, n, kvh, hd, kv_dtype, dv=None):
+    """K (b, cap, kvh, hd) and V (b, cap, kvh, dv or hd) of unit normals
+    cast to ``kv_dtype`` and pos tags of positions 0..n-1 at slot position
+    % cap (-1 where none): a ring of the last ``cap`` positions starting
+    at slot n % cap, or a full-capacity cache with room left. A V
+    narrower than K is the second half of a (.., 2 dv) buffer, as MLA's
+    value part of its expanded latent."""
     import torch
     k = _rand(gen, (b, cap, kvh, hd), torch.float32, dev).to(kv_dtype)
-    v = _rand(gen, (b, cap, kvh, hd), torch.float32, dev).to(kv_dtype)
+    if dv is None or dv == hd:
+        v = _rand(gen, (b, cap, kvh, hd), torch.float32, dev).to(kv_dtype)
+    else:
+        v = _rand(gen, (b, cap, kvh, 2 * dv), torch.float32,
+                  dev).to(kv_dtype)[..., dv:]
     pos = torch.full((cap,), -1, dtype=torch.int32, device=dev)
     held = torch.arange(max(0, n - cap), n, dtype=torch.int32, device=dev)
     pos[held.long() % cap] = held
     return k, v, pos[None].expand(b, cap).contiguous()
 
 
-def decode_library(q, k, v, pos, q_offset: int, window: int):
+def decode_library(q, k, v, pos, q_offset: int, window: int, scale=None):
     """flash_decode's library counterpart on the same values: a callable of
     ``scaled_dot_product_attention`` in bf16 with k/v repeated to the query
     heads and a boolean mask from the tags, float8 K/V dequantized to bf16
-    here (outside the callable's time), returning (B, Sq, H, d)."""
+    here (outside the callable's time), returning (B, Sq, H, dv)."""
     import torch
     import torch.nn.functional as F
     grp = q.shape[2] // k.shape[2]
@@ -2680,8 +2769,8 @@ def decode_library(q, k, v, pos, q_offset: int, window: int):
     qt = q.to(torch.bfloat16).transpose(1, 2)
 
     def library():
-        return F.scaled_dot_product_attention(qt, kr, vr, attn_mask=mask)\
-            .transpose(1, 2)
+        return F.scaled_dot_product_attention(qt, kr, vr, attn_mask=mask,
+                                              scale=scale).transpose(1, 2)
 
     return library, ok
 
@@ -2794,37 +2883,35 @@ def phase1_decode(gen, dev):
     return row
 
 
-def phase1_decode_halves(gen, dev):
-    """Row 1h: flash_decode over a cache whose slots are cut in two, as
-    each rank of phase 18's (1, 2) mesh holds its half of D's capacity-
-    sharded cache: ``ops.cache_attention_partial`` on each half (the split
-    kernel, stopped at its partials) and ``ops.cache_attention_combine``
-    over the two halves' splits (the combine kernel), at row 1q's shape
-    (Qwen3-4B: q (2,1,32,128) bf16 over 32,896 slots of 8 KV heads x 128,
-    32,769 positions). The composition is held to the whole-cache kernel
-    call (one bf16 step, as the two round once from float32 sums in
-    another order) and, by the SDPA yardstick, to the float32 plain
-    version. Returns the kernels line's rows ``flash_decode_partial`` (one
-    half's call: the rank's work) and ``decode_combine`` (the merge of both
-    halves' splits), each carrying the composition as ``"halves"``; the
-    partial and the combine have no library call."""
+def decode_halves(gen, dev, what, b, cap, n, kvh, h, d, window, kv_dtype,
+                  dv=None, scale=None):
+    """flash_decode over a cache whose slots are cut in two, as each rank
+    of a (1, 2) mesh holds its half of D's capacity-sharded cache:
+    ``ops.cache_attention_partial`` on each half (the split kernel,
+    stopped at its partials) and ``ops.cache_attention_combine`` over the
+    two halves' splits (the combine kernel); q (b,1,h,d) bf16 over K
+    (b,cap,kvh,d) and V (b,cap,kvh,dv) of ``kv_dtype`` holding positions
+    0..n-1 (a ring of the last cap where n > cap) under ``window``. The
+    composition is held to the whole-cache kernel call (one bf16 step, as
+    the two round once from float32 sums in another order) and, by the
+    SDPA yardstick, to the float32 plain version, then timed with its
+    bound and SDPA's time. Returns (the composition, the second half's
+    partial, the combine), each timed; the partial and the combine have
+    no library call."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
-    cfg = get_config(MODEL14)
-    b, n, d = 2, 32_769, cfg.hd
-    h, kvh = cfg.num_heads, cfg.num_kv_heads
-    cap = -(-(32_768 + 128) // 16) * 16
+    dv = dv or d
     half = cap // 2
-    k, v, pos = decode_cache(gen, dev, b, cap, n, kvh, d, torch.bfloat16)
+    k, v, pos = decode_cache(gen, dev, b, cap, n, kvh, d, kv_dtype, dv)
     q = _rand(gen, (b, 1, h, d), torch.bfloat16, dev)
     qo = n - 1
+    args = dict(q_offset=qo, window=window, scale=scale)
     cuts = [(k[:, s:s + half], v[:, s:s + half], pos[:, s:s + half])
             for s in (0, half)]
 
     def partial(i=1):
         kh, vh, ph = cuts[i]
-        return ops.cache_attention_partial(q, kh, vh, ph, q_offset=qo)
+        return ops.cache_attention_partial(q, kh, vh, ph, **args)
 
     parts = [partial(0), partial(1)]
     acc = torch.cat([a for a, _ in parts], 2)
@@ -2840,14 +2927,13 @@ def phase1_decode_halves(gen, dev):
                                            torch.bfloat16)
 
     def plain_halves():
-        ps = [ref.cache_attention_partial_ref(q, *c, q_offset=qo)
-              for c in cuts]
+        ps = [ref.cache_attention_partial_ref(q, *c, **args) for c in cuts]
         return ref.decode_combine_ref(torch.cat([a for a, _ in ps], 2),
                                       torch.cat([m for _, m in ps], 2),
                                       torch.bfloat16)
 
     got = halves()
-    whole = ops.cache_attention(q, k, v, pos, q_offset=qo)
+    whole = ops.cache_attention(q, k, v, pos, **args)
     # two bf16 roundings of float32 sums in another order: within one bf16
     # step of each element (the mean test of _check is for a float32 want)
     torch.cuda.synchronize()
@@ -2856,53 +2942,114 @@ def phase1_decode_halves(gen, dev):
     steps = float((err / (BF16_FLOOR + BF16_STEP * whole.float().abs()))
                   .max())
     if not steps <= 1.0:
-        raise AssertionError(f"1h flash_decode halves vs the whole-cache "
-                             f"call: {steps} bf16 steps (max error "
+        raise AssertionError(f"{what} flash_decode halves vs the whole-cache"
+                             f" call: {steps} bf16 steps (max error "
                              f"{vs_whole})")
     want = ref.cache_attention_ref(q.float(), k.float(), v.float(), pos,
-                                   q_offset=qo)
-    library, ok = decode_library(q, k, v, pos, qo, 0)
-    yard = _yardstick("1h flash_decode halves", got, want, library())
+                                   **args)
+    library, ok = decode_library(q, k, v, pos, qo, window, scale)
+    yard = _yardstick(f"{what} flash_decode halves", got, want, library())
     # the plain partial + combine against the plain whole (float32)
     plain_err = float((plain_halves().float() - ref.cache_attention_ref(
-        q, k, v, pos, q_offset=qo).float()).abs().max())
+        q, k, v, pos, **args).float()).abs().max())
     del got, want, whole
     comp = time_all(halves, plain_halves, library)
+    es = k.element_size()
     seen = int(ok[0, 0].sum())
-    kv_bytes = b * kvh * seen * 2 * d * 2
-    comp_bytes = 2.0 * 2 * b * h * d + 4.0 * b * cap + kv_bytes
-    comp["bound_ms"], comp["bound_by"] = bound(2.0 * b * h * seen * 2 * d,
-                                               comp_bytes, "bfloat16")
-    comp.update(shape=f"q({b},1,{h},{d}) bf16 over two halves of "
-                      f"{half} slots of a {cap}-slot cache ({kvh} KV heads "
-                      f"x {d}), positions 0..{qo}", visible_slots=seen,
+    kv_bytes = b * kvh * seen * (d + dv) * es
+    comp_bytes = 2.0 * b * h * (d + dv) + 4.0 * b * cap + kv_bytes
+    comp["bound_ms"], comp["bound_by"] = bound(
+        2.0 * b * h * seen * (d + dv), comp_bytes, "bfloat16")
+    dt = str(kv_dtype).replace("torch.", "")
+    comp.update(shape=f"q({b},1,{h},{d}) bf16 over two halves of {half} "
+                      f"slots of a {cap}-slot {dt} cache ({kvh} KV heads, K "
+                      f"{d}, V {dv}), positions {max(0, n - cap)}..{qo}, "
+                      f"window {window}", visible_slots=seen,
                 vs_whole_call_max_abs_err=vs_whole,
                 vs_whole_call_bf16_steps=steps,
                 plain_halves_vs_plain_whole=plain_err, **yard)
     splits = acc.shape[2]
     seen_hi = int(ok[0, 0, half:].sum())
-    part_out = 4.0 * b * (splits // 2) * h * (d + 2)
+    part_out = 4.0 * b * (splits // 2) * h * (dv + 2)
     t_part = time_all(partial, lambda: ref.cache_attention_partial_ref(
-        q, *cuts[1], q_offset=qo))
+        q, *cuts[1], **args))
     t_part["bound_ms"], t_part["bound_by"] = bound(
-        2.0 * b * h * seen_hi * 2 * d,
-        2.0 * b * h * d + 4.0 * b * half + b * kvh * seen_hi * 2 * d * 2
+        2.0 * b * h * seen_hi * (d + dv),
+        2.0 * b * h * d + 4.0 * b * half + b * kvh * seen_hi * (d + dv) * es
         + part_out, "bfloat16")
     t_part.update(max_abs_err=yard["max_abs_err"], shape=(
         f"q({b},1,{h},{d}) bf16 over slots {half}..{cap - 1} ({seen_hi} "
-        f"positions), {splits // 2} splits of partials out"),
-        halves=comp)
+        f"visible), {splits // 2} splits of partials out"))
     t_comb = time_all(combine, lambda: ref.decode_combine_ref(
         acc, ml, torch.bfloat16))
     t_comb["bound_ms"], t_comb["bound_by"] = bound(
-        3.0 * b * splits * h * d, 4.0 * b * splits * h * (d + 2)
-        + 2.0 * b * h * d, "float32")
+        3.0 * b * splits * h * dv, 4.0 * b * splits * h * (dv + 2)
+        + 2.0 * b * h * dv, "float32")
     t_comb.update(max_abs_err=yard["max_abs_err"], shape=(
-        f"partials of {splits} splits (two halves) x {h} heads x {d} "
-        f"float32 -> o ({b},1,{h},{d}) bf16"), halves=comp)
-    emit({"phase": 1, "extra": "1h flash_decode over two slot halves + "
-          "combine", **comp})
+        f"partials of {splits} splits (two halves) x {h} heads x {dv} "
+        f"float32 -> o ({b},1,{h},{dv}) bf16"))
+    emit({"phase": 1, "extra": f"{what} flash_decode over two slot halves "
+          f"+ combine", **comp, "partial": t_part, "combine": t_comb})
+    return comp, t_part, t_comb
+
+
+def phase1_decode_halves(gen, dev):
+    """Row 1h: ``decode_halves`` at row 1q's shape (Qwen3-4B: q
+    (2,1,32,128) bf16 over 32,896 slots of 8 KV heads x 128, 32,769
+    positions), as each rank of phase 18's (1, 2) mesh holds its half.
+    Returns the kernels line's rows ``flash_decode_partial`` (one half's
+    call: the rank's work) and ``decode_combine`` (the merge of both
+    halves' splits), each carrying the composition as ``"halves"``."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(MODEL14)
+    cap = -(-(32_768 + 128) // 16) * 16
+    comp, t_part, t_comb = decode_halves(
+        gen, dev, "1h", 2, cap, 32_769, cfg.num_kv_heads, cfg.num_heads,
+        cfg.hd, 0, torch.bfloat16)
+    t_part["halves"] = t_comb["halves"] = comp
     return {"flash_decode_partial": t_part, "decode_combine": t_comb}
+
+
+def phase1_mesh_halves(gen, dev):
+    """Rows 1h-a..1h-d: ``decode_halves`` at the shapes of phase 19's
+    decode caches, each rank one half: Qwen1.5-32B's e4m3 cache (40 heads
+    on 40 KV heads, 2 x 16,448 slots), Mixtral's ring (32 heads on 8 KV
+    heads, 2 x 2,048 slots of a 4096 window), RecurrentGemma's ring (16
+    heads on one KV head at 256, 2 x 1,024 slots of a 2048 window) at batch
+    2, and DeepSeek-V2-Lite's latent expanded to every head (16 on 16, K
+    192, V 128 — V narrower than K — over 2 x 16,448 slots) at batch 1.
+    Returns {key: the composition, with the second half's partial and the
+    combine beside it}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cap = -(-(32_768 + 128) // 16) * 16
+    qw, mix, rg, ds = (get_config(m) for m in (
+        "qwen1.5-32b", MODEL6, MODEL8, MODEL14B))
+    m = ds.mla
+    rows = {}
+    for key, args in (
+            ("mesh_fp8", (2, cap, 32_769, qw.num_kv_heads, qw.num_heads,
+                          qw.hd, 0, torch.float8_e4m3fn)),
+            ("mesh_ring", (2, mix.sliding_window, 34_000, mix.num_kv_heads,
+                           mix.num_heads, mix.hd, mix.sliding_window,
+                           torch.bfloat16)),
+            ("mesh_rg", (2, rg.sliding_window, 34_000, rg.num_kv_heads,
+                         rg.num_heads, rg.hd, rg.sliding_window,
+                         torch.bfloat16)),
+            ("mesh_mla", (1, cap, 32_769, ds.num_heads, ds.num_heads,
+                          m.qk_nope_head_dim + m.qk_rope_head_dim, 0,
+                          torch.bfloat16))):
+        kw = dict(dv=m.v_head_dim, scale=L._mla_scale(ds)) \
+            if key == "mesh_mla" else {}
+        comp, t_part, t_comb = decode_halves(gen, dev, key, *args, **kw)
+        comp["partial"], comp["combine"] = (
+            {k: t[k] for k in ("shape", "ms", "device_ms", "host_us",
+                               "bound_ms", "bound_by")}
+            for t in (t_part, t_comb))
+        rows[key] = comp
+    return rows
 
 
 # --------------------------------------------------------------------------- #
@@ -5781,10 +5928,9 @@ def phase14(dev):
         timing.update(part.get("timing", {}))
     emit({"phase": 14, "phase_s": round(time.perf_counter() - t_phase, 3),
           "parts_s": {k: v["part_s"] for k, v in parts.items()}})
-    # what phase 18 holds its mesh runs to
+    # what phase 18 holds 18b to (18a has a one-card run of its own cut)
     held = {k: {f: parts[k][f] for f in parts[k] if f in (
-        "last_logits", "token_gaps", "tokens", "drops", "routes")}
-        for k in ("14a", "14b")}
+        "last_logits", "drops", "routes")} for k in ("14b",)}
     return {"launches": dict(launches), "timing": timing, "held": held}
 
 
@@ -6075,7 +6221,9 @@ def phase15_part(dev, part: str):
     also holds D's bytes to the CPU's e4m3 cast of P's caches. The
     launches are counted from the prefill to the last decode step (the
     checks and copies in between launch none). 15b and 15c return a
-    batch-1 slice of D's caches for 15d."""
+    batch-1 slice of D's caches for 15d. Returns the launches, the part's
+    seconds and, on the host, what phase 19 holds its mesh run to: the
+    prefill's last logits, the tokens and each token's top-2 gap."""
     import dataclasses as dc
     import numpy as np
     import torch
@@ -6139,6 +6287,8 @@ def phase15_part(dev, part: str):
     hold, held = holder()
     got, fed, steps_ms = decode_steps(srv, params, caches_d, tok, s, dev,
                                       hold=hold)
+    kept = {"last_logits": last.float().cpu(),
+            "token_gaps": [top2_gap_and_bound(x) for x in [last] + got]}
     launches = ops.launch_counts()
     peak_main = _peak_gib(dev)
     for i, g in enumerate(got):
@@ -6187,6 +6337,7 @@ def phase15_part(dev, part: str):
         del turn_caches
     out["peak_gib_with_checks"] = _peak_gib(dev)
     out["predicted"] = PHASE15_PREDICTED[part]
+    kept["tokens"] = out["tokens"]
     out["problems"] = bad
     out["part_s"] = round(time.perf_counter() - t_part, 3)
     emit(out)
@@ -6200,7 +6351,7 @@ def phase15_part(dev, part: str):
                             fed[0][:1], attn)
         launches = dict(collections.Counter(launches) + collections.Counter(
             long["launches"]))
-    return {"launches": launches, "part_s": out["part_s"]}
+    return {"launches": launches, "part_s": out["part_s"], "held": kept}
 
 
 def phase15_long(dev, arch: str, over, mesh, params, caches, tok, attn):
@@ -6274,14 +6425,17 @@ def phase15_long(dev, arch: str, over, mesh, params, caches, tok, attn):
 
 def phase15(dev):
     """15a, 15b (with its 15d) and 15c (with its 15d), each model freed
-    before the next. Returns the launches summed over their main paths."""
+    before the next. Returns the launches summed over their main paths
+    and each part's ``held`` (host tensors and lists: phase 19's
+    one-card results)."""
     import torch
     t_phase = time.perf_counter()
-    launches, parts_s = collections.Counter(), {}
+    launches, parts_s, held = collections.Counter(), {}, {}
     for part in ("15a", "15b", "15c"):
         r = phase15_part(dev, part)
         launches.update(r["launches"])
         parts_s[part] = r["part_s"]
+        held[part] = r["held"]
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -6289,7 +6443,7 @@ def phase15(dev):
     emit({"phase": 15, "phase_s": phase_s, "parts_s": parts_s,
           "launches": dict(launches),
           "predicted_s": PHASE15_PREDICTED["phase_s"]})
-    return {"launches": dict(launches)}
+    return {"launches": dict(launches), "held": held}
 
 
 # --------------------------------------------------------------------------- #
@@ -6541,12 +6695,13 @@ def phase17(dev):
 # --------------------------------------------------------------------------- #
 # phase 18: a mesh of ranks (tensor parallelism on the model axis)
 # --------------------------------------------------------------------------- #
-def phase18b_rank(rank, arch: str, batch: int, seed: int, mesh_shape):
-    """18b on one rank: ``serve.programs_on_rank``'s prefill of
-    DeepSeek-V2-Lite with the capacity MoE's routing traced (each MoE
-    layer's choices and the pairs its windows drop, from the group sizes
-    after the run); returns the rank's record with ``drops`` and, on rank
-    0, ``routes`` (int8 expert ids (T, k) a layer)."""
+def moe_traced_rank(rank, arch: str, *args):
+    """``serve.programs_on_rank(rank, arch, *args)`` with the capacity
+    MoE's routing traced (each MoE call's choices and the pairs its
+    windows drop, from the group sizes after the run: the prefill's
+    layers, then each decode step's); returns the rank's record with
+    ``drops`` and, on rank 0, ``routes`` (int8 expert ids (T, k) a
+    call)."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.models import layers as L
@@ -6565,8 +6720,7 @@ def phase18b_rank(rank, arch: str, batch: int, seed: int, mesh_shape):
 
     L._moe_mlp_capacity = traced
     try:
-        rec = serve.programs_on_rank(rank, arch, "prefill_32k", batch, 0,
-                                     None, seed, mesh_shape, (), True)
+        rec = serve.programs_on_rank(rank, arch, *args)
     finally:
         L._moe_mlp_capacity = real
     from repro_torch.configs import get_config
@@ -6595,10 +6749,12 @@ def gloo_bf16_probe(rank):
             "values": sorted({float(v) for v in y.cpu().float()})}
 
 
-def held_to_launch(part: str, got, want, control) -> dict:
+def held_to_launch(part: str, got, want, control,
+                   steps: int = PHASE18_LOGIT_STEPS) -> dict:
     """A mesh run's gathered prefill logits ``got`` (B, V) against the
-    one-card run's ``want``: the largest gap at most PHASE18_LOGIT_STEPS
-    bf16 steps of ``want``'s largest magnitude, and each row's argmax
+    one-card run's ``want``: the largest gap at most ``steps`` (default
+    PHASE18_LOGIT_STEPS) bf16 steps of ``want``'s largest magnitude, and
+    each row's argmax
     equal or ``want``'s top-2 gap within that bound (a near-tie the other
     reduction order may break the other way). ``control``: the same
     run's logits with its last layer's psums each missing the other
@@ -6607,7 +6763,7 @@ def held_to_launch(part: str, got, want, control) -> dict:
     over 27-36 random layers the two drift apart by a few steps (PERF.md
     §6), so phase 14's one step is printed, not held."""
     step = bf16_step(want)
-    limit = PHASE18_LOGIT_STEPS * step
+    limit = steps * step
     gap = float((got - want).abs().max())
     c_gap = float((control - want).abs().max())
     same = (got.argmax(-1) == want.argmax(-1)).tolist()
@@ -6620,7 +6776,7 @@ def held_to_launch(part: str, got, want, control) -> dict:
            "control_gap_bf16_steps": c_gap / step if step else None,
            "argmax_equal": same, "one_card_top2_gap": t2}
     bad = [f"{part}: logits {gap} from the one-card run's, past "
-           f"{PHASE18_LOGIT_STEPS} bf16 steps ({limit})"] \
+           f"{steps} bf16 steps ({limit})"] \
         if not gap <= limit else []
     if c_gap <= limit:
         bad.append(f"{part}: the control's logits ({c_gap} away) pass the "
@@ -6633,42 +6789,73 @@ def held_to_launch(part: str, got, want, control) -> dict:
 
 
 class SubBlocks:
-    """A rank's record of the sub-blocks of chosen layers as the main path
-    runs them: each attention (``model.attention_full``) and MLP
-    (``layers.swiglu_mlp`` at the layer's width) or MoE
-    (``layers.moe_mlp``) call of those layers, counted in model order —
-    its input, its output (after the psum), a copy of the rank's shard of
-    its weights and its distribution context —, and the first
-    ``lm_logits`` call's input (the prefill's last position) with the
-    head's shards. ``hold`` then measures them on the same inputs."""
+    """A rank's record of chosen sub-blocks as the main path runs them,
+    keyed by (model layer, block): each prefill attention
+    (``model.attention_full``), MLP (``layers.swiglu_mlp`` at the layer's
+    width), MoE (``layers.moe_mlp``) and RG-LRU block
+    (``layers.rglru_block``, with a copy of the state it starts from) of
+    the layers in ``layers`` or named in ``blocks``, and the first decode
+    step's MLA attention (``layers.mla_decode``, with a copy of the
+    rank's latent it reads) of layer ``mla_decode`` — its input, its
+    output (after the psum), a copy of the rank's shard of its weights and
+    its distribution context —, and the first ``lm_logits`` call's input
+    (the prefill's last position) with the head's shards. The inputs,
+    outputs, states and latents wait on the host, so that the main path
+    keeps the card's memory. ``hold`` then measures them on the same
+    inputs."""
 
-    def __init__(self, layers):
+    PARAMS = {"attn": "attn", "mlp": "mlp", "moe": "mlp", "rglru": "rglru",
+              "mla_decode": "attn"}
+
+    def __init__(self, layers=(), blocks=(), mla_decode=None):
         self.layers = set(layers)
-        self.calls = {"attn": 0, "mlp": 0, "moe": 0}
-        self.got = {}            # (layer, "attn" | "mlp" | "moe") -> dict
+        self.blocks = set(map(tuple, blocks))
+        self.mla_decode = mla_decode
+        self.calls = {"attn": 0, "mlp": 0, "moe": 0, "rglru": 0,
+                      "mla_decode": 0}
+        self.order = None        # kind -> model layers of that kind, in order
+        self.got = {}            # (layer, block) -> dict
         self.head = None
+
+    def _layer(self, cfg, kind, i):
+        """The model layer of the i-th call of a ``kind`` layer (None past
+        the model's layers: a decode step's)."""
+        if self.order is None:
+            from repro_torch.models import model as M
+            kinds = [k for g in M.block_groups(cfg) for _ in range(g.count)
+                     for k in g.kinds]
+            self.order = {k: [j for j, x in enumerate(kinds) if x == k]
+                          for k in set(kinds)}
+        at = self.order.get(kind, [])
+        return at[i] if i < len(at) else None
+
+    def _wanted(self, i, block):
+        return i is not None and (i in self.layers
+                                  or (i, block) in self.blocks)
 
     def _keep(self, i, block, p, x, y, cfg, run, **kw):
         from repro_torch.launch import sharding as SH
         from repro_torch.models import dist
         self.got[(i, block)] = dict(
-            p=SH.tree_map(lambda t: t.clone(), p), x=x, y=y, cfg=cfg,
-            ctx=dist.ctx(), run=run, **kw)
+            p=SH.tree_map(lambda t: t.clone(), p), x=x.cpu(), y=y.cpu(),
+            cfg=cfg, ctx=dist.ctx(), run=run, prefill=True, extra={}, **kw)
 
     @contextlib.contextmanager
     def recording(self):
         from repro_torch.models import dist
         from repro_torch.models import layers as L
         from repro_torch.models import model as M
-        real = (M.attention_full, L.swiglu_mlp, L.moe_mlp, M.lm_logits)
+        real = (M.attention_full, L.swiglu_mlp, L.moe_mlp, M.lm_logits,
+                L.rglru_block, L.mla_decode)
 
         def attn(p, cfg, h, positions):
-            i = self.calls["attn"]
+            i = self._layer(cfg, M.ATTN, self.calls["attn"])
             self.calls["attn"] += 1
             out = real[0](p, cfg, h, positions)
-            if i in self.layers:
-                self._keep(i, "attn", p, h, out[0], cfg, lambda q, x:
-                           M.attention_full(q, cfg, x, positions)[0])
+            if self._wanted(i, "attn"):
+                self._keep(i, "attn", p, h, out[0], cfg,
+                           lambda q, x, e: M.attention_full(
+                               q, cfg, x, positions)[0])
             return out
 
         def swiglu(p, x, d_ff=None):
@@ -6676,8 +6863,8 @@ class SubBlocks:
             if d_ff is not None:             # a layer's MLP, not a shared
                 i = self.calls["mlp"]        # expert inside the MoE
                 self.calls["mlp"] += 1
-                if i in self.layers:
-                    self._keep(i, "mlp", p, x, y, None, lambda q, z:
+                if self._wanted(i, "mlp"):
+                    self._keep(i, "mlp", p, x, y, None, lambda q, z, e:
                                L.swiglu_mlp(q, z, d_ff))
             return y
 
@@ -6686,8 +6873,8 @@ class SubBlocks:
             self.calls["mlp"] += 1
             self.calls["moe"] += 1
             y = real[2](p, cfg, x)
-            if i in self.layers:
-                self._keep(i, "moe", p, x, y, cfg, lambda q, z:
+            if self._wanted(i, "moe"):
+                self._keep(i, "moe", p, x, y, cfg, lambda q, z, e:
                            L.moe_mlp(q, cfg, z), moe_call=k)
             return y
 
@@ -6698,26 +6885,66 @@ class SubBlocks:
                     x=x, cfg=cfg, ctx=dist.ctx())
             return real[3](params, cfg, x)
 
-        M.attention_full, L.swiglu_mlp, L.moe_mlp, M.lm_logits = \
-            attn, swiglu, moe, head
+        def rglru(p, cfg, x, state):
+            i = self._layer(cfg, M.RECURRENT, self.calls["rglru"])
+            self.calls["rglru"] += 1
+            start = {"h": state.h.clone(), "conv": state.conv.clone()}
+            out = real[4](p, cfg, x, state)
+            if self._wanted(i, "rglru"):
+                self._keep(i, "rglru", p, x, out[0], cfg,
+                           lambda q, z, e: L.rglru_block(
+                               q, cfg, z, L.RGLRUState(
+                                   e["h"].clone(), e["conv"].clone()))[0])
+                self.got[(i, "rglru")].update(
+                    extra={n: t.cpu() for n, t in start.items()},
+                    dims={"h": -1, "conv": -1}, control_by="gather")
+            return out
+
+        def mla_decode(p, cfg, x, positions, cache, q_offset=None):
+            i = self._layer(cfg, M.ATTN, self.calls["mla_decode"])
+            self.calls["mla_decode"] += 1
+            mine = i is not None and i == self.mla_decode
+            start = {n: getattr(cache, n).clone()
+                     for n in ("ckv", "kpe", "pos")} if mine else None
+            out = real[5](p, cfg, x, positions, cache, q_offset=q_offset)
+            if mine:
+                self._keep(i, "mla_decode", p, x, out[0], cfg,
+                           lambda q, z, e: L.mla_decode(
+                               q, cfg, z, positions, L.MLACache(
+                                   e["ckv"].clone(), e["kpe"].clone(),
+                                   e["pos"].clone(), True),
+                               q_offset=q_offset)[0])
+                self.got[(i, "mla_decode")].update(
+                    extra={n: t.cpu() for n, t in start.items()},
+                    prefill=False, dims={"ckv": 1, "kpe": 1, "pos": 1})
+            return out
+
+        M.attention_full, L.swiglu_mlp, L.moe_mlp, M.lm_logits, \
+            L.rglru_block, L.mla_decode = attn, swiglu, moe, head, rglru, \
+            mla_decode
         try:
             yield self
         finally:
-            M.attention_full, L.swiglu_mlp, L.moe_mlp, M.lm_logits = real
+            M.attention_full, L.swiglu_mlp, L.moe_mlp, M.lm_logits, \
+                L.rglru_block, L.mla_decode = real
 
     def hold(self, rank, routes=None):
         """On every rank: each recorded sub-block again on its own input
-        with ``psum`` returning the rank's own partial (the control: the
-        other rank's term left out), and its weights gathered whole. On
-        rank 0: the one-card sub-block (the weights whole, the context's
-        mesh 1 x 1) and its float32 witness (the weights and the same
-        input in float32) on that input; each output's max and mean error
-        against the witness; at a MoE layer the one-card routes and
-        dropped pairs beside the mesh run's (``routes``: rank 0's, one a
-        MoE call). Then on every rank the control's logits: the last
-        layer's two sub-blocks' control deltas added to the prefill's last
-        position, through the head, gathered. Returns (rank 0's records,
-        the control logits) as CPU values."""
+        with its control — ``psum`` returning the rank's own partial (the
+        other rank's term left out), or for an RG-LRU block the gathered
+        ``xb`` with the other rank's channels zeroed —, and its weights
+        and its state or latent gathered whole. On rank 0: the one-card
+        sub-block (the weights whole, the context's mesh 1 x 1) and its
+        float32 witness (the weights, the same input and the state in
+        float32; a MoE's summed over four slices of d_ff_expert, each a
+        float32 expert-TP partial, so that its intermediates fit) on that
+        input; each output's max and mean error against the witness; at a
+        MoE layer the one-card routes and dropped pairs beside the mesh
+        run's (``routes``: rank 0's, one a MoE call). Then on every rank
+        the control's logits: the last layer's prefill sub-blocks' control
+        deltas added to the prefill's last position, through the head,
+        gathered. Returns (rank 0's records, the control logits) as CPU
+        values."""
         import torch
         from repro_torch.launch import sharding as SH
         from repro_torch.launch.mesh import make_mesh
@@ -6728,27 +6955,58 @@ class SubBlocks:
         cfg = self.head["cfg"]
         shard = self.head["ctx"].model_shard()
         abstract = [lp for *_, lp in M._layers(M.abstract_params(cfg), cfg)]
-        real_psum = C.psum
+        real_psum, real_gather = C.psum, C.all_gather
+
+        def own_half(x, dim, shard_):
+            return torch.cat([x if j == shard_.index else torch.zeros_like(x)
+                              for j in range(shard_.size)], dim)
+
         recs = []
+        dev = self.head["x"].device
         for (i, block), r in sorted(self.got.items()):
+            for key in ("x", "y"):                  # back from the host
+                r[key] = r[key].to(dev)
+            r["extra"] = {n: t.to(dev) for n, t in r["extra"].items()}
             with torch.no_grad(), dist.use(r["ctx"]):
-                C.psum = lambda x, shard_: x
+                if r.get("control_by") == "gather":
+                    # the end-to-end control leaves out the other rank's
+                    # psum term of every block, this one's too
+                    C.psum = lambda x, shard_: x
+                    try:
+                        r["control_psum"] = r["run"](r["p"], r["x"],
+                                                     r["extra"]).cpu()
+                    finally:
+                        C.psum = real_psum
+                    C.all_gather = own_half
+                else:
+                    C.psum = lambda x, shard_: x
                 try:
-                    r["control"] = r["run"](r["p"], r["x"])
+                    r["control"] = r["run"](r["p"], r["x"], r["extra"])
                 finally:
-                    C.psum = real_psum
-                want = abstract[i]["attn" if block == "attn" else "mlp"]
+                    C.psum, C.all_gather = real_psum, real_gather
+                want = abstract[i][self.PARAMS[block]]
                 whole = SH.tree_map(
                     lambda t, a: _gathered_whole(t, tuple(a.shape), shard),
                     r["p"], want)
+                extra = {n: C.all_gather(t.contiguous(), r["dims"][n], shard)
+                         for n, t in r["extra"].items()}
             if rank.index:
+                for key in ("x", "y", "control"):     # the card's memory
+                    r[key] = r[key].cpu()
+                del whole, extra
                 continue
             one = dataclasses.replace(r["ctx"], mesh=make_mesh(
                 (1, 1), r["ctx"].mesh.axis_names, r["x"].device))
             with torch.no_grad(), dist.use(one):
-                y1 = r["run"](whole, r["x"])
-                w32 = r["run"](SH.tree_map(lambda t: t.float(), whole),
-                               r["x"].float())
+                y1 = r["run"](whole, r["x"], extra)
+                e32 = {n: t.float() if t.is_floating_point() else t
+                       for n, t in extra.items()}
+                if block in ("mlp", "moe"):
+                    w32 = sliced_witness(whole, r["cfg"], r["x"])
+                else:
+                    w32 = r["run"](SH.tree_map(lambda t: t.float(), whole),
+                                   r["x"].float(), e32)
+                del e32
 
             def err(y):
                 e = (y.float() - w32).abs()
@@ -6757,6 +7015,10 @@ class SubBlocks:
             rec = {"layer": i, "block": block, "shape": list(r["x"].shape),
                    "mesh": err(r["y"]), "one_card": err(y1),
                    "control": err(r["control"]),
+                   "control_by": ("the other rank's channels of the "
+                                  "gathered xb zeroed"
+                                  if r.get("control_by") == "gather" else
+                                  "psum missing the other rank's term"),
                    "mesh_vs_one_card_max": float(
                        (r["y"].float() - y1.float()).abs().max())}
             if block == "moe":
@@ -6770,16 +7032,54 @@ class SubBlocks:
                     j.reshape(-1), minlength=r["cfg"].moe.num_experts
                 ).tolist(), cap) for j in (mesh_idx, idx)]
             recs.append(rec)
-            del y1, w32, whole
-        last = max(i for i, _ in self.got)
-        delta = sum((r["control"] - r["y"])[:, -1].float()
-                    for (i, _), r in self.got.items() if i == last)
+            del y1, w32, whole, extra
+            for key in ("x", "y", "control"):         # the card's memory
+                r[key] = r[key].cpu()
+        last = max(i for (i, _), r in self.got.items() if r["prefill"])
+        delta = sum((r.get("control_psum", r["control"]).to(dev)
+                     - r["y"].to(dev))[:, -1].float()
+                    for (i, _), r in self.got.items()
+                    if i == last and r["prefill"])
         x = self.head["x"]
         with torch.no_grad(), dist.use(self.head["ctx"]):
             logits = C.all_gather(M.lm_logits(
                 self.head["params"], cfg, (x.float() + delta).to(x.dtype)),
                 -1, shard)
         return recs, logits.float().cpu()
+
+
+def sliced_witness(whole, cfg, x, slices: int = 4):
+    """An MLP's (``cfg`` None) or capacity MoE's float32 witness on ``x``
+    under the one-card context: the float32 weights cut into ``slices``
+    slices of d_ff (d_ff_expert, and the shared experts' width), each
+    slice's partial — the row-parallel decomposition, the MoE's routing
+    the whole router's for every slice — summed in float32: the whole
+    function, with a quarter of its intermediates live at a time."""
+    import torch
+    from repro_torch.models import layers as L
+
+    def cut(w, dim, c):
+        n = w.shape[dim]
+        assert n % slices == 0, (tuple(w.shape), dim, slices)
+        return w.narrow(dim, c * n // slices, n // slices).float()
+
+    def mlp(p, c, lead=0):
+        return {"w_gate": cut(p["w_gate"], lead + 1, c),
+                "w_up": cut(p["w_up"], lead + 1, c),
+                "w_down": cut(p["w_down"], lead, c)}
+
+    out = None
+    for c in range(slices):
+        if cfg is None:
+            y = L.swiglu_mlp(mlp(whole, c), x.float())
+        else:
+            part = {"router": whole["router"].float(), **mlp(whole, c, 1)}
+            if "shared" in whole:
+                part["shared"] = mlp(whole["shared"], c)
+            y = L._moe_mlp_capacity(part, cfg, x.float())
+        out = y if out is None else out + y
+        del y
+    return out
 
 
 def _gathered_whole(t, shape, shard):
@@ -6795,12 +7095,14 @@ def _gathered_whole(t, shape, shard):
     return C.all_gather(t.contiguous(), d, shard)
 
 
-def phase18_rank(rank, layers, program, *args):
+def phase18_rank(rank, probes, program, *args):
     """``program(rank, *args)`` — a rank's main path, its record returned
-    — with the sub-blocks of ``layers`` recorded as it runs them, then
-    held on their own inputs (``SubBlocks.hold``): the record gains
-    ``probes`` and ``control_logits``."""
-    probe = SubBlocks(layers)
+    — with the sub-blocks that ``probes`` names (layers, or a dict of
+    ``SubBlocks``' arguments) recorded as it runs them, then held on their
+    own inputs (``SubBlocks.hold``): the record gains ``probes`` and
+    ``control_logits``."""
+    probe = SubBlocks(**probes) if isinstance(probes, dict) \
+        else SubBlocks(probes)
     with probe.recording():
         rec = program(rank, *args)
     rec["probes"], rec["control_logits"] = probe.hold(rank,
@@ -6876,26 +7178,28 @@ def phase18(dev, held):
     collectives and bytes a rank — and its time is that of the layout,
     not of tensor parallelism.
 
-    18a: Qwen3-4B at full width and all 36 layers through the launcher's
-    rank program (``serve.programs_on_rank``, what ``python -m
-    repro_torch.launch.serve --mesh 1x2`` runs): each rank draws 14a's
-    weights from the seed one layer at a time and keeps its slices;
-    prefill_32k at batch 2 → the handoff (head_dim- to capacity-sharded,
-    a block exchange) → PHASE14_DECODE_STEPS greedy steps, each rank's
-    flash_decode stopping at its partials and the ranks' partials
-    combined. Held: the gathered prefill logits to 14a's within
+    18a: Qwen3-4B at full width cut to PHASE18A_LAYERS of its 36 layers
+    through the launcher's rank program (``serve.programs_on_rank``,
+    what ``python -m repro_torch.launch.serve --mesh 1x2`` runs): each
+    rank draws 14a's weights from the seed one layer at a time and keeps
+    its slices; prefill_32k at batch 2 → the handoff (head_dim- to
+    capacity-sharded, a block exchange) → PHASE14_DECODE_STEPS greedy
+    steps, each rank's flash_decode stopping at its partials and the
+    ranks' partials combined. Its one-card run is this phase's own
+    (``one_card_run`` at the same cut, before the world starts). Held:
+    the gathered prefill logits to the one-card run's within
     PHASE18_LOGIT_STEPS bf16 steps, argmax equal or within the top-2 gap
     (``held_to_launch``), a control with the last layer's psums each
-    missing a term failing that bound; the sub-blocks of layers 0 and 35
-    on their own inputs against their float32 witness, within
+    missing a term failing that bound; the sub-blocks of the first and
+    last layers on their own inputs against their float32 witness, within
     PHASE18_WITNESS_FACTOR of the one-card sub-block's error, each
     control failing it (``SubBlocks``, ``probe_problems``); the tokens to
-    14a's (``tokens_held``); D's shards of layers
+    the one-card run's (``tokens_held``); D's shards of layers
     PHASE18_CHECK_LAYERS, gathered, bit for bit the realignment of P's
     gathered (``serve.handoff_held``, on both ranks); every rank's bytes
     of parameters and P's and D's caches equal to ``per_chip_bytes`` at
-    {"data": 1, "model": 2}; per rank exactly 36 flash, 4 x 36
-    flash_decode_partial and 4 x 36 decode_combine launches.
+    {"data": 1, "model": 2}; per rank exactly one flash a layer, and 4 a
+    layer of flash_decode_partial and of decode_combine.
 
     18b: DeepSeek-V2-Lite's prefill_32k at batch 1, all 27 layers: the
     MLA heads and the expert-TP MoE split over the ranks (a psum after
@@ -6909,10 +7213,16 @@ def phase18(dev, held):
 
     Returns the summed launches of both ranks' main paths and the
     records."""
+    import torch
     from repro_torch.launch import ranks, serve
     t_phase = time.perf_counter()
     _mem_line(dev, "18", phase=18)
-    a14, b14 = held["14a"], held["14b"]
+    one_a = one_card_run(dev, 18, "18a", MODEL14, PHASE14_BATCH["14a"],
+                       PHASE18A_LAYERS)
+    b14 = held["14b"]
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     with ranks.start(math.prod(PHASE18_MESH), dev,
                      timeout_s=PHASE18_TIMEOUT_S) as world:
         probe = world.run(gloo_bf16_probe)
@@ -6923,21 +7233,23 @@ def phase18(dev, held):
         t0 = time.perf_counter()
         recs_a = world.run(phase18_rank, PHASE18_PROBE_LAYERS["18a"],
                            serve.programs_on_rank, MODEL14, "decode_32k",
-                           PHASE14_BATCH["14a"], PHASE14_DECODE_STEPS, None,
-                           SEED, PHASE18_MESH, PHASE18_CHECK_LAYERS, True)
+                           PHASE14_BATCH["14a"], PHASE14_DECODE_STEPS,
+                           PHASE18A_LAYERS, SEED, PHASE18_MESH,
+                           PHASE18_CHECK_LAYERS, True)
         a_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         recs_b = world.run(phase18_rank, PHASE18_PROBE_LAYERS["18b"],
-                           phase18b_rank, MODEL14B, PHASE14_BATCH["14b"],
-                           SEED, PHASE18_MESH)
+                           moe_traced_rank, MODEL14B, "prefill_32k",
+                           PHASE14_BATCH["14b"], 0, None, SEED,
+                           PHASE18_MESH, (), True)
         b_s = time.perf_counter() - t0
         backend = world.backend
     probes = {"18a": recs_a[0]["probes"], "18b": recs_b[0]["probes"]}
     controls = {"18a": recs_a[0]["control_logits"],
                 "18b": recs_b[0]["control_logits"]}
     for r in recs_a + recs_b:
-        for key in ("probes", "control_logits"):
-            r.pop(key)
+        for key in ("probes", "control_logits", "step_logits"):
+            r.pop(key, None)
     rec_a = serve.mesh_record(recs_a, backend)
     n = rec_a["layers"]
     bad = rank_problems("18a", recs_a, {
@@ -6948,13 +7260,14 @@ def phase18(dev, held):
         bad.append(f"18a: D's shards are not P's reshard: "
                    f"{[r['handoff_held'] for r in recs_a]}")
     logits_a = held_to_launch("18a", rec_a.pop("prefill_logits"),
-                              a14["last_logits"], controls["18a"])
+                              one_a["last_logits"], controls["18a"])
     bad += logits_a.pop("problems")
-    bad += tokens_held(rec_a["tokens"], a14["tokens"], a14["token_gaps"])
+    bad += tokens_held(rec_a["tokens"], one_a["tokens"],
+                      one_a["token_gaps"])
     bad += probe_problems("18a", probes["18a"])
     emit({"phase": 18, "part": "18a", "model": f"{MODEL14} x{n} layers",
           "batch": PHASE14_BATCH["14a"], "part_s": round(a_s, 3),
-          **rec_a, "tokens_14a": a14["tokens"], "vs_14a": logits_a,
+          **rec_a, "tokens_one_card": one_a["tokens"], "vs_one_card": logits_a,
           "sub_blocks": probes["18a"],
           "predicted": PHASE18_PREDICTED["18a"]})
     rec_b = serve.mesh_record([{k: v for k, v in r.items()
@@ -6992,6 +7305,145 @@ def phase18(dev, held):
     return {"launches": dict(launches)}
 
 
+def one_card_run(dev, phase: int, part: str, arch: str, batch: int,
+                 layers=None):
+    """A mesh part's one-card witness: ``arch`` (``layers`` of it, or all)
+    prefill_32k -> handoff -> PHASE14_DECODE_STEPS greedy decode_32k steps
+    at ``batch`` on the one-card mesh (``serve.programs_on_rank`` on a
+    lone rank), the same seed and prompts as the ranks'. Returns, on the
+    host, the prefill's last logits, the tokens and each token's top-2
+    gap, as phase 15 keeps them."""
+    from repro_torch.launch import ranks, serve
+    rec = serve.programs_on_rank(
+        ranks.Rank(0, 1, None, dev), arch, "decode_32k", batch,
+        PHASE14_DECODE_STEPS, layers, SEED, (1, 1), (), True)
+    emit({"phase": phase, "part": f"{part} one card",
+          "seconds": rec["seconds"], "peak_gib": rec["peak_gib"],
+          "launches": rec["launches"], "tokens": rec["tokens"]})
+    logits = [rec["prefill_logits"]] + rec["step_logits"]
+    return {"last_logits": rec["prefill_logits"], "tokens": rec["tokens"],
+            "token_gaps": [top2_gap_and_bound(x) for x in logits]}
+
+
+def phase19(dev, held):
+    """The launch layer's remaining attention-cache families on phase
+    18's (1, 2) mesh of ranks (gloo on the one card; the backend printed):
+    19a Qwen1.5-32B (8 of 64 layers, batch 2: P's head_dim-sharded bf16
+    caches cast to e4m3 in the handoff), 19b Mixtral-8x7B (12 of 32, batch
+    2: rings of 4096 slots cut into slot halves, the expert-TP MoE), 19c
+    RecurrentGemma-9B (all 38, batch 2: RG-LRU blocks on the width's
+    halves, local attention over rings of 2048 on one KV head), 19d
+    DeepSeek-V2-Lite (all 27, batch 1: MLA's latent handed off in capacity
+    halves, each decode step expanding the rank's half through every
+    head). Each part runs ``serve.programs_on_rank`` (what ``python -m
+    repro_torch.launch.serve --mesh 1x2`` runs) on both ranks: prefill_32k
+    -> handoff -> PHASE14_DECODE_STEPS greedy decode_32k steps, and holds,
+    as phase 18: the bytes to ``per_chip_bytes``; D's shards of
+    PHASE19_CHECK_LAYERS to the reshard of P's bit for bit (the e4m3 cast,
+    the ring slots with their tags, the latent halves, the RG-LRU states);
+    the gathered prefill logits to the one-card run's within
+    PHASE18_LOGIT_STEPS bf16 steps (19c: PHASE19_LOGIT_STEPS) with the
+    control past it; the tokens
+    (``tokens_held``); the sub-blocks of PHASE19_PROBES against float32
+    witnesses within PHASE18_WITNESS_FACTOR of one card's error, each
+    control failing it, the MoE's routes and drops equal to one card's;
+    and per rank exactly the path's launches: flash a prefill attention
+    layer, flash_decode_partial and decode_combine a decode step and
+    attention layer. The one-card runs: phase 15's (``held``, on the host)
+    for 19a-19c, ``one_card_run`` for 19d. Returns the launches summed
+    over both ranks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import ranks, serve
+    from repro_torch.launch.cells import get_cell
+    t_phase = time.perf_counter()
+    _mem_line(dev, "19", phase=19)
+    t0 = time.perf_counter()
+    ones = {part: held[src] for part, src in PHASE19_HELD.items()}
+    ones["19d"] = one_card_run(dev, 19, "19d", MODEL14B,
+                               PHASE19_PARTS["19d"][2])
+    one_s = time.perf_counter() - t0
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    _mem_line(dev, "19 world", phase=19)
+    bad, launches, parts_s = [], collections.Counter(), {}
+    # two ranks of ~30 GiB each share the card: their allocators grow
+    # segments rather than cut new ones (less memory lost to fragments)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        world = ranks.start(math.prod(PHASE18_MESH), dev,
+                            timeout_s=PHASE18_TIMEOUT_S)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    with world:
+        emit({"phase": 19, "backend": world.backend, "pids": world.pids,
+              "mesh": list(PHASE18_MESH), "one_card_19d_s": round(one_s, 3)})
+        for part, (arch, layers, batch, moe) in PHASE19_PARTS.items():
+            t0 = time.perf_counter()
+            recs = world.run(phase18_rank, PHASE19_PROBES[part],
+                             moe_traced_rank if moe else
+                             serve.programs_on_rank, arch, "decode_32k",
+                             batch, PHASE14_DECODE_STEPS, layers, SEED,
+                             PHASE18_MESH, PHASE19_CHECK_LAYERS[part], True)
+            parts_s[part] = round(time.perf_counter() - t0, 3)
+            probes = recs[0]["probes"]
+            control = recs[0]["control_logits"]
+            routes_drops = [r.pop("drops", None) for r in recs]
+            for r in recs:
+                for key in ("probes", "control_logits", "routes",
+                            "step_logits"):
+                    r.pop(key, None)
+            rec = serve.mesh_record(recs, world.backend)
+            cfg = get_config(arch)
+            cfg = cfg.with_(num_layers=layers) if layers else cfg
+            attn = attending_layers(cfg)
+            steps = PHASE14_DECODE_STEPS
+            part_bad = rank_problems(part, recs, {
+                "flash_attention": attn,
+                "flash_decode_partial": attn * steps,
+                "decode_combine": attn * steps})
+            if not rec["handoff_held_all_ranks"]:
+                part_bad.append(f"{part}: D's shards are not P's reshard: "
+                                f"{[r['handoff_held'] for r in recs]}")
+            one = ones[part]
+            vs = held_to_launch(part, rec.pop("prefill_logits"),
+                                one["last_logits"], control,
+                                PHASE19_LOGIT_STEPS.get(
+                                    part, PHASE18_LOGIT_STEPS))
+            part_bad += vs.pop("problems")
+            part_bad += [f"{part} {p}" for p in tokens_held(
+                rec["tokens"], one["tokens"], one["token_gaps"])]
+            part_bad += probe_problems(part, probes)
+            if moe and routes_drops[0] != routes_drops[1]:
+                part_bad.append(f"{part}: the ranks drop different pairs")
+            emit({"phase": 19, "part": part,
+                  "model": f"{arch} x{rec['layers']} layers",
+                  "batch": batch, "part_s": parts_s[part],
+                  "d_cache": get_cell(arch, "decode_32k").cache_dtype,
+                  **rec,
+                  "tokens_one_card": one["tokens"], "vs_one_card": vs,
+                  "sub_blocks": probes, "drops": routes_drops[0],
+                  "predicted": PHASE19_PREDICTED[part],
+                  "problems": part_bad})
+            bad += part_bad
+            for r in recs:
+                launches.update(r["launches"])
+            del recs, probes, control
+            gc.collect()
+    emit({"phase": 19, "phase_s": round(time.perf_counter() - t_phase, 3),
+          "parts_s": parts_s, "launches_both_ranks": dict(launches),
+          "predicted_s": PHASE19_PREDICTED["phase_s"], "problems": bad})
+    if bad:
+        raise AssertionError(f"phase 19: {bad}")
+    return {"launches": dict(launches)}
+
+
+
 KERNELS = [
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
      "src/repro/kernels/flash_attention.py:78", 3),
@@ -7012,6 +7464,8 @@ KERNELS = [
     ("decode_combine", "src/repro_torch/kernels/csrc/flash_decode.cu",
      "src/repro/kernels/flash_attention.py:78", 18),
 ]
+# phase 19 also launches flash_decode_partial and decode_combine (and
+# flash): the row's launches_by_phase carries them
 
 
 def main() -> int:
@@ -7093,6 +7547,9 @@ def main() -> int:
     gc.collect()                         # 17c's weights: the ranks'
     torch.cuda.empty_cache()
     paths[18] = phase18(dev, paths[14]["held"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths[19] = phase19(dev, paths[15]["held"])
 
     rows = []
     for name, source, replaces, phase in KERNELS:
@@ -7113,7 +7570,8 @@ def main() -> int:
         # "rg", Qwen1.5-32B's e4m3 cache "fp8") and 14a's ("dense")
         for key in ("mla", "rg", "vlm", "encdec", "load", "launch_p",
                     "launch_d", "launch_k", "fp8", "dense", "demo",
-                    "quickstart", "halves"):
+                    "quickstart", "halves", "mesh_fp8", "mesh_ring",
+                    "mesh_rg", "mesh_mla"):
             if key in t:
                 row[key] = {k: t[key][k] for k in (
                     "shape", "max_abs_err", "ms", "device_ms", "plain_ms",

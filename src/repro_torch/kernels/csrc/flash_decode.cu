@@ -124,6 +124,15 @@
 //   combine reads it), and rt_decode_combine merges the splits of every
 //   rank, concatenated, with the same decode_combine_kernel. Nothing of
 //   the arithmetic changes.
+// - V narrower than K (dv <= d, each with its own strides): MLA's latent
+//   expanded to every head gives K of 192 and V of 128 (a view of the
+//   expansion). K's padded head dim HD sets the Q K^T k-steps and V's
+//   HDV the P.V n-tiles, the V stage pitch and the merge buffer, so the
+//   <bf16, 256, 128> instance streams 128 V columns, not 256; a warp
+//   then holds 16 x 128 float32 outputs, so the slot groups are not
+//   split (WD 1, tiles of 64 slots). The instances with HDV == HD keep
+//   their arithmetic. The float32 scalar kernel stages V's dv columns at
+//   K's pitch and stores dv of them.
 //
 // float32 q and K/V (decode_split_kernel: the sweep's and the card tests'
 // 2e-5 cases, on no main-path phase) keep the scalar code: bf16 products
@@ -157,36 +166,40 @@ using rt::row4;
 // ------------------------------------------------------------------------
 // float32: the scalar kernel
 // ------------------------------------------------------------------------
-// One tile of one KV head: `rows` slots' K and V rows (d contiguous
-// elements each, cb bytes per cp.async) into row-major [TILE][P] stages,
-// and their position tags.
+// One tile of one KV head: `rows` slots' K rows (d contiguous elements,
+// slot stride k_ss) and V rows (the first dv <= d of them, slot stride
+// v_ss), cb bytes per cp.async, into row-major [TILE][P] stages, and
+// their position tags.
 template <typename T>
 __device__ __forceinline__ void stage_tile(T* sk, T* sv, int* sp, const T* kb,
                                            const T* vb, const int* pb, int rows,
-                                           int d, int P, long long c_ss,
+                                           int d, int dv, int P,
+                                           long long k_ss, long long v_ss,
                                            int cb) {
   const int ce = cb / (int)sizeof(T);
   const int cpr = d / ce;
   for (int i = threadIdx.x; i < rows * cpr; i += THREADS) {
     const int t = i / cpr, c = (i - t * cpr) * ce;
-    cp_async(sk + t * P + c, kb + t * c_ss + c, cb);
-    cp_async(sv + t * P + c, vb + t * c_ss + c, cb);
+    cp_async(sk + t * P + c, kb + t * k_ss + c, cb);
+    if (c < dv) cp_async(sv + t * P + c, vb + t * v_ss + c, cb);
   }
   for (int t = threadIdx.x; t < rows; t += THREADS) cp_async(sp + t, pb + t, 4);
 }
 
-// HD: head dim padded to 64/128/256; NJ: 128-element chunks of the block's
-// flattened query per lane (a power of two >= grp * HD / 128), where grp
-// is the block's query heads: a KV head's group over hs.
+// HD: K's head dim d padded to 64/128/256 (V's dv <= d takes the same
+// lanes, zero past dv); NJ: 128-element chunks of the block's flattened
+// query per lane (a power of two >= grp * HD / 128), where grp is the
+// block's query heads: a KV head's group over hs.
 template <typename TQ, typename TKV, int HD, int NJ>
 __global__ void __launch_bounds__(THREADS)
 decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
                     const TKV* __restrict__ vc, const int* __restrict__ pos,
                     TQ* __restrict__ o, float* __restrict__ part_acc,
                     float* __restrict__ part_ml, int Sq, int H, int grp,
-                    int hs, int d, int cap, int tile, int tps, int P, int cb,
-                    long long q_sb, long long q_ss, long long q_sh,
+                    int hs, int d, int dv, int cap, int tile, int tps, int P,
+                    int cb, long long q_sb, long long q_ss, long long q_sh,
                     long long c_sb, long long c_ss, long long c_sh,
+                    long long v_sb, long long v_ss, long long v_sh,
                     long long pos_sb, long long o_sb, long long o_ss,
                     long long o_sh, float scale, int window, int q_offset) {
   constexpr int LPH = HD >= 128 ? 32 : HD / 4;    // lanes per head
@@ -228,7 +241,8 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
   // a stage: K tile, V tile ([tile][P] each), then the tile's tags
   const int kv_elems = tile * P;
   const size_t stage_bytes = 2 * (size_t)kv_elems * sizeof(TKV) + tile * sizeof(int);
-  const long long base = (long long)b * c_sb + (long long)kvh * c_sh;
+  const long long kbase = (long long)b * c_sb + (long long)kvh * c_sh;
+  const long long vbase = (long long)b * v_sb + (long long)kvh * v_sh;
   const int* prow = pos + (long long)b * pos_sb;
   auto stage_k = [&](int k) {
     return reinterpret_cast<TKV*>(smem + (size_t)(k % NST) * stage_bytes);
@@ -237,8 +251,8 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
     TKV* sk = stage_k(k);
     const int t0 = s0 + k * tile;
     stage_tile(sk, sk + kv_elems, reinterpret_cast<int*>(sk + 2 * kv_elems),
-               kc + base + t0 * c_ss, vc + base + t0 * c_ss, prow + t0,
-               min(tile, s1 - t0), d, P, c_ss, cb);
+               kc + kbase + t0 * c_ss, vc + vbase + t0 * v_ss, prow + t0,
+               min(tile, s1 - t0), d, dv, P, c_ss, v_ss, cb);
   };
   for (int k = 0; k < NST - 1; ++k) {
     if (k < n) issue(k);
@@ -312,7 +326,7 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
         for (int j = 0; j < NJ; ++j) {
           if (!live[j]) continue;
           float x[4];
-          row4(vr, col[j], d, x);
+          row4(vr, col[j], dv, x);
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[j][i] = fmaf(s[r][j], x[i], acc[j][i]);
         }
@@ -339,7 +353,7 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
   __syncthreads();
   for (int e = threadIdx.x; e < nq; e += THREADS) {
     const int g = e / HD, c = e % HD;
-    if (c >= d) continue;
+    if (c >= dv) continue;
     float M = rt::kNegInf;
 #pragma unroll
     for (int w = 0; w < NW; ++w) M = fmaxf(M, Mw[w * grp + g]);
@@ -356,7 +370,7 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
           rt::from_f<TQ>(L > 0.f ? A / L : 0.f);
     } else {
       const long long r = ((long long)blockIdx.z * S + split) * H + h;
-      part_acc[r * d + c] = A;
+      part_acc[r * dv + c] = A;
       if (c == 0) {
         part_ml[2 * r] = M;
         part_ml[2 * r + 1] = L;
@@ -528,17 +542,18 @@ template <typename T> struct KvBytes;
 template <> struct KvBytes<__nv_bfloat16> { static constexpr int v = 2; };
 template <> struct KvBytes<unsigned char> { static constexpr int v = 1; };
 
-// One instance: K/V element TKV (bf16, or unsigned char for e4m3), head
-// dim padded to HD. WD warps share a 16-slot group and split the head dim
-// for P.V (2 at 256, so a warp's output is 16 x 128 float32); WS = 4 / WD
-// slot groups a tile.
-template <typename TKV, int HD>
+// One instance: K/V element TKV (bf16, or unsigned char for e4m3), K's
+// head dim padded to HD and V's to HDV <= HD (MLA's 192 / 128 runs as 256
+// / 128). WD warps share a 16-slot group and split V's head dim for P.V
+// (2 at 256, so a warp's output is 16 x 128 float32); WS = 4 / WD slot
+// groups a tile.
+template <typename TKV, int HD, int HDV>
 struct Mma {
   static constexpr int ES = KvBytes<TKV>::v;        // bytes an element
-  static constexpr int WD = HD == 256 ? 2 : 1;
+  static constexpr int WD = HDV == 256 ? 2 : 1;
   static constexpr int WS = NW / WD;
   static constexpr int TILE = 16 * WS;              // slots a stage
-  static constexpr int DW = HD / WD;                // dims a warp's P.V
+  static constexpr int DW = HDV / WD;               // dims a warp's P.V
   static constexpr int E = 16 / ES;                 // elements a 16-byte load
   static constexpr int KSL = E / 4;                 // k-steps a 16-byte load
   static constexpr int NCH = HD * ES / 64;          // 64-byte chunks a K row
@@ -547,6 +562,7 @@ struct Mma {
   // blocks an SM holds by registers (<= 170 a thread at 3, 255 at 2)
   static constexpr int MINB = HD == 256 ? 2 : 3;
   static_assert(NCH * KSL == KS, "chunks cover the head dim");
+  static_assert(HDV <= HD, "V no wider than K");
 };
 
 // S tile t's column n holds slot 8t + n/2 + 4 (n % 2) of the warp's group.
@@ -556,14 +572,13 @@ __device__ __forceinline__ int s_slot(int t, int n) {
 
 // The lane's 4 slots of a 16-slot group (S columns 2c, 2c+1 of tiles 0
 // and 1; P.V k rows 2c, 2c+1, 2c+8, 2c+9): c + 4i.
-template <typename TKV, int HD, bool MASKED>
-__device__ __forceinline__ void pv_group(float (&o)[Mma<TKV, HD>::NT][4],
+template <typename C, bool MASKED>
+__device__ __forceinline__ void pv_group(float (&o)[C::NT][4],
                                          const uint32_t (&pa)[4],
                                          const uint32_t (&pl)[4],
                                          const unsigned char* sv, int pvb,
                                          int grp0, int col0, int lane,
                                          uint32_t vm01, uint32_t vm23) {
-  using C = Mma<TKV, HD>;
   const int g = lane >> 2, c = lane & 3;
   if constexpr (C::ES == 2) {
     // ldmatrix.x4.trans: matrices (k rows 0-7 | 8-15) x (dims n0 | n0+8);
@@ -610,28 +625,30 @@ __device__ __forceinline__ void pv_group(float (&o)[Mma<TKV, HD>::NT][4],
 }
 
 // The dim that column n of P.V's n-tile nt holds, within the warp's slice.
-template <typename TKV, int HD>
+template <int ES>
 __device__ __forceinline__ int o_dim(int nt, int n) {
-  if constexpr (Mma<TKV, HD>::ES == 2) return 8 * nt + n;
+  if constexpr (ES == 2) return 8 * nt + n;
   else return 32 * (nt >> 2) + 4 * n + (nt & 3);
 }
 
 // Block (split, KV head, sequence x query row). The slots
 // [split * tps * TILE, +tps * TILE) clipped to cap, in a ring of nst
 // stages: K rows [TILE][pk], V rows [TILE][pv] (elements), tags [TILE].
-template <typename TKV, int HD>
-__global__ void __launch_bounds__(THREADS, Mma<TKV, HD>::MINB)
+// K rows are d wide, V rows dv <= d.
+template <typename TKV, int HD, int HDV>
+__global__ void __launch_bounds__(THREADS, Mma<TKV, HD, HDV>::MINB)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const TKV* __restrict__ kc, const TKV* __restrict__ vc,
                   const int* __restrict__ pos, __nv_bfloat16* __restrict__ o,
                   float* __restrict__ part_acc, float* __restrict__ part_ml,
-                  int Sq, int H, int grp, int d, int cap, int tps, int pk,
-                  int pv, int nst, int cb, long long q_sb, long long q_ss,
-                  long long q_sh, long long c_sb, long long c_ss,
-                  long long c_sh, long long pos_sb, long long o_sb,
-                  long long o_ss, long long o_sh, float scale, int window,
-                  int q_offset) {
-  using C = Mma<TKV, HD>;
+                  int Sq, int H, int grp, int d, int dv, int cap, int tps,
+                  int pk, int pv, int nst, int cb, long long q_sb,
+                  long long q_ss, long long q_sh, long long c_sb,
+                  long long c_ss, long long c_sh, long long v_sb,
+                  long long v_ss, long long v_sh, long long pos_sb,
+                  long long o_sb, long long o_ss, long long o_sh, float scale,
+                  int window, int q_offset) {
+  using C = Mma<TKV, HD, HDV>;
   constexpr int ES = C::ES, TILE = C::TILE;
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -650,34 +667,38 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int pkb = pk * ES, pvb = pv * ES;
   const int kv_bytes = TILE * (pkb + pvb);
   const int stage_bytes = kv_bytes + TILE * (int)sizeof(int);
-  const long long base = (long long)b * c_sb + (long long)kvh * c_sh;
-  const unsigned char* kg = reinterpret_cast<const unsigned char*>(kc + base);
-  const unsigned char* vg = reinterpret_cast<const unsigned char*>(vc + base);
+  const unsigned char* kg = reinterpret_cast<const unsigned char*>(
+      kc + (long long)b * c_sb + (long long)kvh * c_sh);
+  const unsigned char* vg = reinterpret_cast<const unsigned char*>(
+      vc + (long long)b * v_sb + (long long)kvh * v_sh);
   const int* prow = pos + (long long)b * pos_sb;
-  const long long ssb = c_ss * ES;                  // bytes a slot
-  const int rb = d * ES, cpr = rb / cb;             // row bytes, copies a row
-  const int ct = threadIdx.x / cpr, co = (threadIdx.x - ct * cpr) * cb;
+  const long long kss = c_ss * ES, vss = v_ss * ES;   // bytes a slot
+  const int rb = d * ES;                              // K's row bytes
 
   auto stage = [&](int k) { return smem + (size_t)(k % nst) * stage_bytes; };
+  // `rows` slots' rows of `row_b` bytes (slot stride ss bytes) from src
+  // into dst at pitch pb, cb bytes a copy
+  auto copy_rows = [&](unsigned char* dst, int pb, const unsigned char* src,
+                       long long ss, int row_b, int t0, int rows) {
+    const int cpr = row_b / cb;
+    if (THREADS % cpr == 0) {               // a thread keeps its column
+      const int ct = threadIdx.x / cpr, co = (threadIdx.x - ct * cpr) * cb;
+      for (int t = ct; t < rows; t += THREADS / cpr)
+        cp_async(dst + t * pb + co, src + (t0 + t) * ss + co, cb);
+    } else {
+      for (int i = threadIdx.x; i < rows * cpr; i += THREADS) {
+        const int t = i / cpr, off = (i - t * cpr) * cb;
+        cp_async(dst + t * pb + off, src + (t0 + t) * ss + off, cb);
+      }
+    }
+  };
   auto issue = [&](int k) {
     unsigned char* sk = stage(k);
     unsigned char* sv = sk + TILE * pkb;
     int* sp = reinterpret_cast<int*>(sk + kv_bytes);
     const int t0 = s0 + k * TILE, rows = min(TILE, s1 - t0);
-    if (THREADS % cpr == 0) {               // a thread keeps its column
-      for (int t = ct; t < rows; t += THREADS / cpr) {
-        const long long src = (t0 + t) * ssb + co;
-        cp_async(sk + t * pkb + co, kg + src, cb);
-        cp_async(sv + t * pvb + co, vg + src, cb);
-      }
-    } else {
-      for (int i = threadIdx.x; i < rows * cpr; i += THREADS) {
-        const int t = i / cpr, off = (i - t * cpr) * cb;
-        const long long src = (t0 + t) * ssb + off;
-        cp_async(sk + t * pkb + off, kg + src, cb);
-        cp_async(sv + t * pvb + off, vg + src, cb);
-      }
-    }
+    copy_rows(sk, pkb, kg, kss, rb, t0, rows);
+    copy_rows(sv, pvb, vg, vss, dv * ES, t0, rows);
     for (int t = threadIdx.x; t < TILE; t += THREADS) {
       if (t < rows) cp_async(sp + t, prow + t0 + t, 4);
       else sp[t] = -1;                    // past the capacity: seen by none
@@ -849,16 +870,17 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
           pl[i] = 0u;
         }
       }
-      // O += P V over the warp's dim slice; a masked slot's V is selected
-      // away (it may hold NaN)
+      // O += P V over the warp's dim slice (V's columns past dv give
+      // output columns that are never stored); a masked slot's V is
+      // selected away (it may hold NaN)
       if (all) {
-        pv_group<TKV, HD, false>(acc, pa, pl, sv, pvb, grp0, ds * C::DW,
-                                 lane, 0u, 0u);
+        pv_group<C, false>(acc, pa, pl, sv, pvb, grp0, ds * C::DW, lane, 0u,
+                           0u);
       } else {
         const uint32_t vm01 = (vis[0] ? 0xffffu : 0u) | (vis[1] ? 0xffff0000u : 0u);
         const uint32_t vm23 = (vis[2] ? 0xffffu : 0u) | (vis[3] ? 0xffff0000u : 0u);
-        pv_group<TKV, HD, true>(acc, pa, pl, sv, pvb, grp0, ds * C::DW,
-                                lane, vm01, vm23);
+        pv_group<C, true>(acc, pa, pl, sv, pvb, grp0, ds * C::DW, lane, vm01,
+                          vm23);
       }
     }
     cp_wait<0>();
@@ -871,7 +893,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     float* Mw = reinterpret_cast<float*>(smem);       // [WS][16]
     float* Lw = Mw + C::WS * 16;                      // [WS][16]
-    float* Aw = Lw + C::WS * 16;                      // [WS][16][HD]
+    float* Aw = Lw + C::WS * 16;                      // [WS][16][HDV]
     if (ds == 0 && c == 0) {
       Mw[sg * 16 + g] = m[0]; Mw[sg * 16 + g + 8] = m[1];
       Lw[sg * 16 + g] = l[0]; Lw[sg * 16 + g + 8] = l[1];
@@ -881,12 +903,12 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = g + 8 * (e >> 1);
-        const int dim = ds * C::DW + o_dim<TKV, HD>(nt, 2 * c + (e & 1));
-        Aw[(sg * 16 + r) * HD + dim] = acc[nt][e];
+        const int dim = ds * C::DW + o_dim<ES>(nt, 2 * c + (e & 1));
+        Aw[(sg * 16 + r) * HDV + dim] = acc[nt][e];
       }
     __syncthreads();
-    for (int i = threadIdx.x; i < mrows * d; i += THREADS) {
-      const int r = i / d, dim = i - r * d;
+    for (int i = threadIdx.x; i < mrows * dv; i += THREADS) {
+      const int r = i / dv, dim = i - r * dv;
       float M = rt::kNegInf;
 #pragma unroll
       for (int w = 0; w < C::WS; ++w) M = fmaxf(M, Mw[w * 16 + r]);
@@ -895,7 +917,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int w = 0; w < C::WS; ++w) {
         const float f = exp2f(Mw[w * 16 + r] - M);
         L += Lw[w * 16 + r] * f;
-        A += Aw[(w * 16 + r) * HD + dim] * f;
+        A += Aw[(w * 16 + r) * HDV + dim] * f;
       }
       const int h = h0 + r;
       if (S == 1 && o != nullptr) {
@@ -903,7 +925,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
             __float2bfloat16(L > 0.f ? A / L : 0.f);
       } else {
         const long long pr = ((long long)blockIdx.z * S + split) * H + h;
-        part_acc[pr * d + dim] = A;
+        part_acc[pr * dv + dim] = A;
         if (dim == 0) {
           part_ml[2 * pr] = M * kLn2;       // natural units, as the combine's
           part_ml[2 * pr + 1] = L;
@@ -919,8 +941,9 @@ struct Args {
   const int* pos;
   void* o;
   float *part_acc, *part_ml;
-  int B, Sq, H, KVH, hs, d, cap, tile, S, tps, pk, pv, nst, cb;
-  long long q_sb, q_ss, q_sh, c_sb, c_ss, c_sh, pos_sb, o_sb, o_ss, o_sh;
+  int B, Sq, H, KVH, hs, d, dv, cap, tile, S, tps, pk, pv, nst, cb;
+  long long q_sb, q_ss, q_sh, c_sb, c_ss, c_sh, v_sb, v_ss, v_sh, pos_sb,
+      o_sb, o_ss, o_sh;
   float scale;
   int window, q_offset;
   cudaStream_t stream;
@@ -932,7 +955,7 @@ cudaError_t launch_combine(const Args& a) {
   const size_t smem = a.S <= COMBINE_CACHED ? sizeof(float) * a.S : 0;
   decode_combine_kernel<TQ>
       <<<dim3(a.H, a.B * a.Sq), COMBINE_THREADS, smem, a.stream>>>(
-      a.part_acc, a.part_ml, static_cast<TQ*>(a.o), a.Sq, a.H, a.d, a.S,
+      a.part_acc, a.part_ml, static_cast<TQ*>(a.o), a.Sq, a.H, a.dv, a.S,
       a.o_sb, a.o_ss, a.o_sh);
   return cudaGetLastError();
 }
@@ -958,9 +981,9 @@ int launch(const Args& a, size_t smem) {
           static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
           static_cast<const TKV*>(a.v), a.pos, static_cast<TQ*>(a.o),
           a.part_acc, a.part_ml, a.Sq, a.H, a.H / (a.KVH * a.hs), a.hs, a.d,
-          a.cap, a.tile, a.tps, a.pk, a.cb, a.q_sb, a.q_ss, a.q_sh,
-          a.c_sb, a.c_ss, a.c_sh, a.pos_sb, a.o_sb, a.o_ss, a.o_sh, a.scale,
-          a.window, a.q_offset);
+          a.dv, a.cap, a.tile, a.tps, a.pk, a.cb, a.q_sb, a.q_ss, a.q_sh,
+          a.c_sb, a.c_ss, a.c_sh, a.v_sb, a.v_ss, a.v_sh, a.pos_sb, a.o_sb,
+          a.o_ss, a.o_sh, a.scale, a.window, a.q_offset);
   return (int)combine<TQ>(a);
 }
 
@@ -994,48 +1017,60 @@ int dispatch_scalar(const Args& a) {
 }
 
 // bfloat16 q: the tensor-core kernel
-template <typename TKV, int HD>
+template <typename TKV, int HD, int HDV>
 int launch_mma(const Args& a) {
-  using C = Mma<TKV, HD>;
+  using C = Mma<TKV, HD, HDV>;
   constexpr int ES = C::ES;
-  if (a.tile != C::TILE || a.hs != 1 || a.pk < HD || a.pv < HD ||
+  if (a.tile != C::TILE || a.hs != 1 || a.pk < HD || a.pv < HDV ||
       (a.pk * ES) % 16 != 0 || (a.pv * ES) % 16 != 0 || a.nst < 2 ||
       a.nst > 4)
     return (int)cudaErrorInvalidValue;
   const size_t stage = (size_t)C::TILE * (a.pk + a.pv) * ES + C::TILE * sizeof(int);
   const size_t ring = (size_t)a.nst * stage;
-  const size_t merge = sizeof(float) * (size_t)C::WS * 16 * (2 + HD);
+  const size_t merge = sizeof(float) * (size_t)C::WS * 16 * (2 + HDV);
   const size_t smem = ring > merge ? ring : merge;
   if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
   static const cudaError_t attr =
-      rt::allow_smem(decode_mma_kernel<TKV, HD>, SMEM_MAX);
+      rt::allow_smem(decode_mma_kernel<TKV, HD, HDV>, SMEM_MAX);
   if (attr != cudaSuccess) return (int)attr;
-  decode_mma_kernel<TKV, HD>
+  decode_mma_kernel<TKV, HD, HDV>
       <<<dim3(a.S, a.KVH, a.B * a.Sq), THREADS, smem, a.stream>>>(
           static_cast<const __nv_bfloat16*>(a.q), static_cast<const TKV*>(a.k),
           static_cast<const TKV*>(a.v), a.pos,
           static_cast<__nv_bfloat16*>(a.o), a.part_acc, a.part_ml, a.Sq, a.H,
-          a.H / a.KVH, a.d, a.cap, a.tps, a.pk, a.pv, a.nst, a.cb, a.q_sb,
-          a.q_ss, a.q_sh, a.c_sb, a.c_ss, a.c_sh, a.pos_sb, a.o_sb, a.o_ss,
-          a.o_sh, a.scale, a.window, a.q_offset);
+          a.H / a.KVH, a.d, a.dv, a.cap, a.tps, a.pk, a.pv, a.nst, a.cb,
+          a.q_sb, a.q_ss, a.q_sh, a.c_sb, a.c_ss, a.c_sh, a.v_sb, a.v_ss,
+          a.v_sh, a.pos_sb, a.o_sb, a.o_ss, a.o_sh, a.scale, a.window,
+          a.q_offset);
   return (int)combine<__nv_bfloat16>(a);
+}
+
+// V's padded head dim, at most K's
+template <typename TKV, int HD>
+int by_v(const Args& a) {
+  if (a.dv <= 64) return launch_mma<TKV, HD, 64>(a);
+  if constexpr (HD >= 128)
+    if (a.dv <= 128) return launch_mma<TKV, HD, 128>(a);
+  if constexpr (HD == 256) return launch_mma<TKV, HD, 256>(a);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename TKV>
 int dispatch_mma(const Args& a) {
-  if (a.d <= 64) return launch_mma<TKV, 64>(a);
-  if (a.d <= 128) return launch_mma<TKV, 128>(a);
-  return launch_mma<TKV, 256>(a);
+  if (a.d <= 64) return by_v<TKV, 64>(a);
+  if (a.d <= 128) return by_v<TKV, 128>(a);
+  return by_v<TKV, 256>(a);
 }
 
 }  // namespace
 
-// q (B, Sq, H, D) at (sq, h) element strides q_ss, q_sh; K/V (B, cap, KVH,
-// D) at (b, slot, head) strides c_sb, c_ss, c_sh, the head dim contiguous;
-// pos (B, cap) int32 at row stride pos_sb; o (B, Sq, H, D) in q's dtype.
-// n_splits blocks of tps tiles of `tile` slots per (KV head, sequence x
-// row) — and, on the float32 kernel, each of its HS shares of H / (KVH *
-// HS) query heads; part_acc (B*Sq, n_splits, H, D) and part_ml (B*Sq,
+// q (B, Sq, H, D) at (sq, h) element strides q_ss, q_sh; K (B, cap, KVH,
+// D) at (b, slot, head) strides c_sb, c_ss, c_sh and V (B, cap, KVH, DV),
+// DV <= D, at v_sb, v_ss, v_sh, each head dim contiguous; pos (B, cap)
+// int32 at row stride pos_sb; o (B, Sq, H, DV) in q's dtype. n_splits
+// blocks of tps tiles of `tile` slots per (KV head, sequence x row) —
+// and, on the float32 kernel, each of its HS shares of H / (KVH * HS)
+// query heads; part_acc (B*Sq, n_splits, H, DV) and part_ml (B*Sq,
 // n_splits, H, 2) float32 scratch when n_splits > 1. PK / PV: staged K / V
 // row pitch in elements (16-byte multiples); NST: ring stages; cb: bytes
 // per cp.async (16, 8 or 4). q_dtype 0 float32 / 1 bfloat16; kv_dtype 0
@@ -1049,15 +1084,16 @@ int dispatch_mma(const Args& a) {
 extern "C" int rt_flash_decode(
     const void* q, const void* k, const void* v, const void* pos, void* o,
     void* part_acc, void* part_ml, int q_dtype, int kv_dtype, int B, int Sq,
-    int H, int KVH, int HS, int D, int cap, int tile, int n_splits, int tps,
-    int PK, int PV, int NSTAGES, int cb, long long q_sb, long long q_ss,
-    long long q_sh, long long c_sb, long long c_ss, long long c_sh,
+    int H, int KVH, int HS, int D, int DV, int cap, int tile, int n_splits,
+    int tps, int PK, int PV, int NSTAGES, int cb, long long q_sb,
+    long long q_ss, long long q_sh, long long c_sb, long long c_ss,
+    long long c_sh, long long v_sb, long long v_ss, long long v_sh,
     long long pos_sb, long long o_sb, long long o_ss, long long o_sh,
     float scale, int window, int q_offset, void* stream) {
   if (KVH <= 0 || HS <= 0 || H % (KVH * HS) != 0 || KVH * HS > 65535 ||
-      D <= 0 || D > 256 || cap <= 0 || tile <= 0 || Sq <= 0 ||
-      n_splits <= 0 || tps <= 0 || n_splits > 65535 ||
-      (long long)B * Sq > 65535 || PK < D || PV < D ||
+      D <= 0 || D > 256 || DV <= 0 || DV > D || cap <= 0 || tile <= 0 ||
+      Sq <= 0 || n_splits <= 0 || tps <= 0 || n_splits > 65535 ||
+      (long long)B * Sq > 65535 || PK < D || PV < DV ||
       (cb != 4 && cb != 8 && cb != 16) ||
       (long long)n_splits * tps * tile < cap ||
       ((n_splits > 1 || o == nullptr) &&
@@ -1066,9 +1102,10 @@ extern "C" int rt_flash_decode(
   if (B <= 0) return 0;
   Args a{q, k, v, static_cast<const int*>(pos), o,
          static_cast<float*>(part_acc), static_cast<float*>(part_ml), B, Sq,
-         H, KVH, HS, D, cap, tile, n_splits, tps, PK, PV, NSTAGES, cb, q_sb,
-         q_ss, q_sh, c_sb, c_ss, c_sh, pos_sb, o_sb, o_ss, o_sh, scale,
-         window, q_offset, static_cast<cudaStream_t>(stream)};
+         H, KVH, HS, D, DV, cap, tile, n_splits, tps, PK, PV, NSTAGES, cb,
+         q_sb, q_ss, q_sh, c_sb, c_ss, c_sh, v_sb, v_ss, v_sh, pos_sb, o_sb,
+         o_ss, o_sh, scale, window, q_offset,
+         static_cast<cudaStream_t>(stream)};
   if (q_dtype == rt::kF32 && kv_dtype == kKvF32) return dispatch_scalar(a);
   if (q_dtype == rt::kBF16 && kv_dtype == kKvBF16)
     return dispatch_mma<__nv_bfloat16>(a);
@@ -1096,7 +1133,7 @@ extern "C" int rt_decode_combine(const void* part_acc, const void* part_ml,
   a.part_acc = const_cast<float*>(static_cast<const float*>(part_acc));
   a.part_ml = const_cast<float*>(static_cast<const float*>(part_ml));
   a.o = o;
-  a.B = B, a.Sq = Sq, a.H = H, a.d = D, a.S = S;
+  a.B = B, a.Sq = Sq, a.H = H, a.d = a.dv = D, a.S = S;
   a.o_sb = o_sb, a.o_ss = o_ss, a.o_sh = o_sh;
   a.stream = static_cast<cudaStream_t>(stream);
   if (q_dtype == rt::kF32) return (int)launch_combine<float>(a);

@@ -4,7 +4,8 @@ caches (``csrc/flash_decode.cu``).
 Counterpart of ``repro.kernels.flash_attention`` on the caches that decode
 reads: a ring buffer (a sliding layer's window-sized cache, slot =
 position % capacity) or a full-capacity cache, K/V in float32, bfloat16
-or float8 e4m3. The reference computes that step in jnp
+or float8 e4m3, V as wide as K or narrower (dv <= dk: MLA's latent
+expanded to K of 192 and V of 128). The reference computes that step in jnp
 (``repro.models.layers.attention_decode``: ``cache_attention_mask`` +
 ``sdpa``). The port sends here every one-row decode over a dense cache and
 every chunk over a ring or a float8 cache (``models.layers``). Its plain
@@ -76,8 +77,8 @@ def _kernel():
     if _fn is None:
         f = _build.load().rt_flash_decode
         f.restype = ctypes.c_int
-        f.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 16
-                      + [ctypes.c_longlong] * 10
+        f.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 17
+                      + [ctypes.c_longlong] * 13
                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                          ctypes.c_void_p])
         _fn = f
@@ -103,21 +104,28 @@ def check_dtypes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                         "bfloat16/bfloat16 or bfloat16/float8_e4m3fn")
 
 
+def _padded(d: int) -> int:
+    return next(n for n in (64, 128, MAX_HEAD_DIM) if d <= n)
+
+
 @functools.lru_cache(maxsize=256)
-def launch_plan(h: int, kvh: int, d: int, kv_elem: int) -> Dict[str, int]:
-    """One launch's plan for q (.., h, d) over K/V (.., kvh, d) of
-    ``kv_elem`` bytes an element (4: the float32 scalar kernel; 2 or 1:
-    the tensor-core kernel under a bfloat16 q): head dim padded to 64, 128
-    or 256, slots a tile, the head split (blocks sharing a KV head's group;
-    1 on the tensor-core kernel, whose 16-row head tiles loop inside the
-    block: ``m_tiles``), staged K and V row pitches (elements), ring
-    stages, dynamic shared memory, and the blocks an SM holds (by
-    registers and shared memory). Raises ValueError for a shape the
-    kernel does not take."""
-    if kvh <= 0 or h % kvh or not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_decode: unsupported h={h} kv={kvh} d={d}")
+def launch_plan(h: int, kvh: int, d: int, kv_elem: int,
+                dv: Optional[int] = None) -> Dict[str, int]:
+    """One launch's plan for q (.., h, d) over K (.., kvh, d) and V (..,
+    kvh, dv) (dv <= d; None: d) of ``kv_elem`` bytes an element (4: the
+    float32 scalar kernel; 2 or 1: the tensor-core kernel under a bfloat16
+    q): K's and V's head dims padded to 64, 128 or 256, slots a tile, the
+    head split (blocks sharing a KV head's group; 1 on the tensor-core
+    kernel, whose 16-row head tiles loop inside the block: ``m_tiles``),
+    staged K and V row pitches (elements), ring stages, dynamic shared
+    memory, and the blocks an SM holds (by registers and shared memory).
+    Raises ValueError for a shape the kernel does not take."""
+    dv = d if dv is None else dv
+    if kvh <= 0 or h % kvh or not 0 < dv <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_decode: unsupported h={h} kv={kvh} d={d} "
+                         f"dv={dv}")
     grp = h // kvh
-    hd = next(n for n in (64, 128, MAX_HEAD_DIM) if d <= n)
+    hd, hdv = _padded(d), _padded(dv)
     if kv_elem == 4:
         hs = next(s for s in range(-(-grp * hd // BLOCK_GROUP_DIM), grp + 1)
                   if grp % s == 0)
@@ -125,15 +133,16 @@ def launch_plan(h: int, kvh: int, d: int, kv_elem: int) -> Dict[str, int]:
         pitch_k = pitch_v = -(-d // 4) * 4
         merge = 4 * WARPS * (2 * (grp // hs) + grp // hs * hd)
     else:
+        # two warps share a slot group (and split V's head dim) at 256
         hs, m_tiles = 1, -(-grp // MMA_ROWS)
-        slot_groups = 2 if hd == MAX_HEAD_DIM else WARPS
+        slot_groups = 2 if hdv == MAX_HEAD_DIM else WARPS
         tile = MMA_ROWS * slot_groups
         # bank-conflict-free fragment loads: K rows 16 bytes past a
         # multiple of 32; V rows an odd multiple of 16 bytes (bf16,
         # ldmatrix) or 32 past a multiple of 128 (e4m3, 4 rows a load)
         pitch_k = hd + 16 // kv_elem
-        pitch_v = hd + 8 if kv_elem == 2 else hd + 32
-        merge = 4 * slot_groups * MMA_ROWS * (2 + hd)
+        pitch_v = hdv + 8 if kv_elem == 2 else hdv + 32
+        merge = 4 * slot_groups * MMA_ROWS * (2 + hdv)
     if kvh * hs > MAX_GRID_Y:
         raise ValueError(f"flash_decode: {kvh} KV heads x head split {hs} "
                          f"> {MAX_GRID_Y} blocks on the grid's y axis")
@@ -142,7 +151,8 @@ def launch_plan(h: int, kvh: int, d: int, kv_elem: int) -> Dict[str, int]:
     if kv_elem != 4:          # the most stages that keep `blocks` an SM
         stages = max(2, min(MAX_STAGES, ring_budget(hd) // stage))
     smem = max(stages * stage, merge)
-    return {"head_dim": hd, "tile": tile, "head_split": hs,
+    return {"head_dim": hd, "head_dim_v": hdv, "tile": tile,
+            "head_split": hs,
             "m_tiles": m_tiles, "pitch_k": pitch_k, "pitch_v": pitch_v,
             "stages": stages, "smem": smem,
             "resident": max(1, min(blocks,
@@ -189,10 +199,11 @@ def split_plan(n_tiles: int, pairs: int, n_sm: int = 132,
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  pos: torch.Tensor, *, q_offset: int, window: int = 0,
                  scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B,Sq,H,d); k, v: (B,cap,KV,d) with the head dim unit-stride and
-    rows 4-byte aligned; pos: (B,cap) int32 with unit-stride slots; all
-    CUDA tensors on one device. Query row i sits at ``q_offset + i``.
-    Returns (B,Sq,H,d) in q's dtype."""
+    """q: (B,Sq,H,d); k: (B,cap,KV,d), v: (B,cap,KV,dv) with dv <= d, each
+    head dim unit-stride and rows 4-byte aligned; pos: (B,cap) int32 with
+    unit-stride slots; all CUDA tensors on one device. Query row i sits at
+    ``q_offset + i``; ``scale`` defaults to 1/sqrt(d). Returns (B,Sq,H,dv)
+    in q's dtype."""
     return _launch(q, k, v, pos, q_offset, window, scale, partial=False)
 
 
@@ -201,7 +212,7 @@ def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: int = 0, scale: Optional[float] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``flash_decode``'s split kernel on the same inputs, stopped before
-    the merge: (acc (B,Sq,S,H,d), ml (B,Sq,S,H,2)) float32, split s's
+    the merge: (acc (B,Sq,S,H,dv), ml (B,Sq,S,H,2)) float32, split s's
     unnormalised P·V and its running max m (natural-log units) and sum l
     — S splits of the call's own plan, at least one. A split that sees no
     slot has m = -1e30 and l = 0. ``decode_combine`` merges the partials
@@ -250,49 +261,54 @@ def _launch(q, k, v, pos, q_offset, window, scale, partial: bool):
     check_dtypes(q, k, v)
     if pos.dtype != torch.int32:
         raise TypeError(f"{what}: pos is int32, got {pos.dtype}")
-    if (k.dim() != 4 or v.shape != k.shape or k.shape[0] != b
-            or k.shape[3] != d or pos.shape != k.shape[:2]):
+    dv = v.shape[-1] if v.dim() == 4 else 0
+    if (k.dim() != 4 or v.shape[:3] != k.shape[:3] or not 0 < dv <= d
+            or k.shape[0] != b or k.shape[3] != d
+            or pos.shape != k.shape[:2]):
         raise ValueError(f"{what}: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"pos{tuple(pos.shape)}")
-    if q.stride(-1) != 1 or pos.stride(-1) != 1 or k.stride() != v.stride():
+    if q.stride(-1) != 1 or pos.stride(-1) != 1:
         raise ValueError(f"{what}: q's head dim and pos's slots must be "
-                         "unit-stride, and k and v share strides")
-    # bytes per cp.async of a K/V row, from the caches' (batch, slot,
-    # head) strides and alignment as the paged kernel's pages
-    cb = stage_copy_bytes(k, v, k.stride(), d)
+                         "unit-stride")
+    # bytes per cp.async of a K and a V row, from each cache's (batch,
+    # slot, head) strides and alignment as the paged kernel's pages: the
+    # narrower of the two serves both
+    cb = min(stage_copy_bytes(k, k, k.stride(), d),
+             stage_copy_bytes(v, v, v.stride(), dv))
     if cb == 0:
         raise ValueError(f"{what}: K/V rows must be unit-stride and "
                          "4-byte aligned (base pointers, strides and the "
-                         f"row), got strides {k.stride()}")
+                         f"row), got strides {k.stride()} {v.stride()}")
     cap, kvh = k.shape[1], k.shape[2]
     if b * sq > MAX_GRID_Z or not 0 <= q_offset <= 2 ** 31 - 1 - sq:
         raise ValueError(f"{what}: {b} x {sq} query rows at q_offset "
                          f"{q_offset}")
-    plan = launch_plan(h, kvh, d, k.element_size())
+    plan = launch_plan(h, kvh, d, k.element_size(), dv)
     n_splits, tps = split_plan(-(-cap // plan["tile"]),
                                b * sq * kvh * plan["head_split"],
                                sm_count(q.device), plan["resident"])
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    o = None if partial else torch.empty((b, sq, h, d), dtype=q.dtype,
+    o = None if partial else torch.empty((b, sq, h, dv), dtype=q.dtype,
                                          device=q.device)
     part = None
     part_acc = part_ml = None
-    if n_splits > 1 or partial:   # (B*Sq, splits, H, d) then (.., H, 2)
+    if n_splits > 1 or partial:   # (B*Sq, splits, H, dv) then (.., H, 2)
         rows = b * sq * n_splits * h
-        part = torch.empty(rows * (d + 2), dtype=torch.float32,
+        part = torch.empty(rows * (dv + 2), dtype=torch.float32,
                            device=q.device)
-        part_acc, part_ml = part.data_ptr(), part.data_ptr() + 4 * rows * d
-    # o's strides: those of the (B, Sq, H, d) output, or zeros (unused)
+        part_acc, part_ml = part.data_ptr(), part.data_ptr() + 4 * rows * dv
+    # o's strides: those of the (B, Sq, H, dv) output, or zeros (unused)
     o_st = o.stride() if o is not None else (0, 0, 0, 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         None if o is None else o.data_ptr(), part_acc, part_ml,
         Q_DTYPES[q.dtype], KV_DTYPES[k.dtype], b, sq, h, kvh,
-        plan["head_split"], d, cap, plan["tile"], n_splits, tps,
+        plan["head_split"], d, dv, cap, plan["tile"], n_splits, tps,
         plan["pitch_k"], plan["pitch_v"], plan["stages"], cb, q.stride(0),
         q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
         pos.stride(0), o_st[0], o_st[1], o_st[2], scale,
         int(window), int(q_offset), stream)
     _build.check(err, what)
@@ -300,5 +316,5 @@ def _launch(q, k, v, pos, q_offset, window, scale, partial: bool):
     if o is not None:
         return o
     rows = b * sq * n_splits * h
-    return (part[:rows * d].view(b, sq, n_splits, h, d),
-            part[rows * d:].view(b, sq, n_splits, h, 2))
+    return (part[:rows * dv].view(b, sq, n_splits, h, dv),
+            part[rows * dv:].view(b, sq, n_splits, h, 2))

@@ -16,9 +16,11 @@ collectives they force. It prints one record: each program's seconds
 bytes beside ``per_chip_bytes``, its collective seconds on the host clock
 and the tokens (the vocab-sharded logits gathered for the greedy token).
 Two ranks on one card run the two-card program — the same shards,
-collectives and bytes a rank — but not its time. The dense and MoE
-families serve there; DeepSeek-V2-Lite's MLA runs its prefill
-(``--shape prefill_32k``); the rest raise (ROADMAP queue 1 item 14).
+collectives and bytes a rank — but not its time. The dense, MoE, MLA
+(DeepSeek-V2-Lite), ring (Mixtral-8x7B) and RG-LRU hybrid
+(RecurrentGemma-9B) families serve there, D's caches float8 for
+qwen1.5-32b; Mamba2, InternVL2, Whisper and long_500k raise (ROADMAP
+queue 1 item 14).
 
 Weights are random from ``--seed``, tokens from ``default_rng(seed)``.
 Every assigned arch's decode runs on the card: D's dense caches of a
@@ -108,8 +110,9 @@ def programs_on_rank(rank, arch: str, shape: str, batch: int, steps: int,
     prefill → handoff → ``steps`` greedy steps, the logits gathered for
     each token. Returns the rank's record (CPU values): seconds, peak
     GiB, bytes beside ``per_chip_bytes``, collective calls / seconds /
-    bytes, launches, tokens, the handoff check of ``check_layers``, and
-    the gathered prefill logits when ``keep_logits``."""
+    bytes, launches, tokens, the handoff check of ``check_layers`` (layers
+    in model order), and, when ``keep_logits``, the gathered prefill
+    logits and each decode step's (float32)."""
     import gc
     from repro_torch.configs.base import torch_dtype
     from repro_torch.kernels import ops
@@ -185,17 +188,22 @@ def programs_on_rank(rank, arch: str, shape: str, batch: int, steps: int,
             del caches_p
             pos = cell_p.seq_len
             secs["decode"] = []
+            steps_logits = []
             for i in range(steps):
                 io = {"tokens": tok,
                       "positions": torch.full_like(tok, pos + i)}
                 t0 = time.perf_counter()
                 logits, caches = serve.fn(params, caches, io,
                                           q_offset=pos + i)
-                tok = gathered(logits[:, -1]).argmax(-1).to(
-                    torch.int32)[:, None]
+                row = gathered(logits[:, -1])
+                tok = row.argmax(-1).to(torch.int32)[:, None]
                 _sync(dev)
                 secs["decode"].append(time.perf_counter() - t0)
                 tokens.append(tok)
+                if keep_logits:
+                    steps_logits.append(row.float().cpu())
+            if keep_logits:
+                rec["step_logits"] = steps_logits
             del caches
         else:
             del caches_p
@@ -207,38 +215,36 @@ def programs_on_rank(rank, arch: str, shape: str, batch: int, steps: int,
 
 
 def handoff_held(caches_p, caches_d, layer: int, ho, mesh) -> bool:
-    """Whether the rank's D shards of attention layer ``layer`` (counted
-    over the groups in order), gathered over the model axis, are bit for
-    bit the realignment (``steps.realign_caches``: head slice, capacity
-    pad, cast) of P's shards of it gathered likewise: the handoff's
-    reshard held to a direct slice of the whole. A collective: every rank
-    calls it."""
+    """Whether the rank's D shards of layer ``layer`` (in model order: a
+    KV cache or latent, a ring with its tags, an RG-LRU state), gathered
+    over the model axis, are bit for bit the realignment
+    (``steps.realign_caches``: head slice, capacity pad, cast) of P's
+    shards of it gathered likewise: the handoff's reshard held to a direct
+    slice of the whole. A collective: every rank calls it."""
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.steps import realign_caches
     from repro_torch.models import collectives as C
+    from repro_torch.models import model as M
     shard = mesh.axis_shard("model")
-    for gi, group in enumerate(caches_p):
-        for pi, cache in enumerate(group):
-            count = cache.pos.shape[0]
-            if layer >= count:
-                layer -= count
-                continue
+    where = [(gi, pi, li) for gi, g in enumerate(M.block_groups(ho.cfg))
+             for li in range(g.count) for pi in range(len(g.kinds))]
+    if not 0 <= layer < len(where):
+        raise IndexError(f"no layer {layer}")
+    gi, pi, li = where[layer]
 
-            def whole(c, specs):
-                out = {}
-                for name, x in vars(c).items():
-                    if isinstance(x, torch.Tensor):
-                        d = SH.model_dim(specs[f"[{gi}][{pi}].{name}"])
-                        x = x[layer:layer + 1]
-                        out[name] = x if d is None else \
-                            C.all_gather(x, d, shard)
-                return dataclasses.replace(c, **out)
+    def whole(c, specs):
+        out = {}
+        for name, x in vars(c).items():
+            if isinstance(x, torch.Tensor):
+                d = SH.model_dim(specs[f"[{gi}][{pi}].{name}"])
+                x = x[li:li + 1]
+                out[name] = x if d is None else C.all_gather(x, d, shard)
+        return dataclasses.replace(c, **out)
 
-            got = whole(caches_d[gi][pi], ho.out_shardings)
-            want = realign_caches(whole(cache, ho.in_shardings[0]), got)
-            return all(torch.equal(_raw(a), _raw(b)) for (_, a), (_, b) in
-                       zip(SH.named_leaves(want), SH.named_leaves(got)))
-    raise IndexError(f"no attention layer {layer}")
+    got = whole(caches_d[gi][pi], ho.out_shardings)
+    want = realign_caches(whole(caches_p[gi][pi], ho.in_shardings[0]), got)
+    return all(torch.equal(_raw(a), _raw(b)) for (_, a), (_, b) in
+               zip(SH.named_leaves(want), SH.named_leaves(got)))
 
 
 def _raw(t: torch.Tensor) -> torch.Tensor:
@@ -259,7 +265,7 @@ def mesh_record(recs: List[Dict[str, Any]], backend: Optional[str]) -> Dict[str,
            "ranks": [{k: r[k] for k in ("rank", "device", "peak_gib",
                                          "bytes", "collectives", "launches")}
                      for r in recs]}
-    for key in ("handoff_held", "prefill_logits"):
+    for key in ("handoff_held", "prefill_logits", "step_logits"):
         if key in first:
             out[key] = first[key]
     if "handoff_held" in first:

@@ -415,8 +415,10 @@ def reshard(x: torch.Tensor, src: Spec, dst: Spec, mesh: Mesh,
     sharded on dim b, a block exchange (the rank's dim-a columns of every
     other rank's dim-b share go to that rank; one exchange a slice of the
     leading dim when neither is it, which bounds the staging). Every
-    block has one shape, so dim b must split evenly (the handoff pads the
-    capacity first)."""
+    block has one shape, so dim b must split evenly (the handoff pads a
+    full cache's capacity first; a ring's window of slots splits as it
+    is). Any dtype crosses bit for bit, float8 e4m3 included: the
+    collectives move each block's bytes."""
     shard = mesh.axis_shard(axis)
     a, b = model_dim(src, axis), model_dim(dst, axis)
     if shard is None or a == b:

@@ -27,11 +27,12 @@ arguments are the rank's shards (``sharding.shard_params`` /
 the prefill makes head_dim-sharded caches, the handoff reshards them to
 D's capacity-sharded caches by a block exchange between the ranks, and
 the logits are the rank's vocab shard. On such a mesh the serving steps
-cover the dense, MoE and MLA-prefill families at full capacity in
-bfloat16 or float32; the rest raise ``NotImplementedError`` (ROADMAP
-queue 1 item 14), as does training. The handoff takes a batch (deliberate
-difference B12 in ROADMAP): one card cannot hold the prefill cell's 32
-sequences of 32k.
+cover the dense, MoE, MLA, sliding-window (ring) and RG-LRU hybrid
+families, D's caches in bfloat16, float32 or float8 e4m3; SSD, vision,
+encoder-decoder, long_500k, a data axis above 1 and training raise
+``NotImplementedError`` (ROADMAP queue 1 item 14). The handoff takes a
+batch (deliberate difference B12 in ROADMAP): one card cannot hold the
+prefill cell's 32 sequences of 32k.
 """
 from __future__ import annotations
 
@@ -40,7 +41,6 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, get_config, torch_dtype
 from repro_torch.launch import sharding as SH
@@ -86,11 +86,10 @@ def _dctx(mesh: Mesh, dp, m, *, mode: str) -> dist.DistContext:
 
 
 def _check_covered(cfg: ModelConfig, mesh: Mesh, program: str,
-                   cache_dtype: Optional[str] = None) -> None:
+                   shape: Optional[str] = None) -> None:
     """Raise NotImplementedError for what a rank's mesh does not run yet:
-    a data axis above 1, training, and on a model axis above 1 the ring
-    (sliding-window), RG-LRU, SSD, vision and encoder-decoder families,
-    float8 caches and MLA's decode and handoff."""
+    a data axis above 1, training, and on a model axis above 1 the SSD,
+    vision and encoder-decoder families and the long_500k cell."""
     if not mesh.in_world:
         return
     item = "see ROADMAP queue 1 item 14 (a multi-GPU mesh)"
@@ -99,17 +98,15 @@ def _check_covered(cfg: ModelConfig, mesh: Mesh, program: str,
                                   f"ranks — {item}")
     if program == "train":
         raise NotImplementedError(f"training on a world of ranks — {item}")
-    family = ("sliding-window rings" if M._window(cfg) else
-              "RG-LRU" if cfg.recurrent is not None else
-              "SSD" if cfg.ssm is not None else
+    family = ("SSD" if cfg.ssm is not None else
               "vision" if cfg.frontend.kind == "vision" else
-              "encoder-decoder" if cfg.is_enc_dec else
-              "MLA decode" if M._is_mla(cfg) and program != "prefill" else
-              "float8 caches" if cache_dtype and "float8" in cache_dtype
-              else None)
+              "encoder-decoder" if cfg.is_enc_dec else None)
     if family:
         raise NotImplementedError(f"{cfg.name}: {program} of the {family} "
-                                  f"on a model axis above 1 — {item}")
+                                  f"family on a model axis above 1 — {item}")
+    if shape == "long_500k":
+        raise NotImplementedError(f"{cfg.name}: the long_500k cell on a "
+                                  f"model axis above 1 — {item}")
 
 
 def _new_caches(mesh: Mesh, abstract: Any, specs: SH.Specs, make: Callable):
@@ -209,7 +206,7 @@ def make_prefill_artifacts(cell: Cell, mesh: Mesh, *,
                            ) -> StepArtifacts:
     dp, dp_size, m, m_size = _axis_sizes(mesh)
     cfg = _deployed(cell.arch, m_size, "prefill", layer_override)
-    _check_covered(cfg, mesh, "prefill", cell.cache_dtype)
+    _check_covered(cfg, mesh, "prefill", cell.shape)
     dctx = _dctx(mesh, dp, m, mode="prefill")
     b, s = cell.batch, cell.seq_len
     mem_len = cfg.max_source_len if cfg.is_enc_dec else 0
@@ -255,11 +252,13 @@ def make_serve_artifacts(cell: Cell, mesh: Mesh, *,
     caches are updated in place. D's dense caches of an arch with a window
     are ring buffers of the window, and qwen1.5-32b's are float8: on the
     card (and in a count of its work on ``meta``, ``ops.count_as_card``)
-    both take the flash_decode kernel (``ops.cache_attention``), the rest
-    flash."""
+    every one-row step takes the flash_decode kernel
+    (``ops.cache_attention``). On a rank's mesh the caches are the rank's
+    capacity share (a ring's slot share) and each rank's flash_decode
+    stops at its partials (``ops.cache_attention_partial``)."""
     dp, dp_size, m, m_size = _axis_sizes(mesh)
     cfg = _deployed(cell.arch, m_size, "decode", layer_override)
-    _check_covered(cfg, mesh, "decode", cell.cache_dtype)
+    _check_covered(cfg, mesh, "decode", cell.shape)
     dctx = _dctx(mesh, dp, m, mode="decode")
     b = cell.batch
     cap = cell.decode_capacity()
@@ -296,6 +295,26 @@ def make_serve_artifacts(cell: Cell, mesh: Mesh, *,
 
 
 # --------------------------------------------------------------------------- #
+def _realign_leaf(name: str, x: torch.Tensor,
+                  dst: torch.Tensor) -> torch.Tensor:
+    """One leaf of ``realign_caches``: ``x`` with its KV heads cut to
+    ``dst``'s, its capacity axis padded to ``dst``'s (``pos`` with -1, the
+    rest with 0), in ``dst``'s dtype. The pad is written in that dtype
+    (a float8 cache's pad is never a bf16 copy); the values are those of
+    padding first and casting after."""
+    if name in ("k", "v", "cross_k", "cross_v") \
+            and x.shape[3] != dst.shape[3]:
+        x = x[:, :, :, :dst.shape[3]]               # drop TP pad heads
+    if name in ("k", "v", "pos", "ckv", "kpe") \
+            and x.shape[2] != dst.shape[2]:         # the decode margin
+        shape = x.shape[:2] + dst.shape[2:3] + x.shape[3:]
+        out = torch.full(shape, -1 if name == "pos" else 0,
+                         dtype=dst.dtype, device=x.device)
+        out[:, :, :x.shape[2]] = x
+        return out
+    return x.to(dst.dtype)
+
+
 def realign_caches(caches_p: Any, caches_d: Any) -> Any:
     """P's caches as D's: each tensor leaf of ``caches_p`` with its KV
     heads cut to D's (the TP pad heads of the prefill deployment go), its
@@ -307,16 +326,7 @@ def realign_caches(caches_p: Any, caches_d: Any) -> Any:
     for path, dst in leaves_with_paths(caches_d):
         if isinstance(dst, torch.Tensor):
             _, x = next(src)
-            name = SH.path_names(path)[-1]
-            if name in ("k", "v", "cross_k", "cross_v") \
-                    and x.shape[3] != dst.shape[3]:
-                x = x[:, :, :, :dst.shape[3]]       # drop TP pad heads
-            if name in ("k", "v", "pos", "ckv", "kpe") \
-                    and x.shape[2] != dst.shape[2]:
-                pad = dst.shape[2] - x.shape[2]     # decode margin
-                x = F.pad(x, (0, 0) * (x.dim() - 3) + (0, pad),
-                          value=-1 if name == "pos" else 0)
-            dst = x.to(dst.dtype)
+            dst = _realign_leaf(SH.path_names(path)[-1], x, dst)
         out.append(dst)
     return unflatten(caches_d, out)
 
@@ -364,7 +374,7 @@ def make_handoff_artifacts(arch: str, mesh: Mesh, *,
     cell_d = get_cell(arch, "decode_32k")
     cfg_p = _deployed(arch, m_size, "prefill", layer_override)
     cfg_d = _deployed(arch, m_size, "decode", layer_override)
-    _check_covered(cfg_d, mesh, "handoff", cell_d.cache_dtype)
+    _check_covered(cfg_d, mesh, "handoff")
     b = cell_p.batch if batch is None else batch
     s, cap = cell_p.seq_len, cell_d.decode_capacity()
     mem_len = cfg_p.max_source_len if cfg_p.is_enc_dec else 0
@@ -385,10 +395,13 @@ def make_handoff_artifacts(arch: str, mesh: Mesh, *,
         if not mesh.in_world:
             return realign_caches(caches, caches_d)
         SH.check_local(mesh, caches, caches_p, specs_p)
-        out = realign_caches(caches, caches_d)   # P's specs, D's sizes
-        flat = [SH.reshard(x, specs_p[p], specs_d[p], mesh)
+        # a leaf at a time: realigned (P's specs, D's sizes), then
+        # resharded, so one realigned leaf is alive at a time
+        src = dict(SH.named_leaves(caches))
+        flat = [SH.reshard(_realign_leaf(SH.path_names(p)[-1], src[p], x),
+                           specs_p[p], specs_d[p], mesh)
                 if isinstance(x, torch.Tensor) else x
-                for p, x in leaves_with_paths(out)]
+                for p, x in leaves_with_paths(caches_d)]
         return unflatten(caches_d, flat)
 
     return StepArtifacts(name=f"{arch}@handoff", cfg=cfg_d, fn=handoff,

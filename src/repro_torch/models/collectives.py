@@ -5,13 +5,17 @@ partitioner from ``repro.launch.sharding``'s specs, and the explicit
 
   * ``psum``       — the partial outputs of a row-parallel product (the
                      attention's ``wo`` over the rank's heads, the MLP's
-                     ``w_down`` over its d_ff slice, the expert-TP MoE, a
+                     ``w_down`` over its d_ff slice, the expert-TP MoE,
+                     the RG-LRU's ``w_out`` over its channels, a
                      vocab-sharded embedding lookup) summed over the axis;
   * ``all_gather`` — the rank's slices along one dim, concatenated in axis
                      order (K/V's head_dim columns before qk-norm and
-                     RoPE, decode's query heads, the vocab-sharded logits);
+                     RoPE, decode's query heads, MLA decode's q and
+                     ``w_ukv`` heads, the RG-LRU's conv output on the
+                     width, the vocab-sharded logits);
   * ``exchange``   — a block from every rank to every other (the handoff's
-                     head_dim → capacity reshard, decode's partials of
+                     head_dim → capacity reshard of K/V and of rings,
+                     float8 e4m3 shards included, decode's partials of
                      each rank's heads).
 
 They are plain functions over an ``AxisShard`` — the calling rank's

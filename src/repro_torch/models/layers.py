@@ -44,12 +44,17 @@ reference's specs give them (``launch/sharding.py``) and reduce with
 K/V on its head_dim columns, gathers K/V on head_dim before qk-norm and
 RoPE, attends with the rank's heads (prefill: its head_dim half goes to
 the cache; decode over a capacity-sharded cache: all heads over the
-rank's slots, partials exchanged and combined per head), and sums ``wo``'s
-partial with ``psum``; the MLP is column then row parallel; the MoE is
-expert-TP (every expert's d_ff_expert slice) with a replicated router;
-MLA's prefill splits its heads (``w_ukv``, ``wo``) and keeps the latent
-whole. Those are the only layers that take a model axis: the step
-builders refuse the other families there.
+rank's slots — a ring's slot share, or float8 e4m3 — partials exchanged
+and combined per head), and sums ``wo``'s partial with ``psum``; the MLP
+is column then row parallel; the MoE is expert-TP (every expert's
+d_ff_expert slice) with a replicated router; MLA's prefill splits its
+heads (``w_ukv``, ``wo``) and keeps the latent whole, and its decode
+expands the rank's capacity share of the latent through every head's
+``w_ukv`` (gathered) and merges the ranks' partials per head; the RG-LRU
+block runs on the rank's channels of the width, gathering the conv's
+output before the gate products and summing ``w_out``'s partial. Those
+are the only layers that take a model axis: the step builders refuse the
+other families (SSD, vision, encoder-decoder) there.
 
 The RG-LRU block has no kernel of its own in either package: the causal
 depthwise conv, the two float32 gate products and the recurrence are
@@ -530,6 +535,34 @@ def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return _out_proj(out, p["wo"]), cache
 
 
+def _owned_positions(positions: torch.Tensor, cap_l: int,
+                     tp: C.AxisShard) -> torch.Tensor:
+    """``positions`` where the rank owns the slot they go to in a
+    capacity-sharded cache (global slot position % (cap_l x ranks) in the
+    rank's [index x cap_l, (index + 1) x cap_l): a full-capacity cache's
+    slot or a ring's), -1 elsewhere: what the rank writes."""
+    slot = positions.long() % (cap_l * tp.size)
+    lo = tp.index * cap_l
+    own = (slot >= lo) & (slot < lo + cap_l)
+    return torch.where(own, positions, torch.full_like(positions, -1))
+
+
+def _merge_rank_partials(acc: torch.Tensor, ml: torch.Tensor, n: int,
+                         tp: C.AxisShard, dtype) -> torch.Tensor:
+    """The rank's ``n`` heads of attention over every rank's slots: each
+    rank sends every other the partials (acc (B,Sq,S,H,dv), ml
+    (B,Sq,S,H,2)) of that rank's heads, and the rank merges its heads'
+    partials of all ranks (``ops.cache_attention_combine``) into
+    (B,Sq,n,dv) in ``dtype``."""
+    d = acc.shape[-1]
+    part = torch.cat([acc, ml], dim=-1)                  # (B,Sq,S,H,d+2)
+    got = C.exchange([part[:, :, :, j * n:(j + 1) * n]
+                      for j in range(tp.size)], tp)
+    part = torch.cat(got, dim=2)                         # every rank's splits
+    return ops.cache_attention_combine(part[..., :d].contiguous(),
+                                       part[..., d:].contiguous(), dtype)
+
+
 def _attention_decode_sharded(p: Params, cfg: ModelConfig, x: torch.Tensor,
                               positions: torch.Tensor, cache: KVCache,
                               window: int, q_offset: Optional[int],
@@ -537,23 +570,19 @@ def _attention_decode_sharded(p: Params, cfg: ModelConfig, x: torch.Tensor,
                               ) -> Tuple[torch.Tensor, KVCache]:
     """``attention_decode`` over the rank's share of a capacity-sharded
     cache (slots [index x cap, (index + 1) x cap) of the whole cache's
-    size x cap): q is gathered to every head; the new rows are written,
-    with their position tags, only by the rank that owns their slot;
-    every head attends the rank's slots and stops at the partials
-    (flash_decode's split kernel on the card, ``ops.cache_attention_
-    partial``); each rank sends every other the partials of that rank's
-    heads, merges its own heads' partials of all ranks
-    (``ops.cache_attention_combine``), then ``wo`` over its heads and
-    ``psum``."""
+    size x cap; a ring's too, its slot position % (size x cap)): q is
+    gathered to every head; the new rows are written, with their position
+    tags and cast to the cache's dtype (float8 e4m3 as ``_kv_cache_put``
+    casts), only by the rank that owns their slot; every head attends the
+    rank's slots and stops at the partials (flash_decode's split kernel on
+    the card, ``ops.cache_attention_partial``; the tags give the causal
+    and window masks whatever the slot order), then
+    ``_merge_rank_partials``, ``wo`` over the rank's heads and ``psum``."""
     q, k, v = _project_qkv(p, cfg, x, positions, tp=tp)
     n = q.shape[2]
     q = C.all_gather(q, 2, tp)
     cap_l = cache.capacity
-    lo = tp.index * cap_l
-    slot = positions.long() % (cap_l * tp.size)
-    own = (slot >= lo) & (slot < lo + cap_l)
-    kv_cache_write(cache, k, v, torch.where(own, positions,
-                                            torch.full_like(positions, -1)))
+    kv_cache_write(cache, k, v, _owned_positions(positions, cap_l, tp))
     if q_offset is None:
         raise AssertionError("attention_decode on a model axis needs "
                              "q_offset (== positions[:, 0]) on every route")
@@ -563,13 +592,7 @@ def _attention_decode_sharded(p: Params, cfg: ModelConfig, x: torch.Tensor,
             f"full-capacity cache of {cap_l * tp.size}")
     acc, ml = ops.cache_attention_partial(q, cache.k, cache.v, cache.pos,
                                           q_offset=q_offset, window=window)
-    d = acc.shape[-1]
-    part = torch.cat([acc, ml], dim=-1)                  # (B,Sq,S,H,d+2)
-    got = C.exchange([part[:, :, :, j * n:(j + 1) * n]
-                      for j in range(tp.size)], tp)
-    part = torch.cat(got, dim=2)                         # every rank's splits
-    out = ops.cache_attention_combine(part[..., :d].contiguous(),
-                                      part[..., d:].contiguous(), q.dtype)
+    out = _merge_rank_partials(acc, ml, n, tp, q.dtype)
     return _out_proj(out, p["wo"], tp), cache
 
 
@@ -945,7 +968,13 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     is written, the cache's first ``q_offset + T`` rows (every earlier
     position, slot == position) are expanded through ``w_ukv``, and flash
     attends causally from ``q_offset`` — a host integer, so nothing is
-    read back from the card."""
+    read back from the card.
+
+    On a model axis the cache is the rank's capacity share of the latent:
+    ``_mla_decode_sharded``."""
+    tp = dist.ctx().model_shard()
+    if tp is not None:
+        return _mla_decode_sharded(p, cfg, x, positions, cache, q_offset, tp)
     t = x.shape[1]
     if q_offset is None or not cache.full_capacity \
             or q_offset + t > cache.capacity:
@@ -958,6 +987,47 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     out = _mla_expanded_attention(p, cfg, q_nope, q_pe, cache.ckv[:, :c1],
                                   cache.kpe[:, :c1], q_offset)
     return _out_proj(out, p["wo"]), cache
+
+
+def _mla_decode_sharded(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                        positions: torch.Tensor, cache: MLACache,
+                        q_offset: Optional[int], tp: C.AxisShard
+                        ) -> Tuple[torch.Tensor, MLACache]:
+    """``mla_decode`` over the rank's share of a capacity-sharded latent
+    cache (``ckv``/``kpe``/``pos`` slots [index x cap, (index + 1) x
+    cap)), with ``wq``, ``w_ukv`` and ``wo`` on the rank's heads: the
+    rank's q_nope ‖ q_pe are gathered to every head, and ``w_ukv`` on
+    heads (once a call); the new latent row (whole on every rank: the
+    latent's weights are replicated) is written only by its slot's owner;
+    the rank's latent slots are expanded through every head's ``w_ukv``
+    to K (nope ‖ kpe, 192 wide) and V (128), as ``mla_decode`` expands
+    them on one card; ``ops.cache_attention_partial`` at dk 192 / dv 128
+    attends every head over the rank's slots by their tags; then
+    ``_merge_rank_partials``, ``wo`` over the rank's heads and ``psum``."""
+    m = cfg.mla
+    n = p["w_ukv"].shape[1]
+    if n * tp.size != cfg.num_heads:
+        raise NotImplementedError(f"{cfg.name}: MLA on a model axis of "
+                                  f"{tp.size} needs w_ukv on heads")
+    if q_offset is None:
+        raise AssertionError("mla_decode on a model axis needs q_offset "
+                             "(== positions[:, 0])")
+    q_nope, q_pe, ckv_new, kpe_new = _mla_qkv_latent(p, cfg, x, positions)
+    q = C.all_gather(torch.cat([q_nope, q_pe], dim=-1), 2, tp)
+    w_ukv = C.all_gather(p["w_ukv"], 1, tp)               # (lora, H, 256)
+    mla_cache_write(cache, ckv_new, kpe_new,
+                    _owned_positions(positions, cache.capacity, tp))
+    b, cap_l, _ = cache.ckv.shape
+    h = w_ukv.shape[1]
+    k_nope, v = _proj(cache.ckv.to(x.dtype), w_ukv).split(
+        [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, cache.kpe[:, :, None, :].expand(
+        b, cap_l, h, m.qk_rope_head_dim).to(k_nope.dtype)], dim=-1)
+    acc, ml = ops.cache_attention_partial(q, k, v, cache.pos,
+                                          q_offset=q_offset,
+                                          scale=_mla_scale(cfg))
+    out = _merge_rank_partials(acc, ml, n, tp, q.dtype)
+    return _out_proj(out, p["wo"], tp), cache
 
 
 def mla_decode_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -1377,7 +1447,20 @@ def rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     ends float32, the conv tail in x's dtype. Profiler spans:
     ``rglru.block`` around the whole block, ``rglru.f32_weights`` around
     the gate weights' cast to float32 (a copy per call in bf16),
-    ``rglru.scan`` around the recurrence."""
+    ``rglru.scan`` around the recurrence.
+
+    On a model axis (the reference's specs: ``w_x``, ``w_gate``,
+    ``conv_w``, ``conv_b``, ``lam`` and the gate biases on the width,
+    ``lru_a_w`` / ``lru_in_w`` on their columns, ``w_out`` on its rows;
+    the state ``h`` and ``conv`` on the width) the rank computes its
+    channels: its columns of ``xb`` and ``gate``, the conv over them with
+    its part of the tail, then ``xb`` gathered on the width for the gate
+    products, which give the rank's half of the gates; the scan over its
+    channels; ``w_out``'s partial summed over the axis in x's dtype
+    (``_row_parallel``)."""
+    tp = dist.ctx().model_shard()
+    if tp is not None and p["w_x"].shape[-1] == p["lru_a_w"].shape[0]:
+        tp = None                        # a width too narrow to shard
     with torch.profiler.record_function("rglru.block"):
         xb = x @ p["w_x"].to(x.dtype)
         gate = x @ p["w_gate"].to(x.dtype)
@@ -1385,10 +1468,11 @@ def rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
         new_tail = torch.cat([state.conv, xb], dim=1)[:, -(k - 1):]
         xb = _causal_conv1d(xb, p["conv_w"], p["conv_b"], state.conv)
         xf = xb.float()
+        xg = xf if tp is None else C.all_gather(xb, 2, tp).float()
         with torch.profiler.record_function("rglru.f32_weights"):
             w_a, w_i = p["lru_a_w"].float(), p["lru_in_w"].float()
-        r_g = torch.sigmoid(xf @ w_a + p["lru_a_b"])
-        i_g = torch.sigmoid(xf @ w_i + p["lru_in_b"])
+        r_g = torch.sigmoid(xg @ w_a + p["lru_a_b"])
+        i_g = torch.sigmoid(xg @ w_i + p["lru_in_b"])
         log_a = -8.0 * r_g * _softplus(p["lam"])
         a = torch.exp(log_a)
         b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
@@ -1396,7 +1480,7 @@ def rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
         with torch.profiler.record_function("rglru.scan"):
             h = _rglru_scan(a, b, state.h)
         out = h.to(x.dtype) * F.gelu(gate, approximate="tanh")
-        out = out @ p["w_out"].to(x.dtype)
+        out = _row_parallel(out, p["w_out"], tp)
     return out, RGLRUState(h=h[:, -1], conv=new_tail)
 
 

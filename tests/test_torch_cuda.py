@@ -1794,6 +1794,185 @@ def test_flash_decode_partial_one_split_and_empty_half(cuda, dtypes):
                                atol=2e-5 if dtypes == "float32" else 2e-2)
 
 
+# (K head dim, V head dim) pairs with V narrower, one per tensor-core
+# instance that takes them: MLA's expanded latent is 192 / 128
+DECODE_DV = [(128, 64), (192, 128), (256, 128), (256, 64), (48, 32)]
+
+
+@pytest.mark.parametrize("dtypes", ["float32", "bfloat16", "bf16-e4m3"])
+@pytest.mark.parametrize("dk,dv", DECODE_DV)
+@pytest.mark.parametrize("fill", ["ring", "full"])
+def test_flash_decode_kernel_with_v_narrower_than_k(cuda, fill, dk, dv,
+                                                    dtypes):
+    """flash_decode with V narrower than K (dv < dk), V a view of a wider
+    buffer as MLA's split of the expanded latent gives it: the whole-cache
+    call and the partials of two slot halves merged by the combine,
+    against the plain version (2e-5 in float32, 2e-2 in bf16 and over
+    float8 K/V); output (and partials) dv wide."""
+    cap, n = DECODE_FILLS[fill]
+    q_dt = torch.float32 if dtypes == "float32" else torch.bfloat16
+    kv_dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+             "bf16-e4m3": torch.float8_e4m3fn}[dtypes]
+    rng = np.random.default_rng(dk + dv + cap)
+    k, _, pos = _decode_cache(rng, 2, cap, n, 4, dk, kv_dt, cuda)
+    wide = torch.from_numpy(rng.standard_normal((2, cap, 4, dk + dv))
+                            .astype(np.float32)).to(cuda, kv_dt)
+    v = wide[..., dk:]
+    q = torch.from_numpy(rng.standard_normal((2, 2, 8, dk))
+                         .astype(np.float32)).to(cuda, q_dt)
+    args = dict(q_offset=n - 2, window=6 if fill == "ring" else 0)
+    tol = 2e-5 if dtypes == "float32" else 2e-2
+    ops.reset_launch_counts()
+    got = ops.cache_attention(q, k, v, pos, **args)
+    half = cap // 2
+    parts = [ops.cache_attention_partial(q, k[:, s:s + half],
+                                         v[:, s:s + half],
+                                         pos[:, s:s + half], **args)
+             for s in (0, half)]
+    assert all(a.shape[-1] == dv for a, _ in parts)
+    merged = ops.cache_attention_combine(torch.cat([a for a, _ in parts], 2),
+                                         torch.cat([m for _, m in parts], 2),
+                                         q_dt)
+    counts = ops.launch_counts()
+    assert (counts["flash_decode"], counts["flash_decode_partial"],
+            counts["decode_combine"]) == (1, 2, 1)
+    want = ref.cache_attention_ref(q, k, v, pos, **args)
+    torch.cuda.synchronize()
+    assert got.shape == merged.shape == (2, 2, 8, dv) and got.dtype == q_dt
+    for out in (got, merged):
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), atol=tol)
+
+
+# the partials the (1, 2) mesh's decode runs a rank, batch 2 (19d: 1), one
+# row: (name, slots of the whole cache, positions written, KV heads, query
+# heads, K head dim, V head dim, window, K/V dtype)
+DECODE_HALVES = [
+    ("qwen1.5-32b e4m3", 32_896, 32_769, 40, 40, 128, 128, 0,
+     torch.float8_e4m3fn),
+    ("mixtral ring", 4096, 34_000, 8, 32, 128, 128, 4096, torch.bfloat16),
+    ("recurrentgemma ring", 2048, 34_000, 1, 16, 256, 256, 2048,
+     torch.bfloat16),
+    ("deepseek expanded latent", 32_896, 32_769, 16, 16, 192, 128, 0,
+     torch.bfloat16)]
+
+
+@pytest.mark.parametrize("name,cap,n,kvh,h,dk,dv,window,kv_dt",
+                         DECODE_HALVES)
+def test_flash_decode_halves_at_the_mesh_shapes(cuda, name, cap, n, kvh, h,
+                                                dk, dv, window, kv_dt):
+    """A rank's half of each decode cache that the (1, 2) mesh serves —
+    Qwen1.5-32B's e4m3 cache (16,448 slots a rank), the rings of Mixtral
+    (2,048 a rank) and RecurrentGemma (1,024 a rank, 16 heads on one KV
+    head at 256) and DeepSeek-V2-Lite's latent expanded to every head (K
+    192, V 128, V a view of the expansion): the partials of both halves
+    merged by the combine, against the float32 plain version of the whole
+    cache within ``_close_to_size``."""
+    b = 1 if dv < dk else 2
+    rng = np.random.default_rng(cap + h + dk)
+    k, _, pos = _decode_cache(rng, b, cap, n, kvh, dk, kv_dt, cuda)
+    wide = torch.from_numpy(rng.standard_normal((b, cap, kvh, dk + dv))
+                            .astype(np.float32)).to(cuda, kv_dt)
+    v = wide[..., dk:]
+    q = torch.from_numpy(rng.standard_normal((b, 1, h, dk))
+                         .astype(np.float32)).to(cuda, torch.bfloat16)
+    args = dict(q_offset=n - 1, window=window)
+    half = cap // 2
+    parts = [ops.cache_attention_partial(q, k[:, s:s + half],
+                                         v[:, s:s + half],
+                                         pos[:, s:s + half], **args)
+             for s in (0, half)]
+    got = ops.cache_attention_combine(torch.cat([a for a, _ in parts], 2),
+                                      torch.cat([m for _, m in parts], 2),
+                                      torch.bfloat16)
+    want = ref.cache_attention_ref(q.float(), k.float(), v.float(), pos,
+                                   **args)
+    torch.cuda.synchronize()
+    assert got.shape == (b, 1, h, dv)
+    _close_to_size(got, want)
+
+
+def _mesh_vs_one_card(cfg_dict, monkeypatch, check_layers):
+    """The launcher's rank program on a (1, 2) world of two ranks sharing
+    the card, against the one-card launcher, for a tiny float32 config:
+    prefill → handoff → 2 greedy steps. Returns (mesh record, one-card
+    record)."""
+    import dataclasses
+    import torch_mesh_ranks as R
+    from repro_torch.launch import cells as TC
+    from repro_torch.launch import ranks, serve
+    from repro_torch.launch import steps as TS
+    cfg = config_from_dict(cfg_dict)
+    cells = {s: dataclasses.replace(TC.get_cell("qwen3-4b", s), batch=2,
+                                    seq_len=64, cache_dtype="float32")
+             for s in ("prefill_32k", "decode_32k")}
+    monkeypatch.setattr(TS, "get_config", lambda arch: cfg)
+    monkeypatch.setattr(TS, "get_cell", lambda arch, s: cells[s])
+    monkeypatch.setattr(TC, "get_cell", lambda arch, s: cells[s])
+    one = serve.run_programs("qwen3-4b", batch=2, steps=2, keep_logits=True)
+    with ranks.start(2, timeout_s=600) as world:
+        recs = world.run(R.programs_on_rank, cfg_dict, cells, "qwen3-4b",
+                         "decode_32k", 2, 2, None, 0, (1, 2), check_layers,
+                         True)
+    rec = serve.mesh_record(recs, world.backend)
+    for got, want in zip([rec["prefill_logits"]] + rec["step_logits"],
+                         [one["prefill_logits"]] + one["step_logits"]):
+        assert float((got - want).abs().max()) \
+            <= 1e-5 * float(want.abs().max())
+    assert rec["tokens"] == one["tokens"]
+    assert rec["handoff_held_all_ranks"]
+    for r in rec["ranks"]:
+        for what, (have, predicted) in r["bytes"].items():
+            assert have == predicted > 0, what
+    return rec, one
+
+
+def test_two_ranks_on_one_card_serve_a_tiny_hybrid(cuda, monkeypatch):
+    """One tiny RG-LRU hybrid (R, R, local attention over a ring of 16
+    slots, 8 a rank) on two ranks sharing the card: the RG-LRU on each
+    rank's half of the width, its conv's output gathered; the logits of
+    the prefill and of both steps within 1e-5 of the largest one-card
+    logit, the same tokens, the states and the ring resharded bit for
+    bit, bytes equal to ``per_chip_bytes``; per rank one flash launch
+    (windowed) and 2 of each of the partial and the combine."""
+    from repro_torch.configs.base import ATTN, RECURRENT
+    rec, _ = _mesh_vs_one_card(dict(
+        name="tiny-hybrid", family="hybrid", num_layers=3, d_model=128,
+        num_heads=4, num_kv_heads=1, head_dim=64, d_ff=256, vocab_size=256,
+        attention_kind="sliding", sliding_window=16,
+        recurrent=dict(lru_width=128, d_conv=4,
+                       block_pattern=(RECURRENT, RECURRENT, ATTN)),
+        param_dtype="float32", compute_dtype="float32"), monkeypatch,
+        (0, 1, 2))
+    for r in rec["ranks"]:
+        assert r["launches"]["flash_attention"] == 1
+        assert r["launches"]["flash_decode_partial"] == 2
+        assert r["launches"]["decode_combine"] == 2
+        assert r["collectives"]["all_gather"]["calls"] > 0
+
+
+def test_two_ranks_on_one_card_serve_a_tiny_mla_step(cuda, monkeypatch):
+    """One tiny MLA layer on two ranks sharing the card: the prefill on
+    each rank's heads, the latent handed off in capacity halves, the
+    decode steps over each rank's half expanded through every head's
+    ``w_ukv`` (gathered) into flash_decode's partials at dk 48 / dv 32;
+    the logits within 1e-5 of the largest one-card logit, the same
+    tokens, the latent halves bit for bit, bytes equal to
+    ``per_chip_bytes``; per rank one flash launch and 2 of each of the
+    partial and the combine."""
+    rec, _ = _mesh_vs_one_card(dict(
+        name="tiny-mla", family="dense", num_layers=1, d_model=128,
+        num_heads=4, num_kv_heads=4, head_dim=32, d_ff=256, vocab_size=256,
+        attention_kind="mla",
+        mla=dict(kv_lora_rank=64, qk_nope_head_dim=32, qk_rope_head_dim=16,
+                 v_head_dim=32),
+        param_dtype="float32", compute_dtype="float32"), monkeypatch, (0,))
+    for r in rec["ranks"]:
+        assert r["launches"]["flash_attention"] == 1
+        assert r["launches"]["flash_decode_partial"] == 2
+        assert r["launches"]["decode_combine"] == 2
+
+
 def test_two_ranks_on_one_card_serve_a_tiny_layer(cuda, monkeypatch):
     """A (1, 2) world of two gloo ranks sharing the card
     (``launch.ranks``) runs the launcher's rank program on one tiny

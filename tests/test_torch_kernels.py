@@ -708,6 +708,49 @@ def test_flash_decode_launch_plan_refuses(h, kv, d, es):
         launch_plan(h, kv, d, es)
 
 
+@pytest.mark.parametrize("h,kv,d,dv,es,want", [
+    (16, 16, 192, 128, 2, dict(head_dim=256, head_dim_v=128, tile=64,
+                               pitch_k=264, pitch_v=136, stages=2)),  # MLA
+    (16, 16, 192, 128, 1, dict(head_dim=256, head_dim_v=128, tile=64,
+                               pitch_k=272, pitch_v=160)),
+    (8, 2, 128, 64, 2, dict(head_dim=128, head_dim_v=64, tile=64,
+                            pitch_k=136, pitch_v=72)),
+    (16, 1, 256, 256, 2, dict(head_dim=256, head_dim_v=256, tile=32)),
+    (8, 2, 48, 32, 4, dict(head_dim=64, head_dim_v=64, tile=32,
+                           pitch_k=48, pitch_v=48, stages=3)),
+])
+def test_flash_decode_launch_plan_v_narrower_than_k(h, kv, d, dv, es,
+                                                    want):
+    """V narrower than K (MLA's expanded latent: 192 / 128): K's padded
+    head dim sets the K pitch and the blocks an SM holds, V's the V pitch,
+    the slot groups a tile (two warps share a group only when V is 256
+    wide) and the warps' merge buffer; the float32 kernel stages V at K's
+    pitch. A V wider than K is refused."""
+    from repro_torch.kernels.flash_decode import (MMA_ROWS, REG_BLOCKS,
+                                                  launch_plan, ring_budget)
+    from repro_torch.kernels.paged_attention import SMEM_LIMIT, WARPS
+    plan = launch_plan(h, kv, d, es, dv)
+    assert {k: plan[k] for k in want} == want
+    assert plan["pitch_k"] >= d and plan["pitch_v"] >= dv
+    if es != 4:
+        hd, hdv = plan["head_dim"], plan["head_dim_v"]
+        groups = plan["tile"] // MMA_ROWS
+        assert groups == (2 if hdv == 256 else WARPS)
+        assert plan["pitch_k"] >= hd and plan["pitch_v"] >= hdv
+        stage = plan["tile"] * (plan["pitch_k"] + plan["pitch_v"]) * es \
+            + 4 * plan["tile"]
+        assert plan["stages"] * stage <= ring_budget(hd) \
+            or plan["stages"] == 2
+        merge = 4 * groups * MMA_ROWS * (2 + hdv)
+        assert plan["smem"] == max(plan["stages"] * stage, merge) \
+            <= SMEM_LIMIT
+        assert plan["resident"] == min(REG_BLOCKS[hd], (228 * 1024)
+                                       // (plan["smem"] + 1024))
+    assert launch_plan(h, kv, d, es) == launch_plan(h, kv, d, es, d)
+    with pytest.raises(ValueError, match="flash_decode"):
+        launch_plan(h, kv, d, es, d + 1)
+
+
 # the main path's flash_decode calls, batch 2, one row: (query heads, KV
 # heads, head dim, K/V element bytes, capacity) -> (splits, tiles a split)
 @pytest.mark.parametrize("h,kv,d,es,cap,want", [

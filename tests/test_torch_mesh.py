@@ -2,7 +2,8 @@
 parallelism on the model axis — against the JAX package's step builders
 on an Auto-typed 1x1 mesh (its own mesh gives Explicit axes, which its
 sharding constraints reject: ROADMAP queue 3 C1), on the CPU, in float32,
-for the tiny ``dense-bias-qknorm``, ``moe`` and ``mla`` configs of
+for the tiny ``dense-bias-qknorm``, ``moe``, ``mla``, ``sliding`` (a ring
+of 8 slots) and ``hybrid`` (RG-LRU blocks beside rings) configs of
 ``tests/conftest.py`` at batch 2 x 24 tokens.
 
 One world of two gloo ranks is started for the module
@@ -13,15 +14,18 @@ its shards (``sharding.shard_params``). Held, per family:
 
   * the prefill's last logits, assembled from the ranks' vocab shards,
     within atol 1e-5 of the reference's;
-  * each rank's prefill cache shard equal to the spec's slice of the
-    reference's caches within 1e-5 (head_dim-sharded K/V, ``pos``
-    whole; MLA's latent whole);
+  * each rank's prefill cache and state shard equal to the spec's slice
+    of the reference's caches within 1e-5 (head_dim-sharded K/V, ``pos``
+    whole; MLA's latent whole; the RG-LRU's ``h`` and ``conv`` on the
+    width);
   * the handoff of the reference's P caches (each rank given its
     shards): D's shards bit for bit the capacity slices of the
-    reference's handoff, into float32 and bfloat16 caches;
+    reference's handoff (a ring's slot halves with their tags, MLA's
+    latent halves, the RG-LRU states as they were), into float32 and
+    bfloat16 caches and, for the dense family, float8 e4m3 ones;
   * the serve step over the reference's D caches: the assembled logits
-    and every rank's cache shard within 1e-5 (not MLA: its decode is not
-    run on a model axis above 1);
+    and every rank's cache shard within 1e-5 (float32 D caches, and the
+    dense family's e4m3 ones);
   * each rank's bytes of parameters and caches equal to
     ``per_chip_bytes`` at {"data": 1, "model": 2}.
 
@@ -29,9 +33,11 @@ Also: ``serve.programs_on_rank`` (the ``--mesh 1x2`` launcher's rank
 program) on the tiny dense config against the one-card launcher's
 tokens, its handoff check and its record; flash_decode's plain partial
 and combine over two slot halves against the whole-cache plain version
-(1e-6); the families not covered raising on the rank mesh; a rank that
-raises surfacing in the parent with its traceback, and no rank left
-running.
+(1e-6), V as wide as K and narrower (MLA's dv < dk); a float8 exchange
+and gather between the ranks bit for bit; the families not covered
+(SSD, vision, encoder-decoder) and the long_500k cell raising on the
+rank mesh; a rank that raises surfacing in the parent with its
+traceback, and no rank left running.
 """
 import dataclasses
 import os
@@ -55,14 +61,17 @@ from repro_torch.launch import sharding as TSH
 from repro_torch.launch import steps as TS
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.collectives import AxisShard
-from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
 
 from conftest import TINY_FAMILIES
 from test_torch_launch_steps import _inputs, _ref_leaves, _to_port
 
 SEQ, BATCH = 24, 2
 ATOL = 1e-5
-FAMILIES = ("dense-bias-qknorm", "moe", "mla")
+_GET_CELL = RC.get_cell         # the fixtures patch the module's
+FAMILIES = ("dense-bias-qknorm", "moe", "mla", "sliding", "hybrid")
+DENSE = "dense-bias-qknorm"
+F8 = "float8_e4m3fn"
 
 
 @pytest.fixture(scope="module")
@@ -86,7 +95,7 @@ def _rank_mesh(r: int) -> Mesh:
 
 
 def _cells(**kw):
-    return {s: dataclasses.replace(RC.get_cell("qwen3-4b", s), batch=BATCH,
+    return {s: dataclasses.replace(_GET_CELL("qwen3-4b", s), batch=BATCH,
                                    seq_len=SEQ, cache_dtype="float32", **kw)
             for s in ("prefill_32k", "decode_32k")}
 
@@ -95,7 +104,7 @@ def _close(got: torch.Tensor, want, atol=ATOL, exact=False, what=""):
     """``got`` within ``atol`` of ``want`` (a tensor or an array), or, with
     ``exact``, bit for bit once ``want`` is in ``got``'s dtype."""
     want = want if isinstance(want, torch.Tensor) else \
-        torch.from_numpy(np.array(want, np.float32))
+        tensor_from_numpy(np.asarray(want), torch.device("cpu"))
     if exact:
         np.testing.assert_array_equal(
             got.contiguous().view(torch.uint8).numpy(),
@@ -115,9 +124,9 @@ def _held_to_slices(outs, key, ref_tree, specs, atol=ATOL, exact=False):
                                      else key(out)))
         assert sorted(mine) == sorted(ref)
         for p, x in mine.items():
-            w = ref[p].astype(np.float32) \
-                if ref[p].dtype.name == "bfloat16" else ref[p]
-            want = TSH.rank_slice(torch.from_numpy(np.ascontiguousarray(w)),
+            assert str(x.dtype) == f"torch.{ref[p].dtype.name}", p
+            want = TSH.rank_slice(tensor_from_numpy(ref[p],
+                                                    torch.device("cpu")),
                                   specs[p], _rank_mesh(r))
             _close(x, want, atol, exact, f"rank {r} {p}")
 
@@ -145,32 +154,34 @@ def family(request, world, jmesh):
         one = Mesh((1, 1), ("data", "model"), torch.device("cpu"))
         tho = TS.make_handoff_artifacts("qwen3-4b", one, batch=BATCH)
         caches_p = _to_port(jcaches_p, tho.abstract_args[0])
-        handoffs, io, jserve = {}, None, None
-        d_dtypes = ("float32", "bfloat16")
+        d_dtypes = ("float32", "bfloat16") + \
+            ((F8,) if request.param == DENSE else ())
+        serve_dtypes = ("float32",) + ((F8,) if request.param == DENSE
+                                       else ())
+        tok = np.asarray(jnp.argmax(jlast, -1), np.int32)[:, None]
+        io = {"tokens": tok, "positions": np.full_like(tok, SEQ)}
+        handoffs, jserve, caches_d = {}, {}, {}
         for dt in d_dtypes:
-            cells_dt = dict(cells, decode_32k=dataclasses.replace(
-                cells["decode_32k"], cache_dtype=dt))
+            cells_dt = _with_d_dtype(cells, dt)
             mp.setattr(RC, "get_cell", lambda arch, shape: cells_dt[shape])
-            if jcfg.attention_kind != "mla":
-                handoffs[dt] = RS.make_handoff_artifacts(
-                    "qwen3-4b", jmesh).fn(jax.tree.map(jnp.copy, jcaches_p))
-        mp.setattr(RC, "get_cell", lambda arch, shape: cells[shape])
-        caches_d = None
-        if jcfg.attention_kind != "mla":
-            tok = np.asarray(jnp.argmax(jlast, -1), np.int32)[:, None]
-            io = {"tokens": tok, "positions": np.full_like(tok, SEQ)}
-            jart = RS.make_serve_artifacts(cells["decode_32k"], jmesh)
-            tsrv = TS.make_serve_artifacts(cells["decode_32k"], one)
-            caches_d = _to_port(handoffs["float32"], tsrv.abstract_args[1])
+            mp.setattr(TS, "get_cell", lambda arch, shape: cells_dt[shape])
+            handoffs[dt] = RS.make_handoff_artifacts(
+                "qwen3-4b", jmesh).fn(jax.tree.map(jnp.copy, jcaches_p))
+            if dt not in serve_dtypes:
+                continue
+            jart = RS.make_serve_artifacts(cells_dt["decode_32k"], jmesh)
+            tsrv = TS.make_serve_artifacts(cells_dt["decode_32k"], one)
+            caches_d[dt] = _to_port(handoffs[dt], tsrv.abstract_args[1])
             # a copy: the reference's serve step donates its caches
-            jserve = jart.fn(jp, jax.tree.map(jnp.copy, handoffs["float32"]),
-                             {k: jnp.asarray(v) for k, v in io.items()})
-            io = {k: torch.tensor(v) for k, v in io.items()}
+            jserve[dt] = jart.fn(jp, jax.tree.map(jnp.copy, handoffs[dt]),
+                                 {k: jnp.asarray(v) for k, v in io.items()})
+        mp.setattr(RC, "get_cell", lambda arch, shape: cells[shape])
+        mp.setattr(TS, "get_cell", lambda arch, shape: cells[shape])
+        io = {k: torch.tensor(v) for k, v in io.items()}
         params = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
         outs = world.run(R.steps_on_rank, cfg_dict, cells, params,
                          {k: torch.from_numpy(v) for k, v in batch.items()},
-                         caches_p, caches_d, io,
-                         d_dtypes if jcfg.attention_kind != "mla" else ())
+                         caches_p, caches_d, io, d_dtypes)
         yield dict(name=request.param, jcfg=jcfg, cells=cells, jlast=jlast,
                    jcaches_p=jcaches_p, handoffs=handoffs, jserve=jserve,
                    outs=outs, tcfg=tcfg)
@@ -178,10 +189,14 @@ def family(request, world, jmesh):
         mp.undo()
 
 
+def _with_d_dtype(cells, dt):
+    return dict(cells, decode_32k=dataclasses.replace(cells["decode_32k"],
+                                                      cache_dtype=dt))
+
+
 def _specs(fam, kind, dt="float32"):
     """The port's specs on the (1, 2) mesh: params, P's caches, D's."""
-    cells = dict(fam["cells"], decode_32k=dataclasses.replace(
-        fam["cells"]["decode_32k"], cache_dtype=dt))
+    cells = _with_d_dtype(fam["cells"], dt)
     mp = pytest.MonkeyPatch()
     mp.setattr(TS, "get_config", lambda arch: fam["tcfg"])
     mp.setattr(TS, "get_cell", lambda arch, shape: cells[shape])
@@ -219,26 +234,25 @@ def test_prefill_cache_shards_are_the_specs_slices(family):
                     family["jcaches_p"], _specs(family, "caches_p"))
 
 
-# MLA's handoff and decode are not run on a model axis above 1
-SERVED = pytest.mark.parametrize("family", ["dense-bias-qknorm", "moe"],
-                                 indirect=True)
-
-
-@SERVED
 def test_handoff_shards_bit_equal_slices_of_the_reference(family):
+    want_dtypes = {"float32", "bfloat16"} | (
+        {F8} if family["name"] == DENSE else set())
+    assert set(family["handoffs"]) == want_dtypes
     for dt, want in family["handoffs"].items():
         _held_to_slices(family["outs"],
                         lambda o, dt=dt: o["handoff"][dt], want,
                         _specs(family, "handoff", dt), exact=True)
 
 
-@SERVED
 def test_serve_step_logits_and_cache_shards(family):
-    jlog, jcaches = family["jserve"]
     outs = family["outs"]
-    _close(torch.cat([o["serve"][0] for o in outs], -1), jlog)
-    _held_to_slices(outs, lambda o: o["serve"][1], jcaches,
-                    _specs(family, "caches_d"))
+    assert set(family["jserve"]) == {"float32"} | (
+        {F8} if family["name"] == DENSE else set())
+    for dt, (jlog, jcaches) in family["jserve"].items():
+        _close(torch.cat([o["serve"][dt][0] for o in outs], -1), jlog,
+               what=dt)
+        _held_to_slices(outs, lambda o, dt=dt: o["serve"][dt][1], jcaches,
+                        _specs(family, "caches_d", dt))
 
 
 def test_rank_bytes_equal_per_chip_bytes(family):
@@ -279,11 +293,14 @@ def test_rank_programs_match_the_one_card_launcher(world, monkeypatch):
     assert set(rec["seconds"]) == {"prefill", "handoff", "decode"}
 
 
-def test_partial_and_combine_over_two_halves_equal_the_whole():
+@pytest.mark.parametrize("dv", [16, 8])
+def test_partial_and_combine_over_two_halves_equal_the_whole(dv):
+    """V as wide as K, and narrower (dv < dk, as MLA's expanded latent:
+    192 / 128 on the card)."""
     gen = torch.Generator().manual_seed(0)
     b, cap, kvh, h, d = 2, 40, 2, 8, 16
     k = torch.randn((b, cap, kvh, d), generator=gen)
-    v = torch.randn((b, cap, kvh, d), generator=gen)
+    v = torch.randn((b, cap, kvh, dv), generator=gen)
     pos = torch.full((b, cap), -1, dtype=torch.int32)
     pos[0, :33] = torch.arange(33)
     pos[1, :7] = torch.arange(7)              # the second half empty
@@ -299,12 +316,28 @@ def test_partial_and_combine_over_two_halves_equal_the_whole():
         got = KR.decode_combine_ref(torch.cat([a for a, _ in parts], 2),
                                     torch.cat([m for _, m in parts], 2),
                                     torch.float32)
+        assert got.shape == (b, sq, h, dv)
         torch.testing.assert_close(got, whole, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("name,program", [("sliding", "prefill"),
-                                          ("hybrid", "prefill"),
-                                          ("mla", "decode")])
+def test_float8_exchange_and_gather_are_bit_exact(world):
+    """e4m3 tensors — every byte code, NaN and ±448 included — cross the
+    ranks through ``exchange`` and ``all_gather`` (as their bytes) bit for
+    bit: each rank gets every other rank's block and the gathered whole."""
+    outs = world.run(R.float8_collectives_on_rank)
+    for r, out in enumerate(outs):
+        for j, got in enumerate(out["exchanged"]):
+            want = R.float8_block(j, r)
+            assert got.dtype == torch.float8_e4m3fn
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        want = torch.cat([R.float8_block(j, j) for j in range(2)], 1)
+        assert torch.equal(out["gathered"].view(torch.uint8),
+                           want.view(torch.uint8))
+
+
+@pytest.mark.parametrize("name,program", [("ssm", "prefill"),
+                                          ("vlm", "prefill"),
+                                          ("encdec", "decode")])
 def test_families_not_covered_raise_on_the_rank_mesh(name, program,
                                                      monkeypatch):
     tcfg = config_from_dict(dataclasses.asdict(TINY_FAMILIES[name]))
@@ -315,6 +348,17 @@ def test_families_not_covered_raise_on_the_rank_mesh(name, program,
              else TS.make_serve_artifacts)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
         build(cells[f"{program}_32k"], mesh)
+
+
+def test_long_500k_raises_on_the_rank_mesh(monkeypatch):
+    """The sliding family serves decode_32k on the rank mesh; its
+    long_500k cell still raises."""
+    tcfg = config_from_dict(dataclasses.asdict(TINY_FAMILIES["sliding"]))
+    monkeypatch.setattr(TS, "get_config", lambda arch: tcfg)
+    cell = dataclasses.replace(_GET_CELL("mixtral-8x7b", "long_500k"),
+                               batch=BATCH)
+    with pytest.raises(NotImplementedError, match="long_500k"):
+        TS.make_serve_artifacts(cell, _rank_mesh(0))
 
 
 def test_a_rank_that_raises_surfaces_and_no_rank_is_left():

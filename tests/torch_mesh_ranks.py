@@ -16,6 +16,7 @@ from repro_torch.launch import serve
 from repro_torch.launch import sharding as SH
 from repro_torch.launch import steps as TS
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import collectives as C
 
 MESH = (1, 2)
 
@@ -32,14 +33,19 @@ def _cpu(tree):
                        if isinstance(x, torch.Tensor) else x, tree)
 
 
+def _with_d_dtype(cells, dt):
+    return dict(cells, decode_32k=dataclasses.replace(cells["decode_32k"],
+                                                      cache_dtype=dt))
+
+
 def steps_on_rank(rank, cfg_dict, cells, params, inputs, caches_p_ref,
                   caches_d_ref, io, d_dtypes):
     """The step builders on the rank's (1, 2) mesh: the prefill of the
     whole ``params`` (cut to the rank's shards), the handoff of the
     reference's P caches (cut likewise) into D caches of each of
-    ``d_dtypes``, and the serve step over the reference's D caches (cut
-    likewise; None: not run). Returns the rank's local outputs and bytes
-    beside ``per_chip_bytes``."""
+    ``d_dtypes``, and the serve step over each of the reference's D caches
+    ``caches_d_ref`` ({D dtype: caches}, cut likewise). Returns the rank's
+    local outputs and bytes beside ``per_chip_bytes``."""
     _patch(cfg_dict, cells)
     mesh = make_mesh(MESH, ("data", "model"), "cpu")
     sizes = mesh.shape
@@ -58,9 +64,7 @@ def steps_on_rank(rank, cfg_dict, cells, params, inputs, caches_p_ref,
             abs_p, pre.out_shardings[1], sizes))}
     out["handoff"] = {}
     for dt in d_dtypes:
-        cells_dt = dict(cells, decode_32k=dataclasses.replace(
-            cells["decode_32k"], cache_dtype=dt))
-        _patch(cfg_dict, cells_dt)
+        _patch(cfg_dict, _with_d_dtype(cells, dt))
         ho = TS.make_handoff_artifacts("qwen3-4b", mesh,
                                        batch=cells["prefill_32k"].batch)
         mine = SH.to_shardings(mesh, caches_p_ref, ho.in_shardings[0])
@@ -69,19 +73,41 @@ def steps_on_rank(rank, cfg_dict, cells, params, inputs, caches_p_ref,
         abs_d = TS.M.abstract_caches(
             ho.cfg, cells["prefill_32k"].batch,
             cells["decode_32k"].decode_capacity(), getattr(torch, dt),
-            full_capacity=True)
+            full_capacity=TS._full_capacity(ho.cfg))
         out["bytes"][f"caches_d_{dt}"] = (SH.local_bytes(got),
                                           SH.per_chip_bytes(
                                               abs_d, ho.out_shardings,
                                               sizes))
-    _patch(cfg_dict, cells)
-    if caches_d_ref is not None:
-        srv = TS.make_serve_artifacts(cells["decode_32k"], mesh)
-        mine = SH.to_shardings(mesh, caches_d_ref, srv.in_shardings[1])
+    out["serve"] = {}
+    for dt, ref in caches_d_ref.items():
+        cells_dt = _with_d_dtype(cells, dt)
+        _patch(cfg_dict, cells_dt)
+        srv = TS.make_serve_artifacts(cells_dt["decode_32k"], mesh)
+        mine = SH.to_shardings(mesh, ref, srv.in_shardings[1])
         with torch.no_grad():
             logits, caches = srv.fn(ps, mine, io)
-        out["serve"] = (logits, _cpu(caches))
+        out["serve"][dt] = (logits, _cpu(caches))
+    _patch(cfg_dict, cells)
     return out
+
+
+def float8_block(src: int, dst: int) -> torch.Tensor:
+    """The e4m3 block rank ``src`` sends rank ``dst``: all 256 byte codes
+    (NaN and ±448 among them), rolled by the pair, as (4, 64)."""
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    return codes.roll(7 * src + 3 * dst).view(4, 64).view(
+        torch.float8_e4m3fn)
+
+
+def float8_collectives_on_rank(rank):
+    """``exchange`` of ``float8_block(rank, j)`` to each rank j and
+    ``all_gather`` of the rank's own block on dim 1, over the model axis."""
+    mesh = make_mesh(MESH, ("data", "model"), "cpu")
+    shard = mesh.axis_shard("model")
+    me = rank.index
+    got = C.exchange([float8_block(me, j) for j in range(2)], shard)
+    return {"exchanged": got,
+            "gathered": C.all_gather(float8_block(me, me), 1, shard)}
 
 
 def programs_on_rank(rank, cfg_dict, cells, *args):
