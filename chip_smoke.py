@@ -260,7 +260,7 @@ nvcc, then runs eighteen phases, each printing JSON lines:
      (``PHASE14_PREDICTED``).
  15. the launch grid's last five cells, whose D caches the flash route
      cannot read, through the flash_decode kernel
-     (``ops.cache_attention``). 15a: Qwen1.5-32B at full width cut to 8
+     (``ops.cache_attention``). 15a: Qwen1.5-32B at full width cut to 4
      of 64 layers, batch 2: prefill_32k in bf16, the handoff into D's
      32,896-slot float8 e4m3 caches (the precision alignment), 4 greedy
      decode_32k steps; D's bytes equal to the CPU's e4m3 cast of P's
@@ -355,7 +355,7 @@ nvcc, then runs eighteen phases, each printing JSON lines:
      on the one card (``launch.ranks``; gloo, as NCCL refuses two ranks
      of one communicator on a device; its bfloat16 sum probed first),
      each holding the shards the launch layer's specs give it: 18a
-     Qwen3-4B cut to 12 of its 36 layers, prefill_32k at batch 2 → the
+     Qwen3-4B cut to 4 of its 36 layers, prefill_32k at batch 2 → the
      handoff's
      head_dim → capacity reshard (a block exchange) → 4 greedy steps
      whose flash_decode calls stop at each rank's partials and are
@@ -382,7 +382,7 @@ nvcc, then runs eighteen phases, each printing JSON lines:
      (``phase1_decode_halves``).
  19. the same world for the other attention-cache families, each part
      through ``serve.programs_on_rank`` and held as 18a: 19a Qwen1.5-32B
-     (8 of 64 layers, batch 2: P's bf16 caches cast to e4m3 in the
+     (4 of 64 layers, batch 2: P's bf16 caches cast to e4m3 in the
      handoff), 19b Mixtral-8x7B (12 of 32, batch 2: rings of 4096 in slot
      halves with their tags, the expert-TP MoE), 19c RecurrentGemma-9B
      (38 layers, batch 2: the RG-LRU on the width's halves, its conv
@@ -392,9 +392,26 @@ nvcc, then runs eighteen phases, each printing JSON lines:
      ``w_ukv`` into flash_decode's partials at K 192 / V 128). 19a-19c
      are held to phase 15's one-card runs (kept on the host), 19d to a
      one-card run of its own (``phase19_one_card_mla``); the RG-LRU
-     block's control zeroes the other rank's gathered ``xb``. Phase 1's
-     rows 1h-a..d time the partial + combine at those four decode shapes
+     block's control zeroes the other rank's gathered ``xb``. 19b and
+     19c also take one long_500k serve step at q_offset 524,288 over a
+     batch-1 copy of D's ring halves with the tags shifted as 15d's
+     (``long_traced``), held to 15d's logits. Phase 1's rows 1h-a..d
+     time the partial + combine at those four decode shapes
      (``phase1_mesh_halves``).
+ 20. the same world for the SSD, vision and encoder-decoder families at
+     full width and depth, each held as 19 holds its parts to a one-card
+     run made at the mesh's deployed config (``one_card_run``,
+     ``deployed_vocab``): 20a Mamba2-370M (48 layers, batch 2: the SSD
+     computed whole on each rank, its conv tail in channel halves
+     gathered before each conv; its control the embedding's psum missing
+     the other rank's term, ``embed_controlled``; one long_500k step over
+     a batch-1 copy of D's states, held to a one-card step over the same
+     states), 20b InternVL2-2B (24 layers, batch 1: 256 patches before
+     32,512 tokens, the vocab padded to 92,554), 20c Whisper-large-v3
+     (32 + 32 layers, batch 1: the encoder's heads split over 1,500
+     frames, the cross rows head_dim-sharded in P and D, gathered before
+     each cross-attention). Rows 1h-e and 1h-f time the partial +
+     combine at Whisper's and InternVL2's decode shapes.
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
@@ -419,8 +436,10 @@ flash and paged at the quickstart's as ``"quickstart"``;
 ``decode_combine`` (both halves' splits) are rows of their own, each
 with the two-halves composition as ``"halves"`` (the partial's row also
 carries phase 19's four shapes as ``"mesh_fp8"``, ``"mesh_ring"``,
-``"mesh_rg"`` and ``"mesh_mla"``), and their launches are phase 18's,
-summed over both ranks, with phase 19's in ``launches_by_phase``.
+``"mesh_rg"`` and ``"mesh_mla"`` and phase 20's two as
+``"mesh_encdec"`` and ``"mesh_vlm"``), and their launches are phase
+18's, summed over both ranks, with phase 19's and 20's in
+``launches_by_phase``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the script exits non-zero. Without a CUDA device, or without
@@ -603,7 +622,7 @@ PHASE14_PREDICTED = {
 # phase 15: the launch grid's last five cells on one card, through the
 # flash_decode kernel (D's caches: rings of the window, or float8). 15a:
 # Qwen1.5-32B's prefill_32k (bf16) -> handoff (the e4m3 cast) -> 4
-# decode_32k steps, at full width cut to 8 of 64 layers (a layer is 1.05
+# decode_32k steps, at full width cut to 4 of 64 layers (a layer is 1.05
 # GB of bf16 weights and 671 MB of bf16 KV a 32k sequence; the embedding
 # and head 3.1 GB), batch 2 (from 32 and 128). 15b: Mixtral-8x7B cut to 12
 # of 32 layers (2.9 GB a layer; at 8, 15d's one-token step meets a near-tie
@@ -625,8 +644,10 @@ PHASE14_PREDICTED = {
 # weights; the gaps to the plain bf16 route are printed beside one bf16
 # step. The predictions were
 # written down before the phase first ran on the card, at 16 / 12 / 38
-# layers.
-PHASE15_MODELS = {"15a": ("qwen1.5-32b", 8), "15b": ("mixtral-8x7b", 12),
+# layers. 15a is cut to 4 layers (8 until phase 20 joined the script: its
+# mesh part 19a, held to it, took 92 s of phase 19 at 8 on an NVIDIA
+# H100 80GB HBM3 at 700.00 W).
+PHASE15_MODELS = {"15a": ("qwen1.5-32b", 4), "15b": ("mixtral-8x7b", 12),
                   "15c": ("recurrentgemma-9b", 38)}
 PHASE15_BATCH, PHASE15_DECODE_STEPS = 2, 4
 PHASE15_SHIFT = 491_520
@@ -670,14 +691,15 @@ PHASE17_TRAIN_STEPS = 100
 PHASE17_RUN_TIMEOUT_S = 300
 # phase 18: the launch programs on a (data, model) = (1, 2) mesh of ranks
 PHASE18_MESH = (1, 2)
-# 18a's depth: 12 of Qwen3-4B's 36 layers (all 36 until the script grew
-# phase 19), held to a one-card run of the same cut in this phase
-PHASE18A_LAYERS = 12
-PHASE18_CHECK_LAYERS = (0, 11)     # 18a's layers whose reshard is held
+# 18a's depth: 4 of Qwen3-4B's 36 layers (all 36 until the script grew
+# phase 19, 12 until phase 20), held to a one-card run of the same cut in
+# this phase
+PHASE18A_LAYERS = 4
+PHASE18_CHECK_LAYERS = (0, 3)      # 18a's layers whose reshard is held
 PHASE18_TIMEOUT_S = 900            # the world's limit on one call
 # the layers whose attention and MLP / MoE sub-blocks are held on their
 # own inputs (``SubBlocks``): the first and last, and 18b's first MoE layer
-PHASE18_PROBE_LAYERS = {"18a": (0, 11), "18b": (1, 26)}
+PHASE18_PROBE_LAYERS = {"18a": (0, 3), "18b": (1, 26)}
 # a mesh sub-block's max and mean error against its float32 witness, at
 # most this many times the one-card sub-block's on the same input; each
 # control (the other rank's psum term left out) must fail it
@@ -714,12 +736,12 @@ PHASE18_PREDICTED = {
 
 # phase 19: the remaining attention-cache families on the same (1, 2) mesh
 # of ranks, each held to its one-card run in this call: 19a-19c to phase
-# 15's (same seed, prompts, depth — 8, 12 and 38 layers — and batch), 19d
+# 15's (same seed, prompts, depth — 4, 12 and 38 layers — and batch), 19d
 # to a one-card run of
 # DeepSeek-V2-Lite's prefill -> handoff -> 4 steps that phase 19 makes
 # itself (no other phase decodes that cell on one card). (arch, layers —
 # None: all —, batch, MoE routes traced)
-PHASE19_PARTS = {"19a": ("qwen1.5-32b", 8, 2, False),
+PHASE19_PARTS = {"19a": ("qwen1.5-32b", 4, 2, False),
                  "19b": ("mixtral-8x7b", 12, 2, True),
                  "19c": ("recurrentgemma-9b", None, 2, False),
                  "19d": (MODEL14B, None, 1, True)}
@@ -727,7 +749,7 @@ PHASE19_HELD = {"19a": "15a", "19b": "15b", "19c": "15c"}
 # layers (model order) whose D shards are held to the reshard of P's: the
 # first and last, and 19c's first attention (a ring) and last RG-LRU
 # state beside them
-PHASE19_CHECK_LAYERS = {"19a": (0, 7), "19b": (0, 11),
+PHASE19_CHECK_LAYERS = {"19a": (0, 3), "19b": (0, 11),
                         "19c": (0, 2, 35, 37), "19d": (0, 26)}
 # the sub-blocks held on their own inputs against float32 witnesses: the
 # first and last attention layers' attention, the last layer's blocks
@@ -742,7 +764,7 @@ PHASE19_CHECK_LAYERS = {"19a": (0, 7), "19b": (0, 11),
 # steps could not see a missing psum there; the run itself reads 5.25
 PHASE19_LOGIT_STEPS = {"19c": 8}
 PHASE19_PROBES = {
-    "19a": {"blocks": ((0, "attn"), (7, "attn"), (7, "mlp"))},
+    "19a": {"blocks": ((0, "attn"), (3, "attn"), (3, "mlp"))},
     "19b": {"blocks": ((0, "attn"), (0, "moe"), (11, "attn"))},
     "19c": {"blocks": ((0, "rglru"), (2, "attn"), (35, "attn"),
                        (37, "rglru"), (37, "mlp"))},
@@ -765,6 +787,57 @@ PHASE19_PREDICTED = {
            "~65 / ~30 / ~40 / ~21 s, phase 19 140-170 s; 19c's end-to-end "
            "control (its last layer now an attention layer) past 16 steps "
            "(19b then went back to 12 layers: see PHASE15_MODELS)",
+}
+
+# phase 20: the SSD, vision and encoder-decoder families on the same (1, 2)
+# mesh of ranks, at full width and depth, each held to a one-card run made
+# in this phase at the mesh's deployed config (``deployed_vocab``:
+# InternVL2's 92,553 rows padded to 92,554). (arch, batch)
+PHASE20_PARTS = {"20a": ("mamba2-370m", 2), "20b": ("internvl2-2b", 1),
+                 "20c": ("whisper-large-v3", 1)}
+PHASE20_CHECK_LAYERS = {"20a": (0, 47), "20b": (0, 23), "20c": (0, 31)}
+# 20a: the first and last SSD blocks of the prefill and the last layer's
+# SSD step of the first decode step (its control zeroes the other rank's
+# conv-tail channels); 20b: the first and last layers' attention and MLP;
+# 20c: the encoder's first attention, the decoder's first and last
+# self-attention, its last cross-attention and MLP (the end-to-end
+# control leaves out the last layer's three psums)
+PHASE20_PROBES = {
+    "20a": {"blocks": ((0, "ssd"), (47, "ssd")), "ssd_decode": 47},
+    "20b": {"layers": (0, 23)},
+    "20c": {"blocks": ((0, "enc_attn"), (0, "attn"), (31, "attn"),
+                       (31, "cross"), (31, "mlp"))}}
+# the logit bound of a part held tighter than PHASE18_LOGIT_STEPS: with
+# the last decoder layer's cross-attention and MLP psums left out,
+# Whisper's logits moved 12.5 bf16 steps (on an NVIDIA H100 80GB HBM3
+# at 700.00 W), inside 16, against the run's own 2.5; so
+# the control now also leaves out that layer's self-attention psum and
+# the bound is 8 steps, as 19c's (a check tightened, not loosened)
+PHASE20_LOGIT_STEPS = {"20c": 8}
+# the parts that also take one long_500k serve step over a batch-1 copy of
+# D's shards (``long_traced``): 19b's and 19c's rings, held to 15d's
+# logits; 20a's states, held to a one-card step over the same states
+PHASE20_LONG = ("19b", "19c", "20a")
+PHASE20_PREDICTED = {
+    "20a": "no kernel and no psum but the embedding's; the SSD computed "
+           "whole on each rank (prefill of 2 x 32,768 tokens 5-25 s, two "
+           "ranks sharing the card), ~0.1 GB of collectives a rank (the "
+           "conv tails' gathers, the embedding's psums); logits within 1 "
+           "bf16 step of the one-card run's (no reduction differs but the "
+           "head's column split), the embedding control far past 16 steps",
+    "20b": "~2.2 GB of weights a rank, P caches 1.6 GB a rank; ~9.7 GB of "
+           "collectives a rank (two bf16 psums of 134 MB and the K/V "
+           "head_dim gathers a layer), prefill 15-30 s; logits 2-8 bf16 "
+           "steps from one card's; flash 24, partial and combine 96 a rank",
+    "20c": "~1.6 GB of weights a rank; ~13.7 GB of collectives a rank "
+           "(three bf16 psums of 84 MB and the self K/V gathers a decoder "
+           "layer, the encoder's 32 layers at 1,500 frames), prefill 20-40 "
+           "s; flash 96 + 32 a step (cross) = 224, partial and combine 128",
+    "long_500k": "19b / 19c within their logit bounds of 15d's (the mesh's "
+                 "prefill drifts 2-8 bf16 steps from one card's, and the "
+                 "long step inherits it), 20a within 1 step of its one-card "
+                 "step over the same states; each control past the bound",
+    "phase_s": "70-130 (19: +5-10 s for its two long steps)",
 }
 
 
@@ -3012,21 +3085,23 @@ def phase1_decode_halves(gen, dev):
 
 
 def phase1_mesh_halves(gen, dev):
-    """Rows 1h-a..1h-d: ``decode_halves`` at the shapes of phase 19's
-    decode caches, each rank one half: Qwen1.5-32B's e4m3 cache (40 heads
-    on 40 KV heads, 2 x 16,448 slots), Mixtral's ring (32 heads on 8 KV
-    heads, 2 x 2,048 slots of a 4096 window), RecurrentGemma's ring (16
+    """Rows 1h-a..1h-f: ``decode_halves`` at the shapes of phase 19's and
+    20's decode caches, each rank one half: Qwen1.5-32B's e4m3 cache (40
+    heads on 40 KV heads, 2 x 16,448 slots), Mixtral's ring (32 heads on 8
+    KV heads, 2 x 2,048 slots of a 4096 window), RecurrentGemma's ring (16
     heads on one KV head at 256, 2 x 1,024 slots of a 2048 window) at batch
     2, and DeepSeek-V2-Lite's latent expanded to every head (16 on 16, K
-    192, V 128 — V narrower than K — over 2 x 16,448 slots) at batch 1.
-    Returns {key: the composition, with the second half's partial and the
-    combine beside it}."""
+    192, V 128 — V narrower than K — over 2 x 16,448 slots), Whisper's
+    decoder cache (20 heads on 20 KV heads x 64: a group of one) and
+    InternVL2's (16 heads on 8 KV heads x 128), each over 2 x 16,448
+    slots, at batch 1. Returns {key: the composition, with the second
+    half's partial and the combine beside it}."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
     cap = -(-(32_768 + 128) // 16) * 16
-    qw, mix, rg, ds = (get_config(m) for m in (
-        "qwen1.5-32b", MODEL6, MODEL8, MODEL14B))
+    qw, mix, rg, ds, wh, iv = (get_config(m) for m in (
+        "qwen1.5-32b", MODEL6, MODEL8, MODEL14B, MODEL11, MODEL10))
     m = ds.mla
     rows = {}
     for key, args in (
@@ -3040,7 +3115,11 @@ def phase1_mesh_halves(gen, dev):
                          torch.bfloat16)),
             ("mesh_mla", (1, cap, 32_769, ds.num_heads, ds.num_heads,
                           m.qk_nope_head_dim + m.qk_rope_head_dim, 0,
-                          torch.bfloat16))):
+                          torch.bfloat16)),
+            ("mesh_encdec", (1, cap, 32_769, wh.num_kv_heads, wh.num_heads,
+                             wh.hd, 0, torch.bfloat16)),
+            ("mesh_vlm", (1, cap, 32_769, iv.num_kv_heads, iv.num_heads,
+                          iv.hd, 0, torch.bfloat16))):
         kw = dict(dv=m.v_head_dim, scale=L._mla_scale(ds)) \
             if key == "mesh_mla" else {}
         comp, t_part, t_comb = decode_halves(gen, dev, key, *args, **kw)
@@ -6223,7 +6302,8 @@ def phase15_part(dev, part: str):
     checks and copies in between launch none). 15b and 15c return a
     batch-1 slice of D's caches for 15d. Returns the launches, the part's
     seconds and, on the host, what phase 19 holds its mesh run to: the
-    prefill's last logits, the tokens and each token's top-2 gap."""
+    prefill's last logits, the tokens and each token's top-2 gap, and for
+    15b and 15c 15d's logits and the token it was fed."""
     import dataclasses as dc
     import numpy as np
     import torch
@@ -6351,6 +6431,8 @@ def phase15_part(dev, part: str):
                             fed[0][:1], attn)
         launches = dict(collections.Counter(launches) + collections.Counter(
             long["launches"]))
+        kept["long_logits"] = long["logits"]
+        kept["long_token"] = int(fed[0][0, 0])
     return {"launches": launches, "part_s": out["part_s"], "held": kept}
 
 
@@ -6420,14 +6502,14 @@ def phase15_long(dev, arch: str, over, mesh, params, caches, tok, attn):
     expect_decode("15d", launches, 0, attn)
     check_layers(f"15d ({arch})", held, attn)
     check_yardstick("15d", f"{arch} flash_decode route", ys)
-    return {"launches": launches}
+    return {"launches": launches, "logits": got[0].cpu()}
 
 
 def phase15(dev):
     """15a, 15b (with its 15d) and 15c (with its 15d), each model freed
     before the next. Returns the launches summed over their main paths
     and each part's ``held`` (host tensors and lists: phase 19's
-    one-card results)."""
+    one-card results, 15d's long_500k logits among them)."""
     import torch
     t_phase = time.perf_counter()
     launches, parts_s, held = collections.Counter(), {}, {}
@@ -6737,15 +6819,18 @@ def gloo_bf16_probe(rank):
     """``psum`` of a bfloat16 tensor on the rank's device over the world
     (rank 0 holds 1, rank 1 3/256 in every element): the sum each rank
     gets, which must be 1.01171875 rounded to the nearest even bf16,
-    1.015625 (truncation would give 1.0078125)."""
+    1.015625 (truncation would give 1.0078125), and what carried it
+    (``collectives.transport``: the shared card's buffers)."""
     import torch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import collectives as C
     mesh = make_mesh(PHASE18_MESH, ("data", "model"), rank.device)
     x = torch.full((1024,), 3 / 256 if rank.index else 1.0,
                    dtype=torch.bfloat16, device=rank.device)
-    y = C.psum(x, mesh.axis_shard("model"))
+    shard = mesh.axis_shard("model")
+    y = C.psum(x, shard)
     return {"dtype": str(y.dtype), "device": str(y.device),
+            "transport": C.transport(shard, rank.device),
             "values": sorted({float(v) for v in y.cpu().float()})}
 
 
@@ -6758,7 +6843,10 @@ def held_to_launch(part: str, got, want, control,
     equal or ``want``'s top-2 gap within that bound (a near-tie the other
     reduction order may break the other way). ``control``: the same
     run's logits with its last layer's psums each missing the other
-    rank's term (``SubBlocks.hold``), which must fail the bound. The mesh
+    rank's term (``SubBlocks.hold``; an SSM's: its prefill with the
+    embedding's psum missing it, ``embed_controlled``; a long_500k step's:
+    the step with every psum missing it, ``long_traced``), which must
+    fail the bound. The mesh
     sums its bf16 partials in another order than one card's products, and
     over 27-36 random layers the two drift apart by a few steps (PERF.md
     §6), so phase 14's one step is printed, not held."""
@@ -6792,30 +6880,40 @@ class SubBlocks:
     """A rank's record of chosen sub-blocks as the main path runs them,
     keyed by (model layer, block): each prefill attention
     (``model.attention_full``), MLP (``layers.swiglu_mlp`` at the layer's
-    width), MoE (``layers.moe_mlp``) and RG-LRU block
-    (``layers.rglru_block``, with a copy of the state it starts from) of
-    the layers in ``layers`` or named in ``blocks``, and the first decode
-    step's MLA attention (``layers.mla_decode``, with a copy of the
-    rank's latent it reads) of layer ``mla_decode`` — its input, its
-    output (after the psum), a copy of the rank's shard of its weights and
-    its distribution context —, and the first ``lm_logits`` call's input
-    (the prefill's last position) with the head's shards. The inputs,
-    outputs, states and latents wait on the host, so that the main path
-    keeps the card's memory. ``hold`` then measures them on the same
-    inputs."""
+    width; an encoder's MLPs are not counted), MoE (``layers.moe_mlp``),
+    RG-LRU block (``layers.rglru_block``, with a copy of the state it
+    starts from), SSD block (``layers.ssd_block``, likewise), encoder
+    attention (``layers.attention_block`` called non-causal: block
+    ``enc_attn``, keyed by encoder layer) and cross-attention
+    (``layers.cross_attention``, with the rank's memory rows) of the
+    layers in ``layers`` or named in ``blocks``, the first decode step's
+    MLA attention (``layers.mla_decode``, with a copy of the rank's
+    latent it reads) of layer ``mla_decode`` and SSD step
+    (``layers.ssd_decode``, with a copy of its state) of layer
+    ``ssd_decode`` — its input, its output (after the psum), a copy of
+    the rank's shard of its weights and its distribution context —, and
+    the first ``lm_logits`` call's input (the prefill's last position)
+    with the head's shards. The inputs, outputs, states and latents wait
+    on the host, so that the main path keeps the card's memory. ``hold``
+    then measures them on the same inputs."""
 
     PARAMS = {"attn": "attn", "mlp": "mlp", "moe": "mlp", "rglru": "rglru",
-              "mla_decode": "attn"}
+              "mla_decode": "attn", "ssd": "ssd", "ssd_decode": "ssd",
+              "enc_attn": "attn", "cross": "cross"}
 
-    def __init__(self, layers=(), blocks=(), mla_decode=None):
+    def __init__(self, layers=(), blocks=(), mla_decode=None,
+                 ssd_decode=None):
         self.layers = set(layers)
         self.blocks = set(map(tuple, blocks))
         self.mla_decode = mla_decode
+        self.ssd_decode = ssd_decode
         self.calls = {"attn": 0, "mlp": 0, "moe": 0, "rglru": 0,
-                      "mla_decode": 0}
+                      "mla_decode": 0, "ssd": 0, "ssd_decode": 0,
+                      "enc_attn": 0, "cross": 0}
         self.order = None        # kind -> model layers of that kind, in order
         self.got = {}            # (layer, block) -> dict
         self.head = None
+        self.in_encoder = False
 
     def _layer(self, cfg, kind, i):
         """The model layer of the i-th call of a ``kind`` layer (None past
@@ -6840,13 +6938,21 @@ class SubBlocks:
             p=SH.tree_map(lambda t: t.clone(), p), x=x.cpu(), y=y.cpu(),
             cfg=cfg, ctx=dist.ctx(), run=run, prefill=True, extra={}, **kw)
 
+    def _keep_state(self, i, block, state, dims, control_by):
+        """Adds the state a recorded block started from (on the host) with
+        the dims its shards gather on (None: whole on every rank)."""
+        self.got[(i, block)].update(
+            extra={n: getattr(state, n).cpu() for n in dims},
+            dims=dims, control_by=control_by)
+
     @contextlib.contextmanager
     def recording(self):
         from repro_torch.models import dist
         from repro_torch.models import layers as L
         from repro_torch.models import model as M
         real = (M.attention_full, L.swiglu_mlp, L.moe_mlp, M.lm_logits,
-                L.rglru_block, L.mla_decode)
+                L.rglru_block, L.mla_decode, L.ssd_block, L.ssd_decode,
+                L.attention_block, L.cross_attention, M.encode)
 
         def attn(p, cfg, h, positions):
             i = self._layer(cfg, M.ATTN, self.calls["attn"])
@@ -6860,8 +6966,9 @@ class SubBlocks:
 
         def swiglu(p, x, d_ff=None):
             y = real[1](p, x, d_ff)
-            if d_ff is not None:             # a layer's MLP, not a shared
-                i = self.calls["mlp"]        # expert inside the MoE
+            if d_ff is not None and not self.in_encoder:
+                i = self.calls["mlp"]        # a decoder layer's MLP, not a
+                # shared expert inside the MoE
                 self.calls["mlp"] += 1
                 if self._wanted(i, "mlp"):
                     self._keep(i, "mlp", p, x, y, None, lambda q, z, e:
@@ -6919,21 +7026,89 @@ class SubBlocks:
                     prefill=False, dims={"ckv": 1, "kpe": 1, "pos": 1})
             return out
 
+        def ssd(p, cfg, x, state):
+            i = self._layer(cfg, M.SSD, self.calls["ssd"])
+            self.calls["ssd"] += 1
+            start = L.SSMState(state.h.clone(), state.conv.clone())
+            out = real[6](p, cfg, x, state)
+            if self._wanted(i, "ssd"):
+                # a prefill's SSD starts from zero states: its one
+                # collective (the conv tail's gather) moves zeros, so it
+                # has no control of its own
+                self._keep(i, "ssd", p, x, out[0], cfg,
+                           lambda q, z, e: L.ssd_block(q, cfg, z, L.SSMState(
+                               e["h"].clone(), e["conv"].clone()))[0])
+                self._keep_state(i, "ssd", start, {"h": None, "conv": 2},
+                                 "none")
+            return out
+
+        def ssd_decode(p, cfg, x, state):
+            i = self._layer(cfg, M.SSD, self.calls["ssd_decode"])
+            self.calls["ssd_decode"] += 1
+            mine = i is not None and i == self.ssd_decode
+            start = L.SSMState(state.h.clone(), state.conv.clone()) \
+                if mine else None
+            out = real[7](p, cfg, x, state)
+            if mine:
+                self._keep(i, "ssd_decode", p, x, out[0], cfg,
+                           lambda q, z, e: L.ssd_decode(q, cfg, z, L.SSMState(
+                               e["h"].clone(), e["conv"].clone()))[0])
+                self._keep_state(i, "ssd_decode", start,
+                                 {"h": None, "conv": 2}, "gather")
+                self.got[(i, "ssd_decode")]["prefill"] = False
+            return out
+
+        def attention_block(p, cfg, x, positions, **kw):
+            out = real[8](p, cfg, x, positions, **kw)
+            if kw.get("causal", True):       # the decoder's (attention_full)
+                return out
+            i = self.calls["enc_attn"]
+            self.calls["enc_attn"] += 1
+            if self._wanted(i, "enc_attn"):
+                self._keep(i, "enc_attn", p, x, out[0], cfg,
+                           lambda q, z, e: L.attention_block(
+                               q, cfg, z, positions, **kw)[0])
+            return out
+
+        def cross(p, cfg, x, mem_kv, mem_lengths=None, kv_len=None):
+            i = self.calls["cross"]
+            self.calls["cross"] += 1
+            out = real[9](p, cfg, x, mem_kv, mem_lengths, kv_len)
+            if self._wanted(i, "cross") and mem_lengths is None:
+                self._keep(i, "cross", p, x, out, cfg,
+                           lambda q, z, e: L.cross_attention(
+                               q, cfg, z, (e["k"], e["v"]), kv_len=kv_len))
+                self.got[(i, "cross")].update(
+                    extra={"k": mem_kv[0].cpu(), "v": mem_kv[1].cpu()},
+                    dims={"k": 3, "v": 3})
+            return out
+
+        def encode(*args, **kw):
+            self.in_encoder = True
+            try:
+                return real[10](*args, **kw)
+            finally:
+                self.in_encoder = False
+
         M.attention_full, L.swiglu_mlp, L.moe_mlp, M.lm_logits, \
-            L.rglru_block, L.mla_decode = attn, swiglu, moe, head, rglru, \
-            mla_decode
+            L.rglru_block, L.mla_decode, L.ssd_block, L.ssd_decode, \
+            L.attention_block, L.cross_attention, M.encode = \
+            attn, swiglu, moe, head, rglru, mla_decode, ssd, ssd_decode, \
+            attention_block, cross, encode
         try:
             yield self
         finally:
             M.attention_full, L.swiglu_mlp, L.moe_mlp, M.lm_logits, \
-                L.rglru_block, L.mla_decode = real
+                L.rglru_block, L.mla_decode, L.ssd_block, L.ssd_decode, \
+                L.attention_block, L.cross_attention, M.encode = real
 
     def hold(self, rank, routes=None):
         """On every rank: each recorded sub-block again on its own input
         with its control — ``psum`` returning the rank's own partial (the
         other rank's term left out), or for an RG-LRU block the gathered
-        ``xb`` with the other rank's channels zeroed —, and its weights
-        and its state or latent gathered whole. On rank 0: the one-card
+        ``xb`` (for an SSD step its gathered conv tail) with the other
+        rank's channels zeroed; a prefill's SSD block has none —, and its
+        weights and its state, latent or memory rows gathered whole. On rank 0: the one-card
         sub-block (the weights whole, the context's mesh 1 x 1) and its
         float32 witness (the weights, the same input and the state in
         float32; a MoE's summed over four slices of d_ff_expert, each a
@@ -6943,8 +7118,8 @@ class SubBlocks:
         run's (``routes``: rank 0's, one a MoE call). Then on every rank
         the control's logits: the last layer's prefill sub-blocks' control
         deltas added to the prefill's last position, through the head,
-        gathered. Returns (rank 0's records, the control logits) as CPU
-        values."""
+        gathered (None where no block of the last layer has a control).
+        Returns (rank 0's records, the control logits) as CPU values."""
         import torch
         from repro_torch.launch import sharding as SH
         from repro_torch.launch.mesh import make_mesh
@@ -6954,7 +7129,11 @@ class SubBlocks:
         from repro_torch.models import model as M
         cfg = self.head["cfg"]
         shard = self.head["ctx"].model_shard()
-        abstract = [lp for *_, lp in M._layers(M.abstract_params(cfg), cfg)]
+        whole_abs = M.abstract_params(cfg)
+        abstract = [lp for *_, lp in M._layers(whole_abs, cfg)]
+        enc_abstract = [M.layer_params(whole_abs["enc_groups"][0][0], li)
+                        for li in range(cfg.encoder_layers)] \
+            if cfg.is_enc_dec else []
         real_psum, real_gather = C.psum, C.all_gather
 
         def own_half(x, dim, shard_):
@@ -6968,7 +7147,9 @@ class SubBlocks:
                 r[key] = r[key].to(dev)
             r["extra"] = {n: t.to(dev) for n, t in r["extra"].items()}
             with torch.no_grad(), dist.use(r["ctx"]):
-                if r.get("control_by") == "gather":
+                if r.get("control_by") == "none":
+                    r["control"] = None
+                elif r.get("control_by") == "gather":
                     # the end-to-end control leaves out the other rank's
                     # psum term of every block, this one's too
                     C.psum = lambda x, shard_: x
@@ -6981,18 +7162,21 @@ class SubBlocks:
                 else:
                     C.psum = lambda x, shard_: x
                 try:
-                    r["control"] = r["run"](r["p"], r["x"], r["extra"])
+                    if r.get("control_by") != "none":
+                        r["control"] = r["run"](r["p"], r["x"], r["extra"])
                 finally:
                     C.psum, C.all_gather = real_psum, real_gather
-                want = abstract[i][self.PARAMS[block]]
+                want = (enc_abstract if block == "enc_attn" else
+                        abstract)[i][self.PARAMS[block]]
                 whole = SH.tree_map(
                     lambda t, a: _gathered_whole(t, tuple(a.shape), shard),
                     r["p"], want)
-                extra = {n: C.all_gather(t.contiguous(), r["dims"][n], shard)
+                extra = {n: t if r["dims"][n] is None else
+                         C.all_gather(t.contiguous(), r["dims"][n], shard)
                          for n, t in r["extra"].items()}
             if rank.index:
                 for key in ("x", "y", "control"):     # the card's memory
-                    r[key] = r[key].cpu()
+                    r[key] = _on_host(r[key])
                 del whole, extra
                 continue
             one = dataclasses.replace(r["ctx"], mesh=make_mesh(
@@ -7014,11 +7198,16 @@ class SubBlocks:
 
             rec = {"layer": i, "block": block, "shape": list(r["x"].shape),
                    "mesh": err(r["y"]), "one_card": err(y1),
-                   "control": err(r["control"]),
-                   "control_by": ("the other rank's channels of the "
-                                  "gathered xb zeroed"
-                                  if r.get("control_by") == "gather" else
-                                  "psum missing the other rank's term"),
+                   "control": (None if r["control"] is None
+                               else err(r["control"])),
+                   "control_by": {
+                       "gather": "the other rank's channels of the "
+                                 "gathered " + ("conv tail" if block ==
+                                                "ssd_decode" else "xb") +
+                                 " zeroed",
+                       "none": None}.get(
+                           r.get("control_by"),
+                           "psum missing the other rank's term"),
                    "mesh_vs_one_card_max": float(
                        (r["y"].float() - y1.float()).abs().max())}
             if block == "moe":
@@ -7034,18 +7223,26 @@ class SubBlocks:
             recs.append(rec)
             del y1, w32, whole, extra
             for key in ("x", "y", "control"):         # the card's memory
-                r[key] = r[key].cpu()
-        last = max(i for (i, _), r in self.got.items() if r["prefill"])
+                r[key] = _on_host(r[key])
+        last = max(i for (i, b), r in self.got.items()
+                   if r["prefill"] and b != "enc_attn")
+        ends = [r for (i, b), r in self.got.items()
+                if i == last and r["prefill"] and b != "enc_attn"
+                and r["control"] is not None]
+        if not ends:
+            return recs, None
         delta = sum((r.get("control_psum", r["control"]).to(dev)
-                     - r["y"].to(dev))[:, -1].float()
-                    for (i, _), r in self.got.items()
-                    if i == last and r["prefill"])
+                     - r["y"].to(dev))[:, -1].float() for r in ends)
         x = self.head["x"]
         with torch.no_grad(), dist.use(self.head["ctx"]):
             logits = C.all_gather(M.lm_logits(
                 self.head["params"], cfg, (x.float() + delta).to(x.dtype)),
                 -1, shard)
         return recs, logits.float().cpu()
+
+
+def _on_host(t):
+    return None if t is None else t.cpu()
 
 
 def sliced_witness(whole, cfg, x, slices: int = 4):
@@ -7105,8 +7302,9 @@ def phase18_rank(rank, probes, program, *args):
         else SubBlocks(probes)
     with probe.recording():
         rec = program(rank, *args)
-    rec["probes"], rec["control_logits"] = probe.hold(rank,
-                                                      rec.get("routes"))
+    rec["probes"], control = probe.hold(rank, rec.get("routes"))
+    # a program that made its own control (``embed_controlled``) keeps it
+    rec["control_logits"] = rec.pop("prefill_control_logits", control)
     return rec
 
 
@@ -7119,13 +7317,17 @@ def probe_problems(part: str, probes) -> list:
     bad = []
     for p in probes:
         for key in ("mesh", "control"):
-            p[f"{key}_ratio"] = [x / y if y else math.inf
-                                 for x, y in zip(p[key], p["one_card"])]
+            p[f"{key}_ratio"] = None if p[key] is None else [
+                x / y if y else math.inf
+                for x, y in zip(p[key], p["one_card"])]
         where = f"{part} layer {p['layer']} {p['block']}"
         if not max(p["mesh_ratio"]) <= PHASE18_WITNESS_FACTOR:
             bad.append(f"{where}: error {p['mesh']} against float32, "
                        f"{p['mesh_ratio']} x one card's {p['one_card']}")
-        if max(p["control_ratio"]) <= PHASE18_WITNESS_FACTOR:
+        if p["control"] is None:
+            if p["block"] != "ssd":          # the only block without one
+                bad.append(f"{where}: no control")
+        elif max(p["control_ratio"]) <= PHASE18_WITNESS_FACTOR:
             bad.append(f"{where}: the control passes ({p['control_ratio']}"
                        f" x one card's error)")
         if p["block"] == "moe" and not (p["routes_equal"]
@@ -7230,6 +7432,10 @@ def phase18(dev, held):
               "mesh": list(PHASE18_MESH), "bf16_psum": probe})
         if any(p["values"] != [1.015625] for p in probe):
             raise AssertionError(f"phase 18: a bfloat16 psum gave {probe}")
+        if world.backend == "gloo" and any(p["transport"] != "card"
+                                           for p in probe):
+            raise AssertionError(f"phase 18: ranks sharing the card did "
+                                 f"not reduce through it: {probe}")
         t0 = time.perf_counter()
         recs_a = world.run(phase18_rank, PHASE18_PROBE_LAYERS["18a"],
                            serve.programs_on_rank, MODEL14, "decode_32k",
@@ -7305,30 +7511,282 @@ def phase18(dev, held):
     return {"launches": dict(launches)}
 
 
+@contextlib.contextmanager
+def deployed_vocab(axis: int):
+    """The step builders deploy every arch at the vocab that a model axis
+    of ``axis`` pads it to (``sharding.pad_vocab``) on any mesh: a one-card
+    witness of a mesh run drawn at the mesh's deployed config. The
+    weights are drawn from one generator, the embedding first, so a
+    model drawn at another vocab differs everywhere."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as S
+    real = S.get_config
+    S.get_config = lambda arch: SH.pad_vocab(real(arch), axis)
+    try:
+        yield
+    finally:
+        S.get_config = real
+
+
 def one_card_run(dev, phase: int, part: str, arch: str, batch: int,
                  layers=None):
     """A mesh part's one-card witness: ``arch`` (``layers`` of it, or all)
     prefill_32k -> handoff -> PHASE14_DECODE_STEPS greedy decode_32k steps
     at ``batch`` on the one-card mesh (``serve.programs_on_rank`` on a
-    lone rank), the same seed and prompts as the ranks'. Returns, on the
-    host, the prefill's last logits, the tokens and each token's top-2
-    gap, as phase 15 keeps them."""
+    lone rank), the same seed and prompts as the ranks', at the vocab the
+    ranks' model axis deploys (``deployed_vocab``). Returns, on the host,
+    the prefill's last logits, the tokens and each token's top-2 gap, as
+    phase 15 keeps them, and the run's launches."""
     from repro_torch.launch import ranks, serve
-    rec = serve.programs_on_rank(
-        ranks.Rank(0, 1, None, dev), arch, "decode_32k", batch,
-        PHASE14_DECODE_STEPS, layers, SEED, (1, 1), (), True)
+    with deployed_vocab(PHASE18_MESH[1]):
+        rec = serve.programs_on_rank(
+            ranks.Rank(0, 1, None, dev), arch, "decode_32k", batch,
+            PHASE14_DECODE_STEPS, layers, SEED, (1, 1), (), True)
     emit({"phase": phase, "part": f"{part} one card",
           "seconds": rec["seconds"], "peak_gib": rec["peak_gib"],
           "launches": rec["launches"], "tokens": rec["tokens"]})
     logits = [rec["prefill_logits"]] + rec["step_logits"]
     return {"last_logits": rec["prefill_logits"], "tokens": rec["tokens"],
-            "token_gaps": [top2_gap_and_bound(x) for x in logits]}
+            "token_gaps": [top2_gap_and_bound(x) for x in logits],
+            "launches": rec["launches"]}
+
+
+@contextlib.contextmanager
+def launches_uncounted():
+    """Kernel launches inside the block leave the counts as they were (a
+    control's, beside the main path)."""
+    from repro_torch.kernels import ops
+    saved = [(m, dict(m.LAUNCHES)) for m in ops._WRAPPERS]
+    try:
+        yield
+    finally:
+        for m, counts in saved:
+            m.LAUNCHES.update(counts)
+
+
+def long_traced(rank, long, program, *args):
+    """``program(rank, *args)`` — a rank's main path, ``serve.
+    programs_on_rank`` or a wrapper of it — with one long_500k serve step
+    of ``long["arch"]`` (batch 1, q_offset the cell's 524,288): at the
+    first decode step a batch-1 copy of D's shards straight from the
+    handoff is taken, every position tag shifted by ``long["shift"]`` (a
+    multiple of the ring, so that each entry keeps its slot; an SSM's
+    states carry no position), and after the last decode step the long
+    step runs over it fed ``long["token"]`` (its launches count with the
+    path's), then from another copy with every psum missing the other
+    rank's term (the control; its launches uncounted). The record gains
+    ``long``: both gathered logits (float32, host), whether every tag
+    sits on its slot of the rank's half, the largest tag, and with
+    ``long["states"]`` the copy gathered whole on the host (rank 0's, in
+    leaf order) for a one-card step over the same states."""
+    import torch
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.cells import get_cell
+    from repro_torch.models import collectives as C
+    from repro_torch.models import layers as L
+    real = S.make_serve_artifacts
+    out = {}
+
+    def kv_caches(caches):
+        return [c for g in caches for c in g if isinstance(c, L.KVCache)]
+
+    def make(cell, mesh, **kw):
+        srv = real(cell, mesh, **kw)
+        step, calls = srv.fn, [0]
+        shard = mesh.axis_shard("model")
+        cell_l = get_cell(long["arch"], "long_500k")
+        srv_l = real(cell_l, mesh, **kw)
+        q = cell_l.seq_len
+
+        def start(caches):
+            c = map_caches(caches, lambda x: x[:, :1].clone())
+            index, size = (shard.index, shard.size) if shard else (0, 1)
+            ok, top = True, -1
+            for kv in kv_caches(c):
+                kv.pos.copy_(torch.where(kv.pos >= 0, kv.pos + long["shift"],
+                                         kv.pos))
+                cap = kv.capacity
+                slot = torch.arange(index * cap, (index + 1) * cap,
+                                    device=kv.pos.device)
+                ok &= bool((kv.pos % (cap * size) == slot).all())
+                top = max(top, int(kv.pos.max()))
+            out.update(copy=c, slots_ok=ok, max_tag=top, q_offset=q)
+            if long.get("states"):
+                specs = srv_l.in_shardings[1]
+                whole = [x if SH.model_dim(specs[p]) is None else
+                         C.all_gather(x, SH.model_dim(specs[p]), shard)
+                         for p, x in SH.named_leaves(c)]
+                if rank.index == 0:          # copies: the step writes c
+                    out["states"] = [x.to("cpu", copy=True) for x in whole]
+                del whole
+
+        def run(params, caches):
+            tok = torch.full((1, 1), long["token"], dtype=torch.int32,
+                             device=params["embed"].device)
+            io = {"tokens": tok, "positions": torch.full_like(tok, q)}
+            logits, _ = srv_l.fn(params, caches, io, q_offset=q)
+            return C.all_gather(logits[:, -1], 1, shard).float().cpu()
+
+        def fn(params, caches, io, q_offset=None):
+            if calls[0] == 0:
+                start(caches)
+            calls[0] += 1
+            res = step(params, caches, io, q_offset)
+            if calls[0] == long["after"]:
+                control = map_caches(out["copy"], lambda x: x.clone())
+                with torch.no_grad():
+                    out["logits"] = run(params, out.pop("copy"))
+                    real_psum = C.psum
+                    C.psum = lambda x, shard_: x
+                    try:
+                        with launches_uncounted():
+                            out["control_logits"] = run(params, control)
+                    finally:
+                        C.psum = real_psum
+                del control
+            return res
+        return dataclasses.replace(srv, fn=fn)
+
+    S.make_serve_artifacts = make
+    try:
+        rec = program(rank, *args)
+    finally:
+        S.make_serve_artifacts = real
+    rec["long"] = out
+    return rec
+
+
+def embed_controlled(rank, program, *args):
+    """``program(rank, *args)`` (``serve.programs_on_rank``'s arguments)
+    and then its prefill again with every psum missing the other rank's
+    term — in an SSM's prefill the embedding's alone: a token whose id
+    is the other rank's embeds as zeros —, gathered: the record gains
+    ``prefill_control_logits`` (float32, host). Its launches and
+    collectives are not the path's (the record has them already)."""
+    import torch
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.cells import get_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (make_prefill_artifacts,
+                                          random_inputs)
+    from repro_torch.models import collectives as C
+    from repro_torch.models import model as M
+    rec = program(rank, *args)
+    arch, _shape, batch, _steps, layers, seed, mesh_shape = args[:7]
+    mesh = make_mesh(mesh_shape, ("data", "model"), rank.device)
+    cell = dataclasses.replace(get_cell(arch, "prefill_32k"), batch=batch)
+    pre = make_prefill_artifacts(
+        cell, mesh, layer_override={"num_layers": layers} if layers
+        else None)
+    params = M.init_params(pre.cfg, seed=seed, device=rank.device,
+                           keep=SH.param_keeper(pre.in_shardings[0], mesh))
+    inputs = random_inputs(pre.abstract_args[1], pre.cfg.vocab_size, seed,
+                           rank.device)
+    real_psum = C.psum
+    C.psum = lambda x, shard_: x
+    try:
+        with torch.no_grad(), launches_uncounted():
+            last, caches = pre.fn(params, inputs)
+            del caches
+            rec["prefill_control_logits"] = C.all_gather(
+                last, 1, mesh.axis_shard("model")).float().cpu()
+    finally:
+        C.psum = real_psum
+    return rec
+
+
+def mesh_world(dev):
+    """Phase 18's world of ranks for phases 19 and 20: two ranks of ~30
+    GiB each share the card, so their allocators grow segments rather
+    than cut new ones (less memory lost to fragments)."""
+    from repro_torch.launch import ranks
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        return ranks.start(math.prod(PHASE18_MESH), dev,
+                           timeout_s=PHASE18_TIMEOUT_S)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+
+
+def one_card_long(dev, arch: str, layers, states, token: int):
+    """The one-card long_500k serve step (batch 1, q_offset the cell's)
+    of ``arch`` (``layers`` of it, or all; drawn from SEED at the mesh's
+    deployed vocab) over ``states`` — a mesh part's batch-1 copy of D's
+    shards gathered whole (``long_traced``), in leaf order — fed
+    ``token``: the float32 logits (1, V) on the host."""
+    import torch
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.cells import get_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.training.tree import leaves_with_paths, unflatten
+    cell = get_cell(arch, "long_500k")
+    with deployed_vocab(PHASE18_MESH[1]):
+        srv = S.make_serve_artifacts(
+            cell, make_mesh((1, 1), ("data", "model"), dev),
+            layer_override={"num_layers": layers} if layers else None)
+        params = M.init_params(srv.cfg, seed=SEED, device=dev)
+    given = iter(states)          # tensor leaves; the flags are the tree's
+    caches = unflatten(srv.abstract_args[1], [
+        next(given).to(dev) if isinstance(x, torch.Tensor) else x
+        for _, x in leaves_with_paths(srv.abstract_args[1])])
+    tok = torch.full((1, 1), token, dtype=torch.int32, device=dev)
+    q = cell.seq_len
+    with torch.no_grad():
+        logits, _ = srv.fn(params, caches, {
+            "tokens": tok, "positions": torch.full_like(tok, q)}, q_offset=q)
+    return logits[:, -1].float().cpu()
+
+
+def long_problems(dev, part: str, arch: str, layers, longs, steps: int,
+                  token: int, phase15=None) -> tuple:
+    """A part's long_500k step (``long_traced``'s records, one a rank)
+    against the one-card step over the same states (``one_card_long``)
+    by ``held_to_launch`` within ``steps`` bf16 steps, its control past
+    them; every tag on its slot and the largest the last position before
+    q_offset (none for an SSM). With ``phase15`` (15d's logits of the
+    one-card run's own states): its argmax equal, or 15d's top-2 gap
+    within ``top2_gap_and_bound``'s (the token rule); the logit gap is
+    printed, as it carries the mesh prefill's drift into D's caches.
+    Emits the record and returns the problems."""
+    t0 = time.perf_counter()
+    got = longs[0]
+    want = one_card_long(dev, arch, layers, got.pop("states"), token)
+    rec = held_to_launch(f"{part} long_500k", got["logits"], want,
+                         got["control_logits"], steps)
+    bad = rec.pop("problems")
+    if not all(r["slots_ok"] for r in longs):
+        bad.append(f"{part} long_500k: tags off their slots after the shift")
+    tops = [r["max_tag"] for r in longs]
+    if max(tops) not in (-1, got["q_offset"] - 1):
+        bad.append(f"{part} long_500k: largest tag {max(tops)}")
+    out = {"phase": int(part[:2]), "part": f"{part} long_500k",
+           "q_offset": got["q_offset"], "token": token,
+           "max_tag_by_rank": tops, "vs_one_card_same_states": rec}
+    if phase15 is not None:
+        (gap, limit), = top2_gap_and_bound(phase15)
+        same = bool((got["logits"].argmax(-1) == phase15.argmax(-1)).all())
+        out["vs_15d"] = {
+            "max_abs_logit_gap": float((got["logits"] - phase15).abs().max()),
+            "bf16_step": bf16_step(phase15), "argmax_equal": same,
+            "top2_gap_15d": gap}
+        if not same and not gap <= limit:
+            bad.append(f"{part} long_500k: argmax differs from 15d's, its "
+                       f"top-2 gap {gap} > {limit}")
+    out.update(one_card_s=round(time.perf_counter() - t0, 3), problems=bad)
+    emit(out)
+    return bad
 
 
 def phase19(dev, held):
     """The launch layer's remaining attention-cache families on phase
     18's (1, 2) mesh of ranks (gloo on the one card; the backend printed):
-    19a Qwen1.5-32B (8 of 64 layers, batch 2: P's head_dim-sharded bf16
+    19a Qwen1.5-32B (4 of 64 layers, batch 2: P's head_dim-sharded bf16
     caches cast to e4m3 in the handoff), 19b Mixtral-8x7B (12 of 32, batch
     2: rings of 4096 slots cut into slot halves, the expert-TP MoE), 19c
     RecurrentGemma-9B (all 38, batch 2: RG-LRU blocks on the width's
@@ -7349,12 +7807,20 @@ def phase19(dev, held):
     control failing it, the MoE's routes and drops equal to one card's;
     and per rank exactly the path's launches: flash a prefill attention
     layer, flash_decode_partial and decode_combine a decode step and
-    attention layer. The one-card runs: phase 15's (``held``, on the host)
-    for 19a-19c, ``one_card_run`` for 19d. Returns the launches summed
-    over both ranks."""
+    attention layer. 19b and 19c also take one long_500k serve step
+    (``long_traced``: batch 1, D's rings from the handoff with every tag
+    shifted by PHASE15_SHIFT, q_offset 524,288, fed 15d's token), held to
+    a one-card step over the same states by the part's logit bound with
+    its control (every psum missing the other rank's term) past it, and
+    to 15d's logits by the token rule (``long_problems``: the mesh's D
+    caches carry its prefill's drift, so 15d's logits are a few bf16
+    steps further off); its partial and combine launches count with the
+    path's. The one-card runs: phase 15's
+    (``held``, on the host) for 19a-19c, ``one_card_run`` for 19d.
+    Returns the launches summed over both ranks."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch import ranks, serve
+    from repro_torch.launch import serve
     from repro_torch.launch.cells import get_cell
     t_phase = time.perf_counter()
     _mem_line(dev, "19", phase=19)
@@ -7367,33 +7833,29 @@ def phase19(dev, held):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     _mem_line(dev, "19 world", phase=19)
-    bad, launches, parts_s = [], collections.Counter(), {}
-    # two ranks of ~30 GiB each share the card: their allocators grow
-    # segments rather than cut new ones (less memory lost to fragments)
-    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    try:
-        world = ranks.start(math.prod(PHASE18_MESH), dev,
-                            timeout_s=PHASE18_TIMEOUT_S)
-    finally:
-        if alloc is None:
-            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
-    with world:
+    bad, launches, parts_s, longs = [], collections.Counter(), {}, {}
+    with mesh_world(dev) as world:
         emit({"phase": 19, "backend": world.backend, "pids": world.pids,
               "mesh": list(PHASE18_MESH), "one_card_19d_s": round(one_s, 3)})
         for part, (arch, layers, batch, moe) in PHASE19_PARTS.items():
             t0 = time.perf_counter()
-            recs = world.run(phase18_rank, PHASE19_PROBES[part],
-                             moe_traced_rank if moe else
-                             serve.programs_on_rank, arch, "decode_32k",
-                             batch, PHASE14_DECODE_STEPS, layers, SEED,
-                             PHASE18_MESH, PHASE19_CHECK_LAYERS[part], True)
+            program = (moe_traced_rank if moe else serve.programs_on_rank,)
+            one = ones[part]
+            if part in PHASE20_LONG:
+                program = (long_traced, {
+                    "arch": arch, "shift": PHASE15_SHIFT,
+                    "token": one["long_token"], "states": True,
+                    "after": PHASE14_DECODE_STEPS}) + program
+            recs = world.run(phase18_rank, PHASE19_PROBES[part], *program,
+                             arch, "decode_32k", batch, PHASE14_DECODE_STEPS,
+                             layers, SEED, PHASE18_MESH,
+                             PHASE19_CHECK_LAYERS[part], True)
             parts_s[part] = round(time.perf_counter() - t0, 3)
             probes = recs[0]["probes"]
             control = recs[0]["control_logits"]
             routes_drops = [r.pop("drops", None) for r in recs]
+            if part in PHASE20_LONG:
+                longs[part] = [r.pop("long") for r in recs]
             for r in recs:
                 for key in ("probes", "control_logits", "routes",
                             "step_logits"):
@@ -7402,7 +7864,8 @@ def phase19(dev, held):
             cfg = get_config(arch)
             cfg = cfg.with_(num_layers=layers) if layers else cfg
             attn = attending_layers(cfg)
-            steps = PHASE14_DECODE_STEPS
+            # the decode steps' and the long_500k step's
+            steps = PHASE14_DECODE_STEPS + (part in PHASE20_LONG)
             part_bad = rank_problems(part, recs, {
                 "flash_attention": attn,
                 "flash_decode_partial": attn * steps,
@@ -7410,7 +7873,6 @@ def phase19(dev, held):
             if not rec["handoff_held_all_ranks"]:
                 part_bad.append(f"{part}: D's shards are not P's reshard: "
                                 f"{[r['handoff_held'] for r in recs]}")
-            one = ones[part]
             vs = held_to_launch(part, rec.pop("prefill_logits"),
                                 one["last_logits"], control,
                                 PHASE19_LOGIT_STEPS.get(
@@ -7435,6 +7897,15 @@ def phase19(dev, held):
                 launches.update(r["launches"])
             del recs, probes, control
             gc.collect()
+    for part, mine in longs.items():         # the world's memory is free
+        arch, layers = PHASE19_PARTS[part][:2]
+        bad += long_problems(
+            dev, part, arch, layers, mine,
+            PHASE19_LOGIT_STEPS.get(part, PHASE18_LOGIT_STEPS),
+            ones[part]["long_token"], ones[part]["long_logits"])
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     emit({"phase": 19, "phase_s": round(time.perf_counter() - t_phase, 3),
           "parts_s": parts_s, "launches_both_ranks": dict(launches),
           "predicted_s": PHASE19_PREDICTED["phase_s"], "problems": bad})
@@ -7442,6 +7913,134 @@ def phase19(dev, held):
         raise AssertionError(f"phase 19: {bad}")
     return {"launches": dict(launches)}
 
+
+
+def phase20_expected(cfg, steps: int) -> dict:
+    """Per rank, the launches of a phase-20 part's main path: flash for
+    every attention layer of the prefill (an encoder's too) and for every
+    cross-attention of the prefill and of each decode step, and per decode
+    step flash_decode_partial and decode_combine for every self-attention
+    layer; an SSM none."""
+    attn = attending_layers(cfg)
+    cross = cfg.num_layers if cfg.is_enc_dec else 0
+    enc = cfg.encoder_layers if cfg.is_enc_dec else 0
+    return {"flash_attention": attn + enc + cross * (1 + steps),
+            "flash_decode_partial": attn * steps,
+            "decode_combine": attn * steps}
+
+
+def phase20(dev):
+    """The SSD, vision and encoder-decoder families on phase 18's (1, 2)
+    mesh of ranks (gloo on the one card), at full width and depth: 20a
+    Mamba2-370M (48 SSD layers, batch 2: the SSD replicated, its conv
+    tail sharded on the channels, gathered before each conv), 20b
+    InternVL2-2B (24 layers, batch 1, 256 patches + 32,512 tokens, the
+    vocab padded to 92,554), 20c Whisper-large-v3 (32 encoder + 32
+    decoder layers, batch 1, 1,500 frames; the cross rows head_dim-sharded
+    in P and D, gathered before each cross-attention). Each part runs
+    ``serve.programs_on_rank`` (what ``python -m repro_torch.launch.serve
+    --mesh 1x2`` runs) on both ranks: prefill_32k -> handoff ->
+    PHASE14_DECODE_STEPS greedy decode_32k steps, held as phase 19 holds
+    its parts: bytes to ``per_chip_bytes``; D's shards of
+    PHASE20_CHECK_LAYERS bit for bit the reshard of P's (the SSM states
+    and conv-tail halves, the cross rows); the gathered prefill logits
+    within PHASE18_LOGIT_STEPS bf16 steps (20c: PHASE20_LOGIT_STEPS) of a
+    one-card run's made here at
+    the mesh's deployed config (``one_card_run``), the control past them
+    (20a's: its prefill with the embedding's psum missing the other
+    rank's term, ``embed_controlled``); the tokens (``tokens_held``); the
+    sub-blocks of PHASE20_PROBES against float32 witnesses within
+    PHASE18_WITNESS_FACTOR of one card's error, each control failing it;
+    per rank exactly the one-card run's launches on the same layers
+    (``phase20_expected``). 20a also takes one long_500k step
+    (``long_traced``) over a batch-1 copy of D's states, held to a
+    one-card long_500k step over the same states. Returns the launches
+    summed over both ranks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.cells import get_cell
+    t_phase = time.perf_counter()
+    _mem_line(dev, "20", phase=20)
+    steps = PHASE14_DECODE_STEPS
+    ones, one_s = {}, {}
+    for part, (arch, batch) in PHASE20_PARTS.items():
+        t0 = time.perf_counter()
+        ones[part] = one_card_run(dev, 20, part, arch, batch)
+        one_s[part] = round(time.perf_counter() - t0, 3)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    bad, launches, parts_s, longs = [], collections.Counter(), {}, {}
+    with mesh_world(dev) as world:
+        emit({"phase": 20, "backend": world.backend, "pids": world.pids,
+              "mesh": list(PHASE18_MESH), "one_card_s": one_s})
+        for part, (arch, batch) in PHASE20_PARTS.items():
+            one = ones[part]
+            program = (serve.programs_on_rank,)
+            if part == "20a":
+                program = (long_traced, {
+                    "arch": arch, "shift": 0, "token": one["tokens"][0][0],
+                    "after": steps, "states": True}, embed_controlled) \
+                    + program
+            t0 = time.perf_counter()
+            recs = world.run(phase18_rank, PHASE20_PROBES[part], *program,
+                             arch, "decode_32k", batch, steps, None, SEED,
+                             PHASE18_MESH, PHASE20_CHECK_LAYERS[part], True)
+            parts_s[part] = round(time.perf_counter() - t0, 3)
+            probes = recs[0]["probes"]
+            control = recs[0]["control_logits"]
+            for r in recs:
+                for key in ("probes", "control_logits", "step_logits"):
+                    r.pop(key, None)
+                if "long" in r:
+                    longs.setdefault(part, []).append(r.pop("long"))
+            rec = serve.mesh_record(recs, world.backend)
+            cfg = get_config(arch)
+            expect = phase20_expected(cfg, steps)
+            part_bad = rank_problems(part, recs, expect)
+            one_launches = {k: v for k, v in one["launches"].items() if v}
+            one_want = {k: v for k, v in {
+                "flash_attention": expect["flash_attention"],
+                "flash_decode": expect["flash_decode_partial"]}.items() if v}
+            if one_launches != one_want:
+                part_bad.append(f"{part}: the one-card run launched "
+                                f"{one_launches}, its path {one_want}")
+            if not rec["handoff_held_all_ranks"]:
+                part_bad.append(f"{part}: D's shards are not P's reshard: "
+                                f"{[r['handoff_held'] for r in recs]}")
+            vs = held_to_launch(part, rec.pop("prefill_logits"),
+                                one["last_logits"], control,
+                                PHASE20_LOGIT_STEPS.get(
+                                    part, PHASE18_LOGIT_STEPS))
+            part_bad += vs.pop("problems")
+            part_bad += [f"{part} {p}" for p in tokens_held(
+                rec["tokens"], one["tokens"], one["token_gaps"])]
+            part_bad += probe_problems(part, probes)
+            emit({"phase": 20, "part": part,
+                  "model": f"{arch} x{rec['layers']} layers",
+                  "batch": batch, "part_s": parts_s[part],
+                  "d_cache": get_cell(arch, "decode_32k").cache_dtype,
+                  **rec, "tokens_one_card": one["tokens"],
+                  "launches_expected": expect, "one_card_launches":
+                  one["launches"], "vs_one_card": vs, "sub_blocks": probes,
+                  "predicted": PHASE20_PREDICTED[part],
+                  "problems": part_bad})
+            bad += part_bad
+            for r in recs:
+                launches.update(r["launches"])
+            del recs, probes, control
+            gc.collect()
+    # 20a's long_500k step against one card's over the same states
+    bad += long_problems(dev, "20a", PHASE20_PARTS["20a"][0], None,
+                         longs.pop("20a"), PHASE18_LOGIT_STEPS,
+                         ones["20a"]["tokens"][0][0])
+    emit({"phase": 20, "phase_s": round(time.perf_counter() - t_phase, 3),
+          "parts_s": parts_s, "launches_both_ranks": dict(launches),
+          "predicted_s": PHASE20_PREDICTED["phase_s"], "problems": bad})
+    if bad:
+        raise AssertionError(f"phase 20: {bad}")
+    return {"launches": dict(launches)}
 
 
 KERNELS = [
@@ -7464,8 +8063,8 @@ KERNELS = [
     ("decode_combine", "src/repro_torch/kernels/csrc/flash_decode.cu",
      "src/repro/kernels/flash_attention.py:78", 18),
 ]
-# phase 19 also launches flash_decode_partial and decode_combine (and
-# flash): the row's launches_by_phase carries them
+# phases 19 and 20 also launch flash_decode_partial and decode_combine
+# (and flash): the rows' launches_by_phase carry them
 
 
 def main() -> int:
@@ -7487,69 +8086,99 @@ def main() -> int:
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
 
+    def lap(phase: str) -> None:          # where the run's time goes
+        emit({"phase_ended": phase,
+              "at_s": round(time.perf_counter() - t_start, 3)})
+
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
     smi = phase0()
+    lap("0")
     timings = phase1(dev)
+    lap("1")
     phase2(dev)
+    lap("2")
     torch.cuda.empty_cache()
     params = M.init_params(get_config(MODEL), seed=SEED, device=dev)
     paths = {3: phase3(dev, params=params)}
+    lap("3")
     torch.cuda.empty_cache()
     paths[4] = phase4(dev, params)
+    lap("4")
     torch.cuda.empty_cache()             # the workers need the memory back
     paths[5] = phase5(dev, params)
+    lap("5")
     del params                           # llama2-7b's weights: Mixtral's turn
     gc.collect()                         # engines and pools of phases 3-4
     torch.cuda.empty_cache()             # sit in reference cycles
     paths[6] = phase6(dev)
+    lap("6")
     gc.collect()                         # Mixtral's weights: DeepSeek's turn
     torch.cuda.empty_cache()
     paths[7] = phase7(dev)
+    lap("7")
     gc.collect()                         # DeepSeek's weights: RecurrentGemma's
     torch.cuda.empty_cache()
     phase2(dev, MODEL8, PARITY8_LAYERS, phase=8)
+    lap("2 (8)")
     gc.collect()
     torch.cuda.empty_cache()
     paths[8] = phase8(dev)
+    lap("8")
     gc.collect()                         # RecurrentGemma's weights: the
     torch.cuda.empty_cache()             # workers' copies
     paths[16] = phase16(dev, paths)
+    lap("16")
     gc.collect()
     torch.cuda.empty_cache()
     paths[9] = phase9(dev)
+    lap("9")
     gc.collect()
     torch.cuda.empty_cache()
     paths[10] = phase10(dev)
+    lap("10")
     gc.collect()                         # InternVL2's weights: Whisper's
     torch.cuda.empty_cache()
     phase2(dev, MODEL11, PARITY11_LAYERS, phase=11)
+    lap("2 (11)")
     gc.collect()
     torch.cuda.empty_cache()
     paths[11] = phase11(dev)
+    lap("11")
     gc.collect()                         # Whisper's weights: the workers'
     torch.cuda.empty_cache()
     paths[12] = phase12(dev)
+    lap("12")
     gc.collect()                         # the workers are gone: training's
     torch.cuda.empty_cache()             # ~60 GiB
     paths[13] = phase13(dev)
+    lap("13")
     gc.collect()                         # training's state: phase 14's
     torch.cuda.empty_cache()
     paths[14] = phase14(dev)
+    lap("14")
     timings["flash_attention"].update(paths[14]["timing"])
     gc.collect()                         # phase 14's models: phase 15's
     torch.cuda.empty_cache()
     paths[15] = phase15(dev)
+    lap("15")
     gc.collect()                         # phase 15's models: 17c's
     torch.cuda.empty_cache()
     paths[17] = phase17(dev)
+    lap("17")
     gc.collect()                         # 17c's weights: the ranks'
     torch.cuda.empty_cache()
     paths[18] = phase18(dev, paths[14]["held"])
+    lap("18")
     gc.collect()
     torch.cuda.empty_cache()
     paths[19] = phase19(dev, paths[15]["held"])
+    lap("19")
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths[20] = phase20(dev)
+    lap("20")
 
     rows = []
     for name, source, replaces, phase in KERNELS:
@@ -7571,7 +8200,7 @@ def main() -> int:
         for key in ("mla", "rg", "vlm", "encdec", "load", "launch_p",
                     "launch_d", "launch_k", "fp8", "dense", "demo",
                     "quickstart", "halves", "mesh_fp8", "mesh_ring",
-                    "mesh_rg", "mesh_mla"):
+                    "mesh_rg", "mesh_mla", "mesh_encdec", "mesh_vlm"):
             if key in t:
                 row[key] = {k: t[key][k] for k in (
                     "shape", "max_abs_err", "ms", "device_ms", "plain_ms",

@@ -19,10 +19,11 @@ values, not CUDA tensors. A rank builds its mesh with
 The backend is chosen by one rule, stated and returned (``World.backend``):
 ``nccl`` when every rank has a card of its own (a CUDA world with at
 least as many cards as ranks), ``gloo`` when ranks share a card or run on
-the CPU (NCCL refuses two ranks of one communicator on one device; gloo
-takes CUDA tensors for ``broadcast`` and ``all_reduce`` and stages them
-through the host). It is never a fallback: if the chosen backend fails,
-the run fails.
+the CPU (NCCL refuses two ranks of one communicator on one device). The
+gloo ranks of a CUDA world all sit on card 0, and there
+``models/collectives.py`` moves the collectives' tensors through the
+card's memory, gloo carrying only the barriers. It is never a fallback:
+if the chosen backend fails, the run fails.
 
 A rank that raises ends the world: the parent kills every rank (the
 others may wait in a collective for it) and raises ``RankError`` with the

@@ -9,18 +9,20 @@ becomes seconds and peak GiB of a run on the card).
 
 ``--mesh 1x2`` (data x model) runs the programs with tensor parallelism
 on a model axis of 2: a world of two ranks (``launch/ranks.py``; gloo
-when they share one card, NCCL when each has its own), each holding the
+when they share one card, their collectives' tensors crossing in the
+card's memory, NCCL when each has its own), each holding the
 shards the launch layer's specs give it and computing with the
 collectives they force. It prints one record: each program's seconds
 (rank 0's), the backend, every rank's peak GiB, its parameter and cache
 bytes beside ``per_chip_bytes``, its collective seconds on the host clock
 and the tokens (the vocab-sharded logits gathered for the greedy token).
 Two ranks on one card run the two-card program — the same shards,
-collectives and bytes a rank — but not its time. The dense, MoE, MLA
-(DeepSeek-V2-Lite), ring (Mixtral-8x7B) and RG-LRU hybrid
-(RecurrentGemma-9B) families serve there, D's caches float8 for
-qwen1.5-32b; Mamba2, InternVL2, Whisper and long_500k raise (ROADMAP
-queue 1 item 14).
+collectives and bytes a rank — but not its time. Every family serves
+there: dense, MoE, MLA (DeepSeek-V2-Lite), ring (Mixtral-8x7B), RG-LRU
+hybrid (RecurrentGemma-9B), SSD (Mamba2-370M), vision (InternVL2-2B,
+patches before the prompt) and encoder-decoder (Whisper-large-v3, frames
+for the encoder), D's caches float8 for qwen1.5-32b; a data axis above 1
+raises (ROADMAP queue 1 item 14).
 
 Weights are random from ``--seed``, tokens from ``default_rng(seed)``.
 Every assigned arch's decode runs on the card: D's dense caches of a
@@ -142,7 +144,9 @@ def programs_on_rank(rank, arch: str, shape: str, batch: int, steps: int,
     inputs = random_inputs(pre.abstract_args[1], pre.cfg.vocab_size, seed,
                            dev)
     abs_p = M.abstract_caches(pre.cfg, batch, cell_p.seq_len,
-                              torch_dtype(cell_p.cache_dtype))
+                              torch_dtype(cell_p.cache_dtype),
+                              mem_len=pre.cfg.max_source_len
+                              if pre.cfg.is_enc_dec else 0)
     nbytes = {"params": [SH.local_bytes(params), SH.per_chip_bytes(
         pre.abstract_args[0], pspecs, sizes)]}
 
@@ -216,7 +220,8 @@ def programs_on_rank(rank, arch: str, shape: str, batch: int, steps: int,
 
 def handoff_held(caches_p, caches_d, layer: int, ho, mesh) -> bool:
     """Whether the rank's D shards of layer ``layer`` (in model order: a
-    KV cache or latent, a ring with its tags, an RG-LRU state), gathered
+    KV cache or latent, a ring with its tags, an RG-LRU or SSM state, a
+    decoder layer's cross rows and memory length), gathered
     over the model axis, are bit for bit the realignment
     (``steps.realign_caches``: head slice, capacity pad, cast) of P's
     shards of it gathered likewise: the handoff's reshard held to a direct

@@ -27,10 +27,11 @@ arguments are the rank's shards (``sharding.shard_params`` /
 the prefill makes head_dim-sharded caches, the handoff reshards them to
 D's capacity-sharded caches by a block exchange between the ranks, and
 the logits are the rank's vocab shard. On such a mesh the serving steps
-cover the dense, MoE, MLA, sliding-window (ring) and RG-LRU hybrid
-families, D's caches in bfloat16, float32 or float8 e4m3; SSD, vision,
-encoder-decoder, long_500k, a data axis above 1 and training raise
-``NotImplementedError`` (ROADMAP queue 1 item 14). The handoff takes a
+cover every family — dense, MoE, MLA, sliding-window (ring), RG-LRU
+hybrid, SSD, vision and encoder-decoder — and every decode cell,
+long_500k included, D's caches in bfloat16, float32 or float8 e4m3; a
+data axis above 1 and training raise ``NotImplementedError`` (ROADMAP
+queue 1 item 14). The handoff takes a
 batch (deliberate difference B12 in ROADMAP): one card cannot hold the
 prefill cell's 32 sequences of 32k.
 """
@@ -85,11 +86,9 @@ def _dctx(mesh: Mesh, dp, m, *, mode: str) -> dist.DistContext:
         moe_shard_map=True)
 
 
-def _check_covered(cfg: ModelConfig, mesh: Mesh, program: str,
-                   shape: Optional[str] = None) -> None:
+def _check_covered(mesh: Mesh, program: str) -> None:
     """Raise NotImplementedError for what a rank's mesh does not run yet:
-    a data axis above 1, training, and on a model axis above 1 the SSD,
-    vision and encoder-decoder families and the long_500k cell."""
+    a data axis above 1 and training."""
     if not mesh.in_world:
         return
     item = "see ROADMAP queue 1 item 14 (a multi-GPU mesh)"
@@ -98,15 +97,6 @@ def _check_covered(cfg: ModelConfig, mesh: Mesh, program: str,
                                   f"ranks — {item}")
     if program == "train":
         raise NotImplementedError(f"training on a world of ranks — {item}")
-    family = ("SSD" if cfg.ssm is not None else
-              "vision" if cfg.frontend.kind == "vision" else
-              "encoder-decoder" if cfg.is_enc_dec else None)
-    if family:
-        raise NotImplementedError(f"{cfg.name}: {program} of the {family} "
-                                  f"family on a model axis above 1 — {item}")
-    if shape == "long_500k":
-        raise NotImplementedError(f"{cfg.name}: the long_500k cell on a "
-                                  f"model axis above 1 — {item}")
 
 
 def _new_caches(mesh: Mesh, abstract: Any, specs: SH.Specs, make: Callable):
@@ -172,7 +162,7 @@ def make_train_artifacts(cell: Cell, mesh: Mesh, *,
                          ) -> StepArtifacts:
     dp, dp_size, m, m_size = _axis_sizes(mesh)
     cfg = _deployed(cell.arch, m_size, "train", layer_override)
-    _check_covered(cfg, mesh, "train")
+    _check_covered(mesh, "train")
     dctx = _dctx(mesh, dp, m, mode="train")
 
     state_abs = abstract_train_state(cfg)
@@ -206,7 +196,7 @@ def make_prefill_artifacts(cell: Cell, mesh: Mesh, *,
                            ) -> StepArtifacts:
     dp, dp_size, m, m_size = _axis_sizes(mesh)
     cfg = _deployed(cell.arch, m_size, "prefill", layer_override)
-    _check_covered(cfg, mesh, "prefill", cell.shape)
+    _check_covered(mesh, "prefill")
     dctx = _dctx(mesh, dp, m, mode="prefill")
     b, s = cell.batch, cell.seq_len
     mem_len = cfg.max_source_len if cfg.is_enc_dec else 0
@@ -258,7 +248,7 @@ def make_serve_artifacts(cell: Cell, mesh: Mesh, *,
     stops at its partials (``ops.cache_attention_partial``)."""
     dp, dp_size, m, m_size = _axis_sizes(mesh)
     cfg = _deployed(cell.arch, m_size, "decode", layer_override)
-    _check_covered(cfg, mesh, "decode", cell.shape)
+    _check_covered(mesh, "decode")
     dctx = _dctx(mesh, dp, m, mode="decode")
     b = cell.batch
     cap = cell.decode_capacity()
@@ -374,7 +364,7 @@ def make_handoff_artifacts(arch: str, mesh: Mesh, *,
     cell_d = get_cell(arch, "decode_32k")
     cfg_p = _deployed(arch, m_size, "prefill", layer_override)
     cfg_d = _deployed(arch, m_size, "decode", layer_override)
-    _check_covered(cfg_d, mesh, "handoff")
+    _check_covered(mesh, "handoff")
     b = cell_p.batch if batch is None else batch
     s, cap = cell_p.seq_len, cell_d.decode_capacity()
     mem_len = cfg_p.max_source_len if cfg_p.is_enc_dec else 0

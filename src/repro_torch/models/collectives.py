@@ -20,25 +20,41 @@ partitioner from ``repro.launch.sharding``'s specs, and the explicit
 
 They are plain functions over an ``AxisShard`` — the calling rank's
 coordinate on the axis, the axis' size, its ``torch.distributed`` group
-and that group's global ranks in axis order — and use only
-``all_reduce`` and ``broadcast``, the two collectives that the gloo
-backend takes on CUDA tensors (it stages them through the host); NCCL
-takes them too, so one code path serves both backends (``launch/ranks.py``
-picks the backend). ``all_gather`` and ``exchange`` are therefore
-written as one ``broadcast`` a source rank (an exchange: one a (source,
-destination) pair, which ranks outside the pair receive and drop), each
-tensor sent as its bytes (a ``uint8`` view), so every dtype — float8
-included — crosses bit for bit. ``psum`` sums in the tensor's own dtype,
-as the reference's ``psum`` does (bfloat16 included: gloo adds bfloat16
-and rounds to nearest even; with two ranks one addition, rounded once).
-With no axis (``shard`` None: a model axis of one rank, the one-card
-mesh) each is the identity, so one program serves both.
+and that group's global ranks in axis order. Two transports carry them:
+
+  * **the group's backend** (NCCL between cards; gloo on the CPU), through
+    ``all_reduce`` and ``broadcast`` only. ``all_gather`` and ``exchange``
+    are one ``broadcast`` a source rank (an exchange: one a (source,
+    destination) pair, which ranks outside the pair receive and drop),
+    each tensor sent as its bytes (a ``uint8`` view), so every dtype —
+    float8 included — crosses bit for bit;
+  * **the card's memory**, when the ranks share one card (a gloo group
+    and CUDA tensors: ``launch/ranks.py`` puts gloo ranks of a CUDA world
+    all on card 0). gloo would stage every tensor through the host and
+    over loopback TCP (0.4–1.0 GB/s on an NVIDIA H100 80GB HBM3 at
+    700.00 W, ``chip_smoke.py`` phases 18–19); instead each rank writes
+    its operand into a device buffer of its own that every other rank has
+    mapped (CUDA IPC, ``kernels/csrc/ipc.cu``), the ranks meet at a gloo
+    barrier, each reads what it needs from the others' buffers, and they
+    meet again before a buffer is written anew. The bytes read are the
+    ones the backend would have carried, so the results are the same
+    bits.
+
+``psum`` sums in the tensor's own dtype, as the reference's ``psum``
+does, in axis order (bfloat16 included: gloo and the card both add
+bfloat16 through float32 and round to nearest even; with two ranks one
+addition, rounded once, whichever operand is first). With no axis
+(``shard`` None: a model axis of one rank, the one-card mesh) each is the
+identity, so one program serves both.
 
 Every call adds its host-clock seconds, its bytes (of the local tensor)
 and one call to ``STATS`` under its name; ``reset_stats`` zeroes them.
 The timing is on the host clock around a blocking call: gloo returns once
 the data have crossed (its CUDA path waits for the staging copies), so
-the seconds include the device→host and host→device copies.
+the seconds include the device→host and host→device copies; on a shared
+card the call returns after its copies and sums have finished on the
+card and both barriers. The shared buffers are outside the framework's
+allocator, so a rank's ``max_memory_allocated`` does not count them.
 """
 from __future__ import annotations
 
@@ -82,6 +98,18 @@ def stats() -> Dict[str, Dict[str, float]]:
     return {k: dict(v) for k, v in STATS.items()}
 
 
+def transport(shard: Optional[AxisShard], device) -> str:
+    """What carries the axis' collectives of tensors on ``device``:
+    ``"none"`` (no axis), ``"card"`` (ranks sharing the card: the shared
+    buffers) or the group's backend."""
+    if shard is None:
+        return "none"
+    backend = tdist.get_backend(shard.group)
+    if torch.device(device).type == "cuda" and backend == "gloo":
+        return "card"
+    return str(backend)
+
+
 def _note(name: str, t0: float, nbytes: int) -> None:
     rec = STATS[name]
     rec["calls"] += 1
@@ -101,7 +129,15 @@ def psum(x: torch.Tensor, shard: Optional[AxisShard]) -> torch.Tensor:
         return x
     t0 = time.perf_counter()
     x = x.contiguous()
-    tdist.all_reduce(x, op=tdist.ReduceOp.SUM, group=shard.group)
+    card = _on_card(x, shard)
+    if card is None:
+        tdist.all_reduce(x, op=tdist.ReduceOp.SUM, group=shard.group)
+    elif x.numel():
+        views = card.publish([x])
+        torch.add(views[0], views[1], out=x)
+        for v in views[2:]:
+            x.add_(v)
+        card.done()
     _note("psum", t0, x.numel() * x.element_size())
     return x
 
@@ -114,6 +150,12 @@ def all_gather(x: torch.Tensor, dim: int,
         return x
     t0 = time.perf_counter()
     x = x.contiguous()
+    card = _on_card(x, shard)
+    if card is not None:
+        out = torch.cat(card.publish([x]), dim=dim)
+        card.done()
+        _note("all_gather", t0, x.numel() * x.element_size())
+        return out
     parts = []
     for i, src in enumerate(shard.ranks):
         buf = x if i == shard.index else torch.empty_like(x)
@@ -136,6 +178,17 @@ def exchange(blocks: List[torch.Tensor], shard: Optional[AxisShard]
     me = shard.index
     got: List[torch.Tensor] = [None] * shard.size
     got[me] = blocks[me]
+    card = _on_card(blocks[me], shard)
+    if card is not None:
+        views = card.publish([b.contiguous() for b in blocks], slot=me)
+        for i, v in enumerate(views):
+            if i != me:
+                got[i] = v.clone()
+        card.done()
+        sent = sum(b.numel() * b.element_size()
+                   for j, b in enumerate(blocks) if j != me)
+        _note("exchange", t0, sent)
+        return got
     sent = 0
     for i, src in enumerate(shard.ranks):
         for j in range(shard.size):
@@ -152,3 +205,127 @@ def exchange(blocks: List[torch.Tensor], shard: Optional[AxisShard]
                 got[i] = buf
     _note("exchange", t0, sent)
     return got
+
+
+# --------------------------------------------------------------------------- #
+# ranks that share one card
+# --------------------------------------------------------------------------- #
+class _SharedCard:
+    """The device buffers of one axis line whose ranks share a card: this
+    rank's own (``kernels/csrc/ipc.cu``: cudaMalloc'd, exported) and every
+    other rank's, mapped from its IPC handle; uint8 tensors in axis order.
+    Every rank of the line calls ``publish`` and ``done`` together, with
+    operands of one shape (a collective's contract), so the buffers grow
+    in step."""
+
+    ALIGN = 32 << 20          # buffers grow in steps of 32 MiB
+
+    def __init__(self, shard: AxisShard, device: torch.device):
+        self.shard = shard
+        self.device = device
+        self.capacity = 0
+        self.ptrs: List[int] = []          # raw pointers, axis order
+        self.bufs: List[torch.Tensor] = []
+
+    def _lib(self):
+        import ctypes
+        from repro_torch.kernels import _build
+        lib = _build.load()
+        lib.rt_ipc_alloc.argtypes = [ctypes.c_int, ctypes.c_size_t,
+                                     ctypes.POINTER(ctypes.c_void_p),
+                                     ctypes.c_void_p]
+        lib.rt_ipc_open.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_void_p)]
+        lib.rt_ipc_close.argtypes = [ctypes.c_void_p]
+        lib.rt_ipc_free.argtypes = [ctypes.c_void_p]
+        return lib, _build.check
+
+    def _release(self) -> None:
+        if not self.ptrs:
+            return
+        lib, check = self._lib()
+        self.bufs = []
+        for i, ptr in enumerate(self.ptrs):      # others' mappings first
+            if i != self.shard.index:
+                check(lib.rt_ipc_close(ptr), "cudaIpcCloseMemHandle")
+        tdist.barrier(group=self.shard.group)    # no rank maps mine now
+        check(lib.rt_ipc_free(self.ptrs[self.shard.index]), "cudaFree")
+        self.ptrs, self.capacity = [], 0
+
+    def _reserve(self, nbytes: int) -> None:
+        if nbytes <= self.capacity:
+            return
+        import ctypes
+        self._release()
+        lib, check = self._lib()
+        cap = -(-nbytes // self.ALIGN) * self.ALIGN
+        index = self.device.index or 0
+        ptr = ctypes.c_void_p()
+        handle = torch.zeros(lib.rt_ipc_handle_bytes(), dtype=torch.uint8)
+        check(lib.rt_ipc_alloc(index, cap, ctypes.byref(ptr),
+                               handle.data_ptr()), "cudaMalloc + IPC handle")
+        handles = [torch.empty_like(handle) for _ in self.shard.ranks]
+        tdist.all_gather(handles, handle, group=self.shard.group)
+        ptrs = []
+        for i, h in enumerate(handles):
+            if i == self.shard.index:
+                ptrs.append(ptr.value)
+                continue
+            other = ctypes.c_void_p()
+            check(lib.rt_ipc_open(index, h.data_ptr(), ctypes.byref(other)),
+                  "cudaIpcOpenMemHandle")
+            ptrs.append(other.value)
+        self.ptrs, self.capacity = ptrs, cap
+        self.bufs = [torch.as_tensor(_DeviceBytes(p, cap), device=self.device)
+                     for p in ptrs]
+
+    def publish(self, parts: List[torch.Tensor], slot: Optional[int] = None
+                ) -> List[torch.Tensor]:
+        """Write ``parts`` (contiguous, one shape and dtype; their bytes
+        back to back, ``slot``'s left out) into this rank's buffer, meet
+        the others, and return each rank's operand as a view of its
+        buffer: ``parts[0]``'s shape and dtype from every rank (``slot``
+        None), or the block each rank wrote for ``slot`` (an exchange).
+        The views are valid until ``done``."""
+        like = parts[0]
+        n = like.numel() * like.element_size()
+        self._reserve(n * len(parts))
+        own = self.bufs[self.shard.index]
+        for j, p in enumerate(parts):
+            if j != slot:
+                own[j * n:(j + 1) * n].copy_(_bytes(p))
+        torch.cuda.synchronize(self.device)
+        tdist.barrier(group=self.shard.group)
+        at = 0 if slot is None else slot * n
+        return [b[at:at + n].view(like.dtype).view(like.shape)
+                for b in self.bufs]
+
+    def done(self) -> None:
+        """The reads of ``publish``'s views have finished here; meet the
+        others, after which each may write its buffer again."""
+        torch.cuda.synchronize(self.device)
+        tdist.barrier(group=self.shard.group)
+
+
+class _DeviceBytes:
+    """``nbytes`` of device memory at ``ptr`` as a CUDA array (for
+    ``torch.as_tensor``; the memory is ``_SharedCard``'s to free)."""
+
+    def __init__(self, ptr: int, nbytes: int):
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "data": (ptr, False),
+            "version": 2}
+
+
+_CARDS: Dict[Tuple, _SharedCard] = {}
+
+
+def _on_card(x: torch.Tensor, shard: AxisShard) -> Optional[_SharedCard]:
+    """The line's shared buffers when its ranks share a card (a CUDA
+    operand over a gloo group), else None: the backend carries it."""
+    if not x.is_cuda or tdist.get_backend(shard.group) != "gloo":
+        return None
+    key = (shard.ranks, id(shard.group))
+    if key not in _CARDS:
+        _CARDS[key] = _SharedCard(shard, x.device)
+    return _CARDS[key]

@@ -52,9 +52,13 @@ heads (``w_ukv``, ``wo``) and keeps the latent whole, and its decode
 expands the rank's capacity share of the latent through every head's
 ``w_ukv`` (gathered) and merges the ranks' partials per head; the RG-LRU
 block runs on the rank's channels of the width, gathering the conv's
-output before the gate products and summing ``w_out``'s partial. Those
-are the only layers that take a model axis: the step builders refuse the
-other families (SSD, vision, encoder-decoder) there.
+output before the gate products and summing ``w_out``'s partial; the
+cross-attention projects q on the rank's heads and the memory's K/V on
+its head_dim columns (the cache's shard), gathers K/V on head_dim before
+attending and sums ``wo``'s partial; the SSD mixer is replicated (every
+rank computes the whole block) but its conv tail is the rank's channels:
+the tail is gathered before the conv and the rank keeps its channels of
+the new one.
 
 The RG-LRU block has no kernel of its own in either package: the causal
 depthwise conv, the two float32 gate products and the recurrence are
@@ -701,9 +705,20 @@ def cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     additive mask that blanks rows at or past each sequence's
     ``mem_lengths`` (all rows when None), as the reference computes it
     — a slot with length 0 attends uniformly over finite scores and stays
-    finite."""
+    finite.
+
+    On a model axis q has the rank's heads and the memory's K/V the
+    rank's head_dim columns (``cross_attention_kv``'s, the cache's
+    shard): K/V are gathered on head_dim, the rank's heads attend their
+    KV heads, and ``wo``'s partial is summed over the axis."""
     k, v = mem_kv
     q = _proj(x, p["wq"])
+    tp = dist.ctx().model_shard()
+    if tp is not None:
+        kv0, nkv = _rank_heads(cfg, q.shape[2], tp)
+        if k.shape[-1] != cfg.hd:              # head_dim-sharded rows
+            k, v = C.all_gather(torch.stack([k, v]), 4, tp).unbind(0)
+        k, v = k[:, :, kv0:kv0 + nkv], v[:, :, kv0:kv0 + nkv]
     if kv_len is not None and kernel_route(x):
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=False,
@@ -714,7 +729,7 @@ def cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
         if mem_lengths is not None:
             mask = mask + length_mask(mem_lengths, k.shape[1])
         out = sdpa(q, k, v, mask)
-    return _out_proj(out, p["wo"])
+    return _out_proj(out, p["wo"], tp)
 
 
 # --------------------------------------------------------------------------- #
@@ -1552,16 +1567,28 @@ def _ssd_inputs(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 state: SSMState):
     """The in-projection, the conv over the state's tail and the split:
     (z, x heads (B,S,H,P), B and C per head (B,S,H,N), dt (B,S,H), new conv
-    tail). x, B, C and dt in float32, z in x's dtype."""
+    tail). x, B, C and dt in float32, z in x's dtype.
+
+    On a model axis the parameters are whole and the block is computed
+    whole on every rank, but the state's conv tail holds the rank's
+    channels (the reference's cache spec): it is gathered on the channels
+    before the conv, and the new tail is the rank's channels of it."""
     s = cfg.ssm
     b, S, _ = x.shape
-    di, nh, gn, _ = _ssd_dims(cfg)
+    di, nh, gn, conv_dim = _ssd_dims(cfg)
     z, xbc, dt = torch.split(x @ p["w_in"].to(x.dtype), [di, di + 2 * gn, nh],
                              dim=-1)
-    new_tail = torch.cat([state.conv.to(xbc.dtype), xbc],
-                         dim=1)[:, -(s.d_conv - 1):]
-    xbc = F.silu(_causal_conv1d(xbc, p["conv_w"], p["conv_b"],
-                                state.conv.to(xbc.dtype)))
+    tail = state.conv.to(xbc.dtype)
+    tp = dist.ctx().model_shard()
+    if tp is not None and tail.shape[-1] == conv_dim:
+        tp = None                        # a tail too narrow to shard
+    if tp is not None:
+        tail = C.all_gather(tail, 2, tp)
+    new_tail = torch.cat([tail, xbc], dim=1)[:, -(s.d_conv - 1):]
+    if tp is not None:
+        c0, c1 = tp.part(conv_dim)
+        new_tail = new_tail[..., c0:c1]
+    xbc = F.silu(_causal_conv1d(xbc, p["conv_w"], p["conv_b"], tail))
     xs, b_, c_ = torch.split(xbc, [di, gn, gn], dim=-1)
     rep = nh // s.n_groups
 

@@ -131,6 +131,28 @@ def test_flash_kernel_non_causal_head_dim_64(cuda, dtype, b, h, kv, sq, cap,
                                want.float().cpu().numpy(), atol=ATOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq", [1500, 64, 1])
+def test_flash_non_causal_on_a_rank_of_whisper(cuda, dtype, sq):
+    """Non-causal flash as a rank of the (1, 2) mesh runs Whisper: 10 query
+    heads at 64 over its 10 KV heads of the 20, a view of K/V gathered on
+    head_dim, over 1,500 rows — the encoder (q = k), and the decoder's
+    cross-attention over the memory for a chunk and for one decode row."""
+    rng = np.random.default_rng(sq)
+    q = _rand(rng, (1, sq, 10, 64), dtype, cuda)
+    kv = _rand(rng, (2, 1, 1500, 20, 64), dtype, cuda)
+    k, v = (t[:, :, 10:] for t in kv.unbind(0))      # rank 1's heads
+    args = dict(causal=False, kv_len=1500)
+    got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), **args)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), **args)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 10, sq, 64)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=ATOL[dtype])
+
+
 @pytest.mark.parametrize("what", ["pointer", "stride", "head_dim"])
 def test_flash_kernel_refuses_what_tma_cannot_take(cuda, what):
     """bf16 goes through TMA: a base pointer or a stride that is not 16-byte
@@ -1854,7 +1876,9 @@ DECODE_HALVES = [
     ("recurrentgemma ring", 2048, 34_000, 1, 16, 256, 256, 2048,
      torch.bfloat16),
     ("deepseek expanded latent", 32_896, 32_769, 16, 16, 192, 128, 0,
-     torch.bfloat16)]
+     torch.bfloat16),
+    ("whisper decoder", 32_896, 32_769, 20, 20, 64, 64, 0, torch.bfloat16),
+    ("internvl2", 32_896, 32_769, 8, 16, 128, 128, 0, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("name,cap,n,kvh,h,dk,dv,window,kv_dt",
@@ -1864,10 +1888,12 @@ def test_flash_decode_halves_at_the_mesh_shapes(cuda, name, cap, n, kvh, h,
     """A rank's half of each decode cache that the (1, 2) mesh serves —
     Qwen1.5-32B's e4m3 cache (16,448 slots a rank), the rings of Mixtral
     (2,048 a rank) and RecurrentGemma (1,024 a rank, 16 heads on one KV
-    head at 256) and DeepSeek-V2-Lite's latent expanded to every head (K
-    192, V 128, V a view of the expansion): the partials of both halves
-    merged by the combine, against the float32 plain version of the whole
-    cache within ``_close_to_size``."""
+    head at 256), DeepSeek-V2-Lite's latent expanded to every head (K
+    192, V 128, V a view of the expansion), Whisper's decoder cache (20
+    heads on 20 KV heads x 64: a group of one) and InternVL2's (16 heads
+    on 8 KV heads x 128): the partials of both halves merged by the
+    combine, against the float32 plain version of the whole cache within
+    ``_close_to_size``."""
     b = 1 if dv < dk else 2
     rng = np.random.default_rng(cap + h + dk)
     k, _, pos = _decode_cache(rng, b, cap, n, kvh, dk, kv_dt, cuda)
@@ -1925,6 +1951,29 @@ def _mesh_vs_one_card(cfg_dict, monkeypatch, check_layers):
         for what, (have, predicted) in r["bytes"].items():
             assert have == predicted > 0, what
     return rec, one
+
+
+def test_collectives_through_the_shared_card_equal_gloo_on_the_host(cuda):
+    """Two ranks sharing the card: ``psum`` of bfloat16 and float32,
+    ``all_gather`` and ``exchange`` of e4m3 blocks through the ranks'
+    shared device buffers give the bits that gloo gives for the same
+    operands on the host, at 1,000 elements and at 9 Mi (past the
+    buffers' first 32 MiB, so they grow)."""
+    import torch_mesh_ranks as R
+    from repro_torch.launch import ranks
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("ranks share a card only where there is one")
+    with ranks.start(2, timeout_s=300) as world:
+        outs = world.run(R.shared_card_collectives_on_rank)
+    for r, out in enumerate(outs):
+        assert out["transport"] == "card"
+        for card, host in zip(out["card"], out["host"]):
+            for key in ("psum_bf16", "psum_f32", "gather"):
+                assert card[key].dtype == host[key].dtype
+                assert torch.equal(card[key].view(torch.uint8),
+                                   host[key].view(torch.uint8)), key
+            for a, b in zip(card["exchange"], host["exchange"]):
+                assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
 def test_two_ranks_on_one_card_serve_a_tiny_hybrid(cuda, monkeypatch):

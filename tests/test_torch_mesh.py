@@ -3,8 +3,12 @@ parallelism on the model axis — against the JAX package's step builders
 on an Auto-typed 1x1 mesh (its own mesh gives Explicit axes, which its
 sharding constraints reject: ROADMAP queue 3 C1), on the CPU, in float32,
 for the tiny ``dense-bias-qknorm``, ``moe``, ``mla``, ``sliding`` (a ring
-of 8 slots) and ``hybrid`` (RG-LRU blocks beside rings) configs of
-``tests/conftest.py`` at batch 2 x 24 tokens.
+of 8 slots), ``hybrid`` (RG-LRU blocks beside rings), ``ssm`` (the SSD
+replicated, its conv tail on the channels), ``vlm`` (4 patches before
+the prompt) and ``encdec`` (2 encoder layers over 1,500 frames, cross
+rows on head_dim) configs of ``tests/conftest.py`` and the tiny vlm at
+an odd vocab of 127 (``pad_vocab`` adds a row on the mesh), at batch 2 x
+24 tokens.
 
 One world of two gloo ranks is started for the module
 (``launch/ranks.py``); the ranks run ``tests/torch_mesh_ranks.py``,
@@ -17,15 +21,17 @@ its shards (``sharding.shard_params``). Held, per family:
   * each rank's prefill cache and state shard equal to the spec's slice
     of the reference's caches within 1e-5 (head_dim-sharded K/V, ``pos``
     whole; MLA's latent whole; the RG-LRU's ``h`` and ``conv`` on the
-    width);
+    width; the SSM's ``h`` whole and its conv tail on the channels; the
+    cross rows on head_dim, ``mem_len`` whole);
   * the handoff of the reference's P caches (each rank given its
     shards): D's shards bit for bit the capacity slices of the
     reference's handoff (a ring's slot halves with their tags, MLA's
-    latent halves, the RG-LRU states as they were), into float32 and
-    bfloat16 caches and, for the dense family, float8 e4m3 ones;
+    latent halves, the RG-LRU and SSM states and the cross rows as they
+    were), into float32 and bfloat16 caches and, for the dense family,
+    float8 e4m3 ones;
   * the serve step over the reference's D caches: the assembled logits
-    and every rank's cache shard within 1e-5 (float32 D caches, and the
-    dense family's e4m3 ones);
+    (a padded vocab's pad column 0) and every rank's cache shard within
+    1e-5 (float32 D caches, and the dense family's e4m3 ones);
   * each rank's bytes of parameters and caches equal to
     ``per_chip_bytes`` at {"data": 1, "model": 2}.
 
@@ -34,8 +40,9 @@ program) on the tiny dense config against the one-card launcher's
 tokens, its handoff check and its record; flash_decode's plain partial
 and combine over two slot halves against the whole-cache plain version
 (1e-6), V as wide as K and narrower (MLA's dv < dk); a float8 exchange
-and gather between the ranks bit for bit; the families not covered
-(SSD, vision, encoder-decoder) and the long_500k cell raising on the
+and gather between the ranks bit for bit; long_500k's serve step
+(q_offset 524,288) of the tiny sliding, hybrid and ssm families against
+the reference's; training and a data axis above 1 still raising on the
 rank mesh; a rank that raises surfacing in the parent with its
 traceback, and no rank left running.
 """
@@ -69,7 +76,13 @@ from test_torch_launch_steps import _inputs, _ref_leaves, _to_port
 SEQ, BATCH = 24, 2
 ATOL = 1e-5
 _GET_CELL = RC.get_cell         # the fixtures patch the module's
-FAMILIES = ("dense-bias-qknorm", "moe", "mla", "sliding", "hybrid")
+ODD_VOCAB = "vlm-odd-vocab"     # the tiny vlm at a vocab the axis pads
+FAMILIES = ("dense-bias-qknorm", "moe", "mla", "sliding", "hybrid", "ssm",
+            "vlm", "encdec", ODD_VOCAB)
+CONFIGS = {**TINY_FAMILIES, ODD_VOCAB: dataclasses.replace(
+    TINY_FAMILIES["vlm"], name=ODD_VOCAB, vocab_size=127)}
+LONG = ("sliding", "hybrid", "ssm")    # the tiny families of long_500k
+LONG_Q = 524_288                        # long_500k's q_offset
 DENSE = "dense-bias-qknorm"
 F8 = "float8_e4m3fn"
 
@@ -131,11 +144,32 @@ def _held_to_slices(outs, key, ref_tree, specs, atol=ATOL, exact=False):
             _close(x, want, atol, exact, f"rank {r} {p}")
 
 
-@pytest.fixture(scope="module", params=FAMILIES)
-def family(request, world, jmesh):
-    """The reference's prefill, handoff and serve step of a tiny family
-    and the ranks' steps on the same inputs, run once a family."""
-    jcfg = TINY_FAMILIES[request.param]
+def _padded_params(params, tcfg):
+    """The reference's whole parameters at the vocab the (1, 2) mesh
+    deploys (``pad_vocab``): the embedding's pad rows and the head's pad
+    columns zero, so that a pad logit is exactly 0."""
+    v = TSH.pad_vocab(tcfg, 2).vocab_size
+    out = dict(params)
+    pad = v - params["embed"].shape[0]
+    if pad:
+        out["embed"] = torch.nn.functional.pad(params["embed"], (0, 0, 0, pad))
+        if "lm_head" in params:
+            out["lm_head"] = torch.nn.functional.pad(params["lm_head"],
+                                                     (0, pad))
+    return out
+
+
+_REFS = {}
+
+
+def _reference(name, jmesh):
+    """The reference's prefill, handoffs and serve steps of the tiny
+    family ``name`` on the Auto 1x1 mesh (once a family): its params, the
+    inputs and results as numpy-backed arrays, and the port's P and D
+    caches made from them."""
+    if name in _REFS:
+        return _REFS[name]
+    jcfg = CONFIGS[name]
     cfg_dict = dataclasses.asdict(jcfg)
     cells = _cells()
     mp = pytest.MonkeyPatch()
@@ -154,10 +188,8 @@ def family(request, world, jmesh):
         one = Mesh((1, 1), ("data", "model"), torch.device("cpu"))
         tho = TS.make_handoff_artifacts("qwen3-4b", one, batch=BATCH)
         caches_p = _to_port(jcaches_p, tho.abstract_args[0])
-        d_dtypes = ("float32", "bfloat16") + \
-            ((F8,) if request.param == DENSE else ())
-        serve_dtypes = ("float32",) + ((F8,) if request.param == DENSE
-                                       else ())
+        d_dtypes = ("float32", "bfloat16") + ((F8,) if name == DENSE else ())
+        serve_dtypes = ("float32",) + ((F8,) if name == DENSE else ())
         tok = np.asarray(jnp.argmax(jlast, -1), np.int32)[:, None]
         io = {"tokens": tok, "positions": np.full_like(tok, SEQ)}
         handoffs, jserve, caches_d = {}, {}, {}
@@ -175,18 +207,29 @@ def family(request, world, jmesh):
             # a copy: the reference's serve step donates its caches
             jserve[dt] = jart.fn(jp, jax.tree.map(jnp.copy, handoffs[dt]),
                                  {k: jnp.asarray(v) for k, v in io.items()})
-        mp.setattr(RC, "get_cell", lambda arch, shape: cells[shape])
-        mp.setattr(TS, "get_cell", lambda arch, shape: cells[shape])
-        io = {k: torch.tensor(v) for k, v in io.items()}
-        params = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
-        outs = world.run(R.steps_on_rank, cfg_dict, cells, params,
-                         {k: torch.from_numpy(v) for k, v in batch.items()},
-                         caches_p, caches_d, io, d_dtypes)
-        yield dict(name=request.param, jcfg=jcfg, cells=cells, jlast=jlast,
-                   jcaches_p=jcaches_p, handoffs=handoffs, jserve=jserve,
-                   outs=outs, tcfg=tcfg)
     finally:
         mp.undo()
+    params = _padded_params(params_from_numpy(jax.tree.map(np.asarray, jp),
+                                              "cpu"), tcfg)
+    _REFS[name] = dict(
+        name=name, jcfg=jcfg, cfg_dict=cfg_dict, tcfg=tcfg, cells=cells,
+        jp=jp, params=params, batch=batch, jlast=jlast, jcaches_p=jcaches_p,
+        caches_p=caches_p, d_dtypes=d_dtypes, io=io, handoffs=handoffs,
+        jserve=jserve, caches_d=caches_d)
+    return _REFS[name]
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def family(request, world, jmesh):
+    """The reference's prefill, handoff and serve step of a tiny family
+    and the ranks' steps on the same inputs, run once a family."""
+    ref = _reference(request.param, jmesh)
+    io = {k: torch.tensor(v) for k, v in ref["io"].items()}
+    outs = world.run(R.steps_on_rank, ref["cfg_dict"], ref["cells"],
+                     ref["params"],
+                     {k: torch.from_numpy(v) for k, v in ref["batch"].items()},
+                     ref["caches_p"], ref["caches_d"], io, ref["d_dtypes"])
+    return dict(ref, outs=outs)
 
 
 def _with_d_dtype(cells, dt):
@@ -222,11 +265,18 @@ def test_backend_is_gloo_on_the_cpu(world, family):
 
 
 def test_prefill_logits_from_vocab_shards(family):
+    """The gathered logits keep the pad column of a padded vocab (the
+    tiny odd-vocab vlm's 127 → 128), as the reference's do: 0 there, from
+    the zero pad weights."""
     outs = family["outs"]
     shards = [o["prefill"][0] for o in outs]
     v = family["jcfg"].vocab_size
-    assert [tuple(s.shape) for s in shards] == [(BATCH, v // 2)] * 2
-    _close(torch.cat(shards, -1), family["jlast"])
+    v2 = TSH.pad_vocab(family["tcfg"], 2).vocab_size
+    assert v2 == (v + 1 if family["name"] == ODD_VOCAB else v)
+    assert [tuple(s.shape) for s in shards] == [(BATCH, v2 // 2)] * 2
+    got = torch.cat(shards, -1)
+    _close(got[:, :v], family["jlast"])
+    assert (got[:, v:] == 0).all()
 
 
 def test_prefill_cache_shards_are_the_specs_slices(family):
@@ -248,9 +298,11 @@ def test_serve_step_logits_and_cache_shards(family):
     outs = family["outs"]
     assert set(family["jserve"]) == {"float32"} | (
         {F8} if family["name"] == DENSE else set())
+    v = family["jcfg"].vocab_size
     for dt, (jlog, jcaches) in family["jserve"].items():
-        _close(torch.cat([o["serve"][dt][0] for o in outs], -1), jlog,
-               what=dt)
+        got = torch.cat([o["serve"][dt][0] for o in outs], -1)
+        _close(got[..., :v], jlog, what=dt)
+        assert (got[..., v:] == 0).all()
         _held_to_slices(outs, lambda o, dt=dt: o["serve"][dt][1], jcaches,
                         _specs(family, "caches_d", dt))
 
@@ -335,30 +387,108 @@ def test_float8_exchange_and_gather_are_bit_exact(world):
                            want.view(torch.uint8))
 
 
-@pytest.mark.parametrize("name,program", [("ssm", "prefill"),
-                                          ("vlm", "prefill"),
-                                          ("encdec", "decode")])
-def test_families_not_covered_raise_on_the_rank_mesh(name, program,
-                                                     monkeypatch):
+@pytest.fixture(scope="module", params=LONG)
+def long_step(request, world, jmesh):
+    """long_500k's serve step (q_offset 524,288) of a tiny family over the
+    reference's float32 D caches of the decode_32k handoff with every tag
+    shifted by 524,288 - SEQ (a multiple of the ring, so each entry keeps
+    its slot; the SSM's states carry no position), by the reference and
+    by the ranks on the same caches. The reference's step runs op by op
+    (``jax.disable_jit``): fused under ``jit``, XLA's CPU sin and cos of
+    angles near 524,288 rad err by ~2e-3, which the unfused ops do not
+    (``test_rope_near_524288_against_float64``)."""
+    ref = _reference(request.param, jmesh)
+    cell = dataclasses.replace(_GET_CELL("mixtral-8x7b", "long_500k"),
+                               batch=BATCH, cache_dtype="float32")
+    shift = cell.seq_len - SEQ
+    jcaches = jax.tree_util.tree_map_with_path(
+        lambda p, x: jnp.where(x >= 0, x + shift, x)
+        if jax.tree_util.keystr(p).rstrip("']").endswith("pos")
+        else jnp.copy(x),
+        ref["handoffs"]["float32"])
+    io = {k: v + (shift if k == "positions" else 0)
+          for k, v in ref["io"].items()}
+    mp = pytest.MonkeyPatch()
+    mp.setattr(RS, "get_config", lambda arch: ref["jcfg"])
+    mp.setattr(TS, "get_config", lambda arch: ref["tcfg"])
+    try:
+        jart = RS.make_serve_artifacts(cell, jmesh)
+        one = Mesh((1, 1), ("data", "model"), torch.device("cpu"))
+        caches = _to_port(jcaches, TS.make_serve_artifacts(
+            cell, one).abstract_args[1])
+        with jax.disable_jit():
+            want = jart.fn(ref["jp"], jax.tree.map(jnp.copy, jcaches),
+                           {k: jnp.asarray(v) for k, v in io.items()})
+    finally:
+        mp.undo()
+    outs = world.run(R.long_step_on_rank, ref["cfg_dict"], cell,
+                     ref["params"], caches,
+                     {k: torch.tensor(v) for k, v in io.items()})
+    return dict(ref, cell=cell, shift=shift, caches=caches, want=want,
+                outs=outs)
+
+
+def test_long_500k_serve_step_on_the_rank_mesh(long_step):
+    """The rings' slot halves (8 → 2 x 4), the hybrid's RG-LRU width
+    halves beside them and the SSM's conv-tail channel halves at
+    q_offset 524,288: the assembled logits and every rank's cache shard
+    within 1e-5 of the reference's long_500k serve step."""
+    outs, (jlog, jcaches) = long_step["outs"], long_step["want"]
+    assert long_step["cell"].seq_len == LONG_Q
+    assert LONG_Q % 8 == 0 and long_step["shift"] % 8 == 0
+    pos = [x for p, x in TSH.named_leaves(long_step["caches"])
+           if p.endswith(".pos")]
+    assert (long_step["name"] == "ssm") == (not pos)
+    for x in pos:                          # the window full, before q
+        assert int(x.max()) == LONG_Q - 1 and x.shape[-1] == 8
+    _close(torch.cat([o["logits"] for o in outs], -1), jlog)
+    _held_to_slices(outs, "caches", jcaches, outs[0]["specs"])
+    for o in outs:
+        for what, (have, predicted) in o["bytes"].items():
+            assert have == predicted > 0, what
+
+
+@pytest.mark.parametrize("pos", [LONG_Q - 1, LONG_Q])
+def test_rope_near_524288_against_float64(pos):
+    """The port's RoPE at long_500k's positions within 1e-6 of float64
+    rotations of the same float32 angles; the reference's, run op by op,
+    gives the same bits (under ``jit`` its fused sin/cos do not)."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as TL
+    x = np.random.default_rng(0).standard_normal((1, 1, 2, 16)) \
+        .astype(np.float32)
+    p = np.array([[pos]], np.int32)
+    got = TL.apply_rope(torch.from_numpy(x), torch.from_numpy(p),
+                        10_000.0).numpy()
+    ang = (np.float32(pos) * TL.rope_frequencies(16, 10_000.0, "cpu")
+           .numpy()).astype(np.float64)
+    x1, x2 = x[..., :8].astype(np.float64), x[..., 8:].astype(np.float64)
+    truth = np.concatenate([x1 * np.cos(ang) - x2 * np.sin(ang),
+                            x1 * np.sin(ang) + x2 * np.cos(ang)], -1)
+    np.testing.assert_allclose(got, truth, atol=1e-6, rtol=0)
+    with jax.disable_jit():
+        ref = np.asarray(JL.apply_rope(jnp.asarray(x), jnp.asarray(p),
+                                       10_000.0))
+    np.testing.assert_array_equal(ref, got)
+
+
+@pytest.mark.parametrize("name", ["ssm", "vlm", "encdec"])
+@pytest.mark.parametrize("what", ["train", "data axis"])
+def test_training_and_a_data_axis_still_raise_on_the_rank_mesh(
+        name, what, monkeypatch):
+    """The families this mesh serves still raise for training on a world
+    of ranks and for a data axis above 1 (every program)."""
     tcfg = config_from_dict(dataclasses.asdict(TINY_FAMILIES[name]))
     cells = _cells()
     monkeypatch.setattr(TS, "get_config", lambda arch: tcfg)
-    mesh = _rank_mesh(0)
-    build = (TS.make_prefill_artifacts if program == "prefill"
-             else TS.make_serve_artifacts)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        build(cells[f"{program}_32k"], mesh)
-
-
-def test_long_500k_raises_on_the_rank_mesh(monkeypatch):
-    """The sliding family serves decode_32k on the rank mesh; its
-    long_500k cell still raises."""
-    tcfg = config_from_dict(dataclasses.asdict(TINY_FAMILIES["sliding"]))
-    monkeypatch.setattr(TS, "get_config", lambda arch: tcfg)
-    cell = dataclasses.replace(_GET_CELL("mixtral-8x7b", "long_500k"),
-                               batch=BATCH)
-    with pytest.raises(NotImplementedError, match="long_500k"):
-        TS.make_serve_artifacts(cell, _rank_mesh(0))
+        if what == "train":
+            TS.make_train_artifacts(_GET_CELL("qwen3-4b", "train_4k"),
+                                    _rank_mesh(0))
+        else:
+            mesh = Mesh((2, 1), ("data", "model"), torch.device("cpu"),
+                        (1, 0), (AxisShard(1, 2, None, (0, 1)), None))
+            TS.make_prefill_artifacts(cells["prefill_32k"], mesh)
 
 
 def test_a_rank_that_raises_surfaces_and_no_rank_is_left():

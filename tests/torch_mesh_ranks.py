@@ -56,8 +56,10 @@ def steps_on_rank(rank, cfg_dict, cells, params, inputs, caches_p_ref,
     with torch.no_grad():
         last, caches_p = pre.fn(ps, inputs)
     out["prefill"] = (last, _cpu(caches_p))
+    mem_len = pre.cfg.max_source_len if pre.cfg.is_enc_dec else 0
     abs_p = TS.M.abstract_caches(pre.cfg, cells["prefill_32k"].batch,
-                                 cells["prefill_32k"].seq_len, torch.float32)
+                                 cells["prefill_32k"].seq_len, torch.float32,
+                                 mem_len=mem_len)
     out["bytes"] = {"params": (SH.local_bytes(ps), SH.per_chip_bytes(
         pre.abstract_args[0], pspecs, sizes)),
         "caches_p": (SH.local_bytes(caches_p), SH.per_chip_bytes(
@@ -73,7 +75,7 @@ def steps_on_rank(rank, cfg_dict, cells, params, inputs, caches_p_ref,
         abs_d = TS.M.abstract_caches(
             ho.cfg, cells["prefill_32k"].batch,
             cells["decode_32k"].decode_capacity(), getattr(torch, dt),
-            full_capacity=TS._full_capacity(ho.cfg))
+            mem_len=mem_len, full_capacity=TS._full_capacity(ho.cfg))
         out["bytes"][f"caches_d_{dt}"] = (SH.local_bytes(got),
                                           SH.per_chip_bytes(
                                               abs_d, ho.out_shardings,
@@ -89,6 +91,28 @@ def steps_on_rank(rank, cfg_dict, cells, params, inputs, caches_p_ref,
         out["serve"][dt] = (logits, _cpu(caches))
     _patch(cfg_dict, cells)
     return out
+
+
+def long_step_on_rank(rank, cfg_dict, cell, params, caches_ref, io):
+    """long_500k's serve step ``cell`` on the rank's (1, 2) mesh over its
+    shards of the reference's D caches ``caches_ref`` (tags already
+    shifted): the rank's logits shard and caches, the specs, and the
+    rank's bytes beside ``per_chip_bytes``."""
+    cfg = config_from_dict(cfg_dict)
+    TS.get_config = lambda arch: cfg
+    mesh = make_mesh(MESH, ("data", "model"), "cpu")
+    srv = TS.make_serve_artifacts(cell, mesh)
+    ps = SH.shard_params(params, srv.in_shardings[0], mesh)
+    mine = SH.to_shardings(mesh, caches_ref, srv.in_shardings[1])
+    with torch.no_grad():
+        logits, caches = srv.fn(ps, mine, io)
+    return {"logits": logits, "caches": _cpu(caches),
+            "specs": srv.in_shardings[1],
+            "bytes": {"params": (SH.local_bytes(ps), SH.per_chip_bytes(
+                srv.abstract_args[0], srv.in_shardings[0], mesh.shape)),
+                "caches_d": (SH.local_bytes(caches), SH.per_chip_bytes(
+                    srv.abstract_args[1], srv.in_shardings[1],
+                    mesh.shape))}}
 
 
 def float8_block(src: int, dst: int) -> torch.Tensor:
@@ -108,6 +132,37 @@ def float8_collectives_on_rank(rank):
     got = C.exchange([float8_block(me, j) for j in range(2)], shard)
     return {"exchanged": got,
             "gathered": C.all_gather(float8_block(me, me), 1, shard)}
+
+
+def shared_card_collectives_on_rank(rank):
+    """On the rank's card, ``psum`` (bfloat16, float32), ``all_gather``
+    (dim 1) and ``exchange`` (float8 e4m3 blocks) over the model axis,
+    and the same collectives of the same operands on the host, which gloo
+    carries; twice, the second time past the shared buffers' first 32 MiB
+    (they grow). Returns the transport and both results on the host."""
+    mesh = make_mesh(MESH, ("data", "model"), rank.device)
+    shard = mesh.axis_shard("model")
+    me = rank.index
+    out = {"transport": C.transport(shard, rank.device), "card": [],
+           "host": []}
+    for n in (1000, 9 << 20):
+        g = torch.Generator().manual_seed(1000 * me + n % 997)
+        ops = {"bf16": torch.randn(2, n // 2, generator=g).to(torch.bfloat16),
+               "f32": torch.randn(2, n // 2, generator=g),
+               "f8": [torch.randint(0, 256, (2, n // 8), generator=g,
+                                    dtype=torch.uint8).view(
+                                        torch.float8_e4m3fn)
+                      for _ in range(2)]}
+        for where, dev in (("card", rank.device), ("host", "cpu")):
+            def put(x):
+                return x.to(dev, copy=True)    # psum sums in place
+            got = {"psum_bf16": C.psum(put(ops["bf16"]), shard),
+                   "psum_f32": C.psum(put(ops["f32"]), shard),
+                   "gather": C.all_gather(put(ops["bf16"]), 1, shard),
+                   "exchange": C.exchange([put(b) for b in ops["f8"]],
+                                          shard)}
+            out[where].append(_cpu(got))
+    return out
 
 
 def programs_on_rank(rank, cfg_dict, cells, *args):
