@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, then runs eighteen phases, each printing JSON lines:
+nvcc, then runs its phases, each printing JSON lines:
 
   0. card: name and power limit (``nvidia-smi``), kernel build time, and
      the count of HGMMA (wgmma), UTMALDG (TMA load), SYNCS (mbarrier),
@@ -412,6 +412,24 @@ nvcc, then runs eighteen phases, each printing JSON lines:
      frames, the cross rows head_dim-sharded in P and D, gathered before
      each cross-attention). Rows 1h-e and 1h-f time the partial +
      combine at Whisper's and InternVL2's decode shapes.
+ 21. the data and pod axes: training through ``launch.train``'s rank
+     program, each part held to a one-card step over the whole batch made
+     first in this process (its final parameters and moments kept in
+     pinned host memory while the ranks train, then mapped by them): 21a Qwen3-4B (12 of 36 layers, 2 x 4,096 tokens, the
+     second sequence's last 1,000 labels -1) on (data 2, model 1): the
+     gradients summed over the data axis, ZeRO-1 moments; 21b the same on
+     (1, 2) with 2 micro-batches: the tensor-parallel backward, the bf16
+     accumulator; 21c Phi3-medium-14B (4 of 40 layers, zero3) on (pod 2,
+     data 1, model 2), four ranks: ZeRO-3 weights broadcast a layer at a
+     time. Each holds the losses and gradient norms of a warm-up and two
+     steps, every parameter and moment slice after the last in bf16 steps,
+     a control (the data reduction skipped; the column entries' backward
+     psum skipped; the pod's) past the norm's bound, bytes equal to
+     ``per_chip_bytes``, the collectives' calls and bytes as predicted
+     (``phase21_expected``), no launch. 21d serves 18a's cut on (data 2,
+     model 1), one sequence a rank: flash and flash_decode (whole calls)
+     on each rank, held to 18a's one-card run (tokens, logits in bf16
+     steps, launches a rank).
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
@@ -421,7 +439,8 @@ counts; phase 17 its in-process run, 17c's faulted one). The kernels
 line gives each kernel's
 launches on every serving phase (phases 3-12, none on phase 9; 0 on
 phase 13, training; phase 14: 14a's and 14b's main paths; phase 15: its
-parts' main paths, 15d's included; phases 16 and 17), and its timing at
+parts' main paths, 15d's included; phases 16 and 17; phase 21: 21d's on
+both ranks, its training parts none), and its timing at
 phase 7's MLA
 shape (``"mla"``), phase 8's RecurrentGemma shape (``"rg"``), phase
 10's InternVL2 shape (``"vlm"``), phase 11's Whisper shape
@@ -838,6 +857,78 @@ PHASE20_PREDICTED = {
                  "long step inherits it), 20a within 1 step of its one-card "
                  "step over the same states; each control past the bound",
     "phase_s": "70-130 (19: +5-10 s for its two long steps)",
+}
+
+# phase 21: the data and pod axes of a mesh of ranks. Training parts:
+# (arch, layers, mesh shape, n_micro) — 21a Qwen3-4B's train_4k on (data 2,
+# model 1): data-parallel gradients and ZeRO-1 moments; 21b the same on
+# (1, 2): the tensor-parallel backward and the bf16 accumulator; 21c
+# Phi3-medium-14B's (its cell has zero3) on (pod 2, data 1, model 2): the
+# pod axis, ZeRO-3 weights on the layer axis. Each is held to a one-card
+# step over the whole batch at the same cut, made in this phase first.
+PHASE21_TRAIN = {"21a": ("qwen3-4b", 12, (2, 1), 1),
+                 "21b": ("qwen3-4b", 12, (1, 2), 2),
+                 "21c": ("phi3-medium-14b", 4, (2, 1, 2), 1)}
+PHASE21_BATCH = 2                  # sequences of 4,096 tokens
+PHASE21_STEPS = 2                  # held steps after one warm-up
+# label -1 on the last positions of the second sequence only, so that the
+# data shards hold different counts of labels >= 0 (the global mean)
+PHASE21_UNLABELED = 1000
+# each training part's control: the reduction left out of its gradients
+# (21c: the pod axis is its data plane)
+PHASE21_CONTROL = {"21a": "data_grads", "21b": "column_entry",
+                   "21c": "data_grads"}
+# after the main path's steps (the default AdamW: its warm-up's rate,
+# 3e-6 to 9e-6, moves almost no bfloat16 weight), one update step at
+# AdamW's peak rate (a weight of 0.02 moves ~2.5 bf16 steps), whose
+# update is held; its batch is the next seed's
+PHASE21_OPT = {"lr": 3e-4, "warmup_steps": 1}
+# the bounds, against the one-card steps at the same cut (written before
+# the run): the loss of each step within this relative gap; the gradient
+# norm of each step within this relative gap, the control's first-step
+# norm past it; every parameter after the main path within this many
+# bf16 steps of its one-card leaf's largest magnitude; each parameter
+# leaf's update in the update step within this relative L2 gap of the
+# one-card update of the rank's slice — an element whose gradient is
+# near zero takes the sign of bf16 noise, a step of 2 lr apart — and the
+# same update with the other data ranks' ZeRO-1 slices left as they were
+# (a step without the gather-back) past it; each moment's slice after
+# the update step within this many bf16 steps of its one-card leaf's
+# largest magnitude
+PHASE21_LOSS_RTOL = 1e-3
+PHASE21_GNORM_RTOL = 2e-2
+PHASE21_PARAM_STEPS = 1
+PHASE21_UPDATE_RTOL = 0.4
+PHASE21_MOMENT_STEPS = 16
+# 21d: Qwen3-4B prefill_32k -> handoff -> PHASE14_DECODE_STEPS greedy steps
+# on a (data 2, model 1) world, one sequence a rank, held to phase 18's
+# one-card run of the same cut (PHASE18A_LAYERS, batch 2): the tokens, and
+# the gathered prefill logits within this many bf16 steps (the control:
+# the rows swapped)
+PHASE21_SERVE_MESH = (2, 1)
+PHASE21_LOGIT_STEPS = 4
+PHASE21_PREDICTED = {
+    "21a": "loss and grad norm within 1e-4 / 5e-3 of one card's, params "
+           "within 1 bf16 step (mostly equal: the warm-up's learning rate "
+           "moves few bf16 weights), the update step's worst leaf 0.08-0.25 "
+           "relative L2 from one card's, its gather-back control 0.65-0.75, "
+           "moments 3.5-10 steps; the gradient control's norm 30-60 % off; "
+           "~3.2 GB of weights and 6.4 GB of moments a rank, peak 24-32 GiB "
+           "a rank; steps 2-4 s",
+    "21b": "loss within 1e-4, grad norm within 5e-3 (the backward psums "
+           "in bf16), the update step's worst leaf 0.1-0.3 relative L2, "
+           "moments 3.5-10 steps; the control's norm far off; ~1.6 GB of "
+           "weights and 6.4 GB of moments a rank; steps 2-4 s",
+    "21c": "loss within 1e-4, grad norm within 5e-3, the update step's "
+           "worst leaf 0.08-0.25 relative L2, moments 3.5-10 steps; the "
+           "control's norm 30-60 % off; every leaf split four ways (no "
+           "ZeRO-1 leaf): ~0.85 GB of weights and 3.4 GB of moments a rank, "
+           "peak 6-16 GiB a rank; steps 1.5-4 s",
+    "21d": "each rank the one-card program on its row: logits 0-2 bf16 "
+           "steps from the one-card run's, tokens equal; launches a rank "
+           "flash 4, flash_decode 16 (whole calls: model axis 1); 5 logit "
+           "gathers of 303,872 B a rank; prefill 2-5 s",
+    "phase_s": "100-140",
 }
 
 
@@ -7413,8 +7504,8 @@ def phase18(dev, held):
     14b's by rounding, so near-ties of the router flip); the bytes; 27
     flash launches a rank.
 
-    Returns the summed launches of both ranks' main paths and the
-    records."""
+    Returns the summed launches of both ranks' main paths and 18a's
+    one-card run (phase 21's witness for serving on a data axis)."""
     import torch
     from repro_torch.launch import ranks, serve
     t_phase = time.perf_counter()
@@ -7508,7 +7599,7 @@ def phase18(dev, held):
           "launches_both_ranks": dict(launches), "problems": bad})
     if bad:
         raise AssertionError(f"phase 18: {bad}")
-    return {"launches": dict(launches)}
+    return {"launches": dict(launches), "one_card_18a": one_a}
 
 
 @contextlib.contextmanager
@@ -8043,6 +8134,638 @@ def phase20(dev):
     return {"launches": dict(launches)}
 
 
+# --------------------------------------------------------------------------- #
+# phase 21: the data and pod axes of a mesh of ranks
+# --------------------------------------------------------------------------- #
+def phase21_batch(art, seed: int, dev):
+    """A train step's whole batch (``launch.train.train_batch``) with label
+    -1 on the second sequence's last PHASE21_UNLABELED positions."""
+    from repro_torch.launch import train
+    batch = train.train_batch(art, seed, dev)
+    batch["labels"][1, -PHASE21_UNLABELED:] = -1
+    return batch
+
+
+def phase21_steps(art, state, dev):
+    """One warm-up and PHASE21_STEPS steps of ``art`` from ``state`` over
+    ``phase21_batch(seed + i)``: each step's loss, grad norm and seconds
+    (after a synchronize), and the state."""
+    import torch
+    steps = []
+    for i in range(1 + PHASE21_STEPS):
+        batch = phase21_batch(art, SEED + i, dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = art.fn(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        _sync(dev)
+        steps.append({"loss": loss, "grad_norm": gnorm,
+                      "s": time.perf_counter() - t0})
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise FloatingPointError(f"phase 21 step {i}: {steps[-1]}")
+        del batch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return steps, state
+
+
+def phase21_witness(dev, part: str) -> dict:
+    """A training part's one-card witness: its arch and cut on the one-card
+    mesh at PHASE21_BATCH (``launch.train.train_state_on_rank`` at (1, 1),
+    the same seed), the same steps over the whole batch, then the update
+    step (``phase21_update_step``). Its parameters before and after the
+    update step and its final moments are kept in the host's pinned
+    memory ({path: tensor} trees) with each step's loss and norm, and the
+    card is freed for the ranks."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.training.tree import leaves_with_paths
+    arch, layers, _, n_micro = PHASE21_TRAIN[part]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    art, state = train.train_state_on_rank(arch, PHASE21_BATCH, n_micro,
+                                           layers, SEED, (1, 1), dev)
+    steps, state = phase21_steps(art, state, dev)
+    pin = dev.type == "cuda"
+
+    def pinned(tree):
+        return {p: torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
+                .copy_(x) for p, x in leaves_with_paths(tree)}
+    held = {"before": pinned(state.params)}
+    update, state = phase21_update_step(part, art.mesh, state, dev)
+    held.update((kind, pinned(tree)) for kind, tree in (
+        ("params", state.params), ("mu", state.opt["mu"]),
+        ("nu", state.opt["nu"])))
+    del state, art
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rec = {"phase": 21, "part": f"{part} one card", "steps": steps,
+           "update_step": update, "s": round(time.perf_counter() - t0, 3),
+           "peak_gib": _peak_gib(dev)}
+    emit(rec)
+    return {"steps": steps, "update_step": update, "held": held}
+
+
+def phase21_update_step(part: str, mesh, state, dev):
+    """The update step: the part's train artifacts on ``mesh`` stepping
+    AdamW at PHASE21_OPT, one step from ``state`` over
+    ``phase21_batch(SEED + 1 + PHASE21_STEPS)``. Returns ({"loss",
+    "grad_norm", "s"}, state)."""
+    from repro_torch.launch.cells import get_cell
+    from repro_torch.launch.steps import make_train_artifacts
+    arch, layers, _, n_micro = PHASE21_TRAIN[part]
+    cell = dataclasses.replace(get_cell(arch, "train_4k"),
+                               batch=PHASE21_BATCH, n_micro=n_micro)
+    with phase21_opt():
+        art = make_train_artifacts(cell, mesh,
+                                   layer_override={"num_layers": layers})
+    batch = phase21_batch(art, SEED + 1 + PHASE21_STEPS, dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    state, m = art.fn(state, batch)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "lr": float(m["lr"])}
+    _sync(dev)
+    out["s"] = time.perf_counter() - t0
+    return out, state
+
+
+def phase21_expected(part: str, mesh_shape) -> dict:
+    """The collectives a rank of a training part calls in its main path
+    (1 + PHASE21_STEPS steps), {name: {"calls", "bytes"}}, from the
+    deployed config and the specs alone (on ``meta``): per micro-batch,
+    on a model axis of m, the embedding's psum, each layer's K/V gather,
+    ``wo``'s and the MLP's psums, the logits' gather, the recompute's K/V
+    gather and ``wo`` psum (the remat's recompute stops at the last saved
+    tensor, before the MLP's psum), and the backward's psums at the
+    attention and MLP entries, the qk-norm weights and the K/V gather, and
+    the head's entry; on data axes the loss's two psums, each gradient
+    leaf's psum in slices of ``optim.SLICE_ELEMS`` rows (a leaf the data
+    axes do not split), ZeRO-3's gathers (the top-level leaves) and
+    broadcasts (a layer's leaves split on the layer axis) with the
+    recompute's and a psum each in the backward; per step one psum a
+    norm plane and one ZeRO-1 gather a leaf whose moments alone the data
+    axes split."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.cells import get_cell
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.serve import mesh_axes
+    from repro_torch.launch.steps import make_train_artifacts
+    from repro_torch.training.optim import SLICE_ELEMS
+    arch, layers, _, n_micro = PHASE21_TRAIN[part]
+    axes = mesh_axes(mesh_shape)
+    sizes = dict(zip(axes, mesh_shape))
+    cell = dataclasses.replace(get_cell(arch, "train_4k"),
+                               batch=PHASE21_BATCH, n_micro=n_micro)
+    art = make_train_artifacts(cell, Mesh(tuple(mesh_shape), axes,
+                                          _meta_device()),
+                               layer_override={"num_layers": layers})
+    cfg = art.cfg
+    m = sizes["model"]
+    data = tuple(a for a in axes if a != "model")
+    dp = math.prod(sizes[a] for a in data)
+    specs = art.in_shardings[0]
+    e = 2 if cfg.compute_dtype == "bfloat16" else 4
+    pe = 2 if cfg.param_dtype == "bfloat16" else 4
+    tokens = PHASE21_BATCH // dp // n_micro * cell.seq_len
+    micro = {"calls": collections.Counter(), "bytes": collections.Counter()}
+    step = {"calls": collections.Counter(), "bytes": collections.Counter()}
+
+    def add(to, name, n, total):
+        to["calls"][name] += n
+        to["bytes"][name] += total
+
+    d, kv, hd, L = cfg.d_model, cfg.num_kv_heads, cfg.hd, cfg.num_layers
+    act = tokens * d * e
+    if m > 1:
+        add(micro, "psum", 1, act)                        # embedding
+        add(micro, "psum", 2 * L, 2 * L * act)            # wo, MLP
+        add(micro, "all_gather", 2 * L,                   # K/V, recompute
+            2 * L * 2 * tokens * kv * hd // m * e)
+        add(micro, "psum", L, L * act)                    # recompute's wo
+        add(micro, "psum", 2 * L, 2 * L * act)            # attn, MLP entries
+        if cfg.qk_norm:
+            add(micro, "psum", 2 * L, 2 * L * hd * pe)    # q_norm, k_norm
+        add(micro, "psum", L, L * 2 * tokens * kv * hd * e)  # K/V's grad
+        add(micro, "psum", 1, act)                        # the head's entry
+        add(micro, "all_gather", 1, tokens * cfg.vocab_size // m * e)
+    if dp > 1:
+        add(micro, "psum", 2, 4 + 8)                      # numerator, count
+    planes = set()
+    model_only = Mesh(tuple(mesh_shape), axes, None, (0,) * len(axes))
+    for p, x in SH.named_leaves(art.abstract_args[0].params):
+        spec = specs[".params" + p]
+        local = SH.local_shape(tuple(x.shape), tuple(
+            "model" if "model" in SH._entry_axes(en) else None
+            for en in spec), model_only)
+        lb = math.prod(local) * x.element_size()
+        live = {a for en in spec for a in SH._entry_axes(en)
+                if sizes[a] > 1}
+        if live:
+            planes.add(tuple(sorted(live)))
+        if dp > 1 and live & set(data):                   # ZeRO-3
+            if "groups" in SH.path_names(p):
+                n, layer = local[0], lb // local[0]
+                name, part = (("broadcast", layer)
+                              if SH.model_dim(spec, data[0]) == 0
+                              else ("all_gather", layer // dp))
+                add(micro, name, 2 * n, 2 * n * part)     # + recompute
+                add(micro, "psum", n, n * layer)
+            else:
+                add(micro, "all_gather", 1, lb // dp)
+                add(micro, "psum", 1, lb)
+        elif dp > 1:                                      # the data psum
+            rows = max(1, SLICE_ELEMS // max(1, math.prod(local[1:])))
+            add(micro, "psum", -(-local[0] // rows), lb)
+            if SH.model_dim(specs[".opt['mu']" + p], data[0]) is not None:
+                add(step, "all_gather", 1, lb // dp)      # ZeRO-1
+    add(step, "psum", len(planes), 4 * len(planes))       # the norm
+    steps = 1 + PHASE21_STEPS
+    return {name: {k: steps * (n_micro * micro[k][name] + step[k][name])
+                   for k in ("calls", "bytes")}
+            for name in ("psum", "all_gather", "exchange", "broadcast")}
+
+
+def _meta_device():
+    import torch
+    return torch.device("meta")
+
+
+def _bf16_steps(got, want) -> float:
+    """The largest gap of ``got`` from ``want`` in bf16 steps of ``want``'s
+    largest magnitude (``bf16_step``)."""
+    step = bf16_step(want)
+    gap = float((got.float() - want.float()).abs().max())
+    return gap / step if step else (0.0 if gap == 0 else math.inf)
+
+
+_PHASE21_KEPT: dict = {}          # a rank's trained state, between calls
+
+
+@contextlib.contextmanager
+def phase21_opt():
+    """The train artifacts built inside the block step AdamW at
+    PHASE21_OPT."""
+    from repro_torch.launch import steps
+    from repro_torch.training.optim import AdamWConfig
+    saved = steps.AdamWConfig
+    steps.AdamWConfig = functools.partial(AdamWConfig, **PHASE21_OPT)
+    try:
+        yield
+    finally:
+        steps.AdamWConfig = saved
+
+
+@contextlib.contextmanager
+def phase21_left_out(skip: str, mesh):
+    """A control: the reduction ``skip`` names left out inside the block —
+    ``"column_entry"`` (the column-parallel entries, whose backward sums
+    over the model axis), ``"data_grads"`` (every sum of gradients over
+    the data plane: the train step's per-leaf psum and ZeRO-3's gather
+    backward)."""
+    from repro_torch.models import collectives as C
+    from repro_torch.training import train_step as T
+    data = mesh.axis_shard(tuple(a for a in mesh.axis_names
+                                 if a != "model"))
+    saved = (C.column_entry, C._summed, T.reduce_grads)
+    summed = C._summed
+    if skip == "column_entry":
+        C.column_entry = lambda x, shard: x
+    elif skip == "data_grads":
+        C._summed = lambda g, shard: (g.clone() if shard == data
+                                      else summed(g, shard))
+        T.reduce_grads = lambda grads, layout: grads
+    else:
+        raise ValueError(skip)
+    try:
+        yield
+    finally:
+        C.column_entry, C._summed, T.reduce_grads = saved
+
+
+def phase21_rank(rank, part: str):
+    """A training part's rank: the rank's shards of the seed's train state
+    (``launch.train.train_state_on_rank``, what ``python -m
+    repro_torch.launch.train --mesh DxM [--multi-pod]`` runs), its control
+    first (the first step's gradients from the same state with the part's
+    reduction left out: their norm), then the main path — a warm-up and
+    PHASE21_STEPS steps, the collectives and launches counted — and the
+    update step (``phase21_update_step``). The final state, a copy of the
+    parameters before the update step and where each leaf's ZeRO-1 slice
+    lies wait in the rank for ``phase21_hold``. Returns the rank's record
+    (host values)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import mesh_axes
+    from repro_torch.models import collectives as C
+    from repro_torch.training.optim import global_norm
+    from repro_torch.training.tree import leaves_with_paths
+    arch, layers, shape, n_micro = PHASE21_TRAIN[part]
+    dev = rank.device
+    t0 = time.perf_counter()
+    make_mesh(shape, mesh_axes(shape), dev)      # the groups, made once
+    mesh_s = time.perf_counter() - t0
+    art, state = train.train_state_on_rank(arch, PHASE21_BATCH, n_micro,
+                                           layers, SEED, shape, dev)
+    mesh = art.mesh
+    init_s = time.perf_counter() - t0
+    abs_state = art.abstract_args[0]
+    pspecs, ospecs = train.state_specs(art, ".params"), \
+        train.state_specs(art, ".opt")
+    moments = {"mu": state.opt["mu"], "nu": state.opt["nu"]}
+    nbytes = {"params": [SH.local_bytes(state.params), SH.per_chip_bytes(
+        abs_state.params, pspecs, mesh.shape)],
+        "moments": [SH.local_bytes(moments), SH.per_chip_bytes(
+            {"mu": abs_state.opt["mu"], "nu": abs_state.opt["nu"]}, ospecs,
+            mesh.shape)]}
+    batch = phase21_batch(art, SEED, dev)
+    with phase21_left_out(PHASE21_CONTROL[part], mesh):
+        _, grads = art.fn.grads(state, batch)
+        control = float(global_norm(grads, art.fn.layout))
+    del grads, batch
+    gc.collect()
+    C.reset_stats()
+    ops.reset_launch_counts()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    steps, state = phase21_steps(art, state, dev)
+    rec = {"rank": rank.index, "device": dev.type, "mesh_s": mesh_s,
+           "init_s": init_s, "steps": steps, "control_grad_norm": control,
+           "bytes": nbytes, "collectives": C.stats(),
+           "launches": ops.launch_counts(), "peak_gib": _peak_gib(dev)}
+    if dev.type == "cuda":
+        free, total = torch.cuda.mem_get_info(dev)
+        rec["card_used_gib"] = (total - free) / 2 ** 30
+        if rank.index == 0:
+            rec["nvidia_smi_used"] = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader"], capture_output=True,
+                text=True).stdout.strip()
+    layout = art.fn.layout
+    before, zero = {}, {}
+    for i, (p, x) in enumerate(leaves_with_paths(state.params)):
+        before[p] = x.clone()
+        d = layout.zero[i] if layout is not None else None
+        zero[p] = None if d is None else (d,) + layout.dp.part(x.shape[d])
+    rec["update_step"], state = phase21_update_step(part, mesh, state, dev)
+    _PHASE21_KEPT.update(state=state, mesh=mesh, specs=(pspecs, ospecs),
+                         before=before, zero=zero)
+    del art
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _update_sums(x, x0, w, w0, zero) -> list:
+    """A parameter leaf's [|dx - dw|^2, |dw|^2, |dc - dw|^2] in float32,
+    over slices of its first axis: the rank's update dx = x - x0 against
+    the witness's dw = w - w0 (its slice), and the control's dc — dx
+    inside the rank's ZeRO-1 slice ``zero`` = (dim, lo, hi), none outside
+    it (None: no control, 0)."""
+    import torch
+    rows = max(1, (1 << 26) // max(1, x[0].numel())) if x.dim() > 1 else None
+    parts = zip(*(torch.split(t, rows) if rows else (t,)
+                  for t in (x, x0, w, w0)))
+    sums, start = [0.0, 0.0, 0.0], 0
+    for xs, x0s, ws, w0s in parts:
+        dw = ws.float() - w0s.float()
+        diff = xs.float() - x0s.float() - dw
+        sums[0] += float(diff.square().sum())
+        sums[1] += float(dw.square().sum())
+        if zero is not None:
+            dim, lo, hi = zero
+            ctrl = -dw
+            if dim == 0:
+                a, b = max(lo - start, 0), min(hi - start, xs.shape[0])
+                if a < b:
+                    ctrl[a:b] = diff[a:b]
+            else:
+                ctrl.narrow(dim, lo, hi - lo).copy_(
+                    diff.narrow(dim, lo, hi - lo))
+            sums[2] += float(ctrl.square().sum())
+        start += xs.shape[0] if xs.dim() else 1
+    return sums
+
+
+def _relative(num: float, den: float) -> float:
+    return math.sqrt(num / den) if den else (0.0 if num == 0 else math.inf)
+
+
+def phase21_hold(rank, part: str, held: dict):
+    """The rank's parameters and moments (``phase21_rank``'s, kept in the
+    rank) held to the one-card witness's ``held`` (on the card, mapped
+    here): the parameters before the update step and the final moments,
+    the largest gap of each kind in bf16 steps of the witness slice's
+    largest magnitude; each parameter leaf's update in the update step
+    against the witness's, as a relative L2 gap, and the same with the
+    leaves of a ZeRO-1 slice updated only there (the control); the worst
+    leaf of each. The state is dropped. Returns {"gaps", "update",
+    "step", "hold_s"}."""
+    import torch
+    from repro_torch.launch import sharding as SH
+    from repro_torch.training.tree import leaves_with_paths
+    t0 = time.perf_counter()
+    state, mesh = _PHASE21_KEPT.pop("state"), _PHASE21_KEPT.pop("mesh")
+    pspecs, ospecs = _PHASE21_KEPT.pop("specs")
+    before, zero = _PHASE21_KEPT.pop("before"), _PHASE21_KEPT.pop("zero")
+    update = {"worst": (-1.0, None), "control": (-1.0, None),
+              "whole": [0.0, 0.0], "zero1_leaves": 0}
+    for p, x in leaves_with_paths(state.params):
+        w, w0 = (SH.rank_slice(held[k][p], pspecs[p], mesh).to(x.device)
+                 for k in ("params", "before"))
+        sums = _update_sums(x, before[p], w, w0, zero[p])
+        gap = _relative(sums[0], sums[1])
+        ctrl = _relative(sums[2], sums[1]) if zero[p] else gap
+        update["zero1_leaves"] += zero[p] is not None
+        update["whole"][0] += sums[0]
+        update["whole"][1] += sums[1]
+        for key, g in (("worst", gap), ("control", ctrl)):
+            if g > update[key][0]:
+                update[key] = (g, p)
+    update = {"relative_l2": update["worst"][0], "leaf": update["worst"][1],
+              "whole_relative_l2": _relative(*update["whole"]),
+              "control_relative_l2": update["control"][0],
+              "control_leaf": update["control"][1],
+              "zero1_leaves": update["zero1_leaves"]}
+    gaps = {}
+    for kind, tree, specs, prefix in (
+            ("params", before, pspecs, ""),
+            ("mu", dict(leaves_with_paths(state.opt["mu"])), ospecs,
+             "['mu']"),
+            ("nu", dict(leaves_with_paths(state.opt["nu"])), ospecs,
+             "['nu']")):
+        worst = (-1.0, None)
+        for p, x in tree.items():
+            want = SH.rank_slice(held["before" if kind == "params" else kind]
+                                 [p], specs[prefix + p], mesh)
+            if tuple(want.shape) != tuple(x.shape):
+                raise AssertionError(f"{part} {kind}{p}: {tuple(x.shape)} "
+                                     f"on the rank, {tuple(want.shape)} "
+                                     "the witness's slice")
+            gap = _bf16_steps(x, want.to(x.device))
+            if gap > worst[0]:
+                worst = (gap, p)
+        gaps[kind] = {"bf16_steps": worst[0], "leaf": worst[1]}
+    out = {"gaps": gaps, "update": update, "step": int(state.opt["step"])}
+    del state, held, before
+    gc.collect()
+    if rank.device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["hold_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase21_train_problems(part: str, recs, witness) -> list:
+    """A training part's problems: every rank's losses and norms within
+    PHASE21_LOSS_RTOL / PHASE21_GNORM_RTOL of the witness's steps, the
+    control's first-step norm past it (the update step's loss and norm
+    too); parameters after the main path within PHASE21_PARAM_STEPS bf16
+    steps; every parameter leaf's update in the update step within
+    PHASE21_UPDATE_RTOL, the gather-back control past it where a leaf
+    has a ZeRO-1 slice; the final moments within PHASE21_MOMENT_STEPS
+    bf16 steps; bytes equal to ``per_chip_bytes``; no kernel launched;
+    the collectives of the main path as ``phase21_expected`` predicts."""
+    bad = []
+    want = witness["steps"] + [witness["update_step"]]
+    expect = phase21_expected(part, PHASE21_TRAIN[part][2])
+    for r in recs:
+        who = f"{part} rank {r['rank']}"
+        for i, (got, w) in enumerate(zip(r["steps"] + [r["update_step"]],
+                                         want)):
+            for key, tol in (("loss", PHASE21_LOSS_RTOL),
+                             ("grad_norm", PHASE21_GNORM_RTOL)):
+                gap = abs(got[key] - w[key]) / abs(w[key])
+                if not gap <= tol:
+                    bad.append(f"{who} step {i} {key}: {got[key]} against "
+                               f"{w[key]} (relative {gap} > {tol})")
+        c_gap = abs(r["control_grad_norm"] - want[0]["grad_norm"]) \
+            / want[0]["grad_norm"]
+        r["control_relative_gap"] = c_gap
+        if c_gap <= PHASE21_GNORM_RTOL:
+            bad.append(f"{who}: the control's norm {r['control_grad_norm']}"
+                       f" passes ({c_gap} of {want[0]['grad_norm']})")
+        u = r["update"]
+        if not u["relative_l2"] <= PHASE21_UPDATE_RTOL:
+            bad.append(f"{who} update: relative L2 gap {u['relative_l2']} "
+                       f"at {u['leaf']} (bound {PHASE21_UPDATE_RTOL})")
+        if u["zero1_leaves"] and \
+                not u["control_relative_l2"] > PHASE21_UPDATE_RTOL:
+            bad.append(f"{who}: the gather-back control's update passes "
+                       f"({u['control_relative_l2']})")
+        for kind, limit in (("params", PHASE21_PARAM_STEPS),
+                            ("mu", PHASE21_MOMENT_STEPS),
+                            ("nu", PHASE21_MOMENT_STEPS)):
+            g = r["gaps"][kind]
+            if not g["bf16_steps"] <= limit:
+                bad.append(f"{who} {kind}: {g['bf16_steps']} bf16 steps at "
+                           f"{g['leaf']} (bound {limit})")
+        if r["step"] != 2 + PHASE21_STEPS:
+            bad.append(f"{who}: step {r['step']}")
+        for what, (have, predicted) in r["bytes"].items():
+            if have != predicted:
+                bad.append(f"{who} {what}: {have} bytes, per_chip_bytes "
+                           f"{predicted}")
+        if any(r["launches"].values()):
+            bad.append(f"{who}: training launched {r['launches']}")
+        for name, w in expect.items():
+            got = {k: r["collectives"][name][k] for k in ("calls", "bytes")}
+            if got != w:
+                bad.append(f"{who} {name}: {got}, predicted {w}")
+    return bad
+
+
+def phase21_world(dev, size: int):
+    """A world of ``size`` ranks on the card for phase 21 (segments grown
+    rather than cut anew, as ``mesh_world``)."""
+    from repro_torch.launch import ranks
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        return ranks.start(size, dev, timeout_s=PHASE18_TIMEOUT_S)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+
+
+def phase21_train(dev, world, part: str, bad: list, parts_s: dict):
+    """A training part: its witness in this process, then every rank of
+    ``world``, held (``phase21_train_problems``); prints its record."""
+    import torch
+    t0 = time.perf_counter()
+    witness = phase21_witness(dev, part)
+    t1 = time.perf_counter()
+    recs = world.run(phase21_rank, part)
+    ranks_s = time.perf_counter() - t1
+    held = {kind: {p: x.to(dev, non_blocking=True) for p, x in tree.items()}
+            for kind, tree in witness.pop("held").items()}
+    _sync(dev)
+    for r, h in zip(recs, world.run(phase21_hold, part, held)):
+        r.update(h)
+    del held
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.ipc_collect()        # the ranks' mappings are closed
+        torch.cuda.empty_cache()
+    part_bad = phase21_train_problems(part, recs, witness)
+    parts_s[part] = round(time.perf_counter() - t0, 3)
+    arch, layers, shape, n_micro = PHASE21_TRAIN[part]
+    emit({"phase": 21, "part": part, "model": f"{arch} x{layers} layers",
+          "mesh": list(shape), "n_micro": n_micro, "batch": PHASE21_BATCH,
+          "backend": world.backend, "part_s": parts_s[part],
+          "ranks_s": round(ranks_s, 3),
+          "steps_one_card": witness["steps"], "ranks": recs,
+          "collectives_expected": phase21_expected(part, shape),
+          "update_step_adamw": PHASE21_OPT,
+          "update_step_one_card": witness["update_step"],
+          "bounds": {"loss_rtol": PHASE21_LOSS_RTOL,
+                     "grad_norm_rtol": PHASE21_GNORM_RTOL,
+                     "param_bf16_steps": PHASE21_PARAM_STEPS,
+                     "update_relative_l2": PHASE21_UPDATE_RTOL,
+                     "moment_bf16_steps": PHASE21_MOMENT_STEPS},
+          "control": PHASE21_CONTROL[part],
+          "predicted": PHASE21_PREDICTED[part], "problems": part_bad})
+    bad += part_bad
+
+
+def phase21_serve(world, one: dict, bad: list, parts_s: dict):
+    """21d: Qwen3-4B prefill_32k -> handoff -> PHASE14_DECODE_STEPS greedy
+    steps through ``serve.programs_on_rank`` (what ``python -m
+    repro_torch.launch.serve --mesh 2x1`` runs) on a (data 2, model 1)
+    world, one sequence a rank, held to phase 18's one-card run ``one``
+    of the same cut: the tokens, the gathered prefill logits within
+    PHASE21_LOGIT_STEPS bf16 steps (the rows swapped fail it), D's shards
+    of PHASE18_CHECK_LAYERS bit for bit the realignment of P's, bytes,
+    launches a rank equal to the one-card run's, 5 logit gathers a rank.
+    Returns the launches summed over the ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    steps = PHASE14_DECODE_STEPS
+    recs = world.run(serve.programs_on_rank, MODEL14, "decode_32k",
+                     PHASE14_BATCH["14a"], steps, PHASE18A_LAYERS, SEED,
+                     PHASE21_SERVE_MESH, PHASE18_CHECK_LAYERS, True)
+    parts_s["21d"] = round(time.perf_counter() - t0, 3)
+    for r in recs:
+        r.pop("step_logits", None)
+    rec = serve.mesh_record(recs, world.backend)
+    n = rec["layers"]
+    expect = {"flash_attention": n, "flash_decode": n * steps}
+    part_bad = rank_problems("21d", recs, expect)
+    if {k: v for k, v in one["launches"].items() if v} != expect:
+        part_bad.append(f"21d: the one-card run launched {one['launches']}, "
+                        f"its path {expect}")
+    if not rec["handoff_held_all_ranks"]:
+        part_bad.append(f"21d: D's shards are not P's reshard: "
+                        f"{[r['handoff_held'] for r in recs]}")
+    logits = rec.pop("prefill_logits")
+    vs = held_to_launch("21d", logits, one["last_logits"], logits.flip(0),
+                        PHASE21_LOGIT_STEPS)
+    part_bad += vs.pop("problems")
+    part_bad += [f"21d {p}" for p in tokens_held(
+        rec["tokens"], one["tokens"], one["token_gaps"])]
+    vocab = get_config(MODEL14).vocab_size
+    gathers = {"calls": 1 + steps, "bytes": (1 + steps) * vocab * 2}
+    for r in rec["ranks"]:
+        got = {k: r["collectives"]["all_gather"][k]
+               for k in ("calls", "bytes")}
+        if got != gathers or r["collectives"]["psum"]["calls"]:
+            part_bad.append(f"21d rank {r['rank']}: collectives "
+                            f"{r['collectives']}, predicted gathers "
+                            f"{gathers} and no psum")
+    emit({"phase": 21, "part": "21d", "model": f"{MODEL14} x{n} layers",
+          "mesh": list(PHASE21_SERVE_MESH), "batch": PHASE14_BATCH["14a"],
+          "part_s": parts_s["21d"], **rec, "tokens_one_card": one["tokens"],
+          "vs_one_card": vs, "launches_expected": expect,
+          "gathers_expected": gathers,
+          "predicted": PHASE21_PREDICTED["21d"], "problems": part_bad})
+    bad += part_bad
+    launches = collections.Counter()
+    for r in recs:
+        launches.update(r["launches"])
+    return launches
+
+
+def phase21(dev, one_18a: dict):
+    """The data and pod axes of a mesh of ranks on the card. 21a-21c train
+    (``PHASE21_TRAIN``): each part's one-card witness runs first in this
+    process (``phase21_witness``: its final parameters and moments kept in
+    pinned host memory, the card freed), then every rank of a world runs
+    the part's launcher program with its control (``phase21_rank``); then
+    the witness's state goes back to the card and the ranks map it to
+    hold theirs (``phase21_hold``; ``phase21_train_problems``). 21a and 21b share a world of two ranks
+    with 21d (``phase21_serve``: serving on a data axis, held to phase
+    18's one-card run ``one_18a``); 21c runs on a world of four. Returns
+    the launches summed over 21d's ranks (training launches none)."""
+    import torch
+    t_phase = time.perf_counter()
+    _mem_line(dev, "21", phase=21)
+    bad, parts_s = [], {}
+    with phase21_world(dev, 2) as world:
+        for part in ("21a", "21b"):
+            phase21_train(dev, world, part, bad, parts_s)
+        launches = phase21_serve(world, one_18a, bad, parts_s)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with phase21_world(dev, 4) as world:
+        phase21_train(dev, world, "21c", bad, parts_s)
+    emit({"phase": 21, "phase_s": round(time.perf_counter() - t_phase, 3),
+          "parts_s": parts_s, "launches_all_ranks": dict(launches),
+          "predicted_s": PHASE21_PREDICTED["phase_s"], "problems": bad})
+    if bad:
+        raise AssertionError(f"phase 21: {bad}")
+    return {"launches": dict(launches)}
+
+
 KERNELS = [
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
      "src/repro/kernels/flash_attention.py:78", 3),
@@ -8064,7 +8787,8 @@ KERNELS = [
      "src/repro/kernels/flash_attention.py:78", 18),
 ]
 # phases 19 and 20 also launch flash_decode_partial and decode_combine
-# (and flash): the rows' launches_by_phase carry them
+# (and flash), phase 21 flash and flash_decode: the rows'
+# launches_by_phase carry them
 
 
 def main() -> int:
@@ -8082,6 +8806,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # compiled bytecode kept in the checkout's build directory, for this
+    # process and every process it starts: where the installed packages
+    # carry no bytecode, each fresh rank or worker would compile the
+    # modules that meta tensors import (about 7 s a process on the card's
+    # machine) anew
+    pycache = ROOT / "build" / "pycache"
+    pycache.mkdir(parents=True, exist_ok=True)
+    sys.pycache_prefix = str(pycache)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(pycache)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
@@ -8179,6 +8912,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths[20] = phase20(dev)
     lap("20")
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths[21] = phase21(dev, paths[18].pop("one_card_18a"))
+    lap("21")
 
     rows = []
     for name, source, replaces, phase in KERNELS:

@@ -16,7 +16,12 @@ calling rank's mesh: its coordinates (rank r sits at r's row-major
 coordinates over the axes) and, for each axis of more than one rank, an
 ``AxisShard`` — its coordinate on the axis and the process group of its
 axis line, the groups that ``models/collectives.py`` reduces and gathers
-over. A program on such a mesh holds and computes the rank's shards
+over. A tuple of axes names a plane: the ranks that share every other
+coordinate, indexed row-major over the tuple's axes in mesh order (as a
+spec entry ``("pod", "data")`` reads it), with a group of its own
+(``axis_shard(("pod", "data"))``: the data axes of a multi-pod mesh,
+over which the batch is split and the gradients are summed). A program
+on such a mesh holds and computes the rank's shards
 (``launch/sharding.py``, ``launch/steps.py``). Outside a world a mesh of
 more than one device runs only on ``meta``, as a count of the whole
 program; anywhere else it raises (``check_runnable``).
@@ -26,7 +31,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.distributed as tdist
@@ -44,6 +49,9 @@ class Mesh:
     # AxisShard (None for an axis of one rank); () outside a world
     coords: Tuple[int, ...] = ()
     shards: Tuple[Optional[AxisShard], ...] = ()
+    # in a world: (axes, AxisShard) of each plane of two or more axes of
+    # more than one rank, the axes in mesh order
+    planes: Tuple[Tuple[Tuple[str, ...], AxisShard], ...] = ()
 
     @property
     def in_world(self) -> bool:
@@ -51,12 +59,30 @@ class Mesh:
         of more than one rank."""
         return bool(self.coords) and self.size > 1
 
-    def axis_shard(self, axis: str) -> Optional[AxisShard]:
-        """The calling rank's place on ``axis``, or None (an axis of one
-        rank, or a mesh outside a world)."""
-        if not self.shards or axis not in self.axis_names:
+    def axis_shard(self, axis: Union[str, Tuple[str, ...]]
+                   ) -> Optional[AxisShard]:
+        """The calling rank's place on ``axis`` — a name, or a tuple of
+        names in mesh order (the plane of those axes; its axes of one
+        rank drop out) —, or None (no axis of more than one rank among
+        them, or a mesh outside a world)."""
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        if not self.shards:
             return None
-        return self.shards[self.axis_names.index(axis)]
+        unknown = [a for a in names if a not in self.axis_names]
+        if unknown and isinstance(axis, str):
+            return None
+        if unknown:
+            raise ValueError(f"no axes {unknown} in {self.axis_names}")
+        order = [self.axis_names.index(a) for a in names]
+        if order != sorted(order):
+            raise ValueError(f"axes {names} out of the mesh's order "
+                             f"{self.axis_names}")
+        live = tuple(a for a in names if self.shape[a] > 1)
+        if not live:
+            return None
+        if len(live) == 1:
+            return self.shards[self.axis_names.index(live[0])]
+        return dict(self.planes)[live]
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -76,8 +102,7 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh(shape, axes)
 
 
-_LINES: Dict[Tuple, Tuple[Tuple[int, ...], Tuple[Optional[AxisShard], ...]]] \
-    = {}
+_LINES: Dict[Tuple, Tuple] = {}
 
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
@@ -87,8 +112,8 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
     mesh. Inside a ``torch.distributed`` world of ``prod(shape)`` ranks
     it is the calling rank's mesh, with its coordinates and its axis
     lines' groups; every rank must call it with the same shape, since
-    each axis line's group is created by all of them (once a process,
-    then reused). A world of another size raises."""
+    each axis line's and plane's group is created by all of them (once a
+    process, then reused). A world of another size raises."""
     shape, axes = tuple(shape), tuple(axes)
     dev = _dev.resolve(device)
     n = math.prod(shape)
@@ -99,34 +124,51 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
                          f"{tdist.get_world_size()} ranks")
     key = (shape, axes, id(tdist.group.WORLD))
     if key not in _LINES:
-        _LINES[key] = _rank_lines(shape, tdist.get_rank())
-    coords, shards = _LINES[key]
-    return Mesh(shape, axes, dev, coords, shards)
+        _LINES[key] = _rank_lines(shape, axes, tdist.get_rank())
+    coords, shards, planes = _LINES[key]
+    return Mesh(shape, axes, dev, coords, shards, planes)
 
 
-def _rank_lines(shape, rank: int):
-    """The coordinates of ``rank`` and its AxisShard per axis: every
-    line of every axis of more than one rank gets a group (each process
-    creates them all, in one order), and the rank keeps its own."""
+def _rank_lines(shape, axes, rank: int):
+    """The coordinates of ``rank``, its AxisShard per axis and per plane:
+    every line of every axis of more than one rank, and every plane of two
+    or more such axes, gets a group (each process creates them all, in
+    one order), and the rank keeps its own."""
     coords = _unravel(rank, shape)
-    shards = []
-    for a, size in enumerate(shape):
-        if size == 1:
-            shards.append(None)
-            continue
-        mine = None
-        others = [range(s) for i, s in enumerate(shape) if i != a]
-        for rest in itertools.product(*others):
-            line = []
-            for i in range(size):
-                c = list(rest)
-                c.insert(a, i)
-                line.append(_ravel(c, shape))
-            group = tdist.new_group(ranks=line)
-            if rank in line:
-                mine = AxisShard(coords[a], size, group, tuple(line))
-        shards.append(mine)
-    return coords, tuple(shards)
+    live = [a for a, size in enumerate(shape) if size > 1]
+    shards: list = [None] * len(shape)
+    planes = []
+    for n in range(1, len(live) + 1):
+        for dims in itertools.combinations(live, n):
+            mine = _plane_group(shape, coords, dims)
+            if n == 1:
+                shards[dims[0]] = mine
+            else:
+                planes.append((tuple(axes[a] for a in dims), mine))
+    return coords, tuple(shards), tuple(planes)
+
+
+def _plane_group(shape, coords, dims) -> AxisShard:
+    """Groups for every plane over the mesh dims ``dims`` (each the ranks
+    that share the other coordinates, row-major over ``dims``); returns
+    the calling rank's, whose coordinates are ``coords``."""
+    sizes = [shape[a] for a in dims]
+    others = [range(s) if i not in dims else (None,)
+              for i, s in enumerate(shape)]
+    mine = None
+    for rest in itertools.product(*others):
+        members = []
+        for inner in itertools.product(*(range(s) for s in sizes)):
+            c = list(rest)
+            for a, i in zip(dims, inner):
+                c[a] = i
+            members.append(_ravel(c, shape))
+        group = tdist.new_group(ranks=members)
+        if all(rest[i] == coords[i] for i in range(len(shape))
+               if i not in dims):
+            index = _ravel([coords[a] for a in dims], sizes)
+            mine = AxisShard(index, len(members), group, tuple(members))
+    return mine
 
 
 def _unravel(rank: int, shape) -> Tuple[int, ...]:
@@ -160,8 +202,8 @@ def check_runnable(mesh: Mesh) -> torch.device:
     if mesh.size > 1 and mesh.device.type != "meta" and not mesh.in_world:
         raise NotImplementedError(
             f"a program over {mesh.size} devices runs in a world of as "
-            "many ranks (launch/ranks.py), each calling make_mesh — see "
-            "ROADMAP queue 1 item 14 (a multi-GPU mesh)")
+            "many ranks (launch/ranks.py), each calling make_mesh, or on "
+            "meta as a count")
     return mesh.device
 
 

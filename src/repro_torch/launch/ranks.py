@@ -13,8 +13,11 @@ temporary directory, each on one device.
 name), called as ``fn(rank, *args)`` with ``rank`` a ``Rank`` (its index,
 the world's size, the backend, its device); what it returns comes back
 to the parent through a queue, so it must pickle: CPU tensors and plain
-values, not CUDA tensors. A rank builds its mesh with
-``launch.mesh.make_mesh`` inside ``fn``.
+values, not CUDA tensors. The CPU tensors of ``args`` reach every rank as
+one shared-memory copy (``torch.multiprocessing`` moves their storage
+there, the parent's included): a rank that updates one in place must
+copy it first. A rank builds its mesh with ``launch.mesh.make_mesh``
+inside ``fn``.
 
 The backend is chosen by one rule, stated and returned (``World.backend``):
 ``nccl`` when every rank has a card of its own (a CUDA world with at

@@ -7,30 +7,32 @@ becomes seconds and peak GiB of a run on the card).
   python -m repro_torch.launch.serve --arch qwen3-4b --shape decode_32k --batch 2
   python -m repro_torch.launch.serve --arch qwen3-4b --mesh 1x2
 
-``--mesh 1x2`` (data x model) runs the programs with tensor parallelism
-on a model axis of 2: a world of two ranks (``launch/ranks.py``; gloo
-when they share one card, their collectives' tensors crossing in the
-card's memory, NCCL when each has its own), each holding the
-shards the launch layer's specs give it and computing with the
+``--mesh DxM`` (data x model) runs the programs on a mesh of D x M
+ranks: ``1x2`` tensor parallelism on a model axis of 2, ``2x1`` the
+batch split over a data axis of 2, and ``--multi-pod`` adds a pod axis
+of 2 in front (``(pod 2, data D, model M)``, the data axes ``("pod",
+"data")``): a world of as many ranks (``launch/ranks.py``; gloo when they
+share one card, their collectives' tensors crossing in the card's
+memory, NCCL when each has its own), each holding the shards and batch
+rows the launch layer's specs give it and computing with the
 collectives they force. It prints one record: each program's seconds
 (rank 0's), the backend, every rank's peak GiB, its parameter and cache
 bytes beside ``per_chip_bytes``, its collective seconds on the host clock
-and the tokens (the vocab-sharded logits gathered for the greedy token).
-Two ranks on one card run the two-card program — the same shards,
-collectives and bytes a rank — but not its time. Every family serves
-there: dense, MoE, MLA (DeepSeek-V2-Lite), ring (Mixtral-8x7B), RG-LRU
-hybrid (RecurrentGemma-9B), SSD (Mamba2-370M), vision (InternVL2-2B,
-patches before the prompt) and encoder-decoder (Whisper-large-v3, frames
-for the encoder), D's caches float8 for qwen1.5-32b; a data axis above 1
-raises (ROADMAP queue 1 item 14).
+and the tokens (the logits gathered over the model axis's vocab shards
+and the data axes' rows for the greedy tokens). Ranks on one card run
+the many-card program — the same shards, collectives and bytes a rank —
+but not its time. Every family serves there: dense, MoE, MLA
+(DeepSeek-V2-Lite), ring (Mixtral-8x7B), RG-LRU hybrid
+(RecurrentGemma-9B), SSD (Mamba2-370M), vision (InternVL2-2B, patches
+before the prompt) and encoder-decoder (Whisper-large-v3, frames for the
+encoder), D's caches float8 for qwen1.5-32b.
 
 Weights are random from ``--seed``, tokens from ``default_rng(seed)``.
 Every assigned arch's decode runs on the card: D's dense caches of a
 sliding-window arch (mixtral-8x7b, recurrentgemma-9b) are rings of the
 window and qwen1.5-32b's are float8 e4m3 (the handoff's cast), and both
 go through the flash_decode kernel; the rest through flash.
-``--layers`` cuts the depth. ``--multi-pod`` raises: its pod axis is
-ROADMAP queue 1 item 14.
+``--layers`` cuts the depth.
 
 ``--demo`` runs ``examples/torch_serve_disagg.py --requests 8 --max-new
 8`` in a subprocess, as the reference's ``--demo`` runs its example:
@@ -68,13 +70,13 @@ def _peak_gib(dev: torch.device) -> Optional[float]:
 
 def run_programs(arch: str, shape: str = "decode_32k", batch: int = 2,
                  steps: int = 4, layers: Optional[int] = None, seed: int = 0,
-                 device=None, mesh: Tuple[int, int] = (1, 1),
+                 device=None, mesh: Tuple[int, ...] = (1, 1),
                  keep_logits: bool = False) -> Dict[str, Any]:
     """Prefill ``batch`` random prompts of the prefill cell's length, hand
     the caches to D and decode ``steps`` greedy tokens through the step
     builders (``shape="prefill_32k"`` or ``steps=0``: the prefill alone).
-    ``mesh`` (data, model): the one-card mesh by default, or with a model
-    axis above 1 a world of as many ranks (``launch.ranks``). Every rank,
+    ``mesh`` (data, model) or (pod, data, model): the one-card mesh by
+    default, or a world of as many ranks (``launch.ranks``). Every rank,
     the lone one included, runs ``programs_on_rank``; returns their
     ``mesh_record`` (each program's seconds, the tokens, the device's
     name, per rank peak GiB, bytes, collectives and launches) with the
@@ -101,15 +103,16 @@ def run_programs(arch: str, shape: str = "decode_32k", batch: int = 2,
 
 def programs_on_rank(rank, arch: str, shape: str, batch: int, steps: int,
                      layers: Optional[int], seed: int,
-                     mesh_shape: Tuple[int, int],
+                     mesh_shape: Tuple[int, ...],
                      check_layers: Sequence[int] = (),
                      keep_logits: bool = False) -> Dict[str, Any]:
     """One rank's part of ``run_programs`` (run by ``launch.ranks`` on a
     mesh of ranks; called directly on the one-card mesh, where the
     collectives are the identity): its mesh, its shards of the seed's
     weights (drawn whole one layer at a time and cut,
-    ``sharding.param_keeper``), the same prompts on every rank, then
-    prefill → handoff → ``steps`` greedy steps, the logits gathered for
+    ``sharding.param_keeper``), the same prompts on every rank (each step
+    cuts them to the rank's rows), then prefill → handoff → ``steps``
+    greedy steps, the logits gathered over the model and data axes for
     each token. Returns the rank's record (CPU values): seconds, peak
     GiB, bytes beside ``per_chip_bytes``, collective calls / seconds /
     bytes, launches, tokens, the handoff check of ``check_layers`` (layers
@@ -120,7 +123,7 @@ def programs_on_rank(rank, arch: str, shape: str, batch: int, steps: int,
     from repro_torch.kernels import ops
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.cells import get_cell
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import data_axes, make_mesh
     from repro_torch.launch.steps import (make_handoff_artifacts,
                                           make_prefill_artifacts,
                                           make_serve_artifacts, random_inputs)
@@ -130,8 +133,9 @@ def programs_on_rank(rank, arch: str, shape: str, batch: int, steps: int,
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    mesh = make_mesh(mesh_shape, ("data", "model"), dev)
+    mesh = make_mesh(mesh_shape, mesh_axes(mesh_shape), dev)
     shard = mesh.axis_shard("model")
+    rows = mesh.axis_shard(data_axes(mesh))
     sizes = mesh.shape
     override = {"num_layers": layers} if layers else None
     cell_p = dataclasses.replace(get_cell(arch, "prefill_32k"), batch=batch)
@@ -151,7 +155,10 @@ def programs_on_rank(rank, arch: str, shape: str, batch: int, steps: int,
         pre.abstract_args[0], pspecs, sizes)]}
 
     def gathered(logits):
-        return C.all_gather(logits, logits.dim() - 1, shard)
+        whole = C.all_gather(logits, logits.dim() - 1, shard)
+        if logits.shape[0] * (rows.size if rows else 1) == batch:
+            whole = C.all_gather(whole, 0, rows)
+        return whole
 
     C.reset_stats()
     ops.reset_launch_counts()
@@ -256,6 +263,25 @@ def _raw(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().reshape(-1).view(torch.uint8)
 
 
+def mesh_axes(shape: Sequence[int]) -> Tuple[str, ...]:
+    """The axis names of a (data, model) or (pod, data, model) mesh."""
+    if len(shape) == 2:
+        return ("data", "model")
+    if len(shape) == 3:
+        return ("pod", "data", "model")
+    raise ValueError(f"a mesh of {len(shape)} axes: (data, model) or "
+                     "(pod, data, model)")
+
+
+def parse_mesh(text: str, multi_pod: bool) -> Tuple[int, ...]:
+    """``--mesh DxM`` (and ``--multi-pod``: a pod axis of 2 in front) as
+    the mesh's shape."""
+    shape = tuple(int(n) for n in text.lower().split("x"))
+    if len(shape) != 2 or min(shape) < 1:
+        raise ValueError(f"--mesh {text}: data x model, e.g. 1x2")
+    return (2,) + shape if multi_pod else shape
+
+
 def mesh_record(recs: List[Dict[str, Any]], backend: Optional[str]) -> Dict[str, Any]:
     """The launcher's record of a run from the ranks' records: rank 0's
     seconds, tokens (every rank's must agree) and device, the backend
@@ -324,9 +350,11 @@ def main(argv=None) -> None:
                     help="default: the card; 'cpu' runs the plain routes")
     ap.add_argument("--mesh", default="1x1",
                     help="data x model, e.g. 1x2: tensor parallelism on a "
-                         "model axis of 2, one process a rank")
+                         "model axis of 2, 2x1: the batch on a data axis "
+                         "of 2; one process a rank")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the pod axis: raises (ROADMAP queue 1 item 14)")
+                    help="a pod axis of 2 in front of --mesh (pod, data, "
+                         "model)")
     ap.add_argument("--demo", action="store_true",
                     help="run examples/torch_serve_disagg.py on 8 requests")
     ap.add_argument("--connector", default="inproc",
@@ -353,13 +381,10 @@ def main(argv=None) -> None:
         demo(args.connector, args.two_process, args.num_p, args.num_d,
              args.plan, args.prefix_cache, args.device)
         return
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod: the pod axis of a mesh of ranks is not run yet — "
-            "see ROADMAP queue 1 item 14 (a multi-GPU mesh)")
-    mesh = tuple(int(n) for n in args.mesh.lower().split("x"))
-    if len(mesh) != 2:
-        ap.error("--mesh is data x model, e.g. 1x2")
+    try:
+        mesh = parse_mesh(args.mesh, args.multi_pod)
+    except ValueError as e:
+        ap.error(str(e))
     rec = run_programs(args.arch, args.shape, args.batch, args.steps,
                        args.layers, args.seed, args.device, mesh=mesh)
     print(json.dumps(rec))

@@ -31,12 +31,17 @@ On one card every spec is satisfied by placing the tree on the card.
 On a rank's mesh in a ``torch.distributed`` world (``launch/mesh.py``)
 each rank holds its slice of every leaf: along each dim whose spec names
 axes of more than one rank, the equal part at the rank's coordinates
-(``rank_slice``). ``to_shardings`` and ``shard_params`` cut whole trees
-so; ``param_keeper`` cuts parameters as ``model.init_params`` draws
-them; ``reshard`` moves a leaf from one spec to another across the model
-axis (the P→D handoff's head_dim → capacity reshard); ``local_bytes``
-is what a rank holds, which ``per_chip_bytes`` predicts from the whole
-tree and the specs.
+(``rank_slice``; a tuple of axes — the data axes ``("pod", "data")`` —
+row-major over them). ``to_shardings`` and ``shard_params`` cut whole
+trees so, and ``to_rank`` cuts a step's arguments that come whole and
+keeps those already at the rank's shapes; ``param_keeper`` cuts
+parameters as ``model.init_params`` draws them (a block of whole layers
+where ZeRO-3 splits the layer axis); ``train_layout`` gives the train
+step how the rank holds each leaf (``optim.Layout``); ``reshard`` moves a
+leaf from one spec to another across the model axis (the P→D handoff's
+head_dim → capacity reshard; the data-axis entries stay as they are);
+``local_bytes`` is what a rank holds, which ``per_chip_bytes`` predicts
+from the whole tree and the specs.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import Mesh, check_runnable
 from repro_torch.models import collectives as C
+from repro_torch.models import dist
 from repro_torch.training.tree import leaves_with_paths, tree_map, unflatten
 
 Spec = Tuple[Any, ...]
@@ -302,6 +308,21 @@ def batch_pspecs(abstract_batch: Any, data_axes: Tuple[str, ...],
     return out
 
 
+def micro_major(batch: int, n_micro: int, ways: int) -> torch.Tensor:
+    """The order of a train batch's ``batch`` rows whose ``ways`` equal
+    blocks are the data ranks' shares of every one of ``n_micro``
+    micro-batches: block r holds rank r's rows of micro-batch 0, then of
+    micro-batch 1, ... The reference's micro-batch j is the whole batch's
+    j-th block of rows, split over the data axes; a rank's train step
+    takes its j-th block of rows as its share of micro-batch j."""
+    b = batch // n_micro // ways
+    if b * n_micro * ways != batch:
+        raise ValueError(f"batch {batch} does not split into {n_micro} "
+                         f"micro-batches over {ways} data ranks")
+    return torch.arange(batch).reshape(n_micro, ways, b) \
+        .transpose(0, 1).reshape(-1)
+
+
 # --------------------------------------------------------------------------- #
 # Placement and per-chip sizes
 # --------------------------------------------------------------------------- #
@@ -374,29 +395,93 @@ def shard_params(params: Any, specs: Specs, mesh: Mesh) -> Any:
     return to_shardings(mesh, params, specs)
 
 
-def param_keeper(specs: Specs, mesh: Mesh):
+class param_keeper:
     """``model.init_params``' ``keep``: a leaf drawn at ``path`` (one
     layer of a stacked group's leaf, or a whole top-level leaf) → a copy
     of the rank's slice of it under ``specs[path]`` (a stacked leaf's spec
-    less its leading layer entry)."""
-    def keep(path: str, x: torch.Tensor) -> torch.Tensor:
-        spec = specs[path]
+    less its leading layer entry). A stacked leaf whose spec splits the
+    layer axis (ZeRO-3 weights) keeps the rank's block of layers
+    (``layer_slot``, ``layers_kept``)."""
+
+    def __init__(self, specs: Specs, mesh: Mesh):
+        self.specs, self.mesh = specs, mesh
+
+    def __call__(self, path: str, x: torch.Tensor) -> torch.Tensor:
+        spec = self.specs[path]
         if len(spec) == x.dim() + 1:
             spec = spec[1:]
-        part = rank_slice(x, spec, mesh)
+        part = rank_slice(x, spec, self.mesh)
         return part.clone() if part is not x else x
-    return keep
+
+    def _layers(self, path: str) -> Tuple[int, int]:
+        spec = self.specs[path]
+        if not (spec and self.mesh.in_world):
+            return 1, 0
+        return _part(self.mesh, _entry_axes(spec[0]))
+
+    def layers_kept(self, path: str, count: int) -> int:
+        return count // self._layers(path)[0]
+
+    def layer_slot(self, path: str, i: int, count: int) -> Optional[int]:
+        """Where layer ``i`` of ``count`` goes in the rank's stack, or None
+        (another rank's block)."""
+        ways, index = self._layers(path)
+        owner, slot = dist.layer_block(i, count, ways)
+        return slot if owner == index else None
 
 
-def check_local(mesh: Mesh, tree: Any, abstract: Any, specs: Specs) -> None:
-    """Raise ValueError unless every tensor leaf of ``tree`` has the
-    rank's shape of its ``abstract`` (whole) leaf under ``specs``."""
+def to_rank(mesh: Mesh, tree: Any, abstract: Any, specs: Specs) -> Any:
+    """``tree`` on the mesh's device as the rank holds it: on a rank's
+    mesh each tensor leaf that has the whole shape of its ``abstract``
+    leaf is cut to the rank's part (``rank_slice``, a copy), and a leaf
+    already at the rank's shape is kept; any other shape raises. A step's
+    arguments may so be given whole (a batch every rank was handed) or as
+    the rank's shards (parameters drawn with ``param_keeper``)."""
+    dev = check_runnable(mesh)
+    if not mesh.in_world:
+        return tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor)
+                        else x, tree)
     want = dict(named_leaves(abstract))
-    for p, x in named_leaves(tree):
-        shape = local_shape(tuple(want[p].shape), specs[p], mesh)
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{p}: {tuple(x.shape)} on this rank, the "
-                             f"specs give {shape}")
+    flat = []
+    for p, x in leaves_with_paths(tree):
+        if isinstance(x, torch.Tensor):
+            whole = tuple(want[p].shape)
+            mine = local_shape(whole, specs[p], mesh)
+            if tuple(x.shape) == mine:
+                x = x.to(dev)
+            elif tuple(x.shape) == whole:
+                x = rank_slice(x, specs[p], mesh).to(dev).clone()
+            else:
+                raise ValueError(f"{p}: {tuple(x.shape)} is neither the "
+                                 f"whole {whole} nor the rank's {mine}")
+        flat.append(x)
+    return unflatten(tree, flat)
+
+
+def train_layout(mesh: Mesh, params: Any, pspecs: Specs, ospecs: Specs,
+                 data_axes: Tuple[str, ...]):
+    """The rank's ``optim.Layout`` of a train state under the param specs
+    ``pspecs`` and the optimizer specs ``ospecs`` (``opt_pspecs``' keys),
+    over the tree ``params`` (for the order of its leaves): a gradient is
+    summed over the data plane unless the data axes split the leaf
+    (ZeRO-3); its squares over the plane of the axes that split it; the
+    moments' data dim where the parameter's spec has none (ZeRO-1). None
+    outside a world."""
+    from repro_torch.training.optim import Layout
+    if not mesh.in_world:
+        return None
+    dp = mesh.axis_shard(tuple(data_axes)) if data_axes else None
+    reduce, norm, zero = [], [], []
+    for p, _ in named_leaves(params):
+        spec = pspecs[p]
+        axes = tuple(a for a in mesh.axis_names
+                     if any(a in _entry_axes(e) for e in spec))
+        split = dp is not None and any(a in axes for a in data_axes)
+        reduce.append(not split)
+        norm.append(mesh.axis_shard(axes) if axes else None)
+        zero.append(None if split or dp is None
+                    else model_dim(ospecs[f"['mu']{p}"], data_axes[0]))
+    return Layout(dp, tuple(reduce), tuple(norm), tuple(zero))
 
 
 def model_dim(spec: Spec, axis: str = "model") -> Optional[int]:

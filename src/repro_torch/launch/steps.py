@@ -21,17 +21,27 @@ shardings are specs (``launch.sharding``), satisfied on one card by
 placing the arguments there. ``fn`` runs on the one-card mesh (card or
 CPU), for any mesh on ``meta`` as a shape-only count
 (``mesh.check_runnable``), and on a rank's mesh in a world of ranks
-(``launch/ranks.py``; a model axis above 1, the data axis 1): there its
-arguments are the rank's shards (``sharding.shard_params`` /
-``param_keeper``; the caches as the builders make and hand them off),
-the prefill makes head_dim-sharded caches, the handoff reshards them to
-D's capacity-sharded caches by a block exchange between the ranks, and
-the logits are the rank's vocab shard. On such a mesh the serving steps
-cover every family — dense, MoE, MLA, sliding-window (ring), RG-LRU
-hybrid, SSD, vision and encoder-decoder — and every decode cell,
-long_500k included, D's caches in bfloat16, float32 or float8 e4m3; a
-data axis above 1 and training raise ``NotImplementedError`` (ROADMAP
-queue 1 item 14). The handoff takes a
+(``launch/ranks.py``; any (data, model) or (pod, data, model) shape):
+there its parameters, caches and train state are the rank's shards
+(``sharding.shard_params`` / ``param_keeper``; the caches as the
+builders make and hand them off) or whole, cut to them
+(``sharding.to_rank``), and its batch, prompts and decode tokens are
+given whole and cut to the rank's rows on the data axes
+(``batch_pspecs``; a train batch of ``n_micro`` > 1 micro-batches to the
+rank's share of each, as the reference's partitioner cuts them:
+``sharding.micro_major``). The prefill makes head_dim-sharded caches (their
+batch on the data axes), the handoff reshards them on the model axis to
+D's capacity-sharded caches by a block exchange between the ranks (the
+data-axis entries untouched), and the logits are the rank's rows and
+vocab shard. On such a mesh the serving steps cover every family —
+dense, MoE (each data rank routing its own tokens), MLA, sliding-window
+(ring), RG-LRU hybrid, SSD, vision and encoder-decoder — and every
+decode cell, long_500k included, D's caches in bfloat16, float32 or
+float8 e4m3. Training covers the dense families (``dense``,
+``dense-bias-qknorm``): data-parallel gradients, tensor-parallel
+weights, ZeRO-1 moments, ZeRO-3 weights for a ``zero3`` cell and
+micro-batches; training another family on a rank's mesh raises
+``NotImplementedError`` (ROADMAP queue 1 item 17). The handoff takes a
 batch (deliberate difference B12 in ROADMAP): one card cannot hold the
 prefill cell's 32 sequences of 32k.
 """
@@ -46,8 +56,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, get_config, torch_dtype
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.cells import Cell, get_cell
-from repro_torch.launch.mesh import (Mesh, check_runnable, data_axes,
-                                     model_axis)
+from repro_torch.launch.mesh import Mesh, data_axes, model_axis
 from repro_torch.models import dist
 from repro_torch.models import model as M
 from repro_torch.training.optim import AdamWConfig
@@ -76,27 +85,29 @@ def _axis_sizes(mesh: Mesh) -> Tuple[Tuple[str, ...], int, Optional[str], int]:
     return dp, dp_size, m, (mesh.shape[m] if m else 1)
 
 
-def _dctx(mesh: Mesh, dp, m, *, mode: str) -> dist.DistContext:
+def _dctx(mesh: Mesh, dp, m, *, mode: str,
+          zero3: Optional[Dict[str, Optional[int]]] = None
+          ) -> dist.DistContext:
     """The reference's context for ``mode``, less its knobs that one card
     has no use for: the layer loop is Python (no ``unroll``) and one device
-    has no activation sharding (no ``act_spec``)."""
-    return dist.DistContext(
-        mesh=mesh, dp_axes=dp, model_axis=m,
-        chunk_kv=8192 if mode in ("train", "prefill") else 0,
-        moe_shard_map=True)
+    has no activation sharding (no ``act_spec``); with ``zero3`` (the
+    dims that the data plane splits, by parameter path) a
+    ``dist.TrainContext``."""
+    kw = dict(mesh=mesh, dp_axes=dp, model_axis=m,
+              chunk_kv=8192 if mode in ("train", "prefill") else 0,
+              moe_shard_map=True)
+    return dist.TrainContext(**kw, zero3=zero3) if zero3 else \
+        dist.DistContext(**kw)
 
 
-def _check_covered(mesh: Mesh, program: str) -> None:
-    """Raise NotImplementedError for what a rank's mesh does not run yet:
-    a data axis above 1 and training."""
-    if not mesh.in_world:
-        return
-    item = "see ROADMAP queue 1 item 14 (a multi-GPU mesh)"
-    if any(mesh.shape[a] > 1 for a in data_axes(mesh)):
-        raise NotImplementedError(f"a data axis above 1 on a world of "
-                                  f"ranks — {item}")
-    if program == "train":
-        raise NotImplementedError(f"training on a world of ranks — {item}")
+def _check_trainable(mesh: Mesh, cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for training on a rank's mesh a family
+    other than the dense ones (full attention, no MoE)."""
+    if mesh.in_world and not (cfg.family == "dense" and not cfg.moe
+                              and cfg.attention_kind == "full"):
+        raise NotImplementedError(
+            f"training {cfg.name} ({cfg.family}, {cfg.attention_kind} "
+            "attention) on a mesh of ranks — see ROADMAP queue 1 item 17")
 
 
 def _new_caches(mesh: Mesh, abstract: Any, specs: SH.Specs, make: Callable):
@@ -162,8 +173,7 @@ def make_train_artifacts(cell: Cell, mesh: Mesh, *,
                          ) -> StepArtifacts:
     dp, dp_size, m, m_size = _axis_sizes(mesh)
     cfg = _deployed(cell.arch, m_size, "train", layer_override)
-    _check_covered(mesh, "train")
-    dctx = _dctx(mesh, dp, m, mode="train")
+    _check_trainable(mesh, cfg)
 
     state_abs = abstract_train_state(cfg)
     pspecs = SH.param_pspecs(state_abs.params, cfg, m, m_size)
@@ -175,13 +185,39 @@ def make_train_artifacts(cell: Cell, mesh: Mesh, *,
     bspecs = SH.batch_pspecs(batch_abs, dp, dp_size)
     state_specs = {**_prefixed(".params", pspecs), **_prefixed(".opt", ospecs)}
     metrics_specs = {f"['{k}']": () for k in ("loss", "grad_norm", "lr")}
+    layout = SH.train_layout(mesh, state_abs.params, pspecs, ospecs, dp)
+    zero3 = None
+    if cell.zero3 and layout is not None and layout.dp is not None:
+        zero3 = {p: SH.model_dim(s, dp[0]) for p, s in pspecs.items()}
+    dctx = _dctx(mesh, dp, m, mode="train", zero3=zero3)
     step = make_train_step(cfg, AdamWConfig(), remat=True,
-                           n_micro=cell.n_micro)
+                           n_micro=cell.n_micro, layout=layout)
+    rows = None
+    if cell.n_micro > 1 and layout is not None and layout.dp is not None:
+        rows = SH.micro_major(cell.batch, cell.n_micro, layout.dp.size)
 
     def train_step(state, batch):
-        state, batch = SH.to_shardings(mesh, (state, batch))
+        state, batch = _to_rank(state, batch)
         with dist.use(dctx):
             return step(state, batch)
+
+    def grads(state, batch):
+        """The step's loss and the rank's reduced gradients, the state
+        untouched."""
+        state, batch = _to_rank(state, batch)
+        with dist.use(dctx):
+            return step.grads(state.params, batch)
+
+    def _to_rank(state, batch):
+        if rows is not None:
+            batch = {k: v.index_select(0, rows.to(v.device))
+                     if v.shape[0] == cell.batch else v
+                     for k, v in batch.items()}
+        return (SH.to_rank(mesh, state, state_abs, state_specs),
+                SH.to_rank(mesh, batch, batch_abs, bspecs))
+
+    train_step.grads = grads
+    train_step.layout = layout
 
     return StepArtifacts(name=f"{cell.name}:train", cfg=cfg, fn=train_step,
                          abstract_args=(state_abs, batch_abs),
@@ -196,7 +232,6 @@ def make_prefill_artifacts(cell: Cell, mesh: Mesh, *,
                            ) -> StepArtifacts:
     dp, dp_size, m, m_size = _axis_sizes(mesh)
     cfg = _deployed(cell.arch, m_size, "prefill", layer_override)
-    _check_covered(mesh, "prefill")
     dctx = _dctx(mesh, dp, m, mode="prefill")
     b, s = cell.batch, cell.seq_len
     mem_len = cfg.max_source_len if cfg.is_enc_dec else 0
@@ -212,9 +247,8 @@ def make_prefill_artifacts(cell: Cell, mesh: Mesh, *,
     logits_spec = (SH._dp(b, dp, dp_size), m)
 
     def prefill_step(params, inputs):
-        params, inputs = SH.to_shardings(mesh, (params, inputs))
-        if mesh.in_world:
-            SH.check_local(mesh, params, params_abs, pspecs)
+        params = SH.to_rank(mesh, params, params_abs, pspecs)
+        inputs = SH.to_rank(mesh, inputs, inputs_abs, ispecs)
         with dist.use(dctx):
             caches = _new_caches(mesh, caches_abs, cspecs,
                                  lambda: M.init_caches(
@@ -248,7 +282,6 @@ def make_serve_artifacts(cell: Cell, mesh: Mesh, *,
     stops at its partials (``ops.cache_attention_partial``)."""
     dp, dp_size, m, m_size = _axis_sizes(mesh)
     cfg = _deployed(cell.arch, m_size, "decode", layer_override)
-    _check_covered(mesh, "decode")
     dctx = _dctx(mesh, dp, m, mode="decode")
     b = cell.batch
     cap = cell.decode_capacity()
@@ -267,11 +300,9 @@ def make_serve_artifacts(cell: Cell, mesh: Mesh, *,
     logits_spec = (SH._dp(b, dp, dp_size), None, m)
 
     def serve_step(params, caches, io, q_offset: Optional[int] = None):
-        check_runnable(mesh)
-        params, caches, io = SH.to_shardings(mesh, (params, caches, io))
-        if mesh.in_world:
-            SH.check_local(mesh, params, params_abs, pspecs)
-            SH.check_local(mesh, caches, caches_abs, cspecs)
+        params = SH.to_rank(mesh, params, params_abs, pspecs)
+        caches = SH.to_rank(mesh, caches, caches_abs, cspecs)
+        io = SH.to_rank(mesh, io, tok_abs, tspecs)
         with dist.use(dctx):
             return M.decode_step(
                 params, cfg, io["tokens"], io["positions"], caches,
@@ -352,9 +383,10 @@ def make_handoff_artifacts(arch: str, mesh: Mesh, *,
         for qwen1.5-32b);
       * parallel-strategy alignment: the specs go from head_dim- to
         capacity-sharded (one card: a spec change only; on a rank's mesh
-        a block exchange, ``sharding.reshard``: rank r keeps its head_dim
-        columns of its own capacity share and receives every other
-        rank's columns of it).
+        a block exchange on the model axis, ``sharding.reshard``: rank r
+        keeps its head_dim columns of its own capacity share and receives
+        every other rank's columns of it; the batch stays on the data
+        axes as it was).
 
     ``batch``: the sequences handed off (None: the prefill cell's 32).
     Returns new tensors in D's tree (``full_capacity`` set for an arch
@@ -364,7 +396,6 @@ def make_handoff_artifacts(arch: str, mesh: Mesh, *,
     cell_d = get_cell(arch, "decode_32k")
     cfg_p = _deployed(arch, m_size, "prefill", layer_override)
     cfg_d = _deployed(arch, m_size, "decode", layer_override)
-    _check_covered(mesh, "handoff")
     b = cell_p.batch if batch is None else batch
     s, cap = cell_p.seq_len, cell_d.decode_capacity()
     mem_len = cfg_p.max_source_len if cfg_p.is_enc_dec else 0
@@ -381,10 +412,9 @@ def make_handoff_artifacts(arch: str, mesh: Mesh, *,
                               mode="decode")
 
     def handoff(caches):
-        caches = SH.to_shardings(mesh, caches)
+        caches = SH.to_rank(mesh, caches, caches_p, specs_p)
         if not mesh.in_world:
             return realign_caches(caches, caches_d)
-        SH.check_local(mesh, caches, caches_p, specs_p)
         # a leaf at a time: realigned (P's specs, D's sizes), then
         # resharded, so one realigned leaf is alive at a time
         src = dict(SH.named_leaves(caches))

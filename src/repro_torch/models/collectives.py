@@ -40,6 +40,34 @@ and that group's global ranks in axis order. Two transports carry them:
     ones the backend would have carried, so the results are the same
     bits.
 
+Training differentiates through them (``torch.autograd``), each with
+the adjoint that the SPMD convention gives it — every rank computes the
+same scalar loss, so a replicated tensor's gradient is the same on
+every rank and a rank's share of a sharded one is its own:
+
+  * ``psum`` of partials (a row-parallel product, the vocab-sharded
+    embedding, the loss's numerator over the data axes): the backward is
+    the identity;
+  * ``column_entry`` — the identity forward where a replicated
+    activation (or a replicated weight such as ``q_norm``) enters work
+    split over the ranks (a column-parallel product: ``wq``/``wk``/
+    ``wv``, ``w_gate``/``w_up``, a vocab-sharded head): the backward is
+    a ``psum``;
+  * ``all_gather``: the backward is the rank's slice of the gradient
+    when what follows the gather is replicated (``grad="replicated"``:
+    the logits before the loss), or a ``psum`` then the slice when what
+    follows is split over the ranks (``grad="split"``: K/V, whose
+    gathered heads feed only the rank's query heads). A call that
+    autograd records must say which;
+  * ``gather_weights`` — a ZeRO-3 weight gathered over the data axes
+    before a layer runs: its gradient is summed over them and the owner
+    keeps its slice.
+
+Each forward is the function it wraps, with the same bits and ``STATS``
+(``psum`` reduces a copy, since autograd may keep its operand). The
+backward's collectives count in ``STATS`` too. Outside autograd (serving,
+``torch.no_grad``) the plain functions run, reducing in place.
+
 ``psum`` sums in the tensor's own dtype, as the reference's ``psum``
 does, in axis order (bfloat16 included: gloo and the card both add
 bfloat16 through float32 and round to nearest even; with two ranks one
@@ -49,7 +77,9 @@ identity, so one program serves both.
 
 Every call adds its host-clock seconds, its bytes (of the local tensor)
 and one call to ``STATS`` under its name; ``reset_stats`` zeroes them.
-The timing is on the host clock around a blocking call: gloo returns once
+The timing is on the host clock around a blocking call, started after the
+card has finished the work queued before the call (a CUDA operand is
+synchronized first), so it times the collective alone: gloo returns once
 the data have crossed (its CUDA path waits for the staging copies), so
 the seconds include the device→host and host→device copies; on a shared
 card the call returns after its copies and sums have finished on the
@@ -85,7 +115,7 @@ class AxisShard:
 
 STATS: Dict[str, Dict[str, float]] = {
     name: {"calls": 0, "seconds": 0.0, "bytes": 0}
-    for name in ("psum", "all_gather", "exchange")}
+    for name in ("psum", "all_gather", "exchange", "broadcast")}
 
 
 def reset_stats() -> None:
@@ -110,6 +140,15 @@ def transport(shard: Optional[AxisShard], device) -> str:
     return str(backend)
 
 
+def _clock(x: torch.Tensor) -> float:
+    """The start of a collective's time: after the card has run the work
+    queued before it (a CUDA operand), so that the call's seconds are the
+    collective's own."""
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    return time.perf_counter()
+
+
 def _note(name: str, t0: float, nbytes: int) -> None:
     rec = STATS[name]
     rec["calls"] += 1
@@ -127,7 +166,9 @@ def psum(x: torch.Tensor, shard: Optional[AxisShard]) -> torch.Tensor:
     the same bits. Reduces in place when ``x`` is contiguous."""
     if shard is None:
         return x
-    t0 = time.perf_counter()
+    if _recorded(x):
+        return _Reduce.apply(x, shard)
+    t0 = _clock(x)
     x = x.contiguous()
     card = _on_card(x, shard)
     if card is None:
@@ -142,13 +183,22 @@ def psum(x: torch.Tensor, shard: Optional[AxisShard]) -> torch.Tensor:
     return x
 
 
-def all_gather(x: torch.Tensor, dim: int,
-               shard: Optional[AxisShard]) -> torch.Tensor:
+def all_gather(x: torch.Tensor, dim: int, shard: Optional[AxisShard],
+               grad: Optional[str] = None) -> torch.Tensor:
     """Every rank's ``x`` (equal shapes) concatenated along ``dim`` in
-    axis order: one broadcast from each rank."""
+    axis order: one broadcast from each rank. Under autograd ``grad``
+    names the backward: ``"replicated"`` (what follows is the same on
+    every rank: the rank's slice of the gradient) or ``"split"`` (what
+    follows is split over the ranks: the gradient summed over the axis,
+    then the slice); a recorded call without it raises."""
     if shard is None:
         return x
-    t0 = time.perf_counter()
+    if _recorded(x):
+        if grad not in ("replicated", "split"):
+            raise ValueError("all_gather under autograd needs grad="
+                             "'replicated' or 'split' (its backward)")
+        return _Gather.apply(x, dim, shard, grad == "split")
+    t0 = _clock(x)
     x = x.contiguous()
     card = _on_card(x, shard)
     if card is not None:
@@ -174,7 +224,7 @@ def exchange(blocks: List[torch.Tensor], shard: Optional[AxisShard]
     dtype. One broadcast a (source, destination) pair."""
     if shard is None:
         return list(blocks)
-    t0 = time.perf_counter()
+    t0 = _clock(blocks[shard.index])
     me = shard.index
     got: List[torch.Tensor] = [None] * shard.size
     got[me] = blocks[me]
@@ -205,6 +255,115 @@ def exchange(blocks: List[torch.Tensor], shard: Optional[AxisShard]
                 got[i] = buf
     _note("exchange", t0, sent)
     return got
+
+
+def column_entry(x: torch.Tensor, shard: Optional[AxisShard]
+                 ) -> torch.Tensor:
+    """``x`` — a replicated tensor entering work split over the axis —
+    as it is; under autograd its gradient is summed over the axis (each
+    rank's share of the split work adds its term)."""
+    if shard is None or not _recorded(x):
+        return x
+    return _ColumnEntry.apply(x, shard)
+
+
+def gather_weights(x: torch.Tensor, dim: Optional[int], owner: int,
+                   shard: Optional[AxisShard]) -> torch.Tensor:
+    """A ZeRO-3 weight of one layer, whole over the data plane ``shard``:
+    with ``dim`` the rank's slices of the layer gathered on that dim;
+    with ``dim`` None the layer lies whole on member ``owner`` (the data
+    axes split the layer axis), which broadcasts it and every other rank
+    passes a tensor of its shape (its own layer at the same place, an
+    anchor that autograd reaches the collective through, which gets no
+    gradient). Under autograd the gradient is summed over the plane and
+    the rank keeps its slice, the owner the layer's."""
+    if shard is None:
+        return x
+    return _WeightGather.apply(x, dim, owner, shard)
+
+
+def _recorded(x: torch.Tensor) -> bool:
+    """Whether autograd records an operation on ``x``."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _summed(g: torch.Tensor, shard: AxisShard) -> torch.Tensor:
+    """``g`` summed over the axis, on a copy (autograd may share ``g``)."""
+    return psum(g.clone(memory_format=torch.contiguous_format), shard)
+
+
+class _Reduce(torch.autograd.Function):
+    """``psum`` of partials: the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        return psum(x.clone(memory_format=torch.contiguous_format), shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ColumnEntry(torch.autograd.Function):
+    """The identity; the backward sums the gradient over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.shard), None
+
+
+class _Gather(torch.autograd.Function):
+    """``all_gather``; the backward takes the rank's slice of the
+    gradient, summed over the axis first when ``split``."""
+
+    @staticmethod
+    def forward(ctx, x, dim, shard, split):
+        ctx.dim, ctx.shard, ctx.split = dim % x.dim(), shard, split
+        return all_gather(x, dim, shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.split:
+            g = _summed(g, ctx.shard)
+        lo, hi = ctx.shard.part(g.shape[ctx.dim])
+        return g.narrow(ctx.dim, lo, hi - lo), None, None, None
+
+
+class _WeightGather(torch.autograd.Function):
+    """``gather_weights``: a gather on ``dim``, or the owner's broadcast;
+    the backward sums over the plane and keeps the rank's part."""
+
+    @staticmethod
+    def forward(ctx, x, dim, owner, shard):
+        ctx.dim, ctx.owner, ctx.shard = dim, owner, shard
+        if dim is not None:
+            return all_gather(x, dim, shard)
+        t0 = _clock(x)
+        out = x.clone(memory_format=torch.contiguous_format)
+        card = _on_card(out, shard)
+        if card is not None:
+            views = card.publish([out])
+            out.copy_(views[owner])
+            card.done()
+        else:
+            tdist.broadcast(_bytes(out), src=shard.ranks[owner],
+                            group=shard.group)
+        _note("broadcast", t0, out.numel() * out.element_size())
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _summed(g, ctx.shard)
+        if ctx.dim is not None:
+            lo, hi = ctx.shard.part(g.shape[ctx.dim])
+            return g.narrow(ctx.dim, lo, hi - lo), None, None, None
+        return (g if ctx.shard.index == ctx.owner else None), None, None, \
+            None
 
 
 # --------------------------------------------------------------------------- #

@@ -32,6 +32,15 @@ axis' (an ``AxisShard``), through which the layers hold the rank's
 shards and reduce over the axis (``models/collectives.py``). None — a
 model axis of 1, a mesh outside a world (one card, or ``meta``'s count of
 the whole program), no mesh — means the layers run the whole model.
+``data_shard()`` is the plane of the data axes (``dp_axes``): a rank's
+batch rows are its share of the batch, and the training loss sums over
+the plane (``model.loss_fn``). ``zero3`` — None here; a field of the
+port's ``TrainContext``, which the launch layer's train step installs
+for a ``zero3`` cell — maps each parameter path (``training.tree``'s)
+to the dim of the stacked leaf that the data plane splits, or None:
+``model.train_forward`` then gathers each layer's weights as it runs
+it. ``layer_block`` is the one rule of which data rank holds which
+layer when that dim is a group's layer axis.
 """
 from __future__ import annotations
 
@@ -53,6 +62,7 @@ class DistContext:
     attn_p_bf16: bool = False    # bf16 probabilities into the PV product
     unroll: bool = False
     act_spec: Any = None         # spec of the (B, S, d) residuals
+    zero3 = None                 # not a field: TrainContext's
 
     def model_shard(self):
         """The calling rank's ``AxisShard`` on the model axis, or None
@@ -61,6 +71,31 @@ class DistContext:
                 or not hasattr(self.mesh, "axis_shard"):
             return None
         return self.mesh.axis_shard(self.model_axis)
+
+    def data_shard(self):
+        """The calling rank's ``AxisShard`` on the plane of the data axes,
+        or None (one data rank, or the layers run the whole batch)."""
+        if self.mesh is None or not self.dp_axes \
+                or not hasattr(self.mesh, "axis_shard"):
+            return None
+        return self.mesh.axis_shard(tuple(self.dp_axes))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainContext(DistContext):
+    """The reference's fields and ZeRO-3 weights' placement: {parameter
+    path: the dim of the stacked leaf that the data plane splits, or
+    None}."""
+    zero3: Any = None
+
+
+def layer_block(i: int, count: int, ways: int) -> Tuple[int, int]:
+    """A stacked group's layer axis of ``count`` layers split over
+    ``ways`` data ranks (ZeRO-3 weights) — whole blocks of ``count //
+    ways`` layers, in order: (the data rank that holds layer ``i``, its
+    slot in that rank's block)."""
+    per = count // ways
+    return i // per, i % per
 
 
 _DEFAULT = DistContext()

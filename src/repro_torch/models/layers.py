@@ -375,7 +375,12 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  tp: Optional[C.AxisShard] = None):
     """(q, k, v) of x: on a model axis (``tp``) q has the rank's heads and
     K/V every KV head at the whole head_dim, gathered from the ranks'
-    head_dim columns before qk-norm and RoPE (both need the whole head)."""
+    head_dim columns before qk-norm and RoPE (both need the whole head).
+    Under autograd x enters the column-parallel projections, and the
+    replicated qk-norm weights the rank's heads, through
+    ``collectives.column_entry``; the gathered K/V feed only the rank's
+    query heads, so their gather's backward sums before it slices."""
+    x = C.column_entry(x, tp)
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
@@ -386,10 +391,11 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if tp is not None:
         _rank_heads(cfg, q.shape[2], tp)
         if k.shape[-1] != cfg.hd:              # head_dim-sharded K/V
-            k, v = C.all_gather(torch.stack([k, v]), 4, tp).unbind(0)
+            k, v = C.all_gather(torch.stack([k, v]), 4, tp,
+                                grad="split").unbind(0)
     if cfg.qk_norm:
-        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
-        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+        q = rms_norm(C.column_entry(p["q_norm"], tp), q, cfg.norm_eps)
+        k = rms_norm(C.column_entry(p["k_norm"], tp), k, cfg.norm_eps)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -1122,15 +1128,18 @@ def swiglu_mlp(p: Params, x: torch.Tensor,
     axis, column then row parallel: ``w_gate``/``w_up`` hold the rank's
     d_ff columns and ``w_down`` its rows, and the partial is summed over
     the axis (``_row_parallel``) — unless the width was too narrow to
-    shard: then the weights are whole and so is the output."""
-    g = x @ p["w_gate"].to(x.dtype)
-    u = x @ p["w_up"].to(x.dtype)
+    shard: then the weights are whole and so is the output. Under
+    autograd x enters the column products through
+    ``collectives.column_entry``."""
     tp = dist.ctx().model_shard() if d_ff is not None else None
     if tp is not None and p["w_gate"].shape[-1] == d_ff:
         tp = None
     if tp is not None and p["w_gate"].shape[-1] * tp.size != d_ff:
         raise ValueError(f"swiglu_mlp: {p['w_gate'].shape[-1]} of {d_ff} "
                          f"columns on a model axis of {tp.size}")
+    x = C.column_entry(x, tp)
+    g = x @ p["w_gate"].to(x.dtype)
+    u = x @ p["w_up"].to(x.dtype)
     return _row_parallel(F.silu(g) * u, p["w_down"], tp)
 
 
@@ -1227,18 +1236,21 @@ def _moe_mlp_shard_map(p: Params, cfg: ModelConfig, x: torch.Tensor,
     ``psum_axis``. On a rank's mesh the weights are the rank's slices
     (``moe_mlp_dist_specs``: every expert's and the shared experts'
     d_ff_expert columns, the router whole), so every rank routes the same
-    (replicated) tokens alike and ``psum`` sums the slices. On one card (a
-    model axis of 1) the sum is over one member; on the ``meta`` device (a
-    shape-only count) the same global program stands for every shard's. A
-    mesh of more than one device outside a world raises."""
+    (replicated) tokens alike and ``psum`` sums the slices. A rank of a
+    data axis holds its own batch rows: it routes its own tokens with the
+    capacity of its shard (``moe_capacity`` of its token count), as the
+    reference's shard_map body does on its data shard; only the model
+    axis is summed. On one card (a model axis of 1) the sum is over one
+    member; on the ``meta`` device (a shape-only count) the same global
+    program stands for every shard's. A mesh of more than one device
+    outside a world raises."""
     mesh = dctx.mesh
     tp = dctx.model_shard()
-    if tp is None and mesh.size > 1 \
+    if mesh.size > 1 and not getattr(mesh, "in_world", False) \
             and getattr(mesh.device, "type", None) != "meta":
         raise NotImplementedError(
             f"the MoE over a mesh of {mesh.size} devices runs in a world "
-            "of as many ranks (launch/ranks.py) — see ROADMAP queue 1 "
-            "item 14 (a multi-GPU mesh)")
+            "of as many ranks (launch/ranks.py), or on meta as a count")
     if tp is not None and p["w_gate"].shape[-1] * tp.size \
             != cfg.moe.d_ff_expert:
         raise ValueError(f"the expert-TP MoE: {p['w_gate'].shape[-1]} of "

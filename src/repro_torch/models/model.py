@@ -159,18 +159,23 @@ def _init_group(gen: torch.Generator, cfg: ModelConfig, g: Group,
     is the path of this position's tree)."""
     count = g.count
     keep = keep or (lambda path, t: t)
+    # a keeper of whole layers (ZeRO-3 weights split on the layer axis)
+    slot = getattr(keep, "layer_slot", lambda path, i, n: i)
+    kept = getattr(keep, "layers_kept", lambda path, n: n)
 
     def put(dst, src, i, path):
         if isinstance(src, dict):
             for k in src:
                 put(dst[k], src[k], i, f"{path}[{k!r}]")
         else:
-            dst[i] = keep(path, src)
+            j = slot(path, i, count)
+            if j is not None:
+                dst[j] = keep(path, src)
 
     def empty(t, path):
         if isinstance(t, dict):
             return {k: empty(v, f"{path}[{k!r}]") for k, v in t.items()}
-        return t.new_empty((count,) + tuple(keep(path, t).shape))
+        return t.new_empty((kept(path, count),) + tuple(keep(path, t).shape))
 
     layer = _init_layer(gen, cfg, kind, g.moe, g.cross, device)
     stacked = empty(layer, prefix)
@@ -190,7 +195,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     rank's slice on a model axis, ``launch.sharding.param_keeper`` —
     cuts each leaf as it is drawn (a stacked group's leaves one layer at a
     time; ``path`` is the stacked leaf's): the same values as slicing the
-    whole tree, at the memory of the slices plus one layer."""
+    whole tree, at the memory of the slices plus one layer. A keeper with
+    ``layer_slot(path, i, count)`` and ``layers_kept(path, count)`` keeps
+    only some layers of a stacked leaf (ZeRO-3 weights split on the layer
+    axis): layer i goes to the returned slot, or is dropped for None."""
     return _init_params(cfg, seed, _dev.resolve(device), keep)
 
 
@@ -218,7 +226,8 @@ def _init_params(cfg: ModelConfig, seed: int, dev: torch.device,
         "embed": cut("['embed']", (torch.randn((v, d), generator=gen,
                                                device=dev) * 0.02
                                    ).to(cfg.pdtype)),
-        "final_norm": torch.ones((d,), dtype=cfg.pdtype, device=dev),
+        "final_norm": cut("['final_norm']", torch.ones(
+            (d,), dtype=cfg.pdtype, device=dev)),
         "groups": stacks("groups", groups),
     }
     if not cfg.tie_embeddings:
@@ -227,7 +236,8 @@ def _init_params(cfg: ModelConfig, seed: int, dev: torch.device,
         ).to(cfg.pdtype))
     if cfg.is_enc_dec:
         p["enc_groups"] = stacks("enc_groups", encoder_groups(cfg))
-        p["enc_norm"] = torch.ones((d,), dtype=cfg.pdtype, device=dev)
+        p["enc_norm"] = cut("['enc_norm']", torch.ones(
+            (d,), dtype=cfg.pdtype, device=dev))
     return p
 
 
@@ -361,11 +371,14 @@ def merged_embeds(params, cfg: ModelConfig, patches: Optional[torch.Tensor],
 def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Logits of x (..., d) over the head's vocab: on a model axis the
     rank's vocab shard (the reference's output spec (dp, ..., model)),
-    which the caller gathers where it needs the whole row."""
+    which the caller gathers where it needs the whole row. Under autograd
+    x enters the vocab-sharded head through ``collectives.column_entry``."""
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
+    if head.shape[-1] != cfg.vocab_size:
+        x = C.column_entry(x, dist.ctx().model_shard())
     return x @ head.to(x.dtype)
 
 
@@ -714,7 +727,19 @@ def train_forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     lengths (B,), patches (B,P,d) for a vision model (S counts them),
     frames (B,F,d) and optional frame_lengths (B,) for an enc-dec model.
     Attention takes the plain route on every device; ``remat`` recomputes
-    each layer's activations in the backward pass."""
+    each layer's activations in the backward pass.
+
+    With ZeRO-3 weights (the distribution context's ``zero3`` on a
+    rank's mesh) the rank holds its data-axis share of every weight: the
+    top-level ones are gathered once, and each layer's inside the layer's
+    own (remat) function, so a layer's gathered weights live only while
+    it runs — gathered again in the backward's recompute — and their
+    gradients go back to the owning slices
+    (``collectives.gather_weights``)."""
+    dims = dist.ctx().zero3
+    zero3 = dims and dist.ctx().data_shard()
+    if zero3:
+        params = _zero3_top(params, dims, zero3)
     memory = mem_lengths = None
     if cfg.is_enc_dec:
         mem_lengths = batch.get("frame_lengths")
@@ -727,20 +752,73 @@ def train_forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                 layer = functools.partial(
                     _layer_full, cfg=cfg, g=g, kind=kind, positions=positions,
                     lengths=lengths, memory=memory, mem_lengths=mem_lengths)
+                # the rank's layer li, or (ZeRO-3 on the layer axis) the
+                # layer at li's slot of its own block
+                ways = g.count // len(per_pos[pi])
+                p = per_pos[pi][dist.layer_block(li, g.count, ways)[1]]
+                if zero3:
+                    layer = functools.partial(
+                        _zero3_layer, layer, prefix=f"['groups'][{gi}][{pi}]",
+                        li=li, count=g.count, dims=dims, shard=zero3)
                 if remat:
-                    x = checkpoint(layer, per_pos[pi][li], x,
-                                   use_reentrant=False)
+                    x = checkpoint(layer, p, x, use_reentrant=False)
                 else:
-                    x = layer(per_pos[pi][li], x)
+                    x = layer(p, x)
     return lm_logits(params, cfg, x)
+
+
+def _zero3_top(params, dims: Dict[str, Optional[int]], shard):
+    """``params`` with each top-level leaf that the data plane ``shard``
+    splits (``dims``) gathered whole (the rank's model shard of it)."""
+    out = dict(params)
+    for k, t in params.items():
+        d = dims.get(f"[{k!r}]")
+        if isinstance(t, torch.Tensor) and d is not None:
+            out[k] = C.gather_weights(t, d, 0, shard)
+    return out
+
+
+def _zero3_layer(layer, p, x, *, prefix: str, li: int, count: int,
+                 dims: Dict[str, Optional[int]], shard):
+    """``layer(p, x)`` with the layer's weights gathered whole over the
+    data plane ``shard`` first: a leaf split on the layer axis (dim 0 of
+    the stacked leaf) lies whole on the data rank that holds layer ``li``
+    (``p`` is the rank's layer at the same place: ``li``'s own on that
+    rank, an anchor elsewhere); a leaf split on dim k > 0 is gathered on
+    the layer's dim k - 1."""
+    owner = dist.layer_block(li, count, shard.size)[0]
+
+    def whole(t, path):
+        if isinstance(t, dict):
+            return {k: whole(v, f"{path}[{k!r}]") for k, v in t.items()}
+        d = dims.get(path)
+        if d is None:
+            return t
+        if d == 0:
+            return C.gather_weights(t, None, owner, shard)
+        return C.gather_weights(t, d - 1, 0, shard)
+
+    return layer(whole(p, prefix), x)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             remat: bool = True) -> torch.Tensor:
     """Mean next-token cross-entropy (float32 ``log_softmax``) over the
     positions whose label is >= 0; a vision model's patch positions take
-    label -1."""
+    label -1.
+
+    On a rank's mesh: vocab-sharded logits are gathered whole first (the
+    reference's arithmetic over the whole row; the gather's backward is
+    the rank's slice), and over the data axes the mean is the whole
+    batch's — the numerator and the count each summed over the data
+    plane, then divided — so every rank's loss is the global one (a
+    rank's own mean, averaged, differs whenever the shards hold different
+    counts of labels >= 0)."""
     logits = train_forward(params, cfg, batch, remat=remat)
+    dctx = dist.ctx()
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = C.all_gather(logits, logits.dim() - 1, dctx.model_shard(),
+                              grad="replicated")
     labels = batch["labels"]
     if cfg.frontend.kind == "vision" and "patches" in batch:
         n = batch["patches"].shape[1]
@@ -750,4 +828,10 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     lab = torch.where(mask, labels, torch.zeros_like(labels)).long()
     lp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(lp, -1, lab[..., None])[..., 0]
-    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1)
+    total, count = torch.sum(nll * mask), torch.sum(mask)
+    dp = dctx.data_shard()
+    if dp is not None:
+        total = C.psum(total, dp)
+        with torch.no_grad():
+            count = C.psum(count, dp)
+    return total / torch.clamp_min(count, 1)

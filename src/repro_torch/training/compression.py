@@ -3,8 +3,10 @@
 
 Two-level reduction: a full-precision all-reduce over the fast inner
 group, then a compressed one over the slow outer group. The reference's
-``shard_map`` axis names become ``torch.distributed`` process groups
-(``group=None`` is the default group):
+``shard_map`` axis names become ``torch.distributed`` process groups, or
+a mesh's axis lines (an ``AxisShard`` of ``launch.mesh``: on a (pod,
+data, model) mesh the pod line is the outer group and the data line the
+inner); ``group=None`` is the default group:
 
   compressed_psum(x, group, wire)  — int8 absmax-quantized all-reduce
   hierarchical_psum(x, inner, outer, wire)
@@ -38,7 +40,7 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     out = x.clone()
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, group=getattr(group, "group", group))
     return out
 
 

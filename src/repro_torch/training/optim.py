@@ -14,15 +14,26 @@ its float32 temporaries stay a slice's size: at Qwen3-4B a stacked MLP
 leaf holds 896.6 M elements, whose unsliced float32 temporaries would come
 to about 17 GiB. The arithmetic is the reference's, in its order, element
 by element.
+
+On a rank's mesh a ``Layout`` says how the rank holds each leaf (the
+launch layer's specs, ``launch.sharding.train_layout``): the gradient
+norm sums each leaf's squares over the plane of the axes that split it
+(a leaf replicated on an axis counts once), and with ZeRO-1 moments —
+the rank's slice on the data axes of a dim the parameter holds whole —
+the rank updates the matching slice of the parameter with its slice of
+the (data-reduced) gradient, then the slices are gathered back over the
+data axes, so every rank holds the whole updated parameter (its model
+shard of it).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.models import collectives as C
 from repro_torch.training.tree import leaves, tree_map
 
 Params = Any
@@ -54,6 +65,21 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, decayed)
 
 
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How a rank of a mesh holds the train state, one entry a parameter
+    leaf (flattening order): ``reduce`` — its gradient is summed over the
+    data plane ``dp`` (a leaf the data axes do not split; a ZeRO-3 leaf's
+    gradient arrives summed); ``norm`` — the plane of the axes that split
+    it, over which its squares are summed (None: held whole); ``zero``
+    — the dim of the parameter that its moments split over ``dp``
+    (ZeRO-1), or None."""
+    dp: Optional[C.AxisShard]
+    reduce: Tuple[bool, ...]
+    norm: Tuple[Optional[C.AxisShard], ...]
+    zero: Tuple[Optional[int], ...]
+
+
 def adamw_init(params: Params) -> dict:
     def zeros32(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -72,21 +98,33 @@ def _slices(t: torch.Tensor):
     return torch.split(t, rows)
 
 
-def global_norm(tree: Params) -> torch.Tensor:
+def global_norm(tree: Params, layout: Optional[Layout] = None
+                ) -> torch.Tensor:
+    """The gradient norm of the whole model: with ``layout``, each leaf's
+    squares (as the rank holds it) summed with those of the leaves split
+    over the same plane, each plane's sum over its ranks, then added."""
+    parts = {}                    # plane (None: held whole) -> sum
+    for i, x in enumerate(leaves(tree)):
+        key = None if layout is None else layout.norm[i]
+        parts[key] = parts.get(key, 0) + sum(
+            torch.sum(torch.square(s.float())) for s in _slices(x))
     total = 0
-    for x in leaves(tree):
-        total = total + sum(torch.sum(torch.square(s.float()))
-                            for s in _slices(x))
+    for plane, part in parts.items():
+        total = total + C.psum(part, plane)
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Params, grads: Params,
-                 state: dict) -> Tuple[Params, dict, dict]:
+                 state: dict, layout: Optional[Layout] = None
+                 ) -> Tuple[Params, dict, dict]:
     """One AdamW step, in place. Returns (params, state, metrics) with
-    metrics {"grad_norm", "lr"} (0-d float32 tensors on the device)."""
+    metrics {"grad_norm", "lr"} (0-d float32 tensors on the device). With
+    ``layout`` (a rank's mesh) the norm is the whole model's and ZeRO-1
+    moments update their slice of each parameter, gathered back over the
+    data axes."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, layout)
     if cfg.grad_clip > 0:
         scale = torch.where(gnorm > cfg.grad_clip, cfg.grad_clip / gnorm,
                             torch.ones_like(gnorm))
@@ -105,9 +143,25 @@ def adamw_update(cfg: AdamWConfig, params: Params, grads: Params,
             delta = delta + cfg.weight_decay * p.float()
         p.copy_(p.float() - lr * delta)
 
-    for p, g, mu, nu in zip(leaves(params), leaves(grads),
-                            leaves(state["mu"]), leaves(state["nu"])):
+    for i, (p, g, mu, nu) in enumerate(zip(
+            leaves(params), leaves(grads), leaves(state["mu"]),
+            leaves(state["nu"]))):
+        d = None if layout is None else layout.zero[i]
+        whole = p
+        if d is not None:                 # ZeRO-1: the rank's slice
+            lo, hi = layout.dp.part(p.shape[d])
+            p, g = p.narrow(d, lo, hi - lo), g.narrow(d, lo, hi - lo)
         for sl in zip(*map(_slices, (p, g, mu, nu))):
             upd(*sl, decay=p.ndim >= 2)
+        if d is not None:
+            gather_back(whole, p, d, layout.dp)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def gather_back(whole: torch.Tensor, part: torch.Tensor, dim: int,
+                dp: C.AxisShard) -> None:
+    """ZeRO-1's last move: the parameter ``whole``, whose slice ``part``
+    on ``dim`` the rank has updated, overwritten by every data rank's
+    updated slice, gathered over ``dp``."""
+    whole.copy_(C.all_gather(part.contiguous(), dim, dp))

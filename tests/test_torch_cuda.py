@@ -1976,6 +1976,30 @@ def test_collectives_through_the_shared_card_equal_gloo_on_the_host(cuda):
                 assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
+def test_autograd_collectives_through_the_shared_card_equal_gloo(cuda):
+    """Two ranks sharing the card: the gradients through ``column_entry``,
+    ``psum``, ``all_gather`` (split and replicated consumers) and
+    ``gather_weights`` (the owner's broadcast) equal, bit for bit, the
+    same function's on the host over gloo, in bfloat16 and float32; the
+    owner alone gets the gathered weight's gradient."""
+    import torch_mesh_train_ranks as R
+    from repro_torch.launch import ranks
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("ranks share a card only where there is one")
+    with ranks.start(2, timeout_s=300) as world:
+        outs = world.run(R.autograd_collectives_on_rank)
+    for r, out in enumerate(outs):
+        assert out["transport"] == "card"
+        for card, host in zip(out["card"], out["host"]):
+            for key in ("x", "w", "d"):
+                if host[key] is None:
+                    assert r != 0 and card[key] is None, key
+                    continue
+                assert card[key].dtype == host[key].dtype
+                assert torch.equal(card[key].view(torch.uint8),
+                                   host[key].view(torch.uint8)), key
+
+
 def test_two_ranks_on_one_card_serve_a_tiny_hybrid(cuda, monkeypatch):
     """One tiny RG-LRU hybrid (R, R, local attention over a ring of 16
     slots, 8 a rank) on two ranks sharing the card: the RG-LRU on each

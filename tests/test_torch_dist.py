@@ -263,12 +263,16 @@ def test_moe_mlp_under_one_card_mesh_matches_reference_shard_map():
 
 
 def test_moe_over_more_than_one_device_raises():
+    """Outside a world of ranks, on a model axis and on a data axis alike
+    (a rank of a world routes its own rows: tests/test_torch_mesh_train.py)."""
     _, tcfg, _, tp, x = _moe_case()
-    mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
-    with TD.use(TD.DistContext(mesh=mesh, model_axis="model",
-                               moe_shard_map=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            TL.moe_mlp(tp, tcfg, torch.from_numpy(x))
+    for shape in ((1, 2), (2, 1)):
+        mesh = make_mesh(shape, ("data", "model"), device="cpu")
+        with TD.use(TD.DistContext(mesh=mesh, dp_axes=("data",),
+                                   model_axis="model", moe_shard_map=True)):
+            with pytest.raises(NotImplementedError,
+                               match="in a world of as many ranks"):
+                TL.moe_mlp(tp, tcfg, torch.from_numpy(x))
 
 
 def test_moe_dist_specs_equal_reference():

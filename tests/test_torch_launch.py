@@ -278,18 +278,23 @@ def test_meshes_and_placement():
     assert TSH.to_shardings(shape_only(one), t)["a"].device.type == "meta"
     with pytest.raises(ValueError, match="abstract mesh"):
         TSH.to_shardings(prod, t)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
+    with pytest.raises(NotImplementedError, match="in a world of as many "
+                       "ranks"):
         TSH.to_shardings(make_mesh((2, 1), ("data", "model"), "cpu"), t)
 
 
 def test_a_program_over_more_than_one_device_raises():
+    """Outside a world of ranks a mesh of more than one device runs only
+    on ``meta``: a data axis and a model axis alike."""
     cell = dataclasses.replace(TC.get_cell("qwen3-4b", "decode_32k"),
-                               batch=1)
-    art = TS.make_serve_artifacts(
-        cell, make_mesh((1, 2), ("data", "model"), device="cpu"),
-        layer_override={"num_layers": 1})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        art.fn(*art.abstract_args)
+                               batch=2)
+    for shape in ((1, 2), (2, 1)):
+        art = TS.make_serve_artifacts(
+            cell, make_mesh(shape, ("data", "model"), device="cpu"),
+            layer_override={"num_layers": 1})
+        with pytest.raises(NotImplementedError, match="in a world of as "
+                           "many ranks"):
+            art.fn(*art.abstract_args)
 
 
 # --------------------------------------------------------------------- #
@@ -481,5 +486,15 @@ def test_serve_and_train_launchers_on_the_cpu(monkeypatch):
         assert s["grad_norm"] > 0
         assert s["mfu"] == pytest.approx(
             RA.model_flops("qwen3-4b", "train", 2 * 16) / s["s"] / 989.4e12)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        serve.main(["--multi-pod"])
+    # --multi-pod: a pod axis of 2 in front of --mesh, for both launchers
+    seen = []
+    monkeypatch.setattr(serve, "run_programs",
+                        lambda *a, **kw: seen.append(kw["mesh"]) or {})
+    monkeypatch.setattr(train, "run_steps",
+                        lambda *a: seen.append(a[-1]) or {})
+    serve.main(["--multi-pod", "--mesh", "1x2", "--device", "cpu"])
+    train.main(["--multi-pod", "--mesh", "2x1", "--device", "cpu"])
+    serve.main(["--mesh", "2x1", "--device", "cpu"])
+    assert seen == [(2, 1, 2), (2, 2, 1), (2, 1)]
+    with pytest.raises(ValueError, match="data x model"):
+        serve.parse_mesh("2", False)
