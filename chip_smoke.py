@@ -426,10 +426,27 @@ nvcc, then runs its phases, each printing JSON lines:
      a control (the data reduction skipped; the column entries' backward
      psum skipped; the pod's) past the norm's bound, bytes equal to
      ``per_chip_bytes``, the collectives' calls and bytes as predicted
-     (``phase21_expected``), no launch. 21d serves 18a's cut on (data 2,
+     (``train_expected``), no launch. 21d serves 18a's cut on (data 2,
      model 1), one sequence a rank: flash and flash_decode (whole calls)
      on each rank, held to 18a's one-card run (tokens, logits in bf16
      steps, launches a rank).
+ 22. training every other family on 21c's world of four at (data 2,
+     model 2), as 21's parts (2 x 4,096 tokens, one step at PHASE21_OPT),
+     each witness one card stepping each data rank's rows on their own
+     (the MoE's capacity is its shard's): 22a Mixtral-8x7B (2 of 32
+     layers, ZeRO-3), 22b DeepSeek-V2-Lite (3 of 27, ZeRO-3: the dense
+     first layer gathered inside it), 22c RecurrentGemma-9B (6 of 38,
+     ZeRO-3, the 2,048 window biting), 22d Mamba2-370M (24 of 48), 22e
+     InternVL2-2B (12 of 24, 256 patches a sequence), 22f
+     Whisper-large-v3 (32 encoder layers over 1,500 frames, 8 of 32
+     decoder layers). Each control leaves out a collective this slice's
+     adjoints place (the router's model-axis sum, MLA's latent's, the
+     RG-LRU's xb gather's split backward, the SSD weights' data sum, the
+     whole data sum, the cross K/V gather's split backward; 22c also every
+     column entry's), is run as a step and is judged on the leaves it
+     touches; the MoE parts count the tokens whose experts flip against
+     the witness's; the ranks drop the shared card's buffers after each
+     part; no launch.
 
 Each phase requires launches of exactly the kernels its path runs (counts
 reset just before its serving loop; phase 5 sums the counts its worker
@@ -440,7 +457,7 @@ line gives each kernel's
 launches on every serving phase (phases 3-12, none on phase 9; 0 on
 phase 13, training; phase 14: 14a's and 14b's main paths; phase 15: its
 parts' main paths, 15d's included; phases 16 and 17; phase 21: 21d's on
-both ranks, its training parts none), and its timing at
+both ranks, its training parts none; phase 22 none), and its timing at
 phase 7's MLA
 shape (``"mla"``), phase 8's RecurrentGemma shape (``"rg"``), phase
 10's InternVL2 shape (``"vlm"``), phase 11's Whisper shape
@@ -929,6 +946,128 @@ PHASE21_PREDICTED = {
            "flash 4, flash_decode 16 (whole calls: model axis 1); 5 logit "
            "gathers of 303,872 B a rank; prefill 2-5 s",
     "phase_s": "100-140",
+}
+
+# phase 22: training every other family on a mesh of ranks — one world of
+# four at (data 2, model 2) for every part: (arch, layers) of each part's
+# train_4k cell at PHASE21_BATCH sequences of 4,096 tokens (one a data
+# rank; the second's last PHASE21_UNLABELED labels -1), n_micro 1 (a cut
+# from the cells' 8-16), ZeRO-3 as the cells set it (Mixtral, DeepSeek,
+# RecurrentGemma). Cuts: 22a Mixtral-8x7B to 2 of 32 layers (its 4,096
+# window never bites at 4,096 tokens), 22b DeepSeek-V2-Lite to 3 of 27
+# (the dense first layer, a group of count 1 under ZeRO-3, then 2 MoE
+# layers), 22c RecurrentGemma-9B to 6 of 38 (two rounds of its (RG-LRU,
+# RG-LRU, attention) pattern; its 2,048 window bites), 22d Mamba2-370M
+# to 24 of 48, 22e InternVL2-2B to 12 of 24 (256 patches a sequence),
+# 22f Whisper-large-v3's decoder to 8 of 32 (its encoder whole, over
+# 1,500 frames): the whole script within its time (at full depth these
+# three took 21.6, 27.1 and 42.7 s on the card, PERF.md).
+PHASE22_MESH = (2, 2)
+PHASE22_TRAIN = {"22a": ("mixtral-8x7b", 2),
+                 "22b": ("deepseek-v2-lite-16b", 3),
+                 "22c": ("recurrentgemma-9b", 6),
+                 "22d": ("mamba2-370m", 24),
+                 "22e": ("internvl2-2b", 12),
+                 "22f": ("whisper-large-v3", 8)}
+# the main path is one step at PHASE21_OPT from the seed's weights (phase
+# 21's update step, with no default-rate steps before it: at the
+# warm-up's rate the zero-initialised leaves — conv and gate biases —
+# move by +-lr, where a near-zero gradient's sign is bf16 noise)
+PHASE22_STEPS = 0
+# each part's controls: the collective it leaves out
+# (``collectives.skipping``) and the leaves it is judged on (path keys).
+# Each control is run as a whole step at PHASE21_OPT from the part's
+# first state, then the state is put back. Its gradients over those
+# leaves, a relative L2 gap from the one-card witness's (each leaf's
+# squares summed over the plane of the axes that split it), must miss the
+# bound that the main path's meet; so must the update over its leaves
+# (the rank's slices) of at least one control of the part — the update
+# bound's control. 22c's xb control moves w_x's gradients by a few per
+# cent (the gate products' share of xb's gradient), which flips too few
+# signs of its first AdamW step to miss the update bound; its
+# column-entry control (phase 21b's, every column entry's sum over the
+# model axis left out) is the update bound's control there
+PHASE22_CONTROLS = {
+    "22a": [("moe.router", ("['router']",))],
+    "22b": [("moe.router", ("['router']",)),
+            ("mla.latent", ("['w_dkv']", "['kv_norm']"))],
+    "22c": [("rglru.xb", ("['w_x']",)), ("column_entry", ("['w_x']",))],
+    "22d": [("data_grads:ssd", ("['ssd']",))],
+    "22e": [("data_grads", ("['embed']",))],
+    "22f": [("cross.kv", ("['cross']['wk']", "['cross']['wv']"))],
+}
+# the bounds of a phase 22 part (its bf16 step against one card's): the
+# touched leaves' gradients within PHASE22_GRAD_RTOL; every parameter
+# leaf's update within PHASE21_UPDATE_RTOL; every moment leaf (mu and nu,
+# the rank's slice) within PHASE22_MOMENT_RTOL relative L2. The moments'
+# control: the rank's moments before its step (a leaf never written,
+# zero: 1.0 off), held leaf by leaf, the least-missed leaf past the
+# bound. The first step's moments are functions of its gradients (mu of
+# g, nu of g squared, both scaled by the clip): the control steps'
+# moments over their leaves are recorded beside them. Each gradient
+# bound lies between the main path's gap and its controls' as measured
+# on the card (NVIDIA H100 80GB HBM3, 700 W; PERF.md, PR 32): the rank's
+# bf16 partials are rounded before their psum, one card's products once,
+# through 24-64 layers of backward — 2.2-3.6 % off in 22c-22e (the
+# prediction of 0.1-1.5 % was wrong), their controls 63-94 % (22c's xb
+# 4.5 %)
+PHASE22_GRAD_RTOL = 0.1
+PHASE22_MOMENT_RTOL = 0.35
+# the parts' own bounds, each with its reason. The MoE parts: a token
+# whose top-k scores nearly tie may take another expert on the mesh than
+# on one card, and its whole contribution moves — the router's
+# gate-weight gradient, the gradients flowing back into the latent, the
+# router's first update. The part counts those tokens (``flips``: the
+# tokens of each MoE layer whose top-k set differs from the witness's in
+# the first forward; the router's gap on a data rank is its layer's,
+# ZeRO-3 splitting the layer axis): measured 12-16 % off against
+# controls of 71-76 %, updates 0.36-0.45 against controls of 1.0-1.05.
+# 22c: its xb control moves w_x's gradients little (the gate products'
+# share of xb's gradient): measured 2.2-2.5 % off, the control 4.5 %.
+PHASE22_BOUNDS = {
+    "22a": {"grad": 0.25, "update": 0.6},
+    "22b": {"grad": 0.25, "update": 0.6},
+    "22c": {"grad": 0.035},
+}
+# written before the run of each part on the card (22a and 22b: before
+# their first run; their bounds above after it, with their reason)
+PHASE22_PREDICTED = {
+    "22a": "Mixtral x2 ZeRO-3: ~1.58 GB of weights and 6.3 GB of moments "
+           "a rank; loss within 1e-4 and norm within 5e-3 of the "
+           "per-shard witness; the router's gradients 1-10 % off (near-tie "
+           "expert flips from the bf16 partials of wo summed over the "
+           "model axis: possibly past 1e-2), its control 50-75 %; update "
+           "0.1-0.4; witness peak 45-55 GiB; part 25-45 s. Then (before "
+           "the run of the controls as steps): the control's update "
+           "0.9-1.3 and moments 0.4-1.0 relative L2; the main path's "
+           "moments 0.02-0.3 at the worst leaf; tens to hundreds of "
+           "flipped tokens a layer, the router's gap larger on the layer "
+           "with more",
+    "22b": "DeepSeek x3 ZeRO-3 (the dense first layer gathered inside it): "
+           "~0.45 GB of weights a rank; the latent's gradients 0.3-2 % "
+           "off, its control 40-75 %; the router as 22a's; part 15-30 s",
+    "22c": "RecurrentGemma x6 ZeRO-3 (the 2,048 window bites): w_x's "
+           "gradients 0.3-1.5 % off, the control (xb's split backward "
+           "left out) 30-75 %, its update 0.9-1.3 and moments 0.3-1.0; "
+           "update 0.1-0.4 and moments 0.02-0.3 at the worst leaf; "
+           "witness peak 35-45 GiB; rank peak 8-14 GiB beside the 256,000 "
+           "vocab's logits; part 15-30 s",
+    "22d": "Mamba2 x48 (no ZeRO-3; SSD weights whole on each rank, summed "
+           "over the data axis alone): the SSD gradients 0.1-1.5 % off, "
+           "the control (their data sum left out) 40-80 %, its update "
+           "0.9-1.3 and moments 0.4-1.0; update 0.1-0.4, moments 0.02-0.3; "
+           "part 15-30 s",
+    "22e": "InternVL2 x24 (256 patches a sequence, labels -1 there): the "
+           "embedding's gradients 0.1-1.5 % off, the control (the whole "
+           "data sum left out) 40-80 %, its update 0.9-1.3, moments "
+           "0.4-1.0; update 0.1-0.4, moments 0.02-0.3; part 10-25 s",
+    "22f": "Whisper x32+32 (1,500 frames; the encoder under remat): the "
+           "cross K/V weights' gradients 0.3-2 % off, the control (their "
+           "gather's split backward left out) 30-75 %, its update 0.9-1.3, "
+           "moments 0.3-1.0; update 0.1-0.4, moments 0.02-0.3; part 15-35 s. "
+           "At the cut depths of 22d-22f (after their full-depth run): "
+           "parts 10-16, 12-18 and 20-28 s",
+    "phase_s": "70-150 (after the full-depth run: 130-150)",
 }
 
 
@@ -5920,7 +6059,7 @@ def phase14b(dev):
 
     routes = []
 
-    def traced(p, cfg_, x, capacity_factor=1.25):
+    def traced(p, cfg_, x, capacity_factor=1.25, **kw):
         _, idx = L.moe_route(p, cfg_, x.reshape(-1, x.shape[-1]))
         flat = idx.reshape(-1)
         sizes.append((torch.zeros(cfg_.moe.num_experts, dtype=torch.int64,
@@ -5928,7 +6067,8 @@ def phase14b(dev):
             0, flat, torch.ones_like(flat)), x.reshape(-1, x.shape[-1])
             .shape[0], capacity_factor))
         routes.append(idx.to(torch.int8).cpu())
-        return real_capacity(p, cfg_, x, capacity_factor=capacity_factor)
+        return real_capacity(p, cfg_, x, capacity_factor=capacity_factor,
+                             **kw)
 
     ops.reset_launch_counts()
     L._moe_mlp_capacity = traced
@@ -7227,7 +7367,7 @@ class SubBlocks:
             if cfg.is_enc_dec else []
         real_psum, real_gather = C.psum, C.all_gather
 
-        def own_half(x, dim, shard_):
+        def own_half(x, dim, shard_, **kw):
             return torch.cat([x if j == shard_.index else torch.zeros_like(x)
                               for j in range(shard_.size)], dim)
 
@@ -8137,63 +8277,160 @@ def phase20(dev):
 # --------------------------------------------------------------------------- #
 # phase 21: the data and pod axes of a mesh of ranks
 # --------------------------------------------------------------------------- #
+def train_part(part: str) -> dict:
+    """A training part of phases 21 and 22: its arch, layer cut, mesh
+    shape, micro-batches, main-path steps, controls [(the reduction left
+    out, the path keys of the leaves it is judged on; None: every leaf's
+    norm)] and whether its witness runs each data rank's rows on their
+    own (``phase22_shard_step``)."""
+    if part in PHASE21_TRAIN:
+        arch, layers, shape, n_micro = PHASE21_TRAIN[part]
+        return dict(phase=21, arch=arch, layers=layers, shape=shape,
+                    n_micro=n_micro, steps=1 + PHASE21_STEPS,
+                    controls=[(PHASE21_CONTROL[part], None)], shards=False,
+                    predicted=PHASE21_PREDICTED[part])
+    arch, layers = PHASE22_TRAIN[part]
+    return dict(phase=22, arch=arch, layers=layers, shape=PHASE22_MESH,
+                n_micro=1, steps=PHASE22_STEPS,
+                controls=PHASE22_CONTROLS[part], shards=True,
+                predicted=PHASE22_PREDICTED[part])
+
+
 def phase21_batch(art, seed: int, dev):
-    """A train step's whole batch (``launch.train.train_batch``) with label
-    -1 on the second sequence's last PHASE21_UNLABELED positions."""
+    """A train step's whole batch (``launch.train.train_batch``: patches
+    or frames beside the tokens where the model takes them) with label -1
+    on the second sequence's last PHASE21_UNLABELED positions."""
     from repro_torch.launch import train
     batch = train.train_batch(art, seed, dev)
     batch["labels"][1, -PHASE21_UNLABELED:] = -1
     return batch
 
 
-def phase21_steps(art, state, dev):
-    """One warm-up and PHASE21_STEPS steps of ``art`` from ``state`` over
-    ``phase21_batch(seed + i)``: each step's loss, grad norm and seconds
-    (after a synchronize), and the state."""
+def phase21_steps(art, state, dev, steps: int, step=None):
+    """``steps`` steps of ``step`` (``art.fn`` unless given) from
+    ``state`` over ``phase21_batch(seed + i)``: each step's loss, grad
+    norm (and the witness's norms over the controls' leaves, where the
+    step gives them) and seconds (after a synchronize), and the state."""
     import torch
-    steps = []
-    for i in range(1 + PHASE21_STEPS):
+    step = step or art.fn
+    out = []
+    for i in range(steps):
         batch = phase21_batch(art, SEED + i, dev)
         _sync(dev)
         t0 = time.perf_counter()
-        state, m = art.fn(state, batch)
-        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        state, m = step(state, batch)
+        rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        if "touched" in m:
+            rec["touched"] = m["touched"]
         _sync(dev)
-        steps.append({"loss": loss, "grad_norm": gnorm,
-                      "s": time.perf_counter() - t0})
-        if not (math.isfinite(loss) and math.isfinite(gnorm)):
-            raise FloatingPointError(f"phase 21 step {i}: {steps[-1]}")
+        rec["s"] = time.perf_counter() - t0
+        out.append(rec)
+        if not (math.isfinite(rec["loss"]) and math.isfinite(
+                rec["grad_norm"])):
+            raise FloatingPointError(f"training step {i}: {rec}")
         del batch
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return steps, state
+    return out, state
+
+
+def phase22_shard_step(art, opt, controls=(), sink=None,
+                       ways: int = PHASE22_MESH[0]):
+    """The one-card witness's step of a phase 22 part: each of the ``ways``
+    data ranks' rows through the model on their own (the MoE at the
+    capacity of that shard's tokens, as each rank routes them), the loss
+    the sum of the shards' numerators over the sum of their counts —
+    each shard's mean scaled by its share of the labels before its
+    backward — and the shards' gradients (the parameter dtype) added, as
+    the mesh's data sum adds them (the second backward accumulates into
+    the first's gradients in place); then AdamW at ``opt``, in place.
+    Metrics: loss, grad norm, lr. With ``sink``, the gradients of the
+    leaves ``controls`` judge go there ({path: a copy in the host's pinned
+    memory})."""
+    import torch
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import dist
+    from repro_torch.models import model as M
+    from repro_torch.training.optim import adamw_update
+    from repro_torch.training.train_step import TrainState
+    from repro_torch.training.tree import leaves_with_paths, unflatten
+    dctx = TS._dctx(art.mesh, ("data",), "model", mode="train")
+
+    def step(state, batch):
+        n = batch["labels"].shape[0] // ways
+        count = int((batch["labels"] >= 0).sum())
+        paths, flat = zip(*leaves_with_paths(state.params))
+        live = [p.detach().requires_grad_() for p in flat]
+        params = unflatten(state.params, live)
+        loss = 0.0
+        for r in range(ways):
+            rows = {k: v[r * n:(r + 1) * n] for k, v in batch.items()}
+            share = int((rows["labels"] >= 0).sum()) / count
+            with dist.use(dctx), torch.enable_grad():
+                part = M.loss_fn(params, art.cfg, rows, remat=True) * share
+                part.backward()
+            loss += float(part.detach())
+            del part
+        acc = [torch.zeros_like(p) if x.grad is None else x.grad
+               for p, x in zip(flat, live)]
+        del live, params
+        if sink is not None:
+            pin = acc[0].is_cuda
+            sink.update((p, torch.empty(g.shape, dtype=g.dtype,
+                                        pin_memory=pin).copy_(g))
+                        for p, g in zip(paths, acc)
+                        if any(k in p for _, keys in controls for k in keys))
+        params, opt_state, m = adamw_update(
+            opt, state.params, unflatten(state.params, acc), state.opt)
+        del acc
+        return TrainState(params=params, opt=opt_state), {"loss": loss, **m}
+
+    return step
 
 
 def phase21_witness(dev, part: str) -> dict:
     """A training part's one-card witness: its arch and cut on the one-card
     mesh at PHASE21_BATCH (``launch.train.train_state_on_rank`` at (1, 1),
-    the same seed), the same steps over the whole batch, then the update
-    step (``phase21_update_step``). Its parameters before and after the
-    update step and its final moments are kept in the host's pinned
-    memory ({path: tensor} trees) with each step's loss and norm, and the
-    card is freed for the ranks."""
+    the same seed), the same steps over the whole batch (a phase 22 part:
+    ``phase22_shard_step``, whose update step — its main path — also
+    keeps the gradients of its controls' leaves), then the update step
+    (``phase21_update_step``). Its parameters before (phase 21: the
+    ranks hold their own draw, the same as the witness's, for phase 22)
+    and after the update step and its final moments are kept in the
+    host's pinned memory ({path: tensor} trees) with each step's loss and
+    norm, and the card is freed for the ranks. A phase 22 part's witness
+    also keeps each data shard's top-k experts in the update step's first
+    forward (``first_routes``; None without MoE layers)."""
     import torch
     from repro_torch.launch import train
+    from repro_torch.training.optim import AdamWConfig
     from repro_torch.training.tree import leaves_with_paths
-    arch, layers, _, n_micro = PHASE21_TRAIN[part]
+    spec = train_part(part)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    art, state = train.train_state_on_rank(arch, PHASE21_BATCH, n_micro,
-                                           layers, SEED, (1, 1), dev)
-    steps, state = phase21_steps(art, state, dev)
-    pin = dev.type == "cuda"
+    # a phase 22 part's witness at the vocab the ranks' model axis pads to
+    vocab = deployed_vocab(spec["shape"][-1]) if spec["shards"] else \
+        contextlib.nullcontext()
+    with vocab:
+        art, state = train.train_state_on_rank(
+            spec["arch"], PHASE21_BATCH, spec["n_micro"], spec["layers"],
+            SEED, (1, 1), dev)
+        step = phase22_shard_step(art, AdamWConfig()) if spec["shards"] \
+            else None
+        steps, state = phase21_steps(art, state, dev, spec["steps"], step)
+        pin = _host_cache_free() is not None
 
-    def pinned(tree):
-        return {p: torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
-                .copy_(x) for p, x in leaves_with_paths(tree)}
-    held = {"before": pinned(state.params)}
-    update, state = phase21_update_step(part, art.mesh, state, dev)
+        def pinned(tree):
+            return {p: torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
+                    .copy_(x) for p, x in leaves_with_paths(tree)}
+        held = {} if spec["shards"] else {"before": pinned(state.params)}
+        touched = {}
+        with routes_recorded() as seen:
+            update, state = phase21_update_step(part, art.mesh, state, dev,
+                                                witness=True, sink=touched)
+        routes = first_routes(art.cfg, seen, PHASE22_MESH[0]) \
+            if spec["shards"] else None
     held.update((kind, pinned(tree)) for kind, tree in (
         ("params", state.params), ("mu", state.opt["mu"]),
         ("nu", state.opt["nu"])))
@@ -8201,30 +8438,46 @@ def phase21_witness(dev, part: str) -> dict:
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    rec = {"phase": 21, "part": f"{part} one card", "steps": steps,
-           "update_step": update, "s": round(time.perf_counter() - t0, 3),
+    rec = {"phase": spec["phase"], "part": f"{part} one card",
+           "steps": steps, "update_step": update,
+           "s": round(time.perf_counter() - t0, 3),
            "peak_gib": _peak_gib(dev)}
     emit(rec)
-    return {"steps": steps, "update_step": update, "held": held}
+    return {"steps": steps, "update_step": update, "held": held,
+            "touched": touched, "routes": routes}
 
 
-def phase21_update_step(part: str, mesh, state, dev):
+def _host_cache_free():
+    """The call that gives the framework's cached pinned host memory back
+    (phase 22's witnesses' states, six models one after another, would
+    otherwise stay pinned in this process beyond the host's memory;
+    phase 21's parts reuse each other's), or None: then the witnesses'
+    states are kept in pageable memory."""
+    import torch
+    if not torch.cuda.is_available():
+        return None
+    return getattr(torch._C, "_host_emptyCache", None)
+
+
+def phase21_update_step(part: str, mesh, state, dev, witness: bool = False,
+                        sink=None):
     """The update step: the part's train artifacts on ``mesh`` stepping
-    AdamW at PHASE21_OPT, one step from ``state`` over
-    ``phase21_batch(SEED + 1 + PHASE21_STEPS)``. Returns ({"loss",
-    "grad_norm", "s"}, state)."""
-    from repro_torch.launch.cells import get_cell
-    from repro_torch.launch.steps import make_train_artifacts
-    arch, layers, _, n_micro = PHASE21_TRAIN[part]
-    cell = dataclasses.replace(get_cell(arch, "train_4k"),
-                               batch=PHASE21_BATCH, n_micro=n_micro)
-    with phase21_opt():
-        art = make_train_artifacts(cell, mesh,
-                                   layer_override={"num_layers": layers})
-    batch = phase21_batch(art, SEED + 1 + PHASE21_STEPS, dev)
+    AdamW at PHASE21_OPT (the witness of a phase 22 part:
+    ``phase22_shard_step`` at it), one step from ``state`` over
+    ``phase21_batch(SEED + the part's main-path steps)``; the witness's
+    gradients of its controls' leaves go to ``sink``. Returns ({"loss",
+    "grad_norm", "lr", "s"}, state)."""
+    from repro_torch.training.optim import AdamWConfig
+    spec = train_part(part)
+    art = update_artifacts(part, mesh)
+    step = art.fn
+    if witness and spec["shards"]:
+        step = phase22_shard_step(art, AdamWConfig(**PHASE21_OPT),
+                                  spec["controls"], sink)
+    batch = phase21_batch(art, SEED + spec["steps"], dev)
     _sync(dev)
     t0 = time.perf_counter()
-    state, m = art.fn(state, batch)
+    state, m = step(state, batch)
     out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
            "lr": float(m["lr"])}
     _sync(dev)
@@ -8232,36 +8485,95 @@ def phase21_update_step(part: str, mesh, state, dev):
     return out, state
 
 
-def phase21_expected(part: str, mesh_shape) -> dict:
+def update_artifacts(part: str, mesh):
+    """The part's train artifacts on ``mesh`` stepping AdamW at
+    PHASE21_OPT."""
+    from repro_torch.launch.cells import get_cell
+    from repro_torch.launch.steps import make_train_artifacts
+    spec = train_part(part)
+    cell = dataclasses.replace(get_cell(spec["arch"], "train_4k"),
+                               batch=PHASE21_BATCH, n_micro=spec["n_micro"])
+    layers = spec["layers"]
+    with phase21_opt():
+        return make_train_artifacts(
+            cell, mesh,
+            layer_override={"num_layers": layers} if layers else None)
+
+
+@contextlib.contextmanager
+def routes_recorded():
+    """Every ``layers.moe_route`` call's top-k experts inside the block,
+    each token's sorted, on the host, in call order (the yielded list)."""
+    import torch
+    from repro_torch.models import layers as L
+    real = L.moe_route
+    seen = []
+
+    def spy(p, cfg, x2d):
+        weights, idx = real(p, cfg, x2d)
+        seen.append(torch.sort(idx, dim=-1).values.cpu())
+        return weights, idx
+
+    L.moe_route = spy
+    try:
+        yield seen
+    finally:
+        L.moe_route = real
+
+
+def first_routes(cfg, seen: list, shards: int = 1):
+    """Of the routes ``routes_recorded`` saw over ``shards`` forwards, each
+    under remat and followed by its backward (each MoE layer routed
+    twice: its forward, then its recompute), each shard's first forward:
+    [shard][MoE layer] top-k experts; None for a model without MoE
+    layers."""
+    from repro_torch.models import model as M
+    n = sum(g.count for g in M.block_groups(cfg) if g.moe)
+    if not n:
+        return None
+    if len(seen) < 2 * n * shards:
+        raise AssertionError(f"{len(seen)} routings seen, {shards} "
+                             f"forwards of {n} MoE layers make {2 * n}")
+    return [seen[2 * n * r:2 * n * r + n] for r in range(shards)]
+
+
+def train_expected(part: str) -> dict:
     """The collectives a rank of a training part calls in its main path
-    (1 + PHASE21_STEPS steps), {name: {"calls", "bytes"}}, from the
-    deployed config and the specs alone (on ``meta``): per micro-batch,
-    on a model axis of m, the embedding's psum, each layer's K/V gather,
-    ``wo``'s and the MLP's psums, the logits' gather, the recompute's K/V
-    gather and ``wo`` psum (the remat's recompute stops at the last saved
-    tensor, before the MLP's psum), and the backward's psums at the
-    attention and MLP entries, the qk-norm weights and the K/V gather, and
-    the head's entry; on data axes the loss's two psums, each gradient
-    leaf's psum in slices of ``optim.SLICE_ELEMS`` rows (a leaf the data
-    axes do not split), ZeRO-3's gathers (the top-level leaves) and
-    broadcasts (a layer's leaves split on the layer axis) with the
-    recompute's and a psum each in the backward; per step one psum a
-    norm plane and one ZeRO-1 gather a leaf whose moments alone the data
-    axes split."""
+    (the part's steps), {name: {"calls", "bytes"}}, from the deployed
+    config and the specs alone (on ``meta``). Per micro-batch, on a model
+    axis of m: the embedding's psum, the logits' gather and the head's
+    entry; per layer, by kind, the forward's collectives, the remat's
+    recompute of them — which stops at the last saved tensor, before the
+    layer's last psum (its MLP's, MoE's; none for an SSD layer) — and the
+    backward's psums, one a ``column_entry`` (the attention's, the MLP's,
+    MoE's tokens and gate weights, MLA's x, latent and kpe, the RG-LRU's
+    x, the cross-attention's x and memory) and one a split gather (K/V,
+    the RG-LRU's ``xb``, the cross K/V); an enc-dec model's encoder layers
+    (remat too) over its frames. On data axes the loss's two psums, each
+    gradient leaf's psum in slices of ``optim.SLICE_ELEMS`` rows (a leaf
+    the data axes do not split), ZeRO-3's gathers (the top-level leaves)
+    and broadcasts or gathers (a layer's leaves, split on the layer axis
+    or inside the layer) with the recompute's and a psum each in the
+    backward; per step one psum a norm plane and one ZeRO-1 gather a leaf
+    whose moments alone the data axes split."""
+    from repro_torch.configs.base import ATTN, RECURRENT, SSD
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.cells import get_cell
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.serve import mesh_axes
     from repro_torch.launch.steps import make_train_artifacts
+    from repro_torch.models import model as M
     from repro_torch.training.optim import SLICE_ELEMS
-    arch, layers, _, n_micro = PHASE21_TRAIN[part]
+    spec = train_part(part)
+    mesh_shape, n_micro = spec["shape"], spec["n_micro"]
     axes = mesh_axes(mesh_shape)
     sizes = dict(zip(axes, mesh_shape))
-    cell = dataclasses.replace(get_cell(arch, "train_4k"),
+    cell = dataclasses.replace(get_cell(spec["arch"], "train_4k"),
                                batch=PHASE21_BATCH, n_micro=n_micro)
-    art = make_train_artifacts(cell, Mesh(tuple(mesh_shape), axes,
-                                          _meta_device()),
-                               layer_override={"num_layers": layers})
+    art = make_train_artifacts(
+        cell, Mesh(tuple(mesh_shape), axes, _meta_device()),
+        layer_override={"num_layers": spec["layers"]}
+        if spec["layers"] else None)
     cfg = art.cfg
     m = sizes["model"]
     data = tuple(a for a in axes if a != "model")
@@ -8269,7 +8581,10 @@ def phase21_expected(part: str, mesh_shape) -> dict:
     specs = art.in_shardings[0]
     e = 2 if cfg.compute_dtype == "bfloat16" else 4
     pe = 2 if cfg.param_dtype == "bfloat16" else 4
-    tokens = PHASE21_BATCH // dp // n_micro * cell.seq_len
+    rows = PHASE21_BATCH // dp // n_micro          # sequences a micro-batch
+    toks = rows * art.abstract_args[1]["tokens"].shape[1]
+    vision = cfg.frontend.kind == "vision"
+    tokens = toks + (rows * cfg.frontend.num_patches if vision else 0)
     micro = {"calls": collections.Counter(), "bytes": collections.Counter()}
     step = {"calls": collections.Counter(), "bytes": collections.Counter()}
 
@@ -8277,53 +8592,96 @@ def phase21_expected(part: str, mesh_shape) -> dict:
         to["calls"][name] += n
         to["bytes"][name] += total
 
-    d, kv, hd, L = cfg.d_model, cfg.num_kv_heads, cfg.hd, cfg.num_layers
-    act = tokens * d * e
-    if m > 1:
-        add(micro, "psum", 1, act)                        # embedding
-        add(micro, "psum", 2 * L, 2 * L * act)            # wo, MLP
-        add(micro, "all_gather", 2 * L,                   # K/V, recompute
-            2 * L * 2 * tokens * kv * hd // m * e)
-        add(micro, "psum", L, L * act)                    # recompute's wo
-        add(micro, "psum", 2 * L, 2 * L * act)            # attn, MLP entries
+    d, kv, hd = cfg.d_model, cfg.num_kv_heads, cfg.hd
+
+    def attention(t):                 # K/V gathered on head_dim, wo's psum
+        kvb = 2 * t * kv * hd * e
+        add(micro, "all_gather", 2, 2 * kvb // m)     # + recompute
+        add(micro, "psum", 2, 2 * t * d * e)          # wo, recompute
+        add(micro, "psum", 2, t * d * e + kvb)        # x's entry, K/V's grad
         if cfg.qk_norm:
-            add(micro, "psum", 2 * L, 2 * L * hd * pe)    # q_norm, k_norm
-        add(micro, "psum", L, L * 2 * tokens * kv * hd * e)  # K/V's grad
-        add(micro, "psum", 1, act)                        # the head's entry
+            add(micro, "psum", 2, 2 * hd * pe)        # q_norm, k_norm
+
+    def mla(t):
+        ml = cfg.mla
+        add(micro, "psum", 2, 2 * t * d * e)          # wo, recompute
+        add(micro, "psum", 3, t * (d + ml.kv_lora_rank
+                                   + ml.qk_rope_head_dim) * e)  # entries
+
+    def mlp(t, moe):                  # its psum is the layer's last
+        add(micro, "psum", 2, 2 * t * d * e)          # forward, entry
+        if moe:
+            add(micro, "psum", 1, t * cfg.moe.top_k * 4)  # gate weights
+
+    def rglru(t):
+        w = cfg.recurrent.lru_width or d
+        add(micro, "all_gather", 2, 2 * t * w // m * e)  # xb, recompute
+        add(micro, "psum", 2, 2 * t * d * e)          # w_out, recompute
+        add(micro, "psum", 2, t * d * e + t * w * e)  # x's entry, xb's grad
+
+    def cross(t, mem):
+        kvb = 2 * mem * kv * hd * e
+        add(micro, "all_gather", 2, 2 * kvb // m)     # + recompute
+        add(micro, "psum", 2, 2 * t * d * e)          # wo, recompute
+        add(micro, "psum", 3, t * d * e + mem * d * e + kvb)
+
+    if m > 1:
+        add(micro, "psum", 1, toks * d * e)           # the embedding
+        add(micro, "psum", 1, tokens * d * e)         # the head's entry
         add(micro, "all_gather", 1, tokens * cfg.vocab_size // m * e)
+        mem = rows * cfg.max_source_len
+        if cfg.is_enc_dec:
+            for g in M.encoder_groups(cfg):
+                for _ in range(g.count):
+                    attention(mem)
+                    mlp(mem, False)
+        for g in M.block_groups(cfg):
+            for _ in range(g.count):
+                for kind in g.kinds:
+                    if kind == SSD:
+                        continue
+                    if kind == RECURRENT:
+                        rglru(tokens)
+                    elif cfg.attention_kind == "mla":
+                        mla(tokens)
+                    else:
+                        attention(tokens)
+                    if g.cross:
+                        cross(tokens, mem)
+                    mlp(tokens, g.moe and kind == ATTN)
     if dp > 1:
-        add(micro, "psum", 2, 4 + 8)                      # numerator, count
+        add(micro, "psum", 2, 4 + 8)                  # numerator, count
     planes = set()
     model_only = Mesh(tuple(mesh_shape), axes, None, (0,) * len(axes))
     for p, x in SH.named_leaves(art.abstract_args[0].params):
-        spec = specs[".params" + p]
+        spec_p = specs[".params" + p]
         local = SH.local_shape(tuple(x.shape), tuple(
             "model" if "model" in SH._entry_axes(en) else None
-            for en in spec), model_only)
+            for en in spec_p), model_only)
         lb = math.prod(local) * x.element_size()
-        live = {a for en in spec for a in SH._entry_axes(en)
+        live = {a for en in spec_p for a in SH._entry_axes(en)
                 if sizes[a] > 1}
         if live:
             planes.add(tuple(sorted(live)))
-        if dp > 1 and live & set(data):                   # ZeRO-3
-            if "groups" in SH.path_names(p):
+        if dp > 1 and live & set(data):               # ZeRO-3
+            if {"groups", "enc_groups"} & set(SH.path_names(p)):
                 n, layer = local[0], lb // local[0]
-                name, part = (("broadcast", layer)
-                              if SH.model_dim(spec, data[0]) == 0
-                              else ("all_gather", layer // dp))
-                add(micro, name, 2 * n, 2 * n * part)     # + recompute
+                name, part_b = (("broadcast", layer)
+                                if SH.model_dim(spec_p, data[0]) == 0
+                                else ("all_gather", layer // dp))
+                add(micro, name, 2 * n, 2 * n * part_b)   # + recompute
                 add(micro, "psum", n, n * layer)
             else:
                 add(micro, "all_gather", 1, lb // dp)
                 add(micro, "psum", 1, lb)
-        elif dp > 1:                                      # the data psum
-            rows = max(1, SLICE_ELEMS // max(1, math.prod(local[1:])))
-            add(micro, "psum", -(-local[0] // rows), lb)
+        elif dp > 1:                                  # the data psum
+            rows_s = max(1, SLICE_ELEMS // max(1, math.prod(local[1:])))
+            add(micro, "psum", -(-local[0] // rows_s), lb)
             if SH.model_dim(specs[".opt['mu']" + p], data[0]) is not None:
                 add(step, "all_gather", 1, lb // dp)      # ZeRO-1
     add(step, "psum", len(planes), 4 * len(planes))       # the norm
-    steps = 1 + PHASE21_STEPS
-    return {name: {k: steps * (n_micro * micro[k][name] + step[k][name])
+    n = spec["steps"] or 1          # phase 22: the update step
+    return {name: {k: n * (n_micro * micro[k][name] + step[k][name])
                    for k in ("calls", "bytes")}
             for name in ("psum", "all_gather", "exchange", "broadcast")}
 
@@ -8358,44 +8716,52 @@ def phase21_opt():
         steps.AdamWConfig = saved
 
 
-@contextlib.contextmanager
-def phase21_left_out(skip: str, mesh):
-    """A control: the reduction ``skip`` names left out inside the block —
-    ``"column_entry"`` (the column-parallel entries, whose backward sums
-    over the model axis), ``"data_grads"`` (every sum of gradients over
-    the data plane: the train step's per-leaf psum and ZeRO-3's gather
-    backward)."""
+def leaves_gap(grads, want, layout, keys, specs, mesh,
+               local: bool = False) -> float:
+    """The relative L2 gap of the rank's gradients ``grads`` from the
+    rank's slices (``specs``) of the witness's whole ones ``want`` (on
+    the card) over the leaves whose path holds one of ``keys``: each
+    leaf's squares summed over the plane of the axes that split it, as
+    ``optim.global_norm`` sums them (``local``: the rank's slices
+    alone)."""
+    import torch
+    from repro_torch.launch import sharding as SH
     from repro_torch.models import collectives as C
-    from repro_torch.training import train_step as T
-    data = mesh.axis_shard(tuple(a for a in mesh.axis_names
-                                 if a != "model"))
-    saved = (C.column_entry, C._summed, T.reduce_grads)
-    summed = C._summed
-    if skip == "column_entry":
-        C.column_entry = lambda x, shard: x
-    elif skip == "data_grads":
-        C._summed = lambda g, shard: (g.clone() if shard == data
-                                      else summed(g, shard))
-        T.reduce_grads = lambda grads, layout: grads
-    else:
-        raise ValueError(skip)
-    try:
-        yield
-    finally:
-        C.column_entry, C._summed, T.reduce_grads = saved
+    from repro_torch.training.tree import leaves_with_paths
+    parts = {}
+    for i, (p, x) in enumerate(leaves_with_paths(grads)):
+        if any(k in p for k in keys):
+            w = SH.rank_slice(want[p], specs[p], mesh).float()
+            plane = layout.norm[i]
+            sums = torch.stack([torch.sum(torch.square(x.float() - w)),
+                                torch.sum(torch.square(w))])
+            parts[plane] = parts[plane] + sums if plane in parts else sums
+    total = sum(v if local else C.psum(v, plane)
+                for plane, v in parts.items())
+    return _relative(float(total[0]), float(total[1]))
 
 
-def phase21_rank(rank, part: str):
+def phase21_rank(rank, part: str, want=None, routes=None):
     """A training part's rank: the rank's shards of the seed's train state
     (``launch.train.train_state_on_rank``, what ``python -m
-    repro_torch.launch.train --mesh DxM [--multi-pod]`` runs), its control
-    first (the first step's gradients from the same state with the part's
-    reduction left out: their norm), then the main path — a warm-up and
-    PHASE21_STEPS steps, the collectives and launches counted — and the
-    update step (``phase21_update_step``). The final state, a copy of the
-    parameters before the update step and where each leaf's ZeRO-1 slice
-    lies wait in the rank for ``phase21_hold``. Returns the rank's record
-    (host values)."""
+    repro_torch.launch.train --mesh DxM [--multi-pod]`` runs), its
+    controls first, then the main path — the part's steps, the
+    collectives and launches counted — and the update step
+    (``phase21_update_step``; phase 22's main path, counted). Phase 21's
+    controls: the first step's gradients from the same state with a
+    collective left out (``collectives.skipping``), their norm. Phase
+    22's (``want``: the witness's gradients of the controls' leaves, on
+    the card; ``routes``: its top-k experts, ``first_routes``): each
+    control as a whole update step at PHASE21_OPT with its collective
+    left out — its gradients' relative L2 gap over the control's leaves,
+    and its parameters and moments over them kept on the host for
+    ``phase21_hold`` — after which the first state is put back; then the
+    main path's gradients' gap over the same leaves, read from its step,
+    and the MoE layers' routes in its forward held to the witness's
+    (``flips``). The
+    final state, a copy of the parameters before the update step and
+    where each leaf's ZeRO-1 slice lies wait in the rank for
+    ``phase21_hold``. Returns the rank's record (host values)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import sharding as SH
@@ -8403,15 +8769,18 @@ def phase21_rank(rank, part: str):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import mesh_axes
     from repro_torch.models import collectives as C
+    from repro_torch.training import train_step as T
     from repro_torch.training.optim import global_norm
-    from repro_torch.training.tree import leaves_with_paths
-    arch, layers, shape, n_micro = PHASE21_TRAIN[part]
+    from repro_torch.training.tree import leaves, leaves_with_paths
+    spec = train_part(part)
+    shape = spec["shape"]
     dev = rank.device
     t0 = time.perf_counter()
     make_mesh(shape, mesh_axes(shape), dev)      # the groups, made once
     mesh_s = time.perf_counter() - t0
-    art, state = train.train_state_on_rank(arch, PHASE21_BATCH, n_micro,
-                                           layers, SEED, shape, dev)
+    art, state = train.train_state_on_rank(spec["arch"], PHASE21_BATCH,
+                                           spec["n_micro"], spec["layers"],
+                                           SEED, shape, dev)
     mesh = art.mesh
     init_s = time.perf_counter() - t0
     abs_state = art.abstract_args[0]
@@ -8423,40 +8792,98 @@ def phase21_rank(rank, part: str):
         "moments": [SH.local_bytes(moments), SH.per_chip_bytes(
             {"mu": abs_state.opt["mu"], "nu": abs_state.opt["nu"]}, ospecs,
             mesh.shape)]}
-    batch = phase21_batch(art, SEED, dev)
-    with phase21_left_out(PHASE21_CONTROL[part], mesh):
-        _, grads = art.fn.grads(state, batch)
-        control = float(global_norm(grads, art.fn.layout))
-    del grads, batch
+    coords = dict(zip(mesh.axis_names, mesh.coords))
+    batch = phase21_batch(art, SEED, dev)     # the first step's batch
+    rec = {"rank": rank.index, "device": dev.type, "coords": coords}
+    kept, first = {}, None
+    if want is None:                # phase 21: the controls' norms
+        rec["control_norms"] = []
+        for skip, _ in spec["controls"]:
+            with C.skipping(skip):
+                _, grads = art.fn.grads(state, batch)
+            rec["control_norms"].append(
+                float(global_norm(grads, art.fn.layout)))
+            del grads
+    else:                           # phase 22
+        first = {p: x.to("cpu", copy=True)
+                 for p, x in leaves_with_paths(state.params)}
+        upd = update_artifacts(part, mesh)
+        step0 = state.opt["step"]
+        rec["control_gaps"] = []
+        for i, (skip, keys) in enumerate(spec["controls"]):
+            with C.skipping(skip), capture_calls(T, "adamw_update") as seen:
+                state, _ = upd.fn(state, batch)
+            grads = seen[0][0][2]            # the step's reduced gradients
+            rec["control_gaps"].append(leaves_gap(
+                grads, want, upd.fn.layout, keys, pspecs, mesh))
+            del grads, seen
+            kept[i] = {kind: {p: x.to("cpu", copy=True)
+                              for p, x in leaves_with_paths(tree)
+                              if any(k in p for k in keys)}
+                       for kind, tree in (("params", state.params),
+                                          ("mu", state.opt["mu"]),
+                                          ("nu", state.opt["nu"]))}
+            with torch.no_grad():       # the first state back
+                for p, x in leaves_with_paths(state.params):
+                    x.copy_(first[p])
+                for x in leaves(state.opt["mu"]) + leaves(state.opt["nu"]):
+                    x.zero_()
+            state.opt["step"] = step0
+        del upd
+    del batch
     gc.collect()
     C.reset_stats()
     ops.reset_launch_counts()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-    steps, state = phase21_steps(art, state, dev)
-    rec = {"rank": rank.index, "device": dev.type, "mesh_s": mesh_s,
-           "init_s": init_s, "steps": steps, "control_grad_norm": control,
-           "bytes": nbytes, "collectives": C.stats(),
-           "launches": ops.launch_counts(), "peak_gib": _peak_gib(dev)}
+    steps, state = phase21_steps(art, state, dev, spec["steps"])
+    layout = art.fn.layout
+    before, zero = {}, {}
+    for i, (p, x) in enumerate(leaves_with_paths(state.params)):
+        # on the host: the card's memory is the ranks' peak (four ranks
+        # share it); phase 22's main path starts from the first state
+        before[p] = x.to("cpu", copy=True) if first is None else first[p]
+        d = layout.zero[i] if layout is not None else None
+        zero[p] = None if d is None else (d,) + layout.dp.part(x.shape[d])
+    update = None
+    if not spec["steps"]:           # phase 22: the update step is the path
+        with routes_recorded() as seen, \
+                capture_calls(T, "adamw_update") as calls:
+            update, state = phase21_update_step(part, mesh, state, dev)
+    rec.update({"mesh_s": mesh_s, "init_s": init_s, "steps": steps,
+                "bytes": nbytes, "collectives": C.stats(),
+                "launches": ops.launch_counts(),
+                "peak_gib": _peak_gib(dev)})
     if dev.type == "cuda":
         free, total = torch.cuda.mem_get_info(dev)
         rec["card_used_gib"] = (total - free) / 2 ** 30
+        rec["reserved_gib"] = torch.cuda.memory_reserved(dev) / 2 ** 30
+        rec["buffers_gib"] = C.buffer_bytes() / 2 ** 30
         if rank.index == 0:
             rec["nvidia_smi_used"] = subprocess.run(
                 ["nvidia-smi", "--query-gpu=memory.used",
                  "--format=csv,noheader"], capture_output=True,
                 text=True).stdout.strip()
-    layout = art.fn.layout
-    before, zero = {}, {}
-    for i, (p, x) in enumerate(leaves_with_paths(state.params)):
-        before[p] = x.clone()
-        d = layout.zero[i] if layout is not None else None
-        zero[p] = None if d is None else (d,) + layout.dp.part(x.shape[d])
-    rec["update_step"], state = phase21_update_step(part, mesh, state, dev)
+    if update is None:
+        update, state = phase21_update_step(part, mesh, state, dev)
+    else:                           # phase 22: its gradients, its routes
+        grads = calls[0][0][2]
+        rec["grad_gaps"] = [leaves_gap(grads, want, layout, keys, pspecs,
+                                       mesh) for _, keys in spec["controls"]]
+        rec["grad_gaps_local"] = [
+            leaves_gap(grads, want, layout, keys, pspecs, mesh, local=True)
+            for _, keys in spec["controls"]]
+        if routes is not None:
+            mine = first_routes(art.cfg, seen)[0]
+            theirs = routes[coords.get("data", 0)]
+            rec["flips"] = [int((a != b).any(-1).sum())
+                            for a, b in zip(mine, theirs)]
+        del grads, calls, seen
+    rec["update_step"] = update
     _PHASE21_KEPT.update(state=state, mesh=mesh, specs=(pspecs, ospecs),
-                         before=before, zero=zero)
-    del art
+                         before=before, zero=zero, controls=kept)
+    del art, first
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -8500,27 +8927,79 @@ def _relative(num: float, den: float) -> float:
 
 def phase21_hold(rank, part: str, held: dict):
     """The rank's parameters and moments (``phase21_rank``'s, kept in the
-    rank) held to the one-card witness's ``held`` (on the card, mapped
-    here): the parameters before the update step and the final moments,
-    the largest gap of each kind in bf16 steps of the witness slice's
-    largest magnitude; each parameter leaf's update in the update step
-    against the witness's, as a relative L2 gap, and the same with the
-    leaves of a ZeRO-1 slice updated only there (the control); the worst
-    leaf of each. The state is dropped. Returns {"gaps", "update",
-    "step", "hold_s"}."""
+    rank) held to the kinds of the one-card witness's state in ``held``
+    (on the card, mapped here; a call a few kinds, so that the witness's
+    state is never on the card whole beside the ranks'): with "params",
+    each parameter leaf's update in the update step against the
+    witness's (from "before", or without it — phase 22 — from the rank's
+    own draw, the witness's too), as a relative L2 gap, and the same with
+    the leaves of a ZeRO-1 slice updated only there (the control), the
+    worst leaf of each, and each phase 22 control step's update over its
+    leaves; with "before", the parameters before the update step, the
+    largest gap in bf16 steps of the witness slice's largest magnitude;
+    with "mu" or "nu", the final moments' largest gap likewise and each
+    leaf's relative L2 gap (the worst leaf), and each control step's
+    over its leaves. The call with "nu" drops the state and the shared
+    card's buffers and reads the rank's memory at rest ("idle"). Returns
+    {"gaps", "update"?, "control_updates"?, "step", "hold_s"}."""
     import torch
+    from repro_torch.models import collectives as C
+    t0 = time.perf_counter()
+    state, mesh = _PHASE21_KEPT["state"], _PHASE21_KEPT["mesh"]
+    pspecs, ospecs = _PHASE21_KEPT["specs"]
+    before, zero = _PHASE21_KEPT["before"], _PHASE21_KEPT["zero"]
+    controls = _PHASE21_KEPT["controls"]
+    out = {"gaps": {}, "step": int(state.opt["step"])}
+    if "params" in held:
+        out["update"], out["control_updates"] = _hold_update(
+            state.params, before, held, pspecs, zero, controls, mesh,
+            rank.device)
+    kinds = (("params", "before", lambda: before, pspecs, ""),
+             ("mu", "mu", lambda: state.opt["mu"], ospecs, "['mu']"),
+             ("nu", "nu", lambda: state.opt["nu"], ospecs, "['nu']"))
+    for kind, held_kind, tree, specs, prefix in kinds:
+        if held_kind in held:
+            out["gaps"][kind] = _hold_kind(part, kind, tree(),
+                                           held[held_kind], specs, prefix,
+                                           controls, mesh, rank.device)
+    del held
+    if "nu" in out["gaps"]:
+        _PHASE21_KEPT.clear()
+    del state, before, controls, kinds, tree
+    gc.collect()
+    if rank.device.type == "cuda":
+        torch.cuda.empty_cache()
+        if "nu" in out["gaps"]:         # the part's end: the card at rest
+            buffers = C.buffer_bytes()
+            C.release_buffers()
+            free, total = torch.cuda.mem_get_info(rank.device)
+            out["idle"] = {
+                "allocated_gib": torch.cuda.memory_allocated(rank.device)
+                / 2 ** 30,
+                "reserved_gib": torch.cuda.memory_reserved(rank.device)
+                / 2 ** 30,
+                "buffers_released_gib": buffers / 2 ** 30,
+                "card_used_gib": (total - free) / 2 ** 30}
+    out["hold_s"] = time.perf_counter() - t0
+    return out
+
+
+def _hold_update(params, before: dict, held: dict, pspecs, zero: dict,
+                 controls: dict, mesh, dev):
+    """``phase21_hold``'s update gaps: each parameter leaf's update in the
+    update step against the witness's (from "before", or without it from
+    the rank's own draw), as a relative L2 gap, and the same with the
+    leaves of a ZeRO-1 slice updated only there, the worst leaf of each;
+    and each control step's update over its leaves."""
     from repro_torch.launch import sharding as SH
     from repro_torch.training.tree import leaves_with_paths
-    t0 = time.perf_counter()
-    state, mesh = _PHASE21_KEPT.pop("state"), _PHASE21_KEPT.pop("mesh")
-    pspecs, ospecs = _PHASE21_KEPT.pop("specs")
-    before, zero = _PHASE21_KEPT.pop("before"), _PHASE21_KEPT.pop("zero")
     update = {"worst": (-1.0, None), "control": (-1.0, None),
               "whole": [0.0, 0.0], "zero1_leaves": 0}
-    for p, x in leaves_with_paths(state.params):
+    for p, x in leaves_with_paths(params):
+        x0 = before[p].to(x.device)
         w, w0 = (SH.rank_slice(held[k][p], pspecs[p], mesh).to(x.device)
-                 for k in ("params", "before"))
-        sums = _update_sums(x, before[p], w, w0, zero[p])
+                 if k in held else x0 for k in ("params", "before"))
+        sums = _update_sums(x, x0, w, w0, zero[p])
         gap = _relative(sums[0], sums[1])
         ctrl = _relative(sums[2], sums[1]) if zero[p] else gap
         update["zero1_leaves"] += zero[p] is not None
@@ -8529,52 +9008,117 @@ def phase21_hold(rank, part: str, held: dict):
         for key, g in (("worst", gap), ("control", ctrl)):
             if g > update[key][0]:
                 update[key] = (g, p)
-    update = {"relative_l2": update["worst"][0], "leaf": update["worst"][1],
-              "whole_relative_l2": _relative(*update["whole"]),
-              "control_relative_l2": update["control"][0],
-              "control_leaf": update["control"][1],
-              "zero1_leaves": update["zero1_leaves"]}
-    gaps = {}
-    for kind, tree, specs, prefix in (
-            ("params", before, pspecs, ""),
-            ("mu", dict(leaves_with_paths(state.opt["mu"])), ospecs,
-             "['mu']"),
-            ("nu", dict(leaves_with_paths(state.opt["nu"])), ospecs,
-             "['nu']")):
-        worst = (-1.0, None)
-        for p, x in tree.items():
-            want = SH.rank_slice(held["before" if kind == "params" else kind]
-                                 [p], specs[prefix + p], mesh)
-            if tuple(want.shape) != tuple(x.shape):
-                raise AssertionError(f"{part} {kind}{p}: {tuple(x.shape)} "
-                                     f"on the rank, {tuple(want.shape)} "
-                                     "the witness's slice")
-            gap = _bf16_steps(x, want.to(x.device))
-            if gap > worst[0]:
-                worst = (gap, p)
-        gaps[kind] = {"bf16_steps": worst[0], "leaf": worst[1]}
-    out = {"gaps": gaps, "update": update, "step": int(state.opt["step"])}
-    del state, held, before
-    gc.collect()
-    if rank.device.type == "cuda":
-        torch.cuda.empty_cache()
-    out["hold_s"] = time.perf_counter() - t0
-    return out
+    controlled = []
+    for i in sorted(controls):
+        sums = [0.0, 0.0]
+        for p, xc in controls[i]["params"].items():
+            x0 = before[p].to(dev)
+            w = SH.rank_slice(held["params"][p], pspecs[p], mesh).to(dev)
+            s_ = _update_sums(xc.to(dev), x0, w, x0, None)
+            sums = [sums[0] + s_[0], sums[1] + s_[1]]
+        controlled.append(_relative(*sums))
+    return {"relative_l2": update["worst"][0], "leaf": update["worst"][1],
+            "whole_relative_l2": _relative(*update["whole"]),
+            "control_relative_l2": update["control"][0],
+            "control_leaf": update["control"][1],
+            "zero1_leaves": update["zero1_leaves"]}, controlled
+
+
+def _hold_kind(part: str, kind: str, tree, whole: dict, specs, prefix: str,
+               controls: dict, mesh, dev) -> dict:
+    """``phase21_hold``'s gaps of one kind of the rank's state ``tree``
+    (the parameters before the update step, {path: tensor}, or a
+    moment's tree) from the rank's slices of the witness's ``whole``: the
+    largest gap in bf16 steps; for a moment also the worst leaf's
+    relative L2, the least gap of a leaf left at zero (the control of
+    the moments' bound), and each control step's over its leaves."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.training.tree import leaves_with_paths
+    if kind != "params":                # ("before" is {path: tensor})
+        tree = dict(leaves_with_paths(tree))
+    worst, worst_l2, unwritten = (-1.0, None), (-1.0, None), math.inf
+    for p, x in tree.items():
+        x = x.to(dev)
+        want = SH.rank_slice(whole[p], specs[prefix + p], mesh)
+        if tuple(want.shape) != tuple(x.shape):
+            raise AssertionError(f"{part} {kind}{p}: {tuple(x.shape)} on "
+                                 f"the rank, {tuple(want.shape)} the "
+                                 "witness's slice")
+        want = want.to(x.device)
+        gap = _bf16_steps(x, want)
+        if gap > worst[0]:
+            worst = (gap, p)
+        if kind != "params":
+            sums = _l2_sums(x, want)
+            l2 = _relative(*sums)
+            if l2 > worst_l2[0]:
+                worst_l2 = (l2, p)
+            if sums[1]:             # the leaf as the draw left it: zero
+                unwritten = min(unwritten, _relative(sums[1], sums[1]))
+    out = {"bf16_steps": worst[0], "leaf": worst[1]}
+    if kind == "params":
+        return out
+    ctrl = []
+    for i in sorted(controls):
+        sums = [0.0, 0.0]
+        for p, x in controls[i][kind].items():
+            want = SH.rank_slice(whole[p], specs[prefix + p], mesh)
+            s_ = _l2_sums(x.to(dev), want.to(dev))
+            sums = [sums[0] + s_[0], sums[1] + s_[1]]
+        ctrl.append(_relative(*sums))
+    return {**out, "relative_l2": worst_l2[0], "l2_leaf": worst_l2[1],
+            "unwritten_relative_l2": unwritten, "controls": ctrl}
+
+
+def _l2_sums(x, want) -> list:
+    """[|x - want|^2, |want|^2] in float32, over slices of the first axis
+    (a moment leaf's float32 copy whole would double its bytes)."""
+    import torch
+    rows = max(1, (1 << 26) // max(1, x[0].numel())) if x.dim() > 1 else None
+    sums = [0.0, 0.0]
+    for xs, ws in zip(*(torch.split(t, rows) if rows else (t,)
+                        for t in (x, want))):
+        sums[0] += float((xs.float() - ws.float()).square().sum())
+        sums[1] += float(ws.float().square().sum())
+    return sums
+
+
+def train_bounds(part: str) -> dict:
+    """A training part's bounds: phase 21's, each leaf's update's relative
+    L2 gap and the moments' gap in bf16 steps; phase 22's, the touched
+    gradients' relative L2 gap, each leaf's update's and each moment
+    leaf's (``PHASE22_BOUNDS`` for the parts that state a wider one)."""
+    if part in PHASE21_TRAIN:
+        return {"update": PHASE21_UPDATE_RTOL,
+                "moment_steps": PHASE21_MOMENT_STEPS}
+    return {"grad": PHASE22_GRAD_RTOL, "update": PHASE21_UPDATE_RTOL,
+            "moment": PHASE22_MOMENT_RTOL, **PHASE22_BOUNDS.get(part, {})}
+
+
+# the witness's state goes to the ranks in these groups of kinds (phase 22
+# keeps no "before": the ranks' own draws are the witness's)
+HOLD_GROUPS = (("before", "params"), ("mu",), ("nu",))
 
 
 def phase21_train_problems(part: str, recs, witness) -> list:
     """A training part's problems: every rank's losses and norms within
-    PHASE21_LOSS_RTOL / PHASE21_GNORM_RTOL of the witness's steps, the
-    control's first-step norm past it (the update step's loss and norm
-    too); parameters after the main path within PHASE21_PARAM_STEPS bf16
-    steps; every parameter leaf's update in the update step within
-    PHASE21_UPDATE_RTOL, the gather-back control past it where a leaf
-    has a ZeRO-1 slice; the final moments within PHASE21_MOMENT_STEPS
-    bf16 steps; bytes equal to ``per_chip_bytes``; no kernel launched;
-    the collectives of the main path as ``phase21_expected`` predicts."""
+    PHASE21_LOSS_RTOL / PHASE21_GNORM_RTOL of the witness's steps (the
+    update step's loss and norm too); parameters after the main path
+    within PHASE21_PARAM_STEPS bf16 steps; every parameter leaf's update
+    in the update step within its bound (``train_bounds``), the
+    gather-back control past it where a leaf has a ZeRO-1 slice; the
+    final moments within their bound (phase 21: bf16 steps; phase 22:
+    each leaf's relative L2); phase 21's controls' norms past
+    PHASE21_GNORM_RTOL of the witness's first step; each phase 22
+    control's gradients, update and moments over its leaves past their
+    bounds, the main path's gradients over those leaves within theirs;
+    bytes equal to ``per_chip_bytes``; no kernel launched; the
+    collectives of the main path as ``train_expected`` predicts."""
+    spec = train_part(part)
+    bounds = train_bounds(part)
     bad = []
     want = witness["steps"] + [witness["update_step"]]
-    expect = phase21_expected(part, PHASE21_TRAIN[part][2])
+    expect = train_expected(part)
     for r in recs:
         who = f"{part} rank {r['rank']}"
         for i, (got, w) in enumerate(zip(r["steps"] + [r["update_step"]],
@@ -8585,28 +9129,56 @@ def phase21_train_problems(part: str, recs, witness) -> list:
                 if not gap <= tol:
                     bad.append(f"{who} step {i} {key}: {got[key]} against "
                                f"{w[key]} (relative {gap} > {tol})")
-        c_gap = abs(r["control_grad_norm"] - want[0]["grad_norm"]) \
-            / want[0]["grad_norm"]
-        r["control_relative_gap"] = c_gap
-        if c_gap <= PHASE21_GNORM_RTOL:
-            bad.append(f"{who}: the control's norm {r['control_grad_norm']}"
-                       f" passes ({c_gap} of {want[0]['grad_norm']})")
+        if "control_norms" in r:     # phase 21: the first step's norm
+            w = want[0]["grad_norm"]
+            r["control_relative_gaps"] = []
+            for (skip, _), norm in zip(spec["controls"],
+                                       r["control_norms"]):
+                c_gap = abs(norm - w) / w
+                r["control_relative_gaps"].append(c_gap)
+                if not c_gap > PHASE21_GNORM_RTOL:
+                    bad.append(f"{who}: the control {skip}'s norm {norm} "
+                               f"passes ({c_gap} of {w})")
+        for (skip, keys), got, c_got in zip(spec["controls"],
+                                            r.get("grad_gaps", ()),
+                                            r.get("control_gaps", ())):
+            if not got <= bounds["grad"]:
+                bad.append(f"{who}: the gradients of {keys}: relative L2 "
+                           f"gap {got} (bound {bounds['grad']})")
+            if not c_got > bounds["grad"]:
+                bad.append(f"{who}: the control {skip} passes on {keys} "
+                           f"({c_got}, bound {bounds['grad']})")
+        if r.get("control_updates") and \
+                not max(r["control_updates"]) > bounds["update"]:
+            bad.append(f"{who}: every control's update passes "
+                       f"({r['control_updates']}, bound {bounds['update']})")
+        for kind in ("mu", "nu") if "moment" in bounds else ():
+            c_got = r["gaps"][kind]["unwritten_relative_l2"]
+            if not c_got > bounds["moment"]:
+                bad.append(f"{who}: {kind} left at zero passes ({c_got}, "
+                           f"bound {bounds['moment']})")
         u = r["update"]
-        if not u["relative_l2"] <= PHASE21_UPDATE_RTOL:
+        if not u["relative_l2"] <= bounds["update"]:
             bad.append(f"{who} update: relative L2 gap {u['relative_l2']} "
-                       f"at {u['leaf']} (bound {PHASE21_UPDATE_RTOL})")
+                       f"at {u['leaf']} (bound {bounds['update']})")
         if u["zero1_leaves"] and \
-                not u["control_relative_l2"] > PHASE21_UPDATE_RTOL:
+                not u["control_relative_l2"] > bounds["update"]:
             bad.append(f"{who}: the gather-back control's update passes "
                        f"({u['control_relative_l2']})")
-        for kind, limit in (("params", PHASE21_PARAM_STEPS),
-                            ("mu", PHASE21_MOMENT_STEPS),
-                            ("nu", PHASE21_MOMENT_STEPS)):
+        # (phase 22 holds no parameters before its one step: the ranks'
+        # draw is the witness's)
+        checks = [("params", "bf16_steps", "leaf", PHASE21_PARAM_STEPS)] \
+            if spec["steps"] else []
+        checks += [(kind, "bf16_steps", "leaf", bounds["moment_steps"])
+                   if "moment_steps" in bounds else
+                   (kind, "relative_l2", "l2_leaf", bounds["moment"])
+                   for kind in ("mu", "nu")]
+        for kind, key, leaf, limit in checks:
             g = r["gaps"][kind]
-            if not g["bf16_steps"] <= limit:
-                bad.append(f"{who} {kind}: {g['bf16_steps']} bf16 steps at "
-                           f"{g['leaf']} (bound {limit})")
-        if r["step"] != 2 + PHASE21_STEPS:
+            if not g[key] <= limit:
+                bad.append(f"{who} {kind}: {key} {g[key]} at {g[leaf]} "
+                           f"(bound {limit})")
+        if r["step"] != 1 + spec["steps"]:
             bad.append(f"{who}: step {r['step']}")
         for what, (have, predicted) in r["bytes"].items():
             if have != predicted:
@@ -8622,8 +9194,8 @@ def phase21_train_problems(part: str, recs, witness) -> list:
 
 
 def phase21_world(dev, size: int):
-    """A world of ``size`` ranks on the card for phase 21 (segments grown
-    rather than cut anew, as ``mesh_world``)."""
+    """A world of ``size`` ranks on the card for phases 21 and 22
+    (segments grown rather than cut anew, as ``mesh_world``)."""
     from repro_torch.launch import ranks
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
@@ -8638,41 +9210,61 @@ def phase21_world(dev, size: int):
 
 def phase21_train(dev, world, part: str, bad: list, parts_s: dict):
     """A training part: its witness in this process, then every rank of
-    ``world``, held (``phase21_train_problems``); prints its record."""
+    ``world``, held a group of kinds at a time (``HOLD_GROUPS``,
+    ``phase21_train_problems``); prints its record."""
     import torch
+    spec = train_part(part)
     t0 = time.perf_counter()
     witness = phase21_witness(dev, part)
     t1 = time.perf_counter()
-    recs = world.run(phase21_rank, part)
+    want = {p: x.to(dev) for p, x in witness.pop("touched").items()} \
+        if spec["shards"] else None
+    recs = world.run(phase21_rank, part, want, witness.pop("routes"))
+    del want
     ranks_s = time.perf_counter() - t1
-    held = {kind: {p: x.to(dev, non_blocking=True) for p, x in tree.items()}
-            for kind, tree in witness.pop("held").items()}
-    _sync(dev)
-    for r, h in zip(recs, world.run(phase21_hold, part, held)):
-        r.update(h)
-    del held
+    kept = witness.pop("held")
+    for kinds in HOLD_GROUPS:
+        held = {kind: {p: x.to(dev, non_blocking=True)
+                       for p, x in kept.pop(kind).items()}
+                for kind in kinds if kind in kept}
+        _sync(dev)
+        for r, h in zip(recs, world.run(phase21_hold, part, held)):
+            r.setdefault("gaps", {}).update(h.pop("gaps"))
+            r["hold_s"] = r.get("hold_s", 0.0) + h.pop("hold_s")
+            r.update(h)
+        del held
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.ipc_collect()    # the ranks' mappings are closed
+            torch.cuda.empty_cache()
+    del kept
     gc.collect()
-    if dev.type == "cuda":
-        torch.cuda.ipc_collect()        # the ranks' mappings are closed
-        torch.cuda.empty_cache()
+    if spec["phase"] == 22 and _host_cache_free() is not None:
+        _host_cache_free()()
     part_bad = phase21_train_problems(part, recs, witness)
     parts_s[part] = round(time.perf_counter() - t0, 3)
-    arch, layers, shape, n_micro = PHASE21_TRAIN[part]
-    emit({"phase": 21, "part": part, "model": f"{arch} x{layers} layers",
-          "mesh": list(shape), "n_micro": n_micro, "batch": PHASE21_BATCH,
-          "backend": world.backend, "part_s": parts_s[part],
-          "ranks_s": round(ranks_s, 3),
+    layers = spec["layers"]
+    extra = {}
+    if "flips" in recs[0]:      # each MoE layer: both shards' tokens
+        model0 = [r for r in recs if not r["coords"].get("model", 0)]
+        extra["flips_by_layer"] = [sum(r["flips"][i] for r in model0)
+                                   for i in range(len(recs[0]["flips"]))]
+    emit({"phase": spec["phase"], "part": part,
+          "model": f"{spec['arch']} x{layers or 'all'} layers",
+          "mesh": list(spec["shape"]), "n_micro": spec["n_micro"],
+          "batch": PHASE21_BATCH, "backend": world.backend,
+          "part_s": parts_s[part], "ranks_s": round(ranks_s, 3),
           "steps_one_card": witness["steps"], "ranks": recs,
-          "collectives_expected": phase21_expected(part, shape),
+          "collectives_expected": train_expected(part),
           "update_step_adamw": PHASE21_OPT,
           "update_step_one_card": witness["update_step"],
           "bounds": {"loss_rtol": PHASE21_LOSS_RTOL,
                      "grad_norm_rtol": PHASE21_GNORM_RTOL,
                      "param_bf16_steps": PHASE21_PARAM_STEPS,
-                     "update_relative_l2": PHASE21_UPDATE_RTOL,
-                     "moment_bf16_steps": PHASE21_MOMENT_STEPS},
-          "control": PHASE21_CONTROL[part],
-          "predicted": PHASE21_PREDICTED[part], "problems": part_bad})
+                     **train_bounds(part)},
+          "controls": spec["controls"], **extra,
+          "predicted": spec["predicted"],
+          "problems": part_bad})
     bad += part_bad
 
 
@@ -8740,11 +9332,14 @@ def phase21(dev, one_18a: dict):
     process (``phase21_witness``: its final parameters and moments kept in
     pinned host memory, the card freed), then every rank of a world runs
     the part's launcher program with its control (``phase21_rank``); then
-    the witness's state goes back to the card and the ranks map it to
-    hold theirs (``phase21_hold``; ``phase21_train_problems``). 21a and 21b share a world of two ranks
+    the witness's state goes back to the card a few kinds at a time and
+    the ranks map it to hold theirs (``phase21_hold``;
+    ``phase21_train_problems``). 21a and 21b share a world of two ranks
     with 21d (``phase21_serve``: serving on a data axis, held to phase
-    18's one-card run ``one_18a``); 21c runs on a world of four. Returns
-    the launches summed over 21d's ranks (training launches none)."""
+    18's one-card run ``one_18a``); 21c runs on a world of four, which
+    is returned open for phase 22 ("world4": its caller closes it). Also
+    returns the launches summed over 21d's ranks (training launches
+    none)."""
     import torch
     t_phase = time.perf_counter()
     _mem_line(dev, "21", phase=21)
@@ -8756,14 +9351,46 @@ def phase21(dev, one_18a: dict):
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    with phase21_world(dev, 4) as world:
-        phase21_train(dev, world, "21c", bad, parts_s)
-    emit({"phase": 21, "phase_s": round(time.perf_counter() - t_phase, 3),
-          "parts_s": parts_s, "launches_all_ranks": dict(launches),
-          "predicted_s": PHASE21_PREDICTED["phase_s"], "problems": bad})
+    world4 = phase21_world(dev, 4)
+    try:
+        phase21_train(dev, world4, "21c", bad, parts_s)
+        emit({"phase": 21,
+              "phase_s": round(time.perf_counter() - t_phase, 3),
+              "parts_s": parts_s, "launches_all_ranks": dict(launches),
+              "predicted_s": PHASE21_PREDICTED["phase_s"], "problems": bad})
+        if bad:
+            raise AssertionError(f"phase 21: {bad}")
+    except BaseException:
+        world4.close()
+        raise
+    return {"launches": dict(launches), "world4": world4}
+
+
+def phase22(dev, world4):
+    """Training every other family on one world of four ranks at (data 2,
+    model 2) (``PHASE22_TRAIN``): each part as phase 21's
+    (``phase21_train``), its witness one card stepping each data rank's
+    rows on their own (``phase22_shard_step``), each of its controls
+    (``PHASE22_CONTROLS``) run as a step and judged on the leaves it
+    touches; the ranks drop the shared card's buffers after each part.
+    Returns the launches (training launches none)."""
+    import torch
+    t_phase = time.perf_counter()
+    if _host_cache_free() is not None:      # phase 21's pinned states
+        _host_cache_free()()
+    _mem_line(dev, "22", phase=22)
+    bad, parts_s = [], {}
+    for part in PHASE22_TRAIN:
+        phase21_train(dev, world4, part, bad, parts_s)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    emit({"phase": 22, "phase_s": round(time.perf_counter() - t_phase, 3),
+          "parts_s": parts_s, "predicted_s": PHASE22_PREDICTED["phase_s"],
+          "problems": bad})
     if bad:
-        raise AssertionError(f"phase 21: {bad}")
-    return {"launches": dict(launches)}
+        raise AssertionError(f"phase 22: {bad}")
+    return {"launches": {}}
 
 
 KERNELS = [
@@ -8916,6 +9543,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths[21] = phase21(dev, paths[18].pop("one_card_18a"))
     lap("21")
+    with paths[21].pop("world4") as world4:     # phase 21's world of four
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths[22] = phase22(dev, world4)
+    lap("22")
 
     rows = []
     for name, source, replaces, phase in KERNELS:

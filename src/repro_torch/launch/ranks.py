@@ -103,10 +103,17 @@ def _rank_main(index: int, size: int, backend: str, device_type: str,
             if task is None:
                 break
             fn, args = task
+            del task
             try:
-                outbox.put((index, True, fn(rank, *args)))
+                done = (True, fn(rank, *args))
             except BaseException:
-                outbox.put((index, False, traceback.format_exc()))
+                done = (False, traceback.format_exc())
+            # the call's arguments go before the next task arrives: CUDA
+            # tensors the parent shared stay allocated while a rank holds
+            # them
+            del fn, args
+            outbox.put((index,) + done)
+            if not done[0]:
                 break                  # the others are out of step now
     finally:
         tdist.destroy_process_group()

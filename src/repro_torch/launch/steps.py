@@ -37,13 +37,20 @@ vocab shard. On such a mesh the serving steps cover every family —
 dense, MoE (each data rank routing its own tokens), MLA, sliding-window
 (ring), RG-LRU hybrid, SSD, vision and encoder-decoder — and every
 decode cell, long_500k included, D's caches in bfloat16, float32 or
-float8 e4m3. Training covers the dense families (``dense``,
-``dense-bias-qknorm``): data-parallel gradients, tensor-parallel
-weights, ZeRO-1 moments, ZeRO-3 weights for a ``zero3`` cell and
-micro-batches; training another family on a rank's mesh raises
-``NotImplementedError`` (ROADMAP queue 1 item 17). The handoff takes a
-batch (deliberate difference B12 in ROADMAP): one card cannot hold the
-prefill cell's 32 sequences of 32k.
+float8 e4m3. Training covers every family too: data-parallel gradients,
+tensor-parallel weights (each family's backward through the adjoints
+``models/collectives.py`` gives its sharded layers: the expert-TP MoE
+and its router, MLA's latent, the RG-LRU's width gather, the
+cross-attention's memory K/V; the SSD replicated), ZeRO-1 moments,
+ZeRO-3 weights for a ``zero3`` cell (the encoder's layers gathered as
+the decoder's) and micro-batches, a vision model's patches and an
+enc-dec model's frames on the data axes beside the tokens. On a data
+axis each rank's MoE routes its own tokens with the capacity of its
+shard, as the reference's shard_map body does. The reference's
+``act_seq`` (a sharding constraint on the residual stream) changes no
+value and has no counterpart. The handoff takes a batch (deliberate
+difference B12 in ROADMAP): one card cannot hold the prefill cell's 32
+sequences of 32k.
 """
 from __future__ import annotations
 
@@ -98,16 +105,6 @@ def _dctx(mesh: Mesh, dp, m, *, mode: str,
               moe_shard_map=True)
     return dist.TrainContext(**kw, zero3=zero3) if zero3 else \
         dist.DistContext(**kw)
-
-
-def _check_trainable(mesh: Mesh, cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for training on a rank's mesh a family
-    other than the dense ones (full attention, no MoE)."""
-    if mesh.in_world and not (cfg.family == "dense" and not cfg.moe
-                              and cfg.attention_kind == "full"):
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}, {cfg.attention_kind} "
-            "attention) on a mesh of ranks — see ROADMAP queue 1 item 17")
 
 
 def _new_caches(mesh: Mesh, abstract: Any, specs: SH.Specs, make: Callable):
@@ -173,7 +170,6 @@ def make_train_artifacts(cell: Cell, mesh: Mesh, *,
                          ) -> StepArtifacts:
     dp, dp_size, m, m_size = _axis_sizes(mesh)
     cfg = _deployed(cell.arch, m_size, "train", layer_override)
-    _check_trainable(mesh, cfg)
 
     state_abs = abstract_train_state(cfg)
     pspecs = SH.param_pspecs(state_abs.params, cfg, m, m_size)

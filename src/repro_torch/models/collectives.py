@@ -63,6 +63,23 @@ every rank and a rank's share of a sharded one is its own:
     before a layer runs: its gradient is summed over them and the owner
     keeps its slice.
 
+Each collective that training places goes by a name, and
+``skipping(*names)`` leaves the named ones out inside its block — the
+controls that show each one is needed: ``"column_entry"`` (every
+column-parallel entry's sum over the model axis), ``"moe.router"`` (the
+MoE's gate weights, which scale each rank's expert partial: the router's
+gradient summed over the model axis), ``"mla.latent"`` (MLA's latent and
+shared rope key, whole on every rank, entering the rank's heads),
+``"rglru.xb"`` (the RG-LRU's width gather before its gate products: its
+split backward), ``"cross.kv"`` (the cross-attention's memory K/V
+gather: its split backward), ``"data_grads"`` (every gradient's sum
+over the data plane: the train step's per-leaf psum and ZeRO-3's gather
+backward), ``"data_grads:<key>"`` (the train step's sum for the leaves
+whose path holds the key, e.g. ``"data_grads:ssd"``) and
+``"gather_back"`` (ZeRO-1's gather of the updated slices,
+``training/optim.py``). A skipped gather's backward takes the rank's
+slice alone.
+
 Each forward is the function it wraps, with the same bits and ``STATS``
 (``psum`` reduces a copy, since autograd may keep its operand). The
 backward's collectives count in ``STATS`` too. Outside autograd (serving,
@@ -88,6 +105,7 @@ allocator, so a rank's ``max_memory_allocated`` does not count them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -184,20 +202,23 @@ def psum(x: torch.Tensor, shard: Optional[AxisShard]) -> torch.Tensor:
 
 
 def all_gather(x: torch.Tensor, dim: int, shard: Optional[AxisShard],
-               grad: Optional[str] = None) -> torch.Tensor:
+               grad: Optional[str] = None, name: Optional[str] = None
+               ) -> torch.Tensor:
     """Every rank's ``x`` (equal shapes) concatenated along ``dim`` in
     axis order: one broadcast from each rank. Under autograd ``grad``
     names the backward: ``"replicated"`` (what follows is the same on
     every rank: the rank's slice of the gradient) or ``"split"`` (what
     follows is split over the ranks: the gradient summed over the axis,
-    then the slice); a recorded call without it raises."""
+    then the slice, unless ``name`` is skipped); a recorded call without
+    it raises."""
     if shard is None:
         return x
     if _recorded(x):
         if grad not in ("replicated", "split"):
             raise ValueError("all_gather under autograd needs grad="
                              "'replicated' or 'split' (its backward)")
-        return _Gather.apply(x, dim, shard, grad == "split")
+        return _Gather.apply(x, dim, shard,
+                             grad == "split" and not skipped(name))
     t0 = _clock(x)
     x = x.contiguous()
     card = _on_card(x, shard)
@@ -257,14 +278,47 @@ def exchange(blocks: List[torch.Tensor], shard: Optional[AxisShard]
     return got
 
 
-def column_entry(x: torch.Tensor, shard: Optional[AxisShard]
-                 ) -> torch.Tensor:
+def column_entry(x: torch.Tensor, shard: Optional[AxisShard],
+                 name: Optional[str] = None) -> torch.Tensor:
     """``x`` — a replicated tensor entering work split over the axis —
     as it is; under autograd its gradient is summed over the axis (each
-    rank's share of the split work adds its term)."""
-    if shard is None or not _recorded(x):
+    rank's share of the split work adds its term), unless ``name`` is
+    skipped (``skipping``)."""
+    if shard is None or not _recorded(x) or skipped("column_entry") or \
+            skipped(name):
         return x
     return _ColumnEntry.apply(x, shard)
+
+
+_SKIPPED: set = set()
+
+
+@contextlib.contextmanager
+def skipping(*names: str):
+    """A control: the collectives named ``names`` (see the module's
+    docstring) left out of what runs inside the block."""
+    saved = set(_SKIPPED)
+    _SKIPPED.update(names)
+    try:
+        yield
+    finally:
+        _SKIPPED.clear()
+        _SKIPPED.update(saved)
+
+
+def any_skipped() -> bool:
+    """Whether a control is on (``skipping``)."""
+    return bool(_SKIPPED)
+
+
+def skipped(name: Optional[str], path: str = "") -> bool:
+    """Whether the collective ``name`` is skipped — for a leaf at
+    ``path``, also by ``"name:<key>"`` with ``['<key>']`` in the path."""
+    if name is None or not _SKIPPED:
+        return False
+    return name in _SKIPPED or any(
+        s.startswith(name + ":") and f"['{s[len(name) + 1:]}']" in path
+        for s in _SKIPPED)
 
 
 def gather_weights(x: torch.Tensor, dim: Optional[int], owner: int,
@@ -358,7 +412,7 @@ class _WeightGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = _summed(g, ctx.shard)
+        g = g.clone() if skipped("data_grads") else _summed(g, ctx.shard)
         if ctx.dim is not None:
             lo, hi = ctx.shard.part(g.shape[ctx.dim])
             return g.narrow(ctx.dim, lo, hi - lo), None, None, None
@@ -416,6 +470,9 @@ class _SharedCard:
             return
         import ctypes
         self._release()
+        # the framework's cached blocks go back to the card first: the
+        # buffer is a cudaMalloc of its own, which they would crowd out
+        torch.cuda.empty_cache()
         lib, check = self._lib()
         cap = -(-nbytes // self.ALIGN) * self.ALIGN
         index = self.device.index or 0
@@ -477,6 +534,21 @@ class _DeviceBytes:
 
 
 _CARDS: Dict[Tuple, _SharedCard] = {}
+
+
+def buffer_bytes() -> int:
+    """The bytes of this rank's own shared-card buffers."""
+    return sum(c.capacity for c in _CARDS.values())
+
+
+def release_buffers() -> None:
+    """Free this rank's shared-card buffers and unmap the others' (a
+    world that goes on to another model: they are grown again at its
+    first collectives). Every rank of the world calls it together; the
+    lines are released in the order of their ranks, the same on every
+    rank."""
+    for key in sorted(_CARDS, key=lambda k: k[0]):
+        _CARDS.pop(key)._release()
 
 
 def _on_card(x: torch.Tensor, shard: AxisShard) -> Optional[_SharedCard]:

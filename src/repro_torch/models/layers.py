@@ -695,7 +695,11 @@ def init_cross_attention(gen: torch.Generator, cfg: ModelConfig,
 
 def cross_attention_kv(p: Params, cfg: ModelConfig, memory: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The memory's (B,S_mem,d) cross K and V (B,S_mem,KV,hd): no RoPE."""
+    """The memory's (B,S_mem,d) cross K and V (B,S_mem,KV,hd): no RoPE.
+    On a model axis ``wk``/``wv`` hold the rank's head_dim columns, which
+    the memory enters through ``collectives.column_entry``."""
+    if p["wk"].shape[-1] != cfg.hd:
+        memory = C.column_entry(memory, dist.ctx().model_shard())
     return _proj(memory, p["wk"]), _proj(memory, p["wv"])
 
 
@@ -716,14 +720,19 @@ def cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     On a model axis q has the rank's heads and the memory's K/V the
     rank's head_dim columns (``cross_attention_kv``'s, the cache's
     shard): K/V are gathered on head_dim, the rank's heads attend their
-    KV heads, and ``wo``'s partial is summed over the axis."""
+    KV heads, and ``wo``'s partial is summed over the axis. Under
+    autograd x enters the rank's query heads through
+    ``collectives.column_entry``, and the gathered K/V feed only the
+    rank's heads, so their gather's backward sums before it slices
+    (``"cross.kv"``)."""
     k, v = mem_kv
-    q = _proj(x, p["wq"])
     tp = dist.ctx().model_shard()
+    q = _proj(C.column_entry(x, tp), p["wq"])
     if tp is not None:
         kv0, nkv = _rank_heads(cfg, q.shape[2], tp)
         if k.shape[-1] != cfg.hd:              # head_dim-sharded rows
-            k, v = C.all_gather(torch.stack([k, v]), 4, tp).unbind(0)
+            k, v = C.all_gather(torch.stack([k, v]), 4, tp, grad="split",
+                                name="cross.kv").unbind(0)
         k, v = k[:, :, kv0:kv0 + nkv], v[:, :, kv0:kv0 + nkv]
     if kv_len is not None and kernel_route(x):
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -843,16 +852,24 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig,
 def _mla_qkv_latent(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor):
     """Shared projections → (q_nope, q_pe, ckv, kpe): rope on q_pe per head
-    and on the shared kpe; ckv normalised before it is cached."""
+    and on the shared kpe; ckv normalised before it is cached.
+
+    On a model axis ``wq`` holds the rank's heads and the latent
+    (``w_dkv``, ``kv_norm``) is whole. Under autograd x enters ``wq``
+    through ``collectives.column_entry``, and so do the latent and the
+    shared kpe the rank's heads (``"mla.latent"``): each rank's gradient
+    of them is the partial of its heads."""
     m = cfg.mla
-    q = _proj(x, p["wq"])
+    tp = dist.ctx().model_shard()
+    q = _proj(C.column_entry(x, tp), p["wq"])
     q_nope, q_pe = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
     dkv = x @ p["w_dkv"].to(x.dtype)
     ckv, kpe = dkv.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     ckv = rms_norm(p["kv_norm"], ckv, cfg.norm_eps)
     kpe = apply_rope(kpe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
-    return q_nope, q_pe, ckv, kpe
+    return q_nope, q_pe, C.column_entry(ckv, tp, "mla.latent"), \
+        C.column_entry(kpe, tp, "mla.latent")
 
 
 def _mla_scale(cfg: ModelConfig) -> float:
@@ -1256,7 +1273,7 @@ def _moe_mlp_shard_map(p: Params, cfg: ModelConfig, x: torch.Tensor,
         raise ValueError(f"the expert-TP MoE: {p['w_gate'].shape[-1]} of "
                          f"{cfg.moe.d_ff_expert} columns a rank")
     return C.psum(_moe_mlp_capacity(
-        p, cfg, x, capacity_factor=dctx.moe_capacity_factor), tp)
+        p, cfg, x, capacity_factor=dctx.moe_capacity_factor, tp=tp), tp)
 
 
 def moe_mlp_dist_specs(cfg: ModelConfig, model_axis: str) -> Dict[str, Any]:
@@ -1301,7 +1318,8 @@ def moe_capacity_drops(group_sizes, cap: int) -> int:
 
 
 def _moe_mlp_capacity(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                      capacity_factor: float = 1.25) -> torch.Tensor:
+                      capacity_factor: float = 1.25,
+                      tp: Optional[C.AxisShard] = None) -> torch.Tensor:
     """Capacity-bounded experts: the (token, choice) pairs sorted by expert
     (a stable sort, as ``jnp.argsort``), then a fixed window of ``cap``
     rows (``moe_capacity``) into the sorted stream for each expert —
@@ -1318,12 +1336,19 @@ def _moe_mlp_capacity(p: Params, cfg: ModelConfig, x: torch.Tensor,
     stream goes back to (token, choice) order and the k choices are summed
     — where the reference adds the rows into the tokens with ``.at[].add``
     (atomics on a GPU). With a rank's d_ff_expert slices (expert-TP) the
-    output is the rank's partial, which ``_moe_mlp_shard_map`` sums."""
+    output is the rank's partial, which ``_moe_mlp_shard_map`` sums;
+    under autograd the tokens enter the rank's columns (routed and
+    shared) through ``collectives.column_entry`` on the model axis
+    ``tp``, and so do the gate weights, which scale the rank's partial:
+    the replicated router's gradient is summed over the axis
+    (``"moe.router"``)."""
     e = cfg.moe
     shape = x.shape
     x2d = x.reshape(-1, shape[-1])
     t, d = x2d.shape
     weights, idx = moe_route(p, cfg, x2d)
+    weights = C.column_entry(weights, tp, "moe.router")
+    x2d = C.column_entry(x2d, tp)
     flat_expert = idx.reshape(-1)                                # (T*k,)
     order = torch.argsort(flat_expert, stable=True)
     token_of = order // e.top_k
@@ -1484,18 +1509,23 @@ def rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     its part of the tail, then ``xb`` gathered on the width for the gate
     products, which give the rank's half of the gates; the scan over its
     channels; ``w_out``'s partial summed over the axis in x's dtype
-    (``_row_parallel``)."""
+    (``_row_parallel``). Under autograd x enters the rank's columns
+    through ``collectives.column_entry``, and the gathered ``xb`` feeds
+    the rank's gate channels only, so its gather's backward sums before
+    it slices (``"rglru.xb"``)."""
     tp = dist.ctx().model_shard()
     if tp is not None and p["w_x"].shape[-1] == p["lru_a_w"].shape[0]:
         tp = None                        # a width too narrow to shard
     with torch.profiler.record_function("rglru.block"):
+        x = C.column_entry(x, tp)
         xb = x @ p["w_x"].to(x.dtype)
         gate = x @ p["w_gate"].to(x.dtype)
         k = p["conv_w"].shape[0]
         new_tail = torch.cat([state.conv, xb], dim=1)[:, -(k - 1):]
         xb = _causal_conv1d(xb, p["conv_w"], p["conv_b"], state.conv)
         xf = xb.float()
-        xg = xf if tp is None else C.all_gather(xb, 2, tp).float()
+        xg = xf if tp is None else C.all_gather(
+            xb, 2, tp, grad="split", name="rglru.xb").float()
         with torch.profiler.record_function("rglru.f32_weights"):
             w_a, w_i = p["lru_a_w"].float(), p["lru_in_w"].float()
         r_g = torch.sigmoid(xg @ w_a + p["lru_a_b"])

@@ -460,24 +460,22 @@ def _layers(params, cfg: ModelConfig):
 # --------------------------------------------------------------------------- #
 def encode(params, cfg: ModelConfig, frames: torch.Tensor,
            frame_lengths: Optional[torch.Tensor] = None, *,
-           plain: bool = False) -> torch.Tensor:
+           plain: bool = False, remat: bool = False) -> torch.Tensor:
     """Encoder forward over frame embeddings (B,S,d) (the audio frontend is
     a stub: frames are embeddings): non-causal self-attention with RoPE at
     positions 0..S-1 (flash with ``causal=False`` on the card unless
     ``plain``), the MLP, then the encoder's final norm. ``frame_lengths``
     (B,) blanks each sequence's frames at or past its length as keys (the
-    plain route only). Returns the memory (B,S,d) in the compute dtype."""
+    plain route only). ``remat`` recomputes each layer in the backward
+    (training; ZeRO-3 weights are gathered a layer at a time, as the
+    decoder's). Returns the memory (B,S,d) in the compute dtype."""
     x = frames.to(cfg.cdtype)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
-    for gi, g in enumerate(encoder_groups(cfg)):
-        per_pos = [unbind_layers(t) for t in params["enc_groups"][gi]]
-        for li in range(g.count):
-            for pi, kind in enumerate(g.kinds):
-                x = _layer_full(per_pos[pi][li], x, cfg=cfg, g=g, kind=kind,
-                                positions=positions, lengths=frame_lengths,
-                                plain=plain)
+    x = _run_stack(params, "enc_groups", encoder_groups(cfg), x, remat,
+                   cfg=cfg, positions=positions, lengths=frame_lengths,
+                   plain=plain)
     return L.rms_norm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -680,8 +678,11 @@ def _layer_full(p, x: torch.Tensor, *, cfg: ModelConfig, g: Group,
         h, _ = L.ssd_block(p["ssd"], cfg,
                            L.rms_norm(p["norm"], x, cfg.norm_eps), zero)
         return x + h
-    if kind == RECURRENT:
-        zero = L.rglru_state_init(b, cfg, x.dtype, x.device).layer(0)
+    if kind == RECURRENT:             # at the rank's width on a model axis
+        w = p["rglru"]["w_x"].shape[-1]
+        zero = L.RGLRUState(
+            h=torch.zeros((b, w), dtype=torch.float32, device=x.device),
+            conv=x.new_zeros((b, cfg.recurrent.d_conv - 1, w)))
         h, _ = L.rglru_block(p["rglru"], cfg,
                              L.rms_norm(p["norm1"], x, cfg.norm_eps), zero)
         return _mlp_residual(p, cfg, False, x + h)
@@ -743,28 +744,41 @@ def train_forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     memory = mem_lengths = None
     if cfg.is_enc_dec:
         mem_lengths = batch.get("frame_lengths")
-        memory = encode(params, cfg, batch["frames"], mem_lengths, plain=True)
+        memory = encode(params, cfg, batch["frames"], mem_lengths,
+                        plain=True, remat=remat)
     x, positions, lengths = _merge_frontend(params, cfg, batch)
-    for gi, g in enumerate(block_groups(cfg)):
-        per_pos = [unbind_layers(t) for t in params["groups"][gi]]
+    x = _run_stack(params, "groups", block_groups(cfg), x, remat, cfg=cfg,
+                   positions=positions, lengths=lengths, memory=memory,
+                   mem_lengths=mem_lengths)
+    return lm_logits(params, cfg, x)
+
+
+def _run_stack(params, key: str, groups: List[Group], x: torch.Tensor,
+               remat: bool, **kw) -> torch.Tensor:
+    """``x`` through every layer of the stacked groups ``params[key]``
+    (``_layer_full`` with ``kw``), each under ``checkpoint`` with
+    ``remat``; under a ZeRO-3 context each layer's weights gathered
+    inside the layer's own function (``_zero3_layer``)."""
+    dims = dist.ctx().zero3
+    zero3 = dims and dist.ctx().data_shard()
+    for gi, g in enumerate(groups):
+        per_pos = [unbind_layers(t) for t in params[key][gi]]
         for li in range(g.count):
             for pi, kind in enumerate(g.kinds):
-                layer = functools.partial(
-                    _layer_full, cfg=cfg, g=g, kind=kind, positions=positions,
-                    lengths=lengths, memory=memory, mem_lengths=mem_lengths)
+                layer = functools.partial(_layer_full, g=g, kind=kind, **kw)
                 # the rank's layer li, or (ZeRO-3 on the layer axis) the
                 # layer at li's slot of its own block
                 ways = g.count // len(per_pos[pi])
                 p = per_pos[pi][dist.layer_block(li, g.count, ways)[1]]
                 if zero3:
                     layer = functools.partial(
-                        _zero3_layer, layer, prefix=f"['groups'][{gi}][{pi}]",
+                        _zero3_layer, layer, prefix=f"[{key!r}][{gi}][{pi}]",
                         li=li, count=g.count, dims=dims, shard=zero3)
                 if remat:
                     x = checkpoint(layer, p, x, use_reentrant=False)
                 else:
                     x = layer(p, x)
-    return lm_logits(params, cfg, x)
+    return x
 
 
 def _zero3_top(params, dims: Dict[str, Optional[int]], shard):
@@ -785,8 +799,8 @@ def _zero3_layer(layer, p, x, *, prefix: str, li: int, count: int,
     the stacked leaf) lies whole on the data rank that holds layer ``li``
     (``p`` is the rank's layer at the same place: ``li``'s own on that
     rank, an anchor elsewhere); a leaf split on dim k > 0 is gathered on
-    the layer's dim k - 1."""
-    owner = dist.layer_block(li, count, shard.size)[0]
+    the layer's dim k - 1 (a group whose ``count`` the data plane does
+    not divide, such as a single dense first layer, is split so)."""
 
     def whole(t, path):
         if isinstance(t, dict):
@@ -795,10 +809,38 @@ def _zero3_layer(layer, p, x, *, prefix: str, li: int, count: int,
         if d is None:
             return t
         if d == 0:
+            owner = dist.layer_block(li, count, shard.size)[0]
             return C.gather_weights(t, None, owner, shard)
         return C.gather_weights(t, d - 1, 0, shard)
 
     return layer(whole(p, prefix), x)
+
+
+# float32 log-softmax elements that a chunk of ``_nll_sum``'s rows holds
+LOSS_CHUNK_ELEMS = 1 << 26
+
+
+def _nll_sum(logits: torch.Tensor, lab: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+    """The sum over the positions in ``mask`` of -log_softmax(float32
+    logits) at each label, in chunks of rows of at most
+    ``LOSS_CHUNK_ELEMS`` elements (small logits: one chunk), each under
+    ``checkpoint``: its float32 log-softmax is made again in the
+    backward, so a step holds one chunk's float32 rows rather than the
+    whole batch's (at a vocabulary of 256,000, 3.9 GiB a sequence of
+    4,096 tokens); the chunks' sums add in row order."""
+    def part(z, y, m):
+        lp = torch.log_softmax(z.float(), dim=-1)
+        return torch.sum(-torch.gather(lp, -1, y[..., None])[..., 0] * m)
+
+    v = logits.shape[-1]
+    z, y, m = logits.reshape(-1, v), lab.reshape(-1), mask.reshape(-1)
+    rows = max(1, LOSS_CHUNK_ELEMS // v)
+    total = 0
+    for i in range(0, z.shape[0], rows):
+        total = total + checkpoint(part, z[i:i + rows], y[i:i + rows],
+                                   m[i:i + rows], use_reentrant=False)
+    return total
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -826,9 +868,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                             labels], dim=1)
     mask = labels >= 0
     lab = torch.where(mask, labels, torch.zeros_like(labels)).long()
-    lp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(lp, -1, lab[..., None])[..., 0]
-    total, count = torch.sum(nll * mask), torch.sum(mask)
+    total, count = _nll_sum(logits, lab, mask), torch.sum(mask)
     dp = dctx.data_shard()
     if dp is not None:
         total = C.psum(total, dp)

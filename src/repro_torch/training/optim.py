@@ -163,5 +163,7 @@ def gather_back(whole: torch.Tensor, part: torch.Tensor, dim: int,
                 dp: C.AxisShard) -> None:
     """ZeRO-1's last move: the parameter ``whole``, whose slice ``part``
     on ``dim`` the rank has updated, overwritten by every data rank's
-    updated slice, gathered over ``dp``."""
-    whole.copy_(C.all_gather(part.contiguous(), dim, dp))
+    updated slice, gathered over ``dp`` (left out under the control
+    ``collectives.skipping("gather_back")``)."""
+    if not C.skipped("gather_back"):
+        whole.copy_(C.all_gather(part.contiguous(), dim, dp))

@@ -34,6 +34,7 @@ reference's.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -45,7 +46,8 @@ from repro_torch.models import collectives as C
 from repro_torch.models import model as M
 from repro_torch.training.optim import (SLICE_ELEMS, AdamWConfig, Layout,
                                         adamw_init, adamw_update)
-from repro_torch.training.tree import leaves, tree_map, unflatten
+from repro_torch.training.tree import (leaves, leaves_with_paths, tree_map,
+                                      unflatten)
 
 Params = Any
 
@@ -100,11 +102,15 @@ def loss_and_grads(cfg: ModelConfig, params: Params,
 def reduce_grads(grads: Params, layout: Optional[Layout]) -> Params:
     """Each gradient leaf that ``layout`` marks summed over its data
     plane, in place, in slices along its first axis (no reduction with
-    no layout or no data plane)."""
+    no layout or no data plane; a leaf whose sum a control skips,
+    ``collectives.skipping("data_grads")`` or ``("data_grads:<key>")``,
+    keeps the rank's own)."""
     if layout is None or layout.dp is None:
         return grads
-    for g, on in zip(leaves(grads), layout.reduce):
-        if on:
+    paths = ([p for p, _ in leaves_with_paths(grads)] if C.any_skipped()
+             else itertools.repeat(""))
+    for g, on, path in zip(leaves(grads), layout.reduce, paths):
+        if on and not C.skipped("data_grads", path):
             rows = max(1, SLICE_ELEMS // max(1, g[0].numel())) \
                 if g.ndim else 1
             for part in (torch.split(g, rows) if g.ndim else (g,)):

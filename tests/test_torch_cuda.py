@@ -2000,6 +2000,70 @@ def test_autograd_collectives_through_the_shared_card_equal_gloo(cuda):
                                    host[key].view(torch.uint8)), key
 
 
+def test_two_ranks_on_one_card_train_a_tiny_moe(cuda, monkeypatch):
+    """A tiny float32 MoE (a dense first layer, then 2 MoE layers of 4
+    experts and a shared one) trained on a (1, 2) world of two ranks
+    sharing the card: the expert-TP backward — the tokens entering the
+    rank's d_ff_expert columns, the gate weights' (the router's) sum
+    over the model axis — through the card's collectives. The loss within
+    rtol 1e-5 and every gradient leaf's rank slice within 1e-4 of its
+    largest element of one card's step over the same batch (the capacity
+    factor 4: no pair drops on either)."""
+    import dataclasses
+    import torch_mesh_train_ranks as R
+    from repro_torch.launch import cells as TC
+    from repro_torch.launch import ranks
+    from repro_torch.launch import sharding as TSH
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import train_step as TT
+    cfg_dict = dict(name="tiny-moe", family="moe", num_layers=3,
+                    d_model=128, num_heads=4, num_kv_heads=4, head_dim=32,
+                    d_ff=256, vocab_size=256,
+                    moe=dict(num_experts=4, num_shared_experts=1, top_k=2,
+                             d_ff_expert=64, first_dense_layers=1),
+                    param_dtype="float32", compute_dtype="float32")
+    cfg = config_from_dict(cfg_dict)
+    ctx = {"moe_capacity_factor": 4.0}
+    cell = dataclasses.replace(TC.get_cell("qwen3-4b", "train_4k"), batch=2,
+                               seq_len=64, n_micro=1)
+    state = TT.train_state_init(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, 256, (2, 64))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    batch["labels"][1, 40:] = -1
+    dctx = TS._dctx
+    monkeypatch.setattr(TS, "get_config", lambda arch: cfg)
+    monkeypatch.setattr(TS, "_dctx", lambda *a, **k: dataclasses.replace(
+        dctx(*a, **k), **ctx))
+    one = TS.make_train_artifacts(cell, make_mesh((1, 1), ("data", "model"),
+                                                  cuda))
+    loss, grads = one.fn.grads(state, batch)
+    want = {".params" + p: x.cpu() for p, x in TSH.named_leaves(grads)}
+    with ranks.start(2, timeout_s=600) as world:
+        outs = world.run(R.grads_on_rank, cfg_dict, cell, (1, 2), state,
+                         batch, (), ctx, True)
+    for r, o in enumerate(outs):
+        assert o["loss"] == pytest.approx(float(loss), rel=1e-5)
+        assert o["collectives"]["psum"]["calls"] > 0
+        assert sorted(o["grads"]) == sorted(want)
+        for p, x in o["grads"].items():
+            w = want[p]
+            cut = TSH.rank_slice(w, o["specs"][p], _two_rank_mesh(r))
+            assert float((x - cut).abs().max()) \
+                <= 1e-4 * float(w.abs().max()), p
+
+
+def _two_rank_mesh(r):
+    """Rank r's (1, 2) mesh as the parent sees it (for cutting whole
+    leaves to its slices)."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.collectives import AxisShard
+    return Mesh((1, 2), ("data", "model"), torch.device("cpu"), (0, r),
+                (None, AxisShard(r, 2, None, ())))
+
+
 def test_two_ranks_on_one_card_serve_a_tiny_hybrid(cuda, monkeypatch):
     """One tiny RG-LRU hybrid (R, R, local attention over a ring of 16
     slots, 8 a rank) on two ranks sharing the card: the RG-LRU on each

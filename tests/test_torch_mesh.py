@@ -42,9 +42,10 @@ and combine over two slot halves against the whole-cache plain version
 (1e-6), V as wide as K and narrower (MLA's dv < dk); a float8 exchange
 and gather between the ranks bit for bit; long_500k's serve step
 (q_offset 524,288) of the tiny sliding, hybrid and ssm families against
-the reference's; training these families still raising on the rank
-mesh, and a data axis splitting the prefill's batch; a rank that raises surfacing in the parent with its
-traceback, and no rank left running.
+the reference's; a data axis splitting the prefill's batch (training
+every family on a rank's mesh: tests/test_torch_mesh_train.py and
+tests/test_torch_mesh_train_families*.py); a rank that raises surfacing
+in the parent with its traceback, and no rank left running.
 """
 import dataclasses
 import os
@@ -473,27 +474,21 @@ def test_rope_near_524288_against_float64(pos):
 
 
 @pytest.mark.parametrize("name", ["ssm", "vlm", "encdec"])
-@pytest.mark.parametrize("what", ["train", "data axis"])
+@pytest.mark.parametrize("what", ["data axis"])
 def test_training_and_a_data_axis_still_raise_on_the_rank_mesh(
         name, what, monkeypatch):
-    """Training these families on a world of ranks still raises, citing
-    the ROADMAP item that queues it (the dense families train there:
-    tests/test_torch_mesh_train.py); a data axis above 1 no longer raises:
-    the prefill's inputs and logits are split on it."""
+    """A data axis above 1 does not raise: the prefill's inputs and logits
+    are split on it. (Training these families on a world of ranks no
+    longer raises either: tests/test_torch_mesh_train_families*.py hold
+    it.)"""
     tcfg = config_from_dict(dataclasses.asdict(TINY_FAMILIES[name]))
     cells = _cells()
     monkeypatch.setattr(TS, "get_config", lambda arch: tcfg)
-    if what == "train":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 17"):
-            TS.make_train_artifacts(_GET_CELL("qwen3-4b", "train_4k"),
-                                    _rank_mesh(0))
-    else:
-        mesh = Mesh((2, 1), ("data", "model"), torch.device("cpu"),
-                    (1, 0), (AxisShard(1, 2, None, (0, 1)), None))
-        pre = TS.make_prefill_artifacts(cells["prefill_32k"], mesh)
-        assert all(s[0] == "data" for s in pre.in_shardings[1].values())
-        assert pre.out_shardings[0] == ("data", "model")
+    mesh = Mesh((2, 1), ("data", "model"), torch.device("cpu"),
+                (1, 0), (AxisShard(1, 2, None, (0, 1)), None))
+    pre = TS.make_prefill_artifacts(cells["prefill_32k"], mesh)
+    assert all(s[0] == "data" for s in pre.in_shardings[1].values())
+    assert pre.out_shardings[0] == ("data", "model")
 
 
 def test_a_rank_that_raises_surfaces_and_no_rank_is_left():

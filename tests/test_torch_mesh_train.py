@@ -44,9 +44,10 @@ which imports no JAX. Held, at atol 1e-5 unless stated:
     world's lines, bit for bit the reference's ``quantize_int8`` /
     ``dequantize_int8`` of each participant's operand summed in axis
     order;
-  * a plane of axes: each rank's index, size and members;
-  * training another family on a rank's mesh raises, citing ROADMAP
-    queue 1 item 17.
+  * a plane of axes: each rank's index, size and members.
+
+Every other family trains on a rank's mesh too:
+tests/test_torch_mesh_train_families*.py.
 """
 import dataclasses
 import functools
@@ -478,7 +479,7 @@ def test_serving_bytes_on_a_data_axis_equal_per_chip_bytes(serving):
 
 
 # --------------------------------------------------------------------- #
-# the launcher, the compressed psums, planes, the raise that stays
+# the launcher, the compressed psums, planes
 # --------------------------------------------------------------------- #
 @pytest.mark.parametrize("shape,zero3", [((2, 1), False), ((2, 1, 2), True)])
 def test_train_launcher_on_rank_bytes_and_draw(worlds, shape, zero3):
@@ -561,12 +562,3 @@ def test_planes_of_axes(worlds, shape):
             assert data == o["axes"]["pod"]
         model = o["axes"]["model"]
         assert model[1] == 2 and r in model[2]
-
-
-@pytest.mark.parametrize("name", ["moe", "mla", "sliding", "hybrid", "ssm",
-                                  "vlm", "encdec"])
-def test_training_other_families_on_a_mesh_raises(name, monkeypatch):
-    tcfg = config_from_dict(dataclasses.asdict(TINY_FAMILIES[name]))
-    monkeypatch.setattr(TS, "get_config", lambda arch: tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
-        TS.make_train_artifacts(_cells()[1], _rank_mesh((2, 1), 0))

@@ -102,6 +102,15 @@ def test_logits_loss_and_gradients_match_reference(fam):
     _check(fam["ref"], fam["port"], fam["jp"])
 
 
+def test_chunked_loss_matches_reference(fam, monkeypatch):
+    """The float32 log-softmax taken in chunks of 3 rows under checkpoint
+    (``model._nll_sum`` at a ``LOSS_CHUNK_ELEMS`` of 3 rows; a last chunk
+    shorter): the same loss, gradients and logits as the reference's."""
+    monkeypatch.setattr(TM, "LOSS_CHUNK_ELEMS", 3 * fam["tcfg"].vocab_size)
+    _check(fam["ref"], _port(fam["tcfg"], fam["tp"], fam["batch"],
+                             remat=True), fam["jp"])
+
+
 def test_leaf_paths_are_the_reference_order(fam):
     """The port's tree flattens in ``jax.tree_util``'s order, path for path
     (``keystr``), so gradients and checkpoint leaves line up."""

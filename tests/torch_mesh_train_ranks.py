@@ -1,11 +1,12 @@
-"""What the ranks of ``tests/test_torch_mesh_train.py`` run: module-level
+"""What the ranks of ``tests/test_torch_mesh_train.py`` and
+``tests/test_torch_mesh_train_families*.py`` run: module-level
 functions, which the spawned rank processes import by name — this module
 imports nothing of JAX or of the JAX package, so neither do they.
 
 Each takes the tiny config as a dict and the port's cells, since a rank
 process starts from a fresh interpreter.
 """
-import contextlib
+import dataclasses
 import functools
 
 import torch
@@ -21,52 +22,30 @@ from repro_torch.models import collectives as C
 from repro_torch.models import model as M
 from repro_torch.training import compression as Z
 from repro_torch.training import optim as O
-from repro_torch.training import train_step as TT
 from repro_torch.training.tree import leaves_with_paths
 
 _ADAMW = O.AdamWConfig
+_DCTX = TS._dctx
 
 
-def _patch(cfg_dict, cells=None, opt=None):
+def _patch(cfg_dict, cells=None, opt=None, ctx=None):
     """The tiny config (and ``cells``) for the launch layer's builders,
-    and the train step's AdamW config: the default, or with the fields
-    ``opt`` gives (set on every call: the rank process outlives it)."""
+    the train step's AdamW config (the default, or with the fields
+    ``opt`` gives) and its distribution context (with the fields ``ctx``
+    gives, e.g. ``moe_capacity_factor``) — set on every call: the rank
+    process outlives it."""
     cfg = config_from_dict(cfg_dict)
     TS.get_config = lambda arch: cfg
     TS.AdamWConfig = functools.partial(_ADAMW, **(opt or {}))
+    TS._dctx = _DCTX if not ctx else (
+        lambda *a, **k: dataclasses.replace(_DCTX(*a, **k), **ctx))
     if cells is not None:
         TS.get_cell = TC.get_cell = lambda arch, shape: cells[shape]
     return cfg
 
 
-@contextlib.contextmanager
-def left_out(skip, mesh):
-    """A control: the reductions ``skip`` names left out inside the
-    block — ``"column_entry"`` (the column-parallel entries, whose
-    backward sums over the model axis), ``"data_grads"`` (every sum of
-    gradients over the data plane: the train step's per-leaf psum and
-    ZeRO-3's gather backward), ``"gather_back"`` (ZeRO-1's gather of the
-    updated slices)."""
-    data = mesh.axis_shard(tuple(a for a in mesh.axis_names
-                                 if a != "model"))
-    saved = (C.column_entry, C._summed, TT.reduce_grads, O.gather_back)
-    summed = C._summed
-    if "column_entry" in skip:
-        C.column_entry = lambda x, shard: x
-    if "data_grads" in skip:
-        C._summed = lambda g, shard: (g.clone() if shard == data
-                                      else summed(g, shard))
-        TT.reduce_grads = lambda grads, layout: grads
-    if "gather_back" in skip:
-        O.gather_back = lambda whole, part, dim, dp: None
-    try:
-        yield
-    finally:
-        C.column_entry, C._summed, TT.reduce_grads, O.gather_back = saved
-
-
-def _mesh(shape):
-    return make_mesh(tuple(shape), mesh_axes(shape), "cpu")
+def _mesh(shape, device="cpu"):
+    return make_mesh(tuple(shape), mesh_axes(shape), device)
 
 
 def _flat(tree):
@@ -87,47 +66,54 @@ def _cpu(tree):
                        if isinstance(x, torch.Tensor) else x, tree)
 
 
-def grads_on_rank(rank, cfg_dict, cell, shape, state, batch, skip=()):
+def grads_on_rank(rank, cfg_dict, cell, shape, state, batch, skip=(),
+                  ctx=None, on_card=False):
     """The train step's loss and the rank's reduced gradients
     (``fn.grads``) over the whole ``state`` and ``batch`` on the rank's
-    mesh of ``shape``, with the reductions ``skip`` names left out (a
-    control), keyed as the state's specs key them (".params..."); also
-    the collectives it called and the specs."""
-    _patch(cfg_dict)
-    art = TS.make_train_artifacts(cell, _mesh(shape))
+    mesh of ``shape`` (its context's fields ``ctx`` replaced; on the
+    rank's card with ``on_card``), with the collectives ``skip`` names
+    left out (a control, ``collectives.skipping``), keyed as the state's
+    specs key them (".params...", on the host); also the collectives it called and the
+    specs."""
+    _patch(cfg_dict, ctx=ctx)
+    art = TS.make_train_artifacts(
+        cell, _mesh(shape, rank.device if on_card else "cpu"))
     C.reset_stats()
-    with left_out(skip, art.mesh):
+    with C.skipping(*skip):
         loss, grads = art.fn.grads(state, batch)
     return {"loss": float(loss),
-            "grads": {".params" + p: x for p, x in _flat(grads).items()},
+            "grads": {".params" + p: x.cpu()
+                      for p, x in _flat(grads).items()},
             "collectives": C.stats(), "specs": art.in_shardings[0]}
 
 
 def steps_on_rank(rank, cfg_dict, cell, shape, state, batches, opt=None,
-                  skip=()):
-    """The train step (AdamW with the fields ``opt`` gives) over each of
-    ``batches`` in turn from the whole ``state``, the reductions ``skip``
-    names left out (a control): each step's metrics and the rank's final
-    state (its parameters, ZeRO-1 moment slices and step) with the
-    specs."""
-    _patch(cfg_dict, opt=opt)
+                  skip=(), ctx=None):
+    """The train step (AdamW with the fields ``opt`` gives; the context's
+    fields ``ctx`` replaced) over each of ``batches`` in turn from the
+    whole ``state``, the collectives ``skip`` names left out (a control,
+    ``collectives.skipping``):
+    each step's metrics and the rank's final state (its parameters,
+    ZeRO-1 moment slices and step) with the specs."""
+    _patch(cfg_dict, opt=opt, ctx=ctx)
     art = TS.make_train_artifacts(cell, _mesh(shape))
     metrics, state = [], _own(state)
     for b in batches:
-        with left_out(skip, art.mesh):
+        with C.skipping(*skip):
             state, m = art.fn(state, b)
         metrics.append({k: float(v) for k, v in m.items()})
     return {"metrics": metrics, "state": _flat(state),
             "specs": art.in_shardings[0]}
 
 
-def launcher_on_rank(rank, cfg_dict, cells, batch, n_micro, shape):
+def launcher_on_rank(rank, cfg_dict, cells, batch, n_micro, shape,
+                     ctx=None):
     """``launch.train.steps_on_rank`` — what ``python -m
     repro_torch.launch.train --mesh DxM [--multi-pod]`` runs on each rank
     — under the tiny config and cells, one warmup and one timed step;
     also the rank's parameters as drawn (``train_state_on_rank``) with
     their specs."""
-    _patch(cfg_dict, cells)
+    _patch(cfg_dict, cells, ctx=ctx)
     rec = train.steps_on_rank(rank, "qwen3-4b", batch, n_micro, 1, None, 0,
                               shape)
     art, state = train.train_state_on_rank("qwen3-4b", batch, n_micro, None,
